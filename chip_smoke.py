@@ -4,11 +4,15 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the CUDA version.
-2. Builds the hand-written kernels from ``mia_tpu_torch/csrc`` with nvcc.
+2. Builds the hand-written kernels from ``mia_tpu_torch/csrc`` with nvcc
+   (one nvcc per source, in parallel, then one link).
 3. Kernel phase: holds K1 (the affine-warp kernel) against its plain PyTorch
    version on the card — 60 recipe-range matrices at (12, 256, 256, 4), the
-   identity, an all-out-of-source map and odd shapes — bit for bit, and
-   times both with CUDA events.
+   identity, an all-out-of-source map and odd shapes — bit for bit; and K2,
+   K3, K4 (windowed and global rel-pos attention, LayerNorm + window
+   partition) against theirs at the ViT-B/512 serving shapes for batch 1 and
+   8, a 20x27 token grid and 4096 global tokens, within 1e-5 of max |plain|.
+   Times each kernel and its plain version in turns with CUDA events.
 4. Slice phase: writes a synthetic FUGC dataset (48/8/8 PNGs at 336x544)
    and runs ``al_train_torch``'s ``train_entry`` with the README's FUGC flags
    at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 30
@@ -19,7 +23,15 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    convolutions). Prints the loader's host decode path (native uint8 or
    PIL float32) and the bytes each train batch shipped, beside the step
    and round times that depend on them.
-5. Prints one JSON line with the kernels, then the result line
+5. SAM phase: builds ``sam_model_registry["vit_b"](512, 3)`` with seeded
+   random weights on ``cuda`` and serves a seeded 480x640 uint8 frame
+   through ``SamPredictor``: ``set_image``, ``predict`` with a point, a box,
+   and point + box + the previous low-res mask, ``predict_batch`` with 16
+   point prompts. Checks shapes, finite values, 8 K2, 4 K3 and 8 K4 launches
+   per ``set_image``, and the embedding, masks and iou on the card against
+   the same weights on the CPU. Prints the latencies and the encoder's
+   img/s at batch 8.
+6. Prints one JSON line with the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -41,8 +53,18 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-K1_SOURCE = "mia_tpu_torch/csrc/affine_warp.cu"
-K1_REPLACES = "mia_tpu/ops/warp.py:300"  # affine_warp_pallas
+# name, source, TPU kernel it replaces (function reaching pl.pallas_call)
+KERNELS = {
+    "K1": ("affine_warp_shift2pass (K1)", "mia_tpu_torch/csrc/affine_warp.cu",
+           "mia_tpu/ops/warp.py:300"),
+    "K2": ("fused_attention_rel_packed_ik (K2)", "mia_tpu_torch/csrc/attention_rel.cu",
+           "mia_tpu/ops/attention.py:923"),
+    "K3": ("fused_attention_rel_packed (K3)", "mia_tpu_torch/csrc/attention_rel.cu",
+           "mia_tpu/ops/attention.py:605"),
+    "K4": ("ln_window_partition (K4)", "mia_tpu_torch/csrc/ln_window.cu",
+           "mia_tpu/ops/ln_window.py:230"),
+}
+KERNEL_TOL = 1e-5  # max |kernel - plain| over max |plain|, float32
 
 
 class SmokeFailure(RuntimeError):
@@ -324,6 +346,252 @@ def slice_phase(torch, workdir: Path):
           f"{tf32_err:.3g} (TF32 convs), max |logit| {scale:.3g}")
     return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path()}
 
+# ---------------------------------------------------------------------------
+# K2, K3, K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def sam_kernel_phase(torch, device):
+    from mia_tpu_torch.ops import attention, ln_window
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return scale * torch.randn(shape, generator=gen, device=device) + shift
+
+    heads, d, ws, c = 12, 64, 14, 768
+    scale = d ** -0.5
+    worst = {k: [0.0, 0.0] for k in ("K2", "K3", "K4")}  # max abs err, max relative err
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{name} {label}: shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
+        err = (got - want).abs().max().item()
+        ref = want.abs().max().item()
+        check(err <= KERNEL_TOL * ref,
+              f"{name} {label}: max |kernel - plain| {err} > {KERNEL_TOL} x max |plain| {ref}")
+        worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
+
+    ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
+    rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
+    inputs = {}
+    for label, grid_shape, n_win in (("B=1", (1, 32, 32, c), 9), ("B=8", (8, 32, 32, c), 72),
+                                     ("grid 20x27", (2, 20, 27, c), 8)):
+        x = randn(*grid_shape)
+        got = ln_window._launch_k4(x, ln_scale, ln_bias, ws, 1e-6)
+        want = ln_window.ln_window_partition(x, ln_scale, ln_bias, ws)
+        hold("K4", label, got, want)
+        check(not got[want == 0].any(), f"K4 {label}: pad slots are not zero")
+        qkv = randn(n_win, ws * ws, 3 * heads * d)
+        hold("K2", label, attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads),
+             attention.attention_rel_packed_ik(qkv, rh, rw, scale, (ws, ws), heads))
+        inputs[("K4", label)] = (x, ln_scale, ln_bias, ws, 1e-6)
+        inputs[("K2", label)] = (qkv, rh, rw, scale, (ws, ws), heads)
+    for label, b, side in (("B=1", 1, 32), ("B=8", 8, 32), ("4096 tokens", 1, 64)):
+        n = side * side
+        qkv = randn(b, n, 3 * heads * d)
+        rel_h, rel_w = randn(b * heads, n, side), randn(b * heads, n, side)
+        args = (qkv, rel_h, rel_w, scale, (side, side), heads)
+        hold("K3", label, attention._launch_k3(*args), attention.attention_rel_packed(*args))
+        inputs[("K3", label)] = args
+
+    fns = {"K2": (attention._launch_k2, attention.attention_rel_packed_ik),
+           "K3": (attention._launch_k3, attention.attention_rel_packed),
+           "K4": (ln_window._launch_k4, ln_window.ln_window_partition)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        for label in ("B=1", "B=8"):
+            args = inputs[(name, label)]
+            per_block = 50 if label == "B=1" else 10
+            plain_a = time_ms(lambda: plain(*args), torch, per_block=per_block)
+            k_a = time_ms(lambda: kernel(*args), torch, per_block=per_block)
+            k_b = time_ms(lambda: kernel(*args), torch, per_block=per_block)
+            plain_b = time_ms(lambda: plain(*args), torch, per_block=per_block)
+            print(f"{name} at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, "
+                  f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
+                  f"(median of 11 x {per_block} launches)")
+            if label == "B=1":
+                out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
+                             "plain_ms": min(plain_a, plain_b)}
+        print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
+              f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SAM phase
+# ---------------------------------------------------------------------------
+
+
+def sam_frame(np, seed=0, size=(480, 640)):
+    """Seeded uint8 RGB frame: smooth shading, a bright ellipse, noise."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 90.0 + 50.0 * np.sin(xx / 37.0) * np.cos(yy / 29.0)
+    blob = ((yy - 0.45 * h) / (0.2 * h)) ** 2 + ((xx - 0.55 * w) / (0.18 * w)) ** 2 <= 1.0
+    img = base[..., None] + 90.0 * blob[..., None] + rng.normal(0.0, 12.0, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def median_s(fn, torch, n, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def sam_phase(torch, device):
+    import copy
+
+    import numpy as np
+
+    from mia_tpu_torch.device import set_compute_precision
+    from mia_tpu_torch.models.sam import SamPredictor, sam_model_registry
+    from mia_tpu_torch.ops import attention, ln_window
+    from mia_tpu_torch.ops.resize import _resize_matrix
+
+    set_compute_precision("float32")
+    torch.manual_seed(0)
+    cpu_model, embed_size = sam_model_registry["vit_b"](512, 3)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # the reference initialises these at zero
+        for name, p in cpu_model.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif name.endswith("pos_embed"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    model = copy.deepcopy(cpu_model).to(device)
+    enc = model.image_encoder
+    check(embed_size == 32 and len(enc.blocks) == 12 and enc.blocks[0].attn.qkv.in_features == 768,
+          "not the ViT-B/512 SAM")
+    check(all(p.device.type == "cuda" for p in model.parameters()), "SAM parameters not on CUDA")
+
+    image = sam_frame(np)
+    point, label = np.array([[352.0, 216.0]]), np.array([1])
+    box = np.array([220.0, 110.0, 500.0, 330.0])
+    coords16 = np.random.default_rng(5).uniform([0, 0], [640, 480], (16, 1, 2))
+    labels16 = np.ones((16, 1), np.int64)
+    counters = {"K2": attention.fused_attention_rel_packed_ik,
+                "K3": attention.fused_attention_rel_packed,
+                "K4": ln_window.ln_window_partition_fused}
+
+    # --- the main path, counted --------------------------------------------
+    predictor = SamPredictor(model)
+    for fn in counters.values():
+        fn.launches = 0
+    predictor.set_image(image)
+    torch.cuda.synchronize()
+    per_set_image = {k: fn.launches for k, fn in counters.items()}
+    outs = {"point": predictor.predict(point_coords=point, point_labels=label)}
+    outs["box"] = predictor.predict(box=box)
+    best = int(np.argmax(outs["point"][1]))
+    outs["point+box+mask"] = predictor.predict(
+        point_coords=point, point_labels=label, box=box, mask_input=outs["point"][2][best][None])
+    batch = predictor.predict_batch(coords16, labels16)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(per_set_image == {"K2": 8, "K3": 4, "K4": 8},
+          f"kernel launches per set_image {per_set_image}, expected 8 K2, 4 K3, 8 K4")
+    check(launches == per_set_image, f"predict launched encoder kernels: {launches}")
+    for name, (masks, iou, low) in outs.items():
+        check(masks.shape == (3, 480, 640) and masks.dtype == bool, f"{name}: masks {masks.shape}")
+        check(iou.shape == (3,) and low.shape == (3, 128, 128), f"{name}: iou/low-res shapes")
+        check(bool(np.isfinite(iou).all() and np.isfinite(low).all()), f"{name}: non-finite")
+    check(batch[0].shape == (16, 3, 480, 640) and batch[1].shape == (16, 3)
+          and batch[2].shape == (16, 3, 128, 128), "predict_batch shapes")
+    check(bool(np.isfinite(batch[1]).all() and np.isfinite(batch[2]).all()),
+          "predict_batch: non-finite")
+    emb = predictor.get_image_embedding()
+    check(emb.device.type == "cuda" and emb.shape == (1, 32, 32, 256), "embedding not on the card")
+
+    # --- the card against the CPU, same weights ----------------------------
+    # the resized, uint8-truncated input may differ by one step where the
+    # exact resize lies at an integer and float32 summation order decides
+    cpu_predictor = SamPredictor(cpu_model)
+    x_card = predictor._input_image(image).cpu()
+    x_cpu = cpu_predictor._input_image(image)
+    (h_in, w_in), (h0, w0) = predictor.input_size, image.shape[:2]
+    exact = np.einsum("ow,hwc->hoc", _resize_matrix(w_in, w0, "bilinear", True).astype(np.float64),
+                      np.einsum("oh,hwc->owc",
+                                _resize_matrix(h_in, h0, "bilinear", True).astype(np.float64),
+                                image.astype(np.float64)))
+    differ = (x_card != x_cpu)[0].numpy()
+    flips = int(differ.sum())
+    at_integer = np.abs(exact - np.round(exact)) < 1e-3
+    check((x_card - x_cpu).abs().max().item() <= 1 and not (differ & ~at_integer).any(),
+          f"resized uint8 input: {flips} values differ between card and CPU, not all at "
+          "an integer of the exact resize")
+    cpu_predictor.set_image(image)  # features from x_cpu
+    emb_cpu = cpu_predictor.get_image_embedding()
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False  # full float32: the math, not TF32
+        with torch.inference_mode():
+            emb_fp32 = model.get_image_embeddings(x_cpu.to(device))
+        predictor.features = emb_fp32  # both predictors now decode from one input
+        calls = {
+            "point": lambda p, **k: p.predict(point_coords=point, point_labels=label, **k),
+            "box": lambda p, **k: p.predict(box=box, **k),
+            "predict_batch": lambda p, **k: p.predict_batch(coords16, labels16, **k),
+        }
+        logit_err, iou_err, bit_flips = 0.0, 0.0, 0
+        for name, call in calls.items():
+            want, want_iou, _ = call(cpu_predictor, return_logits=True)
+            got, got_iou, _ = call(predictor, return_logits=True)
+            ref = max(1.0, float(np.abs(want).max()))
+            tol = 1e-4 * ref
+            err = float(np.abs(got - want).max())
+            ierr = float(np.abs(got_iou - want_iou).max())
+            check(err <= tol, f"{name}: mask logits card vs CPU differ by {err} > {tol}")
+            check(ierr <= 1e-4 * max(1.0, float(np.abs(want_iou).max())),
+                  f"{name}: iou card vs CPU differ by {ierr}")
+            bits_want, bits_got = call(cpu_predictor)[0], call(predictor)[0]
+            confident = np.abs(want) > 2 * tol
+            check(np.array_equal(bits_got[confident], bits_want[confident]),
+                  f"{name}: mask bits differ where |logit| > {2 * tol}")
+            logit_err, iou_err = max(logit_err, err / ref), max(iou_err, ierr)
+            bit_flips += int((bits_got != bits_want).sum())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    with torch.inference_mode():
+        emb_tf32 = model.get_image_embeddings(x_cpu.to(device))
+    scale = emb_cpu.abs().max().item()
+    fp32_err = (emb_fp32.cpu() - emb_cpu).abs().max().item()
+    tf32_err = (emb_tf32.cpu() - emb_cpu).abs().max().item()
+    check(bool(torch.isfinite(emb_tf32).all()), "embedding not finite")
+    check(fp32_err <= 1e-4 * scale, f"float32 embedding card vs CPU differs by {fp32_err} (scale {scale})")
+    check(tf32_err <= 2e-2 * scale, f"TF32 embedding card vs CPU differs by {tf32_err} (scale {scale})")
+
+    # --- latency -----------------------------------------------------------
+    set_s = median_s(lambda: predictor.set_image(image), torch, n=20)
+    predict_s = median_s(lambda: predictor.predict(point_coords=point, point_labels=label),
+                         torch, n=20)
+    batch_s = median_s(lambda: predictor.predict_batch(coords16, labels16), torch, n=10)
+    x8 = predictor._input_image(image).expand(8, -1, -1, -1).contiguous()
+    with torch.inference_mode():
+        enc_s = median_s(lambda: model.get_image_embeddings(x8), torch, n=5)
+
+    print(f"sam: ViT-B/512 SamPredictor on {image.shape[1]}x{image.shape[0]} frames "
+          f"(input 512x384, padded); launches per set_image {per_set_image}")
+    print(f"sam: set_image median {set_s * 1e3:.2f} ms; predict (1 point) {predict_s * 1e3:.2f} ms; "
+          f"predict_batch (16 points) {batch_s * 1e3:.2f} ms; encoder at batch 8 "
+          f"{enc_s * 1e3:.2f} ms ({8 / enc_s:.1f} img/s); TF32 convolutions, float32 matmuls")
+    print(f"sam: card vs CPU: embedding max |diff| {fp32_err:.3g} (float32), {tf32_err:.3g} "
+          f"(TF32 convs), max |emb| {scale:.3g}; mask logits relative {logit_err:.3g}, iou "
+          f"{iou_err:.3g}, {bit_flips} mask bits flipped near 0; resized input values "
+          f"one step apart at an exact integer: {flips} of {differ.size}")
+    return {"launches": launches, "set_image_ms": set_s * 1e3, "predict_ms": predict_s * 1e3,
+            "predict_batch_ms": batch_s * 1e3, "encoder_img_per_s_b8": 8 / enc_s}
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -336,8 +604,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA GPU is required",
               file=sys.stderr)
         return 2
-    if not (HERE / K1_SOURCE).is_file():
-        print(f"chip_smoke: {K1_SOURCE} not found next to this script; run it from a "
+    missing = [src for _, src, _ in KERNELS.values() if not (HERE / src).is_file()]
+    if missing:
+        print(f"chip_smoke: {missing} not found next to this script; run it from a "
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
@@ -361,26 +630,28 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"kernels built and loaded in {build_s:.2f} s")
 
-    k1 = kernel_phase(torch, device)
+    measured = {"K1": kernel_phase(torch, device), **sam_kernel_phase(torch, device)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = slice_phase(torch, Path(tmp))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(sl["log"], args.out / "chip_smoke_train_log.txt")
+    sam = sam_phase(torch, device)
+    launches = {"K1": sl["launches"], **sam["launches"]}
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
                       or m.startswith(("jax.", "mia_tpu.")))
     check(not imported, f"JAX or the JAX package was imported: {imported}")
 
     kernels = {"kernels": [{
-        "name": "affine_warp_shift2pass (K1)",
+        "name": name,
         "route": "cuda",
-        "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": sl["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[key],
+        "max_abs_err": measured[key]["max_abs_err"],
+        "ms": measured[key]["ms"],
+        "plain_ms": measured[key]["plain_ms"],
+    } for key, (name, source, replaces) in KERNELS.items()]}
     result = {"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -388,8 +659,9 @@ def main(argv=None) -> int:
     }}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(
-            json.dumps({"card": card, "host_decode": sl["host_decode"], **kernels, **result},
-                       indent=1))
+            json.dumps({"card": card, "host_decode": sl["host_decode"],
+                        "sam": {k: v for k, v in sam.items() if k != "launches"},
+                        **kernels, **result}, indent=1))
     print(card)
     print(json.dumps(kernels))
     print(json.dumps(result))

@@ -1,0 +1,111 @@
+"""SAM mask decoder (counterpart of ``mia_tpu/models/sam/mask_decoder.py``,
+plain 2-stage ``MaskDecoder`` only). Channel-last; parameters carry the
+reference names (``iou_token.weight``, ``output_upscaling.{0,1,3}``,
+``output_hypernetworks_mlps.{i}.layers.{j}``, ``iou_prediction_head``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import LayerNorm2d
+
+
+class MLP(nn.Module):
+    """Three Linear layers with ReLU between them."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int):
+        super().__init__()
+        dims = (input_dim, hidden_dim, hidden_dim, output_dim)
+        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x
+
+
+def _conv_transpose2x(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
+    """k=2/s=2 transposed convolution of channel-last ``(B, H, W, C)`` as one
+    GEMM: ``y[2i+di, 2j+dj] = x[i, j] · W[:, :, di, dj] + b``."""
+    b, h, w, c = x.shape
+    f = conv.out_channels
+    y = x.reshape(b * h * w, c) @ conv.weight.permute(0, 2, 3, 1).reshape(c, 4 * f)
+    y = y.view(b, h, w, 2, 2, f).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, f)
+    return y + conv.bias
+
+
+class _Upscaler(nn.Sequential):
+    """Two k2/s2 transposed-conv stages (4x): the first with LayerNorm2d,
+    both followed by exact GELU."""
+
+    def __init__(self, transformer_dim: int):
+        d = transformer_dim
+        super().__init__(
+            nn.ConvTranspose2d(d, d // 4, 2, stride=2),
+            LayerNorm2d(d // 4),
+            nn.GELU(),
+            nn.ConvTranspose2d(d // 4, d // 8, 2, stride=2),
+            nn.GELU(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up0, norm0, _, up1, _ = self
+        x = F.gelu(norm0(_conv_transpose2x(x, up0)))
+        return F.gelu(_conv_transpose2x(x, up1))
+
+
+class _DecoderCore(nn.Module):
+    """Tokens, upscaler, hypernetwork MLPs and IoU head; ``predict`` returns
+    all mask tokens."""
+
+    def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3):
+        super().__init__()
+        self.transformer_dim = transformer_dim
+        self.transformer = transformer
+        self.num_mask_tokens = num_multimask_outputs + 1
+        self.iou_token = nn.Embedding(1, transformer_dim)
+        self.mask_tokens = nn.Embedding(self.num_mask_tokens, transformer_dim)
+        self.output_upscaling = _Upscaler(transformer_dim)
+        self.output_hypernetworks_mlps = nn.ModuleList(
+            MLP(transformer_dim, transformer_dim, transformer_dim // 8)
+            for _ in range(self.num_mask_tokens)
+        )
+        self.iou_prediction_head = MLP(transformer_dim, 256, self.num_mask_tokens)
+
+    def predict(self, image_embeddings, image_pe, sparse_prompt, dense_prompt):
+        """image_embeddings ``(1 or B, H, W, C)`` → masks ``(B, 4H, 4W, T)``,
+        iou ``(B, T)``, upscaled features ``(B, 4H, 4W, C/8)``."""
+        bs = sparse_prompt.shape[0]
+        output_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
+        tokens = torch.cat([output_tokens[None].expand(bs, -1, -1), sparse_prompt], dim=1)
+
+        src = image_embeddings + dense_prompt
+        b, h, w, c = src.shape
+        pos_src = image_pe.expand(b, -1, -1, -1)
+        hs, src = self.transformer(src, pos_src, tokens)
+        iou_token_out = hs[:, 0, :]
+        mask_tokens_out = hs[:, 1: 1 + self.num_mask_tokens, :]
+
+        upscaled = self.output_upscaling(src.reshape(b, h, w, c))
+        hyper_in = torch.stack(
+            [mlp(mask_tokens_out[:, i, :]) for i, mlp in enumerate(self.output_hypernetworks_mlps)],
+            dim=1,
+        )
+        masks = torch.einsum("btc,bhwc->bhwt", hyper_in, upscaled)
+        return masks, self.iou_prediction_head(iou_token_out), upscaled
+
+
+class MaskDecoder(_DecoderCore):
+    """Plain SAM decoder: multimask output drops token 0, single output keeps it."""
+
+    def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
+                dense_prompt_embeddings, multimask_output: bool):
+        masks, iou_pred, _ = self.predict(
+            image_embeddings, image_pe, sparse_prompt_embeddings, dense_prompt_embeddings
+        )
+        mask_slice = slice(1, None) if multimask_output else slice(0, 1)
+        return masks[..., mask_slice], iou_pred[:, mask_slice]

@@ -1,0 +1,85 @@
+"""Weight bridge flax → torch for the plain SAM.
+
+``sam_state_dict_from_flax(variables)`` turns the JAX ``Sam``'s params
+(numpy arrays) into a state dict under the reference SAM parameter names,
+loadable by :class:`mia_tpu_torch.models.sam.Sam` with ``strict=True``:
+
+- Dense kernel ``(in, out)`` → Linear weight ``(out, in)``;
+- Conv kernel HWIO → weight OIHW; the patch embed's ``(P, P, C, D)``
+  kernel → ``patch_embed.proj.weight`` ``(D, C, P, P)``;
+- the upscaler's transposed-conv kernel ``(2, 2, I, O)`` → weight
+  ``(I, O, 2, 2)``, spatially flipped (``y[2i+di] = x·K[1-di]`` in the JAX
+  package, ``x·W[di]`` in torch);
+- LayerNorm ``scale`` → ``weight``; token and prompt tables → Embedding
+  weights (``point_embeddings`` ``(4, C)`` → four ``(1, C)``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+# flax path (after "/"-joining) → reference module path, applied in order
+_RENAMES = (
+    (r"^image_encoder/block(\d+)/", r"image_encoder/blocks/\1/"),
+    (r"^image_encoder/patch_embed/", "image_encoder/patch_embed/proj/"),
+    (r"^image_encoder/neck_conv1/", "image_encoder/neck/0/"),
+    (r"^image_encoder/neck_norm1/", "image_encoder/neck/1/"),
+    (r"^image_encoder/neck_conv2/", "image_encoder/neck/2/"),
+    (r"^image_encoder/neck_norm2/", "image_encoder/neck/3/"),
+    (r"/mask_downscaling/conv1/", "/mask_downscaling/0/"),
+    (r"/mask_downscaling/norm1/", "/mask_downscaling/1/"),
+    (r"/mask_downscaling/conv2/", "/mask_downscaling/3/"),
+    (r"/mask_downscaling/norm2/", "/mask_downscaling/4/"),
+    (r"/mask_downscaling/conv3/", "/mask_downscaling/6/"),
+    (r"^mask_decoder/core/", "mask_decoder/"),
+    (r"/output_upscaling/up0/", "/output_upscaling/0/"),
+    (r"/output_upscaling/norm0/", "/output_upscaling/1/"),
+    (r"/output_upscaling/up1/", "/output_upscaling/3/"),
+    (r"/hyper_mlp(\d+)/", r"/output_hypernetworks_mlps/\1/"),
+    (r"/iou_head/", "/iou_prediction_head/"),
+    (r"/layers_(\d+)/", r"/layers/\1/"),
+    (r"^mask_decoder/transformer/layer(\d+)/", r"mask_decoder/transformer/layers/\1/"),
+    (r"/(iou_token|mask_tokens|not_a_point_embed|no_mask_embed)$", r"/\1/weight"),
+    (r"/scale$", "/weight"),
+)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v, np.float32)
+    return out
+
+
+def _convert(path: str, leaf: np.ndarray) -> np.ndarray:
+    if not path.endswith("/kernel"):
+        return leaf
+    if leaf.ndim == 2:  # Dense
+        return leaf.T
+    if "/output_upscaling/" in path:  # transposed conv, taps flipped
+        return leaf[::-1, ::-1].transpose(2, 3, 0, 1)
+    return leaf.transpose(3, 2, 0, 1)  # conv HWIO → OIHW
+
+
+def sam_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax ``Sam`` variables (``{"params": ...}``) → reference-named state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(variables["params"]).items():
+        leaf = _convert(path, leaf)
+        if path == "prompt_encoder/point_embeddings":
+            for i in range(leaf.shape[0]):
+                sd[f"prompt_encoder.point_embeddings.{i}.weight"] = torch.tensor(leaf[i: i + 1])
+            continue
+        name = re.sub(r"/kernel$", "/weight", path)
+        for pattern, repl in _RENAMES:
+            name = re.sub(pattern, repl, name)
+        sd[name.replace("/", ".")] = torch.tensor(np.ascontiguousarray(leaf))
+    return sd

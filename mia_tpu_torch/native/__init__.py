@@ -4,9 +4,10 @@ The same C++ source and the same ``load_batch`` entry point that
 ``mia_tpu/native`` binds, bound here so that the port imports nothing of
 the JAX package. The library is compiled with g++ at first use into
 ``build/mia_tpu_torch/`` (named by a hash of the source); when it cannot
-be built (no g++, or no libpng/libjpeg headers) ``is_available()`` is
-False, ``unavailable_reason()`` says why, and the loader decodes with PIL
-into float32 images instead (``data.loader.decode_path()`` names the mode
+be built or loaded (no g++, no libpng/libjpeg headers, or a cached build
+whose libraries this machine lacks) ``is_available()`` is False,
+``unavailable_reason()`` says why, and the loader decodes with PIL into
+float32 images instead (``data.loader.decode_path()`` names the mode
 in use; the trainer logs it).
 """
 
@@ -49,7 +50,10 @@ def _load() -> tuple[ctypes.CDLL | None, str | None]:
             tmp.unlink(missing_ok=True)
             return None, f"g++ failed: {e}"
         os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:  # e.g. built on another machine against a missing libpng
+        return None, f"cannot load {path.name}: {e}"
     lib.load_batch.restype = ctypes.c_int
     lib.load_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``mia_tpu_torch/csrc``.
 
 The kernels have a plain C interface (no PyTorch headers), so ``nvcc``
-compiles all of ``csrc/*.cu`` into one shared library in seconds, and
-``ctypes`` loads it. The library lands in ``build/mia_tpu_torch/`` at the
+compiles each of ``csrc/*.cu`` in seconds, all sources at once in parallel,
+then links them into one shared library, which ``ctypes`` loads. The library lands in ``build/mia_tpu_torch/`` at the
 repository root, named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is reused. Nothing is built or
 loaded at import time; the first kernel launch builds. A failed build
@@ -23,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mia_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -55,17 +55,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmia_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the stderr of each that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def _build(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    stem = out.with_suffix(f".{os.getpid()}")
+    objs = [Path(f"{stem}.{src.stem}.o") for src in _sources()]
+    tmp = Path(f"{stem}.tmp")
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,10 +1,11 @@
-"""Separable resize matrices (numpy, host-side).
+"""Separable resize: ``(out, in)`` matrices built with numpy, applied on the
+device as two matmuls.
 
 Copied from ``mia_tpu/ops/resize.py`` (``_nearest_index``,
-``_resize_matrix``), whose module imports JAX. The eval pipeline applies
-these ``(out, in)`` matrices on the device as two matmuls, with semantics
-of torchvision ``F.resize``: antialiased (PIL-style triangle) or plain
-bilinear, asymmetric nearest, nearest-exact.
+``_resize_matrix``, ``resize``), whose module imports JAX. Semantics of
+torchvision ``F.resize``: antialiased (PIL-style triangle) or plain
+bilinear, asymmetric nearest, nearest-exact. Arrays are channel-last,
+``(..., H, W, C)``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 def _nearest_index(out_size: int, in_size: int, exact: bool) -> np.ndarray:
@@ -57,3 +59,24 @@ def _resize_matrix(
     row_sum = w.sum(axis=1, keepdims=True)
     row_sum[row_sum == 0] = 1.0
     return (w / row_sum).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_matrix(out_size: int, in_size: int, method: str, antialias: bool,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_resize_matrix(out_size, in_size, method, antialias)).to(device)
+
+
+def resize(image: torch.Tensor, size, method: str = "bilinear", antialias: bool = True) -> torch.Tensor:
+    """Resize ``(..., H, W, C)`` to ``(..., size[0], size[1], C)`` on the
+    image's device: a float32 matmul over H with the ``(out, in)`` matrix,
+    then one over W (cast back to a floating input dtype)."""
+    out_h, out_w = int(size[0]), int(size[1])
+    in_h, in_w = image.shape[-3], image.shape[-2]
+    if (in_h, in_w) == (out_h, out_w):
+        return image
+    mh = _device_matrix(out_h, in_h, method, antialias, image.device)
+    mw = _device_matrix(out_w, in_w, method, antialias, image.device)
+    x = torch.einsum("oh,...hwc->...owc", mh, image.to(torch.float32))
+    x = torch.einsum("ow,...hwc->...hoc", mw, x)
+    return x.to(image.dtype) if image.dtype.is_floating_point else x

@@ -16,6 +16,7 @@ channel-last, with the batch written out instead of ``vmap``: images
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -116,6 +117,7 @@ def affine_warp_shift2pass(images: torch.Tensor, matrices: torch.Tensor) -> torc
 _K1_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+@functools.cache
 def _k1_function():
     fn = load_library().mia_affine_warp_shift2pass_f32
     fn.argtypes = _K1_ARGTYPES

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 never runs on the CPU unless asked to, never counts a kernel launch on
-CPU tensors, and names the host decode path it takes."""
+CPU tensors, never launches a kernel on one, and names the host decode
+path it takes."""
 
 import subprocess
 import sys
@@ -14,7 +15,8 @@ from mia_tpu_torch import native
 from mia_tpu_torch.data import BatchLoader, FUGCDataset, decode_path
 from mia_tpu_torch.device import resolve_device
 from mia_tpu_torch.entry.activelearning.train import parse_args, train_entry
-from mia_tpu_torch.ops.warp import affine_warp_shift2pass_fused
+from mia_tpu_torch.ops import attention, ln_window
+from mia_tpu_torch.ops.warp import _launch_k1, affine_warp_shift2pass_fused
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tests"))
@@ -23,9 +25,11 @@ from synth_data import make_fugc  # noqa: E402
 
 def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
     # the pytest process has JAX from conftest.py, hence a fresh interpreter,
-    # which also drives two tiny AL rounds through the entry point
+    # which also drives two tiny AL rounds through the entry point and
+    # serves a tiny SAM on the CPU
     code = f"""
 import dataclasses, sys
+import numpy as np
 sys.path.insert(0, "tests")
 from synth_data import make_fugc
 from mia_tpu_torch.entry.activelearning.train import train_entry
@@ -40,6 +44,13 @@ train_entry(["--work-path", {str(tmp_path)!r}, "--data-path", {str(tmp_path / "d
              "--num-rounds", "2", "--budget", "2", "--num-iters", "2",
              "--valid-freq-iter", "1", "--active-selector", "entropy",
              "--do-augment", "--do-normalize", "--quiet"])
+from mia_tpu_torch.models.sam import Sam, SamPredictor
+predictor = SamPredictor(Sam(img_size=64, num_classes=3, encoder_embed_dim=32, encoder_depth=2,
+                             encoder_num_heads=2, encoder_global_attn_indexes=(1,)), max_points=4)
+predictor.set_image((np.random.default_rng(0).random((48, 56, 3)) * 255).astype(np.uint8))
+masks, iou, low_res = predictor.predict(point_coords=np.array([[20.0, 30.0]]),
+                                        point_labels=np.array([1]))
+assert masks.shape == (3, 48, 56) and iou.shape == (3,) and low_res.shape == (3, 16, 16)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mia_tpu") or m.startswith(("jax.", "flax", "optax", "mia_tpu.")))
 assert not bad, bad
@@ -71,6 +82,35 @@ def test_k1_counter_stays_zero_on_cpu_tensors():
     out = affine_warp_shift2pass_fused(img, mats)
     assert out.shape == img.shape
     assert affine_warp_shift2pass_fused.launches == 0
+
+
+def test_k2_k3_k4_counters_stay_zero_on_cpu_tensors():
+    x = torch.rand(1, 9, 11, 16)
+    windows = ln_window.ln_window_partition_fused(x, torch.ones(16), torch.zeros(16), 4)
+    assert windows.shape == (9, 4, 4, 16)
+    qkv = torch.rand(9, 16, 3 * 2 * 8)
+    tab = torch.rand(16, 8)
+    assert attention.fused_attention_rel_packed_ik(qkv, tab, tab, 0.3, (4, 4), 2).shape == (9, 16, 16)
+    rel = torch.rand(18, 16, 4)
+    assert attention.fused_attention_rel_packed(qkv, rel, rel, 0.3, (4, 4), 2).shape == (9, 16, 16)
+    assert ln_window.ln_window_partition_fused.launches == 0
+    assert attention.fused_attention_rel_packed_ik.launches == 0
+    assert attention.fused_attention_rel_packed.launches == 0
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_kernel_launchers_raise_on_cpu_tensors(kernel):
+    qkv, tab, rel = torch.rand(1, 16, 3 * 2 * 16), torch.rand(16, 16), torch.rand(2, 16, 4)
+    idx = torch.zeros(1, 8, dtype=torch.int32)
+    launch = {
+        "K1": lambda: _launch_k1(torch.rand(1, 8, 8, 4), idx, idx, idx, idx),
+        "K2": lambda: attention._launch_k2(qkv, tab, tab, 0.25, (4, 4), 2),
+        "K3": lambda: attention._launch_k3(qkv, rel, rel, 0.25, (4, 4), 2),
+        "K4": lambda: ln_window._launch_k4(torch.rand(1, 8, 8, 16), torch.ones(16),
+                                           torch.zeros(16), 4, 1e-6),
+    }[kernel]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch()
 
 
 @pytest.mark.parametrize("native_builds", [True, False])
