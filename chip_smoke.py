@@ -13,6 +13,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    partition) against theirs at the ViT-B/512 serving shapes for batch 1 and
    8, a 20x27 token grid and 4096 global tokens, within 1e-5 of max |plain|.
    Times each kernel and its plain version in turns with CUDA events.
+   Training kernels: the backward kernels of K2, K3 and K4 against their
+   plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
+   1e-4 of max |plain| for each output, and K5 (connected components, 16
+   sweeps) bit for bit on 3 x 12 x 4 class masks of 64x64 pseudo-labels
+   (blob, speckled, empty, full) and on a 512x512 stack; timed the same way.
 4. Slice phase: writes a synthetic FUGC dataset (48/8/8 PNGs at 336x544)
    and runs ``al_train_torch``'s ``train_entry`` with the README's FUGC flags
    at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 30
@@ -23,6 +28,15 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    convolutions). Prints the loader's host decode path (native uint8 or
    PIL float32) and the bytes each train batch shipped, beside the step
    and round times that depend on them.
+   CPC-SAM phase: runs ``cpcsam_train_torch``'s ``train_entry`` with the
+   entry's defaults (LoRA-4 ViT-B/512 ``SamDualmask``, 3 decoders, batch 12,
+   half labeled, ``--promptmode point``) for 2 phase-1 and 4 phase-2 steps
+   on an in-memory synthetic ACDC set at 512x512 (the GPU machine has no
+   h5py). Checks the kernel launches of every step against the derived
+   counts, finite losses, that the LoRA tensors moved and every frozen
+   parameter stayed bit-identical, the validation, real test and
+   checkpoints, and one phase-1 loss and its LoRA gradients on the card
+   against the CPU. Prints the step times and peak memory.
 5. SAM phase: builds ``sam_model_registry["vit_b"](512, 3)`` with seeded
    random weights on ``cuda`` and serves a seeded 480x640 uint8 frame
    through ``SamPredictor``: ``set_image``, ``predict`` with a point, a box,
@@ -31,12 +45,13 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    per ``set_image``, and the embedding, masks and iou on the card against
    the same weights on the CPU. Prints the latencies and the encoder's
    img/s at batch 8.
-6. Prints one JSON line with the kernels, then the result line
+6. Prints one JSON line with the kernels (K1-K5, forward and backward,
+   with their launches in the paths that ran them), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
 not next to the package it tests, or when any phase fails. ``--out DIR``
-also writes the trainer's log and the JSON lines into DIR.
+also writes the trainers' logs and the JSON lines into DIR.
 """
 
 from __future__ import annotations
@@ -59,12 +74,35 @@ KERNELS = {
            "mia_tpu/ops/warp.py:300"),
     "K2": ("fused_attention_rel_packed_ik (K2)", "mia_tpu_torch/csrc/attention_rel.cu",
            "mia_tpu/ops/attention.py:923"),
+    "K2b": ("fused_attention_rel_packed_ik backward (K2)", "mia_tpu_torch/csrc/attention_rel.cu",
+            "mia_tpu/ops/attention.py:1076"),
     "K3": ("fused_attention_rel_packed (K3)", "mia_tpu_torch/csrc/attention_rel.cu",
            "mia_tpu/ops/attention.py:605"),
+    "K3b": ("fused_attention_rel_packed backward (K3)", "mia_tpu_torch/csrc/attention_rel.cu",
+            "mia_tpu/ops/attention.py:712"),
     "K4": ("ln_window_partition (K4)", "mia_tpu_torch/csrc/ln_window.cu",
            "mia_tpu/ops/ln_window.py:230"),
+    "K4b": ("ln_window_partition backward (K4)", "mia_tpu_torch/csrc/ln_window.cu",
+            "mia_tpu/ops/ln_window.py:178"),
+    "K5": ("connected_components_pallas (K5)", "mia_tpu_torch/csrc/connected_components.cu",
+           "mia_tpu/ops/morphology.py:235"),
 }
-KERNEL_TOL = 1e-5  # max |kernel - plain| over max |plain|, float32
+KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
+BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order, p from the lse)
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by kernel key."""
+    from mia_tpu_torch.ops import attention, ln_window, morphology, warp
+
+    return {"K1": warp.affine_warp_shift2pass_fused,
+            "K2": attention.fused_attention_rel_packed_ik,
+            "K2b": attention.fused_attention_rel_packed_ik_bwd,
+            "K3": attention.fused_attention_rel_packed,
+            "K3b": attention.fused_attention_rel_packed_bwd,
+            "K4": ln_window.ln_window_partition_fused,
+            "K4b": ln_window.ln_window_partition_fused_bwd,
+            "K5": morphology.connected_components_fused}
 
 
 class SmokeFailure(RuntimeError):
@@ -421,6 +459,149 @@ def sam_kernel_phase(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels of K2, K3, K4 and K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def label_maps(torch, gen, n, size, device, classes=4):
+    """Seeded (n, size, size) pseudo-labels, cycling through four kinds:
+    ellipse blobs, speckle (per-pixel classes: not converged in 16 sweeps),
+    a map of class 0 only (every other class mask empty) and one class
+    covering the map (its mask full)."""
+    yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device),
+                            indexing="ij")
+    maps = []
+    for i in range(n):
+        kind = i % 4
+        if kind == 0:
+            m = torch.zeros(size, size, dtype=torch.int64, device=device)
+            for c in range(1, classes):
+                cy, cx = (torch.rand(2, generator=gen, device=device) * size).tolist()
+                ry, rx = (4 + torch.rand(2, generator=gen, device=device) * size / 5).tolist()
+                m[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = c
+        elif kind == 1:
+            m = torch.randint(0, classes, (size, size), generator=gen, device=device)
+        else:
+            m = torch.full((size, size), 0 if kind == 2 else 1 + (i // 4) % (classes - 1),
+                           device=device)
+        maps.append(m)
+    return torch.stack(maps)
+
+
+def class_masks(torch, maps, classes=4):
+    """(n, H, W) labels → (n·classes, H, W) int32 class masks, as prompt
+    generation splits them."""
+    cls = torch.arange(classes, device=maps.device)
+    return (maps[:, None] == cls[None, :, None, None]).to(torch.int32).flatten(0, 1)
+
+
+def train_kernel_phase(torch, device):
+    from mia_tpu_torch.ops import attention, ln_window, morphology
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return scale * torch.randn(shape, generator=gen, device=device) + shift
+
+    heads, d, ws, c, side = 12, 64, 14, 768, 32
+    scale = d ** -0.5
+    worst = {k: [0.0, 0.0] for k in ("K2b", "K3b", "K4b")}
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            check((a is None) == (b is None), f"{name} {label}: output {i} present in one version only")
+            if b is None:
+                continue
+            check(a.shape == b.shape, f"{name} {label}: output {i} shape {tuple(a.shape)}")
+            check(bool(torch.isfinite(a).all()), f"{name} {label}: output {i} not finite")
+            err, ref = (a - b).abs().max().item(), b.abs().max().item()
+            check(err <= BWD_TOL * ref,
+                  f"{name} {label}: output {i} max |kernel - plain| {err} > {BWD_TOL} x {ref}")
+            worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
+
+    ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
+    rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
+    timed = {}
+    for label, b in (("B=12", 12), ("B=6", 6)):
+        x = randn(b, side, side, c)
+        y, mu, rstd = ln_window._launch_k4(x, ln_scale, ln_bias, ws, 1e-6, with_stats=True)
+        dy = randn(*y.shape)
+        for params in (False, True):
+            args = (x, dy, mu, rstd, ln_scale, ws, params)
+            hold("K4b", f"{label} params={params}", ln_window._launch_k4_bwd(*args),
+                 ln_window.ln_window_partition_bwd(*args))
+        timed[("K4b", label)] = (x, dy, mu, rstd, ln_scale, ws, False)
+
+        qkv = randn(b * 9, ws * ws, 3 * heads * d)
+        out, lse = attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads, with_lse=True)
+        g = randn(b * 9, ws * ws, heads * d)
+        for tables in (False, True):
+            hold("K2b", f"{label} tables={tables}",
+                 attention._launch_k2_bwd(qkv, rh, rw, out, g, lse, scale, (ws, ws), heads, tables),
+                 attention.attention_rel_packed_ik_bwd(qkv, rh, rw, out, g, scale, (ws, ws), heads,
+                                                       tables))
+        timed[("K2b", label)] = ((qkv, rh, rw, out, g, lse, scale, (ws, ws), heads, False),
+                                 (qkv, rh, rw, out, g, scale, (ws, ws), heads, False))
+
+        qkv = randn(b, side * side, 3 * heads * d)
+        rel_h, rel_w = randn(b * heads, side * side, side), randn(b * heads, side * side, side)
+        out, lse = attention._launch_k3(qkv, rel_h, rel_w, scale, (side, side), heads, with_lse=True)
+        g = randn(b, side * side, heads * d)
+        kernel_args = (qkv, rel_h, rel_w, out, g, lse, scale, (side, side), heads)
+        plain_args = (qkv, rel_h, rel_w, out, g, scale, (side, side), heads)
+        hold("K3b", label, attention._launch_k3_bwd(*kernel_args),
+             attention.attention_rel_packed_bwd(*plain_args))
+        timed[("K3b", label)] = (kernel_args, plain_args)
+
+    # K5: 12 images x 3 decoders of 4-class pseudo-labels at the prompt
+    # compute size, and one native-size stack through the global scratch path
+    k5_cases = {"(144, 64, 64)": class_masks(torch, label_maps(torch, gen, 36, 64, device)),
+                "(4, 512, 512)": label_maps(torch, gen, 4, 512, device).clamp(max=1).to(torch.int32)}
+    for label, masks in k5_cases.items():
+        got = morphology._launch_k5(masks)
+        want = morphology.connected_components(masks)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"K5 {label}: labels differ from the plain version "
+              f"({int((got != want).sum())} of {want.numel()})")
+        unconverged = not torch.equal(want, morphology.connected_components(masks, max_iters=64))
+        print(f"K5 bit-exact vs plain on {label}; 16 sweeps leave some mask unconverged: "
+              f"{unconverged}")
+
+    fns = {"K2b": (attention._launch_k2_bwd, attention.attention_rel_packed_ik_bwd),
+           "K3b": (attention._launch_k3_bwd, attention.attention_rel_packed_bwd),
+           "K4b": (ln_window._launch_k4_bwd, ln_window.ln_window_partition_bwd)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        for label in ("B=12", "B=6"):
+            args = timed[(name, label)]
+            k_args, p_args = args if name != "K4b" else (args, args)
+            plain_a = time_ms(lambda: plain(*p_args), torch, per_block=10)
+            k_a = time_ms(lambda: kernel(*k_args), torch, per_block=10)
+            k_b = time_ms(lambda: kernel(*k_args), torch, per_block=10)
+            plain_b = time_ms(lambda: plain(*p_args), torch, per_block=10)
+            print(f"{name} at ViT-B/512 training {label}: kernel {k_a * 1e3:.2f} / "
+                  f"{k_b * 1e3:.2f} us, plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
+                  "(median of 11 x 10 launches)")
+            if label == "B=12":
+                out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
+                             "plain_ms": min(plain_a, plain_b)}
+        print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
+              f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})")
+    masks = k5_cases["(144, 64, 64)"]
+    plain_a = time_ms(lambda: morphology.connected_components(masks), torch, per_block=10)
+    k_a = time_ms(lambda: morphology._launch_k5(masks), torch, per_block=10)
+    k_b = time_ms(lambda: morphology._launch_k5(masks), torch, per_block=10)
+    plain_b = time_ms(lambda: morphology.connected_components(masks), torch, per_block=10)
+    print(f"K5 at (144, 64, 64): kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, plain "
+          f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x 10 launches)")
+    out["K5"] = {"max_abs_err": 0.0, "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b)}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # SAM phase
 # ---------------------------------------------------------------------------
 
@@ -593,6 +774,237 @@ def sam_phase(torch, device):
             "predict_batch_ms": batch_s * 1e3, "encoder_img_per_s_b8": 8 / enc_s}
 
 
+# ---------------------------------------------------------------------------
+# CPC-SAM phase
+# ---------------------------------------------------------------------------
+
+# kernel launches of one train step at ViT-B/512 (8 windowed, 4 global
+# blocks): the encoder runs forward once, on the labeled half in phase 1 and
+# on the whole batch in phase 2; its backward reaches every block's attention
+# (LoRA on q and v) but not block 0's K4, whose input (patch embed +
+# pos-embed, frozen) and LayerNorm parameters (frozen) need no gradient;
+# phase 2 adds one batched connected-components call for all decoders
+STEP_LAUNCHES = {
+    1: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 0},
+    2: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 1},
+}
+
+
+def acdc_arrays(np, n, size, depth=None, seed=0):
+    """Seeded ACDC-like slices (or volumes of ``depth`` slices) with blob
+    labels in 4 classes (RV, Myo, LV as three overlapping ellipses) and
+    intensities in 0-255, the units of SAM's pixel normalisation (at [0, 1]
+    the tokens barely differ and a global block's LoRA gets next to no
+    gradient in a few steps)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    count = n * (depth or 1)
+    labels = np.zeros((count, size, size), np.int32)
+    for i in range(count):
+        for c in (1, 2, 3):
+            cy, cx = rng.uniform(0.3, 0.7, 2) * size
+            ry, rx = rng.uniform(0.05, 0.15, 2) * size
+            labels[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = c
+    images = np.clip(40.0 + 50.0 * labels + rng.normal(0.0, 12.0, labels.shape), 0, 255)
+    images = images.astype(np.float32)
+    if depth:
+        return images.reshape(n, depth, size, size), labels.reshape(n, depth, size, size)
+    return images, labels
+
+
+def in_memory_acdc(np, ACDCDataset):
+    """``ACDCDataset`` over arrays (the GPU machine has no h5py): 48 train
+    slices (32 of them the labeled patient's), 2 validation and 2 test
+    volumes of depth 4, all 512x512 from seed 0."""
+
+    class InMemoryACDC(ACDCDataset):
+        def __init__(self, split, images, labels, names):
+            self.split, self.samples_list = split, names
+            self.images, self.labels = images, labels
+            self.image_channels, self.num = 3, None
+            self.transform = self.normalize = self.image_size = None
+            self.raw_spacing = {"_".join(n.split("_")[:2]): [10.0, 1.48, 1.48] for n in names}
+
+        def get_sample(self, index, normalize=True):
+            case = self.samples_list[index]
+            return {"image": np.repeat(self.images[index][..., None], 3, -1),
+                    "label": self.labels[index].copy(), "case_name": case,
+                    "spacing": self._get_spacing("_".join(case.split("_")[:2]))}
+
+    train = acdc_arrays(np, 48, 512, seed=0)
+    vols = acdc_arrays(np, 4, 512, depth=4, seed=1)
+    return {
+        "train": InMemoryACDC("train", *train,
+                              [f"patient{i // 16:03d}_frame01_slice_{i}" for i in range(48)]),
+        "valid": InMemoryACDC("valid", vols[0][:2], vols[1][:2],
+                              [f"patient{100 + i}_frame01" for i in range(2)]),
+        "test": InMemoryACDC("test", vols[0][2:], vols[1][2:],
+                             [f"patient{102 + i}_frame01" for i in range(2)]),
+    }
+
+
+def cpcsam_card_vs_cpu(torch, model, images, labels):
+    """One phase-1 loss and its LoRA gradients (2 images, 1 labeled) on the
+    card and on the CPU from the same weights → (loss relative diff, max
+    |grad diff| over max |grad|) in full float32 and with TF32 convolutions."""
+    import copy
+
+    from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer
+
+    config = dict(image_size=512, num_classes=3, batch_size=2, labeled_batch_ratio=0.5,
+                  lora_rank=4, dice_weight=0.8, promptmode=["point"], optimizer_name="adam")
+
+    def loss_and_grads(device, m, tf32=True):
+        tr = CPCSAMTrainer(device=device, config=config)  # sets the run's precision
+        torch.backends.cudnn.allow_tf32 = tf32
+        tr.model = m
+        tr._setup_loss()
+        tr._setup_optimizer()
+        total = tr.compute_losses(images.to(tr.device), labels.to(tr.device), 0, False)[0]
+        names = [n for n, p in m.named_parameters() if "lora_" in n]
+        grads = torch.autograd.grad(total, [dict(m.named_parameters())[n] for n in names])
+        return total.item(), [g.cpu() for g in grads]
+
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads("cpu", copy.deepcopy(model).cpu())
+    cpu_s = time.perf_counter() - t0
+    scale = max(g.abs().max().item() for g in want)
+    errs = {}
+    try:
+        for mode, tf32 in (("float32", False), ("TF32 convs", True)):
+            loss, got = loss_and_grads("cuda", model, tf32)
+            errs[mode] = (abs(loss - want_loss) / abs(want_loss),
+                          max((a - b).abs().max().item() for a, b in zip(got, want)) / scale)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return want_loss, scale, errs, cpu_s
+
+
+def cpcsam_phase(torch, device, workdir: Path):
+    import numpy as np
+
+    from mia_tpu_torch.data import ACDCDataset
+    from mia_tpu_torch.entry.cpcsam.train import train_entry
+    from mia_tpu_torch.training import cpcsam_trainer
+
+    datasets = in_memory_acdc(np, ACDCDataset)
+    counts = counters()
+    steps, losses, snap = [], [], {}
+    base = cpcsam_trainer.CPCSAMTrainer
+
+    class SmokeTrainer(base):
+        def _make_dataset(self, split):
+            return datasets[split]
+
+        def on_train_start(self):
+            super().on_train_start()
+            snap.update({n: p.detach().clone() for n, p in self.model.named_parameters()})
+
+        def train_step(self, batch):
+            phase = 2 if self.current_iter >= self.config.warmup_iter else 1
+            torch.cuda.synchronize()
+            before = {k: fn.launches for k, fn in counts.items()}
+            t0 = time.perf_counter()
+            super().train_step(batch)
+            torch.cuda.synchronize()
+            steps.append((phase, time.perf_counter() - t0,
+                          {k: fn.launches - before[k] for k, fn in counts.items() if k != "K1"}))
+
+        def _log_train(self, step, lr, step_losses):
+            losses.append([float(v) for v in step_losses.cpu()])
+            return super()._log_train(step, lr, step_losses)
+
+    warmup, iters, batch = 2, 6, 12
+    argv = ["--work-path", str(workdir / "work"), "--data-path", str(workdir / "acdc"),
+            "--device", "cuda", "--warmup-iter", str(warmup), "--min-iter", str(iters),
+            "--max-iter", str(iters), "--valid-freq-iter", "3", "--lr-warmup-iter", "1",
+            "--quiet"]
+    cpcsam_trainer.CPCSAMTrainer = SmokeTrainer
+    try:
+        for fn in counts.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        trainer = train_entry(argv)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        cpcsam_trainer.CPCSAMTrainer = base
+
+    model, cfg = trainer.model, trainer.config
+    enc = model.image_encoder
+    check(len(enc.blocks) == 12 and enc.blocks[0].attn.qkv.in_features == 768
+          and enc.blocks[0].attn.num_heads == 12 and model.num_decoders == 3
+          and enc.blocks[0].attn.lora_a_q.weight.shape == (4, 768)
+          and type(model.mask_decoder0).__name__ == "MaskDecoderPromptLarge",
+          "not the LoRA ViT-B/512 SamDualmask with 3 MaskDecoderPromptLarge decoders")
+    check(cfg.batch_size == batch and cfg.labeled_batch_size == 6 and cfg.promptmode == ["point"],
+          f"batch {cfg.batch_size}, labeled {cfg.labeled_batch_size}, prompts {cfg.promptmode}")
+    check(all(p.device.type == "cuda" for p in model.parameters()), "SamDualmask not on CUDA")
+    check([s[0] for s in steps] == [1] * warmup + [2] * (iters - warmup),
+          f"phases of the steps: {[s[0] for s in steps]}")
+    for phase, _, per_step in steps:
+        check(per_step == STEP_LAUNCHES[phase],
+              f"phase-{phase} step launched {per_step}, expected {STEP_LAUNCHES[phase]}")
+    check(len(losses) == iters and all(math.isfinite(v) for row in losses for v in row),
+          f"losses not all finite: {losses}")
+    check(all(row[2] > 0 for row in losses[warmup:]) and all(row[2] == 0 for row in losses[:warmup]),
+          "loss2 must be zero in phase 1 and positive in phase 2")
+    moved, frozen_changed = [], []
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), snap[n])
+        if "lora_" in n:
+            moved.append(not same)
+        elif n.startswith("image_encoder.") and not same:
+            frozen_changed.append(n)
+        check(p.requires_grad == ("lora_" in n or not n.startswith("image_encoder.")),
+              f"{n}: requires_grad {p.requires_grad}")
+    check(len(moved) == 48 and all(moved), f"LoRA tensors moved: {sum(moved)} of {len(moved)}")
+    check(not frozen_changed, f"frozen encoder parameters changed: {frozen_changed[:5]}")
+    work = trainer.work_path
+    for rel in ("best_model/lora.pth", "final_model/lora.pth", "test_mean.csv"):
+        check((work / rel).is_file(), f"missing {rel}")
+    rows = (work / "test_mean.csv").read_text().splitlines()
+    check(len(rows) == 4 and rows[0].startswith("class,DSC"), "test_mean.csv malformed")
+    log = (work / "log.txt").read_text()
+    check(log.count("Valid results") == 2 and "Real test results" in log,
+          "validation (iterations 3 and 6) or the real test did not run")
+    for k in ("K2", "K2b", "K3", "K3b", "K4", "K4b", "K5"):
+        check(launches[k] > 0, f"{k} was not launched on the CPC-SAM path")
+
+    train_set = datasets["train"]
+    images = torch.from_numpy(np.stack([np.repeat(train_set.images[i][..., None], 3, -1)
+                                        for i in (0, 40)]))
+    labels = torch.from_numpy(train_set.labels[[0, 40]]).long()
+    want_loss, grad_scale, errs, cpu_s = cpcsam_card_vs_cpu(torch, model, images, labels)
+    for mode, (loss_err, grad_err) in errs.items():
+        check(loss_err <= 1e-4 and grad_err <= 1e-3,
+              f"card vs CPU ({mode}): loss relative diff {loss_err}, LoRA grads {grad_err} "
+              "of max |grad|")
+
+    med = {ph: statistics.median(s[1] for s in steps if s[0] == ph) * 1e3 for ph in (1, 2)}
+    print(f"cpcsam: LoRA-4 ViT-B/512 SamDualmask (3 decoders, 3 classes), batch {batch} (6 "
+          f"labeled), --promptmode point; {warmup} phase-1 + {iters - warmup} phase-2 steps")
+    print(f"cpcsam: step ms {[round(s[1] * 1e3, 2) for s in steps]}; median phase 1 "
+          f"{med[1]:.2f} ms ({batch / med[1] * 1e3:.1f} img/s), phase 2 {med[2]:.2f} ms "
+          f"({batch / med[2] * 1e3:.1f} img/s); run total {total_s:.1f} s incl. 2 validations "
+          f"and the real test; max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"cpcsam: launches per phase-1 step {STEP_LAUNCHES[1]}, per phase-2 step "
+          f"{STEP_LAUNCHES[2]}, as derived; in the whole run {launches}")
+    print(f"cpcsam: losses [total, loss1, loss2, loss3] first {losses[0]} last {losses[-1]}")
+    print(f"cpcsam: 48 LoRA tensors moved, frozen encoder bit-identical; validation x2, real "
+          f"test and test_mean.csv written")
+    print("cpcsam: card vs CPU, phase-1 loss (2 images, 1 labeled) "
+          f"{want_loss:.6f}, max |LoRA grad| {grad_scale:.3g}: "
+          + "; ".join(f"{m}: loss {a:.3g} relative, grads {b:.3g} of max" for m, (a, b)
+                      in errs.items()) + f" (CPU side {cpu_s:.1f} s)")
+    return {"launches": launches, "phase1_step_ms": med[1], "phase2_step_ms": med[2],
+            "max_memory_allocated": peak, "log": work / "log.txt",
+            "card_vs_cpu": {m: list(v) for m, v in errs.items()}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None, help="also write logs here")
@@ -630,14 +1042,21 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"kernels built and loaded in {build_s:.2f} s")
 
-    measured = {"K1": kernel_phase(torch, device), **sam_kernel_phase(torch, device)}
+    measured = {"K1": kernel_phase(torch, device), **sam_kernel_phase(torch, device),
+                **train_kernel_phase(torch, device)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = slice_phase(torch, Path(tmp))
+        cpc = cpcsam_phase(torch, device, Path(tmp))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(sl["log"], args.out / "chip_smoke_train_log.txt")
+            shutil.copy(cpc["log"], args.out / "chip_smoke_cpcsam_log.txt")
     sam = sam_phase(torch, device)
-    launches = {"K1": sl["launches"], **sam["launches"]}
+    # each path ran with every count set to 0 just before it: K1 from the
+    # AL slice, K2-K4 forward from SAM serving and CPC-SAM training, the
+    # backward kernels and K5 from CPC-SAM training
+    launches = {k: sam["launches"].get(k, 0) + cpc["launches"][k] for k in KERNELS}
+    launches["K1"] = sl["launches"]
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
                       or m.startswith(("jax.", "mia_tpu.")))
     check(not imported, f"JAX or the JAX package was imported: {imported}")
@@ -661,6 +1080,7 @@ def main(argv=None) -> int:
         (args.out / "chip_smoke.json").write_text(
             json.dumps({"card": card, "host_decode": sl["host_decode"],
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
+                        "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
                         **kernels, **result}, indent=1))
     print(card)
     print(json.dumps(kernels))

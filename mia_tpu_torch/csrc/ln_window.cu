@@ -36,8 +36,9 @@ constexpr int kWarps = 8;  // output tokens per block
 template <bool kVec4>
 __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
     const float* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ bias, float* __restrict__ out, long long tokens, int H, int W,
-    int C, int ws, int nwx, int nw, float eps) {
+    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ mu_out,
+    float* __restrict__ rstd_out, long long tokens, int H, int W, int C, int ws, int nwx, int nw,
+    float eps) {
   const int lane = threadIdx.x & 31;
   const long long token = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (token >= tokens) return;
@@ -60,7 +61,8 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
     }
     return;
   }
-  const float* src = x + ((static_cast<long long>(b) * H + y) * W + xx) * C;
+  const long long src_token = (static_cast<long long>(b) * H + y) * W + xx;
+  const float* src = x + src_token * C;
 
   float sum = 0.f, sq = 0.f;
   if (kVec4) {
@@ -84,6 +86,10 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
   const float mu = sum / C;
   const float var = fmaxf(sq / C - mu * mu, 0.f);
   const float rstd = rsqrtf(var + eps);
+  if (mu_out != nullptr && lane == 0) {  // the backward's statistics, (B, H, W)
+    mu_out[src_token] = mu;
+    rstd_out[src_token] = rstd;
+  }
 
   if (kVec4) {
     for (int c = lane * 4; c < C; c += 128) {
@@ -99,12 +105,135 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward. Replaces the TPU kernel mia_tpu/ops/ln_window.py::_bwd_impl
+// (_bwd_kernel): from the saved per-token mu and rstd, the LayerNorm VJP
+//
+//   g = dy * scale,  xhat = (x - mu) * rstd,
+//   dx = rstd * (g - mean(g) - xhat * mean(g * xhat))
+//
+// with dy read from the token's window slot, so the pad slots' cotangents
+// never reach dx. One warp per source token, as in the forward. dscale =
+// sum(dy * xhat) and dbias = sum(dy) over tokens are a second, optional
+// pass (the encoder's LayerNorms are frozen under LoRA): per-chunk partial
+// sums over a fixed token range, one thread per channel, then a reduction
+// of the partials in a fixed order, so the result is deterministic.
+// Bound: memory, like the forward (x, dy and dx each cross device memory
+// once per pass).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ long long window_slot(long long token, int H, int W, int ws, int nwx,
+                                                 int nw) {
+  const long long hw = static_cast<long long>(H) * W;
+  const long long b = token / hw;
+  const int rem = static_cast<int>(token - b * hw);
+  const int y = rem / W;
+  const int xx = rem - y * W;
+  const long long win = b * nw + (y / ws) * nwx + xx / ws;
+  return win * ws * ws + (y % ws) * ws + xx % ws;
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kWarps * 32) ln_window_partition_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ mu,
+    const float* __restrict__ rstd, const float* __restrict__ scale, float* __restrict__ dx,
+    long long tokens, int H, int W, int C, int ws, int nwx, int nw) {
+  const int lane = threadIdx.x & 31;
+  const long long token = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (token >= tokens) return;
+  const float* xr = x + token * C;
+  const float* dyr = dy + window_slot(token, H, W, ws, nwx, nw) * C;
+  float* dxr = dx + token * C;
+  const float m = __ldg(mu + token);
+  const float r = __ldg(rstd + token);
+
+  float sg = 0.f, sgx = 0.f;
+  if (kVec4) {
+    for (int c = lane * 4; c < C; c += 128) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + c));
+      const float4 d = __ldg(reinterpret_cast<const float4*>(dyr + c));
+      const float4 s = __ldg(reinterpret_cast<const float4*>(scale + c));
+      const float g0 = d.x * s.x, g1 = d.y * s.y, g2 = d.z * s.z, g3 = d.w * s.w;
+      sg += (g0 + g1) + (g2 + g3);
+      sgx += (g0 * ((v.x - m) * r) + g1 * ((v.y - m) * r)) +
+             (g2 * ((v.z - m) * r) + g3 * ((v.w - m) * r));
+    }
+  } else {
+    for (int c = lane; c < C; c += 32) {
+      const float g = __ldg(dyr + c) * __ldg(scale + c);
+      sg += g;
+      sgx += g * ((__ldg(xr + c) - m) * r);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sg += __shfl_xor_sync(0xffffffffu, sg, off);
+    sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
+  }
+  const float m1 = sg / C;
+  const float m2 = sgx / C;
+  if (kVec4) {
+    for (int c = lane * 4; c < C; c += 128) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + c));
+      const float4 d = __ldg(reinterpret_cast<const float4*>(dyr + c));
+      const float4 s = __ldg(reinterpret_cast<const float4*>(scale + c));
+      *reinterpret_cast<float4*>(dxr + c) =
+          make_float4(r * (d.x * s.x - m1 - (v.x - m) * r * m2),
+                      r * (d.y * s.y - m1 - (v.y - m) * r * m2),
+                      r * (d.z * s.z - m1 - (v.z - m) * r * m2),
+                      r * (d.w * s.w - m1 - (v.w - m) * r * m2));
+    }
+  } else {
+    for (int c = lane; c < C; c += 32)
+      dxr[c] = r * (__ldg(dyr + c) * __ldg(scale + c) - m1 - (__ldg(xr + c) - m) * r * m2);
+  }
+}
+
+constexpr int kParamChunks = 256;  // token chunks of the dscale/dbias partial sums
+
+// partial[chunk, c] = sum over the chunk's tokens of dy * xhat (and dy)
+__global__ void ln_window_partition_params_partial_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ mu,
+    const float* __restrict__ rstd, float* __restrict__ part_scale, float* __restrict__ part_bias,
+    long long tokens, int H, int W, int C, int ws, int nwx, int nw) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int chunk = blockIdx.y;
+  if (c >= C) return;
+  const long long per = (tokens + kParamChunks - 1) / kParamChunks;
+  const long long t0 = chunk * per;
+  const long long t1 = min(tokens, t0 + per);
+  float ss = 0.f, sb = 0.f;
+  for (long long tok = t0; tok < t1; ++tok) {
+    const float d = __ldg(dy + window_slot(tok, H, W, ws, nwx, nw) * C + c);
+    ss += d * ((__ldg(x + tok * C + c) - __ldg(mu + tok)) * __ldg(rstd + tok));
+    sb += d;
+  }
+  part_scale[static_cast<long long>(chunk) * C + c] = ss;
+  part_bias[static_cast<long long>(chunk) * C + c] = sb;
+}
+
+__global__ void ln_window_partition_params_reduce_kernel(const float* __restrict__ part_scale,
+                                                         const float* __restrict__ part_bias,
+                                                         float* __restrict__ dscale,
+                                                         float* __restrict__ dbias, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float ss = 0.f, sb = 0.f;
+  for (int k = 0; k < kParamChunks; ++k) {
+    ss += part_scale[static_cast<long long>(k) * C + c];
+    sb += part_bias[static_cast<long long>(k) * C + c];
+  }
+  dscale[c] = ss;
+  dbias[c] = sb;
+}
+
 }  // namespace
 
-// x (B, H, W, C) -> out (B*nW, ws, ws, C); scale and bias (C,).
+// x (B, H, W, C) -> out (B*nW, ws, ws, C); scale and bias (C,). mu and rstd,
+// when not null, receive the per-token statistics (B, H, W) for the backward.
 extern "C" int mia_ln_window_partition_f32(const void* x, const void* scale, const void* bias,
-                                           void* out, int B, int H, int W, int C, int ws,
-                                           float eps, void* stream) {
+                                           void* out, void* mu, void* rstd, int B, int H, int W,
+                                           int C, int ws, float eps, void* stream) {
   const int nwy = (H + ws - 1) / ws;
   const int nwx = (W + ws - 1) / ws;
   const long long tokens = static_cast<long long>(B) * nwy * nwx * ws * ws;
@@ -122,10 +251,60 @@ extern "C" int mia_ln_window_partition_f32(const void* x, const void* scale, con
   float* of = static_cast<float*>(out);
   if (vec4) {
     ln_window_partition_kernel<true><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
-        xf, sf, bf, of, tokens, H, W, C, ws, nwx, nwy * nwx, eps);
+        xf, sf, bf, of, static_cast<float*>(mu), static_cast<float*>(rstd), tokens, H, W, C, ws,
+        nwx, nwy * nwx, eps);
   } else {
     ln_window_partition_kernel<false><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
-        xf, sf, bf, of, tokens, H, W, C, ws, nwx, nwy * nwx, eps);
+        xf, sf, bf, of, static_cast<float*>(mu), static_cast<float*>(rstd), tokens, H, W, C, ws,
+        nwx, nwy * nwx, eps);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward: x (B, H, W, C), dy (B*nW, ws, ws, C), mu and rstd (B, H, W),
+// scale (C,) -> dx (B, H, W, C). When dscale is not null, dscale and dbias
+// (C,) are written too, with part (2 * 256 * C floats) as scratch.
+extern "C" int mia_ln_window_partition_bwd_f32(const void* x, const void* dy, const void* mu,
+                                               const void* rstd, const void* scale, void* dx,
+                                               void* dscale, void* dbias, void* part, int B, int H,
+                                               int W, int C, int ws, void* stream) {
+  const int nwy = (H + ws - 1) / ws;
+  const int nwx = (W + ws - 1) / ws;
+  const long long tokens = static_cast<long long>(B) * H * W;
+  if (C == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* muf = static_cast<const float*>(mu);
+  const float* rf = static_cast<const float*>(rstd);
+  if (tokens > 0) {
+    const long long blocks = (tokens + kWarps - 1) / kWarps;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(scale) % 16 == 0;
+    if (vec4) {
+      ln_window_partition_bwd_kernel<true><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+          xf, dyf, muf, rf, static_cast<const float*>(scale), static_cast<float*>(dx), tokens, H,
+          W, C, ws, nwx, nwy * nwx);
+    } else {
+      ln_window_partition_bwd_kernel<false><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+          xf, dyf, muf, rf, static_cast<const float*>(scale), static_cast<float*>(dx), tokens, H,
+          W, C, ws, nwx, nwy * nwx);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dscale == nullptr) return static_cast<int>(cudaSuccess);
+  float* ps = static_cast<float*>(part);
+  float* pb = ps + static_cast<long long>(kParamChunks) * C;
+  const dim3 grid((C + 127) / 128, kParamChunks);
+  ln_window_partition_params_partial_kernel<<<grid, 128, 0, s>>>(xf, dyf, muf, rf, ps, pb, tokens,
+                                                                 H, W, C, ws, nwx, nwy * nwx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ln_window_partition_params_reduce_kernel<<<(C + 127) / 128, 128, 0, s>>>(
+      ps, pb, static_cast<float*>(dscale), static_cast<float*>(dbias), C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,3 +1,4 @@
+from .acdc import ACDCDataset
 from .active import ActiveDataset
 from .base import (
     BaseDataset,
@@ -14,10 +15,12 @@ from .loader import BatchLoader, collate, decode_path
 from .sampler import TwoStreamBatchSampler
 from .utils import SplitDictKeyException
 
-# only FUGC is ported; the JAX package also has BUSI/ACDC/TN3K/TG3K/LA2018/BTCV
+# the AL trainer's datasets: only FUGC is ported (ACDC serves CPC-SAM);
+# the JAX package also has BUSI/TN3K/TG3K/LA2018/BTCV
 DATASETS = {"fugc": FUGCDataset}
 
 __all__ = [
+    "ACDCDataset",
     "ActiveDataset",
     "BaseDataset",
     "BatchLoader",

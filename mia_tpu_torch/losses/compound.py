@@ -1,6 +1,8 @@
 """``DiceAndCELoss``, the AL supervised loss (counterpart of
 ``mia_tpu/losses/compound.py::DiceAndCELoss``): ``ce_weight*CE +
-dice_weight*Dice``; ``__call__`` returns ``(total, ce, dice)``."""
+dice_weight*Dice``; ``__call__`` returns ``(total, ce, dice)``. Per-call
+``dice_weight``/``ce_weight`` override the configured ones (a falsy value
+keeps the configured weight, as in the JAX package); CPC-SAM calls it so."""
 
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ class DiceAndCELoss:
     batch: bool = False
     squared: bool = False
 
-    def __call__(self, logits, targets):
+    def __call__(self, logits, targets, dice_weight: float | None = None,
+                 ce_weight: float | None = None):
+        dw = dice_weight if dice_weight else self.dice_weight
+        cw = ce_weight if ce_weight else self.ce_weight
         loss_ce = cross_entropy(logits, targets)
         loss_dice = soft_dice_loss(
             logits,
@@ -31,4 +36,4 @@ class DiceAndCELoss:
             batch=self.batch,
             squared=self.squared,
         )
-        return self.ce_weight * loss_ce + self.dice_weight * loss_dice, loss_ce, loss_dice
+        return cw * loss_ce + dw * loss_dice, loss_ce, loss_dice

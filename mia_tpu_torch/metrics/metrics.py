@@ -1,7 +1,8 @@
 """Segmentation metrics with the reference's empty-mask conventions.
 
-Counterpart of ``mia_tpu/metrics/metrics.py`` (``metric_percase`` and what
-it calls), plain PyTorch on the device of its inputs:
+Counterpart of ``mia_tpu/metrics/metrics.py`` (``metric_percase``,
+``metric_percase_hd95`` and what they call), plain PyTorch on the device of
+its inputs:
 
 - masks are binarised (>0); if ``pred`` is empty → (dice 0, hd NaN,
   asd NaN, jc 0);
@@ -55,3 +56,18 @@ def metric_percase(pred: torch.Tensor, gt: torch.Tensor, spacing=None):
     asd = torch.where(p_any, asd, nan)
     jc = torch.where(p_any, jc, zero)
     return dice, hd, asd, jc
+
+
+def metric_percase_hd95(pred: torch.Tensor, gt: torch.Tensor):
+    """(dice, hd95) for one binary case, SAM validation's pair: hd95 is NaN
+    when ``pred`` is empty and inf when only ``gt`` is."""
+    p = pred > 0
+    g = gt > 0
+    dice = dice_coefficient(p, g)
+    stats = surface_distance_stats(p, g, None)
+    p_any = p.any()
+    g_any = g.any()
+    inf = torch.full((), float("inf"), device=p.device)
+    nan = torch.full((), float("nan"), device=p.device)
+    hd95 = torch.where(p_any & g_any, stats["hd95"], torch.where(p_any, inf, nan))
+    return torch.where(p_any, dice, torch.zeros_like(dice)), hd95

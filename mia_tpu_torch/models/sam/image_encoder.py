@@ -10,13 +10,20 @@ the JAX package's default path, which is the path its TPU kernels run:
   computed in the kernel; pad tokens are real keys, as in the reference;
 - global blocks: LayerNorm, the qkv Linear, the factored rel terms from
   :func:`decomposed_rel_terms_packed`, then K3;
-- the patch embed is a reshape and one matmul (``_PatchEmbedMM``).
+- the patch embed is a reshape and one matmul (``_PatchEmbedMM``);
+- with ``lora_rank > 0`` each block's attention carries rank-r adapters on
+  q and v (``lora_a_{q,v}``, ``lora_b_{q,v}``, B zero at init) added to the
+  qkv Linear's output slices, as the JAX package's ``Attention(lora_rank)``.
+
+K2, K3 and K4 are differentiable through their backward kernels
+(``torch.autograd.Function``s in ``ops/``), so the LoRA-tuned encoder
+trains through them.
 
 Relative positions, the absolute position embedding and the qkv bias are
 always on, and the MLP is 4x wide, as ``Sam`` builds the encoder. Not
 ported: the dense-bias attention of ``use_rel_pos=False`` (K7), shared
-window runs, the fused exit kernel (K9), the grid-native windowed kernel
-(K8) and LoRA — none is on the default serving path.
+window runs, the fused exit kernel (K9) and the grid-native windowed kernel
+(K8) — none is on the default path.
 """
 
 from __future__ import annotations
@@ -110,21 +117,40 @@ class Attention(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
-                 window_size: int = 0):
+                 window_size: int = 0, lora_rank: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.scale = self.head_dim ** -0.5
         self.window_size = window_size
+        self.lora_rank = lora_rank
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, self.head_dim))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, self.head_dim))
+        if lora_rank > 0:
+            self.lora_a_q = nn.Linear(dim, lora_rank, bias=False)
+            self.lora_b_q = nn.Linear(lora_rank, dim, bias=False)
+            self.lora_a_v = nn.Linear(dim, lora_rank, bias=False)
+            self.lora_b_v = nn.Linear(lora_rank, dim, bias=False)
+            nn.init.zeros_(self.lora_b_q.weight)
+            nn.init.zeros_(self.lora_b_v.weight)
+
+    def _qkv(self, y: torch.Tensor) -> torch.Tensor:
+        """``(B', N, C)`` tokens → packed ``(B', N, 3·C)`` qkv, with the LoRA
+        terms ``y·A_q·B_q`` and ``y·A_v·B_v`` added to the q and v slices."""
+        qkv = self.qkv(y)
+        if self.lora_rank == 0:
+            return qkv
+        dim = y.shape[-1]
+        q, k, v = qkv.split(dim, -1)
+        return torch.cat([q + self.lora_b_q(self.lora_a_q(y)), k,
+                          v + self.lora_b_v(self.lora_a_v(y))], -1)
 
     def forward(self, x: torch.Tensor, grid_hw: Tuple[int, int] | None = None) -> torch.Tensor:
         bw, h, w, dim = x.shape
         n = h * w
-        qkv = self.qkv(x.reshape(bw, n, dim))
+        qkv = self._qkv(x.reshape(bw, n, dim))
         if self.window_size > 0:
             ws = self.window_size
             rh = _rel_table(self.rel_pos_h, ws, ws).reshape(ws * ws, self.head_dim)
@@ -146,14 +172,15 @@ class Block(nn.Module):
     """Transformer block with window or global attention; windowed blocks
     run their first LayerNorm and the partition as K4."""
 
-    def __init__(self, dim: int, num_heads: int, window_size: int, input_size: Tuple[int, int]):
+    def __init__(self, dim: int, num_heads: int, window_size: int, input_size: Tuple[int, int],
+                 lora_rank: int = 0):
         super().__init__()
         self.window_size = window_size
         self.norm1 = LayerNorm(dim, 1e-6)
         self.attn = Attention(
             dim, num_heads,
             input_size=input_size if window_size == 0 else (window_size, window_size),
-            window_size=window_size,
+            window_size=window_size, lora_rank=lora_rank,
         )
         self.norm2 = LayerNorm(dim, 1e-6)
         self.mlp = MLPBlock(dim, 4 * dim)
@@ -194,7 +221,8 @@ class ImageEncoderViT(nn.Module):
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, out_chans: int = 256,
-                 window_size: int = 0, global_attn_indexes: Tuple[int, ...] = ()):
+                 window_size: int = 0, global_attn_indexes: Tuple[int, ...] = (),
+                 lora_rank: int = 0):
         super().__init__()
         self.img_size = img_size
         side = img_size // patch_size
@@ -203,7 +231,7 @@ class ImageEncoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads,
                   window_size=0 if i in global_attn_indexes else window_size,
-                  input_size=(side, side))
+                  input_size=(side, side), lora_rank=lora_rank)
             for i in range(depth)
         )
         self.neck = nn.ModuleList([

@@ -1,7 +1,11 @@
-"""SAM mask decoder (counterpart of ``mia_tpu/models/sam/mask_decoder.py``,
-plain 2-stage ``MaskDecoder`` only). Channel-last; parameters carry the
-reference names (``iou_token.weight``, ``output_upscaling.{0,1,3}``,
-``output_hypernetworks_mlps.{i}.layers.{j}``, ``iou_prediction_head``)."""
+"""SAM mask decoders (counterpart of ``mia_tpu/models/sam/mask_decoder.py``):
+the plain 2-stage ``MaskDecoder`` and CPC-SAM's 4-stage
+``MaskDecoderPromptLarge``. Channel-last; parameters carry the reference
+names (``iou_token.weight``, ``output_upscaling.{0,1,3,...}``,
+``output_hypernetworks_mlps.{i}.layers.{j}``, ``iou_prediction_head``). The
+k2/s2 transposed convolutions run as one GEMM each (the JAX package's
+``interleave`` layout); K10, the TPU's kernel for them, is off by default
+and not ported."""
 
 from __future__ import annotations
 
@@ -39,46 +43,57 @@ def _conv_transpose2x(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor
 
 
 class _Upscaler(nn.Sequential):
-    """Two k2/s2 transposed-conv stages (4x): the first with LayerNorm2d,
-    both followed by exact GELU."""
+    """k2/s2 transposed-conv stages, each followed by exact GELU: two (4x,
+    LayerNorm2d after the first; plain SAM) or four (16x, LayerNorm2d after
+    all but the last; prompt-large). Stage widths d/4, d/8 (then d/16, d/16)."""
 
-    def __init__(self, transformer_dim: int):
+    def __init__(self, transformer_dim: int, stages: int = 2):
         d = transformer_dim
-        super().__init__(
-            nn.ConvTranspose2d(d, d // 4, 2, stride=2),
-            LayerNorm2d(d // 4),
-            nn.GELU(),
-            nn.ConvTranspose2d(d // 4, d // 8, 2, stride=2),
-            nn.GELU(),
-        )
+        plan = ([(d // 4, True), (d // 8, False)] if stages == 2 else
+                [(d // 4, True), (d // 8, True), (d // 16, True), (d // 16, False)])
+        layers, c_in = [], d
+        for c_out, norm in plan:
+            layers.append(nn.ConvTranspose2d(c_in, c_out, 2, stride=2))
+            if norm:
+                layers.append(LayerNorm2d(c_out))
+            layers.append(nn.GELU())
+            c_in = c_out
+        super().__init__(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up0, norm0, _, up1, _ = self
-        x = F.gelu(norm0(_conv_transpose2x(x, up0)))
-        return F.gelu(_conv_transpose2x(x, up1))
+        for layer in self:
+            if isinstance(layer, nn.ConvTranspose2d):
+                x = _conv_transpose2x(x, layer)
+            elif isinstance(layer, nn.GELU):
+                x = F.gelu(x)
+            else:
+                x = layer(x)
+        return x
 
 
 class _DecoderCore(nn.Module):
     """Tokens, upscaler, hypernetwork MLPs and IoU head; ``predict`` returns
     all mask tokens."""
 
-    def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3):
+    def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3,
+                 upscale_stages: int = 2):
         super().__init__()
         self.transformer_dim = transformer_dim
         self.transformer = transformer
         self.num_mask_tokens = num_multimask_outputs + 1
         self.iou_token = nn.Embedding(1, transformer_dim)
         self.mask_tokens = nn.Embedding(self.num_mask_tokens, transformer_dim)
-        self.output_upscaling = _Upscaler(transformer_dim)
+        self.output_upscaling = _Upscaler(transformer_dim, upscale_stages)
+        # the hypernetwork output matches the upscaler's last width
+        hyper_out = transformer_dim // (8 if upscale_stages == 2 else 16)
         self.output_hypernetworks_mlps = nn.ModuleList(
-            MLP(transformer_dim, transformer_dim, transformer_dim // 8)
-            for _ in range(self.num_mask_tokens)
+            MLP(transformer_dim, transformer_dim, hyper_out) for _ in range(self.num_mask_tokens)
         )
         self.iou_prediction_head = MLP(transformer_dim, 256, self.num_mask_tokens)
 
     def predict(self, image_embeddings, image_pe, sparse_prompt, dense_prompt):
-        """image_embeddings ``(1 or B, H, W, C)`` → masks ``(B, 4H, 4W, T)``,
-        iou ``(B, T)``, upscaled features ``(B, 4H, 4W, C/8)``."""
+        """image_embeddings ``(1 or B, H, W, C)`` → masks ``(B, sH, sW, T)``,
+        iou ``(B, T)``, upscaled features ``(B, sH, sW, C')`` (s = 4 or 16)."""
         bs = sparse_prompt.shape[0]
         output_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
         tokens = torch.cat([output_tokens[None].expand(bs, -1, -1), sparse_prompt], dim=1)
@@ -109,3 +124,17 @@ class MaskDecoder(_DecoderCore):
         )
         mask_slice = slice(1, None) if multimask_output else slice(0, 1)
         return masks[..., mask_slice], iou_pred[:, mask_slice]
+
+
+class MaskDecoderPromptLarge(_DecoderCore):
+    """CPC-SAM decoder: 4-stage upscaler (output at 16x the embedding grid),
+    hypernetwork width ``dim // 16``; returns every mask token's logits, the
+    IoU predictions and the upscaled dense features."""
+
+    def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3):
+        super().__init__(transformer_dim, transformer, num_multimask_outputs, upscale_stages=4)
+
+    def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
+                dense_prompt_embeddings, multimask_output: bool = True):
+        return self.predict(image_embeddings, image_pe, sparse_prompt_embeddings,
+                            dense_prompt_embeddings)

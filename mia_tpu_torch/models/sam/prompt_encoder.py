@@ -1,5 +1,6 @@
-"""SAM prompt encoder (counterpart of ``mia_tpu/models/sam/prompt_encoder.py``,
-plain ``PromptEncoder`` only). Channel-last: the dense embedding is
+"""SAM prompt encoders (counterpart of ``mia_tpu/models/sam/prompt_encoder.py``):
+the plain ``PromptEncoder`` and CPC-SAM's class-indexed
+``PromptEncoderPromptClass``. Channel-last: the dense embedding is
 ``(B, H, W, C)``. Parameters carry the reference names
 (``point_embeddings.{i}.weight``, ``mask_downscaling.{0,1,3,4,6}``, the
 ``pe_layer.positional_encoding_gaussian_matrix`` buffer)."""
@@ -117,6 +118,63 @@ class PromptEncoder(nn.Module):
             sparse = torch.cat([sparse, self._embed_points(coords, labels, pad=boxes is None)], 1)
         if boxes is not None:
             sparse = torch.cat([sparse, self._embed_boxes(boxes).reshape(bs, -1, self.embed_dim)], 1)
+        if masks is not None:
+            dense = self.mask_downscaling(masks)
+        else:
+            h, w = self.image_embedding_size
+            dense = self.no_mask_embed.weight.reshape(1, 1, 1, -1).expand(bs, h, w, self.embed_dim)
+        return sparse, dense
+
+
+class PromptEncoderPromptClass(PromptEncoder):
+    """Class-indexed prompt encoder: per-class learned point embeddings
+    (``point_embeddings.weight`` ``(num_classes, C)``) and per-class box
+    corner embeddings (``box_corner_embeddings.weight`` ``(2·num_classes, C)``),
+    selected by the prompt labels. Boxes arrive as ``(coords (B, N, 2, 2),
+    labels (B, N))``."""
+
+    def __init__(self, embed_dim: int, image_embedding_size: Tuple[int, int],
+                 input_image_size: Tuple[int, int], mask_in_chans: int, num_classes: int = 4):
+        super().__init__(embed_dim, image_embedding_size, input_image_size, mask_in_chans)
+        self.num_classes = num_classes
+        self.point_embeddings = nn.Embedding(num_classes, embed_dim)
+        self.box_corner_embeddings = nn.Embedding(2 * num_classes, embed_dim)
+
+    def _embed_points(self, points, labels, pad: bool):
+        points = points + 0.5
+        if pad:
+            points = torch.cat([points, points.new_zeros(points.shape[0], 1, 2)], dim=1)
+            labels = torch.cat([labels, -labels.new_ones(labels.shape[0], 1)], dim=1)
+        pe = self.pe_layer.forward_with_coords(points, self.input_image_size)
+        invalid = (labels == -1)[..., None]
+        pe = torch.where(invalid, self.not_a_point_embed.weight[0], pe)
+        class_add = self.point_embeddings.weight[labels.clamp(0, self.num_classes - 1).long()]
+        return pe + torch.where(invalid, 0.0, class_add)
+
+    def _embed_boxes(self, boxes, labels):
+        b, n = boxes.shape[:2]
+        pe = self.pe_layer.forward_with_coords((boxes + 0.5).reshape(b, n * 2, 2),
+                                               self.input_image_size)
+        corners = self.box_corner_embeddings.weight
+        add = torch.stack([corners[: self.num_classes][labels.long()],
+                           corners[self.num_classes:][labels.long()]], dim=2)
+        return (pe.reshape(b, n, 2, -1) + add).reshape(b, n * 2, -1)
+
+    def forward(self, points=None, boxes=None, masks=None):
+        if points is not None:
+            bs, device = points[0].shape[0], points[0].device
+        elif boxes is not None:
+            bs, device = boxes[0].shape[0], boxes[0].device
+        elif masks is not None:
+            bs, device = masks.shape[0], masks.device
+        else:
+            bs, device = 1, self.no_mask_embed.weight.device
+        sparse = torch.empty((bs, 0, self.embed_dim), device=device)
+        if points is not None:
+            coords, labels = points
+            sparse = torch.cat([sparse, self._embed_points(coords, labels, pad=boxes is None)], 1)
+        if boxes is not None:
+            sparse = torch.cat([sparse, self._embed_boxes(*boxes)], 1)
         if masks is not None:
             dense = self.mask_downscaling(masks)
         else:

@@ -1,8 +1,10 @@
-"""Weight bridge flax → torch for the plain SAM.
+"""Weight bridge flax → torch for SAM.
 
-``sam_state_dict_from_flax(variables)`` turns the JAX ``Sam``'s params
-(numpy arrays) into a state dict under the reference SAM parameter names,
-loadable by :class:`mia_tpu_torch.models.sam.Sam` with ``strict=True``:
+``sam_state_dict_from_flax(variables)`` turns the JAX ``Sam``'s or
+``SamDualmask``'s params (numpy arrays) into a state dict under the
+reference SAM parameter names, loadable by
+:class:`mia_tpu_torch.models.sam.Sam` or ``SamDualmask`` with
+``strict=True``:
 
 - Dense kernel ``(in, out)`` → Linear weight ``(out, in)``;
 - Conv kernel HWIO → weight OIHW; the patch embed's ``(P, P, C, D)``
@@ -11,7 +13,11 @@ loadable by :class:`mia_tpu_torch.models.sam.Sam` with ``strict=True``:
   ``(I, O, 2, 2)``, spatially flipped (``y[2i+di] = x·K[1-di]`` in the JAX
   package, ``x·W[di]`` in torch);
 - LayerNorm ``scale`` → ``weight``; token and prompt tables → Embedding
-  weights (``point_embeddings`` ``(4, C)`` → four ``(1, C)``).
+  weights (the plain prompt encoder's ``point_embeddings`` ``(4, C)`` →
+  four ``(1, C)``; the class prompt encoder keeps one ``(4, C)`` table);
+- ``SamDualmask``'s decoders ``mask_decoder{i}``, 4-stage upscalers
+  (``up{k}`` → ``output_upscaling.{3k}``, ``norm{k}`` → ``.{3k+1}``), LoRA
+  adapters and contrastive heads (``bn/scale`` → ``bn.weight``).
 """
 
 from __future__ import annotations
@@ -35,15 +41,16 @@ _RENAMES = (
     (r"/mask_downscaling/conv2/", "/mask_downscaling/3/"),
     (r"/mask_downscaling/norm2/", "/mask_downscaling/4/"),
     (r"/mask_downscaling/conv3/", "/mask_downscaling/6/"),
-    (r"^mask_decoder/core/", "mask_decoder/"),
-    (r"/output_upscaling/up0/", "/output_upscaling/0/"),
-    (r"/output_upscaling/norm0/", "/output_upscaling/1/"),
-    (r"/output_upscaling/up1/", "/output_upscaling/3/"),
+    (r"^(mask_decoder\d*)/core/", r"\1/"),
+    (r"/output_upscaling/up(\d+)/", lambda m: f"/output_upscaling/{3 * int(m[1])}/"),
+    (r"/output_upscaling/norm(\d+)/", lambda m: f"/output_upscaling/{3 * int(m[1]) + 1}/"),
     (r"/hyper_mlp(\d+)/", r"/output_hypernetworks_mlps/\1/"),
     (r"/iou_head/", "/iou_prediction_head/"),
     (r"/layers_(\d+)/", r"/layers/\1/"),
-    (r"^mask_decoder/transformer/layer(\d+)/", r"mask_decoder/transformer/layers/\1/"),
-    (r"/(iou_token|mask_tokens|not_a_point_embed|no_mask_embed)$", r"/\1/weight"),
+    (r"^(mask_decoder\d*)/transformer/layer(\d+)/", r"\1/transformer/layers/\2/"),
+    (r"/(iou_token|mask_tokens|not_a_point_embed|no_mask_embed|box_corner_embeddings)$",
+     r"/\1/weight"),
+    (r"^prompt_encoder/point_embeddings$", "prompt_encoder/point_embeddings/weight"),
     (r"/scale$", "/weight"),
 )
 
@@ -70,11 +77,14 @@ def _convert(path: str, leaf: np.ndarray) -> np.ndarray:
 
 
 def sam_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax ``Sam`` variables (``{"params": ...}``) → reference-named state dict."""
+    """Flax ``Sam``/``SamDualmask`` variables (``{"params": ...}``) →
+    reference-named state dict."""
     sd: dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(variables["params"]).items():
+    flat = _flatten(variables["params"])
+    class_prompts = "prompt_encoder/box_corner_embeddings" in flat
+    for path, leaf in flat.items():
         leaf = _convert(path, leaf)
-        if path == "prompt_encoder/point_embeddings":
+        if path == "prompt_encoder/point_embeddings" and not class_prompts:
             for i in range(leaf.shape[0]):
                 sd[f"prompt_encoder.point_embeddings.{i}.weight"] = torch.tensor(leaf[i: i + 1])
             continue

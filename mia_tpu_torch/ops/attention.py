@@ -13,11 +13,19 @@ float32, with the rel terms taken from the unscaled q.
 - :func:`attention_rel_packed_ik` — plain K2: rel terms computed from the
   gathered ``(q_h·k_h, D)`` and ``(k_w·k_w, D)`` tables, shared across
   heads (windowed blocks).
+- :func:`attention_rel_packed_bwd` and :func:`attention_rel_packed_ik_bwd`
+  — the plain VJPs: recompute the softmax, ``delta = rowsum(g∘o)``,
+  ``ds = p(dp − delta)``, then ``dq``, ``dk``, ``dv`` and the rel-term
+  (K3) or table (K2) gradients.
 - :func:`fused_attention_rel_packed` and
   :func:`fused_attention_rel_packed_ik` — the wrappers of the CUDA kernels
   in ``csrc/attention_rel.cu``, which replace the TPU kernels of the same
   names. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-  the plain version. Each wrapper counts its launches in ``launches``.
+  the plain version. When autograd needs a gradient they run inside a
+  ``torch.autograd.Function`` whose forward also keeps the per-row
+  log-sum-exp and whose backward is :func:`fused_attention_rel_packed_bwd`
+  / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
+  plain VJPs on the CPU). Each wrapper counts its launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -39,19 +47,44 @@ def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
     return three_hd // (3 * num_heads)
 
 
-def attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int) -> torch.Tensor:
-    """Plain K3: ``(B, N, 3·H·D)`` packed qkv + head-major rel terms →
-    ``(B, N, H·D)``."""
+def _softmax_probs(qkv, rel_h, rel_w, scale, k_hw, num_heads):
+    """(q, k, v) as (B, H, N, D) and the attention probabilities (B, H, N, N)."""
     b, n, _ = qkv.shape
     k_h, k_w = k_hw
     if n != k_h * k_w:
         raise ValueError(f"token count {n} != k_h*k_w {k_h * k_w}")
     d = _head_dim(qkv, num_heads)
-    q, k, v = qkv.view(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)  # (B, H, N, D) each
+    q, k, v = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)  # (B, H, N, D) each
     attn = (q * scale) @ k.transpose(-2, -1)
-    bias = rel_h.view(b, num_heads, n, k_h, 1) + rel_w.view(b, num_heads, n, 1, k_w)
-    attn = (attn + bias.view(b, num_heads, n, n)).softmax(-1)
-    return (attn @ v).transpose(1, 2).reshape(b, n, num_heads * d)
+    bias = rel_h.reshape(b, num_heads, n, k_h, 1) + rel_w.reshape(b, num_heads, n, 1, k_w)
+    return q, k, v, (attn + bias.view(b, num_heads, n, n)).softmax(-1)
+
+
+def attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int) -> torch.Tensor:
+    """Plain K3: ``(B, N, 3·H·D)`` packed qkv + head-major rel terms →
+    ``(B, N, H·D)``."""
+    b, n, _ = qkv.shape
+    _, _, v, attn = _softmax_probs(qkv, rel_h, rel_w, scale, k_hw, num_heads)
+    return (attn @ v).transpose(1, 2).reshape(b, n, -1)
+
+
+def attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale: float, k_hw, num_heads: int):
+    """Plain VJP of K3 (the JAX package's ``_rel_packed_bwd`` semantics):
+    cotangent ``g`` of the ``(B, N, H·D)`` output → ``(dqkv, drel_h, drel_w)``
+    in the shapes of ``qkv``, ``rel_h``, ``rel_w``."""
+    b, n, _ = qkv.shape
+    k_h, k_w = k_hw
+    q, k, v, p = _softmax_probs(qkv, rel_h, rel_w, scale, k_hw, num_heads)
+    g4 = g.reshape(b, n, num_heads, -1).transpose(1, 2)
+    o4 = out.reshape(b, n, num_heads, -1).transpose(1, 2)
+    delta = (g4 * o4).sum(-1, keepdim=True)
+    dv = p.transpose(-2, -1) @ g4
+    ds = p * (g4 @ v.transpose(-2, -1) - delta)
+    dq = (ds @ k) * scale
+    dk = (ds.transpose(-2, -1) @ q) * scale
+    dqkv = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(qkv.shape)
+    ds5 = ds.reshape(b * num_heads, n, k_h, k_w)
+    return dqkv, ds5.sum(-1), ds5.sum(-2)
 
 
 def window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads: int):
@@ -74,10 +107,46 @@ def attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw, num_heads
     return attention_rel_packed(qkv, rel_h, rel_w, scale, k_hw, num_heads)
 
 
+def attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale: float, k_hw,
+                                num_heads: int, tables: bool = True):
+    """Plain VJP of K2 (``_rel_packed_ik_bwd`` semantics): the K3 VJP with the
+    rel-term cotangents routed into ``dq`` through the two tables, plus the
+    tables' own gradient when ``tables`` (else ``None, None``)."""
+    b, n, _ = qkv.shape
+    k_h, k_w = k_hw
+    d = _head_dim(qkv, num_heads)
+    q_h = n // k_w
+    rel_h, rel_w = window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads)
+    dqkv, drel_h, drel_w = attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale, k_hw,
+                                                    num_heads)
+    drh5 = drel_h.reshape(b, num_heads, q_h, k_w, k_h)
+    drw5 = drel_w.reshape(b, num_heads, q_h, k_w, k_w)
+    rh3, rw3 = rh_flat.view(q_h, k_h, d), rw_flat.view(k_w, k_w, d)
+    dq5 = (torch.einsum("bhyxk,ykc->byxhc", drh5, rh3)
+           + torch.einsum("bhyxk,xkc->byxhc", drw5, rw3))
+    dqkv = dqkv.clone()
+    dqkv[..., : num_heads * d] += dq5.reshape(b, n, num_heads * d)
+    if not tables:
+        return dqkv, None, None
+    q5 = qkv[..., : num_heads * d].reshape(b, q_h, k_w, num_heads, d)
+    drh = torch.einsum("bhyxk,byxhc->ykc", drh5, q5).reshape(q_h * k_h, d)
+    drw = torch.einsum("bhyxk,byxhc->xkc", drw5, q5).reshape(k_w * k_w, d)
+    return dqkv, drh, drw
+
+
+_ARGTYPES = {  # pointer count of each C entry point, then (batch, n, heads, d, kh, kw), scale, stream
+    "mia_attention_rel_packed_f32": 5,
+    "mia_attention_rel_packed_ik_f32": 5,
+    "mia_attention_rel_packed_bwd_f32": 10,
+    "mia_attention_rel_packed_ik_bwd_f32": 11,
+}
+
+
 @functools.cache
 def _kernel_function(name: str):
     fn = getattr(load_library(), name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * _ARGTYPES[name] + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -91,7 +160,8 @@ def _check_operand(label: str, t: torch.Tensor, shape, device) -> None:
         )
 
 
-def _launch(label, symbol, qkv, rel_a, rel_b, a_shape, b_shape, scale, k_hw, num_heads):
+def _geometry(label, qkv, k_hw, num_heads):
+    """Check what every attention launch needs; return (b, n, d)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{label} needs a CUDA tensor, got {qkv.device}")
     b, n, three_hd = qkv.shape
@@ -104,49 +174,193 @@ def _launch(label, symbol, qkv, rel_a, rel_b, a_shape, b_shape, scale, k_hw, num
     if b >= 65536 or num_heads >= 65536 or b * n * three_hd >= 2 ** 31:
         raise ValueError(f"{label}: qkv shape {tuple(qkv.shape)} exceeds the launch grid or int32")
     _check_operand(f"{label} qkv", qkv, qkv.shape, qkv.device)
-    _check_operand(f"{label} rel operand", rel_a, a_shape, qkv.device)
-    _check_operand(f"{label} rel operand", rel_b, b_shape, qkv.device)
-    out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=qkv.device)
+    return b, n, d
+
+
+def _call(label, symbol, qkv, tensors, k_hw, num_heads, scale):
+    """Call C entry ``symbol`` with the tensors' pointers (None → NULL) on
+    the current stream; raise if it reports an error."""
+    b, n, _ = qkv.shape
+    k_h, k_w = k_hw
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = _kernel_function(symbol)(
-            qkv.data_ptr(), rel_a.data_ptr(), rel_b.data_ptr(), out.data_ptr(),
-            b, n, num_heads, d, k_h, k_w, float(scale), stream,
+            *(None if t is None else t.data_ptr() for t in tensors),
+            b, n, num_heads, _head_dim(qkv, num_heads), k_h, k_w, float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"{label} launch failed: cudaError {err}")
-    return out
 
 
-def _launch_k2(qkv, rh_flat, rw_flat, scale, k_hw, num_heads) -> torch.Tensor:
-    """Launch K2 (``mia_attention_rel_packed_ik_f32``); raise on anything it
-    does not take."""
+def _rel_shapes(kernel, qkv, k_hw, num_heads):
+    """Shapes of K2's two tables or K3's two rel-term tensors."""
+    b, n, _ = qkv.shape
     k_h, k_w = k_hw
-    d = _head_dim(qkv, num_heads)
-    q_h = qkv.shape[1] // k_w
-    out = _launch("K2", "mia_attention_rel_packed_ik_f32", qkv, rh_flat, rw_flat,
-                  (q_h * k_h, d), (k_w * k_w, d), scale, k_hw, num_heads)
+    if kernel == "K2":
+        d = _head_dim(qkv, num_heads)
+        return (n // k_w * k_h, d), (k_w * k_w, d)
+    return (b * num_heads, n, k_h), (b * num_heads, n, k_w)
+
+
+def _launch_forward(kernel, qkv, rel_a, rel_b, scale, k_hw, num_heads, with_lse):
+    b, n, d = _geometry(kernel, qkv, k_hw, num_heads)
+    a_shape, b_shape = _rel_shapes(kernel, qkv, k_hw, num_heads)
+    _check_operand(f"{kernel} rel operand", rel_a, a_shape, qkv.device)
+    _check_operand(f"{kernel} rel operand", rel_b, b_shape, qkv.device)
+    out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b * num_heads, n), dtype=torch.float32, device=qkv.device) if with_lse else None
+    symbol = "mia_attention_rel_packed_ik_f32" if kernel == "K2" else "mia_attention_rel_packed_f32"
+    _call(kernel, symbol, qkv, (qkv, rel_a, rel_b, out, lse), k_hw, num_heads, scale)
+    return (out, lse) if with_lse else out
+
+
+def _launch_k2(qkv, rh_flat, rw_flat, scale, k_hw, num_heads, with_lse=False):
+    """Launch K2 (``mia_attention_rel_packed_ik_f32``); raise on anything it
+    does not take. ``with_lse`` also returns the per-row log-sum-exp
+    ``(B·H, N)`` the backward reads."""
+    out = _launch_forward("K2", qkv, rh_flat, rw_flat, scale, k_hw, num_heads, with_lse)
     fused_attention_rel_packed_ik.launches += 1
     return out
 
 
-def _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads) -> torch.Tensor:
+def _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse=False):
     """Launch K3 (``mia_attention_rel_packed_f32``); raise on anything it
-    does not take."""
-    b, n, _ = qkv.shape
-    k_h, k_w = k_hw
-    out = _launch("K3", "mia_attention_rel_packed_f32", qkv, rel_h, rel_w,
-                  (b * num_heads, n, k_h), (b * num_heads, n, k_w), scale, k_hw, num_heads)
+    does not take. ``with_lse`` as for :func:`_launch_k2`."""
+    out = _launch_forward("K3", qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse)
     fused_attention_rel_packed.launches += 1
     return out
+
+
+def _check_backward(label, qkv, out, g, lse, num_heads):
+    b, n, _ = qkv.shape
+    hd = out.shape[-1]
+    _check_operand(f"{label} out", out, (b, n, hd), qkv.device)
+    _check_operand(f"{label} cotangent", g, (b, n, hd), qkv.device)
+    _check_operand(f"{label} lse", lse, (b * num_heads, n), qkv.device)
+
+
+def _launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads):
+    """Launch K3's backward (``mia_attention_rel_packed_bwd_f32``) → (dqkv,
+    drel_h, drel_w); raise on anything it does not take."""
+    b, n, _ = _geometry("K3 backward", qkv, k_hw, num_heads)
+    a_shape, b_shape = _rel_shapes("K3", qkv, k_hw, num_heads)
+    _check_operand("K3 backward rel_h", rel_h, a_shape, qkv.device)
+    _check_operand("K3 backward rel_w", rel_w, b_shape, qkv.device)
+    _check_backward("K3 backward", qkv, out, g, lse, num_heads)
+    dqkv = torch.empty_like(qkv)
+    drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    delta = torch.empty_like(lse)
+    _call("K3 backward", "mia_attention_rel_packed_bwd_f32", qkv,
+          (qkv, rel_h, rel_w, out, g, lse, dqkv, delta, drel_h, drel_w), k_hw, num_heads, scale)
+    fused_attention_rel_packed_bwd.launches += 1
+    return dqkv, drel_h, drel_w
+
+
+def _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, tables=True):
+    """Launch K2's backward (``mia_attention_rel_packed_ik_bwd_f32``) →
+    (dqkv, drh, drw); the table gradients only when ``tables`` (else None)."""
+    b, n, _ = _geometry("K2 backward", qkv, k_hw, num_heads)
+    k_h, k_w = k_hw
+    a_shape, b_shape = _rel_shapes("K2", qkv, k_hw, num_heads)
+    _check_operand("K2 backward rh_flat", rh_flat, a_shape, qkv.device)
+    _check_operand("K2 backward rw_flat", rw_flat, b_shape, qkv.device)
+    _check_backward("K2 backward", qkv, out, g, lse, num_heads)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(lse)
+    rel = torch.empty((b * num_heads, n, k_h + k_w), dtype=torch.float32, device=qkv.device)
+    drel = torch.empty_like(rel) if tables else None
+    dthw = (torch.empty((a_shape[0] + b_shape[0], a_shape[1]), dtype=torch.float32,
+                        device=qkv.device) if tables else None)
+    _call("K2 backward", "mia_attention_rel_packed_ik_bwd_f32", qkv,
+          (qkv, rh_flat, rw_flat, out, g, lse, dqkv, delta, rel, drel, dthw),
+          k_hw, num_heads, scale)
+    fused_attention_rel_packed_ik_bwd.launches += 1
+    if not tables:
+        return dqkv, None, None
+    return dqkv, dthw[: a_shape[0]], dthw[a_shape[0]:]
+
+
+def fused_attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, lse, scale: float, k_hw,
+                                   num_heads: int):
+    """K3 backward: a CUDA tensor launches the backward kernels of
+    ``csrc/attention_rel.cu`` (and raises if it cannot); a CPU tensor takes
+    :func:`attention_rel_packed_bwd` (``lse`` unused)."""
+    if qkv.device.type == "cpu":
+        return attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale, k_hw, num_heads)
+    return _launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads)
+
+
+def fused_attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale: float, k_hw,
+                                      num_heads: int, tables: bool = True):
+    """K2 backward, as :func:`fused_attention_rel_packed_bwd`; the table
+    gradients are computed only when ``tables``."""
+    if qkv.device.type == "cpu":
+        return attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale, k_hw, num_heads,
+                                           tables)
+    return _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, tables)
+
+
+class _AttentionRelPacked(torch.autograd.Function):
+    """K3 with a gradient: ``(qkv, rel_h, rel_w)`` → context."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_h, rel_w, scale, k_hw, num_heads):
+        qkv, rel_h, rel_w = qkv.contiguous(), rel_h.contiguous(), rel_w.contiguous()
+        if qkv.device.type == "cpu":
+            out, lse = attention_rel_packed(qkv, rel_h, rel_w, scale, k_hw, num_heads), None
+        else:
+            out, lse = _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse=True)
+        ctx.save_for_backward(qkv, rel_h, rel_w, out, lse)
+        ctx.cfg = (scale, k_hw, num_heads)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rel_h, rel_w, out, lse = ctx.saved_tensors
+        dqkv, drel_h, drel_w = fused_attention_rel_packed_bwd(
+            qkv, rel_h, rel_w, out, g.contiguous(), lse, *ctx.cfg)
+        return dqkv, drel_h, drel_w, None, None, None
+
+
+class _AttentionRelPackedIK(torch.autograd.Function):
+    """K2 with a gradient: ``(qkv, rh_flat, rw_flat)`` → context; the tables'
+    gradient is computed only where autograd asks for it (they are frozen
+    under LoRA)."""
+
+    @staticmethod
+    def forward(ctx, qkv, rh_flat, rw_flat, scale, k_hw, num_heads):
+        qkv, rh_flat, rw_flat = qkv.contiguous(), rh_flat.contiguous(), rw_flat.contiguous()
+        if qkv.device.type == "cpu":
+            out = attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
+            lse = None
+        else:
+            out, lse = _launch_k2(qkv, rh_flat, rw_flat, scale, k_hw, num_heads, with_lse=True)
+        ctx.save_for_backward(qkv, rh_flat, rw_flat, out, lse)
+        ctx.cfg = (scale, k_hw, num_heads)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rh_flat, rw_flat, out, lse = ctx.saved_tensors
+        tables = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dqkv, drh, drw = fused_attention_rel_packed_ik_bwd(
+            qkv, rh_flat, rw_flat, out, g.contiguous(), lse, *ctx.cfg, tables=tables)
+        return dqkv, drh, drw, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def fused_attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int) -> torch.Tensor:
     """K3: global rel-pos attention with precomputed head-major rel terms.
 
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
-    cannot); a CPU tensor takes :func:`attention_rel_packed`.
+    cannot); a CPU tensor takes :func:`attention_rel_packed`. Differentiable
+    through the backward kernels when an input requires a gradient.
     """
+    if _needs_grad(qkv, rel_h, rel_w):
+        return _AttentionRelPacked.apply(qkv, rel_h, rel_w, scale, k_hw, num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_packed(qkv, rel_h, rel_w, scale, k_hw, num_heads)
     return _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads)
@@ -158,7 +372,11 @@ def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
 
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
     cannot); a CPU tensor takes :func:`attention_rel_packed_ik`.
+    Differentiable through the backward kernels when an input requires a
+    gradient.
     """
+    if _needs_grad(qkv, rh_flat, rw_flat):
+        return _AttentionRelPackedIK.apply(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
     return _launch_k2(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
@@ -166,3 +384,5 @@ def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
 
 fused_attention_rel_packed.launches = 0
 fused_attention_rel_packed_ik.launches = 0
+fused_attention_rel_packed_bwd.launches = 0
+fused_attention_rel_packed_ik_bwd.launches = 0

@@ -5,6 +5,8 @@ Counterpart of ``mia_tpu/ops/distance.py`` (``squared_edt``,
 medpy's surface metrics. The EDT is separable: a nearest-feature pass along
 the first axis (running max / min scans), then a dense min-plus with
 parabolic offsets along each other axis, chunked to bound memory.
+:func:`squared_edt_2d` runs the same passes over the last two axes of a
+batch of planes (CPC-SAM's prompt generation).
 """
 
 from __future__ import annotations
@@ -55,6 +57,16 @@ def squared_edt(feature: torch.Tensor, spacing=None) -> torch.Tensor:
     for axis in range(1, nd):
         f2 = _minplus_axis0(f2.movedim(axis, 0), sp[axis]).movedim(0, axis)
     return f2
+
+
+def squared_edt_2d(feature: torch.Tensor) -> torch.Tensor:
+    """Exact squared EDT of each 2D plane of ``feature`` ``(..., H, W)``, unit
+    spacing: leading axes are a batch (the JAX package vmaps the 2D EDT)."""
+    f = feature.movedim(-2, 0)  # (H, ..., W)
+    d0 = _nearest_feature_distance_1d(f, 1.0)
+    f2 = torch.where(d0 >= _BIG, torch.full_like(d0, _BIG), d0 * d0)
+    f2 = _minplus_axis0(f2.movedim(-1, 0), 1.0)  # (W, H, ...)
+    return f2.movedim(0, -1).movedim(0, -2)
 
 
 def binary_border(mask: torch.Tensor) -> torch.Tensor:

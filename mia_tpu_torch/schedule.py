@@ -1,7 +1,8 @@
-"""Poly-warmup LR schedule (counterpart of
-``mia_tpu/schedule.py::poly_warmup_schedule``, whose numpy path this is):
-linear warmup ``lr*(i+1)/warmup`` then poly decay
-``lr*(1 - i/(max-warmup))**0.9``, step indices quantised by ``interval``.
+"""LR schedule and ramp-up (counterparts of ``poly_warmup_schedule`` and
+``sigmoid_ramp_up`` in ``mia_tpu/schedule.py``, whose numpy paths these
+are): linear warmup ``lr*(i+1)/warmup`` then poly decay
+``lr*(1 - i/(max-warmup))**0.9``, and ``final*exp(-5*(1 - t)**2)``, step
+indices quantised by ``interval``.
 """
 
 from __future__ import annotations
@@ -26,5 +27,18 @@ def poly_warmup_schedule(
         j = i - adj_warmup
         frac = np.clip(1.0 - j / max(adj_max - adj_warmup, 1), 0.0, 1.0)
         return float(initial_lr * frac**exponent)
+
+    return schedule
+
+
+def sigmoid_ramp_up(final_value: float, max_steps: int, interval: int = 1, exponent: float = 5.0):
+    """``final * exp(-exponent * (1 - t)**2)`` with ``t = min(i, max)/max``."""
+    adj_max = max_steps // interval
+
+    def schedule(step: int) -> float:
+        if adj_max == 0:
+            return float(final_value)
+        i = min(max(int(step) // interval, 0), adj_max)
+        return float(final_value * np.exp(-exponent * (1.0 - i / adj_max) ** 2))
 
     return schedule

@@ -1,6 +1,7 @@
 from .al_config import ALConfig
 from .al_trainer import ALTrainer
 from .base_trainer import BaseTrainer
+from .cpcsam_trainer import CPCSAMConfig, CPCSAMTrainer, patients_to_slices
 from .state import ClippedAdam, TrainState, make_optimizer
 from .steps import eval_step, make_train_step, predict
 
@@ -8,10 +9,13 @@ __all__ = [
     "ALConfig",
     "ALTrainer",
     "BaseTrainer",
+    "CPCSAMConfig",
+    "CPCSAMTrainer",
     "ClippedAdam",
     "TrainState",
     "eval_step",
     "make_optimizer",
     "make_train_step",
+    "patients_to_slices",
     "predict",
 ]

@@ -1,0 +1,134 @@
+"""Where the PyTorch port's CPC-SAM train step spends its time on one GPU.
+
+LoRA-4 ViT-B/512 ``SamDualmask`` (3 decoders, 3 classes) with seeded random
+weights, batch 12 (6 labeled) of seeded blob images, ``--promptmode
+point``, the port's float32 setting (TF32 convolutions, full-float32
+matmuls). For phase 1 and phase 2 it prints the median step time (host
+clock around ``CPCSAMTrainer.train_step`` ending in a synchronise), the
+peak memory, and a ``torch.profiler`` table of device time per step by
+kernel group: the hand-written kernels (K2-K5, forward and backward), the
+cuBLAS GEMMs, the cuDNN convolutions and the rest. Needs a CUDA device.
+
+    python scripts/profile_torch_cpcsam.py [--steps 10] [--profiled 3]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
+
+GROUPS = (  # (label, substrings of the kernel name), first match wins
+    ("K2 forward", ("attention_rel_kernel<64, true",)),
+    ("K3 forward", ("attention_rel_kernel<64, false",)),
+    ("K2 backward, dq pass", ("attention_rel_bwd_dq_kernel<64, true",)),
+    ("K3 backward, dq pass", ("attention_rel_bwd_dq_kernel<64, false",)),
+    ("K2 + K3 backward, dk/dv pass", ("attention_rel_bwd_dkv_kernel",)),
+    ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
+    ("K4 backward", ("ln_window_partition_bwd_kernel", "ln_window_partition_params")),
+    ("K4 forward", ("ln_window_partition_kernel",)),
+    ("K5 connected components", ("connected_components_kernel",)),
+    ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "implicit", "cudnn", "conv")),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "kernel2")),
+)
+
+
+def blob_batch(n=12, size=512, seed=0):
+    """Seeded images (0-255) with three ellipse classes, and their labels."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    labels = np.zeros((n, size, size), np.int64)
+    for i in range(n):
+        for c in (1, 2, 3):
+            cy, cx = rng.uniform(0.3, 0.7, 2) * size
+            ry, rx = rng.uniform(0.05, 0.15, 2) * size
+            labels[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = c
+    images = np.clip(40.0 + 50.0 * labels + rng.normal(0.0, 12.0, labels.shape), 0, 255)
+    return {"image": np.repeat(images.astype(np.float32)[..., None], 3, -1), "label": labels}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=10, help="timed steps per phase")
+    parser.add_argument("--profiled", type=int, default=3, help="profiled steps per phase")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_cpcsam: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(card)
+
+    trainer = CPCSAMTrainer(device="cuda", config=dict(
+        image_size=512, num_classes=3, batch_size=12, labeled_batch_ratio=0.5, lora_rank=4,
+        promptmode=["point"], optimizer_name="adam", max_iter=10**6, lr_warmup_iter=1))
+    trainer.logger = logging.getLogger("profile_torch_cpcsam")
+    trainer.epoch_train_outputs = []
+    trainer._build_model()
+    trainer._setup_loss()
+    trainer._setup_optimizer()
+    batch = blob_batch()
+    batch = {k: torch.as_tensor(v, device=trainer.device) for k, v in batch.items()}
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for phase in (1, 2):
+        trainer.config.warmup_iter = 10**9 if phase == 1 else 0
+
+        def step():
+            trainer.train_step(batch)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_ms = statistics.median(times) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.profiled):
+                step()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        per = args.profiled
+        total = sum(e.self_device_time_total for e in kernels) / 1e3 / per
+        print(f"phase {phase}: step median {step_ms:.2f} ms ({12 / step_ms * 1e3:.1f} img/s, "
+              f"median of {args.steps}); kernel time {total:.2f} ms per step, so the card "
+              f"idles {1 - total / step_ms:.1%} of the step; max_memory_allocated {peak:.2f} GiB")
+        grouped = {group: [0.0, 0] for group, _ in GROUPS}
+        grouped["other (elementwise, reductions, copies, Adam)"] = [0.0, 0]
+        for e in kernels:
+            name = e.key.lower()
+            group = next((g for g, keys in GROUPS if any(k.lower() in name for k in keys)),
+                         "other (elementwise, reductions, copies, Adam)")
+            grouped[group][0] += e.self_device_time_total / 1e3 / per
+            grouped[group][1] += e.count // per
+        print(f"phase {phase} by group (ms per step, share of kernel time, launches per step):")
+        for group, (ms, count) in grouped.items():
+            print(f"  {ms:9.3f} {ms / total:6.1%} {count:6d}  {group}")
+        print(f"phase {phase} by kernel (top 12):")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+            ms = e.self_device_time_total / 1e3 / per
+            print(f"  {ms:9.3f} {ms / total:6.1%} {e.count // per:6d}  {e.key[:100]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""K1-K5 on the card: the CUDA kernels against their plain PyTorch versions.
 
 Needs an NVIDIA GPU with nvcc; skipped without one. On the GPU machine,
 which has no JAX, run it with the repository's conftest switched off:
@@ -114,3 +114,134 @@ def test_attention_kernels_reject_unsupported_head_dim(cuda):
     rel = torch.zeros(2, 16, 4, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         attention.fused_attention_rel_packed(qkv, rel, rel, 0.2, (4, 4), 2)
+
+
+# Backward kernels of K2, K3, K4 against the plain VJPs: max |kernel - plain|
+# <= 1e-4 of max |plain| for each output (float32; the kernels sum in
+# another order and take p from the forward's log-sum-exp).
+BWD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,heads,d,ws,tables", [(108, 12, 64, 14, False), (6, 3, 64, 7, True),
+                                                 (4, 16, 80, 14, True), (3, 2, 64, 2, True)])
+def test_k2_backward_matches_plain_vjp(cuda, b, heads, d, ws, tables):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n = ws * ws
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device=cuda)
+    rh = 0.2 * torch.randn(n, d, generator=gen, device=cuda)
+    rw = 0.2 * torch.randn(n, d, generator=gen, device=cuda)
+    g = torch.randn(b, n, heads * d, generator=gen, device=cuda)
+    args = (d ** -0.5, (ws, ws), heads)
+    out, lse = attention._launch_k2(qkv, rh, rw, *args, with_lse=True)
+    before = attention.fused_attention_rel_packed_ik_bwd.launches
+    got = attention.fused_attention_rel_packed_ik_bwd(qkv, rh, rw, out, g, lse, *args, tables=tables)
+    want = attention.attention_rel_packed_ik_bwd(qkv, rh, rw, out, g, *args, tables=tables)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_rel_packed_ik_bwd.launches == before + 1
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+        else:
+            assert _rel_err(x, y) <= BWD_TOL
+
+
+@pytest.mark.parametrize("b,heads,d,k_hw", [(12, 12, 64, (32, 32)), (2, 4, 64, (20, 27)),
+                                            (2, 2, 80, (5, 9))])
+def test_k3_backward_matches_plain_vjp(cuda, b, heads, d, k_hw):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = k_hw[0] * k_hw[1]
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device=cuda)
+    rel_h = torch.randn(b * heads, n, k_hw[0], generator=gen, device=cuda)
+    rel_w = torch.randn(b * heads, n, k_hw[1], generator=gen, device=cuda)
+    g = torch.randn(b, n, heads * d, generator=gen, device=cuda)
+    args = (d ** -0.5, k_hw, heads)
+    out, lse = attention._launch_k3(qkv, rel_h, rel_w, *args, with_lse=True)
+    before = attention.fused_attention_rel_packed_bwd.launches
+    got = attention.fused_attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, lse, *args)
+    want = attention.attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, *args)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_rel_packed_bwd.launches == before + 1
+    for x, y in zip(got, want):
+        assert _rel_err(x, y) <= BWD_TOL
+
+
+@pytest.mark.parametrize("shape,ws,params", [((12, 32, 32, 768), 14, False),
+                                             ((2, 20, 27, 768), 14, True), ((1, 9, 11, 30), 4, True)])
+def test_k4_backward_matches_plain_vjp(cuda, shape, ws, params):
+    from mia_tpu_torch.ops import ln_window
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=cuda)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.5 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    y, mu, rstd = ln_window._launch_k4(x, scale, bias, ws, 1e-6, with_stats=True)
+    dy = torch.randn(y.shape, generator=gen, device=cuda)
+    before = ln_window.ln_window_partition_fused_bwd.launches
+    got = ln_window.ln_window_partition_fused_bwd(x, dy, mu, rstd, scale, ws, params)
+    want = ln_window.ln_window_partition_bwd(x, dy, mu, rstd, scale, ws, params)
+    torch.cuda.synchronize()
+    assert ln_window.ln_window_partition_fused_bwd.launches == before + 1
+    want_mu, want_rstd = ln_window.layer_norm_stats(x, 1e-6)
+    assert _rel_err(mu, want_mu[..., 0]) <= 1e-5 and _rel_err(rstd, want_rstd[..., 0]) <= 1e-5
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert _rel_err(a, b) <= BWD_TOL
+
+
+def test_encoder_block_gradients_go_through_the_backward_kernels(cuda):
+    from mia_tpu_torch.models.sam.image_encoder import Block
+    from mia_tpu_torch.ops import attention, ln_window
+
+    torch.manual_seed(0)
+    for window in (14, 0):
+        blk = Block(768, 12, window, (32, 32), lora_rank=4).to(cuda)
+        x = torch.randn(2, 32, 32, 768, device=cuda, requires_grad=True)
+        counters = (attention.fused_attention_rel_packed_ik_bwd, attention.fused_attention_rel_packed_bwd,
+                    ln_window.ln_window_partition_fused_bwd)
+        before = [c.launches for c in counters]
+        blk(x).square().mean().backward()
+        torch.cuda.synchronize()
+        after = [c.launches - b for c, b in zip(counters, before)]
+        assert after == ([1, 0, 1] if window else [0, 1, 0])
+        assert torch.isfinite(x.grad).all()
+
+
+def _cc_masks(gen, device, n=144, size=64):
+    yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device),
+                            indexing="ij")
+    masks = []
+    for i in range(n):
+        kind = i % 4
+        if kind == 0:  # blobs
+            c = torch.rand(3, 2, generator=gen, device=device) * size
+            r = 4 + torch.rand(3, generator=gen, device=device) * size / 5
+            m = ((yy[None] - c[:, :1, None]) ** 2 + (xx[None] - c[:, 1:, None]) ** 2 < r[:, None, None] ** 2).any(0)
+        elif kind == 1:  # speckle, not converged in 16 sweeps
+            m = torch.rand(size, size, generator=gen, device=device) < 0.55
+        elif kind == 2:
+            m = torch.zeros(size, size, dtype=torch.bool, device=device)
+        else:
+            m = torch.ones(size, size, dtype=torch.bool, device=device)
+        masks.append(m)
+    return torch.stack(masks).to(torch.int32)
+
+
+@pytest.mark.parametrize("size", [64, 512])
+def test_k5_bit_exact_against_plain(cuda, size):
+    from mia_tpu_torch.ops import morphology
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    masks = _cc_masks(gen, cuda, n=144 if size == 64 else 4, size=size)
+    before = morphology.connected_components_fused.launches
+    got = morphology.connected_components_fused(masks)
+    want = morphology.connected_components(masks)
+    torch.cuda.synchronize()
+    assert morphology.connected_components_fused.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 never runs on the CPU unless asked to, never counts a kernel launch on
-CPU tensors, never launches a kernel on one, and names the host decode
-path it takes."""
+CPU tensors (forward, backward or K5), never launches a kernel on one, and
+names the host decode path it takes."""
 
 import subprocess
 import sys
@@ -15,7 +15,7 @@ from mia_tpu_torch import native
 from mia_tpu_torch.data import BatchLoader, FUGCDataset, decode_path
 from mia_tpu_torch.device import resolve_device
 from mia_tpu_torch.entry.activelearning.train import parse_args, train_entry
-from mia_tpu_torch.ops import attention, ln_window
+from mia_tpu_torch.ops import attention, ln_window, morphology
 from mia_tpu_torch.ops.warp import _launch_k1, affine_warp_shift2pass_fused
 
 REPO = Path(__file__).resolve().parents[1]
@@ -25,13 +25,17 @@ from synth_data import make_fugc  # noqa: E402
 
 def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
     # the pytest process has JAX from conftest.py, hence a fresh interpreter,
-    # which also drives two tiny AL rounds through the entry point and
-    # serves a tiny SAM on the CPU
+    # which imports every module of the port, drives two tiny AL rounds and
+    # a tiny CPC-SAM run (one phase-1 and one phase-2 step) through their
+    # entry points, and serves a tiny SAM on the CPU
     code = f"""
-import dataclasses, sys
+import dataclasses, importlib, pkgutil, sys
 import numpy as np
 sys.path.insert(0, "tests")
-from synth_data import make_fugc
+import mia_tpu_torch
+for info in pkgutil.walk_packages(mia_tpu_torch.__path__, "mia_tpu_torch."):
+    importlib.import_module(info.name)
+from synth_data import make_acdc, make_fugc
 from mia_tpu_torch.entry.activelearning.train import train_entry
 from mia_tpu_torch.training import ALTrainer
 full = ALTrainer._unet_config
@@ -44,6 +48,18 @@ train_entry(["--work-path", {str(tmp_path)!r}, "--data-path", {str(tmp_path / "d
              "--num-rounds", "2", "--budget", "2", "--num-iters", "2",
              "--valid-freq-iter", "1", "--active-selector", "entropy",
              "--do-augment", "--do-normalize", "--quiet"])
+from mia_tpu_torch.entry.cpcsam.train import train_entry as cpcsam_entry
+from mia_tpu_torch.models.sam import build_sam
+from mia_tpu_torch.training import cpcsam_trainer
+build_sam._VIT_SPECS["vit_b"] = dict(embed_dim=32, depth=2, num_heads=2, global_idx=(1,))
+cpcsam_trainer.PATIENTS_TO_SLICES["ACDC"]["1"] = 2
+acdc = __import__("pathlib").Path({str(tmp_path)!r}) / "acdc"
+make_acdc(acdc, n_slices=4, n_vols=1, size=(64, 64), depth=2)
+cpc = cpcsam_entry(["--work-path", {str(tmp_path / "cpc")!r}, "--data-path", str(acdc),
+                    "--device", "cpu", "--image-size", "64", "--batch-size", "2",
+                    "--lora-rank", "2", "--warmup-iter", "1", "--min-iter", "2",
+                    "--max-iter", "2", "--valid-freq-iter", "2", "--quiet"])
+assert (cpc.work_path / "test_mean.csv").is_file()
 from mia_tpu_torch.models.sam import Sam, SamPredictor
 predictor = SamPredictor(Sam(img_size=64, num_classes=3, encoder_embed_dim=32, encoder_depth=2,
                              encoder_num_heads=2, encoder_global_attn_indexes=(1,)), max_points=4)
@@ -98,16 +114,45 @@ def test_k2_k3_k4_counters_stay_zero_on_cpu_tensors():
     assert attention.fused_attention_rel_packed.launches == 0
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_backward_and_k5_counters_stay_zero_on_cpu_tensors():
+    """Gradients through the K2, K3 and K4 wrappers and K5's wrapper on CPU
+    tensors take the plain versions: no counter moves."""
+    counters = (attention.fused_attention_rel_packed_ik, attention.fused_attention_rel_packed,
+                ln_window.ln_window_partition_fused, attention.fused_attention_rel_packed_ik_bwd,
+                attention.fused_attention_rel_packed_bwd, ln_window.ln_window_partition_fused_bwd,
+                morphology.connected_components_fused)
+    before = [c.launches for c in counters]
+    x = torch.rand(1, 9, 11, 16, requires_grad=True)
+    windows = ln_window.ln_window_partition_fused(x, torch.ones(16), torch.zeros(16), 4)
+    qkv = torch.rand(9, 16, 3 * 2 * 8, requires_grad=True)
+    tab = torch.rand(16, 8)
+    rel = torch.rand(18, 16, 4, requires_grad=True)
+    out = (attention.fused_attention_rel_packed_ik(qkv, tab, tab, 0.3, (4, 4), 2).sum()
+           + attention.fused_attention_rel_packed(qkv, rel, rel, 0.3, (4, 4), 2).sum()
+           + windows.sum())
+    out.backward()
+    assert x.grad is not None and qkv.grad is not None and rel.grad is not None
+    labels = morphology.connected_components_fused((torch.rand(2, 12, 12) > 0.5).int())
+    assert labels.dtype == torch.int32 and labels.shape == (2, 12, 12)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K2b", "K3b", "K4b", "K5"])
 def test_kernel_launchers_raise_on_cpu_tensors(kernel):
     qkv, tab, rel = torch.rand(1, 16, 3 * 2 * 16), torch.rand(16, 16), torch.rand(2, 16, 4)
     idx = torch.zeros(1, 8, dtype=torch.int32)
+    out, g, lse = torch.rand(1, 16, 32), torch.rand(1, 16, 32), torch.rand(2, 16)
+    x, ones = torch.rand(1, 8, 8, 16), torch.ones(16)
     launch = {
         "K1": lambda: _launch_k1(torch.rand(1, 8, 8, 4), idx, idx, idx, idx),
         "K2": lambda: attention._launch_k2(qkv, tab, tab, 0.25, (4, 4), 2),
         "K3": lambda: attention._launch_k3(qkv, rel, rel, 0.25, (4, 4), 2),
-        "K4": lambda: ln_window._launch_k4(torch.rand(1, 8, 8, 16), torch.ones(16),
-                                           torch.zeros(16), 4, 1e-6),
+        "K4": lambda: ln_window._launch_k4(x, ones, torch.zeros(16), 4, 1e-6),
+        "K2b": lambda: attention._launch_k2_bwd(qkv, tab, tab, out, g, lse, 0.25, (4, 4), 2),
+        "K3b": lambda: attention._launch_k3_bwd(qkv, rel, rel, out, g, lse, 0.25, (4, 4), 2),
+        "K4b": lambda: ln_window._launch_k4_bwd(x, torch.rand(4, 4, 4, 16), torch.rand(1, 8, 8),
+                                                torch.rand(1, 8, 8), ones, 4),
+        "K5": lambda: morphology._launch_k5(torch.ones(2, 8, 8, dtype=torch.int32)),
     }[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         launch()
