@@ -11,8 +11,18 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    identity, an all-out-of-source map and odd shapes — bit for bit; and K2,
    K3, K4 (windowed and global rel-pos attention, LayerNorm + window
    partition) against theirs at the ViT-B/512 serving shapes for batch 1 and
-   8, a 20x27 token grid and 4096 global tokens, within 1e-5 of max |plain|.
-   Times each kernel and its plain version in turns with CUDA events.
+   8, a 20x27 token grid, 4096 global tokens and the ViT-H head dim 80 (16
+   heads), within 1e-5 of max |plain|. K6, K7, K8, K9 (head-major rel-pos
+   attention, dense-bias attention, grid-native windowed attention,
+   unpartition + residual + LayerNorm) the same way at the serving shapes
+   for batch 1 and 8, a 20x27 grid (K8, K9), a non-aligned token count (K6,
+   K7) and head dim 80, through the public wrappers; K9's x_new bit for bit.
+   Times each kernel and its plain version in turns with CUDA events, and,
+   for the attention kernels, one ``scaled_dot_product_attention`` call on
+   the same inputs with the dense bias built beforehand (``library_ms``;
+   the port never calls it). Computes each kernel's bound from the timed
+   tensors: bytes over 3.35 TB/s or operations over 67 TFLOP/s (float32
+   outside the tensor cores, what every kernel here computes in).
    Training kernels: the backward kernels of K2, K3 and K4 against their
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
    1e-4 of max |plain| for each output, and K5 (connected components, 16
@@ -45,8 +55,22 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    per ``set_image``, and the embedding, masks and iou on the card against
    the same weights on the CPU. Prints the latencies and the encoder's
    img/s at batch 8.
-6. Prints one JSON line with the kernels (K1-K5, forward and backward,
-   with their launches in the paths that ran them), then the result line
+6. Encoder-route phase: loads the SAM phase's weights into an
+   ``ImageEncoderViT`` of each other route (K9 exit; grid-native K8, once
+   by argument and once by ``MIA_WINDOWED_ATTN=1``; head-major K6; no
+   rel-pos K7), puts it in the model's place and runs ``set_image`` on the
+   480x640 frame: exact launch counts, the embedding within 1e-4 of the
+   default's (the no-rel-pos variant against the default with zeroed
+   tables), and each variant's ``set_image`` median beside the default's.
+   AMG phase: ``SamAutomaticMaskGenerator(predictor, points_per_side=32,
+   points_per_batch=64)`` on a seeded 512x512 frame (16 chunks; median of 3
+   ``generate`` calls, candidate masks per second), one ``generate`` with
+   keep-everything thresholds at 16x16 points (gather, NMS, boxes, RLE:
+   every record consistent), one chunk's scores on the card against the
+   CPU, and one run on the grid-native encoder (K8 under AMG).
+7. Prints one JSON line with the kernels (K1-K9, forward, and the backward
+   kernels of K2-K4, with their launches in the paths that ran them, their
+   bounds and library times), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -57,8 +81,10 @@ also writes the trainers' logs and the JSON lines into DIR.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -86,16 +112,30 @@ KERNELS = {
             "mia_tpu/ops/ln_window.py:178"),
     "K5": ("connected_components_pallas (K5)", "mia_tpu_torch/csrc/connected_components.cu",
            "mia_tpu/ops/morphology.py:235"),
+    "K6": ("fused_attention_rel (K6)", "mia_tpu_torch/csrc/attention_routes.cu",
+           "mia_tpu/ops/attention.py:296"),
+    "K7": ("fused_attention (K7)", "mia_tpu_torch/csrc/attention_routes.cu",
+           "mia_tpu/ops/attention.py:88"),
+    "K8": ("fused_attention_rel_win (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
+           "mia_tpu/ops/attention.py:1334"),
+    "K9": ("unpartition_add_ln (K9)", "mia_tpu_torch/csrc/unpartition_residual.cu",
+           "mia_tpu/ops/unpartition_residual.py:221"),
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what every kernel here computes in
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
 BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order, p from the lse)
 
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel key."""
-    from mia_tpu_torch.ops import attention, ln_window, morphology, warp
+    from mia_tpu_torch.ops import attention, ln_window, morphology, unpartition_residual, warp
 
-    return {"K1": warp.affine_warp_shift2pass_fused,
+    return {"K6": attention.fused_attention_rel,
+            "K7": attention.fused_attention,
+            "K8": attention.fused_attention_rel_win,
+            "K9": unpartition_residual.unpartition_add_ln,
+            "K1": warp.affine_warp_shift2pass_fused,
             "K2": attention.fused_attention_rel_packed_ik,
             "K2b": attention.fused_attention_rel_packed_ik_bwd,
             "K3": attention.fused_attention_rel_packed,
@@ -138,6 +178,87 @@ def time_ms(fn, torch, blocks=11, per_block=50, warmup=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / per_block)
     return statistics.median(times)
+
+
+def turns_ms(torch, kernel, plain, per_block, plain_per_block=None):
+    """Kernel and plain version timed in turns (plain, kernel, kernel, plain);
+    a plain version of tens of milliseconds takes fewer calls a block."""
+    per_plain = plain_per_block or per_block
+    plain_a = time_ms(plain, torch, per_block=per_plain, warmup=min(10, per_plain))
+    k_a = time_ms(kernel, torch, per_block=per_block)
+    k_b = time_ms(kernel, torch, per_block=per_block)
+    plain_b = time_ms(plain, torch, per_block=per_plain, warmup=min(10, per_plain))
+    return (k_a, k_b), (plain_a, plain_b)
+
+
+def bound(tensors, flops):
+    """The least time (ms) the card could take: every tensor of ``tensors``
+    (the inputs and the outputs) crossing device memory once at 3.35 TB/s, or
+    ``flops`` float32 operations at 67 TFLOP/s, whichever is larger, and
+    which of the two it is."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def attention_flops(batch_heads, queries, keys, d, backward=False):
+    """q.kT and p.v (forward: 4·D a query-key pair); the backward recomputes
+    the scores and adds dp, dv, dq, dk (10·D a pair)."""
+    return batch_heads * queries * keys * (10 if backward else 4) * d
+
+
+def describe_yardsticks(m):
+    lib = "none" if m["library_ms"] is None else f"{m['library_ms'] * 1e3:.2f} us"
+    return (f"bound {m['bound_ms'] * 1e3:.2f} us by {m['bound_by']}, library call {lib}")
+
+
+def forward_holder(torch, worst):
+    """``hold(name, label, got, want)``: fail unless the forward kernel's
+    output is finite, of the plain version's shape and within ``KERNEL_TOL``
+    of max |plain|; keeps the worst absolute and relative error by kernel."""
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{name} {label}: shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
+        err = (got - want).abs().max().item()
+        ref = want.abs().max().item()
+        check(err <= KERNEL_TOL * ref,
+              f"{name} {label}: max |kernel - plain| {err} > {KERNEL_TOL} x max |plain| {ref}")
+        worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
+
+    return hold
+
+
+def head_major(qkv, heads):
+    """Packed (B, N, 3·H·D) qkv → contiguous q, k, v (B, H, N, D)."""
+    b, n, _ = qkv.shape
+    return tuple(t.contiguous() for t in qkv.view(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4))
+
+
+def dense_bias(rel_h, rel_w, batch, heads):
+    """Factored rel terms (B·H, N, k_h), (B·H, N, k_w) → (B, H, N, N)."""
+    n = rel_h.shape[1]
+    return (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(batch, heads, n, n).contiguous()
+
+
+def sdpa_ms(torch, q, k, v, bias, scale, per_block):
+    """One ``F.scaled_dot_product_attention`` call on (B, H, N, D) operands
+    and a dense additive bias built beforehand: the library yardstick."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale), torch, per_block=per_block)
+
+
+def sdpa_backward_ms(torch, q, k, v, bias, scale, g, per_block):
+    """Autograd through one ``scaled_dot_product_attention`` call (dq, dk, dv
+    and the bias gradient) for the cotangent ``g``; the forward is outside
+    the timed call."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                                           scale=scale)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), torch,
+                   per_block=per_block)
 
 
 # ---------------------------------------------------------------------------
@@ -215,15 +336,15 @@ def kernel_phase(torch, device):
 
     img, mats = cases[0][1], cases[0][2]
     idx = warp._warp_shift2pass_indices(mats, h, w)
-    plain_a = time_ms(lambda: warp._shift2pass_gather(img, *idx), torch)
-    k1_a = time_ms(lambda: warp._launch_k1(img, *idx), torch)
-    k1_b = time_ms(lambda: warp._launch_k1(img, *idx), torch)
-    plain_b = time_ms(lambda: warp._shift2pass_gather(img, *idx), torch)
+    (k1_a, k1_b), (plain_a, plain_b) = turns_ms(torch, lambda: warp._launch_k1(img, *idx),
+                                                lambda: warp._shift2pass_gather(img, *idx), 50)
     k1_ms, plain_ms = min(k1_a, k1_b), min(plain_a, plain_b)
     print(f"K1 bit-exact vs plain on {len(cases)} cases (max |diff| {max_err})")
     print(f"K1 at (12, 256, 256, 4): kernel {k1_a * 1e3:.2f} / {k1_b * 1e3:.2f} us, "
           f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x 50 launches)")
-    return {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms}
+    # one gather per output element: no arithmetic to speak of
+    return {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound([img, img, *idx], 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -402,16 +523,7 @@ def sam_kernel_phase(torch, device):
     scale = d ** -0.5
     worst = {k: [0.0, 0.0] for k in ("K2", "K3", "K4")}  # max abs err, max relative err
 
-    def hold(name, label, got, want):
-        torch.cuda.synchronize()
-        check(got.shape == want.shape, f"{name} {label}: shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
-        err = (got - want).abs().max().item()
-        ref = want.abs().max().item()
-        check(err <= KERNEL_TOL * ref,
-              f"{name} {label}: max |kernel - plain| {err} > {KERNEL_TOL} x max |plain| {ref}")
-        worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
-
+    hold = forward_holder(torch, worst)
     ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
     rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
     inputs = {}
@@ -434,6 +546,39 @@ def sam_kernel_phase(torch, device):
         args = (qkv, rel_h, rel_w, scale, (side, side), heads)
         hold("K3", label, attention._launch_k3(*args), attention.attention_rel_packed(*args))
         inputs[("K3", label)] = args
+    # the head-dim-80 instances of the template (ViT-H at 512²: 16 heads)
+    h_heads, h_d = 16, 80
+    qkv = randn(9, ws * ws, 3 * h_heads * h_d)
+    rh80, rw80 = randn(ws * ws, h_d, scale=0.1), randn(ws * ws, h_d, scale=0.1)
+    args = (qkv, rh80, rw80, h_d ** -0.5, (ws, ws), h_heads)
+    hold("K2", "head dim 80", attention._launch_k2(*args), attention.attention_rel_packed_ik(*args))
+    qkv = randn(1, 1024, 3 * h_heads * h_d)
+    args = (qkv, randn(h_heads, 1024, 32), randn(h_heads, 1024, 32), h_d ** -0.5, (32, 32), h_heads)
+    hold("K3", "head dim 80", attention._launch_k3(*args), attention.attention_rel_packed(*args))
+    print("K2 and K3 at head dim 80 (16 heads; 9 windows of 196 tokens, 1024 global tokens) "
+          f"within {KERNEL_TOL} of max |plain|")
+
+    def bound_and_library(name):
+        """The bound of the B=1 launch and, for K2 and K3, the library call
+        on the same operands (the dense bias is built outside the timed call)."""
+        args = inputs[(name, "B=1")]
+        if name == "K4":
+            x = args[0]
+            out = ln_window.ln_window_partition(*args)
+            # sum, sum of squares, normalise, scale and shift: ~8 operations an element;
+            # no single PyTorch call normalises and partitions
+            return {"library_ms": None, **bound([x, args[1], args[2], out], 8 * x.numel())}
+        qkv, rel_a, rel_b, sc, k_hw, n_heads = args
+        b, n, _ = qkv.shape
+        flops = attention_flops(b * n_heads, n, n, d)
+        if name == "K2":  # the rel terms are part of the function: 2·D a (query, k_h + k_w) pair
+            flops += b * n_heads * n * sum(k_hw) * 2 * d
+            rel_h, rel_w = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
+        else:
+            rel_h, rel_w = rel_a, rel_b
+        out = torch.empty(b, n, n_heads * d, device=device)
+        lib = sdpa_ms(torch, *head_major(qkv, n_heads), dense_bias(rel_h, rel_w, b, n_heads), sc, 50)
+        return {"library_ms": lib, **bound([qkv, rel_a, rel_b, out], flops)}
 
     fns = {"K2": (attention._launch_k2, attention.attention_rel_packed_ik),
            "K3": (attention._launch_k3, attention.attention_rel_packed),
@@ -443,16 +588,15 @@ def sam_kernel_phase(torch, device):
         for label in ("B=1", "B=8"):
             args = inputs[(name, label)]
             per_block = 50 if label == "B=1" else 10
-            plain_a = time_ms(lambda: plain(*args), torch, per_block=per_block)
-            k_a = time_ms(lambda: kernel(*args), torch, per_block=per_block)
-            k_b = time_ms(lambda: kernel(*args), torch, per_block=per_block)
-            plain_b = time_ms(lambda: plain(*args), torch, per_block=per_block)
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*args),
+                                                      lambda: plain(*args), per_block)
             print(f"{name} at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, "
                   f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
                   f"(median of 11 x {per_block} launches)")
             if label == "B=1":
                 out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
-                             "plain_ms": min(plain_a, plain_b)}
+                             "plain_ms": min(plain_a, plain_b), **bound_and_library(name)}
+                print(f"{name} at ViT-B/512 B=1: {describe_yardsticks(out[name])}")
         print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})")
     return out
@@ -570,6 +714,32 @@ def train_kernel_phase(torch, device):
         print(f"K5 bit-exact vs plain on {label}; 16 sweeps leave some mask unconverged: "
               f"{unconverged}")
 
+    def bound_and_library(name, args):
+        """The bound of the B=12 launch and, for K2b and K3b, autograd through
+        the library call on the same operands."""
+        if name == "K4b":
+            x, dy, mu, rstd, ln_w = args[:5]
+            # two row reductions and the VJP's combination: ~12 operations an element;
+            # of the windowed cotangent only the real tokens' slots are needed (the pad
+            # slots never reach dx), as many elements as x has; no single PyTorch call
+            # is this VJP on the windowed cotangent
+            check(dy.numel() > x.numel(), "K4b: the timed shape has no pad slots")
+            return {"library_ms": None, **bound([x, x, mu, rstd, ln_w, x], 12 * x.numel())}
+        qkv, rel_a, rel_b, o, g, _, sc, k_hw, n_heads = args[:9]
+        b, n, _ = qkv.shape
+        flops = attention_flops(b * n_heads, n, n, d, backward=True)
+        if name == "K2b":  # the rel terms again, and their cotangent routed into dq
+            flops += b * n_heads * n * sum(k_hw) * 4 * d
+            rel_h, rel_w = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
+            moved = [qkv, rel_a, rel_b, o, g, qkv]  # lse is the forward's by-product
+        else:
+            rel_h, rel_w = rel_a, rel_b
+            moved = [qkv, rel_a, rel_b, o, g, qkv, rel_a, rel_b]
+        g4 = g.view(b, n, n_heads, d).transpose(1, 2).contiguous()
+        lib = sdpa_backward_ms(torch, *head_major(qkv, n_heads),
+                               dense_bias(rel_h, rel_w, b, n_heads), sc, g4, 10)
+        return {"library_ms": lib, **bound(moved, flops)}
+
     fns = {"K2b": (attention._launch_k2_bwd, attention.attention_rel_packed_ik_bwd),
            "K3b": (attention._launch_k3_bwd, attention.attention_rel_packed_bwd),
            "K4b": (ln_window._launch_k4_bwd, ln_window.ln_window_partition_bwd)}
@@ -578,26 +748,152 @@ def train_kernel_phase(torch, device):
         for label in ("B=12", "B=6"):
             args = timed[(name, label)]
             k_args, p_args = args if name != "K4b" else (args, args)
-            plain_a = time_ms(lambda: plain(*p_args), torch, per_block=10)
-            k_a = time_ms(lambda: kernel(*k_args), torch, per_block=10)
-            k_b = time_ms(lambda: kernel(*k_args), torch, per_block=10)
-            plain_b = time_ms(lambda: plain(*p_args), torch, per_block=10)
+            per_block = 10 if label == "B=12" else 5
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*k_args),
+                                                      lambda: plain(*p_args), per_block)
             print(f"{name} at ViT-B/512 training {label}: kernel {k_a * 1e3:.2f} / "
                   f"{k_b * 1e3:.2f} us, plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
-                  "(median of 11 x 10 launches)")
+                  f"(median of 11 x {per_block} launches)")
             if label == "B=12":
                 out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
-                             "plain_ms": min(plain_a, plain_b)}
+                             "plain_ms": min(plain_a, plain_b), **bound_and_library(name, k_args)}
+                print(f"{name} at ViT-B/512 training B=12: {describe_yardsticks(out[name])}")
         print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})")
     masks = k5_cases["(144, 64, 64)"]
-    plain_a = time_ms(lambda: morphology.connected_components(masks), torch, per_block=10)
-    k_a = time_ms(lambda: morphology._launch_k5(masks), torch, per_block=10)
-    k_b = time_ms(lambda: morphology._launch_k5(masks), torch, per_block=10)
-    plain_b = time_ms(lambda: morphology.connected_components(masks), torch, per_block=10)
-    print(f"K5 at (144, 64, 64): kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, plain "
-          f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x 10 launches)")
-    out["K5"] = {"max_abs_err": 0.0, "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b)}
+    (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: morphology._launch_k5(masks),
+                                              lambda: morphology.connected_components(masks), 10,
+                                              plain_per_block=2)
+    print(f"K5 at (144, 64, 64): kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us (median of 11 x 10 "
+          f"launches), plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x 2 calls)")
+    # 16 sweeps of four directional scans and a diagonal min: ~8 integer operations a
+    # pixel and sweep, counted at the CUDA cores' float32 rate; no PyTorch call labels
+    # connected components
+    out["K5"] = {"max_abs_err": 0.0, "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                 "library_ms": None, **bound([masks, masks], 16 * 8 * masks.numel())}
+    print(f"K5 at (144, 64, 64): {describe_yardsticks(out['K5'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6, K7, K8, K9 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def route_kernel_phase(torch, device):
+    from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops import unpartition_residual as upr
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return scale * torch.randn(shape, generator=gen, device=device) + shift
+
+    heads, ws, c = 12, 14, 768
+    worst = {k: [0.0, 0.0] for k in ("K6", "K7", "K8", "K9")}
+    hold = forward_holder(torch, worst)
+    inputs = {}
+
+    # K6 and K7: head-major operands of one ViT-B/512 image (9 windows x 12
+    # heads of 196 tokens; 12 heads of 1024 global tokens), of 8 images, a
+    # token count no tile divides, and the ViT-H head dim
+    for label, bh, d, k_hw in (("B=1 windows", 108, 64, (14, 14)), ("B=1 global", 12, 64, (32, 32)),
+                               ("B=8 windows", 864, 64, (14, 14)), ("B=8 global", 96, 64, (32, 32)),
+                               ("N=120 (10x12)", 6, 64, (10, 12)),
+                               ("head dim 80", 144, 80, (14, 14))):
+        n = k_hw[0] * k_hw[1]
+        q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
+        args = (q, k, v, randn(bh, n, k_hw[0]), randn(bh, n, k_hw[1]), d ** -0.5, k_hw)
+        hold("K6", label, attention.fused_attention_rel(*args), attention.attention_rel(*args))
+        inputs[("K6", label)] = args
+        args = (q, k, v, randn(bh, n, n), d ** -0.5)
+        hold("K7", label, attention.fused_attention(*args), attention.attention_dense(*args))
+        inputs[("K7", label)] = args
+    # K8: the unpartitioned qkv grid; 32x32 pads each edge window, 20x27 both ways
+    for label, b, hw, n_heads, d in (("B=1", 1, (32, 32), heads, 64), ("B=8", 8, (32, 32), heads, 64),
+                                     ("grid 20x27", 2, (20, 27), heads, 64),
+                                     ("head dim 80", 1, (32, 32), 16, 80)):
+        args = (randn(b, *hw, 3 * n_heads * d), randn(b * n_heads, *hw, ws),
+                randn(b * n_heads, *hw, ws), randn(3, n_heads * d, scale=0.5), d ** -0.5, ws, n_heads)
+        hold("K8", label, attention.fused_attention_rel_win(*args),
+             attention.attention_rel_win(*args))
+        inputs[("K8", label)] = args
+    # K9: windows whose pad slots hold values that must not reach the output
+    ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
+    for label, shape in (("B=1", (1, 32, 32, c)), ("B=8", (8, 32, 32, c)),
+                         ("grid 20x27", (2, 20, 27, c))):
+        n_win = shape[0] * -(-shape[1] // ws) * -(-shape[2] // ws)
+        args = (randn(n_win, ws, ws, c), randn(*shape), ln_scale, ln_bias, ws, 1e-6)
+        got_x, got_y = upr.unpartition_add_ln(*args)
+        want_x, want_y = upr.unpartition_add_ln_plain(*args)
+        hold("K9", label, got_y, want_y)
+        check(torch.equal(got_x, want_x), f"K9 {label}: x_new is not bit-exact against the plain add")
+        inputs[("K9", label)] = args
+
+    def windows_for_library(qkv, rel_h, rel_w, bias_kv, n_heads):
+        """K8's operands partitioned ahead of the library call: (B·nW, H, ws², D)
+        q, k, v with the pad slots filled, and the dense (B·nW, H, ws², ws²) bias."""
+        windows, rel_h, rel_w = attention.partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, n_heads)
+        return (*head_major(windows, n_heads), dense_bias(rel_h, rel_w, windows.shape[0], n_heads))
+
+    def bound_and_library(name, args, per_block):
+        """The launch's bound and the library call on the same operands (the
+        dense bias, and K8's partition, are built outside the timed call)."""
+        if name == "K9":
+            x = args[1]
+            # every real token: two reads, two writes; add, sum, sum of squares,
+            # normalise, scale and shift: ~9 operations an element; no single
+            # PyTorch call unpartitions, adds and normalises
+            return {"library_ms": None, **bound([x, x, x, x, args[2], args[3]], 9 * x.numel())}
+        if name == "K8":
+            qkv, rel_h, rel_w, bias_kv, sc, _, n_heads = args
+            b, hg, wg, three_hd = qkv.shape
+            d = three_hd // (3 * n_heads)
+            out = torch.empty(b, hg, wg, n_heads * d, device=device)
+            # only the real queries are computed, against the ws² slots of their window
+            flops = attention_flops(b * n_heads, hg * wg, ws * ws, d)
+            lib = sdpa_ms(torch, *windows_for_library(qkv, rel_h, rel_w, bias_kv, n_heads), sc,
+                          per_block)
+            return {"library_ms": lib, **bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
+        q, k, v = (t[None] for t in args[:3])
+        bh, n, d = args[0].shape
+        if name == "K6":
+            bias, sc = dense_bias(args[3], args[4], 1, bh), args[5]
+            moved = [*args[:5], args[0]]
+        else:
+            bias, sc = args[3][None], args[4]
+            moved = [*args[:4], args[0]]
+        lib = sdpa_ms(torch, q, k, v, bias, sc, per_block)
+        return {"library_ms": lib, **bound(moved, attention_flops(bh, n, n, d))}
+
+    fns = {"K6": (attention._launch_k6, attention.attention_rel),
+           "K7": (attention._launch_k7, attention.attention_dense),
+           "K8": (attention._launch_k8, attention.attention_rel_win),
+           "K9": (upr._launch_k9, upr.unpartition_add_ln_plain)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        labels = (("B=1 windows", "B=1 global", "B=8 windows", "B=8 global") if name in ("K6", "K7")
+                  else ("B=1", "B=8"))
+        for label in labels:
+            args = inputs[(name, label)]
+            per_block = 50 if label.startswith("B=1") else 5
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*args),
+                                                      lambda: plain(*args), per_block)
+            print(f"{name} at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, "
+                  f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
+                  f"(median of 11 x {per_block} launches)")
+            if label.startswith("B=1"):
+                m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                     **bound_and_library(name, args, per_block)}
+                print(f"{name} at ViT-B/512 {label}: {describe_yardsticks(m)}")
+                if label == "B=1 global":  # the same kernel at the global blocks' shape
+                    out[name]["global_tokens"] = m
+                else:
+                    out[name] = {"max_abs_err": worst[name][0], **m}
+        print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
+              f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
+              + ("; x_new bit-exact" if name == "K9" else ""))
     return out
 
 
@@ -770,8 +1066,269 @@ def sam_phase(torch, device):
           f"(TF32 convs), max |emb| {scale:.3g}; mask logits relative {logit_err:.3g}, iou "
           f"{iou_err:.3g}, {bit_flips} mask bits flipped near 0; resized input values "
           f"one step apart at an exact integer: {flips} of {differ.size}")
-    return {"launches": launches, "set_image_ms": set_s * 1e3, "predict_ms": predict_s * 1e3,
-            "predict_batch_ms": batch_s * 1e3, "encoder_img_per_s_b8": 8 / enc_s}
+    return ({"launches": launches, "set_image_ms": set_s * 1e3, "predict_ms": predict_s * 1e3,
+             "predict_batch_ms": batch_s * 1e3, "encoder_img_per_s_b8": 8 / enc_s},
+            model, cpu_model)
+
+
+# ---------------------------------------------------------------------------
+# encoder-route phase: set_image through every other route of the encoder
+# ---------------------------------------------------------------------------
+
+# label, the encoder's options, whether MIA_WINDOWED_ATTN=1 is set around the
+# call, kernel launches of one set_image (8 windowed and 4 global blocks)
+ROUTE_VARIANTS = (
+    ("K9 exit", dict(fuse_unpart_residual="always"), False, {"K4": 8, "K2": 8, "K9": 8, "K3": 4}),
+    ("grid-native by argument", dict(fuse_ln_window="never", attn_route="grid_native"), False,
+     {"K8": 8, "K3": 4}),
+    ("grid-native by MIA_WINDOWED_ATTN=1", dict(fuse_ln_window="never"), True, {"K8": 8, "K3": 4}),
+    ("head-major", dict(attn_route="head_major"), False, {"K6": 12, "K4": 8}),
+    ("no rel-pos", dict(use_rel_pos=False), False, {"K7": 12, "K4": 8}),
+)
+
+
+def with_encoder(model, **options):
+    """A copy of ``model`` whose image encoder has the same geometry, is built
+    with ``options`` and loaded with the same weights (bar the rel-pos tables of
+    an encoder built without them)."""
+    import copy
+
+    from mia_tpu_torch.models.sam import ImageEncoderViT
+
+    variant = copy.deepcopy(model)
+    enc = model.image_encoder
+    blocks = enc.blocks
+    encoder = ImageEncoderViT(
+        img_size=enc.img_size, patch_size=enc.patch_embed.patch,
+        embed_dim=enc.pos_embed.shape[-1], depth=len(blocks), num_heads=blocks[0].attn.num_heads,
+        out_chans=enc.neck[0].out_channels, window_size=max(b.window_size for b in blocks),
+        global_attn_indexes=tuple(i for i, b in enumerate(blocks) if b.window_size == 0),
+        **options).to(enc.pos_embed.device)
+    encoder.load_state_dict({k: v for k, v in enc.state_dict().items()
+                             if options.get("use_rel_pos", True) or "rel_pos" not in k})
+    variant.image_encoder = encoder
+    return variant.eval()
+
+
+@contextlib.contextmanager
+def windowed_attn_switch(on):
+    """``MIA_WINDOWED_ATTN=1`` in the environment for the block, if ``on``."""
+    before = os.environ.get("MIA_WINDOWED_ATTN")
+    if on:
+        os.environ["MIA_WINDOWED_ATTN"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("MIA_WINDOWED_ATTN", None)
+        else:
+            os.environ["MIA_WINDOWED_ATTN"] = before
+
+
+def route_phase(torch, device, model):
+    import copy
+
+    import numpy as np
+
+    from mia_tpu_torch.models.sam import SamPredictor
+
+    image = sam_frame(np)
+    counts = counters()
+    launches = {k: 0 for k in counts}
+
+    def embed(predictor):
+        """One ``set_image`` in full float32 (the math, not TF32) → embedding."""
+        tf32 = torch.backends.cudnn.allow_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = False
+            predictor.set_image(image)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        return predictor.get_image_embedding()
+
+    default = SamPredictor(model)
+    want = embed(default)
+    zeroed = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in zeroed.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                p.zero_()
+    want_zeroed = embed(SamPredictor(zeroed))
+    del zeroed
+    check((want_zeroed - want).abs().max().item() > 1e-3 * want.abs().max().item(),
+          "the rel-pos tables do not reach the embedding")
+    out = {}
+    for label, options, switch, expect in ROUTE_VARIANTS:
+        predictor = SamPredictor(with_encoder(model, **options))
+        with windowed_attn_switch(switch):
+            for fn in counts.values():
+                fn.launches = 0
+            got = embed(predictor)
+            seen = {k: fn.launches for k, fn in counts.items() if fn.launches}
+            # host-clock medians of 10, in turns: the host's share of set_image varies
+            # from moment to moment, so each variant is read beside its own default
+            base_a = median_s(lambda: default.set_image(image), torch, n=10) * 1e3
+            ms_a = median_s(lambda: predictor.set_image(image), torch, n=10) * 1e3
+            ms_b = median_s(lambda: predictor.set_image(image), torch, n=10) * 1e3
+            base_b = median_s(lambda: default.set_image(image), torch, n=10) * 1e3
+        check(seen == expect, f"{label}: launches of one set_image {seen}, expected {expect}")
+        ref = want if options.get("use_rel_pos", True) else want_zeroed
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{label}: embedding {tuple(got.shape)} malformed")
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        check(err <= 1e-4, f"{label}: embedding differs from the default's by {err} of max |emb|")
+        for k, n in seen.items():
+            launches[k] += n
+        out[label] = {"set_image_ms": min(ms_a, ms_b), "default_ms": min(base_a, base_b)}
+        against = "the default" if ref is want else "the default with zeroed rel-pos tables"
+        print(f"routes: {label}: launches {seen}; embedding within {err:.3g} of {against} "
+              f"(float32 convolutions); set_image median {ms_a:.2f} / {ms_b:.2f} ms, default "
+              f"encoder {base_a:.2f} / {base_b:.2f} ms (480x640 frame, in turns)")
+    return {"launches": launches, "set_image_ms": out}
+
+
+# ---------------------------------------------------------------------------
+# AMG phase
+# ---------------------------------------------------------------------------
+
+
+def amg_phase(torch, device, model, cpu_model):
+    import numpy as np
+
+    from mia_tpu_torch.models.sam import SamAutomaticMaskGenerator, SamPredictor, amg
+
+    image = sam_frame(np, seed=3, size=(512, 512))
+    counts = counters()
+
+    def watched(generator):
+        """Record the scores of every chunk ``generator`` dispatches."""
+        chunks = []
+        score_chunk = generator.score_chunk
+
+        def score(batch_points):
+            masks, iou, stability = score_chunk(batch_points)
+            chunks.append((len(batch_points), tuple(masks.shape), iou, stability))
+            return masks, iou, stability
+
+        generator.score_chunk = score
+        return chunks
+
+    def counted_generate(generator, label, expect):
+        """One ``generate`` with every count set to 0 just before → (records,
+        launches); the scores of its chunks must be finite."""
+        chunks = watched(generator)
+        for fn in counts.values():
+            fn.launches = 0
+        records = generator.generate(image)
+        torch.cuda.synchronize()
+        seen = {k: fn.launches for k, fn in counts.items() if fn.launches}
+        check(seen == expect, f"amg {label}: launches of one generate {seen}, expected {expect}")
+        for n, shape, iou, stability in chunks:
+            check(shape == (n, 3, 512, 512) and iou.shape == stability.shape == (n, 3),
+                  f"amg {label}: chunk shapes {shape}, {tuple(iou.shape)}")
+            check(bool(torch.isfinite(iou).all() and torch.isfinite(stability).all()
+                       and (stability >= 0).all() and (stability <= 1).all()),
+                  f"amg {label}: scores not finite or stability outside [0, 1]")
+        del generator.score_chunk  # the class's method again
+        return records, seen, chunks
+
+    def well_formed(records, label):
+        for r in records:
+            seg = r["segmentation"]
+            check(list(r) == ["segmentation", "rle", "area", "bbox", "predicted_iou"]
+                  and seg.shape == (512, 512) and seg.dtype == bool, f"amg {label}: record malformed")
+            check(np.array_equal(amg.rle_to_mask(r["rle"]), seg),
+                  f"amg {label}: rle does not decode to its segmentation")
+            check(r["area"] == int(seg.sum()) == amg.area_from_rle(r["rle"]),
+                  f"amg {label}: area {r['area']} disagrees with the mask")
+            check(r["bbox"] == amg.box_xyxy_to_xywh(amg.batched_mask_to_box(seg)).tolist(),
+                  f"amg {label}: bbox {r['bbox']} disagrees with the mask")
+            check(math.isfinite(r["predicted_iou"]), f"amg {label}: predicted_iou not finite")
+
+    # --- the main path: the grid of bench_amg, default thresholds ------------
+    predictor = SamPredictor(model)
+    generator = SamAutomaticMaskGenerator(predictor, points_per_side=32, points_per_batch=64)
+    encoder_launches = {"K4": 8, "K2": 8, "K3": 4}
+    records, launches, chunks = counted_generate(generator, "32x32 points", encoder_launches)
+    check([c[0] for c in chunks] == [64] * 16, f"amg: chunks {[c[0] for c in chunks]}")
+    well_formed(records, "32x32 points")
+    default_iou = torch.cat([c[2] for c in chunks])
+    generate_s = median_s(lambda: generator.generate(image), torch, n=3, warmup=1)
+    candidates = 32 * 32 * 3
+    print(f"amg: ViT-B/512, 512x512 frame, 32x32 points in 16 chunks of 64, default thresholds: "
+          f"{len(records)} records of {candidates} candidate masks; launches of one generate "
+          f"{launches}; generate median of 3 {generate_s * 1e3:.2f} ms "
+          f"({candidates / generate_s:.0f} candidate masks/s)")
+
+    # --- thresholds that keep masks: gather, NMS, boxes, RLE -----------------
+    keeper = SamAutomaticMaskGenerator(predictor, points_per_side=16, points_per_batch=64,
+                                       pred_iou_thresh=-1e9, stability_score_thresh=-1.0)
+    t0 = time.perf_counter()
+    kept, seen, chunks = counted_generate(keeper, "16x16 points, keep all", encoder_launches)
+    keep_s = time.perf_counter() - t0
+    check([c[0] for c in chunks] == [64] * 4, f"amg keep all: chunks {[c[0] for c in chunks]}")
+    check(0 < len(kept) <= 16 * 16 * 3, f"amg keep all: {len(kept)} records")
+    well_formed(kept, "16x16 points, keep all")
+    ious = [r["predicted_iou"] for r in kept]
+    check(ious == sorted(ious, reverse=True), "amg keep all: records not in NMS (score) order")
+    for k, n in seen.items():
+        launches[k] += n
+    print(f"amg: 16x16 points, keep-everything thresholds: {len(kept)} records after box NMS of "
+          f"{16 * 16 * 3} survivors, every rle, area and bbox consistent; generate {keep_s * 1e3:.0f} ms")
+
+    # --- one chunk's scores on the card against the CPU ----------------------
+    points = generator.point_grids[:64] * np.array([512, 512])
+    cpu_generator = SamAutomaticMaskGenerator(SamPredictor(cpu_model), points_per_side=32,
+                                              points_per_batch=64)
+    cpu_generator.predictor.set_image(image)
+    _, want_iou, want_stab = cpu_generator.score_chunk(points)
+    cpu_logits = cpu_generator.predictor.decode_on_device(
+        points=cpu_generator.chunk_prompts(points))[0]
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False  # full float32: the math, not TF32
+        predictor.set_image(image)
+        _, got_iou, got_stab = generator.score_chunk(points)
+        got_iou, got_stab = got_iou.cpu(), got_stab.cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    iou_err = (got_iou - want_iou).abs().max().item() / max(1.0, want_iou.abs().max().item())
+    check(iou_err <= 1e-4, f"amg: one chunk's iou card vs CPU differs by {iou_err}")
+    # a logit within tol of one of the two stability thresholds may fall either
+    # side in float32; each such pixel moves a count by one
+    thr, off = model.mask_threshold, generator.stability_score_offset
+    tol = 1e-4 * max(1.0, cpu_logits.abs().max().item())
+    near = (((cpu_logits - (thr + off)).abs() <= tol) | ((cpu_logits - (thr - off)).abs() <= tol))
+    unions = (cpu_logits > (thr - off)).sum((-2, -1)).clamp(min=1)
+    slack = 1e-4 + 2.0 * near.sum((-2, -1)) / unions
+    stab_diff = (got_stab - want_stab).abs()
+    check(bool((stab_diff <= slack).all()),
+          f"amg: one chunk's stability card vs CPU differs by {stab_diff.max().item()}")
+    print(f"amg: one chunk (64 points) card vs CPU, float32 convolutions: iou max |diff| "
+          f"{iou_err:.3g}, stability max |diff| {stab_diff.max().item():.3g} "
+          f"({int(near.sum())} logits within {tol:.3g} of a stability threshold)")
+
+    # --- K8 under AMG ---------------------------------------------------------
+    native = SamAutomaticMaskGenerator(
+        SamPredictor(with_encoder(model, fuse_ln_window="never", attn_route="grid_native")),
+        points_per_side=32, points_per_batch=64)
+    records, seen, chunks = counted_generate(native, "grid-native encoder", {"K8": 8, "K3": 4})
+    check([c[0] for c in chunks] == [64] * 16, f"amg grid-native: chunks {[c[0] for c in chunks]}")
+    well_formed(records, "grid-native encoder")
+    native_err = ((torch.cat([c[2] for c in chunks]) - default_iou).abs().max().item()
+                  / max(1.0, default_iou.abs().max().item()))
+    check(native_err <= 1e-3,
+          f"amg grid-native: iou differs from the default encoder's by {native_err}")
+    native_s = median_s(lambda: native.generate(image), torch, n=1, warmup=0)
+    for k, n in seen.items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"amg: grid-native encoder: launches of one generate {seen}; iou within "
+          f"{native_err:.3g} of the default encoder's (TF32 convolutions, tolerance 1e-3); "
+          f"a second generate {native_s * 1e3:.2f} ms")
+    return {"launches": launches, "generate_ms": generate_s * 1e3,
+            "candidate_masks_per_s": candidates / generate_s,
+            "generate_grid_native_ms": native_s * 1e3, "keep_all_records": len(kept)}
 
 
 # ---------------------------------------------------------------------------
@@ -784,10 +1341,13 @@ def sam_phase(torch, device):
 # (LoRA on q and v) but not block 0's K4, whose input (patch embed +
 # pos-embed, frozen) and LayerNorm parameters (frozen) need no gradient;
 # phase 2 adds one batched connected-components call for all decoders
+# (the default encoder takes none of the other routes: no K6-K9)
 STEP_LAUNCHES = {
     1: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 0},
     2: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 1},
 }
+for _expected in STEP_LAUNCHES.values():
+    _expected.update({"K6": 0, "K7": 0, "K8": 0, "K9": 0})
 
 
 def acdc_arrays(np, n, size, depth=None, seed=0):
@@ -1042,21 +1602,38 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"kernels built and loaded in {build_s:.2f} s")
 
-    measured = {"K1": kernel_phase(torch, device), **sam_kernel_phase(torch, device),
-                **train_kernel_phase(torch, device)}
+    seconds = {}
+
+    def timed(label, phase, *phase_args):
+        t0 = time.perf_counter()
+        result = phase(*phase_args)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return result
+
+    measured = {"K1": timed("K1", kernel_phase, torch, device),
+                **timed("K2-K4", sam_kernel_phase, torch, device),
+                **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
+                **timed("K6-K9", route_kernel_phase, torch, device)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        sl = slice_phase(torch, Path(tmp))
-        cpc = cpcsam_phase(torch, device, Path(tmp))
+        sl = timed("AL slice", slice_phase, torch, Path(tmp))
+        cpc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(sl["log"], args.out / "chip_smoke_train_log.txt")
             shutil.copy(cpc["log"], args.out / "chip_smoke_cpcsam_log.txt")
-    sam = sam_phase(torch, device)
+    sam, model, cpu_model = timed("SAM serving", sam_phase, torch, device)
+    routes = timed("encoder routes", route_phase, torch, device, model)
+    amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
+    print(f"seconds by phase: build {build_s:.1f}, {seconds}")
     # each path ran with every count set to 0 just before it: K1 from the
-    # AL slice, K2-K4 forward from SAM serving and CPC-SAM training, the
-    # backward kernels and K5 from CPC-SAM training
-    launches = {k: sam["launches"].get(k, 0) + cpc["launches"][k] for k in KERNELS}
+    # AL slice, K2-K4 forward from SAM serving, CPC-SAM training, the encoder
+    # routes and AMG, the backward kernels and K5 from CPC-SAM training,
+    # K6-K9 from the encoder routes, K8 from AMG on the grid-native encoder too
+    launches = {k: sum(path["launches"].get(k, 0) for path in (sam, cpc, routes, amg))
+                for k in KERNELS}
     launches["K1"] = sl["launches"]
+    for k in KERNELS:
+        check(launches[k] > 0, f"{k} was launched on no path")
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
                       or m.startswith(("jax.", "mia_tpu.")))
     check(not imported, f"JAX or the JAX package was imported: {imported}")
@@ -1067,10 +1644,11 @@ def main(argv=None) -> int:
         "source": source,
         "replaces": replaces,
         "launches": launches[key],
-        "max_abs_err": measured[key]["max_abs_err"],
-        "ms": measured[key]["ms"],
-        "plain_ms": measured[key]["plain_ms"],
+        **measured[key],
     } for key, (name, source, replaces) in KERNELS.items()]}
+    keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for entry in kernels["kernels"]:
+        check(keys <= set(entry), f"{entry['name']}: kernels line lacks {keys - set(entry)}")
     result = {"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -1080,6 +1658,8 @@ def main(argv=None) -> int:
         (args.out / "chip_smoke.json").write_text(
             json.dumps({"card": card, "host_decode": sl["host_decode"],
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
+                        "routes": routes["set_image_ms"],
+                        "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
                         **kernels, **result}, indent=1))
     print(card)

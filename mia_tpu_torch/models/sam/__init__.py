@@ -1,7 +1,17 @@
-"""SAM in the port: ViT encoder (K2, K3, K4; LoRA), prompt encoders,
-two-way transformer, mask decoders, ``Sam`` and ``SamPredictor`` (serving),
-CPC-SAM's ``SamDualmask`` with its prompt generation (K5) and volume
-validation."""
+"""SAM in the port: ViT encoder (K2, K3, K4 by default, K6-K9 by option;
+LoRA), prompt encoders, two-way transformer, mask decoders, ``Sam``,
+``SamPredictor`` and ``SamAutomaticMaskGenerator`` (serving), CPC-SAM's
+``SamDualmask`` with its prompt generation (K5) and volume validation."""
+
+from .amg import (
+    MaskData,
+    SamAutomaticMaskGenerator,
+    batched_mask_to_box,
+    build_point_grid,
+    calculate_stability_score,
+    mask_to_rle,
+    rle_to_mask,
+)
 
 from .build_sam import import_torch_sam_encoder, sam_model_registry
 from .common import LayerNorm, LayerNorm2d, MLPBlock
@@ -20,6 +30,7 @@ __all__ = [
     "LayerNorm",
     "LayerNorm2d",
     "MLPBlock",
+    "MaskData",
     "MaskDecoder",
     "MaskDecoderPromptLarge",
     "PositionEmbeddingRandom",
@@ -27,17 +38,23 @@ __all__ = [
     "PromptEncoderPromptClass",
     "ResizeLongestSide",
     "Sam",
+    "SamAutomaticMaskGenerator",
     "SamDualmask",
     "SamPredictor",
     "TwoWayTransformer",
+    "batched_mask_to_box",
+    "build_point_grid",
+    "calculate_stability_score",
     "freeze_wrt_mask",
     "import_torch_sam_encoder",
     "load_lora_state_dict",
     "lora_state_dict",
     "lora_trainable_mask",
+    "mask_to_rle",
     "postprocess_masks",
     "preprocess_image",
     "prompt_generate_random_fast",
+    "rle_to_mask",
     "sam_model_registry",
     "window_partition",
     "window_unpartition",

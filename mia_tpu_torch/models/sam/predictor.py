@@ -130,18 +130,30 @@ class SamPredictor:
             m = np.asarray(mask_input, np.float32)
             masks_t = torch.from_numpy(m[..., None] if m.ndim == 3 else m).to(dev)
 
+        masks, iou, low_res = self.decode_on_device(points, boxes_t, masks_t, multimask_output)
+        low_res_w = low_res.permute(0, 3, 1, 2).to(torch.float16)
+        masks = masks if return_logits else masks > self.model.mask_threshold
+        return (masks.cpu().numpy(), iou.float().cpu().numpy(),
+                low_res_w.cpu().numpy().astype(np.float32))
+
+    @torch.inference_mode()
+    def decode_on_device(self, points=None, boxes=None, masks=None, multimask_output: bool = True):
+        """Prompt encoder, mask decoder and upscale for ``N`` prompts that are
+        already tensors on the device in input-image coordinates (``points`` a
+        ``(coords (N, P, 2), labels (N, P))`` pair). Nothing leaves the device:
+        returns the mask logits ``(N, M, H, W)`` at the original size, the iou
+        ``(N, M)`` and the low-res logits ``(N, h, w, M)``. The automatic mask
+        generator scores and thresholds each chunk on these."""
+        if not self.is_image_set:
+            raise RuntimeError("An image must be set with .set_image(...) first")
         model = self.model
-        sparse, dense = model.prompt_encoder(points=points, boxes=boxes_t, masks=masks_t)
+        sparse, dense = model.prompt_encoder(points=points, boxes=boxes, masks=masks)
         low_res, iou = model.mask_decoder(
             self.features, model.prompt_encoder.get_dense_pe(), sparse, dense,
             bool(multimask_output),
         )
-        masks = postprocess_masks(low_res, model.img_size, self.input_size, self.original_size)
-        masks = masks.permute(0, 3, 1, 2)  # (N, M, H, W)
-        low_res_w = low_res.permute(0, 3, 1, 2).to(torch.float16)
-        masks = masks if return_logits else masks > model.mask_threshold
-        return (masks.cpu().numpy(), iou.float().cpu().numpy(),
-                low_res_w.cpu().numpy().astype(np.float32))
+        logits = postprocess_masks(low_res, model.img_size, self.input_size, self.original_size)
+        return logits.permute(0, 3, 1, 2), iou, low_res
 
     def get_image_embedding(self) -> torch.Tensor:
         if not self.is_image_set:

@@ -12,6 +12,9 @@ reference SAM parameter names, loadable by
 - the upscaler's transposed-conv kernel ``(2, 2, I, O)`` → weight
   ``(I, O, 2, 2)``, spatially flipped (``y[2i+di] = x·K[1-di]`` in the JAX
   package, ``x·W[di]`` in torch);
+- an encoder built with ``use_rel_pos=False`` has no ``rel_pos_h``/``rel_pos_w``
+  leaves and yields no such entries, matching the port's encoder of the
+  same option;
 - LayerNorm ``scale`` → ``weight``; token and prompt tables → Embedding
   weights (the plain prompt encoder's ``point_embeddings`` ``(4, C)`` →
   four ``(1, C)``; the class prompt encoder keeps one ``(4, C)`` table);

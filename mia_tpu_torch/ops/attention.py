@@ -1,12 +1,15 @@
-"""Rel-pos attention on the packed qkv layout — kernels K2 and K3 and their
-plain versions.
+"""Rel-pos attention — kernels K2, K3 (packed qkv layout), K6, K7 (head-major
+operands) and K8 (windows carved from the token grid), with their plain
+versions.
 
-Counterpart of the packed paths of ``mia_tpu/ops/attention.py``. ``qkv`` is
-the qkv Linear's output ``(B', N, 3·H·D)`` in ``(3, heads, head_dim)``
-order; the context comes back as ``(B', N, H·D)``, head ``h`` at columns
-``[h·D, (h+1)·D)``, ready for the proj Linear. Both compute
-``softmax(q·kᵀ·scale + rel_h[n, k // k_w] + rel_w[n, k % k_w])·v`` in
-float32, with the rel terms taken from the unscaled q.
+Counterpart of ``mia_tpu/ops/attention.py``. All compute
+``softmax(q·kᵀ·scale + bias)·v`` in float32.
+
+Packed layout (K2, K3): ``qkv`` is the qkv Linear's output ``(B', N, 3·H·D)``
+in ``(3, heads, head_dim)`` order; the context comes back as ``(B', N, H·D)``,
+head ``h`` at columns ``[h·D, (h+1)·D)``, ready for the proj Linear. The bias
+is ``rel_h[n, k // k_w] + rel_w[n, k % k_w]``, the rel terms taken from the
+unscaled q.
 
 - :func:`attention_rel_packed` — plain K3: rel terms arrive head-major as
   ``(B'·H, N, k_h)`` and ``(B'·H, N, k_w)`` (global blocks).
@@ -26,6 +29,29 @@ float32, with the rel terms taken from the unscaled q.
   log-sum-exp and whose backward is :func:`fused_attention_rel_packed_bwd`
   / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
   plain VJPs on the CPU). Each wrapper counts its launches in ``launches``.
+
+The other routes (forward kernels in ``csrc/attention_routes.cu``):
+
+- :func:`attention_rel` / :func:`fused_attention_rel` (K6) — head-major
+  ``q, k, v (B·H, N, D)`` with rel terms ``(B·H, N, k_h)``, ``(B·H, N, k_w)``;
+  any ``N = k_h·k_w``. :func:`attention_rel_with_padding` is the same call
+  (the name is the JAX package's; nothing is padded on this card).
+- :func:`attention_dense` / :func:`fused_attention` (K7) — head-major
+  operands and a dense additive bias ``(B·H, N, N)``.
+  :func:`attention_with_padding` is the same call: the TPU form pads ``N``
+  to 128 and masks the pad keys, the CUDA kernel masks its ragged last
+  tile itself.
+- :func:`attention_rel_win` / :func:`fused_attention_rel_win` (K8) —
+  windowed attention on the **unpartitioned** grid: ``qkv (B, Hg, Wg, 3·H·D)``,
+  rel terms of the real tokens in grid layout ``(B·H, Hg, Wg, ws)``,
+  ``bias_kv (3, H·D)`` (the qkv Linear's output for a zero token) → context
+  ``(B, Hg, Wg, H·D)``. Window slots outside the grid are real keys whose
+  k and v are ``bias_kv`` and which carry the query's rel bias for their
+  slot position; pad queries are dropped.
+
+These three are forward kernels: a CUDA tensor that needs a gradient raises
+``NotImplementedError`` (the backward kernels are not ported yet); on the
+CPU the plain versions are ordinary differentiable tensor code.
 """
 
 from __future__ import annotations
@@ -36,12 +62,13 @@ import functools
 import torch
 
 from .cuda_build import load_library
+from .ln_window import window_partition, window_unpartition
 
 KERNEL_HEAD_DIMS = (64, 80)  # head dims csrc/attention_rel.cu is built for (ViT-B/L, ViT-H)
 
 
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
-    b, n, three_hd = qkv.shape
+    three_hd = qkv.shape[-1]
     if three_hd % (3 * num_heads):
         raise ValueError(f"qkv width {three_hd} is not 3·heads·D for heads={num_heads}")
     return three_hd // (3 * num_heads)
@@ -134,18 +161,22 @@ def attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale: float, k_h
     return dqkv, drh, drw
 
 
-_ARGTYPES = {  # pointer count of each C entry point, then (batch, n, heads, d, kh, kw), scale, stream
-    "mia_attention_rel_packed_f32": 5,
-    "mia_attention_rel_packed_ik_f32": 5,
-    "mia_attention_rel_packed_bwd_f32": 10,
-    "mia_attention_rel_packed_ik_bwd_f32": 11,
+_ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stream
+    "mia_attention_rel_packed_f32": (5, 6),  # ints: batch, n, heads, d, kh, kw
+    "mia_attention_rel_packed_ik_f32": (5, 6),
+    "mia_attention_rel_packed_bwd_f32": (10, 6),
+    "mia_attention_rel_packed_ik_bwd_f32": (11, 6),
+    "mia_attention_rel_f32": (6, 5),  # bh, n, d, kh, kw
+    "mia_attention_dense_f32": (5, 3),  # bh, n, d
+    "mia_attention_rel_win_f32": (5, 6),  # batch, hg, wg, heads, d, ws
 }
 
 
 @functools.cache
 def _kernel_function(name: str):
     fn = getattr(load_library(), name)
-    fn.argtypes = ([ctypes.c_void_p] * _ARGTYPES[name] + [ctypes.c_int] * 6
+    pointers, ints = _ARGTYPES[name]
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -382,7 +413,205 @@ def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
     return _launch_k2(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
 
 
+# ---------------------------------------------------------------------------
+# K6, K7, K8: head-major operands, dense bias, windows on the token grid
+# ---------------------------------------------------------------------------
+
+
+def attention_rel(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
+    """Plain K6: head-major ``q, k, v (B·H, N, D)`` and rel terms
+    ``(B·H, N, k_h)``, ``(B·H, N, k_w)`` → ``(B·H, N, D)``."""
+    bh, n, _ = q.shape
+    k_h, k_w = k_hw
+    if n != k_h * k_w:
+        raise ValueError(f"token count {n} != k_h*k_w {k_h * k_w}")
+    bias = rel_h.reshape(bh, n, k_h, 1) + rel_w.reshape(bh, n, 1, k_w)
+    return attention_dense(q, k, v, bias.reshape(bh, n, n), scale)
+
+
+def attention_dense(q, k, v, bias, scale: float) -> torch.Tensor:
+    """Plain K7: ``softmax(q·kᵀ·scale + bias)·v`` with ``bias (B·H, N, N)``."""
+    return ((q * scale) @ k.transpose(-2, -1) + bias).softmax(-1) @ v
+
+
+def _pad_grid(x, ws: int, fill=None):
+    """Pad ``(B, H, W, C)`` on the bottom and right to whole windows with the
+    row ``fill`` ``(C,)`` (zeros when None); exact and differentiable."""
+    b, h, w, c = x.shape
+    pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
+    row = x.new_zeros(c) if fill is None else fill
+    if pad_w:
+        x = torch.cat([x, row.expand(b, h, pad_w, c)], 2)
+    if pad_h:
+        x = torch.cat([x, row.expand(b, pad_h, w + pad_w, c)], 1)
+    return x
+
+
+def partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws: int, num_heads: int):
+    """K8's operands as whole windows: the pad slots of the ``(B, Hg, Wg, 3·H·D)``
+    qkv grid filled with ``bias_kv``, those of the rel terms with zeros, all
+    three partitioned → packed qkv ``(B·nW, ws², 3·H·D)`` and rel terms
+    ``(B·nW·H, ws², ws)`` twice (window-major, then head)."""
+    b, three_hd = qkv.shape[0], qkv.shape[-1]
+    windows, (hp, wp) = window_partition(_pad_grid(qkv, ws, bias_kv.reshape(-1)), ws)
+    n_win = windows.shape[0]
+
+    def rel_windows(rel):  # (B·H, Hg, Wg, ws) → (B·nW·H, ws·ws, ws)
+        r = _pad_grid(rel, ws).reshape(b, num_heads, hp // ws, ws, wp // ws, ws, ws)
+        return r.permute(0, 2, 4, 1, 3, 5, 6).reshape(n_win * num_heads, ws * ws, ws)
+
+    return windows.reshape(n_win, ws * ws, three_hd), rel_windows(rel_h), rel_windows(rel_w)
+
+
+def attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int,
+                      num_heads: int) -> torch.Tensor:
+    """Plain K8: partition the qkv grid and the rel terms into whole windows
+    (:func:`partition_rel_win`), attend within each window (pad slots are
+    keys), unpartition and drop the pad queries → ``(B, Hg, Wg, H·D)``."""
+    hg, wg = qkv.shape[1:3]
+    out = attention_rel_packed(*partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, num_heads),
+                               scale, (ws, ws), num_heads)
+    return window_unpartition(out.view(-1, ws, ws, out.shape[-1]), ws, (hg, wg))
+
+
+def _check_head_major(label, q, k, v):
+    """Check K6's and K7's operands; return (bh, n, d)."""
+    if q.dim() != 3:
+        raise ValueError(f"{label} needs (B·H, N, D) operands, got {tuple(q.shape)}")
+    bh, n, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{label} is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{label} needs a CUDA tensor, got {q.device}")
+    if bh >= 65536 or bh * n * d >= 2 ** 31:
+        raise ValueError(f"{label}: shape {tuple(q.shape)} exceeds the launch grid or int32")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(f"{label} {name}", t, (bh, n, d), q.device)
+    return bh, n, d
+
+
+def _launch_on_stream(label, symbol, device, *args):
+    """Call C entry ``symbol`` with ``args`` and the current stream; raise
+    if it reports an error."""
+    with torch.cuda.device(device):
+        err = _kernel_function(symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed: cudaError {err}")
+
+
+def _launch_k6(q, k, v, rel_h, rel_w, scale, k_hw):
+    """Launch K6 (``mia_attention_rel_f32``); raise on anything it does not take."""
+    bh, n, d = _check_head_major("K6", q, k, v)
+    k_h, k_w = k_hw
+    if n != k_h * k_w:
+        raise ValueError(f"K6: token count {n} != k_h*k_w {k_h * k_w}")
+    _check_operand("K6 rel_h", rel_h, (bh, n, k_h), q.device)
+    _check_operand("K6 rel_w", rel_w, (bh, n, k_w), q.device)
+    out = torch.empty_like(q)
+    _launch_on_stream("K6", "mia_attention_rel_f32", q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+                      bh, n, d, k_h, k_w, float(scale))
+    fused_attention_rel.launches += 1
+    return out
+
+
+def _launch_k7(q, k, v, bias, scale):
+    """Launch K7 (``mia_attention_dense_f32``); raise on anything it does not take."""
+    bh, n, d = _check_head_major("K7", q, k, v)
+    _check_operand("K7 bias", bias, (bh, n, n), q.device)
+    out = torch.empty_like(q)
+    _launch_on_stream("K7", "mia_attention_dense_f32", q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, n, d, float(scale))
+    fused_attention.launches += 1
+    return out
+
+
+def _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads):
+    """Launch K8 (``mia_attention_rel_win_f32``); raise on anything it does not take."""
+    if qkv.dim() != 4:
+        raise ValueError(f"K8 needs a (B, Hg, Wg, 3·H·D) qkv grid, got {tuple(qkv.shape)}")
+    b, hg, wg, three_hd = qkv.shape
+    d = _head_dim(qkv, num_heads)
+    ws = int(ws)
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K8 is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
+    if qkv.device.type != "cuda":
+        raise ValueError(f"K8 needs a CUDA tensor, got {qkv.device}")
+    if ws <= 0:
+        raise ValueError(f"K8 window size must be positive, got {ws}")
+    n_win = -(-hg // ws) * -(-wg // ws)
+    if b * n_win >= 65536 or num_heads >= 65536 or qkv.numel() >= 2 ** 31:
+        raise ValueError(f"K8: qkv shape {tuple(qkv.shape)} exceeds the launch grid or int32")
+    _check_operand("K8 qkv", qkv, qkv.shape, qkv.device)
+    _check_operand("K8 rel_h", rel_h, (b * num_heads, hg, wg, ws), qkv.device)
+    _check_operand("K8 rel_w", rel_w, (b * num_heads, hg, wg, ws), qkv.device)
+    _check_operand("K8 bias_kv", bias_kv, (3, num_heads * d), qkv.device)
+    out = torch.empty((b, hg, wg, num_heads * d), dtype=qkv.dtype, device=qkv.device)
+    _launch_on_stream("K8", "mia_attention_rel_win_f32", qkv.device, qkv.data_ptr(),
+                      rel_h.data_ptr(), rel_w.data_ptr(), bias_kv.data_ptr(), out.data_ptr(),
+                      b, hg, wg, num_heads, d, ws, float(scale))
+    fused_attention_rel_win.launches += 1
+    return out
+
+
+def _forward_only(label, plain, launch, *tensors_then_config, n_tensors):
+    """The wrappers of the forward kernels: plain version on the CPU; on the
+    card the kernel, or ``NotImplementedError`` where autograd would need the
+    backward kernel that is not ported yet."""
+    tensors = tensors_then_config[:n_tensors]
+    if tensors[0].device.type == "cpu":
+        return plain(*tensors_then_config)
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{label} has no backward kernel yet: its CUDA kernel is forward only, so a CUDA "
+            "tensor that needs a gradient cannot take this route")
+    return launch(*(t.contiguous() for t in tensors), *tensors_then_config[n_tensors:])
+
+
+def fused_attention_rel(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
+    """K6: ``softmax(q·kᵀ·scale + rel_h⊕rel_w)·v`` on head-major operands;
+    ``N`` must equal ``k_hw[0]·k_hw[1]`` and needs no alignment. A CUDA tensor
+    launches ``csrc/attention_routes.cu`` (or raises; forward only); a CPU
+    tensor takes :func:`attention_rel`."""
+    return _forward_only("fused_attention_rel (K6)", attention_rel, _launch_k6,
+                         q, k, v, rel_h, rel_w, scale, k_hw, n_tensors=5)
+
+
+def attention_rel_with_padding(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
+    """:func:`fused_attention_rel` under the JAX package's name; no padding
+    is needed on this card and none is done."""
+    return fused_attention_rel(q, k, v, rel_h, rel_w, scale, k_hw)
+
+
+def fused_attention(q, k, v, bias, scale: float) -> torch.Tensor:
+    """K7: ``softmax(q·kᵀ·scale + bias)·v`` with a dense ``(B·H, N, N)`` bias,
+    any ``N``. A CUDA tensor launches ``csrc/attention_routes.cu`` (or raises;
+    forward only); a CPU tensor takes :func:`attention_dense`."""
+    return _forward_only("fused_attention (K7)", attention_dense, _launch_k7,
+                         q, k, v, bias, scale, n_tensors=4)
+
+
+def attention_with_padding(q, k, v, bias, scale: float) -> torch.Tensor:
+    """:func:`fused_attention` under the JAX package's name: the TPU form pads
+    ``N`` to its block and masks the pad keys; the CUDA kernel masks its ragged
+    last tile itself, so nothing is padded here."""
+    return fused_attention(q, k, v, bias, scale)
+
+
+def fused_attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int,
+                            num_heads: int) -> torch.Tensor:
+    """K8: windowed rel-pos attention on the unpartitioned ``(B, Hg, Wg, 3·H·D)``
+    qkv grid (see the module docstring). A CUDA tensor launches
+    ``csrc/attention_routes.cu`` (or raises; forward only); a CPU tensor takes
+    :func:`attention_rel_win`."""
+    return _forward_only("fused_attention_rel_win (K8)", attention_rel_win, _launch_k8,
+                         qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, n_tensors=4)
+
+
 fused_attention_rel_packed.launches = 0
 fused_attention_rel_packed_ik.launches = 0
 fused_attention_rel_packed_bwd.launches = 0
 fused_attention_rel_packed_ik_bwd.launches = 0
+fused_attention_rel.launches = 0
+fused_attention.launches = 0
+fused_attention_rel_win.launches = 0

@@ -2,9 +2,10 @@
 
 The kernels have a plain C interface (no PyTorch headers), so ``nvcc``
 compiles each of ``csrc/*.cu`` in seconds, all sources at once in parallel,
-then links them into one shared library, which ``ctypes`` loads. The library lands in ``build/mia_tpu_torch/`` at the
-repository root, named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built or
+then links them into one shared library, which ``ctypes`` loads. The
+library lands in ``build/mia_tpu_torch/`` at the repository root, named by
+a hash of the sources, their ``csrc/*.cuh`` headers and the flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing is built or
 loaded at import time; the first kernel launch builds. A failed build
 raises — there is no fallback.
 """
@@ -49,7 +50,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in (*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))):  # the headers they include too
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmia_kernels_{digest.hexdigest()[:16]}.so"

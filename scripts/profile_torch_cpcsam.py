@@ -30,8 +30,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    ("K2 forward", ("attention_rel_kernel<64, true",)),
-    ("K3 forward", ("attention_rel_kernel<64, false",)),
+    # attention_fwd_kernel<D, bias, layout, split>: layout 0 is the packed qkv of K2 and K3
+    ("K2 forward", ("attention_fwd_kernel<64, 0, 0,",)),
+    ("K3 forward", ("attention_fwd_kernel<64, 1, 0,",)),
     ("K2 backward, dq pass", ("attention_rel_bwd_dq_kernel<64, true",)),
     ("K3 backward, dq pass", ("attention_rel_bwd_dq_kernel<64, false",)),
     ("K2 + K3 backward, dk/dv pass", ("attention_rel_bwd_dkv_kernel",)),

@@ -4,10 +4,15 @@ ViT-B/512 ``SamPredictor`` with seeded random weights, a 480x640 uint8 frame
 (input 512x384, padded), the port's float32 setting (TF32 convolutions,
 full-float32 matmuls). Prints the median ``set_image`` and ``predict``
 times and a ``torch.profiler`` table of device time by kernel for
-``set_image``, with the hand-written kernels (K2, K3, K4), the cuDNN
-convolutions and the cuBLAS GEMMs summed into groups. Needs a CUDA device.
+``set_image``, with the hand-written kernels (K2-K4, K6-K9), the cuDNN
+convolutions and the cuBLAS GEMMs summed into groups, and the share of the
+profiled window in which the card ran no kernel. ``--variant`` picks the
+encoder's route; ``--amg`` profiles one ``SamAutomaticMaskGenerator.generate``
+(32x32 points in chunks of 64 on a 512x512 frame) instead of ``set_image``.
+Needs a CUDA device.
 
-    python scripts/profile_torch_sam.py [--runs 5] [--trace trace.json]
+    python scripts/profile_torch_sam.py [--variant default|k9|grid_native|head_major|no_rel_pos]
+                                        [--amg] [--runs 5] [--trace trace.json]
 """
 
 from __future__ import annotations
@@ -25,15 +30,47 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mia_tpu_torch.device import set_compute_precision  # noqa: E402
-from mia_tpu_torch.models.sam import SamPredictor, sam_model_registry  # noqa: E402
+from mia_tpu_torch.models.sam import (  # noqa: E402
+    ImageEncoderViT,
+    SamAutomaticMaskGenerator,
+    SamPredictor,
+    sam_model_registry,
+)
 
+# the template of csrc/attention_fwd.cuh is attention_fwd_kernel<D, bias, layout, split>:
+# bias 0 = rel tables, 1 = rel terms, 2 = dense; layout 0 = packed qkv, 1 = head-major
+# operands, 2 = windows carved from the token grid
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    ("K2 windowed attention", ("attention_rel_kernel<64, true", "attention_rel_kernelILi64ELb1")),
-    ("K3 global attention", ("attention_rel_kernel<64, false", "attention_rel_kernelILi64ELb0")),
+    ("K2 windowed attention", ("attention_fwd_kernel<64, 0, 0,",)),
+    ("K3 global attention", ("attention_fwd_kernel<64, 1, 0,",)),
+    ("K6 head-major attention", ("attention_fwd_kernel<64, 1, 1,",)),
+    ("K7 dense-bias attention", ("attention_fwd_kernel<64, 2, 1,",)),
+    ("K8 grid-native windowed attention", ("attention_fwd_kernel<64, 1, 2,",)),
     ("K4 LayerNorm + partition", ("ln_window_partition_kernel",)),
+    ("K9 unpartition + residual + LayerNorm", ("unpartition_add_ln_kernel",)),
     ("cuDNN convolutions", ("fprop", "implicit", "cudnn", "conv2d")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "Kernel2")),
 )
+VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)
+    "default": {},
+    "k9": dict(fuse_unpart_residual="always"),
+    "grid_native": dict(fuse_ln_window="never", attn_route="grid_native"),
+    "head_major": dict(attn_route="head_major"),
+    "no_rel_pos": dict(use_rel_pos=False),
+}
+
+
+def with_encoder(model, **options):
+    """Replace ``model``'s ViT-B/512 image encoder by one built with
+    ``options``, loaded with the same weights (bar absent rel-pos tables)."""
+    old = model.image_encoder
+    new = ImageEncoderViT(img_size=512, patch_size=16, embed_dim=768, depth=12, num_heads=12,
+                          out_chans=256, window_size=14, global_attn_indexes=(2, 5, 8, 11),
+                          **options).to(old.pos_embed.device)
+    new.load_state_dict({k: v for k, v in old.state_dict().items()
+                         if options.get("use_rel_pos", True) or "rel_pos" not in k})
+    model.image_encoder = new
+    return model.eval()
 
 
 def median_ms(fn, n=20, warmup=3) -> float:
@@ -51,8 +88,12 @@ def median_ms(fn, n=20, warmup=3) -> float:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--runs", type=int, default=5, help="set_image calls profiled")
+    parser.add_argument("--runs", type=int, default=5, help="calls profiled")
     parser.add_argument("--trace", type=Path, default=None, help="chrome trace output")
+    parser.add_argument("--variant", choices=sorted(VARIANTS), default="default",
+                        help="the encoder's route")
+    parser.add_argument("--amg", action="store_true",
+                        help="profile SamAutomaticMaskGenerator.generate instead of set_image")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_sam: needs a CUDA device")
@@ -65,24 +106,37 @@ def main() -> None:
     set_compute_precision("float32")
     torch.manual_seed(0)
     model, _ = sam_model_registry["vit_b"](512, 3, device="cuda")
-    predictor = SamPredictor(model)
+    predictor = SamPredictor(with_encoder(model, **VARIANTS[args.variant]))
     rng = np.random.default_rng(0)
-    image = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
     point, label = np.array([[320.0, 240.0]]), np.array([1])
-
-    print(f"set_image: {median_ms(lambda: predictor.set_image(image)):.2f} ms (median of 20)")
-    print(f"predict (1 point): "
-          f"{median_ms(lambda: predictor.predict(point_coords=point, point_labels=label)):.2f} ms")
+    if args.amg:
+        image = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+        generator = SamAutomaticMaskGenerator(predictor, points_per_side=32, points_per_batch=64)
+        what, call = "generate", lambda: generator.generate(image)
+        ms = median_ms(call, n=5, warmup=1)
+        print(f"encoder variant {args.variant}; generate (32x32 points, 16 chunks of 64, 512x512 "
+              f"frame): {ms:.2f} ms (median of 5), {32 * 32 * 3 / ms * 1e3:.0f} candidate masks/s")
+    else:
+        image = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        what, call = "set_image", lambda: predictor.set_image(image)
+        print(f"encoder variant {args.variant}; set_image: {median_ms(call):.2f} ms (median of 20)")
+        print(f"predict (1 point): "
+              f"{median_ms(lambda: predictor.predict(point_coords=point, point_labels=label)):.2f} ms")
 
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(args.runs):
-            predictor.set_image(image)
+            call()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / args.runs
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / args.runs
-    print(f"set_image kernel time {total:.3f} ms per call ({len(kernels)} kernel names)")
+    # kernels of one stream do not overlap, so the rest of the wall-clock is idle card
+    print(f"{what} under the profiler: wall {wall:.3f} ms per call, kernel and copy time "
+          f"{total:.3f} ms ({len(kernels)} names), card idle {max(0.0, 1 - total / wall):.1%}")
     grouped = {group: [0.0, 0] for group, _ in GROUPS}
     grouped["other"] = [0.0, 0]
     for e in kernels:
@@ -90,9 +144,10 @@ def main() -> None:
         group = next((g for g, keys in GROUPS if any(k.lower() in name for k in keys)), "other")
         grouped[group][0] += e.self_device_time_total / 1e3 / args.runs
         grouped[group][1] += e.count // args.runs
-    print("by group (ms per set_image, share, launches):")
+    print(f"by group (ms per {what}, share, launches):")
     for group, (ms, count) in grouped.items():
-        print(f"  {ms:8.3f} {ms / total:6.1%} {count:5d}  {group}")
+        if count:
+            print(f"  {ms:8.3f} {ms / total:6.1%} {count:5d}  {group}")
     print("by kernel (top 15):")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
         ms = e.self_device_time_total / 1e3 / args.runs

@@ -1,4 +1,4 @@
-"""K1-K5 on the card: the CUDA kernels against their plain PyTorch versions.
+"""K1-K9 on the card: the CUDA kernels against their plain PyTorch versions.
 
 Needs an NVIDIA GPU with nvcc; skipped without one. On the GPU machine,
 which has no JAX, run it with the repository's conftest switched off:
@@ -245,3 +245,141 @@ def test_k5_bit_exact_against_plain(cuda, size):
     torch.cuda.synchronize()
     assert morphology.connected_components_fused.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# K6-K9 (forward kernels) against their plain versions, same tolerance as
+# K2-K4; K9's x_new bit for bit (one float32 add).
+@pytest.mark.parametrize("bh,d,k_hw", [(108, 64, (14, 14)), (12, 64, (32, 32)), (16, 80, (14, 14)),
+                                       (6, 64, (10, 12)), (3, 64, (1, 3))])
+def test_k6_matches_plain(cuda, bh, d, k_hw):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = k_hw[0] * k_hw[1]
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device=cuda) for _ in range(3))
+    rel_h = torch.randn(bh, n, k_hw[0], generator=gen, device=cuda)
+    rel_w = torch.randn(bh, n, k_hw[1], generator=gen, device=cuda)
+    before = attention.fused_attention_rel.launches
+    got = attention.attention_rel_with_padding(q, k, v, rel_h, rel_w, d ** -0.5, k_hw)
+    want = attention.attention_rel(q, k, v, rel_h, rel_w, d ** -0.5, k_hw)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_rel.launches == before + 1
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("bh,d,n", [(108, 64, 196), (12, 64, 1024), (16, 80, 196), (5, 64, 120),
+                                    (3, 64, 1)])
+def test_k7_matches_plain(cuda, bh, d, n):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device=cuda) for _ in range(3))
+    bias = torch.randn(bh, n, n, generator=gen, device=cuda)
+    before = attention.fused_attention.launches
+    got = attention.attention_with_padding(q, k, v, bias, d ** -0.5)
+    want = attention.attention_dense(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches == before + 1
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("b,hw,heads,d,ws", [(1, (32, 32), 12, 64, 14), (8, (32, 32), 12, 64, 14),
+                                             (2, (20, 27), 12, 64, 14), (1, (32, 32), 16, 80, 14),
+                                             (2, (8, 8), 2, 64, 4), (1, (5, 9), 3, 64, 4)])
+def test_k8_matches_plain(cuda, b, hw, heads, d, ws):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    h, w = hw
+    qkv = torch.randn(b, h, w, 3 * heads * d, generator=gen, device=cuda)
+    rel_h = torch.randn(b * heads, h, w, ws, generator=gen, device=cuda)
+    rel_w = torch.randn(b * heads, h, w, ws, generator=gen, device=cuda)
+    bias_kv = torch.randn(3, heads * d, generator=gen, device=cuda)
+    before = attention.fused_attention_rel_win.launches
+    got = attention.fused_attention_rel_win(qkv, rel_h, rel_w, bias_kv, d ** -0.5, ws, heads)
+    want = attention.attention_rel_win(qkv, rel_h, rel_w, bias_kv, d ** -0.5, ws, heads)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_rel_win.launches == before + 1
+    assert got.shape == want.shape == (b, h, w, heads * d)
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,ws", [((1, 32, 32, 768), 14), ((8, 32, 32, 768), 14),
+                                      ((2, 20, 27, 768), 14), ((1, 9, 11, 30), 4)])
+def test_k9_matches_plain(cuda, shape, ws):
+    from mia_tpu_torch.ops import unpartition_residual as upr
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, h, w, c = shape
+    n_win = b * -(-h // ws) * -(-w // ws)
+    windows = torch.randn(n_win, ws, ws, c, generator=gen, device=cuda)
+    shortcut = torch.randn(shape, generator=gen, device=cuda)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.5 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    before = upr.unpartition_add_ln.launches
+    got_x, got_y = upr.unpartition_add_ln(windows, shortcut, scale, bias, ws)
+    want_x, want_y = upr.unpartition_add_ln_plain(windows, shortcut, scale, bias, ws)
+    torch.cuda.synchronize()
+    assert upr.unpartition_add_ln.launches == before + 1
+    assert torch.equal(got_x, want_x)
+    assert _rel_err(got_y, want_y) <= 1e-5
+
+
+def test_forward_only_kernels_raise_where_a_gradient_is_needed(cuda):
+    from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops import unpartition_residual as upr
+
+    q = torch.randn(2, 16, 64, device=cuda, requires_grad=True)
+    rel = torch.randn(2, 16, 4, device=cuda)
+    grid = torch.randn(2, 5, 6, 4, device=cuda)
+    calls = (
+        lambda: attention.fused_attention_rel(q, q, q, rel, rel, 0.1, (4, 4)),
+        lambda: attention.fused_attention(q, q, q, torch.zeros(2, 16, 16, device=cuda), 0.1),
+        lambda: attention.fused_attention_rel_win(
+            torch.randn(1, 5, 6, 384, device=cuda, requires_grad=True), grid, grid,
+            torch.zeros(3, 128, device=cuda), 0.1, 4, 2),
+        lambda: upr.unpartition_add_ln(
+            torch.randn(4, 4, 4, 64, device=cuda, requires_grad=True),
+            torch.randn(1, 5, 6, 64, device=cuda), torch.ones(64, device=cuda),
+            torch.zeros(64, device=cuda), 4),
+    )
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="backward kernel"):
+            call()
+        with torch.no_grad():
+            call()  # the same call serves
+
+
+def test_encoder_routes_launch_their_kernels_and_agree(cuda):
+    from mia_tpu_torch.models.sam.image_encoder import ImageEncoderViT
+    from mia_tpu_torch.ops import attention, ln_window
+    from mia_tpu_torch.ops import unpartition_residual as upr
+
+    kw = dict(img_size=320, patch_size=16, embed_dim=128, depth=3, num_heads=2, window_size=7,
+              global_attn_indexes=(2,))  # 20x20 tokens, window 7: pad rows and columns
+    torch.manual_seed(0)
+    base = ImageEncoderViT(**kw).to(cuda)
+    with torch.no_grad():
+        for name, p in base.named_parameters():
+            if "rel_pos" in name or name == "pos_embed":
+                p.normal_(std=0.1)
+    x = torch.randn(2, 320, 320, 3, device=cuda)
+    counters = {"K2": attention.fused_attention_rel_packed_ik,
+                "K3": attention.fused_attention_rel_packed, "K4": ln_window.ln_window_partition_fused,
+                "K6": attention.fused_attention_rel, "K8": attention.fused_attention_rel_win,
+                "K9": upr.unpartition_add_ln}
+    with torch.no_grad():
+        want = base(x)
+    for options, expect in (
+            (dict(fuse_unpart_residual="always"), dict(K2=2, K3=1, K4=2, K9=2)),
+            (dict(fuse_ln_window="never", attn_route="grid_native"), dict(K8=2, K3=1)),
+            (dict(attn_route="head_major"), dict(K6=3, K4=2))):
+        enc = ImageEncoderViT(**kw, **options).to(cuda)
+        enc.load_state_dict(base.state_dict())
+        before = {k: c.launches for k, c in counters.items()}
+        with torch.no_grad():
+            got = enc(x)
+        torch.cuda.synchronize()
+        assert {k: c.launches - before[k] for k, c in counters.items()} == {
+            k: expect.get(k, 0) for k in counters}
+        assert _rel_err(got, want) <= 1e-4

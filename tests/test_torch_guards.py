@@ -1,7 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 never runs on the CPU unless asked to, never counts a kernel launch on
-CPU tensors (forward, backward or K5), never launches a kernel on one, and
-names the host decode path it takes."""
+CPU tensors (forward, backward or K5), never launches a kernel on one,
+refuses a head dim its attention kernels are not built for and encoder
+options that contradict each other, and names the host decode path it
+takes."""
 
 import subprocess
 import sys
@@ -15,7 +17,7 @@ from mia_tpu_torch import native
 from mia_tpu_torch.data import BatchLoader, FUGCDataset, decode_path
 from mia_tpu_torch.device import resolve_device
 from mia_tpu_torch.entry.activelearning.train import parse_args, train_entry
-from mia_tpu_torch.ops import attention, ln_window, morphology
+from mia_tpu_torch.ops import attention, ln_window, morphology, unpartition_residual
 from mia_tpu_torch.ops.warp import _launch_k1, affine_warp_shift2pass_fused
 
 REPO = Path(__file__).resolve().parents[1]
@@ -27,7 +29,8 @@ def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
     # the pytest process has JAX from conftest.py, hence a fresh interpreter,
     # which imports every module of the port, drives two tiny AL rounds and
     # a tiny CPC-SAM run (one phase-1 and one phase-2 step) through their
-    # entry points, and serves a tiny SAM on the CPU
+    # entry points, serves a tiny SAM on the CPU, generates masks
+    # automatically and embeds through every route of the encoder
     code = f"""
 import dataclasses, importlib, pkgutil, sys
 import numpy as np
@@ -67,6 +70,18 @@ predictor.set_image((np.random.default_rng(0).random((48, 56, 3)) * 255).astype(
 masks, iou, low_res = predictor.predict(point_coords=np.array([[20.0, 30.0]]),
                                         point_labels=np.array([1]))
 assert masks.shape == (3, 48, 56) and iou.shape == (3,) and low_res.shape == (3, 16, 16)
+from mia_tpu_torch.models.sam import ImageEncoderViT, SamAutomaticMaskGenerator
+records = SamAutomaticMaskGenerator(predictor, points_per_side=2, points_per_batch=3,
+                                    pred_iou_thresh=-1e9, stability_score_thresh=-1.0).generate(
+    (np.random.default_rng(1).random((48, 56, 3)) * 255).astype(np.uint8))
+assert records and set(records[0]) == {{"segmentation", "rle", "area", "bbox", "predicted_iou"}}
+import torch
+for options in (dict(fuse_unpart_residual="always"), dict(attn_route="head_major"),
+                dict(fuse_ln_window="never", attn_route="grid_native"), dict(use_rel_pos=False)):
+    enc = ImageEncoderViT(img_size=40, patch_size=4, embed_dim=16, depth=2, num_heads=2,
+                          window_size=4, global_attn_indexes=(1,), **options)
+    with torch.no_grad():
+        assert enc(torch.zeros(1, 40, 40, 3)).shape == (1, 10, 10, 256)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mia_tpu") or m.startswith(("jax.", "flax", "optax", "mia_tpu.")))
 assert not bad, bad
@@ -156,6 +171,62 @@ def test_kernel_launchers_raise_on_cpu_tensors(kernel):
     }[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         launch()
+
+
+def test_k6_to_k9_counters_stay_zero_on_cpu_tensors():
+    q, rel = torch.rand(4, 16, 8), torch.rand(4, 16, 4)
+    assert attention.fused_attention_rel(q, q, q, rel, rel, 0.3, (4, 4)).shape == (4, 16, 8)
+    assert attention.fused_attention(q, q, q, torch.rand(4, 16, 16), 0.3).shape == (4, 16, 8)
+    grid = torch.rand(4, 5, 6, 4)
+    out = attention.fused_attention_rel_win(torch.rand(2, 5, 6, 48), grid, grid,
+                                            torch.rand(3, 16), 0.3, 4, 2)
+    assert out.shape == (2, 5, 6, 16)
+    x_new, y = unpartition_residual.unpartition_add_ln(
+        torch.rand(8, 4, 4, 16), torch.rand(2, 5, 6, 16), torch.ones(16), torch.zeros(16), 4)
+    assert x_new.shape == y.shape == (2, 5, 6, 16)
+    assert (attention.fused_attention_rel.launches, attention.fused_attention.launches,
+            attention.fused_attention_rel_win.launches,
+            unpartition_residual.unpartition_add_ln.launches) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("kernel,d,match", [
+    ("K6", 64, "CUDA tensor"), ("K7", 64, "CUDA tensor"), ("K8", 64, "CUDA tensor"),
+    ("K9", 64, "CUDA tensor"), ("K6", 24, "head dims"), ("K7", 24, "head dims"),
+    ("K8", 24, "head dims")])
+def test_route_kernel_launchers_raise_on_cpu_tensors_and_unsupported_head_dims(kernel, d, match):
+    """The launchers of K6-K9 take a CUDA tensor or raise; K6-K8 refuse any
+    head dim the template is not built for (64 and 80), as the JAX package's
+    packed kernels refuse a layout they cannot tile."""
+    q, rel = torch.rand(2, 16, d), torch.rand(2, 16, 4)
+    grid = torch.rand(2, 5, 6, 4)
+    launch = {
+        "K6": lambda: attention._launch_k6(q, q, q, rel, rel, 0.25, (4, 4)),
+        "K7": lambda: attention._launch_k7(q, q, q, torch.rand(2, 16, 16), 0.25),
+        "K8": lambda: attention._launch_k8(torch.rand(1, 5, 6, 3 * 2 * d), grid, grid,
+                                           torch.rand(3, 2 * d), 0.25, 4, 2),
+        "K9": lambda: unpartition_residual._launch_k9(
+            torch.rand(4, 4, 4, d), torch.rand(1, 5, 6, d), torch.ones(d), torch.zeros(d), 4),
+    }[kernel]
+    with pytest.raises(ValueError, match=match):
+        launch()
+
+
+@pytest.mark.parametrize("options,match", [
+    (dict(fuse_unpart_residual="always", fuse_ln_window="never"), "fuse_ln_window"),
+    (dict(attn_route="grid_native"), "fuse_ln_window"),
+    (dict(attn_route="grid_native", fuse_ln_window="always"), "fuse_ln_window"),
+    (dict(attn_route="lanes"), "attn_route"),
+    (dict(fuse_ln_window="sometimes"), "fuse_ln_window"),
+])
+def test_contradicting_encoder_options_raise_at_construction(options, match):
+    from mia_tpu_torch.models.sam import ImageEncoderViT
+
+    kw = dict(img_size=32, patch_size=4, embed_dim=16, depth=2, num_heads=2, window_size=4,
+              global_attn_indexes=(1,))
+    with pytest.raises(ValueError, match=match):
+        ImageEncoderViT(**kw, **options)
+    ImageEncoderViT(**kw, fuse_ln_window="never", attn_route="grid_native")  # the valid pairing
+    ImageEncoderViT(**kw, fuse_unpart_residual="always")
 
 
 @pytest.mark.parametrize("native_builds", [True, False])
