@@ -28,6 +28,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    1e-4 of max |plain| for each output, and K5 (connected components, 16
    sweeps) bit for bit on 3 x 12 x 4 class masks of 64x64 pseudo-labels
    (blob, speckled, empty, full) and on a 512x512 stack; timed the same way.
+   The backward kernels of K6, K8 and K9 the same way (K6b at the windowed
+   and the global shapes, a non-aligned token count and head dim 80; K8b and
+   K9b also on a 20x27 grid, K8b on a grid of whole windows, where dbias_kv
+   is exactly zero; K9b's pad slots exactly zero), their library time
+   autograd through one ``scaled_dot_product_attention`` call.
 4. Slice phase: writes a synthetic FUGC dataset (48/8/8 PNGs at 336x544)
    and runs ``al_train_torch``'s ``train_entry`` with the README's FUGC flags
    at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 30
@@ -46,7 +51,22 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    counts, finite losses, that the LoRA tensors moved and every frozen
    parameter stayed bit-identical, the validation, real test and
    checkpoints, and one phase-1 loss and its LoRA gradients on the card
-   against the CPU. Prints the step times and peak memory.
+   against the CPU. Prints the step times and peak memory. Then two more
+   runs of one phase-1 and one phase-2 step each: ``--use-contrastive-loss``
+   (finite losses, loss3 non-zero exactly when a class holds two memory rows,
+   the heads moved, frozen parameters bit-identical, a checkpoint with the
+   training state) and ``--use-adv-loss --resume`` from that checkpoint
+   (resumes at iteration 2 with the saved parameters, optimizer count and
+   memory; VAT loss positive).
+   Route-training phase: the trained CPC-SAM model with seeded rel-pos
+   tables and, in its place, the encoder of each other route (K9 exit,
+   grid-native by argument and by ``MIA_WINDOWED_ATTN=1``, head-major, no
+   rel-pos) takes one phase-1 loss and backward at batch 12 (6 labeled):
+   exact launch counts of the forward and backward kernels, the loss within
+   1e-5 and the LoRA gradients within 1e-4 of max |grad| of the default
+   route's (the no-rel-pos variant against the default with zeroed tables),
+   its time and peak memory beside the default's, and one full
+   ``CPCSAMTrainer.train_step``.
 5. SAM phase: builds ``sam_model_registry["vit_b"](512, 3)`` with seeded
    random weights on ``cuda`` and serves a seeded 480x640 uint8 frame
    through ``SamPredictor``: ``set_image``, ``predict`` with a point, a box,
@@ -68,9 +88,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    keep-everything thresholds at 16x16 points (gather, NMS, boxes, RLE:
    every record consistent), one chunk's scores on the card against the
    CPU, and one run on the grid-native encoder (K8 under AMG).
-7. Prints one JSON line with the kernels (K1-K9, forward, and the backward
-   kernels of K2-K4, with their launches in the paths that ran them, their
-   bounds and library times), then the result line
+7. Prints one JSON line with the 15 kernels (K1-K9, forward, and the
+   backward kernels K2b-K4b, K6b, K8b, K9b, with their launches in the paths
+   that ran them, their bounds and library times), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -114,12 +134,18 @@ KERNELS = {
            "mia_tpu/ops/morphology.py:235"),
     "K6": ("fused_attention_rel (K6)", "mia_tpu_torch/csrc/attention_routes.cu",
            "mia_tpu/ops/attention.py:296"),
+    "K6b": ("fused_attention_rel backward (K6)", "mia_tpu_torch/csrc/attention_routes.cu",
+            "mia_tpu/ops/attention.py:429"),
     "K7": ("fused_attention (K7)", "mia_tpu_torch/csrc/attention_routes.cu",
            "mia_tpu/ops/attention.py:88"),
     "K8": ("fused_attention_rel_win (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
            "mia_tpu/ops/attention.py:1334"),
+    "K8b": ("fused_attention_rel_win backward (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
+            "mia_tpu/ops/attention.py:1509"),
     "K9": ("unpartition_add_ln (K9)", "mia_tpu_torch/csrc/unpartition_residual.cu",
            "mia_tpu/ops/unpartition_residual.py:221"),
+    "K9b": ("unpartition_add_ln backward (K9)", "mia_tpu_torch/csrc/unpartition_residual.cu",
+            "mia_tpu/ops/unpartition_residual.py:161"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what every kernel here computes in
@@ -132,9 +158,12 @@ def counters():
     from mia_tpu_torch.ops import attention, ln_window, morphology, unpartition_residual, warp
 
     return {"K6": attention.fused_attention_rel,
+            "K6b": attention.fused_attention_rel_bwd,
             "K7": attention.fused_attention,
             "K8": attention.fused_attention_rel_win,
+            "K8b": attention.fused_attention_rel_win_bwd,
             "K9": unpartition_residual.unpartition_add_ln,
+            "K9b": unpartition_residual.unpartition_add_ln_fused_bwd,
             "K1": warp.affine_warp_shift2pass_fused,
             "K2": attention.fused_attention_rel_packed_ik,
             "K2b": attention.fused_attention_rel_packed_ik_bwd,
@@ -231,6 +260,29 @@ def forward_holder(torch, worst):
     return hold
 
 
+def backward_holder(torch, worst):
+    """``hold(name, label, got, want)``: fail unless every output of the
+    backward kernel is present where the plain VJP's is, finite, of its shape
+    and within ``BWD_TOL`` of max |plain| (exactly zero where the plain one
+    is); keeps the worst absolute and relative error by kernel."""
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        check(len(got) == len(want), f"{name} {label}: {len(got)} outputs, expected {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check((a is None) == (b is None), f"{name} {label}: output {i} present in one version only")
+            if b is None:
+                continue
+            check(a.shape == b.shape, f"{name} {label}: output {i} shape {tuple(a.shape)}")
+            check(bool(torch.isfinite(a).all()), f"{name} {label}: output {i} not finite")
+            err, ref = (a - b).abs().max().item(), b.abs().max().item()
+            check(err <= BWD_TOL * ref,
+                  f"{name} {label}: output {i} max |kernel - plain| {err} > {BWD_TOL} x {ref}")
+            worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref if ref else 0.0)]
+
+    return hold
+
+
 def head_major(qkv, heads):
     """Packed (B, N, 3·H·D) qkv → contiguous q, k, v (B, H, N, D)."""
     b, n, _ = qkv.shape
@@ -241,6 +293,15 @@ def dense_bias(rel_h, rel_w, batch, heads):
     """Factored rel terms (B·H, N, k_h), (B·H, N, k_w) → (B, H, N, N)."""
     n = rel_h.shape[1]
     return (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(batch, heads, n, n).contiguous()
+
+
+def windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads):
+    """K8's operands partitioned ahead of the library call: (B·nW, H, ws², D)
+    q, k, v with the pad slots filled, and the dense (B·nW, H, ws², ws²) bias."""
+    from mia_tpu_torch.ops import attention
+
+    windows, rel_h, rel_w = attention.partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, n_heads)
+    return (*head_major(windows, n_heads), dense_bias(rel_h, rel_w, windows.shape[0], n_heads))
 
 
 def sdpa_ms(torch, q, k, v, bias, scale, per_block):
@@ -652,19 +713,7 @@ def train_kernel_phase(torch, device):
     scale = d ** -0.5
     worst = {k: [0.0, 0.0] for k in ("K2b", "K3b", "K4b")}
 
-    def hold(name, label, got, want):
-        torch.cuda.synchronize()
-        for i, (a, b) in enumerate(zip(got, want)):
-            check((a is None) == (b is None), f"{name} {label}: output {i} present in one version only")
-            if b is None:
-                continue
-            check(a.shape == b.shape, f"{name} {label}: output {i} shape {tuple(a.shape)}")
-            check(bool(torch.isfinite(a).all()), f"{name} {label}: output {i} not finite")
-            err, ref = (a - b).abs().max().item(), b.abs().max().item()
-            check(err <= BWD_TOL * ref,
-                  f"{name} {label}: output {i} max |kernel - plain| {err} > {BWD_TOL} x {ref}")
-            worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
-
+    hold = backward_holder(torch, worst)
     ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
     rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
     timed = {}
@@ -831,12 +880,6 @@ def route_kernel_phase(torch, device):
         check(torch.equal(got_x, want_x), f"K9 {label}: x_new is not bit-exact against the plain add")
         inputs[("K9", label)] = args
 
-    def windows_for_library(qkv, rel_h, rel_w, bias_kv, n_heads):
-        """K8's operands partitioned ahead of the library call: (B·nW, H, ws², D)
-        q, k, v with the pad slots filled, and the dense (B·nW, H, ws², ws²) bias."""
-        windows, rel_h, rel_w = attention.partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, n_heads)
-        return (*head_major(windows, n_heads), dense_bias(rel_h, rel_w, windows.shape[0], n_heads))
-
     def bound_and_library(name, args, per_block):
         """The launch's bound and the library call on the same operands (the
         dense bias, and K8's partition, are built outside the timed call)."""
@@ -853,8 +896,8 @@ def route_kernel_phase(torch, device):
             out = torch.empty(b, hg, wg, n_heads * d, device=device)
             # only the real queries are computed, against the ws² slots of their window
             flops = attention_flops(b * n_heads, hg * wg, ws * ws, d)
-            lib = sdpa_ms(torch, *windows_for_library(qkv, rel_h, rel_w, bias_kv, n_heads), sc,
-                          per_block)
+            lib = sdpa_ms(torch, *windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads),
+                          sc, per_block)
             return {"library_ms": lib, **bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
         q, k, v = (t[None] for t in args[:3])
         bh, n, d = args[0].shape
@@ -894,6 +937,137 @@ def route_kernel_phase(torch, device):
         print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
               + ("; x_new bit-exact" if name == "K9" else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of K6, K8, K9 against their plain VJPs
+# ---------------------------------------------------------------------------
+
+
+def route_bwd_kernel_phase(torch, device):
+    from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops import unpartition_residual as upr
+    from mia_tpu_torch.ops.ln_window import window_partition
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return scale * torch.randn(shape, generator=gen, device=device) + shift
+
+    heads, ws, c, side = 12, 14, 768, 32
+    worst = {k: [0.0, 0.0] for k in ("K6b", "K8b", "K9b")}
+    hold = backward_holder(torch, worst)
+    timed = {}
+
+    # K6b: head-major operands of 12 and 6 ViT-B/512 images (9 windows x 12
+    # heads of 196 tokens each; 12 heads of 1024 global tokens each), a token
+    # count no tile divides, and the ViT-H head dim
+    for label, bh, d, k_hw in (("B=12 windows", 1296, 64, (14, 14)), ("B=12 global", 144, 64, (32, 32)),
+                               ("B=6 windows", 648, 64, (14, 14)), ("B=6 global", 72, 64, (32, 32)),
+                               ("N=120 (10x12)", 6, 64, (10, 12)),
+                               ("head dim 80", 144, 80, (14, 14))):
+        n = k_hw[0] * k_hw[1]
+        fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+               randn(bh, n, k_hw[1]))
+        out, lse = attention._launch_k6(*fwd, d ** -0.5, k_hw, with_lse=True)
+        g = randn(bh, n, d)
+        kernel_args = (*fwd, out, g, lse, d ** -0.5, k_hw)
+        plain_args = (*fwd, out, g, d ** -0.5, k_hw)
+        hold("K6b", label, attention._launch_k6_bwd(*kernel_args),
+             attention.attention_rel_bwd(*plain_args))
+        timed[("K6b", label)] = (kernel_args, plain_args)
+    # K8b: 32x32 pads each edge window, 20x27 both ways, 28x28 is whole windows
+    # (dbias_kv exactly zero)
+    for label, b, hw, n_heads, d in (("B=12", 12, (side, side), heads, 64),
+                                     ("B=6", 6, (side, side), heads, 64),
+                                     ("grid 20x27", 2, (20, 27), heads, 64),
+                                     ("whole windows 28x28", 2, (28, 28), heads, 64),
+                                     ("head dim 80", 1, (side, side), 16, 80)):
+        fwd = (randn(b, *hw, 3 * n_heads * d), randn(b * n_heads, *hw, ws),
+               randn(b * n_heads, *hw, ws), randn(3, n_heads * d, scale=0.5))
+        out, lse = attention._launch_k8(*fwd, d ** -0.5, ws, n_heads, with_lse=True)
+        g = randn(b, *hw, n_heads * d)
+        kernel_args = (*fwd, out, g, lse, d ** -0.5, ws, n_heads)
+        plain_args = (*fwd, out, g, d ** -0.5, ws, n_heads)
+        got = attention._launch_k8_bwd(*kernel_args)
+        hold("K8b", label, got, attention.attention_rel_win_bwd(*plain_args))
+        check(not got[3][0].any(), f"K8b {label}: row 0 of dbias_kv is not zero")
+        timed[("K8b", label)] = (kernel_args, plain_args)
+    # K9b: the total in both layouts, the pad slots of the windows' cotangent exactly zero
+    ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
+    for label, shape in (("B=12", (12, side, side, c)), ("B=6", (6, side, side, c)),
+                         ("grid 20x27", (2, 20, 27, c))):
+        n_win = shape[0] * -(-shape[1] // ws) * -(-shape[2] // ws)
+        x_new, _, mu, rstd = upr._launch_k9(randn(n_win, ws, ws, c), randn(*shape), ln_scale,
+                                            ln_bias, ws, 1e-6, with_stats=True)
+        dx_new, dy = randn(*shape), randn(*shape)
+        pad = window_partition(torch.ones(*shape[:3], 1, device=device), ws)[0] == 0
+        for params in (False, True):
+            args = (x_new, dx_new, dy, mu, rstd, ln_scale, ws, params)
+            got = upr._launch_k9_bwd(*args)
+            hold("K9b", f"{label} params={params}", got, upr.unpartition_add_ln_bwd(*args))
+            check(bool(pad.any()) and not got[0][pad.expand_as(got[0])].any(),
+                  f"K9b {label}: pad slots of the windows' cotangent are not zero")
+        timed[("K9b", label)] = ((x_new, dx_new, dy, mu, rstd, ln_scale, ws, False),) * 2
+
+    def bound_and_library(name, args):
+        """The launch's bound and, for K6b and K8b, autograd through the
+        library call on the same operands."""
+        if name == "K9b":
+            x, _, _, mu, rstd, ln_w = args[:6]
+            dwin = torch.empty(x.shape[0] * 9, ws, ws, c, device=device)
+            # three reads and two writes of the real tokens (one of them with the pad
+            # slots' zeros); two row reductions and the VJP's combination: ~13 operations
+            # an element; no single PyTorch call is this VJP in two layouts
+            return {"library_ms": None,
+                    **bound([x, x, x, mu, rstd, ln_w, x, dwin], 13 * x.numel())}
+        if name == "K8b":
+            qkv, rel_h, rel_w, bias_kv, o, g, _, sc, _, n_heads = args
+            b, hg, wg, three_hd = qkv.shape
+            d = three_hd // (3 * n_heads)
+            # only the real queries are computed, against the ws² slots of their window
+            flops = attention_flops(b * n_heads, hg * wg, ws * ws, d, backward=True)
+            g_w = window_partition(g, ws)[0].view(-1, ws * ws, n_heads, d).transpose(1, 2).contiguous()
+            lib = sdpa_backward_ms(torch, *windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads),
+                                   sc, g_w, 5)
+            # lse is the forward's by-product; dqkv, drel_h, drel_w and dbias_kv are written
+            return {"library_ms": lib, **bound([qkv, rel_h, rel_w, bias_kv, o, g, qkv, rel_h, rel_w,
+                                                bias_kv], flops)}
+        q, k, v, rel_h, rel_w, o, g, _, sc, _ = args
+        bh, n, d = q.shape
+        lib = sdpa_backward_ms(torch, q[None], k[None], v[None], dense_bias(rel_h, rel_w, 1, bh), sc,
+                               g[None], 5)
+        return {"library_ms": lib, **bound([q, k, v, rel_h, rel_w, o, g, q, k, v, rel_h, rel_w],
+                                           attention_flops(bh, n, n, d, backward=True))}
+
+    fns = {"K6b": (attention._launch_k6_bwd, attention.attention_rel_bwd),
+           "K8b": (attention._launch_k8_bwd, attention.attention_rel_win_bwd),
+           "K9b": (upr._launch_k9_bwd, upr.unpartition_add_ln_bwd)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        labels = (("B=12 windows", "B=12 global", "B=6 windows", "B=6 global") if name == "K6b"
+                  else ("B=12", "B=6"))
+        for label in labels:
+            k_args, p_args = timed[(name, label)]
+            per_block = 20 if name == "K9b" else 5
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*k_args),
+                                                      lambda: plain(*p_args), per_block)
+            print(f"{name} at ViT-B/512 training {label}: kernel {k_a * 1e3:.2f} / "
+                  f"{k_b * 1e3:.2f} us, plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
+                  f"(median of 11 x {per_block} launches)")
+            if label.startswith("B=12"):
+                m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                     **bound_and_library(name, k_args)}
+                print(f"{name} at ViT-B/512 training {label}: {describe_yardsticks(m)}")
+                if label == "B=12 global":  # the same kernel at the global blocks' shape
+                    out[name]["global_tokens"] = m
+                else:
+                    out[name] = {"max_abs_err": worst[name][0], **m}
+        print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
+              f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
+              + ("; pad slots exactly zero" if name == "K9b" else ""))
     return out
 
 
@@ -1088,9 +1262,10 @@ ROUTE_VARIANTS = (
 
 
 def with_encoder(model, **options):
-    """A copy of ``model`` whose image encoder has the same geometry, is built
-    with ``options`` and loaded with the same weights (bar the rel-pos tables of
-    an encoder built without them)."""
+    """A copy of ``model`` whose image encoder has the same geometry and LoRA
+    rank, is built with ``options`` and loaded with the same weights (bar the
+    rel-pos tables of an encoder built without them); every parameter keeps
+    its ``requires_grad`` and the copy the model's train/eval mode."""
     import copy
 
     from mia_tpu_torch.models.sam import ImageEncoderViT
@@ -1103,11 +1278,14 @@ def with_encoder(model, **options):
         embed_dim=enc.pos_embed.shape[-1], depth=len(blocks), num_heads=blocks[0].attn.num_heads,
         out_chans=enc.neck[0].out_channels, window_size=max(b.window_size for b in blocks),
         global_attn_indexes=tuple(i for i, b in enumerate(blocks) if b.window_size == 0),
-        **options).to(enc.pos_embed.device)
+        lora_rank=blocks[0].attn.lora_rank, **options).to(enc.pos_embed.device)
     encoder.load_state_dict({k: v for k, v in enc.state_dict().items()
                              if options.get("use_rel_pos", True) or "rel_pos" not in k})
+    source = dict(enc.named_parameters())
+    for name, p in encoder.named_parameters():
+        p.requires_grad_(source[name].requires_grad)
     variant.image_encoder = encoder
-    return variant.eval()
+    return variant.train(model.training)
 
 
 @contextlib.contextmanager
@@ -1341,13 +1519,14 @@ def amg_phase(torch, device, model, cpu_model):
 # (LoRA on q and v) but not block 0's K4, whose input (patch embed +
 # pos-embed, frozen) and LayerNorm parameters (frozen) need no gradient;
 # phase 2 adds one batched connected-components call for all decoders
-# (the default encoder takes none of the other routes: no K6-K9)
+# (the default encoder takes none of the other routes: no K6-K9); with an
+# auxiliary loss on, phase 1 runs the whole batch through the same launches
 STEP_LAUNCHES = {
     1: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 0},
     2: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 1},
 }
 for _expected in STEP_LAUNCHES.values():
-    _expected.update({"K6": 0, "K7": 0, "K8": 0, "K9": 0})
+    _expected.update({k: 0 for k in ("K6", "K6b", "K7", "K8", "K8b", "K9", "K9b")})
 
 
 def acdc_arrays(np, n, size, depth=None, seed=0):
@@ -1440,16 +1619,17 @@ def cpcsam_card_vs_cpu(torch, model, images, labels):
     return want_loss, scale, errs, cpu_s
 
 
-def cpcsam_phase(torch, device, workdir: Path):
-    import numpy as np
-
-    from mia_tpu_torch.data import ACDCDataset
+def run_cpcsam(torch, device, datasets, argv):
+    """``train_entry(argv)`` on the in-memory ACDC set with every train step
+    timed and counted → the trainer and what was recorded: ``steps`` (phase,
+    seconds, launches by kernel, valid memory rows by class or None),
+    ``losses``, ``snap`` (every parameter after ``on_train_start``),
+    ``launches`` of the whole run and the peak memory."""
     from mia_tpu_torch.entry.cpcsam.train import train_entry
     from mia_tpu_torch.training import cpcsam_trainer
 
-    datasets = in_memory_acdc(np, ACDCDataset)
     counts = counters()
-    steps, losses, snap = [], [], {}
+    rec = {"steps": [], "losses": [], "snap": {}}
     base = cpcsam_trainer.CPCSAMTrainer
 
     class SmokeTrainer(base):
@@ -1458,7 +1638,8 @@ def cpcsam_phase(torch, device, workdir: Path):
 
         def on_train_start(self):
             super().on_train_start()
-            snap.update({n: p.detach().clone() for n, p in self.model.named_parameters()})
+            rec["snap"].update({n: p.detach().clone() for n, p in self.model.named_parameters()})
+            rec["first_iter"] = self.current_iter
 
         def train_step(self, batch):
             phase = 2 if self.current_iter >= self.config.warmup_iter else 1
@@ -1467,18 +1648,15 @@ def cpcsam_phase(torch, device, workdir: Path):
             t0 = time.perf_counter()
             super().train_step(batch)
             torch.cuda.synchronize()
-            steps.append((phase, time.perf_counter() - t0,
-                          {k: fn.launches - before[k] for k, fn in counts.items() if k != "K1"}))
+            rows = None if self.memory is None else self.memory.valid.sum(1).tolist()
+            rec["steps"].append((phase, time.perf_counter() - t0,
+                                 {k: fn.launches - before[k] for k, fn in counts.items()
+                                  if k != "K1"}, rows))
 
         def _log_train(self, step, lr, step_losses):
-            losses.append([float(v) for v in step_losses.cpu()])
+            rec["losses"].append([float(v) for v in step_losses.cpu()])
             return super()._log_train(step, lr, step_losses)
 
-    warmup, iters, batch = 2, 6, 12
-    argv = ["--work-path", str(workdir / "work"), "--data-path", str(workdir / "acdc"),
-            "--device", "cuda", "--warmup-iter", str(warmup), "--min-iter", str(iters),
-            "--max-iter", str(iters), "--valid-freq-iter", "3", "--lr-warmup-iter", "1",
-            "--quiet"]
     cpcsam_trainer.CPCSAMTrainer = SmokeTrainer
     try:
         for fn in counts.values():
@@ -1487,11 +1665,57 @@ def cpcsam_phase(torch, device, workdir: Path):
         t0 = time.perf_counter()
         trainer = train_entry(argv)
         torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counts.items()}
-        peak = torch.cuda.max_memory_allocated(device)
+        rec["total_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: fn.launches for k, fn in counts.items()}
+        rec["peak"] = torch.cuda.max_memory_allocated(device)
     finally:
         cpcsam_trainer.CPCSAMTrainer = base
+    return trainer, rec
+
+
+def check_cpcsam_steps(torch, trainer, rec, phases, moved_prefixes):
+    """What every CPC-SAM run of the smoke must show: the phases of its
+    steps, the derived launches in each, finite losses, the trainable tensors
+    under ``moved_prefixes`` moved and the frozen encoder bit-identical."""
+    check([s[0] for s in rec["steps"]] == phases, f"phases of the steps: {[s[0] for s in rec['steps']]}")
+    for phase, _, per_step, _ in rec["steps"]:
+        check(per_step == STEP_LAUNCHES[phase],
+              f"phase-{phase} step launched {per_step}, expected {STEP_LAUNCHES[phase]}")
+    losses = rec["losses"]
+    check(len(losses) == len(phases) and all(math.isfinite(v) for row in losses for v in row),
+          f"losses not all finite: {losses}")
+    check(all((row[2] > 0) == (ph == 2) for row, ph in zip(losses, phases)),
+          "loss2 must be zero in phase 1 and positive in phase 2")
+    moved, frozen_changed = {}, []
+    for n, p in trainer.model.named_parameters():
+        same = torch.equal(p.detach(), rec["snap"][n])
+        if "lora_" in n or n.startswith(moved_prefixes):
+            moved[n] = not same
+        elif n.startswith("image_encoder.") and not same:
+            frozen_changed.append(n)
+        check(p.requires_grad == ("lora_" in n or not n.startswith("image_encoder.")),
+              f"{n}: requires_grad {p.requires_grad}")
+    lora = [m for n, m in moved.items() if "lora_" in n]
+    check(len(lora) == 48 and all(moved.values()),
+          f"trainable tensors that did not move: {[n for n, m in moved.items() if not m][:5]}")
+    check(not frozen_changed, f"frozen encoder parameters changed: {frozen_changed[:5]}")
+    return moved
+
+
+def cpcsam_phase(torch, device, workdir: Path):
+    import numpy as np
+
+    from mia_tpu_torch.data import ACDCDataset
+
+    datasets = in_memory_acdc(np, ACDCDataset)
+    warmup, iters, batch = 2, 6, 12
+    common = ["--data-path", str(workdir / "acdc"), "--device", "cuda", "--lr-warmup-iter", "1",
+              "--quiet"]
+    argv = common + ["--work-path", str(workdir / "work"), "--warmup-iter", str(warmup),
+                     "--min-iter", str(iters), "--max-iter", str(iters), "--valid-freq-iter", "3"]
+    trainer, rec = run_cpcsam(torch, device, datasets, argv)
+    steps, losses, launches, peak, total_s = (rec["steps"], rec["losses"], rec["launches"],
+                                              rec["peak"], rec["total_s"])
 
     model, cfg = trainer.model, trainer.config
     enc = model.image_encoder
@@ -1503,26 +1727,7 @@ def cpcsam_phase(torch, device, workdir: Path):
     check(cfg.batch_size == batch and cfg.labeled_batch_size == 6 and cfg.promptmode == ["point"],
           f"batch {cfg.batch_size}, labeled {cfg.labeled_batch_size}, prompts {cfg.promptmode}")
     check(all(p.device.type == "cuda" for p in model.parameters()), "SamDualmask not on CUDA")
-    check([s[0] for s in steps] == [1] * warmup + [2] * (iters - warmup),
-          f"phases of the steps: {[s[0] for s in steps]}")
-    for phase, _, per_step in steps:
-        check(per_step == STEP_LAUNCHES[phase],
-              f"phase-{phase} step launched {per_step}, expected {STEP_LAUNCHES[phase]}")
-    check(len(losses) == iters and all(math.isfinite(v) for row in losses for v in row),
-          f"losses not all finite: {losses}")
-    check(all(row[2] > 0 for row in losses[warmup:]) and all(row[2] == 0 for row in losses[:warmup]),
-          "loss2 must be zero in phase 1 and positive in phase 2")
-    moved, frozen_changed = [], []
-    for n, p in model.named_parameters():
-        same = torch.equal(p.detach(), snap[n])
-        if "lora_" in n:
-            moved.append(not same)
-        elif n.startswith("image_encoder.") and not same:
-            frozen_changed.append(n)
-        check(p.requires_grad == ("lora_" in n or not n.startswith("image_encoder.")),
-              f"{n}: requires_grad {p.requires_grad}")
-    check(len(moved) == 48 and all(moved), f"LoRA tensors moved: {sum(moved)} of {len(moved)}")
-    check(not frozen_changed, f"frozen encoder parameters changed: {frozen_changed[:5]}")
+    check_cpcsam_steps(torch, trainer, rec, [1] * warmup + [2] * (iters - warmup), ())
     work = trainer.work_path
     for rel in ("best_model/lora.pth", "final_model/lora.pth", "test_mean.csv"):
         check((work / rel).is_file(), f"missing {rel}")
@@ -1560,9 +1765,204 @@ def cpcsam_phase(torch, device, workdir: Path):
           f"{want_loss:.6f}, max |LoRA grad| {grad_scale:.3g}: "
           + "; ".join(f"{m}: loss {a:.3g} relative, grads {b:.3g} of max" for m, (a, b)
                       in errs.items()) + f" (CPU side {cpu_s:.1f} s)")
+
+    # --- the auxiliary losses and --resume: one step per phase each -----------
+    # run A: the contrastive loss from a fresh model; run B: VAT, resumed from A's
+    # final checkpoint (iterations 2 and 3 of the same run, phase 1 then phase 2)
+    heads = ("projection_head", "prediction_head")
+    selectors = "contrastive_class_selector"
+    aux = {}
+    no_valid = ["--valid-freq-iter", "1000"]
+    argv_a = common + no_valid + ["--work-path", str(workdir / "work_contrastive"),
+                                  "--use-contrastive-loss", "--warmup-iter", "1",
+                                  "--min-iter", "2", "--max-iter", "2"]
+    tr_a, rec_a = run_cpcsam(torch, device, datasets, argv_a)
+    check_cpcsam_steps(torch, tr_a, rec_a, [1, 2], heads)
+    for (_, _, _, rows), row in zip(rec_a["steps"], rec_a["losses"]):
+        check(rows is not None and len(rows) == 4, f"feature memory rows by class: {rows}")
+        check((row[3] > 0) == (max(rows) >= 2),
+              f"loss3 {row[3]} with {rows} valid memory rows by class: it must be non-zero "
+              "exactly when a class holds two rows")
+    check(rec_a["losses"][-1][3] > 0, "the contrastive loss stayed zero: no class filled its memory")
+    # a class selector moves only once its class holds two memory rows (never the background's)
+    check(any(n.startswith(selectors) and not torch.equal(p.detach(), rec_a["snap"][n])
+              for n, p in tr_a.model.named_parameters()), "no class selector moved")
+    ckpt = tr_a.work_path / "final_model"
+    for rel in ("lora.pth", "training_state.json", "training_state.pth"):
+        check((ckpt / rel).is_file(), f"missing final_model/{rel}")
+    aux["contrastive"] = rec_a
+
+    argv_b = common + no_valid + ["--work-path", str(workdir / "work_adv"), "--use-adv-loss",
+                                  "--resume", str(ckpt), "--warmup-iter", "3", "--min-iter", "4",
+                                  "--max-iter", "4"]
+    tr_b, rec_b = run_cpcsam(torch, device, datasets, argv_b)
+    check(rec_b["first_iter"] == 2 and tr_b.current_iter == 4 and tr_b.optimizer.count == 4,
+          f"resumed at iteration {rec_b['first_iter']}, ended at {tr_b.current_iter} with "
+          f"{tr_b.optimizer.count} optimizer steps; expected 2, 4, 4")
+    final_a = dict(tr_a.model.named_parameters())
+    check(all(torch.equal(p, final_a[n]) for n, p in rec_b["snap"].items()),
+          "the resumed run does not start from the saved parameters")
+    check(all(torch.equal(a, b) for a, b in zip(tr_a.memory, tr_b.memory)),
+          "the resumed run lost the feature memory")
+    check_cpcsam_steps(torch, tr_b, rec_b, [1, 2], ())
+    check(all(row[3] > 0 for row in rec_b["losses"]), f"VAT loss not positive: {rec_b['losses']}")
+    aux["adv"] = rec_b
+    for name, r in aux.items():
+        print(f"cpcsam --use-{name}-loss: phase-1 / phase-2 step "
+              + " / ".join(f"{s[1] * 1e3:.2f}" for s in r["steps"]) + " ms (first steps of a run, "
+              f"whole batch of {batch} in both), max_memory_allocated {r['peak'] / 2**30:.2f} GiB; "
+              f"losses {r['losses']}" + (f"; memory rows by class {[s[3] for s in r['steps']]}"
+                                         if name == "contrastive" else ""))
+    print("cpcsam: the contrastive run moved its heads and the LoRA tensors, the VAT run resumed "
+          "from its checkpoint at iteration 2 (parameters, optimizer count, memory); frozen "
+          "encoder bit-identical in both")
     return {"launches": launches, "phase1_step_ms": med[1], "phase2_step_ms": med[2],
             "max_memory_allocated": peak, "log": work / "log.txt",
-            "card_vs_cpu": {m: list(v) for m, v in errs.items()}}
+            "card_vs_cpu": {m: list(v) for m, v in errs.items()},
+            "aux": {name: {"step_ms": [s[1] * 1e3 for s in r["steps"]],
+                           "max_memory_allocated": r["peak"], "losses": r["losses"]}
+                    for name, r in aux.items()}}, trainer, datasets
+
+
+# ---------------------------------------------------------------------------
+# route-training phase: a phase-1 step through every other route of the encoder
+# ---------------------------------------------------------------------------
+
+# label, the encoder's options, MIA_WINDOWED_ATTN=1 around the calls, launches of
+# one phase-1 loss and backward (6 labeled images, LoRA on q and v: every block's
+# attention and exit need a gradient, block 0's K4 does not)
+ROUTE_TRAIN_VARIANTS = (
+    ("K9 exit", dict(fuse_unpart_residual="always"), False,
+     {"K4": 8, "K4b": 7, "K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K9": 8, "K9b": 8}),
+    ("grid-native by argument", dict(fuse_ln_window="never", attn_route="grid_native"), False,
+     {"K8": 8, "K8b": 8, "K3": 4, "K3b": 4}),
+    ("grid-native by MIA_WINDOWED_ATTN=1", dict(fuse_ln_window="never"), True,
+     {"K8": 8, "K8b": 8, "K3": 4, "K3b": 4}),
+    ("head-major", dict(attn_route="head_major"), False,
+     {"K6": 12, "K6b": 12, "K4": 8, "K4b": 7}),
+    ("no rel-pos", dict(use_rel_pos=False), False, {"K7": 12, "K4": 8, "K4b": 7}),
+)
+ROUTE_LOSS_TOL = 1e-5  # relative, float32 convolutions
+ROUTE_GRAD_TOL = 1e-4  # of the default route's largest LoRA gradient
+
+
+def route_train_phase(torch, device, trainer, datasets):
+    import copy
+
+    import numpy as np
+
+    from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer
+
+    counts = counters()
+    launches = {k: 0 for k in counts}
+    train_set = datasets["train"]
+    picks = list(range(6)) + list(range(32, 38))  # 6 labeled, 6 unlabeled slices
+    images = torch.from_numpy(np.stack([np.repeat(train_set.images[i][..., None], 3, -1)
+                                        for i in picks])).to(device)
+    labels = torch.from_numpy(train_set.labels[picks]).long().to(device)
+    # the trained model of the CPC-SAM phase (LoRA B no longer zero) with seeded rel-pos
+    # tables: the reference initialises them at zero and the run has no checkpoint
+    base = copy.deepcopy(trainer.model)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, p in base.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    zeroed = copy.deepcopy(base)
+    with torch.no_grad():
+        for name, p in zeroed.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                p.zero_()
+    config = dict(image_size=trainer.config.image_size, num_classes=3, batch_size=12,
+                  labeled_batch_ratio=0.5, lora_rank=4, dice_weight=0.8, promptmode=["point"],
+                  optimizer_name="adam")
+
+    def stepper(model):
+        tr = CPCSAMTrainer(device=device, config=config)
+        tr.model, tr.logger, tr.epoch_train_outputs = model, trainer.logger, []
+        tr._setup_loss()
+        tr._setup_optimizer()
+        return tr
+
+    def loss_and_grads(tr, tf32):
+        """One phase-1 loss and its LoRA gradients, counted → (loss, grads,
+        launches, peak bytes)."""
+        lora = [p for n, p in tr.model.named_parameters() if "lora_" in n]
+        for fn in counts.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            total = tr.compute_losses(images, labels, 0, False)[0]
+            grads = torch.autograd.grad(total, lora)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+        seen = {k: fn.launches for k, fn in counts.items() if fn.launches}
+        return total.item(), grads, seen, torch.cuda.max_memory_allocated(device)
+
+    def timed(tr):
+        return median_s(lambda: loss_and_grads(tr, True), torch, n=2, warmup=0) * 1e3
+
+    default = stepper(base)
+    want = {"default": loss_and_grads(default, False), "zeroed": loss_and_grads(stepper(zeroed), False)}
+    check(want["default"][2] == {k: v for k, v in STEP_LAUNCHES[1].items() if v},
+          f"default route: launches of a phase-1 loss and backward {want['default'][2]}")
+    tables_reach = (max((a - b).abs().max().item() for a, b in zip(want["default"][1], want["zeroed"][1]))
+                    / max(g.abs().max().item() for g in want["default"][1]))
+    check(tables_reach > 10 * ROUTE_GRAD_TOL,
+          f"the rel-pos tables move the LoRA gradients by only {tables_reach} of max |grad|")
+    print(f"route training: default route: phase-1 loss {want['default'][0]:.6f}; zeroing the "
+          f"seeded rel-pos tables moves its LoRA gradients by {tables_reach:.3g} of max |grad|")
+    del zeroed
+    out = {}
+    for label, options, switch, expect in ROUTE_TRAIN_VARIANTS:
+        tr = stepper(with_encoder(base, **options))
+        check(tr.model.training and tr.model.image_encoder.blocks[0].attn.lora_rank == 4,
+              f"{label}: the variant is not the LoRA-4 model in train mode")
+        with windowed_attn_switch(switch):
+            loss, grads, seen, peak = loss_and_grads(tr, False)
+            # in turns beside the default (TF32 convolutions, as a run)
+            base_a, ms_a = timed(default), timed(tr)
+            ms_b, base_b = timed(tr), timed(default)
+            # a full optimizer step through the trainer
+            before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+            tr.train_step({"image": images, "label": labels})
+            tr._flush_train_logs()
+            torch.cuda.synchronize()
+        check(seen == expect, f"{label}: launches of a phase-1 loss and backward {seen}, "
+              f"expected {expect}")
+        ref_loss, ref_grads, _, ref_peak = want["default" if options.get("use_rel_pos", True)
+                                                else "zeroed"]
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        scale = max(g.abs().max().item() for g in ref_grads)
+        grad_err = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads)) / scale
+        check(math.isfinite(loss) and loss_err <= ROUTE_LOSS_TOL,
+              f"{label}: phase-1 loss {loss} differs from the default route's by {loss_err}")
+        check(len(grads) == 48 and scale > 0 and grad_err <= ROUTE_GRAD_TOL,
+              f"{label}: LoRA gradients differ from the default route's by {grad_err} of max |grad|")
+        step_loss = tr.epoch_train_outputs[-1]["loss"]
+        changed = {n for n, p in tr.model.named_parameters() if not torch.equal(p.detach(), before[n])}
+        check(all(math.isfinite(v) for v in step_loss) and tr.optimizer.count == 1,
+              f"{label}: train_step losses {step_loss}, optimizer steps {tr.optimizer.count}")
+        check(sum("lora_" in n for n in changed) == 48
+              and not [n for n in changed if n.startswith("image_encoder.") and "lora_" not in n],
+              f"{label}: one train_step must move the 48 LoRA tensors and no frozen one")
+        for k, n in seen.items():
+            launches[k] += n
+        out[label] = {"step_ms": min(ms_a, ms_b), "default_ms": min(base_a, base_b),
+                      "max_memory_allocated": peak, "default_max_memory_allocated": ref_peak}
+        against = ("the default route" if options.get("use_rel_pos", True)
+                   else "the default route with zeroed rel-pos tables")
+        print(f"route training: {label}: launches {seen}; loss within {loss_err:.3g}, LoRA "
+              f"gradients within {grad_err:.3g} of max |grad| of {against} (float32 "
+              f"convolutions); phase-1 loss + backward {ms_a:.2f} / {ms_b:.2f} ms, default "
+              f"{base_a:.2f} / {base_b:.2f} ms (batch 12, 6 labeled, means of 2 after a first call, in "
+              f"turns); "
+              f"peak {peak / 2**30:.2f} GiB, default {ref_peak / 2**30:.2f} GiB; one train_step "
+              f"moved the LoRA tensors")
+    return {"launches": launches, "routes": out}
 
 
 def main(argv=None) -> int:
@@ -1613,10 +2013,13 @@ def main(argv=None) -> int:
     measured = {"K1": timed("K1", kernel_phase, torch, device),
                 **timed("K2-K4", sam_kernel_phase, torch, device),
                 **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
-                **timed("K6-K9", route_kernel_phase, torch, device)}
+                **timed("K6-K9", route_kernel_phase, torch, device),
+                **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = timed("AL slice", slice_phase, torch, Path(tmp))
-        cpc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
+        cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
+        route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
+        del cpc_trainer, acdc
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(sl["log"], args.out / "chip_smoke_train_log.txt")
@@ -1627,9 +2030,10 @@ def main(argv=None) -> int:
     print(f"seconds by phase: build {build_s:.1f}, {seconds}")
     # each path ran with every count set to 0 just before it: K1 from the
     # AL slice, K2-K4 forward from SAM serving, CPC-SAM training, the encoder
-    # routes and AMG, the backward kernels and K5 from CPC-SAM training,
-    # K6-K9 from the encoder routes, K8 from AMG on the grid-native encoder too
-    launches = {k: sum(path["launches"].get(k, 0) for path in (sam, cpc, routes, amg))
+    # routes and AMG, the backward kernels of K2-K4 and K5 from CPC-SAM
+    # training, K6-K9 from the encoder routes and, with K6b, K8b and K9b, from
+    # route training, K8 from AMG on the grid-native encoder too
+    launches = {k: sum(path["launches"].get(k, 0) for path in (sam, cpc, route_train, routes, amg))
                 for k in KERNELS}
     launches["K1"] = sl["launches"]
     for k in KERNELS:
@@ -1661,6 +2065,7 @@ def main(argv=None) -> int:
                         "routes": routes["set_image_ms"],
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
+                        "route_training": route_train["routes"],
                         **kernels, **result}, indent=1))
     print(card)
     print(json.dumps(kernels))

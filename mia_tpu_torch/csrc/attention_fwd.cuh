@@ -3,7 +3,8 @@
 // instances differ in where q, k, v come from and where the additive bias
 // comes from. attention_rel.cu instantiates it for K2 and K3 (packed qkv),
 // attention_routes.cu for K6 (head-major operands), K7 (dense bias) and K8
-// (windows carved from the unpartitioned token grid).
+// (windows carved from the unpartitioned token grid). The backward template
+// is attention_bwd.cuh.
 //
 // Every instance computes, per (batch element or window b, head h, query n),
 //
@@ -78,7 +79,7 @@ struct FwdArgs {
   const float* rel_b;
   const float* pad_kv;  // kWindow: (3, heads*D) q, k, v rows of a pad slot
   float* out;
-  float* lse;           // optional per-row log-sum-exp (B*H, n); never with kWindow
+  float* lse;           // optional per-row log-sum-exp, (B*H, n), or kWindow: (B*H, hg*wg) by token
   long long in_stride;  // floats per token row of q, k, v
   long long out_stride; // floats per token row of out
   int n;                // query rows = key rows per batch element (or slots per window)
@@ -112,8 +113,8 @@ __device__ __forceinline__ float dot_row(const float (&q)[D], const float* __res
 
 // The token (within its image) that row/slot `s` of this block stands for,
 // or -1 for a pad slot of a window.
-template <bool kWindow>
-__device__ __forceinline__ int slot_token(const FwdArgs& a, int s, int win) {
+template <bool kWindow, typename Args>
+__device__ __forceinline__ int slot_token(const Args& a, int s, int win) {
   if constexpr (!kWindow) {
     return s;
   } else {
@@ -323,9 +324,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
 
   if (active) {  // every split holds the merged row; each stores a quarter
     const float inv = 1.f / l;
-    if constexpr (!kWindow) {
-      if (a.lse != nullptr && split == 0) a.lse[bh * n + row] = m + logf(l);
-    }
+    if (a.lse != nullptr && split == 0) a.lse[bh * tokens + tok] = m + logf(l);
     float4* dst = reinterpret_cast<float4*>(a.out + (tok0 + tok) * a.out_stride + head * D);
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) {

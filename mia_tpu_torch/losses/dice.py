@@ -1,7 +1,8 @@
 """Soft Dice loss of the AL path (counterpart of
 ``mia_tpu/losses/dice.py::soft_dice_loss``). Logits ``(B, H, W, C)``,
-integer targets ``(B, H, W)``; returns ``1 - dice`` averaged over
-(batch,) classes."""
+integer targets ``(B, H, W)`` (or targets of the logits' shape, taken as
+they are: soft or one-hot); returns ``1 - dice`` averaged over (batch,)
+classes."""
 
 from __future__ import annotations
 
@@ -21,7 +22,10 @@ def soft_dice_loss(
 ) -> torch.Tensor:
     probs = torch.softmax(logits, -1) if softmax else logits
     probs = probs.to(torch.float32)
-    onehot = F.one_hot(targets.long(), logits.shape[-1]).to(torch.float32)
+    if targets.shape == logits.shape:
+        onehot = targets.to(torch.float32)
+    else:
+        onehot = F.one_hot(targets.long(), logits.shape[-1]).to(torch.float32)
     if not do_bg:
         probs = probs[..., 1:]
         onehot = onehot[..., 1:]

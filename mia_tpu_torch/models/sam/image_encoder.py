@@ -47,8 +47,11 @@ variant (bar the rel-pos tables, absent with ``use_rel_pos=False``):
   (``ops/unpartition_residual.py``) joins unpartition, residual add and
   norm2.
 
-K6-K9 are forward kernels: on the card these routes serve, and raise
-``NotImplementedError`` where autograd needs a gradient.
+Every route trains: K6, K8 and K9 are differentiable through their backward
+kernels (K6b, K8b, K9b) like K2-K4, and K7 through the plain tensor VJP the
+JAX package uses there too. In the grid-native route ``bias_kv`` is the qkv
+Linear applied to a zero token, so the pad slots' ``dk`` and ``dv`` reach
+``qkv.bias`` through autograd.
 
 The absolute position embedding and the qkv bias are always on, and the MLP
 is 4x wide, as ``Sam`` builds the encoder. Not ported: shared window runs

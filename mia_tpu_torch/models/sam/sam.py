@@ -117,9 +117,8 @@ class FeatureHead(nn.Module):
 class SamDualmask(nn.Module):
     """Multi-decoder CPC-SAM: a (LoRA-tuned) ViT encoder, the class-indexed
     prompt encoder, ``num_decoders`` ``MaskDecoderPromptLarge`` decoders
-    (``mask_decoder{i}``) and the contrastive feature heads (kept as
-    parameters: they are in the checkpoint, though the contrastive loss is
-    not ported).
+    (``mask_decoder{i}``) and the contrastive feature heads (read by the
+    trainer's contrastive loss; always parameters, as in the checkpoint).
 
     The JAX package vmaps the unprompted decoders over stacked parameters;
     that is TPU scheduling, and here they run as a loop.
@@ -173,7 +172,7 @@ class SamDualmask(nn.Module):
     def mask_decoders(self):
         return [getattr(self, f"mask_decoder{i}") for i in range(self.num_decoders)]
 
-    # -- heads (read by the contrastive loss, which is not ported) ----------
+    # -- heads (read by the trainer's contrastive loss) ---------------------
     def project_features(self, features, mask=None):
         return self.projection_head(features, mask)
 

@@ -30,7 +30,7 @@ unscaled q.
   / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
   plain VJPs on the CPU). Each wrapper counts its launches in ``launches``.
 
-The other routes (forward kernels in ``csrc/attention_routes.cu``):
+The other routes (kernels in ``csrc/attention_routes.cu``):
 
 - :func:`attention_rel` / :func:`fused_attention_rel` (K6) — head-major
   ``q, k, v (B·H, N, D)`` with rel terms ``(B·H, N, k_h)``, ``(B·H, N, k_w)``;
@@ -49,9 +49,21 @@ The other routes (forward kernels in ``csrc/attention_routes.cu``):
   k and v are ``bias_kv`` and which carry the query's rel bias for their
   slot position; pad queries are dropped.
 
-These three are forward kernels: a CUDA tensor that needs a gradient raises
-``NotImplementedError`` (the backward kernels are not ported yet); on the
-CPU the plain versions are ordinary differentiable tensor code.
+Their gradients, as for K2 and K3: when an input needs one the wrapper runs
+inside a ``torch.autograd.Function`` whose forward keeps the kernel's
+log-sum-exp and whose backward is
+
+- :func:`fused_attention_rel_bwd` (K6b) — ``dq, dk, dv, drel_h, drel_w``
+  from the backward template of ``csrc/attention_bwd.cuh`` on head-major
+  strides; plain VJP :func:`attention_rel_bwd`.
+- :func:`fused_attention_rel_win_bwd` (K8b) — ``dqkv`` written in place in
+  the grid layout, ``drel_h``, ``drel_w`` and ``dbias_kv`` (row 0 zero, rows
+  1-2 the summed ``dk``, ``dv`` of every pad slot, reduced in a fixed order);
+  plain VJP :func:`attention_rel_win_bwd`.
+- :func:`attention_dense_bwd` for K7, on every device: the JAX package has
+  no backward kernel there either, its VJP is the same plain tensor code.
+
+On the CPU the Functions run the plain forward and the plain VJP.
 """
 
 from __future__ import annotations
@@ -166,9 +178,11 @@ _ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stre
     "mia_attention_rel_packed_ik_f32": (5, 6),
     "mia_attention_rel_packed_bwd_f32": (10, 6),
     "mia_attention_rel_packed_ik_bwd_f32": (11, 6),
-    "mia_attention_rel_f32": (6, 5),  # bh, n, d, kh, kw
+    "mia_attention_rel_f32": (7, 5),  # bh, n, d, kh, kw
+    "mia_attention_rel_bwd_f32": (14, 5),
     "mia_attention_dense_f32": (5, 3),  # bh, n, d
-    "mia_attention_rel_win_f32": (5, 6),  # batch, hg, wg, heads, d, ws
+    "mia_attention_rel_win_f32": (6, 6),  # batch, hg, wg, heads, d, ws
+    "mia_attention_rel_win_bwd_f32": (13, 6),
 }
 
 
@@ -474,6 +488,64 @@ def attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int,
     return window_unpartition(out.view(-1, ws, ws, out.shape[-1]), ws, (hg, wg))
 
 
+def attention_dense_bwd(q, k, v, bias, g, scale: float):
+    """Plain VJP of K7 (the JAX package's ``_bwd`` of ``fused_attention``, which
+    is tensor code there too): cotangent ``g (B·H, N, D)`` → ``(dq, dk, dv,
+    dbias)`` with ``dbias = ds``. Materialises the ``(B·H, N, N)``
+    probabilities, ``dp`` and ``ds``."""
+    p = ((q * scale) @ k.transpose(-2, -1) + bias).softmax(-1)
+    dv = p.transpose(-2, -1) @ g
+    dp = g @ v.transpose(-2, -1)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return (ds @ k) * scale, (ds.transpose(-2, -1) @ q) * scale, dv, ds
+
+
+def attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, scale: float, k_hw):
+    """Plain VJP of K6 (``_rel_bwd`` semantics): from the forward's output and
+    the cotangent ``g (B·H, N, D)`` → ``(dq, dk, dv, drel_h, drel_w)`` in the
+    shapes of the inputs; ``drel_h[n, j]`` sums ``ds[n, k]`` over the keys of
+    grid row ``j``, ``drel_w`` over those of column ``j``."""
+    bh, n, _ = q.shape
+    k_h, k_w = k_hw
+    bias = (rel_h.reshape(bh, n, k_h, 1) + rel_w.reshape(bh, n, 1, k_w)).reshape(bh, n, n)
+    p = ((q * scale) @ k.transpose(-2, -1) + bias).softmax(-1)
+    delta = (g * out).sum(-1, keepdim=True)
+    dv = p.transpose(-2, -1) @ g
+    ds = p * (g @ v.transpose(-2, -1) - delta)
+    ds4 = ds.reshape(bh, n, k_h, k_w)
+    return (ds @ k) * scale, (ds.transpose(-2, -1) @ q) * scale, dv, ds4.sum(-1), ds4.sum(-2)
+
+
+def attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, scale: float, ws: int,
+                          num_heads: int):
+    """Plain VJP of K8 (``_rel_win_bwd`` semantics): ``out`` and its cotangent
+    ``g`` ``(B, Hg, Wg, H·D)`` → ``(dqkv, drel_h, drel_w, dbias_kv)``. The K3
+    VJP on whole windows (the pad queries carry a zero cotangent), with the
+    real slots unpartitioned back to the grid and the pad slots' ``dk`` and
+    ``dv`` summed into rows 1 and 2 of ``dbias_kv``; row 0 is zero."""
+    b, hg, wg, three_hd = qkv.shape
+    hd = three_hd // 3
+    packed = partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, num_heads)
+    out_w, (hp, wp) = window_partition(out, ws)
+    g_w, _ = window_partition(g, ws)
+    n_win = out_w.shape[0]
+    dqkv_w, drh_w, drw_w = attention_rel_packed_bwd(
+        *packed, out_w.reshape(n_win, ws * ws, hd), g_w.reshape(n_win, ws * ws, hd), scale,
+        (ws, ws), num_heads)
+    dqkv_w = dqkv_w.view(n_win, ws, ws, three_hd)
+    pad = 1.0 - window_partition(qkv.new_ones(b, hg, wg, 1), ws)[0]
+    dbias_kv = (dqkv_w * pad).sum((0, 1, 2)).view(3, hd).clone()
+    dbias_kv[0] = 0.0
+
+    def rel_grid(rel):  # (B·nW·H, ws·ws, ws) → (B·H, Hg, Wg, ws)
+        r = rel.reshape(b, hp // ws, wp // ws, num_heads, ws, ws, ws)
+        r = r.permute(0, 3, 1, 4, 2, 5, 6).reshape(b * num_heads, hp, wp, ws)
+        return r[:, :hg, :wg].contiguous()
+
+    dqkv = window_unpartition(dqkv_w, ws, (hg, wg)).contiguous()
+    return dqkv, rel_grid(drh_w), rel_grid(drw_w), dbias_kv
+
+
 def _check_head_major(label, q, k, v):
     """Check K6's and K7's operands; return (bh, n, d)."""
     if q.dim() != 3:
@@ -491,28 +563,54 @@ def _check_head_major(label, q, k, v):
 
 
 def _launch_on_stream(label, symbol, device, *args):
-    """Call C entry ``symbol`` with ``args`` and the current stream; raise
-    if it reports an error."""
+    """Call C entry ``symbol`` with ``args`` (None → NULL) and the current
+    stream; raise if it reports an error."""
     with torch.cuda.device(device):
         err = _kernel_function(symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{label} launch failed: cudaError {err}")
 
 
-def _launch_k6(q, k, v, rel_h, rel_w, scale, k_hw):
-    """Launch K6 (``mia_attention_rel_f32``); raise on anything it does not take."""
-    bh, n, d = _check_head_major("K6", q, k, v)
+def _check_k6(label, q, k, v, rel_h, rel_w, k_hw):
+    bh, n, d = _check_head_major(label, q, k, v)
     k_h, k_w = k_hw
     if n != k_h * k_w:
-        raise ValueError(f"K6: token count {n} != k_h*k_w {k_h * k_w}")
-    _check_operand("K6 rel_h", rel_h, (bh, n, k_h), q.device)
-    _check_operand("K6 rel_w", rel_w, (bh, n, k_w), q.device)
+        raise ValueError(f"{label}: token count {n} != k_h*k_w {k_h * k_w}")
+    _check_operand(f"{label} rel_h", rel_h, (bh, n, k_h), q.device)
+    _check_operand(f"{label} rel_w", rel_w, (bh, n, k_w), q.device)
+    return bh, n, d
+
+
+def _launch_k6(q, k, v, rel_h, rel_w, scale, k_hw, with_lse=False):
+    """Launch K6 (``mia_attention_rel_f32``); raise on anything it does not
+    take. ``with_lse`` also returns the per-row log-sum-exp ``(B·H, N)`` the
+    backward reads."""
+    bh, n, d = _check_k6("K6", q, k, v, rel_h, rel_w, k_hw)
     out = torch.empty_like(q)
+    lse = torch.empty((bh, n), dtype=torch.float32, device=q.device) if with_lse else None
     _launch_on_stream("K6", "mia_attention_rel_f32", q.device, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-                      bh, n, d, k_h, k_w, float(scale))
+                      None if lse is None else lse.data_ptr(), bh, n, d, *k_hw, float(scale))
     fused_attention_rel.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _launch_k6_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw):
+    """Launch K6's backward (``mia_attention_rel_bwd_f32``) → (dq, dk, dv,
+    drel_h, drel_w); raise on anything it does not take."""
+    bh, n, d = _check_k6("K6 backward", q, k, v, rel_h, rel_w, k_hw)
+    _check_operand("K6 backward out", out, (bh, n, d), q.device)
+    _check_operand("K6 backward cotangent", g, (bh, n, d), q.device)
+    _check_operand("K6 backward lse", lse, (bh, n), q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    delta = torch.empty_like(lse)
+    _launch_on_stream("K6 backward", "mia_attention_rel_bwd_f32", q.device,
+                      *(t.data_ptr() for t in (q, k, v, rel_h, rel_w, out, g, lse, dq, dk, dv,
+                                               delta, drel_h, drel_w)),
+                      bh, n, d, *k_hw, float(scale))
+    fused_attention_rel_bwd.launches += 1
+    return dq, dk, dv, drel_h, drel_w
 
 
 def _launch_k7(q, k, v, bias, scale):
@@ -526,55 +624,160 @@ def _launch_k7(q, k, v, bias, scale):
     return out
 
 
-def _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads):
-    """Launch K8 (``mia_attention_rel_win_f32``); raise on anything it does not take."""
+def _check_k8(label, qkv, rel_h, rel_w, bias_kv, ws, num_heads):
+    """Check K8's operands; return (b, hg, wg, d, ws, windows per image)."""
     if qkv.dim() != 4:
-        raise ValueError(f"K8 needs a (B, Hg, Wg, 3·H·D) qkv grid, got {tuple(qkv.shape)}")
-    b, hg, wg, three_hd = qkv.shape
+        raise ValueError(f"{label} needs a (B, Hg, Wg, 3·H·D) qkv grid, got {tuple(qkv.shape)}")
+    b, hg, wg, _ = qkv.shape
     d = _head_dim(qkv, num_heads)
     ws = int(ws)
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K8 is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
+        raise ValueError(f"{label} is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
     if qkv.device.type != "cuda":
-        raise ValueError(f"K8 needs a CUDA tensor, got {qkv.device}")
+        raise ValueError(f"{label} needs a CUDA tensor, got {qkv.device}")
     if ws <= 0:
-        raise ValueError(f"K8 window size must be positive, got {ws}")
+        raise ValueError(f"{label} window size must be positive, got {ws}")
     n_win = -(-hg // ws) * -(-wg // ws)
     if b * n_win >= 65536 or num_heads >= 65536 or qkv.numel() >= 2 ** 31:
-        raise ValueError(f"K8: qkv shape {tuple(qkv.shape)} exceeds the launch grid or int32")
-    _check_operand("K8 qkv", qkv, qkv.shape, qkv.device)
-    _check_operand("K8 rel_h", rel_h, (b * num_heads, hg, wg, ws), qkv.device)
-    _check_operand("K8 rel_w", rel_w, (b * num_heads, hg, wg, ws), qkv.device)
-    _check_operand("K8 bias_kv", bias_kv, (3, num_heads * d), qkv.device)
+        raise ValueError(f"{label}: qkv shape {tuple(qkv.shape)} exceeds the launch grid or int32")
+    _check_operand(f"{label} qkv", qkv, qkv.shape, qkv.device)
+    _check_operand(f"{label} rel_h", rel_h, (b * num_heads, hg, wg, ws), qkv.device)
+    _check_operand(f"{label} rel_w", rel_w, (b * num_heads, hg, wg, ws), qkv.device)
+    _check_operand(f"{label} bias_kv", bias_kv, (3, num_heads * d), qkv.device)
+    return b, hg, wg, d, ws, n_win
+
+
+def _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, with_lse=False):
+    """Launch K8 (``mia_attention_rel_win_f32``); raise on anything it does
+    not take. ``with_lse`` also returns the log-sum-exp of every real query by
+    token, ``(B·H, Hg·Wg)``, which the backward reads."""
+    b, hg, wg, d, ws, _ = _check_k8("K8", qkv, rel_h, rel_w, bias_kv, ws, num_heads)
     out = torch.empty((b, hg, wg, num_heads * d), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b * num_heads, hg * wg), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
     _launch_on_stream("K8", "mia_attention_rel_win_f32", qkv.device, qkv.data_ptr(),
                       rel_h.data_ptr(), rel_w.data_ptr(), bias_kv.data_ptr(), out.data_ptr(),
+                      None if lse is None else lse.data_ptr(),
                       b, hg, wg, num_heads, d, ws, float(scale))
     fused_attention_rel_win.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-def _forward_only(label, plain, launch, *tensors_then_config, n_tensors):
-    """The wrappers of the forward kernels: plain version on the CPU; on the
-    card the kernel, or ``NotImplementedError`` where autograd would need the
-    backward kernel that is not ported yet."""
-    tensors = tensors_then_config[:n_tensors]
-    if tensors[0].device.type == "cpu":
-        return plain(*tensors_then_config)
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{label} has no backward kernel yet: its CUDA kernel is forward only, so a CUDA "
-            "tensor that needs a gradient cannot take this route")
-    return launch(*(t.contiguous() for t in tensors), *tensors_then_config[n_tensors:])
+_BWD_TILE = 32  # key rows per block of the backward template (kBT in csrc/attention_bwd.cuh)
+
+
+def _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads):
+    """Launch K8's backward (``mia_attention_rel_win_bwd_f32``) → (dqkv,
+    drel_h, drel_w, dbias_kv); raise on anything it does not take."""
+    b, hg, wg, d, ws, n_win = _check_k8("K8 backward", qkv, rel_h, rel_w, bias_kv, ws, num_heads)
+    hd = num_heads * d
+    _check_operand("K8 backward out", out, (b, hg, wg, hd), qkv.device)
+    _check_operand("K8 backward cotangent", g, (b, hg, wg, hd), qkv.device)
+    _check_operand("K8 backward lse", lse, (b * num_heads, hg * wg), qkv.device)
+    dqkv = torch.empty_like(qkv)
+    drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    delta = torch.empty_like(lse)
+    # one partial row of pad-slot dk | dv per (window, key tile), summed by the reduce kernel
+    dpad = torch.empty((b * n_win * -(-ws * ws // _BWD_TILE), 2, hd), dtype=torch.float32,
+                       device=qkv.device)
+    dbias_kv = torch.empty_like(bias_kv)
+    _launch_on_stream("K8 backward", "mia_attention_rel_win_bwd_f32", qkv.device,
+                      *(t.data_ptr() for t in (qkv, rel_h, rel_w, bias_kv, out, g, lse, dqkv,
+                                               delta, drel_h, drel_w, dpad, dbias_kv)),
+                      b, hg, wg, num_heads, d, ws, float(scale))
+    fused_attention_rel_win_bwd.launches += 1
+    return dqkv, drel_h, drel_w, dbias_kv
+
+
+def fused_attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale: float, k_hw):
+    """K6 backward: a CUDA tensor launches the backward kernels of
+    ``csrc/attention_routes.cu`` (and raises if it cannot); a CPU tensor takes
+    :func:`attention_rel_bwd` (``lse`` unused)."""
+    if q.device.type == "cpu":
+        return attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, scale, k_hw)
+    return _launch_k6_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw)
+
+
+def fused_attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale: float, ws: int,
+                                num_heads: int):
+    """K8 backward, as :func:`fused_attention_rel_bwd`; the plain version is
+    :func:`attention_rel_win_bwd`."""
+    if qkv.device.type == "cpu":
+        return attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, scale, ws, num_heads)
+    return _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads)
+
+
+class _AttentionRel(torch.autograd.Function):
+    """K6 with a gradient: ``(q, k, v, rel_h, rel_w)`` → context."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale, k_hw):
+        q, k, v, rel_h, rel_w = (t.contiguous() for t in (q, k, v, rel_h, rel_w))
+        if q.device.type == "cpu":
+            out, lse = attention_rel(q, k, v, rel_h, rel_w, scale, k_hw), None
+        else:
+            out, lse = _launch_k6(q, k, v, rel_h, rel_w, scale, k_hw, with_lse=True)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
+        ctx.cfg = (scale, k_hw)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *operands, lse = ctx.saved_tensors
+        return (*fused_attention_rel_bwd(*operands, g.contiguous(), lse, *ctx.cfg), None, None)
+
+
+class _AttentionDense(torch.autograd.Function):
+    """K7 with a gradient: ``(q, k, v, bias)`` → context. The backward is
+    :func:`attention_dense_bwd` on every device, as in the JAX package, and
+    materialises ``(B·H, N, N)`` tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
+        out = attention_dense(q, k, v, bias, scale) if q.device.type == "cpu" else _launch_k7(
+            q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_dense_bwd(*ctx.saved_tensors, g, ctx.scale), None)
+
+
+class _AttentionRelWin(torch.autograd.Function):
+    """K8 with a gradient: ``(qkv, rel_h, rel_w, bias_kv)`` → context grid."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads):
+        qkv, rel_h, rel_w, bias_kv = (t.contiguous() for t in (qkv, rel_h, rel_w, bias_kv))
+        if qkv.device.type == "cpu":
+            out, lse = attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads), None
+        else:
+            out, lse = _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, with_lse=True)
+        ctx.save_for_backward(qkv, rel_h, rel_w, bias_kv, out, lse)
+        ctx.cfg = (scale, ws, num_heads)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *operands, lse = ctx.saved_tensors
+        return (*fused_attention_rel_win_bwd(*operands, g.contiguous(), lse, *ctx.cfg),
+                None, None, None)
 
 
 def fused_attention_rel(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
     """K6: ``softmax(q·kᵀ·scale + rel_h⊕rel_w)·v`` on head-major operands;
     ``N`` must equal ``k_hw[0]·k_hw[1]`` and needs no alignment. A CUDA tensor
-    launches ``csrc/attention_routes.cu`` (or raises; forward only); a CPU
-    tensor takes :func:`attention_rel`."""
-    return _forward_only("fused_attention_rel (K6)", attention_rel, _launch_k6,
-                         q, k, v, rel_h, rel_w, scale, k_hw, n_tensors=5)
+    launches ``csrc/attention_routes.cu`` (or raises); a CPU tensor takes
+    :func:`attention_rel`. Differentiable through the backward kernels (K6b)
+    when an input requires a gradient."""
+    if _needs_grad(q, k, v, rel_h, rel_w):
+        return _AttentionRel.apply(q, k, v, rel_h, rel_w, scale, tuple(k_hw))
+    if q.device.type == "cpu":
+        return attention_rel(q, k, v, rel_h, rel_w, scale, k_hw)
+    return _launch_k6(*(t.contiguous() for t in (q, k, v, rel_h, rel_w)), scale, k_hw)
 
 
 def attention_rel_with_padding(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
@@ -585,10 +788,15 @@ def attention_rel_with_padding(q, k, v, rel_h, rel_w, scale: float, k_hw) -> tor
 
 def fused_attention(q, k, v, bias, scale: float) -> torch.Tensor:
     """K7: ``softmax(q·kᵀ·scale + bias)·v`` with a dense ``(B·H, N, N)`` bias,
-    any ``N``. A CUDA tensor launches ``csrc/attention_routes.cu`` (or raises;
-    forward only); a CPU tensor takes :func:`attention_dense`."""
-    return _forward_only("fused_attention (K7)", attention_dense, _launch_k7,
-                         q, k, v, bias, scale, n_tensors=4)
+    any ``N``. A CUDA tensor launches ``csrc/attention_routes.cu`` (or raises);
+    a CPU tensor takes :func:`attention_dense`. When an input requires a
+    gradient the backward is the plain :func:`attention_dense_bwd` (no
+    kernel, as in the JAX package), which materialises ``(B·H, N, N)``."""
+    if _needs_grad(q, k, v, bias):
+        return _AttentionDense.apply(q, k, v, bias, scale)
+    if q.device.type == "cpu":
+        return attention_dense(q, k, v, bias, scale)
+    return _launch_k7(*(t.contiguous() for t in (q, k, v, bias)), scale)
 
 
 def attention_with_padding(q, k, v, bias, scale: float) -> torch.Tensor:
@@ -602,10 +810,15 @@ def fused_attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int,
                             num_heads: int) -> torch.Tensor:
     """K8: windowed rel-pos attention on the unpartitioned ``(B, Hg, Wg, 3·H·D)``
     qkv grid (see the module docstring). A CUDA tensor launches
-    ``csrc/attention_routes.cu`` (or raises; forward only); a CPU tensor takes
-    :func:`attention_rel_win`."""
-    return _forward_only("fused_attention_rel_win (K8)", attention_rel_win, _launch_k8,
-                         qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, n_tensors=4)
+    ``csrc/attention_routes.cu`` (or raises); a CPU tensor takes
+    :func:`attention_rel_win`. Differentiable through the backward kernels
+    (K8b) when an input requires a gradient."""
+    if _needs_grad(qkv, rel_h, rel_w, bias_kv):
+        return _AttentionRelWin.apply(qkv, rel_h, rel_w, bias_kv, scale, int(ws), num_heads)
+    if qkv.device.type == "cpu":
+        return attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads)
+    return _launch_k8(*(t.contiguous() for t in (qkv, rel_h, rel_w, bias_kv)), scale, ws,
+                      num_heads)
 
 
 fused_attention_rel_packed.launches = 0
@@ -613,5 +826,7 @@ fused_attention_rel_packed_ik.launches = 0
 fused_attention_rel_packed_bwd.launches = 0
 fused_attention_rel_packed_ik_bwd.launches = 0
 fused_attention_rel.launches = 0
+fused_attention_rel_bwd.launches = 0
 fused_attention.launches = 0
 fused_attention_rel_win.launches = 0
+fused_attention_rel_win_bwd.launches = 0

@@ -23,12 +23,30 @@ XLA merges them into one. Here that stack runs once per phase-2 step and
 serves the three passes and the raw softmaxes of the prompt generation
 (the gradients of its three uses add up, as those of the three copies do).
 
+With an auxiliary loss on, both phases run on the whole batch (nothing is
+sliced in phase 1), as in the JAX package:
+
+- ``use_contrastive_loss``: every decoder's dense features (of the
+  unprompted pass and, in phase 2, of the three prompted ones), labeled and
+  unlabeled apart, go through the projection and prediction heads; the
+  correct labeled predictions refresh the feature memory (trainer state,
+  no gradient), and loss3 = ``contrastive_weight`` · (labeled term with the
+  labels + unlabeled term with the predictions) of
+  ``losses/contrastive.py``. The heads run on every pixel of every group
+  (millions of rows): they are recomputed in the backward
+  (``torch.utils.checkpoint``) instead of keeping their activations.
+- ``use_adv_loss``: loss3 += ``adv_weight`` · VAT (``losses/vat.py``) on
+  the image embeddings through the unprompted decoders.
+
 Checkpoints are torch state dicts under the model's reference names: the
 LoRA checkpoint ``lora.pth`` (adapters + everything outside the frozen
-encoder) and ``training_state.json``. Validation, the real test and the
-CSV report are the JAX package's. Not ported: the contrastive loss and
-feature memory (``--use-contrastive-loss``), VAT (``--use-adv-loss``),
-``--resume``, wandb, bfloat16 compute, mesh/multi-device.
+encoder) and, with ``save_training_state``, ``training_state.json`` (iter,
+epoch) and ``training_state.pth`` (optimizer state, feature memory, the
+generator's and numpy's RNG state). ``resume`` loads all of them and goes
+on at the next epoch, so that a run saved at an epoch's end and resumed
+takes the steps the uninterrupted run takes. Validation, the real test and
+the CSV report are the JAX package's. Not ported: wandb, bfloat16 compute,
+mesh/multi-device.
 """
 
 from __future__ import annotations
@@ -45,11 +63,13 @@ import torch
 
 from ..data import ACDCDataset, BatchLoader, TwoStreamBatchSampler
 from ..device import resolve_device, set_compute_precision
-from ..losses import DiceAndCELoss
+from ..losses import DiceAndCELoss, prototype_contrastive_loss, vat_loss
+from ..memories import FeatureMemoryState, init_feature_memory, update_feature_memory
 from ..models.sam.build_sam import import_torch_sam_encoder, sam_model_registry
 from ..models.sam.lora import (freeze_wrt_mask, load_lora_state_dict, lora_state_dict,
                                lora_trainable_mask)
 from ..models.sam.prompt_generation import prompt_generate_random_fast
+from ..models.sam.sam import postprocess_masks
 from ..models.sam.validation import test_single_volume, test_single_volume_mean
 from ..schedule import poly_warmup_schedule, sigmoid_ramp_up
 from ..utils import get_path, setup_logger
@@ -242,11 +262,9 @@ class CPCSAMTrainer(BaseTrainer):
             self.config = CPCSAMConfig().load(config)
         else:
             self.config = CPCSAMConfig()
-        for flag, name in ((resume, "--resume"), (use_wandb, "--use-wandb"),
-                           (self.config.use_contrastive_loss, "--use-contrastive-loss"),
-                           (self.config.use_adv_loss, "--use-adv-loss")):
-            if flag:
-                raise NotImplementedError(f"{name} is not ported")
+        if use_wandb:
+            raise NotImplementedError("--use-wandb is not ported")
+        self.resume = resume
 
         self.device = resolve_device(device)
         set_compute_precision(self.config.compute_dtype)
@@ -265,6 +283,7 @@ class CPCSAMTrainer(BaseTrainer):
         self.current_epoch = 0
         self.current_patience = 0
         self.model = None
+        self.memory = None
         self._pending_train_logs = []
 
     # ------------------------------------------------------------------
@@ -344,10 +363,36 @@ class CPCSAMTrainer(BaseTrainer):
         torch.save(lora_state_dict(self.model), save_path / "lora.pth")
         if save_training_state:
             (save_path / "training_state.json").write_text(json.dumps(self.state_dict()))
+            torch.save({"optimizer": self.optimizer.state_dict(),
+                        "memory": None if self.memory is None else tuple(self.memory),
+                        "generator": self.generator.get_state(),
+                        "numpy_rng": np.random.get_state()},
+                       save_path / "training_state.pth")
         self.logger.info(f'Saved new checkpoint to "{save_path}"')
 
     def load_state_dict(self, save_path):
-        raise NotImplementedError("--resume is not ported")
+        """Resume from a checkpoint directory written with
+        ``save_training_state``: the LoRA checkpoint, the optimizer state,
+        the feature memory and the generators; training goes on at the saved
+        iteration, in the epoch after the saved one (checkpoints are written
+        at an epoch's end). Call after the optimizer is set up."""
+        save_path = get_path(save_path)
+        if (save_path / "lora.pth").is_file():
+            self.load_lora_checkpoint(save_path / "lora.pth")
+        if (save_path / "training_state.json").is_file():
+            state = json.loads((save_path / "training_state.json").read_text())
+            self.current_iter = state["current_iter"]
+            self.current_epoch = state["current_epoch"] + 1
+        if (save_path / "training_state.pth").is_file():
+            state = torch.load(save_path / "training_state.pth", map_location=self.device,
+                               weights_only=False)
+            self.optimizer.load_state_dict(state["optimizer"])
+            if state["memory"] is not None:
+                self.memory = FeatureMemoryState(*state["memory"])
+            self.generator.set_state(state["generator"].cpu())
+            np.random.set_state(state["numpy_rng"])
+        self.logger.info(f'Resumed from "{save_path}" at iteration {self.current_iter}, '
+                         f"epoch {self.current_epoch}")
 
     def state_dict(self):
         return {"current_iter": self.current_iter, "current_epoch": self.current_epoch}
@@ -437,14 +482,68 @@ class CPCSAMTrainer(BaseTrainer):
 
         return [pick(prompts_flat, p) for p in range(n)]
 
-    def compute_losses(self, images, labels, step: int, phase2: bool, prompts=None):
-        """(total, loss1, loss2, loss3) of one step, differentiable. ``prompts``
-        (one prompt tuple per decoder) replaces the phase-2 generation."""
+    def _contrastive_terms(self, memory, feats, class_labels):
+        """Project, predict, select and the prototype loss of one feature
+        group ``(N, D)`` with its labels or predictions ``(N,)``."""
+        from torch.utils.checkpoint import checkpoint
+
+        cfg, model = self.config, self.model
+        retain = (torch.rand(feats.shape[0], generator=self.generator, device=feats.device)
+                  < 1.0 - cfg.contrastive_dropout_rate)
+        # the heads run on every pixel of every group (millions of rows), so their
+        # activations are recomputed in the backward instead of kept: the projection
+        # and prediction heads as one unit, each class selector on its own
+        pred_f = checkpoint(
+            lambda x: model.predict_features(model.project_features(x, retain), retain), feats,
+            use_reentrant=False)
+        pred_d = pred_f.detach()
+        sel = torch.stack([
+            checkpoint(lambda x, c=c: model.select_features(c, x, retain, False)[:, 0], pred_d,
+                       use_reentrant=False)
+            for c in range(cfg.num_classes + 1)])
+        sel_mem = torch.stack([model.select_features(c, memory.bank[c], memory.valid[c], True)[:, 0]
+                               for c in range(cfg.num_classes + 1)])
+        return prototype_contrastive_loss(pred_f, class_labels, retain, memory, sel, sel_mem,
+                                          cfg.num_classes)
+
+    def _contrastive_loss(self, memory, groups, labeled_labels):
+        """The memory refreshed from the correct labeled predictions (no
+        gradient) and ``contrastive_weight`` · (labeled + unlabeled term).
+        ``groups``: per decoder pass ``(features, predictions)`` ``(B, H, W,
+        D)``, ``(B, H, W)``, the labeled rows first."""
+        cfg, model = self.config, self.model
+        lbs = cfg.labeled_batch_size
+        dim = groups[0][0].shape[-1]
+        fl = torch.cat([f[:lbs].reshape(-1, dim) for f, _ in groups])
+        pl = torch.cat([p[:lbs].reshape(-1) for _, p in groups])
+        fu = torch.cat([f[lbs:].reshape(-1, dim) for f, _ in groups])
+        pu = torch.cat([p[lbs:].reshape(-1) for _, p in groups])
+        ll = labeled_labels.reshape(-1).repeat(len(groups))
+        with torch.no_grad():
+            correct = (pl == ll) & (pl > 0)
+            proj_corr = model.project_features(fl.detach(), correct)
+            scores = torch.sigmoid(torch.stack([
+                model.select_features(c, proj_corr, correct, False)[:, 0]
+                for c in range(cfg.num_classes + 1)]))
+            new_memory = update_feature_memory(memory, proj_corr,
+                                               torch.where(correct, ll, -1), scores)
+        c1 = self._contrastive_terms(new_memory, fl, ll)
+        c2 = self._contrastive_terms(new_memory, fu, pu)
+        return cfg.contrastive_weight * (c1 + c2), new_memory
+
+    def losses_and_memory(self, images, labels, step: int, phase2: bool, prompts=None,
+                          memory=None):
+        """(total, loss1, loss2, loss3, new_memory) of one step, differentiable.
+        ``prompts`` (one prompt tuple per decoder) replaces the phase-2
+        generation; ``memory`` defaults to the trainer's (None without the
+        contrastive loss) and comes back refreshed."""
         cfg = self.config
         model = self.model
         lbs = cfg.labeled_batch_size
         n = model.num_decoders
-        slice_p1 = cfg.phase1_labeled_only
+        memory = self.memory if memory is None else memory
+        # an auxiliary loss reads the unlabeled half too: nothing is sliced then
+        slice_p1 = cfg.phase1_labeled_only and not (cfg.use_contrastive_loss or cfg.use_adv_loss)
         if phase2 or not slice_p1:
             image_embeddings = model.get_image_embeddings(images)
         else:
@@ -456,6 +555,14 @@ class CPCSAMTrainer(BaseTrainer):
         labeled_labels = labels[:lbs]
         loss1 = sum(self._supervised(outputs["low_res_logits"][i][:lbs], labeled_labels,
                                      cfg.dice_weight) for i in range(n))
+        groups = []  # (dense features, predicted classes) of every decoder pass
+        if cfg.use_contrastive_loss:
+            size = (cfg.image_size, cfg.image_size)
+            for i in range(n):
+                with torch.no_grad():  # the masks at the image size, as the JAX package reads them
+                    masks = postprocess_masks(outputs["low_res_logits"][i], model.img_size, size, size)
+                    pred = masks.to(torch.float32).softmax(-1).argmax(-1)
+                groups.append((outputs["dense_features"][i], pred))
 
         loss2 = torch.zeros((), device=images.device)
         if phase2:
@@ -472,6 +579,10 @@ class CPCSAMTrainer(BaseTrainer):
                                    unprompted=shared)
                 lrl_p = out2["low_res_logits"][p]
                 lrl_pr = out2["low_res_logits_r"][p]
+                if cfg.use_contrastive_loss:
+                    with torch.no_grad():
+                        pred = lrl_p.to(torch.float32).softmax(-1).argmax(-1)
+                    groups.append((out2["dense_features"][p], pred))
                 sup2 = sup2 + self._supervised(lrl_p[:lbs], labeled_labels, cfg.dice_weight)
                 sup2_r = sup2_r + self._supervised(lrl_pr[:lbs], labeled_labels, cfg.dice_weight)
                 with torch.no_grad():
@@ -487,8 +598,24 @@ class CPCSAMTrainer(BaseTrainer):
                      + cfg.consistency_weight_2 * cons2_r)
 
         loss3 = torch.zeros((), device=images.device)
+        if cfg.use_contrastive_loss:
+            if memory is None:
+                memory = init_feature_memory(cfg.num_classes, 2 * groups[0][0].shape[-1],
+                                             device=images.device)
+            loss3, memory = self._contrastive_loss(memory, groups, labeled_labels)
+        if cfg.use_adv_loss:
+            adv = vat_loss(lambda emb: self._apply(images, -1, emb)["low_res_logits"],
+                           image_embeddings,
+                           clean_logits_list=[m.detach() for m in outputs["low_res_logits"]],
+                           generator=self.generator, **cfg.adv_loss_kwargs)
+            loss3 = loss3 + cfg.adv_weight * adv
         total = loss1 + self.loss2_rampup(step) * loss2 + self.loss3_rampup(step) * loss3
-        return total, loss1, loss2, loss3
+        return total, loss1, loss2, loss3, memory
+
+    def compute_losses(self, images, labels, step: int, phase2: bool, prompts=None):
+        """(total, loss1, loss2, loss3) of :meth:`losses_and_memory`; the
+        trainer's memory is left as it is."""
+        return self.losses_and_memory(images, labels, step, phase2, prompts)[:4]
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -503,6 +630,12 @@ class CPCSAMTrainer(BaseTrainer):
         default = -np.inf if self.config.maximum_save_metric else np.inf
         self._best_valid_metric = default
         self._cur_valid_metric = default
+        if self.config.use_contrastive_loss:
+            dim_in = 256 // 16  # the decoders' dense-feature channels
+            self.memory = init_feature_memory(self.config.num_classes, 2 * dim_in,
+                                              device=self.device)
+        if self.resume is not None:
+            self.load_state_dict(self.resume)
         self.config.save(self.work_path / "config.json")
         name = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu")
         self.logger.info(f"device: {self.device} ({name}); trainable parameters: "
@@ -514,8 +647,10 @@ class CPCSAMTrainer(BaseTrainer):
         images = torch.as_tensor(sampled_batch["image"], device=self.device).to(torch.float32)
         labels = torch.as_tensor(sampled_batch["label"], device=self.device).long()
         phase2 = self.current_iter >= self.config.warmup_iter
-        total, l1, l2, l3 = self.compute_losses(images, labels, self.current_iter, phase2)
+        total, l1, l2, l3, new_memory = self.losses_and_memory(images, labels, self.current_iter,
+                                                               phase2)
         grads = torch.autograd.grad(total, self.trainable, allow_unused=True)
+        self.memory = new_memory
         # a parameter this phase does not reach gets a zero gradient, as in optax
         self.optimizer.step([torch.zeros_like(p) if g is None else g
                              for p, g in zip(self.trainable, grads)])

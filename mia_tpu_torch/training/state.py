@@ -71,6 +71,16 @@ class ClippedAdam:
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore the step count and both moments (copied into place)."""
+        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
+            raise ValueError(f"optimizer state has {len(state['mu'])} moment tensors, "
+                             f"expected {len(self.mu)}")
+        self.count = int(state["count"])
+        for dst, src in zip((*self.mu, *self.nu), (*state["mu"], *state["nu"])):
+            dst.copy_(src)
+
 
 def make_optimizer(
     name: str,

@@ -6,10 +6,16 @@ point``, the port's float32 setting (TF32 convolutions, full-float32
 matmuls). For phase 1 and phase 2 it prints the median step time (host
 clock around ``CPCSAMTrainer.train_step`` ending in a synchronise), the
 peak memory, and a ``torch.profiler`` table of device time per step by
-kernel group: the hand-written kernels (K2-K5, forward and backward), the
-cuBLAS GEMMs, the cuDNN convolutions and the rest. Needs a CUDA device.
+kernel group: the hand-written kernels (forward and backward), the cuBLAS
+GEMMs, the cuDNN convolutions and the rest. ``--variant`` trains through
+another route of the encoder (K9 exit, grid-native K8, head-major K6, no
+rel-pos K7), ``--use-contrastive-loss`` and ``--use-adv-loss`` switch the
+auxiliary losses on (both phases then run the whole batch). Needs a CUDA
+device.
 
     python scripts/profile_torch_cpcsam.py [--steps 10] [--profiled 3]
+        [--variant default|k9|grid_native|head_major|no_rel_pos]
+        [--use-contrastive-loss] [--use-adv-loss]
 """
 
 from __future__ import annotations
@@ -27,22 +33,57 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from mia_tpu_torch.models.sam import ImageEncoderViT  # noqa: E402
 from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    # attention_fwd_kernel<D, bias, layout, split>: layout 0 is the packed qkv of K2 and K3
+    # attention_fwd_kernel<D, bias, layout, split>, attention_bwd_dq_kernel<D, bias, layout>,
+    # attention_bwd_dkv_kernel<D, layout>: bias 0 = rel tables, 1 = rel terms, 2 = dense;
+    # layout 0 = packed qkv (K2, K3), 1 = head-major (K6, K7), 2 = grid windows (K8)
     ("K2 forward", ("attention_fwd_kernel<64, 0, 0,",)),
     ("K3 forward", ("attention_fwd_kernel<64, 1, 0,",)),
-    ("K2 backward, dq pass", ("attention_rel_bwd_dq_kernel<64, true",)),
-    ("K3 backward, dq pass", ("attention_rel_bwd_dq_kernel<64, false",)),
-    ("K2 + K3 backward, dk/dv pass", ("attention_rel_bwd_dkv_kernel",)),
+    ("K6 forward", ("attention_fwd_kernel<64, 1, 1,",)),
+    ("K7 forward", ("attention_fwd_kernel<64, 2, 1,",)),
+    ("K8 forward", ("attention_fwd_kernel<64, 1, 2,",)),
+    ("K2 backward, dq pass", ("attention_bwd_dq_kernel<64, 0, 0>",)),
+    ("K3 backward, dq pass", ("attention_bwd_dq_kernel<64, 1, 0>",)),
+    ("K6 backward, dq pass", ("attention_bwd_dq_kernel<64, 1, 1>",)),
+    ("K8 backward, dq pass", ("attention_bwd_dq_kernel<64, 1, 2>",)),
+    ("K2 + K3 backward, dk/dv pass", ("attention_bwd_dkv_kernel<64, 0>",)),
+    ("K6 backward, dk/dv pass", ("attention_bwd_dkv_kernel<64, 1>",)),
+    ("K8 backward, dk/dv pass and pad reduce", ("attention_bwd_dkv_kernel<64, 2>",
+                                                "attention_bwd_pad_reduce_kernel")),
     ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
     ("K4 backward", ("ln_window_partition_bwd_kernel", "ln_window_partition_params")),
     ("K4 forward", ("ln_window_partition_kernel",)),
+    ("K9 backward", ("unpartition_add_ln_bwd_kernel", "unpartition_add_ln_params")),
+    ("K9 forward", ("unpartition_add_ln_kernel",)),
     ("K5 connected components", ("connected_components_kernel",)),
     ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "implicit", "cudnn", "conv")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "kernel2")),
 )
+
+
+VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)
+    "default": {},
+    "k9": dict(fuse_unpart_residual="always"),
+    "grid_native": dict(fuse_ln_window="never", attn_route="grid_native"),
+    "head_major": dict(attn_route="head_major"),
+    "no_rel_pos": dict(use_rel_pos=False),
+}
+
+
+def with_encoder(model, lora_rank, **options):
+    """Replace ``model``'s LoRA ViT-B/512 image encoder by one built with
+    ``options``, loaded with the same weights (bar absent rel-pos tables)."""
+    old = model.image_encoder
+    new = ImageEncoderViT(img_size=512, patch_size=16, embed_dim=768, depth=12, num_heads=12,
+                          out_chans=256, window_size=14, global_attn_indexes=(2, 5, 8, 11),
+                          lora_rank=lora_rank, **options).to(old.pos_embed.device)
+    new.load_state_dict({k: v for k, v in old.state_dict().items()
+                         if options.get("use_rel_pos", True) or "rel_pos" not in k})
+    model.image_encoder = new
+    return model
 
 
 def blob_batch(n=12, size=512, seed=0):
@@ -63,6 +104,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=10, help="timed steps per phase")
     parser.add_argument("--profiled", type=int, default=3, help="profiled steps per phase")
+    parser.add_argument("--variant", choices=sorted(VARIANTS), default="default",
+                        help="the encoder route to train through")
+    parser.add_argument("--use-contrastive-loss", action="store_true")
+    parser.add_argument("--use-adv-loss", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_cpcsam: needs a CUDA device")
@@ -74,10 +119,15 @@ def main() -> None:
 
     trainer = CPCSAMTrainer(device="cuda", config=dict(
         image_size=512, num_classes=3, batch_size=12, labeled_batch_ratio=0.5, lora_rank=4,
-        promptmode=["point"], optimizer_name="adam", max_iter=10**6, lr_warmup_iter=1))
+        promptmode=["point"], optimizer_name="adam", max_iter=10**6, lr_warmup_iter=1,
+        use_contrastive_loss=args.use_contrastive_loss, use_adv_loss=args.use_adv_loss))
     trainer.logger = logging.getLogger("profile_torch_cpcsam")
     trainer.epoch_train_outputs = []
     trainer._build_model()
+    if args.variant != "default":
+        with_encoder(trainer.model, trainer.config.lora_rank, **VARIANTS[args.variant])
+    print(f"encoder variant {args.variant}; contrastive loss {args.use_contrastive_loss}, "
+          f"VAT {args.use_adv_loss}")
     trainer._setup_loss()
     trainer._setup_optimizer()
     batch = blob_batch()

@@ -1,4 +1,5 @@
-"""K1-K9 on the card: the CUDA kernels against their plain PyTorch versions.
+"""K1-K9 and the backward kernels on the card: the CUDA kernels against their
+plain PyTorch versions.
 
 Needs an NVIDIA GPU with nvcc; skipped without one. On the GPU machine,
 which has no JAX, run it with the repository's conftest switched off:
@@ -326,28 +327,193 @@ def test_k9_matches_plain(cuda, shape, ws):
 
 
 def test_forward_only_kernels_raise_where_a_gradient_is_needed(cuda):
+    """No route kernel is forward only any more: the gradient of each wrapper
+    on CUDA tensors comes from its backward kernel (K7's from the plain VJP)
+    and agrees with autograd through the plain version; under ``no_grad`` the
+    same call serves without saving anything."""
     from mia_tpu_torch.ops import attention
     from mia_tpu_torch.ops import unpartition_residual as upr
 
-    q = torch.randn(2, 16, 64, device=cuda, requires_grad=True)
-    rel = torch.randn(2, 16, 4, device=cuda)
-    grid = torch.randn(2, 5, 6, 4, device=cuda)
-    calls = (
-        lambda: attention.fused_attention_rel(q, q, q, rel, rel, 0.1, (4, 4)),
-        lambda: attention.fused_attention(q, q, q, torch.zeros(2, 16, 16, device=cuda), 0.1),
-        lambda: attention.fused_attention_rel_win(
-            torch.randn(1, 5, 6, 384, device=cuda, requires_grad=True), grid, grid,
-            torch.zeros(3, 128, device=cuda), 0.1, 4, 2),
-        lambda: upr.unpartition_add_ln(
-            torch.randn(4, 4, 4, 64, device=cuda, requires_grad=True),
-            torch.randn(1, 5, 6, 64, device=cuda), torch.ones(64, device=cuda),
-            torch.zeros(64, device=cuda), 4),
+    gen = torch.Generator(device=cuda).manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    q, k, v = randn(2, 16, 64), randn(2, 16, 64), randn(2, 16, 64)
+    rel, grid = randn(2, 16, 4), randn(2, 5, 6, 4)
+    cases = (
+        (attention.fused_attention_rel, attention.attention_rel, (q, k, v, rel, rel), (0.1, (4, 4)),
+         {attention.fused_attention_rel: 1, attention.fused_attention_rel_bwd: 1}),
+        (attention.fused_attention, attention.attention_dense, (q, k, v, randn(2, 16, 16)), (0.1,),
+         {attention.fused_attention: 1}),
+        (attention.fused_attention_rel_win, attention.attention_rel_win,
+         (randn(1, 5, 6, 384), grid, grid, randn(3, 128)), (0.1, 4, 2),
+         {attention.fused_attention_rel_win: 1, attention.fused_attention_rel_win_bwd: 1}),
+        (upr.unpartition_add_ln, upr.unpartition_add_ln_plain,
+         (randn(4, 4, 4, 64), randn(1, 5, 6, 64), 1.0 + 0.1 * randn(64), randn(64)), (4,),
+         {upr.unpartition_add_ln: 1, upr.unpartition_add_ln_fused_bwd: 1}),
     )
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="backward kernel"):
-            call()
+    for fused, plain, tensors, config, expect in cases:
+        leaves = [t.clone().requires_grad_() for t in tensors]
+        before = {fn: fn.launches for fn in expect}
+        outs = fused(*leaves, *config)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cots = [randn(*o.shape) for o in outs]
+        got = torch.autograd.grad(outs, leaves, cots)
+        torch.cuda.synchronize()
+        assert {fn: fn.launches - before[fn] for fn in expect} == expect
+        ref_leaves = [t.clone().requires_grad_() for t in tensors]
+        ref_outs = plain(*ref_leaves, *config)
+        ref_outs = ref_outs if isinstance(ref_outs, tuple) else (ref_outs,)
+        want = torch.autograd.grad(ref_outs, ref_leaves, cots)
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) <= 1e-4
         with torch.no_grad():
-            call()  # the same call serves
+            fused(*tensors, *config)  # the same call serves
+
+
+# K6b, K8b, K9b against their plain VJPs: each output within 1e-4 of max |plain|
+# (float32; another summation order, the probabilities from the forward's lse).
+@pytest.mark.parametrize("bh,d,k_hw", [(1296, 64, (14, 14)), (72, 64, (32, 32)), (6, 64, (10, 12)),
+                                       (32, 80, (14, 14)), (3, 64, (2, 3))])
+def test_k6_backward_matches_plain(cuda, bh, d, k_hw):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    n = k_hw[0] * k_hw[1]
+    q, k, v, g = (torch.randn(bh, n, d, generator=gen, device=cuda) for _ in range(4))
+    rel_h = torch.randn(bh, n, k_hw[0], generator=gen, device=cuda)
+    rel_w = torch.randn(bh, n, k_hw[1], generator=gen, device=cuda)
+    out, lse = attention._launch_k6(q, k, v, rel_h, rel_w, d ** -0.5, k_hw, with_lse=True)
+    before = attention.fused_attention_rel_bwd.launches
+    got = attention.fused_attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, lse, d ** -0.5, k_hw)
+    want = attention.attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, d ** -0.5, k_hw)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_rel_bwd.launches == before + 1
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("b,hw,heads,d,ws", [(12, (32, 32), 12, 64, 14), (2, (20, 27), 12, 64, 14),
+                                             (2, (28, 28), 12, 64, 14), (1, (32, 32), 16, 80, 14),
+                                             (3, (9, 11), 2, 64, 4), (1, (5, 3), 2, 64, 7)])
+def test_k8_backward_matches_plain(cuda, b, hw, heads, d, ws):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    h, w = hw
+    qkv = torch.randn(b, h, w, 3 * heads * d, generator=gen, device=cuda)
+    rel_h = torch.randn(b * heads, h, w, ws, generator=gen, device=cuda)
+    rel_w = torch.randn(b * heads, h, w, ws, generator=gen, device=cuda)
+    bias_kv = 0.5 * torch.randn(3, heads * d, generator=gen, device=cuda)
+    g = torch.randn(b, h, w, heads * d, generator=gen, device=cuda)
+    out, lse = attention._launch_k8(qkv, rel_h, rel_w, bias_kv, d ** -0.5, ws, heads, with_lse=True)
+    before = attention.fused_attention_rel_win_bwd.launches
+    got = attention.fused_attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, d ** -0.5,
+                                                ws, heads)
+    want = attention.attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, d ** -0.5, ws, heads)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_rel_win_bwd.launches == before + 1
+    assert len(got) == len(want) == 4
+    for a, b_ in zip(got[:3], want[:3]):
+        assert a.shape == b_.shape and _rel_err(a, b_) <= 1e-4
+    assert not got[3][0].any()
+    if h % ws or w % ws:
+        assert _rel_err(got[3], want[3]) <= 1e-4
+    else:  # whole windows: no pad slot, dbias_kv exactly zero
+        assert not got[3].any() and not want[3].any()
+    again = attention._launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, d ** -0.5, ws, heads)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics: deterministic
+
+
+@pytest.mark.parametrize("shape,ws", [((12, 32, 32, 768), 14), ((2, 20, 27, 768), 14),
+                                      ((1, 9, 11, 30), 4), ((2, 8, 8, 64), 4)])
+@pytest.mark.parametrize("params", [False, True])
+def test_k9_backward_matches_plain(cuda, shape, ws, params):
+    from mia_tpu_torch.ops import unpartition_residual as upr
+    from mia_tpu_torch.ops.ln_window import window_partition
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    b, h, w, c = shape
+    n_win = b * -(-h // ws) * -(-w // ws)
+    windows = torch.randn(n_win, ws, ws, c, generator=gen, device=cuda)
+    shortcut = torch.randn(shape, generator=gen, device=cuda)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.5 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    x_new, _, mu, rstd = upr._launch_k9(windows, shortcut, scale, bias, ws, 1e-6, with_stats=True)
+    dx_new = torch.randn(shape, generator=gen, device=cuda)
+    dy = torch.randn(shape, generator=gen, device=cuda)
+    before = upr.unpartition_add_ln_fused_bwd.launches
+    got = upr.unpartition_add_ln_fused_bwd(x_new, dx_new, dy, mu, rstd, scale, ws, params)
+    want = upr.unpartition_add_ln_bwd(x_new, dx_new, dy, mu, rstd, scale, ws, params)
+    torch.cuda.synchronize()
+    assert upr.unpartition_add_ln_fused_bwd.launches == before + 1
+    assert len(got) == len(want) == 4
+    for i, (a, b_) in enumerate(zip(got, want)):
+        assert (a is None) == (b_ is None) == (i >= 2 and not params)
+        if a is not None:
+            assert a.shape == b_.shape and _rel_err(a, b_) <= 1e-4
+    pad = window_partition(torch.ones(b, h, w, 1, device=cuda), ws)[0] == 0
+    assert not got[0][pad.expand_as(got[0])].any()  # zeros at the pad slots
+
+
+def test_encoder_routes_train_through_their_backward_kernels(cuda):
+    """A LoRA-2 encoder of each route on the card: exact forward and backward
+    launch counts, the loss and the adapters' gradients within 1e-4 / 1e-3 of
+    the default route's."""
+    from mia_tpu_torch.models.sam.image_encoder import ImageEncoderViT
+    from mia_tpu_torch.ops import attention, ln_window
+    from mia_tpu_torch.ops import unpartition_residual as upr
+
+    kw = dict(img_size=320, patch_size=16, embed_dim=128, depth=3, num_heads=2, window_size=7,
+              global_attn_indexes=(2,), lora_rank=2)
+    torch.manual_seed(0)
+    base = ImageEncoderViT(**kw).to(cuda)
+    with torch.no_grad():
+        for name, p in base.named_parameters():
+            if "rel_pos" in name or name == "pos_embed" or "lora_b" in name:
+                p.normal_(std=0.1)
+    x = torch.randn(2, 320, 320, 3, device=cuda)
+    weight = torch.randn(2, 20, 20, 256, device=cuda)
+    counters = {"K2b": attention.fused_attention_rel_packed_ik_bwd,
+                "K3b": attention.fused_attention_rel_packed_bwd,
+                "K4b": ln_window.ln_window_partition_fused_bwd,
+                "K6": attention.fused_attention_rel, "K6b": attention.fused_attention_rel_bwd,
+                "K7": attention.fused_attention, "K8": attention.fused_attention_rel_win,
+                "K8b": attention.fused_attention_rel_win_bwd, "K9": upr.unpartition_add_ln,
+                "K9b": upr.unpartition_add_ln_fused_bwd}
+
+    def run(state, **options):
+        enc = ImageEncoderViT(**kw, **options).to(cuda)
+        enc.load_state_dict({k: v for k, v in state.items()
+                             if options.get("use_rel_pos", True) or "rel_pos" not in k})
+        lora = {n: p for n, p in enc.named_parameters() if "lora_" in n}
+        for n, p in enc.named_parameters():
+            p.requires_grad_(n in lora)
+        before = {k: c.launches for k, c in counters.items()}
+        loss = (enc(x) * weight).mean()
+        grads = torch.autograd.grad(loss, list(lora.values()))
+        torch.cuda.synchronize()
+        seen = {k: c.launches - before[k] for k, c in counters.items() if c.launches != before[k]}
+        return loss.item(), dict(zip(lora, grads)), seen
+
+    state = base.state_dict()
+    zeroed = {k: torch.zeros_like(v) if "rel_pos" in k else v for k, v in state.items()}
+    # block 0's K4 backward is not needed (frozen input and norm), the others' is
+    for options, expect in (
+            (dict(), dict(K2b=2, K3b=1, K4b=1)),
+            (dict(fuse_unpart_residual="always"), dict(K2b=2, K3b=1, K4b=1, K9=2, K9b=2)),
+            (dict(fuse_ln_window="never", attn_route="grid_native"), dict(K8=2, K8b=2, K3b=1)),
+            (dict(attn_route="head_major"), dict(K6=3, K6b=3, K4b=1)),
+            (dict(use_rel_pos=False), dict(K7=3, K4b=1))):
+        want_loss, want, _ = run(state if options.get("use_rel_pos", True) else zeroed)
+        loss, got, seen = run(state, **options)
+        assert seen == expect, options
+        assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+        scale = max(g.abs().max().item() for g in want.values())
+        for n, g in got.items():
+            assert (g - want[n]).abs().max().item() <= 1e-3 * scale, (options, n)
 
 
 def test_encoder_routes_launch_their_kernels_and_agree(cuda):

@@ -29,8 +29,10 @@ def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
     # the pytest process has JAX from conftest.py, hence a fresh interpreter,
     # which imports every module of the port, drives two tiny AL rounds and
     # a tiny CPC-SAM run (one phase-1 and one phase-2 step) through their
-    # entry points, serves a tiny SAM on the CPU, generates masks
-    # automatically and embeds through every route of the encoder
+    # entry points, a second CPC-SAM run with the contrastive loss, VAT and
+    # --resume (the feature memory, both losses and the checkpoint reader),
+    # serves a tiny SAM on the CPU, generates masks automatically and embeds
+    # through every route of the encoder
     code = f"""
 import dataclasses, importlib, pkgutil, sys
 import numpy as np
@@ -63,6 +65,13 @@ cpc = cpcsam_entry(["--work-path", {str(tmp_path / "cpc")!r}, "--data-path", str
                     "--lora-rank", "2", "--warmup-iter", "1", "--min-iter", "2",
                     "--max-iter", "2", "--valid-freq-iter", "2", "--quiet"])
 assert (cpc.work_path / "test_mean.csv").is_file()
+aux = cpcsam_entry(["--work-path", {str(tmp_path / "aux")!r}, "--data-path", str(acdc),
+                    "--device", "cpu", "--image-size", "64", "--batch-size", "2",
+                    "--lora-rank", "2", "--warmup-iter", "1", "--min-iter", "2",
+                    "--max-iter", "2", "--valid-freq-iter", "2", "--quiet",
+                    "--use-contrastive-loss", "--use-adv-loss",
+                    "--resume", str(cpc.work_path / "final_model")])
+assert aux.current_iter == 2 and aux.memory is not None
 from mia_tpu_torch.models.sam import Sam, SamPredictor
 predictor = SamPredictor(Sam(img_size=64, num_classes=3, encoder_embed_dim=32, encoder_depth=2,
                              encoder_num_heads=2, encoder_global_attn_indexes=(1,)), max_points=4)
@@ -209,6 +218,45 @@ def test_route_kernel_launchers_raise_on_cpu_tensors_and_unsupported_head_dims(k
     }[kernel]
     with pytest.raises(ValueError, match=match):
         launch()
+
+
+@pytest.mark.parametrize("kernel", ["K6b", "K8b", "K9b"])
+def test_route_backward_launchers_raise_on_cpu_tensors(kernel):
+    q, rel, lse = torch.rand(2, 16, 64), torch.rand(2, 16, 4), torch.rand(2, 16)
+    grid, x = torch.rand(2, 5, 6, 4), torch.rand(1, 5, 6, 64)
+    launch = {
+        "K6b": lambda: attention._launch_k6_bwd(q, q, q, rel, rel, q, q, lse, 0.25, (4, 4)),
+        "K8b": lambda: attention._launch_k8_bwd(
+            torch.rand(1, 5, 6, 3 * 2 * 64), grid, grid, torch.rand(3, 128), torch.rand(1, 5, 6, 128),
+            torch.rand(1, 5, 6, 128), torch.rand(2, 30), 0.25, 4, 2),
+        "K9b": lambda: unpartition_residual._launch_k9_bwd(
+            x, x, x, torch.rand(1, 5, 6), torch.rand(1, 5, 6), torch.ones(64), 4),
+    }[kernel]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch()
+
+
+def test_route_gradients_count_no_launch_on_cpu_tensors():
+    """Gradients through the K6-K9 wrappers on CPU tensors take the plain
+    versions (forward and VJP): no counter moves."""
+    counters = (attention.fused_attention_rel, attention.fused_attention_rel_bwd,
+                attention.fused_attention, attention.fused_attention_rel_win,
+                attention.fused_attention_rel_win_bwd, unpartition_residual.unpartition_add_ln,
+                unpartition_residual.unpartition_add_ln_fused_bwd)
+    before = [c.launches for c in counters]
+    q = torch.rand(4, 16, 8, requires_grad=True)
+    rel = torch.rand(4, 16, 4, requires_grad=True)
+    out = attention.fused_attention_rel(q, q, q, rel, rel, 0.3, (4, 4)).sum()
+    out = out + attention.fused_attention(q, q, q, torch.rand(4, 16, 16), 0.3).sum()
+    grid = torch.rand(4, 5, 6, 4)
+    qkv = torch.rand(2, 5, 6, 48, requires_grad=True)
+    out = out + attention.fused_attention_rel_win(qkv, grid, grid, torch.rand(3, 16), 0.3, 4, 2).sum()
+    windows = torch.rand(8, 4, 4, 16, requires_grad=True)
+    x_new, y = unpartition_residual.unpartition_add_ln(
+        windows, torch.rand(2, 5, 6, 16), torch.ones(16), torch.zeros(16), 4)
+    (out + x_new.sum() + y.square().sum()).backward()
+    assert all(t.grad is not None for t in (q, rel, qkv, windows))
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("options,match", [
