@@ -33,6 +33,13 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    K9b also on a 20x27 grid, K8b on a grid of whole windows, where dbias_kv
    is exactly zero; K9b's pad slots exactly zero), their library time
    autograd through one ``scaled_dot_product_attention`` call.
+   K10 and K10b (the k2/s2 transposed convolution and its backward) at the
+   four stages of CPC-SAM's prompt-large upscaler (batch 12), the two of the
+   plain SAM upscaler, the UNet decoder's four (batch 12 and 32, 256²) and
+   ragged grids: forward within 1e-5, ``dx``, ``dw``, ``db`` within 1e-4 of
+   max |plain|, two backward launches bit-identical; library time one
+   ``F.conv_transpose2d`` call on channels-last views of the same operands
+   (autograd through it for K10b).
 4. Slice phase: writes a synthetic FUGC dataset (48/8/8 PNGs at 336x544)
    and runs ``al_train_torch``'s ``train_entry`` with the README's FUGC flags
    at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 30
@@ -43,6 +50,20 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    convolutions). Prints the loader's host decode path (native uint8 or
    PIL float32) and the bytes each train batch shipped, beside the step
    and round times that depend on them.
+   FUGC K-fold phase: ``fugc2025_train_torch``'s ``train_entry`` on the same
+   set with the entry's defaults (UNet 32..512, batch 32, adam with L2 decay
+   0.1) at 256²: 2 folds of 8 iterations. Checks one K1 launch a step, the
+   no-leak splits, each fold's files and ``model.pth``, finite falling
+   losses. Then the same trainer with ``einsum_upsample`` and the decoder's
+   stages on ``use_kernel="always"`` and ``--postprocess-mask``: 4 K10 and 4
+   K10b launches a step, and one loss and its gradients held against the
+   default decoder's from the same weights (float32 convolutions: 1e-5 and
+   1e-4 of max |grad|; TF32: 1e-3 and 2e-2). Then
+   ``fugc2025_predict_torch``'s ``predict_entry`` on two seeded full-width
+   ``LegacyUNet`` folds (``checkpoint_best.pth``) and three frames at their
+   own size: class maps in {0, 1, 2}, and ``model.predict`` on the card
+   against the CPU (fraction of differing pixels at most 1e-3 with float32
+   convolutions, 1e-2 with TF32).
    CPC-SAM phase: runs ``cpcsam_train_torch``'s ``train_entry`` with the
    entry's defaults (LoRA-4 ViT-B/512 ``SamDualmask``, 3 decoders, batch 12,
    half labeled, ``--promptmode point``) for 2 phase-1 and 4 phase-2 steps
@@ -66,7 +87,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    1e-5 and the LoRA gradients within 1e-4 of max |grad| of the default
    route's (the no-rel-pos variant against the default with zeroed tables),
    its time and peak memory beside the default's, and one full
-   ``CPCSAMTrainer.train_step``.
+   ``CPCSAMTrainer.train_step``. The same for the default encoder with the 12
+   stages of the three prompt-large upscalers on K10/K10b (12 launches each).
 5. SAM phase: builds ``sam_model_registry["vit_b"](512, 3)`` with seeded
    random weights on ``cuda`` and serves a seeded 480x640 uint8 frame
    through ``SamPredictor``: ``set_image``, ``predict`` with a point, a box,
@@ -74,7 +96,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    point prompts. Checks shapes, finite values, 8 K2, 4 K3 and 8 K4 launches
    per ``set_image``, and the embedding, masks and iou on the card against
    the same weights on the CPU. Prints the latencies and the encoder's
-   img/s at batch 8.
+   img/s at batch 8. Then ``predict`` and ``predict_batch`` with the mask
+   decoder's upscaler on K10: 2 launches a decode, mask logits within 1e-4
+   of max |logit| of the default's.
 6. Encoder-route phase: loads the SAM phase's weights into an
    ``ImageEncoderViT`` of each other route (K9 exit; grid-native K8, once
    by argument and once by ``MIA_WINDOWED_ATTN=1``; head-major K6; no
@@ -88,9 +112,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    keep-everything thresholds at 16x16 points (gather, NMS, boxes, RLE:
    every record consistent), one chunk's scores on the card against the
    CPU, and one run on the grid-native encoder (K8 under AMG).
-7. Prints one JSON line with the 15 kernels (K1-K9, forward, and the
-   backward kernels K2b-K4b, K6b, K8b, K9b, with their launches in the paths
-   that ran them, their bounds and library times), then the result line
+7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
+   backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
+   paths that ran them, their bounds and library times), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -146,6 +170,10 @@ KERNELS = {
            "mia_tpu/ops/unpartition_residual.py:221"),
     "K9b": ("unpartition_add_ln backward (K9)", "mia_tpu_torch/csrc/unpartition_residual.cu",
             "mia_tpu/ops/unpartition_residual.py:161"),
+    "K10": ("conv_transpose2x_p (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
+            "mia_tpu/ops/upsample2x.py:171"),
+    "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
+             "mia_tpu/ops/upsample2x.py:137"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what every kernel here computes in
@@ -155,9 +183,12 @@ BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel key."""
-    from mia_tpu_torch.ops import attention, ln_window, morphology, unpartition_residual, warp
+    from mia_tpu_torch.ops import (attention, ln_window, morphology, unpartition_residual,
+                                   upsample2x, warp)
 
-    return {"K6": attention.fused_attention_rel,
+    return {"K10": upsample2x.conv_transpose2x,
+            "K10b": upsample2x.conv_transpose2x_fused_bwd,
+            "K6": attention.fused_attention_rel,
             "K6b": attention.fused_attention_rel_bwd,
             "K7": attention.fused_attention,
             "K8": attention.fused_attention_rel_win,
@@ -565,6 +596,267 @@ def slice_phase(torch, workdir: Path):
           f"UNet logits card vs CPU max |diff| {fp32_err:.3g} (float32), "
           f"{tf32_err:.3g} (TF32 convs), max |logit| {scale:.3g}")
     return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path()}
+
+# ---------------------------------------------------------------------------
+# FUGC K-fold phase: fugc2025_train_torch, then fugc2025_predict_torch
+# ---------------------------------------------------------------------------
+
+
+def fugc_phase(torch, device, workdir: Path):
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    from mia_tpu_torch.entry.fugc2025.predict import model as PredictModel
+    from mia_tpu_torch.entry.fugc2025.predict import predict_entry
+    from mia_tpu_torch.entry.fugc2025.train import train_entry
+    from mia_tpu_torch.models import LegacyUNet, LegacyUNetConfig, UNet, UnetProcessor
+    from mia_tpu_torch.training import UNetTrainer
+
+    data = workdir / "fugc"
+    if not data.is_dir():
+        write_fugc(data)
+    counts = {k: fn for k, fn in counters().items() if k in ("K1", "K10", "K10b")}
+    # the entry's defaults (batch 32, adam, L2 0.1) at 256²; cut: 2 folds of 8 iterations
+    # on the synthetic set (48 train PNGs: 39 train / 9 held out a fold, one batch an epoch)
+    folds, epochs, batch = 2, 8, 32
+    argv = ["--work-dir", str(workdir / "kfold"), "--data-dir", str(data), "--device", "cuda",
+            "--num-folds", str(folds), "--num-epochs", str(epochs), "--batch-size", str(batch),
+            "--image-size", "256", "--valid-freq-iter", "4", "--weight-decay", "0.1"]
+
+    steps, losses, denoised = [], [], []
+    orig_init, orig_step = UNetTrainer.__init__, UNetTrainer.train_step
+    orig_record, orig_denoise = UNetTrainer._record_train_loss, UnetProcessor.denoise_one_mask
+
+    def quiet_init(self, **kwargs):
+        orig_init(self, **{**kwargs, "verbose": False})
+
+    def timed_step(self, batch_):
+        torch.cuda.synchronize()
+        before = {k: fn.launches for k, fn in counts.items()}
+        t0 = time.perf_counter()
+        orig_step(self, batch_)
+        torch.cuda.synchronize()
+        steps.append((type(self).__name__, self._fold_index, time.perf_counter() - t0,
+                      {k: fn.launches - before[k] for k, fn in counts.items()}))
+
+    def record(self, step_index, lr, loss):
+        losses.append((type(self).__name__, self._fold_index, loss))
+        return orig_record(self, step_index, lr, loss)
+
+    def watched_denoise(self, mask):
+        denoised.append(tuple(mask.shape))
+        return orig_denoise(self, mask)
+
+    class KernelDecoderTrainer(UNetTrainer):
+        """The same trainer with the decoder's upsampling on K10/K10b."""
+
+        def _unet_config(self):
+            return dataclasses.replace(super()._unet_config(), einsum_upsample=True)
+
+        def _build_model(self, round_key=0):
+            super()._build_model(round_key)
+            check(set_upsample_kernel(self.model, "always") == 4, "the decoder has not 4 upsamplings")
+
+    UNetTrainer.__init__, UNetTrainer.train_step = quiet_init, timed_step
+    UNetTrainer._record_train_loss, UnetProcessor.denoise_one_mask = record, watched_denoise
+    try:
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_entry(argv)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        check(not denoised, "the entry's run denoised its predictions")
+        # the kernel decoder: one fold of 4 iterations, --postprocess-mask on its validations
+        config = {**{k: getattr(trainer.config, k) for k in (
+            "seed", "dataset", "data_path", "in_channels", "num_classes", "image_size", "batch_size",
+            "valid_mode", "do_augment", "do_normalize", "do_oversample", "optimizer_name",
+            "optimizer_kwargs", "start_lr", "lr_warmup_iter")},
+            "active_learning": False, "valid_freq_iter": 2, "postprocess_mask": True}
+        kernel_trainer = KernelDecoderTrainer(
+            work_path=workdir / "kfold_k10", device="cuda", config=config, num_folds=folds, fold=0,
+            valid_rate=0.2, num_epochs=4)
+        kernel_trainer.initialize()
+        t0 = time.perf_counter()
+        kernel_trainer.run_training()
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+    finally:
+        UNetTrainer.__init__, UNetTrainer.train_step = orig_init, orig_step
+        UNetTrainer._record_train_loss, UnetProcessor.denoise_one_mask = orig_record, orig_denoise
+
+    # --- the entry's run --------------------------------------------------------
+    work = trainer.work_path
+    check(trainer.model.encoder.levels[4][1].all[0].weight.shape[0] == 512
+          and all(p.device.type == "cuda" for p in trainer.model.parameters()),
+          "the fold's UNet is not at full width on CUDA")
+    opt = trainer.state.optimizer
+    check(opt.weight_decay == 0.1 and not opt.decoupled and trainer.config.batch_size == batch,
+          "not adam with L2 decay 0.1 at the entry's batch size")
+    entry_steps = [s for s in steps if s[0] == "UNetTrainer"]
+    check([s[1] for s in entry_steps] == [f for f in range(folds) for _ in range(epochs)],
+          f"train steps by fold: {[s[1] for s in entry_steps]}")
+    check(all(s[3] == {"K1": 1, "K10": 0, "K10b": 0} for s in entry_steps),
+          f"launches of the entry's train steps: {[s[3] for s in entry_steps]}")
+    splits = trainer._get_split_dicts(trainer.get_dataset("train").case_names())
+    for f in range(folds):
+        base = work / f"fold_{f}"
+        for rel in ("model.pth", "round_0/best_model/model.pth", "round_0/final_model/model.pth",
+                    "round_0/data_list.json", "test_mean_round_0.csv"):
+            check((base / rel).is_file(), f"missing fold_{f}/{rel}")
+        check((base / "model.pth").read_bytes() == (base / "round_0/best_model/model.pth").read_bytes(),
+              f"fold_{f}/model.pth is not the fold's best checkpoint")
+        labeled = set(json.loads((base / "round_0/data_list.json").read_text())["labeled_image_idx"])
+        check(labeled == set(splits[f]["train"]) and not labeled & set(splits[f]["valid"])
+              and len(splits[f]["valid"]) == 9 and len(labeled) == 39,
+              f"fold {f}: the labeled set is not the split's train side")
+        fold_losses = [v for name, fold, v in losses if name == "UNetTrainer" and fold == f]
+        check(len(fold_losses) == epochs and all(math.isfinite(v) for v in fold_losses)
+              and fold_losses[-1] < fold_losses[0],
+              f"fold {f}: losses not finite and falling: {fold_losses}")
+    check(not set(splits[0]["valid"]) & set(splits[1]["valid"]), "the folds hold out the same cases")
+
+    # --- the kernel decoder's run -------------------------------------------------
+    kernel_steps = [s for s in steps if s[0] == "KernelDecoderTrainer"]
+    check(len(kernel_steps) == 4 and all(s[3] == {"K1": 1, "K10": 4, "K10b": 4} for s in kernel_steps),
+          f"launches of the kernel decoder's train steps: {[s[3] for s in kernel_steps]}")
+    kernel_losses = [v for name, _, v in losses if name == "KernelDecoderTrainer"]
+    check(len(kernel_losses) == 4 and all(math.isfinite(v) for v in kernel_losses),
+          f"kernel decoder: losses {kernel_losses}")
+    # 2 validations of 9 held-out slices and the real test's 8, one slice a batch
+    check(len(denoised) == 2 * 9 + 8 and all(len(shape) == 3 for shape in denoised),
+          f"--postprocess-mask denoised {len(denoised)} predictions")
+    check((kernel_trainer.work_path / "fold_0/model.pth").is_file(), "kernel decoder: no fold_0/model.pth")
+
+    # one loss and its gradients through the kernel decoder against the default decoder
+    # (nn.ConvTranspose2d) from the same weights: in full float32 (the math) and with the
+    # run's TF32 convolutions, where the default's upsampling is TF32 and K10 is float32
+    kernel_model = kernel_trainer.model.eval()
+    default_model = UNet(trainer.model.cfg).to(device, memory_format=torch.channels_last).eval()
+    default_model.load_state_dict(kernel_model.state_dict())
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = torch.rand((batch, 256, 256, 3), generator=gen, device=device)
+    y = torch.randint(0, 3, (batch, 256, 256), generator=gen, device=device)
+
+    def loss_and_grads(model):
+        loss = kernel_trainer.supervised_loss(model(x), y)[0]
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    errs = {}
+    try:
+        for mode, tf32, loss_tol, grad_tol in (("float32", False, 1e-5, 1e-4),
+                                               ("TF32 convs", True, 1e-3, 2e-2)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            for fn in counts.values():
+                fn.launches = 0
+            (want_loss, want), (loss, got) = loss_and_grads(default_model), loss_and_grads(kernel_model)
+            torch.cuda.synchronize()
+            check(counts["K10"].launches == 4 and counts["K10b"].launches == 4,
+                  "the kernel decoder's loss and backward did not launch K10 and K10b 4 times each")
+            scale = max(g.abs().max().item() for g in want)
+            loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+            grad_err = max((a - b).abs().max().item() for a, b in zip(got, want)) / scale
+            check(loss_err <= loss_tol and grad_err <= grad_tol,
+                  f"kernel decoder vs default ({mode}): loss differs by {loss_err} (limit {loss_tol}), "
+                  f"gradients by {grad_err} of max |grad| (limit {grad_tol})")
+            errs[mode] = (loss_err, grad_err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    base_a = median_s(lambda: loss_and_grads(default_model), torch, n=5) * 1e3
+    ms_a = median_s(lambda: loss_and_grads(kernel_model), torch, n=5) * 1e3
+    ms_b = median_s(lambda: loss_and_grads(kernel_model), torch, n=5) * 1e3
+    base_b = median_s(lambda: loss_and_grads(default_model), torch, n=5) * 1e3
+
+    step_ms = statistics.median(s[2] for s in entry_steps[3:]) * 1e3
+    fold_losses = [[round(v, 4) for name, fold, v in losses if name == "UNetTrainer" and fold == f]
+                   for f in range(folds)]
+    print(f"fugc: fugc2025_train_torch, UNet 32..512 at 256^2, batch {batch}, adam + L2 0.1, "
+          f"{folds} folds x {epochs} iterations (39 train / 9 held out of 48): losses first/last "
+          f"{[(l[0], l[-1]) for l in fold_losses]}; train step median {step_ms:.2f} ms "
+          f"({batch / step_ms * 1e3:.1f} img/s) after 3 warm-up steps; total {total_s:.1f} s")
+    print(f"fugc: decoder on K10/K10b (einsum_upsample, use_kernel=always), --postprocess-mask: "
+          f"4 iterations, launches a step {kernel_steps[0][3]}, losses "
+          f"{[round(v, 4) for v in kernel_losses]}, {len(denoised)} predictions denoised; "
+          f"total {kernel_s:.1f} s")
+    print("fugc: kernel decoder vs default decoder, same weights, batch 32: "
+          + "; ".join(f"{m}: loss {a:.3g} relative, gradients {b:.3g} of max |grad|"
+                      for m, (a, b) in errs.items())
+          + f"; loss + backward {ms_a:.2f} / {ms_b:.2f} ms, default {base_a:.2f} / {base_b:.2f} ms "
+          "(medians of 5, in turns)")
+
+    # --- fugc2025_predict_torch: two seeded full-width LegacyUNet folds -----------------
+    legacy = workdir / "legacy_folds"
+    frames = sorted((data / "test" / "images").glob("*.png"))[:3]
+    first = torch.from_numpy(np.array(Image.open(frames[0]).convert("RGB"))).float()[None] / 255.0
+    for fold in range(2):
+        torch.manual_seed(100 + fold)
+        net = LegacyUNet(LegacyUNetConfig(n_channels=3, n_classes=3)).eval()
+        sd = net.state_dict()
+        for k in sd:  # running statistics with some signal
+            if k.endswith("running_mean"):
+                sd[k] = 0.1 * torch.randn(sd[k].shape)
+            elif k.endswith("running_var"):
+                sd[k] = 0.5 + torch.rand(sd[k].shape)
+        # random weights give one class everywhere: centre the head's logits on the first
+        # frame, so that the classes follow the image and the denoise has regions to clean
+        net.load_state_dict(sd)
+        with torch.inference_mode():
+            sd["outc.conv.bias"] = -net.to(device)(first.to(device)).mean((0, 1, 2)).cpu()
+        sd = {k: v.cpu() for k, v in sd.items()}
+        (legacy / f"fold_{fold}").mkdir(parents=True)
+        # the legacy file, with and without the "model" key
+        torch.save({"model": sd} if fold == 0 else sd, legacy / f"fold_{fold}/checkpoint_best.pth")
+    (workdir / "frames").mkdir()
+    for f in frames:
+        shutil.copy(f, workdir / "frames" / f.name)
+    t0 = time.perf_counter()
+    ensemble = predict_entry(["--work-dir", str(legacy), "--device", "cuda",
+                              "--images", str(workdir / "frames"), "--run-model", "--folds", "0", "1",
+                              "--output-dir", str(workdir / "preds"),
+                              "--visualize-dir", str(workdir / "vis")])
+    entry_s = time.perf_counter() - t0
+    check(len(ensemble.nets) == 2 and ensemble.nets[0].down4.maxpool_conv[1].double_conv[3]
+          .weight.shape[0] == 1024 and all(p.device.type == "cuda" for n in ensemble.nets
+                                           for p in n.parameters()) and ensemble.image_size is None,
+          "not two full-width LegacyUNet folds on CUDA at the frame's own size")
+    seen = set()
+    for f in frames:
+        pred = np.array(Image.open(workdir / "preds" / f.name))
+        check(pred.shape == (336, 544) and set(np.unique(pred)) <= {0, 1, 2},
+              f"{f.name}: class map {pred.shape} with values {np.unique(pred)}")
+        check(np.array(Image.open(workdir / "vis" / f.name)).shape == (336, 544, 3),
+              f"{f.name}: no overlay")
+        seen |= set(np.unique(pred).tolist())
+    check(len(seen) >= 2, f"the class maps hold one class only: {seen}")
+    frame = np.array(Image.open(frames[0]).convert("RGB")).transpose(2, 0, 1)
+    cpu_ensemble = PredictModel(None, folds=(0, 1), device="cpu").load(legacy)
+    t0 = time.perf_counter()
+    want = cpu_ensemble.predict(frame)
+    cpu_s = time.perf_counter() - t0
+    differing = {}
+    try:
+        # a flipped argmax moves its neighbourhood through the morphology: fractions, not bits
+        for mode, tf32, limit in (("float32", False, 1e-3), ("TF32 convs", True, 1e-2)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            differing[mode] = float((ensemble.predict(frame) != want).mean())
+            check(differing[mode] <= limit, f"model.predict card vs CPU ({mode}): "
+                  f"{differing[mode]} of the pixels differ (limit {limit})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    predict_s = median_s(lambda: ensemble.predict(frame), torch, n=10)
+    print(f"fugc: fugc2025_predict_torch, 2 LegacyUNet 64..1024 folds (checkpoint_best.pth), "
+          f"{len(frames)} frames of 544x336 at their own size: classes seen {sorted(seen)}; "
+          f"model.predict median {predict_s * 1e3:.2f} ms a frame; the entry (load, 3 frames, "
+          f"overlays) {entry_s:.1f} s")
+    print("fugc: model.predict card vs CPU, fraction of differing pixels: "
+          + "; ".join(f"{m}: {v:.3g}" for m, v in differing.items()) + f" (CPU side {cpu_s:.1f} s)")
+    return {"launches": launches, "train_step_ms": step_ms, "predict_ms": predict_s * 1e3,
+            "k10_decoder_step_ms": min(ms_a, ms_b), "default_decoder_step_ms": min(base_a, base_b),
+            "card_vs_cpu_differing": differing, "log": trainer.log_path}
+
 
 # ---------------------------------------------------------------------------
 # K2, K3, K4 against their plain versions
@@ -1072,6 +1364,105 @@ def route_bwd_kernel_phase(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# K10 and K10b (k2/s2 transposed convolution) against their plain versions
+# ---------------------------------------------------------------------------
+
+# label, (B, H, W, Cin, Cout), timed: the four stages of CPC-SAM's prompt-large
+# upscaler at batch 12, the two of the plain SAM upscaler for one prompt (a
+# 512² frame gives a 32² embedding), the UNet decoder's four at 256² for batch
+# 12 (al_train) and batch 32 (fugc2025_train), and ragged grids
+UPSAMPLE_STAGES = (
+    ("prompt-large 1", (12, 32, 32, 256, 64), True),
+    ("prompt-large 2", (12, 64, 64, 64, 32), True),
+    ("prompt-large 3", (12, 128, 128, 32, 16), True),
+    ("prompt-large 4", (12, 256, 256, 16, 16), True),
+    ("SAM 1", (1, 32, 32, 256, 64), True),
+    ("SAM 2", (1, 64, 64, 64, 32), True),
+    ("UNet 1", (12, 16, 16, 512, 256), True),
+    ("UNet 2", (12, 32, 32, 256, 128), True),
+    ("UNet 3", (12, 64, 64, 128, 64), True),
+    ("UNet 4", (12, 128, 128, 64, 32), True),
+    ("UNet 1 B=32", (32, 16, 16, 512, 256), False),
+    ("UNet 4 B=32", (32, 128, 128, 64, 32), False),
+    ("ragged 5x12", (2, 5, 12, 16, 16), False),
+    ("ragged 7x3", (3, 7, 3, 48, 20), False),
+)
+
+
+def upsample_kernel_phase(torch, device):
+    from mia_tpu_torch.ops import upsample2x as up
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    worst = {"K10": [0.0, 0.0], "K10b": [0.0, 0.0]}
+    hold_fwd, hold_bwd = forward_holder(torch, worst), backward_holder(torch, worst)
+    conv_t = torch.nn.functional.conv_transpose2d
+    stages = {"K10": {}, "K10b": {}}
+    for label, (b, h, w, cin, cout), is_timed in UPSAMPLE_STAGES:
+        x, wt, bias = randn(b, h, w, cin), randn(2, 2, cin, cout, scale=cin ** -0.5), randn(cout)
+        dy = randn(b, 2 * h, 2 * w, cout)
+        got = up.conv_transpose2x(x, wt, bias)
+        want = up.conv_transpose2x_plain(x, wt, bias)
+        hold_fwd("K10", label, got, want)
+        first = up._launch_k10_bwd(x, wt, dy)
+        hold_bwd("K10b", label, first, up.conv_transpose2x_bwd_plain(x, wt, dy))
+        again = up._launch_k10_bwd(x, wt, dy)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, c) for a, c in zip(first, again)),
+              f"K10b {label}: two launches are not bit-identical")
+        only_dx = up._launch_k10_bwd(x, wt, dy, need_dw=False)
+        check(only_dx[1] is None and only_dx[2] is None and torch.equal(only_dx[0], first[0]),
+              f"K10b {label}: dx alone differs")
+        # the library call on NCHW channels-last views of the same operands
+        x_l = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        w_l = wt.permute(2, 3, 0, 1).contiguous().requires_grad_()
+        b_l = bias.detach().clone().requires_grad_()
+        lib_out = conv_t(x_l, w_l, b_l, stride=2)
+        lib_err = (lib_out.permute(0, 2, 3, 1) - want).abs().max().item() / want.abs().max().item()
+        check(lib_err <= 2e-3, f"K10 {label}: the library call differs from the plain version by "
+              f"{lib_err} (TF32 convolution)")
+        if not is_timed:
+            continue
+        pixels = b * h * w
+        per_block = 20 if pixels * cout < 2 ** 22 else 5
+        fwd_flops = 2 * pixels * cin * 4 * cout
+        g_l = dy.permute(0, 3, 1, 2)
+        for name, kernel, plain, library, moved, flops in (
+            ("K10", lambda: up._launch_k10(x, wt, bias),
+             lambda: up.conv_transpose2x_plain(x, wt, bias),
+             lambda: conv_t(x_l, w_l, b_l, stride=2), [x, wt, bias, got], fwd_flops),
+            ("K10b", lambda: up._launch_k10_bwd(x, wt, dy),
+             lambda: up.conv_transpose2x_bwd_plain(x, wt, dy),
+             lambda: torch.autograd.grad(lib_out, [x_l, w_l, b_l], g_l, retain_graph=True),
+             # dx and dw are a product of the forward's size each; db adds every cotangent
+             [x, wt, dy, x, wt, bias], 2 * fwd_flops + dy.numel()),
+        ):
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, kernel, plain, per_block)
+            with torch.no_grad() if name == "K10" else contextlib.nullcontext():
+                lib = time_ms(library, torch, per_block=per_block)
+            m = {"shape": [b, h, w, cin, cout], "ms": min(k_a, k_b),
+                 "plain_ms": min(plain_a, plain_b), "library_ms": lib, **bound(moved, flops)}
+            stages[name][label] = m
+            print(f"{name} at {label} (B={b}, {h}x{w}, {cin}->{cout}): kernel {k_a * 1e3:.2f} / "
+                  f"{k_b * 1e3:.2f} us, plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
+                  f"(median of 11 x {per_block} launches); {describe_yardsticks(m)}")
+    out = {}
+    for name, tol in (("K10", KERNEL_TOL), ("K10b", BWD_TOL)):
+        # the line's entry is the prompt-large chain's slowest stage; every timed stage beside it
+        slowest = max((m for label, m in stages[name].items() if label.startswith("prompt-large")),
+                      key=lambda m: m["ms"])
+        out[name] = {"max_abs_err": worst[name][0], **slowest, "stages": stages[name]}
+        print(f"{name} within {tol} of max |plain| on {len(UPSAMPLE_STAGES)} shapes: max |diff| "
+              f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
+              + ("; two launches bit-identical" if name == "K10b" else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # SAM phase
 # ---------------------------------------------------------------------------
 
@@ -1288,6 +1679,18 @@ def with_encoder(model, **options):
     return variant.train(model.training)
 
 
+def set_upsample_kernel(module, use_kernel):
+    """Set ``use_kernel`` on every 2D ``EinsumConvTranspose2x`` under ``module``
+    (``"always"``: K10 and K10b; ``"never"``: the plain GEMM) → their number."""
+    from mia_tpu_torch.models import EinsumConvTranspose2x
+
+    stages = [m for m in module.modules()
+              if isinstance(m, EinsumConvTranspose2x) and m.dimension == 2]
+    for m in stages:
+        m.use_kernel = use_kernel
+    return len(stages)
+
+
 @contextlib.contextmanager
 def windowed_attn_switch(on):
     """``MIA_WINDOWED_ATTN=1`` in the environment for the block, if ``on``."""
@@ -1364,6 +1767,63 @@ def route_phase(torch, device, model):
               f"(float32 convolutions); set_image median {ms_a:.2f} / {ms_b:.2f} ms, default "
               f"encoder {base_a:.2f} / {base_b:.2f} ms (480x640 frame, in turns)")
     return {"launches": launches, "set_image_ms": out}
+
+
+# ---------------------------------------------------------------------------
+# K10 under SAM serving: the mask decoder's upscaler on the kernel
+# ---------------------------------------------------------------------------
+
+
+def upscaler_serving_phase(torch, device, model):
+    import numpy as np
+
+    from mia_tpu_torch.models.sam import SamPredictor
+
+    image = sam_frame(np)
+    point, label = np.array([[352.0, 216.0]]), np.array([1])
+    coords16 = np.random.default_rng(5).uniform([0, 0], [640, 480], (16, 1, 2))
+    labels16 = np.ones((16, 1), np.int64)
+    counts = counters()
+    predictor = SamPredictor(model)
+    predictor.set_image(image)
+    calls = {"predict": lambda **k: predictor.predict(point_coords=point, point_labels=label, **k),
+             "predict_batch": lambda **k: predictor.predict_batch(coords16, labels16, **k)}
+    want = {name: call(return_logits=True) for name, call in calls.items()}
+    check(set_upsample_kernel(model.mask_decoder, "always") == 2, "the plain SAM upscaler has not 2 stages")
+    launches = {k: 0 for k in counts}
+    try:
+        worst = 0.0
+        for name, call in calls.items():
+            for fn in counts.values():
+                fn.launches = 0
+            got = call(return_logits=True)
+            torch.cuda.synchronize()
+            seen = {k: fn.launches for k, fn in counts.items() if fn.launches}
+            check(seen == {"K10": 2}, f"{name} with the upscaler on K10 launched {seen}, expected 2 K10")
+            launches["K10"] += seen.get("K10", 0)
+            ref = max(1.0, float(np.abs(want[name][0]).max()))
+            err = float(np.abs(got[0] - want[name][0]).max()) / ref
+            check(got[0].shape == want[name][0].shape and err <= 1e-4,
+                  f"{name}: mask logits with K10 differ from the default's by {err} of max |logit|")
+            check(np.allclose(got[1], want[name][1], rtol=0, atol=1e-6),
+                  f"{name}: iou changed with the upscaler's route")
+            confident = np.abs(want[name][0]) > 2e-4 * ref
+            check(np.array_equal((got[0] > model.mask_threshold)[confident],
+                                 (want[name][0] > model.mask_threshold)[confident]),
+                  f"{name}: mask bits differ away from the threshold")
+            worst = max(worst, err)
+        k10_a = median_s(calls["predict"], torch, n=20) * 1e3
+        set_upsample_kernel(model.mask_decoder, "never")
+        base_a = median_s(calls["predict"], torch, n=20) * 1e3
+        base_b = median_s(calls["predict"], torch, n=20) * 1e3
+        set_upsample_kernel(model.mask_decoder, "always")
+        k10_b = median_s(calls["predict"], torch, n=20) * 1e3
+    finally:
+        set_upsample_kernel(model.mask_decoder, "never")
+    print(f"sam: upscaler on K10: 2 launches a decode (predict, predict_batch of 16); mask logits "
+          f"within {worst:.3g} of max |logit| of the default's; predict (1 point) median "
+          f"{k10_a:.2f} / {k10_b:.2f} ms, default {base_a:.2f} / {base_b:.2f} ms (in turns)")
+    return {"launches": launches, "predict_ms": min(k10_a, k10_b), "default_predict_ms": min(base_a, base_b)}
 
 
 # ---------------------------------------------------------------------------
@@ -1526,7 +1986,7 @@ STEP_LAUNCHES = {
     2: {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K5": 1},
 }
 for _expected in STEP_LAUNCHES.values():
-    _expected.update({k: 0 for k in ("K6", "K6b", "K7", "K8", "K8b", "K9", "K9b")})
+    _expected.update({k: 0 for k in ("K6", "K6b", "K7", "K8", "K8b", "K9", "K9b", "K10", "K10b")})
 
 
 def acdc_arrays(np, n, size, depth=None, seed=0):
@@ -1841,6 +2301,10 @@ ROUTE_TRAIN_VARIANTS = (
     ("head-major", dict(attn_route="head_major"), False,
      {"K6": 12, "K6b": 12, "K4": 8, "K4b": 7}),
     ("no rel-pos", dict(use_rel_pos=False), False, {"K7": 12, "K4": 8, "K4b": 7}),
+    # the default encoder, the 12 upscaler stages of the three prompt-large decoders on
+    # K10/K10b: phase 1 runs each decoder once, unprompted, on the 6 labeled images
+    ("K10 upscalers", dict(), False,
+     {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7, "K10": 12, "K10b": 12}),
 )
 ROUTE_LOSS_TOL = 1e-5  # relative, float32 convolutions
 ROUTE_GRAD_TOL = 1e-4  # of the default route's largest LoRA gradient
@@ -1921,6 +2385,9 @@ def route_train_phase(torch, device, trainer, datasets):
         tr = stepper(with_encoder(base, **options))
         check(tr.model.training and tr.model.image_encoder.blocks[0].attn.lora_rank == 4,
               f"{label}: the variant is not the LoRA-4 model in train mode")
+        if "K10" in expect:
+            check(set_upsample_kernel(tr.model, "always") == 12,
+                  f"{label}: the model does not hold 3 x 4 upscaler stages")
         with windowed_attn_switch(switch):
             loss, grads, seen, peak = loss_and_grads(tr, False)
             # in turns beside the default (TF32 convolutions, as a run)
@@ -2014,9 +2481,11 @@ def main(argv=None) -> int:
                 **timed("K2-K4", sam_kernel_phase, torch, device),
                 **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
                 **timed("K6-K9", route_kernel_phase, torch, device),
-                **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device)}
+                **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device),
+                **timed("K10, K10b", upsample_kernel_phase, torch, device)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = timed("AL slice", slice_phase, torch, Path(tmp))
+        fugc = timed("FUGC K-fold", fugc_phase, torch, device, Path(tmp))
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
         route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
         del cpc_trainer, acdc
@@ -2024,7 +2493,9 @@ def main(argv=None) -> int:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(sl["log"], args.out / "chip_smoke_train_log.txt")
             shutil.copy(cpc["log"], args.out / "chip_smoke_cpcsam_log.txt")
+            shutil.copy(fugc["log"], args.out / "chip_smoke_fugc_log.txt")
     sam, model, cpu_model = timed("SAM serving", sam_phase, torch, device)
+    serving_k10 = timed("K10 serving", upscaler_serving_phase, torch, device, model)
     routes = timed("encoder routes", route_phase, torch, device, model)
     amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
     print(f"seconds by phase: build {build_s:.1f}, {seconds}")
@@ -2032,10 +2503,13 @@ def main(argv=None) -> int:
     # AL slice, K2-K4 forward from SAM serving, CPC-SAM training, the encoder
     # routes and AMG, the backward kernels of K2-K4 and K5 from CPC-SAM
     # training, K6-K9 from the encoder routes and, with K6b, K8b and K9b, from
-    # route training, K8 from AMG on the grid-native encoder too
-    launches = {k: sum(path["launches"].get(k, 0) for path in (sam, cpc, route_train, routes, amg))
+    # route training, K8 from AMG on the grid-native encoder too; K1 also from the FUGC
+    # K-fold trainer, K10 and K10b from that trainer with the decoder's option on, from
+    # route training (the prompt-large upscalers) and K10 from SAM serving
+    launches = {k: sum(path["launches"].get(k, 0)
+                       for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10))
                 for k in KERNELS}
-    launches["K1"] = sl["launches"]
+    launches["K1"] += sl["launches"]
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
@@ -2066,6 +2540,8 @@ def main(argv=None) -> int:
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
                         "route_training": route_train["routes"],
+                        "fugc": {k: v for k, v in fugc.items() if k not in ("launches", "log")},
+                        "k10_serving": {k: v for k, v in serving_k10.items() if k != "launches"},
                         **kernels, **result}, indent=1))
     print(card)
     print(json.dumps(kernels))

@@ -1,9 +1,10 @@
 """SAM registry and reference-checkpoint surgery (counterpart of
 ``mia_tpu/models/sam/build_sam.py``).
 
-``sam_model_registry[name](image_size, num_classes, ...) -> (model,
-embed_size)`` builds the module with PyTorch's initialisers, on the CPU
-unless ``device`` is given: the plain ``Sam`` for ``vit_b``/``vit_l``/
+``sam_model_registry[name](image_size, num_classes, checkpoint=None,
+lora_rank=0, ...) -> (model, embed_size)`` takes the JAX registry's arguments
+(``checkpoint`` is accepted and not read, as there) and builds the module
+with PyTorch's initialisers, on the CPU unless ``device`` is given: the plain ``Sam`` for ``vit_b``/``vit_l``/
 ``vit_h``, and CPC-SAM's ``SamDualmask`` (ViT-B) for
 ``vit_b_dualmask_same_prompt_class_random_large``.
 
@@ -33,9 +34,9 @@ _VIT_SPECS = {
 def _build_plain(spec_name: str):
     spec = _VIT_SPECS[spec_name]
 
-    def build(image_size, num_classes, checkpoint=None, device=None):
-        if checkpoint is not None:
-            raise NotImplementedError("loading a SAM checkpoint into the plain Sam is not ported")
+    def build(image_size, num_classes, checkpoint=None, lora_rank=0, device=None, **kwargs):
+        # ``checkpoint`` is accepted and not read, as in the JAX package's registry:
+        # weights come in through ``import_torch_sam_encoder`` and ``load_state_dict``
         model = Sam(
             img_size=image_size,
             num_classes=num_classes,
@@ -43,6 +44,7 @@ def _build_plain(spec_name: str):
             encoder_depth=spec["depth"],
             encoder_num_heads=spec["num_heads"],
             encoder_global_attn_indexes=spec["global_idx"],
+            lora_rank=lora_rank,
         )
         return model.to(device) if device is not None else model, image_size // 16
 
@@ -52,8 +54,7 @@ def _build_plain(spec_name: str):
 def build_sam_vit_b_dualmask(image_size, num_classes, checkpoint=None, dropout_rate=0.0,
                              num_points_prompt=(1, 2), bbox_change_rate=(0.1, 0.2), lora_rank=0,
                              device=None, **kwargs):
-    if checkpoint is not None:
-        raise NotImplementedError("pass a SAM checkpoint as the trainer's model_ckpt")
+    # ``checkpoint`` is accepted and not read, as above: the trainer loads its ``model_ckpt``
     spec = _VIT_SPECS["vit_b"]
     model = SamDualmask(
         img_size=image_size,

@@ -3,9 +3,10 @@ the plain 2-stage ``MaskDecoder`` and CPC-SAM's 4-stage
 ``MaskDecoderPromptLarge``. Channel-last; parameters carry the reference
 names (``iou_token.weight``, ``output_upscaling.{0,1,3,...}``,
 ``output_hypernetworks_mlps.{i}.layers.{j}``, ``iou_prediction_head``). The
-k2/s2 transposed convolutions run as one GEMM each (the JAX package's
-``interleave`` layout); K10, the TPU's kernel for them, is off by default
-and not ported."""
+k2/s2 transposed convolutions are ``EinsumConvTranspose2x`` stages: one GEMM
+each by default (the JAX package's ``interleave`` layout), or kernel K10 and
+its backward K10b (``ops/upsample2x.py``) on a stage whose ``use_kernel`` is
+set to ``"always"``."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..unet import EinsumConvTranspose2x
 from .common import LayerNorm2d
 
 
@@ -32,16 +34,6 @@ class MLP(nn.Module):
         return x
 
 
-def _conv_transpose2x(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
-    """k=2/s=2 transposed convolution of channel-last ``(B, H, W, C)`` as one
-    GEMM: ``y[2i+di, 2j+dj] = x[i, j] · W[:, :, di, dj] + b``."""
-    b, h, w, c = x.shape
-    f = conv.out_channels
-    y = x.reshape(b * h * w, c) @ conv.weight.permute(0, 2, 3, 1).reshape(c, 4 * f)
-    y = y.view(b, h, w, 2, 2, f).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, f)
-    return y + conv.bias
-
-
 class _Upscaler(nn.Sequential):
     """k2/s2 transposed-conv stages, each followed by exact GELU: two (4x,
     LayerNorm2d after the first; plain SAM) or four (16x, LayerNorm2d after
@@ -53,7 +45,7 @@ class _Upscaler(nn.Sequential):
                 [(d // 4, True), (d // 8, True), (d // 16, True), (d // 16, False)])
         layers, c_in = [], d
         for c_out, norm in plan:
-            layers.append(nn.ConvTranspose2d(c_in, c_out, 2, stride=2))
+            layers.append(EinsumConvTranspose2x(c_in, c_out))
             if norm:
                 layers.append(LayerNorm2d(c_out))
             layers.append(nn.GELU())
@@ -62,9 +54,7 @@ class _Upscaler(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self:
-            if isinstance(layer, nn.ConvTranspose2d):
-                x = _conv_transpose2x(x, layer)
-            elif isinstance(layer, nn.GELU):
+            if isinstance(layer, nn.GELU):
                 x = F.gelu(x)
             else:
                 x = layer(x)

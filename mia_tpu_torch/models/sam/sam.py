@@ -48,7 +48,7 @@ class Sam(nn.Module):
     def __init__(self, img_size: int = 512, num_classes: int = 3, encoder_embed_dim: int = 768,
                  encoder_depth: int = 12, encoder_num_heads: int = 12,
                  encoder_global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11),
-                 mask_threshold: float = 0.0):
+                 lora_rank: int = 0, mask_threshold: float = 0.0):
         super().__init__()
         embed_dim, patch = 256, 16
         self.img_size = img_size
@@ -57,6 +57,7 @@ class Sam(nn.Module):
             img_size=img_size, patch_size=patch, embed_dim=encoder_embed_dim,
             depth=encoder_depth, num_heads=encoder_num_heads, out_chans=embed_dim,
             window_size=14, global_attn_indexes=tuple(encoder_global_attn_indexes),
+            lora_rank=lora_rank,
         )
         side = img_size // patch
         self.prompt_encoder = PromptEncoder(

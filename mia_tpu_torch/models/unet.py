@@ -3,7 +3,10 @@
 Counterpart of ``mia_tpu/models/unet.py`` in its default configuration:
 plain blocks (conv → channel dropout → BatchNorm → LeakyReLU(0.01)),
 stride-2 downsampling from level 1, ConvTranspose(k2, s2) upsampling with
-(skip, upsampled) concatenation, 1×1 seg head.
+(skip, upsampled) concatenation, 1×1 seg head. ``einsum_upsample=True``
+builds the decoder's upsampling as :class:`EinsumConvTranspose2x` (one GEMM,
+or kernel K10 with ``use_kernel="always"``) instead of ``nn.ConvTranspose2d``;
+both carry the same parameters.
 
 - Parameter names are the reference PyTorch UNet's
   (``encoder.levels.{l}.{b}.all.{0,2}``, ``decoder.upsamples.{l}``,
@@ -44,6 +47,9 @@ class UNetConfig:
     deep_supervision: bool = False
     ds_layer: int = 0
     kernel_size: int = 3
+    # decoder upsampling through EinsumConvTranspose2x instead of
+    # nn.ConvTranspose2d (the JAX package's flag of the same name)
+    einsum_upsample: bool = False
 
     @property
     def num_levels(self) -> int:
@@ -118,6 +124,55 @@ class PlainBlock(nn.Module):
         return act(norm(dropout(conv(x), generator)))
 
 
+class EinsumConvTranspose2x(nn.Module):
+    """Drop-in for ``nn.ConvTranspose{2,3}d(cin, cout, 2, stride=2)`` on
+    channel-last input: ``(B, H, W, Cin)`` → ``(B, 2H, 2W, Cout)`` (or the 3D
+    counterpart), with that module's parameter names, shapes
+    (``weight (Cin, Cout, 2, 2[, 2])``, ``bias``) and initialisation, so its
+    state dicts load as they are.
+
+    A k2/s2 transposed convolution gives every output pixel one tap,
+    ``y[2i+di, 2j+dj] = x[i, j] · W[:, :, di, dj] + b`` (torch's weight is in
+    output order; flax's kernel is the reverse), so the whole layer is one
+    GEMM plus an interleave. ``use_kernel="never"`` (the default, the JAX
+    module's ``use_pallas``) runs that plain form; ``"always"`` (2D only)
+    goes through :func:`mia_tpu_torch.ops.upsample2x.conv_transpose2x`: kernel
+    K10 and its backward K10b on a CUDA tensor, the plain form on a CPU one.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, dimension: int = 2,
+                 use_kernel: str = "never"):
+        super().__init__()
+        if dimension not in (2, 3):
+            raise ValueError(f"dimension must be 2 or 3, got {dimension}")
+        if use_kernel not in ("never", "always"):
+            raise ValueError(f'use_kernel must be "never" or "always", got {use_kernel!r}')
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.dimension, self.use_kernel = dimension, use_kernel
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *(2,) * dimension))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        # nn.ConvTranspose2d's own initialisation, draw for draw
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        bound = 1.0 / math.sqrt(out_channels * 2 ** dimension)
+        nn.init.uniform_(self.bias, -bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..ops.upsample2x import conv_transpose2x, conv_transpose2x_plain
+
+        if self.dimension == 2:
+            w = self.weight.permute(2, 3, 0, 1)  # (di, dj, Cin, Cout)
+            if self.use_kernel == "always":
+                return conv_transpose2x(x, w, self.bias)
+            return conv_transpose2x_plain(x, w, self.bias)
+        b, d, h, ww, _ = x.shape
+        y = torch.einsum("bdhwc,cfijk->bdihjwkf", x, self.weight)
+        return y.reshape(b, 2 * d, 2 * h, 2 * ww, self.out_channels) + self.bias
+
+    def extra_repr(self) -> str:
+        return (f"{self.in_channels}, {self.out_channels}, dimension={self.dimension}, "
+                f"use_kernel={self.use_kernel!r}")
+
+
 class UNetEncoder(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -147,7 +202,8 @@ class UNetDecoder(nn.Module):
         self.levels = nn.ModuleList()
         for l in range(len(down) - 1):
             cin, cout = down[l], down[l + 1]
-            up = nn.ConvTranspose2d(cin, cout, 2, stride=2)
+            up = (EinsumConvTranspose2x(cin, cout) if cfg.einsum_upsample
+                  else nn.ConvTranspose2d(cin, cout, 2, stride=2))
             # flax ConvTranspose kernel (2, 2, cin, cout): fan_in = 4 * cin
             _lecun_normal_(up.weight, 4 * cin)
             nn.init.zeros_(up.bias)
@@ -162,7 +218,11 @@ class UNetDecoder(nn.Module):
     def forward(self, skips, generator=None):
         x = skips[-1]
         for l, (up, blocks) in enumerate(zip(self.upsamples, self.levels)):
-            x = torch.cat([skips[-(l + 2)], up(x)], dim=1)
+            if isinstance(up, EinsumConvTranspose2x):  # channel-last in and out: views
+                x = up(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            else:
+                x = up(x)
+            x = torch.cat([skips[-(l + 2)], x], dim=1)
             for block in blocks:
                 x = block(x, generator)
         return self.seg_output(x)

@@ -1,5 +1,14 @@
 from .distance import binary_border, squared_edt, surface_distance_stats
 from .filters import gaussian_blur, simulate_low_res
+from .morphology import (
+    dilate,
+    erode,
+    fill_hole,
+    gaussian_blur_threshold_smooth,
+    remove_cc,
+    remove_small_regions,
+)
+from .upsample2x import conv_transpose2x, conv_transpose2x_plain
 from .warp import (
     affine_inverse_matrix,
     affine_warp_shift2pass,
@@ -11,7 +20,15 @@ __all__ = [
     "affine_warp_shift2pass",
     "affine_warp_shift2pass_fused",
     "binary_border",
+    "conv_transpose2x",
+    "conv_transpose2x_plain",
+    "dilate",
+    "erode",
+    "fill_hole",
     "gaussian_blur",
+    "gaussian_blur_threshold_smooth",
+    "remove_cc",
+    "remove_small_regions",
     "simulate_low_res",
     "squared_edt",
     "surface_distance_stats",

@@ -1,0 +1,193 @@
+"""k=2/s=2 transposed convolution (2x upsample) — kernels K10 and K10b and
+their plain versions.
+
+Counterpart of ``mia_tpu/ops/upsample2x.py``. For channel-last
+``x (B, H, W, Cin)``, taps ``w (2, 2, Cin, Cout)`` (NOT reversed: the caller
+passes them in output order) and ``b (Cout,)``::
+
+    y[b, 2i+di, 2j+dj, :] = x[b, i, j, :] · w[di, dj] + b
+
+- :func:`conv_transpose2x_plain` — the plain PyTorch version (any device):
+  one matrix product of the ``(B·H·W, Cin)`` pixels with the ``(Cin, 4·Cout)``
+  taps, then the interleave reshape.
+- :func:`conv_transpose2x_bwd_plain` — its VJP written out: ``dx`` from the
+  cotangent's four taps, ``dw`` in the weight's dtype, ``db`` in float32.
+- :func:`conv_transpose2x` — the wrapper of the CUDA kernels
+  ``csrc/upsample2x.cu``, which replace the TPU kernels ``conv_transpose2x_p``
+  and its ``_bwd_impl``. A CUDA tensor launches the kernel (or raises); a CPU
+  tensor takes the plain version. When autograd needs a gradient it runs
+  inside a ``torch.autograd.Function`` whose backward is
+  :func:`conv_transpose2x_fused_bwd` (the backward kernel K10b, or the plain
+  VJP on the CPU). K10b adds its per-chunk partial sums of ``dw``/``db`` in a
+  fixed order, so two launches agree bit for bit. ``launches`` on each wrapper
+  counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import load_library
+
+
+def conv_transpose2x_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain K10: ``x (B, H, W, Cin)``, ``w (2, 2, Cin, Cout)``, ``b (Cout,)``
+    → ``(B, 2H, 2W, Cout)`` as one GEMM."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    y = x.reshape(bsz * h * wd, cin) @ w.permute(2, 0, 1, 3).reshape(cin, 4 * cout)
+    y = y.view(bsz, h, wd, 2, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(bsz, 2 * h, 2 * wd, cout)
+    return y + b
+
+
+def conv_transpose2x_bwd_plain(x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """Plain VJP of K10 (the JAX package's ``_bwd_impl`` semantics): ``dy
+    (B, 2H, 2W, Cout)`` → ``(dx, dw, db)``; ``dw`` takes ``w``'s dtype, ``db``
+    is float32. ``dx`` is None unless ``need_dx``, ``dw``/``db`` unless
+    ``need_dw``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    # (B, H, 2, W, 2, Cout) → pixels by (di, dj, co)
+    taps = dy.reshape(bsz, h, 2, wd, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(-1, 4 * cout)
+    dx = dw = db = None
+    if need_dx:
+        dx = (taps @ w.permute(0, 1, 3, 2).reshape(4 * cout, cin)).view(bsz, h, wd, cin)
+    if need_dw:
+        dw = (x.reshape(-1, cin).t() @ taps).view(cin, 2, 2, cout).permute(1, 2, 0, 3)
+        dw = dw.contiguous().to(w.dtype)
+        db = taps.to(torch.float32).sum(0).view(4, cout).sum(0)
+    return dx, dw, db
+
+
+@functools.cache
+def _k10_functions():
+    lib = load_library()
+    fwd = lib.mia_conv_transpose2x_f32
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    chunks = lib.mia_conv_transpose2x_bwd_chunks
+    chunks.argtypes = [ctypes.c_int] * 5
+    chunks.restype = ctypes.c_longlong
+    bwd = lib.mia_conv_transpose2x_bwd_f32
+    bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    return fwd, chunks, bwd
+
+
+def _check_k10(label, x, w, **operands):
+    """Check ``x (B, H, W, Cin)``, ``w (2, 2, Cin, Cout)`` and the named
+    operands (name → (tensor, shape)); return the sizes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{label} needs a CUDA tensor, got {x.device}")
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (2, 2, x.shape[3]):
+        raise ValueError(f"{label} needs x (B, H, W, Cin) and w (2, 2, Cin, Cout), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if cin == 0 or cout == 0 or cin % 4 or cout % 4:
+        raise ValueError(f"{label} needs channel counts that are multiples of 4, got Cin {cin}, "
+                         f"Cout {cout}")
+    if max(bsz, 2 * h, 2 * wd, cin, 4 * cout) >= 2 ** 31 or bsz * h * wd * 4 * max(cin, cout) >= 2 ** 62:
+        raise ValueError(f"{label} shape {tuple(x.shape)} overflows the kernel's sizes")
+    for name, (t, shape) in {"x": (x, tuple(x.shape)), "w": (w, tuple(w.shape)), **operands}.items():
+        if (t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{label} {name} must be a contiguous, 16-byte aligned float32 "
+                             f"{tuple(shape)} tensor on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return bsz, h, wd, cin, cout
+
+
+def _launch_k10(x, w, b):
+    """Launch the forward kernel; raise on anything it does not take."""
+    bsz, h, wd, cin, cout = _check_k10("K10", x, w, b=(b, (w.shape[3],)))
+    out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _k10_functions()[0](x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  bsz, h, wd, cin, cout, stream)
+    if err != 0:
+        raise RuntimeError(f"K10 launch failed: cudaError {err}")
+    conv_transpose2x.launches += 1
+    return out
+
+
+def _launch_k10_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """Launch K10's backward (``mia_conv_transpose2x_bwd_f32``) → (dx, dw, db),
+    None where not asked."""
+    bsz, h, wd, cin, cout = _check_k10(
+        "K10 backward", x, w, dy=(dy, (x.shape[0], 2 * x.shape[1], 2 * x.shape[2], w.shape[3])))
+    if not (need_dx or need_dw):
+        return None, None, None
+    _, chunks_of, bwd = _k10_functions()
+    dev = x.device
+    dx = torch.empty_like(x) if need_dx else None
+    dw = db = part = sums = None
+    if need_dw:
+        chunks = int(chunks_of(bsz, h, wd, cin, cout))
+        dw = torch.empty_like(w)
+        db = torch.empty((cout,), dtype=torch.float32, device=dev)
+        part = torch.empty((chunks * cin * 4 * cout,), dtype=torch.float32, device=dev)
+        sums = torch.empty((chunks * 4 * cout,), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), ptr(dx), ptr(dw), ptr(db), ptr(part),
+                  ptr(sums), bsz, h, wd, cin, cout, stream)
+    if err != 0:
+        raise RuntimeError(f"K10 backward launch failed: cudaError {err}")
+    conv_transpose2x_fused_bwd.launches += 1
+    return dx, dw, db
+
+
+def conv_transpose2x_fused_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """K10 backward: a CUDA tensor launches the backward kernels of
+    ``csrc/upsample2x.cu`` (and raises if it cannot); a CPU tensor takes
+    :func:`conv_transpose2x_bwd_plain`."""
+    if x.device.type == "cpu":
+        return conv_transpose2x_bwd_plain(x, w, dy, need_dx, need_dw)
+    return _launch_k10_bwd(x, w, dy, need_dx, need_dw)
+
+
+class _ConvTranspose2x(torch.autograd.Function):
+    """K10 with a gradient: ``(x, w, b)`` → ``y``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cpu":
+            return conv_transpose2x_plain(x, w, b)
+        return _launch_k10(x, w, b.contiguous())
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_dw = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dx, dw, db = conv_transpose2x_fused_bwd(x, w, dy.contiguous(), ctx.needs_input_grad[0],
+                                                need_dw)
+        return dx, dw, db
+
+
+def conv_transpose2x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K10: ``y[b, 2i+di, 2j+dj] = x[b, i, j] · w[di, dj] + b`` for ``x
+    (B, H, W, Cin)``, ``w (2, 2, Cin, Cout)``, ``b (Cout,)`` → ``(B, 2H, 2W,
+    Cout)``, written without an interleave copy.
+
+    A CUDA tensor launches ``csrc/upsample2x.cu`` (or raises: float32,
+    channel counts multiples of 4); a CPU tensor takes the plain version.
+    Differentiable through the backward kernel (K10b) when an input requires a
+    gradient.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        return _ConvTranspose2x.apply(x, w, b)
+    if x.device.type == "cpu":
+        return conv_transpose2x_plain(x, w, b)
+    return _launch_k10(x.contiguous(), w.contiguous(), b.contiguous())
+
+
+conv_transpose2x.launches = 0
+conv_transpose2x_fused_bwd.launches = 0

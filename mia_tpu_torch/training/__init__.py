@@ -2,8 +2,9 @@ from .al_config import ALConfig
 from .al_trainer import ALTrainer
 from .base_trainer import BaseTrainer
 from .cpcsam_trainer import CPCSAMConfig, CPCSAMTrainer, patients_to_slices
-from .state import ClippedAdam, TrainState, make_optimizer
+from .state import ClippedAdam, ClippedSGD, TrainState, make_optimizer
 from .steps import eval_step, make_train_step, predict
+from .unet_trainer import SemiTrainer, UNetTrainer
 
 __all__ = [
     "ALConfig",
@@ -12,7 +13,10 @@ __all__ = [
     "CPCSAMConfig",
     "CPCSAMTrainer",
     "ClippedAdam",
+    "ClippedSGD",
+    "SemiTrainer",
     "TrainState",
+    "UNetTrainer",
     "eval_step",
     "make_optimizer",
     "make_train_step",

@@ -14,9 +14,12 @@ on ``device``. The eval pipeline (z-score → resize to the model size →
 forward → argmax → resize back → per-class DSC/HD/ASD/JC) runs on the
 device with the per-case resize matrices as data.
 
+``--postprocess-mask`` denoises every predicted class map
+(``models/processor.py``) before the metrics.
+
 Not ported: ``--resume``, ``--init-round-path``, wandb, mesh/multi-device,
-mask postprocessing, volume-mode validation, selectors other than random
-and entropy, the background pool-cache warmer.
+volume-mode validation, selectors other than random and entropy, the
+background pool-cache warmer.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from ..data import DATASETS, ActiveDataset, BatchLoader, ExtendableDataset, deco
 from ..device import resolve_device, set_compute_precision
 from ..losses import DiceAndCELoss
 from ..metrics import metric_percase
-from ..models import UNet, UNetConfig
+from ..models import UNet, UNetConfig, UnetProcessor
+from ..models.torch_port import import_torch_unet_checkpoint
 from ..ops.resize import _resize_matrix
 from ..schedule import poly_warmup_schedule
 from ..transforms import get_train_transform, zscore_normalize
@@ -109,7 +113,6 @@ class ALTrainer(BaseTrainer):
             (resume, "--resume"),
             (use_wandb, "--use-wandb"),
             (self.config.init_round_path, "--init-round-path"),
-            (self.config.postprocess_mask, "--postprocess-mask"),
         ):
             if flag:
                 raise NotImplementedError(f"{name} is not ported")
@@ -216,6 +219,7 @@ class ALTrainer(BaseTrainer):
             torch.manual_seed(self.seed * 1009 + round_key)
             model = UNet(self._unet_config())
         model = model.to(self.device, memory_format=torch.channels_last)
+        self.model_processor = UnetProcessor(image_size=self.config.image_size)
         self.lr_schedule = self._make_schedule()
         optimizer = make_optimizer(
             self.config.optimizer_name,
@@ -264,10 +268,7 @@ class ALTrainer(BaseTrainer):
             ckpt = ckpt / "model.pth"
         try:
             sd = torch.load(ckpt, map_location=self.device)
-            if "model" in sd:
-                sd = sd["model"]
-            sd = {k.removeprefix("model."): v for k, v in sd.items()}
-            self.model.load_state_dict(sd)
+            import_torch_unet_checkpoint(sd, self.model)
             self.logger.info(f"Loaded model checkpoint from {ckpt}")
         except Exception as e:  # the reference warns and trains on
             self.logger.warning(f"Failed to load model checkpoint from {ckpt}")
@@ -500,6 +501,17 @@ class ALTrainer(BaseTrainer):
                     self.work_path / f"round_{self.current_round - 1}/best_model"
                 )
 
+        self._start_round_loader(data_list_path)
+
+        labeled_size, pool_size = self.active_dataset.get_size()
+        self.logger.info("")
+        self.logger.info(f"Round {self.current_round}:")
+        self.logger.info(f"Labeled size: {labeled_size}")
+        self.logger.info(f"Pool size: {pool_size}")
+
+    def _start_round_loader(self, data_list_path: Path):
+        """Write the round's data list, build its train loader and reset the
+        round's counters and best metric."""
         self.active_dataset.save_data_list(data_list_path)
         self.train_dataloader = self.get_train_dataloader(self.active_dataset)
 
@@ -511,12 +523,6 @@ class ALTrainer(BaseTrainer):
         self._best_valid_metric = default
         self._cur_valid_metric = default
         self._best_state = None  # this round's best lives here
-
-        labeled_size, pool_size = self.active_dataset.get_size()
-        self.logger.info("")
-        self.logger.info(f"Round {self.current_round}:")
-        self.logger.info(f"Labeled size: {labeled_size}")
-        self.logger.info(f"Pool size: {pool_size}")
 
     def on_round_end(self):
         self.save_state_dict(
@@ -646,6 +652,8 @@ class ALTrainer(BaseTrainer):
         ).mean()
         pred_nat = torch.einsum("oh,nhw->now", m_back_h, pred.to(torch.float32))
         pred_nat = torch.einsum("ow,nhw->nho", m_back_w, pred_nat).to(torch.uint8)
+        if self.config.postprocess_mask:
+            pred_nat = self.model_processor.denoise_one_mask(pred_nat)
 
         spacing = sampled_batch.get("spacing")
         if spacing is not None and spacing[0] is not None:

@@ -1,12 +1,15 @@
 """Where the PyTorch port's FUGC train step spends its time on one GPU.
 
 Full-width UNet (32..512), batch 12, 256², FUGC augmentation + z-score,
-Dice+CE, clip + Adam — the step of ``al_train_torch``. Prints the median
-step time with TF32 convolutions (the port's float32 setting) and in full
-float32, the time of each stage, and a ``torch.profiler`` table of device
-time by kernel. Needs a CUDA device.
+Dice+CE, clip + Adam — the step of ``al_train_torch``; ``--batch 32
+--weight-decay 0.1`` is the step of ``fugc2025_train_torch``, and ``--k10``
+builds the decoder's upsampling as ``EinsumConvTranspose2x`` on kernels K10
+and K10b. Prints the median step time with TF32 convolutions (the port's
+float32 setting) and in full float32, the time of each stage, and a
+``torch.profiler`` table of device time by kernel. Needs a CUDA device.
 
-    python scripts/profile_torch_step.py [--batch 12] [--trace trace.json]
+    python scripts/profile_torch_step.py [--batch 12] [--weight-decay 5e-4] [--k10]
+                                         [--trace trace.json]
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mia_tpu_torch.losses import DiceAndCELoss  # noqa: E402
-from mia_tpu_torch.models import UNet, UNetConfig  # noqa: E402
+from mia_tpu_torch.models import EinsumConvTranspose2x, UNet, UNetConfig  # noqa: E402
 from mia_tpu_torch.schedule import poly_warmup_schedule  # noqa: E402
 from mia_tpu_torch.training import TrainState, make_optimizer, make_train_step  # noqa: E402
 from mia_tpu_torch.transforms import get_train_transform, zscore_normalize  # noqa: E402
@@ -45,6 +48,8 @@ def median_ms(fn, n=20, warmup=5) -> float:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=12)
+    parser.add_argument("--weight-decay", type=float, default=5e-4)
+    parser.add_argument("--k10", action="store_true", help="decoder upsampling on K10/K10b")
     parser.add_argument("--trace", type=Path, default=None, help="chrome trace output")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -68,9 +73,15 @@ def main() -> None:
         return zscore_normalize(im), lb
 
     torch.manual_seed(0)
-    model = UNet(UNetConfig(in_channels=3, out_classes=3)).to(dev, memory_format=torch.channels_last)
+    model = UNet(UNetConfig(in_channels=3, out_classes=3, einsum_upsample=args.k10))
+    model = model.to(dev, memory_format=torch.channels_last)
+    for m in model.modules():
+        if isinstance(m, EinsumConvTranspose2x):
+            m.use_kernel = "always"
+    print(f"batch {b}, adam with L2 decay {args.weight_decay}, decoder upsampling: "
+          + ("EinsumConvTranspose2x on K10/K10b" if args.k10 else "nn.ConvTranspose2d"))
     opt = make_optimizer("adam", model.parameters(), poly_warmup_schedule(1e-3, 4000, 250),
-                         grad_clip=10.0, weight_decay=5e-4)
+                         grad_clip=10.0, weight_decay=args.weight_decay)
     state = TrainState(model, opt)
     step = make_train_step(loss_fn, preprocess)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -105,8 +116,8 @@ def main() -> None:
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 5
-    print(f"profiled: {wall * 1e3:.2f} ms/step wall, {device_ms:.2f} ms/step kernel time "
-          "(the profiler adds host overhead to the wall time)")
+    print(f"profiled: {wall * 1e3:.2f} ms/step wall, {device_ms:.2f} ms/step kernel time, card idle "
+          f"{1 - device_ms / (wall * 1e3):.1%} (the profiler adds host overhead to the wall time)")
     print("kernel time per step by kernel (ms, share, launches):")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:20]:
         ms = e.self_device_time_total / 1e3 / 5

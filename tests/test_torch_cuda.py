@@ -1,4 +1,4 @@
-"""K1-K9 and the backward kernels on the card: the CUDA kernels against their
+"""K1-K10 and the backward kernels on the card: the CUDA kernels against their
 plain PyTorch versions.
 
 Needs an NVIDIA GPU with nvcc; skipped without one. On the GPU machine,
@@ -549,3 +549,76 @@ def test_encoder_routes_launch_their_kernels_and_agree(cuda):
         assert {k: c.launches - before[k] for k, c in counters.items()} == {
             k: expect.get(k, 0) for k in counters}
         assert _rel_err(got, want) <= 1e-4
+
+
+# K10 / K10b: the k2/s2 transposed convolution and its backward against their
+# plain versions (forward 1e-5, dx/dw/db 1e-4 of max |plain|; float32, another
+# summation order), two backward launches bit-identical.
+@pytest.mark.parametrize("shape", [(12, 32, 32, 256, 64), (12, 128, 128, 32, 16),
+                                   (1, 64, 64, 64, 32), (4, 16, 16, 512, 256),
+                                   (2, 5, 12, 16, 16), (3, 7, 3, 48, 20), (2, 4, 12, 16, 16)])
+def test_k10_and_k10b_match_plain(cuda, shape):
+    from mia_tpu_torch.ops import upsample2x as up
+
+    b, h, w, cin, cout = shape
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(b, h, w, cin, generator=gen, device=cuda)
+    wt = torch.randn(2, 2, cin, cout, generator=gen, device=cuda) * cin ** -0.5
+    bias = torch.randn(cout, generator=gen, device=cuda)
+    dy = torch.randn(b, 2 * h, 2 * w, cout, generator=gen, device=cuda)
+    before = (up.conv_transpose2x.launches, up.conv_transpose2x_fused_bwd.launches)
+    got = up.conv_transpose2x(x, wt, bias)
+    first = up.conv_transpose2x_fused_bwd(x, wt, dy)
+    again = up.conv_transpose2x_fused_bwd(x, wt, dy)
+    torch.cuda.synchronize()
+    assert (up.conv_transpose2x.launches, up.conv_transpose2x_fused_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert _rel_err(got, up.conv_transpose2x_plain(x, wt, bias)) <= 1e-5
+    for g, want in zip(first, up.conv_transpose2x_bwd_plain(x, wt, dy)):
+        assert g.shape == want.shape and _rel_err(g, want) <= 1e-4
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def test_k10_gradients_run_through_k10b_and_the_module_option(cuda):
+    from mia_tpu_torch.models import EinsumConvTranspose2x
+    from mia_tpu_torch.ops import upsample2x as up
+
+    torch.manual_seed(11)
+    plain = EinsumConvTranspose2x(64, 32).to(cuda)
+    fused = EinsumConvTranspose2x(64, 32, use_kernel="always").to(cuda)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn(3, 20, 27, 64, device=cuda)
+    g = torch.randn(3, 40, 54, 32, device=cuda)
+    before = (up.conv_transpose2x.launches, up.conv_transpose2x_fused_bwd.launches)
+    outs = {}
+    for name, mod in (("plain", plain), ("fused", fused)):
+        xi = x.clone().requires_grad_()
+        y = mod(xi)
+        outs[name] = (y, *torch.autograd.grad(y, [xi, mod.weight, mod.bias], g))
+    torch.cuda.synchronize()
+    assert (up.conv_transpose2x.launches, up.conv_transpose2x_fused_bwd.launches) == (
+        before[0] + 1, before[1] + 1)  # the default option launches nothing
+    assert _rel_err(outs["fused"][0], outs["plain"][0]) <= 1e-5
+    for a, c in zip(outs["fused"][1:], outs["plain"][1:]):
+        assert a.shape == c.shape and _rel_err(a, c) <= 1e-4
+    # frozen weights: dx only, still one backward launch
+    xi = x.clone().requires_grad_()
+    for p in fused.parameters():
+        p.requires_grad_(False)
+    torch.autograd.grad(fused(xi), xi, g)
+    assert up.conv_transpose2x_fused_bwd.launches == before[1] + 2
+
+
+def test_k10_rejects_what_it_does_not_take(cuda):
+    from mia_tpu_torch.ops import upsample2x as up
+
+    x = torch.rand(1, 4, 4, 8, device=cuda)
+    w, b = torch.rand(2, 2, 8, 4, device=cuda), torch.rand(4, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        up.conv_transpose2x(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        up.conv_transpose2x(torch.rand(1, 4, 4, 6, device=cuda), torch.rand(2, 2, 6, 4, device=cuda), b)
+    with pytest.raises(ValueError, match="w \\(2, 2, Cin, Cout\\)"):
+        up.conv_transpose2x(x, torch.rand(2, 2, 4, 4, device=cuda), b)
+    with pytest.raises(ValueError, match="b must be"):
+        up.conv_transpose2x(x, w, torch.rand(8, device=cuda))

@@ -5,6 +5,7 @@ refuses a head dim its attention kernels are not built for and encoder
 options that contradict each other, and names the host decode path it
 takes."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,12 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tests"))
 from synth_data import make_fugc  # noqa: E402
 
+# Every pytest-xdist worker imports this file when it collects. Several workers, each with
+# one intra-op thread per core, spend most of their time spinning at OpenMP barriers (a file
+# that takes 140 s alone took 1030 s beside five other workers): two threads a worker.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(2)
+
 
 def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
     # the pytest process has JAX from conftest.py, hence a fresh interpreter,
@@ -32,7 +39,8 @@ def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
     # entry points, a second CPC-SAM run with the contrastive loss, VAT and
     # --resume (the feature memory, both losses and the checkpoint reader),
     # serves a tiny SAM on the CPU, generates masks automatically and embeds
-    # through every route of the encoder
+    # through every route of the encoder, then trains two FUGC folds and runs
+    # the fold ensemble with its denoise
     code = f"""
 import dataclasses, importlib, pkgutil, sys
 import numpy as np
@@ -91,6 +99,23 @@ for options in (dict(fuse_unpart_residual="always"), dict(attn_route="head_major
                           window_size=4, global_attn_indexes=(1,), **options)
     with torch.no_grad():
         assert enc(torch.zeros(1, 40, 40, 3)).shape == (1, 10, 10, 256)
+from mia_tpu_torch.entry.fugc2025.predict import model as predict_model, predict_entry
+from mia_tpu_torch.entry.fugc2025.train import train_entry as fugc_entry
+from mia_tpu_torch.models import LegacyUNet, LegacyUNetConfig
+fugc = fugc_entry(["--work-dir", {str(tmp_path / "fugc")!r}, "--data-dir", {str(tmp_path / "data")!r},
+                   "--device", "cpu", "--num-folds", "2", "--num-epochs", "1", "--batch-size", "2",
+                   "--image-size", "32", "--valid-freq-iter", "1"])
+assert (fugc.work_path / "fold_1" / "model.pth").is_file()
+ensemble = predict_model([32], folds=[0, 1], device="cpu")
+ensemble.net_config = LegacyUNetConfig(width=4)
+for fold in (0, 1):
+    torch.manual_seed(fold)
+    (fugc.work_path / f"legacy/fold_{{fold}}").mkdir(parents=True)
+    torch.save(LegacyUNet(ensemble.net_config).state_dict(),
+               fugc.work_path / f"legacy/fold_{{fold}}/checkpoint_best.pth")
+pred = ensemble.load(fugc.work_path / "legacy").predict(
+    (np.random.default_rng(2).random((3, 40, 48)) * 255).astype(np.uint8))
+assert pred.shape == (40, 48) and set(np.unique(pred)) <= {{0, 1, 2}}
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mia_tpu") or m.startswith(("jax.", "flax", "optax", "mia_tpu.")))
 assert not bad, bad
@@ -234,6 +259,30 @@ def test_route_backward_launchers_raise_on_cpu_tensors(kernel):
     }[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         launch()
+
+
+def test_k10_counters_stay_zero_and_launchers_raise_on_cpu_tensors():
+    """K10's wrapper and its gradient on CPU tensors take the plain versions;
+    the launchers take a CUDA tensor or raise."""
+    from mia_tpu_torch.models import EinsumConvTranspose2x
+    from mia_tpu_torch.ops import upsample2x
+
+    before = (upsample2x.conv_transpose2x.launches, upsample2x.conv_transpose2x_fused_bwd.launches)
+    stage = EinsumConvTranspose2x(8, 4, use_kernel="always")
+    x = torch.rand(2, 3, 5, 8, requires_grad=True)
+    y = stage(x)
+    assert y.shape == (2, 6, 10, 4)
+    y.square().sum().backward()
+    assert x.grad is not None and stage.weight.grad is not None and stage.bias.grad is not None
+    with torch.no_grad():
+        assert torch.equal(stage(x), y)
+    assert (upsample2x.conv_transpose2x.launches,
+            upsample2x.conv_transpose2x_fused_bwd.launches) == before
+    w = stage.weight.detach().permute(2, 3, 0, 1).contiguous()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        upsample2x._launch_k10(x.detach(), w, stage.bias.detach())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        upsample2x._launch_k10_bwd(x.detach(), w, y.detach())
 
 
 def test_route_gradients_count_no_launch_on_cpu_tensors():
