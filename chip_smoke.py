@@ -22,10 +22,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    the same inputs with the dense bias built beforehand (``library_ms``;
    the port never calls it). Computes each kernel's bound from the timed
    tensors: bytes over 3.35 TB/s or operations over 67 TFLOP/s (float32
-   outside the tensor cores, what every kernel here computes in).
+   outside the tensor cores, what most kernels here compute in).
    Training kernels: the backward kernels of K2, K3 and K4 against their
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
-   1e-4 of max |plain| for each output, and K5 (connected components, 16
+   1e-4 of max |plain| for each output, K2b and K3b (3xTF32 on the tensor
+   cores) also bit-identical over two launches and with a second bound,
+   ``tc_bound_ms``, at 495/3 TFLOP/s; and K5 (connected components, 16
    sweeps) bit for bit on 3 x 12 x 4 class masks of 64x64 pseudo-labels
    (blob, speckled, empty, full) and on a 512x512 stack; timed the same way.
    The backward kernels of K6, K8 and K9 the same way (K6b at the windowed
@@ -114,7 +116,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    CPU, and one run on the grid-native encoder (K8 under AMG).
 7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
-   paths that ran them, their bounds and library times), then the result line
+   paths that ran them, their bounds and library times; K2b and K3b also
+   their tensor-core bound), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -144,11 +147,11 @@ KERNELS = {
            "mia_tpu/ops/warp.py:300"),
     "K2": ("fused_attention_rel_packed_ik (K2)", "mia_tpu_torch/csrc/attention_rel.cu",
            "mia_tpu/ops/attention.py:923"),
-    "K2b": ("fused_attention_rel_packed_ik backward (K2)", "mia_tpu_torch/csrc/attention_rel.cu",
-            "mia_tpu/ops/attention.py:1076"),
+    "K2b": ("fused_attention_rel_packed_ik backward (K2)",
+            "mia_tpu_torch/csrc/attention_bwd_tc.cuh", "mia_tpu/ops/attention.py:1076"),
     "K3": ("fused_attention_rel_packed (K3)", "mia_tpu_torch/csrc/attention_rel.cu",
            "mia_tpu/ops/attention.py:605"),
-    "K3b": ("fused_attention_rel_packed backward (K3)", "mia_tpu_torch/csrc/attention_rel.cu",
+    "K3b": ("fused_attention_rel_packed backward (K3)", "mia_tpu_torch/csrc/attention_bwd_tc.cuh",
             "mia_tpu/ops/attention.py:712"),
     "K4": ("ln_window_partition (K4)", "mia_tpu_torch/csrc/ln_window.cu",
            "mia_tpu/ops/ln_window.py:230"),
@@ -176,7 +179,9 @@ KERNELS = {
              "mia_tpu/ops/upsample2x.py:137"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what every kernel here computes in
+FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
+# K2b and K3b run 3xTF32 on the tensor cores: the card's dense TF32 rate, three MMAs a product
+TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
 BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order, p from the lse)
 
@@ -260,6 +265,13 @@ def bound(tensors, flops):
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def tc_bound_ms(tensors, flops):
+    """``bound``'s least time with ``flops`` at the 3xTF32 tensor-core rate
+    (495/3 TFLOP/s) in place of the float32 one."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return max(nbytes / HBM_BYTES_PER_S, flops / TC_3XTF32_FLOPS_PER_S) * 1e3
 
 
 def attention_flops(batch_heads, queries, keys, d, backward=False):
@@ -1006,6 +1018,12 @@ def train_kernel_phase(torch, device):
     worst = {k: [0.0, 0.0] for k in ("K2b", "K3b", "K4b")}
 
     hold = backward_holder(torch, worst)
+
+    def bit_identical(name, label, first, second):
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(first, second)),
+              f"{name} {label}: two launches differ")
+
     ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
     rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
     timed = {}
@@ -1023,10 +1041,13 @@ def train_kernel_phase(torch, device):
         out, lse = attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads, with_lse=True)
         g = randn(b * 9, ws * ws, heads * d)
         for tables in (False, True):
-            hold("K2b", f"{label} tables={tables}",
-                 attention._launch_k2_bwd(qkv, rh, rw, out, g, lse, scale, (ws, ws), heads, tables),
+            k2b_args = (qkv, rh, rw, out, g, lse, scale, (ws, ws), heads, tables)
+            got = attention._launch_k2_bwd(*k2b_args)
+            hold("K2b", f"{label} tables={tables}", got,
                  attention.attention_rel_packed_ik_bwd(qkv, rh, rw, out, g, scale, (ws, ws), heads,
                                                        tables))
+            bit_identical("K2b", f"{label} tables={tables}", got,
+                          attention._launch_k2_bwd(*k2b_args))
         timed[("K2b", label)] = ((qkv, rh, rw, out, g, lse, scale, (ws, ws), heads, False),
                                  (qkv, rh, rw, out, g, scale, (ws, ws), heads, False))
 
@@ -1036,8 +1057,9 @@ def train_kernel_phase(torch, device):
         g = randn(b, side * side, heads * d)
         kernel_args = (qkv, rel_h, rel_w, out, g, lse, scale, (side, side), heads)
         plain_args = (qkv, rel_h, rel_w, out, g, scale, (side, side), heads)
-        hold("K3b", label, attention._launch_k3_bwd(*kernel_args),
-             attention.attention_rel_packed_bwd(*plain_args))
+        got = attention._launch_k3_bwd(*kernel_args)
+        hold("K3b", label, got, attention.attention_rel_packed_bwd(*plain_args))
+        bit_identical("K3b", label, got, attention._launch_k3_bwd(*kernel_args))
         timed[("K3b", label)] = (kernel_args, plain_args)
 
     # K5: 12 images x 3 decoders of 4-class pseudo-labels at the prompt
@@ -1079,7 +1101,8 @@ def train_kernel_phase(torch, device):
         g4 = g.view(b, n, n_heads, d).transpose(1, 2).contiguous()
         lib = sdpa_backward_ms(torch, *head_major(qkv, n_heads),
                                dense_bias(rel_h, rel_w, b, n_heads), sc, g4, 10)
-        return {"library_ms": lib, **bound(moved, flops)}
+        # the 3xTF32 kernels' own bound: the same operations on the tensor cores
+        return {"library_ms": lib, **bound(moved, flops), "tc_bound_ms": tc_bound_ms(moved, flops)}
 
     fns = {"K2b": (attention._launch_k2_bwd, attention.attention_rel_packed_ik_bwd),
            "K3b": (attention._launch_k3_bwd, attention.attention_rel_packed_bwd),
@@ -1098,7 +1121,9 @@ def train_kernel_phase(torch, device):
             if label == "B=12":
                 out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
                              "plain_ms": min(plain_a, plain_b), **bound_and_library(name, k_args)}
-                print(f"{name} at ViT-B/512 training B=12: {describe_yardsticks(out[name])}")
+                tc = (f", 3xTF32 tensor-core bound {out[name]['tc_bound_ms'] * 1e3:.2f} us"
+                      if "tc_bound_ms" in out[name] else "")
+                print(f"{name} at ViT-B/512 training B=12: {describe_yardsticks(out[name])}{tc}")
         print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})")
     masks = k5_cases["(144, 64, 64)"]

@@ -1,12 +1,11 @@
-// The backward attention template of the port, in float32: FlashAttention-2
-// style from the forward's per-row log-sum-exp, beside the forward template
-// in attention_fwd.cuh. attention_rel.cu instantiates it for K2 and K3
-// (packed qkv), attention_routes.cu for K6 (head-major operands) and K8
-// (windows carved from the unpartitioned token grid).
+// The SIMT backward attention template of the port, in float32:
+// FlashAttention-2 style from the forward's per-row log-sum-exp, beside the
+// forward template in attention_fwd.cuh. attention_routes.cu instantiates it
+// for K6b (head-major operands) and K8b (windows carved from the
+// unpartitioned token grid). K2b and K3b (packed qkv) run the tensor-core
+// template of attention_bwd_tc.cuh, which also takes BwdArgs from here.
 //
 // Replaces the TPU backward kernels of mia_tpu/ops/attention.py
-//   K3b  _rel_packed_bwd      (_rel_packed_bwd_kernel)
-//   K2b  _rel_packed_ik_bwd   (_rel_packed_ik_bwd_kernel)
 //   K6b  _rel_bwd             (_rel_bwd_kernel)
 //   K8b  _rel_win_bwd         (_attn_rel_win_bwd_kernel)
 // which hold every key of a query block at once and recompute the whole
@@ -19,9 +18,8 @@
 //   kernel A, one block per 32-query tile: delta = rowsum(g * o),
 //     ds = p (dp - delta) with dp = g . v, dq = scale * ds . k, and the rel
 //     gradients drel_h[n, j] = sum_{k / kw == j} ds[n, k] (drel_w likewise
-//     over k % kw). With kRelTables (K2) drel is routed back into dq through
-//     the two tables and stored only when the tables need a gradient. A also
-//     stores delta and (K2) the rel terms for kernel B.
+//     over k % kw). A also stores delta for kernel B. (The kRelTables branch,
+//     drel routed back into dq through two tables, has no instance now.)
 //   kernel B, one block per 32-key tile: loops over the query tiles for
 //     dk = scale * ds^T . q and dv = p^T . g.
 //
@@ -49,8 +47,9 @@
 // (N, N) tensor exists.
 //
 // Bound: operations. Each (query, key) pair costs ~7 x D FMAs over the two
-// passes, all on the FP32 pipe and the shared-memory load slots; a tensor-core
-// (wgmma) version is later work.
+// passes, all on the FP32 pipe and the shared-memory load slots; moving K6b
+// and K8b onto the tensor-core template of attention_bwd_tc.cuh is later
+// work.
 
 #pragma once
 

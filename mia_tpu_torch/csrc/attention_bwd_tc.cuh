@@ -1,0 +1,706 @@
+// The tensor-core backward attention template of the port: FlashAttention-2
+// style from the forward's per-row log-sum-exp, on the packed qkv layout,
+// every product in 3xTF32 on Hopper's tensor cores. attention_rel.cu
+// instantiates it for K3b (kTables false: the rel terms rel_h, rel_w are
+// inputs, head-major) and K2b (kTables true: kernel R of attention_rel.cu
+// computes them from the two tables into one (B*H, n, kh + kw) buffer).
+//
+// Replaces the TPU backward kernels of mia_tpu/ops/attention.py
+//   K3b  _rel_packed_bwd      (_rel_packed_bwd_kernel)
+//   K2b  _rel_packed_ik_bwd   (_rel_packed_ik_bwd_kernel)
+// which hold every key of a query block at once and recompute the whole
+// softmax row on the MXU. Here the forward's log-sum-exp gives the
+// probabilities directly, p = exp(s * scale + rel_h[n, k / kw] +
+// rel_w[n, k % kw] - lse), and the work splits in two passes that write
+// disjoint outputs, so there are no atomics and two launches are
+// bit-identical:
+//
+//   pass A, one block per 64-query tile (4 warps, 16 rows each), streams
+//     64-key tiles: S = Q.K^T, dP = G.V^T, ds = p (dp - delta), dq += ds.K,
+//     and drel_h[n, y] / drel_w[n, x], the sums of ds over the keys of row
+//     y / column x of the key grid. It also writes delta = rowsum(g * o)
+//     for pass B. (K2b: kernel Q of attention_rel.cu then routes drel back
+//     into dq through the tables.)
+//   pass B, one block per 64-key tile (4 warps, 16 keys each), streams
+//     64-query tiles: S^T = K.Q^T, dP^T = V.G^T, then dv += P^T.G and
+//     dk += dS^T.Q.
+// Both passes recompute S and dP: 7 products of N^2 D per (batch, head)
+// where the VJP needs 5. That is the price of determinism: a one-pass
+// scheme needs atomics on dq, or a dq partial per key tile (600 MB at K3b's
+// ViT-B/512 training shape).
+//
+// Tensor cores, 3xTF32. Every product runs on mma.sync.m16n8k8 in TF32 with
+// a float32 accumulator. A float32 operand x is split when its fragment is
+// loaded, big = x rounded to TF32 (cvt.rna's rounding in two integer
+// operations), small = x - big (exact; the tensor core reads its top 19
+// bits), and each product is three MMAs, small.big + big.small + big.big,
+// the small.small term dropped: the result keeps
+// float32 accuracy (~2^-21 relative per product), where one TF32 pass keeps
+// ~2^-11 (tests/test_torch_attention_3xtf32.py emulates both). P and dS are
+// formed in float32 from the accumulators and split for the products that
+// consume them. mma.sync rather than wgmma: TF32 wgmma wants both operands
+// K-major in shared memory, so P^T.G and dS^T.Q would need P and dS written
+// out and transposed, and Q, G fragments could not stay in registers. With
+// mma.sync the accumulator of S (or S^T) is reused as the A operand of the
+// next product in registers: the m16n8 accumulator holds columns 2t, 2t+1
+// where the m16n8k8 A operand wants columns t, t+4, so the reduction index
+// is relabelled (k = t <-> key 2t, k = t + 4 <-> key 2t+1) in A and B alike.
+// 32-bit operands have no ldmatrix; fragments are read from shared tiles
+// whose rows are padded to D + 4 floats, so the 32 lanes of a fragment load
+// (8 rows x 4 columns, or 4 row pairs x 8 columns) fall in 32 banks.
+//
+// Asynchronous copies: the next K/V tile (pass A) or Q/G tile with its rel
+// rows, lse and delta (pass B) is copied with cp.async into the other of
+// two stages while the current one is computed. Rows past n are zero-filled
+// by the copy; pad queries get no gradient and keys past n score nothing.
+// The query (pass A) or key (pass B) fragments of the block's own rows stay
+// in registers as float32 for the whole pass. Each streamed tile is
+// computed in two sub-tiles of 32 rows to keep the score accumulators at 16
+// registers; a warp whose 16 rows are all past n skips its products, and
+// 8-row groups of streamed keys or queries past n are skipped, so a
+// 196-token window computes 208 query rows and 200 keys (6% and 2% pad).
+//
+// Bound: operations. 7 x 2 x D flops per (query, key) pair at 495/3 TFLOP/s
+// (the card's dense TF32 rate, three MMAs per product); the copies are
+// ~2.3 KB per (query tile, key tile) pair against ~2 MFLOP of MMAs.
+//
+// The kernels allocate nothing and do not synchronise; the launcher returns
+// cudaGetLastError() so the wrapper can raise on a refused launch.
+
+#pragma once
+
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_bwd.cuh"
+
+namespace {
+
+constexpr int kTcTile = 64;     // block rows (pass A queries, pass B keys) and streamed tile rows
+constexpr int kTcSub = 32;      // streamed rows per register sub-tile
+constexpr int kTcThreads = 128; // 4 warps of 16 block rows
+
+// cvt.rna.tf32.f32 for finite x: round the low 13 mantissa bits to nearest,
+// ties away from zero
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The same, recomputed wherever it stands: a fragment that stays in
+// registers across the tile loop is split at every use, so it holds 4
+// float32 registers and not 8 split ones (the volatile asm is not hoisted).
+__device__ __forceinline__ uint32_t tf32_round_here(float x) {
+  uint32_t r;
+  asm volatile("{\n\t.reg .b32 t;\n\tadd.u32 t, %1, 4096;\n\tand.b32 %0, t, 0xFFFFE000;\n\t}"
+               : "=r"(r)
+               : "r"(__float_as_uint(x)));
+  return r;
+}
+
+// x = big + small: big is x rounded to TF32, small the exact remainder,
+// whose low 13 bits the tensor core drops (it reads the top 19 bits of a
+// TF32 operand), so small is truncated to TF32 as in CUTLASS's 3xTF32
+// (OpMultiplyAddFastF32); the product error stays near 2^-21 relative.
+template <bool kHere = false>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = kHere ? tf32_round_here(x) : tf32_round(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment (m16 x k8, row-major) of four float32 values, split
+// (kHere: at this point, for a fragment held in registers across the loop).
+struct FragA {
+  uint32_t big[4], small[4];
+  template <bool kHere = false>
+  __device__ __forceinline__ void set(float x0, float x1, float x2, float x3) {
+    split_tf32<kHere>(x0, big[0], small[0]);
+    split_tf32<kHere>(x1, big[1], small[1]);
+    split_tf32<kHere>(x2, big[2], small[2]);
+    split_tf32<kHere>(x3, big[3], small[3]);
+  }
+};
+
+// c += A.B in 3xTF32, B (k8 x n8, column-major) given by its two float32 values
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(c, a.small, bb0, bb1);
+  mma_tf32(c, a.big, bs0, bs1);
+  mma_tf32(c, a.big, bb0, bb1);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// Rows row0 .. row0+63 of one operand into a tile with rows of D + 4
+// floats; rows past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* __restrict__ base,
+                                                long long stride, int row0, int n) {
+  constexpr int kC = D / 4;
+  for (int i = threadIdx.x; i < kTcTile * kC; i += kTcThreads) {
+    const int r = i / kC;
+    const int c = i - r * kC;
+    const bool valid = row0 + r < n;
+    cp_async16(dst + r * (D + 4) + 4 * c, valid ? base + (row0 + r) * stride + 4 * c : base, valid);
+  }
+}
+
+// Where a tile's rel rows lie in shared memory: rel_h[q, y] at
+// R[q * hs + y], rel_w[q, x] at R[woff + q * ws + x]. K3b keeps the two
+// input blocks apart ({kh, 64 kh, kw}); K2b keeps kernel R's (n, kh + kw)
+// rows ({ka, kh, ka}).
+struct RelView {
+  int hs, woff, ws;
+  __device__ __forceinline__ float bias(const float* R, int q, int y, int x) const {
+    return R[q * hs + y] + R[woff + q * ws + x];
+  }
+};
+
+template <bool kTables>
+__device__ __forceinline__ RelView rel_view(int kh, int kw) {
+  if constexpr (kTables) return RelView{kh + kw, kh, kh + kw};
+  return RelView{kh, kTcTile * kh, kw};
+}
+
+// The rel rows of query rows q0 .. q0+rows-1 of (image, head) bh into R
+// (laid out as rel_view), as 4-byte asynchronous copies of contiguous runs.
+template <bool kTables>
+__device__ __forceinline__ void copy_rel_async(float* R, const float* __restrict__ rel_h,
+                                               const float* __restrict__ rel_w, long long bh,
+                                               int n, int kh, int kw, int q0, int rows) {
+  if constexpr (kTables) {  // one (bh, n, kh + kw) buffer
+    const int ka = kh + kw;
+    const float* src = rel_h + (bh * n + q0) * ka;
+    for (int i = threadIdx.x; i < rows * ka; i += kTcThreads) cp_async4(R + i, src + i);
+  } else {
+    const float* src_h = rel_h + (bh * n + q0) * kh;
+    const float* src_w = rel_w + (bh * n + q0) * kw;
+    for (int i = threadIdx.x; i < rows * kh; i += kTcThreads) cp_async4(R + i, src_h + i);
+    for (int i = threadIdx.x; i < rows * kw; i += kTcThreads)
+      cp_async4(R + kTcTile * kh + i, src_w + i);
+  }
+}
+
+// Pass A: dq, delta and the rel gradients of one 64-query tile.
+template <int D, bool kTables>
+__global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(const BwdArgs a) {
+  constexpr int kRow = D + 4;
+  constexpr int kK = D / 8;  // k-steps (and n8 tiles) over the head dim
+  constexpr int kSubRow = kTcSub + 1;
+  extern __shared__ float4 smem4[];
+  float* KV = reinterpret_cast<float*>(smem4);  // [stage][K | V][64][kRow]
+  const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw, ka = kh + kw;
+  float* Rel = KV + 4 * kTcTile * kRow;        // the tile's rel rows, rel_view
+  float* DRel = Rel + kTcTile * ka;            // [64][ka + 1]: drel_h | drel_w
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int g = lane >> 2;   // fragment row group
+  const int tq = lane & 3;   // thread in group
+  float* Sw = DRel + kTcTile * (ka + 1) + warp * 16 * kSubRow;  // this warp's ds sub-tile
+  const int head = blockIdx.y;
+  const long long img = blockIdx.z;
+  const long long tok0 = img * n;
+  const long long bh = img * heads + head;
+  const int row0 = blockIdx.x * kTcTile;
+  const int rows = min(kTcTile, n - row0);
+  const long long stride = a.in_stride;
+  const long long ostride = a.out_stride;
+  const float* q_base = a.q + tok0 * stride + head * D;
+  const float* k_base = a.k + tok0 * stride + head * D;
+  const float* v_base = a.v + tok0 * stride + head * D;
+  const float* g_base = a.g + tok0 * ostride + head * D;
+  const float* o_base = a.out + tok0 * ostride + head * D;
+  const RelView rv = rel_view<kTables>(kh, kw);
+  const int ntiles = (n + kTcTile - 1) / kTcTile;
+
+  auto issue = [&](int tile) {
+    float* st = KV + (tile & 1) * 2 * kTcTile * kRow;
+    copy_rows_async<D>(st, k_base, stride, tile * kTcTile, n);
+    copy_rows_async<D>(st + kTcTile * kRow, v_base, stride, tile * kTcTile, n);
+    cp_async_commit();
+  };
+  copy_rel_async<kTables>(Rel, kTables ? a.rel_out : a.rel_a, kTables ? a.rel_out : a.rel_b, bh,
+                          n, kh, kw, row0, rows);  // lands with tile 0
+  issue(0);
+
+  for (int i = t; i < kTcTile * (ka + 1); i += kTcThreads) DRel[i] = 0.f;
+
+  // this warp's rows lr0 = 16 warp + g and lr0 + 8: q and g fragments in
+  // registers, lse, delta = rowsum(g * o) (quad shuffles over the columns)
+  const int lr0 = warp * 16 + g;
+  const int r0 = row0 + lr0;
+  const int r1 = r0 + 8;
+  const bool active = row0 + warp * 16 < n;
+  float qa[kK][4], ga[kK][4];
+  float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e & 1) ? r1 : r0;
+      const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
+      const bool ok = r < n;
+      qa[kk][e] = ok ? __ldg(q_base + r * stride + c) : 0.f;
+      ga[kk][e] = ok ? __ldg(g_base + r * ostride + c) : 0.f;
+      const float o = ok ? __ldg(o_base + r * ostride + c) : 0.f;
+      if (e & 1) {
+        dl1 = fmaf(ga[kk][e], o, dl1);
+      } else {
+        dl0 = fmaf(ga[kk][e], o, dl0);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    dl0 += __shfl_xor_sync(0xffffffffu, dl0, off);
+    dl1 += __shfl_xor_sync(0xffffffffu, dl1, off);
+  }
+  if (tq == 0) {
+    if (r0 < n) a.delta[bh * n + r0] = dl0;
+    if (r1 < n) a.delta[bh * n + r1] = dl1;
+  }
+  const float lse0 = r0 < n ? __ldg(a.lse + bh * n + r0) : 0.f;
+  const float lse1 = r1 < n ? __ldg(a.lse + bh * n + r1) : 0.f;
+
+  float dq[kK][4];
+#pragma unroll
+  for (int i = 0; i < kK; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      issue(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile landed for every thread (the first with the rel rows)
+    const float* Ks = KV + (tile & 1) * 2 * kTcTile * kRow;
+    const float* Vs = Ks + kTcTile * kRow;
+    const int k0 = tile * kTcTile;
+    const int nk = min(kTcTile, n - k0);
+    if (active) {
+      // one sub-tile; kFull: all 32 rows present, no per-group branches
+      auto sub_tile = [&](const int sub, const int nks, auto full) {
+        constexpr bool kFull = decltype(full)::value;
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        // S = Q.K^T, dP = G.V^T over this sub-tile's 8-key groups
+#pragma unroll
+        for (int kk = 0; kk < kK; ++kk) {
+          FragA fq, fg;
+          fq.set<true>(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+          fg.set<true>(ga[kk][0], ga[kk][1], ga[kk][2], ga[kk][3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (kFull || 8 * j < nks) {
+              const int kr = (sub + 8 * j + g) * kRow + 8 * kk + tq;
+              mma3(s[j], fq, Ks[kr], Ks[kr + 4]);
+              mma3(dp[j], fg, Vs[kr], Vs[kr + 4]);
+            }
+          }
+        }
+        // ds = p (dp - delta), p from the lse; keys past n and pad rows give 0
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kb = k0 + sub + 8 * j + 2 * tq;
+          const int yb = kb / kw;
+          const int xb = kb - yb * kw;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kb + (e & 1);
+            int y = yb, x = xb + (e & 1);
+            if (x == kw) {
+              x = 0;
+              ++y;
+            }
+            const bool hi = e & 2;
+            const bool ok = key < n && (hi ? r1 : r0) < n;
+            const int lr = hi ? lr0 + 8 : lr0;
+            const float p = ok ? __expf(s[j][e] * a.scale + rv.bias(Rel, lr, y, x) -
+                                        (hi ? lse1 : lse0))
+                               : 0.f;
+            s[j][e] = p * (dp[j][e] - (hi ? dl1 : dl0));
+          }
+        }
+        // drel of the warp's 16 rows. A full sub-tile inside one key-grid row
+        // y (K3b: kw a multiple of 32) adds its row sums (quad shuffles) to
+        // drel_h[., y] and each ds to its own column of drel_w; otherwise the
+        // ds tile goes through shared memory (Sw) and lanes 0-15 add the runs
+        // of one key-grid row (drel_h), lanes 16-31 the columns (drel_w).
+        const int y_sub = (k0 + sub) / kw;
+        const int x_sub = k0 + sub - y_sub * kw;
+        if (kFull && x_sub + kTcSub <= kw) {
+          float h0 = 0.f, h1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            h0 += s[j][0] + s[j][1];
+            h1 += s[j][2] + s[j][3];
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            h0 += __shfl_xor_sync(0xffffffffu, h0, off);
+            h1 += __shfl_xor_sync(0xffffffffu, h1, off);
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            if ((half ? r1 : r0) >= n) continue;
+            float* dr = DRel + (lr0 + 8 * half) * (ka + 1);
+            if (tq == 0) dr[y_sub] += half ? h1 : h0;
+            dr += kh + x_sub + 2 * tq;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              dr[8 * j] += s[j][2 * half];
+              dr[8 * j + 1] += s[j][2 * half + 1];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              Sw[(g + ((e & 2) ? 8 : 0)) * kSubRow + 8 * j + 2 * tq + (e & 1)] = s[j][e];
+          __syncwarp();
+          const int lr = lane & 15;
+          if (row0 + warp * 16 + lr < n) {
+            const float* srow = Sw + lr * kSubRow;
+            float* dr = DRel + (warp * 16 + lr) * (ka + 1);
+            int y = y_sub;
+            int x = x_sub;
+            if (lane < 16) {
+              float acc = 0.f;
+              for (int c = 0; c < nks; ++c) {
+                acc += srow[c];
+                if (++x == kw) {
+                  dr[y] += acc;
+                  acc = 0.f;
+                  x = 0;
+                  ++y;
+                }
+              }
+              if (x != 0) dr[y] += acc;
+            } else if (kw >= 8) {  // 8 consecutive keys fall in 8 distinct columns
+              dr += kh;
+              int c = 0;
+              for (; c + 8 <= nks; c += 8) {
+                int xs[8];
+                float v[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                  xs[i] = x;
+                  v[i] = dr[x] + srow[c + i];
+                  if (++x == kw) x = 0;
+                }
+#pragma unroll
+                for (int i = 0; i < 8; ++i) dr[xs[i]] = v[i];
+              }
+              for (; c < nks; ++c) {
+                dr[x] += srow[c];
+                if (++x == kw) x = 0;
+              }
+            } else {
+              dr += kh;
+              for (int c = 0; c < nks; ++c) {
+                dr[x] += srow[c];
+                if (++x == kw) x = 0;
+              }
+            }
+          }
+        }
+        __syncwarp();
+        // dq += ds . K: the accumulator of key group j is the A operand, its
+        // reduction index relabelled (k = tq <-> key 2tq, k = tq+4 <-> key 2tq+1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (kFull || 8 * j < nks) {
+            FragA fs;
+            fs.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+            const float* kr = Ks + (sub + 8 * j + 2 * tq) * kRow + g;
+#pragma unroll
+            for (int nd = 0; nd < kK; ++nd) mma3(dq[nd], fs, kr[8 * nd], kr[kRow + 8 * nd]);
+          }
+        }
+      };
+#pragma unroll 1
+      for (int sub = 0; sub < nk; sub += kTcSub) {
+        const int nks = min(kTcSub, nk - sub);
+        if (nks == kTcSub) {
+          sub_tile(sub, nks, std::true_type{});
+        } else {
+          sub_tile(sub, nks, std::false_type{});
+        }
+      }
+    }
+    __syncthreads();  // stage consumed before the next tile but one is copied into it
+  }
+
+  // dq = scale * ds.K (K2b: kernel Q then adds drel routed through the tables)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    if (r >= n) continue;
+    float* dst = a.dq + (tok0 + r) * stride + head * D + 2 * tq;
+#pragma unroll
+    for (int nd = 0; nd < kK; ++nd)
+      *reinterpret_cast<float2*>(dst + 8 * nd) =
+          make_float2(dq[nd][2 * half] * a.scale, dq[nd][2 * half + 1] * a.scale);
+  }
+  __syncthreads();  // DRel complete for the block-wide stores
+  if constexpr (kTables) {
+    for (int i = t; i < rows * ka; i += kTcThreads)
+      a.drel_a[(bh * n + row0) * ka + i] = DRel[(i / ka) * (ka + 1) + i % ka];
+  } else {
+    for (int i = t; i < rows * kh; i += kTcThreads)
+      a.drel_a[(bh * n + row0) * kh + i] = DRel[(i / kh) * (ka + 1) + i % kh];
+    for (int i = t; i < rows * kw; i += kTcThreads)
+      a.drel_b[(bh * n + row0) * kw + i] = DRel[(i / kw) * (ka + 1) + kh + i % kw];
+  }
+}
+
+// Pass B: dk and dv of one 64-key tile, streaming the query tiles. The rel
+// rows come from rel_h / rel_w (K3b: the inputs; K2b: kernel R's rel_out as
+// one (BH, n, kh+kw) buffer).
+template <int D, bool kTables>
+__global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
+    const BwdArgs a, const float* __restrict__ rel_h, const float* __restrict__ rel_w) {
+  constexpr int kRow = D + 4;
+  constexpr int kK = D / 8;
+  extern __shared__ float4 smem4[];
+  float* QG = reinterpret_cast<float*>(smem4);  // [stage][Q | G][64][kRow]
+  const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw, ka = kh + kw;
+  float* RelS = QG + 4 * kTcTile * kRow;      // [stage][64 * ka], rel_view
+  float* LD = RelS + 2 * kTcTile * ka;        // [stage][lse | delta][64]
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int head = blockIdx.y;
+  const long long img = blockIdx.z;
+  const long long tok0 = img * n;
+  const long long bh = img * heads + head;
+  const int key0 = blockIdx.x * kTcTile;
+  const long long stride = a.in_stride;
+  const long long ostride = a.out_stride;
+  const float* q_base = a.q + tok0 * stride + head * D;
+  const float* k_base = a.k + tok0 * stride + head * D;
+  const float* v_base = a.v + tok0 * stride + head * D;
+  const float* g_base = a.g + tok0 * ostride + head * D;
+  const RelView rv = rel_view<kTables>(kh, kw);
+  const int ntiles = (n + kTcTile - 1) / kTcTile;
+
+  auto issue = [&](int tile) {
+    const int st = tile & 1;
+    const int q0 = tile * kTcTile;
+    const int rows = min(kTcTile, n - q0);
+    float* dst = QG + st * 2 * kTcTile * kRow;
+    copy_rows_async<D>(dst, q_base, stride, q0, n);
+    copy_rows_async<D>(dst + kTcTile * kRow, g_base, ostride, q0, n);
+    copy_rel_async<kTables>(RelS + st * kTcTile * ka, rel_h, rel_w, bh, n, kh, kw, q0, rows);
+    float* ld = LD + st * 2 * kTcTile;
+    for (int i = t; i < rows; i += kTcThreads) {
+      cp_async4(ld + i, a.lse + bh * n + q0 + i);
+      cp_async4(ld + kTcTile + i, a.delta + bh * n + q0 + i);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // this warp's keys kr0 = key0 + 16 warp + g and kr0 + 8: k and v fragments
+  // in registers, their key-grid row and column
+  const int kr0 = key0 + warp * 16 + g;
+  const int kr1 = kr0 + 8;
+  const bool active = key0 + warp * 16 < n;
+  float ka_[kK][4], va_[kK][4];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e & 1) ? kr1 : kr0;
+      const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
+      ka_[kk][e] = r < n ? __ldg(k_base + r * stride + c) : 0.f;
+      va_[kk][e] = r < n ? __ldg(v_base + r * stride + c) : 0.f;
+    }
+  }
+  const int y0 = kr0 / kw, x0 = kr0 - (kr0 / kw) * kw;
+  const int y1 = kr1 / kw, x1 = kr1 - (kr1 / kw) * kw;
+
+  float dk[kK][4], dv[kK][4];
+#pragma unroll
+  for (int i = 0; i < kK; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      issue(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = tile & 1;
+    const float* Qs = QG + st * 2 * kTcTile * kRow;
+    const float* Gs = Qs + kTcTile * kRow;
+    const float* R = RelS + st * kTcTile * ka;
+    const float* lse_s = LD + st * 2 * kTcTile;
+    const float* delta_s = lse_s + kTcTile;
+    const int q0 = tile * kTcTile;
+    const int nq = min(kTcTile, n - q0);
+    if (active) {
+      // one sub-tile; kFull: all 32 rows present, no per-group branches
+      auto sub_tile = [&](const int sub, const int nqs, auto full) {
+        constexpr bool kFull = decltype(full)::value;
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        // S^T = K.Q^T, dP^T = V.G^T over this sub-tile's 8-query groups
+#pragma unroll
+        for (int kk = 0; kk < kK; ++kk) {
+          FragA fk, fv;
+          fk.set<true>(ka_[kk][0], ka_[kk][1], ka_[kk][2], ka_[kk][3]);
+          fv.set<true>(va_[kk][0], va_[kk][1], va_[kk][2], va_[kk][3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (kFull || 8 * j < nqs) {
+              const int qr = (sub + 8 * j + g) * kRow + 8 * kk + tq;
+              mma3(s[j], fk, Qs[qr], Qs[qr + 4]);
+              mma3(dp[j], fv, Gs[qr], Gs[qr + 4]);
+            }
+          }
+        }
+        // p into s, ds into dp; pad queries and keys past n give 0
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e & 2;
+            const int q = sub + 8 * j + 2 * tq + (e & 1);
+            const bool ok = (hi ? kr1 : kr0) < n && q0 + q < n;
+            const float p = ok ? __expf(s[j][e] * a.scale +
+                                        rv.bias(R, q, hi ? y1 : y0, hi ? x1 : x0) - lse_s[q])
+                               : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - (ok ? delta_s[q] : 0.f));
+          }
+        }
+        // dv += P^T.G, dk += dS^T.Q with the relabelled reduction index
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (kFull || 8 * j < nqs) {
+            FragA fp, fs;
+            fp.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+            fs.set(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+            const int qr = (sub + 8 * j + 2 * tq) * kRow + g;
+#pragma unroll
+            for (int nd = 0; nd < kK; ++nd) {
+              mma3(dv[nd], fp, Gs[qr + 8 * nd], Gs[qr + kRow + 8 * nd]);
+              mma3(dk[nd], fs, Qs[qr + 8 * nd], Qs[qr + kRow + 8 * nd]);
+            }
+          }
+        }
+      };
+#pragma unroll 1
+      for (int sub = 0; sub < nq; sub += kTcSub) {
+        const int nqs = min(kTcSub, nq - sub);
+        if (nqs == kTcSub) {
+          sub_tile(sub, nqs, std::true_type{});
+        } else {
+          sub_tile(sub, nqs, std::false_type{});
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? kr1 : kr0;
+    if (r >= n) continue;
+    float* dkr = a.dk + (tok0 + r) * stride + head * D + 2 * tq;
+    float* dvr = a.dv + (tok0 + r) * stride + head * D + 2 * tq;
+#pragma unroll
+    for (int nd = 0; nd < kK; ++nd) {
+      *reinterpret_cast<float2*>(dkr + 8 * nd) =
+          make_float2(dk[nd][2 * half] * a.scale, dk[nd][2 * half + 1] * a.scale);
+      *reinterpret_cast<float2*>(dvr + 8 * nd) =
+          make_float2(dv[nd][2 * half], dv[nd][2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+size_t tc_dq_smem_bytes(int ka) {
+  return sizeof(float) *
+         (4 * kTcTile * (D + 4) + kTcTile * ka + kTcTile * (ka + 1) + 4 * 16 * (kTcSub + 1));
+}
+
+template <int D>
+size_t tc_dkv_smem_bytes(int ka) {
+  return sizeof(float) * (4 * kTcTile * (D + 4) + 2 * kTcTile * ka + 4 * kTcTile);
+}
+
+// Passes A and B over `batch` images; returns the first launch error.
+template <int D, bool kTables>
+int launch_tc_bwd(const BwdArgs& a, int batch, cudaStream_t s) {
+  const int ka = a.kh + a.kw;
+  const size_t smem_a = tc_dq_smem_bytes<D>(ka);
+  const size_t smem_b = tc_dkv_smem_bytes<D>(ka);
+  const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
+  auto ka_kernel = attention_bwd_tc_dq_kernel<D, kTables>;
+  auto kb_kernel = attention_bwd_tc_dkv_kernel<D, kTables>;
+  cudaError_t err = allow_smem(ka_kernel, smem_a);
+  if (err == cudaSuccess) err = allow_smem(kb_kernel, smem_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ka_kernel<<<grid, kTcThreads, smem_a, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* rel_h = kTables ? a.rel_out : a.rel_a;
+  const float* rel_w = kTables ? a.rel_out : a.rel_b;
+  kb_kernel<<<grid, kTcThreads, smem_b, s>>>(a, rel_h, rel_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
+template <bool kTables>
+int dispatch_tc_bwd(const BwdArgs& a, int batch, int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_tc_bwd<64, kTables>(a, batch, s);
+    case 80: return launch_tc_bwd<80, kTables>(a, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace

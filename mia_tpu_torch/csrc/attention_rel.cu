@@ -41,7 +41,7 @@
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include "attention_bwd.cuh"
+#include "attention_bwd_tc.cuh"
 
 namespace {
 
@@ -70,9 +70,21 @@ int dispatch(const void* qkv, const void* rel_a, const void* rel_b, void* out, v
 }
 
 // ---------------------------------------------------------------------------
-// Backward: two instances of the template in attention_bwd.cuh (its design
-// is described there), kRelTables for K2b and kRelTerms for K3b, both on the
-// packed layout: q, k, v and dq, dk, dv are column blocks of qkv and dqkv.
+// Backward: two instances of the tensor-core template in attention_bwd_tc.cuh
+// (3xTF32 on mma.sync; its design is described there), kTables true for K2b
+// and false for K3b, both on the packed layout: q, k, v and dq, dk, dv are
+// column blocks of qkv and dqkv.
+// K2b's rel terms are gathers from two tables that every (window, head)
+// pair shares, so they run outside the template, one block per token
+// position n and 128 pairs, with the position's kh + kw table rows
+// T_n = [rh_flat[y*kh + j] | rw_flat[x*kw + j]] (y = n / kw, x = n % kw)
+// copied to shared memory once (CUDA cores, ~3% of K2b's work):
+//   kernel R, before the template: rel[bh, n, :] = q_{bh,n} . T_n^T, the rel
+//     terms that passes A and B read;
+//   kernel Q, after it: dq_{bh,n} += drel[bh, n, :] . T_n, the rel
+//     gradient (pass A's drel) routed back into dq.
+// Inside the template's (window, head) blocks the same gathers would read a
+// table row from L2 for every query, ~460 KB a 64-query tile.
 // K2b adds kernel C below when the tables need a gradient:
 //   dthw[(y, j)] = sum over windows, heads and tokens of row y of
 //   drel_h[n, j] * q_n (and the w table likewise), one block per table row,
@@ -80,6 +92,139 @@ int dispatch(const void* qkv, const void* rel_a, const void* rel_b, void* out, v
 // Window pad tokens are real keys (their k and v are the qkv bias): their dk
 // and dv are computed like any other key's.
 // ---------------------------------------------------------------------------
+
+constexpr int kRelThreads = 128;  // (window, head) pairs per block of kernels R and Q
+
+// T_n of token position pos: kh + kw rows of D floats.
+template <int D>
+__device__ __forceinline__ void copy_table_rows(float* T, const float* __restrict__ rh,
+                                                const float* __restrict__ rw, int pos, int kh,
+                                                int kw) {
+  const int y = pos / kw;
+  const int x = pos - y * kw;
+  for (int i = threadIdx.x; i < (kh + kw) * (D / 4); i += kRelThreads) {
+    const int j = i / (D / 4);
+    const int c = i - j * (D / 4);
+    const float* src = j < kh ? rh + static_cast<long long>(y * kh + j) * D
+                              : rw + static_cast<long long>(x * kw + j - kh) * D;
+    reinterpret_cast<float4*>(T)[i] = __ldg(reinterpret_cast<const float4*>(src) + c);
+  }
+}
+
+// Kernel R: one thread a (window, head) pair; the rows go out through
+// shared memory so that a warp writes runs of kh + kw floats.
+template <int D>
+__global__ void __launch_bounds__(kRelThreads) attention_rel_terms_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ rh, const float* __restrict__ rw,
+    float* __restrict__ rel, long long pairs, int n, int heads, int kh, int kw) {
+  extern __shared__ float4 smem4[];
+  const int ka = kh + kw;
+  float* T = reinterpret_cast<float*>(smem4);  // [ka][D]
+  float* S = T + ka * D;                       // [kRelThreads][ka + 1]
+  const int pos = blockIdx.x;
+  copy_table_rows<D>(T, rh, rw, pos, kh, kw);
+  __syncthreads();
+  const long long bh0 = static_cast<long long>(blockIdx.y) * kRelThreads;
+  const int rows = static_cast<int>(min(static_cast<long long>(kRelThreads), pairs - bh0));
+  if (static_cast<int>(threadIdx.x) < rows) {
+    const long long bh = bh0 + threadIdx.x;
+    const long long img = bh / heads;
+    const long long head = bh - img * heads;
+    const float4* q4 = reinterpret_cast<const float4*>(qkv + (img * n + pos) * (3LL * heads * D) +
+                                                       head * D);
+    float4 q[D / 4];
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) q[c] = __ldg(q4 + c);
+    for (int j = 0; j < ka; ++j) {
+      const float4* t4 = reinterpret_cast<const float4*>(T + j * D);
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) acc += dot4(q[c], t4[c]);
+      S[threadIdx.x * (ka + 1) + j] = acc;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * ka; i += kRelThreads) {
+    const int r = i / ka;
+    rel[((bh0 + r) * n + pos) * ka + (i - r * ka)] = S[r * (ka + 1) + (i - r * ka)];
+  }
+}
+
+// Kernel Q: one thread a (window, head) pair adds its drel row, read in
+// runs through shared memory, times T_n to its dq row.
+template <int D>
+__global__ void __launch_bounds__(kRelThreads) attention_rel_route_kernel(
+    float* __restrict__ dqkv, const float* __restrict__ drel, const float* __restrict__ rh,
+    const float* __restrict__ rw, long long pairs, int n, int heads, int kh, int kw) {
+  extern __shared__ float4 smem4[];
+  const int ka = kh + kw;
+  float* T = reinterpret_cast<float*>(smem4);  // [ka][D]
+  float* S = T + ka * D;                       // [kRelThreads][ka + 1]
+  const int pos = blockIdx.x;
+  copy_table_rows<D>(T, rh, rw, pos, kh, kw);
+  const long long bh0 = static_cast<long long>(blockIdx.y) * kRelThreads;
+  const int rows = static_cast<int>(min(static_cast<long long>(kRelThreads), pairs - bh0));
+  for (int i = threadIdx.x; i < rows * ka; i += kRelThreads) {
+    const int r = i / ka;
+    S[r * (ka + 1) + (i - r * ka)] = __ldg(drel + ((bh0 + r) * n + pos) * ka + (i - r * ka));
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= rows) return;
+  const long long bh = bh0 + threadIdx.x;
+  const long long img = bh / heads;
+  const long long head = bh - img * heads;
+  float4* dq4 = reinterpret_cast<float4*>(dqkv + (img * n + pos) * (3LL * heads * D) + head * D);
+  float4 acc[D / 4];
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) acc[c] = dq4[c];
+  const float* w = S + threadIdx.x * (ka + 1);
+  for (int j = 0; j < ka; ++j) {
+    const float wj = w[j];
+    const float4* t4 = reinterpret_cast<const float4*>(T + j * D);
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      const float4 tv = t4[c];
+      acc[c].x = fmaf(wj, tv.x, acc[c].x);
+      acc[c].y = fmaf(wj, tv.y, acc[c].y);
+      acc[c].z = fmaf(wj, tv.z, acc[c].z);
+      acc[c].w = fmaf(wj, tv.w, acc[c].w);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) dq4[c] = acc[c];
+}
+
+// Kernel R (route false) or Q (route true) over every (window, head) pair.
+template <int D>
+int launch_rel_gather(bool route, const BwdArgs& a, const float* qkv, float* dqkv, int batch,
+                      cudaStream_t s) {
+  const int ka = a.kh + a.kw;
+  const long long pairs = static_cast<long long>(batch) * a.heads;
+  const size_t smem = sizeof(float) * (ka * D + kRelThreads * (ka + 1));
+  const dim3 grid(a.n, static_cast<unsigned>((pairs + kRelThreads - 1) / kRelThreads));
+  cudaError_t err;
+  if (route) {
+    err = allow_smem(attention_rel_route_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_rel_route_kernel<D><<<grid, kRelThreads, smem, s>>>(
+        dqkv, a.drel_a, a.rel_a, a.rel_b, pairs, a.n, a.heads, a.kh, a.kw);
+  } else {
+    err = allow_smem(attention_rel_terms_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_rel_terms_kernel<D><<<grid, kRelThreads, smem, s>>>(
+        qkv, a.rel_a, a.rel_b, a.rel_out, pairs, a.n, a.heads, a.kh, a.kw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_rel_gather(bool route, const BwdArgs& a, const float* qkv, float* dqkv, int batch,
+                        int d, cudaStream_t s) {
+  switch (d) {
+    case 64: return launch_rel_gather<64>(route, a, qkv, dqkv, batch, s);
+    case 80: return launch_rel_gather<80>(route, a, qkv, dqkv, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // Kernel C (K2): the gradient of the two gathered tables, one block of D
 // threads per table row. Rows [0, q_h*kh) are rh_flat's (y, j): the sum over
@@ -114,13 +259,13 @@ __global__ void attention_rel_bwd_tables_kernel(const float* __restrict__ qkv,
   dthw[static_cast<long long>(row) * D + d] = acc;
 }
 
-template <bool kInKernelRel>
+template <bool kTables>
 int dispatch_bwd(const void* qkv, const void* rel_a, const void* rel_b, const void* out,
                  const void* g, const void* lse, void* dqkv, void* delta, void* rel_out,
                  void* drel_a, void* drel_b, void* dthw, int batch, int n, int heads, int d,
                  int kh, int kw, float scale, void* stream) {
   if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  if (kInKernelRel && dthw != nullptr && drel_a == nullptr)
+  if (kTables && (rel_out == nullptr || drel_a == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* base = static_cast<const float*>(qkv);
   float* dbase = static_cast<float*>(dqkv);
@@ -148,10 +293,12 @@ int dispatch_bwd(const void* qkv, const void* rel_a, const void* rel_b, const vo
   a.kh = kh;
   a.kw = kw;
   a.scale = scale;
-  const int err =
-      dispatch_bwd_passes<kInKernelRel ? kRelTables : kRelTerms, kPacked>(a, batch, d, stream);
-  if (err != 0 || !kInKernelRel || dthw == nullptr) return err;
+  if (!kTables) return dispatch_tc_bwd<false>(a, batch, d, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = dispatch_rel_gather(false, a, base, dbase, batch, d, s);
+  if (err == 0) err = dispatch_tc_bwd<true>(a, batch, d, stream);
+  if (err == 0) err = dispatch_rel_gather(true, a, base, dbase, batch, d, s);
+  if (err != 0 || dthw == nullptr) return err;
   const int table_rows = (n / kw) * kh + kw * kw;
   if (d == 64) {
     attention_rel_bwd_tables_kernel<64><<<table_rows, 64, 0, s>>>(
@@ -198,10 +345,9 @@ extern "C" int mia_attention_rel_packed_bwd_f32(const void* qkv, const void* rel
                              nullptr, batch, n, heads, d, kh, kw, scale, stream);
 }
 
-// K2 backward: writes dqkv; delta (batch*heads, n) and rel (batch*heads, n,
-// kh+kw) are scratch. When dthw ((n/kw)*kh + kw*kw, d) is not null, the
-// tables' gradient is written there, and drel (batch*heads, n, kh+kw) is
-// the scratch it is reduced from.
+// K2 backward: writes dqkv; delta (batch*heads, n), rel and drel
+// (batch*heads, n, kh+kw) are scratch. When dthw ((n/kw)*kh + kw*kw, d) is
+// not null, the tables' gradient is written there, reduced from drel.
 extern "C" int mia_attention_rel_packed_ik_bwd_f32(const void* qkv, const void* rh_flat,
                                                    const void* rw_flat, const void* out,
                                                    const void* g, const void* lse, void* dqkv,

@@ -313,7 +313,7 @@ def _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, t
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
     rel = torch.empty((b * num_heads, n, k_h + k_w), dtype=torch.float32, device=qkv.device)
-    drel = torch.empty_like(rel) if tables else None
+    drel = torch.empty_like(rel)
     dthw = (torch.empty((a_shape[0] + b_shape[0], a_shape[1]), dtype=torch.float32,
                         device=qkv.device) if tables else None)
     _call("K2 backward", "mia_attention_rel_packed_ik_bwd_f32", qkv,

@@ -123,8 +123,17 @@ def test_attention_kernels_reject_unsupported_head_dim(cuda):
 BWD_TOL = 1e-4
 
 
-@pytest.mark.parametrize("b,heads,d,ws,tables", [(108, 12, 64, 14, False), (6, 3, 64, 7, True),
-                                                 (4, 16, 80, 14, True), (3, 2, 64, 2, True)])
+def _bit_identical(first, second):
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(first, second))
+
+
+# K2b and K3b run the 3xTF32 tensor-core template in 64-row tiles: the
+# shapes cover ViT-B/512 training (B=12 and 6), ragged tiles (a 196-token
+# window is three 64-key tiles and 4 keys; 81 and 4 tokens), a ragged grid,
+# 4096 global tokens and the ViT-H head dim 80; two launches are bit-identical.
+@pytest.mark.parametrize("tables", [False, True])
+@pytest.mark.parametrize("b,heads,d,ws", [(108, 12, 64, 14), (54, 12, 64, 14), (6, 3, 64, 7),
+                                          (5, 4, 64, 9), (4, 16, 80, 14), (3, 2, 64, 2)])
 def test_k2_backward_matches_plain_vjp(cuda, b, heads, d, ws, tables):
     from mia_tpu_torch.ops import attention
 
@@ -146,10 +155,13 @@ def test_k2_backward_matches_plain_vjp(cuda, b, heads, d, ws, tables):
             assert x is None
         else:
             assert _rel_err(x, y) <= BWD_TOL
+    again = attention._launch_k2_bwd(qkv, rh, rw, out, g, lse, *args, tables)
+    assert _bit_identical(got, again)
 
 
-@pytest.mark.parametrize("b,heads,d,k_hw", [(12, 12, 64, (32, 32)), (2, 4, 64, (20, 27)),
-                                            (2, 2, 80, (5, 9))])
+@pytest.mark.parametrize("b,heads,d,k_hw", [(12, 12, 64, (32, 32)), (6, 12, 64, (32, 32)),
+                                            (2, 4, 64, (20, 27)), (1, 12, 64, (64, 64)),
+                                            (2, 16, 80, (32, 32)), (2, 2, 80, (5, 9))])
 def test_k3_backward_matches_plain_vjp(cuda, b, heads, d, k_hw):
     from mia_tpu_torch.ops import attention
 
@@ -168,6 +180,7 @@ def test_k3_backward_matches_plain_vjp(cuda, b, heads, d, k_hw):
     assert attention.fused_attention_rel_packed_bwd.launches == before + 1
     for x, y in zip(got, want):
         assert _rel_err(x, y) <= BWD_TOL
+    assert _bit_identical(got, attention._launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, *args))
 
 
 @pytest.mark.parametrize("shape,ws,params", [((12, 32, 32, 768), 14, False),
