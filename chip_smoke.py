@@ -12,7 +12,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    K3, K4 (windowed and global rel-pos attention, LayerNorm + window
    partition) against theirs at the ViT-B/512 serving shapes for batch 1 and
    8, a 20x27 token grid, 4096 global tokens and the ViT-H head dim 80 (16
-   heads), within 1e-5 of max |plain|. K6, K7, K8, K9 (head-major rel-pos
+   heads), within 1e-5 of max |plain|; K2 and K3 (3xTF32 on the tensor
+   cores) also with their log-sum-exp within 1e-5 of the plain one, two
+   launches bit-identical, the library call and the tensor-core bound
+   (``tc_bound_ms``, 495/3 TFLOP/s) at batch 1 and 8. K6, K7, K8, K9 (head-major rel-pos
    attention, dense-bias attention, grid-native windowed attention,
    unpartition + residual + LayerNorm) the same way at the serving shapes
    for batch 1 and 8, a 20x27 grid (K8, K9), a non-aligned token count (K6,
@@ -116,8 +119,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    CPU, and one run on the grid-native encoder (K8 under AMG).
 7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
-   paths that ran them, their bounds and library times; K2b and K3b also
-   their tensor-core bound), then the result line
+   paths that ran them, their bounds and library times; K2, K3, K2b and K3b
+   also their tensor-core bound, K2 and K3 their batch-8 numbers under
+   ``b8``), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -145,11 +149,11 @@ HERE = Path(__file__).resolve().parent
 KERNELS = {
     "K1": ("affine_warp_shift2pass (K1)", "mia_tpu_torch/csrc/affine_warp.cu",
            "mia_tpu/ops/warp.py:300"),
-    "K2": ("fused_attention_rel_packed_ik (K2)", "mia_tpu_torch/csrc/attention_rel.cu",
+    "K2": ("fused_attention_rel_packed_ik (K2)", "mia_tpu_torch/csrc/attention_fwd_tc.cuh",
            "mia_tpu/ops/attention.py:923"),
     "K2b": ("fused_attention_rel_packed_ik backward (K2)",
             "mia_tpu_torch/csrc/attention_bwd_tc.cuh", "mia_tpu/ops/attention.py:1076"),
-    "K3": ("fused_attention_rel_packed (K3)", "mia_tpu_torch/csrc/attention_rel.cu",
+    "K3": ("fused_attention_rel_packed (K3)", "mia_tpu_torch/csrc/attention_fwd_tc.cuh",
            "mia_tpu/ops/attention.py:605"),
     "K3b": ("fused_attention_rel_packed backward (K3)", "mia_tpu_torch/csrc/attention_bwd_tc.cuh",
             "mia_tpu/ops/attention.py:712"),
@@ -180,9 +184,11 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
-# K2b and K3b run 3xTF32 on the tensor cores: the card's dense TF32 rate, three MMAs a product
+# K2, K3, K2b and K3b run 3xTF32 on the tensor cores: the card's dense TF32 rate, three MMAs a
+# product
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
+LSE_TOL = 1e-5  # K2's and K3's log-sum-exp against the plain one, absolute (values ~10)
 BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order, p from the lse)
 
 
@@ -875,6 +881,15 @@ def fugc_phase(torch, device, workdir: Path):
 # ---------------------------------------------------------------------------
 
 
+def plain_lse(torch, qkv, rel_h, rel_w, scale, k_hw, heads):
+    """The per-row log-sum-exp (B·H, N) of the packed rel-pos attention."""
+    b, n, _ = qkv.shape
+    q, k, _ = qkv.view(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    bias = rel_h.reshape(b, heads, n, k_hw[0], 1) + rel_w.reshape(b, heads, n, 1, k_hw[1])
+    return torch.logsumexp((q * scale) @ k.transpose(-2, -1) + bias.reshape(b, heads, n, n),
+                           -1).reshape(b * heads, n)
+
+
 def sam_kernel_phase(torch, device):
     from mia_tpu_torch.ops import attention, ln_window
 
@@ -887,8 +902,28 @@ def sam_kernel_phase(torch, device):
     heads, d, ws, c = 12, 64, 14, 768
     scale = d ** -0.5
     worst = {k: [0.0, 0.0] for k in ("K2", "K3", "K4")}  # max abs err, max relative err
+    worst_lse = {"K2": 0.0, "K3": 0.0}
 
     hold = forward_holder(torch, worst)
+
+    def hold_attention(name, label, args):
+        """K2 or K3 against its plain version, its log-sum-exp against the
+        plain one, and a second launch bit-identical to the first."""
+        launch, plain = ((attention._launch_k2, attention.attention_rel_packed_ik) if name == "K2"
+                         else (attention._launch_k3, attention.attention_rel_packed))
+        out, lse = launch(*args, with_lse=True)
+        hold(name, label, out, plain(*args))
+        qkv, rel_a, rel_b, sc, k_hw, n_heads = args
+        rel_h, rel_w = (attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
+                        if name == "K2" else (rel_a, rel_b))
+        err = (lse - plain_lse(torch, qkv, rel_h, rel_w, sc, k_hw, n_heads)).abs().max().item()
+        check(err <= LSE_TOL, f"{name} {label}: log-sum-exp off by {err} > {LSE_TOL}")
+        worst_lse[name] = max(worst_lse[name], err)
+        again, lse_again = launch(*args, with_lse=True)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again) and torch.equal(lse, lse_again),
+              f"{name} {label}: two launches differ")
+
     ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
     rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
     inputs = {}
@@ -900,33 +935,35 @@ def sam_kernel_phase(torch, device):
         hold("K4", label, got, want)
         check(not got[want == 0].any(), f"K4 {label}: pad slots are not zero")
         qkv = randn(n_win, ws * ws, 3 * heads * d)
-        hold("K2", label, attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads),
-             attention.attention_rel_packed_ik(qkv, rh, rw, scale, (ws, ws), heads))
+        hold_attention("K2", label, (qkv, rh, rw, scale, (ws, ws), heads))
         inputs[("K4", label)] = (x, ln_scale, ln_bias, ws, 1e-6)
         inputs[("K2", label)] = (qkv, rh, rw, scale, (ws, ws), heads)
-    for label, b, side in (("B=1", 1, 32), ("B=8", 8, 32), ("4096 tokens", 1, 64)):
-        n = side * side
+    for label, b, k_hw in (("B=1", 1, (32, 32)), ("B=8", 8, (32, 32)),
+                           ("4096 tokens", 1, (64, 64)), ("grid 20x27", 2, (20, 27))):
+        n = k_hw[0] * k_hw[1]
         qkv = randn(b, n, 3 * heads * d)
-        rel_h, rel_w = randn(b * heads, n, side), randn(b * heads, n, side)
-        args = (qkv, rel_h, rel_w, scale, (side, side), heads)
-        hold("K3", label, attention._launch_k3(*args), attention.attention_rel_packed(*args))
+        rel_h, rel_w = randn(b * heads, n, k_hw[0]), randn(b * heads, n, k_hw[1])
+        args = (qkv, rel_h, rel_w, scale, k_hw, heads)
+        hold_attention("K3", label, args)
         inputs[("K3", label)] = args
     # the head-dim-80 instances of the template (ViT-H at 512²: 16 heads)
     h_heads, h_d = 16, 80
     qkv = randn(9, ws * ws, 3 * h_heads * h_d)
     rh80, rw80 = randn(ws * ws, h_d, scale=0.1), randn(ws * ws, h_d, scale=0.1)
-    args = (qkv, rh80, rw80, h_d ** -0.5, (ws, ws), h_heads)
-    hold("K2", "head dim 80", attention._launch_k2(*args), attention.attention_rel_packed_ik(*args))
+    hold_attention("K2", "head dim 80", (qkv, rh80, rw80, h_d ** -0.5, (ws, ws), h_heads))
     qkv = randn(1, 1024, 3 * h_heads * h_d)
-    args = (qkv, randn(h_heads, 1024, 32), randn(h_heads, 1024, 32), h_d ** -0.5, (32, 32), h_heads)
-    hold("K3", "head dim 80", attention._launch_k3(*args), attention.attention_rel_packed(*args))
+    hold_attention("K3", "head dim 80", (qkv, randn(h_heads, 1024, 32), randn(h_heads, 1024, 32),
+                                         h_d ** -0.5, (32, 32), h_heads))
     print("K2 and K3 at head dim 80 (16 heads; 9 windows of 196 tokens, 1024 global tokens) "
           f"within {KERNEL_TOL} of max |plain|")
+    print(f"K2 and K3 log-sum-exp within {worst_lse['K2']:.3g} / {worst_lse['K3']:.3g} of the "
+          f"plain one (limit {LSE_TOL}), two launches bit-identical on every case")
 
-    def bound_and_library(name):
-        """The bound of the B=1 launch and, for K2 and K3, the library call
-        on the same operands (the dense bias is built outside the timed call)."""
-        args = inputs[(name, "B=1")]
+    def bound_and_library(name, label):
+        """The bound of the launch and, for K2 and K3, the library call on the
+        same operands (the dense bias is built outside the timed call) and
+        the 3xTF32 tensor-core bound."""
+        args = inputs[(name, label)]
         if name == "K4":
             x = args[0]
             out = ln_window.ln_window_partition(*args)
@@ -942,8 +979,11 @@ def sam_kernel_phase(torch, device):
         else:
             rel_h, rel_w = rel_a, rel_b
         out = torch.empty(b, n, n_heads * d, device=device)
-        lib = sdpa_ms(torch, *head_major(qkv, n_heads), dense_bias(rel_h, rel_w, b, n_heads), sc, 50)
-        return {"library_ms": lib, **bound([qkv, rel_a, rel_b, out], flops)}
+        per_block = 50 if label == "B=1" else 10
+        lib = sdpa_ms(torch, *head_major(qkv, n_heads), dense_bias(rel_h, rel_w, b, n_heads), sc,
+                      per_block)
+        moved = [qkv, rel_a, rel_b, out]
+        return {"library_ms": lib, **bound(moved, flops), "tc_bound_ms": tc_bound_ms(moved, flops)}
 
     fns = {"K2": (attention._launch_k2, attention.attention_rel_packed_ik),
            "K3": (attention._launch_k3, attention.attention_rel_packed),
@@ -958,10 +998,15 @@ def sam_kernel_phase(torch, device):
             print(f"{name} at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, "
                   f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
                   f"(median of 11 x {per_block} launches)")
+            m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                 **bound_and_library(name, label)}
+            tc = (f", 3xTF32 tensor-core bound {m['tc_bound_ms'] * 1e3:.2f} us"
+                  if "tc_bound_ms" in m else "")
+            print(f"{name} at ViT-B/512 {label}: {describe_yardsticks(m)}{tc}")
             if label == "B=1":
-                out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
-                             "plain_ms": min(plain_a, plain_b), **bound_and_library(name)}
-                print(f"{name} at ViT-B/512 B=1: {describe_yardsticks(out[name])}")
+                out[name] = {"max_abs_err": worst[name][0], **m}
+            elif name != "K4":  # the forward attention kernels also report batch 8
+                out[name]["b8"] = m
         print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})")
     return out

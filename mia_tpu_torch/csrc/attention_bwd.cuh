@@ -532,13 +532,6 @@ size_t bwd_smem_bytes(int kh, int kw) {
   return sizeof(float) * (4 * kBT * (D + 4) + 2 * kBT * kTS + 2 * kBT * rs + 3 * kBT);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 // Kernels A and B over blocks_z batch elements (or, kGrid, windows of all
 // images); returns the first launch error.
 template <int D, int kBias, int kLayout>

@@ -1,10 +1,11 @@
-// The forward attention template of the port, in float32: one flash-style
+// The float32 SIMT forward attention template of the port: one flash-style
 // kernel body (online softmax over 32-key tiles in shared memory) whose
 // instances differ in where q, k, v come from and where the additive bias
-// comes from. attention_rel.cu instantiates it for K2 and K3 (packed qkv),
-// attention_routes.cu for K6 (head-major operands), K7 (dense bias) and K8
-// (windows carved from the unpartitioned token grid). The backward template
-// is attention_bwd.cuh.
+// comes from. attention_routes.cu instantiates it for K6 (head-major
+// operands), K7 (dense bias) and K8 (windows carved from the unpartitioned
+// token grid). K2 and K3 (packed qkv) run the tensor-core template of
+// attention_fwd_tc.cuh, which takes FwdArgs from here. The backward
+// templates are attention_bwd.cuh and attention_bwd_tc.cuh.
 //
 // Every instance computes, per (batch element or window b, head h, query n),
 //
@@ -17,9 +18,8 @@
 // in_stride = D and counts every (batch, head) pair as a batch element of
 // one head.
 //
-// Bias (template parameter kBias):
-//   kRelTables  rel_a = rh (q_h*k_h, D), rel_b = rw (k_w*k_w, D): the factored
-//               rel terms are computed in the kernel from the unscaled q;
+// Bias (template parameter kBias; kRelTables, the rel terms from two
+// gathered tables, names K2's and K2b's case and has no instance here):
 //   kRelTerms   rel_a = rel_h (.., k_h), rel_b = rel_w (.., k_w), one row per
 //               query: bias[n, k] = rel_h[n, k / k_w] + rel_w[n, k % k_w];
 //   kDense      rel_a = bias (B*H, n, n), staged tile by tile beside the k
@@ -90,19 +90,14 @@ struct FwdArgs {
   float scale;
 };
 
-// q . r for a row r in shared memory, or in read-only global memory (kGlobal)
-template <int D, bool kGlobal = false>
+// q . r for a row r in shared memory
+template <int D>
 __device__ __forceinline__ float dot_row(const float (&q)[D], const float* __restrict__ r) {
   const float4* r4 = reinterpret_cast<const float4*>(r);
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) {
-    float4 v;
-    if constexpr (kGlobal) {
-      v = __ldg(r4 + i);
-    } else {
-      v = r4[i];
-    }
+    const float4 v = r4[i];
     s0 = fmaf(q[4 * i + 0], v.x, s0);
     s1 = fmaf(q[4 * i + 1], v.y, s1);
     s2 = fmaf(q[4 * i + 2], v.z, s2);
@@ -181,17 +176,9 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
   }
 
   // this tile's rel terms into shared memory
+  static_assert(kBias != kRelTables, "K2's rel terms run in attention_fwd_tc.cuh");
   float* my_rel = rel + q_local * rs;
-  if constexpr (kBias == kRelTables) {  // from the unscaled q and the two tables
-    if (active) {
-      const int y = row / kw;
-      const int x = row - y * kw;
-      for (int j = split; j < kh; j += kSplit)
-        my_rel[j] = dot_row<D, true>(q, a.rel_a + (long long)(y * kh + j) * D);
-      for (int j = split; j < kw; j += kSplit)
-        my_rel[kh + j] = dot_row<D, true>(q, a.rel_b + (long long)(x * kw + j) * D);
-    }
-  } else if constexpr (kBias == kRelTerms && kWindow) {  // this query's rows of the grid layout
+  if constexpr (kBias == kRelTerms && kWindow) {  // this query's rows of the grid layout
     if (active) {
       const float* ra = a.rel_a + (bh * tokens + tok) * kh;
       const float* rb = a.rel_b + (bh * tokens + tok) * kw;
@@ -336,17 +323,22 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
   }
 }
 
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int D, int kBias, int kLayout, int kSplit>
 int launch_fwd_split(const FwdArgs& a, int blocks_z, cudaStream_t stream) {
   constexpr int kBQ = kThreads / kSplit;
   const int rs = kBias == kDense ? kBK + 1 : a.kh + a.kw + 1;
   const size_t smem = sizeof(float) * (2 * kBK * (D + 4) + kBQ * rs);
   auto kernel = attention_fwd_kernel<D, kBias, kLayout, kSplit>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.n + kBQ - 1) / kBQ, a.heads, blocks_z);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

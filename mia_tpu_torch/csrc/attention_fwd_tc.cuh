@@ -1,0 +1,322 @@
+// The tensor-core forward attention template of the port: FlashAttention-2
+// style on the packed qkv layout, both products in 3xTF32 on Hopper's tensor
+// cores (the helpers of tf32_mma.cuh). attention_rel.cu instantiates it for
+// K3 (kTables false: the rel terms rel_h (B*H, n, kh), rel_w (B*H, n, kw)
+// are inputs) and K2 (kTables true: kernel R of attention_rel.cu first
+// computes them from the two gathered tables into one (B*H, n, kh + kw)
+// buffer). The backward counterpart is attention_bwd_tc.cuh.
+//
+// Replaces the TPU forward kernels of mia_tpu/ops/attention.py
+//   K3  fused_attention_rel_packed     (_attn_rel_packed_kernel)
+//   K2  fused_attention_rel_packed_ik  (_attn_rel_packed_ik_kernel)
+// which fold the rel terms into one MXU product of [q*s | rel_h | rel_w]
+// against [k | E_h | E_w] over key blocks padded to 128 rows. Per (batch
+// element or window b, head h, query n), with q, k, v the column blocks of
+// qkv[b] at h*D, (H+h)*D, (2H+h)*D:
+//
+//   out[b, n, h*D:(h+1)*D] = softmax_k(q_n.k_k * scale + rel_h[n, k / kw]
+//                                      + rel_w[n, k % kw]) . v
+//   lse[b*H + h, n]        = the row's log-sum-exp (when lse is not null)
+//
+// Design: one block of 4 warps per (64-query tile, head, b); each warp owns
+// 16 query rows, whose Q fragments (times scale) stay in registers as
+// float32 for the whole key loop and are split into TF32 big + small at
+// each use. K and V stream in tiles of kKeys rows by
+// cp.async into two stages (the next tile lands while this one is
+// computed); rows past n are zero-filled by the copy and score -inf. A
+// tile's scores S = Q.K^T are m16n8k8 accumulators (kKeys / 8 of them a
+// warp); the bias is added from the block's rel rows, staged once in shared
+// memory, then the online softmax of rows g and g + 8 (tile maxima by quad
+// shuffles). P = exp(S - m) is formed in float32 in the same registers and
+// is the A operand of the tile's P.V with the reduction index relabelled
+// (k = t <-> key 2t, k = t + 4 <-> key 2t + 1), as pass A of the backward
+// does for dS.K. P.V starts from zero in every tile and is folded into the
+// output as O = c O + P.V, one rounded fmaf (c the rescale to the new
+// maximum): the tensor core truncates each sum into its accumulator, and an
+// accumulator carried through the MMAs of all 16 tiles of a 1024-key row
+// lands ~1e-5 of max |out| off (measured on the card, and reproduced by
+// the round-toward-zero emulation of tests/test_torch_attention_3xtf32.py),
+// where one tile's chain keeps ~1e-6. The epilogue writes O / l and
+// m + log l. A warp whose 16 rows are all past n computes nothing; 8-key
+// groups past n are skipped. Window pad tokens are real keys, as in the
+// reference (see attention_rel.cu). No atomics: two launches are
+// bit-identical.
+//
+// mma.sync rather than wgmma: Q stays in registers for the whole pass and
+// P is reused from the S accumulator; TF32 wgmma would want P in shared
+// memory (K-major) and both operands there.
+//
+// Bound: operations. 2 x 2 x D flops per (query, key) pair at 495/3
+// TFLOP/s (the card's dense TF32 rate, three MMAs a product); a K/V tile is
+// 2 kKeys (D + 4) floats for 256 kKeys D flops of MMAs.
+//
+// The kernels allocate nothing and do not synchronise; the launcher returns
+// cudaGetLastError() so the wrapper can raise on a refused launch.
+
+#pragma once
+
+#include <math.h>
+
+#include <type_traits>
+
+#include "attention_fwd.cuh"
+#include "tf32_mma.cuh"
+
+namespace {
+
+// A block of kTcThreads (4 warps of 16 query rows) per 64-query tile;
+// kKeys 64: 2 blocks an SM (~205 registers, 86 KB of shared memory at K3's
+// head dim 64); kKeys 32: 3 (168 registers, 51 KB).
+template <int D, bool kTables, int kKeys>
+__global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
+    attention_fwd_tc_kernel(const FwdArgs a) {
+  constexpr int kRow = D + 4;    // padded K/V row
+  constexpr int kK = D / 8;      // k-steps of S = Q.K^T, n8 tiles of O
+  constexpr int kJ = kKeys / 8;  // 8-key groups of a streamed tile
+  extern __shared__ float4 smem4[];
+  float* KV = reinterpret_cast<float*>(smem4);  // [stage][K | V][kKeys][kRow]
+  float* Rel = KV + 4 * kKeys * kRow;           // the block's rel rows, rel_view
+  const int n = a.n, kw = a.kw;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int g = lane >> 2;   // fragment row group
+  const int tq = lane & 3;   // thread in group
+  const int head = blockIdx.y;
+  const long long img = blockIdx.z;
+  const long long tok0 = img * n;
+  const long long bh = img * a.heads + head;
+  const int row0 = blockIdx.x * kTcTile;
+  const long long stride = a.in_stride;
+  const float* q_base = a.q + tok0 * stride + head * D;
+  const float* k_base = a.k + tok0 * stride + head * D;
+  const float* v_base = a.v + tok0 * stride + head * D;
+  const RelView rv = rel_view<kTables>(a.kh, kw);
+  const int ntiles = (n + kKeys - 1) / kKeys;
+
+  auto issue = [&](int tile) {
+    float* st = KV + (tile & 1) * 2 * kKeys * kRow;
+    copy_rows_async<D, kKeys>(st, k_base, stride, tile * kKeys, n);
+    copy_rows_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    cp_async_commit();
+  };
+  copy_rel_async<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0,
+                          min(kTcTile, n - row0));  // lands with tile 0
+  issue(0);
+
+  // this warp's rows r0 = row0 + 16 warp + g and r0 + 8: scale * q fragments
+  const int lr0 = warp * 16 + g;
+  const int r0 = row0 + lr0;
+  const int r1 = r0 + 8;
+  const bool active = row0 + warp * 16 < n;
+  float qa[kK][4];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e & 1) ? r1 : r0;
+      const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
+      qa[kk][e] = r < n ? __ldg(q_base + r * stride + c) * a.scale : 0.f;
+    }
+  }
+
+  float o[kK][4];
+#pragma unroll
+  for (int i = 0; i < kK; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their sums
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      issue(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile landed for every thread (the first with the rel rows)
+    const float* Ks = KV + (tile & 1) * 2 * kKeys * kRow;
+    const float* Vs = Ks + kKeys * kRow;
+    const int k0 = tile * kKeys;
+    const int nk = min(kKeys, n - k0);
+    // one tile; kFull: all kKeys keys present, no per-group branches
+    auto step = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+      float s[kJ][4];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      // S = (scale Q).K^T over the tile's 8-key groups
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+        FragA fq;
+        fq.set<true>(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          if (kFull || 8 * j < nk) {
+            const int kr = (8 * j + g) * kRow + 8 * kk + tq;
+            mma3(s[j], fq, Ks[kr], Ks[kr + 4]);
+          }
+        }
+      }
+      // + rel_h[row, y] + rel_w[row, x] of key k0 + 8j + 2tq (+1); keys past
+      // n score -inf; the tile's row maxima
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      int y = (k0 + 2 * tq) / kw;
+      int x = k0 + 2 * tq - y * kw;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        int y1 = y, x1 = x + 1;  // the odd key's place
+        if (x1 == kw) {
+          x1 = 0;
+          ++y1;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          const bool hi = e & 2;
+          const int key = k0 + 8 * j + 2 * tq + (odd ? 1 : 0);
+          const float v = (kFull || key < n)
+                              ? s[j][e] + rv.bias(Rel, hi ? lr0 + 8 : lr0, odd ? y1 : y,
+                                                  odd ? x1 : x)
+                              : -INFINITY;
+          s[j][e] = v;
+          if (hi) {
+            mx1 = fmaxf(mx1, v);
+          } else {
+            mx0 = fmaxf(mx0, v);
+          }
+        }
+        x += 8;
+        while (x >= kw) {
+          x -= kw;
+          ++y;
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // online softmax: the new maxima, the rescale of what came before
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float c0 = __expf(m0 - mn0);  // 0 while m = -inf
+      const float c1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float p0 = __expf(s[j][0] - mn0), p1 = __expf(s[j][1] - mn0);
+        const float p2 = __expf(s[j][2] - mn1), p3 = __expf(s[j][3] - mn1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        s[j][0] = p0;
+        s[j][1] = p1;
+        s[j][2] = p2;
+        s[j][3] = p3;
+      }
+      // P.V of this tile: the accumulator of key group j is the A operand,
+      // its reduction index relabelled (k = tq <-> key 2tq, k = tq+4 <-> key
+      // 2tq+1). It starts from zero, and O = c O + P.V is one rounded fmaf:
+      // the tensor core truncates each sum into its accumulator, so a chain
+      // of MMAs across every tile would lose float32 accuracy.
+      float ot[kK][4];
+#pragma unroll
+      for (int nd = 0; nd < kK; ++nd) ot[nd][0] = ot[nd][1] = ot[nd][2] = ot[nd][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        if (kFull || 8 * j < nk) {
+          FragA fp;
+          fp.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+          const float* vr = Vs + (8 * j + 2 * tq) * kRow + g;
+#pragma unroll
+          for (int nd = 0; nd < kK; ++nd) mma3(ot[nd], fp, vr[8 * nd], vr[kRow + 8 * nd]);
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < kK; ++nd) {
+        o[nd][0] = fmaf(o[nd][0], c0, ot[nd][0]);
+        o[nd][1] = fmaf(o[nd][1], c0, ot[nd][1]);
+        o[nd][2] = fmaf(o[nd][2], c1, ot[nd][2]);
+        o[nd][3] = fmaf(o[nd][3], c1, ot[nd][3]);
+      }
+    };
+    if (active) {
+      if (nk == kKeys) {
+        step(std::true_type{});
+      } else {
+        step(std::false_type{});
+      }
+    }
+    __syncthreads();  // stage consumed before the next tile but one is copied into it
+  }
+
+  // the rows' sums over the quad; out = O / l, lse = m + log l
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    if (r >= n) continue;
+    const float l = half ? l1 : l0;
+    const float inv = 1.f / l;
+    float* dst = a.out + (tok0 + r) * a.out_stride + head * D + 2 * tq;
+#pragma unroll
+    for (int nd = 0; nd < kK; ++nd)
+      *reinterpret_cast<float2*>(dst + 8 * nd) =
+          make_float2(o[nd][2 * half] * inv, o[nd][2 * half + 1] * inv);
+    if (a.lse != nullptr && tq == 0) a.lse[bh * n + r] = (half ? m1 : m0) + logf(l);
+  }
+}
+
+template <int D, int kKeys>
+size_t fwd_tc_smem_bytes(int ka) {
+  return sizeof(float) * (4 * kKeys * (D + 4) + kTcTile * ka);
+}
+
+// One launch over `batch` images, kKeys keys a streamed tile.
+template <int D, bool kTables, int kKeys>
+int launch_fwd_tc_tiles(const FwdArgs& a, int batch, cudaStream_t s) {
+  const size_t smem = fwd_tc_smem_bytes<D, kKeys>(a.kh + a.kw);
+  auto kernel = attention_fwd_tc_kernel<D, kTables, kKeys>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
+  kernel<<<grid, kTcThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 32-key tiles where the grid gives every SM three blocks (they fit three
+// an SM and hide each other's latency); below that, 64-key tiles, half the
+// syncs and softmax passes a key. On an H100 80GB HBM3 at 700 W: K2 at
+// batch 12 (1296 windows x heads) 534 us against 690 with 64-key tiles, K3
+// at B=1 (192 blocks) 113 us against 123 with 32-key ones.
+template <int D, bool kTables>
+int launch_fwd_tc(const FwdArgs& a, int batch, cudaStream_t s) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>((a.n + kTcTile - 1) / kTcTile) * a.heads * batch;
+  if (blocks >= 3LL * sms) return launch_fwd_tc_tiles<D, kTables, 32>(a, batch, s);
+  return launch_fwd_tc_tiles<D, kTables, 64>(a, batch, s);
+}
+
+// Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
+template <bool kTables>
+int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
+  if (batch == 0 || a.n == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_fwd_tc<64, kTables>(a, batch, s);
+    case 80: return launch_fwd_tc<80, kTables>(a, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace

@@ -1,5 +1,5 @@
-// K2 and K3 on Hopper: rel-pos attention read straight from the packed qkv
-// layout, in float32.
+// K2 and K3 on Hopper, with their backward kernels K2b and K3b: rel-pos
+// attention read straight from the packed qkv layout, to float32 accuracy.
 //
 // Replaces the TPU kernels
 //   K2  mia_tpu/ops/attention.py::fused_attention_rel_packed_ik
@@ -20,36 +20,39 @@
 //
 // The TPU kernels fold the rel terms into one MXU product by concatenating
 // [q*s | rel_h | rel_w] against [k | E_h | E_w] and mask the key padding to
-// 128-row blocks. Here the factored bias is added per score from a small
-// shared-memory table, so the (N, N) bias never exists and no key padding
-// is needed: the key loop is bounded by n. Window pad tokens (zeros after
-// the LayerNorm + partition kernel, so their k and v are the qkv bias) are
-// real keys, as in the reference, and are not masked.
+// 128-row blocks. Here the factored bias is added per score from the
+// block's rel rows in shared memory, so the (N, N) bias never exists and no
+// key padding is needed: the key loop is bounded by n. Window pad tokens
+// (zeros after the LayerNorm + partition kernel, so their k and v are the
+// qkv bias) are real keys, as in the reference, and are not masked.
 //
-// The forward is two instances of the template in attention_fwd.cuh (its
-// design is described there): kRelTables for K2, kRelTerms for K3, both on
-// the packed layout. At B=1 a global block has only 12 x 1024 query rows,
-// too few warps to hide latency with one thread per row, hence the
-// template's kSplit = 4 launch.
+// The forward is two instances of the tensor-core template in
+// attention_fwd_tc.cuh (its design is described there): kTables false for
+// K3, true for K2, both on the packed layout. K2's rel terms are gathers
+// from two tables that every (window, head) pair shares, so, as in the
+// backward, kernel R below computes them first, one block per token
+// position with the position's kh + kw table rows in shared memory, into a
+// (B*H, n, kh + kw) scratch that the template reads like K3's inputs.
 //
-// Bound: at ViT-B/512 (D = 64) the kernel does 4*D flops per (query, key)
-// pair and reads each K/V row from shared memory once per query tile, so it
-// is bound by the FP32 pipe, shared-memory issue and latency, not by device
-// memory (qkv is 1.8 MB per 196-token window batch). A wgmma/TMA version
-// in bf16 is later work.
+// Bound: operations. Q.K^T and P.V are 4 D flops per (query, key) pair, in
+// 3xTF32 on mma.sync (three TF32 MMAs a product: the accuracy of float32;
+// one TF32 pass misses the float32 tolerance). mma.sync and not wgmma: each
+// warp keeps its Q fragments in registers for the whole key loop and feeds
+// P to P.V straight from the S accumulator, where TF32 wgmma would want
+// both operands K-major in shared memory and P written out there.
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include "attention_bwd_tc.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
 // The packed layout: q, k, v are column blocks of one (batch, n, 3*heads*d)
 // tensor, the context is (batch, n, heads*d).
-template <int kBias>
-int dispatch(const void* qkv, const void* rel_a, const void* rel_b, void* out, void* lse, int batch,
-             int n, int heads, int d, int kh, int kw, float scale, void* stream) {
+FwdArgs packed_fwd_args(const void* qkv, const void* rel_a, const void* rel_b, void* out,
+                        void* lse, int n, int heads, int d, int kh, int kw, float scale) {
   const float* base = static_cast<const float*>(qkv);
   FwdArgs a{};
   a.q = base;
@@ -66,7 +69,7 @@ int dispatch(const void* qkv, const void* rel_a, const void* rel_b, void* out, v
   a.kh = kh;
   a.kw = kw;
   a.scale = scale;
-  return dispatch_fwd<kBias, kPacked>(a, batch, d, stream);
+  return a;
 }
 
 // ---------------------------------------------------------------------------
@@ -74,16 +77,16 @@ int dispatch(const void* qkv, const void* rel_a, const void* rel_b, void* out, v
 // (3xTF32 on mma.sync; its design is described there), kTables true for K2b
 // and false for K3b, both on the packed layout: q, k, v and dq, dk, dv are
 // column blocks of qkv and dqkv.
-// K2b's rel terms are gathers from two tables that every (window, head)
-// pair shares, so they run outside the template, one block per token
+// K2's and K2b's rel terms are gathers from two tables that every (window,
+// head) pair shares, so they run outside the templates, one block per token
 // position n and 128 pairs, with the position's kh + kw table rows
 // T_n = [rh_flat[y*kh + j] | rw_flat[x*kw + j]] (y = n / kw, x = n % kw)
 // copied to shared memory once (CUDA cores, ~3% of K2b's work):
-//   kernel R, before the template: rel[bh, n, :] = q_{bh,n} . T_n^T, the rel
-//     terms that passes A and B read;
-//   kernel Q, after it: dq_{bh,n} += drel[bh, n, :] . T_n, the rel
+//   kernel R, before the forward template (K2) and before passes A and B
+//     (K2b): rel[bh, n, :] = q_{bh,n} . T_n^T, the rel terms they read;
+//   kernel Q, after K2b's passes: dq_{bh,n} += drel[bh, n, :] . T_n, the rel
 //     gradient (pass A's drel) routed back into dq.
-// Inside the template's (window, head) blocks the same gathers would read a
+// Inside the templates' (window, head) blocks the same gathers would read a
 // table row from L2 for every query, ~460 KB a 64-query tile.
 // K2b adds kernel C below when the tables need a gradient:
 //   dthw[(y, j)] = sum over windows, heads and tokens of row y of
@@ -194,34 +197,44 @@ __global__ void __launch_bounds__(kRelThreads) attention_rel_route_kernel(
   for (int c = 0; c < D / 4; ++c) dq4[c] = acc[c];
 }
 
+// What kernels R and Q read and write: the packed qkv (R reads q) or dqkv
+// (Q adds to dq), the two tables, and the (pairs, n, kh + kw) rel terms (R
+// writes them) or their cotangent drel (Q reads it).
+struct RelGather {
+  const float* qkv;
+  float* dqkv;
+  const float* rh;
+  const float* rw;
+  float* rel;
+  long long pairs;  // (window, head) pairs
+  int n, heads, kh, kw;
+};
+
 // Kernel R (route false) or Q (route true) over every (window, head) pair.
 template <int D>
-int launch_rel_gather(bool route, const BwdArgs& a, const float* qkv, float* dqkv, int batch,
-                      cudaStream_t s) {
-  const int ka = a.kh + a.kw;
-  const long long pairs = static_cast<long long>(batch) * a.heads;
+int launch_rel_gather(bool route, const RelGather& r, cudaStream_t s) {
+  const int ka = r.kh + r.kw;
   const size_t smem = sizeof(float) * (ka * D + kRelThreads * (ka + 1));
-  const dim3 grid(a.n, static_cast<unsigned>((pairs + kRelThreads - 1) / kRelThreads));
+  const dim3 grid(r.n, static_cast<unsigned>((r.pairs + kRelThreads - 1) / kRelThreads));
   cudaError_t err;
   if (route) {
     err = allow_smem(attention_rel_route_kernel<D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attention_rel_route_kernel<D><<<grid, kRelThreads, smem, s>>>(
-        dqkv, a.drel_a, a.rel_a, a.rel_b, pairs, a.n, a.heads, a.kh, a.kw);
+        r.dqkv, r.rel, r.rh, r.rw, r.pairs, r.n, r.heads, r.kh, r.kw);
   } else {
     err = allow_smem(attention_rel_terms_kernel<D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attention_rel_terms_kernel<D><<<grid, kRelThreads, smem, s>>>(
-        qkv, a.rel_a, a.rel_b, a.rel_out, pairs, a.n, a.heads, a.kh, a.kw);
+        r.qkv, r.rh, r.rw, r.rel, r.pairs, r.n, r.heads, r.kh, r.kw);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_rel_gather(bool route, const BwdArgs& a, const float* qkv, float* dqkv, int batch,
-                        int d, cudaStream_t s) {
+int dispatch_rel_gather(bool route, const RelGather& r, int d, cudaStream_t s) {
   switch (d) {
-    case 64: return launch_rel_gather<64>(route, a, qkv, dqkv, batch, s);
-    case 80: return launch_rel_gather<80>(route, a, qkv, dqkv, batch, s);
+    case 64: return launch_rel_gather<64>(route, r, s);
+    case 80: return launch_rel_gather<80>(route, r, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -295,9 +308,13 @@ int dispatch_bwd(const void* qkv, const void* rel_a, const void* rel_b, const vo
   a.scale = scale;
   if (!kTables) return dispatch_tc_bwd<false>(a, batch, d, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = dispatch_rel_gather(false, a, base, dbase, batch, d, s);
+  const long long pairs = static_cast<long long>(batch) * heads;
+  int err = dispatch_rel_gather(
+      false, RelGather{base, nullptr, a.rel_a, a.rel_b, a.rel_out, pairs, n, heads, kh, kw}, d, s);
   if (err == 0) err = dispatch_tc_bwd<true>(a, batch, d, stream);
-  if (err == 0) err = dispatch_rel_gather(true, a, base, dbase, batch, d, s);
+  if (err == 0)
+    err = dispatch_rel_gather(
+        true, RelGather{nullptr, dbase, a.rel_a, a.rel_b, a.drel_a, pairs, n, heads, kh, kw}, d, s);
   if (err != 0 || dthw == nullptr) return err;
   const int table_rows = (n / kw) * kh + kw * kw;
   if (d == 64) {
@@ -318,17 +335,27 @@ int dispatch_bwd(const void* qkv, const void* rel_a, const void* rel_b, const vo
 extern "C" int mia_attention_rel_packed_f32(const void* qkv, const void* rel_h, const void* rel_w,
                                             void* out, void* lse, int batch, int n, int heads,
                                             int d, int kh, int kw, float scale, void* stream) {
-  return dispatch<kRelTerms>(qkv, rel_h, rel_w, out, lse, batch, n, heads, d, kh, kw, scale, stream);
+  const FwdArgs a = packed_fwd_args(qkv, rel_h, rel_w, out, lse, n, heads, d, kh, kw, scale);
+  return dispatch_fwd_tc<false>(a, batch, d, stream);
 }
 
 // K2: as K3, but with the gathered tables rh_flat ((n/kw)*kh, d) and rw_flat
-// (kw*kw, d) in place of the per-token rel terms.
+// (kw*kw, d) in place of the per-token rel terms; rel (batch*heads, n,
+// kh+kw) is scratch for kernel R's rel terms.
 extern "C" int mia_attention_rel_packed_ik_f32(const void* qkv, const void* rh_flat,
                                                const void* rw_flat, void* out, void* lse,
-                                               int batch, int n, int heads, int d, int kh, int kw,
-                                               float scale, void* stream) {
-  return dispatch<kRelTables>(qkv, rh_flat, rw_flat, out, lse, batch, n, heads, d, kh, kw, scale,
-                        stream);
+                                               void* rel, int batch, int n, int heads, int d,
+                                               int kh, int kw, float scale, void* stream) {
+  if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  if (rel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  float* terms = static_cast<float*>(rel);
+  const RelGather r{static_cast<const float*>(qkv), nullptr, static_cast<const float*>(rh_flat),
+                    static_cast<const float*>(rw_flat), terms,
+                    static_cast<long long>(batch) * heads, n, heads, kh, kw};
+  int err = dispatch_rel_gather(false, r, d, static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  const FwdArgs a = packed_fwd_args(qkv, terms, terms, out, lse, n, heads, d, kh, kw, scale);
+  return dispatch_fwd_tc<true>(a, batch, d, stream);
 }
 
 // K3 backward: from the forward's inputs, its output, its lse and the

@@ -7,7 +7,8 @@ is the JAX package's default, the path its TPU kernels run:
 - windowed blocks: ``window_partition(LayerNorm(x))`` is K4
   (``ops/ln_window.py``), the qkv Linear runs on the windowed tokens, and
   K2 (``ops/attention.py``) attends within each window with the rel terms
-  computed in the kernel; pad tokens are real keys, as in the reference;
+  computed from the rel-pos tables on the card; pad tokens are real keys,
+  as in the reference;
 - global blocks: LayerNorm, the qkv Linear, the factored rel terms from
   :func:`decomposed_rel_terms_packed`, then K3;
 - the patch embed is a reshape and one matmul (``_PatchEmbedMM``);

@@ -22,8 +22,10 @@ unscaled q.
   (K3) or table (K2) gradients.
 - :func:`fused_attention_rel_packed` and
   :func:`fused_attention_rel_packed_ik` — the wrappers of the CUDA kernels
-  in ``csrc/attention_rel.cu``, which replace the TPU kernels of the same
-  names. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+  in ``csrc/attention_rel.cu`` (3xTF32 on the tensor cores, the template of
+  ``csrc/attention_fwd_tc.cuh``; K2 first computes its rel terms from the
+  tables into a scratch), which replace the TPU kernels of the same names.
+  A CUDA tensor launches the kernel (or raises); a CPU tensor takes
   the plain version. When autograd needs a gradient they run inside a
   ``torch.autograd.Function`` whose forward also keeps the per-row
   log-sum-exp and whose backward is :func:`fused_attention_rel_packed_bwd`
@@ -175,7 +177,7 @@ def attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale: float, k_h
 
 _ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stream
     "mia_attention_rel_packed_f32": (5, 6),  # ints: batch, n, heads, d, kh, kw
-    "mia_attention_rel_packed_ik_f32": (5, 6),
+    "mia_attention_rel_packed_ik_f32": (6, 6),
     "mia_attention_rel_packed_bwd_f32": (10, 6),
     "mia_attention_rel_packed_ik_bwd_f32": (11, 6),
     "mia_attention_rel_f32": (7, 5),  # bh, n, d, kh, kw
@@ -254,8 +256,12 @@ def _launch_forward(kernel, qkv, rel_a, rel_b, scale, k_hw, num_heads, with_lse)
     _check_operand(f"{kernel} rel operand", rel_b, b_shape, qkv.device)
     out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, n), dtype=torch.float32, device=qkv.device) if with_lse else None
+    tensors = (qkv, rel_a, rel_b, out, lse)
+    if kernel == "K2":  # scratch for the rel terms, computed from the tables before the attention
+        tensors += (torch.empty((b * num_heads, n, sum(k_hw)), dtype=torch.float32,
+                                device=qkv.device),)
     symbol = "mia_attention_rel_packed_ik_f32" if kernel == "K2" else "mia_attention_rel_packed_f32"
-    _call(kernel, symbol, qkv, (qkv, rel_a, rel_b, out, lse), k_hw, num_heads, scale)
+    _call(kernel, symbol, qkv, tensors, k_hw, num_heads, scale)
     return (out, lse) if with_lse else out
 
 
@@ -413,7 +419,7 @@ def fused_attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads:
 
 def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
                                   num_heads: int) -> torch.Tensor:
-    """K2: windowed rel-pos attention with the rel terms computed in the kernel.
+    """K2: windowed rel-pos attention with the rel terms computed from the tables.
 
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
     cannot); a CPU tensor takes :func:`attention_rel_packed_ik`.

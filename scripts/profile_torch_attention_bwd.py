@@ -1,21 +1,39 @@
-"""Time the backward attention kernels of a source tree on one GPU.
+"""Time the attention kernels K2, K3 and their backward of a source tree on one GPU.
 
-For comparing two versions of the backward templates
-(``mia_tpu_torch/csrc/attention_bwd_tc.cuh``, ``attention_bwd.cuh``) or of
-``attention_rel.cu`` within one run: unpack the other
+For comparing two versions of the attention templates
+(``mia_tpu_torch/csrc/attention_{fwd,bwd}_tc.cuh``, ``attention_bwd.cuh``) or
+of ``attention_rel.cu`` within one run: unpack the other
 tree with ``git archive <commit> mia_tpu_torch | tar -x -C <dir>`` and name it
 with ``--tree``; every tree builds its own kernel library. Prints the card,
 then K3b (global, ``(12, 1024, 2304)`` packed qkv) and K2b (windows, ``(108,
 196, 2304)``) at the ViT-B/512 training shape for batch 12 as medians of 7
 blocks of 10 launches by CUDA events, twice each, K3b's and K2b's largest
-errors against their plain VJPs, and K6b (global) and K8b where the tree has
-them. With
+errors against their plain VJPs, a digest of K3b's and K2b's outputs on
+inputs that do not depend on the tree's forward kernels (out and lse from the
+plain forward: equal digests across trees mean bit-identical backward
+kernels), and K6b (global) and K8b where the tree has them. With
 ``--kernels`` each tree also runs K3b, K2b and the library yardstick
 (autograd through one ``scaled_dot_product_attention`` call with the dense
 bias, as ``chip_smoke.py`` times it) under ``torch.profiler`` and prints the
 device kernels each one launches, with their times. Needs a CUDA device.
 
+With ``--sass`` it times nothing: it compiles each tree's
+``csrc/attention_rel.cu`` with ``nvcc -Xptxas -v`` and prints, for every
+kernel, its registers and spill, its ``HMMA.1688.F32.TF32``, ``ATOM`` and
+local-memory instructions, and whether its SASS equals the first tree's (so
+``--tree build/parent --tree . --sass`` shows the kernels a change left as
+they were). Needs nvcc and cuobjdump, not a GPU.
+
+With ``--forward`` it times the forward kernels instead: K3 (global, 1024
+tokens) and K2 (9 windows of 196 tokens an image) at the ViT-B/512 serving
+shape B=1 and the training shape B=12, each beside the library call on the
+same operands (``scaled_dot_product_attention`` with the dense bias built
+beforehand), with their largest errors against the plain versions; with
+``--kernels`` the device kernels of K3 and K2 at B=1 and B=12 and of the
+library call at B=1.
+
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
+        [--forward | --sass]
 
 Several ``--tree`` arguments run in the given order, one process each
 (parent, change, change, parent is the order that shows a drift of the card).
@@ -24,8 +42,11 @@ Several ``--tree`` arguments run in the given order, one process each
 from __future__ import annotations
 
 import argparse
+import hashlib
+import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,6 +99,121 @@ def library_backward(torch, qkv, rel_h, rel_w, scale, heads, g):
     return lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)
 
 
+def _short_name(mangled: str) -> str:
+    """``_ZN...attention_fwd_tc_kernelILi64ELb0ELi32EEEv...`` → ``attention_fwd_tc_kernel<64, false, 32>``."""
+    m = re.search(r"(attention_[a-z_]*?kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def sass_report(trees) -> None:
+    """Registers, spill and instruction counts of every kernel of each tree's
+    csrc/attention_rel.cu, and whether its SASS equals the first tree's."""
+    sys.path.insert(0, str(ROOT))
+    from mia_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
+
+    nvcc = _nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    first = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, tree in enumerate(trees):
+            obj = Path(tmp) / f"{i}.o"
+            src = Path(tree) / "mia_tpu_torch" / "csrc" / "attention_rel.cu"
+            log = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                                 capture_output=True, text=True, check=True).stderr
+            usage, name = {}, None
+            for line in log.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    name = _short_name(m.group(1))
+                elif name and "bytes spill stores" in line:
+                    usage[name] = [int(line.split("bytes spill stores")[0].split(",")[-1])]
+                elif name and "Used" in line and "registers" in line:
+                    usage[name].insert(0, int(re.search(r"Used (\d+) registers", line).group(1)))
+            sass, name = {}, None
+            dump = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
+                                  check=True).stdout
+            for line in dump.splitlines():
+                m = re.match(r"\s+Function : (\S+)", line)
+                if m:
+                    name = _short_name(m.group(1))
+                    sass[name] = []
+                elif name:  # drop the addresses and the column padding
+                    sass[name].append(" ".join(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split()))
+            first = first or sass
+            print(f"{tree}: csrc/attention_rel.cu")
+            for name in sorted(sass):
+                body = sass[name]
+                regs, spill = usage.get(name, ["?", "?"])
+                same = "same SASS as the first tree" if first.get(name) == body else (
+                    "not in the first tree" if name not in first else "SASS differs from the first tree")
+                print(f"  {name}: {regs} registers, {spill} bytes spill, "
+                      f"{sum('HMMA.1688.F32.TF32' in x for x in body)} HMMA.1688.F32.TF32, "
+                      f"{sum('ATOM' in x for x in body)} ATOM, "
+                      f"{sum(('LDL' in x or 'STL' in x) for x in body)} LDL/STL; {same}")
+
+
+def bench_forward(tree: str, kernels: bool = False) -> None:
+    import torch
+
+    sys.path.insert(0, tree)
+    from mia_tpu_torch.ops import attention
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    heads, d, ws, side = 12, 64, 14, 32
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
+    for b in (1, 12):
+        qkv3 = randn(b, side * side, 3 * heads * d)
+        rel_h, rel_w = (randn(b * heads, side * side, side) for _ in range(2))
+        k3_args = (qkv3, rel_h, rel_w, scale, (side, side), heads)
+        qkv2 = randn(b * 9, ws * ws, 3 * heads * d)
+        k2_args = (qkv2, rh, rw, scale, (ws, ws), heads)
+        err3 = float((attention._launch_k3(*k3_args) - attention.attention_rel_packed(*k3_args))
+                     .abs().max() / attention.attention_rel_packed(*k3_args).abs().max())
+        want2 = attention.attention_rel_packed_ik(*k2_args)
+        err2 = float((attention._launch_k2(*k2_args) - want2).abs().max() / want2.abs().max())
+        print(f"{tree}: B={b}: K3 within {err3:.3g}, K2 within {err2:.3g} of max |plain|")
+        libs = []
+        for qkv, (r_h, r_w) in ((qkv3, (rel_h, rel_w)),
+                                (qkv2, attention.window_rel_terms(*k2_args[:3], (ws, ws), heads))):
+            bb, n, _ = qkv.shape
+            q, k, v = (t.contiguous() for t in qkv.view(bb, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+            bias = (r_h[:, :, :, None] + r_w[:, :, None, :]).reshape(bb, heads, n, n).contiguous()
+            libs.append(lambda q=q, k=k, v=v, bias=bias: sdpa(q, k, v, attn_mask=bias,
+                                                                 scale=scale))
+        per_block = 20 if b == 1 else 5
+
+        def k3(args=k3_args):
+            return attention._launch_k3(*args)
+
+        def k2(args=k2_args):
+            return attention._launch_k2(*args)
+
+        for _ in range(2):
+            print(f"{tree}: B={b}: K3 {time_ms(torch, k3, per_block=per_block) * 1e3:.2f} us "
+                  f"(library {time_ms(torch, libs[0], per_block=per_block) * 1e3:.2f}), "
+                  f"K2 {time_ms(torch, k2, per_block=per_block) * 1e3:.2f} us "
+                  f"(library {time_ms(torch, libs[1], per_block=per_block) * 1e3:.2f})",
+                  flush=True)
+        if kernels:
+            kernel_table(torch, f"{tree}: K3 B={b}", k3)
+            kernel_table(torch, f"{tree}: K2 B={b}", k2)
+            if b == 1:
+                kernel_table(torch, f"{tree}: library at K3's B=1 shape", libs[0])
+                kernel_table(torch, f"{tree}: library at K2's B=1 shape", libs[1])
+
+
 def bench(tree: str, kernels: bool = False) -> None:
     import torch
 
@@ -118,6 +254,23 @@ def bench(tree: str, kernels: bool = False) -> None:
                                                  False)
     err = float((k2b()[0] - want[0]).abs().max() / want[0].abs().max())
     print(f"{tree}: K2b within {err:.3g} of max |plain|")
+    # the backward kernels on the plain forward's out and lse, hashed
+    q, k, _ = qkv3.view(b, side * side, 3, heads, d).permute(2, 0, 3, 1, 4)
+    bias = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(b, heads, side * side, -1)
+    lse3p = torch.logsumexp((q * scale) @ k.transpose(-2, -1) + bias, -1).reshape(b * heads, -1)
+    out3p = attention.attention_rel_packed(qkv3, rel_h, rel_w, scale, (side, side), heads)
+    r2h, r2w = attention.window_rel_terms(qkv2, rh, rw, (ws, ws), heads)
+    q, k, _ = qkv2.view(b * 9, ws * ws, 3, heads, d).permute(2, 0, 3, 1, 4)
+    bias = (r2h[:, :, :, None] + r2w[:, :, None, :]).reshape(b * 9, heads, ws * ws, -1)
+    lse2p = torch.logsumexp((q * scale) @ k.transpose(-2, -1) + bias, -1).reshape(b * 9 * heads, -1)
+    out2p = attention.attention_rel_packed_ik(qkv2, rh, rw, scale, (ws, ws), heads)
+    digests = [hashlib.sha1(b"".join(t.cpu().numpy().tobytes() for t in outs)).hexdigest()[:16]
+               for outs in (attention._launch_k3_bwd(qkv3, rel_h, rel_w, out3p, g3, lse3p, scale,
+                                                     (side, side), heads),
+                            attention._launch_k2_bwd(qkv2, rh, rw, out2p, g2, lse2p, scale,
+                                                     (ws, ws), heads, True))]
+    print(f"{tree}: digests of K3b, K2b (tables) on the plain forward's out and lse: "
+          f"{digests[0]}, {digests[1]}")
     for _ in range(2):
         print(f"{tree}: K3b B=12 {time_ms(torch, k3b):.4f} ms, K2b B=12 "
               f"{time_ms(torch, k2b):.4f} ms", flush=True)
@@ -149,17 +302,25 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", help="root of a tree that holds mia_tpu_torch/")
     ap.add_argument("--kernels", action="store_true",
                     help="also list the device kernels of K3b, K2b and the library call")
+    ap.add_argument("--forward", action="store_true",
+                    help="time the forward kernels K3 and K2 and the library call instead")
+    ap.add_argument("--sass", action="store_true",
+                    help="compile each tree's attention_rel.cu and compare registers and SASS")
     ap.add_argument("--one", help=argparse.SUPPRESS)  # the child process of one tree
     args = ap.parse_args(argv)
+    if args.sass:
+        sass_report(args.tree or [str(ROOT)])
+        return 0
     if args.one:
-        bench(args.one, args.kernels)
+        (bench_forward if args.forward else bench)(args.one, args.kernels)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     for tree in args.tree or [str(ROOT)]:
         subprocess.run([sys.executable, __file__, "--one", tree]
-                       + (["--kernels"] if args.kernels else []), check=True)
+                       + (["--kernels"] if args.kernels else [])
+                       + (["--forward"] if args.forward else []), check=True)
     return 0
 
 

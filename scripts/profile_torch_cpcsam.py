@@ -38,11 +38,12 @@ from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
     # attention_fwd_kernel<D, bias, layout, split>, attention_bwd_dq_kernel<D, bias, layout>,
-    # attention_bwd_dkv_kernel<D, layout>: bias 0 = rel tables, 1 = rel terms, 2 = dense;
-    # layout 0 = packed qkv (K2, K3), 1 = head-major (K6, K7), 2 = grid windows (K8);
-    # K2b and K3b: attention_bwd_tc_{dq,dkv}_kernel<D, tables> (true: K2b)
-    ("K2 forward", ("attention_fwd_kernel<64, 0, 0,",)),
-    ("K3 forward", ("attention_fwd_kernel<64, 1, 0,",)),
+    # attention_bwd_dkv_kernel<D, layout>: bias 1 = rel terms, 2 = dense; layout 1 =
+    # head-major (K6, K7), 2 = grid windows (K8); K2 and K3:
+    # attention_fwd_tc_kernel<D, tables, warps, keys>, K2b and K3b:
+    # attention_bwd_tc_{dq,dkv}_kernel<D, tables> (tables true: K2, K2b)
+    ("K2 forward", ("attention_fwd_tc_kernel<64, true,",)),
+    ("K3 forward", ("attention_fwd_tc_kernel<64, false,",)),
     ("K6 forward", ("attention_fwd_kernel<64, 1, 1,",)),
     ("K7 forward", ("attention_fwd_kernel<64, 2, 1,",)),
     ("K8 forward", ("attention_fwd_kernel<64, 1, 2,",)),
@@ -56,8 +57,8 @@ GROUPS = (  # (label, substrings of the kernel name), first match wins
     ("K8 backward, dk/dv pass and pad reduce", ("attention_bwd_dkv_kernel<64, 2>",
                                                 "attention_bwd_pad_reduce_kernel")),
     ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
-    ("K2 backward, rel terms and routing", ("attention_rel_terms_kernel",
-                                            "attention_rel_route_kernel")),
+    ("K2 rel terms (forward and backward) and routing", ("attention_rel_terms_kernel",
+                                                         "attention_rel_route_kernel")),
     ("K4 backward", ("ln_window_partition_bwd_kernel", "ln_window_partition_params")),
     ("K4 forward", ("ln_window_partition_kernel",)),
     ("K9 backward", ("unpartition_add_ln_bwd_kernel", "unpartition_add_ln_params")),

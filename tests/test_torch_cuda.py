@@ -88,6 +88,52 @@ def test_k3_matches_plain(cuda, b, heads, d, k_hw):
     assert _rel_err(got, want) <= 1e-5
 
 
+# K2 and K3 run the 3xTF32 tensor-core template of csrc/attention_fwd_tc.cuh:
+# the per-row log-sum-exp the backward reads is within 1e-5 of the plain
+# one, absolutely (its values are O(10) at these inputs, so that is ~1e-6 of
+# them), and two launches are bit-identical. K3 at B=1 (192 blocks, under
+# three a multiprocessor) streams 64-key tiles, at B=12 32-key ones; K2 at 9
+# and 108 windows, a ragged 9x9 window and head dim 80 (16 heads).
+def _plain_lse(qkv, rel_h, rel_w, scale, k_hw, heads):
+    b, n, _ = qkv.shape
+    q, k, _ = qkv.reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    bias = rel_h.reshape(b, heads, n, k_hw[0], 1) + rel_w.reshape(b, heads, n, 1, k_hw[1])
+    return torch.logsumexp((q * scale) @ k.transpose(-2, -1) + bias.reshape(b, heads, n, n),
+                           -1).reshape(b * heads, n)
+
+
+@pytest.mark.parametrize("kernel,b,heads,d,side", [("K3", 1, 12, 64, 32), ("K3", 12, 12, 64, 32),
+                                                   ("K3", 2, 4, 64, 27), ("K3", 1, 16, 80, 32),
+                                                   ("K2", 9, 12, 64, 14), ("K2", 108, 12, 64, 14),
+                                                   ("K2", 5, 4, 64, 9), ("K2", 9, 16, 80, 14)])
+def test_k2_k3_lse_and_bit_identity(cuda, kernel, b, heads, d, side):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    k_hw = (side, side) if kernel == "K2" else (20 if side == 27 else side, side)
+    n = k_hw[0] * k_hw[1]
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device=cuda)
+    if kernel == "K2":
+        rh = 0.2 * torch.randn(n, d, generator=gen, device=cuda)
+        rw = 0.2 * torch.randn(n, d, generator=gen, device=cuda)
+        args = (qkv, rh, rw, d ** -0.5, k_hw, heads)
+        launch, plain = attention._launch_k2, attention.attention_rel_packed_ik
+        rel_h, rel_w = attention.window_rel_terms(qkv, rh, rw, k_hw, heads)
+    else:
+        rel_h = torch.randn(b * heads, n, k_hw[0], generator=gen, device=cuda)
+        rel_w = torch.randn(b * heads, n, k_hw[1], generator=gen, device=cuda)
+        args = (qkv, rel_h, rel_w, d ** -0.5, k_hw, heads)
+        launch, plain = attention._launch_k3, attention.attention_rel_packed
+    out, lse = launch(*args, with_lse=True)
+    out2, lse2 = launch(*args, with_lse=True)
+    want = _plain_lse(qkv, rel_h, rel_w, d ** -0.5, k_hw, heads)
+    torch.cuda.synchronize()
+    assert _rel_err(out, plain(*args)) <= 1e-5
+    assert (lse - want).abs().max().item() <= 1e-5
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(launch(*args), out)  # without the lse: the same kernel
+
+
 @pytest.mark.parametrize("shape,ws", [((1, 32, 32, 768), 14), ((8, 32, 32, 768), 14),
                                       ((2, 20, 27, 768), 14), ((1, 9, 11, 30), 4)])
 def test_k4_matches_plain(cuda, shape, ws):
@@ -131,6 +177,8 @@ def _bit_identical(first, second):
 # shapes cover ViT-B/512 training (B=12 and 6), ragged tiles (a 196-token
 # window is three 64-key tiles and 4 keys; 81 and 4 tokens), a ragged grid,
 # 4096 global tokens and the ViT-H head dim 80; two launches are bit-identical.
+# Their p comes from the log-sum-exp of the forward kernel (K2, K3) on the
+# same inputs.
 @pytest.mark.parametrize("tables", [False, True])
 @pytest.mark.parametrize("b,heads,d,ws", [(108, 12, 64, 14), (54, 12, 64, 14), (6, 3, 64, 7),
                                           (5, 4, 64, 9), (4, 16, 80, 14), (3, 2, 64, 2)])
@@ -547,21 +595,30 @@ def test_encoder_routes_launch_their_kernels_and_agree(cuda):
                 "K3": attention.fused_attention_rel_packed, "K4": ln_window.ln_window_partition_fused,
                 "K6": attention.fused_attention_rel, "K8": attention.fused_attention_rel_win,
                 "K9": upr.unpartition_add_ln}
-    with torch.no_grad():
-        want = base(x)
-    for options, expect in (
-            (dict(fuse_unpart_residual="always"), dict(K2=2, K3=1, K4=2, K9=2)),
-            (dict(fuse_ln_window="never", attn_route="grid_native"), dict(K8=2, K3=1)),
-            (dict(attn_route="head_major"), dict(K6=3, K4=2))):
-        enc = ImageEncoderViT(**kw, **options).to(cuda)
-        enc.load_state_dict(base.state_dict())
-        before = {k: c.launches for k, c in counters.items()}
+    # float32 convolutions, as chip_smoke.py compares the routes: the routes
+    # differ in their last bits (their attention kernels and LayerNorms sum in
+    # other orders), and the neck's TF32 convolutions round that up to ~1e-4
+    # of the embedding (1.03e-4 for grid-native on an H100)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
         with torch.no_grad():
-            got = enc(x)
-        torch.cuda.synchronize()
-        assert {k: c.launches - before[k] for k, c in counters.items()} == {
-            k: expect.get(k, 0) for k in counters}
-        assert _rel_err(got, want) <= 1e-4
+            want = base(x)
+        for options, expect in (
+                (dict(fuse_unpart_residual="always"), dict(K2=2, K3=1, K4=2, K9=2)),
+                (dict(fuse_ln_window="never", attn_route="grid_native"), dict(K8=2, K3=1)),
+                (dict(attn_route="head_major"), dict(K6=3, K4=2))):
+            enc = ImageEncoderViT(**kw, **options).to(cuda)
+            enc.load_state_dict(base.state_dict())
+            before = {k: c.launches for k, c in counters.items()}
+            with torch.no_grad():
+                got = enc(x)
+            torch.cuda.synchronize()
+            assert {k: c.launches - before[k] for k, c in counters.items()} == {
+                k: expect.get(k, 0) for k in counters}
+            assert _rel_err(got, want) <= 1e-4
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 # K10 / K10b: the k2/s2 transposed convolution and its backward against their
