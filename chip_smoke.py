@@ -41,10 +41,13 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    K10 and K10b (the k2/s2 transposed convolution and its backward) at the
    four stages of CPC-SAM's prompt-large upscaler (batch 12), the two of the
    plain SAM upscaler, the UNet decoder's four (batch 12 and 32, 256²) and
-   ragged grids: forward within 1e-5, ``dx``, ``dw``, ``db`` within 1e-4 of
-   max |plain|, two backward launches bit-identical; library time one
+   ragged grids on both routes (3xTF32 tensor cores, float32 CUDA cores):
+   forward within 1e-5, ``dx``, ``dw``, ``db`` within 1e-4 of max |plain|, two
+   backward launches bit-identical, ``dx`` alone equal to the full backward's;
+   each timed stage with its route, its float32 and 3xTF32 bounds and one
    ``F.conv_transpose2d`` call on channels-last views of the same operands
-   (autograd through it for K10b).
+   (autograd through it for K10b) with TF32 and with full float32
+   convolutions.
 4. Slice phase: writes a synthetic FUGC dataset (48/8/8 PNGs at 336x544)
    and runs ``al_train_torch``'s ``train_entry`` with the README's FUGC flags
    at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 30
@@ -1440,7 +1443,8 @@ def route_bwd_kernel_phase(torch, device):
 # label, (B, H, W, Cin, Cout), timed: the four stages of CPC-SAM's prompt-large
 # upscaler at batch 12, the two of the plain SAM upscaler for one prompt (a
 # 512² frame gives a 32² embedding), the UNet decoder's four at 256² for batch
-# 12 (al_train) and batch 32 (fugc2025_train), and ragged grids
+# 12 (al_train) and batch 32 (fugc2025_train), and ragged grids on the CUDA-core
+# route (the first two) and the tensor-core route (the last two)
 UPSAMPLE_STAGES = (
     ("prompt-large 1", (12, 32, 32, 256, 64), True),
     ("prompt-large 2", (12, 64, 64, 64, 32), True),
@@ -1456,6 +1460,8 @@ UPSAMPLE_STAGES = (
     ("UNet 4 B=32", (32, 128, 128, 64, 32), False),
     ("ragged 5x12", (2, 5, 12, 16, 16), False),
     ("ragged 7x3", (3, 7, 3, 48, 20), False),
+    ("ragged 12x13, Cin 520", (1, 12, 13, 520, 20), False),
+    ("ragged 21x22", (6, 21, 22, 256, 64), False),
 )
 
 
@@ -1495,31 +1501,48 @@ def upsample_kernel_phase(torch, device):
         lib_err = (lib_out.permute(0, 2, 3, 1) - want).abs().max().item() / want.abs().max().item()
         check(lib_err <= 2e-3, f"K10 {label}: the library call differs from the plain version by "
               f"{lib_err} (TF32 convolution)")
+        routes = up.k10_routes((b, h, w, cin), cout)
         if not is_timed:
             continue
         pixels = b * h * w
         per_block = 20 if pixels * cout < 2 ** 22 else 5
         fwd_flops = 2 * pixels * cin * 4 * cout
         g_l = dy.permute(0, 3, 1, 2)
-        for name, kernel, plain, library, moved, flops in (
+        for name, kernel, plain, library, moved, flops, route in (
             ("K10", lambda: up._launch_k10(x, wt, bias),
              lambda: up.conv_transpose2x_plain(x, wt, bias),
-             lambda: conv_t(x_l, w_l, b_l, stride=2), [x, wt, bias, got], fwd_flops),
+             lambda: conv_t(x_l, w_l, b_l, stride=2), [x, wt, bias, got], fwd_flops,
+             routes["forward"]),
             ("K10b", lambda: up._launch_k10_bwd(x, wt, dy),
              lambda: up.conv_transpose2x_bwd_plain(x, wt, dy),
              lambda: torch.autograd.grad(lib_out, [x_l, w_l, b_l], g_l, retain_graph=True),
              # dx and dw are a product of the forward's size each; db adds every cotangent
-             [x, wt, dy, x, wt, bias], 2 * fwd_flops + dy.numel()),
+             [x, wt, dy, x, wt, bias], 2 * fwd_flops + dy.numel(),
+             "/".join(sorted({routes["dx"], routes["dw"]}))),
         ):
             (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, kernel, plain, per_block)
-            with torch.no_grad() if name == "K10" else contextlib.nullcontext():
-                lib = time_ms(library, torch, per_block=per_block)
-            m = {"shape": [b, h, w, cin, cout], "ms": min(k_a, k_b),
-                 "plain_ms": min(plain_a, plain_b), "library_ms": lib, **bound(moved, flops)}
+            # the library call with TF32 convolutions (the port's setting), then in full
+            # float32 (like for like with the kernel's float32 accuracy)
+            lib, tf32_before = {}, torch.backends.cudnn.allow_tf32
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                try:
+                    if name == "K10b":
+                        lib_out = conv_t(x_l, w_l, b_l, stride=2)
+                    with torch.no_grad() if name == "K10" else contextlib.nullcontext():
+                        lib[tf32] = time_ms(library, torch, per_block=per_block)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = tf32_before
+            m = {"shape": [b, h, w, cin, cout], "path": route, "ms": min(k_a, k_b),
+                 "plain_ms": min(plain_a, plain_b), "library_ms": lib[True],
+                 "library_fp32_ms": lib[False], **bound(moved, flops),
+                 "tc_bound_ms": tc_bound_ms(moved, flops)}
             stages[name][label] = m
-            print(f"{name} at {label} (B={b}, {h}x{w}, {cin}->{cout}): kernel {k_a * 1e3:.2f} / "
-                  f"{k_b * 1e3:.2f} us, plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us "
-                  f"(median of 11 x {per_block} launches); {describe_yardsticks(m)}")
+            print(f"{name} at {label} (B={b}, {h}x{w}, {cin}->{cout}) on the {route}: kernel "
+                  f"{k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, plain {plain_a * 1e3:.2f} / "
+                  f"{plain_b * 1e3:.2f} us (median of 11 x {per_block} launches); "
+                  f"{describe_yardsticks(m)} (TF32), {lib[False] * 1e3:.2f} us (float32); "
+                  f"3xTF32 bound {m['tc_bound_ms'] * 1e3:.2f} us")
     out = {}
     for name, tol in (("K10", KERNEL_TOL), ("K10b", BWD_TOL)):
         # the line's entry is the prompt-large chain's slowest stage; every timed stage beside it
@@ -2597,6 +2620,7 @@ def main(argv=None) -> int:
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for entry in kernels["kernels"]:
         check(keys <= set(entry), f"{entry['name']}: kernels line lacks {keys - set(entry)}")
+        check(entry["route"] in ("cuda", "triton"), f"{entry['name']}: route {entry['route']!r}")
     result = {"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // K10 and K10b on Hopper: the k=2/s=2 transposed convolution (2x upsample)
-// and its backward, in float32.
+// and its backward, float32 in and out.
 //
 // Replaces the TPU kernels mia_tpu/ops/upsample2x.py::conv_transpose2x_p
 // (_fwd_impl/_fwd_kernel) and ::_bwd_impl (_bwd_kernel). For x (B, H, W, Cin),
@@ -20,21 +20,52 @@
 //   dx       dx(pixel, ci)            = sum_tap,co dy(pixel, tap, co) w(tap, ci, co)
 //   dw       part(chunk, ci, tap, co) = sum over the chunk's pixels x(pixel, ci) dy(pixel, tap, co)
 //
-// are three instances of one register-tiled float32 product (256 threads,
-// a BM x BN tile of the result in registers, 16-deep slices of both operands
-// staged through shared memory). The instances differ in how a tile is
-// fetched (x rows, the 5-D layout, or the tap matrix, each as 16-byte loads
-// along its contiguous axis) and in where the result goes: the forward
-// scatters each pixel's 2*Cout runs to output rows 2i and 2i+1 (neighbouring
-// threads write neighbouring 16 bytes). dw splits the pixels into chunks, one
-// per blockIdx.z, and a second kernel adds the chunks' partials in a fixed
-// order; db rides along as the column sums of the dy tiles. No atomics, so
-// two launches agree bit for bit.
+// Each is one instance of a tile product; the instances differ in how a tile
+// is fetched (x rows, the 5-D layout, or the tap matrix, each along its
+// contiguous axis) and in where the result goes. dw splits the pixels into
+// chunks, one per blockIdx.z, and a second kernel adds the chunks' partials
+// in a fixed order; db rides along as the column sums of the dy tiles. No
+// atomics, so two launches agree bit for bit.
 //
-// Bound: the wide stages (Cin 256-512) by operations, 2*Cin*4*Cout a pixel
-// on the CUDA cores; the thin stages (Cin, Cout 16-32) by bytes, the
-// (B, 2H, 2W, Cout) tensor crossing device memory once. Tiles are picked by
-// the width of the result so a thin stage does not compute padding.
+// Two tile products, picked per product by what bounds it (route_tc()):
+//
+// * Tensor cores, 3xTF32 (conv_transpose2x_tc_kernel), where the product's
+//   float32 time is set by operations (2*M*N*K at 67 TFLOP/s at least its
+//   operands and result once at 3.35 TB/s): every product of the UNet
+//   decoder, of SAM's upscaler and of the prompt-large stages 1-2.
+//   mma.sync.m16n8k8 TF32 on the helpers of tf32_mma.cuh: every operand x =
+//   big + small, split when its fragment is read from shared memory, three
+//   MMAs a product. The operand tiles stream global -> shared by 16-byte
+//   cp.async into a ring of three 32-deep stages; rows are padded (+4 floats
+//   for [m][k] / [n][k] tiles, +8 for [k][m] / [k][n] ones) so the 32 lanes
+//   of a fragment read hit 32 banks, and the ragged edges (pixels, Cin 48 or
+//   520, 4*Cout 80) are zero-filled by the copies. Each 32-deep chain of
+//   MMAs starts from zero and is added to a float32 accumulator by one
+//   rounded add: the tensor core truncates each sum into its accumulator, so
+//   a chain through the whole depth (512-3072) reads 12-67x further from
+//   float64 (as K3 found, attention_fwd_tc.cuh; tests/test_torch_upsample2x_3xtf32.py
+//   emulates both). Blocks of 4 warps, each a 64 x 32 piece of a 128 x 64
+//   tile (64 x 128 for dw with Cin <= 64): ~215 registers, two blocks an SM,
+//   which beat one 128 x 128 block of 8 warps (its barriers stall all 8).
+//   The result is staged through shared memory so that it leaves as 16-byte
+//   stores along each pixel's 2*Cout runs (an mma accumulator holds 8-byte
+//   pairs). dw takes about one wave of blocks (tiles x chunks <= SMs x 2)
+//   and spreads db's column sums over all threads of the first row of blocks.
+//   mma.sync rather than wgmma: TF32 wgmma wants both operands K-major in
+//   shared memory, which only the forward's x tile and dx's operands are;
+//   dw's x tile and the forward's taps are not, and 3xTF32 would need the
+//   big and small halves of both as separate tiles.
+//   Bound at the 3xTF32 rate (495/3 TFLOP/s): UNet stage 1 (3072 pixels,
+//   512 -> 4*256) 19.5 us forward, against 48.1 on the CUDA cores. What
+//   holds the tile back is latency at 8 warps an SM (the fold's second
+//   accumulator costs 64 registers a thread).
+//
+// * CUDA cores, float32 (conv_transpose2x_gemm_kernel), for the thin stages
+//   (Cin, Cout 16-32: prompt-large 3-4), whose time is set by the bytes of
+//   the (B, 2H, 2W, Cout) tensor and where this tile beats the tensor cores:
+//   256 threads, a BM x BN tile of the result in registers, 16-deep slices
+//   staged through shared memory, the tile picked by the width of the result
+//   so a thin stage does not compute padding.
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError().
@@ -42,17 +73,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 16;  // depth of one shared-memory slice
+constexpr int kBK = 16;  // depth of one shared-memory slice of the SIMT tile
+constexpr int kSms = 132;  // the H100's SMs: what dw's chunk counts are sized for
 enum { kFwd = 0, kDx = 1, kDw = 2 };
 
 // Offset of (pixel m, column n = tap*Cout + co) in the (B, H, 2, W, 2*Cout)
 // layout; m = (b*H + i)*W + j, tap = 2*di + dj. A run of four columns that
 // starts at a multiple of 4 stays inside one tap (Cout is a multiple of 4).
+__device__ __forceinline__ long long div_w(long long m, int W) {  // m / W, in 32 bits where it fits
+  return m <= 0xffffffffLL ? static_cast<long long>(static_cast<unsigned>(m) / static_cast<unsigned>(W))
+                           : m / W;
+}
+
 __device__ __forceinline__ long long y5_offset(long long m, int n, int W, int Cout) {
-  const long long t = m / W;
+  const long long t = div_w(m, W);
   const int j = static_cast<int>(m - t * W);
   const int di = n >= 2 * Cout ? 1 : 0;
   return ((2 * t + di) * W + j) * (2LL * Cout) + (n - di * 2 * Cout);
@@ -62,10 +101,325 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// One BM x BN tile of
-//   kFwd: out = x . taps + bias      M = pixels, N = 4*Cout, depth Cin
-//   kDx:  dx  = dy . taps^T          M = pixels, N = Cin,    depth 4*Cout
-//   kDw:  part[z] = x^T . dy         M = Cin,    N = 4*Cout, depth = pixels of chunk z
+// The product (M x N, depth K) of each mode: forward pixels x 4*Cout over
+// Cin, dx pixels x Cin over 4*Cout, dw Cin x 4*Cout over the pixels.
+__host__ __device__ __forceinline__ void product_dims(int mode, long long pixels, int Cin,
+                                                      int Cout, long long* M, long long* N,
+                                                      long long* K) {
+  const long long c4 = 4LL * Cout;
+  *M = mode == kDw ? Cin : pixels;
+  *N = mode == kDx ? Cin : c4;
+  *K = mode == kFwd ? Cin : mode == kDx ? c4 : pixels;
+}
+
+// What a block of mode MODE computes: rows M, columns N, depth k_begin ..
+// k_end (dw: the pixels of chunk blockIdx.z).
+struct Product {
+  long long M, k_begin, k_end;
+  int N;
+};
+
+template <int MODE>
+__device__ __forceinline__ Product product_of(long long pixels, int Cin, int Cout,
+                                              long long chunk_len) {
+  long long M, N, K;
+  product_dims(MODE, pixels, Cin, Cout, &M, &N, &K);
+  long long k_begin = 0;
+  if (MODE == kDw) {
+    k_begin = static_cast<long long>(blockIdx.z) * chunk_len;
+    K = k_begin + chunk_len < pixels ? k_begin + chunk_len : pixels;
+  }
+  return {M, k_begin, K, static_cast<int>(N)};
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core tile product (3xTF32)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBK = 32;   // depth of a stage of the cp.async ring
+constexpr int kStages = 3;  // stages of the ring
+constexpr int kFold = 32;   // depth of each MMA chain before its fold into float32
+
+// Shared-memory layout of one instance. A is [m][k] (forward: x rows; dx: dy
+// rows) or, for dw, [k][m] (x rows are pixels); B is [k][n] (forward: the
+// taps; dw: dy rows) or, for dx, [n][k] (the taps read along co).
+template <int MODE, int BM, int BN>
+struct TcLayout {
+  static constexpr bool kAkm = MODE == kDw;
+  static constexpr bool kBnk = MODE == kDx;
+  static constexpr int kALd = kAkm ? BM + 8 : kTcBK + 4;
+  static constexpr int kBLd = kBnk ? kTcBK + 4 : BN + 8;
+  static constexpr int kASize = kAkm ? kTcBK * kALd : BM * kALd;
+  static constexpr int kBSize = kBnk ? BN * kBLd : kTcBK * kBLd;
+  static constexpr int kStage = kASize + kBSize;
+  static constexpr int kCLd = BN + 8;  // the staged result tile
+  static constexpr int kFloats =
+      kStages * kStage > BM * kCLd ? kStages * kStage : BM * kCLd;
+  static constexpr size_t kBytes = sizeof(float) * kFloats + sizeof(long long) * BM;
+
+  __device__ static __forceinline__ float a(const float* As, int m, int k) {
+    return kAkm ? As[k * kALd + m] : As[m * kALd + k];
+  }
+  __device__ static __forceinline__ float b(const float* Bs, int k, int n) {
+    return kBnk ? Bs[n * kBLd + k] : Bs[k * kBLd + n];
+  }
+};
+
+// One BM x BN tile of (M, N as product_of)
+//   kFwd: out = x . taps + bias    kDx: dx = dy . taps^T    kDw: part[z] = x^T . dy
+// by WM x WN warps, each a (BM / WM) x (BN / WN) piece of 16 x 8 fragments.
+template <int MODE, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(WM * WN * 32) conv_transpose2x_tc_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ dy,
+    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ col_sums,
+    long long pixels, int W, int Cin, int Cout, long long chunk_len) {
+  using L = TcLayout<MODE, BM, BN>;
+  constexpr int kT = WM * WN * 32;
+  constexpr int kMI = BM / WM / 16;  // 16-row fragments of a warp
+  constexpr int kNJ = BN / WN / 8;   // 8-column fragments of a warp
+  static_assert(kMI >= 1 && kNJ >= 1 && kT % BN == 0 && kT % 8 == 0,
+                "tile does not match the block");
+  extern __shared__ float4 tc_smem4[];
+  float* smem = reinterpret_cast<float*>(tc_smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // fragment row group
+  const int tq = lane & 3;  // thread in group
+  const int wm0 = (warp / WN) * (BM / WM);
+  const int wn0 = (warp % WN) * (BN / WN);
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;
+  const Product p = product_of<MODE>(pixels, Cin, Cout, chunk_len);
+  const long long slices = (p.k_end - p.k_begin + kTcBK - 1) / kTcBK;
+  const long long row5 = 2LL * W * Cout;  // floats between output rows 2i and 2i+1
+
+  // What stays fixed for a thread across stages: the A rows or B columns it copies.
+  // [m][k] tiles: row tid / kQ + i * (kT / kQ), column quad tid % kQ.
+  constexpr int kQ = kTcBK / 4;
+  constexpr int kRowsA = BM * kQ / kT;
+  long long a_row[L::kAkm ? 1 : kRowsA];  // offset of the row's column 0, -1 past M
+  if constexpr (!L::kAkm) {
+#pragma unroll
+    for (int i = 0; i < kRowsA; ++i) {
+      const long long m = m0 + tid / kQ + i * (kT / kQ);
+      if (m >= p.M) {
+        a_row[i] = -1;
+      } else if (MODE == kFwd) {
+        a_row[i] = m * Cin;
+      } else {  // the tap row di = 0 of pixel m in dy's (B, H, 2, W, 2*Cout) layout
+        const long long t = div_w(m, W);
+        a_row[i] = (2 * t * W + (m - t * W)) * (2LL * Cout);
+      }
+    }
+  }
+  // [k][n] tiles: column quad tid % (BN / 4), row tid / (BN / 4) + i * (kT / (BN / 4))
+  const int bq = tid % (BN / 4);
+  const int bn = n0 + 4 * bq;
+  long long b_col = -1;  // forward: offset of the taps' column; dw: dy's column in the 5-D row
+  if (!L::kBnk && bn < p.N) {
+    const int tap = bn / Cout;
+    const int co = bn - tap * Cout;
+    b_col = MODE == kFwd ? static_cast<long long>(tap) * Cin * Cout + co
+                         : (tap >> 1) * row5 + (tap & 1) * Cout + co;
+  }
+
+  auto load = [&](int stage, long long k0) {
+    float* As = smem + stage * L::kStage;
+    float* Bs = As + L::kASize;
+    if constexpr (L::kAkm) {  // dw: x(pixel k, ci m), contiguous along m
+      for (int i = tid; i < kTcBK * (BM / 4); i += kT) {
+        const int k = i / (BM / 4);
+        const int q = i - k * (BM / 4);
+        const long long pix = k0 + k;
+        const long long m = m0 + 4 * q;
+        const bool ok = pix < p.k_end && m < p.M;
+        cp_async16(As + k * L::kALd + 4 * q, ok ? x + pix * Cin + m : x, ok);
+      }
+    } else {  // x(pixel m, ci k) or dy(pixel m, column k): contiguous along k
+      const int q = tid % kQ;
+      const long long k = k0 + 4 * q;
+      const bool k_ok = k < p.k_end;
+      long long col = k;
+      if (MODE == kDx) {
+        const int di = k >= 2 * Cout ? 1 : 0;
+        col = di * row5 + (k - di * 2 * Cout);
+      }
+      const float* base = MODE == kFwd ? x : dy;
+#pragma unroll
+      for (int i = 0; i < kRowsA; ++i) {
+        const bool ok = k_ok && a_row[i] >= 0;
+        cp_async16(As + (tid / kQ + i * (kT / kQ)) * L::kALd + 4 * q,
+                   ok ? base + a_row[i] + col : base, ok);
+      }
+    }
+    if constexpr (L::kBnk) {  // dx: w(tap, ci n, co) with k = tap*Cout + co: contiguous along k
+      const int q = tid % kQ;
+      const long long k = k0 + 4 * q;
+      const int tap = static_cast<int>(k / Cout);
+      const long long col = static_cast<long long>(tap) * Cin * Cout + (k - tap * Cout);
+      for (int r = tid / kQ; r < BN; r += kT / kQ) {
+        const int n = n0 + r;
+        const bool ok = k < p.k_end && n < p.N;
+        cp_async16(Bs + r * L::kBLd + 4 * q, ok ? w + col + static_cast<long long>(n) * Cout : w,
+                   ok);
+      }
+    } else {  // w(tap, ci k, co) or dy(pixel k, column n): contiguous along n
+      for (int r = tid / (BN / 4); r < kTcBK; r += kT / (BN / 4)) {
+        const long long k = k0 + r;
+        const bool ok = k < p.k_end && b_col >= 0;
+        const float* src = w;
+        if (ok) {
+          if (MODE == kFwd) {
+            src = w + b_col + k * Cout;
+          } else {
+            const long long t = div_w(k, W);
+            src = dy + (2 * t * W + (k - t * W)) * (2LL * Cout) + b_col;
+          }
+        }
+        cp_async16(Bs + r * L::kBLd + 4 * bq, src, ok);
+      }
+    }
+  };
+
+  float acc[kMI][kNJ][4];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  }
+  // dw, first row of blocks: this thread's share of the column sums of dy
+  // (db), column tid % BN over kSumRows rows of each stage from row group tid / BN
+  constexpr int kSumRows = kTcBK * BN / kT;
+  float bsum = 0.f;
+  const bool sums = MODE == kDw && blockIdx.x == 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slices) load(s, p.k_begin + static_cast<long long>(s) * kTcBK);
+    cp_async_commit();
+  }
+  for (long long it = 0; it < slices; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `it` landed for every thread; stage it - 1 is free
+    const long long next = it + kStages - 1;
+    if (next < slices) load(static_cast<int>(next % kStages), p.k_begin + next * kTcBK);
+    cp_async_commit();
+
+    const float* As = smem + static_cast<int>(it % kStages) * L::kStage;
+    const float* Bs = As + L::kASize;
+    if (sums) {
+#pragma unroll 8
+      for (int k = 0; k < kSumRows; ++k) bsum += L::b(Bs, (tid / BN) * kSumRows + k, tid % BN);
+    }
+#pragma unroll
+    for (int f = 0; f < kTcBK; f += kFold) {
+      float part[kMI][kNJ][4];  // this chain, from zero
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+          part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = f; kk < f + kFold; kk += 8) {
+        uint32_t bb[kNJ][2], bs[kNJ][2];
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          const int n = wn0 + 8 * j + g;
+          split_tf32(L::b(Bs, kk + tq, n), bb[j][0], bs[j][0]);
+          split_tf32(L::b(Bs, kk + tq + 4, n), bb[j][1], bs[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < kMI; ++i) {
+          const int m = wm0 + 16 * i + g;
+          FragA fa;
+          fa.set(L::a(As, m, kk + tq), L::a(As, m + 8, kk + tq), L::a(As, m, kk + tq + 4),
+                 L::a(As, m + 8, kk + tq + 4));
+          // small.big, big.small, big.big, each over the warp's columns, so
+          // that kNJ independent MMAs stand between two into one accumulator
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) mma_tf32(part[i][j], fa.small, bb[j][0], bb[j][1]);
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) mma_tf32(part[i][j], fa.big, bs[j][0], bs[j][1]);
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) mma_tf32(part[i][j], fa.big, bb[j][0], bb[j][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+        }
+      }
+    }
+  }
+
+  // ---- the result, staged through shared memory as Cs[m][n] ----
+  cp_async_wait<0>();
+  __syncthreads();  // every stage consumed
+  float* Cs = smem;
+  long long* rowoff = reinterpret_cast<long long*>(smem + L::kFloats);
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      float* c = Cs + (wm0 + 16 * i + g) * L::kCLd + wn0 + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(c + 8 * L::kCLd) = make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+  for (int r = tid; r < BM; r += kT) {  // offset of each row's column 0
+    const long long m = m0 + r;
+    if (MODE == kFwd) {  // tap row di = 0 of the (B, H, 2, W, 2*Cout) output
+      const long long t = div_w(m, W);
+      rowoff[r] = (2 * t * W + (m - t * W)) * (2LL * Cout);
+    } else if (MODE == kDx) {
+      rowoff[r] = m * Cin;
+    } else {
+      rowoff[r] = (static_cast<long long>(blockIdx.z) * p.M + m) * p.N;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BM * (BN / 4); idx += kT) {
+    const int r = idx / (BN / 4);
+    const int c = 4 * (idx - r * (BN / 4));
+    const int n = n0 + c;
+    if (m0 + r >= p.M || n >= p.N) continue;
+    float4 v = *reinterpret_cast<const float4*>(Cs + r * L::kCLd + c);
+    long long off = rowoff[r] + n;
+    if (MODE == kFwd) {
+      const int di = n >= 2 * Cout ? 1 : 0;
+      const int n2 = n - di * 2 * Cout;  // dj*Cout + co
+      const float4 bv = ldg4(bias + (n2 >= Cout ? n2 - Cout : n2));
+      v.x += bv.x;
+      v.y += bv.y;
+      v.z += bv.z;
+      v.w += bv.w;
+      off = rowoff[r] + di * row5 + n2;
+    }
+    *reinterpret_cast<float4*>(out + off) = v;
+  }
+  if (sums) {  // the row groups' sums of each column, added in order
+    __syncthreads();  // the staged tile read
+    smem[tid] = bsum;
+    __syncthreads();
+    if (tid < BN && n0 + tid < p.N) {
+      float total = 0.f;
+#pragma unroll
+      for (int h = 0; h < kT / BN; ++h) total += smem[h * BN + tid];
+      col_sums[static_cast<long long>(blockIdx.z) * p.N + n0 + tid] = total;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core tile product (float32), for the thin stages
+// ---------------------------------------------------------------------------
+
+// One BM x BN tile of the product (modes as above).
 // Thread (ty, tx) of TY x TX = 256 owns rows ty*TM .. +TM and the TN/4 column
 // quads (g*TX + tx)*4, so a row of the tile is written as neighbouring float4s.
 template <int MODE, int BM, int BN, int TM, int TN>
@@ -85,19 +439,9 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
   const int ty = tid / TX;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
-  const int N4 = 4 * Cout;
-
-  long long M, k_begin, k_end;
-  int N;
-  if (MODE == kFwd) {
-    M = pixels; N = N4; k_begin = 0; k_end = Cin;
-  } else if (MODE == kDx) {
-    M = pixels; N = Cin; k_begin = 0; k_end = N4;
-  } else {
-    M = Cin; N = N4;
-    k_begin = static_cast<long long>(blockIdx.z) * chunk_len;
-    k_end = k_begin + chunk_len < pixels ? k_begin + chunk_len : pixels;
-  }
+  const Product p = product_of<MODE>(pixels, Cin, Cout, chunk_len);
+  const long long M = p.M, k_begin = p.k_begin, k_end = p.k_end;
+  const int N = p.N;
 
   float acc[TM][TN];
   float bsum[TN];
@@ -116,10 +460,10 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
       for (int idx = tid; idx < kBK * (BM / 4); idx += kThreads) {
         const int k = idx / (BM / 4);
         const int mq = idx % (BM / 4);
-        const long long p = k0 + k;
+        const long long pix = k0 + k;
         const long long m = m0 + mq * 4;
         float4 v = zero4;
-        if (p < k_end && m < M) v = ldg4(x + p * Cin + m);
+        if (pix < k_end && m < M) v = ldg4(x + pix * Cin + m);
         *reinterpret_cast<float4*>(&As[k][mq * 4]) = v;
       }
     } else {  // x(pixel m, ci k) or dy(pixel m, column k): contiguous along k
@@ -215,7 +559,7 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
     if (m >= M) continue;
     long long row;  // offset of the row's column 0
     if (MODE == kFwd) {
-      const long long t = m / W;
+      const long long t = div_w(m, W);
       const int j = static_cast<int>(m - t * W);
       row = (2 * t * W + j) * (2LL * Cout);  // tap row di = 0; di = 1 lies 2*W*Cout further
     } else if (MODE == kDx) {
@@ -257,95 +601,232 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
   }
 }
 
-// dw(tap, ci, co) = sum over chunks, in order, of part(chunk, ci, tap*Cout + co)
-__global__ void conv_transpose2x_dw_reduce_kernel(const float* __restrict__ part,
-                                                  float* __restrict__ dw, int chunks, int Cin,
-                                                  int Cout) {
-  const int N4 = 4 * Cout;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long total = static_cast<long long>(Cin) * N4;
-  if (idx >= total) return;
-  const int ci = static_cast<int>(idx / N4);
-  const int n = static_cast<int>(idx - static_cast<long long>(ci) * N4);
-  const int tap = n / Cout;
-  const int co = n - tap * Cout;
-  float s = 0.f;
-  for (int z = 0; z < chunks; ++z) s += part[static_cast<long long>(z) * total + idx];
-  dw[(static_cast<long long>(tap) * Cin + ci) * Cout + co] = s;
-}
+// ---------------------------------------------------------------------------
+// dw and db from the chunks' partials, in a fixed order
+// ---------------------------------------------------------------------------
 
-// db(co) = sum over chunks, then taps, in order, of col_sums(chunk, tap*Cout + co)
-__global__ void conv_transpose2x_db_reduce_kernel(const float* __restrict__ col_sums,
-                                                  float* __restrict__ db, int chunks, int Cout) {
-  const int co = blockIdx.x * blockDim.x + threadIdx.x;
-  if (co >= Cout) return;
+// kDb false: dw(tap, ci, co) = sum over chunks of part(chunk, ci, tap*Cout + co)
+// kDb true:  db(co) = sum over chunks and taps of part(chunk, tap*Cout + co)
+// A block of 32 x kLanes threads takes 32 runs of four outputs at a time;
+// lane c adds chunks c, c + kLanes, ... in order, and lane 0 adds the lanes'
+// sums in order. The grid strides, so a few waves of blocks cover any size.
+template <bool kDb, int kLanes>
+__global__ void __launch_bounds__(32 * kLanes) conv_transpose2x_reduce_kernel(
+    const float* __restrict__ part, float* __restrict__ dst, int chunks, int Cin, int Cout) {
+  __shared__ float4 lanes[kLanes][32];
   const int N4 = 4 * Cout;
-  float s = 0.f;
-  for (int z = 0; z < chunks; ++z) {
-    for (int tap = 0; tap < 4; ++tap) s += col_sums[static_cast<long long>(z) * N4 + tap * Cout + co];
+  const long long total = kDb ? Cout : static_cast<long long>(Cin) * N4;
+  const long long stride = kDb ? N4 : total;  // between chunks
+  const long long runs = total / 4;
+  const int e = threadIdx.x & 31;
+  const int c = threadIdx.x >> 5;
+  for (long long r0 = static_cast<long long>(blockIdx.x) * 32; r0 < runs;
+       r0 += static_cast<long long>(gridDim.x) * 32) {
+    const long long idx = 4 * (r0 + e);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (idx < total) {
+      for (int z = c; z < chunks; z += kLanes) {
+        const float* src = part + z * stride + idx;
+#pragma unroll
+        for (int tap = 0; tap < (kDb ? 4 : 1); ++tap) {
+          const float4 v = ldg4(src + tap * Cout);
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+      }
+    }
+    lanes[c][e] = s;
+    __syncthreads();
+    if (c == 0 && idx < total) {
+#pragma unroll
+      for (int l = 1; l < kLanes; ++l) {
+        const float4 v = lanes[l][e];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      long long off = idx;
+      if (!kDb) {
+        const int ci = static_cast<int>(idx / N4);
+        const int n = static_cast<int>(idx - static_cast<long long>(ci) * N4);
+        const int tap = n / Cout;
+        off = (static_cast<long long>(tap) * Cin + ci) * Cout + (n - tap * Cout);
+      }
+      *reinterpret_cast<float4*>(dst + off) = s;
+    }
+    __syncthreads();
   }
-  db[co] = s;
 }
 
-template <int MODE, int BM, int BN, int TM, int TN>
-cudaError_t launch_gemm(const float* x, const float* w, const float* dy, const float* bias,
-                        float* out, float* col_sums, long long pixels, int W, int Cin, int Cout,
-                        long long M, int N, long long chunk_len, int chunks, cudaStream_t s) {
-  const long long mt = (M + BM - 1) / BM;
-  const int nt = (N + BN - 1) / BN;
-  if (mt > 0x7fffffffLL || nt > 65535 || chunks > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(mt), static_cast<unsigned>(nt),
-                  static_cast<unsigned>(chunks));
-  conv_transpose2x_gemm_kernel<MODE, BM, BN, TM, TN><<<grid, kThreads, 0, s>>>(
-      x, w, dy, bias, out, col_sums, pixels, W, Cin, Cout, chunk_len);
+// 8 chunk lanes, or 32 where there are many chunks (the thin stages' dw)
+template <bool kDb>
+cudaError_t launch_reduce(const float* part, float* dst, int chunks, int Cin, int Cout,
+                          cudaStream_t s) {
+  const long long runs = (kDb ? Cout : static_cast<long long>(Cin) * 4 * Cout) / 4;
+  long long blocks = (runs + 31) / 32;
+  if (blocks > 8LL * kSms) blocks = 8LL * kSms;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (chunks >= 64) {
+    conv_transpose2x_reduce_kernel<kDb, 32><<<grid, 32 * 32, 0, s>>>(part, dst, chunks, Cin, Cout);
+  } else {
+    conv_transpose2x_reduce_kernel<kDb, 8><<<grid, 32 * 8, 0, s>>>(part, dst, chunks, Cin, Cout);
+  }
   return cudaGetLastError();
 }
 
-// forward and dx: many pixels down, N columns across; the tile is as wide as N allows
-template <int MODE>
-cudaError_t launch_by_width(const float* x, const float* w, const float* dy, const float* bias,
-                            float* out, long long pixels, int W, int Cin, int Cout, int N,
-                            cudaStream_t s) {
-  if (N >= 128) {
-    return launch_gemm<MODE, 128, 128, 8, 8>(x, w, dy, bias, out, nullptr, pixels, W, Cin, Cout,
-                                             pixels, N, 0, 1, s);
-  }
-  if (N >= 64) {
-    return launch_gemm<MODE, 128, 64, 8, 4>(x, w, dy, bias, out, nullptr, pixels, W, Cin, Cout,
-                                            pixels, N, 0, 1, s);
-  }
-  if (N >= 32) {
-    return launch_gemm<MODE, 128, 32, 4, 4>(x, w, dy, bias, out, nullptr, pixels, W, Cin, Cout,
-                                            pixels, N, 0, 1, s);
-  }
-  return launch_gemm<MODE, 256, 16, 4, 4>(x, w, dy, bias, out, nullptr, pixels, W, Cin, Cout,
-                                          pixels, N, 0, 1, s);
+// ---------------------------------------------------------------------------
+// Routes, tiles, chunks and launches
+// ---------------------------------------------------------------------------
+
+// The route of a product: the tensor cores where its float32 time is set by
+// operations (2*M*N*K at 67 TFLOP/s at least its operands and result
+// crossing device memory once at 3.35 TB/s, i.e. 20 flops a byte), the CUDA
+// cores where bytes set it.
+bool route_tc(int mode, long long pixels, int Cin, int Cout) {
+  long long M, N, K;
+  product_dims(mode, pixels, Cin, Cout, &M, &N, &K);
+  const double flops = 2.0 * M * N * K;
+  const double bytes = 4.0 * (static_cast<double>(M) * K + static_cast<double>(K) * N +
+                              static_cast<double>(M) * N);
+  return flops >= 20.0 * bytes;
 }
 
-// dw's tile: Cin rows (16 .. 512) by 4*Cout columns (64 .. 1024)
+// A tensor-core tile: rows x cols of the result, by warps of 64 x 32. At
+// about 215 registers a thread an SM holds 8 such warps whatever the tile;
+// blocks of 4 warps, two an SM, were faster on every UNet stage than one
+// block of 8, whose barriers stall all 8 (PERF.md §6).
+struct TcTile {
+  int rows, cols;
+  int blocks_per_sm() const { return 8 * 64 * 32 / (rows * cols); }
+};
+
+template <int MODE>
+TcTile tc_tile(long long pixels, int Cin, int Cout) {
+  long long M, N, K;
+  product_dims(MODE, pixels, Cin, Cout, &M, &N, &K);
+  if (MODE == kDw && M <= 64) return {64, 128};
+  return {128, 64};
+}
+
+// dw's tile for the SIMT route: Cin rows (16 .. 512) by 4*Cout columns (64 .. 1024)
 void dw_tile(int Cin, int Cout, int* bm, int* bn) {
   const int N4 = 4 * Cout;
   *bm = Cin >= 128 ? 128 : Cin >= 64 ? 64 : Cin >= 32 ? 32 : 16;
   *bn = (*bm == 64) ? 64 : (N4 >= 128 ? 128 : 64);
 }
 
-// Pixel chunks of dw: enough blocks for four waves of the card's 132 SMs,
-// each chunk a multiple of the slice depth and at least 64 pixels.
+// Pixel chunks of dw. Tensor cores: about one wave of blocks on the card
+// (tiles x chunks <= SMs x blocks an SM), each chunk a multiple of the stage
+// depth and at least four stages. SIMT: four waves, each chunk a multiple of
+// the slice depth and at least 64 pixels.
 void dw_chunks(long long pixels, int Cin, int Cout, long long* chunk_len, int* chunks) {
-  int bm, bn;
-  dw_tile(Cin, Cout, &bm, &bn);
-  const long long tiles =
-      static_cast<long long>((Cin + bm - 1) / bm) * ((4 * Cout + bn - 1) / bn);
-  long long want = 528 / tiles;
+  long long tiles, want, least, depth;
+  if (route_tc(kDw, pixels, Cin, Cout)) {
+    const TcTile t = tc_tile<kDw>(pixels, Cin, Cout);
+    tiles = static_cast<long long>((Cin + t.rows - 1) / t.rows) * ((4 * Cout + t.cols - 1) / t.cols);
+    want = kSms * t.blocks_per_sm() / tiles;
+    least = 4 * kTcBK;
+    depth = kTcBK;
+  } else {
+    int bm, bn;
+    dw_tile(Cin, Cout, &bm, &bn);
+    tiles = static_cast<long long>((Cin + bm - 1) / bm) * ((4 * Cout + bn - 1) / bn);
+    want = 4 * kSms / tiles;
+    least = 64;
+    depth = kBK;
+  }
   if (want < 1) want = 1;
-  const long long most = pixels / 64 > 1 ? pixels / 64 : 1;
+  const long long most = pixels / least > 1 ? pixels / least : 1;
   if (want > most) want = most;
   long long len = (pixels + want - 1) / want;
-  len = (len + kBK - 1) / kBK * kBK;
-  if (len < kBK) len = kBK;
+  len = (len + depth - 1) / depth * depth;
   *chunk_len = len;
   *chunks = static_cast<int>((pixels + len - 1) / len);
   if (*chunks < 1) *chunks = 1;
+}
+
+struct LaunchArgs {
+  const float *x, *w, *dy, *bias;
+  float *out, *col_sums;
+  long long pixels;
+  int W, Cin, Cout;
+  long long chunk_len;
+  int chunks;
+  cudaStream_t s;
+};
+
+template <int MODE, int BM, int BN, int WM, int WN>
+cudaError_t launch_tc(const LaunchArgs& a) {
+  long long M, N, K;
+  product_dims(MODE, a.pixels, a.Cin, a.Cout, &M, &N, &K);
+  const long long mt = (M + BM - 1) / BM;
+  const long long nt = (N + BN - 1) / BN;
+  if (mt > 0x7fffffffLL || nt > 65535 || a.chunks > 65535) return cudaErrorInvalidValue;
+  auto kernel = conv_transpose2x_tc_kernel<MODE, BM, BN, WM, WN>;
+  constexpr size_t smem = TcLayout<MODE, BM, BN>::kBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(mt), static_cast<unsigned>(nt),
+                  static_cast<unsigned>(a.chunks));
+  kernel<<<grid, WM * WN * 32, smem, a.s>>>(a.x, a.w, a.dy, a.bias, a.out, a.col_sums, a.pixels,
+                                            a.W, a.Cin, a.Cout, a.chunk_len);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_tc_tiles(const LaunchArgs& a) {
+  const TcTile t = tc_tile<MODE>(a.pixels, a.Cin, a.Cout);
+  if (t.rows == 64) return launch_tc<MODE, 64, 128, 1, 4>(a);
+  return launch_tc<MODE, 128, 64, 2, 2>(a);
+}
+
+template <int MODE, int BM, int BN, int TM, int TN>
+cudaError_t launch_gemm(const LaunchArgs& a) {
+  long long M, N, K;
+  product_dims(MODE, a.pixels, a.Cin, a.Cout, &M, &N, &K);
+  const long long mt = (M + BM - 1) / BM;
+  const long long nt = (N + BN - 1) / BN;
+  if (mt > 0x7fffffffLL || nt > 65535 || a.chunks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(mt), static_cast<unsigned>(nt),
+                  static_cast<unsigned>(a.chunks));
+  conv_transpose2x_gemm_kernel<MODE, BM, BN, TM, TN><<<grid, kThreads, 0, a.s>>>(
+      a.x, a.w, a.dy, a.bias, a.out, a.col_sums, a.pixels, a.W, a.Cin, a.Cout, a.chunk_len);
+  return cudaGetLastError();
+}
+
+// forward and dx on the SIMT route: many pixels down, N columns across; the
+// tile is as wide as N allows
+template <int MODE>
+cudaError_t launch_by_width(const LaunchArgs& a) {
+  const int N = MODE == kFwd ? 4 * a.Cout : a.Cin;
+  if (N >= 128) return launch_gemm<MODE, 128, 128, 8, 8>(a);
+  if (N >= 64) return launch_gemm<MODE, 128, 64, 8, 4>(a);
+  if (N >= 32) return launch_gemm<MODE, 128, 32, 4, 4>(a);
+  return launch_gemm<MODE, 256, 16, 4, 4>(a);
+}
+
+template <int MODE>
+cudaError_t launch_product(const LaunchArgs& a) {
+  if (route_tc(MODE, a.pixels, a.Cin, a.Cout)) return launch_tc_tiles<MODE>(a);
+  return launch_by_width<MODE>(a);
+}
+
+template <>
+cudaError_t launch_product<kDw>(const LaunchArgs& a) {
+  if (route_tc(kDw, a.pixels, a.Cin, a.Cout)) return launch_tc_tiles<kDw>(a);
+  int bm, bn;
+  dw_tile(a.Cin, a.Cout, &bm, &bn);
+  if (bm == 128 && bn == 128) return launch_gemm<kDw, 128, 128, 8, 8>(a);
+  if (bm == 128) return launch_gemm<kDw, 128, 64, 8, 4>(a);
+  if (bm == 64) return launch_gemm<kDw, 64, 64, 4, 4>(a);
+  if (bm == 32 && bn == 128) return launch_gemm<kDw, 32, 128, 4, 4>(a);
+  if (bm == 32) return launch_gemm<kDw, 32, 64, 2, 4>(a);
+  if (bn == 128) return launch_gemm<kDw, 16, 128, 2, 4>(a);
+  return launch_gemm<kDw, 16, 64, 1, 4>(a);
 }
 
 bool sizes_ok(int batch, int H, int W, int Cin, int Cout) {
@@ -361,10 +842,17 @@ extern "C" int mia_conv_transpose2x_f32(const void* x, const void* w, const void
   if (!sizes_ok(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
   const long long pixels = static_cast<long long>(batch) * H * W;
   if (pixels == 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(launch_by_width<kFwd>(
-      static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
-      static_cast<const float*>(bias), static_cast<float*>(out), pixels, W, Cin, Cout, 4 * Cout,
-      static_cast<cudaStream_t>(stream)));
+  const LaunchArgs a{static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
+                     static_cast<const float*>(bias), static_cast<float*>(out), nullptr,
+                     pixels, W, Cin, Cout, 0, 1, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_product<kFwd>(a));
+}
+
+// The route each product of a stage takes: 1 the tensor cores, 0 the CUDA
+// cores; product 0 the forward, 1 dx, 2 dw (and db).
+extern "C" int mia_conv_transpose2x_route(int batch, int H, int W, int Cin, int Cout, int product) {
+  if (!sizes_ok(batch, H, W, Cin, Cout) || product < kFwd || product > kDw) return -1;
+  return route_tc(product, static_cast<long long>(batch) * H * W, Cin, Cout) ? 1 : 0;
 }
 
 // Number of pixel chunks the backward splits dw into: the caller allocates
@@ -389,50 +877,23 @@ extern "C" int mia_conv_transpose2x_bwd_f32(const void* x, const void* w, const 
   if (!sizes_ok(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
   const long long pixels = static_cast<long long>(batch) * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* dyf = static_cast<const float*>(dy);
+  LaunchArgs a{static_cast<const float*>(x), static_cast<const float*>(w),
+               static_cast<const float*>(dy), nullptr, static_cast<float*>(dx), nullptr,
+               pixels, W, Cin, Cout, 0, 1, s};
   if (dx != nullptr && pixels > 0) {
-    const cudaError_t err = launch_by_width<kDx>(nullptr, wf, dyf, nullptr, static_cast<float*>(dx),
-                                                 pixels, W, Cin, Cout, Cin, s);
+    const cudaError_t err = launch_product<kDx>(a);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dw == nullptr) return static_cast<int>(cudaSuccess);
-  float* pf = static_cast<float*>(part);
-  float* cf = static_cast<float*>(col_sums);
-  const int N4 = 4 * Cout;
-  long long len = kBK;
-  int chunks = 1;
-  if (pixels > 0) dw_chunks(pixels, Cin, Cout, &len, &chunks);
-  int bm, bn;
-  dw_tile(Cin, Cout, &bm, &bn);
-  cudaError_t err;
-#define MIA_DW(BM_, BN_, TM_, TN_)                                                              \
-  launch_gemm<kDw, BM_, BN_, TM_, TN_>(xf, nullptr, dyf, nullptr, pf, cf, pixels, W, Cin, Cout, \
-                                       Cin, N4, len, chunks, s)
-  if (bm == 128 && bn == 128) {
-    err = MIA_DW(128, 128, 8, 8);
-  } else if (bm == 128) {
-    err = MIA_DW(128, 64, 8, 4);
-  } else if (bm == 64) {
-    err = MIA_DW(64, 64, 4, 4);
-  } else if (bm == 32 && bn == 128) {
-    err = MIA_DW(32, 128, 4, 4);
-  } else if (bm == 32) {
-    err = MIA_DW(32, 64, 2, 4);
-  } else if (bn == 128) {
-    err = MIA_DW(16, 128, 2, 4);
-  } else {
-    err = MIA_DW(16, 64, 1, 4);
-  }
-#undef MIA_DW
+  a.out = static_cast<float*>(part);
+  a.col_sums = static_cast<float*>(col_sums);
+  a.chunk_len = kTcBK;  // no pixels: one empty chunk, dw and db zero
+  if (pixels > 0) dw_chunks(pixels, Cin, Cout, &a.chunk_len, &a.chunks);
+  cudaError_t err = launch_product<kDw>(a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(Cin) * N4;
-  conv_transpose2x_dw_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      pf, static_cast<float*>(dw), chunks, Cin, Cout);
-  err = cudaGetLastError();
+  err = launch_reduce<false>(static_cast<const float*>(part), static_cast<float*>(dw), a.chunks,
+                             Cin, Cout, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_transpose2x_db_reduce_kernel<<<(Cout + 127) / 128, 128, 0, s>>>(cf, static_cast<float*>(db),
-                                                                      chunks, Cout);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_reduce<true>(static_cast<const float*>(col_sums),
+                                              static_cast<float*>(db), a.chunks, Cin, Cout, s));
 }

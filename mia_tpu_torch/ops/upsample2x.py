@@ -18,9 +18,13 @@ passes them in output order) and ``b (Cout,)``::
   tensor takes the plain version. When autograd needs a gradient it runs
   inside a ``torch.autograd.Function`` whose backward is
   :func:`conv_transpose2x_fused_bwd` (the backward kernel K10b, or the plain
-  VJP on the CPU). K10b adds its per-chunk partial sums of ``dw``/``db`` in a
-  fixed order, so two launches agree bit for bit. ``launches`` on each wrapper
-  counts kernel launches.
+  VJP on the CPU). Each of the three products (forward, ``dx``, ``dw``) runs
+  on the tensor cores in 3xTF32 (float32 accuracy) where its float32 time is
+  set by operations, and as a float32 tile on the CUDA cores where bytes set
+  it (the thin stages); :func:`k10_routes` says which a shape takes. K10b adds
+  its per-chunk partial sums of ``dw``/``db`` in a fixed order, so two
+  launches agree bit for bit. ``launches`` on each wrapper counts kernel
+  launches.
 """
 
 from __future__ import annotations
@@ -74,7 +78,22 @@ def _k10_functions():
     bwd = lib.mia_conv_transpose2x_bwd_f32
     bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     bwd.restype = ctypes.c_int
-    return fwd, chunks, bwd
+    route = lib.mia_conv_transpose2x_route
+    route.argtypes = [ctypes.c_int] * 6
+    route.restype = ctypes.c_int
+    return fwd, chunks, bwd, route
+
+
+PRODUCTS = ("forward", "dx", "dw")
+
+
+def k10_routes(x_shape, cout: int) -> dict:
+    """The tile product each of K10's products takes on the card for ``x
+    (B, H, W, Cin)`` and ``Cout``: ``"tensor cores"`` (3xTF32) or ``"cuda
+    cores"`` (float32), by product (forward, dx, dw). Builds the library."""
+    route = _k10_functions()[3]
+    names = {1: "tensor cores", 0: "cuda cores"}
+    return {name: names[route(*x_shape, cout, i)] for i, name in enumerate(PRODUCTS)}
 
 
 def _check_k10(label, x, w, **operands):
@@ -122,7 +141,7 @@ def _launch_k10_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
         "K10 backward", x, w, dy=(dy, (x.shape[0], 2 * x.shape[1], 2 * x.shape[2], w.shape[3])))
     if not (need_dx or need_dw):
         return None, None, None
-    _, chunks_of, bwd = _k10_functions()
+    _, chunks_of, bwd, _ = _k10_functions()
     dev = x.device
     dx = torch.empty_like(x) if need_dx else None
     dw = db = part = sums = None

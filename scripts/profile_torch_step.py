@@ -6,7 +6,8 @@ Dice+CE, clip + Adam — the step of ``al_train_torch``; ``--batch 32
 builds the decoder's upsampling as ``EinsumConvTranspose2x`` on kernels K10
 and K10b. Prints the median step time with TF32 convolutions (the port's
 float32 setting) and in full float32, the time of each stage, and a
-``torch.profiler`` table of device time by kernel. Needs a CUDA device.
+``torch.profiler`` table of device time by kernel (with ``--k10`` also every
+K10/K10b device kernel by name). Needs a CUDA device.
 
     python scripts/profile_torch_step.py [--batch 12] [--weight-decay 5e-4] [--k10]
                                          [--trace trace.json]
@@ -122,6 +123,11 @@ def main() -> None:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:20]:
         ms = e.self_device_time_total / 1e3 / 5
         print(f"  {ms:8.3f} {ms / device_ms:6.1%} {e.count // 5:5d}  {e.key[:100]}")
+    if args.k10:
+        print("K10/K10b kernels per step (ms, launches):")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True):
+            if "conv_transpose2x" in e.key:
+                print(f"  {e.self_device_time_total / 1e3 / 5:8.3f} {e.count // 5:5d}  {e.key[:150]}")
     if args.trace is not None:
         prof.export_chrome_trace(str(args.trace))
 

@@ -692,3 +692,75 @@ def test_k10_rejects_what_it_does_not_take(cuda):
         up.conv_transpose2x(x, torch.rand(2, 2, 4, 4, device=cuda), b)
     with pytest.raises(ValueError, match="b must be"):
         up.conv_transpose2x(x, w, torch.rand(8, device=cuda))
+
+
+def _tc_route(product, pixels, cin, cout):
+    """The dispatch rule of csrc/upsample2x.cu: a product (M x N over K)
+    takes the tensor cores when its float32 time is set by operations, 2MNK
+    at 67 TFLOP/s against its operands and result once at 3.35 TB/s."""
+    m, n, k = {"forward": (pixels, 4 * cout, cin), "dx": (pixels, cin, 4 * cout),
+               "dw": (cin, 4 * cout, pixels)}[product]
+    return 2 * m * n * k >= 20 * 4 * (m * k + k * n + m * n)
+
+
+def _expected_routes(shape):
+    b, h, w, cin, cout = shape
+    return {p: "tensor cores" if _tc_route(p, b * h * w, cin, cout) else "cuda cores"
+            for p in ("forward", "dx", "dw")}
+
+
+# Shapes at the edges of the tiles, on both routes: pixels not a multiple of
+# 128, Cin 20, 48 and 520, Cout 20 (4·Cout = 80), one dw chunk and many.
+@pytest.mark.parametrize("shape,route", [((1, 12, 13, 520, 20), "tensor cores"),
+                                         ((6, 21, 22, 256, 64), "tensor cores"),
+                                         ((2, 16, 16, 256, 20), "tensor cores"),
+                                         ((4, 16, 16, 48, 512), "tensor cores"),
+                                         ((4, 20, 27, 48, 64), "cuda cores"),
+                                         ((3, 5, 7, 20, 20), "cuda cores")])
+def test_k10_and_k10b_at_tile_edges(cuda, shape, route):
+    from mia_tpu_torch.ops import upsample2x as up
+
+    b, h, w, cin, cout = shape
+    assert up.k10_routes((b, h, w, cin), cout) == {p: route for p in up.PRODUCTS}
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(b, h, w, cin, generator=gen, device=cuda).clamp_min(0.0)
+    wt = torch.randn(2, 2, cin, cout, generator=gen, device=cuda) * cin ** -0.5
+    bias = torch.randn(cout, generator=gen, device=cuda)
+    dy = torch.randn(b, 2 * h, 2 * w, cout, generator=gen, device=cuda)
+    got = up.conv_transpose2x(x, wt, bias)
+    first = up.conv_transpose2x_fused_bwd(x, wt, dy)
+    torch.cuda.synchronize()
+    assert _rel_err(got, up.conv_transpose2x_plain(x, wt, bias)) <= 1e-5
+    for g, want in zip(first, up.conv_transpose2x_bwd_plain(x, wt, dy)):
+        assert g.shape == want.shape and _rel_err(g, want) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 12, 13, 520, 20), (6, 21, 22, 256, 64),
+                                   (12, 16, 16, 512, 256), (4, 20, 27, 48, 64)])
+def test_k10b_is_bit_identical_and_dx_alone_equals_the_full_backward(cuda, shape):
+    from mia_tpu_torch.ops import upsample2x as up
+
+    b, h, w, cin, cout = shape
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(b, h, w, cin, generator=gen, device=cuda)
+    wt = torch.randn(2, 2, cin, cout, generator=gen, device=cuda) * cin ** -0.5
+    dy = torch.randn(b, 2 * h, 2 * w, cout, generator=gen, device=cuda)
+    first = up.conv_transpose2x_fused_bwd(x, wt, dy)
+    again = up.conv_transpose2x_fused_bwd(x, wt, dy)
+    only_dx = up.conv_transpose2x_fused_bwd(x, wt, dy, need_dw=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+    assert only_dx[1] is None and only_dx[2] is None and torch.equal(only_dx[0], first[0])
+
+
+def test_k10_stages_take_the_route_the_dispatch_rule_names(cuda):
+    import chip_smoke
+    from mia_tpu_torch.ops import upsample2x as up
+
+    taken = {label: up.k10_routes((b, h, w, cin), cout)
+             for label, (b, h, w, cin, cout), _ in chip_smoke.UPSAMPLE_STAGES}
+    want = {label: _expected_routes(shape) for label, shape, _ in chip_smoke.UPSAMPLE_STAGES}
+    assert taken == want
+    # the wide stages are bound by operations and take the tensor cores
+    for label in ("UNet 1", "UNet 2", "UNet 3", "UNet 4", "prompt-large 1", "SAM 1"):
+        assert set(taken[label].values()) == {"tensor cores"}, label
