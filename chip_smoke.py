@@ -20,6 +20,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    unpartition + residual + LayerNorm) the same way at the serving shapes
    for batch 1 and 8, a 20x27 grid (K8, K9), a non-aligned token count (K6,
    K7) and head dim 80, through the public wrappers; K9's x_new bit for bit.
+   K7 (3xTF32 on the tensor cores, like K6b) also at an odd token count
+   (35) and with -inf over the first key tile of every other row, two
+   launches bit-identical on every case, and with ``tc_bound_ms``.
    Times each kernel and its plain version in turns with CUDA events, and,
    for the attention kernels, one ``scaled_dot_product_attention`` call on
    the same inputs with the dense bias built beforehand (``library_ms``;
@@ -34,7 +37,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    sweeps) bit for bit on 3 x 12 x 4 class masks of 64x64 pseudo-labels
    (blob, speckled, empty, full) and on a 512x512 stack; timed the same way.
    The backward kernels of K6, K8 and K9 the same way (K6b at the windowed
-   and the global shapes, a non-aligned token count and head dim 80; K8b and
+   and the global shapes, a non-aligned token count and head dim 80, two
+   launches bit-identical, with ``tc_bound_ms``; K8b and
    K9b also on a 20x27 grid, K8b on a grid of whole windows, where dbias_kv
    is exactly zero; K9b's pad slots exactly zero), their library time
    autograd through one ``scaled_dot_product_attention`` call.
@@ -122,8 +126,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    CPU, and one run on the grid-native encoder (K8 under AMG).
 7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
-   paths that ran them, their bounds and library times; K2, K3, K2b and K3b
-   also their tensor-core bound, K2 and K3 their batch-8 numbers under
+   paths that ran them, their bounds and library times; K2, K3, K7, K2b, K3b
+   and K6b also their tensor-core bound, K2 and K3 their batch-8 numbers under
    ``b8``), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -168,9 +172,9 @@ KERNELS = {
            "mia_tpu/ops/morphology.py:235"),
     "K6": ("fused_attention_rel (K6)", "mia_tpu_torch/csrc/attention_routes.cu",
            "mia_tpu/ops/attention.py:296"),
-    "K6b": ("fused_attention_rel backward (K6)", "mia_tpu_torch/csrc/attention_routes.cu",
+    "K6b": ("fused_attention_rel backward (K6)", "mia_tpu_torch/csrc/attention_bwd_tc.cuh",
             "mia_tpu/ops/attention.py:429"),
-    "K7": ("fused_attention (K7)", "mia_tpu_torch/csrc/attention_routes.cu",
+    "K7": ("fused_attention (K7)", "mia_tpu_torch/csrc/attention_fwd_tc.cuh",
            "mia_tpu/ops/attention.py:88"),
     "K8": ("fused_attention_rel_win (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
            "mia_tpu/ops/attention.py:1334"),
@@ -187,8 +191,8 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
-# K2, K3, K2b and K3b run 3xTF32 on the tensor cores: the card's dense TF32 rate, three MMAs a
-# product
+# K2, K3, K7, K2b, K3b and K6b run 3xTF32 on the tensor cores: the card's dense TF32 rate, three
+# MMAs a product
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
 LSE_TOL = 1e-5  # K2's and K3's log-sum-exp against the plain one, absolute (values ~10)
@@ -333,6 +337,13 @@ def backward_holder(torch, worst):
             worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref if ref else 0.0)]
 
     return hold
+
+
+def bit_identical(torch, name, label, first, second):
+    """Fail unless two launches gave the same outputs, bit for bit."""
+    torch.cuda.synchronize()
+    check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(first, second)),
+          f"{name} {label}: two launches differ")
 
 
 def head_major(qkv, heads):
@@ -1067,11 +1078,6 @@ def train_kernel_phase(torch, device):
 
     hold = backward_holder(torch, worst)
 
-    def bit_identical(name, label, first, second):
-        torch.cuda.synchronize()
-        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(first, second)),
-              f"{name} {label}: two launches differ")
-
     ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
     rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
     timed = {}
@@ -1094,7 +1100,7 @@ def train_kernel_phase(torch, device):
             hold("K2b", f"{label} tables={tables}", got,
                  attention.attention_rel_packed_ik_bwd(qkv, rh, rw, out, g, scale, (ws, ws), heads,
                                                        tables))
-            bit_identical("K2b", f"{label} tables={tables}", got,
+            bit_identical(torch, "K2b", f"{label} tables={tables}", got,
                           attention._launch_k2_bwd(*k2b_args))
         timed[("K2b", label)] = ((qkv, rh, rw, out, g, lse, scale, (ws, ws), heads, False),
                                  (qkv, rh, rw, out, g, scale, (ws, ws), heads, False))
@@ -1107,7 +1113,7 @@ def train_kernel_phase(torch, device):
         plain_args = (qkv, rel_h, rel_w, out, g, scale, (side, side), heads)
         got = attention._launch_k3_bwd(*kernel_args)
         hold("K3b", label, got, attention.attention_rel_packed_bwd(*plain_args))
-        bit_identical("K3b", label, got, attention._launch_k3_bwd(*kernel_args))
+        bit_identical(torch, "K3b", label, got, attention._launch_k3_bwd(*kernel_args))
         timed[("K3b", label)] = (kernel_args, plain_args)
 
     # K5: 12 images x 3 decoders of 4-class pseudo-labels at the prompt
@@ -1210,20 +1216,30 @@ def route_kernel_phase(torch, device):
     inputs = {}
 
     # K6 and K7: head-major operands of one ViT-B/512 image (9 windows x 12
-    # heads of 196 tokens; 12 heads of 1024 global tokens), of 8 images, a
-    # token count no tile divides, and the ViT-H head dim
+    # heads of 196 tokens; 12 heads of 1024 global tokens), of 8 images, token
+    # counts no tile divides (35 is odd: K7 copies its bias 4 bytes at a
+    # time), and the ViT-H head dim; K7 (3xTF32) also with -inf over the
+    # first key tile of every other row (64 keys, the wider of its two tile
+    # widths) and two launches bit-identical on every case
     for label, bh, d, k_hw in (("B=1 windows", 108, 64, (14, 14)), ("B=1 global", 12, 64, (32, 32)),
                                ("B=8 windows", 864, 64, (14, 14)), ("B=8 global", 96, 64, (32, 32)),
-                               ("N=120 (10x12)", 6, 64, (10, 12)),
+                               ("N=120 (10x12)", 6, 64, (10, 12)), ("N=35 (5x7)", 4, 64, (5, 7)),
                                ("head dim 80", 144, 80, (14, 14))):
         n = k_hw[0] * k_hw[1]
         q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         args = (q, k, v, randn(bh, n, k_hw[0]), randn(bh, n, k_hw[1]), d ** -0.5, k_hw)
         hold("K6", label, attention.fused_attention_rel(*args), attention.attention_rel(*args))
         inputs[("K6", label)] = args
-        args = (q, k, v, randn(bh, n, n), d ** -0.5)
-        hold("K7", label, attention.fused_attention(*args), attention.attention_dense(*args))
-        inputs[("K7", label)] = args
+        cases = {label: (q, k, v, randn(bh, n, n), d ** -0.5)}
+        if label == "B=1 windows":
+            masked = randn(bh, n, n)
+            masked[:, ::2, :64] = -math.inf
+            cases["-inf over the first key tile of every other row"] = (q, k, v, masked, d ** -0.5)
+        for case, args in cases.items():
+            got = attention.fused_attention(*args)
+            hold("K7", case, got, attention.attention_dense(*args))
+            bit_identical(torch, "K7", case, (got,), (attention.fused_attention(*args),))
+        inputs[("K7", label)] = cases[label]
     # K8: the unpartitioned qkv grid; 32x32 pads each edge window, 20x27 both ways
     for label, b, hw, n_heads, d in (("B=1", 1, (32, 32), heads, 64), ("B=8", 8, (32, 32), heads, 64),
                                      ("grid 20x27", 2, (20, 27), heads, 64),
@@ -1266,6 +1282,7 @@ def route_kernel_phase(torch, device):
             return {"library_ms": lib, **bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
         q, k, v = (t[None] for t in args[:3])
         bh, n, d = args[0].shape
+        flops = attention_flops(bh, n, n, d)
         if name == "K6":
             bias, sc = dense_bias(args[3], args[4], 1, bh), args[5]
             moved = [*args[:5], args[0]]
@@ -1273,7 +1290,8 @@ def route_kernel_phase(torch, device):
             bias, sc = args[3][None], args[4]
             moved = [*args[:4], args[0]]
         lib = sdpa_ms(torch, q, k, v, bias, sc, per_block)
-        return {"library_ms": lib, **bound(moved, attention_flops(bh, n, n, d))}
+        tc = {"tc_bound_ms": tc_bound_ms(moved, flops)} if name == "K7" else {}  # 3xTF32
+        return {"library_ms": lib, **bound(moved, flops), **tc}
 
     fns = {"K6": (attention._launch_k6, attention.attention_rel),
            "K7": (attention._launch_k7, attention.attention_dense),
@@ -1294,14 +1312,17 @@ def route_kernel_phase(torch, device):
             if label.startswith("B=1"):
                 m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
                      **bound_and_library(name, args, per_block)}
-                print(f"{name} at ViT-B/512 {label}: {describe_yardsticks(m)}")
+                tc = (f", 3xTF32 tensor-core bound {m['tc_bound_ms'] * 1e3:.2f} us"
+                      if "tc_bound_ms" in m else "")
+                print(f"{name} at ViT-B/512 {label}: {describe_yardsticks(m)}{tc}")
                 if label == "B=1 global":  # the same kernel at the global blocks' shape
                     out[name]["global_tokens"] = m
                 else:
                     out[name] = {"max_abs_err": worst[name][0], **m}
         print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
-              + ("; x_new bit-exact" if name == "K9" else ""))
+              + ("; x_new bit-exact" if name == "K9" else "")
+              + ("; two launches bit-identical on every case" if name == "K7" else ""))
     return out
 
 
@@ -1328,7 +1349,8 @@ def route_bwd_kernel_phase(torch, device):
 
     # K6b: head-major operands of 12 and 6 ViT-B/512 images (9 windows x 12
     # heads of 196 tokens each; 12 heads of 1024 global tokens each), a token
-    # count no tile divides, and the ViT-H head dim
+    # count no tile divides, and the ViT-H head dim; 3xTF32 on the tensor
+    # cores, so also two launches bit-identical
     for label, bh, d, k_hw in (("B=12 windows", 1296, 64, (14, 14)), ("B=12 global", 144, 64, (32, 32)),
                                ("B=6 windows", 648, 64, (14, 14)), ("B=6 global", 72, 64, (32, 32)),
                                ("N=120 (10x12)", 6, 64, (10, 12)),
@@ -1340,8 +1362,9 @@ def route_bwd_kernel_phase(torch, device):
         g = randn(bh, n, d)
         kernel_args = (*fwd, out, g, lse, d ** -0.5, k_hw)
         plain_args = (*fwd, out, g, d ** -0.5, k_hw)
-        hold("K6b", label, attention._launch_k6_bwd(*kernel_args),
-             attention.attention_rel_bwd(*plain_args))
+        got = attention._launch_k6_bwd(*kernel_args)
+        hold("K6b", label, got, attention.attention_rel_bwd(*plain_args))
+        bit_identical(torch, "K6b", label, got, attention._launch_k6_bwd(*kernel_args))
         timed[("K6b", label)] = (kernel_args, plain_args)
     # K8b: 32x32 pads each edge window, 20x27 both ways, 28x28 is whole windows
     # (dbias_kv exactly zero)
@@ -1404,8 +1427,10 @@ def route_bwd_kernel_phase(torch, device):
         bh, n, d = q.shape
         lib = sdpa_backward_ms(torch, q[None], k[None], v[None], dense_bias(rel_h, rel_w, 1, bh), sc,
                                g[None], 5)
-        return {"library_ms": lib, **bound([q, k, v, rel_h, rel_w, o, g, q, k, v, rel_h, rel_w],
-                                           attention_flops(bh, n, n, d, backward=True))}
+        moved = [q, k, v, rel_h, rel_w, o, g, q, k, v, rel_h, rel_w]
+        flops = attention_flops(bh, n, n, d, backward=True)
+        # K6b runs 3xTF32 on the tensor cores: its own bound beside the float32 one
+        return {"library_ms": lib, **bound(moved, flops), "tc_bound_ms": tc_bound_ms(moved, flops)}
 
     fns = {"K6b": (attention._launch_k6_bwd, attention.attention_rel_bwd),
            "K8b": (attention._launch_k8_bwd, attention.attention_rel_win_bwd),
@@ -1425,14 +1450,17 @@ def route_bwd_kernel_phase(torch, device):
             if label.startswith("B=12"):
                 m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
                      **bound_and_library(name, k_args)}
-                print(f"{name} at ViT-B/512 training {label}: {describe_yardsticks(m)}")
+                tc = (f", 3xTF32 tensor-core bound {m['tc_bound_ms'] * 1e3:.2f} us"
+                      if "tc_bound_ms" in m else "")
+                print(f"{name} at ViT-B/512 training {label}: {describe_yardsticks(m)}{tc}")
                 if label == "B=12 global":  # the same kernel at the global blocks' shape
                     out[name]["global_tokens"] = m
                 else:
                     out[name] = {"max_abs_err": worst[name][0], **m}
         print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
-              + ("; pad slots exactly zero" if name == "K9b" else ""))
+              + ("; pad slots exactly zero" if name == "K9b" else "")
+              + ("; two launches bit-identical on every case" if name == "K6b" else ""))
     return out
 
 

@@ -1,34 +1,28 @@
 // The SIMT backward attention template of the port, in float32:
 // FlashAttention-2 style from the forward's per-row log-sum-exp, beside the
 // forward template in attention_fwd.cuh. attention_routes.cu instantiates it
-// for K6b (head-major operands) and K8b (windows carved from the
-// unpartitioned token grid). K2b and K3b (packed qkv) run the tensor-core
-// template of attention_bwd_tc.cuh, which also takes BwdArgs from here.
+// once, for K8b (windows carved from the unpartitioned token grid). K2b, K3b
+// (packed qkv) and K6b (head-major) run the tensor-core template of
+// attention_bwd_tc.cuh, which also takes BwdArgs from here.
 //
-// Replaces the TPU backward kernels of mia_tpu/ops/attention.py
-//   K6b  _rel_bwd             (_rel_bwd_kernel)
+// Replaces the TPU backward kernel of mia_tpu/ops/attention.py
 //   K8b  _rel_win_bwd         (_attn_rel_win_bwd_kernel)
-// which hold every key of a query block at once and recompute the whole
-// softmax row (K6b also accumulates dk and dv across query blocks by
-// revisiting one output block, which only a sequential grid allows). Here
-// the forward's log-sum-exp gives the probabilities directly,
+// which holds every key of a query block at once and recomputes the whole
+// softmax row. Here the forward's log-sum-exp gives the probabilities directly,
 // p = exp(s - lse), and the work splits in two passes that write disjoint
 // outputs, so there are no atomics and the result is deterministic:
 //
 //   kernel A, one block per 32-query tile: delta = rowsum(g * o),
 //     ds = p (dp - delta) with dp = g . v, dq = scale * ds . k, and the rel
 //     gradients drel_h[n, j] = sum_{k / kw == j} ds[n, k] (drel_w likewise
-//     over k % kw). A also stores delta for kernel B. (The kRelTables branch,
-//     drel routed back into dq through two tables, has no instance now.)
+//     over k % kw). A also stores delta for kernel B.
 //   kernel B, one block per 32-key tile: loops over the query tiles for
 //     dk = scale * ds^T . q and dv = p^T . g.
 //
 // Operands are token-major with runtime strides, as in the forward: row
 // `tok` of q lies at q + tok * in_stride + h * D (likewise k, v, dq, dk, dv),
-// row `tok` of out and g at + tok * out_stride + h * D. The packed layout
-// passes column blocks of one qkv (and one dqkv) tensor; the head-major
-// layout passes separate tensors with both strides D and counts every
-// (batch, head) pair as a batch element of one head.
+// row `tok` of out and g at + tok * out_stride + h * D; K8b passes the
+// column blocks of one qkv (and one dqkv) grid.
 //
 // Layout kGrid (K8b): the block's n = ws*ws rows are the slots of one window
 // of a (B, hg, wg) token grid, mapped to tokens by slot_token as in the
@@ -47,9 +41,8 @@
 // (N, N) tensor exists.
 //
 // Bound: operations. Each (query, key) pair costs ~7 x D FMAs over the two
-// passes, all on the FP32 pipe and the shared-memory load slots; moving K6b
-// and K8b onto the tensor-core template of attention_bwd_tc.cuh is later
-// work.
+// passes, all on the FP32 pipe and the shared-memory load slots; moving K8b
+// onto the tensor-core template of attention_bwd_tc.cuh is later work.
 
 #pragma once
 
@@ -71,7 +64,7 @@ struct BwdArgs {
   float* dk;
   float* dv;
   float* delta;         // scratch (B*H, tokens): rowsum(g * o), kernel A -> B
-  float* rel_out;       // kRelTables: scratch (B*H, n, kh+kw), the rel terms, A -> B
+  float* rel_out;       // kRelTables (K2b): scratch (B*H, n, kh+kw), kernel R's rel terms
   float* drel_a;        // kRelTerms: drel_h; kRelTables: drel (B*H, n, kh+kw) or null
   float* drel_b;        // kRelTerms: drel_w
   float* dpad;          // kGrid: (windows * key tiles, 2, heads*D) pad-slot dk | dv partials
@@ -153,15 +146,6 @@ __device__ __forceinline__ void load_rel(float* Rel, int rs, const float* __rest
                                          long long row_base, int slot0, const BwdArgs& a,
                                          int win) {
   const int kh = a.kh, kw = a.kw;
-  if constexpr (!kWindow) {  // the tile's rows are consecutive: loops of exactly rows * kh
-    const int rows = min(kBT, a.n - slot0);
-    const long long rb = row_base + slot0;
-    for (int i = threadIdx.x; i < rows * kh; i += kBwdThreads)
-      Rel[(i / kh) * rs + i % kh] = __ldg(rel_h + (rb + i / kh) * sh + i % kh);
-    for (int i = threadIdx.x; i < rows * kw; i += kBwdThreads)
-      Rel[(i / kw) * rs + kh + i % kw] = __ldg(rel_w + (rb + i / kw) * sw + i % kw);
-    return;
-  }
   for (int i = threadIdx.x; i < kBT * kh; i += kBwdThreads) {
     const int r = i / kh;
     const int j = i - r * kh;
@@ -176,13 +160,12 @@ __device__ __forceinline__ void load_rel(float* Rel, int rs, const float* __rest
   }
 }
 
-// Kernel A: dq, delta, the rel-term gradients (and, kRelTables, the rel terms).
+// Kernel A: dq, delta and the rel-term gradients. (kBias and kLayout name
+// the instance in a trace: K8b is <D, kRelTerms, kGrid>.)
 template <int D, int kBias, int kLayout>
 __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dq_kernel(const BwdArgs a) {
   constexpr bool kWindow = kLayout == kGrid;
-  constexpr bool kInKernelRel = kBias == kRelTables;
-  static_assert(kBias != kDense, "the dense-bias backward is plain tensor code");
-  static_assert(!(kWindow && kInKernelRel), "the grid layout takes precomputed rel terms");
+  static_assert(kBias == kRelTerms, "the rel terms are inputs");
   constexpr int kRow = D + 4;
   constexpr int kDQ = D / 4;  // dq columns per thread (a quarter of the head)
   extern __shared__ float4 smem4[];
@@ -228,8 +211,7 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dq_kernel(const Bwd
   load_rows<D, kWindow>(Qs, q_base, stride, row0, a, win, nullptr);
   load_rows<D, kWindow>(Gs, g_base, ostride, row0, a, win, nullptr);
   for (int i = t; i < kBT * rs; i += kBwdThreads) DRel[i] = 0.f;
-  if constexpr (!kInKernelRel)
-    load_rel<kWindow>(Rel, rs, a.rel_a, kh, a.rel_b, kw, bh * tokens, row0, a, win);
+  load_rel<kWindow>(Rel, rs, a.rel_a, kh, a.rel_b, kw, bh * tokens, row0, a, win);
   __syncthreads();
 
   // delta = rowsum(g * o), one warp per row
@@ -247,24 +229,6 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dq_kernel(const Bwd
       lse_s[r] = tok >= 0 ? __ldg(a.lse + bh * tokens + tok) : 0.f;
       tok_s[r] = tok;
       if (tok >= 0) a.delta[bh * tokens + tok] = acc;
-    }
-  }
-  if constexpr (kInKernelRel) {  // rel_h[n, j] = q_n . rh[y_n*kh + j], rel_w from rw, unscaled q
-    const int ka = kh + kw;
-    for (int i = t; i < rows * ka; i += kBwdThreads) {
-      const int r = i / ka;
-      const int j = i - r * ka;
-      const int y = (row0 + r) / kw;
-      const int x = (row0 + r) - y * kw;
-      const float* tab = j < kh ? a.rel_a + static_cast<long long>(y * kh + j) * D
-                                : a.rel_b + static_cast<long long>(x * kw + (j - kh)) * D;
-      const float4* q4 = reinterpret_cast<const float4*>(Qs + r * kRow);
-      const float4* t4 = reinterpret_cast<const float4*>(tab);
-      float acc = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < D / 4; ++c) acc += dot4(q4[c], __ldg(t4 + c));
-      Rel[r * rs + j] = acc;
-      a.rel_out[(bh * n + row0 + r) * ka + j] = acc;
     }
   }
 
@@ -329,61 +293,29 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dq_kernel(const Bwd
 
   const int my_tok = tok_s[lane];
   if (my_tok >= 0) {
-    const int r = lane;
 #pragma unroll
     for (int i = 0; i < kDQ; ++i) dq[i] *= a.scale;
-    if constexpr (kInKernelRel) {  // dq += drel_h . rh[y_n*kh + :] + drel_w . rw[x_n*kw + :]
-      const int y = (row0 + r) / kw;
-      const int x = (row0 + r) - y * kw;
-      for (int j = 0; j < kh + kw; ++j) {
-        const float w = DRel[r * rs + j];
-        const float* tab = j < kh ? a.rel_a + static_cast<long long>(y * kh + j) * D
-                                  : a.rel_b + static_cast<long long>(x * kw + (j - kh)) * D;
-        const float4* t4 = reinterpret_cast<const float4*>(tab + qd0);
-#pragma unroll
-        for (int c = 0; c < kDQ / 4; ++c) {
-          const float4 tv = __ldg(t4 + c);
-          dq[4 * c + 0] = fmaf(w, tv.x, dq[4 * c + 0]);
-          dq[4 * c + 1] = fmaf(w, tv.y, dq[4 * c + 1]);
-          dq[4 * c + 2] = fmaf(w, tv.z, dq[4 * c + 2]);
-          dq[4 * c + 3] = fmaf(w, tv.w, dq[4 * c + 3]);
-        }
-      }
-    }
     float4* dst = reinterpret_cast<float4*>(a.dq + (tok0 + my_tok) * stride + head * D + qd0);
 #pragma unroll
     for (int c = 0; c < kDQ / 4; ++c)
       dst[c] = make_float4(dq[4 * c + 0], dq[4 * c + 1], dq[4 * c + 2], dq[4 * c + 3]);
   }
   // the rel gradients of the tile
-  if constexpr (kInKernelRel) {
-    if (a.drel_a != nullptr) {
-      const int ka = kh + kw;
-      for (int i = t; i < rows * ka; i += kBwdThreads)
-        a.drel_a[(bh * n + row0) * ka + i] = DRel[(i / ka) * rs + i % ka];
-    }
-  } else {
-    for (int i = t; i < kBT * kh; i += kBwdThreads) {
-      const int r = i / kh;
-      const int j = i - r * kh;
-      if (tok_s[r] >= 0) a.drel_a[(bh * tokens + tok_s[r]) * kh + j] = DRel[r * rs + j];
-    }
-    for (int i = t; i < kBT * kw; i += kBwdThreads) {
-      const int r = i / kw;
-      const int j = i - r * kw;
-      if (tok_s[r] >= 0) a.drel_b[(bh * tokens + tok_s[r]) * kw + j] = DRel[r * rs + kh + j];
-    }
+  for (int i = t; i < kBT * kh; i += kBwdThreads) {
+    const int r = i / kh;
+    const int j = i - r * kh;
+    if (tok_s[r] >= 0) a.drel_a[(bh * tokens + tok_s[r]) * kh + j] = DRel[r * rs + j];
+  }
+  for (int i = t; i < kBT * kw; i += kBwdThreads) {
+    const int r = i / kw;
+    const int j = i - r * kw;
+    if (tok_s[r] >= 0) a.drel_b[(bh * tokens + tok_s[r]) * kw + j] = DRel[r * rs + kh + j];
   }
 }
 
-// Kernel B: dk and dv of one 32-key tile, looping over all query tiles. The
-// rel terms come from rel_h / rel_w with row strides sh / sw (kRelTerms: the
-// inputs; kRelTables: kernel A's rel_out, both views of one (BH, n, kh+kw)
-// buffer).
+// Kernel B: dk and dv of one 32-key tile, looping over all query tiles.
 template <int D, int kLayout>
-__global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(
-    const BwdArgs a, const float* __restrict__ rel_h, int sh, const float* __restrict__ rel_w,
-    int sw) {
+__global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
   constexpr bool kWindow = kLayout == kGrid;
   constexpr int kRow = D + 4;
   constexpr int kDK = D / 4;  // dk and dv columns per thread
@@ -442,7 +374,7 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(
     __syncthreads();  // previous query tile consumed
     load_rows<D, kWindow>(Qs, q_base, stride, q0, a, win, nullptr);
     load_rows<D, kWindow>(Gs, g_base, ostride, q0, a, win, nullptr);
-    load_rel<kWindow>(Rel, rs, rel_h, sh, rel_w, sw, bh * tokens, q0, a, win);
+    load_rel<kWindow>(Rel, rs, a.rel_a, kh, a.rel_b, kw, bh * tokens, q0, a, win);
     for (int i = t; i < kBT; i += kBwdThreads) {
       const int tok = i < rows ? slot_token<kWindow>(a, q0 + i, win) : -1;
       tok_s[i] = tok;
@@ -536,7 +468,6 @@ size_t bwd_smem_bytes(int kh, int kw) {
 // images); returns the first launch error.
 template <int D, int kBias, int kLayout>
 int launch_bwd_passes(const BwdArgs& a, int blocks_z, cudaStream_t s) {
-  constexpr bool kInKernelRel = kBias == kRelTables;
   const size_t smem = bwd_smem_bytes<D>(a.kh, a.kw);
   const dim3 grid((a.n + kBT - 1) / kBT, a.heads, blocks_z);
   auto ka = attention_bwd_dq_kernel<D, kBias, kLayout>;
@@ -547,11 +478,7 @@ int launch_bwd_passes(const BwdArgs& a, int blocks_z, cudaStream_t s) {
   ka<<<grid, kBwdThreads, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* rel_h = kInKernelRel ? a.rel_out : a.rel_a;
-  const float* rel_w = kInKernelRel ? a.rel_out + a.kh : a.rel_b;
-  const int sh = kInKernelRel ? a.kh + a.kw : a.kh;
-  const int sw = kInKernelRel ? a.kh + a.kw : a.kw;
-  kb<<<grid, kBwdThreads, smem, s>>>(a, rel_h, sh, rel_w, sw);
+  kb<<<grid, kBwdThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,10 +2,11 @@
 // kernel body (online softmax over 32-key tiles in shared memory) whose
 // instances differ in where q, k, v come from and where the additive bias
 // comes from. attention_routes.cu instantiates it for K6 (head-major
-// operands), K7 (dense bias) and K8 (windows carved from the unpartitioned
-// token grid). K2 and K3 (packed qkv) run the tensor-core template of
-// attention_fwd_tc.cuh, which takes FwdArgs from here. The backward
-// templates are attention_bwd.cuh and attention_bwd_tc.cuh.
+// operands) and K8 (windows carved from the unpartitioned token grid), both
+// with the factored rel bias. K2, K3 (packed qkv) and K7 (dense bias) run
+// the tensor-core template of attention_fwd_tc.cuh, which takes FwdArgs and
+// BiasKind from here. The backward templates are attention_bwd.cuh and
+// attention_bwd_tc.cuh.
 //
 // Every instance computes, per (batch element or window b, head h, query n),
 //
@@ -18,14 +19,11 @@
 // in_stride = D and counts every (batch, head) pair as a batch element of
 // one head.
 //
-// Bias (template parameter kBias; kRelTables, the rel terms from two
-// gathered tables, names K2's and K2b's case and has no instance here):
-//   kRelTerms   rel_a = rel_h (.., k_h), rel_b = rel_w (.., k_w), one row per
-//               query: bias[n, k] = rel_h[n, k / k_w] + rel_w[n, k % k_w];
-//   kDense      rel_a = bias (B*H, n, n), staged tile by tile beside the k
-//               tile; the ragged last tile is masked by the loop bounds.
-// The factored bias is two shared-memory loads and an add per score; the
-// (n, n) bias never exists unless the caller hands one in (kDense).
+// Bias (BiasKind, a template parameter that names the instances in a
+// trace; all of them are kRelTerms): rel_a = rel_h (.., k_h), rel_b =
+// rel_w (.., k_w), one row per query: bias[n, k] = rel_h[n, k / k_w] +
+// rel_w[n, k % k_w], two shared-memory loads and an add per score; the
+// (n, n) bias never exists.
 //
 // Layout kGrid (kWindow in the body): the block's n = ws*ws rows are the
 // slots of one window of a (B, hg, wg) token grid. Slot (i, j) of window (wy, wx) is grid token
@@ -65,6 +63,9 @@ constexpr int kBK = 32;        // key/value rows staged per shared-memory tile
 constexpr int kChunk = 8;      // keys a thread scores before one online-softmax rescale
 constexpr int kBlocksPerSM = 3;  // resident blocks at D = 64 (168 registers a thread)
 
+// kRelTables: the rel terms from two gathered tables (K2, K2b); kRelTerms:
+// rel_h, rel_w given (K3, K3b, K6, K6b, K8, K8b); kDense: rel_a is a dense
+// (B*H, n, n) bias (K7).
 enum BiasKind { kRelTables = 0, kRelTerms = 1, kDense = 2 };
 // Where the rows come from. kPacked and kHeadMajor run the same code (the
 // strides are runtime arguments); the parameter gives the head-major kernels
@@ -133,8 +134,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
   float* vs = ks + kBK * kRow;                  // kBK x kRow
   float* rel = vs + kBK * kRow;                 // kBQ x rs
   const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw;
-  // odd row stride: column reads hit 32 banks
-  const int rs = kBias == kDense ? kBK + 1 : kh + kw + 1;
+  const int rs = kh + kw + 1;  // odd row stride: column reads hit 32 banks
 
   const int t = threadIdx.x;
   const int q_local = t / kSplit;
@@ -176,16 +176,16 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
   }
 
   // this tile's rel terms into shared memory
-  static_assert(kBias != kRelTables, "K2's rel terms run in attention_fwd_tc.cuh");
+  static_assert(kBias == kRelTerms, "K2, K3 and K7 run in attention_fwd_tc.cuh");
   float* my_rel = rel + q_local * rs;
-  if constexpr (kBias == kRelTerms && kWindow) {  // this query's rows of the grid layout
+  if constexpr (kWindow) {  // this query's rows of the grid layout
     if (active) {
       const float* ra = a.rel_a + (bh * tokens + tok) * kh;
       const float* rb = a.rel_b + (bh * tokens + tok) * kw;
       for (int j = split; j < kh; j += kSplit) my_rel[j] = __ldg(ra + j);
       for (int j = split; j < kw; j += kSplit) my_rel[kh + j] = __ldg(rb + j);
     }
-  } else if constexpr (kBias == kRelTerms) {  // the tile's rows are contiguous
+  } else {  // the tile's rows are contiguous
     const int rows = min(kBQ, n - row0);
     const float* ra = a.rel_a + (bh * n + row0) * kh;
     const float* rb = a.rel_b + (bh * n + row0) * kw;
@@ -226,23 +226,12 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
       reinterpret_cast<float4*>(ks + r * kRow)[c] = __ldg(reinterpret_cast<const float4*>(ksrc) + c);
       reinterpret_cast<float4*>(vs + r * kRow)[c] = __ldg(reinterpret_cast<const float4*>(vsrc) + c);
     }
-    if constexpr (kBias == kDense) {  // the bias tile of these queries and keys
-      const int rows = min(kBQ, n - row0);
-      for (int i = t; i < rows * kBK; i += kThreads) {
-        const int r = i / kBK;
-        const int c = i - r * kBK;
-        if (c < nk) rel[r * rs + c] = __ldg(a.rel_a + (bh * n + row0 + r) * n + k0 + c);
-      }
-    }
     __syncthreads();
     if (!active) continue;
 
     // this thread's keys of the tile, j = split + c * kSplit, in chunks
-    int yk = 0, xk = 0;
-    if constexpr (kBias != kDense) {
-      yk = (k0 + split) / kw;
-      xk = (k0 + split) - yk * kw;
-    }
+    int yk = (k0 + split) / kw;
+    int xk = (k0 + split) - yk * kw;
     for (int c0 = 0; c0 * kSplit < nk; c0 += kChunk) {
       float s[kChunk];
       float cmax = -INFINITY;
@@ -250,15 +239,11 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
       for (int c = 0; c < kChunk; ++c) {
         const int j = split + (c0 + c) * kSplit;
         if (j < nk) {
-          if constexpr (kBias == kDense) {
-            s[c] = dot_row<D>(q, ks + j * kRow) + my_rel[j];
-          } else {
-            s[c] = dot_row<D>(q, ks + j * kRow) + my_rel[yk] + my_rel[kh + xk];
-            xk += kSplit;
-            while (xk >= kw) {
-              xk -= kw;
-              ++yk;
-            }
+          s[c] = dot_row<D>(q, ks + j * kRow) + my_rel[yk] + my_rel[kh + xk];
+          xk += kSplit;
+          while (xk >= kw) {
+            xk -= kw;
+            ++yk;
           }
         } else {
           s[c] = -INFINITY;
@@ -334,7 +319,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <int D, int kBias, int kLayout, int kSplit>
 int launch_fwd_split(const FwdArgs& a, int blocks_z, cudaStream_t stream) {
   constexpr int kBQ = kThreads / kSplit;
-  const int rs = kBias == kDense ? kBK + 1 : a.kh + a.kw + 1;
+  const int rs = a.kh + a.kw + 1;
   const size_t smem = sizeof(float) * (2 * kBK * (D + 4) + kBQ * rs);
   auto kernel = attention_fwd_kernel<D, kBias, kLayout, kSplit>;
   const cudaError_t err = allow_smem(kernel, smem);

@@ -1,21 +1,29 @@
 // The tensor-core forward attention template of the port: FlashAttention-2
-// style on the packed qkv layout, both products in 3xTF32 on Hopper's tensor
-// cores (the helpers of tf32_mma.cuh). attention_rel.cu instantiates it for
-// K3 (kTables false: the rel terms rel_h (B*H, n, kh), rel_w (B*H, n, kw)
-// are inputs) and K2 (kTables true: kernel R of attention_rel.cu first
-// computes them from the two gathered tables into one (B*H, n, kh + kw)
-// buffer). The backward counterpart is attention_bwd_tc.cuh.
+// style, both products in 3xTF32 on Hopper's tensor cores (the helpers of
+// tf32_mma.cuh), on token-major operands with runtime strides (FwdArgs of
+// attention_fwd.cuh). The bias kind (BiasKind) is a template parameter:
+//   kRelTables  K2 (attention_rel.cu): kernel R of attention_rel.cu first
+//               computes the rel terms from the two gathered tables into
+//               one (B*H, n, kh + kw) buffer; packed qkv;
+//   kRelTerms   K3 (attention_rel.cu): the rel terms rel_h (B*H, n, kh),
+//               rel_w (B*H, n, kw) are inputs; packed qkv;
+//   kDense      K7 (attention_routes.cu): a dense (B*H, n, n) additive bias
+//               on head-major operands (heads = 1, strides D, every (batch,
+//               head) pair a batch element).
+// The backward counterpart is attention_bwd_tc.cuh.
 //
 // Replaces the TPU forward kernels of mia_tpu/ops/attention.py
 //   K3  fused_attention_rel_packed     (_attn_rel_packed_kernel)
 //   K2  fused_attention_rel_packed_ik  (_attn_rel_packed_ik_kernel)
-// which fold the rel terms into one MXU product of [q*s | rel_h | rel_w]
-// against [k | E_h | E_w] over key blocks padded to 128 rows. Per (batch
-// element or window b, head h, query n), with q, k, v the column blocks of
-// qkv[b] at h*D, (H+h)*D, (2H+h)*D:
+//   K7  fused_attention                (_attn_kernel)
+// K2 and K3 fold the rel terms into one MXU product of [q*s | rel_h | rel_w]
+// against [k | E_h | E_w] over key blocks padded to 128 rows; K7 pads N to
+// 128 and masks the pad keys with -1e30. Per (batch element or window b,
+// head h, query n), with q, k, v the rows of b at head h:
 //
-//   out[b, n, h*D:(h+1)*D] = softmax_k(q_n.k_k * scale + rel_h[n, k / kw]
-//                                      + rel_w[n, k % kw]) . v
+//   out[b, n, h*D:(h+1)*D] = softmax_k(q_n.k_k * scale + bias[n, k]) . v
+//   bias[n, k]             = rel_h[n, k / kw] + rel_w[n, k % kw]   (K2, K3)
+//                          = bias[b, n, k]                          (K7)
 //   lse[b*H + h, n]        = the row's log-sum-exp (when lse is not null)
 //
 // Design: one block of 4 warps per (64-query tile, head, b); each warp owns
@@ -25,9 +33,23 @@
 // cp.async into two stages (the next tile lands while this one is
 // computed); rows past n are zero-filled by the copy and score -inf. A
 // tile's scores S = Q.K^T are m16n8k8 accumulators (kKeys / 8 of them a
-// warp); the bias is added from the block's rel rows, staged once in shared
-// memory, then the online softmax of rows g and g + 8 (tile maxima by quad
-// shuffles). P = exp(S - m) is formed in float32 in the same registers and
+// warp); the bias is added, then the online softmax of rows g and g + 8
+// (tile maxima by quad shuffles). K2's and K3's rel rows are staged once in
+// shared memory and each score adds two of them. K7's bias is the kernel's
+// largest stream (4 bytes a (query, key) pair: 50 MB against 12.6 MB of q,
+// k, v and out at 12 x 1024 tokens), so its (64 queries x kKeys keys) tile
+// is a third part of each cp.async stage, beside K and V, and lands with
+// them: every bias element is read from device memory once, while the
+// previous tile's MMAs run. Its rows are padded to kKeys + 8 floats, so the
+// float2 reads of a warp (rows g, columns 2tq, 2tq + 1) fall in 32 banks
+// per half-warp; 16-byte copies when n % 4 == 0, else 4-byte ones. A dense
+// bias may hold -inf (the reference masks padded keys with it): while a
+// row's running maximum is -inf, the update rescales by 0 and subtracts 0
+// (FlashAttention-2's guard), so a row whose first key tiles are all masked
+// gets no NaN and matches the plain softmax once a finite key arrives; a
+// row with no finite key is 0 / 0, as in the plain softmax. The factored
+// rel bias is finite, so K2 and K3 go without the guard.
+// P = exp(S - m) is formed in float32 in the same registers and
 // is the A operand of the tile's P.V with the reduction index relabelled
 // (k = t <-> key 2t, k = t + 4 <-> key 2t + 1), as pass A of the backward
 // does for dS.K. P.V starts from zero in every tile and is folded into the
@@ -46,9 +68,14 @@
 // P is reused from the S accumulator; TF32 wgmma would want P in shared
 // memory (K-major) and both operands there.
 //
-// Bound: operations. 2 x 2 x D flops per (query, key) pair at 495/3
-// TFLOP/s (the card's dense TF32 rate, three MMAs a product); a K/V tile is
-// 2 kKeys (D + 4) floats for 256 kKeys D flops of MMAs.
+// Bound: 2 x 2 x D flops per (query, key) pair at 495/3 TFLOP/s (the
+// card's dense TF32 rate, three MMAs a product). K2 and K3 are bound by
+// operations: a K/V tile is 2 kKeys (D + 4) floats for 256 kKeys D flops of
+// MMAs. K7 adds 4 bytes of bias a pair (64 flops a byte at D = 64, against
+// the card's ~49 at 165 TFLOP/s over 3.35 TB/s) besides q, k, v and out:
+// about even at 12 x 1024 tokens (19.5 us of MMAs, 18.8 us of bytes), bound
+// by bytes at 108 windows of 196 tokens (11.4 us against 6.4 us of MMAs),
+// which is why the bias copy has to overlap the MMAs.
 //
 // The kernels allocate nothing and do not synchronise; the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -64,18 +91,57 @@
 
 namespace {
 
+constexpr int kBiasPad = 8;  // floats of padding a row of K7's staged bias tile
+
+// One tile of K7's dense bias: rows row0 .. row0+63 and keys key0 ..
+// key0+kKeys-1 of (image, head) bh into a [64][kKeys + kBiasPad] tile;
+// entries past n are zero-filled (they are masked, never read as a bias).
+// vec4: 16-byte copies, which need n % 4 == 0 (every run of 4 keys then
+// lies inside one row and starts 16-byte aligned).
+template <int kKeys>
+__device__ __forceinline__ void copy_bias_async(float* dst, const float* __restrict__ bias,
+                                                long long bh, int n, int row0, int key0,
+                                                bool vec4) {
+  constexpr int kBRow = kKeys + kBiasPad;
+  const float* src = bias + (bh * n + row0) * n + key0;
+  if (vec4) {
+    constexpr int kC = kKeys / 4;
+    for (int i = threadIdx.x; i < kTcTile * kC; i += kTcThreads) {
+      const int r = i / kC;
+      const int c = i - r * kC;
+      const bool valid = row0 + r < n && key0 + 4 * c < n;
+      cp_async16(dst + r * kBRow + 4 * c, valid ? src + static_cast<long long>(r) * n + 4 * c : bias,
+                 valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTcTile * kKeys; i += kTcThreads) {
+      const int r = i / kKeys;
+      const int c = i - r * kKeys;
+      const bool valid = row0 + r < n && key0 + c < n;
+      cp_async4(dst + r * kBRow + c, valid ? src + static_cast<long long>(r) * n + c : bias, valid);
+    }
+  }
+}
+
 // A block of kTcThreads (4 warps of 16 query rows) per 64-query tile;
-// kKeys 64: 2 blocks an SM (~205 registers, 86 KB of shared memory at K3's
-// head dim 64); kKeys 32: 3 (168 registers, 51 KB).
-template <int D, bool kTables, int kKeys>
+// kKeys 64: 2 blocks an SM (~205 registers; 86 KB of shared memory at K3's
+// head dim 64, 104 KB with K7's bias tiles); kKeys 32: 3 (168 registers,
+// 51 KB; K7 53 KB). K7 at head dim 80 with 64-key tiles takes 120 KB: one
+// block an SM.
+template <int D, int kBias, int kKeys>
 __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
     attention_fwd_tc_kernel(const FwdArgs a) {
+  constexpr bool kTables = kBias == kRelTables;
+  constexpr bool kDenseBias = kBias == kDense;
   constexpr int kRow = D + 4;    // padded K/V row
   constexpr int kK = D / 8;      // k-steps of S = Q.K^T, n8 tiles of O
   constexpr int kJ = kKeys / 8;  // 8-key groups of a streamed tile
+  constexpr int kBRow = kKeys + kBiasPad;
+  // a stage: [K | V][kKeys][kRow], then (K7) the bias tile [64][kBRow]
+  constexpr int kStage = 2 * kKeys * kRow + (kDenseBias ? kTcTile * kBRow : 0);
   extern __shared__ float4 smem4[];
-  float* KV = reinterpret_cast<float*>(smem4);  // [stage][K | V][kKeys][kRow]
-  float* Rel = KV + 4 * kKeys * kRow;           // the block's rel rows, rel_view
+  float* KV = reinterpret_cast<float*>(smem4);  // [stage][kStage]
+  float* Rel = KV + 2 * kStage;                 // K2, K3: the block's rel rows, rel_view
   const int n = a.n, kw = a.kw;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -93,15 +159,19 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
   const float* v_base = a.v + tok0 * stride + head * D;
   const RelView rv = rel_view<kTables>(a.kh, kw);
   const int ntiles = (n + kKeys - 1) / kKeys;
+  const bool bias_vec4 = (n & 3) == 0;
 
   auto issue = [&](int tile) {
-    float* st = KV + (tile & 1) * 2 * kKeys * kRow;
+    float* st = KV + (tile & 1) * kStage;
     copy_rows_async<D, kKeys>(st, k_base, stride, tile * kKeys, n);
     copy_rows_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    if constexpr (kDenseBias)
+      copy_bias_async<kKeys>(st + 2 * kKeys * kRow, a.rel_a, bh, n, row0, tile * kKeys, bias_vec4);
     cp_async_commit();
   };
-  copy_rel_async<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0,
-                          min(kTcTile, n - row0));  // lands with tile 0
+  if constexpr (!kDenseBias)
+    copy_rel_async<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0,
+                            min(kTcTile, n - row0));  // lands with tile 0
   issue(0);
 
   // this warp's rows r0 = row0 + 16 warp + g and r0 + 8: scale * q fragments
@@ -134,8 +204,9 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
       cp_async_wait<0>();
     }
     __syncthreads();  // tile landed for every thread (the first with the rel rows)
-    const float* Ks = KV + (tile & 1) * 2 * kKeys * kRow;
+    const float* Ks = KV + (tile & 1) * kStage;
     const float* Vs = Ks + kKeys * kRow;
+    const float* Bs = Vs + kKeys * kRow;  // K7: this tile's bias
     const int k0 = tile * kKeys;
     const int nk = min(kKeys, n - k0);
     // one tile; kFull: all kKeys keys present, no per-group branches
@@ -157,38 +228,57 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
           }
         }
       }
-      // + rel_h[row, y] + rel_w[row, x] of key k0 + 8j + 2tq (+1); keys past
-      // n score -inf; the tile's row maxima
+      // + the bias of key k0 + 8j + 2tq (+1); keys past n score -inf; the
+      // tile's row maxima
       float mx0 = -INFINITY, mx1 = -INFINITY;
-      int y = (k0 + 2 * tq) / kw;
-      int x = k0 + 2 * tq - y * kw;
+      if constexpr (kDenseBias) {
 #pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        int y1 = y, x1 = x + 1;  // the odd key's place
-        if (x1 == kw) {
-          x1 = 0;
-          ++y1;
+        for (int j = 0; j < kJ; ++j) {
+          const float2 b0 = *reinterpret_cast<const float2*>(Bs + lr0 * kBRow + 8 * j + 2 * tq);
+          const float2 b1 =
+              *reinterpret_cast<const float2*>(Bs + (lr0 + 8) * kBRow + 8 * j + 2 * tq);
+          const int key = k0 + 8 * j + 2 * tq;
+          const bool in0 = kFull || key < n;
+          const bool in1 = kFull || key + 1 < n;
+          s[j][0] = in0 ? s[j][0] + b0.x : -INFINITY;
+          s[j][1] = in1 ? s[j][1] + b0.y : -INFINITY;
+          s[j][2] = in0 ? s[j][2] + b1.x : -INFINITY;
+          s[j][3] = in1 ? s[j][3] + b1.y : -INFINITY;
+          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
         }
+      } else {
+        // rel_h[row, y] + rel_w[row, x]
+        int y = (k0 + 2 * tq) / kw;
+        int x = k0 + 2 * tq - y * kw;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool odd = e & 1;
-          const bool hi = e & 2;
-          const int key = k0 + 8 * j + 2 * tq + (odd ? 1 : 0);
-          const float v = (kFull || key < n)
-                              ? s[j][e] + rv.bias(Rel, hi ? lr0 + 8 : lr0, odd ? y1 : y,
-                                                  odd ? x1 : x)
-                              : -INFINITY;
-          s[j][e] = v;
-          if (hi) {
-            mx1 = fmaxf(mx1, v);
-          } else {
-            mx0 = fmaxf(mx0, v);
+        for (int j = 0; j < kJ; ++j) {
+          int y1 = y, x1 = x + 1;  // the odd key's place
+          if (x1 == kw) {
+            x1 = 0;
+            ++y1;
           }
-        }
-        x += 8;
-        while (x >= kw) {
-          x -= kw;
-          ++y;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            const bool hi = e & 2;
+            const int key = k0 + 8 * j + 2 * tq + (odd ? 1 : 0);
+            const float v = (kFull || key < n)
+                                ? s[j][e] + rv.bias(Rel, hi ? lr0 + 8 : lr0, odd ? y1 : y,
+                                                    odd ? x1 : x)
+                                : -INFINITY;
+            s[j][e] = v;
+            if (hi) {
+              mx1 = fmaxf(mx1, v);
+            } else {
+              mx0 = fmaxf(mx0, v);
+            }
+          }
+          x += 8;
+          while (x >= kw) {
+            x -= kw;
+            ++y;
+          }
         }
       }
 #pragma unroll
@@ -197,18 +287,22 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
       // online softmax: the new maxima, the rescale of what came before
+      // (0 while m = -inf); K7: the reference point 0 while the new maximum
+      // is still -inf, so that exp(-inf - -inf) is never formed
       const float mn0 = fmaxf(m0, mx0);
       const float mn1 = fmaxf(m1, mx1);
-      const float c0 = __expf(m0 - mn0);  // 0 while m = -inf
-      const float c1 = __expf(m1 - mn1);
+      const float ms0 = kDenseBias && mn0 == -INFINITY ? 0.f : mn0;
+      const float ms1 = kDenseBias && mn1 == -INFINITY ? 0.f : mn1;
+      const float c0 = __expf(m0 - ms0);
+      const float c1 = __expf(m1 - ms1);
       m0 = mn0;
       m1 = mn1;
       l0 *= c0;
       l1 *= c1;
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
-        const float p0 = __expf(s[j][0] - mn0), p1 = __expf(s[j][1] - mn0);
-        const float p2 = __expf(s[j][2] - mn1), p3 = __expf(s[j][3] - mn1);
+        const float p0 = __expf(s[j][0] - ms0), p1 = __expf(s[j][1] - ms0);
+        const float p2 = __expf(s[j][2] - ms1), p3 = __expf(s[j][3] - ms1);
         l0 += p0 + p1;
         l1 += p2 + p3;
         s[j][0] = p0;
@@ -273,16 +367,19 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
   }
 }
 
-template <int D, int kKeys>
+// Two stages of K, V (and K7's bias tile), then K2's and K3's rel rows.
+template <int D, int kBias, int kKeys>
 size_t fwd_tc_smem_bytes(int ka) {
+  if constexpr (kBias == kDense)
+    return sizeof(float) * 2 * (2 * kKeys * (D + 4) + kTcTile * (kKeys + kBiasPad));
   return sizeof(float) * (4 * kKeys * (D + 4) + kTcTile * ka);
 }
 
 // One launch over `batch` images, kKeys keys a streamed tile.
-template <int D, bool kTables, int kKeys>
+template <int D, int kBias, int kKeys>
 int launch_fwd_tc_tiles(const FwdArgs& a, int batch, cudaStream_t s) {
-  const size_t smem = fwd_tc_smem_bytes<D, kKeys>(a.kh + a.kw);
-  auto kernel = attention_fwd_tc_kernel<D, kTables, kKeys>;
+  const size_t smem = fwd_tc_smem_bytes<D, kBias, kKeys>(a.kh + a.kw);
+  auto kernel = attention_fwd_tc_kernel<D, kBias, kKeys>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
@@ -295,7 +392,7 @@ int launch_fwd_tc_tiles(const FwdArgs& a, int batch, cudaStream_t s) {
 // syncs and softmax passes a key. On an H100 80GB HBM3 at 700 W: K2 at
 // batch 12 (1296 windows x heads) 534 us against 690 with 64-key tiles, K3
 // at B=1 (192 blocks) 113 us against 123 with 32-key ones.
-template <int D, bool kTables>
+template <int D, int kBias>
 int launch_fwd_tc(const FwdArgs& a, int batch, cudaStream_t s) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -303,18 +400,18 @@ int launch_fwd_tc(const FwdArgs& a, int batch, cudaStream_t s) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       static_cast<long long>((a.n + kTcTile - 1) / kTcTile) * a.heads * batch;
-  if (blocks >= 3LL * sms) return launch_fwd_tc_tiles<D, kTables, 32>(a, batch, s);
-  return launch_fwd_tc_tiles<D, kTables, 64>(a, batch, s);
+  if (blocks >= 3LL * sms) return launch_fwd_tc_tiles<D, kBias, 32>(a, batch, s);
+  return launch_fwd_tc_tiles<D, kBias, 64>(a, batch, s);
 }
 
 // Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
-template <bool kTables>
+template <int kBias>
 int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
   if (batch == 0 || a.n == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_fwd_tc<64, kTables>(a, batch, s);
-    case 80: return launch_fwd_tc<80, kTables>(a, batch, s);
+    case 64: return launch_fwd_tc<64, kBias>(a, batch, s);
+    case 80: return launch_fwd_tc<80, kBias>(a, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 // K2 and K3 on Hopper, with their backward kernels K2b and K3b: rel-pos
-// attention read straight from the packed qkv layout, to float32 accuracy.
+// attention read straight from the packed qkv layout, to float32 accuracy;
+// and K6b, whose arithmetic is K3b's on head-major operands.
 //
 // Replaces the TPU kernels
 //   K2  mia_tpu/ops/attention.py::fused_attention_rel_packed_ik
@@ -27,8 +28,8 @@
 // qkv bias) are real keys, as in the reference, and are not masked.
 //
 // The forward is two instances of the tensor-core template in
-// attention_fwd_tc.cuh (its design is described there): kTables false for
-// K3, true for K2, both on the packed layout. K2's rel terms are gathers
+// attention_fwd_tc.cuh (its design is described there): bias kRelTerms for
+// K3, kRelTables for K2, both on the packed layout. K2's rel terms are gathers
 // from two tables that every (window, head) pair shares, so, as in the
 // backward, kernel R below computes them first, one block per token
 // position with the position's kh + kw table rows in shared memory, into a
@@ -76,7 +77,12 @@ FwdArgs packed_fwd_args(const void* qkv, const void* rel_a, const void* rel_b, v
 // Backward: two instances of the tensor-core template in attention_bwd_tc.cuh
 // (3xTF32 on mma.sync; its design is described there), kTables true for K2b
 // and false for K3b, both on the packed layout: q, k, v and dq, dk, dv are
-// column blocks of qkv and dqkv.
+// column blocks of qkv and dqkv. K6b (the backward of K6, the head-major
+// route of attention_routes.cu) runs K3b's instance: the head-major layout
+// is the packed one with one head, strides D and every (batch, head) pair a
+// batch element, and the rel terms (B*H, n, kh) / (B*H, n, kw) are K3b's.
+// Its C entry lives here so that the instance is built once; a trace names
+// K6b's passes as K3b's, attention_bwd_tc_{dq,dkv}_kernel<D, false>.
 // K2's and K2b's rel terms are gathers from two tables that every (window,
 // head) pair shares, so they run outside the templates, one block per token
 // position n and 128 pairs, with the position's kh + kw table rows
@@ -336,7 +342,7 @@ extern "C" int mia_attention_rel_packed_f32(const void* qkv, const void* rel_h, 
                                             void* out, void* lse, int batch, int n, int heads,
                                             int d, int kh, int kw, float scale, void* stream) {
   const FwdArgs a = packed_fwd_args(qkv, rel_h, rel_w, out, lse, n, heads, d, kh, kw, scale);
-  return dispatch_fwd_tc<false>(a, batch, d, stream);
+  return dispatch_fwd_tc<kRelTerms>(a, batch, d, stream);
 }
 
 // K2: as K3, but with the gathered tables rh_flat ((n/kw)*kh, d) and rw_flat
@@ -355,7 +361,7 @@ extern "C" int mia_attention_rel_packed_ik_f32(const void* qkv, const void* rh_f
   int err = dispatch_rel_gather(false, r, d, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   const FwdArgs a = packed_fwd_args(qkv, terms, terms, out, lse, n, heads, d, kh, kw, scale);
-  return dispatch_fwd_tc<true>(a, batch, d, stream);
+  return dispatch_fwd_tc<kRelTables>(a, batch, d, stream);
 }
 
 // K3 backward: from the forward's inputs, its output, its lse and the
@@ -383,4 +389,39 @@ extern "C" int mia_attention_rel_packed_ik_bwd_f32(const void* qkv, const void* 
                                                    int kw, float scale, void* stream) {
   return dispatch_bwd<true>(qkv, rh_flat, rw_flat, out, g, lse, dqkv, delta, rel, drel, nullptr,
                             dthw, batch, n, heads, d, kh, kw, scale, stream);
+}
+
+// K6b: from K6's inputs q, k, v (bh, n, d), rel_h (bh, n, kh), rel_w (bh, n,
+// kw), its output, its lse (bh, n) and the output cotangent g (bh, n, d),
+// writes dq, dk, dv (bh, n, d) and drel_h / drel_w (shapes of rel_h /
+// rel_w); n == kh*kw. delta is scratch (bh, n).
+extern "C" int mia_attention_rel_bwd_f32(const void* q, const void* k, const void* v,
+                                         const void* rel_h, const void* rel_w, const void* out,
+                                         const void* g, const void* lse, void* dq, void* dk,
+                                         void* dv, void* delta, void* drel_h, void* drel_w, int bh,
+                                         int n, int d, int kh, int kw, float scale, void* stream) {
+  if (bh == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  BwdArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.rel_a = static_cast<const float*>(rel_h);
+  a.rel_b = static_cast<const float*>(rel_w);
+  a.out = static_cast<const float*>(out);
+  a.g = static_cast<const float*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.delta = static_cast<float*>(delta);
+  a.drel_a = static_cast<float*>(drel_h);
+  a.drel_b = static_cast<float*>(drel_w);
+  a.in_stride = d;
+  a.out_stride = d;
+  a.n = n;
+  a.heads = 1;
+  a.kh = kh;
+  a.kw = kw;
+  a.scale = scale;
+  return dispatch_tc_bwd<false>(a, bh, d, stream);
 }

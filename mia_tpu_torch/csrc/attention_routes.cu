@@ -1,8 +1,11 @@
 // K6, K7 and K8 on Hopper: the encoder's other attention routes, in float32.
-// Forward: three instances of the template in attention_fwd.cuh (whose
-// header describes the kernel body), beside K2 and K3 in attention_rel.cu.
-// Backward: K6b and K8b, two instances of the template in attention_bwd.cuh
-// (K7's backward is plain tensor code in the JAX package and here).
+// Forward: K6 and K8 are instances of the float32 SIMT template in
+// attention_fwd.cuh (whose header describes the kernel body); K7 is the
+// kDense instance of the 3xTF32 tensor-core template in attention_fwd_tc.cuh,
+// beside K2 and K3 in attention_rel.cu. Backward: K8b, the one instance of
+// the SIMT template in attention_bwd.cuh; K6b runs K3b's tensor-core
+// instance and its C entry is in attention_rel.cu; K7's backward is plain
+// tensor code in the JAX package and here.
 //
 // Replaces the TPU kernels
 //   K6  mia_tpu/ops/attention.py::fused_attention_rel (_attn_rel_kernel):
@@ -11,10 +14,10 @@
 //       N = k_h*k_w, any N. Here: the kRelTerms bias of K3 with head-major
 //       strides (every (batch, head) pair is a batch element of one head).
 //   K7  mia_tpu/ops/attention.py::fused_attention (_attn_kernel):
-//       softmax(q.kT*s + bias).v with a dense (B*H, N, N) additive bias. The
-//       TPU form pads N to 128 and masks the pad keys with -1e30; here the
-//       kDense instance stages the bias tile by tile beside the k tile and
-//       the loop bounds mask the ragged last tile.
+//       softmax(q.kT*s + bias).v with a dense (B*H, N, N) additive bias, any
+//       N. The TPU form pads N to 128 and masks the pad keys with -1e30;
+//       here the template streams the bias tile by tile beside K and V and
+//       masks keys past N itself.
 //   K8  mia_tpu/ops/attention.py::fused_attention_rel_win
 //       (_attn_rel_win_kernel): windowed attention carved from the
 //       unpartitioned (B, Hg, Wg, 3*H*D) qkv grid. The TPU kernel walks
@@ -28,17 +31,13 @@
 // bias is two loads and an add per score.
 //
 // Bound: K6 and K8 do 4*D flops per (query, key) pair on the FP32 pipe out
-// of shared memory, like K2 and K3, and are bound by operations. K7 adds 4
-// bytes of bias per pair: at 1024 tokens the (12, 1024, 1024) bias is 50 MB
-// against 9.4 MB of q, k, v and out, and at D = 64 the bias bytes (15 us at
-// 3.35 TB/s) still stay below the 3.2 GFLOP of products (48 us at 67
-// TFLOP/s), so it is bound by operations too, but it must stream the bias
-// through every block's shared memory.
+// of shared memory and are bound by operations (at 67 TFLOP/s). K7 does the
+// same products in 3xTF32 on the tensor cores (495/3 TFLOP/s) and reads 4
+// bytes of bias a pair: at 12 x 1024 tokens 19.5 us of MMAs against 18.8 us
+// of bytes, at 108 windows of 196 tokens 6.4 us against 11.4 us of bytes
+// (see attention_fwd_tc.cuh).
 //
-// Replaces the TPU backward kernels
-//   K6b mia_tpu/ops/attention.py::_rel_bwd (_rel_bwd_kernel): dq, dk, dv,
-//       drel_h, drel_w of K6. Here: the kRelTerms backward of K3b with
-//       head-major strides; any N, the loops are bounded by N.
+// Replaces the TPU backward kernel
 //   K8b mia_tpu/ops/attention.py::_rel_win_bwd (_attn_rel_win_bwd_kernel):
 //       dqkv written in place into the three column blocks of one
 //       (B, Hg, Wg, 3*H*D) tensor, drel_h and drel_w in grid layout, and
@@ -53,6 +52,7 @@
 // returns cudaGetLastError().
 
 #include "attention_bwd.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
@@ -129,7 +129,7 @@ extern "C" int mia_attention_dense_f32(const void* q, const void* k, const void*
                                        float scale, void* stream) {
   FwdArgs a = head_major_args(q, k, v, out, n, d, scale);
   a.rel_a = static_cast<const float*>(bias);
-  return dispatch_fwd<kDense, kHeadMajor>(a, bh, d, stream);
+  return dispatch_fwd_tc<kDense>(a, bh, d, stream);
 }
 
 // K8: qkv (batch, hg, wg, 3*heads*d); rel_h, rel_w (batch*heads, hg, wg, ws);
@@ -156,40 +156,6 @@ extern "C" int mia_attention_rel_win_f32(const void* qkv, const void* rel_h, con
   set_grid(a, hg, wg, ws);
   a.scale = scale;
   return dispatch_fwd<kRelTerms, kGrid>(a, batch * a.nwin, d, stream);
-}
-
-// K6b: from K6's inputs, its output, its lse and the output cotangent g
-// (bh, n, d), writes dq, dk, dv (bh, n, d) and drel_h / drel_w (shapes of
-// rel_h / rel_w). delta is scratch (bh, n).
-extern "C" int mia_attention_rel_bwd_f32(const void* q, const void* k, const void* v,
-                                         const void* rel_h, const void* rel_w, const void* out,
-                                         const void* g, const void* lse, void* dq, void* dk,
-                                         void* dv, void* delta, void* drel_h, void* drel_w, int bh,
-                                         int n, int d, int kh, int kw, float scale, void* stream) {
-  if (bh == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  BwdArgs a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.rel_a = static_cast<const float*>(rel_h);
-  a.rel_b = static_cast<const float*>(rel_w);
-  a.out = static_cast<const float*>(out);
-  a.g = static_cast<const float*>(g);
-  a.lse = static_cast<const float*>(lse);
-  a.dq = static_cast<float*>(dq);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  a.delta = static_cast<float*>(delta);
-  a.drel_a = static_cast<float*>(drel_h);
-  a.drel_b = static_cast<float*>(drel_w);
-  a.in_stride = d;
-  a.out_stride = d;
-  a.n = n;
-  a.heads = 1;
-  a.kh = kh;
-  a.kw = kw;
-  a.scale = scale;
-  return dispatch_bwd_passes<kRelTerms, kHeadMajor>(a, bh, d, stream);
 }
 
 // K8b: from K8's inputs, its output (batch, hg, wg, heads*d), its lse and

@@ -1,7 +1,7 @@
 // What the two tensor-core attention templates share: 3xTF32 products on
 // mma.sync.m16n8k8 and the cp.async tile copies that feed them.
-// attention_fwd_tc.cuh (K2, K3) and attention_bwd_tc.cuh (K2b, K3b) include
-// it; their comments describe how each uses these pieces.
+// attention_fwd_tc.cuh (K2, K3, K7) and attention_bwd_tc.cuh (K2b, K3b, K6b)
+// include it; their comments describe how each uses these pieces.
 //
 // 3xTF32: a float32 operand x is split when its fragment is loaded, big = x
 // rounded to TF32 (cvt.rna's rounding in two integer operations), small =
@@ -92,6 +92,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
+
+// The same with zero-fill: when !valid, src is not read and dst gets 0.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }

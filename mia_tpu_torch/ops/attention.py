@@ -32,14 +32,17 @@ unscaled q.
   / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
   plain VJPs on the CPU). Each wrapper counts its launches in ``launches``.
 
-The other routes (kernels in ``csrc/attention_routes.cu``):
+The other routes (C entries in ``csrc/attention_routes.cu``: K6 and K8 on
+the float32 template of ``csrc/attention_fwd.cuh``, K7 on the 3xTF32
+tensor-core template of ``csrc/attention_fwd_tc.cuh`` with a dense bias):
 
 - :func:`attention_rel` / :func:`fused_attention_rel` (K6) — head-major
   ``q, k, v (B·H, N, D)`` with rel terms ``(B·H, N, k_h)``, ``(B·H, N, k_w)``;
   any ``N = k_h·k_w``. :func:`attention_rel_with_padding` is the same call
   (the name is the JAX package's; nothing is padded on this card).
 - :func:`attention_dense` / :func:`fused_attention` (K7) — head-major
-  operands and a dense additive bias ``(B·H, N, N)``.
+  operands and a dense additive bias ``(B·H, N, N)``, any ``N``; the bias may
+  mask keys with ``-inf`` (a row needs one finite key).
   :func:`attention_with_padding` is the same call: the TPU form pads ``N``
   to 128 and masks the pad keys, the CUDA kernel masks its ragged last
   tile itself.
@@ -56,8 +59,9 @@ inside a ``torch.autograd.Function`` whose forward keeps the kernel's
 log-sum-exp and whose backward is
 
 - :func:`fused_attention_rel_bwd` (K6b) — ``dq, dk, dv, drel_h, drel_w``
-  from the backward template of ``csrc/attention_bwd.cuh`` on head-major
-  strides; plain VJP :func:`attention_rel_bwd`.
+  from K3b's 3xTF32 tensor-core backward (``csrc/attention_bwd_tc.cuh``,
+  C entry in ``csrc/attention_rel.cu``) on head-major strides; plain VJP
+  :func:`attention_rel_bwd`.
 - :func:`fused_attention_rel_win_bwd` (K8b) — ``dqkv`` written in place in
   the grid layout, ``drel_h``, ``drel_w`` and ``dbias_kv`` (row 0 zero, rows
   1-2 the summed ``dk``, ``dv`` of every pad slot, reduced in a fixed order);
@@ -696,9 +700,10 @@ def _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads
 
 
 def fused_attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale: float, k_hw):
-    """K6 backward: a CUDA tensor launches the backward kernels of
-    ``csrc/attention_routes.cu`` (and raises if it cannot); a CPU tensor takes
-    :func:`attention_rel_bwd` (``lse`` unused)."""
+    """K6 backward: a CUDA tensor launches the tensor-core backward kernels
+    of ``csrc/attention_bwd_tc.cuh`` (C entry in ``csrc/attention_rel.cu``)
+    and raises if it cannot; a CPU tensor takes :func:`attention_rel_bwd`
+    (``lse`` unused)."""
     if q.device.type == "cpu":
         return attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, scale, k_hw)
     return _launch_k6_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw)
@@ -794,10 +799,11 @@ def attention_rel_with_padding(q, k, v, rel_h, rel_w, scale: float, k_hw) -> tor
 
 def fused_attention(q, k, v, bias, scale: float) -> torch.Tensor:
     """K7: ``softmax(q·kᵀ·scale + bias)·v`` with a dense ``(B·H, N, N)`` bias,
-    any ``N``. A CUDA tensor launches ``csrc/attention_routes.cu`` (or raises);
-    a CPU tensor takes :func:`attention_dense`. When an input requires a
-    gradient the backward is the plain :func:`attention_dense_bwd` (no
-    kernel, as in the JAX package), which materialises ``(B·H, N, N)``."""
+    any ``N``. A CUDA tensor launches the tensor-core kernel of
+    ``csrc/attention_fwd_tc.cuh`` (C entry in ``csrc/attention_routes.cu``)
+    or raises; a CPU tensor takes :func:`attention_dense`. When an input
+    requires a gradient the backward is the plain :func:`attention_dense_bwd`
+    (no kernel, as in the JAX package), which materialises ``(B·H, N, N)``."""
     if _needs_grad(q, k, v, bias):
         return _AttentionDense.apply(q, k, v, bias, scale)
     if q.device.type == "cpu":

@@ -1,8 +1,8 @@
-"""Time the attention kernels K2, K3 and their backward of a source tree on one GPU.
+"""Time the attention kernels K2, K3, K7, K2b, K3b, K6b and K8b of a source tree on one GPU.
 
 For comparing two versions of the attention templates
 (``mia_tpu_torch/csrc/attention_{fwd,bwd}_tc.cuh``, ``attention_bwd.cuh``) or
-of ``attention_rel.cu`` within one run: unpack the other
+of ``attention_rel.cu`` and ``attention_routes.cu`` within one run: unpack the other
 tree with ``git archive <commit> mia_tpu_torch | tar -x -C <dir>`` and name it
 with ``--tree``; every tree builds its own kernel library. Prints the card,
 then K3b (global, ``(12, 1024, 2304)`` packed qkv) and K2b (windows, ``(108,
@@ -11,26 +11,28 @@ blocks of 10 launches by CUDA events, twice each, K3b's and K2b's largest
 errors against their plain VJPs, a digest of K3b's and K2b's outputs on
 inputs that do not depend on the tree's forward kernels (out and lse from the
 plain forward: equal digests across trees mean bit-identical backward
-kernels), and K6b (global) and K8b where the tree has them. With
+kernels), and K6b (global and windows, head-major) and K8b. With
 ``--kernels`` each tree also runs K3b, K2b and the library yardstick
 (autograd through one ``scaled_dot_product_attention`` call with the dense
 bias, as ``chip_smoke.py`` times it) under ``torch.profiler`` and prints the
 device kernels each one launches, with their times. Needs a CUDA device.
 
 With ``--sass`` it times nothing: it compiles each tree's
-``csrc/attention_rel.cu`` with ``nvcc -Xptxas -v`` and prints, for every
-kernel, its registers and spill, its ``HMMA.1688.F32.TF32``, ``ATOM`` and
-local-memory instructions, and whether its SASS equals the first tree's (so
+``csrc/attention_rel.cu`` and ``csrc/attention_routes.cu`` with ``nvcc
+-Xptxas -v`` and prints, for every kernel, its registers and spill, its
+``HMMA.1688.F32.TF32``, ``ATOM`` and local-memory instructions, and whether
+its SASS equals the first tree's, under its own name or another (so
 ``--tree build/parent --tree . --sass`` shows the kernels a change left as
 they were). Needs nvcc and cuobjdump, not a GPU.
 
 With ``--forward`` it times the forward kernels instead: K3 (global, 1024
 tokens) and K2 (9 windows of 196 tokens an image) at the ViT-B/512 serving
-shape B=1 and the training shape B=12, each beside the library call on the
-same operands (``scaled_dot_product_attention`` with the dense bias built
-beforehand), with their largest errors against the plain versions; with
-``--kernels`` the device kernels of K3 and K2 at B=1 and B=12 and of the
-library call at B=1.
+shape B=1 and the training shape B=12, and K7 (dense bias, head-major) at
+both shapes too, each beside the library call on the same operands
+(``scaled_dot_product_attention`` with the dense bias built beforehand) and
+K7 also beside its plain version, with their largest errors against the
+plain versions; with ``--kernels`` the device kernels of K3, K2 and K7 at
+B=1 and B=12 and of the library call at B=1.
 
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
         [--forward | --sass]
@@ -42,6 +44,7 @@ Several ``--tree`` arguments run in the given order, one process each
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import re
 import subprocess
@@ -111,49 +114,55 @@ def _short_name(mangled: str) -> str:
 
 def sass_report(trees) -> None:
     """Registers, spill and instruction counts of every kernel of each tree's
-    csrc/attention_rel.cu, and whether its SASS equals the first tree's."""
+    csrc/attention_rel.cu and attention_routes.cu, and whether its SASS
+    equals the first tree's."""
     sys.path.insert(0, str(ROOT))
     from mia_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
 
     nvcc = _nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    first = None
+    first = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate(trees):
-            obj = Path(tmp) / f"{i}.o"
-            src = Path(tree) / "mia_tpu_torch" / "csrc" / "attention_rel.cu"
-            log = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
-                                 capture_output=True, text=True, check=True).stderr
-            usage, name = {}, None
-            for line in log.splitlines():
-                m = re.search(r"Compiling entry function '(\S+)'", line)
-                if m:
-                    name = _short_name(m.group(1))
-                elif name and "bytes spill stores" in line:
-                    usage[name] = [int(line.split("bytes spill stores")[0].split(",")[-1])]
-                elif name and "Used" in line and "registers" in line:
-                    usage[name].insert(0, int(re.search(r"Used (\d+) registers", line).group(1)))
-            sass, name = {}, None
-            dump = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
-                                  check=True).stdout
-            for line in dump.splitlines():
-                m = re.match(r"\s+Function : (\S+)", line)
-                if m:
-                    name = _short_name(m.group(1))
-                    sass[name] = []
-                elif name:  # drop the addresses and the column padding
-                    sass[name].append(" ".join(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split()))
-            first = first or sass
-            print(f"{tree}: csrc/attention_rel.cu")
-            for name in sorted(sass):
-                body = sass[name]
-                regs, spill = usage.get(name, ["?", "?"])
-                same = "same SASS as the first tree" if first.get(name) == body else (
-                    "not in the first tree" if name not in first else "SASS differs from the first tree")
-                print(f"  {name}: {regs} registers, {spill} bytes spill, "
-                      f"{sum('HMMA.1688.F32.TF32' in x for x in body)} HMMA.1688.F32.TF32, "
-                      f"{sum('ATOM' in x for x in body)} ATOM, "
-                      f"{sum(('LDL' in x or 'STL' in x) for x in body)} LDL/STL; {same}")
+            for source in ("attention_rel.cu", "attention_routes.cu"):
+                obj = Path(tmp) / f"{i}.{source}.o"
+                src = Path(tree) / "mia_tpu_torch" / "csrc" / source
+                log = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                                      str(src)], capture_output=True, text=True, check=True).stderr
+                usage, name = {}, None
+                for line in log.splitlines():
+                    m = re.search(r"Compiling entry function '(\S+)'", line)
+                    if m:
+                        name = _short_name(m.group(1))
+                    elif name and "bytes spill stores" in line:
+                        usage[name] = [int(line.split("bytes spill stores")[0].split(",")[-1])]
+                    elif name and "Used" in line and "registers" in line:
+                        usage[name].insert(0, int(re.search(r"Used (\d+) registers", line).group(1)))
+                sass, name = {}, None
+                dump = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
+                                      text=True, check=True).stdout
+                for line in dump.splitlines():
+                    m = re.match(r"\s+Function : (\S+)", line)
+                    if m:
+                        name = _short_name(m.group(1))
+                        sass[name] = []
+                    elif name:  # drop the addresses and the column padding
+                        sass[name].append(" ".join(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split()))
+                ref = first.setdefault(source, sass)
+                print(f"{tree}: csrc/{source}")
+                for name in sorted(sass):
+                    body = sass[name]
+                    regs, spill = usage.get(name, ["?", "?"])
+                    # a renamed instance (other template arguments) is matched by its body
+                    twin = next((other for other, b in ref.items() if b == body), None)
+                    same = ("same SASS as the first tree" if ref.get(name) == body
+                            else f"same SASS as the first tree's {twin}" if twin
+                            else "not in the first tree" if name not in ref
+                            else "SASS differs from the first tree")
+                    print(f"  {name}: {regs} registers, {spill} bytes spill, "
+                          f"{sum('HMMA.1688.F32.TF32' in x for x in body)} HMMA.1688.F32.TF32, "
+                          f"{sum('ATOM' in x for x in body)} ATOM, "
+                          f"{sum(('LDL' in x or 'STL' in x) for x in body)} LDL/STL; {same}")
 
 
 def bench_forward(tree: str, kernels: bool = False) -> None:
@@ -206,9 +215,31 @@ def bench_forward(tree: str, kernels: bool = False) -> None:
                   f"K2 {time_ms(torch, k2, per_block=per_block) * 1e3:.2f} us "
                   f"(library {time_ms(torch, libs[1], per_block=per_block) * 1e3:.2f})",
                   flush=True)
+        # K7 on head-major operands with a dense bias: windows (B·108, 196) and
+        # global tokens (B·12, 1024)
+        k7s = {}
+        for shape, bh, n in (("windows", b * 9 * heads, ws * ws), ("global", b * heads, side * side)):
+            q, k, v = (randn(bh, n, d) for _ in range(3))
+            bias = randn(bh, n, n)
+            want7 = attention.attention_dense(q, k, v, bias, scale)
+            err7 = float((attention._launch_k7(q, k, v, bias, scale) - want7).abs().max()
+                         / want7.abs().max())
+            k7s[shape] = (functools.partial(attention._launch_k7, q, k, v, bias, scale),
+                          functools.partial(attention.attention_dense, q, k, v, bias, scale),
+                          functools.partial(sdpa, q[None], k[None], v[None], attn_mask=bias[None],
+                                            scale=scale))
+            print(f"{tree}: B={b}: K7 {shape} ({bh}, {n}, {d}) within {err7:.3g} of max |plain|")
+        for _ in range(2):
+            print(f"{tree}: B={b}: " + ", ".join(
+                f"K7 {shape} {time_ms(torch, fns[0], per_block=per_block) * 1e3:.2f} us "
+                f"(plain {time_ms(torch, fns[1], per_block=per_block) * 1e3:.2f}, library "
+                f"{time_ms(torch, fns[2], per_block=per_block) * 1e3:.2f})"
+                for shape, fns in k7s.items()), flush=True)
         if kernels:
             kernel_table(torch, f"{tree}: K3 B={b}", k3)
             kernel_table(torch, f"{tree}: K2 B={b}", k2)
+            for shape, fns in k7s.items():
+                kernel_table(torch, f"{tree}: K7 {shape} B={b}", fns[0])
             if b == 1:
                 kernel_table(torch, f"{tree}: library at K3's B=1 shape", libs[0])
                 kernel_table(torch, f"{tree}: library at K2's B=1 shape", libs[1])
@@ -279,13 +310,26 @@ def bench(tree: str, kernels: bool = False) -> None:
         kernel_table(torch, f"{tree}: K2b B=12", k2b)
         kernel_table(torch, f"{tree}: library backward at K3b's B=12 shape",
                      library_backward(torch, qkv3, rel_h, rel_w, scale, heads, g3))
-    if hasattr(attention, "_launch_k6_bwd"):
-        q, k, v = (randn(b * heads, side * side, d) for _ in range(3))
-        out6, lse6 = attention._launch_k6(q, k, v, rel_h, rel_w, scale, (side, side), with_lse=True)
-        g6 = randn(b * heads, side * side, d)
-        ms = time_ms(torch, lambda: attention._launch_k6_bwd(q, k, v, rel_h, rel_w, out6, g6, lse6,
-                                                             scale, (side, side)), per_block=5)
-        print(f"{tree}: K6b global B=12 {ms:.4f} ms", flush=True)
+    # K6b on head-major operands: global tokens (B·12, 1024) with K3b's rel
+    # terms, and windows (B·108, 196)
+    k6b = {}
+    for shape, bh, k_hw in (("global", b * heads, (side, side)), ("windows", b * 9 * heads, (ws, ws))):
+        n = k_hw[0] * k_hw[1]
+        q, k, v, g6 = (randn(bh, n, d) for _ in range(4))
+        r6h, r6w = (rel_h, rel_w) if shape == "global" else (randn(bh, n, ws), randn(bh, n, ws))
+        out6, lse6 = attention._launch_k6(q, k, v, r6h, r6w, scale, k_hw, with_lse=True)
+        args6 = (q, k, v, r6h, r6w, out6, g6, lse6, scale, k_hw)
+        want = attention.attention_rel_bwd(q, k, v, r6h, r6w, out6, g6, scale, k_hw)
+        err = max(float((a - w).abs().max() / w.abs().max())
+                  for a, w in zip(attention._launch_k6_bwd(*args6), want))
+        print(f"{tree}: K6b {shape} ({bh}, {n}, {d}) within {err:.3g} of max |plain|")
+        k6b[shape] = functools.partial(attention._launch_k6_bwd, *args6)
+    for _ in range(2):
+        print(f"{tree}: " + ", ".join(f"K6b {shape} B=12 {time_ms(torch, fn, per_block=5):.4f} ms"
+                                      for shape, fn in k6b.items()), flush=True)
+    if kernels:
+        for shape, fn in k6b.items():
+            kernel_table(torch, f"{tree}: K6b {shape} B=12", fn)
     if hasattr(attention, "_launch_k8_bwd"):
         grid = randn(b, side, side, 3 * heads * d)
         r8h, r8w = (randn(b * heads, side, side, ws) for _ in range(2))
@@ -303,9 +347,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="also list the device kernels of K3b, K2b and the library call")
     ap.add_argument("--forward", action="store_true",
-                    help="time the forward kernels K3 and K2 and the library call instead")
+                    help="time the forward kernels K3, K2, K7 and the library call instead")
     ap.add_argument("--sass", action="store_true",
-                    help="compile each tree's attention_rel.cu and compare registers and SASS")
+                    help="compile each tree's attention_rel.cu and attention_routes.cu and "
+                         "compare registers and SASS")
     ap.add_argument("--one", help=argparse.SUPPRESS)  # the child process of one tree
     args = ap.parse_args(argv)
     if args.sass:

@@ -38,22 +38,20 @@ from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
     # attention_fwd_kernel<D, bias, layout, split>, attention_bwd_dq_kernel<D, bias, layout>,
-    # attention_bwd_dkv_kernel<D, layout>: bias 1 = rel terms, 2 = dense; layout 1 =
-    # head-major (K6, K7), 2 = grid windows (K8); K2 and K3:
-    # attention_fwd_tc_kernel<D, tables, warps, keys>, K2b and K3b:
-    # attention_bwd_tc_{dq,dkv}_kernel<D, tables> (tables true: K2, K2b)
-    ("K2 forward", ("attention_fwd_tc_kernel<64, true,",)),
-    ("K3 forward", ("attention_fwd_tc_kernel<64, false,",)),
+    # attention_bwd_dkv_kernel<D, layout> (float32 SIMT): layout 1 = head-major (K6), 2 =
+    # grid windows (K8, K8b); attention_fwd_tc_kernel<D, bias, keys> (3xTF32): bias 0 = K2,
+    # 1 = K3, 2 = K7 (dense); attention_bwd_tc_{dq,dkv}_kernel<D, tables>: true = K2b,
+    # false = K3b, and K6b, which runs K3b's instance (see head_major_groups)
+    ("K2 forward", ("attention_fwd_tc_kernel<64, 0,",)),
+    ("K3 forward", ("attention_fwd_tc_kernel<64, 1,",)),
     ("K6 forward", ("attention_fwd_kernel<64, 1, 1,",)),
-    ("K7 forward", ("attention_fwd_kernel<64, 2, 1,",)),
+    ("K7 forward", ("attention_fwd_tc_kernel<64, 2,",)),
     ("K8 forward", ("attention_fwd_kernel<64, 1, 2,",)),
     ("K2 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, true>",)),
     ("K3 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, false>",)),
-    ("K6 backward, dq pass", ("attention_bwd_dq_kernel<64, 1, 1>",)),
     ("K8 backward, dq pass", ("attention_bwd_dq_kernel<64, 1, 2>",)),
     ("K2 backward, dk/dv pass", ("attention_bwd_tc_dkv_kernel<64, true>",)),
     ("K3 backward, dk/dv pass", ("attention_bwd_tc_dkv_kernel<64, false>",)),
-    ("K6 backward, dk/dv pass", ("attention_bwd_dkv_kernel<64, 1>",)),
     ("K8 backward, dk/dv pass and pad reduce", ("attention_bwd_dkv_kernel<64, 2>",
                                                 "attention_bwd_pad_reduce_kernel")),
     ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
@@ -67,6 +65,12 @@ GROUPS = (  # (label, substrings of the kernel name), first match wins
     ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "implicit", "cudnn", "conv")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "kernel2")),
 )
+
+
+def head_major_groups(groups):
+    """The head-major route runs K6 in every block, so the tensor-core
+    backward instance that K3b and K6b share times K6b there."""
+    return tuple((label.replace("K3 backward", "K6 backward"), keys) for label, keys in groups)
 
 
 VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)
@@ -169,11 +173,12 @@ def main() -> None:
         print(f"phase {phase}: step median {step_ms:.2f} ms ({12 / step_ms * 1e3:.1f} img/s, "
               f"median of {args.steps}); kernel time {total:.2f} ms per step, so the card "
               f"idles {1 - total / step_ms:.1%} of the step; max_memory_allocated {peak:.2f} GiB")
-        grouped = {group: [0.0, 0] for group, _ in GROUPS}
+        groups = head_major_groups(GROUPS) if args.variant == "head_major" else GROUPS
+        grouped = {group: [0.0, 0] for group, _ in groups}
         grouped["other (elementwise, reductions, copies, Adam)"] = [0.0, 0]
         for e in kernels:
             name = e.key.lower()
-            group = next((g for g, keys in GROUPS if any(k.lower() in name for k in keys)),
+            group = next((g for g, keys in groups if any(k.lower() in name for k in keys)),
                          "other (elementwise, reductions, copies, Adam)")
             grouped[group][0] += e.self_device_time_total / 1e3 / per
             grouped[group][1] += e.count // per

@@ -37,16 +37,16 @@ from mia_tpu_torch.models.sam import (  # noqa: E402
     sam_model_registry,
 )
 
-# K2 and K3 run the tensor-core template of csrc/attention_fwd_tc.cuh,
-# attention_fwd_tc_kernel<D, tables, warps, keys> (tables true: K2, after kernel R,
-# attention_rel_terms_kernel); the float32 template of csrc/attention_fwd.cuh is
-# attention_fwd_kernel<D, bias, layout, split>: bias 1 = rel terms, 2 = dense; layout
-# 1 = head-major operands, 2 = windows carved from the token grid
+# K2, K3 and K7 run the tensor-core template of csrc/attention_fwd_tc.cuh,
+# attention_fwd_tc_kernel<D, bias, keys>: bias 0 = K2 (after kernel R,
+# attention_rel_terms_kernel), 1 = K3, 2 = K7 (dense bias); keys is the streamed key tile.
+# The float32 template of csrc/attention_fwd.cuh is attention_fwd_kernel<D, bias, layout,
+# split>: layout 1 = head-major operands (K6), 2 = windows carved from the token grid (K8)
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    ("K2 windowed attention", ("attention_fwd_tc_kernel<64, true,", "attention_rel_terms_kernel")),
-    ("K3 global attention", ("attention_fwd_tc_kernel<64, false,",)),
+    ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_rel_terms_kernel")),
+    ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,",)),
     ("K6 head-major attention", ("attention_fwd_kernel<64, 1, 1,",)),
-    ("K7 dense-bias attention", ("attention_fwd_kernel<64, 2, 1,",)),
+    ("K7 dense-bias attention", ("attention_fwd_tc_kernel<64, 2,",)),
     ("K8 grid-native windowed attention", ("attention_fwd_kernel<64, 1, 2,",)),
     ("K4 LayerNorm + partition", ("ln_window_partition_kernel",)),
     ("K9 unpartition + residual + LayerNorm", ("unpartition_add_ln_kernel",)),

@@ -1,5 +1,6 @@
-"""Why the attention kernels K2, K3 and their backward K2b, K3b split every
-float32 operand for the tensor cores (3xTF32) instead of taking one TF32 pass.
+"""Why the attention kernels K2, K3, K7 and the backward K2b, K3b, K6b split
+every float32 operand for the tensor cores (3xTF32) instead of taking one
+TF32 pass.
 
 The kernels of ``mia_tpu_torch/csrc/attention_fwd_tc.cuh`` and
 ``attention_bwd_tc.cuh`` run the products of the attention forward and
@@ -8,11 +9,13 @@ rounded to TF32 (round to nearest, ties away from zero, on the low 13
 mantissa bits) and small = x - big, which the tensor core reads truncated to
 TF32; each product is small.big + big.small + big.big with a float32
 accumulator. These tests emulate that arithmetic in plain torch on the CPU
-(TF32 values multiply exactly in float32) and hold the K3 backward and the
-K2/K3 forward, computed that way, against float64: every backward output
+(TF32 values multiply exactly in float32) and hold the K3 backward (also on
+K6b's head-major operands), the K2/K3 forward and the K7 forward with its
+dense bias, computed that way, against float64: every backward output
 within ``BWD_TOL`` of max |float64|, the forward within ``KERNEL_TOL``, as
 ``chip_smoke.py`` holds the kernels, and one TF32 pass at least 10x further
-away.
+away. K7's bias may mask keys with -inf; the emulation shows why its online
+softmax needs FlashAttention-2's guard.
 """
 
 import numpy as np
@@ -114,6 +117,40 @@ def test_3xtf32_backward_keeps_float32_accuracy_where_one_pass_does_not(batch, h
         assert err1 >= 10 * err3, f"{name}: one TF32 pass {err1:.3g} against 3xTF32 {err3:.3g}"
 
 
+def k6_backward(mm, q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw):
+    """K6b: K3b's arithmetic on head-major operands (B·H, N, D), the packed
+    layout with one head; returns dq, dk, dv, drel_h, drel_w."""
+    dqkv, drel_h, drel_w = k3_backward(mm, torch.cat([q, k, v], -1), rel_h, rel_w, out, g, lse,
+                                       scale, k_hw, 1)
+    return (*dqkv.chunk(3, -1), drel_h, drel_w)
+
+
+@pytest.mark.parametrize("bh,k_hw", [(3, (14, 14)), (4, (10, 12))])
+def test_3xtf32_k6_backward_keeps_float32_accuracy_where_one_pass_does_not(bh, k_hw):
+    rng = np.random.default_rng(5)
+    d = 64
+    n = k_hw[0] * k_hw[1]
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((bh, n, d), dtype=np.float32))
+                  for _ in range(4))
+    rel_h, rel_w = (torch.from_numpy(rng.standard_normal((bh, n, w), dtype=np.float32))
+                    for w in k_hw)
+    scale = d ** -0.5
+    out = attention.attention_rel(q, k, v, rel_h, rel_w, scale, k_hw)
+    bias = (rel_h.reshape(bh, n, k_hw[0], 1) + rel_w.reshape(bh, n, 1, k_hw[1])).reshape(bh, n, n)
+    lse = torch.logsumexp((q * scale) @ k.transpose(-2, -1) + bias, -1)
+    fwd64 = [t.double() for t in (q, k, v, rel_h, rel_w)]
+    want = attention.attention_rel_bwd(*fwd64, attention.attention_rel(*fwd64, scale, k_hw),
+                                       g.double(), scale, k_hw)
+    args = (q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw)
+    split3, one_pass = k6_backward(mm_3xtf32, *args), k6_backward(mm_tf32, *args)
+    for name, w, x3, x1 in zip(("dq", "dk", "dv", "drel_h", "drel_w"), want, split3, one_pass):
+        ref = w.abs().max().item()
+        err3 = (x3.double() - w).abs().max().item() / ref
+        err1 = (x1.double() - w).abs().max().item() / ref
+        assert err3 <= BWD_TOL, f"{name}: 3xTF32 off by {err3:.3g} of max |float64|"
+        assert err1 >= 10 * err3, f"{name}: one TF32 pass {err1:.3g} against 3xTF32 {err3:.3g}"
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("magnitude", [1e-3, 1.0, 1e4])
 def test_split_is_tf32_and_rebuilds_float32(seed, magnitude):
@@ -157,69 +194,99 @@ def mma_tf32(c, a, b):
     return mma_chain(c, a, b, ((tf32_round(a), tf32_round(b)),))
 
 
-def forward_tiles(mma, qkv, rel_h, rel_w, scale, k_hw, heads, chained=False):
-    """The K2/K3 forward in the kernel's order: scale·q, then per 64-key tile
-    S = Q·Kᵀ through ``mma`` from zero, the rel bias, the online softmax
-    (running max, rescaled sum) and the tile's P·V through ``mma`` from zero,
-    folded in as O = c·O + P·V (``chained``: P·V added inside the MMA chain
-    to the rescaled O); the rest in
-    float32. Returns the output (B, N, H·D) and the log-sum-exp (B·H, N)."""
-    b, n, _ = qkv.shape
-    k_h, k_w = k_hw
-    q, k, v = qkv.reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+def forward_tiles(mma, q, k, v, bias, scale, chained=False, guard=True):
+    """The forward kernels' order on head-major q, k, v (..., N, D) and a
+    dense bias (..., N, N), K7's operands (K2's and K3's rel bias expanded
+    by ``packed_case``): scale·q, then per 64-key tile S = Q·Kᵀ through
+    ``mma`` from zero, the bias, the online softmax (running max, rescaled
+    sum) and the tile's P·V through ``mma`` from zero, folded in as
+    O = c·O + P·V (``chained``: P·V added inside the MMA chain to the
+    rescaled O); the rest in float32. ``guard``: while a row's running max is
+    -inf the update rescales by 0 and subtracts 0 (K7's kernel), instead of
+    forming exp(-inf - -inf). Returns the output (..., N, D) and the
+    log-sum-exp (..., N)."""
     q = q * scale
-    bias = (rel_h.reshape(b, heads, n, k_h, 1) + rel_w.reshape(b, heads, n, 1, k_w)).reshape(
-        b, heads, n, n)
-    m = torch.full((b, heads, n, 1), -torch.inf)
-    l = torch.zeros((b, heads, n, 1))
+    n = q.shape[-2]
+    m = torch.full((*q.shape[:-1], 1), -torch.inf)
+    l = torch.zeros((*q.shape[:-1], 1))
     o = torch.zeros_like(q)
     for k0 in range(0, n, KEY_TILE):
         keys = slice(k0, k0 + KEY_TILE)
-        s = mma(torch.zeros(b, heads, n, min(KEY_TILE, n - k0)), q,
-                k[:, :, keys].transpose(-2, -1)) + bias[..., keys]
+        s = mma(torch.zeros(*q.shape[:-1], min(KEY_TILE, n - k0)), q,
+                k[..., keys, :].transpose(-2, -1)) + bias[..., keys]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        ref = torch.where(m_new == -torch.inf, 0.0, m_new) if guard else m_new
+        corr = torch.exp(m - ref)
+        p = torch.exp(s - ref)
         l = l * corr + p.sum(-1, keepdim=True)
         if chained:
-            o = mma(o * corr, p, v[:, :, keys])
+            o = mma(o * corr, p, v[..., keys, :])
         else:
-            o = torch.addcmul(mma(torch.zeros_like(o), p, v[:, :, keys]), o, corr)
+            o = torch.addcmul(mma(torch.zeros_like(o), p, v[..., keys, :]), o, corr)
         m = m_new
-    out = (o / l).transpose(1, 2).reshape(b, n, -1)
-    return out, (m + torch.log(l)).reshape(b * heads, n)
+    return o / l, (m + torch.log(l))[..., 0]
+
+
+def packed_case(qkv, rel_h, rel_w, k_hw, heads):
+    """K2's and K3's packed operands as K7's: q, k, v (B, H, N, D) and the
+    dense rel bias (B, H, N, N)."""
+    b, n, _ = qkv.shape
+    q, k, v = qkv.reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    bias = rel_h.reshape(b, heads, n, k_hw[0], 1) + rel_w.reshape(b, heads, n, 1, k_hw[1])
+    return q, k, v, bias.reshape(b, heads, n, n)
+
+
+def dense_case(bh, n, seed, mask_first_tile=False):
+    """K7's operands: q, k, v (B·H, N, 64) and a dense bias (B·H, N, N);
+    ``mask_first_tile``: every other row's first key tile is -inf."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, n, 64), dtype=np.float32))
+               for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal((bh, n, n), dtype=np.float32))
+    if mask_first_tile:
+        bias[:, ::2, :KEY_TILE] = -torch.inf
+    return q, k, v, bias
+
+
+FORWARD_CASES = {  # K2, K3: (batch, heads, k_hw, d); K7: dense_case's arguments
+    "K3 global 32x32": (1, 3, (32, 32), 64),
+    "K2 windows 14x14": (4, 3, (14, 14), 64),
+    "K3 ragged 20x27": (1, 2, (20, 27), 64),
+    "K3 head dim 80": (1, 2, (32, 32), 80),
+    "K7 global 32x32": (3, 1024, 6),
+    "K7 windows 14x14": (12, 196, 7),
+    "K7 odd N=35": (4, 35, 8),
+    "K7 -inf over the first key tile of every other row": (3, 196, 9, True),
+}
 
 
 def forward_case(case):
-    """Inputs of one forward case and the float64 output and log-sum-exp."""
-    batch, heads, k_hw, d = {"K3 global 32x32": (1, 3, (32, 32), 64),
-                             "K2 windows 14x14": (4, 3, (14, 14), 64),
-                             "K3 ragged 20x27": (1, 2, (20, 27), 64),
-                             "K3 head dim 80": (1, 2, (32, 32), 80)}[case]
-    qkv, rel_h, rel_w, _ = inputs(batch, heads, k_hw, d, seed=3)
-    if case.startswith("K2"):  # the rel terms from the two tables, as kernel R computes them
-        rng = np.random.default_rng(4)
-        n = k_hw[0] * k_hw[1]
-        rh, rw = (torch.from_numpy(0.2 * rng.standard_normal((n, d), dtype=np.float32))
-                  for _ in range(2))
-        rel_h, rel_w = attention.window_rel_terms(qkv, rh, rw, k_hw, heads)
-    args = (d ** -0.5, k_hw, heads)
-    want = attention.attention_rel_packed(qkv.double(), rel_h.double(), rel_w.double(), *args)
-    b, n, _ = qkv.shape
-    q, k, _ = qkv.double().reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-    bias = rel_h.double().reshape(b, heads, n, k_hw[0], 1) + rel_w.double().reshape(
-        b, heads, n, 1, k_hw[1])
-    want_lse = torch.logsumexp((q * args[0]) @ k.transpose(-2, -1) + bias.reshape(b, heads, n, n),
-                               -1).reshape(b * heads, n)
-    return (qkv, rel_h, rel_w, *args), want, want_lse
+    """Head-major operands of one forward case (q, k, v, dense bias, scale)
+    and the float64 output and log-sum-exp."""
+    if case.startswith("K7"):
+        q, k, v, bias = dense_case(*FORWARD_CASES[case])
+    else:
+        batch, heads, k_hw, d = FORWARD_CASES[case]
+        qkv, rel_h, rel_w, _ = inputs(batch, heads, k_hw, d, seed=3)
+        if case.startswith("K2"):  # the rel terms from the two tables, as kernel R computes them
+            rng = np.random.default_rng(4)
+            n = k_hw[0] * k_hw[1]
+            rh, rw = (torch.from_numpy(0.2 * rng.standard_normal((n, d), dtype=np.float32))
+                      for _ in range(2))
+            rel_h, rel_w = attention.window_rel_terms(qkv, rh, rw, k_hw, heads)
+        q, k, v, bias = packed_case(qkv, rel_h, rel_w, k_hw, heads)
+    scale = q.shape[-1] ** -0.5
+    q64, k64, v64, bias64 = (t.double() for t in (q, k, v, bias))
+    want = attention.attention_dense(q64, k64, v64, bias64, scale)
+    want_lse = torch.logsumexp((q64 * scale) @ k64.transpose(-2, -1) + bias64, -1)
+    return (q, k, v, bias, scale), want, want_lse
 
 
 def out_err(got, want):
     return (got.double() - want).abs().max().item() / want.abs().max().item()
 
 
-@pytest.mark.parametrize("case", ["K3 global 32x32", "K2 windows 14x14", "K3 ragged 20x27",
-                                  "K3 head dim 80"])
+@pytest.mark.parametrize("case", list(FORWARD_CASES))
 def test_3xtf32_forward_keeps_float32_accuracy_where_one_pass_does_not(case):
     args, want, want_lse = forward_case(case)
     out3, lse3 = forward_tiles(mma_3xtf32, *args)
@@ -243,3 +310,18 @@ def test_forward_folds_each_tiles_product_into_the_output_outside_the_mma_chain(
     chained = out_err(forward_tiles(mma_3xtf32, *args, chained=True)[0], want)
     assert per_tile <= KERNEL_TOL / 4, f"per-tile P·V off by {per_tile:.3g}"
     assert chained >= 4 * per_tile, f"chained {chained:.3g} against per-tile {per_tile:.3g}"
+
+
+def test_k7_guard_keeps_rows_whose_first_key_tile_is_masked():
+    """A row whose whole first key tile is -inf: the plain online-softmax
+    update forms exp(-inf - -inf) = NaN and the row stays NaN; with the
+    guard (rescale by 0, subtract 0 while the running max is -inf) it
+    matches float64."""
+    args, want, _ = forward_case("K7 -inf over the first key tile of every other row")
+    masked = torch.zeros(want.shape[-2], dtype=torch.bool)
+    masked[::2] = True
+    guarded, _ = forward_tiles(mma_3xtf32, *args)
+    unguarded, _ = forward_tiles(mma_3xtf32, *args, guard=False)
+    assert torch.isnan(unguarded[:, masked]).all()
+    assert torch.equal(unguarded[:, ~masked], guarded[:, ~masked])
+    assert out_err(guarded, want) <= KERNEL_TOL

@@ -83,6 +83,22 @@ def test_k7_plain_matches_interpret_kernel(rng):
     assert torch.equal(attention.attention_with_padding(*map(_t, (q, k, v, bias)), 0.3), got)
 
 
+@pytest.mark.parametrize("bh,n,d", [(3, 35, 64)])
+def test_k7_plain_matches_interpret_kernel_at_odd_n_with_masked_keys(rng, bh, n, d):
+    """The yardstick the card holds K7 against, at an N no tile divides, with
+    keys masked by -1e30 as the JAX wrapper masks its pad keys: every row
+    keeps some keys, one row's first 16 keys are all masked."""
+    q, k, v = (_f32(rng, bh, n, d) for _ in range(3))
+    bias = _f32(rng, bh, n, n)
+    bias[:, :, rng.random(n) < 0.3] = -1e30
+    bias[:, 0, :16] = -1e30
+    bias[:, :, n - 1] = 0.0
+    want = np.asarray(jax_k7_padded(*map(jnp.asarray, (q, k, v, bias)), d ** -0.5))
+    got = attention.attention_dense(*map(_t, (q, k, v, bias)), d ** -0.5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(attention.fused_attention(*map(_t, (q, k, v, bias)), d ** -0.5), got)
+
+
 @pytest.mark.parametrize("hw,heads,d", [((10, 9), 2, 8), ((8, 8), 2, 8), ((12, 12), 3, 8)])
 def test_k8_plain_matches_interpret_kernel(rng, hw, heads, d):
     b, ws = 2, 4

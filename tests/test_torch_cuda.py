@@ -329,8 +329,9 @@ def test_k6_matches_plain(cuda, bh, d, k_hw):
     assert _rel_err(got, want) <= 1e-5
 
 
+# K7 runs 3xTF32 on the tensor cores: also two launches bit-identical
 @pytest.mark.parametrize("bh,d,n", [(108, 64, 196), (12, 64, 1024), (16, 80, 196), (5, 64, 120),
-                                    (3, 64, 1)])
+                                    (3, 64, 1), (4, 64, 35), (864, 64, 196)])
 def test_k7_matches_plain(cuda, bh, d, n):
     from mia_tpu_torch.ops import attention
 
@@ -342,6 +343,27 @@ def test_k7_matches_plain(cuda, bh, d, n):
     want = attention.attention_dense(q, k, v, bias, d ** -0.5)
     torch.cuda.synchronize()
     assert attention.fused_attention.launches == before + 1
+    assert _rel_err(got, want) <= 1e-5
+    assert torch.equal(attention.fused_attention(q, k, v, bias, d ** -0.5), got)
+
+
+# -inf over the first key tile (64 keys, whichever tile width the launch
+# takes) of every other row, and over scattered keys: finite, and within
+# 1e-5 of the plain softmax, wherever a row keeps a finite key
+@pytest.mark.parametrize("bh,d,n", [(12, 64, 1024), (108, 64, 196), (16, 80, 196), (4, 64, 99)])
+def test_k7_masked_leading_key_tile(cuda, bh, d, n):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device=cuda) for _ in range(3))
+    bias = torch.randn(bh, n, n, generator=gen, device=cuda)
+    bias[:, ::2, :64] = -torch.inf
+    bias[:, 1::4, torch.rand(n, generator=gen, device=cuda) < 0.3] = -torch.inf
+    bias[:, :, n - 1] = 0.0
+    got = attention.fused_attention(q, k, v, bias, d ** -0.5)
+    want = attention.attention_dense(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-5
 
 
@@ -454,6 +476,8 @@ def test_k6_backward_matches_plain(cuda, bh, d, k_hw):
     assert len(got) == len(want) == 5
     for a, b in zip(got, want):
         assert a.shape == b.shape and _rel_err(a, b) <= 1e-4
+    again = attention.fused_attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, lse, d ** -0.5, k_hw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("b,hw,heads,d,ws", [(12, (32, 32), 12, 64, 14), (2, (20, 27), 12, 64, 14),
