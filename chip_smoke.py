@@ -20,9 +20,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    unpartition + residual + LayerNorm) the same way at the serving shapes
    for batch 1 and 8, a 20x27 grid (K8, K9), a non-aligned token count (K6,
    K7) and head dim 80, through the public wrappers; K9's x_new bit for bit.
-   K7 (3xTF32 on the tensor cores, like K6b) also at an odd token count
-   (35) and with -inf over the first key tile of every other row, two
-   launches bit-identical on every case, and with ``tc_bound_ms``.
+   K6 and K7 (3xTF32 on the tensor cores, like K6b) also at odd token
+   counts (35; K6 at 5x7 and 10x12) and K7 with -inf over the first key
+   tile of every other row, two launches bit-identical on every case, and
+   with ``tc_bound_ms``.
    Times each kernel and its plain version in turns with CUDA events, and,
    for the attention kernels, one ``scaled_dot_product_attention`` call on
    the same inputs with the dense bias built beforehand (``library_ms``;
@@ -39,9 +40,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    The backward kernels of K6, K8 and K9 the same way (K6b at the windowed
    and the global shapes, a non-aligned token count and head dim 80, two
    launches bit-identical, with ``tc_bound_ms``; K8b and
-   K9b also on a 20x27 grid, K8b on a grid of whole windows, where dbias_kv
-   is exactly zero; K9b's pad slots exactly zero), their library time
-   autograd through one ``scaled_dot_product_attention`` call.
+   K9b also on a 20x27 grid, K8b (3xTF32, like K6b) on 32x28 and 28x32
+   grids (pad windows only at the bottom, only at the right) and on a grid
+   of whole windows, where dbias_kv is exactly zero, two launches
+   bit-identical on every case, with ``tc_bound_ms``; K9b's pad slots
+   exactly zero), their library time autograd through one
+   ``scaled_dot_product_attention`` call.
    K10 and K10b (the k2/s2 transposed convolution and its backward) at the
    four stages of CPC-SAM's prompt-large upscaler (batch 12), the two of the
    plain SAM upscaler, the UNet decoder's four (batch 12 and 32, 256²) and
@@ -107,10 +111,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    and point + box + the previous low-res mask, ``predict_batch`` with 16
    point prompts. Checks shapes, finite values, 8 K2, 4 K3 and 8 K4 launches
    per ``set_image``, and the embedding, masks and iou on the card against
-   the same weights on the CPU. Prints the latencies and the encoder's
-   img/s at batch 8. Then ``predict`` and ``predict_batch`` with the mask
-   decoder's upscaler on K10: 2 launches a decode, mask logits within 1e-4
-   of max |logit| of the default's.
+   the same weights on the CPU. Prints the latencies, the encoder's img/s
+   at batch 8 and how far the embedding with the default TF32 convolutions
+   lies from the one with full float32 convolutions on the card. Then
+   ``predict`` and ``predict_batch`` with the mask decoder's upscaler on
+   K10: 2 launches a decode, mask logits within 1e-4 of max |logit| of the
+   default's.
 6. Encoder-route phase: loads the SAM phase's weights into an
    ``ImageEncoderViT`` of each other route (K9 exit; grid-native K8, once
    by argument and once by ``MIA_WINDOWED_ATTN=1``; head-major K6; no
@@ -126,8 +132,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    CPU, and one run on the grid-native encoder (K8 under AMG).
 7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
-   paths that ran them, their bounds and library times; K2, K3, K7, K2b, K3b
-   and K6b also their tensor-core bound, K2 and K3 their batch-8 numbers under
+   paths that ran them, their bounds and library times; K2, K3, K6, K7, K2b,
+   K3b, K6b and K8b also their tensor-core bound, K2 and K3 their batch-8
+   numbers under
    ``b8``), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -170,7 +177,7 @@ KERNELS = {
             "mia_tpu/ops/ln_window.py:178"),
     "K5": ("connected_components_pallas (K5)", "mia_tpu_torch/csrc/connected_components.cu",
            "mia_tpu/ops/morphology.py:235"),
-    "K6": ("fused_attention_rel (K6)", "mia_tpu_torch/csrc/attention_routes.cu",
+    "K6": ("fused_attention_rel (K6)", "mia_tpu_torch/csrc/attention_fwd_tc.cuh",
            "mia_tpu/ops/attention.py:296"),
     "K6b": ("fused_attention_rel backward (K6)", "mia_tpu_torch/csrc/attention_bwd_tc.cuh",
             "mia_tpu/ops/attention.py:429"),
@@ -178,7 +185,7 @@ KERNELS = {
            "mia_tpu/ops/attention.py:88"),
     "K8": ("fused_attention_rel_win (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
            "mia_tpu/ops/attention.py:1334"),
-    "K8b": ("fused_attention_rel_win backward (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
+    "K8b": ("fused_attention_rel_win backward (K8)", "mia_tpu_torch/csrc/attention_bwd_tc.cuh",
             "mia_tpu/ops/attention.py:1509"),
     "K9": ("unpartition_add_ln (K9)", "mia_tpu_torch/csrc/unpartition_residual.cu",
            "mia_tpu/ops/unpartition_residual.py:221"),
@@ -191,8 +198,8 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
-# K2, K3, K7, K2b, K3b and K6b run 3xTF32 on the tensor cores: the card's dense TF32 rate, three
-# MMAs a product
+# K2, K3, K6, K7, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense TF32
+# rate, three MMAs a product
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
 LSE_TOL = 1e-5  # K2's and K3's log-sum-exp against the plain one, absolute (values ~10)
@@ -1218,9 +1225,10 @@ def route_kernel_phase(torch, device):
     # K6 and K7: head-major operands of one ViT-B/512 image (9 windows x 12
     # heads of 196 tokens; 12 heads of 1024 global tokens), of 8 images, token
     # counts no tile divides (35 is odd: K7 copies its bias 4 bytes at a
-    # time), and the ViT-H head dim; K7 (3xTF32) also with -inf over the
-    # first key tile of every other row (64 keys, the wider of its two tile
-    # widths) and two launches bit-identical on every case
+    # time, K6 its 5- and 7-wide rel rows), and the ViT-H head dim; both
+    # (3xTF32) two launches bit-identical on every case, K7 also with -inf
+    # over the first key tile of every other row (64 keys, the wider of its
+    # two tile widths)
     for label, bh, d, k_hw in (("B=1 windows", 108, 64, (14, 14)), ("B=1 global", 12, 64, (32, 32)),
                                ("B=8 windows", 864, 64, (14, 14)), ("B=8 global", 96, 64, (32, 32)),
                                ("N=120 (10x12)", 6, 64, (10, 12)), ("N=35 (5x7)", 4, 64, (5, 7)),
@@ -1228,7 +1236,9 @@ def route_kernel_phase(torch, device):
         n = k_hw[0] * k_hw[1]
         q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         args = (q, k, v, randn(bh, n, k_hw[0]), randn(bh, n, k_hw[1]), d ** -0.5, k_hw)
-        hold("K6", label, attention.fused_attention_rel(*args), attention.attention_rel(*args))
+        got = attention.fused_attention_rel(*args)
+        hold("K6", label, got, attention.attention_rel(*args))
+        bit_identical(torch, "K6", label, (got,), (attention.fused_attention_rel(*args),))
         inputs[("K6", label)] = args
         cases = {label: (q, k, v, randn(bh, n, n), d ** -0.5)}
         if label == "B=1 windows":
@@ -1290,8 +1300,8 @@ def route_kernel_phase(torch, device):
             bias, sc = args[3][None], args[4]
             moved = [*args[:4], args[0]]
         lib = sdpa_ms(torch, q, k, v, bias, sc, per_block)
-        tc = {"tc_bound_ms": tc_bound_ms(moved, flops)} if name == "K7" else {}  # 3xTF32
-        return {"library_ms": lib, **bound(moved, flops), **tc}
+        # K6 and K7 run 3xTF32 on the tensor cores: their own bound beside the float32 one
+        return {"library_ms": lib, **bound(moved, flops), "tc_bound_ms": tc_bound_ms(moved, flops)}
 
     fns = {"K6": (attention._launch_k6, attention.attention_rel),
            "K7": (attention._launch_k7, attention.attention_dense),
@@ -1322,7 +1332,7 @@ def route_kernel_phase(torch, device):
         print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
               + ("; x_new bit-exact" if name == "K9" else "")
-              + ("; two launches bit-identical on every case" if name == "K7" else ""))
+              + ("; two launches bit-identical on every case" if name in ("K6", "K7") else ""))
     return out
 
 
@@ -1366,10 +1376,13 @@ def route_bwd_kernel_phase(torch, device):
         hold("K6b", label, got, attention.attention_rel_bwd(*plain_args))
         bit_identical(torch, "K6b", label, got, attention._launch_k6_bwd(*kernel_args))
         timed[("K6b", label)] = (kernel_args, plain_args)
-    # K8b: 32x32 pads each edge window, 20x27 both ways, 28x28 is whole windows
-    # (dbias_kv exactly zero)
+    # K8b (3xTF32): 32x32 pads each edge window, 32x28 only the bottom ones,
+    # 28x32 only the right ones, 20x27 both ways, 28x28 is whole windows
+    # (dbias_kv exactly zero); two launches bit-identical on every case
     for label, b, hw, n_heads, d in (("B=12", 12, (side, side), heads, 64),
                                      ("B=6", 6, (side, side), heads, 64),
+                                     ("grid 32x28", 2, (32, 28), heads, 64),
+                                     ("grid 28x32", 2, (28, 32), heads, 64),
                                      ("grid 20x27", 2, (20, 27), heads, 64),
                                      ("whole windows 28x28", 2, (28, 28), heads, 64),
                                      ("head dim 80", 1, (side, side), 16, 80)):
@@ -1381,6 +1394,7 @@ def route_bwd_kernel_phase(torch, device):
         plain_args = (*fwd, out, g, d ** -0.5, ws, n_heads)
         got = attention._launch_k8_bwd(*kernel_args)
         hold("K8b", label, got, attention.attention_rel_win_bwd(*plain_args))
+        bit_identical(torch, "K8b", label, got, attention._launch_k8_bwd(*kernel_args))
         check(not got[3][0].any(), f"K8b {label}: row 0 of dbias_kv is not zero")
         timed[("K8b", label)] = (kernel_args, plain_args)
     # K9b: the total in both layouts, the pad slots of the windows' cotangent exactly zero
@@ -1420,9 +1434,11 @@ def route_bwd_kernel_phase(torch, device):
             g_w = window_partition(g, ws)[0].view(-1, ws * ws, n_heads, d).transpose(1, 2).contiguous()
             lib = sdpa_backward_ms(torch, *windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads),
                                    sc, g_w, 5)
-            # lse is the forward's by-product; dqkv, drel_h, drel_w and dbias_kv are written
-            return {"library_ms": lib, **bound([qkv, rel_h, rel_w, bias_kv, o, g, qkv, rel_h, rel_w,
-                                                bias_kv], flops)}
+            # lse is the forward's by-product; dqkv, drel_h, drel_w and dbias_kv are written;
+            # 3xTF32 on the tensor cores: its own bound beside the float32 one
+            moved = [qkv, rel_h, rel_w, bias_kv, o, g, qkv, rel_h, rel_w, bias_kv]
+            return {"library_ms": lib, **bound(moved, flops),
+                    "tc_bound_ms": tc_bound_ms(moved, flops)}
         q, k, v, rel_h, rel_w, o, g, _, sc, _ = args
         bh, n, d = q.shape
         lib = sdpa_backward_ms(torch, q[None], k[None], v[None], dense_bias(rel_h, rel_w, 1, bh), sc,
@@ -1460,7 +1476,7 @@ def route_bwd_kernel_phase(torch, device):
         print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
               + ("; pad slots exactly zero" if name == "K9b" else "")
-              + ("; two launches bit-identical on every case" if name == "K6b" else ""))
+              + ("; two launches bit-identical on every case" if name in ("K6b", "K8b") else ""))
     return out
 
 
@@ -1733,6 +1749,9 @@ def sam_phase(torch, device):
     check(bool(torch.isfinite(emb_tf32).all()), "embedding not finite")
     check(fp32_err <= 1e-4 * scale, f"float32 embedding card vs CPU differs by {fp32_err} (scale {scale})")
     check(tf32_err <= 2e-2 * scale, f"TF32 embedding card vs CPU differs by {tf32_err} (scale {scale})")
+    # the default TF32 convolutions against full float32 ones on the card, same input
+    fp32_scale = emb_fp32.abs().max().item()
+    tf32_dev = (emb_tf32 - emb_fp32).abs().max().item()
 
     # --- latency -----------------------------------------------------------
     set_s = median_s(lambda: predictor.set_image(image), torch, n=20)
@@ -1752,6 +1771,9 @@ def sam_phase(torch, device):
           f"(TF32 convs), max |emb| {scale:.3g}; mask logits relative {logit_err:.3g}, iou "
           f"{iou_err:.3g}, {bit_flips} mask bits flipped near 0; resized input values "
           f"one step apart at an exact integer: {flips} of {differ.size}")
+    print(f"sam: set_image embedding with the default TF32 convolutions against float32 ones "
+          f"(cudnn.allow_tf32 = False), same input on the card: max |diff| {tf32_dev:.3g}, "
+          f"relative to max |emb| {tf32_dev / fp32_scale:.3g}")
     return ({"launches": launches, "set_image_ms": set_s * 1e3, "predict_ms": predict_s * 1e3,
              "predict_batch_ms": batch_s * 1e3, "encoder_img_per_s_b8": 8 / enc_s},
             model, cpu_model)

@@ -1,19 +1,24 @@
-// The tensor-core backward attention template of the port: FlashAttention-2
-// style from the forward's per-row log-sum-exp, on token-major operands with
-// runtime strides, every product in 3xTF32 on Hopper's tensor cores.
-// attention_rel.cu instantiates it for K3b (kTables false: the rel terms
-// rel_h (B*H, n, kh), rel_w (B*H, n, kw) are inputs; packed qkv) and K2b
-// (kTables true: kernel R of attention_rel.cu computes them from the two
-// tables into one (B*H, n, kh + kw) buffer). K6b runs K3b's instance on
-// head-major operands: heads = 1, in_stride = out_stride = D, every (batch,
-// head) pair a batch element; every offset below (tok0 * stride + head * D
-// for the rows, bh * n for lse, delta and the rel rows) reduces to that
-// layout, and any n = kh * kw is taken.
+// The backward attention template of the port: FlashAttention-2 style from
+// the forward's per-row log-sum-exp, on token-major operands with runtime
+// strides, every product in 3xTF32 on Hopper's tensor cores. Its instances:
+//   attention_rel.cu     K3b (kTables false: the rel terms rel_h (B*H, n, kh),
+//                        rel_w (B*H, n, kw) are inputs; packed qkv) and K2b
+//                        (kTables true: kernel R of attention_rel.cu computes
+//                        them from the two tables into one (B*H, n, kh + kw)
+//                        buffer). K6b runs K3b's instance on head-major
+//                        operands: heads = 1, in_stride = out_stride = D,
+//                        every (batch, head) pair a batch element; every
+//                        offset below (tok0 * stride + head * D for the rows,
+//                        bh * n for lse, delta and the rel rows) reduces to
+//                        that layout, and any n = kh * kw is taken.
+//   attention_routes.cu  K8b (kWindow true): windows carved from the
+//                        unpartitioned (B, hg, wg) token grid, below.
 //
 // Replaces the TPU backward kernels of mia_tpu/ops/attention.py
 //   K3b  _rel_packed_bwd      (_rel_packed_bwd_kernel)
 //   K2b  _rel_packed_ik_bwd   (_rel_packed_ik_bwd_kernel)
 //   K6b  _rel_bwd             (_rel_bwd_kernel)
+//   K8b  _rel_win_bwd         (_attn_rel_win_bwd_kernel)
 // which hold every key of a query block at once and recompute the whole
 // softmax row on the MXU (K6b also accumulates dk and dv across query blocks
 // by revisiting one output block, which only a sequential grid allows). Here the forward's log-sum-exp gives the
@@ -57,9 +62,31 @@
 // The query (pass A) or key (pass B) fragments of the block's own rows stay
 // in registers as float32 for the whole pass. Each streamed tile is
 // computed in two sub-tiles of 32 rows to keep the score accumulators at 16
-// registers; a warp whose 16 rows are all past n skips its products, and
-// 8-row groups of streamed keys or queries past n are skipped, so a
-// 196-token window computes 208 query rows and 200 keys (6% and 2% pad).
+// registers; a warp whose 16 rows hold no query skips its products, and
+// 8-row groups of streamed keys or queries past the last one are skipped,
+// so a 196-token window computes 208 query rows and 200 keys (6% and 2% pad).
+//
+// Layout kWindow (K8b): blockIdx.z is a window of an image (batch * nwin of
+// them), the block's n = ws * ws rows are the window's slots, and slot (i, j)
+// of window (wy, wx) is grid token (wy ws + i, wx ws + j) (slot_token of
+// attention_fwd.cuh), or a pad slot outside the grid. Each block stages its
+// window's slot -> token map in shared memory once, so no copy divides an
+// index. Copies go by that map (copy_slots_async): a pad slot is a real key
+// whose k and v are the rows of pad_kv (the qkv Linear's output for a zero
+// token) and whose rel bias is the query's for the slot position; it is no
+// query, so its q and g rows are zero-filled, its rel rows too, and pass B
+// gives it lse = +inf and delta = 0, so p = exp(0 + 0 - inf) = 0 exactly and
+// no 0 * inf reaches dk or dv. lse, delta and the rel rows are read by token
+// from the grid layouts (B*H, hg*wg) and (B*H, hg, wg, ws); dq, dk, dv and
+// drel of a slot with a token are written at the token's place. A window's
+// queries lie in its first (hr - 1) ws + wr slots (hr x wr of its slots are
+// in the grid), so pass A skips the query tiles past them and pass B
+// streams only the tiles before them: the bottom windows of a 32 x 32 grid
+// with ws 14 hold 56 or 46 queries, one tile of four. The pad keys' dk and
+// dv belong to pad_kv: pass B sums them over the pad keys of its tile (quad
+// shuffles, then the four warps in order through shared memory) into one
+// partial row per (window, key tile) of dpad, and the caller reduces the
+// partials in a fixed order; no atomics, so two launches are bit-identical.
 //
 // Bound: operations. 7 x 2 x D flops per (query, key) pair at 495/3 TFLOP/s
 // (the card's dense TF32 rate, three MMAs per product); the copies are
@@ -73,18 +100,108 @@
 
 #pragma once
 
+#include <math.h>
+
 #include <type_traits>
 
-#include "attention_bwd.cuh"
+#include "attention_fwd.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
+struct BwdArgs {
+  const float* q;       // first head's columns of token 0
+  const float* k;
+  const float* v;
+  const float* rel_a;   // kTables false: rel_h; true: rh_flat (q_h*kh, D)
+  const float* rel_b;   // kTables false: rel_w; true: rw_flat (kw*kw, D)
+  const float* pad_kv;  // kWindow: (3, heads*D) q, k, v rows of a pad slot
+  const float* out;     // the forward's output
+  const float* g;       // its cotangent
+  const float* lse;     // the forward's log-sum-exp (B*H, tokens)
+  float* dq;            // same strides as q, k, v
+  float* dk;
+  float* dv;
+  float* delta;         // scratch (B*H, tokens): rowsum(g * o), pass A -> B
+  float* rel_out;       // kTables (K2b): scratch (B*H, n, kh+kw), kernel R's rel terms
+  float* drel_a;        // kTables false: drel_h; true: drel (B*H, n, kh+kw) or null
+  float* drel_b;        // kTables false: drel_w
+  float* dpad;          // kWindow: (windows * key tiles, 2, heads*D) pad-slot dk | dv partials
+  long long in_stride;  // floats per token row of q, k, v, dq, dk, dv
+  long long out_stride; // floats per token row of out and g
+  int n;                // query rows = key rows per batch element (or slots per window)
+  int heads;
+  int kh, kw;           // key grid: n == kh * kw
+  int hg, wg;           // kWindow: the token grid
+  int nwx, nwin;        // kWindow: windows per grid row, windows per image
+  float scale;
+};
+
 constexpr int kTcSub = 32;  // streamed rows per register sub-tile
+constexpr int kNoToken = -2;  // kWindow's slot map past n (slot_token gives -1 for a pad slot)
+
+// kWindow: one past the last slot of window `win` that holds a query. The
+// window's hr x wr slots in the grid are its first rows and columns.
+__device__ __forceinline__ int window_queries(const BwdArgs& a, int win) {
+  const int ws = a.kw;
+  const int wy = win / a.nwx;
+  const int wx = win - wy * a.nwx;
+  const int hr = min(ws, a.hg - wy * ws);
+  const int wr = min(ws, a.wg - wx * ws);
+  return (hr - 1) * ws + wr;
+}
+
+// kWindow: the token of every slot 0 .. slots-1 of window `win`: a token
+// >= 0, -1 for a pad slot, kNoToken past n.
+__device__ __forceinline__ void stage_slot_tokens(int* tok_s, const BwdArgs& a, int win,
+                                                  int slots) {
+  for (int i = threadIdx.x; i < slots; i += kTcThreads)
+    tok_s[i] = i < a.n ? slot_token(a, i, win) : kNoToken;
+}
+
+// Slots slot0 .. slot0+63 of one operand into a tile with rows of D + 4
+// floats, by the slot map: a slot with a token copies the token's row, a
+// pad slot pad_row (K, V) or zeros (pad_row null: Q, G), a slot past n zeros.
+template <int D>
+__device__ __forceinline__ void copy_slots_async(float* dst, const float* __restrict__ base,
+                                                 long long stride, const int* tok_s, int slot0,
+                                                 const float* __restrict__ pad_row) {
+  constexpr int kC = D / 4;
+  for (int i = threadIdx.x; i < kTcTile * kC; i += kTcThreads) {
+    const int r = i / kC;
+    const int c = i - r * kC;
+    const int tok = tok_s[slot0 + r];
+    const bool valid = tok >= 0 || (tok == -1 && pad_row != nullptr);
+    const float* src = tok >= 0 ? base + tok * stride : pad_row;
+    cp_async16(dst + r * (D + 4) + 4 * c, valid ? src + 4 * c : base, valid);
+  }
+}
+
+// The rel rows of slots q0 .. q0+63 into R (laid out as rel_view<false>) by
+// the slot map: a slot with a token copies rows row_base + token of rel_h
+// and rel_w, any other slot zeros. One warp a slot, one lane a column: no
+// index is divided.
+__device__ __forceinline__ void copy_rel_slots_async(float* R, const float* __restrict__ rel_h,
+                                                     const float* __restrict__ rel_w,
+                                                     long long row_base, const int* tok_s, int kh,
+                                                     int kw, int q0) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kTcTile; r += kTcThreads / 32) {
+    const int tok = tok_s[q0 + r];
+    const long long row = row_base + tok;
+    for (int j = lane; j < kh + kw; j += 32) {
+      const bool h = j < kh;
+      float* dst = h ? R + r * kh + j : R + kTcTile * kh + r * kw + (j - kh);
+      const float* src = h ? rel_h + row * kh + j : rel_w + row * kw + (j - kh);
+      cp_async4(dst, tok >= 0 ? src : rel_h, tok >= 0);
+    }
+  }
+}
 
 // Pass A: dq, delta and the rel gradients of one 64-query tile.
-template <int D, bool kTables>
+template <int D, bool kTables, bool kWindow = false>
 __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(const BwdArgs a) {
+  static_assert(!(kTables && kWindow), "K8b's rel terms are inputs");
   constexpr int kRow = D + 4;
   constexpr int kK = D / 8;  // k-steps (and n8 tiles) over the head dim
   constexpr int kSubRow = kTcSub + 1;
@@ -99,9 +216,22 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
   const int g = lane >> 2;   // fragment row group
   const int tq = lane & 3;   // thread in group
   float* Sw = DRel + kTcTile * (ka + 1) + warp * 16 * kSubRow;  // this warp's ds sub-tile
+  // kWindow: the window's slot -> token map, after the four warps' Sw
+  [[maybe_unused]] int* tok_s =
+      reinterpret_cast<int*>(DRel + kTcTile * (ka + 1) + 4 * 16 * kSubRow);
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
-  const long long tok0 = img * n;
+  long long img = blockIdx.z;  // batch element, or the image of this window
+  int tokens = n;              // tokens per batch element / image
+  if constexpr (kWindow) {
+    img = blockIdx.z / a.nwin;
+    const int win = static_cast<int>(blockIdx.z - img * a.nwin);
+    // no slot of this tile is a query: nothing to compute or write
+    if (static_cast<int>(blockIdx.x) * kTcTile >= window_queries(a, win)) return;
+    tokens = a.hg * a.wg;
+    stage_slot_tokens(tok_s, a, win, gridDim.x * kTcTile);
+    __syncthreads();
+  }
+  const long long tok0 = img * tokens;
   const long long bh = img * heads + head;
   const int row0 = blockIdx.x * kTcTile;
   const int rows = min(kTcTile, n - row0);
@@ -117,31 +247,51 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
 
   auto issue = [&](int tile) {
     float* st = KV + (tile & 1) * 2 * kTcTile * kRow;
-    copy_rows_async<D>(st, k_base, stride, tile * kTcTile, n);
-    copy_rows_async<D>(st + kTcTile * kRow, v_base, stride, tile * kTcTile, n);
+    if constexpr (kWindow) {
+      copy_slots_async<D>(st, k_base, stride, tok_s, tile * kTcTile,
+                          a.pad_kv + (heads + head) * D);
+      copy_slots_async<D>(st + kTcTile * kRow, v_base, stride, tok_s, tile * kTcTile,
+                          a.pad_kv + (2 * heads + head) * D);
+    } else {
+      copy_rows_async<D>(st, k_base, stride, tile * kTcTile, n);
+      copy_rows_async<D>(st + kTcTile * kRow, v_base, stride, tile * kTcTile, n);
+    }
     cp_async_commit();
   };
-  copy_rel_async<kTables>(Rel, kTables ? a.rel_out : a.rel_a, kTables ? a.rel_out : a.rel_b, bh,
-                          n, kh, kw, row0, rows);  // lands with tile 0
+  if constexpr (kWindow) {
+    copy_rel_slots_async(Rel, a.rel_a, a.rel_b, bh * tokens, tok_s, kh, kw, row0);
+  } else {
+    copy_rel_async<kTables>(Rel, kTables ? a.rel_out : a.rel_a, kTables ? a.rel_out : a.rel_b,
+                            bh, n, kh, kw, row0, rows);  // lands with tile 0
+  }
   issue(0);
 
   for (int i = t; i < kTcTile * (ka + 1); i += kTcThreads) DRel[i] = 0.f;
 
   // this warp's rows lr0 = 16 warp + g and lr0 + 8: q and g fragments in
-  // registers, lse, delta = rowsum(g * o) (quad shuffles over the columns)
+  // registers, lse, delta = rowsum(g * o) (quad shuffles over the columns).
+  // tr0, tr1: their token rows, which are queries when below n (kWindow:
+  // when the slot has a token)
   const int lr0 = warp * 16 + g;
   const int r0 = row0 + lr0;
   const int r1 = r0 + 8;
-  const bool active = row0 + warp * 16 < n;
+  int tr0 = r0, tr1 = r1;
+  bool active = row0 + warp * 16 < n;
+  if constexpr (kWindow) {
+    tr0 = tok_s[r0];
+    tr1 = tok_s[r1];
+    active = __any_sync(0xffffffffu, tr0 >= 0 || tr1 >= 0);
+  }
+  auto query = [&](int tr) { return kWindow ? tr >= 0 : tr < n; };
   float qa[kK][4], ga[kK][4];
   float dl0 = 0.f, dl1 = 0.f;
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = (e & 1) ? r1 : r0;
+      const int r = (e & 1) ? tr1 : tr0;
       const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
-      const bool ok = r < n;
+      const bool ok = query(r);
       qa[kk][e] = ok ? __ldg(q_base + r * stride + c) : 0.f;
       ga[kk][e] = ok ? __ldg(g_base + r * ostride + c) : 0.f;
       const float o = ok ? __ldg(o_base + r * ostride + c) : 0.f;
@@ -158,11 +308,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
     dl1 += __shfl_xor_sync(0xffffffffu, dl1, off);
   }
   if (tq == 0) {
-    if (r0 < n) a.delta[bh * n + r0] = dl0;
-    if (r1 < n) a.delta[bh * n + r1] = dl1;
+    if (query(tr0)) a.delta[bh * tokens + tr0] = dl0;
+    if (query(tr1)) a.delta[bh * tokens + tr1] = dl1;
   }
-  const float lse0 = r0 < n ? __ldg(a.lse + bh * n + r0) : 0.f;
-  const float lse1 = r1 < n ? __ldg(a.lse + bh * n + r1) : 0.f;
+  const float lse0 = query(tr0) ? __ldg(a.lse + bh * tokens + tr0) : 0.f;
+  const float lse1 = query(tr1) ? __ldg(a.lse + bh * tokens + tr1) : 0.f;
 
   float dq[kK][4];
 #pragma unroll
@@ -204,7 +354,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
             }
           }
         }
-        // ds = p (dp - delta), p from the lse; keys past n and pad rows give 0
+        // ds = p (dp - delta), p from the lse; keys past n and rows that are
+        // no query give 0
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kb = k0 + sub + 8 * j + 2 * tq;
@@ -219,7 +370,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
               ++y;
             }
             const bool hi = e & 2;
-            const bool ok = key < n && (hi ? r1 : r0) < n;
+            const bool ok = key < n && query(hi ? tr1 : tr0);
             const int lr = hi ? lr0 + 8 : lr0;
             const float p = ok ? __expf(s[j][e] * a.scale + rv.bias(Rel, lr, y, x) -
                                         (hi ? lse1 : lse0))
@@ -232,6 +383,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
         // drel_h[., y] and each ds to its own column of drel_w; otherwise the
         // ds tile goes through shared memory (Sw) and lanes 0-15 add the runs
         // of one key-grid row (drel_h), lanes 16-31 the columns (drel_w).
+        // Rows that are no query add zeros.
         const int y_sub = (k0 + sub) / kw;
         const int x_sub = k0 + sub - y_sub * kw;
         if (kFull && x_sub + kTcSub <= kw) {
@@ -248,7 +400,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
           }
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            if ((half ? r1 : r0) >= n) continue;
+            if (!query(half ? tr1 : tr0)) continue;
             float* dr = DRel + (lr0 + 8 * half) * (ka + 1);
             if (tq == 0) dr[y_sub] += half ? h1 : h0;
             dr += kh + x_sub + 2 * tq;
@@ -341,8 +493,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
   // dq = scale * ds.K (K2b: kernel Q then adds drel routed through the tables)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= n) continue;
+    const int r = half ? tr1 : tr0;
+    if (!query(r)) continue;
     float* dst = a.dq + (tok0 + r) * stride + head * D + 2 * tq;
 #pragma unroll
     for (int nd = 0; nd < kK; ++nd)
@@ -350,7 +502,21 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
           make_float2(dq[nd][2 * half] * a.scale, dq[nd][2 * half + 1] * a.scale);
   }
   __syncthreads();  // DRel complete for the block-wide stores
-  if constexpr (kTables) {
+  if constexpr (kWindow) {  // one warp a row with a token, one lane a column
+    for (int r = warp; r < rows; r += kTcThreads / 32) {
+      const int tok = tok_s[row0 + r];
+      if (tok < 0) continue;
+      const long long row = bh * tokens + tok;
+      for (int j = lane; j < ka; j += 32) {
+        const float v = DRel[r * (ka + 1) + j];
+        if (j < kh) {
+          a.drel_a[row * kh + j] = v;
+        } else {
+          a.drel_b[row * kw + j - kh] = v;
+        }
+      }
+    }
+  } else if constexpr (kTables) {
     for (int i = t; i < rows * ka; i += kTcThreads)
       a.drel_a[(bh * n + row0) * ka + i] = DRel[(i / ka) * (ka + 1) + i % ka];
   } else {
@@ -362,11 +528,12 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dq_kernel(cons
 }
 
 // Pass B: dk and dv of one 64-key tile, streaming the query tiles. The rel
-// rows come from rel_h / rel_w (K3b: the inputs; K2b: kernel R's rel_out as
-// one (BH, n, kh+kw) buffer).
-template <int D, bool kTables>
+// rows come from rel_h / rel_w (K3b, K8b: the inputs; K2b: kernel R's
+// rel_out as one (BH, n, kh+kw) buffer).
+template <int D, bool kTables, bool kWindow = false>
 __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
     const BwdArgs a, const float* __restrict__ rel_h, const float* __restrict__ rel_w) {
+  static_assert(!(kTables && kWindow), "K8b's rel terms are inputs");
   constexpr int kRow = D + 4;
   constexpr int kK = D / 8;
   extern __shared__ float4 smem4[];
@@ -374,14 +541,25 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
   const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw, ka = kh + kw;
   float* RelS = QG + 4 * kTcTile * kRow;      // [stage][64 * ka], rel_view
   float* LD = RelS + 2 * kTcTile * ka;        // [stage][lse | delta][64]
+  [[maybe_unused]] int* tok_s = reinterpret_cast<int*>(LD + 4 * kTcTile);  // kWindow: the slot map
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
-  const long long tok0 = img * n;
+  long long img = blockIdx.z;
+  int tokens = n;
+  int nq_all = n;  // one past the last query row
+  if constexpr (kWindow) {
+    img = blockIdx.z / a.nwin;
+    const int win = static_cast<int>(blockIdx.z - img * a.nwin);
+    tokens = a.hg * a.wg;
+    nq_all = window_queries(a, win);
+    stage_slot_tokens(tok_s, a, win, gridDim.x * kTcTile);
+    __syncthreads();
+  }
+  const long long tok0 = img * tokens;
   const long long bh = img * heads + head;
   const int key0 = blockIdx.x * kTcTile;
   const long long stride = a.in_stride;
@@ -391,39 +569,72 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
   const float* v_base = a.v + tok0 * stride + head * D;
   const float* g_base = a.g + tok0 * ostride + head * D;
   const RelView rv = rel_view<kTables>(kh, kw);
-  const int ntiles = (n + kTcTile - 1) / kTcTile;
+  const int ntiles = (nq_all + kTcTile - 1) / kTcTile;
 
   auto issue = [&](int tile) {
     const int st = tile & 1;
     const int q0 = tile * kTcTile;
-    const int rows = min(kTcTile, n - q0);
     float* dst = QG + st * 2 * kTcTile * kRow;
-    copy_rows_async<D>(dst, q_base, stride, q0, n);
-    copy_rows_async<D>(dst + kTcTile * kRow, g_base, ostride, q0, n);
-    copy_rel_async<kTables>(RelS + st * kTcTile * ka, rel_h, rel_w, bh, n, kh, kw, q0, rows);
     float* ld = LD + st * 2 * kTcTile;
-    for (int i = t; i < rows; i += kTcThreads) {
-      cp_async4(ld + i, a.lse + bh * n + q0 + i);
-      cp_async4(ld + kTcTile + i, a.delta + bh * n + q0 + i);
+    if constexpr (kWindow) {
+      copy_slots_async<D>(dst, q_base, stride, tok_s, q0, nullptr);
+      copy_slots_async<D>(dst + kTcTile * kRow, g_base, ostride, tok_s, q0, nullptr);
+      copy_rel_slots_async(RelS + st * kTcTile * ka, rel_h, rel_w, bh * tokens, tok_s, kh, kw, q0);
+      for (int i = t; i < kTcTile; i += kTcThreads) {
+        const int tok = tok_s[q0 + i];
+        if (tok >= 0) {
+          cp_async4(ld + i, a.lse + bh * tokens + tok);
+          cp_async4(ld + kTcTile + i, a.delta + bh * tokens + tok);
+        } else {  // no query: p = exp(s + 0 - inf) = 0, ds = 0
+          ld[i] = INFINITY;
+          ld[kTcTile + i] = 0.f;
+        }
+      }
+    } else {
+      const int rows = min(kTcTile, n - q0);
+      copy_rows_async<D>(dst, q_base, stride, q0, n);
+      copy_rows_async<D>(dst + kTcTile * kRow, g_base, ostride, q0, n);
+      copy_rel_async<kTables>(RelS + st * kTcTile * ka, rel_h, rel_w, bh, n, kh, kw, q0, rows);
+      for (int i = t; i < rows; i += kTcThreads) {
+        cp_async4(ld + i, a.lse + bh * n + q0 + i);
+        cp_async4(ld + kTcTile + i, a.delta + bh * n + q0 + i);
+      }
     }
     cp_async_commit();
   };
   issue(0);
 
   // this warp's keys kr0 = key0 + 16 warp + g and kr0 + 8: k and v fragments
-  // in registers, their key-grid row and column
+  // in registers (kWindow: a pad slot's from pad_kv), their key-grid row and
+  // column
   const int kr0 = key0 + warp * 16 + g;
   const int kr1 = kr0 + 8;
   const bool active = key0 + warp * 16 < n;
   float ka_[kK][4], va_[kK][4];
+  if constexpr (kWindow) {
+    const int tk0 = tok_s[kr0], tk1 = tok_s[kr1];
 #pragma unroll
-  for (int kk = 0; kk < kK; ++kk) {
+    for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = (e & 1) ? kr1 : kr0;
-      const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
-      ka_[kk][e] = r < n ? __ldg(k_base + r * stride + c) : 0.f;
-      va_[kk][e] = r < n ? __ldg(v_base + r * stride + c) : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int tok = (e & 1) ? tk1 : tk0;
+        const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
+        const float* kp = tok >= 0 ? k_base + tok * stride : a.pad_kv + (heads + head) * D;
+        const float* vp = tok >= 0 ? v_base + tok * stride : a.pad_kv + (2 * heads + head) * D;
+        ka_[kk][e] = tok != kNoToken ? __ldg(kp + c) : 0.f;
+        va_[kk][e] = tok != kNoToken ? __ldg(vp + c) : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (e & 1) ? kr1 : kr0;
+        const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
+        ka_[kk][e] = r < n ? __ldg(k_base + r * stride + c) : 0.f;
+        va_[kk][e] = r < n ? __ldg(v_base + r * stride + c) : 0.f;
+      }
     }
   }
   const int y0 = kr0 / kw, x0 = kr0 - (kr0 / kw) * kw;
@@ -450,7 +661,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
     const float* lse_s = LD + st * 2 * kTcTile;
     const float* delta_s = lse_s + kTcTile;
     const int q0 = tile * kTcTile;
-    const int nq = min(kTcTile, n - q0);
+    const int nq = min(kTcTile, nq_all - q0);
     if (active) {
       // one sub-tile; kFull: all 32 rows present, no per-group branches
       auto sub_tile = [&](const int sub, const int nqs, auto full) {
@@ -475,14 +686,15 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
             }
           }
         }
-        // p into s, ds into dp; pad queries and keys past n give 0
+        // p into s, ds into dp; queries past the last one and keys past n
+        // give 0 (kWindow: pad queries too, through their lse of +inf)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool hi = e & 2;
             const int q = sub + 8 * j + 2 * tq + (e & 1);
-            const bool ok = (hi ? kr1 : kr0) < n && q0 + q < n;
+            const bool ok = (hi ? kr1 : kr0) < n && q0 + q < nq_all;
             const float p = ok ? __expf(s[j][e] * a.scale +
                                         rv.bias(R, q, hi ? y1 : y0, hi ? x1 : x0) - lse_s[q])
                                : 0.f;
@@ -519,10 +731,16 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
     __syncthreads();
   }
 
+  // the keys' rows (kWindow: slots with a token, at the token)
+  int tk0 = kr0, tk1 = kr1;
+  if constexpr (kWindow) {
+    tk0 = tok_s[kr0];
+    tk1 = tok_s[kr1];
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? kr1 : kr0;
-    if (r >= n) continue;
+    const int r = half ? tk1 : tk0;
+    if (kWindow ? r < 0 : r >= n) continue;
     float* dkr = a.dk + (tok0 + r) * stride + head * D + 2 * tq;
     float* dvr = a.dv + (tok0 + r) * stride + head * D + 2 * tq;
 #pragma unroll
@@ -531,6 +749,41 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_tc_dkv_kernel(
           make_float2(dk[nd][2 * half] * a.scale, dk[nd][2 * half + 1] * a.scale);
       *reinterpret_cast<float2*>(dvr + 8 * nd) =
           make_float2(dv[nd][2 * half], dv[nd][2 * half + 1]);
+    }
+  }
+  if constexpr (kWindow) {
+    // the pad keys' dk | dv summed into this (window, key tile)'s partial row:
+    // over each warp's 16 keys by shuffles across the row groups, then the
+    // four warps in order through shared memory (the streamed stages are
+    // consumed); a tile without a pad key writes zeros
+    const bool pad0 = tk0 == -1, pad1 = tk1 == -1;
+    const long long hd = static_cast<long long>(heads) * D;
+    float* part = a.dpad + (static_cast<long long>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * hd +
+                  head * D;
+    float* P = QG;  // [warp][dk | dv][D]
+    if (__syncthreads_or(pad0 || pad1)) {
+#pragma unroll
+      for (int nd = 0; nd < kK; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sk = (pad0 ? dk[nd][e] : 0.f) + (pad1 ? dk[nd][2 + e] : 0.f);
+          float sv = (pad0 ? dv[nd][e] : 0.f) + (pad1 ? dv[nd][2 + e] : 0.f);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sk += __shfl_xor_sync(0xffffffffu, sk, off);
+            sv += __shfl_xor_sync(0xffffffffu, sv, off);
+          }
+          if (g == 0) {
+            P[warp * 2 * D + 8 * nd + 2 * tq + e] = sk * a.scale;
+            P[warp * 2 * D + D + 8 * nd + 2 * tq + e] = sv;
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = t; i < 2 * D; i += kTcThreads)
+        part[i < D ? i : hd + i - D] = ((P[i] + P[2 * D + i]) + P[4 * D + i]) + P[6 * D + i];
+    } else {
+      for (int i = t; i < 2 * D; i += kTcThreads) part[i < D ? i : hd + i - D] = 0.f;
     }
   }
 }
@@ -546,15 +799,18 @@ size_t tc_dkv_smem_bytes(int ka) {
   return sizeof(float) * (4 * kTcTile * (D + 4) + 2 * kTcTile * ka + 4 * kTcTile);
 }
 
-// Passes A and B over `batch` images; returns the first launch error.
-template <int D, bool kTables>
+// Passes A and B over `batch` images (kWindow: windows of all images);
+// returns the first launch error.
+template <int D, bool kTables, bool kWindow>
 int launch_tc_bwd(const BwdArgs& a, int batch, cudaStream_t s) {
   const int ka = a.kh + a.kw;
-  const size_t smem_a = tc_dq_smem_bytes<D>(ka);
-  const size_t smem_b = tc_dkv_smem_bytes<D>(ka);
   const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
-  auto ka_kernel = attention_bwd_tc_dq_kernel<D, kTables>;
-  auto kb_kernel = attention_bwd_tc_dkv_kernel<D, kTables>;
+  // kWindow: the slot -> token map of the window's grid.x * 64 slots
+  const size_t slot_map = kWindow ? sizeof(int) * grid.x * kTcTile : 0;
+  const size_t smem_a = tc_dq_smem_bytes<D>(ka) + slot_map;
+  const size_t smem_b = tc_dkv_smem_bytes<D>(ka) + slot_map;
+  auto ka_kernel = attention_bwd_tc_dq_kernel<D, kTables, kWindow>;
+  auto kb_kernel = attention_bwd_tc_dkv_kernel<D, kTables, kWindow>;
   cudaError_t err = allow_smem(ka_kernel, smem_a);
   if (err == cudaSuccess) err = allow_smem(kb_kernel, smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -568,12 +824,12 @@ int launch_tc_bwd(const BwdArgs& a, int batch, cudaStream_t s) {
 }
 
 // Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
-template <bool kTables>
+template <bool kTables, bool kWindow = false>
 int dispatch_tc_bwd(const BwdArgs& a, int batch, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_tc_bwd<64, kTables>(a, batch, s);
-    case 80: return launch_tc_bwd<80, kTables>(a, batch, s);
+    case 64: return launch_tc_bwd<64, kTables, kWindow>(a, batch, s);
+    case 80: return launch_tc_bwd<80, kTables, kWindow>(a, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,37 +1,28 @@
-// The float32 SIMT forward attention template of the port: one flash-style
-// kernel body (online softmax over 32-key tiles in shared memory) whose
-// instances differ in where q, k, v come from and where the additive bias
-// comes from. attention_routes.cu instantiates it for K6 (head-major
-// operands) and K8 (windows carved from the unpartitioned token grid), both
-// with the factored rel bias. K2, K3 (packed qkv) and K7 (dense bias) run
-// the tensor-core template of attention_fwd_tc.cuh, which takes FwdArgs and
-// BiasKind from here. The backward templates are attention_bwd.cuh and
-// attention_bwd_tc.cuh.
+// The float32 SIMT forward attention kernel of the port, K8: windowed
+// attention carved from the unpartitioned (B, hg, wg) token grid, with the
+// factored rel bias; one flash-style kernel body (online softmax over 32-key
+// tiles in shared memory), instantiated by attention_routes.cu. K2, K3, K6
+// and K7 run the tensor-core template of attention_fwd_tc.cuh, which takes
+// FwdArgs, BiasKind, slot_token and allow_smem from here, as the backward
+// template attention_bwd_tc.cuh does.
 //
-// Every instance computes, per (batch element or window b, head h, query n),
+// Per (window b, head h, query slot n):
 //
-//   out[n] = softmax_k(q_n.k_k * scale + bias[n, k]) . v
+//   out[n] = softmax_k(q_n.k_k * scale + rel_h[n, k / k_w] + rel_w[n, k % k_w]) . v
 //
 // Operands are token-major: row `tok` of q lies at q + tok * in_stride +
-// h * D (likewise k, v), row `tok` of out at out + tok * out_stride + h * D.
-// The packed layout passes q = qkv, k = qkv + H*D, v = qkv + 2*H*D with
-// in_stride = 3*H*D; the head-major layout passes three tensors with
-// in_stride = D and counts every (batch, head) pair as a batch element of
-// one head.
+// h * D (likewise k, v), row `tok` of out at out + tok * out_stride + h * D;
+// K8 passes q = qkv, k = qkv + H*D, v = qkv + 2*H*D with in_stride = 3*H*D.
+// The bias takes two shared-memory loads and an add per score; the (n, n)
+// bias never exists.
 //
-// Bias (BiasKind, a template parameter that names the instances in a
-// trace; all of them are kRelTerms): rel_a = rel_h (.., k_h), rel_b =
-// rel_w (.., k_w), one row per query: bias[n, k] = rel_h[n, k / k_w] +
-// rel_w[n, k % k_w], two shared-memory loads and an add per score; the
-// (n, n) bias never exists.
-//
-// Layout kGrid (kWindow in the body): the block's n = ws*ws rows are the
-// slots of one window of a (B, hg, wg) token grid. Slot (i, j) of window (wy, wx) is grid token
-// (wy*ws + i, wx*ws + j); a slot outside the grid is a pad slot. Pad slots
-// are real keys whose k and v are the rows of pad_kv (the qkv Linear's
-// output for a zero token) and which carry the query's rel bias for their
-// slot position; pad queries are not computed and nothing is written for
-// them. The rel terms are read from the grid layout (B*H, hg, wg, ws).
+// The block's n = ws*ws rows are the slots of one window of the grid. Slot
+// (i, j) of window (wy, wx) is grid token (wy*ws + i, wx*ws + j); a slot
+// outside the grid is a pad slot. Pad slots are real keys whose k and v are
+// the rows of pad_kv (the qkv Linear's output for a zero token) and which
+// carry the query's rel bias for their slot position; pad queries are not
+// computed and nothing is written for them. The rel terms are read from the
+// grid layout (B*H, hg, wg, ws).
 //
 // Design: one block of kThreads threads per (query tile, head, b). Each
 // query row has kSplit threads, adjacent lanes of one warp; each keeps q and
@@ -63,14 +54,10 @@ constexpr int kBK = 32;        // key/value rows staged per shared-memory tile
 constexpr int kChunk = 8;      // keys a thread scores before one online-softmax rescale
 constexpr int kBlocksPerSM = 3;  // resident blocks at D = 64 (168 registers a thread)
 
-// kRelTables: the rel terms from two gathered tables (K2, K2b); kRelTerms:
-// rel_h, rel_w given (K3, K3b, K6, K6b, K8, K8b); kDense: rel_a is a dense
-// (B*H, n, n) bias (K7).
+// The bias of the tensor-core forward template (attention_fwd_tc.cuh):
+// kRelTables: the rel terms from two gathered tables (K2); kRelTerms:
+// rel_h, rel_w given (K3, K6); kDense: rel_a is a dense (B*H, n, n) bias (K7).
 enum BiasKind { kRelTables = 0, kRelTerms = 1, kDense = 2 };
-// Where the rows come from. kPacked and kHeadMajor run the same code (the
-// strides are runtime arguments); the parameter gives the head-major kernels
-// instances, and so names in a trace, apart from the packed ones.
-enum Layout { kPacked = 0, kHeadMajor = 1, kGrid = 2 };
 
 struct FwdArgs {
   const float* q;       // first head's columns of token 0
@@ -78,16 +65,16 @@ struct FwdArgs {
   const float* v;
   const float* rel_a;   // see BiasKind
   const float* rel_b;
-  const float* pad_kv;  // kWindow: (3, heads*D) q, k, v rows of a pad slot
+  const float* pad_kv;  // K8: (3, heads*D) q, k, v rows of a pad slot
   float* out;
-  float* lse;           // optional per-row log-sum-exp, (B*H, n), or kWindow: (B*H, hg*wg) by token
+  float* lse;           // optional per-row log-sum-exp, (B*H, n), or K8: (B*H, hg*wg) by token
   long long in_stride;  // floats per token row of q, k, v
   long long out_stride; // floats per token row of out
   int n;                // query rows = key rows per batch element (or slots per window)
   int heads;
   int kh, kw;           // key grid: n == kh * kw (unused by kDense)
-  int hg, wg;           // kWindow: the token grid
-  int nwx, nwin;        // kWindow: windows per grid row, windows per image
+  int hg, wg;           // K8: the token grid
+  int nwx, nwin;        // K8: windows per grid row, windows per image
   float scale;
 };
 
@@ -107,26 +94,21 @@ __device__ __forceinline__ float dot_row(const float (&q)[D], const float* __res
   return (s0 + s1) + (s2 + s3);
 }
 
-// The token (within its image) that row/slot `s` of this block stands for,
-// or -1 for a pad slot of a window.
-template <bool kWindow, typename Args>
+// The token (within its image) that slot `s` of window `win` stands for,
+// or -1 for a pad slot.
+template <typename Args>
 __device__ __forceinline__ int slot_token(const Args& a, int s, int win) {
-  if constexpr (!kWindow) {
-    return s;
-  } else {
-    const int ws = a.kw;
-    const int i = s / ws;
-    const int j = s - i * ws;
-    const int gy = (win / a.nwx) * ws + i;
-    const int gx = (win % a.nwx) * ws + j;
-    return (gy < a.hg && gx < a.wg) ? gy * a.wg + gx : -1;
-  }
+  const int ws = a.kw;
+  const int i = s / ws;
+  const int j = s - i * ws;
+  const int gy = (win / a.nwx) * ws + i;
+  const int gx = (win % a.nwx) * ws + j;
+  return (gy < a.hg && gx < a.wg) ? gy * a.wg + gx : -1;
 }
 
-template <int D, int kBias, int kLayout, int kSplit>
+template <int D, int kSplit>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
     attention_fwd_kernel(const FwdArgs a) {
-  constexpr bool kWindow = kLayout == kGrid;
   constexpr int kBQ = kThreads / kSplit;  // query rows per block
   constexpr int kRow = D + 4;  // padded K/V row: the kSplit rows read together use different banks
   extern __shared__ float4 smem4[];
@@ -140,19 +122,14 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
   const int q_local = t / kSplit;
   const int split = t % kSplit;
   const int head = blockIdx.y;
-  long long img = blockIdx.z;  // batch element, or the image of this window
-  int win = 0;
-  int tokens = n;              // tokens per batch element / image
-  if constexpr (kWindow) {
-    img = blockIdx.z / a.nwin;
-    win = blockIdx.z - static_cast<int>(img) * a.nwin;
-    tokens = a.hg * a.wg;
-  }
+  const long long img = blockIdx.z / a.nwin;  // the image of this window
+  const int win = blockIdx.z - static_cast<int>(img) * a.nwin;
+  const int tokens = a.hg * a.wg;             // tokens per image
   const long long tok0 = img * tokens;
   const long long bh = img * heads + head;
   const int row0 = blockIdx.x * kBQ;
   const int row = row0 + q_local;
-  const int tok = row < n ? slot_token<kWindow>(a, row, win) : -1;
+  const int tok = row < n ? slot_token(a, row, win) : -1;
   const bool active = tok >= 0;
   const long long stride = a.in_stride;
   const float* q_base = a.q + head * D;
@@ -175,22 +152,13 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
     for (int d = 0; d < D; ++d) q[d] = 0.f;
   }
 
-  // this tile's rel terms into shared memory
-  static_assert(kBias == kRelTerms, "K2, K3 and K7 run in attention_fwd_tc.cuh");
+  // this query's rel rows of the grid layout into shared memory
   float* my_rel = rel + q_local * rs;
-  if constexpr (kWindow) {  // this query's rows of the grid layout
-    if (active) {
-      const float* ra = a.rel_a + (bh * tokens + tok) * kh;
-      const float* rb = a.rel_b + (bh * tokens + tok) * kw;
-      for (int j = split; j < kh; j += kSplit) my_rel[j] = __ldg(ra + j);
-      for (int j = split; j < kw; j += kSplit) my_rel[kh + j] = __ldg(rb + j);
-    }
-  } else {  // the tile's rows are contiguous
-    const int rows = min(kBQ, n - row0);
-    const float* ra = a.rel_a + (bh * n + row0) * kh;
-    const float* rb = a.rel_b + (bh * n + row0) * kw;
-    for (int i = t; i < rows * kh; i += kThreads) rel[(i / kh) * rs + i % kh] = __ldg(ra + i);
-    for (int i = t; i < rows * kw; i += kThreads) rel[(i / kw) * rs + kh + i % kw] = __ldg(rb + i);
+  if (active) {
+    const float* ra = a.rel_a + (bh * tokens + tok) * kh;
+    const float* rb = a.rel_b + (bh * tokens + tok) * kw;
+    for (int j = split; j < kh; j += kSplit) my_rel[j] = __ldg(ra + j);
+    for (int j = split; j < kw; j += kSplit) my_rel[kh + j] = __ldg(rb + j);
   }
 #pragma unroll
   for (int d = 0; d < D; ++d) q[d] *= a.scale;
@@ -209,19 +177,13 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? kBlocksPerSM : 2)
       const int c = i - r * (D / 4);
       const float* ksrc;
       const float* vsrc;
-      if constexpr (kWindow) {
-        const int kt = slot_token<true>(a, k0 + r, win);
-        if (kt >= 0) {
-          ksrc = k_base + (tok0 + kt) * stride;
-          vsrc = v_base + (tok0 + kt) * stride;
-        } else {  // a pad slot: the k and v of a zero token
-          ksrc = a.pad_kv + (heads + head) * D;
-          vsrc = a.pad_kv + (2 * heads + head) * D;
-        }
-      } else {
-        const long long off = (tok0 + k0 + r) * stride;
-        ksrc = k_base + off;
-        vsrc = v_base + off;
+      const int kt = slot_token(a, k0 + r, win);
+      if (kt >= 0) {
+        ksrc = k_base + (tok0 + kt) * stride;
+        vsrc = v_base + (tok0 + kt) * stride;
+      } else {  // a pad slot: the k and v of a zero token
+        ksrc = a.pad_kv + (heads + head) * D;
+        vsrc = a.pad_kv + (2 * heads + head) * D;
       }
       reinterpret_cast<float4*>(ks + r * kRow)[c] = __ldg(reinterpret_cast<const float4*>(ksrc) + c);
       reinterpret_cast<float4*>(vs + r * kRow)[c] = __ldg(reinterpret_cast<const float4*>(vsrc) + c);
@@ -316,42 +278,32 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int D, int kBias, int kLayout, int kSplit>
-int launch_fwd_split(const FwdArgs& a, int blocks_z, cudaStream_t stream) {
+template <int D, int kSplit>
+int launch_fwd_split(const FwdArgs& a, int windows, cudaStream_t stream) {
   constexpr int kBQ = kThreads / kSplit;
   const int rs = a.kh + a.kw + 1;
   const size_t smem = sizeof(float) * (2 * kBK * (D + 4) + kBQ * rs);
-  auto kernel = attention_fwd_kernel<D, kBias, kLayout, kSplit>;
+  auto kernel = attention_fwd_kernel<D, kSplit>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.n + kBQ - 1) / kBQ, a.heads, blocks_z);
+  const dim3 grid((a.n + kBQ - 1) / kBQ, a.heads, windows);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks_z: batch elements (or, kGrid, windows of all images)
-template <int D, int kBias, int kLayout>
-int launch_fwd(const FwdArgs& a, int blocks_z, void* stream) {
+// windows: the windows of all images
+template <int D>
+int launch_fwd(const FwdArgs& a, int windows, void* stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long whole_rows =
-      static_cast<long long>((a.n + kThreads - 1) / kThreads) * a.heads * blocks_z;
+      static_cast<long long>((a.n + kThreads - 1) / kThreads) * a.heads * windows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (whole_rows < static_cast<long long>(sms) * kBlocksPerSM)
-    return launch_fwd_split<D, kBias, kLayout, 4>(a, blocks_z, s);
-  return launch_fwd_split<D, kBias, kLayout, 1>(a, blocks_z, s);
-}
-
-template <int kBias, int kLayout>
-int dispatch_fwd(const FwdArgs& a, int blocks_z, int d, void* stream) {
-  if (blocks_z == 0 || a.n == 0) return static_cast<int>(cudaSuccess);
-  switch (d) {  // 64: ViT-B and ViT-L; 80: ViT-H
-    case 64: return launch_fwd<64, kBias, kLayout>(a, blocks_z, stream);
-    case 80: return launch_fwd<80, kBias, kLayout>(a, blocks_z, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+    return launch_fwd_split<D, 4>(a, windows, s);
+  return launch_fwd_split<D, 1>(a, windows, s);
 }
 
 }  // namespace

@@ -6,19 +6,23 @@
 //               computes the rel terms from the two gathered tables into
 //               one (B*H, n, kh + kw) buffer; packed qkv;
 //   kRelTerms   K3 (attention_rel.cu): the rel terms rel_h (B*H, n, kh),
-//               rel_w (B*H, n, kw) are inputs; packed qkv;
+//               rel_w (B*H, n, kw) are inputs; packed qkv. K6 (C entry in
+//               attention_rel.cu beside K3's, so the instance is built once)
+//               runs it on head-major operands (head_major_args: heads = 1,
+//               strides D, every (batch, head) pair a batch element, any
+//               n = kh * kw);
 //   kDense      K7 (attention_routes.cu): a dense (B*H, n, n) additive bias
-//               on head-major operands (heads = 1, strides D, every (batch,
-//               head) pair a batch element).
+//               on head-major operands.
 // The backward counterpart is attention_bwd_tc.cuh.
 //
 // Replaces the TPU forward kernels of mia_tpu/ops/attention.py
 //   K3  fused_attention_rel_packed     (_attn_rel_packed_kernel)
 //   K2  fused_attention_rel_packed_ik  (_attn_rel_packed_ik_kernel)
+//   K6  fused_attention_rel            (_attn_rel_kernel)
 //   K7  fused_attention                (_attn_kernel)
-// K2 and K3 fold the rel terms into one MXU product of [q*s | rel_h | rel_w]
-// against [k | E_h | E_w] over key blocks padded to 128 rows; K7 pads N to
-// 128 and masks the pad keys with -1e30. Per (batch element or window b,
+// K2, K3 and K6 fold the rel terms into one MXU product of [q*s | rel_h |
+// rel_w] against [k | E_h | E_w] over key blocks padded to 128 rows; K7 pads
+// N to 128 and masks the pad keys with -1e30. Per (batch element or window b,
 // head h, query n), with q, k, v the rows of b at head h:
 //
 //   out[b, n, h*D:(h+1)*D] = softmax_k(q_n.k_k * scale + bias[n, k]) . v
@@ -92,6 +96,23 @@
 namespace {
 
 constexpr int kBiasPad = 8;  // floats of padding a row of K7's staged bias tile
+
+// Head-major operands (K6, K7): q, k, v, out (bh, n, d), bh batch elements of
+// one head each.
+inline FwdArgs head_major_args(const void* q, const void* k, const void* v, void* out, int n,
+                               int d, float scale) {
+  FwdArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.in_stride = d;
+  a.out_stride = d;
+  a.n = n;
+  a.heads = 1;
+  a.scale = scale;
+  return a;
+}
 
 // One tile of K7's dense bias: rows row0 .. row0+63 and keys key0 ..
 // key0+kKeys-1 of (image, head) bh into a [64][kKeys + kBiasPad] tile;

@@ -1,6 +1,6 @@
 // K2 and K3 on Hopper, with their backward kernels K2b and K3b: rel-pos
 // attention read straight from the packed qkv layout, to float32 accuracy;
-// and K6b, whose arithmetic is K3b's on head-major operands.
+// and K6 and K6b, whose arithmetic is K3's and K3b's on head-major operands.
 //
 // Replaces the TPU kernels
 //   K2  mia_tpu/ops/attention.py::fused_attention_rel_packed_ik
@@ -29,7 +29,11 @@
 //
 // The forward is two instances of the tensor-core template in
 // attention_fwd_tc.cuh (its design is described there): bias kRelTerms for
-// K3, kRelTables for K2, both on the packed layout. K2's rel terms are gathers
+// K3, kRelTables for K2, both on the packed layout. K6 (the forward of the
+// head-major route) runs K3's instance: the head-major layout is the packed
+// one with one head, strides D and every (batch, head) pair a batch element.
+// Its C entry lives here so that the instance is built once; a trace names
+// K6 as K3, attention_fwd_tc_kernel<D, 1, keys>. K2's rel terms are gathers
 // from two tables that every (window, head) pair shares, so, as in the
 // backward, kernel R below computes them first, one block per token
 // position with the position's kh + kw table rows in shared memory, into a
@@ -103,6 +107,10 @@ FwdArgs packed_fwd_args(const void* qkv, const void* rel_a, const void* rel_b, v
 // ---------------------------------------------------------------------------
 
 constexpr int kRelThreads = 128;  // (window, head) pairs per block of kernels R and Q
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w);
+}
 
 // T_n of token position pos: kh + kw rows of D floats.
 template <int D>
@@ -343,6 +351,21 @@ extern "C" int mia_attention_rel_packed_f32(const void* qkv, const void* rel_h, 
                                             int d, int kh, int kw, float scale, void* stream) {
   const FwdArgs a = packed_fwd_args(qkv, rel_h, rel_w, out, lse, n, heads, d, kh, kw, scale);
   return dispatch_fwd_tc<kRelTerms>(a, batch, d, stream);
+}
+
+// K6: q, k, v, out (bh, n, d); rel_h (bh, n, kh), rel_w (bh, n, kw); n == kh*kw.
+// lse, when not null, receives the per-row log-sum-exp (bh, n) for the backward.
+extern "C" int mia_attention_rel_f32(const void* q, const void* k, const void* v,
+                                     const void* rel_h, const void* rel_w, void* out, void* lse,
+                                     int bh, int n, int d, int kh, int kw, float scale,
+                                     void* stream) {
+  FwdArgs a = head_major_args(q, k, v, out, n, d, scale);
+  a.lse = static_cast<float*>(lse);
+  a.rel_a = static_cast<const float*>(rel_h);
+  a.rel_b = static_cast<const float*>(rel_w);
+  a.kh = kh;
+  a.kw = kw;
+  return dispatch_fwd_tc<kRelTerms>(a, bh, d, stream);
 }
 
 // K2: as K3, but with the gathered tables rh_flat ((n/kw)*kh, d) and rw_flat

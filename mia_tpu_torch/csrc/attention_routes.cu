@@ -1,18 +1,14 @@
-// K6, K7 and K8 on Hopper: the encoder's other attention routes, in float32.
-// Forward: K6 and K8 are instances of the float32 SIMT template in
-// attention_fwd.cuh (whose header describes the kernel body); K7 is the
-// kDense instance of the 3xTF32 tensor-core template in attention_fwd_tc.cuh,
-// beside K2 and K3 in attention_rel.cu. Backward: K8b, the one instance of
-// the SIMT template in attention_bwd.cuh; K6b runs K3b's tensor-core
+// K7 and K8 on Hopper, and K8b: the encoder's other attention routes, in
+// float32. Forward: K7 is the kDense instance of the 3xTF32 tensor-core
+// template in attention_fwd_tc.cuh, beside K2, K3 and K6 (whose C entry is in
+// attention_rel.cu: it runs K3's instance on head-major strides); K8 is the
+// float32 SIMT kernel of attention_fwd.cuh (whose header describes its
+// body). Backward: K8b is the kWindow instance
+// of the 3xTF32 tensor-core template in attention_bwd_tc.cuh; K6b runs K3b's
 // instance and its C entry is in attention_rel.cu; K7's backward is plain
 // tensor code in the JAX package and here.
 //
 // Replaces the TPU kernels
-//   K6  mia_tpu/ops/attention.py::fused_attention_rel (_attn_rel_kernel):
-//       softmax(q.kT*s + rel_h (+) rel_w).v on head-major (B*H, N, D)
-//       operands with per-query rel terms (B*H, N, k_h) / (B*H, N, k_w);
-//       N = k_h*k_w, any N. Here: the kRelTerms bias of K3 with head-major
-//       strides (every (batch, head) pair is a batch element of one head).
 //   K7  mia_tpu/ops/attention.py::fused_attention (_attn_kernel):
 //       softmax(q.kT*s + bias).v with a dense (B*H, N, N) additive bias, any
 //       N. The TPU form pads N to 128 and masks the pad keys with -1e30;
@@ -26,12 +22,12 @@
 //       no partitioned copy of qkv exists anywhere. Pad slots are real keys
 //       (k, v from bias_kv, the query's rel bias for the slot position);
 //       pad queries are dropped.
-// None of them carries over the TPU kernels' K-axis concatenation with
-// one-hot expanders, which exists to feed the matrix unit: the factored
-// bias is two loads and an add per score.
+// Neither carries over the TPU kernels' K-axis concatenation with one-hot
+// expanders, which exists to feed the matrix unit: K8's factored bias is two
+// loads and an add per score.
 //
-// Bound: K6 and K8 do 4*D flops per (query, key) pair on the FP32 pipe out
-// of shared memory and are bound by operations (at 67 TFLOP/s). K7 does the
+// Bound: K8 does 4*D flops per (query, key) pair on the FP32 pipe out of
+// shared memory and is bound by operations (at 67 TFLOP/s). K7 does the
 // same products in 3xTF32 on the tensor cores (495/3 TFLOP/s) and reads 4
 // bytes of bias a pair: at 12 x 1024 tokens 19.5 us of MMAs against 18.8 us
 // of bytes, at 108 windows of 196 tokens 6.4 us against 11.4 us of bytes
@@ -44,33 +40,19 @@
 //       dbias_kv (3, H*D): row 0 zero, rows 1 and 2 the summed dk and dv of
 //       every pad slot of every window. The forward writes the log-sum-exp
 //       of every real query by token, (B*H, Hg*Wg), so the backward does not
-//       recompute the 196-key softmax. Kernel B leaves one partial row per
-//       (window, key tile); the reduce kernel below sums them in a fixed
-//       order (no float atomics).
+//       recompute the 196-key softmax. Pass B of the template leaves one
+//       partial row per (window, 64-key tile); the reduce kernel below sums
+//       them in a fixed order (no float atomics). Bound: operations, 10 x D
+//       flops per (real query, slot) pair at 495/3 TFLOP/s (the template's
+//       header).
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError().
 
-#include "attention_bwd.cuh"
+#include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
 namespace {
-
-// head-major operands: bh batch elements of one head each
-FwdArgs head_major_args(const void* q, const void* k, const void* v, void* out, int n, int d,
-                        float scale) {
-  FwdArgs a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.out = static_cast<float*>(out);
-  a.in_stride = d;
-  a.out_stride = d;
-  a.n = n;
-  a.heads = 1;
-  a.scale = scale;
-  return a;
-}
 
 // the (nwx, nwin) window geometry of a (hg, wg) grid
 template <typename Args>
@@ -108,21 +90,6 @@ __global__ void attention_bwd_pad_reduce_kernel(const float* __restrict__ dpad,
 
 }  // namespace
 
-// K6: q, k, v, out (bh, n, d); rel_h (bh, n, kh), rel_w (bh, n, kw); n == kh*kw.
-// lse, when not null, receives the per-row log-sum-exp (bh, n) for the backward.
-extern "C" int mia_attention_rel_f32(const void* q, const void* k, const void* v,
-                                     const void* rel_h, const void* rel_w, void* out, void* lse,
-                                     int bh, int n, int d, int kh, int kw, float scale,
-                                     void* stream) {
-  FwdArgs a = head_major_args(q, k, v, out, n, d, scale);
-  a.lse = static_cast<float*>(lse);
-  a.rel_a = static_cast<const float*>(rel_h);
-  a.rel_b = static_cast<const float*>(rel_w);
-  a.kh = kh;
-  a.kw = kw;
-  return dispatch_fwd<kRelTerms, kHeadMajor>(a, bh, d, stream);
-}
-
 // K7: q, k, v, out (bh, n, d); bias (bh, n, n).
 extern "C" int mia_attention_dense_f32(const void* q, const void* k, const void* v,
                                        const void* bias, void* out, int bh, int n, int d,
@@ -155,14 +122,20 @@ extern "C" int mia_attention_rel_win_f32(const void* qkv, const void* rel_h, con
   a.heads = heads;
   set_grid(a, hg, wg, ws);
   a.scale = scale;
-  return dispatch_fwd<kRelTerms, kGrid>(a, batch * a.nwin, d, stream);
+  const int windows = batch * a.nwin;
+  if (windows == 0) return static_cast<int>(cudaSuccess);
+  switch (d) {  // 64: ViT-B and ViT-L; 80: ViT-H
+    case 64: return launch_fwd<64>(a, windows, stream);
+    case 80: return launch_fwd<80>(a, windows, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K8b: from K8's inputs, its output (batch, hg, wg, heads*d), its lse and
 // the output cotangent g, writes dqkv (shape of qkv; q, k, v cotangents in
 // its three column blocks), drel_h / drel_w (shapes of rel_h / rel_w) and
 // dbias_kv (3, heads*d). delta (batch*heads, hg*wg) and dpad
-// (batch*nW*ceil(ws*ws/32), 2, heads*d) are scratch.
+// (batch*nW*ceil(ws*ws/64), 2, heads*d) are scratch.
 extern "C" int mia_attention_rel_win_bwd_f32(const void* qkv, const void* rel_h, const void* rel_w,
                                              const void* bias_kv, const void* out, const void* g,
                                              const void* lse, void* dqkv, void* delta,
@@ -199,9 +172,9 @@ extern "C" int mia_attention_rel_win_bwd_f32(const void* qkv, const void* rel_h,
   set_grid(a, hg, wg, ws);
   a.scale = scale;
   const int windows = batch * a.nwin;
-  const int err = dispatch_bwd_passes<kRelTerms, kGrid>(a, windows, d, stream);
+  const int err = dispatch_tc_bwd<false, true>(a, windows, d, stream);
   if (err != 0) return err;
-  const int rows = windows * ((a.n + kBT - 1) / kBT);
+  const int rows = windows * ((a.n + kTcTile - 1) / kTcTile);
   const int cols = static_cast<int>(2 * hd);
   attention_bwd_pad_reduce_kernel<<<(cols + 31) / 32, dim3(32, 8), 0, s>>>(
       a.dpad, static_cast<float*>(dbias_kv), rows, static_cast<int>(hd));

@@ -1,7 +1,7 @@
 // What the two tensor-core attention templates share: 3xTF32 products on
 // mma.sync.m16n8k8 and the cp.async tile copies that feed them.
-// attention_fwd_tc.cuh (K2, K3, K7) and attention_bwd_tc.cuh (K2b, K3b, K6b)
-// include it; their comments describe how each uses these pieces.
+// attention_fwd_tc.cuh (K2, K3, K6, K7) and attention_bwd_tc.cuh (K2b, K3b,
+// K6b, K8b) include it; their comments describe how each uses these pieces.
 //
 // 3xTF32: a float32 operand x is split when its fragment is loaded, big = x
 // rounded to TF32 (cvt.rna's rounding in two integer operations), small =

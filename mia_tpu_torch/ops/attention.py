@@ -32,9 +32,11 @@ unscaled q.
   / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
   plain VJPs on the CPU). Each wrapper counts its launches in ``launches``.
 
-The other routes (C entries in ``csrc/attention_routes.cu``: K6 and K8 on
-the float32 template of ``csrc/attention_fwd.cuh``, K7 on the 3xTF32
-tensor-core template of ``csrc/attention_fwd_tc.cuh`` with a dense bias):
+The other routes (K6 on K3's instance of the 3xTF32 tensor-core template
+``csrc/attention_fwd_tc.cuh`` on head-major strides, C entry in
+``csrc/attention_rel.cu``; K7 on the same template with a dense bias and K8
+on the float32 template of ``csrc/attention_fwd.cuh``, C entries in
+``csrc/attention_routes.cu``):
 
 - :func:`attention_rel` / :func:`fused_attention_rel` (K6) — head-major
   ``q, k, v (B·H, N, D)`` with rel terms ``(B·H, N, k_h)``, ``(B·H, N, k_w)``;
@@ -64,8 +66,9 @@ log-sum-exp and whose backward is
   :func:`attention_rel_bwd`.
 - :func:`fused_attention_rel_win_bwd` (K8b) — ``dqkv`` written in place in
   the grid layout, ``drel_h``, ``drel_w`` and ``dbias_kv`` (row 0 zero, rows
-  1-2 the summed ``dk``, ``dv`` of every pad slot, reduced in a fixed order);
-  plain VJP :func:`attention_rel_win_bwd`.
+  1-2 the summed ``dk``, ``dv`` of every pad slot, reduced in a fixed order)
+  from the windowed instance of the same tensor-core backward (C entry in
+  ``csrc/attention_routes.cu``); plain VJP :func:`attention_rel_win_bwd`.
 - :func:`attention_dense_bwd` for K7, on every device: the JAX package has
   no backward kernel there either, its VJP is the same plain tensor code.
 
@@ -673,7 +676,7 @@ def _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, with_lse=False)
     return (out, lse) if with_lse else out
 
 
-_BWD_TILE = 32  # key rows per block of the backward template (kBT in csrc/attention_bwd.cuh)
+_BWD_TILE = 64  # key rows per block of the backward template (kTcTile in csrc/tf32_mma.cuh)
 
 
 def _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads):
@@ -781,7 +784,8 @@ class _AttentionRelWin(torch.autograd.Function):
 def fused_attention_rel(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
     """K6: ``softmax(q·kᵀ·scale + rel_h⊕rel_w)·v`` on head-major operands;
     ``N`` must equal ``k_hw[0]·k_hw[1]`` and needs no alignment. A CUDA tensor
-    launches ``csrc/attention_routes.cu`` (or raises); a CPU tensor takes
+    launches K3's tensor-core instance on head-major strides (C entry in
+    ``csrc/attention_rel.cu``) or raises; a CPU tensor takes
     :func:`attention_rel`. Differentiable through the backward kernels (K6b)
     when an input requires a gradient."""
     if _needs_grad(q, k, v, rel_h, rel_w):

@@ -1,7 +1,7 @@
-"""Time the attention kernels K2, K3, K7, K2b, K3b, K6b and K8b of a source tree on one GPU.
+"""Time the attention kernels K2, K3, K6, K7, K2b, K3b, K6b and K8b of a source tree on one GPU.
 
 For comparing two versions of the attention templates
-(``mia_tpu_torch/csrc/attention_{fwd,bwd}_tc.cuh``, ``attention_bwd.cuh``) or
+(``mia_tpu_torch/csrc/attention_{fwd,bwd}_tc.cuh``, ``attention_fwd.cuh``) or
 of ``attention_rel.cu`` and ``attention_routes.cu`` within one run: unpack the other
 tree with ``git archive <commit> mia_tpu_torch | tar -x -C <dir>`` and name it
 with ``--tree``; every tree builds its own kernel library. Prints the card,
@@ -27,12 +27,13 @@ they were). Needs nvcc and cuobjdump, not a GPU.
 
 With ``--forward`` it times the forward kernels instead: K3 (global, 1024
 tokens) and K2 (9 windows of 196 tokens an image) at the ViT-B/512 serving
-shape B=1 and the training shape B=12, and K7 (dense bias, head-major) at
-both shapes too, each beside the library call on the same operands
-(``scaled_dot_product_attention`` with the dense bias built beforehand) and
-K7 also beside its plain version, with their largest errors against the
-plain versions; with ``--kernels`` the device kernels of K3, K2 and K7 at
-B=1 and B=12 and of the library call at B=1.
+shape B=1 and the training shape B=12, and K7 (dense bias) and K6 (rel
+terms), both head-major, at both shapes too, each beside the library call
+on the same operands (``scaled_dot_product_attention`` with the dense bias
+built beforehand) and K7 and K6 also beside their plain versions, with
+their largest errors against the plain versions; with ``--kernels`` the
+device kernels of K3, K2, K7 and K6 at B=1 and B=12 and of the library call
+at B=1.
 
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
         [--forward | --sass]
@@ -215,31 +216,40 @@ def bench_forward(tree: str, kernels: bool = False) -> None:
                   f"K2 {time_ms(torch, k2, per_block=per_block) * 1e3:.2f} us "
                   f"(library {time_ms(torch, libs[1], per_block=per_block) * 1e3:.2f})",
                   flush=True)
-        # K7 on head-major operands with a dense bias: windows (B·108, 196) and
-        # global tokens (B·12, 1024)
-        k7s = {}
-        for shape, bh, n in (("windows", b * 9 * heads, ws * ws), ("global", b * heads, side * side)):
+        # K7 (a dense bias) and K6 (rel terms) on head-major operands: windows
+        # (B·108, 196) and global tokens (B·12, 1024)
+        heads_major = {}
+        for shape, bh, k_hw in (("windows", b * 9 * heads, (ws, ws)),
+                                ("global", b * heads, (side, side))):
+            n = k_hw[0] * k_hw[1]
             q, k, v = (randn(bh, n, d) for _ in range(3))
             bias = randn(bh, n, n)
-            want7 = attention.attention_dense(q, k, v, bias, scale)
-            err7 = float((attention._launch_k7(q, k, v, bias, scale) - want7).abs().max()
-                         / want7.abs().max())
-            k7s[shape] = (functools.partial(attention._launch_k7, q, k, v, bias, scale),
-                          functools.partial(attention.attention_dense, q, k, v, bias, scale),
-                          functools.partial(sdpa, q[None], k[None], v[None], attn_mask=bias[None],
-                                            scale=scale))
-            print(f"{tree}: B={b}: K7 {shape} ({bh}, {n}, {d}) within {err7:.3g} of max |plain|")
+            r6h, r6w = randn(bh, n, k_hw[0]), randn(bh, n, k_hw[1])
+            bias6 = (r6h[:, :, :, None] + r6w[:, :, None, :]).reshape(bh, n, n)
+            for name, launch, plain, args, lib_bias in (
+                    ("K7", attention._launch_k7, attention.attention_dense,
+                     (q, k, v, bias, scale), bias),
+                    ("K6", attention._launch_k6, attention.attention_rel,
+                     (q, k, v, r6h, r6w, scale, k_hw), bias6)):
+                want = plain(*args)
+                err = float((launch(*args) - want).abs().max() / want.abs().max())
+                heads_major[(name, shape)] = (
+                    functools.partial(launch, *args), functools.partial(plain, *args),
+                    functools.partial(sdpa, q[None], k[None], v[None], attn_mask=lib_bias[None],
+                                      scale=scale))
+                print(f"{tree}: B={b}: {name} {shape} ({bh}, {n}, {d}) within {err:.3g} of "
+                      "max |plain|")
         for _ in range(2):
             print(f"{tree}: B={b}: " + ", ".join(
-                f"K7 {shape} {time_ms(torch, fns[0], per_block=per_block) * 1e3:.2f} us "
+                f"{name} {shape} {time_ms(torch, fns[0], per_block=per_block) * 1e3:.2f} us "
                 f"(plain {time_ms(torch, fns[1], per_block=per_block) * 1e3:.2f}, library "
                 f"{time_ms(torch, fns[2], per_block=per_block) * 1e3:.2f})"
-                for shape, fns in k7s.items()), flush=True)
+                for (name, shape), fns in heads_major.items()), flush=True)
         if kernels:
             kernel_table(torch, f"{tree}: K3 B={b}", k3)
             kernel_table(torch, f"{tree}: K2 B={b}", k2)
-            for shape, fns in k7s.items():
-                kernel_table(torch, f"{tree}: K7 {shape} B={b}", fns[0])
+            for (name, shape), fns in heads_major.items():
+                kernel_table(torch, f"{tree}: {name} {shape} B={b}", fns[0])
             if b == 1:
                 kernel_table(torch, f"{tree}: library at K3's B=1 shape", libs[0])
                 kernel_table(torch, f"{tree}: library at K2's B=1 shape", libs[1])
@@ -347,7 +357,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="also list the device kernels of K3b, K2b and the library call")
     ap.add_argument("--forward", action="store_true",
-                    help="time the forward kernels K3, K2, K7 and the library call instead")
+                    help="time the forward kernels K3, K2, K7, K6 and the library call instead")
     ap.add_argument("--sass", action="store_true",
                     help="compile each tree's attention_rel.cu and attention_routes.cu and "
                          "compare registers and SASS")

@@ -37,22 +37,20 @@ from mia_tpu_torch.models.sam import ImageEncoderViT  # noqa: E402
 from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    # attention_fwd_kernel<D, bias, layout, split>, attention_bwd_dq_kernel<D, bias, layout>,
-    # attention_bwd_dkv_kernel<D, layout> (float32 SIMT): layout 1 = head-major (K6), 2 =
-    # grid windows (K8, K8b); attention_fwd_tc_kernel<D, bias, keys> (3xTF32): bias 0 = K2,
-    # 1 = K3, 2 = K7 (dense); attention_bwd_tc_{dq,dkv}_kernel<D, tables>: true = K2b,
-    # false = K3b, and K6b, which runs K3b's instance (see head_major_groups)
+    # attention_fwd_kernel<D, split> (float32 SIMT): K8; attention_fwd_tc_kernel<D, bias, keys> (3xTF32): bias 0 = K2, 1 = K3, and K6,
+    # which runs K3's instance, 2 = K7 (dense); attention_bwd_tc_{dq,dkv}_kernel<D, tables,
+    # window>: <true, false> = K2b, <false, false> = K3b, and K6b, which runs K3b's
+    # instance (see head_major_groups), <false, true> = K8b
     ("K2 forward", ("attention_fwd_tc_kernel<64, 0,",)),
     ("K3 forward", ("attention_fwd_tc_kernel<64, 1,",)),
-    ("K6 forward", ("attention_fwd_kernel<64, 1, 1,",)),
     ("K7 forward", ("attention_fwd_tc_kernel<64, 2,",)),
-    ("K8 forward", ("attention_fwd_kernel<64, 1, 2,",)),
-    ("K2 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, true>",)),
-    ("K3 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, false>",)),
-    ("K8 backward, dq pass", ("attention_bwd_dq_kernel<64, 1, 2>",)),
-    ("K2 backward, dk/dv pass", ("attention_bwd_tc_dkv_kernel<64, true>",)),
-    ("K3 backward, dk/dv pass", ("attention_bwd_tc_dkv_kernel<64, false>",)),
-    ("K8 backward, dk/dv pass and pad reduce", ("attention_bwd_dkv_kernel<64, 2>",
+    ("K8 forward", ("attention_fwd_kernel<64,",)),
+    ("K2 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, true",)),
+    ("K3 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, false, false",)),
+    ("K8 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, false, true",)),
+    ("K2 backward, dk/dv pass", ("attention_bwd_tc_dkv_kernel<64, true",)),
+    ("K3 backward, dk/dv pass", ("attention_bwd_tc_dkv_kernel<64, false, false",)),
+    ("K8 backward, dk/dv pass and pad reduce", ("attention_bwd_tc_dkv_kernel<64, false, true",
                                                 "attention_bwd_pad_reduce_kernel")),
     ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
     ("K2 rel terms (forward and backward) and routing", ("attention_rel_terms_kernel",
@@ -69,8 +67,8 @@ GROUPS = (  # (label, substrings of the kernel name), first match wins
 
 def head_major_groups(groups):
     """The head-major route runs K6 in every block, so the tensor-core
-    backward instance that K3b and K6b share times K6b there."""
-    return tuple((label.replace("K3 backward", "K6 backward"), keys) for label, keys in groups)
+    instances that K3 and K6, K3b and K6b share time K6 and K6b there."""
+    return tuple((label.replace("K3 ", "K6 "), keys) for label, keys in groups)
 
 
 VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)

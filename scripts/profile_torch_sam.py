@@ -37,22 +37,24 @@ from mia_tpu_torch.models.sam import (  # noqa: E402
     sam_model_registry,
 )
 
-# K2, K3 and K7 run the tensor-core template of csrc/attention_fwd_tc.cuh,
+# K2, K3, K6 and K7 run the tensor-core template of csrc/attention_fwd_tc.cuh,
 # attention_fwd_tc_kernel<D, bias, keys>: bias 0 = K2 (after kernel R,
-# attention_rel_terms_kernel), 1 = K3, 2 = K7 (dense bias); keys is the streamed key tile.
-# The float32 template of csrc/attention_fwd.cuh is attention_fwd_kernel<D, bias, layout,
-# split>: layout 1 = head-major operands (K6), 2 = windows carved from the token grid (K8)
+# attention_rel_terms_kernel), 1 = K3, and K6, which runs K3's instance on head-major
+# strides (the head-major route runs no K3: HEAD_MAJOR_GROUPS), 2 = K7 (dense bias); keys
+# is the streamed key tile. K8 (windows carved from the token grid) is the float32 kernel
+# of csrc/attention_fwd.cuh, attention_fwd_kernel<D, split>
 GROUPS = (  # (label, substrings of the kernel name), first match wins
     ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_rel_terms_kernel")),
     ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,",)),
-    ("K6 head-major attention", ("attention_fwd_kernel<64, 1, 1,",)),
     ("K7 dense-bias attention", ("attention_fwd_tc_kernel<64, 2,",)),
-    ("K8 grid-native windowed attention", ("attention_fwd_kernel<64, 1, 2,",)),
+    ("K8 grid-native windowed attention", ("attention_fwd_kernel<64,",)),
     ("K4 LayerNorm + partition", ("ln_window_partition_kernel",)),
     ("K9 unpartition + residual + LayerNorm", ("unpartition_add_ln_kernel",)),
     ("cuDNN convolutions", ("fprop", "implicit", "cudnn", "conv2d")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "Kernel2")),
 )
+HEAD_MAJOR_GROUPS = tuple(("K6 head-major attention", keys) if label.startswith("K3") else
+                          (label, keys) for label, keys in GROUPS)
 VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)
     "default": {},
     "k9": dict(fuse_unpart_residual="always"),
@@ -139,11 +141,12 @@ def main() -> None:
     # kernels of one stream do not overlap, so the rest of the wall-clock is idle card
     print(f"{what} under the profiler: wall {wall:.3f} ms per call, kernel and copy time "
           f"{total:.3f} ms ({len(kernels)} names), card idle {max(0.0, 1 - total / wall):.1%}")
-    grouped = {group: [0.0, 0] for group, _ in GROUPS}
+    groups = HEAD_MAJOR_GROUPS if args.variant == "head_major" else GROUPS
+    grouped = {group: [0.0, 0] for group, _ in groups}
     grouped["other"] = [0.0, 0]
     for e in kernels:
         name = e.key.lower()
-        group = next((g for g, keys in GROUPS if any(k.lower() in name for k in keys)), "other")
+        group = next((g for g, keys in groups if any(k.lower() in name for k in keys)), "other")
         grouped[group][0] += e.self_device_time_total / 1e3 / args.runs
         grouped[group][1] += e.count // args.runs
     print(f"by group (ms per {what}, share, launches):")

@@ -1,4 +1,4 @@
-"""Why the attention kernels K2, K3, K7 and the backward K2b, K3b, K6b split
+"""Why the attention kernels K2, K3, K6, K7 and the backward K2b, K3b, K6b split
 every float32 operand for the tensor cores (3xTF32) instead of taking one
 TF32 pass.
 
@@ -10,12 +10,14 @@ mantissa bits) and small = x - big, which the tensor core reads truncated to
 TF32; each product is small.big + big.small + big.big with a float32
 accumulator. These tests emulate that arithmetic in plain torch on the CPU
 (TF32 values multiply exactly in float32) and hold the K3 backward (also on
-K6b's head-major operands), the K2/K3 forward and the K7 forward with its
-dense bias, computed that way, against float64: every backward output
+K6b's head-major operands), the K2/K3 forward (also on K6's head-major
+operands) and the K7 forward with its dense bias, computed that way, against
+float64: every backward output
 within ``BWD_TOL`` of max |float64|, the forward within ``KERNEL_TOL``, as
 ``chip_smoke.py`` holds the kernels, and one TF32 pass at least 10x further
 away. K7's bias may mask keys with -inf; the emulation shows why its online
-softmax needs FlashAttention-2's guard.
+softmax needs FlashAttention-2's guard. K8b's windowed backward is in
+``test_torch_attention_3xtf32_grid.py``.
 """
 
 import numpy as np
@@ -236,6 +238,20 @@ def packed_case(qkv, rel_h, rel_w, k_hw, heads):
     return q, k, v, bias.reshape(b, heads, n, n)
 
 
+def head_major_case(bh, k_hw, seed):
+    """K6's operands: q, k, v (B·H, N, 64) and the rel terms (B·H, N, k_h),
+    (B·H, N, k_w), expanded to the dense bias (B·H, N, N) the kernel adds
+    score by score."""
+    rng = np.random.default_rng(seed)
+    n = k_hw[0] * k_hw[1]
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, n, 64), dtype=np.float32))
+               for _ in range(3))
+    rel_h, rel_w = (torch.from_numpy(rng.standard_normal((bh, n, w), dtype=np.float32))
+                    for w in k_hw)
+    bias = rel_h.reshape(bh, n, k_hw[0], 1) + rel_w.reshape(bh, n, 1, k_hw[1])
+    return q, k, v, bias.reshape(bh, n, n)
+
+
 def dense_case(bh, n, seed, mask_first_tile=False):
     """K7's operands: q, k, v (B·H, N, 64) and a dense bias (B·H, N, N);
     ``mask_first_tile``: every other row's first key tile is -inf."""
@@ -248,11 +264,13 @@ def dense_case(bh, n, seed, mask_first_tile=False):
     return q, k, v, bias
 
 
-FORWARD_CASES = {  # K2, K3: (batch, heads, k_hw, d); K7: dense_case's arguments
+FORWARD_CASES = {  # K2, K3: (batch, heads, k_hw, d); K6, K7: head_major_case's, dense_case's
     "K3 global 32x32": (1, 3, (32, 32), 64),
     "K2 windows 14x14": (4, 3, (14, 14), 64),
     "K3 ragged 20x27": (1, 2, (20, 27), 64),
     "K3 head dim 80": (1, 2, (32, 32), 80),
+    "K6 global 32x32": (3, (32, 32), 12),
+    "K6 N=35 (5x7)": (4, (5, 7), 13),
     "K7 global 32x32": (3, 1024, 6),
     "K7 windows 14x14": (12, 196, 7),
     "K7 odd N=35": (4, 35, 8),
@@ -265,6 +283,8 @@ def forward_case(case):
     and the float64 output and log-sum-exp."""
     if case.startswith("K7"):
         q, k, v, bias = dense_case(*FORWARD_CASES[case])
+    elif case.startswith("K6"):
+        q, k, v, bias = head_major_case(*FORWARD_CASES[case])
     else:
         batch, heads, k_hw, d = FORWARD_CASES[case]
         qkv, rel_h, rel_w, _ = inputs(batch, heads, k_hw, d, seed=3)

@@ -310,9 +310,10 @@ def test_k5_bit_exact_against_plain(cuda, size):
 
 
 # K6-K9 (forward kernels) against their plain versions, same tolerance as
-# K2-K4; K9's x_new bit for bit (one float32 add).
+# K2-K4; K9's x_new bit for bit (one float32 add). K6 runs K3's 3xTF32
+# instance: also two launches bit-identical.
 @pytest.mark.parametrize("bh,d,k_hw", [(108, 64, (14, 14)), (12, 64, (32, 32)), (16, 80, (14, 14)),
-                                       (6, 64, (10, 12)), (3, 64, (1, 3))])
+                                       (6, 64, (10, 12)), (4, 64, (5, 7)), (3, 64, (1, 3))])
 def test_k6_matches_plain(cuda, bh, d, k_hw):
     from mia_tpu_torch.ops import attention
 
@@ -327,6 +328,7 @@ def test_k6_matches_plain(cuda, bh, d, k_hw):
     torch.cuda.synchronize()
     assert attention.fused_attention_rel.launches == before + 1
     assert _rel_err(got, want) <= 1e-5
+    assert torch.equal(attention.fused_attention_rel(q, k, v, rel_h, rel_w, d ** -0.5, k_hw), got)
 
 
 # K7 runs 3xTF32 on the tensor cores: also two launches bit-identical
@@ -480,9 +482,14 @@ def test_k6_backward_matches_plain(cuda, bh, d, k_hw):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("b,hw,heads,d,ws", [(12, (32, 32), 12, 64, 14), (2, (20, 27), 12, 64, 14),
+# K8b (3xTF32, windowed instance): pad windows at the bottom and the right
+# (32x32), only at the bottom (32x28), only at the right (28x32), ragged
+# both ways (20x27), none (28x28)
+@pytest.mark.parametrize("b,hw,heads,d,ws", [(12, (32, 32), 12, 64, 14), (2, (32, 28), 12, 64, 14),
+                                             (2, (28, 32), 12, 64, 14), (2, (20, 27), 12, 64, 14),
                                              (2, (28, 28), 12, 64, 14), (1, (32, 32), 16, 80, 14),
-                                             (3, (9, 11), 2, 64, 4), (1, (5, 3), 2, 64, 7)])
+                                             (1, (20, 27), 16, 80, 14), (3, (9, 11), 2, 64, 4),
+                                             (1, (5, 3), 2, 64, 7)])
 def test_k8_backward_matches_plain(cuda, b, hw, heads, d, ws):
     from mia_tpu_torch.ops import attention
 
