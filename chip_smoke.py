@@ -23,8 +23,13 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    K6 and K7 (3xTF32 on the tensor cores, like K6b) also at odd token
    counts (35; K6 at 5x7 and 10x12) and K7 with -inf over the first key
    tile of every other row, two launches bit-identical on every case, and
-   with ``tc_bound_ms``.
-   Times each kernel and its plain version in turns with CUDA events, and,
+   with ``tc_bound_ms``; K8 (3xTF32 too) with its log-sum-exp by token
+   within 1e-5 of the plain one, two launches bit-identical on every case,
+   with ``tc_bound_ms`` and its batch-8 numbers.
+   Times each kernel and its plain version in turns with CUDA events and,
+   for K1, K4, K5, K8 and K9, also reads the kernels' device time under
+   ``torch.profiler`` over a block of the same calls (``device_ms``: the
+   event time of a short kernel includes the host's dispatch), and,
    for the attention kernels, one ``scaled_dot_product_attention`` call on
    the same inputs with the dense bias built beforehand (``library_ms``;
    the port never calls it). Computes each kernel's bound from the timed
@@ -34,9 +39,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
    1e-4 of max |plain| for each output, K2b and K3b (3xTF32 on the tensor
    cores) also bit-identical over two launches and with a second bound,
-   ``tc_bound_ms``, at 495/3 TFLOP/s; and K5 (connected components, 16
-   sweeps) bit for bit on 3 x 12 x 4 class masks of 64x64 pseudo-labels
-   (blob, speckled, empty, full) and on a 512x512 stack; timed the same way.
+   ``tc_bound_ms``, at 495/3 TFLOP/s; and K5 (connected components, at
+   most 16 sweeps, each mask's loop ending at its first sweep that changes
+   nothing) bit for bit on 3 x 12 x 4 class masks of 64x64 pseudo-labels
+   (blob, speckled, empty, full) and on a 512x512 stack, two launches
+   bit-identical, with the most sweeps any 64x64 mask takes; timed the same
+   way.
    The backward kernels of K6, K8 and K9 the same way (K6b at the windowed
    and the global shapes, a non-aligned token count and head dim 80, two
    launches bit-identical, with ``tc_bound_ms``; K8b and
@@ -132,10 +140,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    CPU, and one run on the grid-native encoder (K8 under AMG).
 7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
-   paths that ran them, their bounds and library times; K2, K3, K6, K7, K2b,
-   K3b, K6b and K8b also their tensor-core bound, K2 and K3 their batch-8
-   numbers under
-   ``b8``), then the result line
+   paths that ran them, their bounds and library times; K2, K3, K6, K7, K8,
+   K2b, K3b, K6b and K8b also their tensor-core bound, K2, K3 and K8 their
+   batch-8 numbers under ``b8``, K1, K4, K5, K8 and K9 their ``device_ms``),
+   then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when there is no CUDA device, when it is
@@ -183,7 +191,7 @@ KERNELS = {
             "mia_tpu/ops/attention.py:429"),
     "K7": ("fused_attention (K7)", "mia_tpu_torch/csrc/attention_fwd_tc.cuh",
            "mia_tpu/ops/attention.py:88"),
-    "K8": ("fused_attention_rel_win (K8)", "mia_tpu_torch/csrc/attention_routes.cu",
+    "K8": ("fused_attention_rel_win (K8)", "mia_tpu_torch/csrc/attention_fwd_tc.cuh",
            "mia_tpu/ops/attention.py:1334"),
     "K8b": ("fused_attention_rel_win backward (K8)", "mia_tpu_torch/csrc/attention_bwd_tc.cuh",
             "mia_tpu/ops/attention.py:1509"),
@@ -198,11 +206,11 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
-# K2, K3, K6, K7, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense TF32
-# rate, three MMAs a product
+# K2, K3, K6, K7, K8, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense
+# TF32 rate, three MMAs a product
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
-LSE_TOL = 1e-5  # K2's and K3's log-sum-exp against the plain one, absolute (values ~10)
+LSE_TOL = 1e-5  # K2's, K3's and K8's log-sum-exp against the plain one, absolute (values ~10)
 BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order, p from the lse)
 
 
@@ -263,6 +271,38 @@ def time_ms(fn, torch, blocks=11, per_block=50, warmup=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / per_block)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, kernel, per_block=50):
+    """The device time (ms) of one launch of the device kernel whose name
+    holds ``kernel``, from its durations under ``torch.profiler`` over one
+    block of ``per_block`` calls of ``fn`` (without the host's dispatch that
+    the CUDA-event time of a short kernel includes); and the device time of
+    the call's other kernels (the wrapper's conversions) a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(per_block):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in events if kernel in e.key]
+    check(mine, f"the profiler recorded no {kernel} launch")
+    others = sum(e.self_device_time_total for e in events if kernel not in e.key)
+    return (sum(e.self_device_time_total for e in mine) / 1e3 / sum(e.count for e in mine),
+            others / 1e3 / per_block)
+
+
+def with_device_ms(torch, name, fn, kernel, m, per_block=50):
+    """``m`` with ``device_ms`` of ``kernel`` in ``fn`` added, printed beside
+    its CUDA-event time."""
+    ms, others = device_ms(torch, fn, kernel, per_block)
+    print(f"{name}: device time {ms * 1e3:.2f} us a launch of {kernel} under the profiler "
+          f"(other device kernels of the call {others * 1e3:.2f} us), CUDA-event time of the "
+          f"call {m['ms'] * 1e3:.2f} us")
+    return {**m, "device_ms": ms}
 
 
 def turns_ms(torch, kernel, plain, per_block, plain_per_block=None):
@@ -474,8 +514,10 @@ def kernel_phase(torch, device):
     print(f"K1 at (12, 256, 256, 4): kernel {k1_a * 1e3:.2f} / {k1_b * 1e3:.2f} us, "
           f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x 50 launches)")
     # one gather per output element: no arithmetic to speak of
-    return {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms, "library_ms": None,
-            **bound([img, img, *idx], 0)}
+    m = {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms, "library_ms": None,
+         **bound([img, img, *idx], 0)}
+    return with_device_ms(torch, "K1 at (12, 256, 256, 4)", lambda: warp._launch_k1(img, *idx),
+                          "affine_warp_shift2pass_kernel", m)
 
 
 # ---------------------------------------------------------------------------
@@ -911,6 +953,19 @@ def plain_lse(torch, qkv, rel_h, rel_w, scale, k_hw, heads):
                            -1).reshape(b * heads, n)
 
 
+def window_lse(torch, qkv, rel_h, rel_w, bias_kv, scale, ws, heads):
+    """K8's log-sum-exp of every real query by token, (B·H, Hg·Wg), from the
+    plain one of the partitioned windows."""
+    from mia_tpu_torch.ops import attention
+
+    b, hg, wg, _ = qkv.shape
+    lse = plain_lse(torch, *attention.partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, heads),
+                    scale, (ws, ws), heads)
+    hp, wp = -(-hg // ws) * ws, -(-wg // ws) * ws
+    return (lse.reshape(b, hp // ws, wp // ws, heads, ws, ws).permute(0, 3, 1, 4, 2, 5)
+            .reshape(b, heads, hp, wp)[:, :, :hg, :wg].reshape(b * heads, hg * wg))
+
+
 def sam_kernel_phase(torch, device):
     from mia_tpu_torch.ops import attention, ln_window
 
@@ -1025,6 +1080,9 @@ def sam_kernel_phase(torch, device):
                   if "tc_bound_ms" in m else "")
             print(f"{name} at ViT-B/512 {label}: {describe_yardsticks(m)}{tc}")
             if label == "B=1":
+                if name == "K4":
+                    m = with_device_ms(torch, f"{name} at ViT-B/512 {label}",
+                                       lambda: kernel(*args), "ln_window_partition_kernel", m)
                 out[name] = {"max_abs_err": worst[name][0], **m}
             elif name != "K4":  # the forward attention kernels also report batch 8
                 out[name]["b8"] = m
@@ -1068,6 +1126,18 @@ def class_masks(torch, maps, classes=4):
     generation splits them."""
     cls = torch.arange(classes, device=maps.device)
     return (maps[:, None] == cls[None, :, None, None]).to(torch.int32).flatten(0, 1)
+
+
+def cc_sweeps(torch, morphology, masks, max_iters=16):
+    """The sweeps K5 runs on each mask of ``masks``: the first sweep whose
+    labels equal those before it (the plain version's), or ``max_iters``."""
+    labels = [morphology.connected_components(masks, max_iters=k) for k in range(max_iters + 1)]
+    n = masks.shape[0]
+    sweeps = torch.full((n,), max_iters, dtype=torch.int64, device=masks.device)
+    for k in range(max_iters, 0, -1):
+        same = (labels[k] == labels[k - 1]).reshape(n, -1).all(1)
+        sweeps = torch.where(same, k, sweeps)
+    return sweeps
 
 
 def train_kernel_phase(torch, device):
@@ -1134,9 +1204,14 @@ def train_kernel_phase(torch, device):
         check(got.dtype == torch.int32 and torch.equal(got, want),
               f"K5 {label}: labels differ from the plain version "
               f"({int((got != want).sum())} of {want.numel()})")
+        bit_identical(torch, "K5", label, (got,), (morphology._launch_k5(masks),))
         unconverged = not torch.equal(want, morphology.connected_components(masks, max_iters=64))
-        print(f"K5 bit-exact vs plain on {label}; 16 sweeps leave some mask unconverged: "
-              f"{unconverged}")
+        print(f"K5 bit-exact vs plain on {label}, two launches bit-identical; 16 sweeps leave "
+              f"some mask unconverged: {unconverged}")
+    k5_sweeps = cc_sweeps(torch, morphology, k5_cases["(144, 64, 64)"])
+    print(f"K5 at (144, 64, 64): sweeps a mask runs before its early stop (the plain version's "
+          f"first sweep that changes nothing, at most 16): most {int(k5_sweeps.max())}, "
+          f"fewest {int(k5_sweeps.min())}, {int(k5_sweeps.sum())} in all")
 
     def bound_and_library(name, args):
         """The bound of the B=12 launch and, for K2b and K3b, autograd through
@@ -1193,11 +1268,15 @@ def train_kernel_phase(torch, device):
                                               plain_per_block=2)
     print(f"K5 at (144, 64, 64): kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us (median of 11 x 10 "
           f"launches), plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x 2 calls)")
-    # 16 sweeps of four directional scans and a diagonal min: ~8 integer operations a
-    # pixel and sweep, counted at the CUDA cores' float32 rate; no PyTorch call labels
-    # connected components
-    out["K5"] = {"max_abs_err": 0.0, "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
-                 "library_ms": None, **bound([masks, masks], 16 * 8 * masks.numel())}
+    # the sweeps each mask runs, of four directional scans and a diagonal min: ~8
+    # integer operations a pixel and sweep, counted at the CUDA cores' float32 rate; no
+    # PyTorch call labels connected components
+    pixels = masks[0].numel()
+    out["K5"] = with_device_ms(torch, "K5 at (144, 64, 64)", lambda: morphology._launch_k5(masks),
+                               "connected_components_kernel", {
+        "max_abs_err": 0.0, "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+        "library_ms": None, "sweeps_max": int(k5_sweeps.max()),
+        **bound([masks, masks], 8 * pixels * int(k5_sweeps.sum()))}, per_block=10)
     print(f"K5 at (144, 64, 64): {describe_yardsticks(out['K5'])}")
     return out
 
@@ -1250,14 +1329,22 @@ def route_kernel_phase(torch, device):
             hold("K7", case, got, attention.attention_dense(*args))
             bit_identical(torch, "K7", case, (got,), (attention.fused_attention(*args),))
         inputs[("K7", label)] = cases[label]
-    # K8: the unpartitioned qkv grid; 32x32 pads each edge window, 20x27 both ways
+    # K8: the unpartitioned qkv grid; 32x32 pads each edge window, 20x27 both
+    # ways; (3xTF32) its log-sum-exp by token against the plain one, two launches
+    # bit-identical on every case
+    k8_lse_err = 0.0
     for label, b, hw, n_heads, d in (("B=1", 1, (32, 32), heads, 64), ("B=8", 8, (32, 32), heads, 64),
                                      ("grid 20x27", 2, (20, 27), heads, 64),
                                      ("head dim 80", 1, (32, 32), 16, 80)):
         args = (randn(b, *hw, 3 * n_heads * d), randn(b * n_heads, *hw, ws),
                 randn(b * n_heads, *hw, ws), randn(3, n_heads * d, scale=0.5), d ** -0.5, ws, n_heads)
-        hold("K8", label, attention.fused_attention_rel_win(*args),
-             attention.attention_rel_win(*args))
+        got = attention.fused_attention_rel_win(*args)
+        hold("K8", label, got, attention.attention_rel_win(*args))
+        again, lse = attention._launch_k8(*args, with_lse=True)
+        bit_identical(torch, "K8", label, (got,), (again,))
+        err = (lse - window_lse(torch, *args)).abs().max().item()
+        check(err <= LSE_TOL, f"K8 {label}: log-sum-exp off by {err} > {LSE_TOL}")
+        k8_lse_err = max(k8_lse_err, err)
         inputs[("K8", label)] = args
     # K9: windows whose pad slots hold values that must not reach the output
     ln_scale, ln_bias = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1, shift=0.5)
@@ -1289,7 +1376,9 @@ def route_kernel_phase(torch, device):
             flops = attention_flops(b * n_heads, hg * wg, ws * ws, d)
             lib = sdpa_ms(torch, *windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads),
                           sc, per_block)
-            return {"library_ms": lib, **bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
+            moved = [qkv, rel_h, rel_w, bias_kv, out]
+            # K8 runs 3xTF32 on the tensor cores: its own bound beside the float32 one
+            return {"library_ms": lib, **bound(moved, flops), "tc_bound_ms": tc_bound_ms(moved, flops)}
         q, k, v = (t[None] for t in args[:3])
         bh, n, d = args[0].shape
         flops = attention_flops(bh, n, n, d)
@@ -1328,11 +1417,22 @@ def route_kernel_phase(torch, device):
                 if label == "B=1 global":  # the same kernel at the global blocks' shape
                     out[name]["global_tokens"] = m
                 else:
+                    if name in ("K8", "K9"):
+                        m = with_device_ms(torch, f"{name} at ViT-B/512 {label}",
+                                           lambda: kernel(*args),
+                                           "attention_fwd_tc_kernel" if name == "K8"
+                                           else "unpartition_add_ln_kernel", m)
                     out[name] = {"max_abs_err": worst[name][0], **m}
+            elif name == "K8":  # the forward attention kernels also report batch 8
+                out[name]["b8"] = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                                   **bound_and_library(name, args, per_block)}
         print(f"{name} within {KERNEL_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
               + ("; x_new bit-exact" if name == "K9" else "")
-              + ("; two launches bit-identical on every case" if name in ("K6", "K7") else ""))
+              + (f"; log-sum-exp within {k8_lse_err:.3g} of the plain one (limit {LSE_TOL})"
+                 if name == "K8" else "")
+              + ("; two launches bit-identical on every case" if name in ("K6", "K7", "K8")
+                 else ""))
     return out
 
 

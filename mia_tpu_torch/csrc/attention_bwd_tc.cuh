@@ -69,7 +69,7 @@
 // Layout kWindow (K8b): blockIdx.z is a window of an image (batch * nwin of
 // them), the block's n = ws * ws rows are the window's slots, and slot (i, j)
 // of window (wy, wx) is grid token (wy ws + i, wx ws + j) (slot_token of
-// attention_fwd.cuh), or a pad slot outside the grid. Each block stages its
+// attention_window.cuh, shared with K8), or a pad slot outside the grid. Each block stages its
 // window's slot -> token map in shared memory once, so no copy divides an
 // index. Copies go by that map (copy_slots_async): a pad slot is a real key
 // whose k and v are the rows of pad_kv (the qkv Linear's output for a zero
@@ -104,7 +104,7 @@
 
 #include <type_traits>
 
-#include "attention_fwd.cuh"
+#include "attention_window.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -138,65 +138,6 @@ struct BwdArgs {
 };
 
 constexpr int kTcSub = 32;  // streamed rows per register sub-tile
-constexpr int kNoToken = -2;  // kWindow's slot map past n (slot_token gives -1 for a pad slot)
-
-// kWindow: one past the last slot of window `win` that holds a query. The
-// window's hr x wr slots in the grid are its first rows and columns.
-__device__ __forceinline__ int window_queries(const BwdArgs& a, int win) {
-  const int ws = a.kw;
-  const int wy = win / a.nwx;
-  const int wx = win - wy * a.nwx;
-  const int hr = min(ws, a.hg - wy * ws);
-  const int wr = min(ws, a.wg - wx * ws);
-  return (hr - 1) * ws + wr;
-}
-
-// kWindow: the token of every slot 0 .. slots-1 of window `win`: a token
-// >= 0, -1 for a pad slot, kNoToken past n.
-__device__ __forceinline__ void stage_slot_tokens(int* tok_s, const BwdArgs& a, int win,
-                                                  int slots) {
-  for (int i = threadIdx.x; i < slots; i += kTcThreads)
-    tok_s[i] = i < a.n ? slot_token(a, i, win) : kNoToken;
-}
-
-// Slots slot0 .. slot0+63 of one operand into a tile with rows of D + 4
-// floats, by the slot map: a slot with a token copies the token's row, a
-// pad slot pad_row (K, V) or zeros (pad_row null: Q, G), a slot past n zeros.
-template <int D>
-__device__ __forceinline__ void copy_slots_async(float* dst, const float* __restrict__ base,
-                                                 long long stride, const int* tok_s, int slot0,
-                                                 const float* __restrict__ pad_row) {
-  constexpr int kC = D / 4;
-  for (int i = threadIdx.x; i < kTcTile * kC; i += kTcThreads) {
-    const int r = i / kC;
-    const int c = i - r * kC;
-    const int tok = tok_s[slot0 + r];
-    const bool valid = tok >= 0 || (tok == -1 && pad_row != nullptr);
-    const float* src = tok >= 0 ? base + tok * stride : pad_row;
-    cp_async16(dst + r * (D + 4) + 4 * c, valid ? src + 4 * c : base, valid);
-  }
-}
-
-// The rel rows of slots q0 .. q0+63 into R (laid out as rel_view<false>) by
-// the slot map: a slot with a token copies rows row_base + token of rel_h
-// and rel_w, any other slot zeros. One warp a slot, one lane a column: no
-// index is divided.
-__device__ __forceinline__ void copy_rel_slots_async(float* R, const float* __restrict__ rel_h,
-                                                     const float* __restrict__ rel_w,
-                                                     long long row_base, const int* tok_s, int kh,
-                                                     int kw, int q0) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < kTcTile; r += kTcThreads / 32) {
-    const int tok = tok_s[q0 + r];
-    const long long row = row_base + tok;
-    for (int j = lane; j < kh + kw; j += 32) {
-      const bool h = j < kh;
-      float* dst = h ? R + r * kh + j : R + kTcTile * kh + r * kw + (j - kh);
-      const float* src = h ? rel_h + row * kh + j : rel_w + row * kw + (j - kh);
-      cp_async4(dst, tok >= 0 ? src : rel_h, tok >= 0);
-    }
-  }
-}
 
 // Pass A: dq, delta and the rel gradients of one 64-query tile.
 template <int D, bool kTables, bool kWindow = false>

@@ -1,7 +1,7 @@
 // The tensor-core forward attention template of the port: FlashAttention-2
 // style, both products in 3xTF32 on Hopper's tensor cores (the helpers of
-// tf32_mma.cuh), on token-major operands with runtime strides (FwdArgs of
-// attention_fwd.cuh). The bias kind (BiasKind) is a template parameter:
+// tf32_mma.cuh), on token-major operands with runtime strides (FwdArgs
+// below). The bias kind (BiasKind) is a template parameter:
 //   kRelTables  K2 (attention_rel.cu): kernel R of attention_rel.cu first
 //               computes the rel terms from the two gathered tables into
 //               one (B*H, n, kh + kw) buffer; packed qkv;
@@ -9,10 +9,14 @@
 //               rel_w (B*H, n, kw) are inputs; packed qkv. K6 (C entry in
 //               attention_rel.cu beside K3's, so the instance is built once)
 //               runs it on head-major operands (head_major_args: heads = 1,
-//               strides D, every (batch, head) pair a batch element, any
+//               strides D, every (batch, head) pair a batch element; any
 //               n = kh * kw);
 //   kDense      K7 (attention_routes.cu): a dense (B*H, n, n) additive bias
-//               on head-major operands.
+//               on head-major operands;
+//   kRelWindow  K8 (attention_routes.cu): kRelTerms' bias on windows carved
+//               from the unpartitioned (B, hg, wg, 3*H*D) qkv grid (the
+//               window layout of attention_window.cuh), rel terms in grid
+//               layout (B*H, hg, wg, ws).
 // The backward counterpart is attention_bwd_tc.cuh.
 //
 // Replaces the TPU forward kernels of mia_tpu/ops/attention.py
@@ -20,15 +24,18 @@
 //   K2  fused_attention_rel_packed_ik  (_attn_rel_packed_ik_kernel)
 //   K6  fused_attention_rel            (_attn_rel_kernel)
 //   K7  fused_attention                (_attn_kernel)
+//   K8  fused_attention_rel_win        (_attn_rel_win_kernel)
 // K2, K3 and K6 fold the rel terms into one MXU product of [q*s | rel_h |
 // rel_w] against [k | E_h | E_w] over key blocks padded to 128 rows; K7 pads
-// N to 128 and masks the pad keys with -1e30. Per (batch element or window b,
+// N to 128 and masks the pad keys with -1e30; K8 walks window-row bands of
+// the grid and concatenates the carved tiles. Per (batch element or window b,
 // head h, query n), with q, k, v the rows of b at head h:
 //
 //   out[b, n, h*D:(h+1)*D] = softmax_k(q_n.k_k * scale + bias[n, k]) . v
-//   bias[n, k]             = rel_h[n, k / kw] + rel_w[n, k % kw]   (K2, K3)
+//   bias[n, k]             = rel_h[n, k / kw] + rel_w[n, k % kw]   (K2, K3, K8)
 //                          = bias[b, n, k]                          (K7)
-//   lse[b*H + h, n]        = the row's log-sum-exp (when lse is not null)
+//   lse[b*H + h, n]        = the row's log-sum-exp (when lse is not null;
+//                            K8: by token, (B*H, hg*wg))
 //
 // Design: one block of 4 warps per (64-query tile, head, b); each warp owns
 // 16 query rows, whose Q fragments (times scale) stay in registers as
@@ -68,6 +75,22 @@
 // reference (see attention_rel.cu). No atomics: two launches are
 // bit-identical.
 //
+// Layout kRelWindow (K8): blockIdx.z is a window of an image (batch * nwin
+// of them) and the block's n = ws * ws rows are its slots. The block stages
+// the window's slot -> token map in shared memory once
+// (attention_window.cuh), then copies by it: K and V rows of a slot with a
+// token from the token's row of qkv, of a pad slot from the pad_kv rows
+// (heads + h) D and (2 heads + h) D (a pad slot is a real key), of a slot
+// past n zeros (it scores -inf, as in every instance); each query slot's
+// rel rows from row bh * hg * wg + token of the grid layout, zeros for a
+// pad slot. Q fragments are loaded by token (zero for a pad query), out and
+// lse are written by token at stride H*D, nothing for a pad query. A
+// window's queries lie in its first window_queries slots, so a block whose
+// query tile lies past them exits and a warp whose 16 rows lie past them
+// computes nothing; pad queries inside that prefix (a right-edge window's
+// rows hold 4 real columns of 14 on a 32 x 32 grid) are computed and
+// dropped by the epilogue. No partitioned copy of qkv exists anywhere.
+//
 // mma.sync rather than wgmma: Q stays in registers for the whole pass and
 // P is reused from the S accumulator; TF32 wgmma would want P in shared
 // memory (K-major) and both operands there.
@@ -79,7 +102,10 @@
 // the card's ~49 at 165 TFLOP/s over 3.35 TB/s) besides q, k, v and out:
 // about even at 12 x 1024 tokens (19.5 us of MMAs, 18.8 us of bytes), bound
 // by bytes at 108 windows of 196 tokens (11.4 us against 6.4 us of MMAs),
-// which is why the bias copy has to overlap the MMAs.
+// which is why the bias copy has to overlap the MMAs. K8 computes only its
+// real queries' rows against the ws * ws slots of their window, and with
+// qkv, the rel terms, pad_kv and out read or written once it is bound by
+// bytes at B=1 (13.97 MB: 4.17 us against 3.74 us of MMAs).
 //
 // The kernels allocate nothing and do not synchronise; the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -90,12 +116,34 @@
 
 #include <type_traits>
 
-#include "attention_fwd.cuh"
+#include "attention_window.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kBiasPad = 8;  // floats of padding a row of K7's staged bias tile
+
+// The bias of the template and its layout (see the header).
+enum BiasKind { kRelTables = 0, kRelTerms = 1, kDense = 2, kRelWindow = 3 };
+
+struct FwdArgs {
+  const float* q;       // first head's columns of token 0
+  const float* k;
+  const float* v;
+  const float* rel_a;   // see BiasKind
+  const float* rel_b;
+  const float* pad_kv;  // kRelWindow: (3, heads*D) q, k, v rows of a pad slot
+  float* out;
+  float* lse;           // optional per-row log-sum-exp (B*H, n); kRelWindow: (B*H, hg*wg) by token
+  long long in_stride;  // floats per token row of q, k, v
+  long long out_stride; // floats per token row of out
+  int n;                // query rows = key rows per batch element (or slots per window)
+  int heads;
+  int kh, kw;           // key grid: n == kh * kw (unused by kDense)
+  int hg, wg;           // kRelWindow: the token grid
+  int nwx, nwin;        // kRelWindow: windows per grid row, windows per image
+  float scale;
+};
 
 // Head-major operands (K6, K7): q, k, v, out (bh, n, d), bh batch elements of
 // one head each.
@@ -148,12 +196,13 @@ __device__ __forceinline__ void copy_bias_async(float* dst, const float* __restr
 // kKeys 64: 2 blocks an SM (~205 registers; 86 KB of shared memory at K3's
 // head dim 64, 104 KB with K7's bias tiles); kKeys 32: 3 (168 registers,
 // 51 KB; K7 53 KB). K7 at head dim 80 with 64-key tiles takes 120 KB: one
-// block an SM.
+// block an SM. K8 adds its window's slot map (1 KB at ws 14).
 template <int D, int kBias, int kKeys>
 __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
     attention_fwd_tc_kernel(const FwdArgs a) {
   constexpr bool kTables = kBias == kRelTables;
   constexpr bool kDenseBias = kBias == kDense;
+  constexpr bool kWindow = kBias == kRelWindow;
   constexpr int kRow = D + 4;    // padded K/V row
   constexpr int kK = D / 8;      // k-steps of S = Q.K^T, n8 tiles of O
   constexpr int kJ = kKeys / 8;  // 8-key groups of a streamed tile
@@ -162,7 +211,7 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
   constexpr int kStage = 2 * kKeys * kRow + (kDenseBias ? kTcTile * kBRow : 0);
   extern __shared__ float4 smem4[];
   float* KV = reinterpret_cast<float*>(smem4);  // [stage][kStage]
-  float* Rel = KV + 2 * kStage;                 // K2, K3: the block's rel rows, rel_view
+  float* Rel = KV + 2 * kStage;                 // K2, K3, K8: the block's rel rows, rel_view
   const int n = a.n, kw = a.kw;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -170,8 +219,22 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
   const int g = lane >> 2;   // fragment row group
   const int tq = lane & 3;   // thread in group
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
-  const long long tok0 = img * n;
+  long long img = blockIdx.z;  // batch element, or (K8) the image of this window
+  int tokens = n;              // tokens per batch element / image
+  int queries = n;             // K8: the window's query slots are 0 .. queries-1
+  int* tok_s = nullptr;        // K8: the window's slot -> token map, after the rel rows
+  if constexpr (kWindow) {
+    tok_s = reinterpret_cast<int*>(Rel + kTcTile * (a.kh + kw));
+    img = blockIdx.z / a.nwin;
+    const int win = static_cast<int>(blockIdx.z - img * a.nwin);
+    queries = window_queries(a, win);
+    // no slot of this tile is a query: nothing to compute or write
+    if (static_cast<int>(blockIdx.x) * kTcTile >= queries) return;
+    tokens = a.hg * a.wg;
+    stage_slot_tokens(tok_s, a, win, gridDim.x * kTcTile);
+    __syncthreads();
+  }
+  const long long tok0 = img * tokens;
   const long long bh = img * a.heads + head;
   const int row0 = blockIdx.x * kTcTile;
   const long long stride = a.in_stride;
@@ -184,30 +247,47 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
 
   auto issue = [&](int tile) {
     float* st = KV + (tile & 1) * kStage;
-    copy_rows_async<D, kKeys>(st, k_base, stride, tile * kKeys, n);
-    copy_rows_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    if constexpr (kWindow) {  // by the slot map; a pad slot's k and v from pad_kv
+      copy_slots_async<D, kKeys>(st, k_base, stride, tok_s, tile * kKeys,
+                                 a.pad_kv + (a.heads + head) * D);
+      copy_slots_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tok_s, tile * kKeys,
+                                 a.pad_kv + (2 * a.heads + head) * D);
+    } else {
+      copy_rows_async<D, kKeys>(st, k_base, stride, tile * kKeys, n);
+      copy_rows_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    }
     if constexpr (kDenseBias)
       copy_bias_async<kKeys>(st + 2 * kKeys * kRow, a.rel_a, bh, n, row0, tile * kKeys, bias_vec4);
     cp_async_commit();
   };
-  if constexpr (!kDenseBias)
+  if constexpr (kWindow) {  // rows bh * tokens + token of the grid layout; lands with tile 0
+    copy_rel_slots_async(Rel, a.rel_a, a.rel_b, bh * tokens, tok_s, a.kh, kw, row0);
+  } else if constexpr (!kDenseBias) {
     copy_rel_async<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0,
                             min(kTcTile, n - row0));  // lands with tile 0
+  }
   issue(0);
 
-  // this warp's rows r0 = row0 + 16 warp + g and r0 + 8: scale * q fragments
+  // this warp's rows r0 = row0 + 16 warp + g and r0 + 8: scale * q fragments.
+  // tr0, tr1: their token rows, which are queries when below n (K8: when the
+  // slot has a token)
   const int lr0 = warp * 16 + g;
   const int r0 = row0 + lr0;
   const int r1 = r0 + 8;
-  const bool active = row0 + warp * 16 < n;
+  const bool active = row0 + warp * 16 < queries;
+  int tr0 = r0, tr1 = r1;
+  if constexpr (kWindow) {
+    tr0 = tok_s[r0];
+    tr1 = tok_s[r1];
+  }
   float qa[kK][4];
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = (e & 1) ? r1 : r0;
+      const int r = (e & 1) ? tr1 : tr0;
       const int c = 8 * kk + tq + ((e & 2) ? 4 : 0);
-      qa[kk][e] = r < n ? __ldg(q_base + r * stride + c) * a.scale : 0.f;
+      qa[kk][e] = (kWindow ? r >= 0 : r < n) ? __ldg(q_base + r * stride + c) * a.scale : 0.f;
     }
   }
 
@@ -375,8 +455,8 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= n) continue;
+    const int r = half ? tr1 : tr0;
+    if (kWindow ? r < 0 : r >= n) continue;
     const float l = half ? l1 : l0;
     const float inv = 1.f / l;
     float* dst = a.out + (tok0 + r) * a.out_stride + head * D + 2 * tq;
@@ -384,22 +464,26 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
     for (int nd = 0; nd < kK; ++nd)
       *reinterpret_cast<float2*>(dst + 8 * nd) =
           make_float2(o[nd][2 * half] * inv, o[nd][2 * half + 1] * inv);
-    if (a.lse != nullptr && tq == 0) a.lse[bh * n + r] = (half ? m1 : m0) + logf(l);
+    if (a.lse != nullptr && tq == 0) a.lse[bh * tokens + r] = (half ? m1 : m0) + logf(l);
   }
 }
 
-// Two stages of K, V (and K7's bias tile), then K2's and K3's rel rows.
+// Two stages of K, V (and K7's bias tile), then K2's, K3's and K8's rel
+// rows, then K8's slot map (a slot for each row of the window's query tiles).
 template <int D, int kBias, int kKeys>
-size_t fwd_tc_smem_bytes(int ka) {
+size_t fwd_tc_smem_bytes(const FwdArgs& a) {
   if constexpr (kBias == kDense)
     return sizeof(float) * 2 * (2 * kKeys * (D + 4) + kTcTile * (kKeys + kBiasPad));
-  return sizeof(float) * (4 * kKeys * (D + 4) + kTcTile * ka);
+  const size_t slot_map =
+      kBias == kRelWindow ? sizeof(int) * ((a.n + kTcTile - 1) / kTcTile) * kTcTile : 0;
+  return sizeof(float) * (4 * kKeys * (D + 4) + kTcTile * (a.kh + a.kw)) + slot_map;
 }
 
-// One launch over `batch` images, kKeys keys a streamed tile.
+// One launch over `batch` images (K8: windows of all images), kKeys keys a
+// streamed tile.
 template <int D, int kBias, int kKeys>
 int launch_fwd_tc_tiles(const FwdArgs& a, int batch, cudaStream_t s) {
-  const size_t smem = fwd_tc_smem_bytes<D, kBias, kKeys>(a.kh + a.kw);
+  const size_t smem = fwd_tc_smem_bytes<D, kBias, kKeys>(a);
   auto kernel = attention_fwd_tc_kernel<D, kBias, kKeys>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

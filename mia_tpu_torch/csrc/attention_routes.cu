@@ -1,12 +1,12 @@
 // K7 and K8 on Hopper, and K8b: the encoder's other attention routes, in
-// float32. Forward: K7 is the kDense instance of the 3xTF32 tensor-core
-// template in attention_fwd_tc.cuh, beside K2, K3 and K6 (whose C entry is in
-// attention_rel.cu: it runs K3's instance on head-major strides); K8 is the
-// float32 SIMT kernel of attention_fwd.cuh (whose header describes its
-// body). Backward: K8b is the kWindow instance
-// of the 3xTF32 tensor-core template in attention_bwd_tc.cuh; K6b runs K3b's
-// instance and its C entry is in attention_rel.cu; K7's backward is plain
-// tensor code in the JAX package and here.
+// float32. Forward: K7 is the kDense and K8 the kRelWindow instance of the
+// 3xTF32 tensor-core template in attention_fwd_tc.cuh, beside K2, K3 and K6
+// (whose C entry is in attention_rel.cu: it runs K3's instance on
+// head-major strides). Backward: K8b is the kWindow instance of the 3xTF32
+// tensor-core template in attention_bwd_tc.cuh; K6b runs K3b's instance and
+// its C entry is in attention_rel.cu; K7's backward is plain tensor code in
+// the JAX package and here. K8 and K8b share the window layout of
+// attention_window.cuh.
 //
 // Replaces the TPU kernels
 //   K7  mia_tpu/ops/attention.py::fused_attention (_attn_kernel):
@@ -18,18 +18,18 @@
 //       (_attn_rel_win_kernel): windowed attention carved from the
 //       unpartitioned (B, Hg, Wg, 3*H*D) qkv grid. The TPU kernel walks
 //       window-row bands and concatenates carved tiles; here a block owns
-//       one (image, head, window) and maps each slot to its grid token, so
-//       no partitioned copy of qkv exists anywhere. Pad slots are real keys
+//       one (query tile, head, window) and maps each slot to its grid
+//       token, so no partitioned copy of qkv exists anywhere. Pad slots are real keys
 //       (k, v from bias_kv, the query's rel bias for the slot position);
 //       pad queries are dropped.
 // Neither carries over the TPU kernels' K-axis concatenation with one-hot
 // expanders, which exists to feed the matrix unit: K8's factored bias is two
 // loads and an add per score.
 //
-// Bound: K8 does 4*D flops per (query, key) pair on the FP32 pipe out of
-// shared memory and is bound by operations (at 67 TFLOP/s). K7 does the
-// same products in 3xTF32 on the tensor cores (495/3 TFLOP/s) and reads 4
-// bytes of bias a pair: at 12 x 1024 tokens 19.5 us of MMAs against 18.8 us
+// Bound: K7 and K8 do 4*D flops per (query, key) pair in 3xTF32 on the
+// tensor cores (495/3 TFLOP/s). K8 is bound by bytes at B=1 (qkv, the rel
+// terms and out once: 4.17 us against 3.74 us of MMAs). K7 reads 4 bytes of
+// bias a pair: at 12 x 1024 tokens 19.5 us of MMAs against 18.8 us
 // of bytes, at 108 windows of 196 tokens 6.4 us against 11.4 us of bytes
 // (see attention_fwd_tc.cuh).
 //
@@ -122,13 +122,7 @@ extern "C" int mia_attention_rel_win_f32(const void* qkv, const void* rel_h, con
   a.heads = heads;
   set_grid(a, hg, wg, ws);
   a.scale = scale;
-  const int windows = batch * a.nwin;
-  if (windows == 0) return static_cast<int>(cudaSuccess);
-  switch (d) {  // 64: ViT-B and ViT-L; 80: ViT-H
-    case 64: return launch_fwd<64>(a, windows, stream);
-    case 80: return launch_fwd<80>(a, windows, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_fwd_tc<kRelWindow>(a, batch * a.nwin, d, stream);
 }
 
 // K8b: from K8's inputs, its output (batch, hg, wg, heads*d), its lse and

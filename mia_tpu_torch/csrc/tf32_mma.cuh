@@ -1,5 +1,6 @@
 // What the two tensor-core attention templates share: 3xTF32 products on
-// mma.sync.m16n8k8 and the cp.async tile copies that feed them.
+// mma.sync.m16n8k8, the cp.async tile copies that feed them and the opt-in
+// to large dynamic shared memory.
 // attention_fwd_tc.cuh (K2, K3, K6, K7) and attention_bwd_tc.cuh (K2b, K3b,
 // K6b, K8b) include it; their comments describe how each uses these pieces.
 //
@@ -157,6 +158,14 @@ __device__ __forceinline__ void copy_rel_async(float* R, const float* __restrict
     for (int i = threadIdx.x; i < rows * kw; i += kTcThreads)
       cp_async4(R + kTcTile * kh + i, src_w + i);
   }
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace

@@ -35,7 +35,8 @@ unscaled q.
 The other routes (K6 on K3's instance of the 3xTF32 tensor-core template
 ``csrc/attention_fwd_tc.cuh`` on head-major strides, C entry in
 ``csrc/attention_rel.cu``; K7 on the same template with a dense bias and K8
-on the float32 template of ``csrc/attention_fwd.cuh``, C entries in
+on its window instance, which carves the windows from the token grid by the
+slot map of ``csrc/attention_window.cuh``, C entries in
 ``csrc/attention_routes.cu``):
 
 - :func:`attention_rel` / :func:`fused_attention_rel` (K6) — head-major

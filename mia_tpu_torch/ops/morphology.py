@@ -175,7 +175,9 @@ def _launch_k5(mask: torch.Tensor, connectivity: int = 2, max_iters: int = 16) -
     n = mask.numel() // max(h * w, 1)
     if h * w >= 2 ** 31 - 1 or n >= 2 ** 31:
         raise ValueError(f"K5 mask shape {tuple(mask.shape)} overflows int32 sizes")
-    m = (mask > 0).to(torch.int32).contiguous()
+    # the kernel reads m > 0: an int32 stack (prompt generation's) goes in as it is
+    m = (mask if mask.dtype == torch.int32 and mask.is_contiguous()
+         else (mask > 0).to(torch.int32).contiguous())
     out = torch.empty_like(m)
     run, scratch_elems = _k5_functions()
     with torch.cuda.device(mask.device):

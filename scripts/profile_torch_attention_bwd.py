@@ -1,7 +1,7 @@
-"""Time the attention kernels K2, K3, K6, K7, K2b, K3b, K6b and K8b of a source tree on one GPU.
+"""Time the attention kernels K2, K3, K6, K7, K8, K2b, K3b, K6b and K8b of a source tree on one GPU.
 
 For comparing two versions of the attention templates
-(``mia_tpu_torch/csrc/attention_{fwd,bwd}_tc.cuh``, ``attention_fwd.cuh``) or
+(``mia_tpu_torch/csrc/attention_{fwd,bwd}_tc.cuh``, ``attention_window.cuh``) or
 of ``attention_rel.cu`` and ``attention_routes.cu`` within one run: unpack the other
 tree with ``git archive <commit> mia_tpu_torch | tar -x -C <dir>`` and name it
 with ``--tree``; every tree builds its own kernel library. Prints the card,
@@ -31,9 +31,11 @@ shape B=1 and the training shape B=12, and K7 (dense bias) and K6 (rel
 terms), both head-major, at both shapes too, each beside the library call
 on the same operands (``scaled_dot_product_attention`` with the dense bias
 built beforehand) and K7 and K6 also beside their plain versions, with
-their largest errors against the plain versions; with ``--kernels`` the
-device kernels of K3, K2, K7 and K6 at B=1 and B=12 and of the library call
-at B=1.
+their largest errors against the plain versions; then K8 (windows carved
+from the (B, 32, 32) token grid) at both shapes beside its plain version and
+the library call on the partitioned windows; with ``--kernels`` the device
+kernels of K3, K2, K7, K6 and K8 at B=1 and B=12 and of the library call at
+B=1.
 
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
         [--forward | --sass]
@@ -45,6 +47,7 @@ Several ``--tree`` arguments run in the given order, one process each
 from __future__ import annotations
 
 import argparse
+import difflib
 import functools
 import hashlib
 import re
@@ -164,6 +167,10 @@ def sass_report(trees) -> None:
                           f"{sum('HMMA.1688.F32.TF32' in x for x in body)} HMMA.1688.F32.TF32, "
                           f"{sum('ATOM' in x for x in body)} ATOM, "
                           f"{sum(('LDL' in x or 'STL' in x) for x in body)} LDL/STL; {same}")
+                    if same == "SASS differs from the first tree":  # where it starts to differ
+                        diff = difflib.unified_diff(ref[name], body, lineterm="", n=2)
+                        for line in list(diff)[2:14]:
+                            print(f"    {line}")
 
 
 def bench_forward(tree: str, kernels: bool = False) -> None:
@@ -245,11 +252,32 @@ def bench_forward(tree: str, kernels: bool = False) -> None:
                 f"(plain {time_ms(torch, fns[1], per_block=per_block) * 1e3:.2f}, library "
                 f"{time_ms(torch, fns[2], per_block=per_block) * 1e3:.2f})"
                 for (name, shape), fns in heads_major.items()), flush=True)
+        # K8: windows carved from the (b, 32, 32) token grid; the library call on
+        # the partitioned windows with the dense bias, both built beforehand
+        grid = randn(b, side, side, 3 * heads * d)
+        r8h, r8w = (randn(b * heads, side, side, ws) for _ in range(2))
+        k8_args = (grid, r8h, r8w, randn(3, heads * d, scale=0.5), scale, ws, heads)
+        want8 = attention.attention_rel_win(*k8_args)
+        err8 = float((attention._launch_k8(*k8_args) - want8).abs().max() / want8.abs().max())
+        windows, w_h, w_w = attention.partition_rel_win(*k8_args[:4], ws, heads)
+        bw, n8, _ = windows.shape
+        q8, k8, v8 = (t.contiguous() for t in windows.view(bw, n8, 3, heads, d).permute(2, 0, 3, 1, 4))
+        bias8 = (w_h[:, :, :, None] + w_w[:, :, None, :]).reshape(bw, heads, n8, n8).contiguous()
+        k8_fns = (functools.partial(attention._launch_k8, *k8_args),
+                  functools.partial(attention.attention_rel_win, *k8_args),
+                  functools.partial(sdpa, q8, k8, v8, attn_mask=bias8, scale=scale))
+        print(f"{tree}: B={b}: K8 ({b}, {side}, {side}) grid, {bw} windows, within {err8:.3g} of "
+              "max |plain|")
+        for _ in range(2):
+            print(f"{tree}: B={b}: K8 {time_ms(torch, k8_fns[0], per_block=per_block) * 1e3:.2f} us "
+                  f"(plain {time_ms(torch, k8_fns[1], per_block=per_block) * 1e3:.2f}, library "
+                  f"{time_ms(torch, k8_fns[2], per_block=per_block) * 1e3:.2f})", flush=True)
         if kernels:
             kernel_table(torch, f"{tree}: K3 B={b}", k3)
             kernel_table(torch, f"{tree}: K2 B={b}", k2)
             for (name, shape), fns in heads_major.items():
                 kernel_table(torch, f"{tree}: {name} {shape} B={b}", fns[0])
+            kernel_table(torch, f"{tree}: K8 B={b}", k8_fns[0])
             if b == 1:
                 kernel_table(torch, f"{tree}: library at K3's B=1 shape", libs[0])
                 kernel_table(torch, f"{tree}: library at K2's B=1 shape", libs[1])
@@ -357,7 +385,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="also list the device kernels of K3b, K2b and the library call")
     ap.add_argument("--forward", action="store_true",
-                    help="time the forward kernels K3, K2, K7, K6 and the library call instead")
+                    help="time the forward kernels K3, K2, K7, K6, K8 and the library call instead")
     ap.add_argument("--sass", action="store_true",
                     help="compile each tree's attention_rel.cu and attention_routes.cu and "
                          "compare registers and SASS")

@@ -37,14 +37,15 @@ from mia_tpu_torch.models.sam import ImageEncoderViT  # noqa: E402
 from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer  # noqa: E402
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    # attention_fwd_kernel<D, split> (float32 SIMT): K8; attention_fwd_tc_kernel<D, bias, keys> (3xTF32): bias 0 = K2, 1 = K3, and K6,
-    # which runs K3's instance, 2 = K7 (dense); attention_bwd_tc_{dq,dkv}_kernel<D, tables,
-    # window>: <true, false> = K2b, <false, false> = K3b, and K6b, which runs K3b's
-    # instance (see head_major_groups), <false, true> = K8b
+    # attention_fwd_tc_kernel<D, bias, keys> (3xTF32): bias 0 = K2, 1 = K3, and K6, which
+    # runs K3's instance, 2 = K7 (dense), 3 = K8 (windows of the token grid);
+    # attention_bwd_tc_{dq,dkv}_kernel<D, tables, window>: <true, false> = K2b,
+    # <false, false> = K3b, and K6b, which runs K3b's instance (see
+    # head_major_groups), <false, true> = K8b
     ("K2 forward", ("attention_fwd_tc_kernel<64, 0,",)),
     ("K3 forward", ("attention_fwd_tc_kernel<64, 1,",)),
     ("K7 forward", ("attention_fwd_tc_kernel<64, 2,",)),
-    ("K8 forward", ("attention_fwd_kernel<64,",)),
+    ("K8 forward", ("attention_fwd_tc_kernel<64, 3,",)),
     ("K2 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, true",)),
     ("K3 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, false, false",)),
     ("K8 backward, dq pass", ("attention_bwd_tc_dq_kernel<64, false, true",)),

@@ -37,17 +37,16 @@ from mia_tpu_torch.models.sam import (  # noqa: E402
     sam_model_registry,
 )
 
-# K2, K3, K6 and K7 run the tensor-core template of csrc/attention_fwd_tc.cuh,
+# K2, K3, K6, K7 and K8 run the tensor-core template of csrc/attention_fwd_tc.cuh,
 # attention_fwd_tc_kernel<D, bias, keys>: bias 0 = K2 (after kernel R,
 # attention_rel_terms_kernel), 1 = K3, and K6, which runs K3's instance on head-major
-# strides (the head-major route runs no K3: HEAD_MAJOR_GROUPS), 2 = K7 (dense bias); keys
-# is the streamed key tile. K8 (windows carved from the token grid) is the float32 kernel
-# of csrc/attention_fwd.cuh, attention_fwd_kernel<D, split>
+# strides (the head-major route runs no K3: HEAD_MAJOR_GROUPS), 2 = K7 (dense bias), 3 = K8
+# (windows carved from the token grid); keys is the streamed key tile
 GROUPS = (  # (label, substrings of the kernel name), first match wins
     ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_rel_terms_kernel")),
     ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,",)),
     ("K7 dense-bias attention", ("attention_fwd_tc_kernel<64, 2,",)),
-    ("K8 grid-native windowed attention", ("attention_fwd_kernel<64,",)),
+    ("K8 grid-native windowed attention", ("attention_fwd_tc_kernel<64, 3,",)),
     ("K4 LayerNorm + partition", ("ln_window_partition_kernel",)),
     ("K9 unpartition + residual + LayerNorm", ("unpartition_add_ln_kernel",)),
     ("cuDNN convolutions", ("fprop", "implicit", "cudnn", "conv2d")),

@@ -16,8 +16,8 @@ float64: every backward output
 within ``BWD_TOL`` of max |float64|, the forward within ``KERNEL_TOL``, as
 ``chip_smoke.py`` holds the kernels, and one TF32 pass at least 10x further
 away. K7's bias may mask keys with -inf; the emulation shows why its online
-softmax needs FlashAttention-2's guard. K8b's windowed backward is in
-``test_torch_attention_3xtf32_grid.py``.
+softmax needs FlashAttention-2's guard. K8's windowed forward and K8b's
+backward are in ``test_torch_attention_3xtf32_grid.py``.
 """
 
 import numpy as np
@@ -196,10 +196,10 @@ def mma_tf32(c, a, b):
     return mma_chain(c, a, b, ((tf32_round(a), tf32_round(b)),))
 
 
-def forward_tiles(mma, q, k, v, bias, scale, chained=False, guard=True):
+def forward_tiles(mma, q, k, v, bias, scale, chained=False, guard=True, tile=KEY_TILE):
     """The forward kernels' order on head-major q, k, v (..., N, D) and a
     dense bias (..., N, N), K7's operands (K2's and K3's rel bias expanded
-    by ``packed_case``): scale·q, then per 64-key tile S = Q·Kᵀ through
+    by ``packed_case``): scale·q, then per ``tile`` keys S = Q·Kᵀ through
     ``mma`` from zero, the bias, the online softmax (running max, rescaled
     sum) and the tile's P·V through ``mma`` from zero, folded in as
     O = c·O + P·V (``chained``: P·V added inside the MMA chain to the
@@ -212,9 +212,9 @@ def forward_tiles(mma, q, k, v, bias, scale, chained=False, guard=True):
     m = torch.full((*q.shape[:-1], 1), -torch.inf)
     l = torch.zeros((*q.shape[:-1], 1))
     o = torch.zeros_like(q)
-    for k0 in range(0, n, KEY_TILE):
-        keys = slice(k0, k0 + KEY_TILE)
-        s = mma(torch.zeros(*q.shape[:-1], min(KEY_TILE, n - k0)), q,
+    for k0 in range(0, n, tile):
+        keys = slice(k0, k0 + tile)
+        s = mma(torch.zeros(*q.shape[:-1], min(tile, n - k0)), q,
                 k[..., keys, :].transpose(-2, -1)) + bias[..., keys]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         ref = torch.where(m_new == -torch.inf, 0.0, m_new) if guard else m_new

@@ -1,6 +1,16 @@
-"""K8b's arithmetic on the CPU: the windowed instance of the 3xTF32 backward
-template (``mia_tpu_torch/csrc/attention_bwd_tc.cuh``, ``kWindow``) emulated
-in plain torch and held against float64.
+"""K8's and K8b's arithmetic on the CPU: the windowed instances of the 3xTF32
+forward and backward templates (``mia_tpu_torch/csrc/attention_fwd_tc.cuh``,
+``kRelWindow``; ``attention_bwd_tc.cuh``, ``kWindow``) emulated in plain
+torch and held against float64.
+
+The forward copies the same windows by the slot map (the layout both share,
+``csrc/attention_window.cuh``) and runs the forward template's order on them
+(``test_torch_attention_3xtf32.forward_tiles``: per key tile of 32 or 64
+slots, S from zero, the online softmax, the tile's P·V from zero folded into
+the output by one multiply-add); pad queries are computed with zero q and
+zero rel rows and dropped, and out and the log-sum-exp are written by token.
+Its output is held within ``KERNEL_TOL`` of max |float64| and its
+log-sum-exp within ``LSE_TOL``, one TF32 pass at least 10x further away.
 
 The kernel carves each ``ws x ws`` window from the unpartitioned
 ``(B, Hg, Wg, 3·H·D)`` qkv grid through a slot -> token map: a slot outside
@@ -21,7 +31,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_attention_3xtf32 import BWD_TOL, mm_3xtf32, mm_tf32
+from test_torch_attention_3xtf32 import (BWD_TOL, KERNEL_TOL, LSE_TOL, forward_tiles, mm_3xtf32,
+                                         mm_tf32, mma_3xtf32, mma_tf32)
 
 from mia_tpu_torch.ops import attention
 
@@ -83,13 +94,50 @@ def window_bias(rel_h_w, rel_w_w):
 
 def forward_lse(qkv, rel_h, rel_w, bias_kv, scale, ws, heads):
     """The forward's log-sum-exp of every real query by token, (B·H, Hg·Wg),
-    as K8 writes it (float32)."""
+    as K8 writes it (in the inputs' type)."""
     q, k, _, rh, rw, real, tok = window_operands(qkv, rel_h, rel_w, bias_kv, ws, heads)
     lse_w = torch.logsumexp((q * scale) @ k.transpose(-2, -1) + window_bias(rh, rw), -1)
     b, hg, wg, _ = qkv.shape
-    lse = torch.zeros(b, heads, hg * wg)
+    lse = torch.zeros(b, heads, hg * wg, dtype=lse_w.dtype)
     lse[:, :, tok[real]] = lse_w.permute(0, 2, 1, 3)[:, :, real]
     return lse.reshape(b * heads, hg * wg)
+
+
+def k8_forward(mma, qkv, rel_h, rel_w, bias_kv, scale, ws, heads, tile):
+    """K8 in the window instance's order: the windows copied by the slot map,
+    ``forward_tiles`` over key tiles of ``tile`` slots, the real queries'
+    rows scattered to their tokens → out (B, Hg, Wg, H·d) and the
+    log-sum-exp by token (B·H, Hg·Wg)."""
+    b, hg, wg, three_hd = qkv.shape
+    q, k, v, rh, rw, real, tok = window_operands(qkv, rel_h, rel_w, bias_kv, ws, heads)
+    out_w, lse_w = forward_tiles(mma, q, k, v, window_bias(rh, rw), scale, guard=False, tile=tile)
+    out = torch.zeros(b, hg * wg, heads, three_hd // (3 * heads))
+    out[:, tok[real]] = out_w.permute(0, 1, 3, 2, 4)[:, real]
+    lse = torch.zeros(b, heads, hg * wg)
+    lse[:, :, tok[real]] = lse_w.permute(0, 2, 1, 3)[:, :, real]
+    return out.reshape(b, hg, wg, -1), lse.reshape(b * heads, hg * wg)
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("case", list(GRIDS))
+def test_3xtf32_k8_forward_keeps_float32_accuracy_where_one_pass_does_not(case, tile):
+    batch, hw, ws = GRIDS[case]
+    qkv, rel_h, rel_w, bias_kv, _ = grid_inputs(batch, hw, ws, seed=hw[0] * hw[1] + ws)
+    args = (D ** -0.5, ws, HEADS)
+    fwd64 = [t.double() for t in (qkv, rel_h, rel_w, bias_kv)]
+    want = attention.attention_rel_win(*fwd64, *args)
+    want_lse = forward_lse(*fwd64, *args)
+    out3, lse3 = k8_forward(mma_3xtf32, qkv, rel_h, rel_w, bias_kv, *args, tile)
+    out1, lse1 = k8_forward(mma_tf32, qkv, rel_h, rel_w, bias_kv, *args, tile)
+    ref = want.abs().max().item()
+    err3 = (out3.double() - want).abs().max().item() / ref
+    err1 = (out1.double() - want).abs().max().item() / ref
+    assert err3 <= KERNEL_TOL, f"3xTF32 output off by {err3:.3g} of max |float64|"
+    assert err1 >= 10 * err3, f"one TF32 pass {err1:.3g} against 3xTF32 {err3:.3g}"
+    lse_err3 = (lse3.double() - want_lse).abs().max().item()
+    lse_err1 = (lse1.double() - want_lse).abs().max().item()
+    assert lse_err3 <= LSE_TOL, f"3xTF32 log-sum-exp off by {lse_err3:.3g}"
+    assert lse_err1 >= 10 * lse_err3, f"one TF32 pass {lse_err1:.3g} against 3xTF32 {lse_err3:.3g}"
 
 
 def k8_backward(mm, qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, heads):

@@ -295,18 +295,47 @@ def _cc_masks(gen, device, n=144, size=64):
     return torch.stack(masks).to(torch.int32)
 
 
+def _diagonal_masks(device, size, lengths):
+    """Anti-diagonal lines of ``lengths`` pixels: 8-connected, they converge
+    after about as many sweeps as pixels (4-connected, after one)."""
+    masks = torch.zeros(len(lengths), size, size, dtype=torch.int32, device=device)
+    for i, length in enumerate(lengths):
+        r = torch.arange(min(length, size), device=device)
+        masks[i, r, size - 1 - r] = 1
+    return masks
+
+
+# the K5 kernel ends each mask's loop at its first sweep that changes nothing:
+# masks that stop at different sweeps, and unconverged ones, in one launch
+@pytest.mark.parametrize("connectivity", [1, 2])
 @pytest.mark.parametrize("size", [64, 512])
-def test_k5_bit_exact_against_plain(cuda, size):
+def test_k5_bit_exact_against_plain(cuda, size, connectivity):
     from mia_tpu_torch.ops import morphology
 
     gen = torch.Generator(device=cuda).manual_seed(7)
-    masks = _cc_masks(gen, cuda, n=144 if size == 64 else 4, size=size)
+    masks = torch.cat([_cc_masks(gen, cuda, n=144 if size == 64 else 4, size=size),
+                       _diagonal_masks(cuda, size, (2, 5, 9, 14, 30))])
     before = morphology.connected_components_fused.launches
-    got = morphology.connected_components_fused(masks)
-    want = morphology.connected_components(masks)
+    got = morphology.connected_components_fused(masks, connectivity)
+    want = morphology.connected_components(masks, connectivity)
+    again = morphology.connected_components_fused(masks, connectivity)
     torch.cuda.synchronize()
-    assert morphology.connected_components_fused.launches == before + 1
+    assert morphology.connected_components_fused.launches == before + 2
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(20, 27), (33, 65), (6, 600), (1, 1)])
+def test_k5_odd_shapes(cuda, shape):
+    """Lines that no lane count divides, a line of two chunks, one pixel."""
+    from mia_tpu_torch.ops import morphology
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    masks = (torch.rand(12, *shape, generator=gen, device=cuda) < 0.6).to(torch.int32)
+    for connectivity in (1, 2):
+        got = morphology.connected_components_fused(masks, connectivity)
+        torch.cuda.synchronize()
+        assert torch.equal(got, morphology.connected_components(masks, connectivity))
 
 
 # K6-K9 (forward kernels) against their plain versions, same tolerance as
@@ -381,13 +410,25 @@ def test_k8_matches_plain(cuda, b, hw, heads, d, ws):
     rel_h = torch.randn(b * heads, h, w, ws, generator=gen, device=cuda)
     rel_w = torch.randn(b * heads, h, w, ws, generator=gen, device=cuda)
     bias_kv = torch.randn(3, heads * d, generator=gen, device=cuda)
+    args = (qkv, rel_h, rel_w, bias_kv, d ** -0.5, ws, heads)
     before = attention.fused_attention_rel_win.launches
-    got = attention.fused_attention_rel_win(qkv, rel_h, rel_w, bias_kv, d ** -0.5, ws, heads)
-    want = attention.attention_rel_win(qkv, rel_h, rel_w, bias_kv, d ** -0.5, ws, heads)
+    got = attention.fused_attention_rel_win(*args)
+    want = attention.attention_rel_win(*args)
+    again, lse = attention._launch_k8(*args, with_lse=True)
     torch.cuda.synchronize()
-    assert attention.fused_attention_rel_win.launches == before + 1
+    assert attention.fused_attention_rel_win.launches == before + 2
     assert got.shape == want.shape == (b, h, w, heads * d)
     assert _rel_err(got, want) <= 1e-5
+    # K8 runs 3xTF32 on the tensor cores: two launches bit-identical, and the
+    # log-sum-exp of every real query by token
+    assert torch.equal(got, again)
+    windows, r_h, r_w = attention.partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, heads)
+    lse_w = _plain_lse(windows, r_h, r_w, d ** -0.5, (ws, ws), heads)
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    want_lse = (lse_w.reshape(b, hp // ws, wp // ws, heads, ws, ws).permute(0, 3, 1, 4, 2, 5)
+                .reshape(b, heads, hp, wp)[:, :, :h, :w].reshape(b * heads, h * w))
+    assert lse.shape == want_lse.shape
+    assert (lse - want_lse).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("shape,ws", [((1, 32, 32, 768), 14), ((8, 32, 32, 768), 14),
