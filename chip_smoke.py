@@ -27,7 +27,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    within 1e-5 of the plain one, two launches bit-identical on every case,
    with ``tc_bound_ms`` and its batch-8 numbers.
    Times each kernel and its plain version in turns with CUDA events and,
-   for K1, K4, K5, K8 and K9, also reads the kernels' device time under
+   for K1, K4, K4b, K5, K8, K9 and K9b, also reads the kernels' device time under
    ``torch.profiler`` over a block of the same calls (``device_ms``: the
    event time of a short kernel includes the host's dispatch), and,
    for the attention kernels, one ``scaled_dot_product_attention`` call on
@@ -74,6 +74,23 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    convolutions). Prints the loader's host decode path (native uint8 or
    PIL float32) and the bytes each train batch shipped, beside the step
    and round times that depend on them.
+   Selector phase: with the trained UNet and the slice's active set (16
+   labeled, 32 in the pool), each selector the JAX package has beyond random
+   and entropy (confidence, margin, coreset-l2/-cosine, kmean-l2/-cosine,
+   badge) picks 8 cases on the card (timed, sweep included, with the TF32
+   convolutions) and, with float32 convolutions, against the CPU: the same
+   ids unless the closest decision lies within 1e-4 of a tie (printed);
+   confidence and margin scores, ``enc_feature`` and the BADGE embeddings
+   within 1e-4 of max |value|; ``kcenter_greedy`` on one distance matrix and
+   the k-means++ core on the same draws pick the same on both devices. Then
+   ``al_train_torch``'s ``train_entry`` on ``cuda`` at full width, 6
+   iterations a round: 2 rounds of ``--active-selector badge``; ``--resume``
+   from its round 0 (restored round, iteration, parameters and optimizer
+   count checked); ``--init-round-path`` at the slice's round 0 with
+   coreset-cosine (starts at round 1, first logits equal to round 0's best
+   model's); ``--dataset busi --num-classes 1`` with kmean-cosine on 48/8
+   synthetic 448x560 PNGs. Each run: one K1 launch a train step, finite
+   losses, the round files, the labeled set growing by the budget.
    FUGC K-fold phase: ``fugc2025_train_torch``'s ``train_entry`` on the same
    set with the entry's defaults (UNet 32..512, batch 32, adam with L2 decay
    0.1) at 256²: 2 folds of 8 iterations. Checks one K1 launch a step, the
@@ -142,7 +159,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
    paths that ran them, their bounds and library times; K2, K3, K6, K7, K8,
    K2b, K3b, K6b and K8b also their tensor-core bound, K2, K3 and K8 their
-   batch-8 numbers under ``b8``, K1, K4, K5, K8 and K9 their ``device_ms``),
+   batch-8 numbers under ``b8``, K1, K4, K4b, K5, K8, K9 and K9b their ``device_ms``),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -676,7 +693,397 @@ def slice_phase(torch, workdir: Path):
     print(f"slice: K1 launches {launches} in the run, {sum(k1_in_steps)} from train steps; "
           f"UNet logits card vs CPU max |diff| {fp32_err:.3g} (float32), "
           f"{tf32_err:.3g} (TF32 convs), max |logit| {scale:.3g}")
-    return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path()}
+    return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path(),
+            "trainer": trainer, "data": data, "work": work}
+
+# ---------------------------------------------------------------------------
+# selector phase: every AL selector on the card against the CPU, then
+# al_train_torch with BADGE, --resume, --init-round-path and BUSI
+# ---------------------------------------------------------------------------
+
+NEW_SELECTORS = ("confidence", "margin", "coreset-l2", "coreset-cosine", "kmean-l2",
+                 "kmean-cosine", "badge")
+SELECT_TOL = 1e-4  # card (float32 convolutions) against CPU, of the largest |value|
+
+
+class CachedScorer:
+    """The CPU's ``ModelScorer`` with each image's outputs kept: the holds
+    and the seven selectors ask it for the same images again and again (an
+    image's probabilities, bottleneck features and BADGE embedding do not
+    depend on the other images of its batch)."""
+
+    def __init__(self, torch, scorer):
+        self.torch, self.scorer, self.device, self.cache = torch, scorer, scorer.device, {}
+
+    def _rows(self, name, fn, images):
+        import hashlib
+
+        keys = [(name, hashlib.blake2b(img.numpy().tobytes(), digest_size=16).digest())
+                for img in images.cpu()]
+        missing = [i for i, k in enumerate(keys) if k not in self.cache]
+        if missing:
+            for i, row in zip(missing, fn(images[missing])):
+                self.cache[keys[i]] = row
+        return self.torch.stack([self.cache[k] for k in keys])
+
+    def uncertainty(self, images, kind):
+        from mia_tpu_torch.activelearning.scorers import _SCORES
+
+        return _SCORES[kind](self._rows("probs", self.scorer.probs, images))
+
+    def enc_feature(self, images):
+        return self._rows("enc", self.scorer.enc_feature, images)
+
+    def badge_grad_embedding(self, images):
+        return self._rows("badge", self.scorer.badge_grad_embedding, images)
+
+
+def kcenter_margin(torch, dist, n_core, budget, criteria="min"):
+    """The least gap, over the greedy steps, between the best and the
+    second-best score, over the best: how far the k-center picks are from a
+    tie (replayed on the CPU)."""
+    mask = torch.arange(dist.shape[0]) < n_core
+    margins = []
+    for _ in range(budget):
+        if criteria == "min":
+            d = torch.where(mask[None, :], dist, torch.tensor(float("inf"))).amin(1)
+        else:
+            d = (dist * mask[None, :].float()).sum(1) / mask.sum().clamp_min(1)
+        top = torch.topk(torch.where(mask, torch.tensor(-float("inf")), d), 2).values
+        margins.append(((top[0] - top[1]) / top[0].abs()).item())
+        mask[torch.argmax(torch.where(mask, torch.tensor(-float("inf")), d))] = True
+    return min(margins)
+
+
+def kmeans_margin(torch, x, seed, k, weight=None):
+    """How far the k-means++ picks of ``x`` (the selectors' draws from
+    ``Generator().manual_seed(seed)``) are from a flip: the least, over the
+    steps, of the distance of a draw to a boundary of the running potential's
+    cumsum and of the gap between the best and the second-best candidate's
+    potential, each relative (replayed on the CPU)."""
+    from mia_tpu_torch.activelearning.selection import n_local_trials_for
+    from mia_tpu_torch.ops.distance import pairwise_distances
+
+    gen = torch.Generator().manual_seed(seed)
+    u_first, uniforms = torch.rand((), generator=gen), torch.rand(
+        (k - 1, n_local_trials_for(k)), generator=gen)
+    w = torch.ones(x.shape[0]) if weight is None else weight.float()
+    w = w / w.sum()
+    cum = torch.cumsum(w, 0)
+    margins = [((cum - u_first * cum[-1]).abs().min() / cum[-1]).item()]
+    first = torch.searchsorted(cum, u_first * cum[-1]).clamp(0, x.shape[0] - 1)
+    d2 = pairwise_distances(x, x, "l2").square()
+    closest = d2[first]
+    for u in uniforms:
+        pot = w * closest
+        cum = torch.cumsum(pot, 0)
+        vals = u * pot.sum()
+        margins.append(((cum[None, :] - vals[:, None]).abs().min() / pot.sum()).item())
+        cand = torch.searchsorted(cum, vals).clamp(0, x.shape[0] - 1)
+        new_pot = (w[None, :] * torch.minimum(closest[None, :], d2[cand])).sum(1)
+        ranked = torch.sort(torch.unique(new_pot)).values
+        if ranked.numel() > 1:
+            margins.append(((ranked[1] - ranked[0]) / ranked[0]).item())
+        closest = torch.minimum(closest, d2[cand[torch.argmin(new_pot)]])
+    return min(margins)
+
+
+def decision_margin(torch, key, active, scorer, budget, seed):
+    """How far ``key``'s picks with ``scorer`` (the CPU's) are from a tie."""
+    import numpy as np
+
+    from mia_tpu_torch.activelearning import sweep_pool
+    from mia_tpu_torch.ops.distance import pairwise_distances
+
+    cpu = torch.device("cpu")
+    pool, labeled = active.get_pool_dataset(), active.get_train_dataset()
+    metric = "l2" if key.endswith("l2") else "cosine"
+    if key in ("confidence", "margin"):
+        scores, _ = sweep_pool(pool, 12, lambda im: scorer.uncertainty(im, key), cpu)
+        s = np.sort(scores)[::-1]
+        return float((s[budget - 1] - s[budget]) / np.abs(s).max())
+    if key == "badge":
+        emb, _ = sweep_pool(pool, 8, scorer.badge_grad_embedding, cpu)
+        return kmeans_margin(torch, torch.from_numpy(emb), seed, budget)
+    feats_l = torch.from_numpy(sweep_pool(labeled, 12, scorer.enc_feature, cpu)[0])
+    feats_p = torch.from_numpy(sweep_pool(pool, 12, scorer.enc_feature, cpu)[0])
+    if key.startswith("coreset"):
+        dist = pairwise_distances(torch.cat([feats_l, feats_p]), metric=metric)
+        return kcenter_margin(torch, dist / dist.sum(), len(feats_l), budget)
+    z = [(f - f.mean(1, keepdim=True)) / f.std(1, keepdim=True, unbiased=False)
+         for f in (feats_p, feats_l)]
+    weight = pairwise_distances(z[0], z[1], metric).amin(1)
+    return kmeans_margin(torch, z[0], seed, budget, weight)
+
+
+def write_busi(root: Path, n_train=48, n_valid=8, size=(448, 560), seed=0):
+    """BUSI-layout PNGs as ``tests/synth_data.py::make_busi`` writes them:
+    noise images, random 0/1 labels, ``split.json`` (test = valid)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    ids = list(range(n_train + n_valid))
+    for i in ids:
+        Image.fromarray(rng.integers(0, 256, size).astype(np.uint8)).save(
+            root / "images" / f"{i:04}.png")
+        Image.fromarray(rng.integers(0, 2, size).astype(np.uint8)).save(
+            root / "labels" / f"{i:04}.png")
+    split = {"train": ids[:n_train], "valid": ids[n_train:], "test": ids[n_train:]}
+    (root / "split.json").write_text(json.dumps(split))
+
+
+def run_al(torch, argv, hooks=None):
+    """``al_train_torch``'s ``train_entry(argv)`` with each train step's K1
+    launches and each train loss recorded; ``hooks`` maps ALTrainer method
+    names to wrappers ``(orig) -> method`` for this run."""
+    from mia_tpu_torch.entry.activelearning.train import train_entry
+    from mia_tpu_torch.ops import warp
+    from mia_tpu_torch.training import ALTrainer
+
+    rec = {"k1": [], "losses": []}
+
+    def train_step(orig):
+        def step(self, batch):
+            before = warp.affine_warp_shift2pass_fused.launches
+            orig(self, batch)
+            rec["k1"].append(warp.affine_warp_shift2pass_fused.launches - before)
+        return step
+
+    def record_loss(orig):
+        def record(self, step_index, lr, loss):
+            rec["losses"].append(loss)
+            return orig(self, step_index, lr, loss)
+        return record
+
+    wrappers = {"train_step": train_step, "_record_train_loss": record_loss, **(hooks or {})}
+    originals = {name: getattr(ALTrainer, name) for name in wrappers}
+    for name, wrap in wrappers.items():
+        setattr(ALTrainer, name, wrap(originals[name]))
+    try:
+        trainer = train_entry(argv)
+        torch.cuda.synchronize()
+    finally:
+        for name, orig in originals.items():
+            setattr(ALTrainer, name, orig)
+    return trainer, rec
+
+
+def check_al_run(label, trainer, rec, rounds, sizes, iters):
+    """One K1 launch a train step, finite losses, each round's files and the
+    labeled set of each round."""
+    work = trainer.work_path
+    check(len(rec["k1"]) == len(rounds) * iters and all(k == 1 for k in rec["k1"]),
+          f"{label}: K1 launches per train step {rec['k1']}")
+    check(len(rec["losses"]) == len(rounds) * iters
+          and all(math.isfinite(x) for x in rec["losses"]), f"{label}: losses {rec['losses']}")
+    for r, size in zip(rounds, sizes):
+        for rel in ("data_list.json", "best_model/model.pth", "final_model/model.pth",
+                    "final_model/training_state.json", "final_model/opt_state.pth"):
+            check((work / f"round_{r}" / rel).is_file(), f"{label}: missing round_{r}/{rel}")
+        check((work / f"test_mean_round_{r}.csv").is_file(), f"{label}: no test CSV of round {r}")
+        got = len(json.loads((work / f"round_{r}/data_list.json").read_text())["labeled_image_idx"])
+        check(got == size, f"{label}: round {r} holds {got} labeled cases, expected {size}")
+
+
+def selector_phase(torch, device, workdir: Path, sl):
+    import numpy as np
+
+    from mia_tpu_torch.activelearning import SELECTORS, ModelScorer, kcenter_greedy, sweep_pool
+    from mia_tpu_torch.activelearning.selection import (kmeans_plusplus_from_draws,
+                                                        n_local_trials_for)
+    from mia_tpu_torch.models import UNet
+    from mia_tpu_torch.ops import warp
+    from mia_tpu_torch.ops.distance import pairwise_distances
+
+    budget, seed = 8, 1338
+    trainer = sl["trainer"]
+    active = trainer.active_dataset
+    pool, labeled = active.get_pool_dataset(), active.get_train_dataset()
+    cpu = torch.device("cpu")
+    cpu_model = UNet(trainer.model.cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    card = ModelScorer(trainer.model, device, normalize=True)
+    host = CachedScorer(torch, ModelScorer(cpu_model, cpu, normalize=True))
+
+    # (a) each selector on the card (its default TF32 convolutions: the time; float32:
+    # the picks) against the CPU
+    warp.affine_warp_shift2pass_fused.launches = 0
+    select_ms, differ = {}, []
+    tf32 = torch.backends.cudnn.allow_tf32
+    for key in NEW_SELECTORS:
+        selector = SELECTORS[key](batch_size=12 if key != "badge" else 8)
+        selector.select_next_batch(active, budget, card, seed=seed)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        selector.select_next_batch(active, budget, card, seed=seed)
+        torch.cuda.synchronize()
+        select_ms[key] = (time.perf_counter() - t0) * 1e3
+        try:
+            torch.backends.cudnn.allow_tf32 = False
+            got = selector.select_next_batch(active, budget, card, seed=seed)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        want = selector.select_next_batch(active, budget, host, seed=seed)
+        check(len(set(got)) == len(got) == budget and set(got) <= set(pool.image_idx),
+              f"{key}: picked {got} from the pool of {len(pool)}")
+        if got != want:
+            margin = decision_margin(torch, key, active, host, budget, seed)
+            check(margin <= SELECT_TOL, f"{key}: card picked {got}, CPU {want}, though the "
+                  f"closest decision is {margin:.3g} from a tie")
+            differ.append(f"{key} (closest decision {margin:.3g} from a tie)")
+    check(warp.affine_warp_shift2pass_fused.launches == 0, "selection launched K1")
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        holds = {}
+        for name, fn_card, fn_host, ds, bs in (
+                ("confidence", lambda im: card.uncertainty(im, "confidence"),
+                 lambda im: host.uncertainty(im, "confidence"), pool, 12),
+                ("margin", lambda im: card.uncertainty(im, "margin"),
+                 lambda im: host.uncertainty(im, "margin"), pool, 12),
+                ("enc_feature", card.enc_feature, host.enc_feature, pool, 12),
+                ("badge", card.badge_grad_embedding, host.badge_grad_embedding, pool, 8)):
+            got, names_card = sweep_pool(ds, bs, fn_card, device)
+            want, names_host = sweep_pool(ds, bs, fn_host, cpu)
+            check(names_card == names_host and got.shape == want.shape,
+                  f"{name}: the sweeps differ in shape or order")
+            scale = float(np.abs(want).max())
+            holds[name] = float(np.abs(got - want).max()) / scale
+            check(np.isfinite(got).all() and holds[name] <= SELECT_TOL,
+                  f"{name} on the card vs the CPU: {holds[name]:.3g} of max |value| {scale:.3g}")
+        feats = torch.from_numpy(np.concatenate([
+            sweep_pool(labeled, 12, host.enc_feature, cpu)[0],
+            sweep_pool(pool, 12, host.enc_feature, cpu)[0]]))
+        emb = torch.from_numpy(sweep_pool(pool, 8, host.badge_grad_embedding, cpu)[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # the selection algorithms on the same inputs: the same picks on both devices
+    dist = pairwise_distances(feats, metric="cosine")
+    init = torch.arange(len(feats)) < len(labeled)
+    for criteria in ("min", "mean"):
+        a = kcenter_greedy(dist, init, budget, criteria)
+        b = kcenter_greedy(dist.to(device), init.to(device), budget, criteria).cpu()
+        check(torch.equal(a, b), f"kcenter_greedy ({criteria}): CPU {a.tolist()}, card {b.tolist()}")
+    uniforms = torch.rand((budget - 1, n_local_trials_for(budget)),
+                          generator=torch.Generator().manual_seed(seed))
+    weight = dist[len(labeled):, :len(labeled)].amin(1)
+    for x, w in ((emb, None), (feats[len(labeled):], weight)):
+        a = kmeans_plusplus_from_draws(x, 3, uniforms, w)
+        b = kmeans_plusplus_from_draws(x.to(device), 3, uniforms,
+                                       None if w is None else w.to(device)).cpu()
+        check(torch.equal(a, b), f"k-means++ core: CPU {a.tolist()}, card {b.tolist()}")
+    print(f"selectors: card vs CPU (float32 convolutions) of max |value|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in holds.items())
+          + f" (limit {SELECT_TOL}); kcenter_greedy and the k-means++ core pick the same on "
+          f"both devices; picks equal on both devices for every selector"
+          + (f" but {', '.join(differ)}" if differ else ""))
+    print(f"selectors: selection ms on the card, pool {len(pool)}, labeled {len(labeled)}, "
+          f"budget {budget}, sweep included (TF32 convolutions): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in select_ms.items()))
+
+    # (b) through the entry point at full width, 256², batch 12
+    iters = 6
+
+    def al_argv(data, dataset, classes, work, selector, *extra):
+        return ["--work-path", str(workdir / work), "--data-path", str(data), "--device", "cuda",
+                "--dataset", dataset, "--in-channels", "3", "--num-classes", classes,
+                "--image-size", "256", "--batch-size", "12", "--valid-mode", "slice",
+                "--do-augment", "--do-normalize", "--lr-warmup-iter", "2", "--num-rounds", "2",
+                "--budget", str(budget), "--num-iters", str(iters), "--valid-freq-iter", "3",
+                "--do-oversample", "--quiet", "--active-selector", selector, *extra]
+
+    runs = {}
+
+    def timed_run(label, argv, hooks=None):
+        t0 = time.perf_counter()
+        out = run_al(torch, argv, hooks)
+        runs[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    warp.affine_warp_shift2pass_fused.launches = 0
+
+    badge_argv = al_argv(sl["data"], "fugc", "2", "sel_badge", "badge")
+    t_badge, rec = timed_run("badge", badge_argv)
+    check_al_run("badge", t_badge, rec, (0, 1), (budget, 2 * budget), iters)
+
+    # --resume from round 0's final model: round 1 runs again from the saved state
+    final = t_badge.work_path / "round_0" / "final_model"
+    saved = json.loads((final / "training_state.json").read_text())
+    saved_opt = torch.load(final / "opt_state.pth")
+    saved_model = torch.load(final / "model.pth")
+    restored = {}
+
+    def capture_resume(orig):
+        def load(self, path):
+            orig(self, path)
+            restored.update(round=self.current_round, iter=self.current_iter,
+                            count=self.state.optimizer.count,
+                            same=all(torch.equal(v.cpu(), saved_model[k])
+                                     for k, v in self.model.state_dict().items()))
+        return load
+
+    t_resume, rec = timed_run("--resume", badge_argv + ["--resume", str(final)],
+                              {"load_state_dict": capture_resume})
+    check(restored == {"round": saved["current_round"] + 1, "iter": saved["current_iter"] + 1,
+                       "count": saved_opt["count"], "same": True},
+          f"--resume restored {restored}; saved round {saved['current_round']}, iteration "
+          f"{saved['current_iter']}, optimizer count {saved_opt['count']}")
+    check_al_run("--resume", t_resume, rec, (1,), (2 * budget,), iters)
+
+    # --init-round-path from the slice phase's round 0: the run starts at round 1 with
+    # that round's best model (a failed load would only warn and train on)
+    round_0 = sl["work"] / "round_0"
+    best = UNet(trainer.model.cfg).to(device)
+    best.load_state_dict(torch.load(round_0 / "best_model" / "model.pth"))
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(2)).to(device)
+    first = []
+
+    def capture_start(orig):
+        def start(self):
+            if not first:
+                self.model.eval()
+                best.eval()
+                torch.backends.cudnn.allow_tf32 = False
+                try:
+                    with torch.no_grad():
+                        first.append((self.current_round, self.model(x), best(x)))
+                finally:
+                    torch.backends.cudnn.allow_tf32 = tf32
+            return orig(self)
+        return start
+
+    t_init, rec = timed_run("--init-round-path", al_argv(
+        sl["data"], "fugc", "2", "sel_init", "coreset-cosine", "--init-round-path", str(round_0)),
+        {"on_round_start": capture_start})
+    start_round, got, want = first[0]
+    err = (got - want).abs().max().item()
+    check(start_round == 1 and err <= 1e-5 * want.abs().max().item(),
+          f"--init-round-path: started at round {start_round}, first logits {err:.3g} from "
+          f"round 0's best model")
+    check(not (t_init.work_path / "round_0").exists(), "--init-round-path ran round 0")
+    round0_labeled = json.loads((round_0 / "data_list.json").read_text())["labeled_image_idx"]
+    check_al_run("--init-round-path", t_init, rec, (1,), (len(round0_labeled) + budget,), iters)
+
+    busi = workdir / "busi"
+    write_busi(busi)
+    t_busi, rec = timed_run("busi", al_argv(busi, "busi", "1", "sel_busi", "kmean-cosine"))
+    check(t_busi.model.decoder.seg_output.weight.shape[0] == 2, "BUSI: not two output classes")
+    check_al_run("busi", t_busi, rec, (0, 1), (budget, 2 * budget), iters)
+    launches = warp.affine_warp_shift2pass_fused.launches
+    header = (t_busi.work_path / "test_mean_round_1.csv").read_text().splitlines()[0]
+    check(header.startswith("all-DSC") and "tumor-DSC" in header, f"BUSI test CSV: {header}")
+    print(f"selectors: al_train_torch at 32..512, 256^2, batch 12, {iters} iterations a round: "
+          f"badge 2 rounds, --resume from round 0 at round {restored['round']} iteration "
+          f"{restored['iter']} (optimizer count {restored['count']}), --init-round-path "
+          f"(coreset-cosine) from round {start_round} with round 0's best model (first logits "
+          f"max |diff| {err:.3g}), BUSI 448x560 kmean-cosine 2 rounds; seconds {runs}; "
+          f"K1 launches {launches}, one a train step")
+    return {"launches": launches, "select_ms": select_ms, "holds": holds, "runs_s": runs,
+            "differ": differ}
+
 
 # ---------------------------------------------------------------------------
 # FUGC K-fold phase: fugc2025_train_torch, then fugc2025_predict_torch
@@ -1257,6 +1664,10 @@ def train_kernel_phase(torch, device):
             if label == "B=12":
                 out[name] = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b),
                              "plain_ms": min(plain_a, plain_b), **bound_and_library(name, k_args)}
+                if name == "K4b":  # a short kernel: its event time includes the dispatch
+                    out[name] = with_device_ms(torch, "K4b at ViT-B/512 training B=12",
+                                               lambda: kernel(*k_args),
+                                               "ln_window_partition_bwd_kernel", out[name], 10)
                 tc = (f", 3xTF32 tensor-core bound {out[name]['tc_bound_ms'] * 1e3:.2f} us"
                       if "tc_bound_ms" in out[name] else "")
                 print(f"{name} at ViT-B/512 training B=12: {describe_yardsticks(out[name])}{tc}")
@@ -1573,6 +1984,10 @@ def route_bwd_kernel_phase(torch, device):
                     out[name]["global_tokens"] = m
                 else:
                     out[name] = {"max_abs_err": worst[name][0], **m}
+                if name == "K9b":  # a short kernel: its event time includes the dispatch
+                    out[name] = with_device_ms(torch, "K9b at ViT-B/512 training B=12",
+                                               lambda: kernel(*k_args),
+                                               "unpartition_add_ln_bwd_kernel", out[name], 20)
         print(f"{name} within {BWD_TOL} of max |plain| on every case: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
               + ("; pad slots exactly zero" if name == "K9b" else "")
@@ -2728,6 +3143,8 @@ def main(argv=None) -> int:
                 **timed("K10, K10b", upsample_kernel_phase, torch, device)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = timed("AL slice", slice_phase, torch, Path(tmp))
+        sel = timed("AL selectors", selector_phase, torch, device, Path(tmp), sl)
+        del sl["trainer"]
         fugc = timed("FUGC K-fold", fugc_phase, torch, device, Path(tmp))
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
         route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
@@ -2743,7 +3160,7 @@ def main(argv=None) -> int:
     amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
     print(f"seconds by phase: build {build_s:.1f}, {seconds}")
     # each path ran with every count set to 0 just before it: K1 from the
-    # AL slice, K2-K4 forward from SAM serving, CPC-SAM training, the encoder
+    # AL slice and the selector phase's runs, K2-K4 forward from SAM serving, CPC-SAM training, the encoder
     # routes and AMG, the backward kernels of K2-K4 and K5 from CPC-SAM
     # training, K6-K9 from the encoder routes and, with K6b, K8b and K9b, from
     # route training, K8 from AMG on the grid-native encoder too; K1 also from the FUGC
@@ -2752,7 +3169,7 @@ def main(argv=None) -> int:
     launches = {k: sum(path["launches"].get(k, 0)
                        for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10))
                 for k in KERNELS}
-    launches["K1"] += sl["launches"]
+    launches["K1"] += sl["launches"] + sel["launches"]
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
@@ -2782,6 +3199,7 @@ def main(argv=None) -> int:
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
                         "routes": routes["set_image_ms"],
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
+                        "selectors": {k: v for k, v in sel.items() if k != "launches"},
                         "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
                         "route_training": route_train["routes"],
                         "fugc": {k: v for k, v in fugc.items() if k not in ("launches", "log")},

@@ -8,10 +8,13 @@ remove-cc / boundary-smooth of the object mask and the anterior-lip mask,
 posterior refilled``, as whole-tensor programs on the device under
 ``torch.inference_mode()``.
 
-Checkpoints are torch state dicts of the ``LegacyUNet`` with the reference
-``_UNet``'s names: ``fold_<i>/model.pth``, or the legacy
-``fold_<i>/checkpoint_best.pth`` (with or without a ``"model"`` key). A state
-dict of another model fails with the keys that differ.
+Checkpoints, first found of each fold: the JAX package's flax
+``fold_<i>/model.msgpack`` (read without flax, through
+``utils/flax_msgpack.py`` and ``legacy_unet_state_dict_from_flax``), then
+torch state dicts of the ``LegacyUNet`` with the reference ``_UNet``'s
+names: ``fold_<i>/model.pth``, or the legacy ``fold_<i>/checkpoint_best.pth``
+(with or without a ``"model"`` key). A checkpoint of another model fails
+with the keys that differ.
 
 ``--device`` defaults to ``cuda`` and raises when no card is present; pass
 ``--device cpu`` to run on the CPU.
@@ -82,16 +85,22 @@ class model:
         return self._fugc_denoise(mask[0])
 
     def load(self, path="./"):
+        from mia_tpu_torch.models.flax_bridge import legacy_unet_state_dict_from_flax
         from mia_tpu_torch.models.legacy_unet import LegacyUNet
         from mia_tpu_torch.models.torch_port import import_legacy_torch_checkpoint
+        from mia_tpu_torch.utils.flax_msgpack import read_flax_msgpack
 
         self.nets = []
         for fold in self.folds:
             base = Path(path) / f"fold_{fold}"
-            found = [p for p in (base / "model.pth", base / "checkpoint_best.pth") if p.is_file()]
+            found = [p for p in (base / "model.msgpack", base / "model.pth",
+                                 base / "checkpoint_best.pth") if p.is_file()]
             if not found:
                 raise FileNotFoundError(f"no checkpoint under {base}")
-            state = torch.load(found[0], map_location="cpu")
+            if found[0].suffix == ".msgpack":
+                state = legacy_unet_state_dict_from_flax(read_flax_msgpack(found[0]))
+            else:
+                state = torch.load(found[0], map_location="cpu")
             net = import_legacy_torch_checkpoint(state, LegacyUNet(self.net_config))
             self.nets.append(net.to(self.device, memory_format=torch.channels_last).eval())
         return self

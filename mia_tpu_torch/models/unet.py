@@ -215,7 +215,7 @@ class UNetDecoder(nn.Module):
         _lecun_normal_(self.seg_output.weight, down[-1])
         nn.init.zeros_(self.seg_output.bias)
 
-    def forward(self, skips, generator=None):
+    def forward(self, skips, generator=None, return_feature: bool = False):
         x = skips[-1]
         for l, (up, blocks) in enumerate(zip(self.upsamples, self.levels)):
             if isinstance(up, EinsumConvTranspose2x):  # channel-last in and out: views
@@ -225,11 +225,18 @@ class UNetDecoder(nn.Module):
             x = torch.cat([skips[-(l + 2)], x], dim=1)
             for block in blocks:
                 x = block(x, generator)
+        if return_feature:
+            return self.seg_output(x), x
         return self.seg_output(x)
 
 
 class UNet(nn.Module):
-    """``forward(x (B, H, W, C), generator=None) -> logits (B, H, W, K)``."""
+    """``forward(x (B, H, W, C), generator=None) -> logits (B, H, W, K)``.
+
+    Feature endpoints of the AL selectors: ``enc_feature`` (the bottleneck
+    averaged over space, ``(B, C)``) and ``pixel_feature`` (the logits and the
+    decoder's features before the seg head, both NHWC).
+    """
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -238,7 +245,16 @@ class UNet(nn.Module):
         self.encoder = UNetEncoder(cfg)
         self.decoder = UNetDecoder(cfg)
 
+    def _skips(self, x: torch.Tensor, generator):
+        return self.encoder(x.to(torch.float32).permute(0, 3, 1, 2), generator)
+
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
-        logits = self.decoder(self.encoder(x, generator), generator)
+        logits = self.decoder(self._skips(x, generator), generator)
         return logits.permute(0, 2, 3, 1)
+
+    def enc_feature(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        return self._skips(x, generator)[-1].mean((2, 3))
+
+    def pixel_feature(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        logits, feature = self.decoder(self._skips(x, generator), generator, return_feature=True)
+        return logits.permute(0, 2, 3, 1), feature.permute(0, 2, 3, 1)

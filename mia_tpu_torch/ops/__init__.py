@@ -1,4 +1,4 @@
-from .distance import binary_border, squared_edt, surface_distance_stats
+from .distance import binary_border, pairwise_distances, squared_edt, surface_distance_stats
 from .filters import gaussian_blur, simulate_low_res
 from .morphology import (
     dilate,
@@ -27,6 +27,7 @@ __all__ = [
     "fill_hole",
     "gaussian_blur",
     "gaussian_blur_threshold_smooth",
+    "pairwise_distances",
     "remove_cc",
     "remove_small_regions",
     "simulate_low_res",

@@ -1,8 +1,11 @@
-"""Exact Euclidean distance transform and surface distances, plain PyTorch.
+"""Pairwise distances, the exact Euclidean distance transform and surface
+distances, plain PyTorch.
 
-Counterpart of ``mia_tpu/ops/distance.py`` (``squared_edt``,
-``binary_border``, ``surface_distance_stats``), replacing scipy's EDT inside
-medpy's surface metrics. The EDT is separable: a nearest-feature pass along
+Counterpart of ``mia_tpu/ops/distance.py`` (``pairwise_distances``,
+``squared_edt``, ``binary_border``, ``surface_distance_stats``).
+``pairwise_distances`` gives the AL selectors sklearn's l2 / cosine / l1
+matrices through ``torch.matmul``; the EDT replaces scipy's inside medpy's
+surface metrics. The EDT is separable: a nearest-feature pass along
 the first axis (running max / min scans), then a dense min-plus with
 parabolic offsets along each other axis, chunked to bound memory.
 :func:`squared_edt_2d` runs the same passes over the last two axes of a
@@ -15,6 +18,27 @@ import torch
 
 _BIG = 1.0e12
 _MINPLUS_ELEMS = 1 << 24  # working-set bound of one min-plus chunk
+
+
+def pairwise_distances(
+    x: torch.Tensor, y: torch.Tensor | None = None, metric: str = "l2"
+) -> torch.Tensor:
+    """Dense (N, M) float32 distance matrix; ``metric`` in l2 / euclidean,
+    cosine, l1 / manhattan / cityblock."""
+    x = x.to(torch.float32)
+    y = x if y is None else y.to(torch.float32)
+    if metric in ("l2", "euclidean"):
+        x2 = (x * x).sum(1, keepdim=True)
+        y2 = (y * y).sum(1, keepdim=True)
+        d2 = x2 + y2.T - 2.0 * torch.matmul(x, y.T)
+        return torch.sqrt(d2.clamp_min(0.0))
+    if metric == "cosine":
+        xn = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1e-12)
+        yn = y / torch.linalg.vector_norm(y, dim=1, keepdim=True).clamp_min(1e-12)
+        return (1.0 - torch.matmul(xn, yn.T)).clamp(0.0, 2.0)
+    if metric in ("l1", "manhattan", "cityblock"):
+        return (x[:, None, :] - y[None, :, :]).abs().sum(-1)
+    raise ValueError(f"unknown metric: {metric}")
 
 
 def _nearest_feature_distance_1d(feature: torch.Tensor, spacing) -> torch.Tensor:

@@ -5,8 +5,11 @@ round loop with selector → extend → fresh weights → train → validate
 (best weights kept in memory) → final/best checkpoints → test. Directory
 layout ``work/round_i/{data_list.json, best_model/, iter_<n>_<metric>/,
 final_model/}``, the JSON config snapshot, sanity overlays and CSV test
-reports are the JAX package's. Checkpoints are torch state dicts
-(``model.pth``) with the reference UNet's parameter names.
+reports are the JAX package's. Checkpoints are written as torch state dicts
+(``model.pth``) with the reference UNet's parameter names; a ``model.pth``
+or ``.pt`` file and the JAX package's ``model.msgpack`` are read
+(``--model-ckpt``, ``--init-round-path``). ``--resume`` reads the port's own
+``model.pth``, ``training_state.json`` and ``opt_state.pth``.
 
 Device work per train iteration: uint8 batch → augmentation (with kernel
 K1) → z-score → UNet forward/backward → Dice+CE → clip → Adam, all eager
@@ -17,9 +20,9 @@ device with the per-case resize matrices as data.
 ``--postprocess-mask`` denoises every predicted class map
 (``models/processor.py``) before the metrics.
 
-Not ported: ``--resume``, ``--init-round-path``, wandb, mesh/multi-device,
-volume-mode validation, selectors other than random and entropy, the
-background pool-cache warmer.
+Every selector of the JAX package runs (``activelearning/selectors.py``),
+on FUGC and BUSI. Not ported: wandb, mesh/multi-device, volume-mode
+validation, the background pool-cache warmer, writing ``model.msgpack``.
 """
 
 from __future__ import annotations
@@ -41,12 +44,13 @@ from ..data import DATASETS, ActiveDataset, BatchLoader, ExtendableDataset, deco
 from ..device import resolve_device, set_compute_precision
 from ..losses import DiceAndCELoss
 from ..metrics import metric_percase
-from ..models import UNet, UNetConfig, UnetProcessor
+from ..models import UNet, UNetConfig, UnetProcessor, unet_state_dict_from_flax
 from ..models.torch_port import import_torch_unet_checkpoint
 from ..ops.resize import _resize_matrix
 from ..schedule import poly_warmup_schedule
 from ..transforms import get_train_transform, zscore_normalize
 from ..utils import add_file_sink, draw_mask, get_path, remove_sink, setup_logger
+from ..utils.flax_msgpack import read_flax_msgpack
 from .al_config import ALConfig
 from .base_trainer import BaseTrainer
 from .state import TrainState, make_optimizer
@@ -83,7 +87,7 @@ def _eval_matrices(h: int, w: int, mh: int, mw: int):
 
 
 class ALTrainer(BaseTrainer):
-    DATASET_KEYS = {"fugc": "fugc"}
+    DATASET_KEYS = {"fugc": "fugc", "busi": "busi"}
 
     def __init__(
         self,
@@ -109,14 +113,10 @@ class ALTrainer(BaseTrainer):
             self.config = ALConfig().load(config)
         else:
             self.config = ALConfig()
-        for flag, name in (
-            (resume, "--resume"),
-            (use_wandb, "--use-wandb"),
-            (self.config.init_round_path, "--init-round-path"),
-        ):
-            if flag:
-                raise NotImplementedError(f"{name} is not ported")
+        if use_wandb:
+            raise NotImplementedError("--use-wandb is not ported")
 
+        self.resume = resume
         self.device = resolve_device(device)
         set_compute_precision(self.config.compute_dtype)
         self.deterministic = deterministic
@@ -137,6 +137,7 @@ class ALTrainer(BaseTrainer):
         self.model = None
         self.state: TrainState | None = None
         self._best_state: dict | None = None
+        self._scorer: ModelScorer | None = None
 
     # ------------------------------------------------------------------
     # setup
@@ -263,11 +264,18 @@ class ALTrainer(BaseTrainer):
         self.load_model_checkpoint(ckpt)
 
     def load_model_checkpoint(self, ckpt: str | Path):
+        """Load a ``.pth``/``.pt`` state dict (the port's, or the reference
+        UNet's), a flax ``model.msgpack`` of the JAX package, or a directory
+        holding either (``model.pth`` first)."""
         ckpt = Path(ckpt)
         if ckpt.is_dir():
-            ckpt = ckpt / "model.pth"
+            ckpt = next((ckpt / n for n in ("model.pth", "model.msgpack")
+                         if (ckpt / n).is_file()), ckpt / "model.pth")
         try:
-            sd = torch.load(ckpt, map_location=self.device)
+            if ckpt.suffix in (".pth", ".pt"):
+                sd = torch.load(ckpt, map_location=self.device)
+            else:
+                sd = unet_state_dict_from_flax(read_flax_msgpack(ckpt))
             import_torch_unet_checkpoint(sd, self.model)
             self.logger.info(f"Loaded model checkpoint from {ckpt}")
         except Exception as e:  # the reference warns and trains on
@@ -283,7 +291,23 @@ class ALTrainer(BaseTrainer):
         }
 
     def load_state_dict(self, save_path: str | Path):
-        raise NotImplementedError("--resume is not ported")
+        """Resume from a checkpoint directory written with the training
+        state: the model, the optimizer's moments and count, the counters
+        (each offset by 1: a state is saved at the end of a step or round)
+        and the data list."""
+        save_path = get_path(save_path)
+        self.load_model_checkpoint(save_path)
+        ts_path = save_path / "training_state.json"
+        if ts_path.is_file():
+            ts = json.loads(ts_path.read_text())
+            opt_path = save_path / "opt_state.pth"
+            if opt_path.is_file():
+                self.state.optimizer.load_state_dict(torch.load(opt_path, map_location=self.device))
+                self.state.step = ts["current_iter"] + 1
+            self.current_epoch = ts["current_epoch"] + 1
+            self.current_iter = ts["current_iter"] + 1
+            self.current_round = ts["current_round"] + 1
+            self.active_dataset.load_data_list(ts["data_list"])
 
     def save_state_dict(
         self,
@@ -375,8 +399,20 @@ class ALTrainer(BaseTrainer):
     def _setup_active_selector(self):
         name = self.config.active_selector_name
         if name not in SELECTORS:
-            raise NotImplementedError(f"ActiveSelector {name} is not ported")
-        self.active_selector = SELECTORS[name](batch_size=self.config.batch_size)
+            raise ValueError(f"ActiveSelector {name} not found")
+        c = self.config
+        # BADGE sweeps in chunks of up to 8 images (the reference forces 1 as a
+        # memory workaround; the embedding of an image does not depend on its chunk)
+        self.active_selector = SELECTORS[name](
+            batch_size=c.batch_size if name != "badge" else max(1, min(8, c.batch_size)),
+            coreset_criteria=c.coreset_criteria,
+            coreset_fusion=c.coreset_fusion,
+            feature_path=c.feature_path,
+            loaded_feature_weight=c.loaded_feature_weight,
+            loaded_feature_only=c.loaded_feature_only,
+            sharp_factor=c.kmean_sharp_factor,
+            softmax=c.kmean_softmax,
+        )
 
     def _make_programs(self):
         self._recipe = get_train_transform(
@@ -429,8 +465,22 @@ class ALTrainer(BaseTrainer):
                     f"{self.config.save_metric_name} is not a valid save metric"
                 )
 
+        if self.resume is not None:
+            self.load_state_dict(self.resume)
+
         self._print_train_info()
         self._check_data_sanity()
+
+        if self.config.init_round_path:
+            # round 0 comes from an earlier run: its best model and data list
+            round_0 = get_path(self.config.init_round_path)
+            for name in ("model.msgpack", "model.pth"):
+                if (round_0 / "best_model" / name).is_file():
+                    self.load_model_checkpoint(round_0 / "best_model" / name)
+                    break
+            self.active_dataset.load_data_list(round_0 / "data_list.json")
+            self.perform_real_test()
+            self.current_round = 1
 
     def _print_train_info(self):
         config_path = (
@@ -470,21 +520,27 @@ class ALTrainer(BaseTrainer):
 
     def on_round_start(self):
         data_list_path = self.work_path / f"round_{self.current_round}/data_list.json"
+        # with --init-round-path, round 1 starts from the loaded round-0 model
+        from_previous_round = self.current_round > 1 or (
+            self.current_round == 1 and self.config.init_round_path is None
+        )
 
-        if self.current_round > 0:
+        if from_previous_round:
             self._restore_best(self.work_path / f"round_{self.current_round - 1}/best_model")
 
         if self.config.active_learning:
             if self.current_round == 0 and self.config.init_data_list:
                 self.active_dataset.load_data_list(self.config.init_data_list)
             else:
-                scorer = ModelScorer(
-                    self.model, self.device, normalize=self.config.do_normalize
-                )
+                if self._scorer is None:
+                    self._scorer = ModelScorer(
+                        self.model, self.device, normalize=self.config.do_normalize
+                    )
+                self._scorer.model = self.model
                 new_samples = self.active_selector.select_next_batch(
                     self.active_dataset,
                     self.config.budget,
-                    scorer,
+                    self._scorer,
                     seed=self.seed + self.current_round,
                 )
                 self.active_dataset.extend_train_set(new_samples)
@@ -496,7 +552,7 @@ class ALTrainer(BaseTrainer):
         # fresh weights per round unless persisted
         if self.current_round > 0:
             self._build_model(round_key=self.current_round)
-            if self.config.persist_model_weight:
+            if self.config.persist_model_weight and from_previous_round:
                 self._restore_best(
                     self.work_path / f"round_{self.current_round - 1}/best_model"
                 )
