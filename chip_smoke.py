@@ -90,11 +90,32 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    coreset-cosine (starts at round 1, first logits equal to round 0's best
    model's); ``--dataset busi --num-classes 1`` with kmean-cosine on 48/8
    synthetic 448x560 PNGs. Each run: one K1 launch a train step, finite
-   losses, the round files, the labeled set growing by the budget.
+   losses, the round files (``model.msgpack``; with the training state
+   ``opt_state.msgpack`` and ``training_state.json``, the JAX package's
+   files), the labeled set growing by the budget; ``--resume`` restores
+   every parameter and moment of those files with |diff| 0.
+   Demo and checkpoint phase: every ``best_model`` and ``final_model`` that
+   the slice run wrote holds, bit for bit, what its trainer held when it
+   wrote it (``model.msgpack``, ``opt_state.msgpack`` read back through
+   ``load_optax_state``). A grayscale ``al_train_torch`` run (one round of 6
+   iterations, 32..512) writes the ``model.msgpack`` that a card
+   ``DemoSession`` (``demo_serve_torch``: UNet 32..512, 3 classes, 256²)
+   loads: its class maps equal the trainer's model's on the same
+   preprocessed frames; then the session loop on 80 synthetic 480x640 PNGs
+   (16 labeled, 64 in the pool, budget 10, batch 4): ``active_select`` on
+   the specialist features, ``editor_value``, ``accept`` of two picks and
+   ``create_download_dataset`` (the zip holds exactly the accepted images
+   and masks). Card against CPU with float32 convolutions: the specialist
+   features within 1e-5 of max |feature|, the same 10 picks (or a differing
+   pick within 1e-4 of a tie), equal class maps except where the top-2
+   logits lie within 1e-4. Times ``predict_batch`` at batch 1, 16 and 64,
+   ``predict_pseudo_label`` on one 480x640 PNG and ``active_select``
+   (medians of 11 after a warm-up, TF32 convolutions); the demo launches no
+   hand kernel.
    FUGC K-fold phase: ``fugc2025_train_torch``'s ``train_entry`` on the same
    set with the entry's defaults (UNet 32..512, batch 32, adam with L2 decay
    0.1) at 256²: 2 folds of 8 iterations. Checks one K1 launch a step, the
-   no-leak splits, each fold's files and ``model.pth``, finite falling
+   no-leak splits, each fold's files and ``model.msgpack``, finite falling
    losses. Then the same trainer with ``einsum_upsample`` and the decoder's
    stages on ``use_kernel="always"`` and ``--postprocess-mask``: 4 K10 and 4
    K10b launches a step, and one loss and its gradients held against the
@@ -117,9 +138,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    runs of one phase-1 and one phase-2 step each: ``--use-contrastive-loss``
    (finite losses, loss3 non-zero exactly when a class holds two memory rows,
    the heads moved, frozen parameters bit-identical, a checkpoint with the
-   training state) and ``--use-adv-loss --resume`` from that checkpoint
-   (resumes at iteration 2 with the saved parameters, optimizer count and
-   memory; VAT loss positive).
+   training state: ``lora.msgpack``, ``training_state.json`` and
+   ``training_state.pth``) and ``--use-adv-loss --resume`` from that
+   checkpoint (resumes at iteration 2 with the saved parameters, optimizer
+   count and memory; VAT loss positive); a ``--test-only --lora-ckpt
+   lora.msgpack`` run restores that checkpoint bit for bit.
    Route-training phase: the trained CPC-SAM model with seeded rel-pos
    tables and, in its place, the encoder of each other route (K9 exit,
    grid-native by argument and by ``MIA_WINDOWED_ATTN=1``, head-major, no
@@ -588,9 +611,11 @@ def slice_phase(torch, workdir: Path):
     ]
 
     steps, losses, round_s, k1_in_steps, wire = [], [], [], [], set()
+    saved = {}  # best_model / final_model path → what the trainer held when it wrote it
     orig_step = ALTrainer.train_step
     orig_record = ALTrainer._record_train_loss
     orig_start, orig_end = ALTrainer.on_round_start, ALTrainer.on_round_end
+    orig_save = ALTrainer.save_state_dict
 
     def timed_step(self, batch_):
         torch.cuda.synchronize()
@@ -611,6 +636,16 @@ def slice_phase(torch, workdir: Path):
         self._smoke_t0 = time.perf_counter()
         return orig_start(self)
 
+    def save(self, save_path, save_training_state=False, model_state=None):
+        orig_save(self, save_path, save_training_state, model_state)
+        if Path(save_path).name in ("best_model", "final_model"):
+            state = self.model.state_dict() if model_state is None else model_state
+            opt = self.state.optimizer
+            saved[Path(save_path)] = (
+                {k: v.detach().cpu().clone() for k, v in state.items()},
+                (opt.count, [t.cpu().clone() for t in opt.mu], [t.cpu().clone() for t in opt.nu])
+                if save_training_state else None)
+
     def round_end(self):
         out = orig_end(self)
         torch.cuda.synchronize()
@@ -619,6 +654,7 @@ def slice_phase(torch, workdir: Path):
 
     ALTrainer.train_step, ALTrainer._record_train_loss = timed_step, record
     ALTrainer.on_round_start, ALTrainer.on_round_end = round_start, round_end
+    ALTrainer.save_state_dict = save
     try:
         warp.affine_warp_shift2pass_fused.launches = 0
         t0 = time.perf_counter()
@@ -629,6 +665,7 @@ def slice_phase(torch, workdir: Path):
     finally:
         ALTrainer.train_step, ALTrainer._record_train_loss = orig_step, orig_record
         ALTrainer.on_round_start, ALTrainer.on_round_end = orig_start, orig_end
+        ALTrainer.save_state_dict = orig_save
 
     work = trainer.work_path
     check(torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
@@ -640,7 +677,7 @@ def slice_phase(torch, workdir: Path):
     check(len(losses) == rounds * iters and all(math.isfinite(x) for x in losses),
           f"train losses not all finite: {losses}")
     for r in range(rounds):
-        for rel in ("data_list.json", "best_model/model.pth", "final_model/model.pth"):
+        for rel in ("data_list.json", "best_model/model.msgpack", "final_model/model.msgpack"):
             check((work / f"round_{r}" / rel).is_file(), f"missing round_{r}/{rel}")
         check((work / f"test_mean_round_{r}.csv").is_file(), f"missing test_mean_round_{r}.csv")
     dl = [json.loads((work / f"round_{r}/data_list.json").read_text()) for r in range(rounds)]
@@ -694,7 +731,7 @@ def slice_phase(torch, workdir: Path):
           f"UNet logits card vs CPU max |diff| {fp32_err:.3g} (float32), "
           f"{tf32_err:.3g} (TF32 convs), max |logit| {scale:.3g}")
     return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path(),
-            "trainer": trainer, "data": data, "work": work}
+            "trainer": trainer, "data": data, "work": work, "saved": saved}
 
 # ---------------------------------------------------------------------------
 # selector phase: every AL selector on the card against the CPU, then
@@ -880,12 +917,37 @@ def check_al_run(label, trainer, rec, rounds, sizes, iters):
     check(len(rec["losses"]) == len(rounds) * iters
           and all(math.isfinite(x) for x in rec["losses"]), f"{label}: losses {rec['losses']}")
     for r, size in zip(rounds, sizes):
-        for rel in ("data_list.json", "best_model/model.pth", "final_model/model.pth",
-                    "final_model/training_state.json", "final_model/opt_state.pth"):
+        for rel in ("data_list.json", "best_model/model.msgpack", "final_model/model.msgpack",
+                    "final_model/training_state.json", "final_model/opt_state.msgpack"):
             check((work / f"round_{r}" / rel).is_file(), f"{label}: missing round_{r}/{rel}")
         check((work / f"test_mean_round_{r}.csv").is_file(), f"{label}: no test CSV of round {r}")
         got = len(json.loads((work / f"round_{r}/data_list.json").read_text())["labeled_image_idx"])
         check(got == size, f"{label}: round {r} holds {got} labeled cases, expected {size}")
+
+
+def max_diff(torch, a, b) -> float:
+    """max |a - b| of two tensors (on any devices), 0.0 for empty ones."""
+    return (a.detach().cpu() - b.detach().cpu()).abs().max().item() if a.numel() else 0.0
+
+
+def read_al_checkpoint(torch, trainer, path: Path):
+    """An ``al_train_torch`` checkpoint directory read back: the state dict of
+    its ``model.msgpack`` and, when it holds one, an optimizer of ``trainer``'s
+    kind over a CPU UNet restored from its ``opt_state.msgpack`` (else None)."""
+    from mia_tpu_torch.models import UNet, unet_state_dict_from_flax
+    from mia_tpu_torch.training import load_optax_state, make_optimizer
+    from mia_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+    model_sd = unet_state_dict_from_flax(read_flax_msgpack(path / "model.msgpack"))
+    if not (path / "opt_state.msgpack").is_file():
+        return model_sd, None
+    config, opt = trainer.config, trainer.state.optimizer
+    model = UNet(trainer.model.cfg)
+    fresh = make_optimizer(config.optimizer_name, model.parameters(),
+                           opt.lr if opt.scheduled else config.start_lr, opt.grad_clip,
+                           **config.optimizer_kwargs)
+    load_optax_state(fresh, model, read_flax_msgpack(path / "opt_state.msgpack"))
+    return model_sd, fresh
 
 
 def selector_phase(torch, device, workdir: Path, sl):
@@ -1012,32 +1074,35 @@ def selector_phase(torch, device, workdir: Path, sl):
     # --resume from round 0's final model: round 1 runs again from the saved state
     final = t_badge.work_path / "round_0" / "final_model"
     saved = json.loads((final / "training_state.json").read_text())
-    saved_opt = torch.load(final / "opt_state.pth")
-    saved_model = torch.load(final / "model.pth")
+    saved_model, saved_opt = read_al_checkpoint(torch, t_badge, final)
     restored = {}
 
     def capture_resume(orig):
         def load(self, path):
             orig(self, path)
-            restored.update(round=self.current_round, iter=self.current_iter,
-                            count=self.state.optimizer.count,
-                            same=all(torch.equal(v.cpu(), saved_model[k])
-                                     for k, v in self.model.state_dict().items()))
+            opt = self.state.optimizer
+            restored.update(round=self.current_round, iter=self.current_iter, count=opt.count,
+                            diff=max(max_diff(torch, v, saved_model[k])
+                                     for k, v in self.model.state_dict().items()
+                                     if not k.endswith("num_batches_tracked")),
+                            moments_diff=max(max_diff(torch, a, b) for a, b in zip(
+                                opt.mu + opt.nu, saved_opt.mu + saved_opt.nu)))
         return load
 
     t_resume, rec = timed_run("--resume", badge_argv + ["--resume", str(final)],
                               {"load_state_dict": capture_resume})
     check(restored == {"round": saved["current_round"] + 1, "iter": saved["current_iter"] + 1,
-                       "count": saved_opt["count"], "same": True},
-          f"--resume restored {restored}; saved round {saved['current_round']}, iteration "
-          f"{saved['current_iter']}, optimizer count {saved_opt['count']}")
+                       "count": saved_opt.count, "diff": 0.0, "moments_diff": 0.0},
+          f"--resume from opt_state.msgpack restored {restored}; saved round "
+          f"{saved['current_round']}, iteration {saved['current_iter']}, optimizer count "
+          f"{saved_opt.count}")
     check_al_run("--resume", t_resume, rec, (1,), (2 * budget,), iters)
 
     # --init-round-path from the slice phase's round 0: the run starts at round 1 with
     # that round's best model (a failed load would only warn and train on)
     round_0 = sl["work"] / "round_0"
     best = UNet(trainer.model.cfg).to(device)
-    best.load_state_dict(torch.load(round_0 / "best_model" / "model.pth"))
+    best.load_state_dict(read_al_checkpoint(torch, trainer, round_0 / "best_model")[0])
     x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(2)).to(device)
     first = []
 
@@ -1077,12 +1142,254 @@ def selector_phase(torch, device, workdir: Path, sl):
     check(header.startswith("all-DSC") and "tumor-DSC" in header, f"BUSI test CSV: {header}")
     print(f"selectors: al_train_torch at 32..512, 256^2, batch 12, {iters} iterations a round: "
           f"badge 2 rounds, --resume from round 0 at round {restored['round']} iteration "
-          f"{restored['iter']} (optimizer count {restored['count']}), --init-round-path "
+          f"{restored['iter']} (optimizer count {restored['count']}; every parameter and "
+          f"moment |diff| 0 from model.msgpack and opt_state.msgpack), --init-round-path "
           f"(coreset-cosine) from round {start_round} with round 0's best model (first logits "
           f"max |diff| {err:.3g}), BUSI 448x560 kmean-cosine 2 rounds; seconds {runs}; "
           f"K1 launches {launches}, one a train step")
     return {"launches": launches, "select_ms": select_ms, "holds": holds, "runs_s": runs,
             "differ": differ}
+
+
+# ---------------------------------------------------------------------------
+# demo and checkpoint phase: the files the AL trainer wrote, then demo_serve_torch
+# serving a model.msgpack of al_train_torch
+# ---------------------------------------------------------------------------
+
+DEMO_GAP = 1e-4  # card (float32 convolutions) vs CPU: a class may differ below this top-2 gap
+DEMO_FEATURE_TOL = 1e-5  # specialist features, of the largest |feature|
+DEMO_RUNS = 11
+
+
+def same_tree(a, b) -> bool:
+    """Two flax state dicts with the same keys, dtypes and bits."""
+    import numpy as np
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def write_frames(root: Path, n, size=(480, 640), seed=0):
+    """Grayscale frames with two lip-like ellipses, as the demo's users send them."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    hh, ww = size
+    yy, xx = np.mgrid[0:hh, 0:ww]
+    paths = []
+    for i in range(n):
+        image = 60.0 + rng.normal(0.0, 20.0, size)
+        for level in (70.0, 140.0):
+            cy, cx = rng.uniform(0.25, 0.75) * hh, rng.uniform(0.25, 0.75) * ww
+            ry, rx = rng.uniform(0.05, 0.15) * hh, rng.uniform(0.05, 0.15) * ww
+            image[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] += level
+        paths.append(str(root / f"frame_{i:03d}.png"))
+        Image.fromarray(np.clip(image, 0, 255).astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def demo_phase(torch, device, workdir: Path, sl):
+    import zipfile
+
+    import numpy as np
+    from PIL import Image
+
+    from mia_tpu_torch.activelearning import KMeanSelector, ModelScorer
+    from mia_tpu_torch.data import ImageDataset
+    from mia_tpu_torch.entry.demo.serve import (CLASS_COLOR_MAP, DemoSession, hex_to_rgb,
+                                                specialist_feature_provider)
+    from mia_tpu_torch.models import unet_state_dict_to_flax
+    from mia_tpu_torch.ops.distance import pairwise_distances
+    from mia_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+    # (a) the slice run's best_model and final_model files against what its trainer held
+    # when it wrote them, bit for bit
+    slice_trainer = sl["trainer"]
+    for path, (model_sd, opt) in sorted(sl["saved"].items()):
+        names = {"model.msgpack"} | ({"opt_state.msgpack", "training_state.json"} if opt else set())
+        label = f"{path.parent.name}/{path.name}"
+        check({q.name for q in path.iterdir()} == names,
+              f"{label} holds {sorted(q.name for q in path.iterdir())}, expected {sorted(names)}")
+        check(same_tree(read_flax_msgpack(path / "model.msgpack"), unet_state_dict_to_flax(model_sd)),
+              f"{label}/model.msgpack differs from the weights the trainer held")
+        if opt:
+            _, read = read_al_checkpoint(torch, slice_trainer, path)
+            check(read.count == opt[0] and all(torch.equal(a, b) for a, b in zip(
+                read.mu + read.nu, opt[1] + opt[2])) and len(read.mu) == len(opt[1]),
+                f"{label}/opt_state.msgpack differs from the optimizer the trainer held")
+            state = json.loads((path / "training_state.json").read_text())
+            check(set(state) == {"current_iter", "current_epoch", "current_round", "data_list"},
+                  f"{label}/training_state.json keys {sorted(state)}")
+    checked = sorted(f"{q.parent.name}/{q.name}" for q in sl["saved"])
+
+    # a grayscale specialist for the demo (its UNet takes one channel): al_train_torch at
+    # full width, one round, without z-scoring (the demo feeds the model x / 255)
+    counts = counters()
+    for fn in counts.values():
+        fn.launches = 0
+    iters = 6
+    al, rec = run_al(torch, [
+        "--work-path", str(workdir / "demo_al"), "--data-path", str(sl["data"]),
+        "--device", "cuda", "--dataset", "fugc", "--in-channels", "1", "--num-classes", "2",
+        "--image-size", "256", "--batch-size", "12", "--valid-mode", "slice", "--do-augment",
+        "--lr-warmup-iter", "2", "--num-rounds", "1", "--budget", "12", "--num-iters",
+        str(iters), "--valid-freq-iter", "3", "--do-oversample", "--quiet",
+        "--active-selector", "entropy"])
+    check_al_run("grayscale specialist", al, rec, (0,), (12,), iters)
+    launches = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    ckpt = al.work_path / "round_0" / "best_model" / "model.msgpack"
+
+    # (c) the card session serves that model.msgpack: its class maps are the trainer's
+    paths = write_frames(workdir / "demo_frames", 80)
+    train_paths, pool_paths = paths[:16], paths[16:]
+    for fn in counts.values():
+        fn.launches = 0
+    session = DemoSession(data_dir=workdir / "demo_card", budget=10, batch_size=4,
+                          model_ckpt=ckpt, device="cuda")
+    check(session.device.type == "cuda" and next(session.model.parameters()).is_cuda
+          and session.model.encoder.levels[4][1].all[0].weight.shape[0] == 512
+          and session.model.decoder.seg_output.weight.shape[0] == 3,
+          "the demo's UNet is not the 32..512, 3-class model on CUDA")
+    frames = np.stack([np.asarray(Image.open(q), np.float32)[..., None] / 255.0
+                       for q in paths[:8]])
+    x = session.processor.preprocess(torch.from_numpy(frames).to(device))
+    held = {k: v for k, v in al.model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    check(all(torch.equal(v, session.model.state_dict()[k]) for k, v in held.items()),
+          "the session's weights differ from the trainer's model's")
+    al.model.eval()
+    with torch.no_grad():
+        want = al.model(x).argmax(-1).to(torch.int32)
+    got = session._predict(x)
+    check(x.shape == (8, 256, 256, 1) and torch.equal(got, want),
+          f"the session's class maps differ from the trainer's model's at "
+          f"{int((got != want).sum())} pixels")
+    served_classes = sorted(torch.unique(got).tolist())
+
+    # (d) card against CPU, float32 convolutions: features, picks, class maps
+    cpu_session = DemoSession(data_dir=workdir / "demo_cpu", budget=10, batch_size=4,
+                              model_ckpt=ckpt, device="cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        feats = {}
+        for key, s in (("card", session), ("cpu", cpu_session)):
+            provider = specialist_feature_provider(s.model, s.device, s.batch_size)
+            feats[key] = {}
+            for group in (train_paths, pool_paths):
+                feats[key].update(provider(ImageDataset(group, image_channels=1, image_size=256)))
+        scale = max(float(np.abs(v).max()) for v in feats["cpu"].values())
+        feature_err = max(float(np.abs(feats["card"][k] - feats["cpu"][k]).max())
+                          for k in feats["cpu"]) / scale
+        check(list(feats["card"]) == list(feats["cpu"]) == paths
+              and feature_err <= DEMO_FEATURE_TOL,
+              f"specialist features card vs CPU: {feature_err:.3g} of max |feature|")
+        picks = {}
+        for key, s in (("card", session), ("cpu", cpu_session)):
+            s.train_set, s.pool_set = train_paths, pool_paths
+            s.feature_provider = lambda ds, f=feats["cpu"]: {n: f[n] for n in ds.case_names()}
+            picks[key] = [str(q) for q in s.active_select()]
+        pick_margin = None
+        if picks["card"] != picks["cpu"]:
+            # how far the CPU's k-means++ picks are from a flip, on the features it picked from
+            sel = KMeanSelector(batch_size=4, metric="l2", feature_dict=cpu_session.feature_dict)
+            cpu = torch.device("cpu")
+            scorer = ModelScorer(cpu_session.model, cpu)
+            pool_f, _ = sel._get_features(ImageDataset(pool_paths, image_channels=1,
+                                                       image_size=256), scorer, cpu)
+            train_f, _ = sel._get_features(ImageDataset(train_paths, image_channels=1,
+                                                        image_size=256), scorer, cpu)
+            weight = pairwise_distances(pool_f, train_f, "l2").amin(1)
+            pick_margin = kmeans_margin(torch, pool_f, 0, 10, weight)
+            check(pick_margin <= SELECT_TOL, f"demo picks: card {picks['card']}, CPU "
+                  f"{picks['cpu']}, though the closest decision is {pick_margin:.3g} from a tie")
+        batch = frames[:4]
+        card_maps = session.predict_batch(batch)
+        cpu_maps = cpu_session.predict_batch(batch)
+        cpu_x = cpu_session.processor.preprocess(torch.from_numpy(batch))
+        with torch.no_grad():
+            top2 = torch.topk(cpu_session.model(cpu_x), 2, dim=-1).values
+        near_tie = (top2[..., 0] - top2[..., 1] < DEMO_GAP).numpy()
+        differ = card_maps != cpu_maps
+        check(card_maps.shape == (4, 256, 256) and not differ[~near_tie].any(),
+              f"class maps card vs CPU differ at {int(differ[~near_tie].sum())} pixels whose "
+              f"top-2 logits lie {DEMO_GAP} apart or more")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(len(set(picks["card"])) == 10 and set(picks["card"]) <= set(pool_paths),
+          f"the session picked {picks['card']}")
+
+    # the session loop on the card at its default TF32 convolutions: select, edit, accept
+    # two picks, download
+    session.feature_dict, session.feature_provider = None, None  # the specialist features
+    session.train_set, session.pool_set = train_paths, pool_paths
+    selected = [str(q) for q in session.active_select()]
+    check(len(set(selected)) == 10 and set(selected) <= set(pool_paths),
+          f"active_select picked {selected}")
+    accepted = {}
+    for k, pick in enumerate(selected[:2]):
+        value = session.editor_value(pick)
+        check(value["background"].shape == value["layers"][0].shape == (480, 640, 4),
+              "editor value malformed")
+        layer = np.zeros((480, 640, 4), np.uint8)
+        layer[100 + k:180, 200:320] = hex_to_rgb(CLASS_COLOR_MAP[1]) + [255]
+        layer[300:380, 350 + k:500] = hex_to_rgb(CLASS_COLOR_MAP[2]) + [255]
+        entry = session.accept(pick, value["background"], layer)
+        check(int((entry["mask"] == 1).sum()) == (80 - k) * 120
+              and int((entry["mask"] == 2).sum()) == 80 * (150 - k), "accepted mask malformed")
+        accepted[Path(pick).stem] = (value["background"], entry["mask"])
+    check(len(session.selected_set) == 8, "accept left the picks in the selected set")
+    zip_path = session.create_download_dataset()
+    with zipfile.ZipFile(zip_path) as archive:
+        names = sorted(archive.namelist())
+        check(names == sorted(f"{d}/{stem}.png" for d in ("images", "labels") for stem in accepted),
+              f"the zip holds {names}")
+        for stem, (background, mask) in accepted.items():
+            with archive.open(f"images/{stem}.png") as f:
+                image_ok = np.array_equal(np.asarray(Image.open(f)), background)
+            with archive.open(f"labels/{stem}.png") as f:
+                mask_ok = np.array_equal(np.asarray(Image.open(f)), mask)
+            check(image_ok and mask_ok, f"the zip's {stem}.png differs from what was accepted")
+
+    # (e) the endpoint's times on the card (TF32 convolutions): medians after a warm-up
+    rng = np.random.default_rng(5)
+    times = {}
+    for n in (1, 16, 64):
+        batch = rng.random((n, 480, 640, 1)).astype(np.float32)
+        times[f"predict_batch_{n}_ms"] = median_s(
+            lambda b=batch: session.predict_batch(b), torch, DEMO_RUNS) * 1e3
+    frame = Image.open(paths[0])
+    times["predict_pseudo_label_ms"] = median_s(
+        lambda: session.predict_pseudo_label(frame), torch, DEMO_RUNS) * 1e3
+    times["active_select_ms"] = median_s(session.active_select, torch, DEMO_RUNS, warmup=1) * 1e3
+    demo_launches = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    check(not demo_launches, f"the demo path launched hand kernels: {demo_launches}")
+
+    print(f"demo: checkpoint files of the AL slice equal what its trainer held, bit for bit: "
+          f"{', '.join(checked)} (model.msgpack; opt_state.msgpack and training_state.json "
+          f"with the training state)")
+    print(f"demo: DemoSession (UNet 32..512, 3 classes, 256^2) on the card served "
+          f"round_0/best_model/model.msgpack of a grayscale al_train_torch run ({iters} "
+          f"iterations); "
+          f"class maps equal the trainer's model's on 8 preprocessed 480x640 frames "
+          f"(classes {served_classes}); picks {len(selected)} of {len(pool_paths)} "
+          f"({len(train_paths)} labeled), accepted 2, zip of {len(names)} PNGs as accepted")
+    print(f"demo: card vs CPU (float32 convolutions): specialist features {feature_err:.3g} of "
+          f"max |feature| (limit {DEMO_FEATURE_TOL}); picks "
+          + ("equal" if pick_margin is None else f"differ (closest decision {pick_margin:.3g} "
+             "from a tie)")
+          + f"; class maps equal but at {int(differ.sum())} pixels within {DEMO_GAP} of a tie "
+          f"({int(near_tie.sum())} such pixels)")
+    print("demo: ms on the card (TF32 convolutions, median of "
+          f"{DEMO_RUNS} after a warm-up, host arrays in, class maps out): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + "; no hand kernel launched by the demo")
+    return {"launches": launches, "times_ms": times, "feature_err": feature_err,
+            "picks_equal": pick_margin is None, "checked": checked}
 
 
 # ---------------------------------------------------------------------------
@@ -1192,11 +1499,13 @@ def fugc_phase(torch, device, workdir: Path):
     splits = trainer._get_split_dicts(trainer.get_dataset("train").case_names())
     for f in range(folds):
         base = work / f"fold_{f}"
-        for rel in ("model.pth", "round_0/best_model/model.pth", "round_0/final_model/model.pth",
-                    "round_0/data_list.json", "test_mean_round_0.csv"):
+        for rel in ("model.msgpack", "round_0/best_model/model.msgpack",
+                    "round_0/final_model/model.msgpack", "round_0/data_list.json",
+                    "test_mean_round_0.csv"):
             check((base / rel).is_file(), f"missing fold_{f}/{rel}")
-        check((base / "model.pth").read_bytes() == (base / "round_0/best_model/model.pth").read_bytes(),
-              f"fold_{f}/model.pth is not the fold's best checkpoint")
+        check((base / "model.msgpack").read_bytes()
+              == (base / "round_0/best_model/model.msgpack").read_bytes(),
+              f"fold_{f}/model.msgpack is not the fold's best checkpoint")
         labeled = set(json.loads((base / "round_0/data_list.json").read_text())["labeled_image_idx"])
         check(labeled == set(splits[f]["train"]) and not labeled & set(splits[f]["valid"])
               and len(splits[f]["valid"]) == 9 and len(labeled) == 39,
@@ -1217,7 +1526,8 @@ def fugc_phase(torch, device, workdir: Path):
     # 2 validations of 9 held-out slices and the real test's 8, one slice a batch
     check(len(denoised) == 2 * 9 + 8 and all(len(shape) == 3 for shape in denoised),
           f"--postprocess-mask denoised {len(denoised)} predictions")
-    check((kernel_trainer.work_path / "fold_0/model.pth").is_file(), "kernel decoder: no fold_0/model.pth")
+    check((kernel_trainer.work_path / "fold_0/model.msgpack").is_file(),
+          "kernel decoder: no fold_0/model.msgpack")
 
     # one loss and its gradients through the kernel decoder against the default decoder
     # (nn.ConvTranspose2d) from the same weights: in full float32 (the math) and with the
@@ -2847,7 +3157,7 @@ def cpcsam_phase(torch, device, workdir: Path):
     check(all(p.device.type == "cuda" for p in model.parameters()), "SamDualmask not on CUDA")
     check_cpcsam_steps(torch, trainer, rec, [1] * warmup + [2] * (iters - warmup), ())
     work = trainer.work_path
-    for rel in ("best_model/lora.pth", "final_model/lora.pth", "test_mean.csv"):
+    for rel in ("best_model/lora.msgpack", "final_model/lora.msgpack", "test_mean.csv"):
         check((work / rel).is_file(), f"missing {rel}")
     rows = (work / "test_mean.csv").read_text().splitlines()
     check(len(rows) == 4 and rows[0].startswith("class,DSC"), "test_mean.csv malformed")
@@ -2906,9 +3216,24 @@ def cpcsam_phase(torch, device, workdir: Path):
     check(any(n.startswith(selectors) and not torch.equal(p.detach(), rec_a["snap"][n])
               for n, p in tr_a.model.named_parameters()), "no class selector moved")
     ckpt = tr_a.work_path / "final_model"
-    for rel in ("lora.pth", "training_state.json", "training_state.pth"):
+    for rel in ("lora.msgpack", "training_state.json", "training_state.pth"):
         check((ckpt / rel).is_file(), f"missing final_model/{rel}")
     aux["contrastive"] = rec_a
+
+    # cpcsam_train_torch --lora-ckpt final_model/lora.msgpack: the adapters and every entry
+    # outside the frozen encoder as run A held them, bit for bit (a test-only run)
+    from mia_tpu_torch.models.sam.lora import lora_state_dict, read_lora_checkpoint
+
+    tr_t, _ = run_cpcsam(torch, device, datasets, common + [
+        "--work-path", str(workdir / "work_lora"), "--test-only",
+        "--lora-ckpt", str(ckpt / "lora.msgpack")])
+    held, on_disk = lora_state_dict(tr_a.model), read_lora_checkpoint(ckpt / "lora.msgpack")
+    loaded = lora_state_dict(tr_t.model)
+    check(set(loaded) == set(held) == set(on_disk)
+          and all(torch.equal(loaded[k], held[k]) and torch.equal(on_disk[k], held[k])
+                  for k in held),
+          "--lora-ckpt lora.msgpack did not restore run A's LoRA checkpoint bit for bit")
+    check(sum("lora_" in k for k in held) == 48, "lora.msgpack does not hold the 48 LoRA tensors")
 
     argv_b = common + no_valid + ["--work-path", str(workdir / "work_adv"), "--use-adv-loss",
                                   "--resume", str(ckpt), "--warmup-iter", "3", "--min-iter", "4",
@@ -2933,7 +3258,8 @@ def cpcsam_phase(torch, device, workdir: Path):
                                          if name == "contrastive" else ""))
     print("cpcsam: the contrastive run moved its heads and the LoRA tensors, the VAT run resumed "
           "from its checkpoint at iteration 2 (parameters, optimizer count, memory); frozen "
-          "encoder bit-identical in both")
+          f"encoder bit-identical in both; --test-only --lora-ckpt lora.msgpack restored its "
+          f"{len(held)} entries bit for bit")
     return {"launches": launches, "phase1_step_ms": med[1], "phase2_step_ms": med[2],
             "max_memory_allocated": peak, "log": work / "log.txt",
             "card_vs_cpu": {m: list(v) for m, v in errs.items()},
@@ -3144,7 +3470,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = timed("AL slice", slice_phase, torch, Path(tmp))
         sel = timed("AL selectors", selector_phase, torch, device, Path(tmp), sl)
-        del sl["trainer"]
+        demo = timed("demo and checkpoints", demo_phase, torch, device, Path(tmp), sl)
+        del sl["trainer"], sl["saved"]
         fugc = timed("FUGC K-fold", fugc_phase, torch, device, Path(tmp))
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
         route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
@@ -3160,14 +3487,15 @@ def main(argv=None) -> int:
     amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
     print(f"seconds by phase: build {build_s:.1f}, {seconds}")
     # each path ran with every count set to 0 just before it: K1 from the
-    # AL slice and the selector phase's runs, K2-K4 forward from SAM serving, CPC-SAM training, the encoder
+    # AL slice, the selector phase's runs and the demo phase's grayscale run (the demo
+    # itself launches none), K2-K4 forward from SAM serving, CPC-SAM training, the encoder
     # routes and AMG, the backward kernels of K2-K4 and K5 from CPC-SAM
     # training, K6-K9 from the encoder routes and, with K6b, K8b and K9b, from
     # route training, K8 from AMG on the grid-native encoder too; K1 also from the FUGC
     # K-fold trainer, K10 and K10b from that trainer with the decoder's option on, from
     # route training (the prompt-large upscalers) and K10 from SAM serving
     launches = {k: sum(path["launches"].get(k, 0)
-                       for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10))
+                       for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10, demo))
                 for k in KERNELS}
     launches["K1"] += sl["launches"] + sel["launches"]
     for k in KERNELS:
@@ -3200,6 +3528,7 @@ def main(argv=None) -> int:
                         "routes": routes["set_image_ms"],
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "selectors": {k: v for k, v in sel.items() if k != "launches"},
+                        "demo": {k: v for k, v in demo.items() if k != "launches"},
                         "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
                         "route_training": route_train["routes"],
                         "fugc": {k: v for k, v in fugc.items() if k not in ("launches", "log")},

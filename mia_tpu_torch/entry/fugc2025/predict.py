@@ -98,7 +98,11 @@ class model:
             if not found:
                 raise FileNotFoundError(f"no checkpoint under {base}")
             if found[0].suffix == ".msgpack":
-                state = legacy_unet_state_dict_from_flax(read_flax_msgpack(found[0]))
+                tree = read_flax_msgpack(found[0])
+                if "inc" not in tree.get("params", {}):
+                    raise ValueError(f"{found[0]} is not a state dict of LegacyUNet: its params "
+                                     f"hold {sorted(tree.get('params', {}))[:3]}, not 'inc'")
+                state = legacy_unet_state_dict_from_flax(tree)
             else:
                 state = torch.load(found[0], map_location="cpu")
             net = import_legacy_torch_checkpoint(state, LegacyUNet(self.net_config))

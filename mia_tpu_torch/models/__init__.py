@@ -1,4 +1,9 @@
-from .flax_bridge import legacy_unet_state_dict_from_flax, unet_state_dict_from_flax
+from .flax_bridge import (
+    legacy_unet_state_dict_from_flax,
+    legacy_unet_state_dict_to_flax,
+    unet_state_dict_from_flax,
+    unet_state_dict_to_flax,
+)
 from .legacy_unet import LegacyUNet, LegacyUNetConfig
 from .processor import UnetProcessor
 from .torch_port import import_legacy_torch_checkpoint, import_torch_unet_checkpoint
@@ -14,5 +19,7 @@ __all__ = [
     "import_legacy_torch_checkpoint",
     "import_torch_unet_checkpoint",
     "legacy_unet_state_dict_from_flax",
+    "legacy_unet_state_dict_to_flax",
     "unet_state_dict_from_flax",
+    "unet_state_dict_to_flax",
 ]

@@ -1,5 +1,6 @@
-"""Weight bridge flax → torch: the inverse of ``mia_tpu/models/torch_port.py``
-and of ``import_legacy_torch_checkpoint`` (``mia_tpu/models/legacy_unet.py``).
+"""Weight bridge between flax and torch: the inverse of
+``mia_tpu/models/torch_port.py`` and of ``import_legacy_torch_checkpoint``
+(``mia_tpu/models/legacy_unet.py``), and its own inverse.
 
 ``unet_state_dict_from_flax(variables)`` turns the JAX UNet's variables
 (numpy arrays) into a state dict with the reference PyTorch parameter
@@ -17,6 +18,14 @@ reference's own UNet:
 ``LegacyUNet`` (``inc``, ``downs_{i}``, ``up_tconv{i}``, ``up_convs_{i}``,
 ``outc``) with the reference ``_UNet``'s names; a bilinear model has no
 ``up{i}.up`` entries.
+
+``unet_state_dict_to_flax(sd)`` and ``legacy_unet_state_dict_to_flax(sd)``
+go the other way, to the ``{"params", "batch_stats"}`` tree that the JAX
+package writes to ``model.msgpack``: every transpose and tap flip undone,
+BN running statistics copied as they are (``FlaxBatchNorm2d`` keeps flax's
+biased variance), ``num_batches_tracked`` dropped. A state dict without
+running statistics (an optimizer's moments) gives ``{"params"}`` alone.
+Flax → torch → flax gives back every leaf bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +38,11 @@ import torch
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    """A C-order numpy copy (never a view of the tensor's memory)."""
+    return np.array(t.detach().cpu().numpy(), order="C", copy=True)
 
 
 def _block(sd: dict, prefix: str, params: Mapping, stats: Mapping | None) -> None:
@@ -98,3 +112,82 @@ def legacy_unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, 
         sd["outc.conv.weight"] = _t(np.asarray(params["outc"]["kernel"]).transpose(3, 2, 0, 1))
         sd["outc.conv.bias"] = _t(params["outc"]["bias"])
     return sd
+
+
+# --- torch → flax -----------------------------------------------------------------
+
+
+def _conv_kernel(w: torch.Tensor) -> np.ndarray:
+    """OIHW weight → HWIO kernel."""
+    return _n(w.permute(2, 3, 1, 0))
+
+
+def _tconv_kernel(w: torch.Tensor) -> np.ndarray:
+    """Transposed-conv weight ``(I, O, kh, kw)`` → flax kernel ``(kh, kw, I, O)``,
+    taps flipped back."""
+    return _n(w.permute(2, 3, 0, 1).flip(0, 1))
+
+
+def _tree(params: dict, stats: dict) -> dict:
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def _block_to_flax(sd: Mapping, prefix: str, params: dict, stats: dict, name: str) -> None:
+    params[name] = {
+        "conv": {"kernel": _conv_kernel(sd[f"{prefix}.all.0.weight"]),
+                 "bias": _n(sd[f"{prefix}.all.0.bias"])},
+        "norm": {"scale": _n(sd[f"{prefix}.all.2.weight"]), "bias": _n(sd[f"{prefix}.all.2.bias"])},
+    }
+    if f"{prefix}.all.2.running_mean" in sd:
+        stats[name] = {"norm": {"mean": _n(sd[f"{prefix}.all.2.running_mean"]),
+                                "var": _n(sd[f"{prefix}.all.2.running_var"])}}
+
+
+def unet_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Reference-named UNet state dict → flax ``{"params", "batch_stats"}``."""
+    num_levels = sum(1 for k in sd
+                     if k.startswith("encoder.levels.") and k.endswith(".0.all.0.weight"))
+    enc, dec, enc_stats, dec_stats = {}, {}, {}, {}
+    for level in range(num_levels):
+        for b in range(2):
+            _block_to_flax(sd, f"encoder.levels.{level}.{b}", enc, enc_stats,
+                           f"level{level}_block{b}")
+    for l in range(num_levels - 1):
+        dec[f"up{l}"] = {"kernel": _tconv_kernel(sd[f"decoder.upsamples.{l}.weight"]),
+                         "bias": _n(sd[f"decoder.upsamples.{l}.bias"])}
+        for b in range(2):
+            _block_to_flax(sd, f"decoder.levels.{l}.{b}", dec, dec_stats, f"level{l}_block{b}")
+    dec["seg_output"] = {"kernel": _conv_kernel(sd["decoder.seg_output.weight"]),
+                         "bias": _n(sd["decoder.seg_output.bias"])}
+    stats = {"encoder": enc_stats, "decoder": dec_stats} if enc_stats else {}
+    return _tree({"encoder": enc, "decoder": dec}, stats)
+
+
+def _double_conv_to_flax(sd: Mapping, prefix: str, params: dict, stats: dict, name: str) -> None:
+    params[name], block_stats = {}, {}
+    for i, (ci, ni) in enumerate(((0, 1), (3, 4))):
+        params[name][f"conv{i}"] = {"kernel": _conv_kernel(sd[f"{prefix}.{ci}.weight"])}
+        params[name][f"norm{i}"] = {"scale": _n(sd[f"{prefix}.{ni}.weight"]),
+                                    "bias": _n(sd[f"{prefix}.{ni}.bias"])}
+        if f"{prefix}.{ni}.running_mean" in sd:
+            block_stats[f"norm{i}"] = {"mean": _n(sd[f"{prefix}.{ni}.running_mean"]),
+                                       "var": _n(sd[f"{prefix}.{ni}.running_var"])}
+    if block_stats:
+        stats[name] = block_stats
+
+
+def legacy_unet_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Reference ``_UNet`` state dict → flax LegacyUNet ``{"params", "batch_stats"}``."""
+    params, stats = {}, {}
+    _double_conv_to_flax(sd, "inc.double_conv", params, stats, "inc")
+    for i in range(4):
+        _double_conv_to_flax(sd, f"down{i + 1}.maxpool_conv.1.double_conv", params, stats,
+                             f"downs_{i}")
+        if f"up{i + 1}.up.weight" in sd:
+            params[f"up_tconv{i}"] = {"kernel": _tconv_kernel(sd[f"up{i + 1}.up.weight"]),
+                                      "bias": _n(sd[f"up{i + 1}.up.bias"])}
+        _double_conv_to_flax(sd, f"up{i + 1}.conv.double_conv", params, stats, f"up_convs_{i}")
+    if "outc.conv.weight" in sd:
+        params["outc"] = {"kernel": _conv_kernel(sd["outc.conv.weight"]),
+                          "bias": _n(sd["outc.conv.bias"])}
+    return _tree(params, stats)

@@ -11,13 +11,22 @@ The adapters are parameters of the encoder itself
   counterpart of the JAX package's ``optax.multi_transform`` freeze);
 - :func:`lora_state_dict` / :func:`load_lora_state_dict`: the LoRA
   checkpoint, the adapters plus every entry outside the frozen encoder, as
-  a torch state dict under the model's (reference) names.
+  a torch state dict under the model's (reference) names;
+- :func:`write_lora_msgpack` / :func:`read_lora_checkpoint`: that checkpoint
+  on disk, as the JAX package's ``lora.msgpack`` (the same entries as its
+  ``lora_state_dict``: flax params, through ``sam_flax_bridge``), or a torch
+  ``lora.pth`` read as it is.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 from torch import nn
+
+from ...utils.flax_msgpack import read_flax_msgpack, write_flax_msgpack
+from ..sam_flax_bridge import sam_state_dict_from_flax, sam_state_dict_to_flax
 
 
 def _is_lora(name: str) -> bool:
@@ -61,3 +70,17 @@ def load_lora_state_dict(model: nn.Module, state: dict[str, torch.Tensor]) -> No
         raise KeyError(f"LoRA checkpoint mismatch: missing {sorted(missing)[:5]}, "
                        f"unexpected {sorted(unexpected)[:5]}")
     model.load_state_dict(state, strict=False)
+
+
+def write_lora_msgpack(model: nn.Module, path: str | Path) -> None:
+    """Write ``model``'s LoRA checkpoint as the JAX package's ``lora.msgpack``."""
+    write_flax_msgpack(sam_state_dict_to_flax(lora_state_dict(model)), path)
+
+
+def read_lora_checkpoint(path: str | Path) -> dict[str, torch.Tensor]:
+    """A LoRA checkpoint file as a state dict: a flax ``lora.msgpack`` of
+    either package, or a torch ``lora.pth``."""
+    path = Path(path)
+    if path.suffix in (".pth", ".pt"):
+        return torch.load(path, map_location="cpu")
+    return sam_state_dict_from_flax({"params": read_flax_msgpack(path)})

@@ -1,4 +1,4 @@
-"""Weight bridge flax → torch for SAM.
+"""Weight bridge between flax and torch for SAM.
 
 ``sam_state_dict_from_flax(variables)`` turns the JAX ``Sam``'s or
 ``SamDualmask``'s params (numpy arrays) into a state dict under the
@@ -21,6 +21,17 @@ reference SAM parameter names, loadable by
 - ``SamDualmask``'s decoders ``mask_decoder{i}``, 4-stage upscalers
   (``up{k}`` → ``output_upscaling.{3k}``, ``norm{k}`` → ``.{3k+1}``), LoRA
   adapters and contrastive heads (``bn/scale`` → ``bn.weight``).
+
+``sam_state_dict_to_flax(sd)`` goes the other way, to a flax ``params``
+tree, through its own table (``_INVERSE``, torch module path → flax module
+path) rather than by reversing ``_RENAMES``: Linear weights transposed back,
+conv weights OIHW → HWIO, the upscaler's taps flipped back, a ``.weight``
+leaf named ``kernel``, ``scale`` (flax ``LayerNorm``/``BatchNorm``:
+``norm{k}``, ``norm_final_attn``, ``bn``), ``weight`` (the ``LayerNorm2d``
+of the neck, the mask downscaling and the upscaler) or after its table,
+the plain prompt encoder's four ``point_embeddings.{i}`` merged into one
+``(4, C)`` table. Buffers that flax does not keep (BatchNorm running
+statistics) are refused; leave them out of ``sd``.
 """
 
 from __future__ import annotations
@@ -96,3 +107,73 @@ def sam_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Te
             name = re.sub(pattern, repl, name)
         sd[name.replace("/", ".")] = torch.tensor(np.ascontiguousarray(leaf))
     return sd
+
+
+# torch module path → flax module path, applied in order to the dotted name
+_INVERSE = (
+    (r"^image_encoder\.blocks\.(\d+)\.", r"image_encoder.block\1."),
+    (r"^image_encoder\.patch_embed\.proj\.", "image_encoder.patch_embed."),
+    (r"^image_encoder\.neck\.0\.", "image_encoder.neck_conv1."),
+    (r"^image_encoder\.neck\.1\.", "image_encoder.neck_norm1."),
+    (r"^image_encoder\.neck\.2\.", "image_encoder.neck_conv2."),
+    (r"^image_encoder\.neck\.3\.", "image_encoder.neck_norm2."),
+    (r"\.mask_downscaling\.0\.", ".mask_downscaling.conv1."),
+    (r"\.mask_downscaling\.1\.", ".mask_downscaling.norm1."),
+    (r"\.mask_downscaling\.3\.", ".mask_downscaling.conv2."),
+    (r"\.mask_downscaling\.4\.", ".mask_downscaling.norm2."),
+    (r"\.mask_downscaling\.6\.", ".mask_downscaling.conv3."),
+    (r"^(mask_decoder\d*)\.transformer\.layers\.(\d+)\.", r"\1.transformer.layer\2."),
+    (r"\.output_upscaling\.(\d+)\.",
+     lambda m: f".output_upscaling.{'norm' if int(m[1]) % 3 else 'up'}{int(m[1]) // 3}."),
+    (r"\.output_hypernetworks_mlps\.(\d+)\.", r".hyper_mlp\1."),
+    (r"\.iou_prediction_head\.", ".iou_head."),
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"^(mask_decoder\d*)\.(?!transformer\.)", r"\1.core."),
+)
+_TABLES = ("iou_token", "mask_tokens", "not_a_point_embed", "no_mask_embed",
+           "box_corner_embeddings", "point_embeddings")
+_LAYER_NORM_2D = r"(neck_norm\d|mask_downscaling\.norm\d|output_upscaling\.norm\d+)$"
+_SCALED = r"(^|\.)(norm\d|norm_final_attn|bn)$"
+
+
+def _flax_leaf(module: str, leaf: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    """Flax path and value of the torch leaf ``leaf`` of flax module ``module``."""
+    if leaf != "weight":
+        return f"{module}.{leaf}", value
+    if module.rsplit(".", 1)[-1] in _TABLES:
+        return module, value
+    if re.search(_LAYER_NORM_2D, module):
+        return f"{module}.weight", value
+    if re.search(_SCALED, module):
+        return f"{module}.scale", value
+    if value.ndim == 2:  # Linear
+        return f"{module}.kernel", value.T
+    if ".output_upscaling.up" in module:  # transposed conv, taps flipped back
+        return f"{module}.kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return f"{module}.kernel", value.transpose(2, 3, 1, 0)  # conv OIHW → HWIO
+
+
+def sam_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Reference-named SAM state dict (or a subset of it) → flax ``params`` tree."""
+    sd = dict(sd)
+    points = sorted((k for k in sd
+                     if re.fullmatch(r"prompt_encoder\.point_embeddings\.\d+\.weight", k)),
+                    key=lambda k: int(k.split(".")[2]))
+    if points:
+        sd["prompt_encoder.point_embeddings.weight"] = torch.cat([sd.pop(k) for k in points])
+    params: dict = {}
+    for name, tensor in sd.items():
+        if name.endswith(("running_mean", "running_var", "num_batches_tracked")):
+            raise KeyError(f"{name}: flax keeps no BatchNorm running statistics in its params")
+        module, leaf = name.rsplit(".", 1)
+        module += "."  # the table's patterns end at a dot
+        for pattern, repl in _INVERSE:
+            module = re.sub(pattern, repl, module)
+        module = module[:-1]
+        path, value = _flax_leaf(module, leaf, tensor.detach().cpu().numpy())
+        node = params
+        *parents, last = path.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = np.array(value, order="C", copy=True)
+    return params

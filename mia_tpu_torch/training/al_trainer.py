@@ -5,11 +5,12 @@ round loop with selector → extend → fresh weights → train → validate
 (best weights kept in memory) → final/best checkpoints → test. Directory
 layout ``work/round_i/{data_list.json, best_model/, iter_<n>_<metric>/,
 final_model/}``, the JSON config snapshot, sanity overlays and CSV test
-reports are the JAX package's. Checkpoints are written as torch state dicts
-(``model.pth``) with the reference UNet's parameter names; a ``model.pth``
-or ``.pt`` file and the JAX package's ``model.msgpack`` are read
-(``--model-ckpt``, ``--init-round-path``). ``--resume`` reads the port's own
-``model.pth``, ``training_state.json`` and ``opt_state.pth``.
+reports are the JAX package's. Checkpoints are the JAX package's files in
+flax's layout: ``model.msgpack`` (``{"params", "batch_stats"}``) and, with
+the training state, ``training_state.json`` and ``opt_state.msgpack`` (the
+optax state). ``--model-ckpt`` and ``--init-round-path`` also read a
+reference or port ``model.pth``/``.pt``; ``--resume`` reads a directory
+written by either package.
 
 Device work per train iteration: uint8 batch → augmentation (with kernel
 K1) → z-score → UNet forward/backward → Dice+CE → clip → Adam, all eager
@@ -22,7 +23,7 @@ device with the per-case resize matrices as data.
 
 Every selector of the JAX package runs (``activelearning/selectors.py``),
 on FUGC and BUSI. Not ported: wandb, mesh/multi-device, volume-mode
-validation, the background pool-cache warmer, writing ``model.msgpack``.
+validation, the background pool-cache warmer.
 """
 
 from __future__ import annotations
@@ -44,16 +45,17 @@ from ..data import DATASETS, ActiveDataset, BatchLoader, ExtendableDataset, deco
 from ..device import resolve_device, set_compute_precision
 from ..losses import DiceAndCELoss
 from ..metrics import metric_percase
-from ..models import UNet, UNetConfig, UnetProcessor, unet_state_dict_from_flax
+from ..models import (UNet, UNetConfig, UnetProcessor, unet_state_dict_from_flax,
+                      unet_state_dict_to_flax)
 from ..models.torch_port import import_torch_unet_checkpoint
 from ..ops.resize import _resize_matrix
 from ..schedule import poly_warmup_schedule
 from ..transforms import get_train_transform, zscore_normalize
 from ..utils import add_file_sink, draw_mask, get_path, remove_sink, setup_logger
-from ..utils.flax_msgpack import read_flax_msgpack
+from ..utils.flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from .al_config import ALConfig
 from .base_trainer import BaseTrainer
-from .state import TrainState, make_optimizer
+from .state import TrainState, load_optax_state, make_optimizer, to_optax_state
 from .steps import make_train_step
 
 
@@ -265,12 +267,12 @@ class ALTrainer(BaseTrainer):
 
     def load_model_checkpoint(self, ckpt: str | Path):
         """Load a ``.pth``/``.pt`` state dict (the port's, or the reference
-        UNet's), a flax ``model.msgpack`` of the JAX package, or a directory
-        holding either (``model.pth`` first)."""
+        UNet's), a flax ``model.msgpack``, or a directory holding either
+        (``model.msgpack`` first, as the JAX package reads it)."""
         ckpt = Path(ckpt)
         if ckpt.is_dir():
-            ckpt = next((ckpt / n for n in ("model.pth", "model.msgpack")
-                         if (ckpt / n).is_file()), ckpt / "model.pth")
+            ckpt = next((ckpt / n for n in ("model.msgpack", "model.pth")
+                         if (ckpt / n).is_file()), ckpt / "model.msgpack")
         try:
             if ckpt.suffix in (".pth", ".pt"):
                 sd = torch.load(ckpt, map_location=self.device)
@@ -300,9 +302,9 @@ class ALTrainer(BaseTrainer):
         ts_path = save_path / "training_state.json"
         if ts_path.is_file():
             ts = json.loads(ts_path.read_text())
-            opt_path = save_path / "opt_state.pth"
+            opt_path = save_path / "opt_state.msgpack"
             if opt_path.is_file():
-                self.state.optimizer.load_state_dict(torch.load(opt_path, map_location=self.device))
+                load_optax_state(self.state.optimizer, self.model, read_flax_msgpack(opt_path))
                 self.state.step = ts["current_iter"] + 1
             self.current_epoch = ts["current_epoch"] + 1
             self.current_iter = ts["current_iter"] + 1
@@ -317,17 +319,13 @@ class ALTrainer(BaseTrainer):
     ):
         save_path = get_path(save_path)
         save_path.mkdir(parents=True, exist_ok=True)
-        state = self._snapshot() if model_state is None else model_state
-        torch.save({k: v.cpu() for k, v in state.items()}, save_path / "model.pth")
-        self.logger.info(f"Saved model checkpoint to {save_path / 'model.pth'}")
+        state = self.model.state_dict() if model_state is None else model_state
+        write_flax_msgpack(unet_state_dict_to_flax(state), save_path / "model.msgpack")
+        self.logger.info(f"Saved model checkpoint to {save_path / 'model.msgpack'}")
         if save_training_state:
             (save_path / "training_state.json").write_text(json.dumps(self.state_dict()))
-            opt = self.state.optimizer.state_dict()
-            torch.save(
-                {"count": opt["count"], "mu": [t.cpu() for t in opt["mu"]],
-                 "nu": [t.cpu() for t in opt["nu"]]},
-                save_path / "opt_state.pth",
-            )
+            write_flax_msgpack(to_optax_state(self.state.optimizer, self.model),
+                               save_path / "opt_state.msgpack")
         self.logger.info(f'Saved new checkpoint to "{save_path}"')
 
     # ------------------------------------------------------------------

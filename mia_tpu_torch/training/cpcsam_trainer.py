@@ -38,13 +38,18 @@ sliced in phase 1), as in the JAX package:
 - ``use_adv_loss``: loss3 += ``adv_weight`` · VAT (``losses/vat.py``) on
   the image embeddings through the unprompted decoders.
 
-Checkpoints are torch state dicts under the model's reference names: the
-LoRA checkpoint ``lora.pth`` (adapters + everything outside the frozen
-encoder) and, with ``save_training_state``, ``training_state.json`` (iter,
-epoch) and ``training_state.pth`` (optimizer state, feature memory, the
-generator's and numpy's RNG state). ``resume`` loads all of them and goes
-on at the next epoch, so that a run saved at an epoch's end and resumed
-takes the steps the uninterrupted run takes. Validation, the real test and
+Checkpoints: the LoRA checkpoint ``lora.msgpack`` (adapters + everything
+outside the frozen encoder, the JAX package's file in flax's layout; a torch
+``lora.pth`` is read too) and, with ``save_training_state``,
+``training_state.json`` (iter, epoch: the JAX package's file) and the port's
+``training_state.pth`` (optimizer state, feature memory, the generator's
+and numpy's RNG state). ``resume`` loads all of them and goes on at the
+next epoch, so that a run saved at an epoch's end and resumed takes the
+steps the uninterrupted run takes. A directory without
+``training_state.pth`` (the JAX package writes none) resumes with a fresh
+optimizer, as the JAX package resumes. Both packages save
+``current_iter`` after its increment, as the count of steps taken; the port
+resumes at that count, the JAX package one later (it adds 1 on load). Validation, the real test and
 the CSV report are the JAX package's. Not ported: wandb, bfloat16 compute,
 mesh/multi-device.
 """
@@ -66,8 +71,8 @@ from ..device import resolve_device, set_compute_precision
 from ..losses import DiceAndCELoss, prototype_contrastive_loss, vat_loss
 from ..memories import FeatureMemoryState, init_feature_memory, update_feature_memory
 from ..models.sam.build_sam import import_torch_sam_encoder, sam_model_registry
-from ..models.sam.lora import (freeze_wrt_mask, load_lora_state_dict, lora_state_dict,
-                               lora_trainable_mask)
+from ..models.sam.lora import (freeze_wrt_mask, load_lora_state_dict, lora_trainable_mask,
+                               read_lora_checkpoint, write_lora_msgpack)
 from ..models.sam.prompt_generation import prompt_generate_random_fast
 from ..models.sam.sam import postprocess_masks
 from ..models.sam.validation import test_single_volume, test_single_volume_mean
@@ -351,7 +356,7 @@ class CPCSAMTrainer(BaseTrainer):
 
     def load_lora_checkpoint(self, ckpt):
         try:
-            load_lora_state_dict(self.model, torch.load(Path(ckpt), map_location=self.device))
+            load_lora_state_dict(self.model, read_lora_checkpoint(ckpt))
             self.logger.info(f"Loaded LoRA checkpoint from {ckpt}")
         except Exception as e:
             self.logger.warning(f"Failed to load LoRA checkpoint from {ckpt}")
@@ -360,7 +365,7 @@ class CPCSAMTrainer(BaseTrainer):
     def save_state_dict(self, save_path, save_training_state: bool = False):
         save_path = get_path(save_path)
         save_path.mkdir(parents=True, exist_ok=True)
-        torch.save(lora_state_dict(self.model), save_path / "lora.pth")
+        write_lora_msgpack(self.model, save_path / "lora.msgpack")
         if save_training_state:
             (save_path / "training_state.json").write_text(json.dumps(self.state_dict()))
             torch.save({"optimizer": self.optimizer.state_dict(),
@@ -377,8 +382,10 @@ class CPCSAMTrainer(BaseTrainer):
         iteration, in the epoch after the saved one (checkpoints are written
         at an epoch's end). Call after the optimizer is set up."""
         save_path = get_path(save_path)
-        if (save_path / "lora.pth").is_file():
-            self.load_lora_checkpoint(save_path / "lora.pth")
+        lora = next((save_path / n for n in ("lora.msgpack", "lora.pth")
+                     if (save_path / n).is_file()), None)
+        if lora is not None:
+            self.load_lora_checkpoint(lora)
         if (save_path / "training_state.json").is_file():
             state = json.loads((save_path / "training_state.json").read_text())
             self.current_iter = state["current_iter"]

@@ -17,14 +17,23 @@ This module applies the same steps to PyTorch parameters:
   NOT ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm;
 - Adam's bias corrections divide the moments before the square root, as
   optax does.
+
+:func:`to_optax_state` and :func:`load_optax_state` carry the state of a
+UNet's optimizer (what the trainers train) to and from the tree that
+``flax.serialization.to_state_dict`` makes of the JAX package's optax state
+(its ``opt_state.msgpack``): the moments keyed by flax parameter path, with
+the parameters' transposes.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn as nn
+
+from ..models.flax_bridge import unet_state_dict_from_flax, unet_state_dict_to_flax
 
 # torch-parity Adam betas and eps, SGD momentum (reference ``al_trainer.py:744-765``)
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -45,7 +54,9 @@ class ClippedAdam:
         decoupled: bool = False,
     ):
         self.params = [p for p in params if p.requires_grad]
-        self.lr = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+        # optax keeps a step count for a schedule, none for a constant rate
+        self.scheduled = callable(learning_rate)
+        self.lr = learning_rate if self.scheduled else (lambda _: learning_rate)
         self.grad_clip = grad_clip
         self.weight_decay = weight_decay
         self.decoupled = decoupled
@@ -135,6 +146,69 @@ def make_optimizer(
     if name == "sgd":
         return ClippedSGD(params, learning_rate, grad_clip, weight_decay)
     raise ValueError(f'Optimizer "{name}" not supported')
+
+
+def _param_names(opt: ClippedAdam, model: nn.Module) -> list[str]:
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if len(named) != len(opt.params) or any(p is not q for (_, p), q in zip(named, opt.params)):
+        raise ValueError("the optimizer does not hold the model's trainable parameters in order")
+    return [n for n, _ in named]
+
+
+def _layout(opt: ClippedAdam, moments: dict) -> dict:
+    """optax's state tree of ``opt`` around ``moments`` (``count`` with ``mu``
+    and ``nu``, or ``trace``): ``clip_by_global_norm`` → [decay] → adam or
+    trace → [decay] → learning rate, as ``mia_tpu/training/state.py`` chains
+    them; a schedule keeps a count, a constant rate nothing."""
+    rate = {"count": np.asarray(opt.count, np.int32)} if opt.scheduled else {}
+    if isinstance(opt, ClippedSGD):
+        inner = {"0": {}, "1": {"0": moments, "1": rate}}
+    elif opt.decoupled:  # optax.adamw: adam → decay → learning rate
+        inner = {"0": moments, "1": {}, "2": rate}
+    else:
+        inner = {"0": {}, "1": moments, "2": rate}
+    return inner if opt.grad_clip is None else {"0": {}, "1": inner}
+
+
+def _nodes(opt: ClippedAdam, state: dict) -> tuple[dict, dict]:
+    """The moments node and the learning-rate node of a tree laid out by :func:`_layout`."""
+    inner = state if opt.grad_clip is None else state["1"]
+    if isinstance(opt, ClippedSGD):
+        return inner["1"]["0"], inner["1"]["1"]
+    if opt.decoupled:
+        return inner["0"], inner["2"]
+    return inner["1"], inner["2"]
+
+
+def to_optax_state(opt: ClippedAdam, model: nn.Module) -> dict:
+    """``opt``'s state over the UNet ``model`` as the flax state dict of the
+    JAX package's optax state for the same optimizer (``opt_state.msgpack``)."""
+    names = _param_names(opt, model)
+
+    def tree(tensors):
+        return unet_state_dict_to_flax(dict(zip(names, tensors)))["params"]
+
+    if isinstance(opt, ClippedSGD):
+        return _layout(opt, {"trace": tree(opt.mu)})
+    return _layout(opt, {"count": np.asarray(opt.count, np.int32), "mu": tree(opt.mu),
+                         "nu": tree(opt.nu)})
+
+
+def load_optax_state(opt: ClippedAdam, model: nn.Module, state: dict) -> None:
+    """Restore ``opt`` from an optax state dict (the inverse of
+    :func:`to_optax_state`). SGD at a constant rate keeps no count: ``opt``'s
+    stays as it is."""
+    names = _param_names(opt, model)
+    moments, rate = _nodes(opt, state)
+
+    def tensors(tree):
+        sd = unet_state_dict_from_flax({"params": tree})
+        return [sd[n] for n in names]
+
+    sgd = isinstance(opt, ClippedSGD)
+    count = rate.get("count", opt.count) if sgd else moments["count"]
+    opt.load_state_dict({"count": int(count), "mu": tensors(moments["trace" if sgd else "mu"]),
+                         "nu": [] if sgd else tensors(moments["nu"])})
 
 
 class TrainState:

@@ -5,7 +5,7 @@ Counterpart of ``mia_tpu/training/unet_trainer.py``:
 - ``UNetTrainer``: random cross-fold splits of the train set with a
   no-data-leak assertion, one supervised run per fold with fresh weights,
   per-fold ``fold_<i>/`` work paths, the fold's best checkpoint aliased to
-  ``fold_<i>/model.pth``.
+  ``fold_<i>/model.msgpack``, as the JAX package names it.
 - ``SemiTrainer``: labeled/unlabeled/valid split by ``labeled_ratio``; the
   loop is supervised on the labeled split, like the reference's.
 
@@ -123,9 +123,9 @@ class UNetTrainer(_SupervisedTrainer):
             self._build_model(round_key=f)
             self.train()
             # alias the best checkpoint into the predict-ensemble layout
-            best = self.work_path / "round_0/best_model/model.pth"
+            best = self.work_path / "round_0/best_model/model.msgpack"
             if best.is_file():
-                shutil.copyfile(best, self.work_path / "model.pth")
+                shutil.copyfile(best, self.work_path / "model.msgpack")
         self.work_path = root_work
 
 

@@ -1,5 +1,6 @@
-"""Reader of flax's msgpack checkpoints (``flax.serialization.to_bytes``),
-in pure Python: no ``msgpack`` package, no flax, no JAX.
+"""Reader and writer of flax's msgpack checkpoints
+(``flax.serialization.to_bytes``), in pure Python: no ``msgpack`` package,
+no flax, no JAX.
 
 The layout is one msgpack map of the state dict (nested maps with string
 keys). Leaves are msgpack scalars, strings, nil or bool, or flax's ext
@@ -14,6 +15,13 @@ Arrays larger than flax's chunk size arrive as maps marked
 widened to float32 (numpy has no bfloat16). :func:`read_flax_msgpack`
 returns the nested dict of numpy arrays that
 ``models/flax_bridge.py``'s converters take.
+
+:func:`write_flax_msgpack` / :func:`to_bytes` write such a state dict back:
+numpy arrays (and 0-d arrays for optax's scalars) as ext type 1, arrays over
+:data:`MAX_CHUNK_SIZE` bytes chunked as flax chunks them, each msgpack value
+in the form the ``msgpack`` package picks. Map keys go out in sorted order, the order of the JAX package's own
+files (its trees pass through ``jax.tree.map``; a chunked array's maps keep
+flax's order), so the same state dict gives the same bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import numpy as np
 
 _NDARRAY, _COMPLEX, _NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+# flax.serialization.MAX_CHUNK_SIZE: arrays of more bytes are written in chunks
+MAX_CHUNK_SIZE = 2**30
 
 
 class _Reader:
@@ -136,3 +146,114 @@ def read_flax_msgpack(source: bytes | str | Path) -> dict:
     as nested dicts of numpy arrays."""
     data = source if isinstance(source, (bytes, bytearray)) else Path(source).read_bytes()
     return _unchunk(unpackb(data))
+
+
+# --- writer -------------------------------------------------------------------
+
+
+def _header(out: list, n: int, small: int | None, fix: int, wide: tuple[int, ...]) -> None:
+    """A length header: ``fix | n`` below ``small``, else the first of the
+    8/16/32-bit forms ``wide`` (``None`` where a form does not exist) that holds n."""
+    if small is not None and n < small:
+        out.append(bytes((fix | n,)))
+        return
+    for code, fmt, top in zip(wide, "BHI", (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(struct.pack(">B" + fmt, code, n))
+            return
+    raise ValueError(f"msgpack cannot hold a length of {n}")
+
+
+def _uint(out: list, v: int) -> None:
+    """A non-negative integer (the only kind a flax state dict holds: shapes)."""
+    if 0 <= v < 0x80:
+        out.append(bytes((v,)))
+        return
+    for code, fmt, top in ((0xCC, "B", 0xFF), (0xCD, "H", 0xFFFF), (0xCE, "I", 0xFFFFFFFF),
+                           (0xCF, "Q", 0xFFFFFFFFFFFFFFFF)):
+        if 0 <= v <= top:
+            out.append(struct.pack(">B" + fmt, code, v))
+            return
+    raise OverflowError(f"{v} is not an integer the writer writes")
+
+
+def _ext(out: list, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(bytes((fixed[n],)))
+    else:
+        _header(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack("b", code))
+    out.append(payload)
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError(f"arrays of dtype {arr.dtype} cannot be written")
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: list, v, sort: bool = True) -> None:
+    if isinstance(v, bool):
+        out.append(b"\xc3" if v else b"\xc2")
+    elif isinstance(v, int):
+        _uint(out, v)
+    elif isinstance(v, str):
+        data = v.encode("utf-8")
+        _header(out, len(data), 32, 0xA0, (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(v, (bytes, bytearray)):
+        _header(out, len(v), None, 0, (0xC4, 0xC5, 0xC6))
+        out.append(bytes(v))
+    elif isinstance(v, (list, tuple)):
+        _header(out, len(v), 16, 0x90, (None, 0xDC, 0xDD))
+        for item in v:
+            _pack(out, item, sort)
+    elif isinstance(v, dict):
+        # a chunked array's maps keep flax's own order
+        sort = sort and _CHUNKED not in v
+        _header(out, len(v), 16, 0x80, (None, 0xDE, 0xDF))
+        for key in sorted(v) if sort else v:
+            _pack(out, key)
+            _pack(out, v[key], sort)
+    elif isinstance(v, np.ndarray):
+        _ext(out, _NDARRAY, _ndarray_bytes(v))
+    else:
+        raise TypeError(f"cannot write a {type(v).__name__} to msgpack")
+
+
+def packb(value) -> bytes:
+    """Encode one object as msgpack: the types of a flax state dict (maps,
+    strings, non-negative integers, booleans, numpy arrays as ext type 1) and
+    of an array's payload (lists, bytes)."""
+    out: list[bytes] = []
+    _pack(out, value)
+    return b"".join(out)
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    return {_CHUNKED: True, "shape": {str(i): n for i, n in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _chunked(tree):
+    if isinstance(tree, dict):
+        return {k: _chunked(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def to_bytes(state_dict: dict) -> bytes:
+    """A state dict (nested dicts with string keys, numpy leaves) as the
+    bytes ``flax.serialization.to_bytes`` writes."""
+    return packb(_chunked(state_dict))
+
+
+def write_flax_msgpack(state_dict: dict, path: str | Path) -> None:
+    """Write ``state_dict`` to ``path`` in flax's msgpack layout."""
+    Path(path).write_bytes(to_bytes(state_dict))

@@ -29,8 +29,10 @@ from flax import serialization
 from mia_tpu.data import BUSIDataset as JaxBUSI
 from mia_tpu.models import UNet as JaxUNet, UNetConfig as JaxUNetConfig
 from mia_tpu_torch.data import DATASETS, BUSIDataset
+from mia_tpu_torch.models import unet_state_dict_from_flax
 from mia_tpu_torch.entry.activelearning.train import train_entry
 from mia_tpu_torch.training import ALTrainer
+from mia_tpu_torch.utils.flax_msgpack import read_flax_msgpack
 from synth_data import make_busi, make_fugc
 
 CHANNELS = (8, 16, 32)
@@ -99,7 +101,7 @@ def test_train_entry_runs_busi_on_cpu(busi_root, tmp_path, narrow):
                  ["labeled_image_idx"]) for r in range(2)]
     assert sizes == [2, 4]
     for r in range(2):
-        assert (work / f"round_{r}/best_model/model.pth").is_file()
+        assert (work / f"round_{r}/best_model/model.msgpack").is_file()
         rows = (work / f"test_mean_round_{r}.csv").read_text().splitlines()
         assert rows[0].split(",") == [f"{c}-{m}" for c in ("all", "tumor")
                                       for m in ("DSC", "HD", "ASD", "JSD")]
@@ -154,7 +156,7 @@ def test_init_round_path_from_a_flax_msgpack(fugc_root, tmp_path, narrow):
     assert not (work / "round_0").exists() and (work / "test_mean_round_0.csv").is_file()
     dl = json.loads((work / "round_1/data_list.json").read_text())
     assert dl["labeled_image_idx"][:2] == names[:2] and len(dl["labeled_image_idx"]) == 4
-    assert (work / "round_1/best_model/model.pth").is_file()
+    assert (work / "round_1/best_model/model.msgpack").is_file()
 
 
 def test_resume_restores_counters_parameters_and_optimizer(fugc_root, tmp_path, narrow):
@@ -163,8 +165,8 @@ def test_resume_restores_counters_parameters_and_optimizer(fugc_root, tmp_path, 
     final = first.work_path / "round_0" / "final_model"
     saved = json.loads((final / "training_state.json").read_text())
     assert saved["current_round"] == 0 and saved["current_iter"] == 3
-    opt = torch.load(final / "opt_state.pth")
-    model = torch.load(final / "model.pth")
+    opt = read_flax_msgpack(final / "opt_state.msgpack")["1"]["1"]  # clip → (decay, adam, lr)
+    model = unet_state_dict_from_flax(read_flax_msgpack(final / "model.msgpack"))
 
     config = dict(first.config._config_dict, num_rounds=2)
     trainer = ALTrainer(work_path=tmp_path, device="cpu", config=config, resume=str(final),
@@ -174,12 +176,15 @@ def test_resume_restores_counters_parameters_and_optimizer(fugc_root, tmp_path, 
     assert (trainer.current_round, trainer.current_iter, trainer.current_epoch) == (
         1, saved["current_iter"] + 1, saved["current_epoch"] + 1)
     assert trainer.state.step == saved["current_iter"] + 1
-    assert trainer.state.optimizer.count == opt["count"] == 3
-    for got, want in zip(trainer.state.optimizer.mu + trainer.state.optimizer.nu,
-                         opt["mu"] + opt["nu"]):
-        assert torch.equal(got, want)
+    assert trainer.state.optimizer.count == int(opt["count"]) == 3
+    names = [n for n, _ in trainer.model.named_parameters()]
+    for key in ("mu", "nu"):
+        want = unet_state_dict_from_flax({"params": opt[key]})
+        for n, got in zip(names, getattr(trainer.state.optimizer, key)):
+            assert torch.equal(got, want[n]), n
     for k, v in trainer.model.state_dict().items():
-        assert torch.equal(v, model[k]), k
+        if not k.endswith("num_batches_tracked"):  # flax keeps no such counter
+            assert torch.equal(v, model[k]), k
     assert trainer.active_dataset.data_list() == saved["data_list"]
 
     # through the entry: the run goes on at round 1 and adds the budget
@@ -291,7 +296,8 @@ def test_persist_model_weight_carries_the_previous_best(fugc_root, tmp_path, nar
     finally:
         ALTrainer._start_round_loader = start_loader
     source = (first.work_path if init_round else trainer.work_path) / "round_0/best_model"
-    best = torch.load(source / "model.pth")
-    same = all(torch.equal(seen[1][k], best[k]) for k in best)
+    best = unet_state_dict_from_flax(read_flax_msgpack(source / "model.msgpack"))
+    same = all(torch.equal(seen[1][k], best[k]) for k in best
+               if not k.endswith("num_batches_tracked"))
     assert sorted(seen) == ([1] if init_round else [0, 1])
     assert same is (not init_round)

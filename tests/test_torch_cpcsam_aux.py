@@ -375,7 +375,7 @@ def test_resume_round_trip_is_bit_identical(models, batch, tmp_path):  # noqa: F
         straight.train_step(feed)
     straight.save_state_dict(tmp_path / "ckpt", save_training_state=True)
     assert {p.name for p in (tmp_path / "ckpt").iterdir()} == {
-        "lora.pth", "training_state.json", "training_state.pth"}
+        "lora.msgpack", "training_state.json", "training_state.pth"}
     straight.train_step(feed)  # the third step is a phase-2 step: prompts from the generator
 
     resumed = fresh(tmp_path / "ckpt")

@@ -22,7 +22,8 @@ from mia_tpu_torch.data import ACDCDataset
 from mia_tpu_torch.entry.cpcsam.train import train_entry
 from mia_tpu_torch.models.sam import build_sam
 from mia_tpu_torch.models.sam.build_sam import import_torch_sam_encoder
-from mia_tpu_torch.models.sam.lora import load_lora_state_dict, lora_state_dict
+from mia_tpu_torch.models.sam.lora import (load_lora_state_dict, lora_state_dict,
+                                          read_lora_checkpoint)
 from mia_tpu_torch.models.sam.prompt_generation import (distance_to_zero,
                                                          prompt_generate_random_fast)
 from mia_tpu_torch.models.sam_flax_bridge import sam_state_dict_from_flax
@@ -92,7 +93,7 @@ def test_entry_trains_validates_tests_and_checkpoints_on_cpu(acdc_root, tmp_path
             assert not moved and not p.requires_grad, n
 
     # the LoRA checkpoint: adapters + everything outside the encoder
-    state = torch.load(work / "final_model" / "lora.pth")
+    state = read_lora_checkpoint(work / "final_model" / "lora.msgpack")
     assert set(state) == set(lora_state_dict(model))
     assert any(k.startswith("mask_decoder2.") for k in state)
     assert not any(k.startswith("image_encoder.") and "lora_" not in k for k in state)
@@ -111,7 +112,7 @@ def test_entry_trains_validates_tests_and_checkpoints_on_cpu(acdc_root, tmp_path
         load_lora_state_dict(fresh.model, {k: v for k, v in state.items() if "lora_a_q" not in k})
 
     tested = train_entry(common + ["--work-path", str(tmp_path / "test_only"), "--test-only",
-                                   "--lora-ckpt", str(work / "final_model" / "lora.pth")])
+                                   "--lora-ckpt", str(work / "final_model" / "lora.msgpack")])
     assert "Loaded LoRA checkpoint" in (tested.work_path / "log.txt").read_text()
     for k, v in lora_state_dict(tested.model).items():
         assert torch.equal(v, state[k]), k

@@ -4,7 +4,7 @@
 - ``UNetTrainer``/``SemiTrainer``: the splits equal the JAX trainers' for one
   seed (both draw one numpy permutation); two folds run on ``make_fugc`` through
   ``fugc2025_train_torch`` on the CPU and leave the JAX package's files
-  (``model.pth`` for ``model.msgpack``).
+  (``fold_<i>/model.msgpack``).
 - the RLE tools: the JAX package's round trip, and equal codes.
 """
 
@@ -105,10 +105,12 @@ def test_train_entry_runs_two_folds_on_cpu(tmp_path, narrow_unet, monkeypatch):
         assert labeled == sorted(splits[fold]["train"]) and valid == sorted(splits[fold]["valid"])
         assert not set(labeled) & set(valid) and len(valid) == 2
         base = work / f"fold_{fold}"
-        for rel in ("model.pth", "round_0/best_model/model.pth", "round_0/final_model/model.pth",
+        for rel in ("model.msgpack", "round_0/best_model/model.msgpack",
+                    "round_0/final_model/model.msgpack",
                     "round_0/data_list.json", "test_mean_round_0.csv"):
             assert (base / rel).is_file(), rel
-        assert (base / "model.pth").read_bytes() == (base / "round_0/best_model/model.pth").read_bytes()
+        assert (base / "model.msgpack").read_bytes() == (
+            base / "round_0/best_model/model.msgpack").read_bytes()
         listed = json.loads((base / "round_0/data_list.json").read_text())
         assert sorted(listed["labeled_image_idx"]) == labeled and listed["pool_image_idx"] == []
     assert trainer.current_iter == 8 and trainer.state.optimizer.count == 8
@@ -139,7 +141,7 @@ def test_semi_trainer_and_postprocess_mask_on_cpu(tmp_path, narrow_unet, monkeyp
     trainer.run_training()
     split = trainer.split_dict
     assert (len(split["valid"]), len(split["labeled"]), len(split["unlabeled"])) == (2, 2, 6)
-    assert (trainer.work_path / "round_0/final_model/model.pth").is_file()
+    assert (trainer.work_path / "round_0/final_model/model.msgpack").is_file()
     listed = json.loads((trainer.work_path / "round_0/data_list.json").read_text())
     assert sorted(listed["labeled_image_idx"]) == sorted(split["labeled"])
     assert sorted(listed["pool_image_idx"]) == sorted(split["unlabeled"])

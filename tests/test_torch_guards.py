@@ -105,7 +105,7 @@ from mia_tpu_torch.models import LegacyUNet, LegacyUNetConfig
 fugc = fugc_entry(["--work-dir", {str(tmp_path / "fugc")!r}, "--data-dir", {str(tmp_path / "data")!r},
                    "--device", "cpu", "--num-folds", "2", "--num-epochs", "1", "--batch-size", "2",
                    "--image-size", "32", "--valid-freq-iter", "1"])
-assert (fugc.work_path / "fold_1" / "model.pth").is_file()
+assert (fugc.work_path / "fold_1" / "model.msgpack").is_file()
 ensemble = predict_model([32], folds=[0, 1], device="cpu")
 ensemble.net_config = LegacyUNetConfig(width=4)
 for fold in (0, 1):

@@ -52,8 +52,8 @@ def test_entry_runs_two_rounds_on_cpu(fugc_root, tmp_path, monkeypatch):
     work = trainer.work_path
     for r in range(2):
         assert (work / f"round_{r}/data_list.json").is_file()
-        assert (work / f"round_{r}/best_model/model.pth").is_file()
-        assert (work / f"round_{r}/final_model/model.pth").is_file()
+        assert (work / f"round_{r}/best_model/model.msgpack").is_file()
+        assert (work / f"round_{r}/final_model/model.msgpack").is_file()
         assert (work / f"round_{r}/final_model/training_state.json").is_file()
         assert (work / f"test_mean_round_{r}.csv").is_file()
     dl0 = json.loads((work / "round_0/data_list.json").read_text())
