@@ -126,6 +126,24 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    own size: class maps in {0, 1, 2}, and ``model.predict`` on the card
    against the CPU (fraction of differing pixels at most 1e-3 with float32
    convolutions, 1e-2 with TF32).
+   ACDC and thyroid phase: ``al_train_torch``'s ``train_entry`` on ``cuda``
+   at full width (UNet 32..512, 256², batch 12) on an ACDC set served from
+   memory through ``ACDCDataset.read_case`` (64 slices, 4 valid and 4 test
+   volumes of 10x216x256, three distinct raw spacings a case): the acdc
+   recipe, entropy with budget 8, 2 rounds of 20 iterations, volume-mode
+   validation every 10 (the default) and the real test; checks the
+   RV/Myo/LV test CSVs, the rolled metric spacing, one valid volume's 16
+   metrics on the card against the CPU from the same predictions (DSC/JC
+   equal, HD/ASD within 1e-5 relative), the recipe on one batch card
+   against CPU from the same draws (equal; near-.5-tie source coordinates
+   counted), and times the rounds by part and one volume evaluation. Then
+   TN3K (48/8/8 336x448 JPGs) with ``--block-type res --block-normalization
+   instance --deep-supervision --ds-layer 3 --optimizer adamw``, 10
+   iterations: its checkpoint files equal the trainer's memory bit for bit,
+   the deep-supervision heads follow adamw's decay alone, the UNet on the
+   card against the CPU within 1e-4 of max |logit| (float32 convolutions),
+   its step time beside the slice phase's; TG3K, 4 iterations. The phase
+   launches no hand kernel.
    CPC-SAM phase: runs ``cpcsam_train_torch``'s ``train_entry`` with the
    entry's defaults (LoRA-4 ViT-B/512 ``SamDualmask``, 3 decoders, batch 12,
    half labeled, ``--promptmode point``) for 2 phase-1 and 4 phase-2 steps
@@ -731,7 +749,477 @@ def slice_phase(torch, workdir: Path):
           f"UNet logits card vs CPU max |diff| {fp32_err:.3g} (float32), "
           f"{tf32_err:.3g} (TF32 convs), max |logit| {scale:.3g}")
     return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path(),
-            "trainer": trainer, "data": data, "work": work, "saved": saved}
+            "step_ms": step_ms, "trainer": trainer, "data": data, "work": work, "saved": saved}
+
+# ---------------------------------------------------------------------------
+# ACDC and thyroid phase: al_train_torch on ACDC with volume-mode validation
+# and test, on TN3K with residual blocks, instance norm and deep supervision,
+# and on TG3K
+# ---------------------------------------------------------------------------
+
+METRIC_TOL = 1e-5  # HD and ASD, card against CPU on the same predictions, relative
+
+
+def blob_slices(np, count, hw, seed=0):
+    """Seeded cardiac-like slices: three overlapping ellipses (classes 1-3)
+    over noise, float32 images in [0, 1] and int32 labels, ``(count, h, w)``."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    labels = np.zeros((count, h, w), np.int32)
+    for i in range(count):
+        for c in (1, 2, 3):
+            cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+            ry, rx = rng.uniform(0.06, 0.16) * h, rng.uniform(0.06, 0.16) * w
+            labels[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = c
+    images = np.clip(0.15 + 0.2 * labels + rng.normal(0.0, 0.06, labels.shape), 0.0, 1.0)
+    return images.astype(np.float32), labels
+
+
+def acdc_spacing(i):
+    """(z, y, x) raw spacing of case ``i``: three distinct values, varying by case."""
+    return (10.0 - 0.5 * (i % 4), 1.25 + 0.0625 * (i % 4), 1.5 + 0.09375 * (i % 3))
+
+
+def write_in_memory_acdc(np, ACDCDataset, root: Path, n_train=64, n_valid=4, n_test=4,
+                         depth=10, hw=(216, 256)):
+    """ACDC's split lists and ``raw_spacing.csv`` on disk; the cases in memory,
+    served through ``ACDCDataset.read_case`` (the GPU machine has no h5py).
+    Returns the subclass and the (z, y, x) spacing of each patient frame."""
+    train = blob_slices(np, n_train, hw, seed=0)
+    vols = blob_slices(np, (n_valid + n_test) * depth, hw, seed=1)
+    vols = [a.reshape(n_valid + n_test, depth, *hw) for a in vols]
+    slices = [f"patient{i // 4:03d}_frame01_slice_{i % 4}" for i in range(n_train)]
+    volumes = [f"patient{100 + i:03d}_frame01" for i in range(n_valid + n_test)]
+    cases = {name: (train[0][i], train[1][i]) for i, name in enumerate(slices)}
+    cases.update({name: (vols[0][i], vols[1][i]) for i, name in enumerate(volumes)})
+    (root / "ACDC").mkdir(parents=True, exist_ok=True)
+    (root / "ACDC/train_slices.list").write_text("\n".join(slices) + "\n")
+    (root / "ACDC/val.list").write_text("\n".join(volumes[:n_valid]) + "\n")
+    (root / "ACDC/test.list").write_text("\n".join(volumes[n_valid:]) + "\n")
+    patients = sorted({"_".join(n.split("_")[:2]) for n in slices + volumes})
+    spacings = {p: acdc_spacing(i) for i, p in enumerate(patients)}
+    (root / "ACDC/raw_spacing.csv").write_text("\n".join(
+        ["case,sz,sy,sx"] + [f"{p},{','.join(map(str, sp))}" for p, sp in spacings.items()]) + "\n")
+
+    class InMemoryACDC(ACDCDataset):
+        def read_case(self, case):
+            return cases[case]
+
+    return InMemoryACDC, spacings
+
+
+def write_thyroid(root: Path, layout: str, n_train, n_valid, n_test=0, size=(336, 448), seed=0):
+    """TN3K (``trainval-*`` with a fold-0 split, ``test-*``) or TG3K
+    (``thyroid-*`` with one split) JPGs: a bright ellipse on noise, masks 0/255."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    hh, ww = size
+    yy, xx = np.mgrid[0:hh, 0:ww]
+    dirs = ({"trainval": ("trainval-image", "trainval-mask"), "test": ("test-image", "test-mask")}
+            if layout == "tn3k" else {"trainval": ("thyroid-image", "thyroid-mask")})
+    for img_dir, mask_dir in dirs.values():
+        (root / img_dir).mkdir(parents=True, exist_ok=True)
+        (root / mask_dir).mkdir(parents=True, exist_ok=True)
+
+    def write(img_dir, mask_dir, name):
+        cy, cx = rng.uniform(0.3, 0.7) * hh, rng.uniform(0.3, 0.7) * ww
+        ry, rx = rng.uniform(0.1, 0.25) * hh, rng.uniform(0.1, 0.25) * ww
+        mask = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0).astype(np.uint8)
+        image = np.clip(70.0 + 90.0 * mask + rng.normal(0.0, 20.0, size), 0, 255)
+        Image.fromarray(image.astype(np.uint8)).save(root / img_dir / f"{name}.jpg", quality=95)
+        Image.fromarray(mask * 255).save(root / mask_dir / f"{name}.jpg", quality=95)
+
+    ids = list(range(n_train + n_valid))
+    for i in ids:
+        write(*dirs["trainval"], f"{i:04}")
+    for i in range(n_test):
+        write(*dirs["test"], f"{i:04}")
+    split = json.dumps({"train": ids[:n_train], "val": ids[n_train:]})
+    (root / ("tn3k-trainval-fold0.json" if layout == "tn3k" else "tg3k-trainval.json")).write_text(
+        split)
+
+
+def tree_to(tree, device):
+    """A recipe's parameter tree (dicts, lists, tensors) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def near_ties(np, matrices, fire, h, w, tol=1e-4):
+    """Pixels of the fired samples whose nearest-warp source coordinate lies
+    within ``tol`` of a .5 rounding tie, from the float32 matrices in float64."""
+    m = matrices.cpu().numpy().astype(np.float64)[fire.cpu().numpy()]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    count = 0
+    for mi in m:
+        for row in range(2):
+            src = mi[row, 0] * xs + mi[row, 1] * ys + mi[row, 2]
+            count += int((np.abs(src - np.floor(src) - 0.5) < tol).sum())
+    return count
+
+
+def acdc_thyroid_phase(torch, device, workdir: Path, sl):
+    import numpy as np
+
+    from mia_tpu_torch.data import DATASETS, ACDCDataset, collate
+    from mia_tpu_torch.models import UNet
+    from mia_tpu_torch.training import ALTrainer
+    from mia_tpu_torch.transforms import get_train_transform
+
+    kernel_counts = counters()
+    for fn in kernel_counts.values():
+        fn.launches = 0
+    card = card_line()
+
+    # --- ACDC: 2 rounds of 20 iterations, volume-mode validation and test
+    InMemoryACDC, spacings = write_in_memory_acdc(np, ACDCDataset, workdir / "acdc")
+    split_s = {}  # (round, part) -> seconds
+
+    def timed_part(part):
+        def wrap(orig):
+            def run(self, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(self, *args)
+                torch.cuda.synchronize()
+                key = (self.current_round, part)
+                split_s[key] = split_s.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return run
+        return wrap
+
+    def timed_selector(orig):
+        def setup(self):
+            orig(self)
+            select = self.active_selector.select_next_batch
+
+            def timed_select(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = select(*args, **kwargs)
+                torch.cuda.synchronize()
+                key = (self.current_round, "selection")
+                split_s[key] = split_s.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            self.active_selector.select_next_batch = timed_select
+        return setup
+
+    def round_start(orig):
+        def start(self):
+            torch.cuda.synchronize()
+            self._smoke_round_t0 = time.perf_counter()
+            return orig(self)
+        return start
+
+    def round_end(orig):
+        def end(self):
+            r = self.current_round
+            out = orig(self)
+            torch.cuda.synchronize()
+            split_s[(r, "round")] = time.perf_counter() - self._smoke_round_t0
+            return out
+        return end
+
+    rounds, iters, budget, batch = 2, 20, 8, 12
+    hooks = {"train_step": timed_part("train"), "valid": timed_part("valid"),
+             "perform_real_test": timed_part("test"), "_setup_active_selector": timed_selector,
+             "on_round_start": round_start, "on_round_end": round_end}
+    argv = ["--work-path", str(workdir / "acdc_work"), "--data-path", str(workdir / "acdc"),
+            "--device", "cuda", "--dataset", "ACDC", "--in-channels", "1", "--num-classes", "3",
+            "--image-size", "256", "256", "--batch-size", str(batch), "--do-augment",
+            "--do-oversample", "--active-selector", "entropy", "--budget", str(budget),
+            "--num-rounds", str(rounds), "--num-iters", str(iters), "--valid-freq-iter", "10",
+            "--quiet"]
+    DATASETS["acdc"], original = InMemoryACDC, DATASETS["acdc"]
+    try:
+        t0 = time.perf_counter()
+        trainer, rec = run_al(torch, argv, hooks)
+        acdc_s = time.perf_counter() - t0
+    finally:
+        DATASETS["acdc"] = original
+    work = trainer.work_path
+    check(trainer.config.valid_mode == "volumn", "ACDC ran without volume-mode validation")
+    check(all(p.device.type == "cuda" for p in trainer.model.parameters()),
+          "ACDC: UNet parameters are not on CUDA")
+    check(trainer.model.encoder.levels[4][1].all[0].weight.shape[0] == 512,
+          "ACDC: UNet is not at full width")
+    check(len(rec["losses"]) == rounds * iters and all(math.isfinite(x) for x in rec["losses"]),
+          f"ACDC: train losses {rec['losses']}")
+    sizes = [len(json.loads((work / f"round_{r}/data_list.json").read_text())
+                 ["labeled_image_idx"]) for r in range(rounds)]
+    check(sizes == [budget * (r + 1) for r in range(rounds)], f"ACDC: labeled sizes {sizes}")
+    for r in range(rounds):
+        rows = (work / f"test_mean_round_{r}.csv").read_text().splitlines()
+        header = rows[0].split(",")
+        check(len(rows) == 5 and all(f"{c}-{m}" in header for c in ("RV", "Myo", "LV")
+                                     for m in ("DSC", "HD", "ASD", "JSD")),
+              f"ACDC: test_mean_round_{r}.csv malformed: {rows[:2]}")
+        dsc = [float(row.split(",")[header.index(f"{c}-DSC")]) for row in rows[1:]
+               for c in ("RV", "Myo", "LV")]
+        check(all(math.isfinite(x) for x in dsc), f"ACDC: round {r} test DSC {dsc}")
+    check(any(math.isfinite(float(x)) for x in rows[1].split(",")[header.index("RV-HD")::4]),
+          "ACDC: no finite per-class HD in the last test")
+
+    # the same predictions of one valid volume, metrics on the card and on the CPU
+    valid = trainer.valid_dataset
+    vol_batch = collate([valid.get_sample(0)])
+    check(vol_batch["image"].shape == (1, 10, 216, 256, 1), f"ACDC volume {vol_batch['image'].shape}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        pred, labels, loss, spacing, volume = trainer._eval_predict(vol_batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(volume and pred.shape == (10, 216, 256) and pred.device.type == "cuda",
+          "ACDC: the valid volume was not evaluated as one volume on the card")
+    # the JAX package's order: (z, y, x) rolled by one
+    want_sp = tuple(np.roll(np.float32(spacings[valid.samples_list[0]]), 1).tolist())
+    check(tuple(float(v) for v in spacing) == want_sp, f"ACDC: metric spacing {spacing}")
+    on_card = [t.cpu().numpy().astype(np.float64)
+               for t in trainer._eval_metrics(pred, labels, spacing, True)]
+    on_cpu = [t.numpy().astype(np.float64)
+              for t in trainer._eval_metrics(pred.cpu(), labels.cpu(), spacing, True)]
+    metric_err = 0.0
+    for got, want in zip(on_card, on_cpu):
+        check(np.array_equal(got[..., [0, 3]], want[..., [0, 3]]),
+              f"ACDC: DSC/JC card {got[..., [0, 3]]} vs CPU {want[..., [0, 3]]}")
+        g, w = got[..., [1, 2]], want[..., [1, 2]]
+        check(np.array_equal(np.isfinite(g), np.isfinite(w)) and np.array_equal(
+            g[~np.isfinite(g)], w[~np.isfinite(w)], equal_nan=True),
+              f"ACDC: non-finite HD/ASD differ: {g} vs {w}")
+        fin = np.isfinite(w)
+        if fin.any():
+            metric_err = max(metric_err, float(np.max(np.abs(g[fin] - w[fin])
+                                                      / np.maximum(np.abs(w[fin]), 1e-30))))
+    check(metric_err <= METRIC_TOL, f"ACDC: HD/ASD card vs CPU relative {metric_err}")
+    check(int(np.isfinite(on_cpu[1][..., 1]).sum()) >= 2, "ACDC: too few finite HDs to compare")
+    eval_times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._finalize_eval(*trainer._eval_batch(vol_batch))
+        eval_times.append(time.perf_counter() - t0)
+    volume_ms = statistics.median(eval_times[1:]) * 1e3
+
+    # the acdc recipe on one batch, card against CPU, from the same drawn parameters
+    train_ds = InMemoryACDC(workdir / "acdc", split="train", image_channels=1, image_size=(256, 256))
+    samples = collate([train_ds.get_sample(i) for i in range(batch)])
+    img = torch.from_numpy(samples["image"])
+    lbl = torch.from_numpy(samples["label"]).long()
+    recipe = get_train_transform("acdc")
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = recipe.draw(gen, tuple(img.shape), device)
+    k1_before = kernel_counts["K1"].launches
+    card_img, card_lbl = recipe.apply(params, img.to(device), lbl.to(device))
+    torch.cuda.synchronize()
+    cpu_img, cpu_lbl = recipe.apply(tree_to(params, "cpu"), img, lbl)
+    check(kernel_counts["K1"].launches == k1_before, "the acdc recipe launched K1")
+    check(torch.equal(card_img.cpu(), cpu_img) and torch.equal(card_lbl.cpu(), cpu_lbl),
+          f"acdc recipe: card and CPU differ at {int((card_img.cpu() != cpu_img).sum())} image "
+          f"and {int((card_lbl.cpu() != cpu_lbl).sum())} label pixels")
+    affine = params["stages"][1]
+    ties = near_ties(np, affine["inner"]["matrix"], affine["fire"], 256, 256)
+    fired = [int(params["stages"][i]["fire"].sum()) for i in range(2)]
+    check(min(fired) > 0, f"acdc recipe: a gate never fired in the batch {fired}")
+
+    # --- TN3K: residual blocks, instance norm, deep supervision, adamw
+    write_thyroid(workdir / "tn3k", "tn3k", 48, 8, 8)
+    saved, heads0, steps, last_batch = {}, {}, [], []
+
+    def capture_start(orig):
+        def run(self):
+            heads0.update({k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()
+                           if ".ds." in k})
+            return orig(self)
+        return run
+
+    def capture_save(orig):
+        def save(self, save_path, save_training_state=False, model_state=None):
+            orig(self, save_path, save_training_state, model_state)
+            if Path(save_path).name in ("best_model", "final_model"):
+                state = self.model.state_dict() if model_state is None else model_state
+                opt = self.state.optimizer
+                saved[Path(save_path).name] = (
+                    {k: v.detach().cpu().clone() for k, v in state.items()},
+                    (opt.count, [t.cpu().clone() for t in opt.mu], [t.cpu().clone() for t in opt.nu])
+                    if save_training_state else None)
+        return save
+
+    def timed_step(orig):
+        def step(self, batch_):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(self, batch_)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            last_batch[:] = [batch_]
+        return step
+
+    tn_iters, weight_decay = 10, 0.05
+    tn3k, tn_rec = run_al(torch, [
+        "--work-path", str(workdir / "tn3k_work"), "--data-path", str(workdir / "tn3k"),
+        "--device", "cuda", "--dataset", "tn3k", "--in-channels", "1", "--num-classes", "1",
+        "--image-size", "256", "256", "--batch-size", str(batch), "--do-augment",
+        "--block-type", "res", "--block-normalization", "instance", "--deep-supervision",
+        "--ds-layer", "3", "--optimizer", "adamw", "--weight-decay", str(weight_decay),
+        "--lr-warmup-iter", "2", "--active-selector", "entropy", "--budget", "16",
+        "--num-rounds", "1", "--num-iters", str(tn_iters), "--valid-freq-iter", "5", "--quiet",
+    ], {"on_train_start": capture_start, "save_state_dict": capture_save,
+        "train_step": timed_step})
+    check(len(tn_rec["losses"]) == tn_iters and all(math.isfinite(x) for x in tn_rec["losses"]),
+          f"TN3K: losses {tn_rec['losses']}")
+    cfg = tn3k.model.cfg
+    check((cfg.block_type, cfg.normalization, cfg.deep_supervision, cfg.ds_levels)
+          == ("res", "instance", True, [1, 2]) and cfg.channels_list[-1] == 512,
+          f"TN3K: UNet {cfg}")
+    state = tn3k.model.state_dict()
+    check(sorted(k for k in state if ".ds." in k) == sorted(heads0) and len(heads0) == 4
+          and not any("running_mean" in k for k in state), "TN3K: heads or norms malformed")
+    tn_work = tn3k.work_path
+    final_sd, final_opt = read_al_checkpoint(torch, tn3k, tn_work / "round_0/final_model")
+    best_sd, _ = read_al_checkpoint(torch, tn3k, tn_work / "round_0/best_model")
+    want_sd, (count, mu, nu) = saved["final_model"]
+    check(set(final_sd) == set(want_sd) and all(torch.equal(final_sd[k], want_sd[k])
+                                                for k in want_sd),
+          "TN3K: final_model/model.msgpack differs from the trainer's memory")
+    check(final_opt.count == count and all(torch.equal(a.cpu(), b) for a, b in zip(
+        (*final_opt.mu, *final_opt.nu), (*mu, *nu))),
+          "TN3K: final_model/opt_state.msgpack differs from the trainer's memory")
+    check(all(torch.equal(best_sd[k], v) for k, v in saved["best_model"][0].items()),
+          "TN3K: best_model/model.msgpack differs from the trainer's memory")
+    # the heads: zero gradient, so adamw's decay alone, p ← p − lr·wd·p each step
+    head_err = 0.0
+    for k, p0 in heads0.items():
+        want = p0.clone()
+        for step in range(tn_iters):
+            want = want - float(tn3k.lr_schedule(step)) * (weight_decay * want)
+        got = want_sd[k]
+        # a zero bias stays zero under decay; the kernels must move
+        check(not torch.equal(got, p0) or not p0.any(), f"TN3K: head {k} did not move")
+        head_err = max(head_err, ((got - want).abs().max() / want.abs().max()).item())
+    check(head_err <= 1e-6, f"TN3K: heads off optax's decay by {head_err} relative")
+    # one forward of this UNet on the card against the CPU, float32 convolutions
+    cpu_unet = UNet(cfg)
+    cpu_unet.load_state_dict({k: v.cpu() for k, v in state.items()})
+    cpu_unet.eval()
+    tn3k.model.eval()
+    x = torch.rand((2, 256, 256, 1), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want_out = cpu_unet(x, return_ds=True)
+        try:
+            torch.backends.cudnn.allow_tf32 = False
+            got_out = [t.cpu() for t in tn3k.model(x.to(device), return_ds=True)]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    fwd_err = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got_out, want_out))
+    check(len(got_out) == 3 and fwd_err <= 1e-4,
+          f"TN3K: UNet outputs card vs CPU {fwd_err} of max |logit|")
+    header = (tn_work / "test_mean_round_0.csv").read_text().splitlines()[0]
+    check(header.endswith("thyroid-DSC,thyroid-HD,thyroid-ASD,thyroid-JSD"), f"TN3K: {header}")
+    tn_step_ms = statistics.median(steps[3:]) * 1e3
+    skip_err, skip_ms = residual_skip_forms(torch, tn3k, x.to(device), got_out[0], last_batch[0])
+
+    # --- TG3K: its registry entry and split (test == valid) on the machine
+    write_thyroid(workdir / "tg3k", "tg3k", 24, 8)
+    tg3k, tg_rec = run_al(torch, [
+        "--work-path", str(workdir / "tg3k_work"), "--data-path", str(workdir / "tg3k"),
+        "--device", "cuda", "--dataset", "tg3k", "--num-classes", "1", "--image-size", "256",
+        "256", "--batch-size", str(batch), "--do-augment", "--budget", "12", "--num-rounds", "1",
+        "--num-iters", "4", "--valid-freq-iter", "2", "--quiet"])
+    tg_rows = (tg3k.work_path / "test_mean_round_0.csv").read_text().splitlines()
+    check(len(tg_rec["losses"]) == 4 and len(tg_rows) == 9, f"TG3K: {len(tg_rows)} test rows")
+
+    launched = {k: fn.launches for k, fn in kernel_counts.items() if fn.launches}
+    check(not launched, f"the ACDC and thyroid phase launched hand kernels: {launched}")
+
+    parts = {r: {part: round(split_s.get((r, part), 0.0), 3)
+                 for part in ("round", "train", "valid", "test", "selection")}
+             for r in range(rounds)}
+    print(f"acdc: {rounds} AL rounds x {iters} iters at width 32..512, 256^2, batch {batch}, "
+          f"volume-mode validation of 4 and test of 4 volumes (10 x 216 x 256); labeled {sizes}; "
+          f"losses first {rec['losses'][0]:.4f} last {rec['losses'][-1]:.4f}; total {acdc_s:.1f} s")
+    print(f"acdc: round seconds by part {parts} [{card}]")
+    print(f"acdc: one volume evaluation {volume_ms:.2f} ms (median of 5, TF32 convolutions) "
+          f"[{card}]; card vs CPU volume metrics: DSC/JC equal, HD/ASD max relative "
+          f"{metric_err:.3g}")
+    print(f"acdc: recipe card vs CPU equal on ({batch}, 256, 256, 1), gates fired {fired}, "
+          f"{ties} source coordinates within 1e-4 of a .5 tie; K1 launches 0")
+    print(f"tn3k: res + instance + deep supervision (heads on levels {cfg.ds_levels}), adamw "
+          f"wd {weight_decay}: train step median {tn_step_ms:.2f} ms vs the slice phase's plain "
+          f"step {sl['step_ms']:.2f} ms (batch {batch}, 256^2) [{card}]; checkpoints equal the "
+          f"trainer's memory; heads decayed within {head_err:.3g} of optax; UNet card vs CPU "
+          f"{fwd_err:.3g} of max |logit|")
+    print(f"tn3k: residual skip as a stride-2 1x1 conv (the card's) against the CPU's form, a "
+          f"stride-1 1x1 conv of every 2nd pixel: logits within {skip_err:.3g} of max (float32 "
+          f"convolutions); train step median {skip_ms['strided'][0]:.2f} / "
+          f"{skip_ms['strided'][1]:.2f} ms strided, {skip_ms['slice'][0]:.2f} / "
+          f"{skip_ms['slice'][1]:.2f} ms sliced (in turns) [{card}]")
+    print(f"tg3k: 1 round x 4 iters, test on the valid split ({len(tg_rows) - 1} cases)")
+    return {"launches": {}, "acdc_round_s": parts, "acdc_total_s": round(acdc_s, 2),
+            "volume_eval_ms": round(volume_ms, 3), "volume_metric_rel_err": metric_err,
+            "recipe_ties": ties, "tn3k_step_ms": round(tn_step_ms, 3),
+            "slice_step_ms": round(sl["step_ms"], 3), "tn3k_forward_err": fwd_err,
+            "tn3k_head_decay_err": head_err, "residual_skip_step_ms": skip_ms,
+            "residual_skip_logit_err": skip_err}
+
+
+def residual_skip_forms(torch, trainer, x, logits, batch):
+    """The residual blocks' skip as the port runs it on the card (a stride-s
+    1x1 conv) against its CPU form (a stride-1 1x1 conv on every s-th pixel),
+    on the card: the largest logit difference of one eval forward of ``x``
+    in the CPU form against ``logits`` (float32 convolutions), and the train
+    step's median ms of each form, run in turns, on ``batch``. Trains the
+    model further."""
+    import torch.nn.functional as F
+
+    from mia_tpu_torch.models.unet import ResidualBlock
+
+    def sliced(self, x_, generator=None):
+        conv, norm, dropout, act = self.all
+        out = act(dropout(norm(conv(x_)), generator))
+        if self.downsample_skip is None:
+            return x_ + out
+        skip_conv, skip_norm = self.downsample_skip
+        s = self.stride
+        return skip_norm(F.conv2d(x_[:, :, ::s, ::s], skip_conv.weight, skip_conv.bias)) + out
+
+    strided = ResidualBlock.forward
+    tf32 = torch.backends.cudnn.allow_tf32
+
+    def median_step_ms(n=10):
+        times = []
+        for _ in range(n + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._train_step(trainer.state, batch["image"], batch["label"], trainer.generator)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[2:]) * 1e3
+
+    ms = {"strided": [], "slice": []}
+    try:
+        ResidualBlock.forward = sliced
+        trainer.model.eval()
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            got = trainer.model(x, return_ds=True)[0].cpu()
+        torch.backends.cudnn.allow_tf32 = tf32
+        err = ((got - logits).abs().max() / logits.abs().max()).item()
+        check(err <= 1e-5, f"TN3K: the CPU's sliced skip lies {err} of max from the card's")
+        for form in ("strided", "slice", "strided", "slice"):
+            ResidualBlock.forward = strided if form == "strided" else sliced
+            ms[form].append(round(median_step_ms(), 3))
+    finally:
+        ResidualBlock.forward = strided
+        torch.backends.cudnn.allow_tf32 = tf32
+    return err, ms
+
 
 # ---------------------------------------------------------------------------
 # selector phase: every AL selector on the card against the CPU, then
@@ -741,6 +1229,41 @@ def slice_phase(torch, workdir: Path):
 NEW_SELECTORS = ("confidence", "margin", "coreset-l2", "coreset-cosine", "kmean-l2",
                  "kmean-cosine", "badge")
 SELECT_TOL = 1e-4  # card (float32 convolutions) against CPU, of the largest |value|
+ARGMAX_GAP = 1e-4  # card vs CPU: a pixel's argmax may differ below this top-2 logit gap
+
+
+def argmax_flips(torch, np, card, host, ds, device):
+    """Per image of ``ds``, how many pixels' argmax differs between the card's
+    and the CPU's logits (float32 convolutions), the largest of the CPU's
+    top-2 gaps at those pixels (0.0 when none differs), and the card's argmax
+    maps (N, H, W)."""
+    from mia_tpu_torch.activelearning import sweep_pool
+
+    def logits(scorer):
+        def fn(images):
+            with torch.no_grad():
+                return scorer.model(scorer._prep(images)).to(torch.float32)
+        return fn
+
+    got = sweep_pool(ds, 8, lambda im: logits(card)(im).argmax(-1), device)[0]
+    want = torch.from_numpy(sweep_pool(ds, 8, logits(host.scorer), torch.device("cpu"))[0])
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()
+    differ = got != want.argmax(-1).numpy()
+    return differ.sum((1, 2)), float(gap[differ].max()) if differ.any() else 0.0, got
+
+
+def with_label_maps(torch, fn, maps, device):
+    """``fn(images, preds=...)`` for ``sweep_pool``: each call takes the next
+    rows of ``maps`` (N, H, W), in the sweep's order."""
+    taken = [0]
+
+    def run(images):
+        n = len(images)
+        preds = torch.from_numpy(maps[taken[0]:taken[0] + n]).to(device)
+        taken[0] += n
+        return fn(images, preds=preds)
+    return run
 
 
 class CachedScorer:
@@ -1000,6 +1523,15 @@ def selector_phase(torch, device, workdir: Path, sl):
 
     torch.backends.cudnn.allow_tf32 = False
     try:
+        # BADGE differentiates against the model's own argmax, which may flip
+        # between the devices where a pixel's top-2 logits nearly tie: both
+        # embeddings are taken against the card's argmax maps, and every flip
+        # is held to its top-2 gap
+        flips, flip_gap, card_maps = argmax_flips(torch, np, card, host, pool, device)
+        check(flip_gap < ARGMAX_GAP,
+              f"badge: argmax differs at {int(flips.sum())} pixels of "
+              f"{int((flips > 0).sum())} images, top-2 gap up to {flip_gap:.3g}")
+        badge_flips = (int(flips.sum()), int((flips > 0).sum()))
         holds = {}
         for name, fn_card, fn_host, ds, bs in (
                 ("confidence", lambda im: card.uncertainty(im, "confidence"),
@@ -1007,13 +1539,15 @@ def selector_phase(torch, device, workdir: Path, sl):
                 ("margin", lambda im: card.uncertainty(im, "margin"),
                  lambda im: host.uncertainty(im, "margin"), pool, 12),
                 ("enc_feature", card.enc_feature, host.enc_feature, pool, 12),
-                ("badge", card.badge_grad_embedding, host.badge_grad_embedding, pool, 8)):
+                ("badge", with_label_maps(torch, card.badge_grad_embedding, card_maps, device),
+                 with_label_maps(torch, host.scorer.badge_grad_embedding, card_maps, cpu),
+                 pool, 8)):
             got, names_card = sweep_pool(ds, bs, fn_card, device)
             want, names_host = sweep_pool(ds, bs, fn_host, cpu)
             check(names_card == names_host and got.shape == want.shape,
                   f"{name}: the sweeps differ in shape or order")
             scale = float(np.abs(want).max())
-            holds[name] = float(np.abs(got - want).max()) / scale
+            holds[name] = float(np.abs(got - want).max() / scale)
             check(np.isfinite(got).all() and holds[name] <= SELECT_TOL,
                   f"{name} on the card vs the CPU: {holds[name]:.3g} of max |value| {scale:.3g}")
         feats = torch.from_numpy(np.concatenate([
@@ -1039,8 +1573,10 @@ def selector_phase(torch, device, workdir: Path, sl):
         check(torch.equal(a, b), f"k-means++ core: CPU {a.tolist()}, card {b.tolist()}")
     print(f"selectors: card vs CPU (float32 convolutions) of max |value|: "
           + ", ".join(f"{k} {v:.3g}" for k, v in holds.items())
-          + f" (limit {SELECT_TOL}); kcenter_greedy and the k-means++ core pick the same on "
-          f"both devices; picks equal on both devices for every selector"
+          + f" (limit {SELECT_TOL}; badge on every image, both against the card's argmax maps, "
+          f"which differ from the CPU's at {badge_flips[0]} pixels of {badge_flips[1]} images, "
+          f"each within {ARGMAX_GAP} of a tie); kcenter_greedy and the k-means++ "
+          f"core pick the same on both devices; picks equal on both devices for every selector"
           + (f" but {', '.join(differ)}" if differ else ""))
     print(f"selectors: selection ms on the card, pool {len(pool)}, labeled {len(labeled)}, "
           f"budget {budget}, sweep included (TF32 convolutions): "
@@ -1147,7 +1683,9 @@ def selector_phase(torch, device, workdir: Path, sl):
           f"(coreset-cosine) from round {start_round} with round 0's best model (first logits "
           f"max |diff| {err:.3g}), BUSI 448x560 kmean-cosine 2 rounds; seconds {runs}; "
           f"K1 launches {launches}, one a train step")
-    return {"launches": launches, "select_ms": select_ms, "holds": holds, "runs_s": runs,
+    return {"launches": launches, "select_ms": select_ms, "holds": holds,
+            "badge_flips": dict(zip(("pixels", "images"), badge_flips)),
+            "runs_s": runs,
             "differ": differ}
 
 
@@ -3473,6 +4011,7 @@ def main(argv=None) -> int:
         demo = timed("demo and checkpoints", demo_phase, torch, device, Path(tmp), sl)
         del sl["trainer"], sl["saved"]
         fugc = timed("FUGC K-fold", fugc_phase, torch, device, Path(tmp))
+        acdc_th = timed("ACDC and thyroid", acdc_thyroid_phase, torch, device, Path(tmp), sl)
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
         route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
         del cpc_trainer, acdc
@@ -3532,6 +4071,7 @@ def main(argv=None) -> int:
                         "cpcsam": {k: v for k, v in cpc.items() if k not in ("launches", "log")},
                         "route_training": route_train["routes"],
                         "fugc": {k: v for k, v in fugc.items() if k not in ("launches", "log")},
+                        "acdc_thyroid": {k: v for k, v in acdc_th.items() if k != "launches"},
                         "k10_serving": {k: v for k, v in serving_k10.items() if k != "launches"},
                         **kernels, **result}, indent=1))
     print(card)

@@ -69,10 +69,11 @@ class ModelScorer:
         self.model.eval()
         return self.model.enc_feature(self._prep(images)).to(torch.float32)
 
-    def badge_grad_embedding(self, images) -> torch.Tensor:
+    def badge_grad_embedding(self, images, preds=None) -> torch.Tensor:
         """Per image, the gradient of ``CE + soft Dice (with background)``
-        against the model's own argmax with respect to the seg head's 1×1
-        weight, flattened in flax's ``(Cin, Cout)`` order → ``(B, Cin·Cout)``.
+        against the model's own argmax (or the label maps ``preds`` given,
+        ``(B, H, W)``) with respect to the seg head's 1×1 weight, flattened
+        in flax's ``(Cin, Cout)`` order → ``(B, Cin·Cout)``.
 
         The head is linear in the pre-head features ``f``, so the weight
         gradient of image b is ``Σ_pixels f ⊗ ∂L_b/∂logits``: one forward,
@@ -83,7 +84,8 @@ class ModelScorer:
         with torch.no_grad():
             logits, feature = self.model.pixel_feature(self._prep(images))
         logits = logits.to(torch.float32).requires_grad_(True)
-        preds = logits.detach().argmax(-1)
+        if preds is None:
+            preds = logits.detach().argmax(-1)
         with torch.enable_grad():
             loss = cross_entropy(logits, preds) + soft_dice_loss(logits, preds, do_bg=True)
             (g,) = torch.autograd.grad(loss * logits.shape[0], logits)

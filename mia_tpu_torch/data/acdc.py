@@ -6,6 +6,8 @@ per-case raw-spacing CSV. Train samples are ``(H, W, C)``; valid/test are
 
 Copied from ``mia_tpu/data/acdc.py`` (host-only; ``mia_tpu/data/__init__``
 imports the JAX loader); ``h5py`` is imported only where a file is read.
+Every case is read by :meth:`ACDCDataset.read_case`, so a subclass can serve
+the same cases from memory (a machine without h5py).
 """
 
 from __future__ import annotations
@@ -95,10 +97,11 @@ class ACDCDataset(BaseDataset):
         if self.num is not None and self.split == "train":
             self.samples_list = self.samples_list[: self.num]
 
-    def get_sample(self, index: int, normalize: bool = True) -> dict:
+    def read_case(self, case: str) -> tuple[np.ndarray, np.ndarray]:
+        """The float32 image and int32 label of ``case``: an ``(H, W)``
+        slice for train, a ``(D, H, W)`` volume for valid/test."""
         import h5py
 
-        case = self.samples_list[index]
         if self.split == "train":
             path = self.data_path / f"{self.SAMPLES_DIR}/slices/{case}.h5"
         else:
@@ -110,6 +113,11 @@ class ACDCDataset(BaseDataset):
                 raise RuntimeError(f"Case {case}.h5 does not have label field")
             image = np.asarray(h5f["image"], dtype=np.float32)
             label = np.asarray(h5f["label"], dtype=np.int32)
+        return image, label
+
+    def get_sample(self, index: int, normalize: bool = True) -> dict:
+        case = self.samples_list[index]
+        image, label = self.read_case(case)
 
         # train: (H, W) slice → (H, W, C); valid/test: (D, H, W) → (D, H, W, C)
         image = np.repeat(image[..., None], self.image_channels, axis=-1)

@@ -12,7 +12,11 @@ reference's own UNet:
   spatially flipped (``lax.conv_transpose`` correlates where torch's
   transposed convolution convolves);
 - BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` →
-  ``weight``/``bias``/``running_mean``/``running_var``.
+  ``weight``/``bias``/``running_mean``/``running_var``; an instance norm has
+  no ``batch_stats`` and no running statistics;
+- residual blocks' ``skip_conv``/``skip_norm`` → ``downsample_skip.{0,1}``
+  (their own norm sits at ``.all.1``), deep-supervision heads
+  ``ds{l}_conv`` → ``decoder.ds.{l}.0``.
 
 ``legacy_unet_state_dict_from_flax(variables)`` does the same for the JAX
 ``LegacyUNet`` (``inc``, ``downs_{i}``, ``up_tconv{i}``, ``up_convs_{i}``,
@@ -45,30 +49,50 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().cpu().numpy(), order="C", copy=True)
 
 
-def _block(sd: dict, prefix: str, params: Mapping, stats: Mapping | None) -> None:
-    sd[f"{prefix}.all.0.weight"] = _t(np.asarray(params["conv"]["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{prefix}.all.0.bias"] = _t(params["conv"]["bias"])
-    sd[f"{prefix}.all.2.weight"] = _t(params["norm"]["scale"])
-    sd[f"{prefix}.all.2.bias"] = _t(params["norm"]["bias"])
+def _norm_from_flax(sd: dict, prefix: str, params: Mapping, stats: Mapping | None) -> None:
+    sd[f"{prefix}.weight"] = _t(params["scale"])
+    sd[f"{prefix}.bias"] = _t(params["bias"])
     if stats is not None:
-        sd[f"{prefix}.all.2.running_mean"] = _t(stats["norm"]["mean"])
-        sd[f"{prefix}.all.2.running_var"] = _t(stats["norm"]["var"])
-        sd[f"{prefix}.all.2.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+        sd[f"{prefix}.running_var"] = _t(stats["var"])
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def _conv_from_flax(sd: dict, prefix: str, params: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(params["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.bias"] = _t(params["bias"])
+
+
+def _block(sd: dict, prefix: str, params: Mapping, stats: Mapping | None, res: bool) -> None:
+    """A plain block (norm at ``.all.2``) or a residual one (norm at
+    ``.all.1``, skip at ``.downsample_skip.{0,1}``)."""
+    _conv_from_flax(sd, f"{prefix}.all.0", params["conv"])
+    _norm_from_flax(sd, f"{prefix}.all.{1 if res else 2}", params["norm"],
+                    stats["norm"] if stats else None)
+    if "skip_conv" in params:
+        _conv_from_flax(sd, f"{prefix}.downsample_skip.0", params["skip_conv"])
+        _norm_from_flax(sd, f"{prefix}.downsample_skip.1", params["skip_norm"],
+                        stats["skip_norm"] if stats else None)
 
 
 def unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax UNet ``{"params", "batch_stats"}`` → reference-named state dict."""
+    """Flax UNet ``{"params"[, "batch_stats"]}`` → reference-named state dict.
+
+    Plain or residual blocks (a UNet with any ``skip_conv`` is residual),
+    batch norm (with ``batch_stats``) or instance norm (without), and the
+    deep-supervision heads ``ds{l}_conv`` → ``decoder.ds.{l}.0``."""
     params = variables["params"]
     stats = variables.get("batch_stats") or None
     enc, dec = params["encoder"], params["decoder"]
     num_levels = sum(1 for k in enc if k.endswith("_block0"))
+    res = any("skip_conv" in block for scope in (enc, dec) for block in scope.values())
 
     sd: dict[str, torch.Tensor] = {}
     for level in range(num_levels):
         for b in range(2):
             name = f"level{level}_block{b}"
             _block(sd, f"encoder.levels.{level}.{b}", enc[name],
-                   stats["encoder"][name] if stats else None)
+                   stats["encoder"][name] if stats else None, res)
     for l in range(num_levels - 1):
         kernel = np.asarray(dec[f"up{l}"]["kernel"])[::-1, ::-1]
         sd[f"decoder.upsamples.{l}.weight"] = _t(kernel.transpose(2, 3, 0, 1))
@@ -76,9 +100,10 @@ def unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.T
         for b in range(2):
             name = f"level{l}_block{b}"
             _block(sd, f"decoder.levels.{l}.{b}", dec[name],
-                   stats["decoder"][name] if stats else None)
-    sd["decoder.seg_output.weight"] = _t(np.asarray(dec["seg_output"]["kernel"]).transpose(3, 2, 0, 1))
-    sd["decoder.seg_output.bias"] = _t(dec["seg_output"]["bias"])
+                   stats["decoder"][name] if stats else None, res)
+        if f"ds{l}_conv" in dec:
+            _conv_from_flax(sd, f"decoder.ds.{l}.0", dec[f"ds{l}_conv"])
+    _conv_from_flax(sd, "decoder.seg_output", dec["seg_output"])
     return sd
 
 
@@ -132,33 +157,50 @@ def _tree(params: dict, stats: dict) -> dict:
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
 
 
-def _block_to_flax(sd: Mapping, prefix: str, params: dict, stats: dict, name: str) -> None:
-    params[name] = {
-        "conv": {"kernel": _conv_kernel(sd[f"{prefix}.all.0.weight"]),
-                 "bias": _n(sd[f"{prefix}.all.0.bias"])},
-        "norm": {"scale": _n(sd[f"{prefix}.all.2.weight"]), "bias": _n(sd[f"{prefix}.all.2.bias"])},
-    }
-    if f"{prefix}.all.2.running_mean" in sd:
-        stats[name] = {"norm": {"mean": _n(sd[f"{prefix}.all.2.running_mean"]),
-                                "var": _n(sd[f"{prefix}.all.2.running_var"])}}
+def _conv_to_flax(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": _conv_kernel(sd[f"{prefix}.weight"]), "bias": _n(sd[f"{prefix}.bias"])}
+
+
+def _norm_to_flax(sd: Mapping, prefix: str, params: dict, stats: dict, name: str) -> None:
+    params[name] = {"scale": _n(sd[f"{prefix}.weight"]), "bias": _n(sd[f"{prefix}.bias"])}
+    if f"{prefix}.running_mean" in sd:
+        stats[name] = {"mean": _n(sd[f"{prefix}.running_mean"]),
+                       "var": _n(sd[f"{prefix}.running_var"])}
+
+
+def _block_to_flax(sd: Mapping, prefix: str, params: dict, stats: dict, name: str,
+                   res: bool) -> None:
+    block, block_stats = {"conv": _conv_to_flax(sd, f"{prefix}.all.0")}, {}
+    _norm_to_flax(sd, f"{prefix}.all.{1 if res else 2}", block, block_stats, "norm")
+    if f"{prefix}.downsample_skip.0.weight" in sd:
+        block["skip_conv"] = _conv_to_flax(sd, f"{prefix}.downsample_skip.0")
+        _norm_to_flax(sd, f"{prefix}.downsample_skip.1", block, block_stats, "skip_norm")
+    params[name] = block
+    if block_stats:
+        stats[name] = block_stats
 
 
 def unet_state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
-    """Reference-named UNet state dict → flax ``{"params", "batch_stats"}``."""
+    """Reference-named UNet state dict → flax ``{"params"[, "batch_stats"]}``:
+    plain or residual blocks (norm at ``.all.1``), batch or instance norm
+    (no running statistics, no ``batch_stats``), deep-supervision heads."""
     num_levels = sum(1 for k in sd
                      if k.startswith("encoder.levels.") and k.endswith(".0.all.0.weight"))
+    res = "encoder.levels.0.0.all.1.weight" in sd
     enc, dec, enc_stats, dec_stats = {}, {}, {}, {}
     for level in range(num_levels):
         for b in range(2):
             _block_to_flax(sd, f"encoder.levels.{level}.{b}", enc, enc_stats,
-                           f"level{level}_block{b}")
+                           f"level{level}_block{b}", res)
     for l in range(num_levels - 1):
         dec[f"up{l}"] = {"kernel": _tconv_kernel(sd[f"decoder.upsamples.{l}.weight"]),
                          "bias": _n(sd[f"decoder.upsamples.{l}.bias"])}
         for b in range(2):
-            _block_to_flax(sd, f"decoder.levels.{l}.{b}", dec, dec_stats, f"level{l}_block{b}")
-    dec["seg_output"] = {"kernel": _conv_kernel(sd["decoder.seg_output.weight"]),
-                         "bias": _n(sd["decoder.seg_output.bias"])}
+            _block_to_flax(sd, f"decoder.levels.{l}.{b}", dec, dec_stats, f"level{l}_block{b}",
+                           res)
+        if f"decoder.ds.{l}.0.weight" in sd:
+            dec[f"ds{l}_conv"] = _conv_to_flax(sd, f"decoder.ds.{l}.0")
+    dec["seg_output"] = _conv_to_flax(sd, "decoder.seg_output")
     stats = {"encoder": enc_stats, "decoder": dec_stats} if enc_stats else {}
     return _tree({"encoder": enc, "decoder": dec}, stats)
 

@@ -1,16 +1,28 @@
 """2D UNet in PyTorch with the JAX package's semantics.
 
-Counterpart of ``mia_tpu/models/unet.py`` in its default configuration:
-plain blocks (conv → channel dropout → BatchNorm → LeakyReLU(0.01)),
-stride-2 downsampling from level 1, ConvTranspose(k2, s2) upsampling with
+Counterpart of ``mia_tpu/models/unet.py`` (2D): two blocks a level, stride-2
+downsampling from level 1, ConvTranspose(k2, s2) upsampling with
 (skip, upsampled) concatenation, 1×1 seg head. ``einsum_upsample=True``
 builds the decoder's upsampling as :class:`EinsumConvTranspose2x` (one GEMM,
 or kernel K10 with ``use_kernel="always"``) instead of ``nn.ConvTranspose2d``;
 both carry the same parameters.
 
+- Blocks: ``plain`` (conv → channel dropout → norm → LeakyReLU(0.01)) or
+  ``res`` (conv → norm → channel dropout → LeakyReLU, plus a 1×1 conv + norm
+  skip when the channels or the stride change, added after the activation).
+- Norms: ``batch`` (below) or ``instance`` (``nn.InstanceNorm2d``: affine,
+  biased variance, eps 1e-5, instance statistics in training and in eval,
+  no running statistics — the JAX package's ``InstanceNorm``).
+- ``deep_supervision`` with ``ds_layer > 1`` builds 1×1 heads ``ds{l}`` on the
+  decoder levels ``range(num_upsample - ds_layer, num_upsample - 1)``; they
+  always exist (their parameters are in every checkpoint) and only
+  ``return_ds=True`` runs them, each resized bilinearly without
+  antialiasing to the logits' size.
 - Parameter names are the reference PyTorch UNet's
-  (``encoder.levels.{l}.{b}.all.{0,2}``, ``decoder.upsamples.{l}``,
-  ``decoder.seg_output``), so reference ``.pth`` state dicts load as they are.
+  (``encoder.levels.{l}.{b}.all.{0,2}`` for plain blocks, ``.all.{0,1}`` and
+  ``.downsample_skip.{0,1}`` for residual ones, ``decoder.upsamples.{l}``,
+  ``decoder.ds.{l}.0``, ``decoder.seg_output``), so reference ``.pth`` state
+  dicts load as they are.
 - The public layout is NHWC like the JAX package; inside, the input is
   permuted to NCHW, which for a contiguous NHWC tensor is a channels_last
   view with no copy.
@@ -19,7 +31,7 @@ both carry the same parameters.
   0.9 in flax terms (0.1 in torch terms), eps 1e-5.
 - Channel dropout draws from the caller's ``torch.Generator``.
 - Initialisation follows flax's: lecun-normal (truncated) kernels, zero
-  biases, unit BN scales.
+  biases, unit norm scales.
 """
 
 from __future__ import annotations
@@ -55,13 +67,21 @@ class UNetConfig:
     def num_levels(self) -> int:
         return len(self.channels_list)
 
+    @property
+    def ds_levels(self) -> list[int]:
+        """Decoder levels that carry a deep-supervision head."""
+        if not (self.deep_supervision and self.ds_layer > 1):
+            return []
+        n_up = self.num_levels - 1
+        return list(range(n_up - self.ds_layer, n_up - 1))
+
     def check_ported(self) -> None:
-        if (self.dimension, self.block_type, self.normalization) != (2, "plain", "batch"):
-            raise NotImplementedError(
-                "only the 2D UNet with plain blocks and batch norm is ported"
-            )
-        if self.deep_supervision:
-            raise NotImplementedError("deep supervision is not ported")
+        if self.dimension != 2:
+            raise NotImplementedError("only the 2D UNet is ported")
+        if self.block_type not in ("plain", "res"):
+            raise ValueError(f"unknown block type: {self.block_type}")
+        if self.normalization not in ("batch", "instance"):
+            raise ValueError(f"unknown normalization: {self.normalization}")
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> None:
@@ -90,6 +110,20 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _norm(cfg: UNetConfig, features: int) -> nn.Module:
+    if cfg.normalization == "instance":
+        return nn.InstanceNorm2d(features, eps=1e-5, affine=True, track_running_stats=False)
+    return FlaxBatchNorm2d(features)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    """Conv with flax's initialisation (lecun-normal kernel, zero bias)."""
+    conv = nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=True)
+    _lecun_normal_(conv.weight, cin * k * k)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
 class ChannelDropout(nn.Module):
     """flax ``Dropout(broadcast_dims=spatial)``: zero whole channels with
     probability ``p`` and scale the kept ones by ``1 / (1 - p)``."""
@@ -111,17 +145,50 @@ class PlainBlock(nn.Module):
 
     def __init__(self, cfg: UNetConfig, cin: int, cout: int, stride: int):
         super().__init__()
-        k = cfg.kernel_size
-        conv = nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=True)
-        _lecun_normal_(conv.weight, cin * k * k)
-        nn.init.zeros_(conv.bias)
-        self.all = nn.ModuleList(
-            [conv, ChannelDropout(cfg.dropout_prob), FlaxBatchNorm2d(cout), nn.LeakyReLU(0.01)]
-        )
+        self.all = nn.ModuleList([
+            _conv(cin, cout, cfg.kernel_size, stride), ChannelDropout(cfg.dropout_prob),
+            _norm(cfg, cout), nn.LeakyReLU(0.01),
+        ])
 
     def forward(self, x, generator=None):
         conv, dropout, norm, act = self.all
         return act(norm(dropout(conv(x), generator)))
+
+
+class ResidualBlock(nn.Module):
+    """conv → norm → channel dropout → LeakyReLU(0.01), plus the input, or a
+    1×1 conv + norm of it when the channels or the stride change, added
+    after the activation."""
+
+    def __init__(self, cfg: UNetConfig, cin: int, cout: int, stride: int):
+        super().__init__()
+        self.all = nn.ModuleList([
+            _conv(cin, cout, cfg.kernel_size, stride), _norm(cfg, cout),
+            ChannelDropout(cfg.dropout_prob), nn.LeakyReLU(0.01),
+        ])
+        self.stride = stride
+        self.downsample_skip = (
+            nn.Sequential(_conv(cin, cout, 1, stride), _norm(cfg, cout))
+            if cin != cout or stride != 1 else None
+        )
+
+    def forward(self, x, generator=None):
+        conv, norm, dropout, act = self.all
+        out = act(dropout(norm(conv(x)), generator))
+        if self.downsample_skip is None:
+            return x + out
+        if x.device.type == "cpu" and self.stride != 1:
+            # PyTorch's CPU backward of a strided 1x1 conv on a channels_last
+            # input corrupts the heap (torch 2.13): the same conv at stride 1
+            # on every s-th pixel, the same parameters and sums
+            skip_conv, skip_norm = self.downsample_skip
+            s = self.stride
+            return skip_norm(F.conv2d(x[:, :, ::s, ::s], skip_conv.weight, skip_conv.bias)) + out
+        return self.downsample_skip(x) + out
+
+
+def _block(cfg: UNetConfig):
+    return {"plain": PlainBlock, "res": ResidualBlock}[cfg.block_type]
 
 
 class EinsumConvTranspose2x(nn.Module):
@@ -176,13 +243,12 @@ class EinsumConvTranspose2x(nn.Module):
 class UNetEncoder(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
+        block = _block(cfg)
         self.levels = nn.ModuleList()
         prev = cfg.in_channels
         for level, c in enumerate(cfg.channels_list):
             stride = 1 if level == 0 else 2
-            self.levels.append(
-                nn.ModuleList([PlainBlock(cfg, prev, c, stride), PlainBlock(cfg, c, c, 1)])
-            )
+            self.levels.append(nn.ModuleList([block(cfg, prev, c, stride), block(cfg, c, c, 1)]))
             prev = c
 
     def forward(self, x, generator=None):
@@ -197,7 +263,9 @@ class UNetEncoder(nn.Module):
 class UNetDecoder(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
+        block = _block(cfg)
         down = list(cfg.channels_list)[::-1]  # bottleneck first
+        self.down = down
         self.upsamples = nn.ModuleList()
         self.levels = nn.ModuleList()
         for l in range(len(down) - 1):
@@ -209,14 +277,21 @@ class UNetDecoder(nn.Module):
             nn.init.zeros_(up.bias)
             self.upsamples.append(up)
             self.levels.append(
-                nn.ModuleList([PlainBlock(cfg, 2 * cout, cout, 1), PlainBlock(cfg, cout, cout, 1)])
+                nn.ModuleList([block(cfg, 2 * cout, cout, 1), block(cfg, cout, cout, 1)])
             )
-        self.seg_output = nn.Conv2d(down[-1], cfg.out_classes, 1)
-        _lecun_normal_(self.seg_output.weight, down[-1])
-        nn.init.zeros_(self.seg_output.bias)
+        # deep-supervision heads, keyed by decoder level (``decoder.ds.{l}.0``)
+        self.ds = nn.ModuleDict({
+            str(l): nn.Sequential(_conv(down[l + 1], cfg.out_classes, 1))
+            for l in cfg.ds_levels
+        })
+        self.seg_output = _conv(down[-1], cfg.out_classes, 1)
 
-    def forward(self, skips, generator=None, return_feature: bool = False):
+    def forward(self, skips, generator=None, return_feature: bool = False,
+                return_ds: bool = False):
+        from ..ops.resize import resize
+
         x = skips[-1]
+        ds_outputs = []
         for l, (up, blocks) in enumerate(zip(self.upsamples, self.levels)):
             if isinstance(up, EinsumConvTranspose2x):  # channel-last in and out: views
                 x = up(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -225,13 +300,24 @@ class UNetDecoder(nn.Module):
             x = torch.cat([skips[-(l + 2)], x], dim=1)
             for block in blocks:
                 x = block(x, generator)
+            if return_ds and str(l) in self.ds:
+                ds = self.ds[str(l)](x).permute(0, 2, 3, 1)
+                factor = self.down[l + 1] // self.down[-1]
+                ds = resize(ds, (ds.shape[1] * factor, ds.shape[2] * factor), "bilinear",
+                            antialias=False)
+                ds_outputs.append(ds.permute(0, 3, 1, 2))
+        logits = self.seg_output(x)
+        if return_ds:
+            return [logits] + ds_outputs[::-1]
         if return_feature:
-            return self.seg_output(x), x
-        return self.seg_output(x)
+            return logits, x
+        return logits
 
 
 class UNet(nn.Module):
-    """``forward(x (B, H, W, C), generator=None) -> logits (B, H, W, K)``.
+    """``forward(x (B, H, W, C), generator=None) -> logits (B, H, W, K)``;
+    with ``return_ds=True``, ``[logits, ds heads from the finest level
+    down]``, each ``(B, H, W, K)``.
 
     Feature endpoints of the AL selectors: ``enc_feature`` (the bottleneck
     averaged over space, ``(B, C)``) and ``pixel_feature`` (the logits and the
@@ -248,9 +334,12 @@ class UNet(nn.Module):
     def _skips(self, x: torch.Tensor, generator):
         return self.encoder(x.to(torch.float32).permute(0, 3, 1, 2), generator)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
-        logits = self.decoder(self._skips(x, generator), generator)
-        return logits.permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                return_ds: bool = False):
+        out = self.decoder(self._skips(x, generator), generator, return_ds=return_ds)
+        if return_ds:
+            return [o.permute(0, 2, 3, 1) for o in out]
+        return out.permute(0, 2, 3, 1)
 
     def enc_feature(self, x: torch.Tensor, generator: torch.Generator | None = None):
         return self._skips(x, generator)[-1].mean((2, 3))

@@ -11,12 +11,15 @@ from .morphology import (
 from .upsample2x import conv_transpose2x, conv_transpose2x_plain
 from .warp import (
     affine_inverse_matrix,
+    affine_warp,
     affine_warp_shift2pass,
     affine_warp_shift2pass_fused,
+    rotate_warp,
 )
 
 __all__ = [
     "affine_inverse_matrix",
+    "affine_warp",
     "affine_warp_shift2pass",
     "affine_warp_shift2pass_fused",
     "binary_border",
@@ -30,6 +33,7 @@ __all__ = [
     "pairwise_distances",
     "remove_cc",
     "remove_small_regions",
+    "rotate_warp",
     "simulate_low_res",
     "squared_edt",
     "surface_distance_stats",

@@ -28,6 +28,12 @@ def pairwise_distances(
     x = x.to(torch.float32)
     y = x if y is None else y.to(torch.float32)
     if metric in ("l2", "euclidean"):
+        # centred on y's mean the distances stay the same, and the expansion
+        # below stops cancelling when the points sit close together far from
+        # the origin (its float32 error is ~eps·|x|²: on clustered features
+        # it flipped k-means++ picks between the card and the CPU)
+        c = y.mean(0, keepdim=True)
+        x, y = x - c, y - c
         x2 = (x * x).sum(1, keepdim=True)
         y2 = (y * y).sum(1, keepdim=True)
         d2 = x2 + y2.T - 2.0 * torch.matmul(x, y.T)

@@ -1,10 +1,15 @@
-"""Nearest affine warp with split rounding — kernel K1 and its plain version.
+"""Affine warps: the direct gather, and the split-rounding nearest warp —
+kernel K1 and its plain version.
 
 Counterpart of ``mia_tpu/ops/warp.py``. Layout is the JAX package's,
 channel-last, with the batch written out instead of ``vmap``: images
 ``(B, H, W, C)``, output→input pixel matrices ``(B, 2, 3)``.
 
 - :func:`affine_inverse_matrix` — torchvision's inverse affine matrix.
+- :func:`affine_warp` / :func:`rotate_warp` — the direct gather (nearest or
+  bilinear, zero fill) that the acdc/thyroid recipe warps with. Plain
+  PyTorch, as it is plain XLA in the JAX package; it does not go through
+  K1, whose split rounding can land one source pixel away under rotation.
 - :func:`_warp_shift2pass_indices` — the split-rounding index vectors.
 - :func:`affine_warp_shift2pass` — the plain PyTorch version (any device).
 - :func:`affine_warp_shift2pass_fused` — the wrapper of the CUDA kernel
@@ -57,6 +62,77 @@ def affine_inverse_matrix(
     return torch.stack(
         [torch.stack([m00, m01, m02], -1), torch.stack([m10, m11, m12], -1)], -2
     )
+
+
+def _source_coords(matrices: torch.Tensor, h: int, w: int):
+    """``(B, H, W)`` source x and y of every output pixel, in the JAX order
+    ``m00·x + m01·y + m02`` (a multiply and two adds, no fused multiply-add,
+    so exact .5 ties round as they do there)."""
+    m = matrices.to(torch.float32)[:, :, :, None, None]
+    ys = torch.arange(h, dtype=torch.float32, device=m.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=m.device)[None, :]
+    src_x = m[:, 0, 0] * xs + m[:, 0, 1] * ys + m[:, 0, 2]
+    src_y = m[:, 1, 0] * xs + m[:, 1, 1] * ys + m[:, 1, 2]
+    return src_x, src_y
+
+
+def _gather(images: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor):
+    """``images[b, yi, xi]`` for ``(B, H', W')`` int indices (clamped), and
+    the mask of indices inside the source."""
+    bsz, h, w, c = images.shape
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    flat = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+    idx = flat.view(bsz, -1, 1).expand(-1, -1, c)
+    v = torch.gather(images.reshape(bsz, h * w, c), 1, idx).view(*xi.shape, c)
+    return v, valid[..., None]
+
+
+def affine_warp(images: torch.Tensor, matrices: torch.Tensor,
+                method: str = "bilinear") -> torch.Tensor:
+    """Warp ``(B, H, W, C)`` by output→input ``(B, 2, 3)`` matrices with a
+    direct gather, zero fill outside the source.
+
+    ``nearest`` rounds half to even (``torch.round``, like ``jnp.round``) and
+    keeps the input dtype; ``bilinear`` sums the four taps in the JAX
+    order in float32 and casts back to a floating input dtype.
+    """
+    if images.dim() != 4 or tuple(matrices.shape) != (images.shape[0], 2, 3):
+        raise ValueError(
+            f"expected (B, H, W, C) images and (B, 2, 3) matrices, got "
+            f"{tuple(images.shape)} and {tuple(matrices.shape)}"
+        )
+    _, h, w, _ = images.shape
+    src_x, src_y = _source_coords(matrices, h, w)
+    if method == "nearest":
+        v, valid = _gather(images, torch.round(src_x).to(torch.int32),
+                           torch.round(src_y).to(torch.int32))
+        return torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    if method != "bilinear":
+        raise ValueError(f"unknown warp method: {method}")
+    image = images.to(torch.float32)
+    x0, y0 = torch.floor(src_x), torch.floor(src_y)
+    wx, wy = src_x - x0, src_y - y0
+    x0i, y0i = x0.to(torch.int32), y0.to(torch.int32)
+    out = None
+    for dy, wy_ in ((0, 1.0 - wy), (1, wy)):
+        for dx, wx_ in ((0, 1.0 - wx), (1, wx)):
+            v, valid = _gather(image, x0i + dx, y0i + dy)
+            v = torch.where(valid, v, torch.zeros((), device=v.device))
+            term = v * (wx_ * wy_)[..., None]
+            out = term if out is None else out + term
+    return out.to(images.dtype) if images.dtype.is_floating_point else out
+
+
+def rotate_warp(images: torch.Tensor, angle_deg: torch.Tensor,
+                method: str = "bilinear") -> torch.Tensor:
+    """torchvision ``F.rotate`` without expand: rotate each ``(H, W, C)``
+    image by its ``(B,)`` angle about the centre pixel."""
+    bsz, h, w, _ = images.shape
+    angle = angle_deg.to(torch.float32).reshape(bsz)
+    zeros = torch.zeros(bsz, 2, dtype=torch.float32, device=angle.device)
+    m = affine_inverse_matrix(angle, zeros, torch.ones_like(angle), zeros,
+                              ((w - 1) * 0.5, (h - 1) * 0.5))
+    return affine_warp(images, m, method)
 
 
 def _warp_shift2pass_indices(matrix: torch.Tensor, h: int, w: int):

@@ -12,18 +12,27 @@ optax state). ``--model-ckpt`` and ``--init-round-path`` also read a
 reference or port ``model.pth``/``.pt``; ``--resume`` reads a directory
 written by either package.
 
-Device work per train iteration: uint8 batch → augmentation (with kernel
-K1) → z-score → UNet forward/backward → Dice+CE → clip → Adam, all eager
-on ``device``. The eval pipeline (z-score → resize to the model size →
-forward → argmax → resize back → per-class DSC/HD/ASD/JC) runs on the
-device with the per-case resize matrices as data.
+Datasets: ACDC (h5 slices to train, h5 volumes to validate and test),
+TN3K, TG3K, FUGC and BUSI, as in the JAX package. Every UNet its flags
+build runs: plain or residual blocks, batch or instance norm, deep
+supervision (the heads are trained parameters with a zero gradient: the
+loss reads the logits alone).
+
+Device work per train iteration: uint8 or float32 batch → augmentation
+(fugc/busi: the fused affines through kernel K1; acdc/thyroid: rot90 +
+mirror and a ±20° rotation by the direct gather) → z-score → UNet
+forward/backward → Dice+CE → clip → Adam, all eager on ``device``. The eval
+pipeline (z-score → resize to the model size → forward → argmax → resize
+back → per-class DSC/HD/ASD/JC) runs on the device with the per-case resize
+matrices as data, per slice, or per volume under ``--valid-mode volumn``
+(the default; ACDC's valid and test sets are volumes).
 
 ``--postprocess-mask`` denoises every predicted class map
 (``models/processor.py``) before the metrics.
 
-Every selector of the JAX package runs (``activelearning/selectors.py``),
-on FUGC and BUSI. Not ported: wandb, mesh/multi-device, volume-mode
-validation, the background pool-cache warmer.
+Every selector of the JAX package runs (``activelearning/selectors.py``).
+Not ported: wandb, mesh/multi-device, the background pool-cache warmer,
+``--compute-dtype bfloat16``.
 """
 
 from __future__ import annotations
@@ -89,7 +98,14 @@ def _eval_matrices(h: int, w: int, mh: int, mw: int):
 
 
 class ALTrainer(BaseTrainer):
-    DATASET_KEYS = {"fugc": "fugc", "busi": "busi"}
+    DATASET_KEYS = {
+        "ACDC": "acdc",
+        "acdc": "acdc",
+        "tn3k": "tn3k",
+        "tg3k": "tg3k",
+        "fugc": "fugc",
+        "busi": "busi",
+    }
 
     def __init__(
         self,
@@ -666,20 +682,40 @@ class ALTrainer(BaseTrainer):
 
     @torch.no_grad()
     def _eval_batch(self, sampled_batch):
-        """Evaluate one host batch of 2D slices on the device.
+        """Evaluate one host batch on the device.
 
-        z-score over each slice at native resolution → resize to the model
-        size → forward → argmax → nearest resize back → per-slice metrics.
-        Returns ``metric_all (n, 4)``, ``per_cls (n, C, 4)`` as device
-        tensors and the mean per-slice loss as a device scalar.
+        A batch of 2D slices ``(N, H, W, C)`` gives one metric row per slice.
+        Under ``valid_mode == "volumn"`` a ``(1, D, H, W, C)`` volume is taken
+        as its stack of D slices and gives one row: the same pipeline, then
+        one ``metric_percase`` over the whole ``(D, H, W)`` volume. Returns
+        ``metric_all (n, 4)``, ``per_cls (n, C, 4)`` as device tensors and
+        the loss as a device scalar.
         """
+        pred_nat, labels, loss, spacing, volume = self._eval_predict(sampled_batch)
+        return (*self._eval_metrics(pred_nat, labels, spacing, volume), loss)
+
+    @torch.no_grad()
+    def _eval_predict(self, sampled_batch):
+        """z-score over each slice at native resolution → resize to the model
+        size → one forward over the stack → argmax → nearest resize back →
+        (``--postprocess-mask``: denoise each slice, as the JAX package does,
+        on the map zero-padded to a multiple of 32). Returns the native-size
+        ``uint8`` prediction and the labels, ``(n, H, W)`` on the device, the
+        mean of the per-slice losses at the model size, the metric spacing
+        and whether the batch was one volume."""
         images = np.asarray(sampled_batch["image"])
-        if images.ndim == 5:
-            raise NotImplementedError("volume-mode validation is not ported")
+        labels = np.asarray(sampled_batch["label"], np.int64)
+        volume = images.ndim == 5
+        if volume:
+            if self.config.valid_mode != "volumn" or images.shape[0] != 1:
+                raise ValueError(
+                    f"a batch of volumes {images.shape} needs --valid-mode volumn and "
+                    "--valid-batch-size 1")
+            images, labels = images[0], labels[0]
         dev = self.device
         x = torch.from_numpy(images).to(dev)
         x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x.to(torch.float32)
-        labels = torch.from_numpy(np.asarray(sampled_batch["label"], np.int64)).to(dev)
+        labels = torch.from_numpy(labels).to(dev)
         n, h, w = labels.shape
         mh, mw = self._model_input_size()
         m_img_h, m_img_w, m_lbl_h, m_lbl_w, m_back_h, m_back_w = (
@@ -707,23 +743,41 @@ class ALTrainer(BaseTrainer):
         pred_nat = torch.einsum("oh,nhw->now", m_back_h, pred.to(torch.float32))
         pred_nat = torch.einsum("ow,nhw->nho", m_back_w, pred_nat).to(torch.uint8)
         if self.config.postprocess_mask:
-            pred_nat = self.model_processor.denoise_one_mask(pred_nat)
+            pred_nat = self._denoise_bucketed(pred_nat)
 
         spacing = sampled_batch.get("spacing")
         if spacing is not None and spacing[0] is not None:
+            # the JAX package's order: the (z, y, x) raw spacing rolled by one
             sp = np.roll(np.asarray(spacing[0], np.float32), 1)
             sp = tuple(np.concatenate([[1.0], sp]) if sp.size == 2 else sp)
         else:
             sp = (1.0, 1.0, 1.0)
+        return pred_nat, labels, loss, sp, volume
+
+    def _eval_metrics(self, pred_nat, labels, spacing, volume: bool):
+        """``metric_all (n, 4)`` and ``per_cls (n, C, 4)`` of ``(n, H, W)``
+        maps on their device: one row per slice (a depth-1 volume), or one
+        row for the whole volume."""
+        cases = [(pred_nat, labels)] if volume else [(p[None], g[None])
+                                                    for p, g in zip(pred_nat, labels)]
         metric_all, per_cls = [], []
-        for p, g in zip(pred_nat, labels):
-            p, g = p[None], g[None]  # a slice is a depth-1 volume
-            metric_all.append(torch.stack(metric_percase(p > 0, g > 0, sp)))
+        for p, g in cases:
+            metric_all.append(torch.stack(metric_percase(p > 0, g > 0, spacing)))
             per_cls.append(torch.stack([
-                torch.stack(metric_percase(p == c, g == c, sp))
+                torch.stack(metric_percase(p == c, g == c, spacing))
                 for c in range(1, self.config.num_classes + 1)
             ]))
-        return torch.stack(metric_all), torch.stack(per_cls), loss
+        return torch.stack(metric_all), torch.stack(per_cls)
+
+    def _denoise_bucketed(self, masks: torch.Tensor) -> torch.Tensor:
+        """``denoise_one_mask`` of ``(n, h, w)`` maps zero-padded at the bottom
+        and right to the next multiple of 32, cropped back: the JAX package's
+        eval program denoises its bucket-padded maps, so near the image's
+        edge its smoothing (reflected border) sees background beyond it."""
+        _, h, w = masks.shape
+        ph, pw = -(-h // 32) * 32, -(-w // 32) * 32
+        padded = torch.nn.functional.pad(masks, (0, pw - w, 0, ph - h))
+        return self.model_processor.denoise_one_mask(padded)[:, :h, :w]
 
     @staticmethod
     def _finalize_eval(metric_all, per_cls, loss):

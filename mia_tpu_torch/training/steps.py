@@ -31,7 +31,10 @@ def make_train_step(loss_fn: Callable, preprocess_fn: Callable | None = None):
         model.train()
         logits = model(images, generator)
         total, ce, dice = loss_fn(logits, labels)
-        grads = torch.autograd.grad(total, state.params)
+        # a parameter outside the loss (a deep-supervision head) gets a zero
+        # gradient, as under jax.grad: the clip counts it, decay still moves it
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            state.params, torch.autograd.grad(total, state.params, allow_unused=True))]
         grad_norm = state.optimizer.step(grads)
         state.step += 1
         return {

@@ -1,4 +1,4 @@
-from .common import ComposeTransform, RandomTransform, Transform
+from .common import ComposeTransform, Identity, RandomChoiceTransform, RandomTransform, Transform
 from .image import (
     RandomBrightness,
     RandomContrast,
@@ -8,19 +8,34 @@ from .image import (
     SimulateLowRes,
     contrast_blend,
 )
-from .joint import FusedRandomAffines, RandomAffine
+from .joint import (
+    FusedRandomAffines,
+    JointResize,
+    MirrorTransform,
+    RandomAffine,
+    RandomCrop2D,
+    RandomRotation,
+    RandomRotation90,
+)
 from .normalization import zscore_normalize
 from .recipes import get_train_transform
 
 __all__ = [
     "ComposeTransform",
     "FusedRandomAffines",
+    "Identity",
+    "JointResize",
+    "MirrorTransform",
     "RandomAffine",
     "RandomBrightness",
+    "RandomChoiceTransform",
     "RandomContrast",
+    "RandomCrop2D",
     "RandomGamma",
     "RandomGaussianBlur",
     "RandomGaussianNoise",
+    "RandomRotation",
+    "RandomRotation90",
     "RandomTransform",
     "SimulateLowRes",
     "Transform",

@@ -46,6 +46,11 @@ class Transform:
         return {type(self).__name__: {}}
 
 
+class Identity(Transform):
+    def apply(self, params, images, labels):
+        return images, labels
+
+
 class RandomTransform(Transform):
     """Apply ``transform`` to the samples whose gate ``u < p`` fires."""
 
@@ -69,6 +74,42 @@ class RandomTransform(Transform):
             "RandomTransform": {
                 "p": self.p,
                 "transform": self.transform.get_params_dict(),
+            }
+        }
+
+
+class RandomChoiceTransform(Transform):
+    """Apply one of ``transforms`` per sample, picked with probabilities
+    proportional to ``weight`` (``jax.random.categorical`` over the log
+    weights in the JAX package). Every branch runs on the whole batch and
+    each sample keeps its pick's output."""
+
+    def __init__(self, transforms: list[Transform], weight: list | None = None):
+        self.transforms = list(transforms)
+        if weight is None:
+            weight = [1.0] * len(transforms)
+        self.weight = [float(w) for w in weight]
+
+    def draw(self, gen, shape, device):
+        probs = torch.tensor(self.weight, dtype=torch.float32, device=device)
+        pick = torch.multinomial(probs, shape[0], replacement=True, generator=gen)
+        return {"pick": pick, "inner": [t.draw(gen, shape, device) for t in self.transforms]}
+
+    def apply(self, params, images, labels):
+        pick = params["pick"]
+        out_img, out_lbl = images, labels
+        for i, (t, p) in enumerate(zip(self.transforms, params["inner"])):
+            img_i, lbl_i = t.apply(p, images, labels)
+            chosen = pick == i
+            out_img = torch.where(_bcast(chosen, img_i), img_i, out_img)
+            out_lbl = torch.where(_bcast(chosen, lbl_i), lbl_i, out_lbl)
+        return out_img, out_lbl
+
+    def get_params_dict(self):
+        return {
+            "RandomChoiceTransform": {
+                "weights": self.weight,
+                "transforms": [t.get_params_dict() for t in self.transforms],
             }
         }
 

@@ -836,3 +836,54 @@ def test_k10_stages_take_the_route_the_dispatch_rule_names(cuda):
     # the wide stages are bound by operations and take the tensor cores
     for label in ("UNet 1", "UNet 2", "UNet 3", "UNet 4", "prompt-large 1", "SAM 1"):
         assert set(taken[label].values()) == {"tensor cores"}, label
+
+
+def test_hd_evaluates_on_the_card(cuda, monkeypatch):
+    from mia_tpu_torch.metrics import HD, hd_module
+
+    devices = []
+
+    def recording(a, b, spacing=None):
+        devices.append((a.device.type, b.device.type))
+        return surface_distance_stats(a, b, spacing)
+
+    surface_distance_stats = hd_module.surface_distance_stats
+    monkeypatch.setattr(hd_module, "surface_distance_stats", recording)
+    yy, xx = torch.meshgrid(torch.arange(40), torch.arange(48), indexing="ij")
+    pred = torch.zeros(40, 48, dtype=torch.int64)
+    label = torch.zeros(40, 48, dtype=torch.int64)
+    pred[((yy - 15) / 6) ** 2 + ((xx - 20) / 8) ** 2 <= 1] = 1
+    pred[((yy - 26) / 6) ** 2 + ((xx - 28) / 8) ** 2 <= 1] = 2
+    label[((yy - 17) / 6) ** 2 + ((xx - 19) / 8) ** 2 <= 1] = 1
+    label[((yy - 25) / 6) ** 2 + ((xx - 30) / 8) ** 2 <= 1] = 2
+    logits = torch.eye(3)[pred][None]
+    want = HD()(logits, label[None])
+    devices.clear()
+    got = HD()(logits.to(cuda), label[None].to(cuda))
+    assert devices == [("cuda", "cuda")] * 3
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+def test_residual_unet_strided_skip_on_the_card_matches_the_cpu(cuda):
+    from mia_tpu_torch.models import UNet, UNetConfig
+
+    torch.manual_seed(0)
+    cfg = UNetConfig(in_channels=1, out_classes=3, channels_list=(8, 16, 32), block_type="res",
+                     normalization="instance", dropout_prob=0.0)
+    cpu_model = UNet(cfg)
+    card_model = UNet(cfg).to(cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    x = torch.rand(2, 32, 32, 1, generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        got = card_model(x.to(cuda))
+        got.square().mean().backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = cpu_model(x)
+    want.square().mean().backward()
+    assert (got.detach().cpu() - want.detach()).abs().max() <= 1e-5 * want.abs().max()
+    for (name, p), q in zip(cpu_model.named_parameters(), card_model.parameters()):
+        scale = max(p.grad.abs().max().item(), 1e-12)
+        assert (q.grad.cpu() - p.grad).abs().max() <= 1e-4 * scale, name

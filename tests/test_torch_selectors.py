@@ -154,6 +154,18 @@ def test_badge_embeddings_match_jax(scorers, fugc_pool):
     _close(one, got.numpy(), 1e-6)
 
 
+
+def test_badge_embedding_takes_given_label_maps(scorers, fugc_pool):
+    _, tscorer = scorers
+    images = torch.from_numpy(_images(fugc_pool))
+    own = tscorer.badge_grad_embedding(images)
+    with torch.no_grad():
+        argmax = tscorer.model.pixel_feature(tscorer._prep(images))[0].argmax(-1)
+    assert torch.equal(tscorer.badge_grad_embedding(images, preds=argmax), own)
+    other = tscorer.badge_grad_embedding(images, preds=(argmax + 1) % 3)
+    assert other.shape == own.shape and torch.isfinite(other).all()
+    assert not torch.allclose(other, own)
+
 def test_enc_feature_sweep_matches_jax(scorers, fugc_pool):
     jscorer, tscorer = scorers
     jactive, tactive = _actives(fugc_pool)

@@ -16,7 +16,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from mia_tpu.losses import DiceAndCELoss as JaxLoss
@@ -239,8 +238,10 @@ def test_fugc_recipe_runs_and_keeps_ranges():
     assert out.shape == img.shape and out_lbl.shape == lbl.shape
     assert out.min() >= 0.0 and out.max() <= 1.0
     assert set(np.unique(out_lbl.numpy())) <= {0, 1, 2}
-    with pytest.raises(NotImplementedError):
-        get_train_transform("acdc")
+    # every other dataset takes the acdc/thyroid recipe, which warps without K1
+    # (tests/test_torch_transforms_acdc.py)
+    assert isinstance(recipe.transforms[0], FusedRandomAffines)
+    assert not any(isinstance(t, FusedRandomAffines) for t in get_train_transform("acdc").transforms)
 
 
 def test_poly_schedule_matches_jax():
