@@ -66,14 +66,23 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    convolutions.
 4. Slice phase: writes a synthetic FUGC dataset (48/8/8 PNGs at 336x544)
    and runs ``al_train_torch``'s ``train_entry`` with the README's FUGC flags
-   at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 30
+   at full width (32..512), batch 12, 256², on ``cuda``: 2 AL rounds of 20
    iterations. Checks parameters on the card, finite losses, the round
    files, the labeled set growing by the budget, K1 launches from the train
    steps, and the trained UNet's logits on the card against the same
    weights on the CPU (in full float32, and with the run's TF32
-   convolutions). Prints the loader's host decode path (native uint8 or
-   PIL float32) and the bytes each train batch shipped, beside the step
-   and round times that depend on them.
+   convolutions). Prints the loader's host decode path (native or PIL, both
+   uint8) and the bytes each train batch shipped, beside the step (median of
+   round 1's) and round times that depend on them, and the trainer's trace
+   spans (``al/select``, ``train/step``, ``valid/step``: total, count, mean
+   host seconds). Round 0's train steps run under ``start_profiler`` /
+   ``stop_profiler``: the Chrome trace holds one ``train/step`` range a step,
+   each with its K1 launch inside.
+   Warmer phase: the same FUGC set through ``al_train_torch``, 2 rounds of 6
+   iterations, 4 runs with ``warm_pool_cache`` off, on, on, off (cuDNN's
+   deterministic algorithms): round 1's ``al/select`` seconds, the pool
+   samples in the decode cache when its sweep began (all of them with the
+   warmer, none without), and the same picks in every run.
    Selector phase: with the trained UNet and the slice's active set (16
    labeled, 32 in the pool), each selector the JAX package has beyond random
    and entropy (confidence, margin, coreset-l2/-cosine, kmean-l2/-cosine,
@@ -110,7 +119,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    pick within 1e-4 of a tie), equal class maps except where the top-2
    logits lie within 1e-4. Times ``predict_batch`` at batch 1, 16 and 64,
    ``predict_pseudo_label`` on one 480x640 PNG and ``active_select``
-   (medians of 11 after a warm-up, TF32 convolutions); the demo launches no
+   (medians of 5 after a warm-up, TF32 convolutions); the demo launches no
    hand kernel.
    FUGC K-fold phase: ``fugc2025_train_torch``'s ``train_entry`` on the same
    set with the entry's defaults (UNet 32..512, batch 32, adam with L2 decay
@@ -196,6 +205,21 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    keep-everything thresholds at 16x16 points (gather, NMS, boxes, RLE:
    every record consistent), one chunk's scores on the card against the
    CPU, and one run on the grid-native encoder (K8 under AMG).
+   3D UNet, losses and export phase: ``UNet(UNetConfig(dimension=3))`` at
+   32..512 (1 channel, 4 classes), batch 2 at 128^3, 3 train steps with
+   ``DCAndCELoss`` and Adam (TF32 convolutions), then the residual +
+   instance-norm + deep-supervision variant (``ds_layer=3``, heads of the
+   logits' shape, weighted 1, 0.5, 0.25) for 2: step ms and peak memory;
+   the trained UNet's eval logits on a (1, 64, 64, 64, 1) volume on the card
+   against the CPU within 1e-5 of max |logit| (float32 convolutions). Each
+   nnU-Net loss and its gradient at (2, 128, 128, 128, 4) logits, card
+   against CPU within 1e-5 of max (top-k: gradients of pixels within 1e-5 of
+   the k-th value left out, counted). ``export_unet_forward`` of a 2D UNet
+   32..512 at (1, 256, 256, 3) and ``export_sam_prompt_program`` of the SAM
+   phase's ViT-B/512 with 8 point slots, exported, loaded and run on the
+   card: within 1e-5 of max of the live module and of
+   ``SamPredictor.decode_on_device`` on the same seeded embedding (float32
+   convolutions), with export, load and run times. No hand kernel launched.
 7. Prints one JSON line with the 17 kernels (K1-K10, forward, and the
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
    paths that ran them, their bounds and library times; K2, K3, K6, K7, K8,
@@ -341,12 +365,21 @@ def device_ms(torch, fn, kernel, per_block=50):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(per_block):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    mine = [e for e in events if kernel in e.key]
+    # a capture now and then comes back without any device event of the
+    # block (seen once for K4b, which had passed in every earlier run):
+    # such a capture is taken again, at most twice
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(per_block):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e for e in events if kernel in e.key]
+        if mine:
+            break
+        print(f"device_ms: capture {attempt + 1} recorded no {kernel} launch "
+              f"({len(events)} device events)")
     check(mine, f"the profiler recorded no {kernel} launch")
     others = sum(e.self_device_time_total for e in events if kernel not in e.key)
     return (sum(e.self_device_time_total for e in mine) / 1e3 / sum(e.count for e in mine),
@@ -607,15 +640,44 @@ def write_fugc(root: Path, n_train=48, n_val=8, n_test=8, size=(336, 544), seed=
             Image.fromarray(label).save(root / split / "labels" / name)
 
 
+SPANS = ("al/select", "train/step", "valid/step")  # the trainer's trace spans
+K1_DEVICE_KERNEL = "affine_warp_shift2pass_kernel"
+
+
+def spans_holding(trace: Path, span: str, kernel: str):
+    """The ``span`` ranges of a ``stop_profiler`` Chrome trace and, of those,
+    the ones inside which a device kernel whose name holds ``kernel`` was
+    launched: its launch (the runtime or driver event of the same
+    correlation id) lies in the host range, or, where the trace holds no
+    launch event for it, the kernel runs inside the span's device range."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    host = [e for e in events if e.get("name") == span and e.get("cat") == "user_annotation"]
+    gpu = [e for e in events if e.get("name") == span and e.get("cat") == "gpu_user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    corr = {e["args"]["correlation"] for e in kernels if "correlation" in e.get("args", {})}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in corr]
+
+    def inside(t, r):
+        return r["ts"] <= t <= r["ts"] + r["dur"]
+
+    if launches:
+        holding = [r for r in host if any(inside(e["ts"], r) for e in launches)]
+    else:
+        holding = [r for r in gpu if any(inside(k["ts"], r) for k in kernels)]
+    return host, holding, len(kernels), "launch in the host range" if launches else "device range"
+
+
 def slice_phase(torch, workdir: Path):
     from mia_tpu_torch.data import decode_path
     from mia_tpu_torch.entry.activelearning.train import train_entry
     from mia_tpu_torch.ops import warp
     from mia_tpu_torch.training import ALTrainer
+    from mia_tpu_torch.utils import profiling
 
     data = workdir / "fugc"
     write_fugc(data)
-    rounds, budget, iters, batch = 2, 8, 30, 12
+    rounds, budget, iters, batch = 2, 8, 20, 12
     argv = [
         "--work-path", str(workdir / "work"), "--data-path", str(data),
         "--device", "cuda", "--dataset", "fugc", "--in-channels", "3",
@@ -635,7 +697,13 @@ def slice_phase(torch, workdir: Path):
     orig_start, orig_end = ALTrainer.on_round_start, ALTrainer.on_round_end
     orig_save = ALTrainer.save_state_dict
 
+    trace = {}
+
     def timed_step(self, batch_):
+        # round 0's train steps run under the profiler (the step median is
+        # round 1's); the capture stops after its last step
+        if self.current_round == 0 and self.current_iter == 0:
+            profiling.start_profiler(workdir / "trace")
         torch.cuda.synchronize()
         before = warp.affine_warp_shift2pass_fused.launches
         t0 = time.perf_counter()
@@ -645,6 +713,8 @@ def slice_phase(torch, workdir: Path):
         k1_in_steps.append(warp.affine_warp_shift2pass_fused.launches - before)
         img = batch_["image"]
         wire.add((str(img.dtype).removeprefix("torch."), img.numel() * img.element_size()))
+        if self.current_round == 0 and self.current_iter == iters:
+            trace["path"] = profiling.stop_profiler()
 
     def record(self, step_index, lr, loss):
         losses.append(loss)
@@ -674,12 +744,14 @@ def slice_phase(torch, workdir: Path):
     ALTrainer.on_round_start, ALTrainer.on_round_end = round_start, round_end
     ALTrainer.save_state_dict = save
     try:
+        profiling.reset_phase_times()
         warp.affine_warp_shift2pass_fused.launches = 0
         t0 = time.perf_counter()
         trainer = train_entry(argv)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = warp.affine_warp_shift2pass_fused.launches
+        spans = profiling.phase_times()
     finally:
         ALTrainer.train_step, ALTrainer._record_train_loss = orig_step, orig_record
         ALTrainer.on_round_start, ALTrainer.on_round_end = orig_start, orig_end
@@ -736,20 +808,38 @@ def slice_phase(torch, workdir: Path):
     check(tf32_err < 2e-2 * max(scale, 1.0),
           f"TF32 UNet logits on the card vs CPU differ by {tf32_err} (scale {scale})")
 
-    warm = [s for r, s in steps[5:iters]] + [s for r, s in steps[iters + 5:]]
+    # the trainer's spans: one train/step a step, one al/select a round
+    check(set(spans) == set(SPANS), f"trace spans {sorted(spans)}, expected {SPANS}")
+    check(spans["train/step"]["count"] == rounds * iters and spans["al/select"]["count"] == rounds,
+          f"span counts {({k: v['count'] for k, v in spans.items()})}")
+    # round 0's train steps in the profiler trace, each with its K1 launch
+    host, holding, k1_kernels, how = spans_holding(trace["path"], "train/step", K1_DEVICE_KERNEL)
+    check(len(host) == iters and len(holding) == iters and k1_kernels == iters,
+          f"profiler trace: {len(host)} train/step ranges, {len(holding)} holding a K1 launch "
+          f"({how}), {k1_kernels} K1 kernels; expected {iters} each")
+    trace_mib = trace["path"].stat().st_size / 2**20
+
+    warm = [s for r, s in steps[iters + 5:]]
     step_ms = statistics.median(warm) * 1e3
     print(f"slice: {rounds} AL rounds x {iters} iters at width 32..512, 256^2, batch {batch}; "
           f"labeled {sizes}; losses first {losses[0]:.4f} last {losses[-1]:.4f}")
     print(f"slice: train step median {step_ms:.2f} ms ({batch / step_ms * 1e3:.1f} img/s) "
-          f"after 5 warm-up steps per round; round seconds {[round(s, 2) for s in round_s]}; "
-          f"total {total_s:.1f} s")
+          f"over round 1's steps after 5 warm-up steps; round seconds "
+          f"{[round(s, 2) for s in round_s]} (round 0 under the profiler); total {total_s:.1f} s")
     print(f"slice: host decode: {decode_path()}; train batches shipped as "
-          + ", ".join(f"{d} images of {n / 2**20:.2f} MiB" for d, n in sorted(wire)))
+          + ", ".join(f"{d} images of {n / 2**20:.2f} MiB ({n} bytes)" for d, n in sorted(wire)))
+    for name in SPANS:
+        t = spans[name]
+        print(f"slice: span {name}: total {t['total_s']:.4f} s, count {t['count']}, "
+              f"mean {t['mean_s'] * 1e3:.3f} ms (host wall time)")
+    print(f"slice: profiler trace of round 0's train steps ({trace_mib:.1f} MiB): {len(host)} "
+          f"train/step ranges, each holding one K1 launch ({how})")
     print(f"slice: K1 launches {launches} in the run, {sum(k1_in_steps)} from train steps; "
           f"UNet logits card vs CPU max |diff| {fp32_err:.3g} (float32), "
           f"{tf32_err:.3g} (TF32 convs), max |logit| {scale:.3g}")
     return {"launches": launches, "log": work / "log.txt", "host_decode": decode_path(),
-            "step_ms": step_ms, "trainer": trainer, "data": data, "work": work, "saved": saved}
+            "step_ms": step_ms, "trainer": trainer, "data": data, "work": work, "saved": saved,
+            "wire_bytes": sorted(wire), "spans": spans}
 
 # ---------------------------------------------------------------------------
 # ACDC and thyroid phase: al_train_torch on ACDC with volume-mode validation
@@ -1448,6 +1538,93 @@ def check_al_run(label, trainer, rec, rounds, sizes, iters):
         check(got == size, f"{label}: round {r} holds {got} labeled cases, expected {size}")
 
 
+WARMER_RUNS = (False, True, True, False)  # warm_pool_cache of each run, in turns
+
+
+def warmer_phase(torch, workdir: Path, sl):
+    """``al_train_torch`` on the slice's FUGC set, 2 rounds of 6 iterations,
+    with ``warm_pool_cache`` off and on in turns (cuDNN's deterministic
+    algorithms, so that the runs train alike): round 1's ``al/select``
+    seconds, the pool samples in the decode cache when its sweep began, and
+    the same picks in every run."""
+    from mia_tpu_torch.utils import profiling
+
+    iters = 6
+    runs = []
+    for i, warm in enumerate(WARMER_RUNS):
+        rec = {}
+
+        def warm_switch(orig, warm=warm):
+            def method(self):
+                self.config.warm_pool_cache = warm
+                return orig(self)
+            return method
+
+        def round_start(orig, rec=rec):
+            def method(self):
+                if self.current_round != 1:
+                    return orig(self)
+                pool = self.active_dataset.pool_dataset
+                cache = getattr(pool.dataset, "_decoded_cache", None) or {}
+                rec["cached"] = sum(pool.case_name_to_idx[pool.image_idx[j]] in cache
+                                    for j in range(len(pool)))
+                rec["pool"] = len(pool)
+                before = profiling.phase_times()["al/select"]["total_s"]
+                out = orig(self)
+                rec["select_s"] = profiling.phase_times()["al/select"]["total_s"] - before
+                return out
+            return method
+
+        argv = [
+            "--work-path", str(workdir / f"warm_{i}"), "--data-path", str(sl["data"]),
+            "--device", "cuda", "--dataset", "fugc", "--in-channels", "3",
+            "--num-classes", "2", "--image-size", "256", "--batch-size", "12",
+            "--valid-mode", "slice", "--active-selector", "entropy",
+            "--do-augment", "--do-normalize", "--optimizer", "adam",
+            "--lr-scheduler", "poly", "--lr-warmup-iter", "5",
+            "--num-rounds", "2", "--budget", "8",
+            "--num-iters", str(iters), "--valid-freq-iter", str(iters),
+            "--do-oversample", "--quiet",
+        ]
+        deterministic, benchmark = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            profiling.reset_phase_times()
+            trainer, r = run_al(torch, argv, {"_warm_pool_cache": warm_switch,
+                                              "on_round_start": round_start})
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+                deterministic, benchmark)
+        check_al_run(f"warmer run {i}", trainer, r, (0, 1), (8, 16), iters)
+        thread = getattr(trainer, "_pool_warm_thread", None)
+        check((thread is not None) == warm, f"warmer run {i}: warm_pool_cache {warm}, thread {thread}")
+        if thread is not None:
+            thread.join(timeout=60)
+            check(not thread.is_alive(), f"warmer run {i}: the warmer thread is still running")
+        picks = json.loads((trainer.work_path / "round_1/data_list.json").read_text())
+        runs.append({"warm": warm, "cached": rec["cached"], "pool": rec["pool"],
+                     "select_s": rec["select_s"], "picks": sorted(picks["labeled_image_idx"]),
+                     "launches": sum(r["k1"])})
+        print(f"warmer: run {i} warm_pool_cache {warm}: round 1's al/select "
+              f"{rec['select_s'] * 1e3:.2f} ms, {rec['cached']} of {rec['pool']} pool samples "
+              f"decoded when its sweep began")
+        del trainer
+    check(all(r["picks"] == runs[0]["picks"] for r in runs),
+          f"round 1's picks differ between the runs: {[r['picks'] for r in runs]}")
+    cold = [r for r in runs if not r["warm"]]
+    hot = [r for r in runs if r["warm"]]
+    check(all(r["cached"] == r["pool"] for r in hot) and all(r["cached"] == 0 for r in cold),
+          f"pool samples decoded at round 1's sweep: {[(r['cached'], r['pool']) for r in runs]}")
+    print(f"warmer: round 1's al/select with the warmer "
+          f"{[round(r['select_s'] * 1e3, 2) for r in hot]} ms, without "
+          f"{[round(r['select_s'] * 1e3, 2) for r in cold]} ms; the same "
+          f"{len(runs[0]['picks'])} labeled cases after round 1 in all {len(runs)} runs")
+    return {"launches": sum(r["launches"] for r in runs),
+            "select_ms": {"warm": [r["select_s"] * 1e3 for r in hot],
+                          "cold": [r["select_s"] * 1e3 for r in cold]},
+            "cached": {"warm": [r["cached"] for r in hot], "cold": [r["cached"] for r in cold]}}
+
+
 def max_diff(torch, a, b) -> float:
     """max |a - b| of two tensors (on any devices), 0.0 for empty ones."""
     return (a.detach().cpu() - b.detach().cpu()).abs().max().item() if a.numel() else 0.0
@@ -1696,7 +1873,7 @@ def selector_phase(torch, device, workdir: Path, sl):
 
 DEMO_GAP = 1e-4  # card (float32 convolutions) vs CPU: a class may differ below this top-2 gap
 DEMO_FEATURE_TOL = 1e-5  # specialist features, of the largest |feature|
-DEMO_RUNS = 11
+DEMO_RUNS = 5
 
 
 def same_tree(a, b) -> bool:
@@ -3479,6 +3656,279 @@ def amg_phase(torch, device, model, cpu_model):
 # CPC-SAM phase
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 3D UNet, nnU-Net losses and export phase: no hand kernel lies on it
+# ---------------------------------------------------------------------------
+
+UNET3D_TOL = 1e-5  # 3D UNet logits, card against CPU (float32 convolutions), of max |logit|
+LOSS_TOL = 1e-5  # each loss and its gradient, card against CPU, of the largest |value|
+EXPORT_TOL = 1e-5  # an exported program against the live module, of the largest |value|
+DS_WEIGHTS = (1.0, 0.5, 0.25)  # logits, then the heads of decoder levels 2 and 1
+UNET3D_BATCH = (2, 128, 128, 128)  # the training batch: 2 volumes of 128^3
+UNET3D_HOLD = (1, 64, 64, 64)  # the card-against-CPU volume
+LOSS_SHAPE = (2, 128, 128, 128, 4)  # the losses' logits
+
+
+@contextlib.contextmanager
+def float32_convolutions(torch):
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def all_launches():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def rel_diff(torch, got, want) -> float:
+    """max |got - want| over max |want| (tensors on any devices)."""
+    want = want.detach().cpu().double()
+    return (got.detach().cpu().double() - want).abs().max().item() / max(
+        want.abs().max().item(), 1e-30)
+
+
+def nnunet_losses(torch):
+    """name -> (loss(logits, labels, regions) on one device, uses regions)."""
+    from mia_tpu_torch import losses as L
+
+    weight = [1.0, 2.0, 0.5, 1.5]
+
+    def w(x):
+        return torch.tensor(weight, device=x.device)
+
+    return {
+        "cross_entropy(weight, ignore 255)":
+            lambda x, y, r: L.cross_entropy(x, y, weight=w(x), ignore_index=255),
+        "cross_entropy(label smoothing 0.1)":
+            lambda x, y, r: L.cross_entropy(x, y.clamp_max(3), label_smoothing=0.1),
+        "robust_cross_entropy": lambda x, y, r: L.robust_cross_entropy(
+            x, y[..., None].clamp_max(3).float()),
+        "topk_loss(k 10, ignore 255)":
+            lambda x, y, r: L.topk_loss(x, y, k=10.0, ignore_index=255),
+        "bce_with_logits": lambda x, y, r: L.bce_with_logits(x[..., :3], r[..., :3]),
+        "memory_efficient_soft_dice_loss(mask, batch)":
+            lambda x, y, r: L.memory_efficient_soft_dice_loss(
+                x, y.clamp_max(3), (y != 255).float(), batch_dice=True, do_bg=False),
+        # squared: the four plain counts weigh every class alike, and their
+        # gradient through the softmax is zero up to rounding
+        "get_tp_fp_fn_tn(mask, square)": lambda x, y, r: L.get_tp_fp_fn_tn(
+            torch.softmax(x, -1), y.clamp_max(3), mask=(y != 255).float(), square=True),
+        "DualBranchDiceAndCELoss": lambda x, y, r: L.DualBranchDiceAndCELoss()(
+            {"low_res_logits1": x, "low_res_logits2": 0.5 * x.flip(1)}, y.clamp_max(3)),
+        "DCAndCELoss(ignore 255)": lambda x, y, r: L.DCAndCELoss(ignore_label=255)(x, y),
+        "DCAndBCELoss(ignore channel)":
+            lambda x, y, r: L.DCAndBCELoss(use_ignore_label=True)(x[..., :3], r),
+        "DCAndTopKLoss(ignore 255)": lambda x, y, r: L.DCAndTopKLoss(ignore_label=255)(x, y),
+    }
+
+
+def scalar(torch, out):
+    """A loss's output as one scalar, each part of a tuple weighted apart."""
+    if isinstance(out, tuple):
+        return sum((i + 1.0) * o.sum() for i, o in enumerate(out))
+    return out.sum()
+
+
+def unet3d_loss_export_phase(torch, device, sam_model):
+    """The 3D UNet at full width, the nnU-Net losses and the two exported
+    programs on the card; no hand kernel launched."""
+    import numpy as np
+
+    from mia_tpu_torch import losses as L
+    from mia_tpu_torch.models import UNet, UNetConfig, export
+    from mia_tpu_torch.models.sam import SamPredictor
+    from mia_tpu_torch.training import make_optimizer
+
+    check(torch.backends.cudnn.allow_tf32, "the phase trains with TF32 convolutions")
+    before = all_launches()
+    out = {}
+
+    # --- the 3D UNet: 32..512, 1 channel in, 4 classes, batch 2 at 128^3 ------
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand(UNET3D_BATCH + (1,), generator=gen, device=device)
+    y = torch.randint(0, 4, UNET3D_BATCH, generator=gen, device=device)
+    loss_fn = L.DCAndCELoss()
+    for label, options, steps in (
+            ("plain", {}, 3),
+            ("res + instance + ds", dict(block_type="res", normalization="instance",
+                                         deep_supervision=True, ds_layer=3), 2)):
+        torch.manual_seed(0)
+        cfg = UNetConfig(dimension=3, in_channels=1, out_classes=4, **options)
+        model = UNet(cfg).to(device)
+        check(model.encoder.levels[4][1].all[0].weight.shape == (512, 512, 3, 3, 3),
+              "the 3D UNet is not at full width")
+        params = list(model.parameters())
+        opt = make_optimizer("adam", params, 1e-3, 10.0)
+        model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            if cfg.deep_supervision:
+                outs = model(x, gen, return_ds=True)
+                check(len(outs) == 3 and all(o.shape == outs[0].shape for o in outs),
+                      f"3D deep-supervision outputs {[tuple(o.shape) for o in outs]}")
+                loss = sum(wt * loss_fn(o, y) for wt, o in zip(DS_WEIGHTS, outs))
+            else:
+                loss = loss_fn(model(x, gen), y)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            opt.step([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(v) for v in losses), f"3D {label}: losses {losses}")
+        step_ms = statistics.median(times[1:]) * 1e3
+        print(f"unet3d: {label}, 32..512, batch {UNET3D_BATCH}, DCAndCELoss + Adam, TF32 "
+              f"convolutions: step ms {[round(t * 1e3, 2) for t in times]} (median after the "
+              f"first {step_ms:.2f}), max_memory_allocated {peak:.2f} GiB; losses "
+              f"{[round(v, 4) for v in losses]}")
+        out[f"unet3d {label}"] = {"step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+        if label == "plain":
+            trained = model
+        else:
+            del model, params, opt, grads
+    del x, y
+    torch.cuda.empty_cache()
+
+    # card against CPU on the same (trained) weights, float32 convolutions
+    cpu_model = UNet(trained.cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trained.state_dict().items()})
+    cpu_model.eval()
+    trained.eval()
+    vol = torch.rand(UNET3D_HOLD + (1,), generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model(vol)
+        cpu_s = time.perf_counter() - t0
+        with float32_convolutions(torch):
+            got = trained(vol.to(device))
+    err = rel_diff(torch, got, want)
+    check(got.shape == UNET3D_HOLD + (4,) and torch.isfinite(got).all(), "3D logits malformed")
+    check(err <= UNET3D_TOL, f"3D UNet logits card vs CPU {err:.3g} of max |logit|")
+    print(f"unet3d: eval logits on {UNET3D_HOLD + (1,)}, card vs CPU (float32 convolutions): "
+          f"{err:.3g} of max |logit| {want.abs().max().item():.3g} (CPU side {cpu_s:.1f} s)")
+    out["unet3d card vs cpu"] = err
+    del trained, cpu_model
+
+    # --- the nnU-Net losses and their gradients at (2, 128, 128, 128, 4) -------
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(LOSS_SHAPE, generator=g)
+    labels = torch.randint(0, 4, LOSS_SHAPE[:-1], generator=g)
+    labels[torch.rand(labels.shape, generator=g) < 0.05] = 255
+    regions = (torch.rand(LOSS_SHAPE, generator=g) < 0.3).float()
+    worst, near_ties = {}, {}
+    t0 = time.perf_counter()
+    for name, fn in nnunet_losses(torch).items():
+        results = []
+        for dev in ("cpu", device):
+            xl = logits.to(dev).requires_grad_(True)
+            value = fn(xl, labels.to(dev), regions.to(dev))
+            grad, = torch.autograd.grad(scalar(torch, value), xl)
+            values = value if isinstance(value, tuple) else (value,)
+            results.append(([v.detach() for v in values], grad))
+        (cpu_vals, cpu_grad), (card_vals, card_grad) = results
+        val_err = max(rel_diff(torch, c, h) for c, h in zip(card_vals, cpu_vals))
+        card_grad = card_grad.cpu()
+        if "TopK" in name or "topk" in name:
+            # a pixel whose cross-entropy lies within 1e-5 of the k-th largest
+            # may be picked on one device and not the other: its gradient
+            # is left out of the comparison (and counted)
+            per = L.cross_entropy(logits, labels, ignore_index=255, reduction="none")
+            kth = torch.topk(per.reshape(-1), max(1, int(per.numel() * 10.0 / 100))).values.min()
+            near = (per - kth).abs() <= 1e-5 * per.abs().max()
+            near_ties[name] = int(near.sum())
+            card_grad = torch.where(near[..., None], cpu_grad, card_grad)
+        grad_err = rel_diff(torch, card_grad, cpu_grad)
+        check(all(torch.isfinite(v).all() for v in card_vals), f"{name}: value not finite")
+        check(val_err <= LOSS_TOL and grad_err <= LOSS_TOL,
+              f"{name}: card vs CPU value {val_err:.3g}, gradient {grad_err:.3g} of max")
+        worst[name] = (val_err, grad_err)
+    print(f"losses: {len(worst)} nnU-Net losses on {LOSS_SHAPE} logits, card vs CPU "
+          f"(value, gradient) of max: "
+          + "; ".join(f"{n} {v:.2g}, {gr:.2g}" for n, (v, gr) in worst.items())
+          + f" ({time.perf_counter() - t0:.1f} s); pixels within 1e-5 of the top-k threshold, "
+          f"left out of the top-k gradients: {near_ties}")
+    out["losses card vs cpu"] = worst
+    del logits, labels, regions
+
+    # --- export: the 2D FUGC UNet and SAM's prompt program ----------------------
+    torch.manual_seed(4)
+    unet = UNet(UNetConfig(in_channels=3, out_classes=3)).to(device)
+    img = torch.rand((1, 256, 256, 3), generator=torch.Generator().manual_seed(5)).to(device)
+    with float32_convolutions(torch):
+        t0 = time.perf_counter()
+        blob = export.export_unet_forward(unet, img)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = export.load_exported(blob)
+        load_s = time.perf_counter() - t0
+        unet.eval()
+        with torch.no_grad():
+            want = unet(img)
+            got = program(img)
+        live_ms = median_s(lambda: unet(img), torch, 11) * 1e3
+        prog_ms = median_s(lambda: program(img), torch, 11) * 1e3
+    err = rel_diff(torch, got, want)
+    check(got.device.type == "cuda" and err <= EXPORT_TOL,
+          f"exported UNet vs the live module: {err:.3g} of max |logit|")
+    print(f"export: 2D UNet 32..512 (1, 256, 256, 3): export {export_s:.2f} s, .pt2 "
+          f"{len(blob) / 2**20:.1f} MiB, load {load_s:.2f} s; program vs live module "
+          f"{err:.3g} of max |logit| (float32 convolutions); forward {prog_ms:.2f} ms, live "
+          f"{live_ms:.2f} ms (medians of 11)")
+    out["export unet"] = {"export_s": export_s, "load_s": load_s, "mib": len(blob) / 2**20,
+                          "err": err, "program_ms": prog_ms, "live_ms": live_ms}
+    del unet, program
+
+    check(set_upsample_kernel(sam_model.mask_decoder, "never") > 0, "SAM decoder has no upscaler")
+    # a seeded embedding in set_image's place (the encoder would launch K2-K4)
+    e = sam_model.img_size // 16
+    predictor = SamPredictor(sam_model)
+    emb = torch.randn((1, e, e, 256), generator=torch.Generator().manual_seed(6)).to(device)
+    predictor.features, predictor.is_image_set = emb, True
+    predictor.input_size = predictor.original_size = (sam_model.img_size,) * 2
+    rng = np.random.default_rng(7)
+    points = 8
+    coords = torch.zeros((1, points, 2), device=device)
+    coords[0, :5] = torch.from_numpy(rng.uniform(0, 512, (5, 2)).astype(np.float32))
+    labels = torch.full((1, points), -1, dtype=torch.int32, device=device)
+    labels[0, :5] = torch.tensor([1, 1, 0, 1, 0], dtype=torch.int32)
+    t0 = time.perf_counter()
+    blob = export.export_sam_prompt_program(sam_model, max_points=points)
+    export_s = time.perf_counter() - t0
+    program = export.load_exported(blob)
+    no_mask = (torch.zeros((1, 4 * e, 4 * e, 1), device=device), torch.zeros(1, device=device))
+    with float32_convolutions(torch), torch.no_grad():
+        masks, iou, low_res = program(emb, coords, labels, *no_mask)
+        # the predictor appends one padding point: the program's last slot
+        live = predictor.decode_on_device((coords[:, :-1], labels[:, :-1]))
+        prog_ms = median_s(lambda: program(emb, coords, labels, *no_mask), torch, 11) * 1e3
+        live_ms = median_s(lambda: predictor.decode_on_device(
+            (coords[:, :-1], labels[:, :-1])), torch, 11) * 1e3
+        with_mask = program(emb, coords, labels, live[2][..., :1], torch.ones(1, device=device))
+    errs = [rel_diff(torch, masks.permute(0, 3, 1, 2), live[0]), rel_diff(torch, iou, live[1]),
+            rel_diff(torch, low_res, live[2])]
+    check(masks.shape == (1, 512, 512, 3) and max(errs) <= EXPORT_TOL,
+          f"exported SAM program vs SamPredictor (masks, iou, low-res): {errs}")
+    check(not torch.allclose(with_mask[0], masks), "has_mask does not switch the mask prompt in")
+    print(f"export: SAM vit_b/512 prompt program ({points} point slots): export {export_s:.2f} s, "
+          f".pt2 {len(blob) / 2**20:.1f} MiB; vs SamPredictor.decode_on_device on the same "
+          f"embedding (masks, iou, low-res) {[f'{v:.3g}' for v in errs]} of max; decode "
+          f"{prog_ms:.2f} ms, live {live_ms:.2f} ms (medians of 11)")
+    out["export sam"] = {"export_s": export_s, "mib": len(blob) / 2**20, "errs": errs,
+                         "program_ms": prog_ms, "live_ms": live_ms}
+
+    after = all_launches()
+    check(after == before, f"hand kernels launched in the phase: "
+          f"{({k: after[k] - before[k] for k in after if after[k] != before[k]})}")
+    print("unet3d, losses, export: no hand kernel launched")
+    return out
+
+
 # kernel launches of one train step at ViT-B/512 (8 windowed, 4 global
 # blocks): the encoder runs forward once, on the labeled half in phase 1 and
 # on the whole batch in phase 2; its backward reaches every block's attention
@@ -4010,6 +4460,7 @@ def main(argv=None) -> int:
         sel = timed("AL selectors", selector_phase, torch, device, Path(tmp), sl)
         demo = timed("demo and checkpoints", demo_phase, torch, device, Path(tmp), sl)
         del sl["trainer"], sl["saved"]
+        warmer = timed("pool-cache warmer", warmer_phase, torch, Path(tmp), sl)
         fugc = timed("FUGC K-fold", fugc_phase, torch, device, Path(tmp))
         acdc_th = timed("ACDC and thyroid", acdc_thyroid_phase, torch, device, Path(tmp), sl)
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
@@ -4024,10 +4475,13 @@ def main(argv=None) -> int:
     serving_k10 = timed("K10 serving", upscaler_serving_phase, torch, device, model)
     routes = timed("encoder routes", route_phase, torch, device, model)
     amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
+    del cpu_model
+    unet3d = timed("3D UNet, losses, export", unet3d_loss_export_phase, torch, device, model)
     print(f"seconds by phase: build {build_s:.1f}, {seconds}")
     # each path ran with every count set to 0 just before it: K1 from the
-    # AL slice, the selector phase's runs and the demo phase's grayscale run (the demo
-    # itself launches none), K2-K4 forward from SAM serving, CPC-SAM training, the encoder
+    # AL slice, the selector phase's runs, the warmer phase's runs and the demo phase's
+    # grayscale run (the demo itself launches none; nor does the 3D UNet, losses and
+    # export phase, which checks it), K2-K4 forward from SAM serving, CPC-SAM training, the encoder
     # routes and AMG, the backward kernels of K2-K4 and K5 from CPC-SAM
     # training, K6-K9 from the encoder routes and, with K6b, K8b and K9b, from
     # route training, K8 from AMG on the grid-native encoder too; K1 also from the FUGC
@@ -4036,7 +4490,7 @@ def main(argv=None) -> int:
     launches = {k: sum(path["launches"].get(k, 0)
                        for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10, demo))
                 for k in KERNELS}
-    launches["K1"] += sl["launches"] + sel["launches"]
+    launches["K1"] += sl["launches"] + sel["launches"] + warmer["launches"]
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
@@ -4073,6 +4527,11 @@ def main(argv=None) -> int:
                         "fugc": {k: v for k, v in fugc.items() if k not in ("launches", "log")},
                         "acdc_thyroid": {k: v for k, v in acdc_th.items() if k != "launches"},
                         "k10_serving": {k: v for k, v in serving_k10.items() if k != "launches"},
+                        "slice": {"wire_bytes": sl["wire_bytes"], "spans": sl["spans"],
+                                  "step_ms": sl["step_ms"]},
+                        "warmer": {k: v for k, v in warmer.items() if k != "launches"},
+                        "unet3d_losses_export": unet3d,
+                        "seconds": {"build": build_s, **seconds},
                         **kernels, **result}, indent=1))
     print(card)
     print(json.dumps(kernels))

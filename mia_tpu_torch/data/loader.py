@@ -6,9 +6,10 @@ it while the previous step computes. Datasets with per-sample paths, a
 fixed image size and no host transform keep decoded samples in a cache on
 the base dataset under a byte budget (``MIA_DECODE_CACHE_MB``, default
 2048); they decode with the native C++ decoder (``mia_tpu_torch.native``,
-the JAX package's ``native/mia_host.cpp``) into uint8 images when its
-library builds, else with PIL into float32 images (4x the bytes per
-host-to-device copy); ``decode_path()`` names the mode in use. For a CUDA
+the JAX package's ``native/mia_host.cpp``) when its library builds, else
+with PIL, and either way round each image to uint8, as the JAX package's
+cached path ships it (a quarter of float32's bytes per host-to-device
+copy); ``decode_path()`` names the mode in use. For a CUDA
 device the batch is copied into pinned host memory and sent with a
 non-blocking copy. Augmentation is not done here: it runs on the device
 inside the train step.
@@ -57,16 +58,38 @@ def decode_path() -> str:
     """The decode mode of the cached path, for logs and reports."""
     if native.is_available():
         return "native C++ decoder, uint8 images"
-    return f"PIL, float32 images (native decoder unavailable: {native.unavailable_reason()})"
+    return f"PIL, uint8 images (native decoder unavailable: {native.unavailable_reason()})"
+
+
+def _to_uint8(images: np.ndarray) -> np.ndarray:
+    """[0, 1] float images of byte-valued sources back to their bytes: the
+    rounding matches PIL's uint8 resize and ships 4x fewer bytes."""
+    return np.clip(np.rint(images * 255.0), 0, 255).astype(np.uint8)
+
+
+def cached_base(dataset) -> BaseDataset | None:
+    """The base dataset whose decoded samples the loader caches, or None when
+    ``dataset`` takes no cached path: the base must expose ``sample_paths``
+    and a fixed ``image_size`` and have no host transform or normalisation,
+    so that a decoded sample never changes."""
+    base = getattr(dataset, "dataset", dataset)  # unwrap ExtendableDataset views
+    if (
+        getattr(base, "transform", None) is not None
+        or getattr(base, "normalize", None) is not None
+        or getattr(base, "image_size", None) is None
+        or not hasattr(base, "sample_paths")
+    ):
+        return None
+    return base
 
 
 def _decode(base, indices: list[int]) -> list[tuple] | None:
-    """(image, uint8 label) pairs of ``base``'s samples at ``indices``."""
+    """(uint8 image, uint8 label) pairs of ``base``'s samples at ``indices``."""
     if not native.is_available():
         out = []
         for i in indices:
             s = base.get_sample(i)
-            out.append((s["image"].astype(np.float32), s["label"].astype(np.uint8)))
+            out.append((_to_uint8(s["image"]), s["label"].astype(np.uint8)))
         return out
     size = base.image_size
     if isinstance(size, int):
@@ -81,9 +104,7 @@ def _decode(base, indices: list[int]) -> list[tuple] | None:
         )
     except RuntimeError:  # a file the native decoder cannot read: PIL path
         return None
-    # byte-valued PNG sources: rounding the float resize back to uint8
-    # matches PIL's uint8 resize and ships 4x fewer bytes
-    images = np.clip(np.rint(images * 255.0), 0, 255).astype(np.uint8)
+    images = _to_uint8(images)
     labels = labels.astype(np.uint8)  # class ids < 256
     return list(zip(images, labels))
 
@@ -157,17 +178,12 @@ class BatchLoader:
         """Batch from the decoded-sample cache of the base dataset, for
         datasets exposing ``sample_paths`` with a fixed ``image_size`` and
         no host transform/normalize (so a decoded sample never changes);
-        None otherwise. Misses decode natively when the native library is
-        available (uint8 images), else through the dataset's own PIL path
-        (float32 images)."""
+        None otherwise (:func:`cached_base`). Misses decode natively when
+        the native library is available, else through the dataset's own PIL
+        path; both give uint8 images."""
         ds = self.dataset
-        base = getattr(ds, "dataset", ds)  # unwrap ExtendableDataset views
-        if (
-            getattr(base, "transform", None) is not None
-            or getattr(base, "normalize", None) is not None
-            or getattr(base, "image_size", None) is None
-            or not hasattr(base, "sample_paths")
-        ):
+        base = cached_base(ds)
+        if base is None:
             return None
         if base is ds:
             base_indices = [int(i) for i in indices]

@@ -58,6 +58,13 @@ def metric_percase(pred: torch.Tensor, gt: torch.Tensor, spacing=None):
     return dice, hd, asd, jc
 
 
+def per_class_metrics(pred: torch.Tensor, gt: torch.Tensor, num_classes: int, spacing=None):
+    """(dice, hd, asd, jc) of each foreground class 1..num_classes-1 of two
+    label maps, as a ``(num_classes - 1, 4)`` float32 tensor."""
+    return torch.stack([torch.stack(metric_percase(pred == c, gt == c, spacing))
+                        for c in range(1, num_classes)])
+
+
 def metric_percase_hd95(pred: torch.Tensor, gt: torch.Tensor):
     """(dice, hd95) for one binary case, SAM validation's pair: hd95 is NaN
     when ``pred`` is empty and inf when only ``gt`` is."""

@@ -7,10 +7,11 @@
 names, loadable by :class:`mia_tpu_torch.models.UNet` and by the
 reference's own UNet:
 
-- Conv kernel HWIO → weight OIHW;
-- ConvTranspose kernel ``(kh, kw, I, O)`` → weight ``(I, O, kh, kw)``,
-  spatially flipped (``lax.conv_transpose`` correlates where torch's
-  transposed convolution convolves);
+- Conv kernel HWIO → weight OIHW (DHWIO → OIDHW in 3D);
+- ConvTranspose kernel ``(kh, kw, I, O)`` → weight ``(I, O, kh, kw)``
+  (``(kd, kh, kw, I, O)`` → ``(I, O, kd, kh, kw)``), flipped on every
+  spatial axis (``lax.conv_transpose`` correlates where torch's transposed
+  convolution convolves);
 - BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var``; an instance norm has
   no ``batch_stats`` and no running statistics;
@@ -58,8 +59,23 @@ def _norm_from_flax(sd: dict, prefix: str, params: Mapping, stats: Mapping | Non
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _conv_weight(kernel) -> torch.Tensor:
+    """Flax kernel ``(*spatial, I, O)`` → torch weight ``(O, I, *spatial)``."""
+    kernel = np.asarray(kernel)
+    nd = kernel.ndim - 2
+    return _t(kernel.transpose(nd + 1, nd, *range(nd)))
+
+
+def _tconv_weight(kernel) -> torch.Tensor:
+    """Flax ConvTranspose kernel ``(*spatial, I, O)`` → torch weight
+    ``(I, O, *spatial)``, every spatial axis flipped."""
+    kernel = np.asarray(kernel)
+    nd = kernel.ndim - 2
+    return _t(kernel[(slice(None, None, -1),) * nd].transpose(nd, nd + 1, *range(nd)))
+
+
 def _conv_from_flax(sd: dict, prefix: str, params: Mapping) -> None:
-    sd[f"{prefix}.weight"] = _t(np.asarray(params["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.weight"] = _conv_weight(params["kernel"])
     sd[f"{prefix}.bias"] = _t(params["bias"])
 
 
@@ -94,8 +110,7 @@ def unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.T
             _block(sd, f"encoder.levels.{level}.{b}", enc[name],
                    stats["encoder"][name] if stats else None, res)
     for l in range(num_levels - 1):
-        kernel = np.asarray(dec[f"up{l}"]["kernel"])[::-1, ::-1]
-        sd[f"decoder.upsamples.{l}.weight"] = _t(kernel.transpose(2, 3, 0, 1))
+        sd[f"decoder.upsamples.{l}.weight"] = _tconv_weight(dec[f"up{l}"]["kernel"])
         sd[f"decoder.upsamples.{l}.bias"] = _t(dec[f"up{l}"]["bias"])
         for b in range(2):
             name = f"level{l}_block{b}"
@@ -109,8 +124,7 @@ def unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.T
 
 def _double_conv(sd: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
     for i, (ci, ni) in enumerate(((0, 1), (3, 4))):
-        kernel = np.asarray(params[f"conv{i}"]["kernel"])
-        sd[f"{prefix}.{ci}.weight"] = _t(kernel.transpose(3, 2, 0, 1))
+        sd[f"{prefix}.{ci}.weight"] = _conv_weight(params[f"conv{i}"]["kernel"])
         sd[f"{prefix}.{ni}.weight"] = _t(params[f"norm{i}"]["scale"])
         sd[f"{prefix}.{ni}.bias"] = _t(params[f"norm{i}"]["bias"])
         sd[f"{prefix}.{ni}.running_mean"] = _t(stats[f"norm{i}"]["mean"])
@@ -128,13 +142,12 @@ def legacy_unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, 
         _double_conv(sd, f"down{i + 1}.maxpool_conv.1.double_conv", params[f"downs_{i}"],
                      stats[f"downs_{i}"])
         if f"up_tconv{i}" in params:
-            kernel = np.asarray(params[f"up_tconv{i}"]["kernel"])[::-1, ::-1]
-            sd[f"up{i + 1}.up.weight"] = _t(kernel.transpose(2, 3, 0, 1))
+            sd[f"up{i + 1}.up.weight"] = _tconv_weight(params[f"up_tconv{i}"]["kernel"])
             sd[f"up{i + 1}.up.bias"] = _t(params[f"up_tconv{i}"]["bias"])
         _double_conv(sd, f"up{i + 1}.conv.double_conv", params[f"up_convs_{i}"],
                      stats[f"up_convs_{i}"])
     if "outc" in params:
-        sd["outc.conv.weight"] = _t(np.asarray(params["outc"]["kernel"]).transpose(3, 2, 0, 1))
+        sd["outc.conv.weight"] = _conv_weight(params["outc"]["kernel"])
         sd["outc.conv.bias"] = _t(params["outc"]["bias"])
     return sd
 
@@ -143,14 +156,14 @@ def legacy_unet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, 
 
 
 def _conv_kernel(w: torch.Tensor) -> np.ndarray:
-    """OIHW weight → HWIO kernel."""
-    return _n(w.permute(2, 3, 1, 0))
+    """OIHW (OIDHW) weight → HWIO (DHWIO) kernel."""
+    return _n(w.permute(*range(2, w.ndim), 1, 0))
 
 
 def _tconv_kernel(w: torch.Tensor) -> np.ndarray:
-    """Transposed-conv weight ``(I, O, kh, kw)`` → flax kernel ``(kh, kw, I, O)``,
-    taps flipped back."""
-    return _n(w.permute(2, 3, 0, 1).flip(0, 1))
+    """Transposed-conv weight ``(I, O, *spatial)`` → flax kernel
+    ``(*spatial, I, O)``, taps flipped back."""
+    return _n(w.permute(*range(2, w.ndim), 0, 1).flip(tuple(range(w.ndim - 2))))
 
 
 def _tree(params: dict, stats: dict) -> dict:

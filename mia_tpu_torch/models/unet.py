@@ -1,31 +1,37 @@
-"""2D UNet in PyTorch with the JAX package's semantics.
+"""2D and 3D UNet in PyTorch with the JAX package's semantics.
 
-Counterpart of ``mia_tpu/models/unet.py`` (2D): two blocks a level, stride-2
+Counterpart of ``mia_tpu/models/unet.py``: two blocks a level, stride-2
 downsampling from level 1, ConvTranspose(k2, s2) upsampling with
 (skip, upsampled) concatenation, 1×1 seg head. ``einsum_upsample=True``
 builds the decoder's upsampling as :class:`EinsumConvTranspose2x` (one GEMM,
-or kernel K10 with ``use_kernel="always"``) instead of ``nn.ConvTranspose2d``;
-both carry the same parameters.
+or, in 2D, kernel K10 with ``use_kernel="always"``) instead of
+``nn.ConvTranspose{2,3}d``; both carry the same parameters.
+``dimension=3`` builds the same network of ``Conv3d``, ``ConvTranspose3d``
+and 3D norms over ``(D, H, W)``; no hand kernel lies on that path.
 
 - Blocks: ``plain`` (conv → channel dropout → norm → LeakyReLU(0.01)) or
   ``res`` (conv → norm → channel dropout → LeakyReLU, plus a 1×1 conv + norm
   skip when the channels or the stride change, added after the activation).
-- Norms: ``batch`` (below) or ``instance`` (``nn.InstanceNorm2d``: affine,
+- Norms: ``batch`` (below) or ``instance`` (``nn.InstanceNorm{2,3}d``: affine,
   biased variance, eps 1e-5, instance statistics in training and in eval,
   no running statistics — the JAX package's ``InstanceNorm``).
 - ``deep_supervision`` with ``ds_layer > 1`` builds 1×1 heads ``ds{l}`` on the
   decoder levels ``range(num_upsample - ds_layer, num_upsample - 1)``; they
   always exist (their parameters are in every checkpoint) and only
-  ``return_ds=True`` runs them, each resized bilinearly without
-  antialiasing to the logits' size.
+  ``return_ds=True`` runs them, each resized to the logits' size:
+  bilinearly without antialiasing in 2D, trilinearly over (D, H, W) in 3D
+  (``F.interpolate``, ``align_corners=False``). The JAX package's 3D heads
+  go through its 2D resize, which scales H and W only and leaves D and W at
+  the head's size, so they come out smaller than the logits; the port's
+  3D heads have the logits' shape, a documented deviation.
 - Parameter names are the reference PyTorch UNet's
   (``encoder.levels.{l}.{b}.all.{0,2}`` for plain blocks, ``.all.{0,1}`` and
   ``.downsample_skip.{0,1}`` for residual ones, ``decoder.upsamples.{l}``,
   ``decoder.ds.{l}.0``, ``decoder.seg_output``), so reference ``.pth`` state
   dicts load as they are.
-- The public layout is NHWC like the JAX package; inside, the input is
-  permuted to NCHW, which for a contiguous NHWC tensor is a channels_last
-  view with no copy.
+- The public layout is NHWC (NDHWC in 3D) like the JAX package; inside,
+  the input is permuted to NCHW (NCDHW), which for a contiguous channel-last
+  tensor is a channels_last (channels_last_3d) view with no copy.
 - BatchNorm follows flax: the running variance is updated with the BIASED
   batch variance (``nn.BatchNorm2d`` would use the unbiased one), momentum
   0.9 in flax terms (0.1 in torch terms), eps 1e-5.
@@ -60,7 +66,7 @@ class UNetConfig:
     ds_layer: int = 0
     kernel_size: int = 3
     # decoder upsampling through EinsumConvTranspose2x instead of
-    # nn.ConvTranspose2d (the JAX package's flag of the same name)
+    # nn.ConvTranspose{2,3}d (the JAX package's flag of the same name)
     einsum_upsample: bool = False
 
     @property
@@ -76,8 +82,8 @@ class UNetConfig:
         return list(range(n_up - self.ds_layer, n_up - 1))
 
     def check_ported(self) -> None:
-        if self.dimension != 2:
-            raise NotImplementedError("only the 2D UNet is ported")
+        if self.dimension not in (2, 3):
+            raise ValueError(f"dimension must be 2 or 3, got {self.dimension}")
         if self.block_type not in ("plain", "res"):
             raise ValueError(f"unknown block type: {self.block_type}")
         if self.normalization not in ("batch", "instance"):
@@ -89,8 +95,9 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> None:
     nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
 
 
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d whose running statistics update like flax's BatchNorm."""
+class _FlaxBatchNorm:
+    """Running statistics updated like flax's BatchNorm: the biased batch
+    variance, over every axis but the channels."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
@@ -103,25 +110,45 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             )
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x, dim=(0, *range(2, x.ndim)), correction=0)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
         return y
 
 
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """BatchNorm2d whose running statistics update like flax's BatchNorm."""
+
+
+class FlaxBatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """BatchNorm3d whose running statistics update like flax's BatchNorm."""
+
+
 def _norm(cfg: UNetConfig, features: int) -> nn.Module:
     if cfg.normalization == "instance":
-        return nn.InstanceNorm2d(features, eps=1e-5, affine=True, track_running_stats=False)
-    return FlaxBatchNorm2d(features)
+        norm = nn.InstanceNorm3d if cfg.dimension == 3 else nn.InstanceNorm2d
+        return norm(features, eps=1e-5, affine=True, track_running_stats=False)
+    return FlaxBatchNorm3d(features) if cfg.dimension == 3 else FlaxBatchNorm2d(features)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+def _conv(cin: int, cout: int, k: int, stride: int = 1, dimension: int = 2) -> nn.Module:
     """Conv with flax's initialisation (lecun-normal kernel, zero bias)."""
-    conv = nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=True)
-    _lecun_normal_(conv.weight, cin * k * k)
+    conv = (nn.Conv3d if dimension == 3 else nn.Conv2d)(
+        cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=True)
+    _lecun_normal_(conv.weight, cin * k ** dimension)
     nn.init.zeros_(conv.bias)
     return conv
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    """NC... → N...C (a view)."""
+    return x.permute(0, *range(2, x.ndim), 1)
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    """N...C → NC... (a view)."""
+    return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
 
 
 class ChannelDropout(nn.Module):
@@ -136,7 +163,7 @@ class ChannelDropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep_prob = 1.0 - self.p
-        u = torch.rand(x.shape[:2] + (1, 1), generator=generator, device=x.device)
+        u = torch.rand(x.shape[:2] + (1,) * (x.ndim - 2), generator=generator, device=x.device)
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), device=x.device))
 
 
@@ -146,7 +173,8 @@ class PlainBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, cin: int, cout: int, stride: int):
         super().__init__()
         self.all = nn.ModuleList([
-            _conv(cin, cout, cfg.kernel_size, stride), ChannelDropout(cfg.dropout_prob),
+            _conv(cin, cout, cfg.kernel_size, stride, cfg.dimension),
+            ChannelDropout(cfg.dropout_prob),
             _norm(cfg, cout), nn.LeakyReLU(0.01),
         ])
 
@@ -163,12 +191,12 @@ class ResidualBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, cin: int, cout: int, stride: int):
         super().__init__()
         self.all = nn.ModuleList([
-            _conv(cin, cout, cfg.kernel_size, stride), _norm(cfg, cout),
+            _conv(cin, cout, cfg.kernel_size, stride, cfg.dimension), _norm(cfg, cout),
             ChannelDropout(cfg.dropout_prob), nn.LeakyReLU(0.01),
         ])
         self.stride = stride
         self.downsample_skip = (
-            nn.Sequential(_conv(cin, cout, 1, stride), _norm(cfg, cout))
+            nn.Sequential(_conv(cin, cout, 1, stride, cfg.dimension), _norm(cfg, cout))
             if cin != cout or stride != 1 else None
         )
 
@@ -177,10 +205,11 @@ class ResidualBlock(nn.Module):
         out = act(dropout(norm(conv(x)), generator))
         if self.downsample_skip is None:
             return x + out
-        if x.device.type == "cpu" and self.stride != 1:
+        if x.device.type == "cpu" and self.stride != 1 and x.ndim == 4:
             # PyTorch's CPU backward of a strided 1x1 conv on a channels_last
-            # input corrupts the heap (torch 2.13): the same conv at stride 1
-            # on every s-th pixel, the same parameters and sums
+            # input corrupts the heap (torch 2.13; its 3D counterpart ran
+            # clean): the same conv at stride 1 on every s-th pixel, the same
+            # parameters and sums
             skip_conv, skip_norm = self.downsample_skip
             s = self.stride
             return skip_norm(F.conv2d(x[:, :, ::s, ::s], skip_conv.weight, skip_conv.bias)) + out
@@ -268,12 +297,14 @@ class UNetDecoder(nn.Module):
         self.down = down
         self.upsamples = nn.ModuleList()
         self.levels = nn.ModuleList()
+        self.dimension = cfg.dimension
+        transpose = nn.ConvTranspose3d if cfg.dimension == 3 else nn.ConvTranspose2d
         for l in range(len(down) - 1):
             cin, cout = down[l], down[l + 1]
-            up = (EinsumConvTranspose2x(cin, cout) if cfg.einsum_upsample
-                  else nn.ConvTranspose2d(cin, cout, 2, stride=2))
-            # flax ConvTranspose kernel (2, 2, cin, cout): fan_in = 4 * cin
-            _lecun_normal_(up.weight, 4 * cin)
+            up = (EinsumConvTranspose2x(cin, cout, cfg.dimension) if cfg.einsum_upsample
+                  else transpose(cin, cout, 2, stride=2))
+            # flax ConvTranspose kernel (2, .., 2, cin, cout): fan_in = 2**nd * cin
+            _lecun_normal_(up.weight, 2 ** cfg.dimension * cin)
             nn.init.zeros_(up.bias)
             self.upsamples.append(up)
             self.levels.append(
@@ -281,10 +312,10 @@ class UNetDecoder(nn.Module):
             )
         # deep-supervision heads, keyed by decoder level (``decoder.ds.{l}.0``)
         self.ds = nn.ModuleDict({
-            str(l): nn.Sequential(_conv(down[l + 1], cfg.out_classes, 1))
+            str(l): nn.Sequential(_conv(down[l + 1], cfg.out_classes, 1, 1, cfg.dimension))
             for l in cfg.ds_levels
         })
-        self.seg_output = _conv(down[-1], cfg.out_classes, 1)
+        self.seg_output = _conv(down[-1], cfg.out_classes, 1, 1, cfg.dimension)
 
     def forward(self, skips, generator=None, return_feature: bool = False,
                 return_ds: bool = False):
@@ -294,18 +325,24 @@ class UNetDecoder(nn.Module):
         ds_outputs = []
         for l, (up, blocks) in enumerate(zip(self.upsamples, self.levels)):
             if isinstance(up, EinsumConvTranspose2x):  # channel-last in and out: views
-                x = up(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                x = _channels_first(up(_channels_last(x)))
             else:
                 x = up(x)
             x = torch.cat([skips[-(l + 2)], x], dim=1)
             for block in blocks:
                 x = block(x, generator)
             if return_ds and str(l) in self.ds:
-                ds = self.ds[str(l)](x).permute(0, 2, 3, 1)
+                ds = self.ds[str(l)](x)
                 factor = self.down[l + 1] // self.down[-1]
-                ds = resize(ds, (ds.shape[1] * factor, ds.shape[2] * factor), "bilinear",
-                            antialias=False)
-                ds_outputs.append(ds.permute(0, 3, 1, 2))
+                if self.dimension == 3:
+                    ds = F.interpolate(ds, scale_factor=factor, mode="trilinear",
+                                       align_corners=False)
+                else:
+                    ds = _channels_last(ds)
+                    ds = _channels_first(resize(
+                        ds, (ds.shape[1] * factor, ds.shape[2] * factor), "bilinear",
+                        antialias=False))
+                ds_outputs.append(ds)
         logits = self.seg_output(x)
         if return_ds:
             return [logits] + ds_outputs[::-1]
@@ -315,13 +352,14 @@ class UNetDecoder(nn.Module):
 
 
 class UNet(nn.Module):
-    """``forward(x (B, H, W, C), generator=None) -> logits (B, H, W, K)``;
-    with ``return_ds=True``, ``[logits, ds heads from the finest level
-    down]``, each ``(B, H, W, K)``.
+    """``forward(x (B, H, W, C), generator=None) -> logits (B, H, W, K)``
+    (``(B, D, H, W, C)`` → ``(B, D, H, W, K)`` in 3D); with
+    ``return_ds=True``, ``[logits, ds heads from the finest level down]``,
+    each of the logits' shape.
 
     Feature endpoints of the AL selectors: ``enc_feature`` (the bottleneck
     averaged over space, ``(B, C)``) and ``pixel_feature`` (the logits and the
-    decoder's features before the seg head, both NHWC).
+    decoder's features before the seg head, both channel-last).
     """
 
     def __init__(self, cfg: UNetConfig):
@@ -332,18 +370,19 @@ class UNet(nn.Module):
         self.decoder = UNetDecoder(cfg)
 
     def _skips(self, x: torch.Tensor, generator):
-        return self.encoder(x.to(torch.float32).permute(0, 3, 1, 2), generator)
+        return self.encoder(_channels_first(x.to(torch.float32)), generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
                 return_ds: bool = False):
         out = self.decoder(self._skips(x, generator), generator, return_ds=return_ds)
         if return_ds:
-            return [o.permute(0, 2, 3, 1) for o in out]
-        return out.permute(0, 2, 3, 1)
+            return [_channels_last(o) for o in out]
+        return _channels_last(out)
 
     def enc_feature(self, x: torch.Tensor, generator: torch.Generator | None = None):
-        return self._skips(x, generator)[-1].mean((2, 3))
+        bottleneck = self._skips(x, generator)[-1]
+        return bottleneck.mean(tuple(range(2, bottleneck.ndim)))
 
     def pixel_feature(self, x: torch.Tensor, generator: torch.Generator | None = None):
         logits, feature = self.decoder(self._skips(x, generator), generator, return_feature=True)
-        return logits.permute(0, 2, 3, 1), feature.permute(0, 2, 3, 1)
+        return _channels_last(logits), _channels_last(feature)

@@ -2,7 +2,8 @@
 device as two matmuls.
 
 Copied from ``mia_tpu/ops/resize.py`` (``_nearest_index``,
-``_resize_matrix``, ``resize``), whose module imports JAX. Semantics of
+``_resize_matrix``, ``resize``, ``resize_longest_side``), whose module
+imports JAX. Semantics of
 torchvision ``F.resize``: antialiased (PIL-style triangle) or plain
 bilinear, asymmetric nearest, nearest-exact. Arrays are channel-last,
 ``(..., H, W, C)``.
@@ -75,8 +76,20 @@ def resize(image: torch.Tensor, size, method: str = "bilinear", antialias: bool 
     in_h, in_w = image.shape[-3], image.shape[-2]
     if (in_h, in_w) == (out_h, out_w):
         return image
-    mh = _device_matrix(out_h, in_h, method, antialias, image.device)
-    mw = _device_matrix(out_w, in_w, method, antialias, image.device)
+    # under torch.export / torch.compile the matrix is a traced constant,
+    # which the device cache must not keep for later eager calls
+    matrix = _device_matrix.__wrapped__ if torch.compiler.is_compiling() else _device_matrix
+    mh = matrix(out_h, in_h, method, antialias, image.device)
+    mw = matrix(out_w, in_w, method, antialias, image.device)
     x = torch.einsum("oh,...hwc->...owc", mh, image.to(torch.float32))
     x = torch.einsum("ow,...hwc->...hoc", mw, x)
     return x.to(image.dtype) if image.dtype.is_floating_point else x
+
+
+def resize_longest_side(image: torch.Tensor, target_length: int,
+                        method: str = "bilinear") -> torch.Tensor:
+    """SAM-style resize of ``(..., H, W, C)`` so that the longer side equals
+    ``target_length`` (upstream ``ResizeLongestSide``'s rounding)."""
+    h, w = image.shape[-3], image.shape[-2]
+    scale = target_length / max(h, w)
+    return resize(image, (int(round(h * scale)), int(round(w * scale))), method=method)

@@ -1,8 +1,8 @@
-"""LR schedule and ramp-up (counterparts of ``poly_warmup_schedule`` and
-``sigmoid_ramp_up`` in ``mia_tpu/schedule.py``, whose numpy paths these
-are): linear warmup ``lr*(i+1)/warmup`` then poly decay
-``lr*(1 - i/(max-warmup))**0.9``, and ``final*exp(-5*(1 - t)**2)``, step
-indices quantised by ``interval``.
+"""LR schedule and ramp-ups (counterparts of ``poly_warmup_schedule``,
+``sigmoid_ramp_up`` and ``linear_ramp_up`` in ``mia_tpu/schedule.py``, whose
+numpy paths these are): linear warmup ``lr*(i+1)/warmup`` then poly decay
+``lr*(1 - i/(max-warmup))**0.9``, ``final*exp(-5*(1 - t)**2)`` and
+``final*t``, step indices quantised by ``interval``.
 """
 
 from __future__ import annotations
@@ -40,5 +40,18 @@ def sigmoid_ramp_up(final_value: float, max_steps: int, interval: int = 1, expon
             return float(final_value)
         i = min(max(int(step) // interval, 0), adj_max)
         return float(final_value * np.exp(-exponent * (1.0 - i / adj_max) ** 2))
+
+    return schedule
+
+
+def linear_ramp_up(final_value: float, max_steps: int, interval: int = 1):
+    """``final * t`` with ``t = min(i, max)/max``."""
+    adj_max = max_steps // interval
+
+    def schedule(step: int) -> float:
+        if adj_max == 0:
+            return float(final_value)
+        i = min(max(int(step) // interval, 0), adj_max)
+        return float(final_value * i / adj_max)
 
     return schedule

@@ -31,8 +31,12 @@ matrices as data, per slice, or per volume under ``--valid-mode volumn``
 (``models/processor.py``) before the metrics.
 
 Every selector of the JAX package runs (``activelearning/selectors.py``).
-Not ported: wandb, mesh/multi-device, the background pool-cache warmer,
-``--compute-dtype bfloat16``.
+With ``warm_pool_cache`` (the default) a daemon thread decodes the pool into
+the loader's cache while round 0 trains, so that the first pool sweep finds
+it decoded. The selector call, each train step and each validation batch
+run inside the trace spans ``al/select``, ``train/step`` and ``valid/step``
+(``utils/profiling.py``).
+Not ported: wandb, mesh/multi-device, ``--compute-dtype bfloat16``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from __future__ import annotations
 import csv
 import functools
 import json
+import threading
 import time
 import warnings
 from datetime import datetime
@@ -51,6 +56,7 @@ from PIL import Image
 
 from ..activelearning import SELECTORS, ModelScorer
 from ..data import DATASETS, ActiveDataset, BatchLoader, ExtendableDataset, decode_path
+from ..data.loader import cached_base
 from ..device import resolve_device, set_compute_precision
 from ..losses import DiceAndCELoss
 from ..metrics import metric_percase
@@ -62,6 +68,7 @@ from ..schedule import poly_warmup_schedule
 from ..transforms import get_train_transform, zscore_normalize
 from ..utils import add_file_sink, draw_mask, get_path, remove_sink, setup_logger
 from ..utils.flax_msgpack import read_flax_msgpack, write_flax_msgpack
+from ..utils.profiling import trace_span
 from .al_config import ALConfig
 from .base_trainer import BaseTrainer
 from .state import TrainState, load_optax_state, make_optimizer, to_optax_state
@@ -428,6 +435,35 @@ class ALTrainer(BaseTrainer):
             softmax=c.kmean_softmax,
         )
 
+    def _warm_pool_cache(self):
+        """Decode the pool into the loader's cache in a daemon thread.
+
+        The first pool sweep otherwise pays the decode of the whole pool on
+        the round-1 critical path; here it overlaps round 0's training. Only
+        a pool on the loader's cached path is warmed (the native or the PIL
+        decoder alike); the cache's budget and contents are those of any
+        other load. The thread logs its own errors instead of raising them
+        (training never depends on it) and dies with the process if training
+        ends first."""
+        if not (self.config.active_learning and self.config.warm_pool_cache):
+            return
+        pool = self.active_dataset.pool_dataset
+        if cached_base(pool) is None or len(pool) == 0:
+            return
+
+        def warm():
+            try:
+                loader = BatchLoader(pool, batch_size=min(16, len(pool)), shuffle=False,
+                                     drop_last=False, num_prefetch=0)
+                for _ in loader:
+                    pass
+            except Exception as e:  # never let cache warming stop training
+                self.logger.warning(f"pool-cache warmer stopped: {e!r}")
+
+        self._pool_warm_thread = threading.Thread(target=warm, name="pool-cache-warmer",
+                                                  daemon=True)
+        self._pool_warm_thread.start()
+
     def _make_programs(self):
         self._recipe = get_train_transform(
             self.DATASET_KEYS[self.config.dataset], self.config.do_augment
@@ -466,6 +502,7 @@ class ALTrainer(BaseTrainer):
         self._setup_loss()
         self._setup_active_selector()
         self._make_programs()
+        self._warm_pool_cache()
         self.current_round = 0
         self._best_state = None
 
@@ -551,12 +588,13 @@ class ALTrainer(BaseTrainer):
                         self.model, self.device, normalize=self.config.do_normalize
                     )
                 self._scorer.model = self.model
-                new_samples = self.active_selector.select_next_batch(
-                    self.active_dataset,
-                    self.config.budget,
-                    self._scorer,
-                    seed=self.seed + self.current_round,
-                )
+                with trace_span("al/select"):
+                    new_samples = self.active_selector.select_next_batch(
+                        self.active_dataset,
+                        self.config.budget,
+                        self._scorer,
+                        seed=self.seed + self.current_round,
+                    )
                 self.active_dataset.extend_train_set(new_samples)
         else:
             self.active_dataset.extend_train_set(
@@ -658,9 +696,10 @@ class ALTrainer(BaseTrainer):
         start = time.time()
         self.logger.info(f"Iteration {self.current_iter}:")
         step_index = self.current_iter
-        metrics = self._train_step(
-            self.state, sampled_batch["image"], sampled_batch["label"], self.generator
-        )
+        with trace_span("train/step"):
+            metrics = self._train_step(
+                self.state, sampled_batch["image"], sampled_batch["label"], self.generator
+            )
         lr = float(self.lr_schedule(step_index))
         # start the loss's device→host copy now and read it one iteration
         # later, so the host queues the next step while this one runs
@@ -784,7 +823,9 @@ class ALTrainer(BaseTrainer):
         return metric_all.cpu().numpy(), per_cls.cpu().numpy(), float(loss)
 
     def valid_step(self, sampled_batch):
-        self.epoch_valid_outputs.append(self._eval_batch(sampled_batch))
+        with trace_span("valid/step"):
+            out = self._eval_batch(sampled_batch)
+        self.epoch_valid_outputs.append(out)
 
     def on_valid_epoch_start(self):
         self._flush_train_logs()

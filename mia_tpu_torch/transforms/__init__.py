@@ -18,7 +18,7 @@ from .joint import (
     RandomRotation90,
 )
 from .normalization import zscore_normalize
-from .recipes import get_train_transform
+from .recipes import get_train_transform, get_valid_transform
 
 __all__ = [
     "ComposeTransform",
@@ -41,5 +41,6 @@ __all__ = [
     "Transform",
     "contrast_blend",
     "get_train_transform",
+    "get_valid_transform",
     "zscore_normalize",
 ]

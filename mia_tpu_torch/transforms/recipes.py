@@ -58,3 +58,8 @@ def get_train_transform(dataset: str, do_augment: bool = True) -> ComposeTransfo
             RandomTransform(RandomAffine(degrees=(-20, 20)), p=0.5),
         ]
     )
+
+
+def get_valid_transform() -> ComposeTransform:
+    """Validation applies no transform."""
+    return ComposeTransform([])

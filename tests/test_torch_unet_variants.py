@@ -291,8 +291,10 @@ def test_opt_state_msgpack_is_the_optax_tree(variant):
 
 
 def test_only_the_3d_unet_is_left_unported():
-    with pytest.raises(NotImplementedError):
-        UNet(UNetConfig(dimension=3))
+    # every UNet the JAX package builds is ported (the 3D one:
+    # tests/test_torch_unet3d.py); only configurations it cannot build raise
+    with pytest.raises(ValueError):
+        UNet(UNetConfig(dimension=4))
     with pytest.raises(ValueError):
         UNet(UNetConfig(block_type="dense"))
     assert UNetConfig(channels_list=CHANNELS, deep_supervision=True, ds_layer=3).ds_levels == [0, 1]
