@@ -35,6 +35,16 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    the port never calls it). Computes each kernel's bound from the timed
    tensors: bytes over 3.35 TB/s or operations over 67 TFLOP/s (float32
    outside the tensor cores, what most kernels here compute in).
+   bfloat16 kernels: the bfloat16 instances of K2, K3 (bfloat16
+   ``mma.sync``) and K4 against their plain bfloat16 versions at the same
+   shapes (ViT-B/512 batch 1 and 8, the 20x27 grid, 4096 global tokens, head
+   dim 80): K2's and K3's output within 2^-7 of max |plain| and their
+   log-sum-exp within 1e-5 of the plain one of the same scores (K2's on its
+   own rel terms, which kernel R's bfloat16 instance holds to one ulp and
+   99% bit-equal), K4's output within one bfloat16 ulp an element (the ulp
+   taken at >= 2^-6 of max) and its mu / rstd within 1e-5, two launches
+   bit-identical; timed with the library call (bfloat16 operands and dense
+   bias) and the bound at 989 TFLOP/s dense bfloat16.
    Training kernels: the backward kernels of K2, K3 and K4 against their
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
    1e-4 of max |plain| for each output, K2b and K3b (3xTF32 on the tensor
@@ -78,6 +88,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    host seconds). Round 0's train steps run under ``start_profiler`` /
    ``stop_profiler``: the Chrome trace holds one ``train/step`` range a step,
    each with its K1 launch inside.
+   AL bfloat16 phase: ``al_train_torch --compute-dtype bfloat16`` on the
+   same FUGC set at full width, 2 rounds of 12 iterations: every
+   convolution's output bfloat16 (forward hooks), float32 parameters and
+   ``model.msgpack`` files, one K1 launch a step, finite losses; the step
+   median beside the slice's float32 one, and the trained UNet's logits in
+   bfloat16 against the same weights in float32.
    Warmer phase: the same FUGC set through ``al_train_torch``, 2 rounds of 6
    iterations, 4 runs with ``warm_pool_cache`` off, on, on, off (cuDNN's
    deterministic algorithms): round 1's ``al/select`` seconds, the pool
@@ -192,6 +208,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    ``predict`` and ``predict_batch`` with the mask decoder's upscaler on
    K10: 2 launches a decode, mask logits within 1e-4 of max |logit| of the
    default's.
+   SAM bfloat16 phase: ``sam_model_registry["vit_b"](512, 3,
+   compute_dtype=torch.bfloat16)`` with the SAM phase's weights serves the
+   same frame: 8 / 4 / 8 launches of the bfloat16 K2 / K3 / K4 a
+   ``set_image`` and none of the float32 instances, a bfloat16 embedding,
+   the predict shapes; the embedding's and one point's mask logits' gap to
+   the float32 model; ``set_image`` and ``predict`` of both in turns.
 6. Encoder-route phase: loads the SAM phase's weights into an
    ``ImageEncoderViT`` of each other route (K9 exit; grid-native K8, once
    by argument and once by ``MIA_WINDOWED_ATTN=1``; head-major K6; no
@@ -224,7 +246,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    backward kernels K2b-K4b, K6b, K8b, K9b, K10b, with their launches in the
    paths that ran them, their bounds and library times; K2, K3, K6, K7, K8,
    K2b, K3b, K6b and K8b also their tensor-core bound, K2, K3 and K8 their
-   batch-8 numbers under ``b8``, K1, K4, K4b, K5, K8, K9 and K9b their ``device_ms``),
+   batch-8 numbers under ``b8``, K1, K4, K4b, K5, K8, K9 and K9b their ``device_ms``;
+   K2, K3 and K4 a ``bf16`` entry with the same keys for their bfloat16
+   instance, its launches from the bfloat16 SAM phase),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -237,6 +261,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -286,6 +311,9 @@ KERNELS = {
     "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
              "mia_tpu/ops/upsample2x.py:137"),
 }
+# kernels with a bfloat16 instance (SAM serving in bfloat16); the JSON line gives each a
+# ``bf16`` entry with its own launches, times and bounds
+BF16_KERNELS = ("K2", "K3", "K4")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
 # K2, K3, K6, K7, K8, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense
@@ -294,6 +322,11 @@ TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 KERNEL_TOL = 1e-5  # forward kernels: max |kernel - plain| over max |plain|, float32
 LSE_TOL = 1e-5  # K2's, K3's and K8's log-sum-exp against the plain one, absolute (values ~10)
 BWD_TOL = 1e-4  # backward kernels, per output (float32; another summation order, p from the lse)
+# the bfloat16 instances of K2 and K3 round the unnormalised p where the plain version rounds the
+# normalised one: max |kernel - plain| over max |plain|, against out's own bfloat16 step of 2^-8
+BF16_TOL = 2.0 ** -7
+BF16_TC_FLOPS_PER_S = 989e12  # dense bfloat16 on the tensor cores (K2, K3 in bfloat16)
+BF16_ULP_FLOOR = 2.0 ** -6  # K4's output and K2's rel terms: an element's ulp at >= this of the max
 
 
 def counters():
@@ -2524,6 +2557,203 @@ def sam_kernel_phase(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# the bfloat16 instances of K2, K3 and K4 against their plain bfloat16 versions
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(torch, x):
+    """One bfloat16 unit in the last place of each element of ``x``, taken at
+    no less than ``BF16_ULP_FLOOR`` of max |x|: a value near zero is a sum
+    that cancelled, whose float32 rounding in another order moves it by more
+    than its own ulp (a rel term of K2 did, on the card)."""
+    x = x.float().abs()
+    floor = max(x.max().item() * BF16_ULP_FLOOR, 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(floor))) - 7)
+
+
+def bf16_bound(tensors, flops):
+    """The least time (ms): the tensors once at 3.35 TB/s, or ``flops`` at
+    the dense bfloat16 tensor-core rate (989 TFLOP/s), whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TC_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def bf16_kernel_phase(torch, device):
+    """K2, K3 and K4 in bfloat16 at the float32 cases' shapes: outputs within
+    ``BF16_TOL`` of max |plain| (K4 within one ulp an element), K2's and K3's
+    log-sum-exp and K4's statistics within 1e-5 of the plain ones, two
+    launches bit-identical; times, bounds and the library call."""
+    from mia_tpu_torch.ops import attention, ln_window
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device=device) + shift).to(dtype)
+
+    heads, d, ws, c = 12, 64, 14, 768
+    worst = {k: [0.0, 0.0] for k in ("K2", "K3", "K4")}
+    worst_lse = {"K2": 0.0, "K3": 0.0}
+    worst_terms = [1.0]  # the smallest share of K2's rel terms bit-equal to the plain ones
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        check(got.dtype == bf and got.shape == want.shape, f"{name} bf16 {label}: {got.dtype} "
+              f"{tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name} bf16 {label}: non-finite output")
+        diff = (got.float() - want.float()).abs()
+        err, ref = diff.max().item(), want.float().abs().max().item()
+        if name == "K4":  # one rounding of the same float32 value: one ulp at most
+            over = int((diff > bf16_ulp(torch, want)).sum())
+            check(over == 0, f"K4 bf16 {label}: {over} elements more than one ulp from plain")
+        else:
+            check(err <= BF16_TOL * ref, f"{name} bf16 {label}: max |kernel - plain| {err} > "
+                  f"{BF16_TOL} x max |plain| {ref}")
+        worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
+
+    def launch_k2_terms(qkv, rh_, rw_, sc, k_hw, n_heads):
+        """K2 in bfloat16 through its C entry, keeping kernel R's rel terms
+        (the wrapper's launch, which the serving path makes, drops them)."""
+        b, n, _ = qkv.shape
+        out = torch.empty(b, n, qkv.shape[-1] // 3, device=device, dtype=bf)
+        lse = torch.empty(b * n_heads, n, device=device)
+        terms = torch.empty(b * n_heads, n, sum(k_hw), device=device, dtype=bf)
+        attention._call("K2 bf16", "mia_attention_rel_packed_ik_bf16", qkv,
+                        (qkv, rh_, rw_, out, lse, terms), k_hw, n_heads, sc)
+        return out, lse, terms
+
+    def hold_attention(name, label, args):
+        """The wrapper's output against the plain version's, its log-sum-exp
+        against the plain one of the same scores, and two launches. K2's rel
+        terms are float32 sums rounded once to bfloat16, in another order
+        than the plain version's: a term may round one ulp apart, which moves
+        the scores by that ulp. So kernel R's terms are held to one ulp
+        (and 99% bit-equal), and the log-sum-exp to the plain one of the
+        kernel's own terms."""
+        qkv, rel_a, rel_b, sc, k_hw, n_heads = args
+        if name == "K2":
+            out, lse = attention._launch_k2(*args, with_lse=True)
+            out_c, lse_c, terms = launch_k2_terms(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(out, out_c) and torch.equal(lse, lse_c),
+                  f"K2 bf16 {label}: the wrapper's launch differs from its C entry's")
+            want_h, want_w = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
+            want_terms = torch.cat([want_h, want_w], -1)
+            diff = (terms.float() - want_terms.float()).abs()
+            over = int((diff > bf16_ulp(torch, want_terms)).sum())
+            equal = float((diff == 0).float().mean())
+            check(over == 0 and equal >= 0.99, f"K2 bf16 {label}: rel terms {over} beyond one "
+                  f"ulp, {equal:.4f} bit-equal")
+            worst_terms[0] = min(worst_terms[0], equal)
+            rel_h, rel_w = terms.split(list(k_hw), -1)
+            want = attention.attention_rel_packed_bf16(qkv, want_h, want_w, sc, k_hw, n_heads)[0]
+            again, lse_again = attention._launch_k2(*args, with_lse=True)
+        else:
+            out, lse = attention._launch_k3(*args, with_lse=True)
+            rel_h, rel_w = rel_a, rel_b
+            want = attention.attention_rel_packed_bf16(*args)[0]
+            again, lse_again = attention._launch_k3(*args, with_lse=True)
+        hold(name, label, out, want)
+        _, want_lse = attention.attention_rel_packed_bf16(qkv, rel_h.contiguous(),
+                                                          rel_w.contiguous(), sc, k_hw, n_heads)
+        err = (lse - want_lse).abs().max().item()
+        check(err <= LSE_TOL, f"{name} bf16 {label}: log-sum-exp off by {err} > {LSE_TOL}")
+        worst_lse[name] = max(worst_lse[name], err)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again) and torch.equal(lse, lse_again),
+              f"{name} bf16 {label}: two launches differ")
+
+    ln_scale = randn(c, scale=0.2, shift=1.0, dtype=torch.float32)
+    ln_bias = randn(c, scale=0.1, shift=0.5, dtype=torch.float32)
+    rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
+    inputs = {}
+    for label, grid_shape, n_win in (("B=1", (1, 32, 32, c), 9), ("B=8", (8, 32, 32, c), 72),
+                                     ("grid 20x27", (2, 20, 27, c), 8)):
+        x = randn(*grid_shape)
+        got, mu, rstd = ln_window._launch_k4(x, ln_scale, ln_bias, ws, 1e-6, with_stats=True)
+        want = ln_window.ln_window_partition(x, ln_scale, ln_bias, ws)
+        hold("K4", label, got, want)
+        pad = ln_window.window_partition(x.new_ones(*grid_shape[:3], 1), ws)[0][..., 0] == 0
+        check(not got[pad].any(), f"K4 bf16 {label}: pad slots are not zero")
+        want_mu, want_rstd = (t[..., 0] for t in ln_window.layer_norm_stats(x.float(), 1e-6))
+        stats_err = max((mu - want_mu).abs().max().item(), (rstd - want_rstd).abs().max().item())
+        check(stats_err <= LSE_TOL, f"K4 bf16 {label}: mu/rstd off by {stats_err}")
+        bit_identical(torch, "K4 bf16", label, (got, mu, rstd),
+                      ln_window._launch_k4(x, ln_scale, ln_bias, ws, 1e-6, with_stats=True))
+        qkv = randn(n_win, ws * ws, 3 * heads * d)
+        hold_attention("K2", label, (qkv, rh, rw, d ** -0.5, (ws, ws), heads))
+        inputs[("K4", label)] = (x, ln_scale, ln_bias, ws, 1e-6)
+        inputs[("K2", label)] = (qkv, rh, rw, d ** -0.5, (ws, ws), heads)
+    for label, b, k_hw in (("B=1", 1, (32, 32)), ("B=8", 8, (32, 32)),
+                           ("4096 tokens", 1, (64, 64)), ("grid 20x27", 2, (20, 27))):
+        n = k_hw[0] * k_hw[1]
+        args = (randn(b, n, 3 * heads * d), randn(b * heads, n, k_hw[0]),
+                randn(b * heads, n, k_hw[1]), d ** -0.5, k_hw, heads)
+        hold_attention("K3", label, args)
+        inputs[("K3", label)] = args
+    h_heads, h_d = 16, 80  # ViT-H at 512²; its scale is not a power of two
+    hold_attention("K2", "head dim 80", (randn(9, ws * ws, 3 * h_heads * h_d),
+                                         randn(ws * ws, h_d, scale=0.1),
+                                         randn(ws * ws, h_d, scale=0.1), h_d ** -0.5, (ws, ws),
+                                         h_heads))
+    hold_attention("K3", "head dim 80", (randn(1, 1024, 3 * h_heads * h_d),
+                                         randn(h_heads, 1024, 32), randn(h_heads, 1024, 32),
+                                         h_d ** -0.5, (32, 32), h_heads))
+    print(f"bf16: K2 and K3 within {BF16_TOL} of max |plain| (worst relative "
+          f"{worst['K2'][1]:.3g} / {worst['K3'][1]:.3g}), log-sum-exp within "
+          f"{worst_lse['K2']:.3g} / {worst_lse['K3']:.3g} (limit {LSE_TOL}; K2's on its own "
+          f"rel terms, of which at least {worst_terms[0]:.4f} equal the plain ones bit for bit, "
+          f"the rest one ulp apart); K4 within one "
+          f"bfloat16 ulp an element (max |diff| {worst['K4'][0]:.3g}), statistics within "
+          f"{LSE_TOL}; two launches bit-identical on every case")
+
+    def yardsticks(name, label):
+        args = inputs[(name, label)]
+        if name == "K4":
+            x = args[0]
+            out = ln_window.ln_window_partition(*args)
+            return {"library_ms": None, **bound([x, args[1], args[2], out], 8 * x.numel())}
+        qkv, rel_a, rel_b, sc, k_hw, n_heads = args
+        b, n, _ = qkv.shape
+        flops = attention_flops(b * n_heads, n, n, d)
+        if name == "K2":
+            flops += b * n_heads * n * sum(k_hw) * 2 * d
+            rel_h, rel_w = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
+        else:
+            rel_h, rel_w = rel_a, rel_b
+        out = torch.empty(b, n, n_heads * d, device=device, dtype=bf)
+        lib = sdpa_ms(torch, *head_major(qkv, n_heads), dense_bias(rel_h, rel_w, b, n_heads), sc,
+                      50 if label == "B=1" else 10)
+        return {"library_ms": lib, **bf16_bound([qkv, rel_a, rel_b, out], flops)}
+
+    fns = {"K2": (attention._launch_k2, attention.attention_rel_packed_ik),
+           "K3": (attention._launch_k3, attention.attention_rel_packed),
+           "K4": (ln_window._launch_k4, ln_window.ln_window_partition)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        for label in ("B=1", "B=8"):
+            args = inputs[(name, label)]
+            per_block = 50 if label == "B=1" else 10
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*args),
+                                                      lambda: plain(*args), per_block)
+            m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                 **yardsticks(name, label)}
+            print(f"{name} bf16 at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us, "
+                  f"plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us; {describe_yardsticks(m)}")
+            if label == "B=1":
+                if name == "K4":
+                    m = with_device_ms(torch, f"K4 bf16 at ViT-B/512 {label}",
+                                       lambda: kernel(*args), "ln_window_partition_kernel", m)
+                out[name] = {"max_abs_err": worst[name][0], **m}
+            elif name != "K4":
+                out[name]["b8"] = m
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the backward kernels of K2, K3, K4 and K5 against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3317,6 +3547,300 @@ def sam_phase(torch, device):
     return ({"launches": launches, "set_image_ms": set_s * 1e3, "predict_ms": predict_s * 1e3,
              "predict_batch_ms": batch_s * 1e3, "encoder_img_per_s_b8": 8 / enc_s},
             model, cpu_model)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 serving and training: SAM through the bfloat16 K2, K3 and K4, and
+# al_train_torch --compute-dtype bfloat16
+# ---------------------------------------------------------------------------
+
+# the bfloat16 model on the card against the same model on the CPU (plain
+# bfloat16 K2-K4, same weights), module by module: every module call inside a
+# windowed and a global encoder block of the CPU's model, replayed on the
+# card's module of the same name with the CPU call's own inputs. A Linear or
+# LayerNorm rounds the same float32 value as the CPU's, bar sums taken in
+# another order: at least BF16_LEAF_EQUAL of its outputs bit-equal (the
+# float32 module, rounded, about half). The MLP carries a few such flips
+# through its GELU, the attention through its softmax, and K2 / K3 round P
+# before normalising it where the plain version rounds the normalised p: the
+# two are held by ||card - CPU|| / ||CPU|| (BF16_MODULE_TOL), each limit below
+# the float32 module's own distance to the CPU's bfloat16 output. The whole
+# encoder then parts from the CPU's by about the bfloat16-vs-float32 gap (a
+# flip moves every score of its row, block after block): the embedding and
+# the mask logits against the CPU's are printed and held only to
+# BF16_WHOLE_SANITY times that gap
+BF16_LEAF_EQUAL = 0.998
+BF16_MODULE_TOL = {"Attention": 3e-3, "MLPBlock": 1e-3}
+BF16_WHOLE_SANITY = 2.0
+
+
+def frob_rel(np, a, b) -> float:
+    a, b = (np.asarray(t, np.float64) for t in (a, b))
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def bf16_module_holds(torch, np, cpu_model, card_model, card32_model, x_cpu, device):
+    """Each module call inside encoder blocks 0 (windowed) and 2 (global) of
+    the CPU's bfloat16 model, replayed on the card's bfloat16 module and on
+    the card's float32 one (inputs widened) of the same name: {kind: [least
+    share bit-equal, largest ||card - CPU|| / ||CPU||, least of the float32
+    module's share and distance]}."""
+    worst = {}
+    for index in (0, 2):
+        calls, hooks = [], []
+        for name, module in cpu_model.image_encoder.blocks[index].named_modules():
+            if type(module).__name__ in ("Linear", "LayerNorm", "Attention", "MLPBlock"):
+                hooks.append(module.register_forward_hook(
+                    lambda m, args, kwargs, out, name=name: calls.append(
+                        (name, [a.clone() if torch.is_tensor(a) else a for a in args], kwargs,
+                         out.clone())), with_kwargs=True))
+        with torch.inference_mode():
+            cpu_model.get_image_embeddings(x_cpu)
+        for h in hooks:
+            h.remove()
+        card = dict(card_model.image_encoder.blocks[index].named_modules())
+        card32 = dict(card32_model.image_encoder.blocks[index].named_modules())
+        for name, args, kwargs, want in {c[0]: c for c in calls}.values():
+            with torch.inference_mode():
+                got = card[name](*(a.to(device) if torch.is_tensor(a) else a for a in args),
+                                 **kwargs)
+                got32 = card32[name](*(a.to(device, torch.float32) if torch.is_tensor(a) else a
+                                       for a in args), **kwargs)
+            check(got.dtype == torch.bfloat16 and got.shape == want.shape,
+                  f"bf16 block {index} {name}: {got.dtype} {tuple(got.shape)}")
+            equal = float((got.cpu() == want).float().mean())
+            equal32 = float((got32.to(torch.bfloat16).cpu() == want).float().mean())
+            err = frob_rel(np, got.float().cpu(), want.float())
+            err32 = frob_rel(np, got32.cpu(), want.float())
+            kind = type(card[name]).__name__
+            w = worst.setdefault(kind, [1.0, 0.0, 1.0, float("inf")])
+            worst[kind] = [min(w[0], equal), max(w[1], err), min(w[2], equal32), min(w[3], err32)]
+    return worst
+
+
+def bf16_serving_phase(torch, device, model, cpu_model):
+    """``sam_model_registry["vit_b"](512, 3, compute_dtype=torch.bfloat16)``
+    with the float32 SAM phase's weights serves the same frame: 8 / 4 / 8
+    launches of the bfloat16 K2 / K3 / K4 a ``set_image`` and none of the
+    float32 ones, a bfloat16 embedding on the card, the predict shapes; the
+    card against the same bfloat16 model on the CPU, module by module
+    (``bf16_module_holds``) and whole; its gap to the float32 model's
+    embedding and mask logits; ``set_image`` and ``predict`` times of both models in turns
+    (float32, bfloat16, bfloat16, float32)."""
+    import numpy as np
+
+    from mia_tpu_torch.models.sam import SamPredictor, sam_model_registry
+    from mia_tpu_torch.ops import attention, ln_window
+
+    bf = torch.bfloat16
+    bmodel, _ = sam_model_registry["vit_b"](512, 3, compute_dtype=bf, device=device)
+    bmodel.load_state_dict(model.state_dict())
+    check(bmodel.image_encoder.compute_dtype == bf and bmodel.mask_decoder.compute_dtype == bf,
+          "the registry did not build a bfloat16 SAM")
+    check(all(p.dtype == torch.float32 and p.device.type == "cuda" for p in bmodel.parameters()),
+          "bfloat16 SAM parameters are not float32 on the card")
+    image = sam_frame(np)
+    point, label = np.array([[352.0, 216.0]]), np.array([1])
+    box = np.array([220.0, 110.0, 500.0, 330.0])
+    coords16 = np.random.default_rng(5).uniform([0, 0], [640, 480], (16, 1, 2))
+    labels16 = np.ones((16, 1), np.int64)
+    counters = {"K2": attention.fused_attention_rel_packed_ik,
+                "K3": attention.fused_attention_rel_packed,
+                "K4": ln_window.ln_window_partition_fused}
+
+    predictor = SamPredictor(bmodel)
+    for fn in counters.values():
+        fn.launches = fn.bf16_launches = 0
+    predictor.set_image(image)
+    torch.cuda.synchronize()
+    per_set_image = {k: fn.bf16_launches for k, fn in counters.items()}
+    outs = {"point": predictor.predict(point_coords=point, point_labels=label)}
+    outs["box"] = predictor.predict(box=box)
+    best = int(np.argmax(outs["point"][1]))
+    outs["point+box+mask"] = predictor.predict(
+        point_coords=point, point_labels=label, box=box, mask_input=outs["point"][2][best][None])
+    batch = predictor.predict_batch(coords16, labels16)
+    torch.cuda.synchronize()
+    launches = {k: fn.bf16_launches for k, fn in counters.items()}
+    float32_launches = {k: fn.launches for k, fn in counters.items()}
+    check(per_set_image == {"K2": 8, "K3": 4, "K4": 8},
+          f"bfloat16 kernel launches per set_image {per_set_image}, expected 8 K2, 4 K3, 8 K4")
+    check(launches == per_set_image, f"bfloat16 predict launched encoder kernels: {launches}")
+    check(not any(float32_launches.values()),
+          f"the bfloat16 model launched float32 kernels: {float32_launches}")
+    for name, (masks, iou, low) in outs.items():
+        check(masks.shape == (3, 480, 640) and masks.dtype == bool, f"bf16 {name}: masks {masks.shape}")
+        check(iou.shape == (3,) and low.shape == (3, 128, 128), f"bf16 {name}: iou/low-res shapes")
+        check(bool(np.isfinite(iou).all() and np.isfinite(low).all()), f"bf16 {name}: non-finite")
+    check(batch[0].shape == (16, 3, 480, 640) and bool(np.isfinite(batch[1]).all()),
+          "bfloat16 predict_batch malformed")
+    emb = predictor.get_image_embedding()
+    check(emb.device.type == "cuda" and emb.dtype == bf and emb.shape == (1, 32, 32, 256)
+          and bool(torch.isfinite(emb).all()), f"bfloat16 embedding {emb.dtype} {tuple(emb.shape)}")
+
+    # the card against the CPU: the same bfloat16 model, weights and resized
+    # input, module by module and whole; and the card's gap to its float32
+    # model on that input
+    cpu_bmodel, _ = sam_model_registry["vit_b"](512, 3, compute_dtype=bf)
+    cpu_bmodel.load_state_dict(cpu_model.state_dict())
+    cpu_predictor = SamPredictor(cpu_bmodel)
+    cpu_predictor.set_image(image)
+    x_cpu = cpu_predictor._input_image(image)
+    modules = bf16_module_holds(torch, np, cpu_bmodel, bmodel, model, x_cpu, device)
+    f32_predictor = SamPredictor(model)
+    f32_predictor.set_image(image)
+    with torch.inference_mode():
+        predictor.features = bmodel.get_image_embeddings(x_cpu.to(device))
+        f32_predictor.features = model.get_image_embeddings(x_cpu.to(device))
+    emb, emb32 = predictor.get_image_embedding(), f32_predictor.get_image_embedding()
+    emb_cpu = cpu_predictor.get_image_embedding()
+    check(emb_cpu.dtype == bf, f"CPU bfloat16 embedding is {emb_cpu.dtype}")
+    emb_gap = ((emb.float() - emb32).abs().max() / emb32.abs().max()).item()
+    emb_gap_frob = frob_rel(np, emb.float().cpu(), emb32.cpu())
+    emb_card = frob_rel(np, emb.float().cpu(), emb_cpu.float())
+    prompts = {"point": dict(point_coords=point, point_labels=label), "box": dict(box=box),
+               "point+box": dict(point_coords=point, point_labels=label, box=box)}
+    logit_card, logit_gaps = {}, {}
+    for name, kw in prompts.items():
+        logits = predictor.predict(**kw, return_logits=True)[0]
+        logits32 = f32_predictor.predict(**kw, return_logits=True)[0]
+        check(logits.dtype == np.float32 and np.isfinite(logits).all(),
+              f"bfloat16 {name} logits malformed")
+        logit_card[name] = frob_rel(np, logits, cpu_predictor.predict(**kw, return_logits=True)[0])
+        logit_gaps[name] = frob_rel(np, logits, logits32)
+    logit_gap = max(logit_gaps.values())
+    print("bf16 sam: modules of encoder blocks 0 and 2 on the CPU's inputs, card against CPU "
+          "(least share bit-equal, largest ||card - CPU|| / ||CPU||; the float32 module's): "
+          + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.3g} ({v[2]:.4f} / {v[3]:.3g})"
+                      for k, v in modules.items())
+          + f"; limits: Linear and LayerNorm {BF16_LEAF_EQUAL} bit-equal, Attention "
+          f"{BF16_MODULE_TOL['Attention']}, MLP {BF16_MODULE_TOL['MLPBlock']}")
+    print(f"bf16 sam: whole model, card against the CPU's bfloat16 model, ||card - CPU|| / ||CPU||: "
+          f"embedding {emb_card:.3g} (bfloat16 against float32 on the card {emb_gap_frob:.3g}), "
+          "mask logits " + ", ".join(f"{k} {v:.3g} (float32 gap {logit_gaps[k]:.3g})"
+                                     for k, v in logit_card.items())
+          + f" (sanity bound {BF16_WHOLE_SANITY} x the gap)")
+    check(set(modules) == {"Linear", "LayerNorm", "Attention", "MLPBlock"},
+          f"bfloat16 module holds covered {sorted(modules)}")
+    for kind in ("Linear", "LayerNorm"):
+        check(modules[kind][0] >= BF16_LEAF_EQUAL,
+              f"bfloat16 {kind} card vs CPU: {modules[kind][0]} bit-equal < {BF16_LEAF_EQUAL}")
+    check(modules["Linear"][2] < BF16_LEAF_EQUAL,
+          f"a float32 Linear rounded to bfloat16 is {modules['Linear'][2]} bit-equal to the CPU's")
+    for kind, tol in BF16_MODULE_TOL.items():
+        check(modules[kind][1] <= tol < modules[kind][3],
+              f"bfloat16 {kind} card vs CPU {modules[kind][1]} (limit {tol}, float32 module "
+              f"{modules[kind][3]})")
+    check(emb_card <= BF16_WHOLE_SANITY * emb_gap_frob,
+          f"bfloat16 embedding card vs CPU {emb_card} > {BF16_WHOLE_SANITY} x {emb_gap_frob}")
+    for name, err in logit_card.items():
+        check(err <= BF16_WHOLE_SANITY * logit_gaps[name],
+              f"bfloat16 {name} logits card vs CPU {err} > {BF16_WHOLE_SANITY} x {logit_gaps[name]}")
+
+    times = {}
+    for key, p in (("float32", f32_predictor), ("bfloat16", predictor),
+                   ("bfloat16 again", predictor), ("float32 again", f32_predictor)):
+        times[key] = (median_s(lambda: p.set_image(image), torch, n=10) * 1e3,
+                      median_s(lambda: p.predict(point_coords=point, point_labels=label),
+                               torch, n=10) * 1e3)
+    set_ms = {k: min(times[k][0], times[k + " again"][0]) for k in ("float32", "bfloat16")}
+    predict_ms = {k: min(times[k][1], times[k + " again"][1]) for k in ("float32", "bfloat16")}
+    print(f"bf16 sam: launches per set_image {per_set_image} (bfloat16 instances; no float32 "
+          f"kernel); embedding {emb.dtype}, max |bf16 - f32| / max |f32| {emb_gap:.3g}; mask "
+          f"logits ||bf16 - f32|| / ||f32|| up to {logit_gap:.3g}")
+    print(f"bf16 sam: set_image ms float32 / bfloat16 / bfloat16 / float32 "
+          f"{[round(times[k][0], 3) for k in times]}; predict ms {[round(times[k][1], 3) for k in times]}")
+    return {"launches": launches, "set_image_ms": set_ms, "predict_ms": predict_ms,
+            "embedding_gap": emb_gap, "logit_gap": logit_gap, "embedding_card_vs_cpu": emb_card,
+            "logits_card_vs_cpu": logit_card, "modules_card_vs_cpu": modules}
+
+
+def bf16_al_phase(torch, workdir: Path, sl):
+    """``al_train_torch --compute-dtype bfloat16`` on the slice's FUGC set at
+    full width, 2 rounds of 12 iterations: every convolution's output in
+    bfloat16 (forward hooks), float32 parameters and checkpoints, one K1
+    launch a step, finite losses; the step time (median of round 1's after 3
+    warm-up steps) beside the float32 slice's, and the trained UNet's logits
+    in bfloat16 against the same weights in float32."""
+    from mia_tpu_torch.models import UNet
+    from mia_tpu_torch.ops import warp
+    from mia_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+    iters = 12
+    steps, k1, conv_dtypes = [], [], set()
+
+    def build(orig):
+        def method(self, *args, **kwargs):
+            out = orig(self, *args, **kwargs)
+            for m in self.model.modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                    m.register_forward_hook(lambda mod, i, o: conv_dtypes.add(o.dtype))
+            return out
+        return method
+
+    def timed(orig):  # takes run_al's place on train_step: counts K1 too
+        def method(self, batch):
+            torch.cuda.synchronize()
+            before = warp.affine_warp_shift2pass_fused.launches
+            t0 = time.perf_counter()
+            orig(self, batch)
+            torch.cuda.synchronize()
+            steps.append((self.current_round, time.perf_counter() - t0))
+            k1.append(warp.affine_warp_shift2pass_fused.launches - before)
+        return method
+
+    argv = [
+        "--work-path", str(workdir / "bf16"), "--data-path", str(sl["data"]),
+        "--device", "cuda", "--dataset", "fugc", "--in-channels", "3",
+        "--num-classes", "2", "--image-size", "256", "--batch-size", "12",
+        "--valid-mode", "slice", "--active-selector", "entropy",
+        "--do-augment", "--do-normalize", "--optimizer", "adam",
+        "--lr-scheduler", "poly", "--lr-warmup-iter", "5",
+        "--num-rounds", "2", "--budget", "8",
+        "--num-iters", str(iters), "--valid-freq-iter", str(iters),
+        "--do-oversample", "--quiet", "--compute-dtype", "bfloat16",
+    ]
+    trainer, rec = run_al(torch, argv, {"_build_model": build, "train_step": timed})
+    work = trainer.work_path
+    check(trainer.model.cfg.compute_dtype == torch.bfloat16, "the UNet was not built in bfloat16")
+    check(trainer.model.encoder.levels[4][1].all[0].weight.shape[0] == 512, "UNet is not at full width")
+    check(conv_dtypes == {torch.bfloat16}, f"convolution outputs in {conv_dtypes}")
+    check(all(p.dtype == torch.float32 and p.device.type == "cuda"
+              for p in trainer.model.parameters()), "UNet parameters are not float32 on the card")
+    check(len(k1) == 2 * iters and all(k == 1 for k in k1), f"bf16: K1 launches per step {k1}")
+    check(len(rec["losses"]) == 2 * iters and all(math.isfinite(x) for x in rec["losses"]),
+          f"bf16: losses {rec['losses']}")
+    for r in range(2):
+        for kind in ("best_model", "final_model"):
+            tree = read_flax_msgpack(work / f"round_{r}/{kind}/model.msgpack")
+            leaves = []
+
+            def walk(t):
+                for v in t.values():
+                    walk(v) if isinstance(v, dict) else leaves.append(v)
+
+            walk(tree)
+            check(leaves and all(v.dtype.name == "float32" for v in leaves),
+                  f"round_{r}/{kind}/model.msgpack holds {sorted({v.dtype.name for v in leaves})}")
+    # the trained weights in bfloat16 against float32, eval logits of one batch
+    f32 = UNet(dataclasses.replace(trainer.model.cfg, compute_dtype=torch.float32)).cuda()
+    f32.load_state_dict(trainer.model.state_dict())
+    f32.eval()
+    trainer.model.eval()
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.no_grad():
+        got, want = trainer.model(x), f32(x)
+    check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()), "bfloat16 logits")
+    logit_gap = ((got.float() - want).abs().max() / want.abs().max()).item()
+    step_ms = statistics.median([t for r, t in steps if r == 1][3:]) * 1e3
+    print(f"bf16 al: 2 rounds x {iters} iters at width 32..512, 256^2, batch 12; losses first "
+          f"{rec['losses'][0]:.4f} last {rec['losses'][-1]:.4f}; every convolution output "
+          f"bfloat16, parameters and model.msgpack float32, one K1 launch a step")
+    print(f"bf16 al: train step median {step_ms:.2f} ms (round 1 after 3 warm-up steps) against "
+          f"the float32 slice's {sl['step_ms']:.2f} ms; trained UNet's logits bf16 vs f32 max "
+          f"|diff| / max |logit| {logit_gap:.3g}")
+    return {"launches": sum(k1), "step_ms": step_ms, "float32_step_ms": sl["step_ms"],
+            "logit_gap": logit_gap}
 
 
 # ---------------------------------------------------------------------------
@@ -4451,6 +4975,7 @@ def main(argv=None) -> int:
 
     measured = {"K1": timed("K1", kernel_phase, torch, device),
                 **timed("K2-K4", sam_kernel_phase, torch, device),
+                "bf16": timed("K2-K4 bfloat16", bf16_kernel_phase, torch, device),
                 **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
                 **timed("K6-K9", route_kernel_phase, torch, device),
                 **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device),
@@ -4461,6 +4986,7 @@ def main(argv=None) -> int:
         demo = timed("demo and checkpoints", demo_phase, torch, device, Path(tmp), sl)
         del sl["trainer"], sl["saved"]
         warmer = timed("pool-cache warmer", warmer_phase, torch, Path(tmp), sl)
+        bf16_al = timed("AL bfloat16", bf16_al_phase, torch, Path(tmp), sl)
         fugc = timed("FUGC K-fold", fugc_phase, torch, device, Path(tmp))
         acdc_th = timed("ACDC and thyroid", acdc_thyroid_phase, torch, device, Path(tmp), sl)
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
@@ -4472,6 +4998,7 @@ def main(argv=None) -> int:
             shutil.copy(cpc["log"], args.out / "chip_smoke_cpcsam_log.txt")
             shutil.copy(fugc["log"], args.out / "chip_smoke_fugc_log.txt")
     sam, model, cpu_model = timed("SAM serving", sam_phase, torch, device)
+    bf16_sam = timed("SAM serving bfloat16", bf16_serving_phase, torch, device, model, cpu_model)
     serving_k10 = timed("K10 serving", upscaler_serving_phase, torch, device, model)
     routes = timed("encoder routes", route_phase, torch, device, model)
     amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
@@ -4490,9 +5017,13 @@ def main(argv=None) -> int:
     launches = {k: sum(path["launches"].get(k, 0)
                        for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10, demo))
                 for k in KERNELS}
-    launches["K1"] += sl["launches"] + sel["launches"] + warmer["launches"]
+    launches["K1"] += sl["launches"] + sel["launches"] + warmer["launches"] + bf16_al["launches"]
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
+    # the bfloat16 instances of K2, K3 and K4, from SAM serving in bfloat16
+    bf16 = {k: {"launches": bf16_sam["launches"][k], **measured["bf16"][k]} for k in BF16_KERNELS}
+    for k, entry in bf16.items():
+        check(entry["launches"] > 0, f"{k} in bfloat16 was launched on no path")
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
                       or m.startswith(("jax.", "mia_tpu.")))
     check(not imported, f"JAX or the JAX package was imported: {imported}")
@@ -4504,10 +5035,14 @@ def main(argv=None) -> int:
         "replaces": replaces,
         "launches": launches[key],
         **measured[key],
+        **({"bf16": bf16[key]} if key in bf16 else {}),
     } for key, (name, source, replaces) in KERNELS.items()]}
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for entry in kernels["kernels"]:
         check(keys <= set(entry), f"{entry['name']}: kernels line lacks {keys - set(entry)}")
+        if "bf16" in entry:
+            check(keys <= set(entry["bf16"]),
+                  f"{entry['name']} bf16: kernels line lacks {keys - set(entry['bf16'])}")
         check(entry["route"] in ("cuda", "triton"), f"{entry['name']}: route {entry['route']!r}")
     result = {"ok": True, "device": {
         "platform": "gpu",
@@ -4518,6 +5053,8 @@ def main(argv=None) -> int:
         (args.out / "chip_smoke.json").write_text(
             json.dumps({"card": card, "host_decode": sl["host_decode"],
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
+                        "bf16": {"sam": {k: v for k, v in bf16_sam.items() if k != "launches"},
+                                 "al": {k: v for k, v in bf16_al.items() if k != "launches"}},
                         "routes": routes["set_image_ms"],
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "selectors": {k: v for k, v in sel.items() if k != "launches"},

@@ -89,7 +89,8 @@ class ModelScorer:
         with torch.enable_grad():
             loss = cross_entropy(logits, preds) + soft_dice_loss(logits, preds, do_bg=True)
             (g,) = torch.autograd.grad(loss * logits.shape[0], logits)
-        emb = torch.einsum("bhwc,bhwk->bck", feature.to(torch.float32), g)
+        # in the model's compute dtype, as the head's weight gradient is there
+        emb = torch.einsum("bhwc,bhwk->bck", feature, g.to(feature.dtype)).to(torch.float32)
         return emb.reshape(emb.shape[0], -1)
 
 

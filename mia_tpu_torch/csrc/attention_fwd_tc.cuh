@@ -107,6 +107,9 @@
 // qkv, the rel terms, pad_kv and out read or written once it is bound by
 // bytes at B=1 (13.97 MB: 4.17 us against 3.74 us of MMAs).
 //
+// The bfloat16 instance (attention_fwd_bf16_kernel below; K2 and K3 of a
+// bfloat16 encoder, packed layout only) is described before it.
+//
 // The kernels allocate nothing and do not synchronise; the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -117,6 +120,7 @@
 #include <type_traits>
 
 #include "attention_window.cuh"
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -190,6 +194,64 @@ __device__ __forceinline__ void copy_bias_async(float* dst, const float* __restr
       cp_async4(dst + r * kBRow + c, valid ? src + static_cast<long long>(r) * n + c : bias, valid);
     }
   }
+}
+
+// a0, a1 reduced over the four threads of a fragment row group
+__device__ __forceinline__ void quad_max(float& a0, float& a1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, off));
+    a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, off));
+  }
+}
+
+__device__ __forceinline__ void quad_sum(float& a0, float& a1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    a0 += __shfl_xor_sync(0xffffffffu, a0, off);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+  }
+}
+
+// The score step both forward kernels share: + rel_h[row, y] + rel_w[row,
+// x] on this thread's scores s of keys k0 + 8j + 2tq (+1) in block rows lr0
+// and lr0 + 8; keys past n score -inf (kFull: every key of the tile is
+// present); the rows' maxima over the quad into mx0, mx1.
+template <int kJ, bool kFull>
+__device__ __forceinline__ void add_rel_bias_max(float (&s)[kJ][4], const RelView& rv,
+                                                 const float* Rel, int lr0, int k0, int tq, int n,
+                                                 int kw, float& mx0, float& mx1) {
+  int y = (k0 + 2 * tq) / kw;
+  int x = k0 + 2 * tq - y * kw;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    int y1 = y, x1 = x + 1;  // the odd key's place
+    if (x1 == kw) {
+      x1 = 0;
+      ++y1;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool odd = e & 1;
+      const bool hi = e & 2;
+      const int key = k0 + 8 * j + 2 * tq + (odd ? 1 : 0);
+      const float v = (kFull || key < n)
+                          ? s[j][e] + rv.bias(Rel, hi ? lr0 + 8 : lr0, odd ? y1 : y, odd ? x1 : x)
+                          : -INFINITY;
+      s[j][e] = v;
+      if (hi) {
+        mx1 = fmaxf(mx1, v);
+      } else {
+        mx0 = fmaxf(mx0, v);
+      }
+    }
+    x += 8;
+    while (x >= kw) {
+      x -= kw;
+      ++y;
+    }
+  }
+  quad_max(mx0, mx1);
 }
 
 // A block of kTcThreads (4 warps of 16 query rows) per 64-query tile;
@@ -348,44 +410,9 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
           mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
           mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
         }
+        quad_max(mx0, mx1);
       } else {
-        // rel_h[row, y] + rel_w[row, x]
-        int y = (k0 + 2 * tq) / kw;
-        int x = k0 + 2 * tq - y * kw;
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) {
-          int y1 = y, x1 = x + 1;  // the odd key's place
-          if (x1 == kw) {
-            x1 = 0;
-            ++y1;
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool odd = e & 1;
-            const bool hi = e & 2;
-            const int key = k0 + 8 * j + 2 * tq + (odd ? 1 : 0);
-            const float v = (kFull || key < n)
-                                ? s[j][e] + rv.bias(Rel, hi ? lr0 + 8 : lr0, odd ? y1 : y,
-                                                    odd ? x1 : x)
-                                : -INFINITY;
-            s[j][e] = v;
-            if (hi) {
-              mx1 = fmaxf(mx1, v);
-            } else {
-              mx0 = fmaxf(mx0, v);
-            }
-          }
-          x += 8;
-          while (x >= kw) {
-            x -= kw;
-            ++y;
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        add_rel_bias_max<kJ, kFull>(s, rv, Rel, lr0, k0, tq, n, kw, mx0, mx1);
       }
       // online softmax: the new maxima, the rescale of what came before
       // (0 while m = -inf); K7: the reference point 0 while the new maximum
@@ -448,11 +475,7 @@ __global__ void __launch_bounds__(kTcThreads, kKeys == 32 ? 3 : 2)
   }
 
   // the rows' sums over the quad; out = O / l, lse = m + log l
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
+  quad_sum(l0, l1);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? tr1 : tr0;
@@ -517,6 +540,268 @@ int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
   switch (d) {
     case 64: return launch_fwd_tc<64, kBias>(a, batch, s);
     case 80: return launch_fwd_tc<80, kBias>(a, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bfloat16 instance: K3 (kTables false) and K2 (kTables true, after the
+// bfloat16 instance of kernel R) on bfloat16 packed qkv, rel terms and
+// output, the TPU kernels' fast path ("dots in the input dtype, float32
+// accumulation", mia_tpu/ops/attention.py). Same block and warp layout as
+// the float32 template above (64 queries a block, 16 a warp, K and V tiles
+// of kKeys keys in two cp.async stages, online softmax in float32), with
+// one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three m16n8k8:
+//   - q * scale is rounded to bfloat16 with the scale itself rounded to
+//     bfloat16 first, as the Pallas kernel's bf16 multiply (exact at head
+//     dim 64, whose scale is 1/8); the A fragments stay in registers as
+//     bf16x2 for the whole key loop;
+//   - K and V tiles land in shared memory at half the float32 bytes, rows
+//     padded to D + 8 elements (16 bytes), so the 32-bit B-fragment reads
+//     of K (row g, columns 2tq + {0, 1, 8, 9}) and the ldmatrix row reads
+//     of V fall in distinct banks;
+//   - S = (scale Q).K^T accumulates in float32; the rel rows (read once,
+//     bfloat16 values widened into float32 shared memory) are a float32 add
+//     per score, as in the float32 template;
+//   - P = exp(S - m) is packed to bf16x2 straight from the S accumulators:
+//     the C fragments of two adjacent n8 key tiles are the A fragment of
+//     one k16 step of P.V (FlashAttention-2); V's B fragments come from
+//     ldmatrix.trans. O accumulates in float32 across the tiles (rescaled
+//     by the online softmax); the epilogue writes O / l rounded to bfloat16
+//     and m + log l in float32.
+// Rounding against the Pallas kernel: it rounds the NORMALISED p to
+// bfloat16 before P.V, this kernel the unnormalised exp(S - m) with the
+// running maximum; the two differ at the scale of one bfloat16 ulp of p,
+// summed over the keys (tolerance 2^-7 of max |out| in chip_smoke.py,
+// against the plain version's ~2^-9 rounding of out itself).
+//
+// Bound: operations, 4 D flops a (query, key) pair at 989 TFLOP/s dense
+// bfloat16, or bytes (qkv, rel terms and out once) at 3.35 TB/s, whichever
+// is larger (chip_smoke.py computes both).
+
+struct Bf16FwdArgs {
+  const bf16* qkv;    // (batch, n, 3 * heads * D)
+  const bf16* rel_a;  // K3: rel_h (B*H, n, kh); K2: kernel R's terms (B*H, n, kh + kw)
+  const bf16* rel_b;  // K3: rel_w (B*H, n, kw); K2: unused
+  bf16* out;          // (batch, n, heads * D)
+  float* lse;         // optional (B*H, n)
+  int n, heads, kh, kw;
+  float scale;
+};
+
+// Rows row0 .. row0+kRows-1 of one bfloat16 operand into a tile of rows of
+// D + 8 elements; rows past n are zero-filled.
+template <int D, int kRows>
+__device__ __forceinline__ void copy_rows_bf16_async(bf16* dst, const bf16* __restrict__ base,
+                                                     long long stride, int row0, int n) {
+  constexpr int kC = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kRows * kC; i += kTcThreads) {
+    const int r = i / kC;
+    const int c = i - r * kC;
+    const bool valid = row0 + r < n;
+    cp_async16_bytes(dst + r * (D + 8) + 8 * c, valid ? base + (row0 + r) * stride + 8 * c : base,
+                     valid);
+  }
+}
+
+// The rel rows of query rows q0 .. q0+rows-1 of (image, head) bh, widened
+// to float32 into R (laid out as rel_view<kTables>).
+template <bool kTables>
+__device__ __forceinline__ void load_rel_bf16(float* R, const bf16* __restrict__ rel_a,
+                                              const bf16* __restrict__ rel_b, long long bh, int n,
+                                              int kh, int kw, int q0, int rows) {
+  if constexpr (kTables) {
+    const int ka = kh + kw;
+    const bf16* src = rel_a + (bh * n + q0) * ka;
+    for (int i = threadIdx.x; i < rows * ka; i += kTcThreads) R[i] = to_float(src[i]);
+  } else {
+    const bf16* src_h = rel_a + (bh * n + q0) * kh;
+    const bf16* src_w = rel_b + (bh * n + q0) * kw;
+    for (int i = threadIdx.x; i < rows * kh; i += kTcThreads) R[i] = to_float(src_h[i]);
+    for (int i = threadIdx.x; i < rows * kw; i += kTcThreads)
+      R[kTcTile * kh + i] = to_float(src_w[i]);
+  }
+}
+
+template <int D, bool kTables, int kKeys>
+__global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const Bf16FwdArgs a) {
+  constexpr int kRow = D + 8;     // padded K/V row, bf16 elements
+  constexpr int kK = D / 16;      // k16 steps of S = Q.K^T
+  constexpr int kN = D / 8;       // n8 tiles of O
+  constexpr int kJ = kKeys / 8;   // 8-key groups of a streamed tile
+  constexpr int kStage = 2 * kKeys * kRow;  // [K | V][kKeys][kRow]
+  extern __shared__ float4 smem4[];
+  bf16* KV = reinterpret_cast<bf16*>(smem4);           // [stage][kStage]
+  float* Rel = reinterpret_cast<float*>(KV + 2 * kStage);  // the block's rel rows, float32
+  const int n = a.n, kw = a.kw;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int head = blockIdx.y;
+  const long long img = blockIdx.z;
+  const long long bh = img * a.heads + head;
+  const int row0 = blockIdx.x * kTcTile;
+  const long long stride = 3LL * a.heads * D;
+  const bf16* q_base = a.qkv + img * n * stride + head * D;
+  const bf16* k_base = q_base + static_cast<long long>(a.heads) * D;
+  const bf16* v_base = k_base + static_cast<long long>(a.heads) * D;
+  const RelView rv = rel_view<kTables>(a.kh, kw);
+  const int ntiles = (n + kKeys - 1) / kKeys;
+
+  auto issue = [&](int tile) {
+    bf16* st = KV + (tile & 1) * kStage;
+    copy_rows_bf16_async<D, kKeys>(st, k_base, stride, tile * kKeys, n);
+    copy_rows_bf16_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    cp_async_commit();
+  };
+  issue(0);
+  load_rel_bf16<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0, min(kTcTile, n - row0));
+
+  // this warp's rows r0 and r1 = r0 + 8: (scale q) rounded to bfloat16, as A fragments
+  const int lr0 = warp * 16 + g;
+  const int r0 = row0 + lr0;
+  const int r1 = r0 + 8;
+  const bool active = row0 + warp * 16 < n;
+  const float sc = __bfloat162float(__float2bfloat16_rn(a.scale));
+  uint32_t qa[kK][4];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e & 1) ? r1 : r0;
+      const int c = 16 * kk + 2 * tq + ((e & 2) ? 8 : 0);
+      float x0 = 0.f, x1 = 0.f;
+      if (r < n) {
+        const __nv_bfloat162 q2 = *reinterpret_cast<const __nv_bfloat162*>(q_base + r * stride + c);
+        x0 = __low2float(q2) * sc;
+        x1 = __high2float(q2) * sc;
+      }
+      qa[kk][e] = pack_bf16x2(x0, x1);
+    }
+  }
+
+  float o[kN][4];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      issue(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile landed for every thread (the first with the rel rows)
+    const bf16* Ks = KV + (tile & 1) * kStage;
+    const bf16* Vs = Ks + kKeys * kRow;
+    const int k0 = tile * kKeys;
+    const int nk = min(kKeys, n - k0);
+    if (active) {
+      float s[kJ][4];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          if (8 * j < nk) {
+            const bf16* kr = Ks + (8 * j + g) * kRow + 16 * kk + 2 * tq;
+            mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                     *reinterpret_cast<const uint32_t*>(kr + 8));
+          }
+        }
+      }
+      // + rel_h[row, y] + rel_w[row, x]; keys past n score -inf; the tile's row maxima
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      add_rel_bias_max<kJ, false>(s, rv, Rel, lr0, k0, tq, n, kw, mx0, mx1);
+      // online softmax (the rel bias is finite, so every row has a finite key)
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float c0 = __expf(m0 - mn0);
+      const float c1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int nd = 0; nd < kN; ++nd) {
+        o[nd][0] *= c0;
+        o[nd][1] *= c0;
+        o[nd][2] *= c1;
+        o[nd][3] *= c1;
+      }
+      uint32_t pa[kJ / 2][4];  // P as the A fragments of the k16 steps of P.V
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float p0 = __expf(s[j][0] - mn0), p1 = __expf(s[j][1] - mn0);
+        const float p2 = __expf(s[j][2] - mn1), p3 = __expf(s[j][3] - mn1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        // key group j is columns 8 (j % 2) .. of k16 step j / 2: registers
+        // {0, 1} (rows g, g + 8) for the even group, {2, 3} for the odd one
+        pa[j / 2][(j & 1) * 2] = pack_bf16x2(p0, p1);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
+      }
+      // O += P.V: V's rows 16 jj .. 16 jj + 15 by ldmatrix.trans, two n8 tiles a load
+#pragma unroll
+      for (int jj = 0; jj < kJ / 2; ++jj) {
+        if (16 * jj < nk) {
+          const bf16* vrow = Vs + (16 * jj + ((lane >> 3) & 1) * 8 + (lane & 7)) * kRow +
+                             (lane >> 4) * 8;
+#pragma unroll
+          for (int nd = 0; nd < kN; nd += 2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, vrow + 8 * nd);
+            mma_bf16(o[nd], pa[jj], b[0], b[1]);
+            mma_bf16(o[nd + 1], pa[jj], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage consumed before the next tile but one is copied into it
+  }
+
+  // the rows' sums over the quad; out = O / l in bfloat16, lse = m + log l
+  quad_sum(l0, l1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    if (r >= n) continue;
+    const float inv = 1.f / (half ? l1 : l0);
+    bf16* dst = a.out + (img * n + r) * (static_cast<long long>(a.heads) * D) + head * D + 2 * tq;
+#pragma unroll
+    for (int nd = 0; nd < kN; ++nd)
+      *reinterpret_cast<uint32_t*>(dst + 8 * nd) =
+          pack_bf16x2(o[nd][2 * half] * inv, o[nd][2 * half + 1] * inv);
+    if (a.lse != nullptr && tq == 0) a.lse[bh * n + r] = (half ? m1 : m0) + logf(half ? l1 : l0);
+  }
+}
+
+// One launch of the bfloat16 instance: 64-key tiles.
+template <int D, bool kTables>
+int launch_fwd_bf16(const Bf16FwdArgs& a, int batch, cudaStream_t s) {
+  constexpr int kKeys = 64;
+  const size_t smem = sizeof(bf16) * 4 * kKeys * (D + 8) + sizeof(float) * kTcTile * (a.kh + a.kw);
+  auto kernel = attention_fwd_bf16_kernel<D, kTables, kKeys>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
+  kernel<<<grid, kTcThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
+template <bool kTables>
+int dispatch_fwd_bf16(const Bf16FwdArgs& a, int batch, int d, void* stream) {
+  if (batch == 0 || a.n == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_fwd_bf16<64, kTables>(a, batch, s);
+    case 80: return launch_fwd_bf16<80, kTables>(a, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

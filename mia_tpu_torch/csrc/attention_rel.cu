@@ -46,6 +46,12 @@
 // P to P.V straight from the S accumulator, where TF32 wgmma would want
 // both operands K-major in shared memory and P written out there.
 //
+// bfloat16: mia_attention_rel_packed_bf16 and mia_attention_rel_packed_ik_bf16
+// run the bfloat16 instance of the forward (bfloat16 mma.sync, described in
+// attention_fwd_tc.cuh) for a bfloat16 encoder; K2's terms come from kernel
+// R's bfloat16 instance. They have no backward: a bfloat16 call that needs
+// a gradient raises in the wrapper.
+//
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -112,28 +118,32 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w);
 }
 
-// T_n of token position pos: kh + kw rows of D floats.
-template <int D>
-__device__ __forceinline__ void copy_table_rows(float* T, const float* __restrict__ rh,
-                                                const float* __restrict__ rw, int pos, int kh,
+// T_n of token position pos: kh + kw rows of D values, widened to float32.
+template <int D, typename E>
+__device__ __forceinline__ void copy_table_rows(float* T, const E* __restrict__ rh,
+                                                const E* __restrict__ rw, int pos, int kh,
                                                 int kw) {
   const int y = pos / kw;
   const int x = pos - y * kw;
   for (int i = threadIdx.x; i < (kh + kw) * (D / 4); i += kRelThreads) {
     const int j = i / (D / 4);
     const int c = i - j * (D / 4);
-    const float* src = j < kh ? rh + static_cast<long long>(y * kh + j) * D
-                              : rw + static_cast<long long>(x * kw + j - kh) * D;
-    reinterpret_cast<float4*>(T)[i] = __ldg(reinterpret_cast<const float4*>(src) + c);
+    const E* src = j < kh ? rh + static_cast<long long>(y * kh + j) * D
+                          : rw + static_cast<long long>(x * kw + j - kh) * D;
+    reinterpret_cast<float4*>(T)[i] = load4(src + 4 * c);
   }
 }
 
 // Kernel R: one thread a (window, head) pair; the rows go out through
-// shared memory so that a warp writes runs of kh + kw floats.
-template <int D>
+// shared memory so that a warp writes runs of kh + kw values. E is the
+// element type of qkv, the tables and the terms: float32 for K2 and K2b,
+// bfloat16 for K2's bfloat16 instance, which sums the exact products in
+// float32 and rounds each term once, as the Pallas kernel's candidate
+// product.
+template <int D, typename E>
 __global__ void __launch_bounds__(kRelThreads) attention_rel_terms_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ rh, const float* __restrict__ rw,
-    float* __restrict__ rel, long long pairs, int n, int heads, int kh, int kw) {
+    const E* __restrict__ qkv, const E* __restrict__ rh, const E* __restrict__ rw,
+    E* __restrict__ rel, long long pairs, int n, int heads, int kh, int kw) {
   extern __shared__ float4 smem4[];
   const int ka = kh + kw;
   float* T = reinterpret_cast<float*>(smem4);  // [ka][D]
@@ -147,11 +157,10 @@ __global__ void __launch_bounds__(kRelThreads) attention_rel_terms_kernel(
     const long long bh = bh0 + threadIdx.x;
     const long long img = bh / heads;
     const long long head = bh - img * heads;
-    const float4* q4 = reinterpret_cast<const float4*>(qkv + (img * n + pos) * (3LL * heads * D) +
-                                                       head * D);
+    const E* qr = qkv + (img * n + pos) * (3LL * heads * D) + head * D;
     float4 q[D / 4];
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) q[c] = __ldg(q4 + c);
+    for (int c = 0; c < D / 4; ++c) q[c] = load4(qr + 4 * c);
     for (int j = 0; j < ka; ++j) {
       const float4* t4 = reinterpret_cast<const float4*>(T + j * D);
       float acc = 0.f;
@@ -163,7 +172,7 @@ __global__ void __launch_bounds__(kRelThreads) attention_rel_terms_kernel(
   __syncthreads();
   for (int i = threadIdx.x; i < rows * ka; i += kRelThreads) {
     const int r = i / ka;
-    rel[((bh0 + r) * n + pos) * ka + (i - r * ka)] = S[r * (ka + 1) + (i - r * ka)];
+    rel[((bh0 + r) * n + pos) * ka + (i - r * ka)] = from_float<E>(S[r * (ka + 1) + (i - r * ka)]);
   }
 }
 
@@ -224,24 +233,33 @@ struct RelGather {
   int n, heads, kh, kw;
 };
 
+// Kernel R over every (window, head) pair, elements of type E.
+template <int D, typename E>
+int launch_rel_terms(const E* qkv, const E* rh, const E* rw, E* rel, long long pairs, int n,
+                     int heads, int kh, int kw, cudaStream_t s) {
+  const int ka = kh + kw;
+  const size_t smem = sizeof(float) * (ka * D + kRelThreads * (ka + 1));
+  const dim3 grid(n, static_cast<unsigned>((pairs + kRelThreads - 1) / kRelThreads));
+  const cudaError_t err = allow_smem(attention_rel_terms_kernel<D, E>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_rel_terms_kernel<D, E><<<grid, kRelThreads, smem, s>>>(qkv, rh, rw, rel, pairs, n,
+                                                                    heads, kh, kw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Kernel R (route false) or Q (route true) over every (window, head) pair.
 template <int D>
 int launch_rel_gather(bool route, const RelGather& r, cudaStream_t s) {
+  if (!route)
+    return launch_rel_terms<D, float>(r.qkv, r.rh, r.rw, r.rel, r.pairs, r.n, r.heads, r.kh, r.kw,
+                                      s);
   const int ka = r.kh + r.kw;
   const size_t smem = sizeof(float) * (ka * D + kRelThreads * (ka + 1));
   const dim3 grid(r.n, static_cast<unsigned>((r.pairs + kRelThreads - 1) / kRelThreads));
-  cudaError_t err;
-  if (route) {
-    err = allow_smem(attention_rel_route_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attention_rel_route_kernel<D><<<grid, kRelThreads, smem, s>>>(
-        r.dqkv, r.rel, r.rh, r.rw, r.pairs, r.n, r.heads, r.kh, r.kw);
-  } else {
-    err = allow_smem(attention_rel_terms_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attention_rel_terms_kernel<D><<<grid, kRelThreads, smem, s>>>(
-        r.qkv, r.rh, r.rw, r.rel, r.pairs, r.n, r.heads, r.kh, r.kw);
-  }
+  const cudaError_t err = allow_smem(attention_rel_route_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_rel_route_kernel<D><<<grid, kRelThreads, smem, s>>>(
+      r.dqkv, r.rel, r.rh, r.rw, r.pairs, r.n, r.heads, r.kh, r.kw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -385,6 +403,44 @@ extern "C" int mia_attention_rel_packed_ik_f32(const void* qkv, const void* rh_f
   if (err != 0) return err;
   const FwdArgs a = packed_fwd_args(qkv, terms, terms, out, lse, n, heads, d, kh, kw, scale);
   return dispatch_fwd_tc<kRelTables>(a, batch, d, stream);
+}
+
+// The bfloat16 instances of K3 and K2 (attention_fwd_bf16_kernel of
+// attention_fwd_tc.cuh; K2's rel terms from kernel R's bfloat16 instance):
+// qkv, the rel terms or tables, out and K2's rel scratch in bfloat16, lse
+// float32; otherwise the arguments of the float32 entries.
+extern "C" int mia_attention_rel_packed_bf16(const void* qkv, const void* rel_h,
+                                             const void* rel_w, void* out, void* lse, int batch,
+                                             int n, int heads, int d, int kh, int kw, float scale,
+                                             void* stream) {
+  const Bf16FwdArgs a{static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
+                      static_cast<const bf16*>(rel_w), static_cast<bf16*>(out),
+                      static_cast<float*>(lse), n, heads, kh, kw, scale};
+  return dispatch_fwd_bf16<false>(a, batch, d, stream);
+}
+
+extern "C" int mia_attention_rel_packed_ik_bf16(const void* qkv, const void* rh_flat,
+                                                const void* rw_flat, void* out, void* lse,
+                                                void* rel, int batch, int n, int heads, int d,
+                                                int kh, int kw, float scale, void* stream) {
+  if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  if (rel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* rh = static_cast<const bf16*>(rh_flat);
+  const bf16* rw = static_cast<const bf16*>(rw_flat);
+  bf16* terms = static_cast<bf16*>(rel);
+  const long long pairs = static_cast<long long>(batch) * heads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (d) {
+    case 64: err = launch_rel_terms<64, bf16>(q, rh, rw, terms, pairs, n, heads, kh, kw, s); break;
+    case 80: err = launch_rel_terms<80, bf16>(q, rh, rw, terms, pairs, n, heads, kh, kw, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  const Bf16FwdArgs a{q, terms, terms, static_cast<bf16*>(out), static_cast<float*>(lse),
+                      n, heads, kh, kw, scale};
+  return dispatch_fwd_bf16<true>(a, batch, d, stream);
 }
 
 // K3 backward: from the forward's inputs, its output, its lse and the

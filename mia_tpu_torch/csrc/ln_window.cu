@@ -1,4 +1,5 @@
-// K4 on Hopper: LayerNorm fused with the window partition, in float32.
+// K4 on Hopper: LayerNorm fused with the window partition, for float32 or
+// bfloat16 x and windows (float32 scale, bias, statistics and arithmetic).
 //
 // Replaces the TPU kernel mia_tpu/ops/ln_window.py::ln_window_partition
 // (_fwd_kernel). For x (B, H, W, C) it writes the windowed tensor
@@ -22,6 +23,12 @@
 // 3.1 MB and writes 5.4 MB, about 2.5 us at 3.35 TB/s; launch overhead is of
 // the same order.
 //
+// The bfloat16 instance (mia_ln_window_partition_bf16, the forward of a
+// bfloat16 encoder) reads x in bfloat16, computes exactly the float32
+// arithmetic above and rounds each output once to bfloat16, as the Pallas
+// kernel's carve-and-cast; mu and rstd stay float32. Half the bytes of the
+// float32 instance; no bfloat16 backward (K4b takes float32).
+//
 // The kernel allocates nothing and does not synchronise; the C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -29,14 +36,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;  // output tokens per block
 
-template <bool kVec4>
+template <bool kVec4, typename T>
 __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
-    const float* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ mu_out,
+    const T* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ mu_out,
     float* __restrict__ rstd_out, long long tokens, int H, int W, int C, int ws, int nwx, int nw,
     float eps) {
   const int lane = threadIdx.x & 31;
@@ -50,30 +59,29 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
   const int wi = static_cast<int>(win - static_cast<long long>(b) * nw);
   const int y = (wi / nwx) * ws + r / ws;
   const int xx = (wi % nwx) * ws + r % ws;
-  float* dst = out + token * C;
+  T* dst = out + token * C;
 
   if (y >= H || xx >= W) {  // pad slot
     if (kVec4) {
-      for (int c = lane * 4; c < C; c += 128)
-        *reinterpret_cast<float4*>(dst + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = lane * 4; c < C; c += 128) store4(dst + c, make_float4(0.f, 0.f, 0.f, 0.f));
     } else {
-      for (int c = lane; c < C; c += 32) dst[c] = 0.f;
+      for (int c = lane; c < C; c += 32) dst[c] = from_float<T>(0.f);
     }
     return;
   }
   const long long src_token = (static_cast<long long>(b) * H + y) * W + xx;
-  const float* src = x + src_token * C;
+  const T* src = x + src_token * C;
 
   float sum = 0.f, sq = 0.f;
   if (kVec4) {
     for (int c = lane * 4; c < C; c += 128) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(src + c));
+      const float4 v = load4(src + c);
       sum += (v.x + v.y) + (v.z + v.w);
       sq += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
     }
   } else {
     for (int c = lane; c < C; c += 32) {
-      const float v = __ldg(src + c);
+      const float v = to_float(__ldg(src + c));
       sum += v;
       sq += v * v;
     }
@@ -93,16 +101,49 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_kernel(
 
   if (kVec4) {
     for (int c = lane * 4; c < C; c += 128) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(src + c));
+      const float4 v = load4(src + c);
       const float4 g = __ldg(reinterpret_cast<const float4*>(scale + c));
       const float4 o = __ldg(reinterpret_cast<const float4*>(bias + c));
-      *reinterpret_cast<float4*>(dst + c) =
-          make_float4((v.x - mu) * (rstd * g.x) + o.x, (v.y - mu) * (rstd * g.y) + o.y,
-                      (v.z - mu) * (rstd * g.z) + o.z, (v.w - mu) * (rstd * g.w) + o.w);
+      store4(dst + c,
+             make_float4((v.x - mu) * (rstd * g.x) + o.x, (v.y - mu) * (rstd * g.y) + o.y,
+                         (v.z - mu) * (rstd * g.z) + o.z, (v.w - mu) * (rstd * g.w) + o.w));
     }
   } else {
-    for (int c = lane; c < C; c += 32) dst[c] = (__ldg(src + c) - mu) * (rstd * scale[c]) + bias[c];
+    for (int c = lane; c < C; c += 32)
+      dst[c] = from_float<T>((to_float(__ldg(src + c)) - mu) * (rstd * scale[c]) + bias[c]);
   }
+}
+
+// One launch of the forward for x and out of element type T.
+template <typename T>
+int launch_ln_window_partition(const void* x, const void* scale, const void* bias, void* out,
+                               void* mu, void* rstd, int B, int H, int W, int C, int ws,
+                               float eps, void* stream) {
+  const int nwy = (H + ws - 1) / ws;
+  const int nwx = (W + ws - 1) / ws;
+  const long long tokens = static_cast<long long>(B) * nwy * nwx * ws * ws;
+  if (tokens == 0 || C == 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (tokens + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const float* sf = static_cast<const float*>(scale);
+  const float* bf = static_cast<const float*>(bias);
+  T* ot = static_cast<T*>(out);
+  if (vec4) {
+    ln_window_partition_kernel<true, T><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+        xt, sf, bf, ot, static_cast<float*>(mu), static_cast<float*>(rstd), tokens, H, W, C, ws,
+        nwx, nwy * nwx, eps);
+  } else {
+    ln_window_partition_kernel<false, T><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+        xt, sf, bf, ot, static_cast<float*>(mu), static_cast<float*>(rstd), tokens, H, W, C, ws,
+        nwx, nwy * nwx, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -234,31 +275,16 @@ __global__ void ln_window_partition_params_reduce_kernel(const float* __restrict
 extern "C" int mia_ln_window_partition_f32(const void* x, const void* scale, const void* bias,
                                            void* out, void* mu, void* rstd, int B, int H, int W,
                                            int C, int ws, float eps, void* stream) {
-  const int nwy = (H + ws - 1) / ws;
-  const int nwx = (W + ws - 1) / ws;
-  const long long tokens = static_cast<long long>(B) * nwy * nwx * ws * ws;
-  if (tokens == 0 || C == 0) return static_cast<int>(cudaSuccess);
-  const long long blocks = (tokens + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* sf = static_cast<const float*>(scale);
-  const float* bf = static_cast<const float*>(bias);
-  float* of = static_cast<float*>(out);
-  if (vec4) {
-    ln_window_partition_kernel<true><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
-        xf, sf, bf, of, static_cast<float*>(mu), static_cast<float*>(rstd), tokens, H, W, C, ws,
-        nwx, nwy * nwx, eps);
-  } else {
-    ln_window_partition_kernel<false><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
-        xf, sf, bf, of, static_cast<float*>(mu), static_cast<float*>(rstd), tokens, H, W, C, ws,
-        nwx, nwy * nwx, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_ln_window_partition<float>(x, scale, bias, out, mu, rstd, B, H, W, C, ws, eps,
+                                           stream);
+}
+
+// The same with x and out in bfloat16 (scale, bias, mu and rstd float32).
+extern "C" int mia_ln_window_partition_bf16(const void* x, const void* scale, const void* bias,
+                                            void* out, void* mu, void* rstd, int B, int H, int W,
+                                            int C, int ws, float eps, void* stream) {
+  return launch_ln_window_partition<bf16>(x, scale, bias, out, mu, rstd, B, H, W, C, ws, eps,
+                                          stream);
 }
 
 // Backward: x (B, H, W, C), dy (B*nW, ws, ws, C), mu and rstd (B, H, W),

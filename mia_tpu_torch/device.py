@@ -1,4 +1,4 @@
-"""Device resolution and float32 precision settings.
+"""Device resolution, compute dtypes and float32 precision settings.
 
 ``cuda`` is the default everywhere. Asking for ``cuda`` on a machine without
 a card raises: the port never falls back to the CPU on its own. The CPU must
@@ -29,6 +29,21 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def as_compute_dtype(name: str | torch.dtype) -> torch.dtype:
+    """Map a ``--compute-dtype`` value (``float32`` or ``bfloat16``, or the
+    ``torch.dtype`` itself) to the ``torch.dtype`` the models compute in."""
+    if isinstance(name, torch.dtype):
+        if name not in COMPUTE_DTYPES.values():
+            raise ValueError(f"unsupported compute dtype {name} (use float32 or bfloat16)")
+        return name
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unsupported compute dtype {name!r} (use float32 or bfloat16)")
+    return COMPUTE_DTYPES[name]
+
+
 def set_compute_precision(compute_dtype: str = "float32") -> None:
     """Pin the float32 math mode of cuDNN convolutions and cuBLAS matmuls.
 
@@ -44,11 +59,12 @@ def set_compute_precision(compute_dtype: str = "float32") -> None:
       float32, so the eval pipeline's resize matrices (one-hot label maps,
       bilinear image weights) are applied exactly.
 
-    ``bfloat16`` compute is not ported yet.
+    ``bfloat16`` keeps float32 parameters and computes the models'
+    activations in bfloat16 (each module's ``compute_dtype``, flax's
+    ``dtype``); what stays float32 (normalisation statistics, losses, the
+    resize matrices, the optimizer) takes the same two settings.
     """
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute dtype {compute_dtype!r} is not ported; use float32"
-        )
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unsupported compute dtype {compute_dtype!r} (use float32 or bfloat16)")
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False

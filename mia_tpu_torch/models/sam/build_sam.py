@@ -6,7 +6,10 @@ lora_rank=0, ...) -> (model, embed_size)`` takes the JAX registry's arguments
 (``checkpoint`` is accepted and not read, as there) and builds the module
 with PyTorch's initialisers, on the CPU unless ``device`` is given: the plain ``Sam`` for ``vit_b``/``vit_l``/
 ``vit_h``, and CPC-SAM's ``SamDualmask`` (ViT-B) for
-``vit_b_dualmask_same_prompt_class_random_large``.
+``vit_b_dualmask_same_prompt_class_random_large``. ``compute_dtype``
+(``torch.float32`` or ``torch.bfloat16``, or their names) reaches the model
+as the JAX registry's does; keywords meant for another entry are accepted
+and ignored, as there.
 
 :func:`import_torch_sam_encoder` reads a reference SAM checkpoint's
 ``image_encoder.*`` weights with the reference's ``load_from`` surgery:
@@ -22,6 +25,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ...device import as_compute_dtype
 from .sam import Sam, SamDualmask
 
 _VIT_SPECS = {
@@ -34,7 +38,8 @@ _VIT_SPECS = {
 def _build_plain(spec_name: str):
     spec = _VIT_SPECS[spec_name]
 
-    def build(image_size, num_classes, checkpoint=None, lora_rank=0, device=None, **kwargs):
+    def build(image_size, num_classes, checkpoint=None, lora_rank=0, device=None,
+              compute_dtype=torch.float32, **kwargs):
         # ``checkpoint`` is accepted and not read, as in the JAX package's registry:
         # weights come in through ``import_torch_sam_encoder`` and ``load_state_dict``
         model = Sam(
@@ -45,6 +50,7 @@ def _build_plain(spec_name: str):
             encoder_num_heads=spec["num_heads"],
             encoder_global_attn_indexes=spec["global_idx"],
             lora_rank=lora_rank,
+            compute_dtype=as_compute_dtype(compute_dtype),
         )
         return model.to(device) if device is not None else model, image_size // 16
 
@@ -53,7 +59,7 @@ def _build_plain(spec_name: str):
 
 def build_sam_vit_b_dualmask(image_size, num_classes, checkpoint=None, dropout_rate=0.0,
                              num_points_prompt=(1, 2), bbox_change_rate=(0.1, 0.2), lora_rank=0,
-                             device=None, **kwargs):
+                             device=None, compute_dtype=torch.float32, **kwargs):
     # ``checkpoint`` is accepted and not read, as above: the trainer loads its ``model_ckpt``
     spec = _VIT_SPECS["vit_b"]
     model = SamDualmask(
@@ -67,6 +73,7 @@ def build_sam_vit_b_dualmask(image_size, num_classes, checkpoint=None, dropout_r
         num_points_prompt=tuple(num_points_prompt),
         bbox_change_rate=tuple(bbox_change_rate),
         lora_rank=lora_rank,
+        compute_dtype=as_compute_dtype(compute_dtype),
     )
     return model.to(device) if device is not None else model, image_size // 16
 

@@ -58,6 +58,13 @@ The absolute position embedding and the qkv bias are always on, and the MLP
 is 4x wide, as ``Sam`` builds the encoder. Not ported: shared window runs
 (``share_window_runs``) and the convolutional patch embed
 (``patch_embed_mm=False``).
+
+``compute_dtype=torch.bfloat16`` is the JAX encoder's ``dtype``: float32
+parameters cast at each call, the residual stream, qkv, the rel terms and
+tables, K2's, K3's and K4's operands and the embeddings in bfloat16, the
+LayerNorms in float32 with bfloat16 outputs. It runs the default route
+only (K4, K2, K3, forward only): the other routes' kernels take float32, so
+asking for one of them in bfloat16 raises.
 """
 
 from __future__ import annotations
@@ -79,7 +86,8 @@ from ...ops.attention import (
 )
 from ...ops.ln_window import ln_window_partition_fused, window_partition
 from ...ops.unpartition_residual import unpartition_add_ln
-from .common import LayerNorm, LayerNorm2d, MLPBlock
+from ..layers import Conv2d
+from .common import LayerNorm, LayerNorm2d, MLPBlock, linear
 
 __all__ = [
     "Attention",
@@ -113,7 +121,10 @@ def _rel_pos_indices(q_size: int, k_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _rel_pos_index(q_size: int, k_size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_rel_pos_indices(q_size, k_size)).to(device)
+    # a normal tensor even when first asked for under inference mode (set_image):
+    # a later training forward saves it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_rel_pos_indices(q_size, k_size)).to(device)
 
 
 def resize_rel_pos(rel_pos: torch.Tensor, max_rel_dist: int) -> torch.Tensor:
@@ -137,15 +148,16 @@ def _rel_table(rel_pos: torch.Tensor, q_size: int, k_size: int) -> torch.Tensor:
 
 def decomposed_rel_terms_packed(q4, rel_pos_h, rel_pos_w, q_size, k_size):
     """Factored rel-pos terms from token-major q ``(B, N, heads, C)``, returned
-    head-major as ``(B·heads, N, k_h)`` and ``(B·heads, N, k_w)`` for K3."""
+    head-major as ``(B·heads, N, k_h)`` and ``(B·heads, N, k_w)`` for K3, in
+    q's dtype (the tables cast to it)."""
     q_h, q_w = q_size
     k_h, k_w = k_size
     rh = _rel_table(rel_pos_h, q_h, k_h)
     rw = _rel_table(rel_pos_w, q_w, k_w)
     b, n, heads, c = q4.shape
     r_q = q4.reshape(b, q_h, q_w, heads, c)
-    rel_h = torch.einsum("byxhc,ykc->bhyxk", r_q, rh)
-    rel_w = torch.einsum("byxhc,xkc->bhyxk", r_q, rw)
+    rel_h = torch.einsum("byxhc,ykc->bhyxk", r_q, rh.to(q4.dtype))
+    rel_w = torch.einsum("byxhc,xkc->bhyxk", r_q, rw.to(q4.dtype))
     return rel_h.reshape(b * heads, n, k_h), rel_w.reshape(b * heads, n, k_w)
 
 
@@ -177,8 +189,14 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
                  window_size: int = 0, lora_rank: int = 0, use_rel_pos: bool = True,
                  attn_route: str | None = None, windowed_input: bool = True,
-                 windowed_output: bool = False):
+                 windowed_output: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype != torch.float32 and (
+                attn_route not in (None, "packed") or not use_rel_pos or windowed_output):
+            raise NotImplementedError(
+                f"the encoder computes in {compute_dtype} on the default route only (K2, K3, K4): "
+                "the head-major (K6), dense-bias (K7), grid-native (K8) and fused-exit (K9) "
+                "kernels take float32")
         if attn_route is not None and attn_route not in ATTN_ROUTES:
             raise ValueError(f"attn_route must be one of {ATTN_ROUTES} or None, got {attn_route!r}")
         if attn_route == "grid_native" and window_size > 0 and windowed_input:
@@ -196,16 +214,17 @@ class Attention(nn.Module):
         self.attn_route = attn_route
         self.windowed_input = windowed_input and window_size > 0
         self.windowed_output = windowed_output
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.compute_dtype = compute_dtype
+        self.qkv = linear(dim, dim * 3, compute_dtype=compute_dtype)
+        self.proj = linear(dim, dim, compute_dtype=compute_dtype)
         if use_rel_pos:
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, self.head_dim))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, self.head_dim))
         if lora_rank > 0:
-            self.lora_a_q = nn.Linear(dim, lora_rank, bias=False)
-            self.lora_b_q = nn.Linear(lora_rank, dim, bias=False)
-            self.lora_a_v = nn.Linear(dim, lora_rank, bias=False)
-            self.lora_b_v = nn.Linear(lora_rank, dim, bias=False)
+            self.lora_a_q = linear(dim, lora_rank, False, compute_dtype)
+            self.lora_b_q = linear(lora_rank, dim, False, compute_dtype)
+            self.lora_a_v = linear(dim, lora_rank, False, compute_dtype)
+            self.lora_b_v = linear(lora_rank, dim, False, compute_dtype)
             nn.init.zeros_(self.lora_b_q.weight)
             nn.init.zeros_(self.lora_b_v.weight)
 
@@ -224,6 +243,9 @@ class Attention(nn.Module):
         if self.attn_route is not None:
             return self.attn_route
         if self.window_size > 0 and not self.windowed_input and _win_attn_opted_in():
+            if self.compute_dtype != torch.float32:
+                raise NotImplementedError(
+                    f"MIA_WINDOWED_ATTN selects K8, which takes float32: not in {self.compute_dtype}")
             return "grid_native"
         return "packed"
 
@@ -251,8 +273,8 @@ class Attention(nn.Module):
         if self.use_rel_pos and route != "head_major":
             if self.window_size > 0:
                 ws = self.window_size
-                rh = _rel_table(self.rel_pos_h, ws, ws).reshape(ws * ws, hd)
-                rw = _rel_table(self.rel_pos_w, ws, ws).reshape(ws * ws, hd)
+                rh = _rel_table(self.rel_pos_h, ws, ws).reshape(ws * ws, hd).to(qkv.dtype)
+                rw = _rel_table(self.rel_pos_w, ws, ws).reshape(ws * ws, hd).to(qkv.dtype)
                 return fused_attention_rel_packed_ik(qkv, rh, rw, self.scale, hw, heads)
             rel_h, rel_w = decomposed_rel_terms_packed(
                 qkv[..., :dim].reshape(bw, n, heads, hd), self.rel_pos_h, self.rel_pos_w, hw, hw)
@@ -296,7 +318,8 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, input_size: Tuple[int, int],
                  lora_rank: int = 0, use_rel_pos: bool = True, attn_route: str | None = None,
-                 fuse_ln_window: str = "auto", fuse_unpart_residual: str = "never"):
+                 fuse_ln_window: str = "auto", fuse_unpart_residual: str = "never",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if fuse_ln_window not in _FUSE_LN_WINDOW:
             raise ValueError(f"fuse_ln_window must be one of {_FUSE_LN_WINDOW}, got {fuse_ln_window!r}")
@@ -310,15 +333,16 @@ class Block(nn.Module):
         self.window_size = window_size
         self.use_lnw = window_size > 0 and fuse_ln_window != "never"
         self.use_upr = self.use_lnw and fuse_unpart_residual == "always"
-        self.norm1 = LayerNorm(dim, 1e-6)
+        self.norm1 = LayerNorm(dim, 1e-6, compute_dtype)
         self.attn = Attention(
             dim, num_heads,
             input_size=input_size if window_size == 0 else (window_size, window_size),
             window_size=window_size, lora_rank=lora_rank, use_rel_pos=use_rel_pos,
             attn_route=attn_route, windowed_input=self.use_lnw, windowed_output=self.use_upr,
+            compute_dtype=compute_dtype,
         )
-        self.norm2 = LayerNorm(dim, 1e-6)
-        self.mlp = MLPBlock(dim, 4 * dim)
+        self.norm2 = LayerNorm(dim, 1e-6, compute_dtype)
+        self.mlp = MLPBlock(dim, 4 * dim, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_lnw:
@@ -339,11 +363,14 @@ class Block(nn.Module):
 class _PatchEmbedMM(nn.Module):
     """Non-overlapping patch embed as a reshape and one matmul: the same
     contraction as the reference's stride-P convolution, whose parameters
-    it keeps under ``proj`` (weight ``(D, C, P, P)``)."""
+    it keeps under ``proj`` (weight ``(D, C, P, P)``), cast to
+    ``compute_dtype``."""
 
-    def __init__(self, patch: int, in_chans: int, dim: int):
+    def __init__(self, patch: int, in_chans: int, dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch = patch
+        self.compute_dtype = compute_dtype
         self.proj = nn.Conv2d(in_chans, dim, patch, stride=patch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -352,7 +379,7 @@ class _PatchEmbedMM(nn.Module):
         x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, h // p, w // p, p * p * c)
         kernel = self.proj.weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
-        return x @ kernel + self.proj.bias
+        return x @ kernel.to(self.compute_dtype) + self.proj.bias.to(self.compute_dtype)
 
 
 class ImageEncoderViT(nn.Module):
@@ -362,29 +389,31 @@ class ImageEncoderViT(nn.Module):
                  depth: int = 12, num_heads: int = 12, out_chans: int = 256,
                  window_size: int = 0, global_attn_indexes: Tuple[int, ...] = (),
                  lora_rank: int = 0, use_rel_pos: bool = True, attn_route: str | None = None,
-                 fuse_ln_window: str = "auto", fuse_unpart_residual: str = "never"):
+                 fuse_ln_window: str = "auto", fuse_unpart_residual: str = "never",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.img_size = img_size
+        self.compute_dtype = compute_dtype
         side = img_size // patch_size
-        self.patch_embed = _PatchEmbedMM(patch_size, 3, embed_dim)
+        self.patch_embed = _PatchEmbedMM(patch_size, 3, embed_dim, compute_dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, side, side, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads,
                   window_size=0 if i in global_attn_indexes else window_size,
                   input_size=(side, side), lora_rank=lora_rank, use_rel_pos=use_rel_pos,
                   attn_route=attn_route, fuse_ln_window=fuse_ln_window,
-                  fuse_unpart_residual=fuse_unpart_residual)
+                  fuse_unpart_residual=fuse_unpart_residual, compute_dtype=compute_dtype)
             for i in range(depth)
         )
         self.neck = nn.ModuleList([
-            nn.Conv2d(embed_dim, out_chans, 1, bias=False),
-            LayerNorm2d(out_chans),
-            nn.Conv2d(out_chans, out_chans, 3, padding=1, bias=False),
-            LayerNorm2d(out_chans),
+            Conv2d(embed_dim, out_chans, 1, bias=False, compute_dtype=compute_dtype),
+            LayerNorm2d(out_chans, compute_dtype=compute_dtype),
+            Conv2d(out_chans, out_chans, 3, padding=1, bias=False, compute_dtype=compute_dtype),
+            LayerNorm2d(out_chans, compute_dtype=compute_dtype),
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.patch_embed(x) + self.pos_embed
+        x = self.patch_embed(x.to(self.compute_dtype)) + self.pos_embed.to(self.compute_dtype)
         for blk in self.blocks:
             x = blk(x)
         conv1, norm1, conv2, norm2 = self.neck

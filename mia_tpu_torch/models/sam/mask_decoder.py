@@ -6,7 +6,9 @@ names (``iou_token.weight``, ``output_upscaling.{0,1,3,...}``,
 k2/s2 transposed convolutions are ``EinsumConvTranspose2x`` stages: one GEMM
 each by default (the JAX package's ``interleave`` layout), or kernel K10 and
 its backward K10b (``ops/upsample2x.py``) on a stage whose ``use_kernel`` is
-set to ``"always"``."""
+set to ``"always"``. ``compute_dtype`` is flax's ``dtype``: the Linears,
+the upscaler and the mask logits in it (the hypernetwork product sums in
+float32), the tokens and the prompt sums as their operands promote."""
 
 from __future__ import annotations
 
@@ -15,16 +17,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..unet import EinsumConvTranspose2x
-from .common import LayerNorm2d
+from .common import LayerNorm2d, gelu, linear
 
 
 class MLP(nn.Module):
     """Three Linear layers with ReLU between them."""
 
-    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int):
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = (input_dim, hidden_dim, hidden_dim, output_dim)
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(linear(a, b, compute_dtype=compute_dtype)
+                                    for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -39,15 +43,16 @@ class _Upscaler(nn.Sequential):
     LayerNorm2d after the first; plain SAM) or four (16x, LayerNorm2d after
     all but the last; prompt-large). Stage widths d/4, d/8 (then d/16, d/16)."""
 
-    def __init__(self, transformer_dim: int, stages: int = 2):
+    def __init__(self, transformer_dim: int, stages: int = 2,
+                 compute_dtype: torch.dtype = torch.float32):
         d = transformer_dim
         plan = ([(d // 4, True), (d // 8, False)] if stages == 2 else
                 [(d // 4, True), (d // 8, True), (d // 16, True), (d // 16, False)])
         layers, c_in = [], d
         for c_out, norm in plan:
-            layers.append(EinsumConvTranspose2x(c_in, c_out))
+            layers.append(EinsumConvTranspose2x(c_in, c_out, compute_dtype=compute_dtype))
             if norm:
-                layers.append(LayerNorm2d(c_out))
+                layers.append(LayerNorm2d(c_out, compute_dtype=compute_dtype))
             layers.append(nn.GELU())
             c_in = c_out
         super().__init__(*layers)
@@ -55,7 +60,7 @@ class _Upscaler(nn.Sequential):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self:
             if isinstance(layer, nn.GELU):
-                x = F.gelu(x)
+                x = gelu(x)
             else:
                 x = layer(x)
         return x
@@ -66,20 +71,22 @@ class _DecoderCore(nn.Module):
     all mask tokens."""
 
     def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3,
-                 upscale_stages: int = 2):
+                 upscale_stages: int = 2, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.transformer_dim = transformer_dim
         self.transformer = transformer
+        self.compute_dtype = compute_dtype
         self.num_mask_tokens = num_multimask_outputs + 1
         self.iou_token = nn.Embedding(1, transformer_dim)
         self.mask_tokens = nn.Embedding(self.num_mask_tokens, transformer_dim)
-        self.output_upscaling = _Upscaler(transformer_dim, upscale_stages)
+        self.output_upscaling = _Upscaler(transformer_dim, upscale_stages, compute_dtype)
         # the hypernetwork output matches the upscaler's last width
         hyper_out = transformer_dim // (8 if upscale_stages == 2 else 16)
         self.output_hypernetworks_mlps = nn.ModuleList(
-            MLP(transformer_dim, transformer_dim, hyper_out) for _ in range(self.num_mask_tokens)
+            MLP(transformer_dim, transformer_dim, hyper_out, compute_dtype)
+            for _ in range(self.num_mask_tokens)
         )
-        self.iou_prediction_head = MLP(transformer_dim, 256, self.num_mask_tokens)
+        self.iou_prediction_head = MLP(transformer_dim, 256, self.num_mask_tokens, compute_dtype)
 
     def predict(self, image_embeddings, image_pe, sparse_prompt, dense_prompt):
         """image_embeddings ``(1 or B, H, W, C)`` → masks ``(B, sH, sW, T)``,
@@ -100,8 +107,8 @@ class _DecoderCore(nn.Module):
             [mlp(mask_tokens_out[:, i, :]) for i, mlp in enumerate(self.output_hypernetworks_mlps)],
             dim=1,
         )
-        masks = torch.einsum("btc,bhwc->bhwt", hyper_in, upscaled)
-        return masks, self.iou_prediction_head(iou_token_out), upscaled
+        masks = torch.einsum("btc,bhwc->bhwt", hyper_in.float(), upscaled.float())
+        return masks.to(self.compute_dtype), self.iou_prediction_head(iou_token_out), upscaled
 
 
 class MaskDecoder(_DecoderCore):
@@ -121,8 +128,10 @@ class MaskDecoderPromptLarge(_DecoderCore):
     hypernetwork width ``dim // 16``; returns every mask token's logits, the
     IoU predictions and the upscaled dense features."""
 
-    def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3):
-        super().__init__(transformer_dim, transformer, num_multimask_outputs, upscale_stages=4)
+    def __init__(self, transformer_dim: int, transformer: nn.Module, num_multimask_outputs: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(transformer_dim, transformer, num_multimask_outputs, upscale_stages=4,
+                         compute_dtype=compute_dtype)
 
     def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
                 dense_prompt_embeddings, multimask_output: bool = True):

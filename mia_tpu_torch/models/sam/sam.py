@@ -43,21 +43,25 @@ def postprocess_masks(masks: torch.Tensor, encoder_size: int, input_size,
 
 class Sam(nn.Module):
     """ViT image encoder, prompt encoder and one mask decoder; serving runs
-    them through :class:`SamPredictor`."""
+    them through :class:`SamPredictor`. ``compute_dtype`` is the JAX
+    ``Sam.dtype``: the encoder, the two-way transformer and the mask decoder
+    compute in it over float32 parameters; the prompt encoder stays float32."""
 
     def __init__(self, img_size: int = 512, num_classes: int = 3, encoder_embed_dim: int = 768,
                  encoder_depth: int = 12, encoder_num_heads: int = 12,
                  encoder_global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11),
-                 lora_rank: int = 0, mask_threshold: float = 0.0):
+                 lora_rank: int = 0, mask_threshold: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         embed_dim, patch = 256, 16
         self.img_size = img_size
         self.mask_threshold = mask_threshold
+        self.compute_dtype = compute_dtype
         self.image_encoder = ImageEncoderViT(
             img_size=img_size, patch_size=patch, embed_dim=encoder_embed_dim,
             depth=encoder_depth, num_heads=encoder_num_heads, out_chans=embed_dim,
             window_size=14, global_attn_indexes=tuple(encoder_global_attn_indexes),
-            lora_rank=lora_rank,
+            lora_rank=lora_rank, compute_dtype=compute_dtype,
         )
         side = img_size // patch
         self.prompt_encoder = PromptEncoder(
@@ -67,8 +71,9 @@ class Sam(nn.Module):
         self.mask_decoder = MaskDecoder(
             transformer_dim=embed_dim,
             transformer=TwoWayTransformer(depth=2, embedding_dim=embed_dim, num_heads=8,
-                                          mlp_dim=2048),
+                                          mlp_dim=2048, compute_dtype=compute_dtype),
             num_multimask_outputs=num_classes,
+            compute_dtype=compute_dtype,
         )
 
     def get_image_embeddings(self, batched_input: torch.Tensor) -> torch.Tensor:
@@ -122,14 +127,17 @@ class SamDualmask(nn.Module):
     trainer's contrastive loss; always parameters, as in the checkpoint).
 
     The JAX package vmaps the unprompted decoders over stacked parameters;
-    that is TPU scheduling, and here they run as a loop.
+    that is TPU scheduling, and here they run as a loop. ``compute_dtype``
+    reaches the encoder and the decoders as in ``Sam``; training in
+    bfloat16 needs backward kernels that are not ported, and raises.
     """
 
     def __init__(self, img_size: int = 512, num_classes: int = 3, num_decoders: int = 3,
                  encoder_embed_dim: int = 768, encoder_depth: int = 12, encoder_num_heads: int = 12,
                  encoder_global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11),
                  dropout_rate: float = 0.0, num_points_prompt=(1, 2),
-                 bbox_change_rate=(0.1, 0.2), lora_rank: int = 0, mask_threshold: float = 0.0):
+                 bbox_change_rate=(0.1, 0.2), lora_rank: int = 0, mask_threshold: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         embed_dim, patch = 256, 16
         self.img_size = img_size
@@ -145,7 +153,7 @@ class SamDualmask(nn.Module):
             img_size=img_size, patch_size=patch, embed_dim=encoder_embed_dim,
             depth=encoder_depth, num_heads=encoder_num_heads, out_chans=embed_dim,
             window_size=14, global_attn_indexes=self.encoder_global_attn_indexes,
-            lora_rank=lora_rank,
+            lora_rank=lora_rank, compute_dtype=compute_dtype,
         )
         self.embedding_size = img_size // patch
         self.prompt_encoder = PromptEncoderPromptClass(
@@ -156,8 +164,9 @@ class SamDualmask(nn.Module):
             self.add_module(f"mask_decoder{i}", MaskDecoderPromptLarge(
                 transformer_dim=embed_dim,
                 transformer=TwoWayTransformer(depth=2, embedding_dim=embed_dim, num_heads=8,
-                                              mlp_dim=2048),
+                                              mlp_dim=2048, compute_dtype=compute_dtype),
                 num_multimask_outputs=num_classes,
+                compute_dtype=compute_dtype,
             ))
         dim_in = embed_dim // 16  # dense-feature channels
         feat_dim = 2 * dim_in

@@ -2,7 +2,10 @@
 sparse tokens self-attend and cross-attend to the image tokens both ways,
 with a downsampled internal attention width. Image embeddings are
 channel-last ``(B, H, W, C)`` and flatten to ``(B, HW, C)``. LayerNorms
-follow flax's arithmetic (eps 1e-5)."""
+follow flax's arithmetic (eps 1e-5). ``compute_dtype`` is flax's ``dtype``:
+the Linears and the LayerNorms' outputs in it, the attention scores and
+softmax in float32, the probabilities cast to v's dtype before P·V, which
+sums in float32."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import math
 import torch
 from torch import nn
 
-from .common import LayerNorm
+from .common import LayerNorm, linear
 
 DOWNSAMPLE = 2  # internal width divisor of the cross-attention layers
 
@@ -19,14 +22,16 @@ DOWNSAMPLE = 2  # internal width divisor of the cross-attention layers
 class Attention(nn.Module):
     """Attention with an optional downsampled internal width."""
 
-    def __init__(self, embedding_dim: int, num_heads: int, downsample_rate: int = 1):
+    def __init__(self, embedding_dim: int, num_heads: int, downsample_rate: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.internal_dim = embedding_dim // downsample_rate
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(embedding_dim, self.internal_dim)
-        self.k_proj = nn.Linear(embedding_dim, self.internal_dim)
-        self.v_proj = nn.Linear(embedding_dim, self.internal_dim)
-        self.out_proj = nn.Linear(self.internal_dim, embedding_dim)
+        self.compute_dtype = compute_dtype
+        self.q_proj = linear(embedding_dim, self.internal_dim, compute_dtype=compute_dtype)
+        self.k_proj = linear(embedding_dim, self.internal_dim, compute_dtype=compute_dtype)
+        self.v_proj = linear(embedding_dim, self.internal_dim, compute_dtype=compute_dtype)
+        self.out_proj = linear(self.internal_dim, embedding_dim, compute_dtype=compute_dtype)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -36,8 +41,8 @@ class Attention(nn.Module):
         q = self._heads(self.q_proj(q))
         k = self._heads(self.k_proj(k))
         v = self._heads(self.v_proj(v))
-        attn = (q @ k.transpose(-2, -1)) / math.sqrt(q.shape[-1])
-        out = attn.softmax(-1) @ v
+        attn = (q.float() @ k.float().transpose(-2, -1)) / math.sqrt(q.shape[-1])
+        out = (attn.softmax(-1).to(v.dtype).float() @ v.float()).to(self.compute_dtype)
         b, h, n, c = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(b, n, h * c))
 
@@ -45,10 +50,11 @@ class Attention(nn.Module):
 class MLPReLU(nn.Module):
     """The transformer's MLP: Linear → ReLU → Linear."""
 
-    def __init__(self, embedding_dim: int, mlp_dim: int):
+    def __init__(self, embedding_dim: int, mlp_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.lin1 = nn.Linear(embedding_dim, mlp_dim)
-        self.lin2 = nn.Linear(mlp_dim, embedding_dim)
+        self.lin1 = linear(embedding_dim, mlp_dim, compute_dtype=compute_dtype)
+        self.lin2 = linear(mlp_dim, embedding_dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
         return self.lin2(torch.relu(self.lin1(x)))
@@ -59,17 +65,18 @@ class TwoWayAttentionBlock(nn.Module):
     (3) MLP, (4) image → sparse cross-attention."""
 
     def __init__(self, embedding_dim: int, num_heads: int, mlp_dim: int,
-                 skip_first_layer_pe: bool = False):
+                 skip_first_layer_pe: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        dt = compute_dtype
         self.skip_first_layer_pe = skip_first_layer_pe
-        self.self_attn = Attention(embedding_dim, num_heads)
-        self.norm1 = LayerNorm(embedding_dim, 1e-5)
-        self.cross_attn_token_to_image = Attention(embedding_dim, num_heads, DOWNSAMPLE)
-        self.norm2 = LayerNorm(embedding_dim, 1e-5)
-        self.mlp = MLPReLU(embedding_dim, mlp_dim)
-        self.norm3 = LayerNorm(embedding_dim, 1e-5)
-        self.norm4 = LayerNorm(embedding_dim, 1e-5)
-        self.cross_attn_image_to_token = Attention(embedding_dim, num_heads, DOWNSAMPLE)
+        self.self_attn = Attention(embedding_dim, num_heads, compute_dtype=dt)
+        self.norm1 = LayerNorm(embedding_dim, 1e-5, dt)
+        self.cross_attn_token_to_image = Attention(embedding_dim, num_heads, DOWNSAMPLE, dt)
+        self.norm2 = LayerNorm(embedding_dim, 1e-5, dt)
+        self.mlp = MLPReLU(embedding_dim, mlp_dim, dt)
+        self.norm3 = LayerNorm(embedding_dim, 1e-5, dt)
+        self.norm4 = LayerNorm(embedding_dim, 1e-5, dt)
+        self.cross_attn_image_to_token = Attention(embedding_dim, num_heads, DOWNSAMPLE, dt)
 
     def forward(self, queries, keys, query_pe, key_pe):
         if self.skip_first_layer_pe:
@@ -89,14 +96,17 @@ class TwoWayAttentionBlock(nn.Module):
 
 
 class TwoWayTransformer(nn.Module):
-    def __init__(self, depth: int, embedding_dim: int, num_heads: int, mlp_dim: int):
+    def __init__(self, depth: int, embedding_dim: int, num_heads: int, mlp_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim, skip_first_layer_pe=(i == 0))
+            TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim, skip_first_layer_pe=(i == 0),
+                                 compute_dtype=compute_dtype)
             for i in range(depth)
         )
-        self.final_attn_token_to_image = Attention(embedding_dim, num_heads, DOWNSAMPLE)
-        self.norm_final_attn = LayerNorm(embedding_dim, 1e-5)
+        self.final_attn_token_to_image = Attention(embedding_dim, num_heads, DOWNSAMPLE,
+                                                   compute_dtype)
+        self.norm_final_attn = LayerNorm(embedding_dim, 1e-5, compute_dtype)
 
     def forward(self, image_embedding, image_pe, point_embedding):
         """image_embedding, image_pe ``(B, H, W, C)``; point_embedding

@@ -38,6 +38,13 @@ and 3D norms over ``(D, H, W)``; no hand kernel lies on that path.
 - Channel dropout draws from the caller's ``torch.Generator``.
 - Initialisation follows flax's: lecun-normal (truncated) kernels, zero
   biases, unit norm scales.
+- ``compute_dtype=torch.bfloat16`` is flax's ``dtype=`` on every layer:
+  parameters stay float32 and are cast to bfloat16 at each call (flax's
+  ``promote_dtype``), the input is cast at the model's entry, convolutions,
+  dropout, activations and the skip concatenation run in bfloat16, and the
+  norms compute their statistics and affine in float32 and hand back
+  bfloat16 (the running statistics stay float32). The logits come out in
+  bfloat16; the losses and the softmax take them to float32.
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .layers import Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -65,6 +74,8 @@ class UNetConfig:
     deep_supervision: bool = False
     ds_layer: int = 0
     kernel_size: int = 3
+    # the activations' dtype (float32 or bfloat16); parameters stay float32
+    compute_dtype: torch.dtype = torch.float32
     # decoder upsampling through EinsumConvTranspose2x instead of
     # nn.ConvTranspose{2,3}d (the JAX package's flag of the same name)
     einsum_upsample: bool = False
@@ -88,6 +99,8 @@ class UNetConfig:
             raise ValueError(f"unknown block type: {self.block_type}")
         if self.normalization not in ("batch", "instance"):
             raise ValueError(f"unknown normalization: {self.normalization}")
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> None:
@@ -97,24 +110,26 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> None:
 
 class _FlaxBatchNorm:
     """Running statistics updated like flax's BatchNorm: the biased batch
-    variance, over every axis but the channels."""
+    variance, over every axis but the channels. Statistics and affine in
+    float32; the output takes the input's dtype (flax's ``dtype=``)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
         if not self.training:
             return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
+                x32, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
-            )
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            ).to(x.dtype)
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, *range(2, x.ndim)), correction=0)
+            var, mean = torch.var_mean(x32, dim=(0, *range(2, x.ndim)), correction=0)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
-        return y
+        return y.to(x.dtype)
 
 
 class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
@@ -125,17 +140,33 @@ class FlaxBatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
     """BatchNorm3d whose running statistics update like flax's BatchNorm."""
 
 
+class _Float32Norm:
+    """Statistics and affine in float32, the output in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
+class InstanceNorm2d(_Float32Norm, nn.InstanceNorm2d):
+    pass
+
+
+class InstanceNorm3d(_Float32Norm, nn.InstanceNorm3d):
+    pass
+
+
 def _norm(cfg: UNetConfig, features: int) -> nn.Module:
     if cfg.normalization == "instance":
-        norm = nn.InstanceNorm3d if cfg.dimension == 3 else nn.InstanceNorm2d
+        norm = InstanceNorm3d if cfg.dimension == 3 else InstanceNorm2d
         return norm(features, eps=1e-5, affine=True, track_running_stats=False)
     return FlaxBatchNorm3d(features) if cfg.dimension == 3 else FlaxBatchNorm2d(features)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, dimension: int = 2) -> nn.Module:
+def _conv(cin: int, cout: int, k: int, stride: int = 1, dimension: int = 2,
+          compute_dtype: torch.dtype = torch.float32) -> nn.Module:
     """Conv with flax's initialisation (lecun-normal kernel, zero bias)."""
-    conv = (nn.Conv3d if dimension == 3 else nn.Conv2d)(
-        cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=True)
+    conv = (Conv3d if dimension == 3 else Conv2d)(
+        cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=True, compute_dtype=compute_dtype)
     _lecun_normal_(conv.weight, cin * k ** dimension)
     nn.init.zeros_(conv.bias)
     return conv
@@ -173,7 +204,7 @@ class PlainBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, cin: int, cout: int, stride: int):
         super().__init__()
         self.all = nn.ModuleList([
-            _conv(cin, cout, cfg.kernel_size, stride, cfg.dimension),
+            _conv(cin, cout, cfg.kernel_size, stride, cfg.dimension, cfg.compute_dtype),
             ChannelDropout(cfg.dropout_prob),
             _norm(cfg, cout), nn.LeakyReLU(0.01),
         ])
@@ -191,12 +222,13 @@ class ResidualBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, cin: int, cout: int, stride: int):
         super().__init__()
         self.all = nn.ModuleList([
-            _conv(cin, cout, cfg.kernel_size, stride, cfg.dimension), _norm(cfg, cout),
-            ChannelDropout(cfg.dropout_prob), nn.LeakyReLU(0.01),
+            _conv(cin, cout, cfg.kernel_size, stride, cfg.dimension, cfg.compute_dtype),
+            _norm(cfg, cout), ChannelDropout(cfg.dropout_prob), nn.LeakyReLU(0.01),
         ])
         self.stride = stride
         self.downsample_skip = (
-            nn.Sequential(_conv(cin, cout, 1, stride, cfg.dimension), _norm(cfg, cout))
+            nn.Sequential(_conv(cin, cout, 1, stride, cfg.dimension, cfg.compute_dtype),
+                          _norm(cfg, cout))
             if cin != cout or stride != 1 else None
         )
 
@@ -212,7 +244,7 @@ class ResidualBlock(nn.Module):
             # parameters and sums
             skip_conv, skip_norm = self.downsample_skip
             s = self.stride
-            return skip_norm(F.conv2d(x[:, :, ::s, ::s], skip_conv.weight, skip_conv.bias)) + out
+            return skip_norm(skip_conv._compute(F.conv2d, x[:, :, ::s, ::s])) + out
         return self.downsample_skip(x) + out
 
 
@@ -234,11 +266,13 @@ class EinsumConvTranspose2x(nn.Module):
     module's ``use_pallas``) runs that plain form; ``"always"`` (2D only)
     goes through :func:`mia_tpu_torch.ops.upsample2x.conv_transpose2x`: kernel
     K10 and its backward K10b on a CUDA tensor, the plain form on a CPU one.
+    ``compute_dtype`` is flax's ``dtype=`` (K10 takes float32 only).
     """
 
     def __init__(self, in_channels: int, out_channels: int, dimension: int = 2,
-                 use_kernel: str = "never"):
+                 use_kernel: str = "never", compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if dimension not in (2, 3):
             raise ValueError(f"dimension must be 2 or 3, got {dimension}")
         if use_kernel not in ("never", "always"):
@@ -255,14 +289,16 @@ class EinsumConvTranspose2x(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops.upsample2x import conv_transpose2x, conv_transpose2x_plain
 
+        dt = self.compute_dtype  # flax's promote_dtype: x, weight and bias in the compute dtype
+        x, weight, bias = x.to(dt), self.weight.to(dt), self.bias.to(dt)
         if self.dimension == 2:
-            w = self.weight.permute(2, 3, 0, 1)  # (di, dj, Cin, Cout)
+            w = weight.permute(2, 3, 0, 1)  # (di, dj, Cin, Cout)
             if self.use_kernel == "always":
-                return conv_transpose2x(x, w, self.bias)
-            return conv_transpose2x_plain(x, w, self.bias)
+                return conv_transpose2x(x, w, bias)
+            return conv_transpose2x_plain(x, w, bias)
         b, d, h, ww, _ = x.shape
-        y = torch.einsum("bdhwc,cfijk->bdihjwkf", x, self.weight)
-        return y.reshape(b, 2 * d, 2 * h, 2 * ww, self.out_channels) + self.bias
+        y = torch.einsum("bdhwc,cfijk->bdihjwkf", x, weight)
+        return y.reshape(b, 2 * d, 2 * h, 2 * ww, self.out_channels) + bias
 
     def extra_repr(self) -> str:
         return (f"{self.in_channels}, {self.out_channels}, dimension={self.dimension}, "
@@ -298,11 +334,12 @@ class UNetDecoder(nn.Module):
         self.upsamples = nn.ModuleList()
         self.levels = nn.ModuleList()
         self.dimension = cfg.dimension
-        transpose = nn.ConvTranspose3d if cfg.dimension == 3 else nn.ConvTranspose2d
+        transpose = ConvTranspose3d if cfg.dimension == 3 else ConvTranspose2d
         for l in range(len(down) - 1):
             cin, cout = down[l], down[l + 1]
-            up = (EinsumConvTranspose2x(cin, cout, cfg.dimension) if cfg.einsum_upsample
-                  else transpose(cin, cout, 2, stride=2))
+            up = (EinsumConvTranspose2x(cin, cout, cfg.dimension,
+                                        compute_dtype=cfg.compute_dtype) if cfg.einsum_upsample
+                  else transpose(cin, cout, 2, stride=2, compute_dtype=cfg.compute_dtype))
             # flax ConvTranspose kernel (2, .., 2, cin, cout): fan_in = 2**nd * cin
             _lecun_normal_(up.weight, 2 ** cfg.dimension * cin)
             nn.init.zeros_(up.bias)
@@ -312,10 +349,12 @@ class UNetDecoder(nn.Module):
             )
         # deep-supervision heads, keyed by decoder level (``decoder.ds.{l}.0``)
         self.ds = nn.ModuleDict({
-            str(l): nn.Sequential(_conv(down[l + 1], cfg.out_classes, 1, 1, cfg.dimension))
+            str(l): nn.Sequential(_conv(down[l + 1], cfg.out_classes, 1, 1, cfg.dimension,
+                                        cfg.compute_dtype))
             for l in cfg.ds_levels
         })
-        self.seg_output = _conv(down[-1], cfg.out_classes, 1, 1, cfg.dimension)
+        self.seg_output = _conv(down[-1], cfg.out_classes, 1, 1, cfg.dimension,
+                                cfg.compute_dtype)
 
     def forward(self, skips, generator=None, return_feature: bool = False,
                 return_ds: bool = False):
@@ -370,7 +409,7 @@ class UNet(nn.Module):
         self.decoder = UNetDecoder(cfg)
 
     def _skips(self, x: torch.Tensor, generator):
-        return self.encoder(_channels_first(x.to(torch.float32)), generator)
+        return self.encoder(_channels_first(x.to(self.cfg.compute_dtype)), generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
                 return_ds: bool = False):

@@ -3,7 +3,11 @@ operands) and K8 (windows carved from the token grid), with their plain
 versions.
 
 Counterpart of ``mia_tpu/ops/attention.py``. All compute
-``softmax(q·kᵀ·scale + bias)·v`` in float32.
+``softmax(q·kᵀ·scale + bias)·v`` in float32. K2 and K3 also take bfloat16
+operands (the JAX kernels' fast path, a bfloat16 model's ``qkv``) and round
+where the Pallas kernels round (:func:`_softmax_probs_bf16`); their
+bfloat16 CUDA kernels have no backward yet, so a bfloat16 call that needs a
+gradient raises.
 
 Packed layout (K2, K3): ``qkv`` is the qkv Linear's output ``(B', N, 3·H·D)``
 in ``(3, heads, head_dim)`` order; the context comes back as ``(B', N, H·D)``,
@@ -30,7 +34,8 @@ unscaled q.
   ``torch.autograd.Function`` whose forward also keeps the per-row
   log-sum-exp and whose backward is :func:`fused_attention_rel_packed_bwd`
   / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
-  plain VJPs on the CPU). Each wrapper counts its launches in ``launches``.
+  plain VJPs on the CPU). Each wrapper counts its launches in ``launches``,
+  and K2's and K3's bfloat16 launches in ``bf16_launches``.
 
 The other routes (K6 on K3's instance of the 3xTF32 tensor-core template
 ``csrc/attention_fwd_tc.cuh`` on head-major strides, C entry in
@@ -109,12 +114,44 @@ def _softmax_probs(qkv, rel_h, rel_w, scale, k_hw, num_heads):
     return q, k, v, (attn + bias.view(b, num_heads, n, n)).softmax(-1)
 
 
+def _softmax_probs_bf16(qkv, rel_h, rel_w, scale, k_hw, num_heads):
+    """:func:`_softmax_probs` of bfloat16 operands, rounded where the Pallas
+    kernels round: ``q·scale`` is a bfloat16 product with the scale itself
+    rounded to bfloat16 (exact at head dim 64), the scores are float32 sums
+    of the exact products plus the bfloat16 rel terms, and the softmax is
+    float32. Returns v and the float32 probabilities, and the per-row
+    log-sum-exp ``(B·H, N)`` the CUDA kernel writes."""
+    b, n, _ = qkv.shape
+    k_h, k_w = k_hw
+    if n != k_h * k_w:
+        raise ValueError(f"token count {n} != k_h*k_w {k_h * k_w}")
+    d = _head_dim(qkv, num_heads)
+    q, k, v = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    qs = q * torch.tensor(scale, dtype=qkv.dtype)
+    bias = (rel_h.float().reshape(b, num_heads, n, k_h, 1)
+            + rel_w.float().reshape(b, num_heads, n, 1, k_w)).view(b, num_heads, n, n)
+    s = qs.float() @ k.float().transpose(-2, -1) + bias
+    return v, s.softmax(-1), s.logsumexp(-1).reshape(b * num_heads, n)
+
+
 def attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int) -> torch.Tensor:
     """Plain K3: ``(B, N, 3·H·D)`` packed qkv + head-major rel terms →
-    ``(B, N, H·D)``."""
+    ``(B, N, H·D)``. In bfloat16 the normalised probabilities are rounded to
+    bfloat16 before the float32 sum of P·V, and the output to bfloat16."""
     b, n, _ = qkv.shape
+    if qkv.dtype == torch.bfloat16:
+        return attention_rel_packed_bf16(qkv, rel_h, rel_w, scale, k_hw, num_heads)[0]
     _, _, v, attn = _softmax_probs(qkv, rel_h, rel_w, scale, k_hw, num_heads)
     return (attn @ v).transpose(1, 2).reshape(b, n, -1)
+
+
+def attention_rel_packed_bf16(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int):
+    """Plain bfloat16 K3 → (context ``(B, N, H·D)`` in bfloat16, float32
+    log-sum-exp ``(B·H, N)``)."""
+    b, n, _ = qkv.shape
+    v, p, lse = _softmax_probs_bf16(qkv, rel_h, rel_w, scale, k_hw, num_heads)
+    out = p.to(torch.bfloat16).float() @ v.float()
+    return out.to(torch.bfloat16).transpose(1, 2).reshape(b, n, -1), lse
 
 
 def attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale: float, k_hw, num_heads: int):
@@ -139,14 +176,18 @@ def attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale: float, k_hw, num_
 def window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads: int):
     """The rel terms K2 computes in the kernel, head-major:
     ``rel_h[n, j] = q_n·rh_flat[y_n·k_h + j]``,
-    ``rel_w[n, j] = q_n·rw_flat[x_n·k_w + j]`` with ``y_n, x_n = divmod(n, k_w)``."""
+    ``rel_w[n, j] = q_n·rw_flat[x_n·k_w + j]`` with ``y_n, x_n = divmod(n, k_w)``;
+    in bfloat16 each is a float32 sum rounded once to bfloat16, as the Pallas
+    kernel's candidate product."""
     b, n, _ = qkv.shape
     k_h, k_w = k_hw
     d = _head_dim(qkv, num_heads)
     q_h = n // k_w
     q5 = qkv[..., : num_heads * d].reshape(b, q_h, k_w, num_heads, d)
-    rel_h = torch.einsum("byxhc,ykc->bhyxk", q5, rh_flat.view(q_h, k_h, d))
-    rel_w = torch.einsum("byxhc,xkc->bhyxk", q5, rw_flat.view(k_w, k_w, d))
+    if qkv.dtype == torch.bfloat16:  # float32 sums of the exact products, rounded once
+        q5, rh_flat, rw_flat = q5.float(), rh_flat.float(), rw_flat.float()
+    rel_h = torch.einsum("byxhc,ykc->bhyxk", q5, rh_flat.view(q_h, k_h, d)).to(qkv.dtype)
+    rel_w = torch.einsum("byxhc,xkc->bhyxk", q5, rw_flat.view(k_w, k_w, d)).to(qkv.dtype)
     return rel_h.reshape(b * num_heads, n, k_h), rel_w.reshape(b * num_heads, n, k_w)
 
 
@@ -186,6 +227,8 @@ def attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale: float, k_h
 _ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stream
     "mia_attention_rel_packed_f32": (5, 6),  # ints: batch, n, heads, d, kh, kw
     "mia_attention_rel_packed_ik_f32": (6, 6),
+    "mia_attention_rel_packed_bf16": (5, 6),
+    "mia_attention_rel_packed_ik_bf16": (6, 6),
     "mia_attention_rel_packed_bwd_f32": (10, 6),
     "mia_attention_rel_packed_ik_bwd_f32": (11, 6),
     "mia_attention_rel_f32": (7, 5),  # bh, n, d, kh, kw
@@ -206,16 +249,16 @@ def _kernel_function(name: str):
     return fn
 
 
-def _check_operand(label: str, t: torch.Tensor, shape, device) -> None:
-    if (t.dtype != torch.float32 or t.device != device or tuple(t.shape) != tuple(shape)
+def _check_operand(label: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if (t.dtype != dtype or t.device != device or tuple(t.shape) != tuple(shape)
             or not t.is_contiguous() or t.data_ptr() % 16):
         raise ValueError(
-            f"{label} must be a contiguous, 16-byte aligned float32 {tuple(shape)} tensor "
+            f"{label} must be a contiguous, 16-byte aligned {dtype} {tuple(shape)} tensor "
             f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
 
 
-def _geometry(label, qkv, k_hw, num_heads):
+def _geometry(label, qkv, k_hw, num_heads, dtype=torch.float32):
     """Check what every attention launch needs; return (b, n, d)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{label} needs a CUDA tensor, got {qkv.device}")
@@ -228,7 +271,7 @@ def _geometry(label, qkv, k_hw, num_heads):
         raise ValueError(f"{label}: token count {n} != k_h*k_w {k_h * k_w}")
     if b >= 65536 or num_heads >= 65536 or b * n * three_hd >= 2 ** 31:
         raise ValueError(f"{label}: qkv shape {tuple(qkv.shape)} exceeds the launch grid or int32")
-    _check_operand(f"{label} qkv", qkv, qkv.shape, qkv.device)
+    _check_operand(f"{label} qkv", qkv, qkv.shape, qkv.device, dtype)
     return b, n, d
 
 
@@ -257,36 +300,52 @@ def _rel_shapes(kernel, qkv, k_hw, num_heads):
     return (b * num_heads, n, k_h), (b * num_heads, n, k_w)
 
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _count(wrapper, qkv) -> None:
+    """One launch of the float32 kernel (``launches``) or of its bfloat16
+    instance (``bf16_launches``)."""
+    if qkv.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def _launch_forward(kernel, qkv, rel_a, rel_b, scale, k_hw, num_heads, with_lse):
-    b, n, d = _geometry(kernel, qkv, k_hw, num_heads)
+    """Launch K2 or K3 on float32 operands (3xTF32) or bfloat16 ones (the
+    bfloat16 tensor-core instance): the rel operands, the output and K2's
+    rel-term scratch take ``qkv``'s dtype, the log-sum-exp is float32."""
+    dtype = qkv.dtype if qkv.dtype in _SUFFIX else torch.float32
+    b, n, d = _geometry(kernel, qkv, k_hw, num_heads, dtype)
     a_shape, b_shape = _rel_shapes(kernel, qkv, k_hw, num_heads)
-    _check_operand(f"{kernel} rel operand", rel_a, a_shape, qkv.device)
-    _check_operand(f"{kernel} rel operand", rel_b, b_shape, qkv.device)
-    out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=qkv.device)
+    _check_operand(f"{kernel} rel operand", rel_a, a_shape, qkv.device, dtype)
+    _check_operand(f"{kernel} rel operand", rel_b, b_shape, qkv.device, dtype)
+    out = torch.empty((b, n, num_heads * d), dtype=dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, n), dtype=torch.float32, device=qkv.device) if with_lse else None
     tensors = (qkv, rel_a, rel_b, out, lse)
     if kernel == "K2":  # scratch for the rel terms, computed from the tables before the attention
-        tensors += (torch.empty((b * num_heads, n, sum(k_hw)), dtype=torch.float32,
-                                device=qkv.device),)
-    symbol = "mia_attention_rel_packed_ik_f32" if kernel == "K2" else "mia_attention_rel_packed_f32"
+        tensors += (torch.empty((b * num_heads, n, sum(k_hw)), dtype=dtype, device=qkv.device),)
+    symbol = ("mia_attention_rel_packed_ik_" if kernel == "K2"
+              else "mia_attention_rel_packed_") + _SUFFIX[dtype]
     _call(kernel, symbol, qkv, tensors, k_hw, num_heads, scale)
     return (out, lse) if with_lse else out
 
 
 def _launch_k2(qkv, rh_flat, rw_flat, scale, k_hw, num_heads, with_lse=False):
-    """Launch K2 (``mia_attention_rel_packed_ik_f32``); raise on anything it
-    does not take. ``with_lse`` also returns the per-row log-sum-exp
+    """Launch K2 (``mia_attention_rel_packed_ik_f32``, or ``_bf16`` for
+    bfloat16 operands); raise on anything it does not take. ``with_lse`` also returns the per-row log-sum-exp
     ``(B·H, N)`` the backward reads."""
     out = _launch_forward("K2", qkv, rh_flat, rw_flat, scale, k_hw, num_heads, with_lse)
-    fused_attention_rel_packed_ik.launches += 1
+    _count(fused_attention_rel_packed_ik, qkv)
     return out
 
 
 def _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse=False):
-    """Launch K3 (``mia_attention_rel_packed_f32``); raise on anything it
-    does not take. ``with_lse`` as for :func:`_launch_k2`."""
+    """Launch K3 (``mia_attention_rel_packed_f32``, or ``_bf16`` for
+    bfloat16 operands); raise on anything it does not take. ``with_lse`` as for :func:`_launch_k2`."""
     out = _launch_forward("K3", qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse)
-    fused_attention_rel_packed.launches += 1
+    _count(fused_attention_rel_packed, qkv)
     return out
 
 
@@ -411,14 +470,24 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _no_bf16_backward(kernel: str, qkv: torch.Tensor) -> None:
+    if qkv.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{kernel} in bfloat16 has no backward yet: its gradient needs {kernel}b in "
+            "bfloat16, which is not ported (use compute dtype float32 to train)")
+
+
 def fused_attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int) -> torch.Tensor:
     """K3: global rel-pos attention with precomputed head-major rel terms.
 
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
-    cannot); a CPU tensor takes :func:`attention_rel_packed`. Differentiable
-    through the backward kernels when an input requires a gradient.
+    cannot); a CPU tensor takes :func:`attention_rel_packed`. float32 or
+    bfloat16 operands (``qkv`` and the rel terms of one dtype). Differentiable
+    through the backward kernels when an input requires a gradient, in
+    float32 only.
     """
     if _needs_grad(qkv, rel_h, rel_w):
+        _no_bf16_backward("K3", qkv)
         return _AttentionRelPacked.apply(qkv, rel_h, rel_w, scale, k_hw, num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_packed(qkv, rel_h, rel_w, scale, k_hw, num_heads)
@@ -430,11 +499,13 @@ def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
     """K2: windowed rel-pos attention with the rel terms computed from the tables.
 
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
-    cannot); a CPU tensor takes :func:`attention_rel_packed_ik`.
-    Differentiable through the backward kernels when an input requires a
-    gradient.
+    cannot); a CPU tensor takes :func:`attention_rel_packed_ik`. float32 or
+    bfloat16 operands (``qkv`` and the tables of one dtype). Differentiable
+    through the backward kernels when an input requires a gradient, in
+    float32 only.
     """
     if _needs_grad(qkv, rh_flat, rw_flat):
+        _no_bf16_backward("K2", qkv)
         return _AttentionRelPackedIK.apply(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
@@ -840,6 +911,8 @@ def fused_attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int,
 
 fused_attention_rel_packed.launches = 0
 fused_attention_rel_packed_ik.launches = 0
+fused_attention_rel_packed.bf16_launches = 0
+fused_attention_rel_packed_ik.bf16_launches = 0
 fused_attention_rel_packed_bwd.launches = 0
 fused_attention_rel_packed_ik_bwd.launches = 0
 fused_attention_rel.launches = 0

@@ -8,7 +8,8 @@ channel-last: ``x (B, H, W, C)`` → windows ``(B·nW, ws, ws, C)`` in
   ``max(E[x²] − μ², 0)``, ``y = (x − μ)·(rsqrt(σ² + ε)·scale) + bias``).
 - :func:`window_partition` — zero-pad to whole windows and partition.
 - :func:`ln_window_partition` — the plain PyTorch version (any device):
-  LayerNorm, then pad with zeros, then partition.
+  LayerNorm, then pad with zeros, then partition; a bfloat16 ``x`` is
+  normalised in float32 and its windows rounded to bfloat16.
 - :func:`ln_window_partition_bwd` — the plain VJP from the saved per-token
   statistics: the LayerNorm VJP of the un-partitioned cotangent (pad-slot
   cotangents dropped), ``dscale``/``dbias`` only when asked.
@@ -69,8 +70,11 @@ def window_unpartition(windows: torch.Tensor, window_size: int, hw) -> torch.Ten
 
 
 def ln_window_partition(x, scale, bias, window_size: int, eps: float = 1e-6) -> torch.Tensor:
-    """Plain ``window_partition(LayerNorm(x))``: pad slots are 0, not ``bias``."""
-    return window_partition(layer_norm(x, scale, bias, eps), window_size)[0]
+    """Plain ``window_partition(LayerNorm(x))``: pad slots are 0, not ``bias``.
+    A bfloat16 ``x`` is normalised in float32 with the float32 ``scale`` and
+    ``bias`` and the windows come out in bfloat16, as the Pallas kernel's."""
+    y = layer_norm(x.float(), scale, bias, eps).to(x.dtype)
+    return window_partition(y, window_size)[0]
 
 
 def ln_window_partition_bwd(x, dy, mu, rstd, scale, window_size: int, params: bool = True):
@@ -87,22 +91,28 @@ def ln_window_partition_bwd(x, dy, mu, rstd, scale, window_size: int, params: bo
     return dx, (g_full * xhat).sum((0, 1, 2)), g_full.sum((0, 1, 2))
 
 
+_K4_SYMBOLS = {torch.float32: "mia_ln_window_partition_f32",
+               torch.bfloat16: "mia_ln_window_partition_bf16"}
+
+
 @functools.cache
 def _k4_function(name: str):
     fn = getattr(load_library(), name)
-    pointers = 6 if name == "mia_ln_window_partition_f32" else 9
+    forward = name != "mia_ln_window_partition_bwd_f32"
+    pointers = 6 if forward else 9
     ints = 5
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
-                   + ([ctypes.c_float] if pointers == 6 else []) + [ctypes.c_void_p])
+                   + ([ctypes.c_float] if forward else []) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_k4(label, x, window_size, **params):
+def _check_k4(label, x, window_size, dtypes=(torch.float32,), **params):
     if x.device.type != "cuda":
         raise ValueError(f"{label} needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.dim() != 4:
-        raise ValueError(f"{label} needs a contiguous float32 (B, H, W, C) tensor")
+    if x.dtype not in dtypes or not x.is_contiguous() or x.dim() != 4:
+        raise ValueError(f"{label} needs a contiguous {' or '.join(map(str, dtypes))} "
+                         f"(B, H, W, C) tensor, got {x.dtype}")
     b, h, w, c = x.shape
     for name, p in params.items():
         if (p.dtype != torch.float32 or p.device != x.device or tuple(p.shape) != (c,)
@@ -118,21 +128,26 @@ def _check_k4(label, x, window_size, **params):
 
 
 def _launch_k4(x, scale, bias, window_size: int, eps: float, with_stats: bool = False):
-    """Launch the CUDA kernel; raise on anything it does not take.
+    """Launch the CUDA kernel (float32 or bfloat16 ``x`` and windows, float32
+    ``scale``, ``bias`` and statistics); raise on anything it does not take.
     ``with_stats`` also returns the per-token ``mu``, ``rstd`` ``(B, H, W)``."""
-    b, h, w, c, ws, windows = _check_k4("K4", x, window_size, scale=scale, bias=bias)
+    b, h, w, c, ws, windows = _check_k4("K4", x, window_size, tuple(_K4_SYMBOLS), scale=scale,
+                                        bias=bias)
     out = torch.empty((windows, ws, ws, c), dtype=x.dtype, device=x.device)
     mu = torch.empty((b, h, w), dtype=torch.float32, device=x.device) if with_stats else None
     rstd = torch.empty_like(mu) if with_stats else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _k4_function("mia_ln_window_partition_f32")(
+        err = _k4_function(_K4_SYMBOLS[x.dtype])(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
             None if mu is None else mu.data_ptr(), None if rstd is None else rstd.data_ptr(),
             b, h, w, c, ws, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
-    ln_window_partition_fused.launches += 1
+    if x.dtype == torch.bfloat16:
+        ln_window_partition_fused.bf16_launches += 1
+    else:
+        ln_window_partition_fused.launches += 1
     return (out, mu, rstd) if with_stats else out
 
 
@@ -199,14 +214,21 @@ class _LNWindowPartition(torch.autograd.Function):
 
 
 def ln_window_partition_fused(x, scale, bias, window_size: int, eps: float = 1e-6) -> torch.Tensor:
-    """K4: ``window_partition(LayerNorm(x))`` of float32 ``(B, H, W, C)``.
+    """K4: ``window_partition(LayerNorm(x))`` of float32 or bfloat16
+    ``(B, H, W, C)`` (float32 ``scale`` and ``bias``; the windows in ``x``'s
+    dtype).
 
     A CUDA tensor launches ``csrc/ln_window.cu`` (and raises if it cannot);
     a CPU tensor takes the plain version. Differentiable through the
-    backward kernel when an input requires a gradient. ``launches`` counts
-    kernel launches.
+    backward kernel when an input requires a gradient, in float32 only: a
+    bfloat16 call that needs a gradient raises. ``launches`` counts kernel
+    launches, ``bf16_launches`` those of the bfloat16 instance.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "K4 in bfloat16 has no backward yet: its gradient needs K4b in bfloat16, "
+                "which is not ported (use compute dtype float32 to train)")
         return _LNWindowPartition.apply(x, scale, bias, int(window_size), float(eps))
     if x.device.type == "cpu":
         return ln_window_partition(x, scale, bias, window_size, eps)
@@ -214,4 +236,5 @@ def ln_window_partition_fused(x, scale, bias, window_size: int, eps: float = 1e-
 
 
 ln_window_partition_fused.launches = 0
+ln_window_partition_fused.bf16_launches = 0
 ln_window_partition_fused_bwd.launches = 0

@@ -65,7 +65,10 @@ def _resize_matrix(
 @functools.lru_cache(maxsize=64)
 def _device_matrix(out_size: int, in_size: int, method: str, antialias: bool,
                    device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_resize_matrix(out_size, in_size, method, antialias)).to(device)
+    # a normal tensor even when first asked for under inference mode (SAM serving):
+    # a later resize under autograd saves it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix(out_size, in_size, method, antialias)).to(device)
 
 
 def resize(image: torch.Tensor, size, method: str = "bilinear", antialias: bool = True) -> torch.Tensor:

@@ -36,7 +36,12 @@ the loader's cache while round 0 trains, so that the first pool sweep finds
 it decoded. The selector call, each train step and each validation batch
 run inside the trace spans ``al/select``, ``train/step`` and ``valid/step``
 (``utils/profiling.py``).
-Not ported: wandb, mesh/multi-device, ``--compute-dtype bfloat16``.
+``--compute-dtype bfloat16`` builds the UNet with bfloat16 activations over
+float32 parameters (``UNetConfig.compute_dtype``, flax's ``dtype=``); the
+losses, the softmax of the scores, Adam, the clip and the checkpoints stay
+float32. K1 warps the float32 images before the model's cast, so it is the
+same kernel in both.
+Not ported: wandb, mesh/multi-device.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from PIL import Image
 from ..activelearning import SELECTORS, ModelScorer
 from ..data import DATASETS, ActiveDataset, BatchLoader, ExtendableDataset, decode_path
 from ..data.loader import cached_base
-from ..device import resolve_device, set_compute_precision
+from ..device import as_compute_dtype, resolve_device, set_compute_precision
 from ..losses import DiceAndCELoss
 from ..metrics import metric_percase
 from ..models import (UNet, UNetConfig, UnetProcessor, unet_state_dict_from_flax,
@@ -230,6 +235,7 @@ class ALTrainer(BaseTrainer):
             dropout_prob=self.config.dropout_prob,
             deep_supervision=self.config.deep_supervision,
             ds_layer=self.config.ds_layer,
+            compute_dtype=as_compute_dtype(self.config.compute_dtype),
         )
 
     def _model_input_size(self) -> tuple[int, int]:

@@ -272,6 +272,10 @@ class CPCSAMTrainer(BaseTrainer):
         self.resume = resume
 
         self.device = resolve_device(device)
+        if self.config.compute_dtype == "bfloat16":
+            raise NotImplementedError(
+                "cpcsam_train with --compute-dtype bfloat16 needs the bfloat16 backward kernels "
+                "K2b, K3b and K4b, which are not ported; use --compute-dtype float32")
         set_compute_precision(self.config.compute_dtype)
         self.work_path = get_path(work_path)
         self.verbose = verbose

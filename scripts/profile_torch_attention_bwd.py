@@ -37,8 +37,17 @@ the library call on the partitioned windows; with ``--kernels`` the device
 kernels of K3, K2, K7, K6 and K8 at B=1 and B=12 and of the library call at
 B=1.
 
+With ``--forward --bf16`` it times the bfloat16 instances of K3 and K2 on
+bfloat16 operands at the ViT-B/512 serving shapes B=1 and B=8 (the shapes
+``chip_smoke.py`` times), each beside its plain bfloat16 version and the
+library call (``scaled_dot_product_attention`` on the same bfloat16
+operands with a bfloat16 dense bias), with ``--kernels`` the device kernels
+each launches, then K3's device time a (64-query, 64-key) tile pair at the
+key grids 32x32, 20x27, 64x64 and 28x36 (whose rel rows of 32 and 64 floats
+put the eight query rows of a warp's fragment in one shared-memory bank).
+
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
-        [--forward | --sass]
+        [--forward [--bf16] | --sass]
 
 Several ``--tree`` arguments run in the given order, one process each
 (parent, change, change, parent is the order that shows a drift of the card).
@@ -91,6 +100,7 @@ def kernel_table(torch, label, fn, runs=3):
     print(f"{label} under the profiler: {total:.4f} ms of device time per run")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
         print(f"  {e.self_device_time_total / 1e3 / runs:9.4f} ms  x{e.count // runs}  {e.key[:150]}")
+    return total
 
 
 def library_backward(torch, qkv, rel_h, rel_w, scale, heads, g):
@@ -108,7 +118,7 @@ def library_backward(torch, qkv, rel_h, rel_w, scale, heads, g):
 
 def _short_name(mangled: str) -> str:
     """``_ZN...attention_fwd_tc_kernelILi64ELb0ELi32EEEv...`` → ``attention_fwd_tc_kernel<64, false, 32>``."""
-    m = re.search(r"(attention_[a-z_]*?kernel)I((?:L[ib]\d+E)+)E", mangled)
+    m = re.search(r"(attention_[a-z0-9_]*?kernel)I((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
     args = [v if t == "i" else ("true" if v == "1" else "false")
@@ -165,6 +175,7 @@ def sass_report(trees) -> None:
                             else "SASS differs from the first tree")
                     print(f"  {name}: {regs} registers, {spill} bytes spill, "
                           f"{sum('HMMA.1688.F32.TF32' in x for x in body)} HMMA.1688.F32.TF32, "
+                          f"{sum('HMMA.16816.F32.BF16' in x for x in body)} HMMA.16816.F32.BF16, "
                           f"{sum('ATOM' in x for x in body)} ATOM, "
                           f"{sum(('LDL' in x or 'STL' in x) for x in body)} LDL/STL; {same}")
                     if same == "SASS differs from the first tree":  # where it starts to differ
@@ -283,6 +294,67 @@ def bench_forward(tree: str, kernels: bool = False) -> None:
                 kernel_table(torch, f"{tree}: library at K2's B=1 shape", libs[1])
 
 
+def bench_forward_bf16(tree: str, kernels: bool = False) -> None:
+    import torch
+
+    sys.path.insert(0, tree)
+    from mia_tpu_torch.ops import attention
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(bf)
+
+    heads, d, ws, side = 12, 64, 14, 32
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rh, rw = randn(ws * ws, d, scale=0.1), randn(ws * ws, d, scale=0.1)
+    for b in (1, 8):
+        k3_args = (randn(b, side * side, 3 * heads * d),
+                   *(randn(b * heads, side * side, side) for _ in range(2)), scale, (side, side),
+                   heads)
+        k2_args = (randn(b * 9, ws * ws, 3 * heads * d), rh, rw, scale, (ws, ws), heads)
+        fns = {}
+        for name, launch, plain, args in (
+                ("K3", attention._launch_k3, attention.attention_rel_packed, k3_args),
+                ("K2", attention._launch_k2, attention.attention_rel_packed_ik, k2_args)):
+            qkv = args[0]
+            r_h, r_w = (args[1:3] if name == "K3" else
+                        attention.window_rel_terms(*args[:3], args[4], heads))
+            bb, n, _ = qkv.shape
+            q, k, v = (t.contiguous() for t in qkv.view(bb, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+            bias = (r_h[:, :, :, None] + r_w[:, :, None, :]).reshape(bb, heads, n, n).contiguous()
+            want = plain(*args)
+            err = float((launch(*args) - want).abs().max() / want.abs().max())
+            print(f"{tree}: bf16 B={b}: {name} ({bb}, {n}) within {err:.3g} of max |plain|")
+            fns[name] = (functools.partial(launch, *args), functools.partial(plain, *args),
+                         functools.partial(sdpa, q, k, v, attn_mask=bias, scale=scale))
+        per_block = 20 if b == 1 else 5
+        for _ in range(2):
+            print(f"{tree}: bf16 B={b}: " + ", ".join(
+                f"{name} {time_ms(torch, f[0], per_block=per_block) * 1e3:.2f} us (plain "
+                f"{time_ms(torch, f[1], per_block=per_block) * 1e3:.2f}, library "
+                f"{time_ms(torch, f[2], per_block=per_block) * 1e3:.2f})"
+                for name, f in fns.items()), flush=True)
+        if kernels:
+            for name, f in fns.items():
+                kernel_table(torch, f"{tree}: {name} bf16 B={b}", f[0])
+                kernel_table(torch, f"{tree}: library at {name}'s bf16 B={b} shape", f[2])
+    if kernels:  # K3 at other key grids: device time a (64-query, 64-key) tile pair
+        for b, k_hw in ((1, (32, 32)), (2, (20, 27)), (1, (64, 64)), (2, (28, 36))):
+            n = k_hw[0] * k_hw[1]
+            args = (randn(b, n, 3 * heads * d), randn(b * heads, n, k_hw[0]),
+                    randn(b * heads, n, k_hw[1]), scale, k_hw, heads)
+            pairs = b * heads * (-(-n // 64)) ** 2
+            ms = kernel_table(torch, f"{tree}: K3 bf16 B={b} grid {k_hw[0]}x{k_hw[1]}",
+                              functools.partial(attention._launch_k3, *args))
+            print(f"{tree}: K3 bf16 grid {k_hw[0]}x{k_hw[1]} B={b}: {pairs} tile pairs, "
+                  f"{ms * 1e6 / pairs:.1f} ns a pair")
+
+
 def bench(tree: str, kernels: bool = False) -> None:
     import torch
 
@@ -386,6 +458,8 @@ def main(argv=None) -> int:
                     help="also list the device kernels of K3b, K2b and the library call")
     ap.add_argument("--forward", action="store_true",
                     help="time the forward kernels K3, K2, K7, K6, K8 and the library call instead")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --forward: the bfloat16 instances of K3 and K2")
     ap.add_argument("--sass", action="store_true",
                     help="compile each tree's attention_rel.cu and attention_routes.cu and "
                          "compare registers and SASS")
@@ -395,7 +469,9 @@ def main(argv=None) -> int:
         sass_report(args.tree or [str(ROOT)])
         return 0
     if args.one:
-        (bench_forward if args.forward else bench)(args.one, args.kernels)
+        run = bench_forward_bf16 if args.forward and args.bf16 else bench_forward if args.forward \
+            else bench
+        run(args.one, args.kernels)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -403,7 +479,8 @@ def main(argv=None) -> int:
     for tree in args.tree or [str(ROOT)]:
         subprocess.run([sys.executable, __file__, "--one", tree]
                        + (["--kernels"] if args.kernels else [])
-                       + (["--forward"] if args.forward else []), check=True)
+                       + (["--forward"] if args.forward else [])
+                       + (["--bf16"] if args.bf16 else []), check=True)
     return 0
 
 

@@ -9,9 +9,14 @@ convolutions and the cuBLAS GEMMs summed into groups, and the share of the
 profiled window in which the card ran no kernel. ``--variant`` picks the
 encoder's route; ``--amg`` profiles one ``SamAutomaticMaskGenerator.generate``
 (32x32 points in chunks of 64 on a 512x512 frame) instead of ``set_image``.
-Needs a CUDA device.
+``--compute-dtype bfloat16`` builds the model in bfloat16 (float32 weights
+cast at each call; the default route only), whose K2-K4 are the bfloat16
+instances; ``--compare`` then also times the float32 model on the same
+weights, in turns (float32, bfloat16, bfloat16, float32). Needs a CUDA
+device.
 
     python scripts/profile_torch_sam.py [--variant default|k9|grid_native|head_major|no_rel_pos]
+                                        [--compute-dtype float32|bfloat16] [--compare]
                                         [--amg] [--runs 5] [--trace trace.json]
 """
 
@@ -41,16 +46,20 @@ from mia_tpu_torch.models.sam import (  # noqa: E402
 # attention_fwd_tc_kernel<D, bias, keys>: bias 0 = K2 (after kernel R,
 # attention_rel_terms_kernel), 1 = K3, and K6, which runs K3's instance on head-major
 # strides (the head-major route runs no K3: HEAD_MAJOR_GROUPS), 2 = K7 (dense bias), 3 = K8
-# (windows carved from the token grid); keys is the streamed key tile
+# (windows carved from the token grid); keys is the streamed key tile. In bfloat16, K2
+# and K3 run attention_fwd_bf16_kernel<D, tables, keys> (tables: K2) and K2's kernel R
+# its bfloat16 instance
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_rel_terms_kernel")),
-    ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,",)),
+    ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_fwd_bf16_kernel<64, true",
+                               "attention_rel_terms_kernel")),
+    ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,", "attention_fwd_bf16_kernel<64, false")),
     ("K7 dense-bias attention", ("attention_fwd_tc_kernel<64, 2,",)),
     ("K8 grid-native windowed attention", ("attention_fwd_tc_kernel<64, 3,",)),
     ("K4 LayerNorm + partition", ("ln_window_partition_kernel",)),
     ("K9 unpartition + residual + LayerNorm", ("unpartition_add_ln_kernel",)),
     ("cuDNN convolutions", ("fprop", "implicit", "cudnn", "conv2d")),
-    ("cuBLAS GEMMs", ("gemm", "cutlass", "Kernel2")),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "Kernel2", "nvjet")),
+    ("PyTorch elementwise (casts, adds, GELU)", ("elementwise", "copy_kernel")),
 )
 HEAD_MAJOR_GROUPS = tuple(("K6 head-major attention", keys) if label.startswith("K3") else
                           (label, keys) for label, keys in GROUPS)
@@ -97,6 +106,10 @@ def main() -> None:
                         help="the encoder's route")
     parser.add_argument("--amg", action="store_true",
                         help="profile SamAutomaticMaskGenerator.generate instead of set_image")
+    parser.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32",
+                        help="the model's compute dtype")
+    parser.add_argument("--compare", action="store_true",
+                        help="also time the float32 model on the same weights, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_sam: needs a CUDA device")
@@ -106,12 +119,25 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card)
-    set_compute_precision("float32")
+    set_compute_precision(args.compute_dtype)
     torch.manual_seed(0)
-    model, _ = sam_model_registry["vit_b"](512, 3, device="cuda")
-    predictor = SamPredictor(with_encoder(model, **VARIANTS[args.variant]))
+    model, _ = sam_model_registry["vit_b"](512, 3, device="cuda", compute_dtype=args.compute_dtype)
+    if args.variant != "default":
+        model = with_encoder(model, **VARIANTS[args.variant])
+    predictor = SamPredictor(model.eval())
+    print(f"compute dtype {args.compute_dtype}")
     rng = np.random.default_rng(0)
     point, label = np.array([[320.0, 240.0]]), np.array([1])
+    if args.compare:
+        f32_model, _ = sam_model_registry["vit_b"](512, 3, device="cuda")
+        f32_model.load_state_dict(model.state_dict())
+        f32 = SamPredictor(f32_model.eval())
+        image = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        for key, p in (("float32", f32), (args.compute_dtype, predictor),
+                       (args.compute_dtype, predictor), ("float32", f32)):
+            print(f"{key}: set_image {median_ms(lambda: p.set_image(image)):.3f} ms, predict "
+                  f"{median_ms(lambda: p.predict(point_coords=point, point_labels=label)):.3f} ms "
+                  "(medians of 20)")
     if args.amg:
         image = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
         generator = SamAutomaticMaskGenerator(predictor, points_per_side=32, points_per_batch=64)
