@@ -44,7 +44,16 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    99% bit-equal), K4's output within one bfloat16 ulp an element (the ulp
    taken at >= 2^-6 of max) and its mu / rstd within 1e-5, two launches
    bit-identical; timed with the library call (bfloat16 operands and dense
-   bias) and the bound at 989 TFLOP/s dense bfloat16.
+   bias) and the bound at 989 TFLOP/s dense bfloat16. Their backward
+   kernels' bfloat16 instances (K2b, K3b on bfloat16 ``mma.sync``, K4b)
+   through the wrappers the trainer calls, against the plain bfloat16 VJPs
+   at the training shapes for batch 12 (K2b on 108 windows, tables off and
+   on; K3b on 12 x 1024 tokens; K4b on (12, 32, 32, 768), parameters off
+   and on), a 20x27 grid and head dim 80: every output within 2^-7 of max
+   |plain|, two launches bit-identical; event and device times (every
+   kernel of a call) with the plain version, autograd through one bfloat16
+   ``scaled_dot_product_attention`` with the dense bias and the bfloat16
+   bound.
    Training kernels: the backward kernels of K2, K3 and K4 against their
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
    1e-4 of max |plain| for each output, K2b and K3b (3xTF32 on the tensor
@@ -186,6 +195,16 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    checkpoint (resumes at iteration 2 with the saved parameters, optimizer
    count and memory; VAT loss positive); a ``--test-only --lora-ckpt
    lora.msgpack`` run restores that checkpoint bit for bit.
+   CPC-SAM bfloat16 phase: the same defaults with ``--compute-dtype
+   bfloat16`` for 2 phase-1 and 2 phase-2 steps on the same set: each step
+   launches 8 / 4 / 8 bfloat16 K2 / K3 / K4 and 8 / 4 / 7 bfloat16 K2b /
+   K3b / K4b and no float32 instance of them; finite losses, the LoRA
+   tensors moved, float32 parameters and a float32 ``lora.msgpack`` in the
+   float32 run's layout, a validation and the real test; step times and
+   peak memory beside the float32 phase's; encoder blocks 0 (windowed) and
+   2 (global) of the trained model on the card against the same block on
+   the CPU on the card's inputs (output, input cotangent, LoRA gradients),
+   closer than the card's float32 block of the same weights.
    Route-training phase: the trained CPC-SAM model with seeded rel-pos
    tables and, in its place, the encoder of each other route (K9 exit,
    grid-native by argument and by ``MIA_WINDOWED_ATTN=1``, head-major, no
@@ -247,8 +266,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    paths that ran them, their bounds and library times; K2, K3, K6, K7, K8,
    K2b, K3b, K6b and K8b also their tensor-core bound, K2, K3 and K8 their
    batch-8 numbers under ``b8``, K1, K4, K4b, K5, K8, K9 and K9b their ``device_ms``;
-   K2, K3 and K4 a ``bf16`` entry with the same keys for their bfloat16
-   instance, its launches from the bfloat16 SAM phase),
+   K2, K3, K4, K2b, K3b and K4b a ``bf16`` entry with the same keys for
+   their bfloat16 instance, its launches from the bfloat16 SAM and CPC-SAM
+   phases),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -311,9 +331,9 @@ KERNELS = {
     "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
              "mia_tpu/ops/upsample2x.py:137"),
 }
-# kernels with a bfloat16 instance (SAM serving in bfloat16); the JSON line gives each a
-# ``bf16`` entry with its own launches, times and bounds
-BF16_KERNELS = ("K2", "K3", "K4")
+# kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16); the JSON
+# line gives each a ``bf16`` entry with its own launches, times and bounds
+BF16_KERNELS = ("K2", "K3", "K4", "K2b", "K3b", "K4b")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
 # K2, K3, K6, K7, K8, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense
@@ -388,12 +408,13 @@ def time_ms(fn, torch, blocks=11, per_block=50, warmup=10):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel, per_block=50):
+def device_ms(torch, fn, kernel=None, per_block=50):
     """The device time (ms) of one launch of the device kernel whose name
     holds ``kernel``, from its durations under ``torch.profiler`` over one
     block of ``per_block`` calls of ``fn`` (without the host's dispatch that
     the CUDA-event time of a short kernel includes); and the device time of
-    the call's other kernels (the wrapper's conversions) a call."""
+    the call's other kernels (the wrapper's conversions) a call. With
+    ``kernel`` None: every device kernel of one call, summed, and 0."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -408,12 +429,14 @@ def device_ms(torch, fn, kernel, per_block=50):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e for e in events if kernel in e.key]
+        mine = [e for e in events if kernel is None or kernel in e.key]
         if mine:
             break
-        print(f"device_ms: capture {attempt + 1} recorded no {kernel} launch "
+        print(f"device_ms: capture {attempt + 1} recorded no {kernel or 'device'} launch "
               f"({len(events)} device events)")
-    check(mine, f"the profiler recorded no {kernel} launch")
+    check(mine, f"the profiler recorded no {kernel or 'device'} launch")
+    if kernel is None:
+        return sum(e.self_device_time_total for e in mine) / 1e3 / per_block, 0.0
     others = sum(e.self_device_time_total for e in events if kernel not in e.key)
     return (sum(e.self_device_time_total for e in mine) / 1e3 / sum(e.count for e in mine),
             others / 1e3 / per_block)
@@ -2753,6 +2776,137 @@ def bf16_kernel_phase(torch, device):
     return out
 
 
+def bf16_train_kernel_phase(torch, device):
+    """K2b, K3b and K4b in bfloat16 at the ViT-B/512 training shapes for batch
+    12 (K2b on the 9 windows an image, tables off and on; K3b on the 1024
+    tokens of a global block; K4b on (12, 32, 32, 768) at ws 14, parameters
+    off and on), a 20x27 global grid and head dim 80: through the wrappers
+    the trainer calls, every output within ``BF16_TOL`` of max |plain| of
+    the plain bfloat16 VJP on the same inputs (the kernel's own forward's
+    output and log-sum-exp), two launches bit-identical; event and device
+    times beside the plain version, the library call (autograd through one
+    bfloat16 ``scaled_dot_product_attention`` with the dense bias) and the
+    bound at 989 TFLOP/s bfloat16 or 3.35 TB/s."""
+    from mia_tpu_torch.ops import attention, ln_window
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device=device) + shift).to(dtype)
+
+    heads, d, ws, c, side = 12, 64, 14, 768, 32
+    worst = {k: [0.0, 0.0, 1.0] for k in ("K2b", "K3b", "K4b")}  # abs, relative, least bit-equal
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        check(len(got) == len(want), f"{name} bf16 {label}: {len(got)} outputs")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check((a is None) == (b is None), f"{name} bf16 {label}: output {i} in one version only")
+            if b is None:
+                continue
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{name} bf16 {label}: output {i} {a.dtype} {tuple(a.shape)}, plain {b.dtype} "
+                  f"{tuple(b.shape)}")
+            check(bool(torch.isfinite(a.float()).all()), f"{name} bf16 {label}: output {i} not finite")
+            diff = (a.float() - b.float()).abs()
+            err, ref = diff.max().item(), b.float().abs().max().item()
+            check(err <= BF16_TOL * ref, f"{name} bf16 {label}: output {i} max |kernel - plain| "
+                  f"{err} > {BF16_TOL} x max |plain| {ref}")
+            equal = float((diff == 0).float().mean())
+            worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref if ref else 0.0),
+                           min(worst[name][2], equal)]
+
+    timed = {}
+    ln_scale = randn(c, scale=0.2, shift=1.0, dtype=torch.float32)
+    ln_bias = randn(c, scale=0.1, shift=0.5, dtype=torch.float32)
+    for label, shape in (("B=12", (12, side, side, c)), ("grid 20x27", (2, 20, 27, c))):
+        x = randn(*shape)
+        y, mu, rstd = ln_window._launch_k4(x, ln_scale, ln_bias, ws, 1e-6, with_stats=True)
+        dy = randn(*y.shape)
+        for params in (False, True):
+            args = (x, dy, mu, rstd, ln_scale, ws, params)
+            got = ln_window.ln_window_partition_fused_bwd(*args)
+            hold("K4b", f"{label} params={params}", got, ln_window.ln_window_partition_bwd(*args))
+            bit_identical(torch, "K4b bf16", f"{label} params={params}", got,
+                          ln_window.ln_window_partition_fused_bwd(*args))
+        if label == "B=12":
+            timed["K4b"] = (x, dy, mu, rstd, ln_scale, ws, False)
+
+    def k2b_case(label, n_win, n_heads, hd, tables_too=True):
+        rh, rw = randn(ws * ws, hd, scale=0.1), randn(ws * ws, hd, scale=0.1)
+        qkv = randn(n_win, ws * ws, 3 * n_heads * hd)
+        out, lse = attention._launch_k2(qkv, rh, rw, hd ** -0.5, (ws, ws), n_heads, with_lse=True)
+        g = randn(n_win, ws * ws, n_heads * hd)
+        for tables in ((False, True) if tables_too else (False,)):
+            args = (qkv, rh, rw, out, g, lse, hd ** -0.5, (ws, ws), n_heads, tables)
+            got = attention.fused_attention_rel_packed_ik_bwd(*args)
+            hold("K2b", f"{label} tables={tables}", got,
+                 attention.attention_rel_packed_ik_bwd_bf16(*args))
+            bit_identical(torch, "K2b bf16", f"{label} tables={tables}", got,
+                          attention.fused_attention_rel_packed_ik_bwd(*args))
+        return (qkv, rh, rw, out, g, lse, hd ** -0.5, (ws, ws), n_heads, False)
+
+    def k3b_case(label, b, k_hw, n_heads, hd):
+        n = k_hw[0] * k_hw[1]
+        qkv = randn(b, n, 3 * n_heads * hd)
+        rel_h, rel_w = randn(b * n_heads, n, k_hw[0]), randn(b * n_heads, n, k_hw[1])
+        out, lse = attention._launch_k3(qkv, rel_h, rel_w, hd ** -0.5, k_hw, n_heads, with_lse=True)
+        args = (qkv, rel_h, rel_w, out, randn(b, n, n_heads * hd), lse, hd ** -0.5, k_hw, n_heads)
+        got = attention.fused_attention_rel_packed_bwd(*args)
+        hold("K3b", label, got, attention.attention_rel_packed_bwd_bf16(*args))
+        bit_identical(torch, "K3b bf16", label, got, attention.fused_attention_rel_packed_bwd(*args))
+        return args
+
+    timed["K2b"] = k2b_case("B=12", 12 * 9, heads, d)
+    k2b_case("head dim 80", 9, 16, 80)
+    timed["K3b"] = k3b_case("B=12", 12, (side, side), heads, d)
+    k3b_case("grid 20x27", 2, (20, 27), heads, d)
+    k3b_case("head dim 80", 1, (side, side), 16, 80)
+    for name, (err, rel, equal) in worst.items():
+        print(f"{name} bf16 within {BF16_TOL} of max |plain| on every case: max |diff| {err:.3g} "
+              f"(relative {rel:.3g}), at least {equal:.4f} of each output bit-equal; two launches "
+              "bit-identical")
+
+    def yardsticks(name, args):
+        if name == "K4b":
+            x, dy, mu, rstd, ln_w = args[:5]
+            # as the float32 K4b: x, the real tokens' dy, mu, rstd, scale read, dx written
+            return {"library_ms": None, **bf16_bound([x, x, mu, rstd, ln_w, x], 12 * x.numel())}
+        qkv, rel_a, rel_b, o, g, _, sc, k_hw, n_heads = args[:9]
+        b, n, _ = qkv.shape
+        flops = attention_flops(b * n_heads, n, n, d, backward=True)
+        if name == "K2b":  # the rel terms again, and their cotangent routed into dq
+            flops += b * n_heads * n * sum(k_hw) * 4 * d
+            rel_h, rel_w = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
+            moved = [qkv, rel_a, rel_b, o, g, qkv]
+        else:
+            rel_h, rel_w = rel_a, rel_b
+            moved = [qkv, rel_a, rel_b, o, g, qkv, rel_a, rel_b]
+        g4 = g.view(b, n, n_heads, d).transpose(1, 2).contiguous()
+        lib = sdpa_backward_ms(torch, *head_major(qkv, n_heads),
+                               dense_bias(rel_h, rel_w, b, n_heads), sc, g4, 10)
+        return {"library_ms": lib, **bf16_bound(moved, flops)}
+
+    fns = {"K2b": (attention.fused_attention_rel_packed_ik_bwd,
+                   attention.attention_rel_packed_ik_bwd_bf16),
+           "K3b": (attention.fused_attention_rel_packed_bwd, attention.attention_rel_packed_bwd_bf16),
+           "K4b": (ln_window.ln_window_partition_fused_bwd, ln_window.ln_window_partition_bwd)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        args = timed[name]
+        (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*args),
+                                                  lambda: plain(*args), 10)
+        m = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+             "device_ms": device_ms(torch, lambda: kernel(*args), per_block=10)[0], **yardsticks(name, args)}
+        print(f"{name} bf16 at ViT-B/512 training B=12: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us "
+              f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it), plain "
+              f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us; {describe_yardsticks(m)}")
+        out[name] = m
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the backward kernels of K2, K3, K4 and K5 against their plain versions
 # ---------------------------------------------------------------------------
@@ -4564,12 +4718,14 @@ def run_cpcsam(torch, device, datasets, argv):
     timed and counted → the trainer and what was recorded: ``steps`` (phase,
     seconds, launches by kernel, valid memory rows by class or None),
     ``losses``, ``snap`` (every parameter after ``on_train_start``),
-    ``launches`` of the whole run and the peak memory."""
+    ``launches`` of the whole run and the peak memory; with ``bf16_steps``
+    and ``bf16_launches``, the same counts of the bfloat16 instances."""
     from mia_tpu_torch.entry.cpcsam.train import train_entry
     from mia_tpu_torch.training import cpcsam_trainer
 
     counts = counters()
-    rec = {"steps": [], "losses": [], "snap": {}}
+    bf16_counts = {k: fn for k, fn in counts.items() if hasattr(fn, "bf16_launches")}
+    rec = {"steps": [], "bf16_steps": [], "losses": [], "snap": {}}
     base = cpcsam_trainer.CPCSAMTrainer
 
     class SmokeTrainer(base):
@@ -4585,6 +4741,7 @@ def run_cpcsam(torch, device, datasets, argv):
             phase = 2 if self.current_iter >= self.config.warmup_iter else 1
             torch.cuda.synchronize()
             before = {k: fn.launches for k, fn in counts.items()}
+            before16 = {k: fn.bf16_launches for k, fn in bf16_counts.items()}
             t0 = time.perf_counter()
             super().train_step(batch)
             torch.cuda.synchronize()
@@ -4592,6 +4749,8 @@ def run_cpcsam(torch, device, datasets, argv):
             rec["steps"].append((phase, time.perf_counter() - t0,
                                  {k: fn.launches - before[k] for k, fn in counts.items()
                                   if k != "K1"}, rows))
+            rec["bf16_steps"].append({k: fn.bf16_launches - before16[k]
+                                      for k, fn in bf16_counts.items()})
 
         def _log_train(self, step, lr, step_losses):
             rec["losses"].append([float(v) for v in step_losses.cpu()])
@@ -4601,26 +4760,31 @@ def run_cpcsam(torch, device, datasets, argv):
     try:
         for fn in counts.values():
             fn.launches = 0
+        for fn in bf16_counts.values():
+            fn.bf16_launches = 0
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         trainer = train_entry(argv)
         torch.cuda.synchronize()
         rec["total_s"] = time.perf_counter() - t0
         rec["launches"] = {k: fn.launches for k, fn in counts.items()}
+        rec["bf16_launches"] = {k: fn.bf16_launches for k, fn in bf16_counts.items()}
         rec["peak"] = torch.cuda.max_memory_allocated(device)
     finally:
         cpcsam_trainer.CPCSAMTrainer = base
     return trainer, rec
 
 
-def check_cpcsam_steps(torch, trainer, rec, phases, moved_prefixes):
+def check_cpcsam_steps(torch, trainer, rec, phases, moved_prefixes, expected=None):
     """What every CPC-SAM run of the smoke must show: the phases of its
-    steps, the derived launches in each, finite losses, the trainable tensors
-    under ``moved_prefixes`` moved and the frozen encoder bit-identical."""
+    steps, the derived launches in each (``expected`` by phase, default
+    ``STEP_LAUNCHES``), finite losses, the trainable tensors under
+    ``moved_prefixes`` moved and the frozen encoder bit-identical."""
+    expected = expected or STEP_LAUNCHES
     check([s[0] for s in rec["steps"]] == phases, f"phases of the steps: {[s[0] for s in rec['steps']]}")
     for phase, _, per_step, _ in rec["steps"]:
-        check(per_step == STEP_LAUNCHES[phase],
-              f"phase-{phase} step launched {per_step}, expected {STEP_LAUNCHES[phase]}")
+        check(per_step == expected[phase],
+              f"phase-{phase} step launched {per_step}, expected {expected[phase]}")
     losses = rec["losses"]
     check(len(losses) == len(phases) and all(math.isfinite(v) for row in losses for v in row),
           f"losses not all finite: {losses}")
@@ -4928,6 +5092,313 @@ def route_train_phase(torch, device, trainer, datasets):
     return {"launches": launches, "routes": out}
 
 
+
+# ---------------------------------------------------------------------------
+# CPC-SAM in bfloat16: the trainer's defaults with --compute-dtype bfloat16
+# ---------------------------------------------------------------------------
+
+# bfloat16 launches of one step of either phase (the float32 ones are STEP_LAUNCHES'); the
+# step launches no float32 instance of K2-K4b
+BF16_STEP_LAUNCHES = {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7}
+# card against the CPU in training, module by module: every module call inside encoder blocks 0
+# (windowed) and 2 (global) of the trained bfloat16 model, on the inputs the CPU's copy of the
+# block gives it (the block's own input taken from the card's forward), forward and backward for
+# a seeded bfloat16 cotangent, on the card's bfloat16 module, the CPU's, and the card's float32
+# one (inputs widened). The Linears, the LayerNorms and K4 (norm1 + partition): output, input
+# cotangent and LoRA gradients at least BF16_TRAIN_LEAF_EQUAL bit-equal to the CPU's (cuBLAS sums
+# in another order than the CPU: about one output in 2000 rounds the other way). The MLP, the
+# attention kernel's forward (K2 / K3 against the plain bfloat16 version on the CPU block's own
+# qkv and rel operands) and its backward alone (K2b / K3b on the plain forward's output and
+# log-sum-exp, so both sides start from the same forward): ||card - CPU|| / ||CPU|| under
+# BF16_TRAIN_SHARES of the float32 version's (the float32 module; for the kernels the plain
+# float32 forward and VJP of the widened operands). What composes them, the attention core
+# (forward and backward on each side's own forward) and the Attention module, carries the
+# forward kernel's other rounding of P (it rounds the unnormalised P) into its backward; they,
+# and the whole block, are printed and held to BF16_WHOLE_SANITY times the float32 distance.
+# Read on an H100: Linears >= 0.9984 bit-equal, LayerNorms and K4 1.0; shares MLP 0.083,
+# attention forward 0.55, backward alone 0.059 (99.68% bit-equal); attention core 0.96,
+# Attention module 0.68, whole blocks 0.51-0.82
+BF16_TRAIN_LEAF_EQUAL = 0.995
+BF16_TRAIN_SHARES = {"MLPBlock": 0.25, "attention forward": 0.75, "attention backward": 0.2}
+BF16_TRAIN_LEAVES = ("Linear", "LayerNorm", "K4")
+BF16_TRAIN_COMPOSED = ("attention core", "Attention")
+
+
+def bf16_train_replay(torch, fn, inputs, blocks, device, gen):
+    """``fn(block, *inputs)`` forward and backward on the CPU's bfloat16
+    block, the card's and the card's float32 one, for one seeded bfloat16
+    cotangent → {target: {"output": y, "dx": input cotangents concatenated,
+    "LoRA grads": LoRA gradients concatenated}} (empty where there are none),
+    each on the CPU in float32."""
+    out, g = {}, None
+    for key, dev, dtype in (("cpu", "cpu", None), ("card", device, None), ("f32", device, torch.float32)):
+        xs = [t.to(dev, dtype or t.dtype).requires_grad_() if torch.is_tensor(t)
+              and t.is_floating_point() else t for t in inputs]
+        y = fn(blocks[key], *xs)
+        if g is None:
+            g = torch.randn(y.shape, generator=gen).to(torch.bfloat16)
+        lora = [p for _, p in sorted(blocks[key].named_parameters()) if p.requires_grad]
+        leaves = [t for t in xs if torch.is_tensor(t) and t.requires_grad]
+        grads = torch.autograd.grad(y, leaves + lora, g.to(dev, y.dtype), allow_unused=True)
+
+        def cat(ts):
+            return torch.cat([t.detach().flatten().float().cpu() for t in ts if t is not None]
+                             or [torch.zeros(0)])
+
+        out[key] = {"output": y.detach().float().cpu().flatten(), "dx": cat(grads[:len(leaves)]),
+                    "LoRA grads": cat(grads[len(leaves):])}
+    return out
+
+
+def _float32_block(torch, blk, x, device):
+    """The card's float32 block of ``blk``'s weights, with its trainable set."""
+    from mia_tpu_torch.models.sam.image_encoder import Block
+
+    attn = blk.attn
+    blk32 = Block(x.shape[-1], attn.num_heads, attn.window_size, (x.shape[1], x.shape[2]),
+                  lora_rank=attn.lora_rank).to(device)
+    blk32.load_state_dict(blk.state_dict())
+    trainable = {n for n, p in blk.named_parameters() if p.requires_grad}
+    for n, p in blk32.named_parameters():
+        p.requires_grad_(n in trainable)
+    return blk32
+
+
+def bf16_train_module_holds(torch, np, blocks, x, device, gen):
+    """The module calls of one encoder block (``blocks``: the CPU's copy,
+    the card's and its float32 one; ``x`` its input) replayed as the comment
+    above says → {(kind, what): [least share bit-equal to the CPU, largest
+    ||card - CPU|| / ||CPU||, least of the float32 module's share and
+    distance]}."""
+    from mia_tpu_torch.models.sam import image_encoder
+    from mia_tpu_torch.ops.ln_window import ln_window_partition_fused
+
+    cpu = blocks["cpu"]
+    calls, core = [], []
+    hooks = [m.register_forward_hook(
+        lambda m, args, kwargs, out, name=name: calls.append(
+            (type(m).__name__, name, [a.detach().clone() if torch.is_tensor(a) else a for a in args],
+             kwargs)), with_kwargs=True)
+        for name, m in cpu.named_modules()
+        if type(m).__name__ in ("Linear", "LayerNorm", "Attention", "MLPBlock")]
+    attend = cpu.attn._attend
+    cpu.attn._attend = lambda qkv, hw, route: (core.append((qkv.detach().clone(), hw, route)),
+                                               attend(qkv, hw, route))[1]
+    fused, names = [], ("fused_attention_rel_packed", "fused_attention_rel_packed_ik")
+    originals = {n: getattr(image_encoder, n) for n in names}
+    for n in names:
+        setattr(image_encoder, n, lambda qkv, a, b, *cfg, n=n: (
+            fused.append((n, [t.detach().clone() for t in (qkv, a, b)], cfg)),
+            originals[n](qkv, a, b, *cfg))[1])
+    try:
+        with torch.no_grad():
+            cpu(x.cpu())
+    finally:
+        for n in names:
+            setattr(image_encoder, n, originals[n])
+        for h in hooks:
+            h.remove()
+        del cpu.attn._attend
+    replays = [(kind, lambda b, *xs, name=name, kwargs=kwargs:
+                dict(b.named_modules())[name](*xs, **kwargs), args)
+               for kind, name, args, kwargs in calls]
+    qkv, hw, route = core[0]
+    replays.append(("attention core", lambda b, t: b.attn._attend(t, hw, route), [qkv]))
+    if cpu.use_lnw:
+        replays.append(("K4", lambda b, t: ln_window_partition_fused(
+            t, b.norm1.weight, b.norm1.bias, b.window_size, b.norm1.eps), [x.cpu()]))
+    worst = {}
+    results = [(kind, bf16_train_replay(torch, fn, inputs, blocks, device, gen))
+               for kind, fn, inputs in replays]
+    results += bf16_attention_kernel_replays(torch, fused[0], device, gen)
+    for kind, res in results:
+        for what, want in res["cpu"].items():
+            got, got32 = res["card"][what], res["f32"][what]
+            check(got.shape == want.shape == got32.shape,
+                  f"bf16 training replay {kind} {what}: {got.shape} / {want.shape} / {got32.shape}")
+            if not want.numel() or not want.norm():
+                continue
+            equal = float((got == want).float().mean())
+            equal32 = float((got32.to(torch.bfloat16).float() == want).float().mean())
+            entry = worst.setdefault((kind, what), [1.0, 0.0, 1.0, float("inf")])
+            worst[(kind, what)] = [min(entry[0], equal), max(entry[1], frob_rel(np, got, want)),
+                                   min(entry[2], equal32), min(entry[3], frob_rel(np, got32, want))]
+    return worst
+
+
+def bf16_attention_kernel_replays(torch, call, device, gen):
+    """The block's attention kernel on the CPU block's own operands
+    (``call``: the name of the fused op, ``(qkv, rel_a, rel_b)`` and its
+    configuration): the forward (K2 / K3 on the card, the plain bfloat16
+    version on the CPU, the plain float32 one of the widened operands) and
+    the backward alone, on the CPU's plain forward's output and log-sum-exp
+    (K2b / K3b on the card, the plain bfloat16 VJP on the CPU, the plain
+    float32 VJP) → [(kind, {target: {"output" / "dx": tensor}})] as
+    ``bf16_train_replay`` gives them."""
+    from mia_tpu_torch.ops import attention
+
+    name, (qkv, rel_a, rel_b), (scale, k_hw, heads) = call
+    windowed = name.endswith("_ik")
+    rel = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, heads) if windowed else (rel_a, rel_b)
+    out, lse = attention.attention_rel_packed_bf16(qkv, *rel, scale, k_hw, heads)
+    g = torch.randn(out.shape, generator=gen).to(torch.bfloat16)
+    wide = [t.float() for t in (qkv, rel_a, rel_b)]
+    card = [t.to(device) for t in (qkv, rel_a, rel_b, out, g, lse)]
+    launch = attention._launch_k2 if windowed else attention._launch_k3
+    if windowed:
+        back = (attention.attention_rel_packed_ik_bwd_bf16(qkv, rel_a, rel_b, out, g, lse, scale,
+                                                           k_hw, heads, False)[:1],
+                attention.fused_attention_rel_packed_ik_bwd(*card, scale, k_hw, heads, False)[:1],
+                attention.attention_rel_packed_ik_bwd(*wide, out.float(), g.float(), scale, k_hw,
+                                                      heads, False)[:1])
+        plain32 = attention.attention_rel_packed_ik(*wide, scale, k_hw, heads)
+    else:
+        back = (attention.attention_rel_packed_bwd_bf16(qkv, rel_a, rel_b, out, g, lse, scale,
+                                                        k_hw, heads),
+                attention.fused_attention_rel_packed_bwd(*card, scale, k_hw, heads),
+                attention.attention_rel_packed_bwd(*wide, out.float(), g.float(), scale, k_hw, heads))
+        plain32 = attention.attention_rel_packed(*wide, scale, k_hw, heads)
+    forward = {"cpu": out, "card": launch(*card[:3], scale, k_hw, heads), "f32": plain32}
+    torch.cuda.synchronize()
+
+    def flat(ts):
+        return torch.cat([t.detach().flatten().float().cpu() for t in ts])
+
+    return [("attention forward", {k: {"output": flat([v])} for k, v in forward.items()}),
+            ("attention backward", {k: {"dx": flat(v)} for k, v in zip(("cpu", "card", "f32"), back)})]
+
+
+def bf16_block_holds(torch, model, images, device):
+    """Encoder blocks 0 (windowed) and 2 (global) of the trained bfloat16
+    model, on the inputs the card's forward gave them for ``images``: module
+    by module (``bf16_train_module_holds``) and whole (the block's output,
+    input cotangent and LoRA gradients on the card against the same block on
+    the CPU, beside the card's float32 block's distance to that CPU block)
+    → ({(kind, what): module readings}, {block: {what: (bfloat16 distance,
+    float32 distance)}})."""
+    import copy
+
+    import numpy as np
+
+    enc = model.image_encoder
+    captured = {}
+    hooks = [enc.blocks[i].register_forward_hook(
+        lambda mod, args, out, i=i: captured.__setitem__(i, args[0].detach())) for i in (0, 2)]
+    with torch.no_grad():
+        model.get_image_embeddings(images)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator().manual_seed(9)
+    modules, whole = {}, {}
+    for i in (0, 2):
+        blk, x = enc.blocks[i], captured[i]
+        blocks = {"cpu": copy.deepcopy(blk).cpu(), "card": blk,
+                  "f32": _float32_block(torch, blk, x, device)}
+        for key, v in bf16_train_module_holds(torch, np, blocks, x, device, gen).items():
+            old = modules.get(key, [1.0, 0.0, 1.0, float("inf")])
+            modules[key] = [min(old[0], v[0]), max(old[1], v[1]), min(old[2], v[2]),
+                            min(old[3], v[3])]
+        res = bf16_train_replay(torch, lambda b, t: b(t), [x], blocks, device, gen)
+        torch.cuda.synchronize()
+        whole[f"block {i} ({'global' if blk.attn.window_size == 0 else 'windowed'})"] = {
+            what: (frob_rel(np, res["card"][what], w), frob_rel(np, res["f32"][what], w))
+            for what, w in res["cpu"].items()}
+    return modules, whole
+
+
+def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
+    """``cpcsam_train_torch``'s defaults with ``--compute-dtype bfloat16`` for
+    2 phase-1 and 2 phase-2 steps on the CPC-SAM phase's in-memory ACDC set:
+    exactly the bfloat16 launches of ``BF16_STEP_LAUNCHES`` a step and no
+    float32 instance of K2-K4b, finite losses, the LoRA tensors moved and
+    the frozen encoder bit-identical, float32 parameters and a float32
+    ``lora.msgpack`` with the float32 run's keys, the validation and the
+    real test of the bfloat16 model; step ms and peak memory beside the
+    float32 phase's; two blocks on the card against the CPU
+    (``bf16_block_holds``)."""
+    import numpy as np
+
+    from mia_tpu_torch.models.sam.lora import read_lora_checkpoint
+
+    argv = ["--data-path", str(workdir / "acdc"), "--device", "cuda", "--lr-warmup-iter", "1",
+            "--quiet", "--work-path", str(workdir / "work_bf16"), "--compute-dtype", "bfloat16",
+            "--warmup-iter", "2", "--min-iter", "4", "--max-iter", "4", "--valid-freq-iter", "4"]
+    trainer, rec = run_cpcsam(torch, device, datasets, argv)
+    model = trainer.model
+    bf = torch.bfloat16
+    enc = model.image_encoder
+    check(len(enc.blocks) == 12 and enc.blocks[0].attn.qkv.in_features == 768
+          and model.num_decoders == 3 and trainer.config.batch_size == 12
+          and trainer.config.labeled_batch_size == 6,
+          "not the LoRA ViT-B/512 SamDualmask at batch 12 (6 labeled)")
+    check(enc.compute_dtype == bf and all(d.compute_dtype == bf for d in model.mask_decoders),
+          "cpcsam_train_torch --compute-dtype bfloat16 did not build a bfloat16 model")
+    check(all(p.dtype == torch.float32 and p.device.type == "cuda" for p in model.parameters()),
+          "bfloat16 CPC-SAM parameters are not float32 on the card")
+    no_float32 = {ph: {**STEP_LAUNCHES[ph], **{k: 0 for k in BF16_STEP_LAUNCHES}} for ph in (1, 2)}
+    check_cpcsam_steps(torch, trainer, rec, [1, 1, 2, 2], (), expected=no_float32)
+    for i, per_step in enumerate(rec["bf16_steps"]):
+        check(per_step == BF16_STEP_LAUNCHES,
+              f"bfloat16 step {i} launched {per_step}, expected {BF16_STEP_LAUNCHES}")
+    work = trainer.work_path
+    log = (work / "log.txt").read_text()
+    check(log.count("Valid results") == 1 and "Real test results" in log,
+          "the bfloat16 model's validation (iteration 4) or real test did not run")
+    lora = read_lora_checkpoint(work / "final_model" / "lora.msgpack")
+    f32_lora = read_lora_checkpoint(f32["log"].parent / "final_model" / "lora.msgpack")
+    check(set(lora) == set(f32_lora) and all(v.dtype == torch.float32 for v in lora.values()),
+          "the bfloat16 run's lora.msgpack is not the float32 run's layout in float32")
+
+    train_set = datasets["train"]
+    images = torch.from_numpy(np.stack([np.repeat(train_set.images[i][..., None], 3, -1)
+                                        for i in (0, 40)])).to(device)
+    modules, blocks = bf16_block_holds(torch, model, images, device)
+    print("cpcsam bf16: modules of encoder blocks 0 and 2 in training, on the CPU block's inputs, "
+          "card against CPU (least share bit-equal, largest ||card - CPU|| / ||CPU||; the float32 "
+          "module's): " + ", ".join(f"{k} {w} {v[0]:.4f} / {v[1]:.3g} ({v[2]:.4f} / {v[3]:.3g})"
+                                    for (k, w), v in sorted(modules.items())))
+    print("cpcsam bf16: blocks on the card against the CPU on the card's inputs, ||card - CPU|| "
+          "/ ||CPU||, bfloat16 / float32 card: " + "; ".join(
+              f"{n}: " + ", ".join(f"{w} {a:.3g} / {b:.3g}" for w, (a, b) in d.items())
+              for n, d in blocks.items()))
+    kinds = {k for k, _ in modules}
+    check(kinds == set(BF16_TRAIN_LEAVES + BF16_TRAIN_COMPOSED + tuple(BF16_TRAIN_SHARES)),
+          f"bfloat16 training module holds covered {sorted(kinds)}")
+    check(("Linear", "LoRA grads") in modules and ("Attention", "LoRA grads") in modules,
+          "no LoRA gradient among the bfloat16 training module holds")
+    for (kind, what), (equal, err, equal32, err32) in modules.items():
+        if kind in BF16_TRAIN_LEAVES:
+            check(equal >= BF16_TRAIN_LEAF_EQUAL,
+                  f"bfloat16 {kind} {what} card vs CPU: {equal} bit-equal < {BF16_TRAIN_LEAF_EQUAL}")
+        else:
+            share = BF16_TRAIN_SHARES.get(kind, BF16_WHOLE_SANITY)
+            check(err <= share * err32, f"bfloat16 {kind} {what} card vs CPU {err:.3g}, not under "
+                  f"{share} x the float32 version's {err32:.3g}")
+    check(modules[("Linear", "output")][2] < BF16_TRAIN_LEAF_EQUAL,
+          "a float32 Linear rounded to bfloat16 is as bit-equal to the CPU's as the bfloat16 one")
+    for name, dists in blocks.items():
+        for what, (d16, d32) in dists.items():
+            check(d16 <= BF16_WHOLE_SANITY * d32,
+                  f"bfloat16 {name} {what}: card vs CPU {d16:.3g} > {BF16_WHOLE_SANITY} x the "
+                  f"float32 block's {d32:.3g}")
+
+    steps = rec["steps"]
+    med = {ph: statistics.median(s[1] for s in steps if s[0] == ph) * 1e3 for ph in (1, 2)}
+    print(f"cpcsam bf16: --compute-dtype bfloat16, {len(steps)} steps (2 + 2): step ms "
+          f"{[round(s[1] * 1e3, 2) for s in steps]}; median phase 1 {med[1]:.2f} ms, phase 2 "
+          f"{med[2]:.2f} ms, float32 phase {f32['phase1_step_ms']:.2f} / {f32['phase2_step_ms']:.2f} "
+          f"ms; max_memory_allocated {rec['peak'] / 2**30:.2f} GiB, float32 "
+          f"{f32['max_memory_allocated'] / 2**30:.2f} GiB")
+    print(f"cpcsam bf16: bfloat16 launches a step {BF16_STEP_LAUNCHES} and no float32 K2-K4b; "
+          f"in the run {rec['bf16_launches']}; losses first {rec['losses'][0]} last "
+          f"{rec['losses'][-1]}; 48 LoRA tensors moved, frozen encoder bit-identical; lora.msgpack "
+          "float32 in the float32 run's layout")
+    return {"launches": rec["bf16_launches"], "phase1_step_ms": med[1], "phase2_step_ms": med[2],
+            "max_memory_allocated": rec["peak"], "losses": rec["losses"],
+            "blocks_card_vs_cpu": {n: {w: list(v) for w, v in d.items()} for n, d in blocks.items()},
+            "modules_card_vs_cpu": {f"{k} {w}": v for (k, w), v in modules.items()}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None, help="also write logs here")
@@ -4975,7 +5446,8 @@ def main(argv=None) -> int:
 
     measured = {"K1": timed("K1", kernel_phase, torch, device),
                 **timed("K2-K4", sam_kernel_phase, torch, device),
-                "bf16": timed("K2-K4 bfloat16", bf16_kernel_phase, torch, device),
+                "bf16": {**timed("K2-K4 bfloat16", bf16_kernel_phase, torch, device),
+                         **timed("K2b-K4b bfloat16", bf16_train_kernel_phase, torch, device)},
                 **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
                 **timed("K6-K9", route_kernel_phase, torch, device),
                 **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device),
@@ -4991,7 +5463,9 @@ def main(argv=None) -> int:
         acdc_th = timed("ACDC and thyroid", acdc_thyroid_phase, torch, device, Path(tmp), sl)
         cpc, cpc_trainer, acdc = timed("CPC-SAM", cpcsam_phase, torch, device, Path(tmp))
         route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
-        del cpc_trainer, acdc
+        del cpc_trainer
+        bf16_cpc = timed("CPC-SAM bfloat16", cpcsam_bf16_phase, torch, device, Path(tmp), acdc, cpc)
+        del acdc
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             shutil.copy(sl["log"], args.out / "chip_smoke_train_log.txt")
@@ -5013,7 +5487,8 @@ def main(argv=None) -> int:
     # training, K6-K9 from the encoder routes and, with K6b, K8b and K9b, from
     # route training, K8 from AMG on the grid-native encoder too; K1 also from the FUGC
     # K-fold trainer, K10 and K10b from that trainer with the decoder's option on, from
-    # route training (the prompt-large upscalers) and K10 from SAM serving
+    # route training (the prompt-large upscalers) and K10 from SAM serving; the bfloat16
+    # instances from their own phases (below)
     launches = {k: sum(path["launches"].get(k, 0)
                        for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10, demo))
                 for k in KERNELS}
@@ -5021,7 +5496,10 @@ def main(argv=None) -> int:
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
     # the bfloat16 instances of K2, K3 and K4, from SAM serving in bfloat16
-    bf16 = {k: {"launches": bf16_sam["launches"][k], **measured["bf16"][k]} for k in BF16_KERNELS}
+    # the bfloat16 instances: K2-K4 from SAM serving and CPC-SAM training in bfloat16, K2b-K4b
+    # from CPC-SAM training in bfloat16
+    bf16 = {k: {"launches": bf16_sam["launches"].get(k, 0) + bf16_cpc["launches"][k],
+                **measured["bf16"][k]} for k in BF16_KERNELS}
     for k, entry in bf16.items():
         check(entry["launches"] > 0, f"{k} in bfloat16 was launched on no path")
     imported = sorted(m for m in sys.modules if m in ("jax", "mia_tpu")
@@ -5054,7 +5532,8 @@ def main(argv=None) -> int:
             json.dumps({"card": card, "host_decode": sl["host_decode"],
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
                         "bf16": {"sam": {k: v for k, v in bf16_sam.items() if k != "launches"},
-                                 "al": {k: v for k, v in bf16_al.items() if k != "launches"}},
+                                 "al": {k: v for k, v in bf16_al.items() if k != "launches"},
+                                 "cpcsam": {k: v for k, v in bf16_cpc.items() if k != "launches"}},
                         "routes": routes["set_image_ms"],
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "selectors": {k: v for k, v in sel.items() if k != "launches"},

@@ -49,8 +49,10 @@
 // bfloat16: mia_attention_rel_packed_bf16 and mia_attention_rel_packed_ik_bf16
 // run the bfloat16 instance of the forward (bfloat16 mma.sync, described in
 // attention_fwd_tc.cuh) for a bfloat16 encoder; K2's terms come from kernel
-// R's bfloat16 instance. They have no backward: a bfloat16 call that needs
-// a gradient raises in the wrapper.
+// R's bfloat16 instance. Their backward, mia_attention_rel_packed_bwd_bf16
+// and mia_attention_rel_packed_ik_bwd_bf16, runs the bfloat16 instance of
+// the backward template (attention_bwd_tc.cuh) and, for K2b, the bfloat16
+// instances of kernels R, Q and C below.
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -177,11 +179,17 @@ __global__ void __launch_bounds__(kRelThreads) attention_rel_terms_kernel(
 }
 
 // Kernel Q: one thread a (window, head) pair adds its drel row, read in
-// runs through shared memory, times T_n to its dq row.
-template <int D>
+// runs through shared memory, times T_n to the float32 dq row at dq_in (rows
+// in_stride floats apart) and writes the sum to its dq row of dqkv. float32
+// (E = float): dq_in is dqkv's own dq, added to in place. bfloat16: dq_in is
+// pass A's float32 scratch and the sum is rounded once to bfloat16, as the
+// Pallas kernel adds the routed rel cotangent (already rounded to bfloat16)
+// to dq before its one rounding.
+template <int D, typename E>
 __global__ void __launch_bounds__(kRelThreads) attention_rel_route_kernel(
-    float* __restrict__ dqkv, const float* __restrict__ drel, const float* __restrict__ rh,
-    const float* __restrict__ rw, long long pairs, int n, int heads, int kh, int kw) {
+    E* dqkv, const float* dq_in, long long in_stride, const E* __restrict__ drel,
+    const E* __restrict__ rh, const E* __restrict__ rw, long long pairs, int n, int heads, int kh,
+    int kw) {
   extern __shared__ float4 smem4[];
   const int ka = kh + kw;
   float* T = reinterpret_cast<float*>(smem4);  // [ka][D]
@@ -192,17 +200,18 @@ __global__ void __launch_bounds__(kRelThreads) attention_rel_route_kernel(
   const int rows = static_cast<int>(min(static_cast<long long>(kRelThreads), pairs - bh0));
   for (int i = threadIdx.x; i < rows * ka; i += kRelThreads) {
     const int r = i / ka;
-    S[r * (ka + 1) + (i - r * ka)] = __ldg(drel + ((bh0 + r) * n + pos) * ka + (i - r * ka));
+    S[r * (ka + 1) + (i - r * ka)] = ldg_float(drel + ((bh0 + r) * n + pos) * ka + (i - r * ka));
   }
   __syncthreads();
   if (static_cast<int>(threadIdx.x) >= rows) return;
   const long long bh = bh0 + threadIdx.x;
   const long long img = bh / heads;
   const long long head = bh - img * heads;
-  float4* dq4 = reinterpret_cast<float4*>(dqkv + (img * n + pos) * (3LL * heads * D) + head * D);
+  const float4* src4 = reinterpret_cast<const float4*>(dq_in + (img * n + pos) * in_stride + head * D);
+  E* dq = dqkv + (img * n + pos) * (3LL * heads * D) + head * D;
   float4 acc[D / 4];
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) acc[c] = dq4[c];
+  for (int c = 0; c < D / 4; ++c) acc[c] = src4[c];
   const float* w = S + threadIdx.x * (ka + 1);
   for (int j = 0; j < ka; ++j) {
     const float wj = w[j];
@@ -217,20 +226,24 @@ __global__ void __launch_bounds__(kRelThreads) attention_rel_route_kernel(
     }
   }
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) dq4[c] = acc[c];
+  for (int c = 0; c < D / 4; ++c) store4(dq + 4 * c, acc[c]);
 }
 
 // What kernels R and Q read and write: the packed qkv (R reads q) or dqkv
-// (Q adds to dq), the two tables, and the (pairs, n, kh + kw) rel terms (R
-// writes them) or their cotangent drel (Q reads it).
+// (Q writes dq), the two tables, the (pairs, n, kh + kw) rel terms (R
+// writes them) or their cotangent drel (Q reads it), and the float32 dq Q
+// adds to (dq_in, rows in_stride floats apart).
+template <typename E>
 struct RelGather {
-  const float* qkv;
-  float* dqkv;
-  const float* rh;
-  const float* rw;
-  float* rel;
+  const E* qkv;
+  E* dqkv;
+  const E* rh;
+  const E* rw;
+  E* rel;
   long long pairs;  // (window, head) pairs
   int n, heads, kh, kw;
+  const float* dq_in;
+  long long in_stride;
 };
 
 // Kernel R over every (window, head) pair, elements of type E.
@@ -248,25 +261,25 @@ int launch_rel_terms(const E* qkv, const E* rh, const E* rw, E* rel, long long p
 }
 
 // Kernel R (route false) or Q (route true) over every (window, head) pair.
-template <int D>
-int launch_rel_gather(bool route, const RelGather& r, cudaStream_t s) {
+template <int D, typename E>
+int launch_rel_gather(bool route, const RelGather<E>& r, cudaStream_t s) {
   if (!route)
-    return launch_rel_terms<D, float>(r.qkv, r.rh, r.rw, r.rel, r.pairs, r.n, r.heads, r.kh, r.kw,
-                                      s);
+    return launch_rel_terms<D, E>(r.qkv, r.rh, r.rw, r.rel, r.pairs, r.n, r.heads, r.kh, r.kw, s);
   const int ka = r.kh + r.kw;
   const size_t smem = sizeof(float) * (ka * D + kRelThreads * (ka + 1));
   const dim3 grid(r.n, static_cast<unsigned>((r.pairs + kRelThreads - 1) / kRelThreads));
-  const cudaError_t err = allow_smem(attention_rel_route_kernel<D>, smem);
+  const cudaError_t err = allow_smem(attention_rel_route_kernel<D, E>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_rel_route_kernel<D><<<grid, kRelThreads, smem, s>>>(
-      r.dqkv, r.rel, r.rh, r.rw, r.pairs, r.n, r.heads, r.kh, r.kw);
+  attention_rel_route_kernel<D, E><<<grid, kRelThreads, smem, s>>>(
+      r.dqkv, r.dq_in, r.in_stride, r.rel, r.rh, r.rw, r.pairs, r.n, r.heads, r.kh, r.kw);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_rel_gather(bool route, const RelGather& r, int d, cudaStream_t s) {
+template <typename E>
+int dispatch_rel_gather(bool route, const RelGather<E>& r, int d, cudaStream_t s) {
   switch (d) {
-    case 64: return launch_rel_gather<64>(route, r, s);
-    case 80: return launch_rel_gather<80>(route, r, s);
+    case 64: return launch_rel_gather<64, E>(route, r, s);
+    case 80: return launch_rel_gather<80, E>(route, r, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -275,10 +288,12 @@ int dispatch_rel_gather(bool route, const RelGather& r, int d, cudaStream_t s) {
 // threads per table row. Rows [0, q_h*kh) are rh_flat's (y, j): the sum over
 // windows, heads and the kw tokens of row y of drel[., n, j] * q_n; rows
 // [q_h*kh, q_h*kh + kw*kw) are rw_flat's (x, j) over the q_h tokens of column x.
-template <int D>
-__global__ void attention_rel_bwd_tables_kernel(const float* __restrict__ qkv,
-                                                const float* __restrict__ drel,
-                                                float* __restrict__ dthw, int batch, int n,
+// E: float32, or bfloat16 (float32 sums of the bfloat16 drel and q, rounded
+// once to the tables' dtype, as the Pallas kernel's dthw).
+template <int D, typename E>
+__global__ void attention_rel_bwd_tables_kernel(const E* __restrict__ qkv,
+                                                const E* __restrict__ drel,
+                                                E* __restrict__ dthw, int batch, int n,
                                                 int heads, int kh, int kw) {
   const int d = threadIdx.x;
   const int q_h = n / kw;
@@ -297,11 +312,30 @@ __global__ void attention_rel_bwd_tables_kernel(const float* __restrict__ qkv,
     const int head = static_cast<int>(bh - b * heads);
     for (int i = 0; i < count; ++i) {
       const int tok = h_part ? pos * kw + i : i * kw + pos;
-      acc += __ldg(drel + (bh * n + tok) * ka + col) *
-             __ldg(qkv + (b * n + tok) * stride + head * D + d);
+      acc += ldg_float(drel + (bh * n + tok) * ka + col) *
+             ldg_float(qkv + (b * n + tok) * stride + head * D + d);
     }
   }
-  dthw[static_cast<long long>(row) * D + d] = acc;
+  dthw[static_cast<long long>(row) * D + d] = from_float<E>(acc);
+}
+
+// Kernel C over every table row.
+template <typename E>
+int launch_rel_tables(const E* qkv, const E* drel, E* dthw, int batch, int n, int heads, int d,
+                      int kh, int kw, cudaStream_t s) {
+  const int table_rows = (n / kw) * kh + kw * kw;
+  switch (d) {
+    case 64:
+      attention_rel_bwd_tables_kernel<64, E><<<table_rows, 64, 0, s>>>(qkv, drel, dthw, batch, n,
+                                                                       heads, kh, kw);
+      break;
+    case 80:
+      attention_rel_bwd_tables_kernel<80, E><<<table_rows, 80, 0, s>>>(qkv, drel, dthw, batch, n,
+                                                                       heads, kh, kw);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kTables>
@@ -342,21 +376,68 @@ int dispatch_bwd(const void* qkv, const void* rel_a, const void* rel_b, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long pairs = static_cast<long long>(batch) * heads;
   int err = dispatch_rel_gather(
-      false, RelGather{base, nullptr, a.rel_a, a.rel_b, a.rel_out, pairs, n, heads, kh, kw}, d, s);
+      false, RelGather<float>{base, nullptr, a.rel_a, a.rel_b, a.rel_out, pairs, n, heads, kh, kw},
+      d, s);
   if (err == 0) err = dispatch_tc_bwd<true>(a, batch, d, stream);
   if (err == 0)
-    err = dispatch_rel_gather(
-        true, RelGather{nullptr, dbase, a.rel_a, a.rel_b, a.drel_a, pairs, n, heads, kh, kw}, d, s);
+    err = dispatch_rel_gather(true, RelGather<float>{nullptr, dbase, a.rel_a, a.rel_b, a.drel_a,
+                                                     pairs, n, heads, kh, kw, dbase, 3 * hd},
+                              d, s);
   if (err != 0 || dthw == nullptr) return err;
-  const int table_rows = (n / kw) * kh + kw * kw;
-  if (d == 64) {
-    attention_rel_bwd_tables_kernel<64><<<table_rows, 64, 0, s>>>(
-        base, a.drel_a, static_cast<float*>(dthw), batch, n, heads, kh, kw);
-  } else {
-    attention_rel_bwd_tables_kernel<80><<<table_rows, 80, 0, s>>>(
-        base, a.drel_a, static_cast<float*>(dthw), batch, n, heads, kh, kw);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rel_tables(base, static_cast<const float*>(a.drel_a), static_cast<float*>(dthw),
+                           batch, n, heads, d, kh, kw, s);
+}
+
+// The bfloat16 backward (K3b: kTables false; K2b: kTables true): kernel R's
+// bfloat16 terms into rel, the template's bfloat16 passes (K2b: dq in
+// float32 into dq32, drel in bfloat16), then kernel Q's and, when dthw is
+// not null, kernel C's bfloat16 instances.
+template <bool kTables>
+int dispatch_bwd_bf16_entry(const void* qkv, const void* rel_a, const void* rel_b,
+                            const void* out, const void* g, const void* lse, void* dqkv,
+                            void* delta, void* rel, void* drel_a, void* drel_b, void* dq32,
+                            void* dthw, int batch, int n, int heads, int d, int kh, int kw,
+                            float scale, void* stream) {
+  if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  if (kTables && (rel == nullptr || drel_a == nullptr || dq32 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* base = static_cast<const bf16*>(qkv);
+  bf16* dbase = static_cast<bf16*>(dqkv);
+  const bf16* tab_h = static_cast<const bf16*>(rel_a);
+  const bf16* tab_w = static_cast<const bf16*>(rel_b);
+  bf16* terms = static_cast<bf16*>(rel);
+  const long long pairs = static_cast<long long>(batch) * heads;
+  Bf16BwdArgs a{};
+  a.qkv = base;
+  a.rel_a = kTables ? terms : tab_h;
+  a.rel_b = kTables ? terms : tab_w;
+  a.out = static_cast<const bf16*>(out);
+  a.g = static_cast<const bf16*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.dqkv = dbase;
+  a.dq32 = static_cast<float*>(dq32);
+  a.delta = static_cast<float*>(delta);
+  a.drel_a = static_cast<bf16*>(drel_a);
+  a.drel_b = static_cast<bf16*>(drel_b);
+  a.n = n;
+  a.heads = heads;
+  a.kh = kh;
+  a.kw = kw;
+  a.scale = scale;
+  if (!kTables) return dispatch_bwd_bf16<false>(a, batch, d, s);
+  int err = dispatch_rel_gather(
+      false, RelGather<bf16>{base, nullptr, tab_h, tab_w, terms, pairs, n, heads, kh, kw}, d, s);
+  if (err == 0) err = dispatch_bwd_bf16<true>(a, batch, d, s);
+  if (err == 0)
+    err = dispatch_rel_gather(
+        true,
+        RelGather<bf16>{nullptr, dbase, tab_h, tab_w, a.drel_a, pairs, n, heads, kh, kw, a.dq32,
+                        static_cast<long long>(heads) * d},
+        d, s);
+  if (err != 0 || dthw == nullptr) return err;
+  return launch_rel_tables(base, static_cast<const bf16*>(a.drel_a), static_cast<bf16*>(dthw),
+                           batch, n, heads, d, kh, kw, s);
 }
 
 }  // namespace
@@ -396,9 +477,9 @@ extern "C" int mia_attention_rel_packed_ik_f32(const void* qkv, const void* rh_f
   if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
   if (rel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   float* terms = static_cast<float*>(rel);
-  const RelGather r{static_cast<const float*>(qkv), nullptr, static_cast<const float*>(rh_flat),
-                    static_cast<const float*>(rw_flat), terms,
-                    static_cast<long long>(batch) * heads, n, heads, kh, kw};
+  const RelGather<float> r{static_cast<const float*>(qkv), nullptr,
+                           static_cast<const float*>(rh_flat), static_cast<const float*>(rw_flat),
+                           terms, static_cast<long long>(batch) * heads, n, heads, kh, kw};
   int err = dispatch_rel_gather(false, r, d, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   const FwdArgs a = packed_fwd_args(qkv, terms, terms, out, lse, n, heads, d, kh, kw, scale);
@@ -426,17 +507,11 @@ extern "C" int mia_attention_rel_packed_ik_bf16(const void* qkv, const void* rh_
   if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
   if (rel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* rh = static_cast<const bf16*>(rh_flat);
-  const bf16* rw = static_cast<const bf16*>(rw_flat);
   bf16* terms = static_cast<bf16*>(rel);
-  const long long pairs = static_cast<long long>(batch) * heads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (d) {
-    case 64: err = launch_rel_terms<64, bf16>(q, rh, rw, terms, pairs, n, heads, kh, kw, s); break;
-    case 80: err = launch_rel_terms<80, bf16>(q, rh, rw, terms, pairs, n, heads, kh, kw, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const RelGather<bf16> r{q, nullptr, static_cast<const bf16*>(rh_flat),
+                          static_cast<const bf16*>(rw_flat), terms,
+                          static_cast<long long>(batch) * heads, n, heads, kh, kw};
+  const int err = dispatch_rel_gather(false, r, d, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   const Bf16FwdArgs a{q, terms, terms, static_cast<bf16*>(out), static_cast<float*>(lse),
                       n, heads, kh, kw, scale};
@@ -468,6 +543,32 @@ extern "C" int mia_attention_rel_packed_ik_bwd_f32(const void* qkv, const void* 
                                                    int kw, float scale, void* stream) {
   return dispatch_bwd<true>(qkv, rh_flat, rw_flat, out, g, lse, dqkv, delta, rel, drel, nullptr,
                             dthw, batch, n, heads, d, kh, kw, scale, stream);
+}
+
+// The bfloat16 instances of K3b and K2b: qkv, the rel terms or tables, out,
+// g, dqkv, drel_h / drel_w, K2b's rel and drel scratch and dthw in bfloat16;
+// lse and delta float32; K2b's dq32 (batch, n, heads*d) a float32 scratch.
+// Otherwise the arguments of the float32 entries.
+extern "C" int mia_attention_rel_packed_bwd_bf16(const void* qkv, const void* rel_h,
+                                                 const void* rel_w, const void* out, const void* g,
+                                                 const void* lse, void* dqkv, void* delta,
+                                                 void* drel_h, void* drel_w, int batch, int n,
+                                                 int heads, int d, int kh, int kw, float scale,
+                                                 void* stream) {
+  return dispatch_bwd_bf16_entry<false>(qkv, rel_h, rel_w, out, g, lse, dqkv, delta, nullptr,
+                                        drel_h, drel_w, nullptr, nullptr, batch, n, heads, d, kh,
+                                        kw, scale, stream);
+}
+
+extern "C" int mia_attention_rel_packed_ik_bwd_bf16(const void* qkv, const void* rh_flat,
+                                                    const void* rw_flat, const void* out,
+                                                    const void* g, const void* lse, void* dqkv,
+                                                    void* delta, void* rel, void* drel, void* dq32,
+                                                    void* dthw, int batch, int n, int heads, int d,
+                                                    int kh, int kw, float scale, void* stream) {
+  return dispatch_bwd_bf16_entry<true>(qkv, rh_flat, rw_flat, out, g, lse, dqkv, delta, rel, drel,
+                                       nullptr, dq32, dthw, batch, n, heads, d, kh, kw, scale,
+                                       stream);
 }
 
 // K6b: from K6's inputs q, k, v (bh, n, d), rel_h (bh, n, kh), rel_w (bh, n,

@@ -4,7 +4,8 @@
 // B operand, a 16-byte cp.async of untyped tiles, and 4-wide loads and
 // stores that read or write float32 or bfloat16 and compute in float32.
 // attention_fwd_tc.cuh (the bfloat16 instance of K2 and K3),
-// attention_rel.cu (kernel R) and ln_window.cu (K4) include it.
+// attention_bwd_tc.cuh (that of K2b and K3b), attention_rel.cu (kernels R,
+// Q and C) and ln_window.cu (K4, K4b) include it.
 //
 // bfloat16 -> float32 is exact (the top 16 bits of the float); float32 ->
 // bfloat16 rounds to nearest even (__float2bfloat16_rn), as XLA's convert.
@@ -71,6 +72,13 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// One element through the read-only cache, as float32
+__device__ __forceinline__ float ldg_float(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_float(const bf16* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
 }
 
 // Four consecutive elements (16-byte aligned float32, 8-byte aligned bfloat16) as float32

@@ -27,7 +27,8 @@
 // bfloat16 encoder) reads x in bfloat16, computes exactly the float32
 // arithmetic above and rounds each output once to bfloat16, as the Pallas
 // kernel's carve-and-cast; mu and rstd stay float32. Half the bytes of the
-// float32 instance; no bfloat16 backward (K4b takes float32).
+// float32 instance. Its backward, mia_ln_window_partition_bwd_bf16, is the
+// backward kernel below with x, dy and dx in bfloat16.
 //
 // The kernel allocates nothing and does not synchronise; the C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -161,6 +162,12 @@ int launch_ln_window_partition(const void* x, const void* scale, const void* bia
 // of the partials in a fixed order, so the result is deterministic.
 // Bound: memory, like the forward (x, dy and dx each cross device memory
 // once per pass).
+//
+// The bfloat16 instance (T = __nv_bfloat16, the backward of a bfloat16
+// encoder) reads x and dy in bfloat16, computes the same float32 arithmetic
+// and rounds dx once to bfloat16, as the Pallas kernel's cast of its
+// float32 dx; mu, rstd, scale, dscale and dbias stay float32, and the
+// partial sums read the bfloat16 x and dy widened. Half the bytes.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ long long window_slot(long long token, int H, int W, int ws, int nwx,
@@ -174,25 +181,25 @@ __device__ __forceinline__ long long window_slot(long long token, int H, int W, 
   return win * ws * ws + (y % ws) * ws + xx % ws;
 }
 
-template <bool kVec4>
+template <bool kVec4, typename T>
 __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ mu,
-    const float* __restrict__ rstd, const float* __restrict__ scale, float* __restrict__ dx,
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ mu,
+    const float* __restrict__ rstd, const float* __restrict__ scale, T* __restrict__ dx,
     long long tokens, int H, int W, int C, int ws, int nwx, int nw) {
   const int lane = threadIdx.x & 31;
   const long long token = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (token >= tokens) return;
-  const float* xr = x + token * C;
-  const float* dyr = dy + window_slot(token, H, W, ws, nwx, nw) * C;
-  float* dxr = dx + token * C;
+  const T* xr = x + token * C;
+  const T* dyr = dy + window_slot(token, H, W, ws, nwx, nw) * C;
+  T* dxr = dx + token * C;
   const float m = __ldg(mu + token);
   const float r = __ldg(rstd + token);
 
   float sg = 0.f, sgx = 0.f;
   if (kVec4) {
     for (int c = lane * 4; c < C; c += 128) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + c));
-      const float4 d = __ldg(reinterpret_cast<const float4*>(dyr + c));
+      const float4 v = load4(xr + c);
+      const float4 d = load4(dyr + c);
       const float4 s = __ldg(reinterpret_cast<const float4*>(scale + c));
       const float g0 = d.x * s.x, g1 = d.y * s.y, g2 = d.z * s.z, g3 = d.w * s.w;
       sg += (g0 + g1) + (g2 + g3);
@@ -201,9 +208,9 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_bwd_kernel(
     }
   } else {
     for (int c = lane; c < C; c += 32) {
-      const float g = __ldg(dyr + c) * __ldg(scale + c);
+      const float g = ldg_float(dyr + c) * __ldg(scale + c);
       sg += g;
-      sgx += g * ((__ldg(xr + c) - m) * r);
+      sgx += g * ((ldg_float(xr + c) - m) * r);
     }
   }
 #pragma unroll
@@ -215,26 +222,27 @@ __global__ void __launch_bounds__(kWarps * 32) ln_window_partition_bwd_kernel(
   const float m2 = sgx / C;
   if (kVec4) {
     for (int c = lane * 4; c < C; c += 128) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + c));
-      const float4 d = __ldg(reinterpret_cast<const float4*>(dyr + c));
+      const float4 v = load4(xr + c);
+      const float4 d = load4(dyr + c);
       const float4 s = __ldg(reinterpret_cast<const float4*>(scale + c));
-      *reinterpret_cast<float4*>(dxr + c) =
-          make_float4(r * (d.x * s.x - m1 - (v.x - m) * r * m2),
-                      r * (d.y * s.y - m1 - (v.y - m) * r * m2),
-                      r * (d.z * s.z - m1 - (v.z - m) * r * m2),
-                      r * (d.w * s.w - m1 - (v.w - m) * r * m2));
+      store4(dxr + c, make_float4(r * (d.x * s.x - m1 - (v.x - m) * r * m2),
+                                  r * (d.y * s.y - m1 - (v.y - m) * r * m2),
+                                  r * (d.z * s.z - m1 - (v.z - m) * r * m2),
+                                  r * (d.w * s.w - m1 - (v.w - m) * r * m2)));
     }
   } else {
     for (int c = lane; c < C; c += 32)
-      dxr[c] = r * (__ldg(dyr + c) * __ldg(scale + c) - m1 - (__ldg(xr + c) - m) * r * m2);
+      dxr[c] = from_float<T>(
+          r * (ldg_float(dyr + c) * __ldg(scale + c) - m1 - (ldg_float(xr + c) - m) * r * m2));
   }
 }
 
 constexpr int kParamChunks = 256;  // token chunks of the dscale/dbias partial sums
 
 // partial[chunk, c] = sum over the chunk's tokens of dy * xhat (and dy)
+template <typename T>
 __global__ void ln_window_partition_params_partial_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ mu,
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ mu,
     const float* __restrict__ rstd, float* __restrict__ part_scale, float* __restrict__ part_bias,
     long long tokens, int H, int W, int C, int ws, int nwx, int nw) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -245,8 +253,8 @@ __global__ void ln_window_partition_params_partial_kernel(
   const long long t1 = min(tokens, t0 + per);
   float ss = 0.f, sb = 0.f;
   for (long long tok = t0; tok < t1; ++tok) {
-    const float d = __ldg(dy + window_slot(tok, H, W, ws, nwx, nw) * C + c);
-    ss += d * ((__ldg(x + tok * C + c) - __ldg(mu + tok)) * __ldg(rstd + tok));
+    const float d = ldg_float(dy + window_slot(tok, H, W, ws, nwx, nw) * C + c);
+    ss += d * ((ldg_float(x + tok * C + c) - __ldg(mu + tok)) * __ldg(rstd + tok));
     sb += d;
   }
   part_scale[static_cast<long long>(chunk) * C + c] = ss;
@@ -266,6 +274,56 @@ __global__ void ln_window_partition_params_reduce_kernel(const float* __restrict
   }
   dscale[c] = ss;
   dbias[c] = sb;
+}
+
+// One launch of the backward for x, dy and dx of element type T (see the
+// C entries below).
+template <typename T>
+int launch_ln_window_partition_bwd(const void* x, const void* dy, const void* mu,
+                                   const void* rstd, const void* scale, void* dx, void* dscale,
+                                   void* dbias, void* part, int B, int H, int W, int C, int ws,
+                                   void* stream) {
+  const int nwy = (H + ws - 1) / ws;
+  const int nwx = (W + ws - 1) / ws;
+  const long long tokens = static_cast<long long>(B) * H * W;
+  if (C == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const float* muf = static_cast<const float*>(mu);
+  const float* rf = static_cast<const float*>(rstd);
+  if (tokens > 0) {
+    const long long blocks = (tokens + kWarps - 1) / kWarps;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(scale) % 16 == 0;
+    if (vec4) {
+      ln_window_partition_bwd_kernel<true, T>
+          <<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+              xt, dyt, muf, rf, static_cast<const float*>(scale), static_cast<T*>(dx), tokens, H,
+              W, C, ws, nwx, nwy * nwx);
+    } else {
+      ln_window_partition_bwd_kernel<false, T>
+          <<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+              xt, dyt, muf, rf, static_cast<const float*>(scale), static_cast<T*>(dx), tokens, H,
+              W, C, ws, nwx, nwy * nwx);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dscale == nullptr) return static_cast<int>(cudaSuccess);
+  float* ps = static_cast<float*>(part);
+  float* pb = ps + static_cast<long long>(kParamChunks) * C;
+  const dim3 grid((C + 127) / 128, kParamChunks);
+  ln_window_partition_params_partial_kernel<T><<<grid, 128, 0, s>>>(
+      xt, dyt, muf, rf, ps, pb, tokens, H, W, C, ws, nwx, nwy * nwx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ln_window_partition_params_reduce_kernel<<<(C + 127) / 128, 128, 0, s>>>(
+      ps, pb, static_cast<float*>(dscale), static_cast<float*>(dbias), C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -294,43 +352,16 @@ extern "C" int mia_ln_window_partition_bwd_f32(const void* x, const void* dy, co
                                                const void* rstd, const void* scale, void* dx,
                                                void* dscale, void* dbias, void* part, int B, int H,
                                                int W, int C, int ws, void* stream) {
-  const int nwy = (H + ws - 1) / ws;
-  const int nwx = (W + ws - 1) / ws;
-  const long long tokens = static_cast<long long>(B) * H * W;
-  if (C == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* dyf = static_cast<const float*>(dy);
-  const float* muf = static_cast<const float*>(mu);
-  const float* rf = static_cast<const float*>(rstd);
-  if (tokens > 0) {
-    const long long blocks = (tokens + kWarps - 1) / kWarps;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(scale) % 16 == 0;
-    if (vec4) {
-      ln_window_partition_bwd_kernel<true><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
-          xf, dyf, muf, rf, static_cast<const float*>(scale), static_cast<float*>(dx), tokens, H,
-          W, C, ws, nwx, nwy * nwx);
-    } else {
-      ln_window_partition_bwd_kernel<false><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
-          xf, dyf, muf, rf, static_cast<const float*>(scale), static_cast<float*>(dx), tokens, H,
-          W, C, ws, nwx, nwy * nwx);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (dscale == nullptr) return static_cast<int>(cudaSuccess);
-  float* ps = static_cast<float*>(part);
-  float* pb = ps + static_cast<long long>(kParamChunks) * C;
-  const dim3 grid((C + 127) / 128, kParamChunks);
-  ln_window_partition_params_partial_kernel<<<grid, 128, 0, s>>>(xf, dyf, muf, rf, ps, pb, tokens,
-                                                                 H, W, C, ws, nwx, nwy * nwx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_window_partition_params_reduce_kernel<<<(C + 127) / 128, 128, 0, s>>>(
-      ps, pb, static_cast<float*>(dscale), static_cast<float*>(dbias), C);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ln_window_partition_bwd<float>(x, dy, mu, rstd, scale, dx, dscale, dbias, part, B,
+                                               H, W, C, ws, stream);
+}
+
+// The same with x, dy and dx in bfloat16 (mu, rstd, scale, dscale, dbias
+// and part float32).
+extern "C" int mia_ln_window_partition_bwd_bf16(const void* x, const void* dy, const void* mu,
+                                                const void* rstd, const void* scale, void* dx,
+                                                void* dscale, void* dbias, void* part, int B,
+                                                int H, int W, int C, int ws, void* stream) {
+  return launch_ln_window_partition_bwd<bf16>(x, dy, mu, rstd, scale, dx, dscale, dbias, part, B,
+                                              H, W, C, ws, stream);
 }

@@ -23,13 +23,37 @@ def linear(in_features: int, out_features: int, bias: bool = True,
     return Linear(in_features, out_features, bias=bias, compute_dtype=compute_dtype)
 
 
+class _GeluLowPrecision(torch.autograd.Function):
+    """``jax.nn.gelu(x, approximate=False)`` op by op in x's dtype, and its
+    VJP as JAX's autodiff writes it (``erfc``'s derivative ``−2/√π ·
+    exp(−e²)`` with the constant rounded to that dtype), each operation
+    rounding its result."""
+
+    @staticmethod
+    def forward(ctx, x):
+        sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+        half_x = 0.5 * x
+        e = -x * sqrt_half
+        erfc = torch.erfc(e)
+        ctx.save_for_backward(half_x, e, erfc, sqrt_half)
+        return half_x * erfc
+
+    @staticmethod
+    def backward(ctx, g):
+        half_x, e, erfc, sqrt_half = ctx.saved_tensors
+        d_erfc = torch.tensor(-2.0 / math.sqrt(math.pi), dtype=g.dtype)
+        d_e = ((half_x * g) * d_erfc) * torch.exp(-(e * e))
+        return 0.5 * (g * erfc) - d_e * sqrt_half
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU. Outside float32 it is computed as ``jax.nn.gelu(x,
     approximate=False)`` writes it, op by op in x's dtype:
-    ``0.5 · x · erfc(−x · √½)`` with √½ rounded to that dtype."""
+    ``0.5 · x · erfc(−x · √½)`` with √½ rounded to that dtype, and so is its
+    gradient (:class:`_GeluLowPrecision`)."""
     if x.dtype == torch.float32:
         return F.gelu(x, approximate="none")
-    return 0.5 * x * torch.erfc(-x * torch.tensor(math.sqrt(0.5), dtype=x.dtype))
+    return _GeluLowPrecision.apply(x)
 
 
 class MLPBlock(nn.Module):

@@ -63,8 +63,10 @@ is 4x wide, as ``Sam`` builds the encoder. Not ported: shared window runs
 parameters cast at each call, the residual stream, qkv, the rel terms and
 tables, K2's, K3's and K4's operands and the embeddings in bfloat16, the
 LayerNorms in float32 with bfloat16 outputs. It runs the default route
-only (K4, K2, K3, forward only): the other routes' kernels take float32, so
-asking for one of them in bfloat16 raises.
+only, forward and backward (K4, K2, K3 and the bfloat16 instances of K4b,
+K2b, K3b), so the LoRA adapters, the blocks and the neck train in it: the
+other routes' kernels take float32, so asking for one of them in bfloat16
+raises.
 """
 
 from __future__ import annotations

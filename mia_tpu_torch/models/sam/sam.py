@@ -105,7 +105,10 @@ class MaskedBatchNorm(nn.Module):
 
 class FeatureHead(nn.Module):
     """Linear → masked BN → ReLU (or leaky ReLU 0.2) → Linear: the
-    projection, prediction and class-selector heads of the contrastive loss."""
+    projection, prediction and class-selector heads of the contrastive loss.
+    They compute in float32 whatever the model's ``compute_dtype``: flax's
+    ``Dense`` without a ``dtype`` promotes a bfloat16 input to its float32
+    parameters."""
 
     def __init__(self, in_dim: int, hidden: int, out: int, act: str = "relu"):
         super().__init__()
@@ -115,7 +118,7 @@ class FeatureHead(nn.Module):
         self.lin2 = nn.Linear(hidden, out)
 
     def forward(self, x, mask=None):
-        x = self.bn(self.lin1(x), mask)
+        x = self.bn(self.lin1(x.to(self.lin1.weight.dtype)), mask)
         x = torch.relu(x) if self.act == "relu" else F.leaky_relu(x, 0.2)
         return self.lin2(x)
 
@@ -128,8 +131,9 @@ class SamDualmask(nn.Module):
 
     The JAX package vmaps the unprompted decoders over stacked parameters;
     that is TPU scheduling, and here they run as a loop. ``compute_dtype``
-    reaches the encoder and the decoders as in ``Sam``; training in
-    bfloat16 needs backward kernels that are not ported, and raises.
+    reaches the encoder and the decoders as in ``Sam``, and both passes
+    train in it (in bfloat16 through the bfloat16 instances of K2b, K3b and
+    K4b); the prompt encoder and the feature heads stay float32.
     """
 
     def __init__(self, img_size: int = 512, num_classes: int = 3, num_decoders: int = 3,

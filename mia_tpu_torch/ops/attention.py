@@ -5,9 +5,10 @@ versions.
 Counterpart of ``mia_tpu/ops/attention.py``. All compute
 ``softmax(q·kᵀ·scale + bias)·v`` in float32. K2 and K3 also take bfloat16
 operands (the JAX kernels' fast path, a bfloat16 model's ``qkv``) and round
-where the Pallas kernels round (:func:`_softmax_probs_bf16`); their
-bfloat16 CUDA kernels have no backward yet, so a bfloat16 call that needs a
-gradient raises.
+where the Pallas kernels round (:func:`_softmax_probs_bf16`), forward and
+backward (:func:`attention_rel_packed_bwd_bf16`,
+:func:`attention_rel_packed_ik_bwd_bf16`); their bfloat16 CUDA instances
+(K2·bf16, K3·bf16, K2b·bf16, K3b·bf16) run on bfloat16 ``mma.sync``.
 
 Packed layout (K2, K3): ``qkv`` is the qkv Linear's output ``(B', N, 3·H·D)``
 in ``(3, heads, head_dim)`` order; the context comes back as ``(B', N, H·D)``,
@@ -23,7 +24,8 @@ unscaled q.
 - :func:`attention_rel_packed_bwd` and :func:`attention_rel_packed_ik_bwd`
   — the plain VJPs: recompute the softmax, ``delta = rowsum(g∘o)``,
   ``ds = p(dp − delta)``, then ``dq``, ``dk``, ``dv`` and the rel-term
-  (K3) or table (K2) gradients.
+  (K3) or table (K2) gradients; their bfloat16 halves take ``p`` from the
+  forward's log-sum-exp, as the CUDA kernels do.
 - :func:`fused_attention_rel_packed` and
   :func:`fused_attention_rel_packed_ik` — the wrappers of the CUDA kernels
   in ``csrc/attention_rel.cu`` (3xTF32 on the tensor cores, the template of
@@ -33,9 +35,9 @@ unscaled q.
   the plain version. When autograd needs a gradient they run inside a
   ``torch.autograd.Function`` whose forward also keeps the per-row
   log-sum-exp and whose backward is :func:`fused_attention_rel_packed_bwd`
-  / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels, or the
-  plain VJPs on the CPU). Each wrapper counts its launches in ``launches``,
-  and K2's and K3's bfloat16 launches in ``bf16_launches``.
+  / :func:`fused_attention_rel_packed_ik_bwd` (the backward kernels of the
+  operands' dtype, or the plain VJPs on the CPU). Each wrapper counts its
+  launches in ``launches``, and its bfloat16 launches in ``bf16_launches``.
 
 The other routes (K6 on K3's instance of the 3xTF32 tensor-core template
 ``csrc/attention_fwd_tc.cuh`` on head-major strides, C entry in
@@ -168,9 +170,56 @@ def attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale: float, k_hw, num_
     ds = p * (g4 @ v.transpose(-2, -1) - delta)
     dq = (ds @ k) * scale
     dk = (ds.transpose(-2, -1) @ q) * scale
-    dqkv = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(qkv.shape)
+    dqkv = _stack_dqkv(dq, dk, dv, qkv.shape)
     ds5 = ds.reshape(b * num_heads, n, k_h, k_w)
     return dqkv, ds5.sum(-1), ds5.sum(-2)
+
+
+def _rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads):
+    """The bfloat16 VJP of the packed attention, rounded where the Pallas
+    kernel ``_rel_packed_bwd_kernel`` rounds: ``p = exp(s − lse)`` in float32
+    from the forward's log-sum-exp ``(B·H, N)`` and the scores of
+    :func:`_softmax_probs_bf16`; ``delta = rowsum(g·o)`` a float32 sum of the
+    bfloat16 ``g`` and ``o``; ``p`` rounded to bfloat16 for ``dv = pᵀ·g``;
+    ``ds = p(dp − delta)`` from the float32 ``p``, rounded to bfloat16 for
+    every product that reads it; ``dk = dsᵀ·(q·scale)`` with the bfloat16
+    ``q·scale`` of the forward. Every product is a float32 sum of exact
+    products. → (``dq`` in float32 before its one rounding, ``dk``, ``dv``
+    in bfloat16 ``(B, H, N, D)``, and ``drel_h``, ``drel_w``: the float32
+    sums of the rounded ``ds`` over a key row / column, rounded once)."""
+    b, n, _ = qkv.shape
+    k_h, k_w = k_hw
+    d = _head_dim(qkv, num_heads)
+    bf = torch.bfloat16
+    q, k, v = (t.float() for t in qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4))
+    qs = (q.to(bf) * torch.tensor(scale, dtype=bf)).float()
+    bias = (rel_h.float().reshape(b, num_heads, n, k_h, 1)
+            + rel_w.float().reshape(b, num_heads, n, 1, k_w)).view(b, num_heads, n, n)
+    p = torch.exp(qs @ k.transpose(-2, -1) + bias - lse.reshape(b, num_heads, n, 1))
+    g4 = g.reshape(b, n, num_heads, d).transpose(1, 2).float()
+    o4 = out.reshape(b, n, num_heads, d).transpose(1, 2).float()
+    delta = (g4 * o4).sum(-1, keepdim=True)
+    dv = p.to(bf).float().transpose(-2, -1) @ g4
+    ds = (p * (g4 @ v.transpose(-2, -1) - delta)).to(bf).float()
+    dq = (ds @ k) * scale
+    dk = ds.transpose(-2, -1) @ qs
+    ds5 = ds.reshape(b * num_heads, n, k_h, k_w)
+    return dq, dk.to(bf), dv.to(bf), ds5.sum(-1).to(bf), ds5.sum(-2).to(bf)
+
+
+def _stack_dqkv(dq, dk, dv, shape):
+    """Head-major ``(B, H, N, D)`` gradients → packed ``(B, N, 3·H·D)``."""
+    return torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(shape)
+
+
+def attention_rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale: float, k_hw,
+                                  num_heads: int):
+    """Plain bfloat16 VJP of K3 (the JAX package's ``_rel_packed_bwd`` on
+    bfloat16 operands; :func:`_rel_packed_bwd_bf16`'s roundings, ``dq``
+    rounded once) → ``(dqkv, drel_h, drel_w)`` in bfloat16."""
+    dq, dk, dv, drel_h, drel_w = _rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale,
+                                                      k_hw, num_heads)
+    return _stack_dqkv(dq.to(torch.bfloat16), dk, dv, qkv.shape), drel_h, drel_w
 
 
 def window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads: int):
@@ -224,6 +273,35 @@ def attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale: float, k_h
     return dqkv, drh, drw
 
 
+def attention_rel_packed_ik_bwd_bf16(qkv, rh_flat, rw_flat, out, g, lse, scale: float, k_hw,
+                                     num_heads: int, tables: bool = True):
+    """Plain bfloat16 VJP of K2 (``_rel_packed_ik_bwd_kernel`` on bfloat16
+    operands): :func:`_rel_packed_bwd_bf16` on the forward's bfloat16 rel
+    terms; the rel cotangents, already rounded to bfloat16, are routed
+    through the tables (float32 sums) and added to the float32 ``dq``
+    before its one rounding; the tables' gradient (when ``tables``) is a
+    float32 sum of ``drel·q`` rounded once to the tables' dtype."""
+    b, n, _ = qkv.shape
+    k_h, k_w = k_hw
+    d = _head_dim(qkv, num_heads)
+    q_h = n // k_w
+    rel_h, rel_w = window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads)
+    dq, dk, dv, drel_h, drel_w = _rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale,
+                                                      k_hw, num_heads)
+    drh5 = drel_h.float().reshape(b, num_heads, q_h, k_w, k_h)
+    drw5 = drel_w.float().reshape(b, num_heads, q_h, k_w, k_w)
+    rh3, rw3 = rh_flat.float().view(q_h, k_h, d), rw_flat.float().view(k_w, k_w, d)
+    dq_rel = (torch.einsum("bhyxk,ykc->bhyxc", drh5, rh3)
+              + torch.einsum("bhyxk,xkc->bhyxc", drw5, rw3)).reshape(b, num_heads, n, d)
+    dqkv = _stack_dqkv((dq + dq_rel).to(torch.bfloat16), dk, dv, qkv.shape)
+    if not tables:
+        return dqkv, None, None
+    q5 = qkv[..., : num_heads * d].float().reshape(b, q_h, k_w, num_heads, d)
+    drh = torch.einsum("bhyxk,byxhc->ykc", drh5, q5).reshape(q_h * k_h, d)
+    drw = torch.einsum("bhyxk,byxhc->xkc", drw5, q5).reshape(k_w * k_w, d)
+    return dqkv, drh.to(rh_flat.dtype), drw.to(rw_flat.dtype)
+
+
 _ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stream
     "mia_attention_rel_packed_f32": (5, 6),  # ints: batch, n, heads, d, kh, kw
     "mia_attention_rel_packed_ik_f32": (6, 6),
@@ -231,6 +309,8 @@ _ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stre
     "mia_attention_rel_packed_ik_bf16": (6, 6),
     "mia_attention_rel_packed_bwd_f32": (10, 6),
     "mia_attention_rel_packed_ik_bwd_f32": (11, 6),
+    "mia_attention_rel_packed_bwd_bf16": (10, 6),
+    "mia_attention_rel_packed_ik_bwd_bf16": (12, 6),
     "mia_attention_rel_f32": (7, 5),  # bh, n, d, kh, kw
     "mia_attention_rel_bwd_f32": (14, 5),
     "mia_attention_dense_f32": (5, 3),  # bh, n, d
@@ -349,50 +429,60 @@ def _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse=False):
     return out
 
 
-def _check_backward(label, qkv, out, g, lse, num_heads):
+def _check_backward(label, qkv, out, g, lse, num_heads, dtype):
     b, n, _ = qkv.shape
     hd = out.shape[-1]
-    _check_operand(f"{label} out", out, (b, n, hd), qkv.device)
-    _check_operand(f"{label} cotangent", g, (b, n, hd), qkv.device)
+    _check_operand(f"{label} out", out, (b, n, hd), qkv.device, dtype)
+    _check_operand(f"{label} cotangent", g, (b, n, hd), qkv.device, dtype)
     _check_operand(f"{label} lse", lse, (b * num_heads, n), qkv.device)
 
 
 def _launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads):
-    """Launch K3's backward (``mia_attention_rel_packed_bwd_f32``) → (dqkv,
-    drel_h, drel_w); raise on anything it does not take."""
-    b, n, _ = _geometry("K3 backward", qkv, k_hw, num_heads)
+    """Launch K3's backward (``mia_attention_rel_packed_bwd_f32``, or
+    ``_bf16`` for bfloat16 operands) → (dqkv, drel_h, drel_w) in the
+    operands' dtype; raise on anything it does not take. ``out`` and ``g``
+    take ``qkv``'s dtype, ``lse`` is float32."""
+    dtype = qkv.dtype if qkv.dtype in _SUFFIX else torch.float32
+    _geometry("K3 backward", qkv, k_hw, num_heads, dtype)
     a_shape, b_shape = _rel_shapes("K3", qkv, k_hw, num_heads)
-    _check_operand("K3 backward rel_h", rel_h, a_shape, qkv.device)
-    _check_operand("K3 backward rel_w", rel_w, b_shape, qkv.device)
-    _check_backward("K3 backward", qkv, out, g, lse, num_heads)
+    _check_operand("K3 backward rel_h", rel_h, a_shape, qkv.device, dtype)
+    _check_operand("K3 backward rel_w", rel_w, b_shape, qkv.device, dtype)
+    _check_backward("K3 backward", qkv, out, g, lse, num_heads, dtype)
     dqkv = torch.empty_like(qkv)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
     delta = torch.empty_like(lse)
-    _call("K3 backward", "mia_attention_rel_packed_bwd_f32", qkv,
+    _call("K3 backward", "mia_attention_rel_packed_bwd_" + _SUFFIX[dtype], qkv,
           (qkv, rel_h, rel_w, out, g, lse, dqkv, delta, drel_h, drel_w), k_hw, num_heads, scale)
-    fused_attention_rel_packed_bwd.launches += 1
+    _count(fused_attention_rel_packed_bwd, qkv)
     return dqkv, drel_h, drel_w
 
 
 def _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, tables=True):
-    """Launch K2's backward (``mia_attention_rel_packed_ik_bwd_f32``) →
-    (dqkv, drh, drw); the table gradients only when ``tables`` (else None)."""
-    b, n, _ = _geometry("K2 backward", qkv, k_hw, num_heads)
+    """Launch K2's backward (``mia_attention_rel_packed_ik_bwd_f32``, or
+    ``_bf16`` for bfloat16 operands) → (dqkv, drh, drw) in the operands'
+    dtype; the table gradients only when ``tables`` (else None). The rel
+    terms and their cotangent (scratch) take the operands' dtype; the
+    bfloat16 entry also takes a float32 ``dq`` scratch, which its kernel Q
+    rounds once after adding the routed rel cotangent."""
+    dtype = qkv.dtype if qkv.dtype in _SUFFIX else torch.float32
+    b, n, d = _geometry("K2 backward", qkv, k_hw, num_heads, dtype)
     k_h, k_w = k_hw
     a_shape, b_shape = _rel_shapes("K2", qkv, k_hw, num_heads)
-    _check_operand("K2 backward rh_flat", rh_flat, a_shape, qkv.device)
-    _check_operand("K2 backward rw_flat", rw_flat, b_shape, qkv.device)
-    _check_backward("K2 backward", qkv, out, g, lse, num_heads)
+    _check_operand("K2 backward rh_flat", rh_flat, a_shape, qkv.device, dtype)
+    _check_operand("K2 backward rw_flat", rw_flat, b_shape, qkv.device, dtype)
+    _check_backward("K2 backward", qkv, out, g, lse, num_heads, dtype)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
-    rel = torch.empty((b * num_heads, n, k_h + k_w), dtype=torch.float32, device=qkv.device)
+    rel = torch.empty((b * num_heads, n, k_h + k_w), dtype=dtype, device=qkv.device)
     drel = torch.empty_like(rel)
-    dthw = (torch.empty((a_shape[0] + b_shape[0], a_shape[1]), dtype=torch.float32,
+    dthw = (torch.empty((a_shape[0] + b_shape[0], a_shape[1]), dtype=dtype,
                         device=qkv.device) if tables else None)
-    _call("K2 backward", "mia_attention_rel_packed_ik_bwd_f32", qkv,
-          (qkv, rh_flat, rw_flat, out, g, lse, dqkv, delta, rel, drel, dthw),
-          k_hw, num_heads, scale)
-    fused_attention_rel_packed_ik_bwd.launches += 1
+    tensors = (qkv, rh_flat, rw_flat, out, g, lse, dqkv, delta, rel, drel)
+    if dtype == torch.bfloat16:
+        tensors += (torch.empty((b, n, num_heads * d), dtype=torch.float32, device=qkv.device),)
+    _call("K2 backward", "mia_attention_rel_packed_ik_bwd_" + _SUFFIX[dtype], qkv,
+          tensors + (dthw,), k_hw, num_heads, scale)
+    _count(fused_attention_rel_packed_ik_bwd, qkv)
     if not tables:
         return dqkv, None, None
     return dqkv, dthw[: a_shape[0]], dthw[a_shape[0]:]
@@ -401,21 +491,30 @@ def _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, t
 def fused_attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, lse, scale: float, k_hw,
                                    num_heads: int):
     """K3 backward: a CUDA tensor launches the backward kernels of
-    ``csrc/attention_rel.cu`` (and raises if it cannot); a CPU tensor takes
-    :func:`attention_rel_packed_bwd` (``lse`` unused)."""
-    if qkv.device.type == "cpu":
-        return attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale, k_hw, num_heads)
-    return _launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads)
+    ``csrc/attention_rel.cu`` of the operands' dtype (and raises if it
+    cannot); a CPU tensor takes :func:`attention_rel_packed_bwd` (``lse``
+    unused) or, in bfloat16, :func:`attention_rel_packed_bwd_bf16`."""
+    if qkv.device.type != "cpu":
+        return _launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads)
+    if qkv.dtype == torch.bfloat16:
+        return attention_rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale, k_hw,
+                                             num_heads)
+    return attention_rel_packed_bwd(qkv, rel_h, rel_w, out, g, scale, k_hw, num_heads)
 
 
 def fused_attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale: float, k_hw,
                                       num_heads: int, tables: bool = True):
-    """K2 backward, as :func:`fused_attention_rel_packed_bwd`; the table
-    gradients are computed only when ``tables``."""
-    if qkv.device.type == "cpu":
-        return attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale, k_hw, num_heads,
-                                           tables)
-    return _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, tables)
+    """K2 backward, as :func:`fused_attention_rel_packed_bwd` (plain
+    versions :func:`attention_rel_packed_ik_bwd` and
+    :func:`attention_rel_packed_ik_bwd_bf16`); the table gradients are
+    computed only when ``tables``."""
+    if qkv.device.type != "cpu":
+        return _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, tables)
+    if qkv.dtype == torch.bfloat16:
+        return attention_rel_packed_ik_bwd_bf16(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw,
+                                                num_heads, tables)
+    return attention_rel_packed_ik_bwd(qkv, rh_flat, rw_flat, out, g, scale, k_hw, num_heads,
+                                       tables)
 
 
 class _AttentionRelPacked(torch.autograd.Function):
@@ -424,7 +523,9 @@ class _AttentionRelPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, rel_h, rel_w, scale, k_hw, num_heads):
         qkv, rel_h, rel_w = qkv.contiguous(), rel_h.contiguous(), rel_w.contiguous()
-        if qkv.device.type == "cpu":
+        if qkv.device.type == "cpu" and qkv.dtype == torch.bfloat16:  # the VJP reads its lse
+            out, lse = attention_rel_packed_bf16(qkv, rel_h, rel_w, scale, k_hw, num_heads)
+        elif qkv.device.type == "cpu":
             out, lse = attention_rel_packed(qkv, rel_h, rel_w, scale, k_hw, num_heads), None
         else:
             out, lse = _launch_k3(qkv, rel_h, rel_w, scale, k_hw, num_heads, with_lse=True)
@@ -448,7 +549,11 @@ class _AttentionRelPackedIK(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, rh_flat, rw_flat, scale, k_hw, num_heads):
         qkv, rh_flat, rw_flat = qkv.contiguous(), rh_flat.contiguous(), rw_flat.contiguous()
-        if qkv.device.type == "cpu":
+        if qkv.device.type == "cpu" and qkv.dtype == torch.bfloat16:  # the VJP reads its lse
+            out, lse = attention_rel_packed_bf16(
+                qkv, *window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads), scale, k_hw,
+                num_heads)
+        elif qkv.device.type == "cpu":
             out = attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
             lse = None
         else:
@@ -470,24 +575,16 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _no_bf16_backward(kernel: str, qkv: torch.Tensor) -> None:
-    if qkv.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{kernel} in bfloat16 has no backward yet: its gradient needs {kernel}b in "
-            "bfloat16, which is not ported (use compute dtype float32 to train)")
-
-
 def fused_attention_rel_packed(qkv, rel_h, rel_w, scale: float, k_hw, num_heads: int) -> torch.Tensor:
     """K3: global rel-pos attention with precomputed head-major rel terms.
 
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
     cannot); a CPU tensor takes :func:`attention_rel_packed`. float32 or
     bfloat16 operands (``qkv`` and the rel terms of one dtype). Differentiable
-    through the backward kernels when an input requires a gradient, in
-    float32 only.
+    through the backward kernels of the operands' dtype when an input
+    requires a gradient.
     """
     if _needs_grad(qkv, rel_h, rel_w):
-        _no_bf16_backward("K3", qkv)
         return _AttentionRelPacked.apply(qkv, rel_h, rel_w, scale, k_hw, num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_packed(qkv, rel_h, rel_w, scale, k_hw, num_heads)
@@ -501,11 +598,10 @@ def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
     A CUDA tensor launches ``csrc/attention_rel.cu`` (and raises if it
     cannot); a CPU tensor takes :func:`attention_rel_packed_ik`. float32 or
     bfloat16 operands (``qkv`` and the tables of one dtype). Differentiable
-    through the backward kernels when an input requires a gradient, in
-    float32 only.
+    through the backward kernels of the operands' dtype when an input
+    requires a gradient.
     """
     if _needs_grad(qkv, rh_flat, rw_flat):
-        _no_bf16_backward("K2", qkv)
         return _AttentionRelPackedIK.apply(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale, k_hw, num_heads)
@@ -915,6 +1011,8 @@ fused_attention_rel_packed.bf16_launches = 0
 fused_attention_rel_packed_ik.bf16_launches = 0
 fused_attention_rel_packed_bwd.launches = 0
 fused_attention_rel_packed_ik_bwd.launches = 0
+fused_attention_rel_packed_bwd.bf16_launches = 0
+fused_attention_rel_packed_ik_bwd.bf16_launches = 0
 fused_attention_rel.launches = 0
 fused_attention_rel_bwd.launches = 0
 fused_attention.launches = 0

@@ -12,7 +12,9 @@ channel-last: ``x (B, H, W, C)`` → windows ``(B·nW, ws, ws, C)`` in
   normalised in float32 and its windows rounded to bfloat16.
 - :func:`ln_window_partition_bwd` — the plain VJP from the saved per-token
   statistics: the LayerNorm VJP of the un-partitioned cotangent (pad-slot
-  cotangents dropped), ``dscale``/``dbias`` only when asked.
+  cotangents dropped), ``dscale``/``dbias`` only when asked; a bfloat16
+  ``x`` and cotangent are widened to float32 and ``dx`` rounded once to
+  bfloat16, ``dscale``/``dbias`` stay float32.
 - :func:`ln_window_partition_fused` — the wrapper of the CUDA kernel
   ``csrc/ln_window.cu``, which replaces the TPU kernel
   ``mia_tpu/ops/ln_window.py::ln_window_partition``. A CUDA tensor launches
@@ -20,7 +22,7 @@ channel-last: ``x (B, H, W, C)`` → windows ``(B·nW, ws, ws, C)`` in
   autograd needs a gradient it runs inside a ``torch.autograd.Function``
   whose forward also keeps ``mu``/``rstd`` and whose backward is
   :func:`ln_window_partition_fused_bwd` (the backward kernel of the same
-  file, or the plain VJP on the CPU).
+  file in ``x``'s dtype, or the plain VJP on the CPU).
 """
 
 from __future__ import annotations
@@ -80,12 +82,15 @@ def ln_window_partition(x, scale, bias, window_size: int, eps: float = 1e-6) -> 
 def ln_window_partition_bwd(x, dy, mu, rstd, scale, window_size: int, params: bool = True):
     """Plain VJP of :func:`ln_window_partition` from the per-token statistics
     ``mu``, ``rstd`` ``(B, H, W)``: ``dy`` ``(B·nW, ws, ws, C)`` → ``(dx,
-    dscale, dbias)``; the last two are None unless ``params``."""
-    g_full = window_unpartition(dy, window_size, x.shape[1:3])
+    dscale, dbias)``; the last two are None unless ``params``. In float32
+    arithmetic (the Pallas ``_bwd_kernel``'s), ``dx`` in ``x``'s dtype,
+    ``dscale`` and ``dbias`` in float32."""
+    g_full = window_unpartition(dy, window_size, x.shape[1:3]).float()
     mu, rstd = mu[..., None], rstd[..., None]
-    xhat = (x - mu) * rstd
+    xhat = (x.float() - mu) * rstd
     g = g_full * scale
     dx = rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    dx = dx.to(x.dtype)
     if not params:
         return dx, None, None
     return dx, (g_full * xhat).sum((0, 1, 2)), g_full.sum((0, 1, 2))
@@ -93,12 +98,14 @@ def ln_window_partition_bwd(x, dy, mu, rstd, scale, window_size: int, params: bo
 
 _K4_SYMBOLS = {torch.float32: "mia_ln_window_partition_f32",
                torch.bfloat16: "mia_ln_window_partition_bf16"}
+_K4B_SYMBOLS = {torch.float32: "mia_ln_window_partition_bwd_f32",
+                torch.bfloat16: "mia_ln_window_partition_bwd_bf16"}
 
 
 @functools.cache
 def _k4_function(name: str):
     fn = getattr(load_library(), name)
-    forward = name != "mia_ln_window_partition_bwd_f32"
+    forward = name not in _K4B_SYMBOLS.values()
     pointers = 6 if forward else 9
     ints = 5
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
@@ -155,14 +162,17 @@ _PARAM_CHUNKS = 256  # token chunks of the kernel's dscale/dbias partial sums
 
 
 def _launch_k4_bwd(x, dy, mu, rstd, scale, window_size: int, params: bool = True):
-    """Launch K4's backward (``mia_ln_window_partition_bwd_f32``) → (dx,
-    dscale, dbias), the last two only when ``params``."""
-    b, h, w, c, ws, windows = _check_k4("K4 backward", x, window_size, scale=scale)
-    for name, t, shape in (("cotangent", dy, (windows, ws, ws, c)), ("mu", mu, (b, h, w)),
-                           ("rstd", rstd, (b, h, w))):
-        if (t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != shape
+    """Launch K4's backward (``mia_ln_window_partition_bwd_f32``, or
+    ``_bf16`` for a bfloat16 ``x`` and cotangent) → (dx in ``x``'s dtype,
+    float32 dscale, dbias), the last two only when ``params``."""
+    b, h, w, c, ws, windows = _check_k4("K4 backward", x, window_size, tuple(_K4B_SYMBOLS),
+                                        scale=scale)
+    for name, t, shape, dtype in (("cotangent", dy, (windows, ws, ws, c), x.dtype),
+                                  ("mu", mu, (b, h, w), torch.float32),
+                                  ("rstd", rstd, (b, h, w), torch.float32)):
+        if (t.dtype != dtype or t.device != x.device or tuple(t.shape) != shape
                 or not t.is_contiguous()):
-            raise ValueError(f"K4 backward {name} must be a contiguous float32 {shape} tensor")
+            raise ValueError(f"K4 backward {name} must be a contiguous {dtype} {shape} tensor")
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale) if params else None
     dbias = torch.empty_like(scale) if params else None
@@ -171,19 +181,22 @@ def _launch_k4_bwd(x, dy, mu, rstd, scale, window_size: int, params: bool = True
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _k4_function("mia_ln_window_partition_bwd_f32")(
+        err = _k4_function(_K4B_SYMBOLS[x.dtype])(
             x.data_ptr(), dy.data_ptr(), mu.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
             dx.data_ptr(), ptr(dscale), ptr(dbias), ptr(part), b, h, w, c, ws, stream)
     if err != 0:
         raise RuntimeError(f"K4 backward launch failed: cudaError {err}")
-    ln_window_partition_fused_bwd.launches += 1
+    if x.dtype == torch.bfloat16:
+        ln_window_partition_fused_bwd.bf16_launches += 1
+    else:
+        ln_window_partition_fused_bwd.launches += 1
     return dx, dscale, dbias
 
 
 def ln_window_partition_fused_bwd(x, dy, mu, rstd, scale, window_size: int, params: bool = True):
     """K4 backward: a CUDA tensor launches the backward kernel of
-    ``csrc/ln_window.cu`` (and raises if it cannot); a CPU tensor takes
-    :func:`ln_window_partition_bwd`."""
+    ``csrc/ln_window.cu`` of ``x``'s dtype (and raises if it cannot); a CPU
+    tensor takes :func:`ln_window_partition_bwd`."""
     if x.device.type == "cpu":
         return ln_window_partition_bwd(x, dy, mu, rstd, scale, window_size, params)
     return _launch_k4_bwd(x, dy, mu, rstd, scale, window_size, params)
@@ -196,7 +209,7 @@ class _LNWindowPartition(torch.autograd.Function):
     def forward(ctx, x, scale, bias, window_size, eps):
         x = x.contiguous()
         if x.device.type == "cpu":
-            mu, rstd = (t[..., 0] for t in layer_norm_stats(x, eps))
+            mu, rstd = (t[..., 0] for t in layer_norm_stats(x.float(), eps))
             out = ln_window_partition(x, scale, bias, window_size, eps)
         else:
             out, mu, rstd = _launch_k4(x, scale, bias, window_size, eps, with_stats=True)
@@ -220,15 +233,11 @@ def ln_window_partition_fused(x, scale, bias, window_size: int, eps: float = 1e-
 
     A CUDA tensor launches ``csrc/ln_window.cu`` (and raises if it cannot);
     a CPU tensor takes the plain version. Differentiable through the
-    backward kernel when an input requires a gradient, in float32 only: a
-    bfloat16 call that needs a gradient raises. ``launches`` counts kernel
-    launches, ``bf16_launches`` those of the bfloat16 instance.
+    backward kernel of ``x``'s dtype when an input requires a gradient.
+    ``launches`` counts kernel launches, ``bf16_launches`` those of the
+    bfloat16 instance (here and on :func:`ln_window_partition_fused_bwd`).
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "K4 in bfloat16 has no backward yet: its gradient needs K4b in bfloat16, "
-                "which is not ported (use compute dtype float32 to train)")
         return _LNWindowPartition.apply(x, scale, bias, int(window_size), float(eps))
     if x.device.type == "cpu":
         return ln_window_partition(x, scale, bias, window_size, eps)
@@ -238,3 +247,4 @@ def ln_window_partition_fused(x, scale, bias, window_size: int, eps: float = 1e-
 ln_window_partition_fused.launches = 0
 ln_window_partition_fused.bf16_launches = 0
 ln_window_partition_fused_bwd.launches = 0
+ln_window_partition_fused_bwd.bf16_launches = 0

@@ -50,7 +50,13 @@ steps the uninterrupted run takes. A directory without
 optimizer, as the JAX package resumes. Both packages save
 ``current_iter`` after its increment, as the count of steps taken; the port
 resumes at that count, the JAX package one later (it adds 1 on load). Validation, the real test and
-the CSV report are the JAX package's. Not ported: wandb, bfloat16 compute,
+the CSV report are the JAX package's.
+
+``compute_dtype="bfloat16"`` (``--compute-dtype bfloat16``) builds the model
+in bfloat16 as the JAX trainer does: float32 parameters, Adam moments,
+losses and checkpoint files; bfloat16 activations wherever flax's
+``dtype=bfloat16`` puts them, trained through the bfloat16 instances of K2b,
+K3b and K4b; softmaxes of the logits in float32. Not ported: wandb,
 mesh/multi-device.
 """
 
@@ -272,10 +278,6 @@ class CPCSAMTrainer(BaseTrainer):
         self.resume = resume
 
         self.device = resolve_device(device)
-        if self.config.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "cpcsam_train with --compute-dtype bfloat16 needs the bfloat16 backward kernels "
-                "K2b, K3b and K4b, which are not ported; use --compute-dtype float32")
         set_compute_precision(self.config.compute_dtype)
         self.work_path = get_path(work_path)
         self.verbose = verbose
@@ -325,6 +327,7 @@ class CPCSAMTrainer(BaseTrainer):
                 dropout_rate=self.config.dropout_rate,
                 num_points_prompt=self.config.num_points_prompt,
                 bbox_change_rate=self.config.bbox_change_rate,
+                compute_dtype=self.config.compute_dtype,
             )
         self.model.to(self.device)
         if self.config.model_ckpt:

@@ -18,9 +18,10 @@ bias, as ``chip_smoke.py`` times it) under ``torch.profiler`` and prints the
 device kernels each one launches, with their times. Needs a CUDA device.
 
 With ``--sass`` it times nothing: it compiles each tree's
-``csrc/attention_rel.cu`` and ``csrc/attention_routes.cu`` with ``nvcc
--Xptxas -v`` and prints, for every kernel, its registers and spill, its
-``HMMA.1688.F32.TF32``, ``ATOM`` and local-memory instructions, and whether
+``csrc/attention_rel.cu``, ``csrc/attention_routes.cu`` and
+``csrc/ln_window.cu`` (K4 and K4b) with ``nvcc -Xptxas -v`` and prints, for
+every kernel, its registers and spill, its ``HMMA.1688.F32.TF32``,
+``HMMA.16816.F32.BF16``, ``ATOM`` and local-memory instructions, and whether
 its SASS equals the first tree's, under its own name or another (so
 ``--tree build/parent --tree . --sass`` shows the kernels a change left as
 they were). Needs nvcc and cuobjdump, not a GPU.
@@ -128,8 +129,8 @@ def _short_name(mangled: str) -> str:
 
 def sass_report(trees) -> None:
     """Registers, spill and instruction counts of every kernel of each tree's
-    csrc/attention_rel.cu and attention_routes.cu, and whether its SASS
-    equals the first tree's."""
+    csrc/attention_rel.cu, attention_routes.cu and ln_window.cu, and whether
+    its SASS equals the first tree's."""
     sys.path.insert(0, str(ROOT))
     from mia_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
 
@@ -138,7 +139,7 @@ def sass_report(trees) -> None:
     first = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate(trees):
-            for source in ("attention_rel.cu", "attention_routes.cu"):
+            for source in ("attention_rel.cu", "attention_routes.cu", "ln_window.cu"):
                 obj = Path(tmp) / f"{i}.{source}.o"
                 src = Path(tree) / "mia_tpu_torch" / "csrc" / source
                 log = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),

@@ -10,12 +10,13 @@ kernel group: the hand-written kernels (forward and backward), the cuBLAS
 GEMMs, the cuDNN convolutions and the rest. ``--variant`` trains through
 another route of the encoder (K9 exit, grid-native K8, head-major K6, no
 rel-pos K7), ``--use-contrastive-loss`` and ``--use-adv-loss`` switch the
-auxiliary losses on (both phases then run the whole batch). Needs a CUDA
-device.
+auxiliary losses on (both phases then run the whole batch),
+``--compute-dtype bfloat16`` trains the model in bfloat16 (the bfloat16
+instances of K2-K4b; default route only). Needs a CUDA device.
 
     python scripts/profile_torch_cpcsam.py [--steps 10] [--profiled 3]
         [--variant default|k9|grid_native|head_major|no_rel_pos]
-        [--use-contrastive-loss] [--use-adv-loss]
+        [--use-contrastive-loss] [--use-adv-loss] [--compute-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -56,6 +57,14 @@ GROUPS = (  # (label, substrings of the kernel name), first match wins
     ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
     ("K2 rel terms (forward and backward) and routing", ("attention_rel_terms_kernel",
                                                          "attention_rel_route_kernel")),
+    # the bfloat16 instances (--compute-dtype bfloat16): attention_fwd_bf16_kernel<D, tables,
+    # keys> and attention_bwd_bf16_{dq,dkv}_kernel<D, tables>, tables = K2 / K2b
+    ("K2 forward, bfloat16", ("attention_fwd_bf16_kernel<64, true",)),
+    ("K3 forward, bfloat16", ("attention_fwd_bf16_kernel<64, false",)),
+    ("K2 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, true",
+                               "attention_bwd_bf16_dkv_kernel<64, true")),
+    ("K3 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, false",
+                               "attention_bwd_bf16_dkv_kernel<64, false")),
     ("K4 backward", ("ln_window_partition_bwd_kernel", "ln_window_partition_params")),
     ("K4 forward", ("ln_window_partition_kernel",)),
     ("K9 backward", ("unpartition_add_ln_bwd_kernel", "unpartition_add_ln_params")),
@@ -116,9 +125,12 @@ def main() -> None:
                         help="the encoder route to train through")
     parser.add_argument("--use-contrastive-loss", action="store_true")
     parser.add_argument("--use-adv-loss", action="store_true")
+    parser.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_cpcsam: needs a CUDA device")
+    if args.compute_dtype != "float32" and args.variant != "default":
+        sys.exit("profile_torch_cpcsam: bfloat16 trains on the default route only")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -128,14 +140,15 @@ def main() -> None:
     trainer = CPCSAMTrainer(device="cuda", config=dict(
         image_size=512, num_classes=3, batch_size=12, labeled_batch_ratio=0.5, lora_rank=4,
         promptmode=["point"], optimizer_name="adam", max_iter=10**6, lr_warmup_iter=1,
-        use_contrastive_loss=args.use_contrastive_loss, use_adv_loss=args.use_adv_loss))
+        use_contrastive_loss=args.use_contrastive_loss, use_adv_loss=args.use_adv_loss,
+        compute_dtype=args.compute_dtype))
     trainer.logger = logging.getLogger("profile_torch_cpcsam")
     trainer.epoch_train_outputs = []
     trainer._build_model()
     if args.variant != "default":
         with_encoder(trainer.model, trainer.config.lora_rank, **VARIANTS[args.variant])
     print(f"encoder variant {args.variant}; contrastive loss {args.use_contrastive_loss}, "
-          f"VAT {args.use_adv_loss}")
+          f"VAT {args.use_adv_loss}; compute dtype {args.compute_dtype}")
     trainer._setup_loss()
     trainer._setup_optimizer()
     batch = blob_batch()

@@ -142,22 +142,6 @@ def test_k4_bfloat16_matches_jax(shape, ws):
     assert not got[np.asarray(want, np.float32) == 0].any()  # pad slots exactly zero
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
-def test_bfloat16_gradient_raises_naming_the_backward_kernel(kernel):
-    rng = np.random.default_rng(0)
-    qkv = _t(_bf16(rng, 1, 16, 3 * 2 * 16)).requires_grad_()
-    with pytest.raises(NotImplementedError, match=f"{kernel}b"):
-        if kernel == "K2":
-            attention.fused_attention_rel_packed_ik(qkv, _t(_bf16(rng, 16, 16)),
-                                                    _t(_bf16(rng, 16, 16)), 0.25, (4, 4), 2)
-        elif kernel == "K3":
-            attention.fused_attention_rel_packed(qkv, _t(_bf16(rng, 2, 16, 4)),
-                                                 _t(_bf16(rng, 2, 16, 4)), 0.25, (4, 4), 2)
-        else:
-            ln_window.ln_window_partition_fused(qkv.reshape(1, 4, 4, 96), torch.ones(96),
-                                                torch.zeros(96), 4)
-
-
 @pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32"), (torch.bfloat16, "bf16")])
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 def test_wrapper_launches_the_entry_of_the_operands_dtype(monkeypatch, kernel, dtype, suffix):

@@ -307,22 +307,6 @@ def test_windowed_attention_switch_raises_in_bfloat16(monkeypatch):
             enc(x)
 
 
-def test_bfloat16_encoder_gradient_raises():
-    """Training through the bfloat16 encoder needs K2b, K3b and K4b in
-    bfloat16: the first of them raises, nothing widens to float32."""
-    enc = ImageEncoderViT(**ENC_KW)
-    with pytest.raises(NotImplementedError, match="K4b"):
-        enc(torch.zeros(1, 40, 40, 3))
-
-
-def test_cpcsam_train_bfloat16_raises(tmp_path):
-    from mia_tpu_torch.entry.cpcsam.train import train_entry
-
-    with pytest.raises(NotImplementedError, match="K2b, K3b and K4b"):
-        train_entry(["--work-path", str(tmp_path), "--data-path", str(tmp_path),
-                     "--device", "cpu", "--compute-dtype", "bfloat16"])
-
-
 def test_serving_then_training_in_one_process():
     """The rel-pos index and resize caches hand out normal tensors even when
     first filled under ``torch.inference_mode`` (as ``set_image`` runs): a
