@@ -53,7 +53,17 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    |plain|, two launches bit-identical; event and device times (every
    kernel of a call) with the plain version, autograd through one bfloat16
    ``scaled_dot_product_attention`` with the dense bias and the bfloat16
-   bound.
+   bound. The bfloat16 instances of the other routes' kernels
+   (``bf16_route_kernel_phase``): K6, K7 at ViT-B/512 batch 1 and 8 (windows
+   and global tokens), N=35 and head dim 80 (K7's float32 bias with -inf over
+   the first key tile of every other row), K8 at batch 1 and 8, a 20x27 grid
+   and head dim 80, K9 at batch 1 and 8 and a 20x27 grid; K6b, K8b, K9b at
+   training batch 12 (and the global tokens, a 20x27 grid, whole windows,
+   head dim 80; K9b with its parameters off and on), on the kernel's own
+   forward: every output within 2^-7 of max |plain| of the plain bfloat16
+   version (K9's x_new bit for bit, its y within one ulp), log-sum-exp within
+   1e-5, two launches bit-identical; event and device times, the library call
+   and the bound the same way.
    Training kernels: the backward kernels of K2, K3 and K4 against their
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
    1e-4 of max |plain| for each output, K2b and K3b (3xTF32 on the tensor
@@ -204,7 +214,13 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    peak memory beside the float32 phase's; encoder blocks 0 (windowed) and
    2 (global) of the trained model on the card against the same block on
    the CPU on the card's inputs (output, input cotangent, LoRA gradients),
-   closer than the card's float32 block of the same weights.
+   closer than the card's float32 block of the same weights. Then the encoder
+   of each other route in bfloat16 in the trained model
+   (``bf16_route_train_phase``): a phase-1 loss and backward at batch 12
+   launches exactly the route's kernels as their bfloat16 instances and no
+   float32 kernel, one ``train_step`` moves the 48 LoRA tensors, blocks 0 and
+   2 module by module against the CPU (the route's attention kernel and K9
+   replayed too); step time beside the bfloat16 default and float32 route.
    Route-training phase: the trained CPC-SAM model with seeded rel-pos
    tables and, in its place, the encoder of each other route (K9 exit,
    grid-native by argument and by ``MIA_WINDOWED_ATTN=1``, head-major, no
@@ -233,6 +249,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    ``set_image`` and none of the float32 instances, a bfloat16 embedding,
    the predict shapes; the embedding's and one point's mask logits' gap to
    the float32 model; ``set_image`` and ``predict`` of both in turns.
+   Then the encoder of each other route in bfloat16 in its place
+   (``bf16_route_phase``): one ``set_image`` launches exactly the route's
+   kernels as their bfloat16 instances and no float32 kernel, every module of
+   encoder blocks 0 and 2 is held against the route's CPU bfloat16 model, the
+   embedding's distance to the CPU's is printed beside the default route's.
 6. Encoder-route phase: loads the SAM phase's weights into an
    ``ImageEncoderViT`` of each other route (K9 exit; grid-native K8, once
    by argument and once by ``MIA_WINDOWED_ATTN=1``; head-major K6; no
@@ -266,9 +287,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    paths that ran them, their bounds and library times; K2, K3, K6, K7, K8,
    K2b, K3b, K6b and K8b also their tensor-core bound, K2, K3 and K8 their
    batch-8 numbers under ``b8``, K1, K4, K4b, K5, K8, K9 and K9b their ``device_ms``;
-   K2, K3, K4, K2b, K3b and K4b a ``bf16`` entry with the same keys for
-   their bfloat16 instance, its launches from the bfloat16 SAM and CPC-SAM
-   phases),
+   K2, K3, K4, K2b, K3b, K4b, K6, K6b, K7, K8, K8b, K9 and K9b a ``bf16``
+   entry with the same keys for their bfloat16 instance, its launches from
+   the bfloat16 SAM and CPC-SAM phases and their routes),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -331,9 +352,10 @@ KERNELS = {
     "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
              "mia_tpu/ops/upsample2x.py:137"),
 }
-# kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16); the JSON
-# line gives each a ``bf16`` entry with its own launches, times and bounds
-BF16_KERNELS = ("K2", "K3", "K4", "K2b", "K3b", "K4b")
+# kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16, through every
+# route of the encoder); the JSON line gives each a ``bf16`` entry with its own launches, times
+# and bounds
+BF16_KERNELS = ("K2", "K3", "K4", "K2b", "K3b", "K4b", "K6", "K6b", "K7", "K8", "K8b", "K9", "K9b")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
 # K2, K3, K6, K7, K8, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense
@@ -420,8 +442,10 @@ def device_ms(torch, fn, kernel=None, per_block=50):
     fn()
     torch.cuda.synchronize()
     # a capture now and then comes back without any device event of the
-    # block (seen once for K4b, which had passed in every earlier run):
-    # such a capture is taken again, at most twice
+    # block (seen once for K4b, which had passed in every earlier run), or,
+    # summing every kernel of a call, with some of the block's launches
+    # missing (seen once for K8b·bf16: 1.5 of its 5 calls' kernels): such a
+    # capture is taken again, at most twice
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(per_block):
@@ -430,11 +454,12 @@ def device_ms(torch, fn, kernel=None, per_block=50):
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         mine = [e for e in events if kernel is None or kernel in e.key]
-        if mine:
+        whole = kernel is not None or all(e.count % per_block == 0 for e in mine)
+        if mine and whole:
             break
-        print(f"device_ms: capture {attempt + 1} recorded no {kernel or 'device'} launch "
-              f"({len(events)} device events)")
-    check(mine, f"the profiler recorded no {kernel or 'device'} launch")
+        print(f"device_ms: capture {attempt + 1} recorded {'no' if not mine else 'a partial block of'} "
+              f"{kernel or 'device'} launches ({[(e.key[:60], e.count) for e in events]})")
+    check(mine and whole, f"the profiler recorded no whole block of {kernel or 'device'} launches")
     if kernel is None:
         return sum(e.self_device_time_total for e in mine) / 1e3 / per_block, 0.0
     others = sum(e.self_device_time_total for e in events if kernel not in e.key)
@@ -2449,9 +2474,7 @@ def window_lse(torch, qkv, rel_h, rel_w, bias_kv, scale, ws, heads):
     b, hg, wg, _ = qkv.shape
     lse = plain_lse(torch, *attention.partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, heads),
                     scale, (ws, ws), heads)
-    hp, wp = -(-hg // ws) * ws, -(-wg // ws) * ws
-    return (lse.reshape(b, hp // ws, wp // ws, heads, ws, ws).permute(0, 3, 1, 4, 2, 5)
-            .reshape(b, heads, hp, wp)[:, :, :hg, :wg].reshape(b * heads, hg * wg))
+    return attention._window_lse_to_tokens(lse, b, hg, wg, ws, heads)
 
 
 def sam_kernel_phase(torch, device):
@@ -2904,6 +2927,247 @@ def bf16_train_kernel_phase(torch, device):
               f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it), plain "
               f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us; {describe_yardsticks(m)}")
         out[name] = m
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 instances of K6-K9 and K6b, K8b, K9b against their plain bfloat16 versions
+# ---------------------------------------------------------------------------
+
+BF16_ROUTE_KERNELS = ("K6", "K7", "K8", "K9", "K6b", "K8b", "K9b")
+
+
+def bf16_route_kernel_phase(torch, device):
+    """K6, K7, K8, K9 in bfloat16 at ViT-B/512 batch 1 and 8 (and a 20x27 grid,
+    a token count no tile divides, head dim 80), K6b, K8b, K9b at training
+    batch 12 (and the same odd shapes): each output against the plain
+    bfloat16 version on the same inputs (the backward on the kernel's own
+    forward's output and log-sum-exp) within ``BF16_TOL`` of max |plain|,
+    K9's ``x_new`` bit for bit and its ``y`` within one bfloat16 ulp an
+    element, the float32 outputs (log-sum-exp, K9b's dscale, dbias) within
+    ``LSE_TOL`` / ``BWD_TOL``; two launches bit-identical; event and device
+    times beside the plain version, the bound at 989 TFLOP/s bfloat16 (K9,
+    K9b: 67 TFLOP/s float32) or 3.35 TB/s, and the library call: one
+    bfloat16 ``scaled_dot_product_attention`` with the dense bias (autograd
+    through it for the backward kernels), none for K9 and K9b."""
+    from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops import unpartition_residual as upr
+    from mia_tpu_torch.ops.ln_window import window_partition
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device=device) + shift).to(dtype)
+
+    heads, ws, c, side = 12, 14, 768, 32
+    worst = {k: [0.0, 0.0] for k in BF16_ROUTE_KERNELS}  # max abs err, max relative err
+
+    def hold(name, label, got, want):
+        """Every output of the kernel against the plain version's (K9: x_new
+        bit for bit, y within one ulp)."""
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        check(len(got) == len(want), f"{name} bf16 {label}: {len(got)} outputs")
+        for i, (a, b) in enumerate(zip(got, want)):
+            if b is None:
+                check(a is None, f"{name} bf16 {label}: output {i} in one version only")
+                continue
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{name} bf16 {label}: output {i} {a.dtype} {tuple(a.shape)}, plain {b.dtype} "
+                  f"{tuple(b.shape)}")
+            check(bool(torch.isfinite(a.float()).all()), f"{name} bf16 {label}: output {i} not finite")
+            diff = (a.float() - b.float()).abs()
+            err, ref = diff.max().item(), b.float().abs().max().item()
+            if name == "K9" and i == 0:
+                check(torch.equal(a, b), f"K9 bf16 {label}: x_new is not the plain rounded add")
+            elif name == "K9":
+                over = int((diff > bf16_ulp(torch, b)).sum())
+                check(over == 0, f"K9 bf16 {label}: {over} elements of y beyond one ulp")
+            elif b.dtype == torch.float32:  # K9b's dscale, dbias: float32 sums in another order
+                check(err <= BWD_TOL * ref, f"{name} bf16 {label}: output {i} {err} > {BWD_TOL} "
+                      f"x {ref}")
+            else:
+                check(err <= BF16_TOL * ref, f"{name} bf16 {label}: output {i} max |kernel - "
+                      f"plain| {err} > {BF16_TOL} x max |plain| {ref}")
+            worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref if ref else 0.0)]
+
+    def hold_lse(name, label, lse, want):
+        err = (lse - want).abs().max().item()
+        check(err <= LSE_TOL, f"{name} bf16 {label}: log-sum-exp off by {err} > {LSE_TOL}")
+
+    timed = {}
+    # K6, K7: head-major operands of one and eight ViT-B/512 images (9 windows x 12 heads of
+    # 196 tokens; 12 heads of 1024 global tokens), N = 35 and head dim 80; K7's bias float32,
+    # -inf over the first key tile of every other row of the B=1 windows case
+    for label, bh, d, k_hw in (("B=1 windows", 108, 64, (14, 14)), ("B=1 global", 12, 64, (32, 32)),
+                               ("B=8 windows", 864, 64, (14, 14)), ("B=8 global", 96, 64, (32, 32)),
+                               ("N=35 (5x7)", 4, 64, (5, 7)), ("head dim 80", 144, 80, (14, 14))):
+        n = k_hw[0] * k_hw[1]
+        args = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+                randn(bh, n, k_hw[1]), d ** -0.5, k_hw)
+        out, lse = attention._launch_k6(*args, with_lse=True)
+        want, want_lse = attention.attention_rel_bf16(*args)
+        hold("K6", label, out, want)
+        hold_lse("K6", label, lse, want_lse)
+        bit_identical(torch, "K6 bf16", label, (out,), (attention._launch_k6(*args),))
+        bias = randn(bh, n, n, dtype=torch.float32)
+        if label == "B=1 windows":
+            bias[:, ::2, :64] = -math.inf
+        args7 = (*args[:3], bias, d ** -0.5)
+        got = attention._launch_k7(*args7)
+        hold("K7", label, got, attention.attention_dense_bf16(*args7))
+        bit_identical(torch, "K7 bf16", label, (got,), (attention._launch_k7(*args7),))
+        timed[("K6", label)], timed[("K7", label)] = args, args7
+    # K6b at training batch 12 on K6's own output and log-sum-exp
+    for label, bh, d, k_hw in (("B=12 windows", 1296, 64, (14, 14)),
+                               ("B=12 global", 144, 64, (32, 32)), ("head dim 80", 144, 80, (14, 14))):
+        n = k_hw[0] * k_hw[1]
+        fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+               randn(bh, n, k_hw[1]))
+        out, lse = attention._launch_k6(*fwd, d ** -0.5, k_hw, with_lse=True)
+        args = (*fwd, out, randn(bh, n, d), lse, d ** -0.5, k_hw)
+        got = attention._launch_k6_bwd(*args)
+        hold("K6b", label, got, attention.attention_rel_bwd_bf16(*args))
+        bit_identical(torch, "K6b bf16", label, got, attention._launch_k6_bwd(*args))
+        timed[("K6b", label)] = args
+    # K8: the unpartitioned bfloat16 qkv grid; 32x32 pads each edge window, 20x27 both ways
+    for label, b, hw, n_heads, d in (("B=1", 1, (side, side), heads, 64),
+                                     ("B=8", 8, (side, side), heads, 64),
+                                     ("grid 20x27", 2, (20, 27), heads, 64),
+                                     ("head dim 80", 1, (side, side), 16, 80)):
+        args = (randn(b, *hw, 3 * n_heads * d), randn(b * n_heads, *hw, ws),
+                randn(b * n_heads, *hw, ws), randn(3, n_heads * d, scale=0.5), d ** -0.5, ws,
+                n_heads)
+        out, lse = attention._launch_k8(*args, with_lse=True)
+        want, want_lse = attention.attention_rel_win_bf16(*args)
+        hold("K8", label, out, want)
+        hold_lse("K8", label, lse, want_lse)
+        bit_identical(torch, "K8 bf16", label, (out,), (attention._launch_k8(*args),))
+        timed[("K8", label)] = args
+    # K8b at training batch 12, a 20x27 grid, whole windows (dbias_kv exactly zero), head dim 80
+    for label, b, hw, n_heads, d in (("B=12", 12, (side, side), heads, 64),
+                                     ("grid 20x27", 2, (20, 27), heads, 64),
+                                     ("whole windows 28x28", 2, (28, 28), heads, 64),
+                                     ("head dim 80", 1, (side, side), 16, 80)):
+        fwd = (randn(b, *hw, 3 * n_heads * d), randn(b * n_heads, *hw, ws),
+               randn(b * n_heads, *hw, ws), randn(3, n_heads * d, scale=0.5))
+        out, lse = attention._launch_k8(*fwd, d ** -0.5, ws, n_heads, with_lse=True)
+        args = (*fwd, out, randn(b, *hw, n_heads * d), lse, d ** -0.5, ws, n_heads)
+        got = attention._launch_k8_bwd(*args)
+        hold("K8b", label, got, attention.attention_rel_win_bwd_bf16(*args))
+        check(not got[3][0].any(), f"K8b bf16 {label}: row 0 of dbias_kv is not zero")
+        if label.startswith("whole"):
+            check(not got[3].any(), f"K8b bf16 {label}: dbias_kv is not zero without pad slots")
+        bit_identical(torch, "K8b bf16", label, got, attention._launch_k8_bwd(*args))
+        timed[("K8b", label)] = args
+    # K9 and K9b: windows whose pad slots hold values that must not reach the output; the
+    # pad slots of the windows' cotangent exactly zero
+    ln_scale = randn(c, scale=0.2, shift=1.0, dtype=torch.float32)
+    ln_bias = randn(c, scale=0.1, shift=0.5, dtype=torch.float32)
+    for label, shape in (("B=1", (1, side, side, c)), ("B=8", (8, side, side, c)),
+                         ("B=12", (12, side, side, c)), ("grid 20x27", (2, 20, 27, c))):
+        n_win = shape[0] * -(-shape[1] // ws) * -(-shape[2] // ws)
+        args = (randn(n_win, ws, ws, c), randn(*shape), ln_scale, ln_bias, ws, 1e-6)
+        x_new, y, mu, rstd = upr._launch_k9(*args, with_stats=True)
+        if label != "B=12":
+            hold("K9", label, (x_new, y), upr.unpartition_add_ln_plain(*args))
+            bit_identical(torch, "K9 bf16", label, (x_new, y), upr._launch_k9(*args))
+            timed[("K9", label)] = args
+        if label in ("B=12", "grid 20x27"):
+            pad = window_partition(torch.ones(*shape[:3], 1, device=device), ws)[0] == 0
+            for params in (False, True):
+                bargs = (x_new, randn(*shape), randn(*shape), mu, rstd, ln_scale, ws, params)
+                got = upr._launch_k9_bwd(*bargs)
+                hold("K9b", f"{label} params={params}", got, upr.unpartition_add_ln_bwd(*bargs))
+                check(bool(pad.any()) and not got[0][pad.expand_as(got[0])].any(),
+                      f"K9b bf16 {label}: pad slots of the windows' cotangent are not zero")
+                bit_identical(torch, "K9b bf16", f"{label} params={params}", got,
+                              upr._launch_k9_bwd(*bargs))
+                if not params:
+                    timed[("K9b", label)] = bargs
+    print("bf16 routes: " + ", ".join(
+        f"{k} max |diff| {v[0]:.3g} (relative {v[1]:.3g})" for k, v in worst.items())
+          + f"; within {BF16_TOL} of max |plain| (K9: x_new bit-exact, y within one ulp; K9b's "
+          f"dscale, dbias within {BWD_TOL}), log-sum-exp within {LSE_TOL}, two launches "
+          "bit-identical on every case")
+
+    def yardsticks(name, args):
+        """The bound of the call and the library call on the same bfloat16
+        operands (the dense bias and K8's partition built outside it)."""
+        if name in ("K9", "K9b"):
+            if name == "K9":
+                x = args[1]
+                return {"library_ms": None, **bound([x, x, x, x, args[2], args[3]], 9 * x.numel())}
+            x, _, _, mu, rstd, ln_w = args[:6]
+            dwin = torch.empty(x.shape[0] * 9, ws, ws, c, device=device, dtype=bf)
+            return {"library_ms": None,
+                    **bound([x, x, x, mu, rstd, ln_w, x, dwin], 13 * x.numel())}
+        if name in ("K8", "K8b"):
+            qkv, rel_h, rel_w, bias_kv = args[:4]
+            b, hg, wg, three_hd = qkv.shape
+            n_heads = args[-1]
+            d = three_hd // (3 * n_heads)
+            lib_args = windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads)
+            flops = attention_flops(b * n_heads, hg * wg, ws * ws, d, backward=name == "K8b")
+            if name == "K8":
+                out = torch.empty(b, hg, wg, n_heads * d, device=device, dtype=bf)
+                return {"library_ms": sdpa_ms(torch, *lib_args, args[4], 10),
+                        **bf16_bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
+            g = args[5]
+            g_w = window_partition(g, ws)[0].view(-1, ws * ws, n_heads, d).transpose(1, 2)
+            return {"library_ms": sdpa_backward_ms(torch, *lib_args, args[7], g_w.contiguous(), 5),
+                    **bf16_bound([qkv, rel_h, rel_w, bias_kv, args[4], g, qkv, rel_h, rel_w,
+                                  bias_kv], flops)}
+        q, k, v = args[:3]
+        bh, n, d = q.shape
+        if name == "K7":
+            bias, sc = args[3], args[4]
+            return {"library_ms": sdpa_ms(torch, q[None], k[None], v[None], bias[None].to(bf), sc,
+                                          10),
+                    **bf16_bound([q, k, v, bias, q], attention_flops(bh, n, n, d))}
+        rel_h, rel_w = args[3:5]
+        bias = dense_bias(rel_h, rel_w, 1, bh)
+        if name == "K6":
+            return {"library_ms": sdpa_ms(torch, q[None], k[None], v[None], bias, args[5], 10),
+                    **bf16_bound([q, k, v, rel_h, rel_w, q], attention_flops(bh, n, n, d))}
+        return {"library_ms": sdpa_backward_ms(torch, q[None], k[None], v[None], bias, args[8],
+                                               args[6][None], 5),
+                **bf16_bound([q, k, v, rel_h, rel_w, args[5], args[6], q, k, v, rel_h, rel_w],
+                             attention_flops(bh, n, n, d, backward=True))}
+
+    fns = {"K6": (attention._launch_k6, attention.attention_rel_bf16),
+           "K7": (attention._launch_k7, attention.attention_dense_bf16),
+           "K8": (attention._launch_k8, attention.attention_rel_win_bf16),
+           "K9": (upr._launch_k9, upr.unpartition_add_ln_plain),
+           "K6b": (attention._launch_k6_bwd, attention.attention_rel_bwd_bf16),
+           "K8b": (attention._launch_k8_bwd, attention.attention_rel_win_bwd_bf16),
+           "K9b": (upr._launch_k9_bwd, upr.unpartition_add_ln_bwd)}
+    labels = {"K6": ("B=1 windows", "B=1 global"), "K7": ("B=1 windows", "B=1 global"),
+              "K8": ("B=1", "B=8"), "K9": ("B=1",), "K6b": ("B=12 windows", "B=12 global"),
+              "K8b": ("B=12",), "K9b": ("B=12",)}
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        for label in labels[name]:
+            args = timed[(name, label)]
+            per_block = 20 if label.startswith("B=1 ") or label == "B=1" else 5
+            # the plain VJPs at batch 12 take milliseconds: fewer calls a block
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(
+                torch, lambda: kernel(*args), lambda: plain(*args), per_block,
+                2 if name.endswith("b") else None)
+            m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
+                 "device_ms": device_ms(torch, lambda: kernel(*args), per_block=per_block)[0],
+                 **yardsticks(name, args)}
+            print(f"{name} bf16 at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us "
+                  f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it), plain "
+                  f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us; {describe_yardsticks(m)}")
+            if label in ("B=1 global", "B=12 global"):  # the same kernel at the global blocks' shape
+                out[name]["global_tokens"] = m
+            elif label == "B=8":
+                out[name]["b8"] = m
+            else:
+                out[name] = {"max_abs_err": worst[name][0], **m}
     return out
 
 
@@ -3736,10 +4000,10 @@ def frob_rel(np, a, b) -> float:
 def bf16_module_holds(torch, np, cpu_model, card_model, card32_model, x_cpu, device):
     """Each module call inside encoder blocks 0 (windowed) and 2 (global) of
     the CPU's bfloat16 model, replayed on the card's bfloat16 module and on
-    the card's float32 one (inputs widened) of the same name: {kind: [least
+    the card's float32 one (inputs widened) of the same name → ({kind: [least
     share bit-equal, largest ||card - CPU|| / ||CPU||, least of the float32
-    module's share and distance]}."""
-    worst = {}
+    module's share and distance]}, the CPU model's embedding)."""
+    worst, emb = {}, None
     for index in (0, 2):
         calls, hooks = [], []
         for name, module in cpu_model.image_encoder.blocks[index].named_modules():
@@ -3749,7 +4013,7 @@ def bf16_module_holds(torch, np, cpu_model, card_model, card32_model, x_cpu, dev
                         (name, [a.clone() if torch.is_tensor(a) else a for a in args], kwargs,
                          out.clone())), with_kwargs=True))
         with torch.inference_mode():
-            cpu_model.get_image_embeddings(x_cpu)
+            emb = cpu_model.get_image_embeddings(x_cpu)
         for h in hooks:
             h.remove()
         card = dict(card_model.image_encoder.blocks[index].named_modules())
@@ -3769,7 +4033,7 @@ def bf16_module_holds(torch, np, cpu_model, card_model, card32_model, x_cpu, dev
             kind = type(card[name]).__name__
             w = worst.setdefault(kind, [1.0, 0.0, 1.0, float("inf")])
             worst[kind] = [min(w[0], equal), max(w[1], err), min(w[2], equal32), min(w[3], err32)]
-    return worst
+    return worst, emb
 
 
 def bf16_serving_phase(torch, device, model, cpu_model):
@@ -3840,7 +4104,7 @@ def bf16_serving_phase(torch, device, model, cpu_model):
     cpu_predictor = SamPredictor(cpu_bmodel)
     cpu_predictor.set_image(image)
     x_cpu = cpu_predictor._input_image(image)
-    modules = bf16_module_holds(torch, np, cpu_bmodel, bmodel, model, x_cpu, device)
+    modules, _ = bf16_module_holds(torch, np, cpu_bmodel, bmodel, model, x_cpu, device)
     f32_predictor = SamPredictor(model)
     f32_predictor.set_image(image)
     with torch.inference_mode():
@@ -3906,7 +4170,8 @@ def bf16_serving_phase(torch, device, model, cpu_model):
           f"{[round(times[k][0], 3) for k in times]}; predict ms {[round(times[k][1], 3) for k in times]}")
     return {"launches": launches, "set_image_ms": set_ms, "predict_ms": predict_ms,
             "embedding_gap": emb_gap, "logit_gap": logit_gap, "embedding_card_vs_cpu": emb_card,
-            "logits_card_vs_cpu": logit_card, "modules_card_vs_cpu": modules}
+            "logits_card_vs_cpu": logit_card, "modules_card_vs_cpu": modules,
+            "models": (bmodel, cpu_bmodel)}
 
 
 def bf16_al_phase(torch, workdir: Path, sl):
@@ -4014,8 +4279,8 @@ ROUTE_VARIANTS = (
 
 
 def with_encoder(model, **options):
-    """A copy of ``model`` whose image encoder has the same geometry and LoRA
-    rank, is built with ``options`` and loaded with the same weights (bar the
+    """A copy of ``model`` whose image encoder has the same geometry, LoRA
+    rank and compute dtype, is built with ``options`` and loaded with the same weights (bar the
     rel-pos tables of an encoder built without them); every parameter keeps
     its ``requires_grad`` and the copy the model's train/eval mode."""
     import copy
@@ -4030,7 +4295,8 @@ def with_encoder(model, **options):
         embed_dim=enc.pos_embed.shape[-1], depth=len(blocks), num_heads=blocks[0].attn.num_heads,
         out_chans=enc.neck[0].out_channels, window_size=max(b.window_size for b in blocks),
         global_attn_indexes=tuple(i for i, b in enumerate(blocks) if b.window_size == 0),
-        lora_rank=blocks[0].attn.lora_rank, **options).to(enc.pos_embed.device)
+        lora_rank=blocks[0].attn.lora_rank, compute_dtype=enc.compute_dtype,
+        **options).to(enc.pos_embed.device)
     encoder.load_state_dict({k: v for k, v in enc.state_dict().items()
                              if options.get("use_rel_pos", True) or "rel_pos" not in k})
     source = dict(enc.named_parameters())
@@ -4128,6 +4394,97 @@ def route_phase(torch, device, model):
               f"(float32 convolutions); set_image median {ms_a:.2f} / {ms_b:.2f} ms, default "
               f"encoder {base_a:.2f} / {base_b:.2f} ms (480x640 frame, in turns)")
     return {"launches": launches, "set_image_ms": out}
+
+
+def bf16_route_phase(torch, device, model, bmodel, cpu_bmodel, default_card_vs_cpu):
+    """The bfloat16 SAM of the bfloat16 serving phase with, in its place, the
+    encoder of each other route (``ROUTE_VARIANTS``, the same weights) serves
+    the 480x640 frame: one ``set_image`` launches exactly the route's
+    kernels, each as its bfloat16 instance (``bf16_launches``), and no
+    float32 instance of any kernel; every Linear, LayerNorm, Attention and
+    MLP call of encoder blocks 0 and 2 on the card against the same route's
+    bfloat16 model on the CPU, on the CPU's inputs (``bf16_module_holds``,
+    the bfloat16 serving phase's limits; the ``MIA_WINDOWED_ATTN=1`` variant,
+    whose route is the grid-native one, gives the embedding of that route by
+    argument bit for bit instead), and the whole embedding against the
+    CPU's, printed beside the default route's and held only to
+    ``BF16_WHOLE_SANITY`` times the route's bfloat16-vs-float32 gap on the
+    card; ``set_image`` medians in turns beside the bfloat16 default route."""
+    import numpy as np
+
+    from mia_tpu_torch.models.sam import SamPredictor
+
+    image = sam_frame(np)
+    counts = counters()
+    launches = {k: 0 for k in counts}
+    x_cpu = SamPredictor(cpu_bmodel)._input_image(image)
+    default = SamPredictor(bmodel)
+    out = {}
+    for label, options, switch, expect in ROUTE_VARIANTS:
+        variant = with_encoder(bmodel, **options)
+        variant32 = with_encoder(model, **options)
+        cpu_variant = with_encoder(cpu_bmodel, **options)
+        check(variant.image_encoder.compute_dtype == torch.bfloat16,
+              f"bf16 {label}: the variant's encoder is not bfloat16")
+        predictor = SamPredictor(variant)
+        with windowed_attn_switch(switch):
+            for fn in counts.values():
+                fn.launches = 0
+                if hasattr(fn, "bf16_launches"):
+                    fn.bf16_launches = 0
+            predictor.set_image(image)
+            torch.cuda.synchronize()
+            seen = {k: fn.bf16_launches for k, fn in counts.items()
+                    if getattr(fn, "bf16_launches", 0)}
+            seen32 = {k: fn.launches for k, fn in counts.items() if fn.launches}
+            with torch.inference_mode():
+                emb = variant.get_image_embeddings(x_cpu.to(device))
+                emb32 = variant32.get_image_embeddings(x_cpu.to(device))
+            if not switch:  # the switch's route is the grid-native one, held by argument
+                modules, emb_cpu = bf16_module_holds(torch, np, cpu_variant, variant, variant32,
+                                                     x_cpu, device)
+            base_a = median_s(lambda: default.set_image(image), torch, n=5) * 1e3
+            ms_a = median_s(lambda: predictor.set_image(image), torch, n=5) * 1e3
+            ms_b = median_s(lambda: predictor.set_image(image), torch, n=5) * 1e3
+            base_b = median_s(lambda: default.set_image(image), torch, n=5) * 1e3
+        check(seen == expect, f"bf16 {label}: bfloat16 launches of one set_image {seen}, expected "
+              f"{expect}")
+        check(not seen32, f"bf16 {label}: float32 kernels launched: {seen32}")
+        check(emb.dtype == torch.bfloat16 and bool(torch.isfinite(emb).all()),
+              f"bf16 {label}: embedding {emb.dtype} not finite")
+        if switch:  # the grid-native route by argument, the previous variant: the same embedding
+            check(torch.equal(emb, previous), f"bf16 {label}: the embedding differs from the "
+                  "grid-native route's by argument")
+        card_vs_cpu = frob_rel(np, emb.float().cpu(), emb_cpu.float())
+        gap = frob_rel(np, emb.float().cpu(), emb32.cpu())
+        previous = emb
+        check(set(modules) == {"Linear", "LayerNorm", "Attention", "MLPBlock"},
+              f"bf16 {label}: module holds covered {sorted(modules)}")
+        for kind in ("Linear", "LayerNorm"):
+            check(modules[kind][0] >= BF16_LEAF_EQUAL,
+                  f"bf16 {label} {kind} card vs CPU: {modules[kind][0]} bit-equal < {BF16_LEAF_EQUAL}")
+        for kind, tol in BF16_MODULE_TOL.items():
+            check(modules[kind][1] <= tol < modules[kind][3],
+                  f"bf16 {label} {kind} card vs CPU {modules[kind][1]} (limit {tol}, float32 module "
+                  f"{modules[kind][3]})")
+        check(card_vs_cpu <= BF16_WHOLE_SANITY * gap,
+              f"bf16 {label}: embedding card vs CPU {card_vs_cpu} > {BF16_WHOLE_SANITY} x {gap}")
+        for k, n in seen.items():
+            launches[k] += n
+        out[label] = {"set_image_ms": min(ms_a, ms_b), "default_ms": min(base_a, base_b),
+                      "embedding_card_vs_cpu": card_vs_cpu, "embedding_gap": gap,
+                      "modules_card_vs_cpu": modules}
+        print(f"bf16 routes: {label}: bfloat16 launches {seen}, no float32 kernel; modules of "
+              "blocks 0 and 2, card against CPU (least share bit-equal, largest ||card - CPU|| / "
+              "||CPU||; the float32 module's): "
+              + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.3g} ({v[2]:.4f} / {v[3]:.3g})"
+                          for k, v in modules.items())
+              + f"; embedding card vs CPU {card_vs_cpu:.3g} (the default route's "
+              f"{default_card_vs_cpu:.3g}; bfloat16 vs float32 on the card {gap:.3g}, sanity bound "
+              f"{BF16_WHOLE_SANITY} x that); set_image median {ms_a:.2f} / {ms_b:.2f} ms, bfloat16 "
+              f"default {base_a:.2f} / {base_b:.2f} ms (480x640 frame, in turns)")
+        del variant, variant32, cpu_variant, predictor
+    return {"launches": launches, "routes": out}
 
 
 # ---------------------------------------------------------------------------
@@ -5151,12 +5508,15 @@ def bf16_train_replay(torch, fn, inputs, blocks, device, gen):
 
 
 def _float32_block(torch, blk, x, device):
-    """The card's float32 block of ``blk``'s weights, with its trainable set."""
+    """The card's float32 block of ``blk``'s weights and route, with its trainable set."""
     from mia_tpu_torch.models.sam.image_encoder import Block
 
     attn = blk.attn
     blk32 = Block(x.shape[-1], attn.num_heads, attn.window_size, (x.shape[1], x.shape[2]),
-                  lora_rank=attn.lora_rank).to(device)
+                  lora_rank=attn.lora_rank, use_rel_pos=attn.use_rel_pos,
+                  attn_route=attn.attn_route,
+                  fuse_ln_window="never" if attn.window_size and not blk.use_lnw else "auto",
+                  fuse_unpart_residual="always" if blk.use_upr else "never").to(device)
     blk32.load_state_dict(blk.state_dict())
     trainable = {n for n, p in blk.named_parameters() if p.requires_grad}
     for n, p in blk32.named_parameters():
@@ -5172,6 +5532,7 @@ def bf16_train_module_holds(torch, np, blocks, x, device, gen):
     distance]}."""
     from mia_tpu_torch.models.sam import image_encoder
     from mia_tpu_torch.ops.ln_window import ln_window_partition_fused
+    from mia_tpu_torch.ops.unpartition_residual import unpartition_add_ln
 
     cpu = blocks["cpu"]
     calls, core = [], []
@@ -5184,33 +5545,40 @@ def bf16_train_module_holds(torch, np, blocks, x, device, gen):
     attend = cpu.attn._attend
     cpu.attn._attend = lambda qkv, hw, route: (core.append((qkv.detach().clone(), hw, route)),
                                                attend(qkv, hw, route))[1]
-    fused, names = [], ("fused_attention_rel_packed", "fused_attention_rel_packed_ik")
-    originals = {n: getattr(image_encoder, n) for n in names}
-    for n in names:
-        setattr(image_encoder, n, lambda qkv, a, b, *cfg, n=n: (
-            fused.append((n, [t.detach().clone() for t in (qkv, a, b)], cfg)),
-            originals[n](qkv, a, b, *cfg))[1])
+    # the block's attention kernel call (any route's) and K9's, by the name the encoder
+    # calls: the tensor operands, then the configuration
+    fused, originals = [], {n: getattr(image_encoder, n) for n in ATTENTION_OPS}
+    for n, tensors in ATTENTION_OPS.items():
+        setattr(image_encoder, n, lambda *args, n=n, k=tensors: (
+            fused.append((n, [t.detach().clone() for t in args[:k]], args[k:])),
+            originals[n](*args))[1])
     try:
         with torch.no_grad():
             cpu(x.cpu())
     finally:
-        for n in names:
-            setattr(image_encoder, n, originals[n])
+        for n, f in originals.items():
+            setattr(image_encoder, n, f)
         for h in hooks:
             h.remove()
         del cpu.attn._attend
     replays = [(kind, lambda b, *xs, name=name, kwargs=kwargs:
                 dict(b.named_modules())[name](*xs, **kwargs), args)
                for kind, name, args, kwargs in calls]
-    qkv, hw, route = core[0]
-    replays.append(("attention core", lambda b, t: b.attn._attend(t, hw, route), [qkv]))
+    if core:  # the grid-native route's windowed block calls no _attend
+        qkv, hw, route = core[0]
+        replays.append(("attention core", lambda b, t: b.attn._attend(t, hw, route), [qkv]))
     if cpu.use_lnw:
         replays.append(("K4", lambda b, t: ln_window_partition_fused(
             t, b.norm1.weight, b.norm1.bias, b.window_size, b.norm1.eps), [x.cpu()]))
+    k9 = [c for c in fused if c[0] == "unpartition_add_ln"]
+    if k9:  # K9: both outputs, the block's norm2 parameters
+        replays.append(("K9", lambda b, w, t: torch.cat([o.flatten() for o in unpartition_add_ln(
+            w, t, b.norm2.weight, b.norm2.bias, b.window_size, b.norm2.eps)]), k9[0][1]))
     worst = {}
     results = [(kind, bf16_train_replay(torch, fn, inputs, blocks, device, gen))
                for kind, fn, inputs in replays]
-    results += bf16_attention_kernel_replays(torch, fused[0], device, gen)
+    results += bf16_attention_kernel_replays(
+        torch, next(c for c in fused if c[0] != "unpartition_add_ln"), device, gen)
     for kind, res in results:
         for what, want in res["cpu"].items():
             got, got32 = res["card"][what], res["f32"][what]
@@ -5226,39 +5594,77 @@ def bf16_train_module_holds(torch, np, blocks, x, device, gen):
     return worst
 
 
+# the ops an encoder block calls for its attention kernel (K2, K3, K6 through its padding-free
+# wrapper, K7 through its, K8) and for K9, by their name in the encoder's module, with the
+# number of tensor operands before their configuration
+ATTENTION_OPS = {"fused_attention_rel_packed": 3, "fused_attention_rel_packed_ik": 3,
+                 "attention_rel_with_padding": 5, "attention_with_padding": 4,
+                 "fused_attention_rel_win": 4, "unpartition_add_ln": 2}
+
+
 def bf16_attention_kernel_replays(torch, call, device, gen):
-    """The block's attention kernel on the CPU block's own operands
-    (``call``: the name of the fused op, ``(qkv, rel_a, rel_b)`` and its
-    configuration): the forward (K2 / K3 on the card, the plain bfloat16
-    version on the CPU, the plain float32 one of the widened operands) and
-    the backward alone, on the CPU's plain forward's output and log-sum-exp
-    (K2b / K3b on the card, the plain bfloat16 VJP on the CPU, the plain
-    float32 VJP) → [(kind, {target: {"output" / "dx": tensor}})] as
-    ``bf16_train_replay`` gives them."""
+    """The block's attention kernel on the CPU block's own operands (``call``:
+    the name of the op the encoder called, its tensor operands and its
+    configuration): the forward (K2 / K3 / K6 / K7 / K8 on the card, the plain
+    bfloat16 version on the CPU, the plain float32 one of the widened
+    operands) and the backward alone, on the CPU's plain forward's output and
+    log-sum-exp (K2b / K3b / K6b / K8b on the card, K7's plain VJP there, the
+    plain bfloat16 VJP on the CPU, the plain float32 VJP) → [(kind, {target:
+    {"output" / "dx": tensor}})] as ``bf16_train_replay`` gives them."""
     from mia_tpu_torch.ops import attention
 
-    name, (qkv, rel_a, rel_b), (scale, k_hw, heads) = call
-    windowed = name.endswith("_ik")
-    rel = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, heads) if windowed else (rel_a, rel_b)
-    out, lse = attention.attention_rel_packed_bf16(qkv, *rel, scale, k_hw, heads)
-    g = torch.randn(out.shape, generator=gen).to(torch.bfloat16)
-    wide = [t.float() for t in (qkv, rel_a, rel_b)]
-    card = [t.to(device) for t in (qkv, rel_a, rel_b, out, g, lse)]
-    launch = attention._launch_k2 if windowed else attention._launch_k3
-    if windowed:
-        back = (attention.attention_rel_packed_ik_bwd_bf16(qkv, rel_a, rel_b, out, g, lse, scale,
-                                                           k_hw, heads, False)[:1],
-                attention.fused_attention_rel_packed_ik_bwd(*card, scale, k_hw, heads, False)[:1],
-                attention.attention_rel_packed_ik_bwd(*wide, out.float(), g.float(), scale, k_hw,
-                                                      heads, False)[:1])
-        plain32 = attention.attention_rel_packed_ik(*wide, scale, k_hw, heads)
-    else:
-        back = (attention.attention_rel_packed_bwd_bf16(qkv, rel_a, rel_b, out, g, lse, scale,
-                                                        k_hw, heads),
-                attention.fused_attention_rel_packed_bwd(*card, scale, k_hw, heads),
-                attention.attention_rel_packed_bwd(*wide, out.float(), g.float(), scale, k_hw, heads))
-        plain32 = attention.attention_rel_packed(*wide, scale, k_hw, heads)
-    forward = {"cpu": out, "card": launch(*card[:3], scale, k_hw, heads), "f32": plain32}
+    name, ops, cfg = call
+    wide = [t.float() for t in ops]
+    if name in ("fused_attention_rel_packed", "fused_attention_rel_packed_ik"):
+        qkv, rel_a, rel_b = ops
+        scale, k_hw, heads = cfg
+        windowed = name.endswith("_ik")
+        rel = (attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, heads) if windowed
+               else (rel_a, rel_b))
+        out, lse = attention.attention_rel_packed_bf16(qkv, *rel, scale, k_hw, heads)
+        g = torch.randn(out.shape, generator=gen).to(torch.bfloat16)
+        card = [t.to(device) for t in (*ops, out, g, lse)]
+        launch = attention._launch_k2 if windowed else attention._launch_k3
+        if windowed:
+            back = (attention.attention_rel_packed_ik_bwd_bf16(*ops, out, g, lse, *cfg, False)[:1],
+                    attention.fused_attention_rel_packed_ik_bwd(*card, *cfg, False)[:1],
+                    attention.attention_rel_packed_ik_bwd(*wide, out.float(), g.float(), *cfg,
+                                                          False)[:1])
+            plain32 = attention.attention_rel_packed_ik(*wide, *cfg)
+        else:
+            back = (attention.attention_rel_packed_bwd_bf16(*ops, out, g, lse, *cfg),
+                    attention.fused_attention_rel_packed_bwd(*card, *cfg),
+                    attention.attention_rel_packed_bwd(*wide, out.float(), g.float(), *cfg))
+            plain32 = attention.attention_rel_packed(*wide, *cfg)
+        forward = launch(*card[:3], *cfg)
+    elif name in ("attention_rel_with_padding", "fused_attention_rel_win"):  # K6, K8
+        k6 = name == "attention_rel_with_padding"
+        plain, launch, plain_bwd, launch_bwd, plain32_fwd, plain32_bwd = (
+            (attention.attention_rel_bf16, attention._launch_k6, attention.attention_rel_bwd_bf16,
+             attention._launch_k6_bwd, attention.attention_rel, attention.attention_rel_bwd) if k6
+            else (attention.attention_rel_win_bf16, attention._launch_k8,
+                  attention.attention_rel_win_bwd_bf16, attention._launch_k8_bwd,
+                  attention.attention_rel_win, attention.attention_rel_win_bwd))
+        ops = [t.contiguous() for t in ops]
+        out, lse = plain(*ops, *cfg)
+        g = torch.randn(out.shape, generator=gen).to(torch.bfloat16)
+        card = [t.to(device) for t in (*ops, out, g, lse)]
+        back = (plain_bwd(*ops, out, g, lse, *cfg), launch_bwd(*card, *cfg),
+                plain32_bwd(*wide, out.float(), g.float(), *cfg))
+        plain32 = plain32_fwd(*wide, *cfg)
+        forward = launch(*card[:len(ops)], *cfg)
+    else:  # K7: its backward is the plain VJP on either side, as in the JAX package
+        ops = [t.contiguous() for t in ops]
+        (scale,) = cfg
+        out = attention.attention_dense_bf16(*ops, scale)
+        g = torch.randn(out.shape, generator=gen).to(torch.bfloat16)
+        card = [t.to(device) for t in ops]
+        back = (attention.attention_dense_bwd(*ops, g, scale),
+                attention.attention_dense_bwd(*card, g.to(device), scale),
+                attention.attention_dense_bwd(*wide, g.float(), scale))
+        plain32 = attention.attention_dense(*wide, scale)
+        forward = attention._launch_k7(*card, scale)
+    forward = {"cpu": out, "card": forward, "f32": plain32}
     torch.cuda.synchronize()
 
     def flat(ts):
@@ -5338,6 +5744,7 @@ def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
     no_float32 = {ph: {**STEP_LAUNCHES[ph], **{k: 0 for k in BF16_STEP_LAUNCHES}} for ph in (1, 2)}
     check_cpcsam_steps(torch, trainer, rec, [1, 1, 2, 2], (), expected=no_float32)
     for i, per_step in enumerate(rec["bf16_steps"]):
+        per_step = {k: n for k, n in per_step.items() if n}
         check(per_step == BF16_STEP_LAUNCHES,
               f"bfloat16 step {i} launched {per_step}, expected {BF16_STEP_LAUNCHES}")
     work = trainer.work_path
@@ -5393,10 +5800,167 @@ def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
           f"in the run {rec['bf16_launches']}; losses first {rec['losses'][0]} last "
           f"{rec['losses'][-1]}; 48 LoRA tensors moved, frozen encoder bit-identical; lora.msgpack "
           "float32 in the float32 run's layout")
-    return {"launches": rec["bf16_launches"], "phase1_step_ms": med[1], "phase2_step_ms": med[2],
+    return {"launches": rec["bf16_launches"], "trainer": trainer, "phase1_step_ms": med[1],
+            "phase2_step_ms": med[2],
             "max_memory_allocated": rec["peak"], "losses": rec["losses"],
             "blocks_card_vs_cpu": {n: {w: list(v) for w, v in d.items()} for n, d in blocks.items()},
             "modules_card_vs_cpu": {f"{k} {w}": v for (k, w), v in modules.items()}}
+
+
+def bf16_route_train_phase(torch, device, trainer, datasets, f32_routes):
+    """The trained bfloat16 CPC-SAM model of the bfloat16 phase, its rel-pos
+    tables seeded as the route-training phase seeds them, with in its place
+    the encoder of each other route (``ROUTE_TRAIN_VARIANTS`` bar the K10
+    one, in bfloat16): one phase-1 loss and backward at batch 12 (6
+    labeled) launches exactly the route's kernels, each as its bfloat16
+    instance, and no float32 instance of any kernel; a finite loss and 48
+    LoRA gradients; one ``CPCSAMTrainer.train_step`` moves the 48 LoRA tensors
+    and no frozen one; encoder blocks 0 and 2 module by module on the card
+    against the CPU, as the bfloat16 CPC-SAM phase holds them
+    (``bf16_block_holds``: here with each route's kernel replayed, and K9's
+    join as a leaf; the ``MIA_WINDOWED_ATTN=1`` variant, whose route is the
+    grid-native one, gives that route's loss and gradients by argument within
+    ``ROUTE_LOSS_TOL`` and ``ROUTE_GRAD_TOL`` instead); the loss + backward's time and peak memory beside the
+    bfloat16 default route's (in turns) and the float32 route's."""
+    import copy
+
+    import numpy as np
+
+    from mia_tpu_torch.training.cpcsam_trainer import CPCSAMTrainer
+
+    counts = counters()
+    launches = {k: 0 for k in counts}
+    train_set = datasets["train"]
+    picks = list(range(6)) + list(range(32, 38))  # 6 labeled, 6 unlabeled slices
+    images = torch.from_numpy(np.stack([np.repeat(train_set.images[i][..., None], 3, -1)
+                                        for i in picks])).to(device)
+    labels = torch.from_numpy(train_set.labels[picks]).long().to(device)
+    base = copy.deepcopy(trainer.model)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, p in base.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    config = dict(image_size=trainer.config.image_size, num_classes=3, batch_size=12,
+                  labeled_batch_ratio=0.5, lora_rank=4, dice_weight=0.8, promptmode=["point"],
+                  optimizer_name="adam", compute_dtype="bfloat16")
+
+    def stepper(model):
+        tr = CPCSAMTrainer(device=device, config=config)
+        tr.model, tr.logger, tr.epoch_train_outputs = model, trainer.logger, []
+        tr._setup_loss()
+        tr._setup_optimizer()
+        return tr
+
+    def loss_and_grads(tr):
+        """One phase-1 loss and its LoRA gradients, counted → (loss, grads,
+        bfloat16 launches, float32 launches, peak bytes)."""
+        lora = [p for n, p in tr.model.named_parameters() if "lora_" in n]
+        for fn in counts.values():
+            fn.launches = 0
+            if hasattr(fn, "bf16_launches"):
+                fn.bf16_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        total = tr.compute_losses(images, labels, 0, False)[0]
+        grads = torch.autograd.grad(total, lora)
+        torch.cuda.synchronize()
+        seen = {k: fn.bf16_launches for k, fn in counts.items() if getattr(fn, "bf16_launches", 0)}
+        seen32 = {k: fn.launches for k, fn in counts.items() if fn.launches}
+        return total.item(), grads, seen, seen32, torch.cuda.max_memory_allocated(device)
+
+    def timed(tr):
+        return median_s(lambda: loss_and_grads(tr), torch, n=2, warmup=0) * 1e3
+
+    default = stepper(base)
+    want = loss_and_grads(default)
+    check(want[2] == BF16_STEP_LAUNCHES and not want[3],
+          f"bfloat16 default route: launches of a phase-1 loss and backward {want[2]}, float32 "
+          f"{want[3]}")
+    leaves = BF16_TRAIN_LEAVES + ("K9",)
+    blocks_img = torch.from_numpy(np.stack([np.repeat(train_set.images[i][..., None], 3, -1)
+                                            for i in (0, 40)])).to(device)
+    out = {}
+    for label, options, switch, expect in ROUTE_TRAIN_VARIANTS:
+        if "K10" in expect:
+            continue
+        tr = stepper(with_encoder(base, **options))
+        enc = tr.model.image_encoder
+        check(tr.model.training and enc.compute_dtype == torch.bfloat16
+              and enc.blocks[0].attn.lora_rank == 4,
+              f"bf16 {label}: the variant is not the bfloat16 LoRA-4 model in train mode")
+        with windowed_attn_switch(switch):
+            loss, grads, seen, seen32, peak = loss_and_grads(tr)
+            base_a, ms_a = timed(default), timed(tr)
+            ms_b, base_b = timed(tr), timed(default)
+            before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+            tr.train_step({"image": images, "label": labels})
+            tr._flush_train_logs()
+            torch.cuda.synchronize()
+            if not switch:  # the switch's route is the grid-native one, held by argument
+                modules, whole = bf16_block_holds(torch, tr.model, blocks_img, device)
+        check(seen == expect, f"bf16 {label}: bfloat16 launches of a phase-1 loss and backward "
+              f"{seen}, expected {expect}")
+        check(not seen32, f"bf16 {label}: float32 kernels launched: {seen32}")
+        check(math.isfinite(loss) and len(grads) == 48
+              and all(bool(torch.isfinite(g).all()) for g in grads),
+              f"bf16 {label}: loss {loss} or its LoRA gradients not finite")
+        if switch:  # the grid-native route by argument, the previous variant, run again
+            scale = max(g.abs().max().item() for g in previous[1])
+            check(abs(loss - previous[0]) <= ROUTE_LOSS_TOL * abs(previous[0])
+                  and max((a - b).abs().max().item() for a, b in zip(grads, previous[1]))
+                  <= ROUTE_GRAD_TOL * scale,
+                  f"bf16 {label}: loss or LoRA gradients differ from the grid-native route's by "
+                  "argument")
+        previous = (loss, grads)
+        step_loss = tr.epoch_train_outputs[-1]["loss"]
+        changed = {n for n, p in tr.model.named_parameters() if not torch.equal(p.detach(), before[n])}
+        check(all(math.isfinite(v) for v in step_loss) and tr.optimizer.count == 1,
+              f"bf16 {label}: train_step losses {step_loss}, optimizer steps {tr.optimizer.count}")
+        check(sum("lora_" in n for n in changed) == 48
+              and not [n for n in changed if n.startswith("image_encoder.") and "lora_" not in n],
+              f"bf16 {label}: one train_step must move the 48 LoRA tensors and no frozen one")
+        kinds = {k for k, _ in modules}
+        check({"Linear", "LayerNorm", "MLPBlock", "Attention", "attention core",
+               "attention forward", "attention backward"} <= kinds,
+              f"bf16 {label}: training module holds covered {sorted(kinds)}")
+        for (kind, what), (equal, err, equal32, err32) in modules.items():
+            if kind in leaves:
+                check(equal >= BF16_TRAIN_LEAF_EQUAL, f"bf16 {label} {kind} {what} card vs CPU: "
+                      f"{equal} bit-equal < {BF16_TRAIN_LEAF_EQUAL}")
+            else:
+                share = BF16_TRAIN_SHARES.get(kind, BF16_WHOLE_SANITY)
+                check(err <= share * err32, f"bf16 {label} {kind} {what} card vs CPU {err:.3g}, "
+                      f"not under {share} x the float32 version's {err32:.3g}")
+        for name, dists in whole.items():
+            for what, (d16, d32) in dists.items():
+                check(d16 <= BF16_WHOLE_SANITY * d32, f"bf16 {label} {name} {what}: card vs CPU "
+                      f"{d16:.3g} > {BF16_WHOLE_SANITY} x the float32 block's {d32:.3g}")
+        for k, n in seen.items():
+            launches[k] += n
+        f32_ms = f32_routes.get(label, {}).get("step_ms")
+        out[label] = {"step_ms": min(ms_a, ms_b), "default_ms": min(base_a, base_b),
+                      "float32_step_ms": f32_ms, "max_memory_allocated": peak,
+                      "default_max_memory_allocated": want[4],
+                      "modules_card_vs_cpu": {f"{k} {w}": v for (k, w), v in modules.items()},
+                      "blocks_card_vs_cpu": {n: {w: list(v) for w, v in d.items()}
+                                             for n, d in whole.items()}}
+        print(f"bf16 route training: {label}: bfloat16 launches {seen}, no float32 kernel; loss "
+              f"{loss:.6f}; modules of blocks 0 and 2, card against CPU (least share bit-equal, "
+              "largest ||card - CPU|| / ||CPU||; the float32 version's): "
+              + ", ".join(f"{k} {w} {v[0]:.4f} / {v[1]:.3g} ({v[2]:.4f} / {v[3]:.3g})"
+                          for (k, w), v in sorted(modules.items()))
+              + "; blocks: " + "; ".join(f"{n}: " + ", ".join(f"{w} {a:.3g} / {b:.3g}"
+                                                           for w, (a, b) in d.items())
+                                      for n, d in whole.items())
+              + f"; phase-1 loss + backward {ms_a:.2f} / {ms_b:.2f} ms, bfloat16 default "
+              f"{base_a:.2f} / {base_b:.2f} ms, float32 route "
+              + ("not measured" if f32_ms is None else f"{f32_ms:.2f} ms")
+              + f" (batch 12, 6 labeled, means of 2 after a first call, in turns); peak "
+              f"{peak / 2**30:.2f} GiB, bfloat16 default {want[4] / 2**30:.2f} GiB; one train_step "
+              "moved the 48 LoRA tensors")
+        del tr
+    return {"launches": launches, "routes": out}
 
 
 def main(argv=None) -> int:
@@ -5447,7 +6011,8 @@ def main(argv=None) -> int:
     measured = {"K1": timed("K1", kernel_phase, torch, device),
                 **timed("K2-K4", sam_kernel_phase, torch, device),
                 "bf16": {**timed("K2-K4 bfloat16", bf16_kernel_phase, torch, device),
-                         **timed("K2b-K4b bfloat16", bf16_train_kernel_phase, torch, device)},
+                         **timed("K2b-K4b bfloat16", bf16_train_kernel_phase, torch, device),
+                         **timed("K6-K9b bfloat16", bf16_route_kernel_phase, torch, device)},
                 **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
                 **timed("K6-K9", route_kernel_phase, torch, device),
                 **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device),
@@ -5465,6 +6030,8 @@ def main(argv=None) -> int:
         route_train = timed("route training", route_train_phase, torch, device, cpc_trainer, acdc)
         del cpc_trainer
         bf16_cpc = timed("CPC-SAM bfloat16", cpcsam_bf16_phase, torch, device, Path(tmp), acdc, cpc)
+        bf16_route_train = timed("route training bfloat16", bf16_route_train_phase, torch, device,
+                                 bf16_cpc.pop("trainer"), acdc, route_train["routes"])
         del acdc
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
@@ -5473,6 +6040,10 @@ def main(argv=None) -> int:
             shutil.copy(fugc["log"], args.out / "chip_smoke_fugc_log.txt")
     sam, model, cpu_model = timed("SAM serving", sam_phase, torch, device)
     bf16_sam = timed("SAM serving bfloat16", bf16_serving_phase, torch, device, model, cpu_model)
+    bmodel, cpu_bmodel = bf16_sam.pop("models")
+    bf16_routes = timed("encoder routes bfloat16", bf16_route_phase, torch, device, model, bmodel,
+                        cpu_bmodel, bf16_sam["embedding_card_vs_cpu"])
+    del bmodel, cpu_bmodel
     serving_k10 = timed("K10 serving", upscaler_serving_phase, torch, device, model)
     routes = timed("encoder routes", route_phase, torch, device, model)
     amg = timed("AMG", amg_phase, torch, device, model, cpu_model)
@@ -5495,10 +6066,11 @@ def main(argv=None) -> int:
     launches["K1"] += sl["launches"] + sel["launches"] + warmer["launches"] + bf16_al["launches"]
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
-    # the bfloat16 instances of K2, K3 and K4, from SAM serving in bfloat16
     # the bfloat16 instances: K2-K4 from SAM serving and CPC-SAM training in bfloat16, K2b-K4b
-    # from CPC-SAM training in bfloat16
-    bf16 = {k: {"launches": bf16_sam["launches"].get(k, 0) + bf16_cpc["launches"][k],
+    # from CPC-SAM training in bfloat16, and every kernel of the other routes from their
+    # bfloat16 serving and training phases
+    bf16 = {k: {"launches": sum(path["launches"].get(k, 0)
+                                for path in (bf16_sam, bf16_cpc, bf16_routes, bf16_route_train)),
                 **measured["bf16"][k]} for k in BF16_KERNELS}
     for k, entry in bf16.items():
         check(entry["launches"] > 0, f"{k} in bfloat16 was launched on no path")
@@ -5533,7 +6105,9 @@ def main(argv=None) -> int:
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
                         "bf16": {"sam": {k: v for k, v in bf16_sam.items() if k != "launches"},
                                  "al": {k: v for k, v in bf16_al.items() if k != "launches"},
-                                 "cpcsam": {k: v for k, v in bf16_cpc.items() if k != "launches"}},
+                                 "cpcsam": {k: v for k, v in bf16_cpc.items() if k != "launches"},
+                                 "routes": bf16_routes["routes"],
+                                 "route_training": bf16_route_train["routes"]},
                         "routes": routes["set_image_ms"],
                         "amg": {k: v for k, v in amg.items() if k != "launches"},
                         "selectors": {k: v for k, v in sel.items() if k != "launches"},

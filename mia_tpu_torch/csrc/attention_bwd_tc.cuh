@@ -95,8 +95,8 @@
 // flops a pair (chip_smoke.py's count) take 586 us at that rate, against
 // 1442 us in float32 on the CUDA cores.
 //
-// The bfloat16 instance (attention_bwd_bf16_{dq,dkv}_kernel below; K2b and
-// K3b of a bfloat16 encoder, packed layout only) is described before it.
+// The bfloat16 instance (attention_bwd_bf16_{dq,dkv}_kernel below: every
+// layout of this template, for a bfloat16 encoder) is described before it.
 //
 // The kernels allocate nothing and do not synchronise; the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -797,14 +797,18 @@ int dispatch_tc_bwd(const BwdArgs& a, int batch, int d, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The bfloat16 instance: K3b (kTables false) and K2b (kTables true, between
-// kernel R's and kernel Q's bfloat16 instances in attention_rel.cu) on
-// bfloat16 packed qkv, rel terms, out, g and dqkv, the TPU kernels' fast
-// path ("gradient matmuls in the input dtype", mia_tpu/ops/attention.py).
-// The two passes, blocks, warps, stages and sub-tiles of the float32
-// template above, with one bfloat16 mma.sync.m16n8k16 (float32
-// accumulator) where 3xTF32 takes three m16n8k8, and the Pallas kernel's
-// roundings:
+// The bfloat16 instance: attention_bwd_bf16_{dq,dkv}_kernel<D, kTables,
+// kWindow>, the float32 template's layouts on bfloat16 operands, the TPU
+// kernels' fast path ("gradient matmuls in the input dtype",
+// mia_tpu/ops/attention.py): K3b (kTables false) and K2b (kTables true,
+// between kernel R's and kernel Q's bfloat16 instances in attention_rel.cu)
+// on bfloat16 packed qkv, rel terms, out, g and dqkv; K6b on head-major
+// strides (C entry beside K3b's, as for float32); K8b (kWindow) on windows
+// carved from the bfloat16 qkv grid by the slot map, dbias_kv from float32
+// partials (attention_routes.cu). The two passes, blocks, warps, stages and
+// sub-tiles of the float32 template above, with one bfloat16
+// mma.sync.m16n8k16 (float32 accumulator) where 3xTF32 takes three m16n8k8,
+// and the Pallas kernels' roundings:
 //   - q * scale is rounded to bfloat16 with the scale rounded first, as in
 //     the forward (attention_fwd_bf16_kernel): pass A keeps it as the A
 //     fragments of S = (scale Q).K^T, pass B rounds the streamed Q tile in
@@ -822,16 +826,21 @@ int dispatch_tc_bwd(const BwdArgs& a, int batch, int d, void* stream) {
 //     scale Q, whose reduction axis (the token) runs down the rows of their
 //     shared tiles, come from ldmatrix.trans, as V's in the forward;
 //   - dq, dk and dv are float32 sums over all key (pass A) or query (pass
-//     B) tiles, rounded once: dq = (dS.K) * scale to bfloat16 (K3b) or, for
-//     K2b, to a float32 scratch that kernel Q adds the routed rel cotangent
-//     to before its one rounding; drel_h / drel_w are float32 sums of the
-//     rounded dS over a key row / column, rounded to bfloat16.
+//     B) tiles, rounded once: dq = (dS.K) * scale to bfloat16 (K3b, K6b,
+//     K8b) or, for K2b, to a float32 scratch that kernel Q adds the routed
+//     rel cotangent to before its one rounding; drel_h / drel_w are float32
+//     sums of the rounded dS over a key row / column, rounded to bfloat16;
+//     K8b's pad keys' dk and dv, float32, are summed into one partial row
+//     per (window, key tile), which the caller reduces in a fixed order and
+//     rounds once.
 // Tiles are bfloat16 in shared memory, rows padded to D + 8 elements (16
 // bytes), so the 32-bit fragment reads of a row group and ldmatrix's row
 // reads fall in distinct banks; the rel rows stay bfloat16 there too (4-byte
 // asynchronous copies of element pairs where every run starts and ends on a
-// pair, as at kh, kw even; plain loads otherwise). As in the float32
-// template, two launches are bit-identical.
+// pair, as at kh, kw even; plain loads otherwise; K8b's by the slot map,
+// plain loads). K8b's window layout is the float32 kWindow instance's: pad
+// queries have zero q and g rows, lse = +inf and delta = 0 in pass B, so p
+// = 0 exactly. As in the float32 template, two launches are bit-identical.
 //
 // Bound: operations, 10 D flops a (query, key) pair at 989 TFLOP/s dense
 // bfloat16 (the VJP's five products; the passes compute seven), or bytes
@@ -840,18 +849,30 @@ int dispatch_tc_bwd(const BwdArgs& a, int batch, int d, void* stream) {
 // both).
 
 struct Bf16BwdArgs {
-  const bf16* qkv;    // (batch, n, 3 * heads * D)
-  const bf16* rel_a;  // K3b: rel_h (B*H, n, kh); K2b: kernel R's terms (B*H, n, kh + kw)
-  const bf16* rel_b;  // K3b: rel_w (B*H, n, kw); K2b: kernel R's terms again
-  const bf16* out;    // the forward's output (batch, n, heads * D)
-  const bf16* g;      // its cotangent
-  const float* lse;   // the forward's log-sum-exp (B*H, n)
-  bf16* dqkv;         // (batch, n, 3 * heads * D); K2b: dk, dv (kernel Q writes dq)
-  float* dq32;        // K2b: (batch, n, heads * D), dq before the routed rel cotangent
-  float* delta;       // scratch (B*H, n): rowsum(g * o), pass A -> B
-  bf16* drel_a;       // K3b: drel_h; K2b: drel (B*H, n, kh + kw)
-  bf16* drel_b;       // K3b: drel_w
-  int n, heads, kh, kw;
+  const bf16* q;        // first head's columns of token 0
+  const bf16* k;
+  const bf16* v;
+  const bf16* rel_a;    // kTables false: rel_h; true: kernel R's terms (B*H, n, kh + kw)
+  const bf16* rel_b;    // kTables false: rel_w; true: kernel R's terms again
+  const bf16* pad_kv;   // kWindow: (3, heads*D) q, k, v rows of a pad slot
+  const bf16* out;      // the forward's output
+  const bf16* g;        // its cotangent
+  const float* lse;     // the forward's log-sum-exp (B*H, tokens)
+  bf16* dq;             // same strides as q, k, v (K2b: kernel Q writes dq)
+  bf16* dk;
+  bf16* dv;
+  float* dq32;          // K2b: (batch, n, heads * D), dq before the routed rel cotangent
+  float* delta;         // scratch (B*H, tokens): rowsum(g * o), pass A -> B
+  bf16* drel_a;         // kTables false: drel_h; true: drel (B*H, n, kh + kw)
+  bf16* drel_b;         // kTables false: drel_w
+  float* dpad;          // kWindow: (windows * key tiles, 2, heads*D) pad-slot dk | dv partials
+  long long in_stride;  // elements per token row of q, k, v, dq, dk, dv
+  long long out_stride; // elements per token row of out and g (and K2b's dq32)
+  int n;                // query rows = key rows per batch element (or slots per window)
+  int heads;
+  int kh, kw;           // key grid: n == kh * kw
+  int hg, wg;           // kWindow: the token grid
+  int nwx, nwin;        // kWindow: windows per grid row, windows per image
   float scale;
 };
 
@@ -896,9 +917,31 @@ __device__ __forceinline__ void copy_rel_bf16(bf16* R, const bf16* __restrict__ 
   }
 }
 
+// The rel rows of slots q0 .. q0+63 into R (bfloat16, laid out as
+// rel_view<false>) by the slot map: rows row_base + token of rel_h and rel_w
+// for a slot with a token, zeros for any other slot; plain loads (visible
+// after the __syncthreads that follows the stage's wait)
+__device__ __forceinline__ void copy_rel_slots_bf16(bf16* R, const bf16* __restrict__ rel_h,
+                                                    const bf16* __restrict__ rel_w,
+                                                    long long row_base, const int* tok_s, int kh,
+                                                    int kw, int q0) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kTcTile; r += kTcThreads / 32) {
+    const int tok = tok_s[q0 + r];
+    const long long row = row_base + tok;
+    for (int j = lane; j < kh + kw; j += 32) {
+      const bool h = j < kh;
+      bf16* dst = h ? R + r * kh + j : R + kTcTile * kh + r * kw + (j - kh);
+      *dst = tok >= 0 ? (h ? rel_h[row * kh + j] : rel_w[row * kw + (j - kh)])
+                      : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
 // Pass A: dq, delta and the rel gradients of one 64-query tile.
-template <int D, bool kTables>
+template <int D, bool kTables, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(const Bf16BwdArgs a) {
+  static_assert(!(kTables && kWindow), "K8b's rel terms are inputs");
   constexpr int kRow = D + 8;   // padded K/V row, bf16 elements
   constexpr int kK = D / 16;    // k16 steps of S and dP over the head dim
   constexpr int kN = D / 8;     // n8 tiles of dq
@@ -915,38 +958,71 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
   const int tq = lane & 3;
   float* Sw = DRel + kTcTile * (ka + 1) + warp * 16 * kSubRow;  // this warp's ds sub-tile
   bf16* Rel = reinterpret_cast<bf16*>(DRel + kTcTile * (ka + 1) + 4 * 16 * kSubRow);
+  // kWindow: the window's slot -> token map, after the rel rows
+  [[maybe_unused]] int* tok_s = reinterpret_cast<int*>(Rel + kTcTile * ka);
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
+  long long img = blockIdx.z;  // batch element, or the image of this window
+  int tokens = n;              // tokens per batch element / image
+  if constexpr (kWindow) {
+    img = blockIdx.z / a.nwin;
+    const int win = static_cast<int>(blockIdx.z - img * a.nwin);
+    // no slot of this tile is a query: nothing to compute or write
+    if (static_cast<int>(blockIdx.x) * kTcTile >= window_queries(a, win)) return;
+    tokens = a.hg * a.wg;
+    stage_slot_tokens(tok_s, a, win, gridDim.x * kTcTile);
+    __syncthreads();
+  }
+  const long long tok0 = img * tokens;
   const long long bh = img * heads + head;
   const int row0 = blockIdx.x * kTcTile;
   const int rows = min(kTcTile, n - row0);
-  const long long stride = 3LL * heads * D;
-  const long long ostride = static_cast<long long>(heads) * D;
-  const bf16* q_base = a.qkv + img * n * stride + head * D;
-  const bf16* k_base = q_base + ostride;
-  const bf16* v_base = k_base + ostride;
-  const bf16* g_base = a.g + img * n * ostride + head * D;
-  const bf16* o_base = a.out + img * n * ostride + head * D;
+  const long long stride = a.in_stride;
+  const long long ostride = a.out_stride;
+  const bf16* q_base = a.q + tok0 * stride + head * D;
+  const bf16* k_base = a.k + tok0 * stride + head * D;
+  const bf16* v_base = a.v + tok0 * stride + head * D;
+  const bf16* g_base = a.g + tok0 * ostride + head * D;
+  const bf16* o_base = a.out + tok0 * ostride + head * D;
   const RelView rv = rel_view<kTables>(kh, kw);
   const int ntiles = (n + kTcTile - 1) / kTcTile;
 
   auto issue = [&](int tile) {
     bf16* st = KV + (tile & 1) * kStage;
-    copy_rows_bf16_async<D, kTcTile>(st, k_base, stride, tile * kTcTile, n);
-    copy_rows_bf16_async<D, kTcTile>(st + kTcTile * kRow, v_base, stride, tile * kTcTile, n);
+    if constexpr (kWindow) {
+      copy_slots_bf16_async<D>(st, k_base, stride, tok_s, tile * kTcTile,
+                               a.pad_kv + (heads + head) * D);
+      copy_slots_bf16_async<D>(st + kTcTile * kRow, v_base, stride, tok_s, tile * kTcTile,
+                               a.pad_kv + (2 * heads + head) * D);
+    } else {
+      copy_rows_bf16_async<D, kTcTile>(st, k_base, stride, tile * kTcTile, n);
+      copy_rows_bf16_async<D, kTcTile>(st + kTcTile * kRow, v_base, stride, tile * kTcTile, n);
+    }
     cp_async_commit();
   };
-  copy_rel_bf16<kTables>(Rel, a.rel_a, a.rel_b, bh, n, kh, kw, row0, rows);  // lands with tile 0
+  if constexpr (kWindow) {  // lands with tile 0
+    copy_rel_slots_bf16(Rel, a.rel_a, a.rel_b, bh * tokens, tok_s, kh, kw, row0);
+  } else {
+    copy_rel_bf16<kTables>(Rel, a.rel_a, a.rel_b, bh, n, kh, kw, row0, rows);
+  }
   issue(0);
 
   for (int i = t; i < kTcTile * (ka + 1); i += kTcThreads) DRel[i] = 0.f;
 
-  // this warp's rows r0 = row0 + 16 warp + g and r1 = r0 + 8: (scale q)
-  // rounded to bfloat16 and g as A fragments, lse, delta = rowsum(g * o)
+  // this warp's rows lr0 = 16 warp + g and lr0 + 8: (scale q) rounded to
+  // bfloat16 and g as A fragments, lse, delta = rowsum(g * o). tr0, tr1:
+  // their token rows, which are queries when below n (kWindow: when the
+  // slot has a token)
   const int lr0 = warp * 16 + g;
   const int r0 = row0 + lr0;
   const int r1 = r0 + 8;
-  const bool active = row0 + warp * 16 < n;
+  int tr0 = r0, tr1 = r1;
+  bool active = row0 + warp * 16 < n;
+  if constexpr (kWindow) {
+    tr0 = tok_s[r0];
+    tr1 = tok_s[r1];
+    active = __any_sync(0xffffffffu, tr0 >= 0 || tr1 >= 0);
+  }
+  auto query = [&](int tr) { return kWindow ? tr >= 0 : tr < n; };
   const float sc = round_bf16(a.scale);
   uint32_t qa[kK][4], ga[kK][4];
   float dl0 = 0.f, dl1 = 0.f;
@@ -954,10 +1030,10 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
   for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = (e & 1) ? r1 : r0;
+      const int r = (e & 1) ? tr1 : tr0;
       const int c = 16 * kk + 2 * tq + ((e & 2) ? 8 : 0);
       uint32_t qv = 0u, gv = 0u, ov = 0u;
-      if (r < n) {
+      if (query(r)) {
         qv = __ldg(reinterpret_cast<const unsigned*>(q_base + r * stride + c));
         gv = __ldg(reinterpret_cast<const unsigned*>(g_base + r * ostride + c));
         ov = __ldg(reinterpret_cast<const unsigned*>(o_base + r * ostride + c));
@@ -974,11 +1050,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
   }
   quad_sum(dl0, dl1);
   if (tq == 0) {
-    if (r0 < n) a.delta[bh * n + r0] = dl0;
-    if (r1 < n) a.delta[bh * n + r1] = dl1;
+    if (query(tr0)) a.delta[bh * tokens + tr0] = dl0;
+    if (query(tr1)) a.delta[bh * tokens + tr1] = dl1;
   }
-  const float lse0 = r0 < n ? __ldg(a.lse + bh * n + r0) : 0.f;
-  const float lse1 = r1 < n ? __ldg(a.lse + bh * n + r1) : 0.f;
+  const float lse0 = query(tr0) ? __ldg(a.lse + bh * tokens + tr0) : 0.f;
+  const float lse1 = query(tr1) ? __ldg(a.lse + bh * tokens + tr1) : 0.f;
 
   float dq[kN][4];
 #pragma unroll
@@ -1018,7 +1094,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
           }
         }
         // ds = p (dp - delta) rounded to bfloat16, p from the lse; keys past n
-        // and rows past n give 0
+        // and rows that are no query give 0
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kb = k0 + sub + 8 * j + 2 * tq;
@@ -1033,7 +1109,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
               ++y;
             }
             const bool hi = e & 2;
-            const bool ok = key < n && (hi ? r1 : r0) < n;
+            const bool ok = key < n && query(hi ? tr1 : tr0);
             const int lr = hi ? lr0 + 8 : lr0;
             const float p =
                 ok ? __expf(s[j][e] + rel_bias_bf16(rv, Rel, lr, y, x) - (hi ? lse1 : lse0)) : 0.f;
@@ -1041,7 +1117,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
           }
         }
         // drel: float32 sums of the rounded ds
-        add_drel<kFull>(s, DRel, Sw, kh, kw, k0 + sub, nks, warp, lane, r0 < n, r1 < n,
+        add_drel<kFull>(s, DRel, Sw, kh, kw, k0 + sub, nks, warp, lane, query(tr0), query(tr1),
                         row0 + warp * 16 + (lane & 15) < n);
         // dq += dS.K: key groups 2jj, 2jj + 1 are the k16 step jj of the A
         // fragment; K's B fragments by ldmatrix.trans, two n8 tiles a load
@@ -1077,19 +1153,20 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
     __syncthreads();  // stage consumed before the next tile but one is copied into it
   }
 
-  // dq = scale * dS.K: bfloat16 into dqkv (K3b), float32 into the scratch (K2b)
+  // dq = scale * dS.K: bfloat16 into dq (K3b, K6b, K8b: at the token row),
+  // float32 into the scratch (K2b)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= n) continue;
+    const int r = half ? tr1 : tr0;
+    if (!query(r)) continue;
     if constexpr (kTables) {
-      float* dst = a.dq32 + (img * n + r) * ostride + head * D + 2 * tq;
+      float* dst = a.dq32 + (tok0 + r) * ostride + head * D + 2 * tq;
 #pragma unroll
       for (int nd = 0; nd < kN; ++nd)
         *reinterpret_cast<float2*>(dst + 8 * nd) =
             make_float2(dq[nd][2 * half] * a.scale, dq[nd][2 * half + 1] * a.scale);
     } else {
-      bf16* dst = a.dqkv + (img * n + r) * stride + head * D + 2 * tq;
+      bf16* dst = a.dq + (tok0 + r) * stride + head * D + 2 * tq;
 #pragma unroll
       for (int nd = 0; nd < kN; ++nd)
         *reinterpret_cast<uint32_t*>(dst + 8 * nd) =
@@ -1097,7 +1174,21 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
     }
   }
   __syncthreads();  // DRel complete for the block-wide stores
-  if constexpr (kTables) {
+  if constexpr (kWindow) {  // one warp a row with a token, one lane a column
+    for (int r = warp; r < rows; r += kTcThreads / 32) {
+      const int tok = tok_s[row0 + r];
+      if (tok < 0) continue;
+      const long long row = bh * tokens + tok;
+      for (int j = lane; j < ka; j += 32) {
+        const bf16 v = __float2bfloat16_rn(DRel[r * (ka + 1) + j]);
+        if (j < kh) {
+          a.drel_a[row * kh + j] = v;
+        } else {
+          a.drel_b[row * kw + j - kh] = v;
+        }
+      }
+    }
+  } else if constexpr (kTables) {
     for (int i = t; i < rows * ka; i += kTcThreads)
       a.drel_a[(bh * n + row0) * ka + i] = __float2bfloat16_rn(DRel[(i / ka) * (ka + 1) + i % ka]);
   } else {
@@ -1110,8 +1201,9 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dq_kernel(co
 }
 
 // Pass B: dk and dv of one 64-key tile, streaming the query tiles.
-template <int D, bool kTables>
+template <int D, bool kTables, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(const Bf16BwdArgs a) {
+  static_assert(!(kTables && kWindow), "K8b's rel terms are inputs");
   constexpr int kRow = D + 8;
   constexpr int kK = D / 16;
   constexpr int kN = D / 8;
@@ -1121,44 +1213,75 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(c
   float* LD = reinterpret_cast<float*>(QG + 2 * kStage);    // [stage][lse | delta][64]
   bf16* RelS = reinterpret_cast<bf16*>(LD + 4 * kTcTile);   // [stage][64 * ka], rel_view
   const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw, ka = kh + kw;
+  // kWindow: the window's slot -> token map, after the rel rows
+  [[maybe_unused]] int* tok_s = reinterpret_cast<int*>(RelS + 2 * kTcTile * ka);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
+  long long img = blockIdx.z;
+  int tokens = n;
+  int nq_all = n;  // one past the last query row
+  if constexpr (kWindow) {
+    img = blockIdx.z / a.nwin;
+    const int win = static_cast<int>(blockIdx.z - img * a.nwin);
+    tokens = a.hg * a.wg;
+    nq_all = window_queries(a, win);
+    stage_slot_tokens(tok_s, a, win, gridDim.x * kTcTile);
+    __syncthreads();
+  }
+  const long long tok0 = img * tokens;
   const long long bh = img * heads + head;
   const int key0 = blockIdx.x * kTcTile;
-  const long long stride = 3LL * heads * D;
-  const long long ostride = static_cast<long long>(heads) * D;
-  const bf16* q_base = a.qkv + img * n * stride + head * D;
-  const bf16* k_base = q_base + ostride;
-  const bf16* v_base = k_base + ostride;
-  const bf16* g_base = a.g + img * n * ostride + head * D;
+  const long long stride = a.in_stride;
+  const long long ostride = a.out_stride;
+  const bf16* q_base = a.q + tok0 * stride + head * D;
+  const bf16* k_base = a.k + tok0 * stride + head * D;
+  const bf16* v_base = a.v + tok0 * stride + head * D;
+  const bf16* g_base = a.g + tok0 * ostride + head * D;
   const RelView rv = rel_view<kTables>(kh, kw);
-  const int ntiles = (n + kTcTile - 1) / kTcTile;
+  const int ntiles = (nq_all + kTcTile - 1) / kTcTile;
   const float sc = round_bf16(a.scale);
 
   auto issue = [&](int tile) {
     const int st = tile & 1;
     const int q0 = tile * kTcTile;
-    const int rows = min(kTcTile, n - q0);
     bf16* dst = QG + st * kStage;
     float* ld = LD + st * 2 * kTcTile;
-    copy_rows_bf16_async<D, kTcTile>(dst, q_base, stride, q0, n);
-    copy_rows_bf16_async<D, kTcTile>(dst + kTcTile * kRow, g_base, ostride, q0, n);
-    copy_rel_bf16<kTables>(RelS + st * kTcTile * ka, a.rel_a, a.rel_b, bh, n, kh, kw, q0, rows);
-    for (int i = t; i < rows; i += kTcThreads) {
-      cp_async4(ld + i, a.lse + bh * n + q0 + i);
-      cp_async4(ld + kTcTile + i, a.delta + bh * n + q0 + i);
+    bf16* rel = RelS + st * kTcTile * ka;
+    if constexpr (kWindow) {
+      copy_slots_bf16_async<D>(dst, q_base, stride, tok_s, q0, nullptr);
+      copy_slots_bf16_async<D>(dst + kTcTile * kRow, g_base, ostride, tok_s, q0, nullptr);
+      copy_rel_slots_bf16(rel, a.rel_a, a.rel_b, bh * tokens, tok_s, kh, kw, q0);
+      for (int i = t; i < kTcTile; i += kTcThreads) {
+        const int tok = tok_s[q0 + i];
+        if (tok >= 0) {
+          cp_async4(ld + i, a.lse + bh * tokens + tok);
+          cp_async4(ld + kTcTile + i, a.delta + bh * tokens + tok);
+        } else {  // no query: p = exp(s + 0 - inf) = 0, ds = 0
+          ld[i] = INFINITY;
+          ld[kTcTile + i] = 0.f;
+        }
+      }
+    } else {
+      const int rows = min(kTcTile, n - q0);
+      copy_rows_bf16_async<D, kTcTile>(dst, q_base, stride, q0, n);
+      copy_rows_bf16_async<D, kTcTile>(dst + kTcTile * kRow, g_base, ostride, q0, n);
+      copy_rel_bf16<kTables>(rel, a.rel_a, a.rel_b, bh, n, kh, kw, q0, rows);
+      for (int i = t; i < rows; i += kTcThreads) {
+        cp_async4(ld + i, a.lse + bh * n + q0 + i);
+        cp_async4(ld + kTcTile + i, a.delta + bh * n + q0 + i);
+      }
     }
     cp_async_commit();
   };
   issue(0);
 
   // this warp's keys kr0 = key0 + 16 warp + g and kr1 = kr0 + 8: k and v as
-  // A fragments, their key-grid row and column
+  // A fragments (kWindow: a pad slot's from pad_kv), their key-grid row and
+  // column
   const int kr0 = key0 + warp * 16 + g;
   const int kr1 = kr0 + 8;
   const bool active = key0 + warp * 16 < n;
@@ -1169,8 +1292,17 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(c
     for (int e = 0; e < 4; ++e) {
       const int r = (e & 1) ? kr1 : kr0;
       const int c = 16 * kk + 2 * tq + ((e & 2) ? 8 : 0);
-      ka_[kk][e] = r < n ? __ldg(reinterpret_cast<const unsigned*>(k_base + r * stride + c)) : 0u;
-      va_[kk][e] = r < n ? __ldg(reinterpret_cast<const unsigned*>(v_base + r * stride + c)) : 0u;
+      const bf16* kp = k_base + r * stride;
+      const bf16* vp = v_base + r * stride;
+      bool ok = r < n;
+      if constexpr (kWindow) {
+        const int tok = tok_s[r];
+        kp = tok >= 0 ? k_base + tok * stride : a.pad_kv + (heads + head) * D;
+        vp = tok >= 0 ? v_base + tok * stride : a.pad_kv + (2 * heads + head) * D;
+        ok = tok != kNoToken;
+      }
+      ka_[kk][e] = ok ? __ldg(reinterpret_cast<const unsigned*>(kp + c)) : 0u;
+      va_[kk][e] = ok ? __ldg(reinterpret_cast<const unsigned*>(vp + c)) : 0u;
     }
   }
   const int y0 = kr0 / kw, x0 = kr0 - (kr0 / kw) * kw;
@@ -1205,7 +1337,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(c
     }
     __syncthreads();
     const int q0 = tile * kTcTile;
-    const int nq = min(kTcTile, n - q0);
+    const int nq = min(kTcTile, nq_all - q0);
     if (active) {
       auto sub_tile = [&](const int sub, const int nqs, auto full) {
         constexpr bool kFull = decltype(full)::value;
@@ -1226,15 +1358,16 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(c
             }
           }
         }
-        // p into s (float32), ds into dp rounded to bfloat16; queries and keys
-        // past n give 0
+        // p into s (float32), ds into dp rounded to bfloat16; queries past
+        // the last one and keys past n give 0 (kWindow: pad queries too,
+        // through their lse of +inf)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool hi = e & 2;
             const int q = sub + 8 * j + 2 * tq + (e & 1);
-            const bool ok = (hi ? kr1 : kr0) < n && q0 + q < n;
+            const bool ok = (hi ? kr1 : kr0) < n && q0 + q < nq_all;
             const float p =
                 ok ? __expf(s[j][e] + rel_bias_bf16(rv, R, q, hi ? y1 : y0, hi ? x1 : x0) -
                             lse_s[q])
@@ -1284,13 +1417,19 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(c
     __syncthreads();
   }
 
-  // dk, dv of the warp's keys, rounded once to bfloat16
+  // dk, dv of the warp's keys (kWindow: slots with a token, at the token),
+  // rounded once to bfloat16
+  int tk0 = kr0, tk1 = kr1;
+  if constexpr (kWindow) {
+    tk0 = tok_s[kr0];
+    tk1 = tok_s[kr1];
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? kr1 : kr0;
-    if (r >= n) continue;
-    bf16* dkr = a.dqkv + (img * n + r) * stride + ostride + head * D + 2 * tq;
-    bf16* dvr = dkr + ostride;
+    const int r = half ? tk1 : tk0;
+    if (kWindow ? r < 0 : r >= n) continue;
+    bf16* dkr = a.dk + (tok0 + r) * stride + head * D + 2 * tq;
+    bf16* dvr = a.dv + (tok0 + r) * stride + head * D + 2 * tq;
 #pragma unroll
     for (int nd = 0; nd < kN; ++nd) {
       *reinterpret_cast<uint32_t*>(dkr + 8 * nd) =
@@ -1299,19 +1438,58 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_bf16_dkv_kernel(c
           pack_bf16x2(dv[nd][2 * half], dv[nd][2 * half + 1]);
     }
   }
+  if constexpr (kWindow) {
+    // the pad keys' float32 dk | dv summed into this (window, key tile)'s
+    // partial row: over each warp's 16 keys by shuffles across the row
+    // groups, then the four warps in order through shared memory (the
+    // streamed stages are consumed); a tile without a pad key writes zeros
+    const bool pad0 = tk0 == -1, pad1 = tk1 == -1;
+    const long long hd = static_cast<long long>(heads) * D;
+    float* part = a.dpad + (static_cast<long long>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * hd +
+                  head * D;
+    float* P = reinterpret_cast<float*>(QG);  // [warp][dk | dv][D]
+    if (__syncthreads_or(pad0 || pad1)) {
+#pragma unroll
+      for (int nd = 0; nd < kN; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sk = (pad0 ? dk[nd][e] : 0.f) + (pad1 ? dk[nd][2 + e] : 0.f);
+          float sv = (pad0 ? dv[nd][e] : 0.f) + (pad1 ? dv[nd][2 + e] : 0.f);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sk += __shfl_xor_sync(0xffffffffu, sk, off);
+            sv += __shfl_xor_sync(0xffffffffu, sv, off);
+          }
+          if (g == 0) {
+            P[warp * 2 * D + 8 * nd + 2 * tq + e] = sk;
+            P[warp * 2 * D + D + 8 * nd + 2 * tq + e] = sv;
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = t; i < 2 * D; i += kTcThreads)
+        part[i < D ? i : hd + i - D] = ((P[i] + P[2 * D + i]) + P[4 * D + i]) + P[6 * D + i];
+    } else {
+      for (int i = t; i < 2 * D; i += kTcThreads) part[i < D ? i : hd + i - D] = 0.f;
+    }
+  }
 }
 
-// Passes A and B of the bfloat16 instance over `batch` images.
-template <int D, bool kTables>
+// Passes A and B of the bfloat16 instance over `batch` images (kWindow:
+// windows of all images); returns the first launch error.
+template <int D, bool kTables, bool kWindow>
 int launch_bwd_bf16(const Bf16BwdArgs& a, int batch, cudaStream_t s) {
   const int ka = a.kh + a.kw;
   const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
+  // kWindow: the slot -> token map of the window's grid.x * 64 slots
+  const size_t slot_map = kWindow ? sizeof(int) * grid.x * kTcTile : 0;
   const size_t tiles = sizeof(bf16) * 4 * kTcTile * (D + 8);  // two stages of two tiles
   const size_t smem_a = tiles + sizeof(float) * (kTcTile * (ka + 1) + 4 * 16 * (kTcSub + 1)) +
-                        sizeof(bf16) * kTcTile * ka;
-  const size_t smem_b = tiles + sizeof(float) * 4 * kTcTile + sizeof(bf16) * 2 * kTcTile * ka;
-  auto ka_kernel = attention_bwd_bf16_dq_kernel<D, kTables>;
-  auto kb_kernel = attention_bwd_bf16_dkv_kernel<D, kTables>;
+                        sizeof(bf16) * kTcTile * ka + slot_map;
+  const size_t smem_b =
+      tiles + sizeof(float) * 4 * kTcTile + sizeof(bf16) * 2 * kTcTile * ka + slot_map;
+  auto ka_kernel = attention_bwd_bf16_dq_kernel<D, kTables, kWindow>;
+  auto kb_kernel = attention_bwd_bf16_dkv_kernel<D, kTables, kWindow>;
   cudaError_t err = allow_smem(ka_kernel, smem_a);
   if (err == cudaSuccess) err = allow_smem(kb_kernel, smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1323,11 +1501,11 @@ int launch_bwd_bf16(const Bf16BwdArgs& a, int batch, cudaStream_t s) {
 }
 
 // Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
-template <bool kTables>
+template <bool kTables, bool kWindow = false>
 int dispatch_bwd_bf16(const Bf16BwdArgs& a, int batch, int d, cudaStream_t s) {
   switch (d) {
-    case 64: return launch_bwd_bf16<64, kTables>(a, batch, s);
-    case 80: return launch_bwd_bf16<80, kTables>(a, batch, s);
+    case 64: return launch_bwd_bf16<64, kTables, kWindow>(a, batch, s);
+    case 80: return launch_bwd_bf16<80, kTables, kWindow>(a, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

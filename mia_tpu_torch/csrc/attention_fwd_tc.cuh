@@ -107,8 +107,9 @@
 // qkv, the rel terms, pad_kv and out read or written once it is bound by
 // bytes at B=1 (13.97 MB: 4.17 us against 3.74 us of MMAs).
 //
-// The bfloat16 instance (attention_fwd_bf16_kernel below; K2 and K3 of a
-// bfloat16 encoder, packed layout only) is described before it.
+// The bfloat16 instance (attention_fwd_bf16_kernel below: every bias kind
+// and layout of this template, for a bfloat16 encoder) is described before
+// it.
 //
 // The kernels allocate nothing and do not synchronise; the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -545,49 +546,105 @@ int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The bfloat16 instance: K3 (kTables false) and K2 (kTables true, after the
-// bfloat16 instance of kernel R) on bfloat16 packed qkv, rel terms and
-// output, the TPU kernels' fast path ("dots in the input dtype, float32
-// accumulation", mia_tpu/ops/attention.py). Same block and warp layout as
-// the float32 template above (64 queries a block, 16 a warp, K and V tiles
-// of kKeys keys in two cp.async stages, online softmax in float32), with
-// one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three m16n8k8:
+// The bfloat16 instance: attention_fwd_bf16_kernel<D, kBias, kKeys>, the
+// float32 template's bias kinds and layouts (BiasKind above) on bfloat16
+// operands, the TPU kernels' fast path ("dots in the input dtype, float32
+// accumulation", mia_tpu/ops/attention.py): K2 (kRelTables, after the
+// bfloat16 instance of kernel R) and K3 (kRelTerms) on packed qkv, K6
+// (kRelTerms on head-major strides), K7 (kDense: bfloat16 q, k, v and the
+// float32 (B*H, n, n) bias the JAX encoder hands its kernel) and K8
+// (kRelWindow: windows carved from the bfloat16 qkv grid by the slot map of
+// attention_window.cuh, pad slots from the bfloat16 pad_kv rows, lse by
+// token). Same block and warp layout as the float32 template (64 queries a
+// block, 16 a warp, K and V tiles of kKeys keys in two cp.async stages;
+// K7's bias tile a third part of each stage; online softmax in float32),
+// with one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three m16n8k8:
 //   - q * scale is rounded to bfloat16 with the scale itself rounded to
-//     bfloat16 first, as the Pallas kernel's bf16 multiply (exact at head
+//     bfloat16 first, as the Pallas kernels' bf16 multiply (exact at head
 //     dim 64, whose scale is 1/8); the A fragments stay in registers as
-//     bf16x2 for the whole key loop;
+//     bf16x2 for the whole key loop. K7's Pallas kernel scales the float32
+//     score instead (q.k^T * scale, then + bias): there q goes in as it is
+//     and each score is multiplied by the float32 scale;
 //   - K and V tiles land in shared memory at half the float32 bytes, rows
 //     padded to D + 8 elements (16 bytes), so the 32-bit B-fragment reads
 //     of K (row g, columns 2tq + {0, 1, 8, 9}) and the ldmatrix row reads
 //     of V fall in distinct banks;
-//   - S = (scale Q).K^T accumulates in float32; the rel rows (read once,
-//     bfloat16 values widened into float32 shared memory) are a float32 add
-//     per score, as in the float32 template;
+//   - S accumulates in float32; the rel rows (read once, bfloat16 values
+//     widened into float32 shared memory; K8 by the slot map, zeros for a
+//     pad slot) are a float32 add per score, K7's float32 bias tile as in
+//     the float32 template, with its -inf guard;
 //   - P = exp(S - m) is packed to bf16x2 straight from the S accumulators:
 //     the C fragments of two adjacent n8 key tiles are the A fragment of
 //     one k16 step of P.V (FlashAttention-2); V's B fragments come from
 //     ldmatrix.trans. O accumulates in float32 across the tiles (rescaled
 //     by the online softmax); the epilogue writes O / l rounded to bfloat16
 //     and m + log l in float32.
-// Rounding against the Pallas kernel: it rounds the NORMALISED p to
+// Rounding against the Pallas kernels: they round the NORMALISED p to
 // bfloat16 before P.V, this kernel the unnormalised exp(S - m) with the
 // running maximum; the two differ at the scale of one bfloat16 ulp of p,
 // summed over the keys (tolerance 2^-7 of max |out| in chip_smoke.py,
 // against the plain version's ~2^-9 rounding of out itself).
 //
 // Bound: operations, 4 D flops a (query, key) pair at 989 TFLOP/s dense
-// bfloat16, or bytes (qkv, rel terms and out once) at 3.35 TB/s, whichever
-// is larger (chip_smoke.py computes both).
+// bfloat16, or bytes (q, k, v, the rel terms or K7's float32 bias, and out
+// once) at 3.35 TB/s, whichever is larger (chip_smoke.py computes both);
+// K7's bias is 4 bytes a pair against 0.5 flops a byte at D = 64, so K7 is
+// bound by bytes.
 
 struct Bf16FwdArgs {
-  const bf16* qkv;    // (batch, n, 3 * heads * D)
-  const bf16* rel_a;  // K3: rel_h (B*H, n, kh); K2: kernel R's terms (B*H, n, kh + kw)
-  const bf16* rel_b;  // K3: rel_w (B*H, n, kw); K2: unused
-  bf16* out;          // (batch, n, heads * D)
-  float* lse;         // optional (B*H, n)
-  int n, heads, kh, kw;
+  const bf16* q;        // first head's columns of token 0
+  const bf16* k;
+  const bf16* v;
+  const bf16* rel_a;    // kRelTables: kernel R's terms (B*H, n, kh + kw); else rel_h
+  const bf16* rel_b;    // rel_w (kRelTables: the terms again)
+  const float* bias;    // kDense: (B*H, n, n) float32
+  const bf16* pad_kv;   // kRelWindow: (3, heads*D) q, k, v rows of a pad slot
+  bf16* out;
+  float* lse;           // optional per-row log-sum-exp (B*H, n); kRelWindow: (B*H, hg*wg) by token
+  long long in_stride;  // elements per token row of q, k, v
+  long long out_stride; // elements per token row of out
+  int n;                // query rows = key rows per batch element (or slots per window)
+  int heads;
+  int kh, kw;           // key grid: n == kh * kw (unused by kDense)
+  int hg, wg;           // kRelWindow: the token grid
+  int nwx, nwin;        // kRelWindow: windows per grid row, windows per image
   float scale;
 };
+
+// The packed layout (K2, K3, K8): q, k, v are column blocks of one
+// (.., 3*heads*d) tensor, the context is (.., heads*d).
+inline Bf16FwdArgs packed_bf16_args(const void* qkv, void* out, void* lse, int heads, int d,
+                                    float scale) {
+  const bf16* base = static_cast<const bf16*>(qkv);
+  Bf16FwdArgs a{};
+  a.q = base;
+  a.k = base + static_cast<long long>(heads) * d;
+  a.v = base + 2LL * heads * d;
+  a.out = static_cast<bf16*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.in_stride = 3LL * heads * d;
+  a.out_stride = static_cast<long long>(heads) * d;
+  a.heads = heads;
+  a.scale = scale;
+  return a;
+}
+
+// Head-major operands (K6, K7): q, k, v, out (bh, n, d), bh batch elements
+// of one head each.
+inline Bf16FwdArgs head_major_bf16_args(const void* q, const void* k, const void* v, void* out,
+                                        int n, int d, float scale) {
+  Bf16FwdArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.out = static_cast<bf16*>(out);
+  a.in_stride = d;
+  a.out_stride = d;
+  a.n = n;
+  a.heads = 1;
+  a.scale = scale;
+  return a;
+}
 
 // Rows row0 .. row0+kRows-1 of one bfloat16 operand into a tile of rows of
 // D + 8 elements; rows past n are zero-filled.
@@ -601,6 +658,25 @@ __device__ __forceinline__ void copy_rows_bf16_async(bf16* dst, const bf16* __re
     const bool valid = row0 + r < n;
     cp_async16_bytes(dst + r * (D + 8) + 8 * c, valid ? base + (row0 + r) * stride + 8 * c : base,
                      valid);
+  }
+}
+
+// Slots slot0 .. slot0+kRows-1 of one bfloat16 operand into a tile of rows
+// of D + 8 elements, by the slot map: a slot with a token copies the
+// token's row, a pad slot pad_row (K, V) or zeros (pad_row null: Q, G), a
+// slot past n zeros (copy_slots_async's bfloat16 twin).
+template <int D, int kRows = kTcTile>
+__device__ __forceinline__ void copy_slots_bf16_async(bf16* dst, const bf16* __restrict__ base,
+                                                      long long stride, const int* tok_s,
+                                                      int slot0, const bf16* __restrict__ pad_row) {
+  constexpr int kC = D / 8;
+  for (int i = threadIdx.x; i < kRows * kC; i += kTcThreads) {
+    const int r = i / kC;
+    const int c = i - r * kC;
+    const int tok = tok_s[slot0 + r];
+    const bool valid = tok >= 0 || (tok == -1 && pad_row != nullptr);
+    const bf16* src = tok >= 0 ? base + tok * stride : pad_row;
+    cp_async16_bytes(dst + r * (D + 8) + 8 * c, valid ? src + 8 * c : base, valid);
   }
 }
 
@@ -623,16 +699,42 @@ __device__ __forceinline__ void load_rel_bf16(float* R, const bf16* __restrict__
   }
 }
 
-template <int D, bool kTables, int kKeys>
+// The rel rows of slots q0 .. q0+63, widened to float32 into R (laid out as
+// rel_view<false>) by the slot map: a slot with a token reads rows
+// row_base + token of rel_h and rel_w, any other slot gets zeros. One warp
+// a slot, one lane a column (copy_rel_slots_async's bfloat16 twin).
+__device__ __forceinline__ void load_rel_slots_bf16(float* R, const bf16* __restrict__ rel_h,
+                                                    const bf16* __restrict__ rel_w,
+                                                    long long row_base, const int* tok_s, int kh,
+                                                    int kw, int q0) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kTcTile; r += kTcThreads / 32) {
+    const int tok = tok_s[q0 + r];
+    const long long row = row_base + tok;
+    for (int j = lane; j < kh + kw; j += 32) {
+      const bool h = j < kh;
+      float* dst = h ? R + r * kh + j : R + kTcTile * kh + r * kw + (j - kh);
+      *dst = tok >= 0 ? to_float(h ? rel_h[row * kh + j] : rel_w[row * kw + (j - kh)]) : 0.f;
+    }
+  }
+}
+
+template <int D, int kBias, int kKeys>
 __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const Bf16FwdArgs a) {
+  constexpr bool kTables = kBias == kRelTables;
+  constexpr bool kDenseBias = kBias == kDense;
+  constexpr bool kWindow = kBias == kRelWindow;
   constexpr int kRow = D + 8;     // padded K/V row, bf16 elements
   constexpr int kK = D / 16;      // k16 steps of S = Q.K^T
   constexpr int kN = D / 8;       // n8 tiles of O
   constexpr int kJ = kKeys / 8;   // 8-key groups of a streamed tile
-  constexpr int kStage = 2 * kKeys * kRow;  // [K | V][kKeys][kRow]
+  constexpr int kBRow = kKeys + kBiasPad;
+  // a stage: [K | V][kKeys][kRow] bf16, then (K7) the float32 bias tile [64][kBRow]
+  constexpr int kKVBytes = 2 * kKeys * kRow * static_cast<int>(sizeof(bf16));
+  constexpr int kStageBytes = kKVBytes + (kDenseBias ? kTcTile * kBRow * 4 : 0);
   extern __shared__ float4 smem4[];
-  bf16* KV = reinterpret_cast<bf16*>(smem4);           // [stage][kStage]
-  float* Rel = reinterpret_cast<float*>(KV + 2 * kStage);  // the block's rel rows, float32
+  unsigned char* stages = reinterpret_cast<unsigned char*>(smem4);
+  float* Rel = reinterpret_cast<float*>(stages + 2 * kStageBytes);  // the rel rows, float32
   const int n = a.n, kw = a.kw;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -640,40 +742,80 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
+  long long img = blockIdx.z;  // batch element, or (K8) the image of this window
+  int tokens = n;              // tokens per batch element / image
+  int queries = n;             // K8: the window's query slots are 0 .. queries-1
+  int* tok_s = nullptr;        // K8: the window's slot -> token map, after the rel rows
+  if constexpr (kWindow) {
+    tok_s = reinterpret_cast<int*>(Rel + kTcTile * (a.kh + kw));
+    img = blockIdx.z / a.nwin;
+    const int win = static_cast<int>(blockIdx.z - img * a.nwin);
+    queries = window_queries(a, win);
+    // no slot of this tile is a query: nothing to compute or write
+    if (static_cast<int>(blockIdx.x) * kTcTile >= queries) return;
+    tokens = a.hg * a.wg;
+    stage_slot_tokens(tok_s, a, win, gridDim.x * kTcTile);
+    __syncthreads();
+  }
+  const long long tok0 = img * tokens;
   const long long bh = img * a.heads + head;
   const int row0 = blockIdx.x * kTcTile;
-  const long long stride = 3LL * a.heads * D;
-  const bf16* q_base = a.qkv + img * n * stride + head * D;
-  const bf16* k_base = q_base + static_cast<long long>(a.heads) * D;
-  const bf16* v_base = k_base + static_cast<long long>(a.heads) * D;
+  const long long stride = a.in_stride;
+  const bf16* q_base = a.q + tok0 * stride + head * D;
+  const bf16* k_base = a.k + tok0 * stride + head * D;
+  const bf16* v_base = a.v + tok0 * stride + head * D;
   const RelView rv = rel_view<kTables>(a.kh, kw);
   const int ntiles = (n + kKeys - 1) / kKeys;
+  const bool bias_vec4 = (n & 3) == 0;
 
   auto issue = [&](int tile) {
-    bf16* st = KV + (tile & 1) * kStage;
-    copy_rows_bf16_async<D, kKeys>(st, k_base, stride, tile * kKeys, n);
-    copy_rows_bf16_async<D, kKeys>(st + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    unsigned char* st = stages + (tile & 1) * kStageBytes;
+    bf16* kv = reinterpret_cast<bf16*>(st);
+    if constexpr (kWindow) {  // by the slot map; a pad slot's k and v from pad_kv
+      copy_slots_bf16_async<D, kKeys>(kv, k_base, stride, tok_s, tile * kKeys,
+                                      a.pad_kv + (a.heads + head) * D);
+      copy_slots_bf16_async<D, kKeys>(kv + kKeys * kRow, v_base, stride, tok_s, tile * kKeys,
+                                      a.pad_kv + (2 * a.heads + head) * D);
+    } else {
+      copy_rows_bf16_async<D, kKeys>(kv, k_base, stride, tile * kKeys, n);
+      copy_rows_bf16_async<D, kKeys>(kv + kKeys * kRow, v_base, stride, tile * kKeys, n);
+    }
+    if constexpr (kDenseBias)
+      copy_bias_async<kKeys>(reinterpret_cast<float*>(st + kKVBytes), a.bias, bh, n, row0,
+                             tile * kKeys, bias_vec4);
     cp_async_commit();
   };
   issue(0);
-  load_rel_bf16<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0, min(kTcTile, n - row0));
+  // the rel rows, visible after the first tile's __syncthreads
+  if constexpr (kWindow) {
+    load_rel_slots_bf16(Rel, a.rel_a, a.rel_b, bh * tokens, tok_s, a.kh, kw, row0);
+  } else if constexpr (!kDenseBias) {
+    load_rel_bf16<kTables>(Rel, a.rel_a, a.rel_b, bh, n, a.kh, kw, row0, min(kTcTile, n - row0));
+  }
 
-  // this warp's rows r0 and r1 = r0 + 8: (scale q) rounded to bfloat16, as A fragments
+  // this warp's rows r0 and r1 = r0 + 8: (scale q) rounded to bfloat16 (K7:
+  // q as it is), as A fragments. tr0, tr1: their token rows, which are
+  // queries when below n (K8: when the slot has a token)
   const int lr0 = warp * 16 + g;
   const int r0 = row0 + lr0;
   const int r1 = r0 + 8;
-  const bool active = row0 + warp * 16 < n;
-  const float sc = __bfloat162float(__float2bfloat16_rn(a.scale));
+  const bool active = row0 + warp * 16 < queries;
+  int tr0 = r0, tr1 = r1;
+  if constexpr (kWindow) {
+    tr0 = tok_s[r0];
+    tr1 = tok_s[r1];
+  }
+  auto query = [&](int tr) { return kWindow ? tr >= 0 : tr < n; };
+  const float sc = kDenseBias ? 1.f : __bfloat162float(__float2bfloat16_rn(a.scale));
   uint32_t qa[kK][4];
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = (e & 1) ? r1 : r0;
+      const int r = (e & 1) ? tr1 : tr0;
       const int c = 16 * kk + 2 * tq + ((e & 2) ? 8 : 0);
       float x0 = 0.f, x1 = 0.f;
-      if (r < n) {
+      if (query(r)) {
         const __nv_bfloat162 q2 = *reinterpret_cast<const __nv_bfloat162*>(q_base + r * stride + c);
         x0 = __low2float(q2) * sc;
         x1 = __high2float(q2) * sc;
@@ -696,8 +838,10 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
       cp_async_wait<0>();
     }
     __syncthreads();  // tile landed for every thread (the first with the rel rows)
-    const bf16* Ks = KV + (tile & 1) * kStage;
+    const unsigned char* st = stages + (tile & 1) * kStageBytes;
+    const bf16* Ks = reinterpret_cast<const bf16*>(st);
     const bf16* Vs = Ks + kKeys * kRow;
+    const float* Bs = reinterpret_cast<const float*>(st + kKVBytes);  // K7: this tile's bias
     const int k0 = tile * kKeys;
     const int nk = min(kKeys, n - k0);
     if (active) {
@@ -715,14 +859,37 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
           }
         }
       }
-      // + rel_h[row, y] + rel_w[row, x]; keys past n score -inf; the tile's row maxima
+      // + the bias; keys past n score -inf; the tile's row maxima
       float mx0 = -INFINITY, mx1 = -INFINITY;
-      add_rel_bias_max<kJ, false>(s, rv, Rel, lr0, k0, tq, n, kw, mx0, mx1);
-      // online softmax (the rel bias is finite, so every row has a finite key)
+      if constexpr (kDenseBias) {  // s * scale in float32, then + bias (the Pallas order)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const float2 b0 = *reinterpret_cast<const float2*>(Bs + lr0 * kBRow + 8 * j + 2 * tq);
+          const float2 b1 =
+              *reinterpret_cast<const float2*>(Bs + (lr0 + 8) * kBRow + 8 * j + 2 * tq);
+          const int key = k0 + 8 * j + 2 * tq;
+          const bool in0 = key < n;
+          const bool in1 = key + 1 < n;
+          s[j][0] = in0 ? __fadd_rn(__fmul_rn(s[j][0], a.scale), b0.x) : -INFINITY;
+          s[j][1] = in1 ? __fadd_rn(__fmul_rn(s[j][1], a.scale), b0.y) : -INFINITY;
+          s[j][2] = in0 ? __fadd_rn(__fmul_rn(s[j][2], a.scale), b1.x) : -INFINITY;
+          s[j][3] = in1 ? __fadd_rn(__fmul_rn(s[j][3], a.scale), b1.y) : -INFINITY;
+          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        }
+        quad_max(mx0, mx1);
+      } else {
+        add_rel_bias_max<kJ, false>(s, rv, Rel, lr0, k0, tq, n, kw, mx0, mx1);
+      }
+      // online softmax; K7: the reference point 0 while the new maximum is
+      // still -inf, so that exp(-inf - -inf) is never formed (the rel bias
+      // is finite, so every row of the other kinds has a finite key)
       const float mn0 = fmaxf(m0, mx0);
       const float mn1 = fmaxf(m1, mx1);
-      const float c0 = __expf(m0 - mn0);
-      const float c1 = __expf(m1 - mn1);
+      const float ms0 = kDenseBias && mn0 == -INFINITY ? 0.f : mn0;
+      const float ms1 = kDenseBias && mn1 == -INFINITY ? 0.f : mn1;
+      const float c0 = __expf(m0 - ms0);
+      const float c1 = __expf(m1 - ms1);
       m0 = mn0;
       m1 = mn1;
       l0 *= c0;
@@ -737,8 +904,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
       uint32_t pa[kJ / 2][4];  // P as the A fragments of the k16 steps of P.V
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
-        const float p0 = __expf(s[j][0] - mn0), p1 = __expf(s[j][1] - mn0);
-        const float p2 = __expf(s[j][2] - mn1), p3 = __expf(s[j][3] - mn1);
+        const float p0 = __expf(s[j][0] - ms0), p1 = __expf(s[j][1] - ms0);
+        const float p2 = __expf(s[j][2] - ms1), p3 = __expf(s[j][3] - ms1);
         l0 += p0 + p1;
         l1 += p2 + p3;
         // key group j is columns 8 (j % 2) .. of k16 step j / 2: registers
@@ -766,27 +933,43 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
   }
 
   // the rows' sums over the quad; out = O / l in bfloat16, lse = m + log l
+  // (K8: by token, nothing for a pad query)
   quad_sum(l0, l1);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= n) continue;
-    const float inv = 1.f / (half ? l1 : l0);
-    bf16* dst = a.out + (img * n + r) * (static_cast<long long>(a.heads) * D) + head * D + 2 * tq;
+    const int r = half ? tr1 : tr0;
+    if (!query(r)) continue;
+    const float l = half ? l1 : l0;
+    const float inv = 1.f / l;
+    bf16* dst = a.out + (tok0 + r) * a.out_stride + head * D + 2 * tq;
 #pragma unroll
     for (int nd = 0; nd < kN; ++nd)
       *reinterpret_cast<uint32_t*>(dst + 8 * nd) =
           pack_bf16x2(o[nd][2 * half] * inv, o[nd][2 * half + 1] * inv);
-    if (a.lse != nullptr && tq == 0) a.lse[bh * n + r] = (half ? m1 : m0) + logf(half ? l1 : l0);
+    if (a.lse != nullptr && tq == 0) a.lse[bh * tokens + r] = (half ? m1 : m0) + logf(l);
   }
 }
 
-// One launch of the bfloat16 instance: 64-key tiles.
-template <int D, bool kTables>
+// Two stages of K, V (and K7's float32 bias tile), then the float32 rel rows
+// (not K7), then K8's slot map (a slot for each row of the window's query
+// tiles).
+template <int D, int kBias, int kKeys>
+size_t fwd_bf16_smem_bytes(const Bf16FwdArgs& a) {
+  const size_t stage = sizeof(bf16) * 2 * kKeys * (D + 8) +
+                       (kBias == kDense ? sizeof(float) * kTcTile * (kKeys + kBiasPad) : 0);
+  const size_t rel = kBias == kDense ? 0 : sizeof(float) * kTcTile * (a.kh + a.kw);
+  const size_t slot_map =
+      kBias == kRelWindow ? sizeof(int) * ((a.n + kTcTile - 1) / kTcTile) * kTcTile : 0;
+  return 2 * stage + rel + slot_map;
+}
+
+// One launch of the bfloat16 instance over `batch` images (K8: windows of
+// all images): 64-key tiles.
+template <int D, int kBias>
 int launch_fwd_bf16(const Bf16FwdArgs& a, int batch, cudaStream_t s) {
   constexpr int kKeys = 64;
-  const size_t smem = sizeof(bf16) * 4 * kKeys * (D + 8) + sizeof(float) * kTcTile * (a.kh + a.kw);
-  auto kernel = attention_fwd_bf16_kernel<D, kTables, kKeys>;
+  const size_t smem = fwd_bf16_smem_bytes<D, kBias, kKeys>(a);
+  auto kernel = attention_fwd_bf16_kernel<D, kBias, kKeys>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.n + kTcTile - 1) / kTcTile, a.heads, batch);
@@ -795,13 +978,13 @@ int launch_fwd_bf16(const Bf16FwdArgs& a, int batch, cudaStream_t s) {
 }
 
 // Dispatch on the head dim (64: ViT-B and ViT-L; 80: ViT-H).
-template <bool kTables>
+template <int kBias>
 int dispatch_fwd_bf16(const Bf16FwdArgs& a, int batch, int d, void* stream) {
   if (batch == 0 || a.n == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_fwd_bf16<64, kTables>(a, batch, s);
-    case 80: return launch_fwd_bf16<80, kTables>(a, batch, s);
+    case 64: return launch_fwd_bf16<64, kBias>(a, batch, s);
+    case 80: return launch_fwd_bf16<80, kBias>(a, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

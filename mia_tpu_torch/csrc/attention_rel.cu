@@ -52,7 +52,9 @@
 // R's bfloat16 instance. Their backward, mia_attention_rel_packed_bwd_bf16
 // and mia_attention_rel_packed_ik_bwd_bf16, runs the bfloat16 instance of
 // the backward template (attention_bwd_tc.cuh) and, for K2b, the bfloat16
-// instances of kernels R, Q and C below.
+// instances of kernels R, Q and C below. mia_attention_rel_bf16 and
+// mia_attention_rel_bwd_bf16 (K6, K6b) run K3's and K3b's bfloat16
+// instances on head-major strides.
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -408,18 +410,25 @@ int dispatch_bwd_bf16_entry(const void* qkv, const void* rel_a, const void* rel_
   const bf16* tab_w = static_cast<const bf16*>(rel_b);
   bf16* terms = static_cast<bf16*>(rel);
   const long long pairs = static_cast<long long>(batch) * heads;
+  const long long hd = static_cast<long long>(heads) * d;
   Bf16BwdArgs a{};
-  a.qkv = base;
+  a.q = base;
+  a.k = base + hd;
+  a.v = base + 2 * hd;
   a.rel_a = kTables ? terms : tab_h;
   a.rel_b = kTables ? terms : tab_w;
   a.out = static_cast<const bf16*>(out);
   a.g = static_cast<const bf16*>(g);
   a.lse = static_cast<const float*>(lse);
-  a.dqkv = dbase;
+  a.dq = dbase;
+  a.dk = dbase + hd;
+  a.dv = dbase + 2 * hd;
   a.dq32 = static_cast<float*>(dq32);
   a.delta = static_cast<float*>(delta);
   a.drel_a = static_cast<bf16*>(drel_a);
   a.drel_b = static_cast<bf16*>(drel_b);
+  a.in_stride = 3 * hd;
+  a.out_stride = hd;
   a.n = n;
   a.heads = heads;
   a.kh = kh;
@@ -433,7 +442,7 @@ int dispatch_bwd_bf16_entry(const void* qkv, const void* rel_a, const void* rel_
     err = dispatch_rel_gather(
         true,
         RelGather<bf16>{nullptr, dbase, tab_h, tab_w, a.drel_a, pairs, n, heads, kh, kw, a.dq32,
-                        static_cast<long long>(heads) * d},
+                        hd},
         d, s);
   if (err != 0 || dthw == nullptr) return err;
   return launch_rel_tables(base, static_cast<const bf16*>(a.drel_a), static_cast<bf16*>(dthw),
@@ -494,10 +503,13 @@ extern "C" int mia_attention_rel_packed_bf16(const void* qkv, const void* rel_h,
                                              const void* rel_w, void* out, void* lse, int batch,
                                              int n, int heads, int d, int kh, int kw, float scale,
                                              void* stream) {
-  const Bf16FwdArgs a{static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_h),
-                      static_cast<const bf16*>(rel_w), static_cast<bf16*>(out),
-                      static_cast<float*>(lse), n, heads, kh, kw, scale};
-  return dispatch_fwd_bf16<false>(a, batch, d, stream);
+  Bf16FwdArgs a = packed_bf16_args(qkv, out, lse, heads, d, scale);
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.n = n;
+  a.kh = kh;
+  a.kw = kw;
+  return dispatch_fwd_bf16<kRelTerms>(a, batch, d, stream);
 }
 
 extern "C" int mia_attention_rel_packed_ik_bf16(const void* qkv, const void* rh_flat,
@@ -513,9 +525,13 @@ extern "C" int mia_attention_rel_packed_ik_bf16(const void* qkv, const void* rh_
                           static_cast<long long>(batch) * heads, n, heads, kh, kw};
   const int err = dispatch_rel_gather(false, r, d, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
-  const Bf16FwdArgs a{q, terms, terms, static_cast<bf16*>(out), static_cast<float*>(lse),
-                      n, heads, kh, kw, scale};
-  return dispatch_fwd_bf16<true>(a, batch, d, stream);
+  Bf16FwdArgs a = packed_bf16_args(qkv, out, lse, heads, d, scale);
+  a.rel_a = terms;
+  a.rel_b = terms;
+  a.n = n;
+  a.kh = kh;
+  a.kw = kw;
+  return dispatch_fwd_bf16<kRelTables>(a, batch, d, stream);
 }
 
 // K3 backward: from the forward's inputs, its output, its lse and the
@@ -604,4 +620,54 @@ extern "C" int mia_attention_rel_bwd_f32(const void* q, const void* k, const voi
   a.kw = kw;
   a.scale = scale;
   return dispatch_tc_bwd<false>(a, bh, d, stream);
+}
+
+// The bfloat16 instances of K6 and K6b (K3's and K3b's bfloat16 instances on
+// head-major strides): q, k, v, rel_h, rel_w, out, g, dq, dk, dv, drel_h and
+// drel_w in bfloat16, lse and delta float32; otherwise the arguments of the
+// float32 entries. dk and dv are float32 sums rounded once, as the Pallas
+// kernel's float32 accumulators cast at the end.
+extern "C" int mia_attention_rel_bf16(const void* q, const void* k, const void* v,
+                                      const void* rel_h, const void* rel_w, void* out, void* lse,
+                                      int bh, int n, int d, int kh, int kw, float scale,
+                                      void* stream) {
+  Bf16FwdArgs a = head_major_bf16_args(q, k, v, out, n, d, scale);
+  a.lse = static_cast<float*>(lse);
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.kh = kh;
+  a.kw = kw;
+  return dispatch_fwd_bf16<kRelTerms>(a, bh, d, stream);
+}
+
+extern "C" int mia_attention_rel_bwd_bf16(const void* q, const void* k, const void* v,
+                                          const void* rel_h, const void* rel_w, const void* out,
+                                          const void* g, const void* lse, void* dq, void* dk,
+                                          void* dv, void* delta, void* drel_h, void* drel_w,
+                                          int bh, int n, int d, int kh, int kw, float scale,
+                                          void* stream) {
+  if (bh == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  Bf16BwdArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.out = static_cast<const bf16*>(out);
+  a.g = static_cast<const bf16*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.delta = static_cast<float*>(delta);
+  a.drel_a = static_cast<bf16*>(drel_h);
+  a.drel_b = static_cast<bf16*>(drel_w);
+  a.in_stride = d;
+  a.out_stride = d;
+  a.n = n;
+  a.heads = 1;
+  a.kh = kh;
+  a.kw = kw;
+  a.scale = scale;
+  return dispatch_bwd_bf16<false>(a, bh, d, static_cast<cudaStream_t>(stream));
 }

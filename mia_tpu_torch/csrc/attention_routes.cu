@@ -1,5 +1,5 @@
 // K7 and K8 on Hopper, and K8b: the encoder's other attention routes, in
-// float32. Forward: K7 is the kDense and K8 the kRelWindow instance of the
+// float32 and (the _bf16 entries at the end) bfloat16. Forward: K7 is the kDense and K8 the kRelWindow instance of the
 // 3xTF32 tensor-core template in attention_fwd_tc.cuh, beside K2, K3 and K6
 // (whose C entry is in attention_rel.cu: it runs K3's instance on
 // head-major strides). Backward: K8b is the kWindow instance of the 3xTF32
@@ -66,11 +66,14 @@ void set_grid(Args& a, int hg, int wg, int ws) {
   a.nwin = a.nwx * ((hg + ws - 1) / ws);
 }
 
-// dbias_kv (3, hd) from K8b's partials dpad (rows, 2*hd): row 0 zero, rows 1
-// and 2 the column sums. A block of 32 x 8 threads owns 32 columns; each
-// thread sums every 8th row, then thread row 0 adds the 8 sums in order.
+// dbias_kv (3, hd) from K8b's float32 partials dpad (rows, 2*hd): row 0
+// zero, rows 1 and 2 the column sums, rounded once to T (float32, or
+// bfloat16 for a bfloat16 bias_kv). A block of 32 x 8 threads owns 32
+// columns; each thread sums every 8th row, then thread row 0 adds the 8
+// sums in order.
+template <typename T>
 __global__ void attention_bwd_pad_reduce_kernel(const float* __restrict__ dpad,
-                                                float* __restrict__ dbias_kv, int rows, int hd) {
+                                                T* __restrict__ dbias_kv, int rows, int hd) {
   __shared__ float part[8][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.f;
@@ -83,8 +86,8 @@ __global__ void attention_bwd_pad_reduce_kernel(const float* __restrict__ dpad,
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) sum += part[i][threadIdx.x];
-    dbias_kv[hd + c] = sum;
-    if (c < hd) dbias_kv[c] = 0.f;
+    dbias_kv[hd + c] = from_float<T>(sum);
+    if (c < hd) dbias_kv[c] = from_float<T>(0.f);
   }
 }
 
@@ -170,7 +173,80 @@ extern "C" int mia_attention_rel_win_bwd_f32(const void* qkv, const void* rel_h,
   if (err != 0) return err;
   const int rows = windows * ((a.n + kTcTile - 1) / kTcTile);
   const int cols = static_cast<int>(2 * hd);
-  attention_bwd_pad_reduce_kernel<<<(cols + 31) / 32, dim3(32, 8), 0, s>>>(
+  attention_bwd_pad_reduce_kernel<float><<<(cols + 31) / 32, dim3(32, 8), 0, s>>>(
       a.dpad, static_cast<float*>(dbias_kv), rows, static_cast<int>(hd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 instances of K7, K8 and K8b (attention_fwd_bf16_kernel of
+// attention_fwd_tc.cuh, kinds kDense and kRelWindow; the kWindow instance of
+// attention_bwd_bf16_{dq,dkv}_kernel in attention_bwd_tc.cuh): q, k, v, qkv,
+// the rel terms, bias_kv, out, g, dqkv, drel_h, drel_w and dbias_kv in
+// bfloat16; K7's bias, lse, delta and dpad float32; otherwise the arguments
+// of the float32 entries.
+extern "C" int mia_attention_dense_bf16(const void* q, const void* k, const void* v,
+                                        const void* bias, void* out, int bh, int n, int d,
+                                        float scale, void* stream) {
+  Bf16FwdArgs a = head_major_bf16_args(q, k, v, out, n, d, scale);
+  a.bias = static_cast<const float*>(bias);
+  return dispatch_fwd_bf16<kDense>(a, bh, d, stream);
+}
+
+extern "C" int mia_attention_rel_win_bf16(const void* qkv, const void* rel_h, const void* rel_w,
+                                          const void* bias_kv, void* out, void* lse, int batch,
+                                          int hg, int wg, int heads, int d, int ws, float scale,
+                                          void* stream) {
+  if (ws <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Bf16FwdArgs a = packed_bf16_args(qkv, out, lse, heads, d, scale);
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.pad_kv = static_cast<const bf16*>(bias_kv);
+  set_grid(a, hg, wg, ws);
+  return dispatch_fwd_bf16<kRelWindow>(a, batch * a.nwin, d, stream);
+}
+
+extern "C" int mia_attention_rel_win_bwd_bf16(const void* qkv, const void* rel_h,
+                                              const void* rel_w, const void* bias_kv,
+                                              const void* out, const void* g, const void* lse,
+                                              void* dqkv, void* delta, void* drel_h, void* drel_w,
+                                              void* dpad, void* dbias_kv, int batch, int hg,
+                                              int wg, int heads, int d, int ws, float scale,
+                                              void* stream) {
+  if (ws <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long hd = static_cast<long long>(heads) * d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch == 0 || hg == 0 || wg == 0)
+    return static_cast<int>(cudaMemsetAsync(dbias_kv, 0, sizeof(bf16) * 3 * hd, s));
+  const bf16* base = static_cast<const bf16*>(qkv);
+  bf16* dbase = static_cast<bf16*>(dqkv);
+  Bf16BwdArgs a{};
+  a.q = base;
+  a.k = base + hd;
+  a.v = base + 2 * hd;
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.pad_kv = static_cast<const bf16*>(bias_kv);
+  a.out = static_cast<const bf16*>(out);
+  a.g = static_cast<const bf16*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.dq = dbase;
+  a.dk = dbase + hd;
+  a.dv = dbase + 2 * hd;
+  a.delta = static_cast<float*>(delta);
+  a.drel_a = static_cast<bf16*>(drel_h);
+  a.drel_b = static_cast<bf16*>(drel_w);
+  a.dpad = static_cast<float*>(dpad);
+  a.in_stride = 3 * hd;
+  a.out_stride = hd;
+  a.heads = heads;
+  set_grid(a, hg, wg, ws);
+  a.scale = scale;
+  const int windows = batch * a.nwin;
+  const int err = dispatch_bwd_bf16<false, true>(a, windows, d, s);
+  if (err != 0) return err;
+  const int rows = windows * ((a.n + kTcTile - 1) / kTcTile);
+  const int cols = static_cast<int>(2 * hd);
+  attention_bwd_pad_reduce_kernel<bf16><<<(cols + 31) / 32, dim3(32, 8), 0, s>>>(
+      a.dpad, static_cast<bf16*>(dbias_kv), rows, static_cast<int>(hd));
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,12 +61,15 @@ is 4x wide, as ``Sam`` builds the encoder. Not ported: shared window runs
 
 ``compute_dtype=torch.bfloat16`` is the JAX encoder's ``dtype``: float32
 parameters cast at each call, the residual stream, qkv, the rel terms and
-tables, K2's, K3's and K4's operands and the embeddings in bfloat16, the
-LayerNorms in float32 with bfloat16 outputs. It runs the default route
-only, forward and backward (K4, K2, K3 and the bfloat16 instances of K4b,
-K2b, K3b), so the LoRA adapters, the blocks and the neck train in it: the
-other routes' kernels take float32, so asking for one of them in bfloat16
-raises.
+tables, every attention kernel's operands and the embeddings in bfloat16,
+the LayerNorms in float32 with bfloat16 outputs. Every route runs in it,
+forward and backward, through the bfloat16 instances of its kernels (K2-K4
+and K2b-K4b; K6/K6b, K7, K8/K8b, K9/K9b), casting where the JAX encoder
+casts: K8's rel terms are bfloat16 einsums on the unpadded grid and its
+``bias_kv`` the qkv Linear of a bfloat16 zero token, K6's rel terms those
+of the packed route, K7's bias float32 zeros, and K9 joins the bfloat16
+windowed proj output and the bfloat16 stream. So the LoRA adapters, the
+blocks and the neck train in it through every route.
 """
 
 from __future__ import annotations
@@ -193,12 +196,6 @@ class Attention(nn.Module):
                  attn_route: str | None = None, windowed_input: bool = True,
                  windowed_output: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if compute_dtype != torch.float32 and (
-                attn_route not in (None, "packed") or not use_rel_pos or windowed_output):
-            raise NotImplementedError(
-                f"the encoder computes in {compute_dtype} on the default route only (K2, K3, K4): "
-                "the head-major (K6), dense-bias (K7), grid-native (K8) and fused-exit (K9) "
-                "kernels take float32")
         if attn_route is not None and attn_route not in ATTN_ROUTES:
             raise ValueError(f"attn_route must be one of {ATTN_ROUTES} or None, got {attn_route!r}")
         if attn_route == "grid_native" and window_size > 0 and windowed_input:
@@ -245,19 +242,17 @@ class Attention(nn.Module):
         if self.attn_route is not None:
             return self.attn_route
         if self.window_size > 0 and not self.windowed_input and _win_attn_opted_in():
-            if self.compute_dtype != torch.float32:
-                raise NotImplementedError(
-                    f"MIA_WINDOWED_ATTN selects K8, which takes float32: not in {self.compute_dtype}")
             return "grid_native"
         return "packed"
 
     def _grid_native(self, x: torch.Tensor) -> torch.Tensor:
-        """K8 on the normalised, unpadded ``(B, H, W, C)`` grid → context grid."""
+        """K8 on the normalised, unpadded ``(B, H, W, C)`` grid → context grid;
+        the rel terms are einsums in qkv's dtype, the tables cast to it."""
         b, h, w, dim = x.shape
         ws, heads, hd = self.window_size, self.num_heads, self.head_dim
         qkv = self._qkv(x)
-        rh = _rel_table(self.rel_pos_h, ws, ws)  # (ws, ws, head_dim)
-        rw = _rel_table(self.rel_pos_w, ws, ws)
+        rh = _rel_table(self.rel_pos_h, ws, ws).to(qkv.dtype)  # (ws, ws, head_dim)
+        rw = _rel_table(self.rel_pos_w, ws, ws).to(qkv.dtype)
         ys = torch.arange(h, device=x.device) % ws
         xs = torch.arange(w, device=x.device) % ws
         q5 = qkv[..., :dim].reshape(b, h, w, heads, hd)
@@ -289,7 +284,8 @@ class Attention(nn.Module):
                 qkv[..., :dim].reshape(bw, n, heads, hd), self.rel_pos_h, self.rel_pos_w, hw, hw)
             out = attention_rel_with_padding(q, k, v, rel_h, rel_w, self.scale, hw)
         else:
-            bias = qkv.new_zeros(bw * heads, n, n)  # the JAX encoder hands its kernel zeros too
+            # the JAX encoder hands its kernel float32 zeros too, in every dtype
+            bias = qkv.new_zeros(bw * heads, n, n, dtype=torch.float32)
             out = attention_with_padding(q, k, v, bias, self.scale)
         return out.view(bw, heads, n, hd).transpose(1, 2).reshape(bw, n, dim)
 

@@ -3,12 +3,15 @@ operands) and K8 (windows carved from the token grid), with their plain
 versions.
 
 Counterpart of ``mia_tpu/ops/attention.py``. All compute
-``softmax(q·kᵀ·scale + bias)·v`` in float32. K2 and K3 also take bfloat16
-operands (the JAX kernels' fast path, a bfloat16 model's ``qkv``) and round
-where the Pallas kernels round (:func:`_softmax_probs_bf16`), forward and
-backward (:func:`attention_rel_packed_bwd_bf16`,
-:func:`attention_rel_packed_ik_bwd_bf16`); their bfloat16 CUDA instances
-(K2·bf16, K3·bf16, K2b·bf16, K3b·bf16) run on bfloat16 ``mma.sync``.
+``softmax(q·kᵀ·scale + bias)·v`` in float32. Every one also takes bfloat16
+operands (the JAX kernels' fast path, a bfloat16 model's ``qkv``) and rounds
+where the Pallas kernels round (:func:`_softmax_probs_bf16`; K7:
+:func:`attention_dense_bf16`), forward and backward
+(:func:`attention_rel_packed_bwd_bf16`, :func:`attention_rel_packed_ik_bwd_bf16`,
+:func:`attention_rel_bwd_bf16`, :func:`attention_rel_win_bwd_bf16`; K7's
+plain VJP widens to float32, as its JAX ``_bwd``); their bfloat16 CUDA
+instances (K2·bf16-K8·bf16, K2b·bf16, K3b·bf16, K6b·bf16, K8b·bf16) run on
+bfloat16 ``mma.sync``, and each wrapper counts them in ``bf16_launches``.
 
 Packed layout (K2, K3): ``qkv`` is the qkv Linear's output ``(B', N, 3·H·D)``
 in ``(3, heads, head_dim)`` order; the context comes back as ``(B', N, H·D)``,
@@ -184,9 +187,9 @@ def _rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads)
     ``ds = p(dp − delta)`` from the float32 ``p``, rounded to bfloat16 for
     every product that reads it; ``dk = dsᵀ·(q·scale)`` with the bfloat16
     ``q·scale`` of the forward. Every product is a float32 sum of exact
-    products. → (``dq`` in float32 before its one rounding, ``dk``, ``dv``
-    in bfloat16 ``(B, H, N, D)``, and ``drel_h``, ``drel_w``: the float32
-    sums of the rounded ``ds`` over a key row / column, rounded once)."""
+    products. → (``dq``, ``dk``, ``dv`` ``(B, H, N, D)`` in float32 before
+    their one rounding, and ``drel_h``, ``drel_w``: the float32 sums of the
+    rounded ``ds`` over a key row / column, rounded once)."""
     b, n, _ = qkv.shape
     k_h, k_w = k_hw
     d = _head_dim(qkv, num_heads)
@@ -204,7 +207,7 @@ def _rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads)
     dq = (ds @ k) * scale
     dk = ds.transpose(-2, -1) @ qs
     ds5 = ds.reshape(b * num_heads, n, k_h, k_w)
-    return dq, dk.to(bf), dv.to(bf), ds5.sum(-1).to(bf), ds5.sum(-2).to(bf)
+    return dq, dk, dv, ds5.sum(-1).to(bf), ds5.sum(-2).to(bf)
 
 
 def _stack_dqkv(dq, dk, dv, shape):
@@ -219,7 +222,8 @@ def attention_rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale: float, 
     rounded once) → ``(dqkv, drel_h, drel_w)`` in bfloat16."""
     dq, dk, dv, drel_h, drel_w = _rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale,
                                                       k_hw, num_heads)
-    return _stack_dqkv(dq.to(torch.bfloat16), dk, dv, qkv.shape), drel_h, drel_w
+    bf = torch.bfloat16
+    return _stack_dqkv(dq.to(bf), dk.to(bf), dv.to(bf), qkv.shape), drel_h, drel_w
 
 
 def window_rel_terms(qkv, rh_flat, rw_flat, k_hw, num_heads: int):
@@ -293,7 +297,8 @@ def attention_rel_packed_ik_bwd_bf16(qkv, rh_flat, rw_flat, out, g, lse, scale: 
     rh3, rw3 = rh_flat.float().view(q_h, k_h, d), rw_flat.float().view(k_w, k_w, d)
     dq_rel = (torch.einsum("bhyxk,ykc->bhyxc", drh5, rh3)
               + torch.einsum("bhyxk,xkc->bhyxc", drw5, rw3)).reshape(b, num_heads, n, d)
-    dqkv = _stack_dqkv((dq + dq_rel).to(torch.bfloat16), dk, dv, qkv.shape)
+    bf = torch.bfloat16
+    dqkv = _stack_dqkv((dq + dq_rel).to(bf), dk.to(bf), dv.to(bf), qkv.shape)
     if not tables:
         return dqkv, None, None
     q5 = qkv[..., : num_heads * d].float().reshape(b, q_h, k_w, num_heads, d)
@@ -313,9 +318,14 @@ _ARGTYPES = {  # (pointers, ints) of each C entry point; then scale and the stre
     "mia_attention_rel_packed_ik_bwd_bf16": (12, 6),
     "mia_attention_rel_f32": (7, 5),  # bh, n, d, kh, kw
     "mia_attention_rel_bwd_f32": (14, 5),
+    "mia_attention_rel_bf16": (7, 5),
+    "mia_attention_rel_bwd_bf16": (14, 5),
     "mia_attention_dense_f32": (5, 3),  # bh, n, d
+    "mia_attention_dense_bf16": (5, 3),
     "mia_attention_rel_win_f32": (6, 6),  # batch, hg, wg, heads, d, ws
     "mia_attention_rel_win_bwd_f32": (13, 6),
+    "mia_attention_rel_win_bf16": (6, 6),
+    "mia_attention_rel_win_bwd_bf16": (13, 6),
 }
 
 
@@ -383,6 +393,13 @@ def _rel_shapes(kernel, qkv, k_hw, num_heads):
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a launch takes for operand ``t``: its own, if a C entry
+    exists for it (float32 or bfloat16), else float32 (and the operand
+    check then refuses it)."""
+    return t.dtype if t.dtype in _SUFFIX else torch.float32
+
+
 def _count(wrapper, qkv) -> None:
     """One launch of the float32 kernel (``launches``) or of its bfloat16
     instance (``bf16_launches``)."""
@@ -396,7 +413,7 @@ def _launch_forward(kernel, qkv, rel_a, rel_b, scale, k_hw, num_heads, with_lse)
     """Launch K2 or K3 on float32 operands (3xTF32) or bfloat16 ones (the
     bfloat16 tensor-core instance): the rel operands, the output and K2's
     rel-term scratch take ``qkv``'s dtype, the log-sum-exp is float32."""
-    dtype = qkv.dtype if qkv.dtype in _SUFFIX else torch.float32
+    dtype = _dtype(qkv)
     b, n, d = _geometry(kernel, qkv, k_hw, num_heads, dtype)
     a_shape, b_shape = _rel_shapes(kernel, qkv, k_hw, num_heads)
     _check_operand(f"{kernel} rel operand", rel_a, a_shape, qkv.device, dtype)
@@ -442,7 +459,7 @@ def _launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, scale, k_hw, num_heads):
     ``_bf16`` for bfloat16 operands) → (dqkv, drel_h, drel_w) in the
     operands' dtype; raise on anything it does not take. ``out`` and ``g``
     take ``qkv``'s dtype, ``lse`` is float32."""
-    dtype = qkv.dtype if qkv.dtype in _SUFFIX else torch.float32
+    dtype = _dtype(qkv)
     _geometry("K3 backward", qkv, k_hw, num_heads, dtype)
     a_shape, b_shape = _rel_shapes("K3", qkv, k_hw, num_heads)
     _check_operand("K3 backward rel_h", rel_h, a_shape, qkv.device, dtype)
@@ -464,7 +481,7 @@ def _launch_k2_bwd(qkv, rh_flat, rw_flat, out, g, lse, scale, k_hw, num_heads, t
     terms and their cotangent (scratch) take the operands' dtype; the
     bfloat16 entry also takes a float32 ``dq`` scratch, which its kernel Q
     rounds once after adding the routed rel cotangent."""
-    dtype = qkv.dtype if qkv.dtype in _SUFFIX else torch.float32
+    dtype = _dtype(qkv)
     b, n, d = _geometry("K2 backward", qkv, k_hw, num_heads, dtype)
     k_h, k_w = k_hw
     a_shape, b_shape = _rel_shapes("K2", qkv, k_hw, num_heads)
@@ -615,7 +632,10 @@ def fused_attention_rel_packed_ik(qkv, rh_flat, rw_flat, scale: float, k_hw,
 
 def attention_rel(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
     """Plain K6: head-major ``q, k, v (B·H, N, D)`` and rel terms
-    ``(B·H, N, k_h)``, ``(B·H, N, k_w)`` → ``(B·H, N, D)``."""
+    ``(B·H, N, k_h)``, ``(B·H, N, k_w)`` → ``(B·H, N, D)``; bfloat16 operands
+    take :func:`attention_rel_bf16`."""
+    if q.dtype == torch.bfloat16:
+        return attention_rel_bf16(q, k, v, rel_h, rel_w, scale, k_hw)[0]
     bh, n, _ = q.shape
     k_h, k_w = k_hw
     if n != k_h * k_w:
@@ -624,9 +644,31 @@ def attention_rel(q, k, v, rel_h, rel_w, scale: float, k_hw) -> torch.Tensor:
     return attention_dense(q, k, v, bias.reshape(bh, n, n), scale)
 
 
+def attention_rel_bf16(q, k, v, rel_h, rel_w, scale: float, k_hw):
+    """Plain bfloat16 K6 (``_attn_rel_kernel`` on bfloat16 operands) → (context
+    ``(B·H, N, D)`` in bfloat16, float32 log-sum-exp ``(B·H, N)``): K3's
+    bfloat16 arithmetic (:func:`attention_rel_packed_bf16`) with one head,
+    every (batch, head) pair a batch element."""
+    return attention_rel_packed_bf16(torch.cat([q, k, v], -1), rel_h, rel_w, scale, k_hw, 1)
+
+
 def attention_dense(q, k, v, bias, scale: float) -> torch.Tensor:
-    """Plain K7: ``softmax(q·kᵀ·scale + bias)·v`` with ``bias (B·H, N, N)``."""
+    """Plain K7: ``softmax(q·kᵀ·scale + bias)·v`` with ``bias (B·H, N, N)``;
+    bfloat16 operands take :func:`attention_dense_bf16`."""
+    if q.dtype == torch.bfloat16:
+        return attention_dense_bf16(q, k, v, bias, scale)
     return ((q * scale) @ k.transpose(-2, -1) + bias).softmax(-1) @ v
+
+
+def attention_dense_bf16(q, k, v, bias, scale: float) -> torch.Tensor:
+    """Plain bfloat16 K7, rounded where ``_attn_kernel`` rounds: the scores
+    are float32 sums of the exact products of bfloat16 ``q`` and ``k``, times
+    the float32 scale, plus the bias in float32; the softmax is float32 and
+    its normalised probabilities are rounded to bfloat16 before the float32
+    sum of P·V; the output is rounded to bfloat16."""
+    s = (q.float() @ k.float().transpose(-2, -1)) * scale + bias.float()
+    p = s.softmax(-1).to(torch.bfloat16).float()
+    return (p @ v.float()).to(torch.bfloat16)
 
 
 def _pad_grid(x, ws: int, fill=None):
@@ -662,18 +704,56 @@ def attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int,
                       num_heads: int) -> torch.Tensor:
     """Plain K8: partition the qkv grid and the rel terms into whole windows
     (:func:`partition_rel_win`), attend within each window (pad slots are
-    keys), unpartition and drop the pad queries → ``(B, Hg, Wg, H·D)``."""
+    keys), unpartition and drop the pad queries → ``(B, Hg, Wg, H·D)``;
+    bfloat16 operands take :func:`attention_rel_win_bf16`."""
+    if qkv.dtype == torch.bfloat16:
+        return attention_rel_win_bf16(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads)[0]
     hg, wg = qkv.shape[1:3]
     out = attention_rel_packed(*partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, num_heads),
                                scale, (ws, ws), num_heads)
     return window_unpartition(out.view(-1, ws, ws, out.shape[-1]), ws, (hg, wg))
 
 
+def _token_lse_to_windows(lse, b, hg, wg, ws: int, num_heads: int):
+    """K8's log-sum-exp by token ``(B·H, Hg·Wg)`` → that of the partitioned
+    windows ``(B·nW·H, ws²)``, +inf at the pad slots (no query there: p = 0)."""
+    grid = lse.reshape(b, num_heads, hg, wg).permute(0, 2, 3, 1)
+    grid = _pad_grid(grid, ws, lse.new_full((num_heads,), float("inf")))
+    windows = window_partition(grid, ws)[0]
+    return windows.permute(0, 3, 1, 2).reshape(-1, ws * ws)
+
+
+def _window_lse_to_tokens(lse, b, hg, wg, ws: int, num_heads: int):
+    """The inverse of :func:`_token_lse_to_windows`, the pad slots dropped."""
+    hp, wp = -(-hg // ws) * ws, -(-wg // ws) * ws
+    grid = lse.reshape(b, hp // ws, wp // ws, num_heads, ws, ws).permute(0, 3, 1, 4, 2, 5)
+    return grid.reshape(b, num_heads, hp, wp)[:, :, :hg, :wg].reshape(b * num_heads, hg * wg)
+
+
+def attention_rel_win_bf16(qkv, rel_h, rel_w, bias_kv, scale: float, ws: int, num_heads: int):
+    """Plain bfloat16 K8 (``_attn_rel_win_kernel`` on bfloat16 operands): the
+    bfloat16 windows of :func:`partition_rel_win` (pad slots from the
+    bfloat16 ``bias_kv``) through :func:`attention_rel_packed_bf16` →
+    (context ``(B, Hg, Wg, H·D)`` in bfloat16, the float32 log-sum-exp of
+    every real query by token ``(B·H, Hg·Wg)``, as the CUDA kernel writes it)."""
+    b, hg, wg, _ = qkv.shape
+    out, lse = attention_rel_packed_bf16(
+        *partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, num_heads), scale, (ws, ws), num_heads)
+    out = window_unpartition(out.view(-1, ws, ws, out.shape[-1]), ws, (hg, wg))
+    return out, _window_lse_to_tokens(lse, b, hg, wg, ws, num_heads)
+
+
 def attention_dense_bwd(q, k, v, bias, g, scale: float):
     """Plain VJP of K7 (the JAX package's ``_bwd`` of ``fused_attention``, which
     is tensor code there too): cotangent ``g (B·H, N, D)`` → ``(dq, dk, dv,
     dbias)`` with ``dbias = ds``. Materialises the ``(B·H, N, N)``
-    probabilities, ``dp`` and ``ds``."""
+    probabilities, ``dp`` and ``ds``. bfloat16 operands are widened to
+    float32 (the scores from ``q·scale`` in float32), and each output is
+    rounded once to its operand's dtype, ``dbias`` to the bias's (float32
+    in the encoder), as ``_bwd`` does."""
+    if q.dtype == torch.bfloat16:
+        dq, dk, dv, ds = attention_dense_bwd(*(t.float() for t in (q, k, v, bias, g)), scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.to(bias.dtype)
     p = ((q * scale) @ k.transpose(-2, -1) + bias).softmax(-1)
     dv = p.transpose(-2, -1) @ g
     dp = g @ v.transpose(-2, -1)
@@ -695,6 +775,18 @@ def attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, scale: float, k_hw):
     ds = p * (g @ v.transpose(-2, -1) - delta)
     ds4 = ds.reshape(bh, n, k_h, k_w)
     return (ds @ k) * scale, (ds.transpose(-2, -1) @ q) * scale, dv, ds4.sum(-1), ds4.sum(-2)
+
+
+def attention_rel_bwd_bf16(q, k, v, rel_h, rel_w, out, g, lse, scale: float, k_hw):
+    """Plain bfloat16 VJP of K6 (``_rel_bwd_kernel`` on bfloat16 operands):
+    :func:`_rel_packed_bwd_bf16`'s roundings with one head, ``p`` from the
+    forward's log-sum-exp ``lse (B·H, N)`` → ``(dq, dk, dv, drel_h, drel_w)``
+    in bfloat16, ``dq``, ``dk`` and ``dv`` float32 sums rounded once (the
+    Pallas kernel's float32 dk / dv accumulators, cast at the end)."""
+    bf = torch.bfloat16
+    dq, dk, dv, drel_h, drel_w = _rel_packed_bwd_bf16(torch.cat([q, k, v], -1), rel_h, rel_w,
+                                                      out, g, lse, scale, k_hw, 1)
+    return dq[:, 0].to(bf), dk[:, 0].to(bf), dv[:, 0].to(bf), drel_h, drel_w
 
 
 def attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, scale: float, ws: int,
@@ -727,8 +819,45 @@ def attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, scale: float, ws: 
     return dqkv, rel_grid(drh_w), rel_grid(drw_w), dbias_kv
 
 
+def attention_rel_win_bwd_bf16(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale: float, ws: int,
+                               num_heads: int):
+    """Plain bfloat16 VJP of K8 (``_attn_rel_win_bwd_kernel`` on bfloat16
+    operands): :func:`_rel_packed_bwd_bf16` on the bfloat16 windows, ``p``
+    from the forward's log-sum-exp by token ``lse (B·H, Hg·Wg)`` (+inf at
+    the pad queries, whose cotangent is zero) → ``(dqkv, drel_h, drel_w,
+    dbias_kv)``: ``dqkv`` and the rel cotangents in bfloat16 in the grid
+    layout, ``dq``, ``dk``, ``dv`` float32 sums rounded once; ``dbias_kv``
+    the float32 sums of the pad slots' unrounded ``dk`` and ``dv``, rounded
+    once to ``bias_kv``'s dtype, row 0 zero."""
+    b, hg, wg, three_hd = qkv.shape
+    hd = three_hd // 3
+    bf = torch.bfloat16
+    windows, rh_w, rw_w = partition_rel_win(qkv, rel_h, rel_w, bias_kv, ws, num_heads)
+    out_w, (hp, wp) = window_partition(out, ws)
+    g_w, _ = window_partition(g, ws)
+    n_win = out_w.shape[0]
+    dq, dk, dv, drh_w, drw_w = _rel_packed_bwd_bf16(
+        windows, rh_w, rw_w, out_w.reshape(n_win, ws * ws, hd), g_w.reshape(n_win, ws * ws, hd),
+        _token_lse_to_windows(lse, b, hg, wg, ws, num_heads), scale, (ws, ws), num_heads)
+    pad = 1.0 - window_partition(qkv.new_ones(b, hg, wg, 1, dtype=torch.float32), ws)[0]
+    dqkv32 = _stack_dqkv(dq, dk, dv, windows.shape).view(n_win, ws, ws, three_hd)
+    dbias_kv = (dqkv32 * pad).sum((0, 1, 2)).view(3, hd).clone()
+    dbias_kv[0] = 0.0
+    dqkv_w = _stack_dqkv(dq.to(bf), dk.to(bf), dv.to(bf), windows.shape).view(n_win, ws, ws,
+                                                                               three_hd)
+
+    def rel_grid(rel):  # (B·nW·H, ws·ws, ws) → (B·H, Hg, Wg, ws)
+        r = rel.reshape(b, hp // ws, wp // ws, num_heads, ws, ws, ws)
+        r = r.permute(0, 3, 1, 4, 2, 5, 6).reshape(b * num_heads, hp, wp, ws)
+        return r[:, :hg, :wg].contiguous()
+
+    dqkv = window_unpartition(dqkv_w, ws, (hg, wg)).contiguous()
+    return dqkv, rel_grid(drh_w), rel_grid(drw_w), dbias_kv.to(bias_kv.dtype)
+
+
 def _check_head_major(label, q, k, v):
-    """Check K6's and K7's operands; return (bh, n, d)."""
+    """Check K6's and K7's operands (float32 or bfloat16, one dtype); return
+    (bh, n, d)."""
     if q.dim() != 3:
         raise ValueError(f"{label} needs (B·H, N, D) operands, got {tuple(q.shape)}")
     bh, n, d = q.shape
@@ -739,7 +868,7 @@ def _check_head_major(label, q, k, v):
     if bh >= 65536 or bh * n * d >= 2 ** 31:
         raise ValueError(f"{label}: shape {tuple(q.shape)} exceeds the launch grid or int32")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(f"{label} {name}", t, (bh, n, d), q.device)
+        _check_operand(f"{label} {name}", t, (bh, n, d), q.device, _dtype(q))
     return bh, n, d
 
 
@@ -757,51 +886,59 @@ def _check_k6(label, q, k, v, rel_h, rel_w, k_hw):
     k_h, k_w = k_hw
     if n != k_h * k_w:
         raise ValueError(f"{label}: token count {n} != k_h*k_w {k_h * k_w}")
-    _check_operand(f"{label} rel_h", rel_h, (bh, n, k_h), q.device)
-    _check_operand(f"{label} rel_w", rel_w, (bh, n, k_w), q.device)
+    _check_operand(f"{label} rel_h", rel_h, (bh, n, k_h), q.device, _dtype(q))
+    _check_operand(f"{label} rel_w", rel_w, (bh, n, k_w), q.device, _dtype(q))
     return bh, n, d
 
 
 def _launch_k6(q, k, v, rel_h, rel_w, scale, k_hw, with_lse=False):
-    """Launch K6 (``mia_attention_rel_f32``); raise on anything it does not
-    take. ``with_lse`` also returns the per-row log-sum-exp ``(B·H, N)`` the
-    backward reads."""
+    """Launch K6 (``mia_attention_rel_f32``, or ``_bf16`` for bfloat16
+    operands: q, k, v, the rel terms and the output of one dtype); raise on
+    anything it does not take. ``with_lse`` also returns the float32 per-row
+    log-sum-exp ``(B·H, N)`` the backward reads."""
     bh, n, d = _check_k6("K6", q, k, v, rel_h, rel_w, k_hw)
     out = torch.empty_like(q)
     lse = torch.empty((bh, n), dtype=torch.float32, device=q.device) if with_lse else None
-    _launch_on_stream("K6", "mia_attention_rel_f32", q.device, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-                      None if lse is None else lse.data_ptr(), bh, n, d, *k_hw, float(scale))
-    fused_attention_rel.launches += 1
+    _launch_on_stream("K6", "mia_attention_rel_" + _SUFFIX[q.dtype], q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                      out.data_ptr(), None if lse is None else lse.data_ptr(), bh, n, d, *k_hw,
+                      float(scale))
+    _count(fused_attention_rel, q)
     return (out, lse) if with_lse else out
 
 
 def _launch_k6_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw):
-    """Launch K6's backward (``mia_attention_rel_bwd_f32``) → (dq, dk, dv,
-    drel_h, drel_w); raise on anything it does not take."""
+    """Launch K6's backward (``mia_attention_rel_bwd_f32``, or ``_bf16`` for
+    bfloat16 operands) → (dq, dk, dv, drel_h, drel_w) in the operands'
+    dtype; raise on anything it does not take. ``out`` and ``g`` take the
+    operands' dtype, ``lse`` is float32."""
     bh, n, d = _check_k6("K6 backward", q, k, v, rel_h, rel_w, k_hw)
-    _check_operand("K6 backward out", out, (bh, n, d), q.device)
-    _check_operand("K6 backward cotangent", g, (bh, n, d), q.device)
+    _check_operand("K6 backward out", out, (bh, n, d), q.device, _dtype(q))
+    _check_operand("K6 backward cotangent", g, (bh, n, d), q.device, _dtype(q))
     _check_operand("K6 backward lse", lse, (bh, n), q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
     delta = torch.empty_like(lse)
-    _launch_on_stream("K6 backward", "mia_attention_rel_bwd_f32", q.device,
+    _launch_on_stream("K6 backward", "mia_attention_rel_bwd_" + _SUFFIX[q.dtype], q.device,
                       *(t.data_ptr() for t in (q, k, v, rel_h, rel_w, out, g, lse, dq, dk, dv,
                                                delta, drel_h, drel_w)),
                       bh, n, d, *k_hw, float(scale))
-    fused_attention_rel_bwd.launches += 1
+    _count(fused_attention_rel_bwd, q)
     return dq, dk, dv, drel_h, drel_w
 
 
 def _launch_k7(q, k, v, bias, scale):
-    """Launch K7 (``mia_attention_dense_f32``); raise on anything it does not take."""
+    """Launch K7 (``mia_attention_dense_f32``, or ``_bf16`` for bfloat16 q,
+    k, v and output); the bias is float32 either way, as the JAX encoder
+    hands it (its kernel adds it in float32). Raise on anything it does not
+    take."""
     bh, n, d = _check_head_major("K7", q, k, v)
     _check_operand("K7 bias", bias, (bh, n, n), q.device)
     out = torch.empty_like(q)
-    _launch_on_stream("K7", "mia_attention_dense_f32", q.device, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, n, d, float(scale))
-    fused_attention.launches += 1
+    _launch_on_stream("K7", "mia_attention_dense_" + _SUFFIX[q.dtype], q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), bh, n, d,
+                      float(scale))
+    _count(fused_attention, q)
     return out
 
 
@@ -821,26 +958,29 @@ def _check_k8(label, qkv, rel_h, rel_w, bias_kv, ws, num_heads):
     n_win = -(-hg // ws) * -(-wg // ws)
     if b * n_win >= 65536 or num_heads >= 65536 or qkv.numel() >= 2 ** 31:
         raise ValueError(f"{label}: qkv shape {tuple(qkv.shape)} exceeds the launch grid or int32")
-    _check_operand(f"{label} qkv", qkv, qkv.shape, qkv.device)
-    _check_operand(f"{label} rel_h", rel_h, (b * num_heads, hg, wg, ws), qkv.device)
-    _check_operand(f"{label} rel_w", rel_w, (b * num_heads, hg, wg, ws), qkv.device)
-    _check_operand(f"{label} bias_kv", bias_kv, (3, num_heads * d), qkv.device)
+    dtype = _dtype(qkv)
+    _check_operand(f"{label} qkv", qkv, qkv.shape, qkv.device, dtype)
+    _check_operand(f"{label} rel_h", rel_h, (b * num_heads, hg, wg, ws), qkv.device, dtype)
+    _check_operand(f"{label} rel_w", rel_w, (b * num_heads, hg, wg, ws), qkv.device, dtype)
+    _check_operand(f"{label} bias_kv", bias_kv, (3, num_heads * d), qkv.device, dtype)
     return b, hg, wg, d, ws, n_win
 
 
 def _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, with_lse=False):
-    """Launch K8 (``mia_attention_rel_win_f32``); raise on anything it does
-    not take. ``with_lse`` also returns the log-sum-exp of every real query by
+    """Launch K8 (``mia_attention_rel_win_f32``, or ``_bf16`` for bfloat16
+    qkv, rel terms, bias_kv and output); raise on anything it does not take.
+    ``with_lse`` also returns the float32 log-sum-exp of every real query by
     token, ``(B·H, Hg·Wg)``, which the backward reads."""
     b, hg, wg, d, ws, _ = _check_k8("K8", qkv, rel_h, rel_w, bias_kv, ws, num_heads)
     out = torch.empty((b, hg, wg, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b * num_heads, hg * wg), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    _launch_on_stream("K8", "mia_attention_rel_win_f32", qkv.device, qkv.data_ptr(),
+    _launch_on_stream("K8", "mia_attention_rel_win_" + _SUFFIX[qkv.dtype], qkv.device,
+                      qkv.data_ptr(),
                       rel_h.data_ptr(), rel_w.data_ptr(), bias_kv.data_ptr(), out.data_ptr(),
                       None if lse is None else lse.data_ptr(),
                       b, hg, wg, num_heads, d, ws, float(scale))
-    fused_attention_rel_win.launches += 1
+    _count(fused_attention_rel_win, qkv)
     return (out, lse) if with_lse else out
 
 
@@ -848,12 +988,14 @@ _BWD_TILE = 64  # key rows per block of the backward template (kTcTile in csrc/t
 
 
 def _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads):
-    """Launch K8's backward (``mia_attention_rel_win_bwd_f32``) → (dqkv,
-    drel_h, drel_w, dbias_kv); raise on anything it does not take."""
+    """Launch K8's backward (``mia_attention_rel_win_bwd_f32``, or ``_bf16``
+    for bfloat16 operands) → (dqkv, drel_h, drel_w, dbias_kv) in the
+    operands' dtype; raise on anything it does not take. The pad slots'
+    float32 partials are reduced in a fixed order and rounded once."""
     b, hg, wg, d, ws, n_win = _check_k8("K8 backward", qkv, rel_h, rel_w, bias_kv, ws, num_heads)
     hd = num_heads * d
-    _check_operand("K8 backward out", out, (b, hg, wg, hd), qkv.device)
-    _check_operand("K8 backward cotangent", g, (b, hg, wg, hd), qkv.device)
+    _check_operand("K8 backward out", out, (b, hg, wg, hd), qkv.device, _dtype(qkv))
+    _check_operand("K8 backward cotangent", g, (b, hg, wg, hd), qkv.device, _dtype(qkv))
     _check_operand("K8 backward lse", lse, (b * num_heads, hg * wg), qkv.device)
     dqkv = torch.empty_like(qkv)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
@@ -862,19 +1004,23 @@ def _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads
     dpad = torch.empty((b * n_win * -(-ws * ws // _BWD_TILE), 2, hd), dtype=torch.float32,
                        device=qkv.device)
     dbias_kv = torch.empty_like(bias_kv)
-    _launch_on_stream("K8 backward", "mia_attention_rel_win_bwd_f32", qkv.device,
+    _launch_on_stream("K8 backward", "mia_attention_rel_win_bwd_" + _SUFFIX[qkv.dtype],
+                      qkv.device,
                       *(t.data_ptr() for t in (qkv, rel_h, rel_w, bias_kv, out, g, lse, dqkv,
                                                delta, drel_h, drel_w, dpad, dbias_kv)),
                       b, hg, wg, num_heads, d, ws, float(scale))
-    fused_attention_rel_win_bwd.launches += 1
+    _count(fused_attention_rel_win_bwd, qkv)
     return dqkv, drel_h, drel_w, dbias_kv
 
 
 def fused_attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale: float, k_hw):
     """K6 backward: a CUDA tensor launches the tensor-core backward kernels
-    of ``csrc/attention_bwd_tc.cuh`` (C entry in ``csrc/attention_rel.cu``)
-    and raises if it cannot; a CPU tensor takes :func:`attention_rel_bwd`
-    (``lse`` unused)."""
+    of ``csrc/attention_bwd_tc.cuh`` of the operands' dtype (C entry in
+    ``csrc/attention_rel.cu``) and raises if it cannot; a CPU tensor takes
+    :func:`attention_rel_bwd` (``lse`` unused) or, in bfloat16,
+    :func:`attention_rel_bwd_bf16`."""
+    if q.device.type == "cpu" and q.dtype == torch.bfloat16:
+        return attention_rel_bwd_bf16(q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw)
     if q.device.type == "cpu":
         return attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, scale, k_hw)
     return _launch_k6_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale, k_hw)
@@ -882,8 +1028,11 @@ def fused_attention_rel_bwd(q, k, v, rel_h, rel_w, out, g, lse, scale: float, k_
 
 def fused_attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale: float, ws: int,
                                 num_heads: int):
-    """K8 backward, as :func:`fused_attention_rel_bwd`; the plain version is
-    :func:`attention_rel_win_bwd`."""
+    """K8 backward, as :func:`fused_attention_rel_bwd`; the plain versions are
+    :func:`attention_rel_win_bwd` and :func:`attention_rel_win_bwd_bf16`."""
+    if qkv.device.type == "cpu" and qkv.dtype == torch.bfloat16:
+        return attention_rel_win_bwd_bf16(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws,
+                                          num_heads)
     if qkv.device.type == "cpu":
         return attention_rel_win_bwd(qkv, rel_h, rel_w, bias_kv, out, g, scale, ws, num_heads)
     return _launch_k8_bwd(qkv, rel_h, rel_w, bias_kv, out, g, lse, scale, ws, num_heads)
@@ -895,7 +1044,9 @@ class _AttentionRel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, scale, k_hw):
         q, k, v, rel_h, rel_w = (t.contiguous() for t in (q, k, v, rel_h, rel_w))
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and q.dtype == torch.bfloat16:  # the VJP reads its lse
+            out, lse = attention_rel_bf16(q, k, v, rel_h, rel_w, scale, k_hw)
+        elif q.device.type == "cpu":
             out, lse = attention_rel(q, k, v, rel_h, rel_w, scale, k_hw), None
         else:
             out, lse = _launch_k6(q, k, v, rel_h, rel_w, scale, k_hw, with_lse=True)
@@ -934,7 +1085,9 @@ class _AttentionRelWin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads):
         qkv, rel_h, rel_w, bias_kv = (t.contiguous() for t in (qkv, rel_h, rel_w, bias_kv))
-        if qkv.device.type == "cpu":
+        if qkv.device.type == "cpu" and qkv.dtype == torch.bfloat16:  # the VJP reads its lse
+            out, lse = attention_rel_win_bf16(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads)
+        elif qkv.device.type == "cpu":
             out, lse = attention_rel_win(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads), None
         else:
             out, lse = _launch_k8(qkv, rel_h, rel_w, bias_kv, scale, ws, num_heads, with_lse=True)
@@ -1018,3 +1171,8 @@ fused_attention_rel_bwd.launches = 0
 fused_attention.launches = 0
 fused_attention_rel_win.launches = 0
 fused_attention_rel_win_bwd.launches = 0
+fused_attention_rel.bf16_launches = 0
+fused_attention_rel_bwd.bf16_launches = 0
+fused_attention.bf16_launches = 0
+fused_attention_rel_win.bf16_launches = 0
+fused_attention_rel_win_bwd.bf16_launches = 0

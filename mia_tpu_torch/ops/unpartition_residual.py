@@ -20,7 +20,15 @@ block's output partitioned and produces both in one pass.
   ``torch.autograd.Function`` whose forward also keeps ``mu``/``rstd`` and
   whose backward is :func:`unpartition_add_ln_fused_bwd` (the backward
   kernel K9b of the same file, or the plain VJP on the CPU). ``launches``
-  on each wrapper counts kernel launches.
+  on each wrapper counts kernel launches, ``bf16_launches`` those of the
+  bfloat16 instances.
+
+A bfloat16 residual stream (a bfloat16 encoder's) is rounded where the
+Pallas kernels round it: the residual add in float32 rounded to bfloat16
+before the LayerNorm statistics, ``y`` in float32 rounded once; the
+backward in float32 from the widened operands, both cotangents rounded once
+to bfloat16, ``mu``, ``rstd``, ``scale``, ``bias`` and their gradients
+float32. The kernels' bfloat16 instances (K9·bf16, K9b·bf16) do the same.
 """
 
 from __future__ import annotations
@@ -36,8 +44,13 @@ from .ln_window import layer_norm, layer_norm_stats, window_partition, window_un
 
 def unpartition_add_ln_plain(windows, shortcut, scale, bias, window_size: int, eps: float = 1e-6):
     """Plain K9: ``windows (B·nW, ws, ws, C)``, ``shortcut (B, H, W, C)`` →
-    ``(x_new, y)``, both ``(B, H, W, C)``."""
-    x_new = shortcut + window_unpartition(windows, window_size, shortcut.shape[1:3])
+    ``(x_new, y)``, both ``(B, H, W, C)`` in the stream's dtype (bfloat16: see
+    the module docstring)."""
+    joined = window_unpartition(windows, window_size, shortcut.shape[1:3])
+    if shortcut.dtype == torch.bfloat16:
+        x_new = (shortcut.float() + joined.float()).to(torch.bfloat16)
+        return x_new, layer_norm(x_new.float(), scale, bias, eps).to(torch.bfloat16)
+    x_new = shortcut + joined
     return x_new, layer_norm(x_new, scale, bias, eps)
 
 
@@ -47,21 +60,30 @@ def unpartition_add_ln_bwd(x_new, dx_new, dy, mu, rstd, scale, window_size: int,
     per-token statistics ``mu``, ``rstd`` ``(B, H, W)``: the cotangents
     ``dx_new`` and ``dy`` ``(B, H, W, C)`` → ``(dwindows, dshortcut, dscale,
     dbias)``; ``dwindows (B·nW, ws, ws, C)`` is zero at the pad slots, the
-    last two are None unless ``params``."""
+    last two are None unless ``params``. bfloat16 operands are widened to
+    float32 and both cotangents rounded once to bfloat16; ``dscale`` and
+    ``dbias`` stay float32."""
+    dtype = x_new.dtype
+    if dtype == torch.bfloat16:
+        x_new, dx_new, dy = x_new.float(), dx_new.float(), dy.float()
     mu, rstd = mu[..., None], rstd[..., None]
     xhat = (x_new - mu) * rstd
     g = dy * scale
     total = dx_new + rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    total = total.to(dtype)
     dwin = window_partition(total, window_size)[0]
     if not params:
         return dwin, total, None, None
     return dwin, total, (dy * xhat).sum((0, 1, 2)), dy.sum((0, 1, 2))
 
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 @functools.cache
 def _k9_function(name: str):
     fn = getattr(load_library(), name)
-    if name == "mia_unpartition_add_ln_f32":
+    if "_bwd_" not in name:  # the forward entries
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     else:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -70,12 +92,15 @@ def _k9_function(name: str):
 
 
 def _check_k9(label, grid, window_size, **operands):
-    """Check a ``(B, H, W, C)`` grid tensor and the named operands (name →
-    (tensor, kind of shape: windows, grid, token or channel)); return the sizes."""
+    """Check a float32 or bfloat16 ``(B, H, W, C)`` grid tensor and the named
+    operands (name → (tensor, kind of shape: windows, grid, token or
+    channel)): windows and grid operands in the grid's dtype, token and
+    channel ones float32; return the sizes."""
     if grid.device.type != "cuda":
         raise ValueError(f"{label} needs a CUDA tensor, got {grid.device}")
-    if grid.dtype != torch.float32 or not grid.is_contiguous() or grid.dim() != 4:
-        raise ValueError(f"{label} needs a contiguous float32 (B, H, W, C) tensor")
+    if grid.dtype not in _SUFFIX or not grid.is_contiguous() or grid.dim() != 4:
+        raise ValueError(f"{label} needs a contiguous float32 or bfloat16 (B, H, W, C) tensor, "
+                         f"got {grid.dtype}")
     b, h, w, c = grid.shape
     ws = int(window_size)
     if ws <= 0:
@@ -87,17 +112,20 @@ def _check_k9(label, grid, window_size, **operands):
               "channel": (c,)}
     for name, (t, kind) in operands.items():
         shape = shapes[kind]
-        if (t.dtype != torch.float32 or t.device != grid.device or tuple(t.shape) != shape
+        dtype = grid.dtype if kind in ("windows", "grid") else torch.float32
+        if (t.dtype != dtype or t.device != grid.device or tuple(t.shape) != shape
                 or not t.is_contiguous()):
-            raise ValueError(f"{label} {name} must be a contiguous float32 {shape} tensor on "
+            raise ValueError(f"{label} {name} must be a contiguous {dtype} {shape} tensor on "
                              f"{grid.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     return b, h, w, c, ws, n_win
 
 
 def _launch_k9(windows, shortcut, scale, bias, window_size: int, eps: float = 1e-6,
                with_stats: bool = False):
-    """Launch the CUDA kernel; raise on anything it does not take.
-    ``with_stats`` also returns the per-token ``mu``, ``rstd`` ``(B, H, W)``."""
+    """Launch the CUDA kernel (``mia_unpartition_add_ln_f32``, or ``_bf16``
+    for a bfloat16 stream); raise on anything it does not take.
+    ``with_stats`` also returns the float32 per-token ``mu``, ``rstd``
+    ``(B, H, W)``."""
     b, h, w, c, ws, _ = _check_k9("K9", shortcut, window_size, windows=(windows, "windows"),
                                   scale=(scale, "channel"), bias=(bias, "channel"))
     x_new, y = torch.empty_like(shortcut), torch.empty_like(shortcut)
@@ -105,13 +133,13 @@ def _launch_k9(windows, shortcut, scale, bias, window_size: int, eps: float = 1e
     rstd = torch.empty_like(mu) if with_stats else None
     with torch.cuda.device(shortcut.device):
         stream = torch.cuda.current_stream(shortcut.device).cuda_stream
-        err = _k9_function("mia_unpartition_add_ln_f32")(
+        err = _k9_function("mia_unpartition_add_ln_" + _SUFFIX[shortcut.dtype])(
             windows.data_ptr(), shortcut.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             x_new.data_ptr(), y.data_ptr(), None if mu is None else mu.data_ptr(),
             None if rstd is None else rstd.data_ptr(), b, h, w, c, ws, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"K9 launch failed: cudaError {err}")
-    unpartition_add_ln.launches += 1
+    _count(unpartition_add_ln, shortcut)
     return (x_new, y, mu, rstd) if with_stats else (x_new, y)
 
 
@@ -119,13 +147,14 @@ _PARAM_CHUNKS = 256  # token chunks of the kernel's dscale/dbias partial sums
 
 
 def _launch_k9_bwd(x_new, dx_new, dy, mu, rstd, scale, window_size: int, params: bool = True):
-    """Launch K9's backward (``mia_unpartition_add_ln_bwd_f32``) → (dwindows,
-    dshortcut, dscale, dbias), the last two only when ``params``."""
+    """Launch K9's backward (``mia_unpartition_add_ln_bwd_f32``, or ``_bf16``
+    for a bfloat16 stream) → (dwindows, dshortcut in the stream's dtype,
+    float32 dscale, dbias), the last two only when ``params``."""
     b, h, w, c, ws, n_win = _check_k9(
         "K9 backward", x_new, window_size, dx_new=(dx_new, "grid"), dy=(dy, "grid"),
         mu=(mu, "token"), rstd=(rstd, "token"), scale=(scale, "channel"))
     dsc = torch.empty_like(x_new)
-    dwin = torch.empty((n_win, ws, ws, c), dtype=torch.float32, device=x_new.device)
+    dwin = torch.empty((n_win, ws, ws, c), dtype=x_new.dtype, device=x_new.device)
     dscale = torch.empty_like(scale) if params else None
     dbias = torch.empty_like(scale) if params else None
     part = (torch.empty((2 * _PARAM_CHUNKS * c,), dtype=torch.float32, device=x_new.device)
@@ -133,13 +162,13 @@ def _launch_k9_bwd(x_new, dx_new, dy, mu, rstd, scale, window_size: int, params:
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x_new.device):
         stream = torch.cuda.current_stream(x_new.device).cuda_stream
-        err = _k9_function("mia_unpartition_add_ln_bwd_f32")(
+        err = _k9_function("mia_unpartition_add_ln_bwd_" + _SUFFIX[x_new.dtype])(
             x_new.data_ptr(), dx_new.data_ptr(), dy.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
             scale.data_ptr(), dsc.data_ptr(), dwin.data_ptr(), ptr(dscale), ptr(dbias), ptr(part),
             b, h, w, c, ws, stream)
     if err != 0:
         raise RuntimeError(f"K9 backward launch failed: cudaError {err}")
-    unpartition_add_ln_fused_bwd.launches += 1
+    _count(unpartition_add_ln_fused_bwd, x_new)
     return dwin, dsc, dscale, dbias
 
 
@@ -161,7 +190,8 @@ class _UnpartitionAddLN(torch.autograd.Function):
         windows, shortcut = windows.contiguous(), shortcut.contiguous()
         if shortcut.device.type == "cpu":
             x_new, y = unpartition_add_ln_plain(windows, shortcut, scale, bias, window_size, eps)
-            mu, rstd = (t[..., 0] for t in layer_norm_stats(x_new, eps))
+            stats_of = x_new.float() if x_new.dtype == torch.bfloat16 else x_new
+            mu, rstd = (t[..., 0] for t in layer_norm_stats(stats_of, eps))
         else:
             x_new, y, mu, rstd = _launch_k9(windows, shortcut, scale, bias, window_size, eps,
                                             with_stats=True)
@@ -196,5 +226,16 @@ def unpartition_add_ln(windows, shortcut, scale, bias, window_size: int, eps: fl
     return _launch_k9(windows.contiguous(), shortcut.contiguous(), scale, bias, window_size, eps)
 
 
+def _count(wrapper, grid) -> None:
+    """One launch of the float32 kernel (``launches``) or of its bfloat16
+    instance (``bf16_launches``)."""
+    if grid.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 unpartition_add_ln.launches = 0
 unpartition_add_ln_fused_bwd.launches = 0
+unpartition_add_ln.bf16_launches = 0
+unpartition_add_ln_fused_bwd.bf16_launches = 0

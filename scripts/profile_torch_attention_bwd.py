@@ -18,8 +18,9 @@ bias, as ``chip_smoke.py`` times it) under ``torch.profiler`` and prints the
 device kernels each one launches, with their times. Needs a CUDA device.
 
 With ``--sass`` it times nothing: it compiles each tree's
-``csrc/attention_rel.cu``, ``csrc/attention_routes.cu`` and
-``csrc/ln_window.cu`` (K4 and K4b) with ``nvcc -Xptxas -v`` and prints, for
+``csrc/attention_rel.cu``, ``csrc/attention_routes.cu``,
+``csrc/ln_window.cu`` (K4 and K4b) and ``csrc/unpartition_residual.cu`` (K9
+and K9b) with ``nvcc -Xptxas -v`` and prints, for
 every kernel, its registers and spill, its ``HMMA.1688.F32.TF32``,
 ``HMMA.16816.F32.BF16``, ``ATOM`` and local-memory instructions, and whether
 its SASS equals the first tree's, under its own name or another (so
@@ -38,6 +39,11 @@ the library call on the partitioned windows; with ``--kernels`` the device
 kernels of K3, K2, K7, K6 and K8 at B=1 and B=12 and of the library call at
 B=1.
 
+With ``--bf16`` alone it times the bfloat16 instances of the other routes'
+attention kernels instead: K6 and K7 (windows and global tokens) and K8 at
+B=1, K6b (windows and global) and K8b at training batch 12, with
+``--kernels`` the device kernels of each.
+
 With ``--forward --bf16`` it times the bfloat16 instances of K3 and K2 on
 bfloat16 operands at the ViT-B/512 serving shapes B=1 and B=8 (the shapes
 ``chip_smoke.py`` times), each beside its plain bfloat16 version and the
@@ -48,7 +54,7 @@ key grids 32x32, 20x27, 64x64 and 28x36 (whose rel rows of 32 and 64 floats
 put the eight query rows of a warp's fragment in one shared-memory bank).
 
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
-        [--forward [--bf16] | --sass]
+        [--forward [--bf16] | --bf16 | --sass]
 
 Several ``--tree`` arguments run in the given order, one process each
 (parent, change, change, parent is the order that shows a drift of the card).
@@ -129,7 +135,8 @@ def _short_name(mangled: str) -> str:
 
 def sass_report(trees) -> None:
     """Registers, spill and instruction counts of every kernel of each tree's
-    csrc/attention_rel.cu, attention_routes.cu and ln_window.cu, and whether
+    csrc/attention_rel.cu, attention_routes.cu, ln_window.cu and
+    unpartition_residual.cu, and whether
     its SASS equals the first tree's."""
     sys.path.insert(0, str(ROOT))
     from mia_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
@@ -139,7 +146,8 @@ def sass_report(trees) -> None:
     first = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate(trees):
-            for source in ("attention_rel.cu", "attention_routes.cu", "ln_window.cu"):
+            for source in ("attention_rel.cu", "attention_routes.cu", "ln_window.cu",
+                           "unpartition_residual.cu"):
                 obj = Path(tmp) / f"{i}.{source}.o"
                 src = Path(tree) / "mia_tpu_torch" / "csrc" / source
                 log = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
@@ -452,6 +460,59 @@ def bench(tree: str, kernels: bool = False) -> None:
         print(f"{tree}: K8b B=12 {ms:.4f} ms", flush=True)
 
 
+def bench_bf16_routes(tree: str, kernels: bool = False) -> None:
+    """The bfloat16 instances of the other routes' attention kernels at the
+    ViT-B/512 shapes: K6 and K7 (windows and global tokens at B=1), K8 (B=1),
+    K6b (windows and global) and K8b at training batch 12; event times
+    (median of 7 blocks) and, with ``kernels``, the device kernels of each."""
+    import torch
+
+    sys.path.insert(0, tree)
+    from mia_tpu_torch.ops import attention
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
+
+    heads, d, ws, side = 12, 64, 14, 32
+    scale = d ** -0.5
+    calls = {}
+    for shape, bh, k_hw in (("windows", 9 * heads, (ws, ws)), ("global", heads, (side, side))):
+        n = k_hw[0] * k_hw[1]
+        ops = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+               randn(bh, n, k_hw[1]))
+        bias = randn(bh, n, n, dtype=torch.float32)
+        calls[f"K6 bf16 {shape} B=1"] = functools.partial(attention._launch_k6, *ops, scale, k_hw)
+        calls[f"K7 bf16 {shape} B=1"] = functools.partial(attention._launch_k7, *ops[:3], bias,
+                                                          scale)
+    k8 = (randn(1, side, side, 3 * heads * d), randn(heads, side, side, ws),
+          randn(heads, side, side, ws), randn(3, heads * d, scale=0.5), scale, ws, heads)
+    calls["K8 bf16 B=1"] = functools.partial(attention._launch_k8, *k8)
+    for shape, bh, k_hw in (("windows", 12 * 9 * heads, (ws, ws)), ("global", 12 * heads,
+                                                                      (side, side))):
+        n = k_hw[0] * k_hw[1]
+        fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+               randn(bh, n, k_hw[1]))
+        out, lse = attention._launch_k6(*fwd, scale, k_hw, with_lse=True)
+        calls[f"K6b bf16 {shape} B=12"] = functools.partial(
+            attention._launch_k6_bwd, *fwd, out, randn(bh, n, d), lse, scale, k_hw)
+    fwd = (randn(12, side, side, 3 * heads * d), randn(12 * heads, side, side, ws),
+           randn(12 * heads, side, side, ws), randn(3, heads * d, scale=0.5))
+    out, lse = attention._launch_k8(*fwd, scale, ws, heads, with_lse=True)
+    calls["K8b bf16 B=12"] = functools.partial(attention._launch_k8_bwd, *fwd, out,
+                                               randn(12, side, side, heads * d), lse, scale, ws,
+                                               heads)
+    for _ in range(2):
+        print(f"{tree}: " + ", ".join(f"{name} {time_ms(torch, fn, per_block=5):.4f} ms"
+                                      for name, fn in calls.items()), flush=True)
+    if kernels:
+        for name, fn in calls.items():
+            kernel_table(torch, f"{tree}: {name}", fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", help="root of a tree that holds mia_tpu_torch/")
@@ -460,7 +521,8 @@ def main(argv=None) -> int:
     ap.add_argument("--forward", action="store_true",
                     help="time the forward kernels K3, K2, K7, K6, K8 and the library call instead")
     ap.add_argument("--bf16", action="store_true",
-                    help="with --forward: the bfloat16 instances of K3 and K2")
+                    help="with --forward: the bfloat16 instances of K3 and K2; alone: those of "
+                         "K6, K7, K8, K6b and K8b")
     ap.add_argument("--sass", action="store_true",
                     help="compile each tree's attention_rel.cu and attention_routes.cu and "
                          "compare registers and SASS")
@@ -470,8 +532,8 @@ def main(argv=None) -> int:
         sass_report(args.tree or [str(ROOT)])
         return 0
     if args.one:
-        run = bench_forward_bf16 if args.forward and args.bf16 else bench_forward if args.forward \
-            else bench
+        run = (bench_forward_bf16 if args.forward and args.bf16 else bench_forward if args.forward
+               else bench_bf16_routes if args.bf16 else bench)
         run(args.one, args.kernels)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -12,7 +12,7 @@ another route of the encoder (K9 exit, grid-native K8, head-major K6, no
 rel-pos K7), ``--use-contrastive-loss`` and ``--use-adv-loss`` switch the
 auxiliary losses on (both phases then run the whole batch),
 ``--compute-dtype bfloat16`` trains the model in bfloat16 (the bfloat16
-instances of K2-K4b; default route only). Needs a CUDA device.
+instances of the route's kernels; any route). Needs a CUDA device.
 
     python scripts/profile_torch_cpcsam.py [--steps 10] [--profiled 3]
         [--variant default|k9|grid_native|head_major|no_rel_pos]
@@ -57,14 +57,19 @@ GROUPS = (  # (label, substrings of the kernel name), first match wins
     ("K2 backward, table pass", ("attention_rel_bwd_tables_kernel",)),
     ("K2 rel terms (forward and backward) and routing", ("attention_rel_terms_kernel",
                                                          "attention_rel_route_kernel")),
-    # the bfloat16 instances (--compute-dtype bfloat16): attention_fwd_bf16_kernel<D, tables,
-    # keys> and attention_bwd_bf16_{dq,dkv}_kernel<D, tables>, tables = K2 / K2b
-    ("K2 forward, bfloat16", ("attention_fwd_bf16_kernel<64, true",)),
-    ("K3 forward, bfloat16", ("attention_fwd_bf16_kernel<64, false",)),
+    # the bfloat16 instances (--compute-dtype bfloat16), the same kinds and layouts:
+    # attention_fwd_bf16_kernel<D, bias, keys> and attention_bwd_bf16_{dq,dkv}_kernel<D,
+    # tables, window>
+    ("K2 forward, bfloat16", ("attention_fwd_bf16_kernel<64, 0,",)),
+    ("K3 forward, bfloat16", ("attention_fwd_bf16_kernel<64, 1,",)),
+    ("K7 forward, bfloat16", ("attention_fwd_bf16_kernel<64, 2,",)),
+    ("K8 forward, bfloat16", ("attention_fwd_bf16_kernel<64, 3,",)),
     ("K2 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, true",
                                "attention_bwd_bf16_dkv_kernel<64, true")),
-    ("K3 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, false",
-                               "attention_bwd_bf16_dkv_kernel<64, false")),
+    ("K8 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, false, true",
+                               "attention_bwd_bf16_dkv_kernel<64, false, true")),
+    ("K3 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, false, false",
+                               "attention_bwd_bf16_dkv_kernel<64, false, false")),
     ("K4 backward", ("ln_window_partition_bwd_kernel", "ln_window_partition_params")),
     ("K4 forward", ("ln_window_partition_kernel",)),
     ("K9 backward", ("unpartition_add_ln_bwd_kernel", "unpartition_add_ln_params")),
@@ -92,11 +97,13 @@ VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)
 
 def with_encoder(model, lora_rank, **options):
     """Replace ``model``'s LoRA ViT-B/512 image encoder by one built with
-    ``options``, loaded with the same weights (bar absent rel-pos tables)."""
+    ``options`` in its compute dtype, loaded with the same weights (bar
+    absent rel-pos tables)."""
     old = model.image_encoder
     new = ImageEncoderViT(img_size=512, patch_size=16, embed_dim=768, depth=12, num_heads=12,
                           out_chans=256, window_size=14, global_attn_indexes=(2, 5, 8, 11),
-                          lora_rank=lora_rank, **options).to(old.pos_embed.device)
+                          lora_rank=lora_rank, compute_dtype=old.compute_dtype,
+                          **options).to(old.pos_embed.device)
     new.load_state_dict({k: v for k, v in old.state_dict().items()
                          if options.get("use_rel_pos", True) or "rel_pos" not in k})
     model.image_encoder = new
@@ -129,8 +136,6 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_cpcsam: needs a CUDA device")
-    if args.compute_dtype != "float32" and args.variant != "default":
-        sys.exit("profile_torch_cpcsam: bfloat16 trains on the default route only")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -10,8 +10,7 @@ profiled window in which the card ran no kernel. ``--variant`` picks the
 encoder's route; ``--amg`` profiles one ``SamAutomaticMaskGenerator.generate``
 (32x32 points in chunks of 64 on a 512x512 frame) instead of ``set_image``.
 ``--compute-dtype bfloat16`` builds the model in bfloat16 (float32 weights
-cast at each call; the default route only), whose K2-K4 are the bfloat16
-instances; ``--compare`` then also times the float32 model on the same
+cast at each call; any route), whose kernels are the bfloat16 instances; ``--compare`` then also times the float32 model on the same
 weights, in turns (float32, bfloat16, bfloat16, float32). Needs a CUDA
 device.
 
@@ -46,15 +45,17 @@ from mia_tpu_torch.models.sam import (  # noqa: E402
 # attention_fwd_tc_kernel<D, bias, keys>: bias 0 = K2 (after kernel R,
 # attention_rel_terms_kernel), 1 = K3, and K6, which runs K3's instance on head-major
 # strides (the head-major route runs no K3: HEAD_MAJOR_GROUPS), 2 = K7 (dense bias), 3 = K8
-# (windows carved from the token grid); keys is the streamed key tile. In bfloat16, K2
-# and K3 run attention_fwd_bf16_kernel<D, tables, keys> (tables: K2) and K2's kernel R
-# its bfloat16 instance
+# (windows carved from the token grid); keys is the streamed key tile. In bfloat16 every
+# kind runs attention_fwd_bf16_kernel<D, bias, keys> (the same bias numbers) and K2's
+# kernel R its bfloat16 instance
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_fwd_bf16_kernel<64, true",
+    ("K2 windowed attention", ("attention_fwd_tc_kernel<64, 0,", "attention_fwd_bf16_kernel<64, 0,",
                                "attention_rel_terms_kernel")),
-    ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,", "attention_fwd_bf16_kernel<64, false")),
-    ("K7 dense-bias attention", ("attention_fwd_tc_kernel<64, 2,",)),
-    ("K8 grid-native windowed attention", ("attention_fwd_tc_kernel<64, 3,",)),
+    ("K3 global attention", ("attention_fwd_tc_kernel<64, 1,", "attention_fwd_bf16_kernel<64, 1,")),
+    ("K7 dense-bias attention", ("attention_fwd_tc_kernel<64, 2,",
+                                 "attention_fwd_bf16_kernel<64, 2,")),
+    ("K8 grid-native windowed attention", ("attention_fwd_tc_kernel<64, 3,",
+                                           "attention_fwd_bf16_kernel<64, 3,")),
     ("K4 LayerNorm + partition", ("ln_window_partition_kernel",)),
     ("K9 unpartition + residual + LayerNorm", ("unpartition_add_ln_kernel",)),
     ("cuDNN convolutions", ("fprop", "implicit", "cudnn", "conv2d")),
@@ -74,11 +75,12 @@ VARIANTS = {  # the encoder's options by route (see models/sam/image_encoder.py)
 
 def with_encoder(model, **options):
     """Replace ``model``'s ViT-B/512 image encoder by one built with
-    ``options``, loaded with the same weights (bar absent rel-pos tables)."""
+    ``options`` in its compute dtype, loaded with the same weights (bar
+    absent rel-pos tables)."""
     old = model.image_encoder
     new = ImageEncoderViT(img_size=512, patch_size=16, embed_dim=768, depth=12, num_heads=12,
                           out_chans=256, window_size=14, global_attn_indexes=(2, 5, 8, 11),
-                          **options).to(old.pos_embed.device)
+                          compute_dtype=old.compute_dtype, **options).to(old.pos_embed.device)
     new.load_state_dict({k: v for k, v in old.state_dict().items()
                          if options.get("use_rel_pos", True) or "rel_pos" not in k})
     model.image_encoder = new

@@ -291,20 +291,29 @@ ENC_KW = dict(img_size=40, patch_size=4, embed_dim=32, depth=2, num_heads=2, win
                                      dict(use_rel_pos=False),
                                      dict(fuse_unpart_residual="always")])
 def test_other_encoder_routes_raise_in_bfloat16(options):
-    with pytest.raises(NotImplementedError, match="float32"):
-        ImageEncoderViT(**ENC_KW, **options)
+    """Every other route now builds and runs in bfloat16 (its kernels have
+    bfloat16 instances); what raises is an option that contradicts another,
+    in either dtype."""
+    enc = ImageEncoderViT(**ENC_KW, **options)
+    with torch.inference_mode():
+        assert enc(torch.zeros(1, 40, 40, 3)).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="fuse_ln_window"):
+        ImageEncoderViT(**ENC_KW, **{**options, "fuse_ln_window": "never",
+                                     "fuse_unpart_residual": "always"})
 
 
 def test_windowed_attention_switch_raises_in_bfloat16(monkeypatch):
     """``MIA_WINDOWED_ATTN=1`` picks K8 at call time in an encoder without K4;
-    in bfloat16 that raises instead of running the float32 kernel."""
+    in bfloat16 that now runs K8's bfloat16 path instead of raising, and
+    gives the embedding of the grid-native route built by argument."""
     enc = ImageEncoderViT(**ENC_KW, fuse_ln_window="never")
-    x = torch.zeros(1, 40, 40, 3)
+    native = ImageEncoderViT(**ENC_KW, fuse_ln_window="never", attn_route="grid_native")
+    native.load_state_dict(enc.state_dict())
+    x = torch.rand(1, 40, 40, 3, generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
         assert enc(x).dtype == torch.bfloat16  # the packed route: K2 after a plain partition
         monkeypatch.setenv("MIA_WINDOWED_ATTN", "1")
-        with pytest.raises(NotImplementedError, match="K8"):
-            enc(x)
+        assert torch.equal(enc(x), native(x))
 
 
 def test_serving_then_training_in_one_process():

@@ -887,3 +887,119 @@ def test_residual_unet_strided_skip_on_the_card_matches_the_cpu(cuda):
     for (name, p), q in zip(cpu_model.named_parameters(), card_model.parameters()):
         scale = max(p.grad.abs().max().item(), 1e-12)
         assert (q.grad.cpu() - p.grad).abs().max() <= 1e-4 * scale, name
+
+
+# --- the bfloat16 instances of the encoder's other routes: K6/K6b, K7, K8/K8b, K9/K9b ---
+
+BF16_TOL = 2.0 ** -7  # max |kernel - plain| over max |plain|: the kernels round the unnormalised p
+
+
+def _bf16_close(label, got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, label
+    assert bool(torch.isfinite(got.float()).all()), label
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    assert err <= BF16_TOL * ref, (label, err, ref)
+
+
+@pytest.mark.parametrize("bh,d,k_hw", [(108, 64, (14, 14)), (12, 64, (32, 32)), (6, 64, (10, 12)),
+                                       (4, 80, (5, 7))])
+def test_bf16_k6_and_k6b_match_plain(cuda, bh, d, k_hw):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n = k_hw[0] * k_hw[1]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+           randn(bh, n, k_hw[1]))
+    scale = d ** -0.5
+    out, lse = attention._launch_k6(*fwd, scale, k_hw, with_lse=True)
+    want, want_lse = attention.attention_rel_bf16(*fwd, scale, k_hw)
+    _bf16_close("K6", out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    assert torch.equal(out, attention._launch_k6(*fwd, scale, k_hw))
+    g = randn(bh, n, d)
+    got = attention._launch_k6_bwd(*fwd, out, g, lse, scale, k_hw)
+    plain = attention.attention_rel_bwd_bf16(*fwd, out, g, lse, scale, k_hw)
+    for name, a, b in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got, plain):
+        _bf16_close(f"K6b {name}", a, b)
+    again = attention._launch_k6_bwd(*fwd, out, g, lse, scale, k_hw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert attention.fused_attention_rel.bf16_launches > 0
+
+
+@pytest.mark.parametrize("bh,d,n", [(108, 64, 196), (12, 64, 1024), (4, 64, 35), (16, 80, 196)])
+def test_bf16_k7_matches_plain(cuda, bh, d, n):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    bias = torch.randn(bh, n, n, generator=gen, device=cuda)
+    bias[:, ::2, :min(64, n // 2)] = -float("inf")  # every row keeps a finite key
+    got = attention._launch_k7(q, k, v, bias, d ** -0.5)
+    _bf16_close("K7", got, attention.attention_dense_bf16(q, k, v, bias, d ** -0.5))
+    assert torch.equal(got, attention._launch_k7(q, k, v, bias, d ** -0.5))
+
+
+@pytest.mark.parametrize("b,hw,heads,d", [(1, (32, 32), 12, 64), (2, (20, 27), 12, 64),
+                                          (2, (28, 28), 12, 64), (1, (32, 32), 16, 80)])
+def test_bf16_k8_and_k8b_match_plain(cuda, b, hw, heads, d):
+    from mia_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    ws = 14
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)).to(torch.bfloat16)
+
+    fwd = (randn(b, *hw, 3 * heads * d), randn(b * heads, *hw, ws), randn(b * heads, *hw, ws),
+           randn(3, heads * d, scale=0.5))
+    scale = d ** -0.5
+    out, lse = attention._launch_k8(*fwd, scale, ws, heads, with_lse=True)
+    want, want_lse = attention.attention_rel_win_bf16(*fwd, scale, ws, heads)
+    _bf16_close("K8", out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    g = randn(b, *hw, heads * d)
+    got = attention._launch_k8_bwd(*fwd, out, g, lse, scale, ws, heads)
+    plain = attention.attention_rel_win_bwd_bf16(*fwd, out, g, lse, scale, ws, heads)
+    for name, a, p in zip(("dqkv", "drel_h", "drel_w"), got, plain):
+        _bf16_close(f"K8b {name}", a, p)
+    if hw[0] % ws or hw[1] % ws:
+        _bf16_close("K8b dbias_kv", got[3], plain[3])
+    else:
+        assert not got[3].any()
+    again = attention._launch_k8_bwd(*fwd, out, g, lse, scale, ws, heads)
+    assert all(torch.equal(a, p) for a, p in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 32, 768), (2, 20, 27, 768)])
+def test_bf16_k9_and_k9b_match_plain(cuda, shape):
+    from mia_tpu_torch.ops import unpartition_residual as upr
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    ws, c = 14, shape[-1]
+    n_win = shape[0] * -(-shape[1] // ws) * -(-shape[2] // ws)
+    windows = torch.randn(n_win, ws, ws, c, generator=gen, device=cuda).to(torch.bfloat16)
+    shortcut = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    x_new, y, mu, rstd = upr._launch_k9(windows, shortcut, scale, bias, ws, with_stats=True)
+    want_x, want_y = upr.unpartition_add_ln_plain(windows, shortcut, scale, bias, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(x_new, want_x)
+    _bf16_close("K9", y, want_y)
+    dx_new = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = upr._launch_k9_bwd(x_new, dx_new, dy, mu, rstd, scale, ws)
+    plain = upr.unpartition_add_ln_bwd(x_new, dx_new, dy, mu, rstd, scale, ws)
+    for name, a, p in zip(("dwindows", "dshortcut", "dscale", "dbias"), got, plain):
+        if p.dtype == torch.float32:
+            torch.cuda.synchronize()
+            assert (a - p).abs().max().item() <= 1e-4 * p.abs().max().item(), name
+        else:
+            _bf16_close(f"K9b {name}", a, p)

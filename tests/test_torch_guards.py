@@ -32,77 +32,110 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(2)
 
 
-def test_port_imports_neither_jax_nor_mia_tpu(tmp_path):
-    # the pytest process has JAX from conftest.py, hence a fresh interpreter,
-    # which imports every module of the port, drives two tiny AL rounds and
-    # a tiny CPC-SAM run (one phase-1 and one phase-2 step) through their
-    # entry points, a second CPC-SAM run with the contrastive loss, VAT and
-    # --resume (the feature memory, both losses and the checkpoint reader),
-    # serves a tiny SAM on the CPU, generates masks automatically and embeds
-    # through every route of the encoder, then trains two FUGC folds and runs
-    # the fold ensemble with its denoise
-    code = f"""
-import dataclasses, importlib, pkgutil, sys
+# test_port_imports_neither_jax_nor_mia_tpu: the pytest process has JAX from conftest.py, so
+# each entry point runs in a fresh interpreter of its own, which imports every module of the
+# port, drives the entry point and ends by checking that neither JAX, flax, optax nor the JAX
+# package was imported. One interpreter per entry point, each capped at two torch threads as
+# the workers are (a fresh interpreter is not, and one that drove every entry point competed
+# with six workers for every core: 8 s alone, up to its 300 s limit beside them), each with its
+# own limit; a case that runs out of time fails with the output it had written.
+_GUARD_PRELUDE = """
+import dataclasses, importlib, os, pathlib, pkgutil, sys
 import numpy as np
+import torch
+torch.set_num_threads(2)
 sys.path.insert(0, "tests")
 import mia_tpu_torch
 for info in pkgutil.walk_packages(mia_tpu_torch.__path__, "mia_tpu_torch."):
     importlib.import_module(info.name)
-from synth_data import make_acdc, make_fugc
+tmp = pathlib.Path(sys.argv[1])
+"""
+_GUARD_EPILOGUE = """
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "mia_tpu") or m.startswith(("jax.", "flax", "optax", "mia_tpu.")))
+assert not bad, bad
+print("ok")
+"""
+_GUARD_CASES = {
+    # two tiny AL rounds through the entry point
+    "al-rounds": (120, """
+from synth_data import make_fugc
 from mia_tpu_torch.entry.activelearning.train import train_entry
 from mia_tpu_torch.training import ALTrainer
 full = ALTrainer._unet_config
 ALTrainer._unet_config = lambda self: dataclasses.replace(full(self), channels_list=(4, 8))
-make_fugc(__import__("pathlib").Path({str(tmp_path)!r}) / "data", n_train=4, n_val=1, n_test=1,
-          size=(32, 32))
-train_entry(["--work-path", {str(tmp_path)!r}, "--data-path", {str(tmp_path / "data")!r},
+make_fugc(tmp / "data", n_train=4, n_val=1, n_test=1, size=(32, 32))
+train_entry(["--work-path", str(tmp), "--data-path", str(tmp / "data"),
              "--device", "cpu", "--dataset", "fugc", "--in-channels", "3",
              "--num-classes", "2", "--image-size", "32", "--batch-size", "2",
              "--num-rounds", "2", "--budget", "2", "--num-iters", "2",
              "--valid-freq-iter", "1", "--active-selector", "entropy",
              "--do-augment", "--do-normalize", "--quiet"])
+"""),
+    # a tiny CPC-SAM run (one phase-1 and one phase-2 step), then one with the contrastive
+    # loss, VAT and --resume (the feature memory, both losses and the checkpoint reader)
+    "cpcsam": (180, """
+from synth_data import make_acdc
 from mia_tpu_torch.entry.cpcsam.train import train_entry as cpcsam_entry
 from mia_tpu_torch.models.sam import build_sam
 from mia_tpu_torch.training import cpcsam_trainer
 build_sam._VIT_SPECS["vit_b"] = dict(embed_dim=32, depth=2, num_heads=2, global_idx=(1,))
 cpcsam_trainer.PATIENTS_TO_SLICES["ACDC"]["1"] = 2
-acdc = __import__("pathlib").Path({str(tmp_path)!r}) / "acdc"
+acdc = tmp / "acdc"
 make_acdc(acdc, n_slices=4, n_vols=1, size=(64, 64), depth=2)
-cpc = cpcsam_entry(["--work-path", {str(tmp_path / "cpc")!r}, "--data-path", str(acdc),
+cpc = cpcsam_entry(["--work-path", str(tmp / "cpc"), "--data-path", str(acdc),
                     "--device", "cpu", "--image-size", "64", "--batch-size", "2",
                     "--lora-rank", "2", "--warmup-iter", "1", "--min-iter", "2",
                     "--max-iter", "2", "--valid-freq-iter", "2", "--quiet"])
 assert (cpc.work_path / "test_mean.csv").is_file()
-aux = cpcsam_entry(["--work-path", {str(tmp_path / "aux")!r}, "--data-path", str(acdc),
+aux = cpcsam_entry(["--work-path", str(tmp / "aux"), "--data-path", str(acdc),
                     "--device", "cpu", "--image-size", "64", "--batch-size", "2",
                     "--lora-rank", "2", "--warmup-iter", "1", "--min-iter", "2",
                     "--max-iter", "2", "--valid-freq-iter", "2", "--quiet",
                     "--use-contrastive-loss", "--use-adv-loss",
                     "--resume", str(cpc.work_path / "final_model")])
 assert aux.current_iter == 2 and aux.memory is not None
-from mia_tpu_torch.models.sam import Sam, SamPredictor
+"""),
+    # serves a tiny SAM on the CPU, generates masks automatically, and embeds and trains
+    # (LoRA) through every route of the encoder in float32 and bfloat16
+    "sam-amg-routes": (180, """
+from mia_tpu_torch.models.sam import (ImageEncoderViT, Sam, SamAutomaticMaskGenerator,
+                                      SamPredictor)
 predictor = SamPredictor(Sam(img_size=64, num_classes=3, encoder_embed_dim=32, encoder_depth=2,
                              encoder_num_heads=2, encoder_global_attn_indexes=(1,)), max_points=4)
 predictor.set_image((np.random.default_rng(0).random((48, 56, 3)) * 255).astype(np.uint8))
 masks, iou, low_res = predictor.predict(point_coords=np.array([[20.0, 30.0]]),
                                         point_labels=np.array([1]))
 assert masks.shape == (3, 48, 56) and iou.shape == (3,) and low_res.shape == (3, 16, 16)
-from mia_tpu_torch.models.sam import ImageEncoderViT, SamAutomaticMaskGenerator
 records = SamAutomaticMaskGenerator(predictor, points_per_side=2, points_per_batch=3,
                                     pred_iou_thresh=-1e9, stability_score_thresh=-1.0).generate(
     (np.random.default_rng(1).random((48, 56, 3)) * 255).astype(np.uint8))
-assert records and set(records[0]) == {{"segmentation", "rle", "area", "bbox", "predicted_iou"}}
-import torch
-for options in (dict(fuse_unpart_residual="always"), dict(attn_route="head_major"),
-                dict(fuse_ln_window="never", attn_route="grid_native"), dict(use_rel_pos=False)):
-    enc = ImageEncoderViT(img_size=40, patch_size=4, embed_dim=16, depth=2, num_heads=2,
-                          window_size=4, global_attn_indexes=(1,), **options)
-    with torch.no_grad():
-        assert enc(torch.zeros(1, 40, 40, 3)).shape == (1, 10, 10, 256)
-from mia_tpu_torch.entry.fugc2025.predict import model as predict_model, predict_entry
+assert records and set(records[0]) == {"segmentation", "rle", "area", "bbox", "predicted_iou"}
+for dtype in (torch.float32, torch.bfloat16):
+    for options, switch in ((dict(fuse_unpart_residual="always"), False),
+                            (dict(attn_route="head_major"), False),
+                            (dict(fuse_ln_window="never", attn_route="grid_native"), False),
+                            (dict(fuse_ln_window="never"), True), (dict(use_rel_pos=False), False)):
+        os.environ["MIA_WINDOWED_ATTN"] = "1" if switch else "0"
+        enc = ImageEncoderViT(img_size=40, patch_size=4, embed_dim=16, depth=2, num_heads=2,
+                              window_size=4, global_attn_indexes=(1,), lora_rank=2,
+                              compute_dtype=dtype, **options)
+        emb = enc(torch.zeros(1, 40, 40, 3))
+        assert emb.shape == (1, 10, 10, 256) and emb.dtype == dtype
+        emb.float().square().sum().backward()
+        assert all(p.grad is not None for n, p in enc.named_parameters() if "lora_" in n)
+"""),
+    # trains two FUGC folds and runs the fold ensemble with its denoise
+    "fugc-folds": (120, """
+from synth_data import make_fugc
+from mia_tpu_torch.entry.fugc2025.predict import model as predict_model
 from mia_tpu_torch.entry.fugc2025.train import train_entry as fugc_entry
 from mia_tpu_torch.models import LegacyUNet, LegacyUNetConfig
-fugc = fugc_entry(["--work-dir", {str(tmp_path / "fugc")!r}, "--data-dir", {str(tmp_path / "data")!r},
+from mia_tpu_torch.training import ALTrainer
+full = ALTrainer._unet_config
+ALTrainer._unet_config = lambda self: dataclasses.replace(full(self), channels_list=(4, 8))
+make_fugc(tmp / "data", n_train=4, n_val=1, n_test=1, size=(32, 32))
+fugc = fugc_entry(["--work-dir", str(tmp / "fugc"), "--data-dir", str(tmp / "data"),
                    "--device", "cpu", "--num-folds", "2", "--num-epochs", "1", "--batch-size", "2",
                    "--image-size", "32", "--valid-freq-iter", "1"])
 assert (fugc.work_path / "fold_1" / "model.msgpack").is_file()
@@ -110,19 +143,31 @@ ensemble = predict_model([32], folds=[0, 1], device="cpu")
 ensemble.net_config = LegacyUNetConfig(width=4)
 for fold in (0, 1):
     torch.manual_seed(fold)
-    (fugc.work_path / f"legacy/fold_{{fold}}").mkdir(parents=True)
+    (fugc.work_path / f"legacy/fold_{fold}").mkdir(parents=True)
     torch.save(LegacyUNet(ensemble.net_config).state_dict(),
-               fugc.work_path / f"legacy/fold_{{fold}}/checkpoint_best.pth")
+               fugc.work_path / f"legacy/fold_{fold}/checkpoint_best.pth")
 pred = ensemble.load(fugc.work_path / "legacy").predict(
     (np.random.default_rng(2).random((3, 40, 48)) * 255).astype(np.uint8))
-assert pred.shape == (40, 48) and set(np.unique(pred)) <= {{0, 1, 2}}
-bad = sorted(m for m in sys.modules
-             if m in ("jax", "mia_tpu") or m.startswith(("jax.", "flax", "optax", "mia_tpu.")))
-assert not bad, bad
-print("ok")
-"""
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
+assert pred.shape == (40, 48) and set(np.unique(pred)) <= {0, 1, 2}
+"""),
+}
+
+
+def _text(stream) -> str:
+    return stream.decode(errors="replace") if isinstance(stream, bytes) else (stream or "")
+
+
+@pytest.mark.parametrize("entry", sorted(_GUARD_CASES))
+def test_port_imports_neither_jax_nor_mia_tpu(tmp_path, entry):
+    limit, body = _GUARD_CASES[entry]
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
+    try:
+        out = subprocess.run([sys.executable, "-c", _GUARD_PRELUDE + body + _GUARD_EPILOGUE,
+                              str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                             timeout=limit, env=env)
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"{entry}: no result within {limit} s\nstdout:\n{_text(e.stdout)[-3000:]}"
+                    f"\nstderr:\n{_text(e.stderr)[-3000:]}")
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
@@ -150,17 +195,19 @@ def test_k1_counter_stays_zero_on_cpu_tensors():
 
 
 def test_k2_k3_k4_counters_stay_zero_on_cpu_tensors():
-    x = torch.rand(1, 9, 11, 16)
-    windows = ln_window.ln_window_partition_fused(x, torch.ones(16), torch.zeros(16), 4)
-    assert windows.shape == (9, 4, 4, 16)
-    qkv = torch.rand(9, 16, 3 * 2 * 8)
-    tab = torch.rand(16, 8)
-    assert attention.fused_attention_rel_packed_ik(qkv, tab, tab, 0.3, (4, 4), 2).shape == (9, 16, 16)
-    rel = torch.rand(18, 16, 4)
-    assert attention.fused_attention_rel_packed(qkv, rel, rel, 0.3, (4, 4), 2).shape == (9, 16, 16)
-    assert ln_window.ln_window_partition_fused.launches == 0
-    assert attention.fused_attention_rel_packed_ik.launches == 0
-    assert attention.fused_attention_rel_packed.launches == 0
+    """float32 and bfloat16 CPU tensors: neither counter moves."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.rand(1, 9, 11, 16).to(dtype)
+        windows = ln_window.ln_window_partition_fused(x, torch.ones(16), torch.zeros(16), 4)
+        assert windows.shape == (9, 4, 4, 16) and windows.dtype == dtype
+        qkv = torch.rand(9, 16, 3 * 2 * 8).to(dtype)
+        tab = torch.rand(16, 8).to(dtype)
+        assert attention.fused_attention_rel_packed_ik(qkv, tab, tab, 0.3, (4, 4), 2).shape == (9, 16, 16)
+        rel = torch.rand(18, 16, 4).to(dtype)
+        assert attention.fused_attention_rel_packed(qkv, rel, rel, 0.3, (4, 4), 2).shape == (9, 16, 16)
+    for wrapper in (ln_window.ln_window_partition_fused, attention.fused_attention_rel_packed_ik,
+                    attention.fused_attention_rel_packed):
+        assert wrapper.launches == wrapper.bf16_launches == 0
 
 
 def test_backward_and_k5_counters_stay_zero_on_cpu_tensors():
@@ -186,12 +233,25 @@ def test_backward_and_k5_counters_stay_zero_on_cpu_tensors():
     assert [c.launches for c in counters] == before
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K2b", "K3b", "K4b", "K5"])
+# the bfloat16 launchers (" bf16": the operands in bfloat16, statistics and parameters float32)
+BF16_LAUNCHERS = ["K2 bf16", "K3 bf16", "K4 bf16", "K2b bf16", "K3b bf16", "K4b bf16", "K6 bf16",
+                  "K6b bf16", "K7 bf16", "K8 bf16", "K8b bf16", "K9 bf16", "K9b bf16"]
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K2b", "K3b", "K4b", "K5"]
+                         + BF16_LAUNCHERS)
 def test_kernel_launchers_raise_on_cpu_tensors(kernel):
-    qkv, tab, rel = torch.rand(1, 16, 3 * 2 * 16), torch.rand(16, 16), torch.rand(2, 16, 4)
+    kernel, _, bf16 = kernel.partition(" ")
+    dt = torch.bfloat16 if bf16 else torch.float32
+    qkv, tab, rel = (torch.rand(1, 16, 3 * 2 * 16).to(dt), torch.rand(16, 16).to(dt),
+                     torch.rand(2, 16, 4).to(dt))
     idx = torch.zeros(1, 8, dtype=torch.int32)
-    out, g, lse = torch.rand(1, 16, 32), torch.rand(1, 16, 32), torch.rand(2, 16)
-    x, ones = torch.rand(1, 8, 8, 16), torch.ones(16)
+    out, g, lse = torch.rand(1, 16, 32).to(dt), torch.rand(1, 16, 32).to(dt), torch.rand(2, 16)
+    x, ones = torch.rand(1, 8, 8, 16).to(dt), torch.ones(16)
+    q, rel6, lse6 = torch.rand(2, 16, 64).to(dt), torch.rand(2, 16, 4).to(dt), torch.rand(2, 16)
+    grid, qkv8 = torch.rand(2, 5, 6, 4).to(dt), torch.rand(1, 5, 6, 3 * 2 * 64).to(dt)
+    bias_kv, out8, x9 = (torch.rand(3, 128).to(dt), torch.rand(1, 5, 6, 128).to(dt),
+                         torch.rand(1, 5, 6, 64).to(dt))
     launch = {
         "K1": lambda: _launch_k1(torch.rand(1, 8, 8, 4), idx, idx, idx, idx),
         "K2": lambda: attention._launch_k2(qkv, tab, tab, 0.25, (4, 4), 2),
@@ -202,25 +262,39 @@ def test_kernel_launchers_raise_on_cpu_tensors(kernel):
         "K4b": lambda: ln_window._launch_k4_bwd(x, torch.rand(4, 4, 4, 16), torch.rand(1, 8, 8),
                                                 torch.rand(1, 8, 8), ones, 4),
         "K5": lambda: morphology._launch_k5(torch.ones(2, 8, 8, dtype=torch.int32)),
+        "K6": lambda: attention._launch_k6(q, q, q, rel6, rel6, 0.25, (4, 4)),
+        "K6b": lambda: attention._launch_k6_bwd(q, q, q, rel6, rel6, q, q, lse6, 0.25, (4, 4)),
+        "K7": lambda: attention._launch_k7(q, q, q, torch.rand(2, 16, 16), 0.25),
+        "K8": lambda: attention._launch_k8(qkv8, grid, grid, bias_kv, 0.25, 4, 2),
+        "K8b": lambda: attention._launch_k8_bwd(qkv8, grid, grid, bias_kv, out8, out8,
+                                                torch.rand(2, 30), 0.25, 4, 2),
+        "K9": lambda: unpartition_residual._launch_k9(torch.rand(4, 4, 4, 64).to(dt), x9,
+                                                      torch.ones(64), torch.zeros(64), 4),
+        "K9b": lambda: unpartition_residual._launch_k9_bwd(x9, x9, x9, torch.rand(1, 5, 6),
+                                                           torch.rand(1, 5, 6), torch.ones(64), 4),
     }[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         launch()
 
 
 def test_k6_to_k9_counters_stay_zero_on_cpu_tensors():
-    q, rel = torch.rand(4, 16, 8), torch.rand(4, 16, 4)
-    assert attention.fused_attention_rel(q, q, q, rel, rel, 0.3, (4, 4)).shape == (4, 16, 8)
-    assert attention.fused_attention(q, q, q, torch.rand(4, 16, 16), 0.3).shape == (4, 16, 8)
-    grid = torch.rand(4, 5, 6, 4)
-    out = attention.fused_attention_rel_win(torch.rand(2, 5, 6, 48), grid, grid,
-                                            torch.rand(3, 16), 0.3, 4, 2)
-    assert out.shape == (2, 5, 6, 16)
-    x_new, y = unpartition_residual.unpartition_add_ln(
-        torch.rand(8, 4, 4, 16), torch.rand(2, 5, 6, 16), torch.ones(16), torch.zeros(16), 4)
-    assert x_new.shape == y.shape == (2, 5, 6, 16)
-    assert (attention.fused_attention_rel.launches, attention.fused_attention.launches,
-            attention.fused_attention_rel_win.launches,
-            unpartition_residual.unpartition_add_ln.launches) == (0, 0, 0, 0)
+    """float32 and bfloat16 CPU tensors (K7's bias float32 in both): neither
+    counter moves."""
+    for dt in (torch.float32, torch.bfloat16):
+        q, rel = torch.rand(4, 16, 8).to(dt), torch.rand(4, 16, 4).to(dt)
+        assert attention.fused_attention_rel(q, q, q, rel, rel, 0.3, (4, 4)).shape == (4, 16, 8)
+        assert attention.fused_attention(q, q, q, torch.rand(4, 16, 16), 0.3).dtype == dt
+        grid = torch.rand(4, 5, 6, 4).to(dt)
+        out = attention.fused_attention_rel_win(torch.rand(2, 5, 6, 48).to(dt), grid, grid,
+                                                torch.rand(3, 16).to(dt), 0.3, 4, 2)
+        assert out.shape == (2, 5, 6, 16) and out.dtype == dt
+        x_new, y = unpartition_residual.unpartition_add_ln(
+            torch.rand(8, 4, 4, 16).to(dt), torch.rand(2, 5, 6, 16).to(dt), torch.ones(16),
+            torch.zeros(16), 4)
+        assert x_new.shape == y.shape == (2, 5, 6, 16) and y.dtype == dt
+    for wrapper in (attention.fused_attention_rel, attention.fused_attention,
+                    attention.fused_attention_rel_win, unpartition_residual.unpartition_add_ln):
+        assert wrapper.launches == wrapper.bf16_launches == 0
 
 
 @pytest.mark.parametrize("kernel,d,match", [
