@@ -353,9 +353,10 @@ KERNELS = {
              "mia_tpu/ops/upsample2x.py:137"),
 }
 # kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16, through every
-# route of the encoder); the JSON line gives each a ``bf16`` entry with its own launches, times
-# and bounds
-BF16_KERNELS = ("K2", "K3", "K4", "K2b", "K3b", "K4b", "K6", "K6b", "K7", "K8", "K8b", "K9", "K9b")
+# route of the encoder, and the upscalers and the UNet decoder on K10); the JSON line gives each
+# a ``bf16`` entry with its own launches, times and bounds
+BF16_KERNELS = ("K2", "K3", "K4", "K2b", "K3b", "K4b", "K6", "K6b", "K7", "K8", "K8b", "K9", "K9b",
+                "K10", "K10b")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores: what most kernels here compute in
 # K2, K3, K6, K7, K8, K2b, K3b, K6b and K8b run 3xTF32 on the tensor cores: the card's dense
@@ -436,16 +437,18 @@ def device_ms(torch, fn, kernel=None, per_block=50):
     block of ``per_block`` calls of ``fn`` (without the host's dispatch that
     the CUDA-event time of a short kernel includes); and the device time of
     the call's other kernels (the wrapper's conversions) a call. With
-    ``kernel`` None: every device kernel of one call, summed, and 0."""
+    ``kernel`` None, or when no capture records ``kernel``: ``queued_ms``,
+    every device kernel of one call, and 0."""
+    if kernel is None:
+        return queued_ms(torch, fn, per_block), 0.0
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     # a capture now and then comes back without any device event of the
-    # block (seen once for K4b, which had passed in every earlier run), or,
-    # summing every kernel of a call, with some of the block's launches
-    # missing (seen once for K8b·bf16: 1.5 of its 5 calls' kernels): such a
-    # capture is taken again, at most twice
+    # block (seen for K4 and K4b): such a capture is taken again, at most
+    # twice, and then the call's queued time stands in. A capture may also
+    # lose some of the block's records, which the mean a launch survives
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(per_block):
@@ -453,18 +456,46 @@ def device_ms(torch, fn, kernel=None, per_block=50):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e for e in events if kernel is None or kernel in e.key]
-        whole = kernel is not None or all(e.count % per_block == 0 for e in mine)
-        if mine and whole:
+        mine = [e for e in events if kernel in e.key]
+        if mine:
             break
-        print(f"device_ms: capture {attempt + 1} recorded {'no' if not mine else 'a partial block of'} "
-              f"{kernel or 'device'} launches ({[(e.key[:60], e.count) for e in events]})")
-    check(mine and whole, f"the profiler recorded no whole block of {kernel or 'device'} launches")
-    if kernel is None:
-        return sum(e.self_device_time_total for e in mine) / 1e3 / per_block, 0.0
+        print(f"device_ms: capture {attempt + 1} recorded no {kernel} launches "
+              f"({[(e.key[:60], e.count) for e in events]})")
+    if not mine:
+        print(f"device_ms: no capture recorded {kernel}; every kernel of the call, queued, "
+              "stands in")
+        return queued_ms(torch, fn, per_block), 0.0
     others = sum(e.self_device_time_total for e in events if kernel not in e.key)
     return (sum(e.self_device_time_total for e in mine) / 1e3 / sum(e.count for e in mine),
             others / 1e3 / per_block)
+
+
+def queued_ms(torch, fn, per_block, cycles=20_000_000):
+    """The device time (ms) of one call of ``fn``, every kernel of it: a
+    block of ``per_block`` calls queued behind a spin kernel, so that the
+    device runs them back to back whatever the host's dispatch costs, timed
+    by CUDA events around the block. The block counts only if the spin
+    kernel was still running when the host had queued it all; else the spin
+    is taken four times longer, at most three times. (The profiler's sum of
+    the call's kernels lost launches of a block, a kernel's whole block in
+    one capture, in three captures running, with K3b·bf16 and K2b·bf16.)"""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(per_block):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / per_block
+        print(f"queued_ms: the host took longer to queue {per_block} calls than {cycles} cycles")
+        cycles *= 4
+    check(False, f"queued_ms: {per_block} calls did not queue behind {cycles // 4} cycles")
 
 
 def with_device_ms(torch, name, fn, kernel, m, per_block=50):
@@ -3697,6 +3728,12 @@ UPSAMPLE_STAGES = (
 )
 
 
+# the same stages in bfloat16, whose channel counts are multiples of 8 (16 bytes): the ragged
+# stages' Cout of 20 becomes 24
+BF16_UPSAMPLE_STAGES = tuple((label, (*shape[:3], -(-shape[3] // 8) * 8, -(-shape[4] // 8) * 8), timed)
+                             for label, shape, timed in UPSAMPLE_STAGES)
+
+
 def upsample_kernel_phase(torch, device):
     from mia_tpu_torch.ops import upsample2x as up
 
@@ -3784,6 +3821,116 @@ def upsample_kernel_phase(torch, device):
         print(f"{name} within {tol} of max |plain| on {len(UPSAMPLE_STAGES)} shapes: max |diff| "
               f"{worst[name][0]:.3g} (relative {worst[name][1]:.3g})"
               + ("; two launches bit-identical" if name == "K10b" else ""))
+    return out
+
+
+def bf16_upsample_kernel_phase(torch, device):
+    """K10·bf16 and K10b·bf16 at ``BF16_UPSAMPLE_STAGES`` (bfloat16 x, w and
+    dy, float32 bias): y, dx and dw within one bfloat16 ulp of the plain
+    bfloat16 versions an element (both sum in float32 and round once) and
+    at least 99% bit-equal, db (float32) within ``BWD_TOL`` of max |plain|,
+    two backward launches bit-identical, dx alone equal to the full
+    backward's; ``F.conv_transpose2d`` on the bfloat16 operands within
+    ``BF16_TOL`` of the plain version. Timed stages: kernel and plain version
+    in turns, the library call (autograd through it for K10b), the bound at
+    989 TFLOP/s or 3.35 TB/s; the device time of every kernel of one call at
+    UNet 1 and prompt-large 4."""
+    from mia_tpu_torch.ops import upsample2x as up
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
+
+    worst = {"K10": [0.0, 0.0], "K10b": [0.0, 0.0]}
+    least_equal = {"K10": 1.0, "K10b": 1.0}
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name} bf16 {label}: {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got.float()).all()), f"{name} bf16 {label}: non-finite output")
+        diff = (got.float() - want.float()).abs()
+        err, ref = diff.max().item(), want.float().abs().max().item()
+        if want.dtype == bf:  # one rounding of float32 sums taken in another order
+            over = int((diff > bf16_ulp(torch, want)).sum())
+            equal = float((diff == 0).float().mean())
+            check(over == 0 and equal >= 0.99, f"{name} bf16 {label}: {over} elements beyond one "
+                  f"ulp of plain, {equal:.4f} bit-equal")
+            least_equal[name] = min(least_equal[name], equal)
+        else:
+            check(err <= BWD_TOL * ref, f"{name} bf16 {label}: max |kernel - plain| {err} > "
+                  f"{BWD_TOL} x max |plain| {ref}")
+        worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref if ref else 0.0)]
+
+    conv_t = torch.nn.functional.conv_transpose2d
+    stages = {"K10": {}, "K10b": {}}
+    for label, (b, h, w, cin, cout), is_timed in BF16_UPSAMPLE_STAGES:
+        x, wt = randn(b, h, w, cin), randn(2, 2, cin, cout, scale=cin ** -0.5)
+        bias, dy = randn(cout, dtype=torch.float32), randn(b, 2 * h, 2 * w, cout)
+        got = up.conv_transpose2x(x, wt, bias)
+        want = up.conv_transpose2x_plain_bf16(x, wt, bias)
+        hold("K10", label, got, want)
+        first = up._launch_k10_bwd(x, wt, dy)
+        for got_i, want_i in zip(first, up.conv_transpose2x_bwd_plain_bf16(x, wt, dy)):
+            hold("K10b", label, got_i, want_i)
+        bit_identical(torch, "K10b bf16", label, first, up._launch_k10_bwd(x, wt, dy))
+        only_dx = up._launch_k10_bwd(x, wt, dy, need_dw=False)
+        check(only_dx[1] is None and only_dx[2] is None and torch.equal(only_dx[0], first[0]),
+              f"K10b bf16 {label}: dx alone differs")
+        # the library call on NCHW channels-last views of the same bfloat16 operands
+        x_l = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        w_l = wt.permute(2, 3, 0, 1).contiguous().requires_grad_()
+        b_l = bias.to(bf).requires_grad_()
+        lib_out = conv_t(x_l, w_l, b_l, stride=2)
+        lib_err = ((lib_out.permute(0, 2, 3, 1).float() - want.float()).abs().max().item()
+                   / want.float().abs().max().item())
+        check(lib_err <= BF16_TOL, f"K10 bf16 {label}: the library call differs from the plain "
+              f"version by {lib_err} of max |plain|")
+        if not is_timed:
+            continue
+        routes = up.k10_routes((b, h, w, cin), cout, bf)
+        pixels = b * h * w
+        per_block = 20 if pixels * cout < 2 ** 22 else 5
+        fwd_flops = 2 * pixels * cin * 4 * cout
+        g_l = dy.permute(0, 3, 1, 2)
+        for name, kernel, plain, library, moved, flops, route in (
+            ("K10", lambda: up._launch_k10(x, wt, bias),
+             lambda: up.conv_transpose2x_plain_bf16(x, wt, bias),
+             lambda: conv_t(x_l, w_l, b_l, stride=2), [x, wt, bias, got], fwd_flops,
+             routes["forward"]),
+            ("K10b", lambda: up._launch_k10_bwd(x, wt, dy),
+             lambda: up.conv_transpose2x_bwd_plain_bf16(x, wt, dy),
+             lambda: torch.autograd.grad(lib_out, [x_l, w_l, b_l], g_l, retain_graph=True),
+             # dx and dw are a product of the forward's size each; db adds every cotangent
+             [x, wt, dy, *first], 2 * fwd_flops + dy.numel(),
+             "/".join(sorted({routes["dx"], routes["dw"]}))),
+        ):
+            (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, kernel, plain, per_block)
+            with torch.no_grad() if name == "K10" else contextlib.nullcontext():
+                lib = time_ms(library, torch, per_block=per_block)
+            m = {"shape": [b, h, w, cin, cout], "path": route, "ms": min(k_a, k_b),
+                 "plain_ms": min(plain_a, plain_b), "library_ms": lib, **bf16_bound(moved, flops)}
+            if label in ("UNet 1", "prompt-large 4"):
+                m["device_ms"] = device_ms(torch, kernel, None, per_block)[0]
+            stages[name][label] = m
+            print(f"{name} bf16 at {label} (B={b}, {h}x{w}, {cin}->{cout}) on the {route}: kernel "
+                  f"{k_a * 1e3:.2f} / {k_b * 1e3:.2f} us"
+                  + (f" (device {m['device_ms'] * 1e3:.2f} us)" if "device_ms" in m else "")
+                  + f", plain {plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us (median of 11 x "
+                  f"{per_block} launches); {describe_yardsticks(m)}")
+    out = {}
+    for name in ("K10", "K10b"):
+        # the line's entry is the prompt-large chain's slowest stage; every timed stage beside it
+        slowest = max((m for label, m in stages[name].items() if label.startswith("prompt-large")),
+                      key=lambda m: m["ms"])
+        out[name] = {"max_abs_err": worst[name][0], **slowest, "stages": stages[name]}
+        print(f"{name} bf16 within one ulp of plain an element on {len(BF16_UPSAMPLE_STAGES)} "
+              f"shapes, at least {least_equal[name]:.4f} bit-equal (max |diff| {worst[name][0]:.3g}, "
+              f"relative {worst[name][1]:.3g})"
+              + ("; db within 1e-4, two launches bit-identical" if name == "K10b" else ""))
     return out
 
 
@@ -4258,8 +4405,72 @@ def bf16_al_phase(torch, workdir: Path, sl):
     print(f"bf16 al: train step median {step_ms:.2f} ms (round 1 after 3 warm-up steps) against "
           f"the float32 slice's {sl['step_ms']:.2f} ms; trained UNet's logits bf16 vs f32 max "
           f"|diff| / max |logit| {logit_gap:.3g}")
-    return {"launches": sum(k1), "step_ms": step_ms, "float32_step_ms": sl["step_ms"],
-            "logit_gap": logit_gap}
+    k10 = bf16_al_k10_run(torch, workdir, argv)
+    return {"launches": sum(k1) + k10["k1"], "bf16_launches": k10["launches"], "step_ms": step_ms,
+            "float32_step_ms": sl["step_ms"], "logit_gap": logit_gap,
+            "k10_step_ms": k10["step_ms"]}
+
+
+def bf16_al_k10_run(torch, workdir: Path, argv):
+    """The same run with the decoder on K10·bf16/K10b·bf16, as the FUGC phase's
+    ``KernelDecoderTrainer`` puts it on K10/K10b: ``einsum_upsample=True``
+    and ``use_kernel="always"`` on its 4 upsamplings, one round of 6
+    iterations. Every train step launches 4 K10·bf16, 4 K10b·bf16, one K1
+    and no float32 K10; finite losses; the step time beside the bf16 run's."""
+    from mia_tpu_torch.models import EinsumConvTranspose2x
+    from mia_tpu_torch.ops import upsample2x, warp
+
+    iters = 6
+    counts = {"K10": upsample2x.conv_transpose2x, "K10b": upsample2x.conv_transpose2x_fused_bwd}
+    steps = []
+
+    def config(orig):
+        return lambda self: dataclasses.replace(orig(self), einsum_upsample=True)
+
+    def build(orig):
+        def method(self, *args, **kwargs):
+            out = orig(self, *args, **kwargs)
+            check(set_upsample_kernel(self.model, "always") == 4, "the decoder has not 4 upsamplings")
+            return out
+        return method
+
+    def counted(orig):  # takes run_al's place on train_step: counts K1 too
+        def method(self, batch):
+            torch.cuda.synchronize()
+            before = {k: (fn.launches, fn.bf16_launches) for k, fn in counts.items()}
+            k1 = warp.affine_warp_shift2pass_fused.launches
+            t0 = time.perf_counter()
+            orig(self, batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0,
+                          {k: fn.bf16_launches - before[k][1] for k, fn in counts.items()},
+                          {k: fn.launches - before[k][0] for k, fn in counts.items()},
+                          warp.affine_warp_shift2pass_fused.launches - k1))
+        return method
+
+    for fn in counts.values():
+        fn.launches = fn.bf16_launches = 0
+    argv = [*argv, "--work-path", str(workdir / "bf16_k10"), "--num-rounds", "1",
+            "--num-iters", str(iters), "--valid-freq-iter", str(iters)]
+    trainer, rec = run_al(torch, argv, {"_unet_config": config, "_build_model": build,
+                                        "train_step": counted})
+    launches = {k: fn.bf16_launches for k, fn in counts.items()}
+    ups = trainer.model.decoder.upsamples
+    check(trainer.model.cfg.compute_dtype == torch.bfloat16
+          and all(isinstance(m, EinsumConvTranspose2x) and m.use_kernel == "always"
+                  and m.compute_dtype == torch.bfloat16 for m in ups) and len(ups) == 4,
+          "the bfloat16 UNet's decoder is not on K10")
+    check(len(steps) == iters and all(s[1] == {"K10": 4, "K10b": 4} and s[2] == {"K10": 0, "K10b": 0}
+                                      and s[3] == 1 for s in steps),
+          f"bf16 al on K10: launches a step (bfloat16, float32, K1) {[s[1:] for s in steps]}")
+    check(len(rec["losses"]) == iters and all(math.isfinite(x) for x in rec["losses"]),
+          f"bf16 al on K10: losses {rec['losses']}")
+    step_ms = statistics.median(s[0] for s in steps[2:]) * 1e3
+    print(f"bf16 al: the decoder on K10·bf16/K10b·bf16 (einsum_upsample): 1 round x {iters} iters, "
+          f"4 + 4 launches and one K1 a step, no float32 K10; losses first {rec['losses'][0]:.4f} "
+          f"last {rec['losses'][-1]:.4f}; step median {step_ms:.2f} ms (after 2 warm-up steps); "
+          f"in the run {launches}")
+    return {"launches": launches, "k1": sum(s[3] for s in steps), "step_ms": step_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -4542,6 +4753,80 @@ def upscaler_serving_phase(torch, device, model):
           f"within {worst:.3g} of max |logit| of the default's; predict (1 point) median "
           f"{k10_a:.2f} / {k10_b:.2f} ms, default {base_a:.2f} / {base_b:.2f} ms (in turns)")
     return {"launches": launches, "predict_ms": min(k10_a, k10_b), "default_predict_ms": min(base_a, base_b)}
+
+
+def bf16_upscaler_serving_phase(torch, device, model, bmodel, cpu_bmodel):
+    """The bfloat16 SAM of the bfloat16 serving phase with its upscaler on
+    K10·bf16: ``set_image`` on the frame, then ``predict`` (one point) and
+    ``predict_batch`` of 16 each launch exactly 2 K10·bf16 and no float32
+    K10; the masks' shapes; the point's mask logits against the same
+    bfloat16 model on the CPU (its upscaler on the plain bfloat16 K10) on the
+    card's embedding, held to ``BF16_WHOLE_SANITY`` times the card's
+    bfloat16-vs-float32 gap, as the serving phase holds the default path;
+    ``predict`` timed against the default upscaler in turns."""
+    import numpy as np
+
+    from mia_tpu_torch.models.sam import SamPredictor
+    from mia_tpu_torch.ops import upsample2x as up
+
+    image = sam_frame(np)
+    point, label = np.array([[352.0, 216.0]]), np.array([1])
+    coords16 = np.random.default_rng(5).uniform([0, 0], [640, 480], (16, 1, 2))
+    labels16 = np.ones((16, 1), np.int64)
+    predictor, f32_predictor = SamPredictor(bmodel), SamPredictor(model)
+    predictor.set_image(image)
+    f32_predictor.set_image(image)
+    cpu_predictor = SamPredictor(cpu_bmodel)
+    cpu_predictor.features = predictor.features.cpu()
+    cpu_predictor.original_size, cpu_predictor.input_size = predictor.original_size, predictor.input_size
+    cpu_predictor.is_image_set = True
+    calls = {"predict": lambda p, **k: p.predict(point_coords=point, point_labels=label, **k),
+             "predict_batch": lambda p, **k: p.predict_batch(coords16, labels16, **k)}
+    counts = {"K10": up.conv_transpose2x, "K10b": up.conv_transpose2x_fused_bwd}
+    default = {name: call(predictor, return_logits=True) for name, call in calls.items()}
+    want32 = calls["predict"](f32_predictor, return_logits=True)[0]
+    for m in (bmodel, cpu_bmodel):
+        check(set_upsample_kernel(m.mask_decoder, "always") == 2,
+              "the bfloat16 SAM upscaler has not 2 stages")
+    launches = {"K10": 0}
+    try:
+        got = {}
+        for name, call in calls.items():
+            for fn in counts.values():
+                fn.launches = fn.bf16_launches = 0
+            got[name] = call(predictor, return_logits=True)
+            torch.cuda.synchronize()
+            seen = {k: fn.bf16_launches for k, fn in counts.items() if fn.bf16_launches}
+            seen32 = {k: fn.launches for k, fn in counts.items() if fn.launches}
+            check(seen == {"K10": 2} and not seen32, f"bfloat16 {name} with the upscaler on K10 "
+                  f"launched {seen} bfloat16 and {seen32} float32, expected 2 K10·bf16")
+            launches["K10"] += seen.get("K10", 0)
+            masks, iou, low = got[name]
+            check(masks.shape == default[name][0].shape and iou.shape == default[name][1].shape
+                  and bool(np.isfinite(masks).all() and np.isfinite(iou).all()),
+                  f"bfloat16 {name} on K10: outputs malformed")
+        want_cpu = calls["predict"](cpu_predictor, return_logits=True)[0]
+        card_vs_cpu = frob_rel(np, got["predict"][0], want_cpu)
+        gap = frob_rel(np, got["predict"][0], want32)
+        to_default = frob_rel(np, got["predict"][0], default["predict"][0])
+        check(card_vs_cpu <= BF16_WHOLE_SANITY * gap, f"bfloat16 point logits on K10, card vs "
+              f"CPU {card_vs_cpu} > {BF16_WHOLE_SANITY} x the float32 gap {gap}")
+        k10_a = median_s(lambda: calls["predict"](predictor), torch, n=20) * 1e3
+        set_upsample_kernel(bmodel.mask_decoder, "never")
+        base_a = median_s(lambda: calls["predict"](predictor), torch, n=20) * 1e3
+        base_b = median_s(lambda: calls["predict"](predictor), torch, n=20) * 1e3
+        set_upsample_kernel(bmodel.mask_decoder, "always")
+        k10_b = median_s(lambda: calls["predict"](predictor), torch, n=20) * 1e3
+    finally:
+        for m in (bmodel, cpu_bmodel):
+            set_upsample_kernel(m.mask_decoder, "never")
+    print(f"bf16 sam: upscaler on K10·bf16: 2 launches a decode (predict, predict_batch of 16), "
+          f"no float32 K10; point logits ||card - CPU|| / ||CPU|| {card_vs_cpu:.3g} (float32 gap "
+          f"{gap:.3g}), to the default upscaler's {to_default:.3g}; predict median "
+          f"{k10_a:.2f} / {k10_b:.2f} ms, default {base_a:.2f} / {base_b:.2f} ms (in turns)")
+    return {"launches": launches, "predict_ms": min(k10_a, k10_b),
+            "default_predict_ms": min(base_a, base_b), "logits_card_vs_cpu": card_vs_cpu,
+            "logit_gap": gap, "logits_to_default": to_default}
 
 
 # ---------------------------------------------------------------------------
@@ -5070,13 +5355,14 @@ def cpcsam_card_vs_cpu(torch, model, images, labels):
     return want_loss, scale, errs, cpu_s
 
 
-def run_cpcsam(torch, device, datasets, argv):
+def run_cpcsam(torch, device, datasets, argv, on_start=None):
     """``train_entry(argv)`` on the in-memory ACDC set with every train step
     timed and counted → the trainer and what was recorded: ``steps`` (phase,
     seconds, launches by kernel, valid memory rows by class or None),
     ``losses``, ``snap`` (every parameter after ``on_train_start``),
     ``launches`` of the whole run and the peak memory; with ``bf16_steps``
-    and ``bf16_launches``, the same counts of the bfloat16 instances."""
+    and ``bf16_launches``, the same counts of the bfloat16 instances.
+    ``on_start(trainer)`` runs at the end of ``on_train_start``."""
     from mia_tpu_torch.entry.cpcsam.train import train_entry
     from mia_tpu_torch.training import cpcsam_trainer
 
@@ -5093,6 +5379,8 @@ def run_cpcsam(torch, device, datasets, argv):
             super().on_train_start()
             rec["snap"].update({n: p.detach().clone() for n, p in self.model.named_parameters()})
             rec["first_iter"] = self.current_iter
+            if on_start is not None:
+                on_start(self)
 
         def train_step(self, batch):
             phase = 2 if self.current_iter >= self.config.warmup_iter else 1
@@ -5457,6 +5745,10 @@ def route_train_phase(torch, device, trainer, datasets):
 # bfloat16 launches of one step of either phase (the float32 ones are STEP_LAUNCHES'); the
 # step launches no float32 instance of K2-K4b
 BF16_STEP_LAUNCHES = {"K2": 8, "K2b": 8, "K3": 4, "K3b": 4, "K4": 8, "K4b": 7}
+# with the 12 upscaler stages of the three prompt-large decoders on K10·bf16/K10b·bf16: phase 1
+# runs each decoder once, unprompted, on the labeled images; phase 2 runs the decoders three
+# times (the unprompted stack, then the prompted passes of both halves of the batch)
+BF16_K10_STEP_LAUNCHES = {1: {"K10": 12, "K10b": 12}, 2: {"K10": 36, "K10b": 36}}
 # card against the CPU in training, module by module: every module call inside encoder blocks 0
 # (windowed) and 2 (global) of the trained bfloat16 model, on the inputs the CPU's copy of the
 # block gives it (the block's own input taken from the card's forward), forward and backward for
@@ -5714,9 +6006,11 @@ def bf16_block_holds(torch, model, images, device):
 
 def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
     """``cpcsam_train_torch``'s defaults with ``--compute-dtype bfloat16`` for
-    2 phase-1 and 2 phase-2 steps on the CPC-SAM phase's in-memory ACDC set:
-    exactly the bfloat16 launches of ``BF16_STEP_LAUNCHES`` a step and no
-    float32 instance of K2-K4b, finite losses, the LoRA tensors moved and
+    2 phase-1 and 2 phase-2 steps on the CPC-SAM phase's in-memory ACDC set,
+    the 12 stages of its three prompt-large upscalers on K10·bf16/K10b·bf16:
+    exactly the bfloat16 launches of ``BF16_STEP_LAUNCHES`` and
+    ``BF16_K10_STEP_LAUNCHES`` a step and no float32 instance of K2-K4b or
+    K10/K10b, finite losses, the LoRA tensors moved and
     the frozen encoder bit-identical, float32 parameters and a float32
     ``lora.msgpack`` with the float32 run's keys, the validation and the
     real test of the bfloat16 model; step ms and peak memory beside the
@@ -5729,7 +6023,14 @@ def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
     argv = ["--data-path", str(workdir / "acdc"), "--device", "cuda", "--lr-warmup-iter", "1",
             "--quiet", "--work-path", str(workdir / "work_bf16"), "--compute-dtype", "bfloat16",
             "--warmup-iter", "2", "--min-iter", "4", "--max-iter", "4", "--valid-freq-iter", "4"]
-    trainer, rec = run_cpcsam(torch, device, datasets, argv)
+
+    def upscalers_on_k10(tr):
+        check(set_upsample_kernel(tr.model, "always") == 12,
+              "the bfloat16 model does not hold 3 x 4 upscaler stages")
+
+    trainer, rec = run_cpcsam(torch, device, datasets, argv, on_start=upscalers_on_k10)
+    # the later phases take the trained model with its default upscalers
+    set_upsample_kernel(trainer.model, "never")
     model = trainer.model
     bf = torch.bfloat16
     enc = model.image_encoder
@@ -5743,10 +6044,10 @@ def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
           "bfloat16 CPC-SAM parameters are not float32 on the card")
     no_float32 = {ph: {**STEP_LAUNCHES[ph], **{k: 0 for k in BF16_STEP_LAUNCHES}} for ph in (1, 2)}
     check_cpcsam_steps(torch, trainer, rec, [1, 1, 2, 2], (), expected=no_float32)
-    for i, per_step in enumerate(rec["bf16_steps"]):
+    for i, (per_step, step) in enumerate(zip(rec["bf16_steps"], rec["steps"])):
         per_step = {k: n for k, n in per_step.items() if n}
-        check(per_step == BF16_STEP_LAUNCHES,
-              f"bfloat16 step {i} launched {per_step}, expected {BF16_STEP_LAUNCHES}")
+        expected = {**BF16_STEP_LAUNCHES, **BF16_K10_STEP_LAUNCHES[step[0]]}
+        check(per_step == expected, f"bfloat16 step {i} launched {per_step}, expected {expected}")
     work = trainer.work_path
     log = (work / "log.txt").read_text()
     check(log.count("Valid results") == 1 and "Real test results" in log,
@@ -5796,7 +6097,8 @@ def cpcsam_bf16_phase(torch, device, workdir: Path, datasets, f32):
           f"{med[2]:.2f} ms, float32 phase {f32['phase1_step_ms']:.2f} / {f32['phase2_step_ms']:.2f} "
           f"ms; max_memory_allocated {rec['peak'] / 2**30:.2f} GiB, float32 "
           f"{f32['max_memory_allocated'] / 2**30:.2f} GiB")
-    print(f"cpcsam bf16: bfloat16 launches a step {BF16_STEP_LAUNCHES} and no float32 K2-K4b; "
+    print(f"cpcsam bf16: bfloat16 launches a step {BF16_STEP_LAUNCHES} with the upscalers' "
+          f"{BF16_K10_STEP_LAUNCHES} (phase 1, phase 2) and no float32 K2-K4b or K10/K10b; "
           f"in the run {rec['bf16_launches']}; losses first {rec['losses'][0]} last "
           f"{rec['losses'][-1]}; 48 LoRA tensors moved, frozen encoder bit-identical; lora.msgpack "
           "float32 in the float32 run's layout")
@@ -6012,7 +6314,8 @@ def main(argv=None) -> int:
                 **timed("K2-K4", sam_kernel_phase, torch, device),
                 "bf16": {**timed("K2-K4 bfloat16", bf16_kernel_phase, torch, device),
                          **timed("K2b-K4b bfloat16", bf16_train_kernel_phase, torch, device),
-                         **timed("K6-K9b bfloat16", bf16_route_kernel_phase, torch, device)},
+                         **timed("K6-K9b bfloat16", bf16_route_kernel_phase, torch, device),
+                         **timed("K10, K10b bfloat16", bf16_upsample_kernel_phase, torch, device)},
                 **timed("K2b-K4b, K5", train_kernel_phase, torch, device),
                 **timed("K6-K9", route_kernel_phase, torch, device),
                 **timed("K6b, K8b, K9b", route_bwd_kernel_phase, torch, device),
@@ -6041,6 +6344,8 @@ def main(argv=None) -> int:
     sam, model, cpu_model = timed("SAM serving", sam_phase, torch, device)
     bf16_sam = timed("SAM serving bfloat16", bf16_serving_phase, torch, device, model, cpu_model)
     bmodel, cpu_bmodel = bf16_sam.pop("models")
+    bf16_k10_serving = timed("K10 serving bfloat16", bf16_upscaler_serving_phase, torch, device,
+                             model, bmodel, cpu_bmodel)
     bf16_routes = timed("encoder routes bfloat16", bf16_route_phase, torch, device, model, bmodel,
                         cpu_bmodel, bf16_sam["embedding_card_vs_cpu"])
     del bmodel, cpu_bmodel
@@ -6059,7 +6364,7 @@ def main(argv=None) -> int:
     # route training, K8 from AMG on the grid-native encoder too; K1 also from the FUGC
     # K-fold trainer, K10 and K10b from that trainer with the decoder's option on, from
     # route training (the prompt-large upscalers) and K10 from SAM serving; the bfloat16
-    # instances from their own phases (below)
+    # instances from their own phases (below), each of which sets its counts to 0 before it runs
     launches = {k: sum(path["launches"].get(k, 0)
                        for path in (sam, cpc, route_train, routes, amg, fugc, serving_k10, demo))
                 for k in KERNELS}
@@ -6067,10 +6372,13 @@ def main(argv=None) -> int:
     for k in KERNELS:
         check(launches[k] > 0, f"{k} was launched on no path")
     # the bfloat16 instances: K2-K4 from SAM serving and CPC-SAM training in bfloat16, K2b-K4b
-    # from CPC-SAM training in bfloat16, and every kernel of the other routes from their
-    # bfloat16 serving and training phases
-    bf16 = {k: {"launches": sum(path["launches"].get(k, 0)
-                                for path in (bf16_sam, bf16_cpc, bf16_routes, bf16_route_train)),
+    # from CPC-SAM training in bfloat16, every kernel of the other routes from their
+    # bfloat16 serving and training phases, K10 from bfloat16 SAM serving with its upscaler on
+    # K10, and K10 and K10b from CPC-SAM training in bfloat16 (its upscalers on K10) and the
+    # bfloat16 AL run with its decoder on K10
+    bf16_paths = (bf16_sam, bf16_cpc, bf16_routes, bf16_route_train, bf16_k10_serving,
+                  {"launches": bf16_al["bf16_launches"]})
+    bf16 = {k: {"launches": sum(path["launches"].get(k, 0) for path in bf16_paths),
                 **measured["bf16"][k]} for k in BF16_KERNELS}
     for k, entry in bf16.items():
         check(entry["launches"] > 0, f"{k} in bfloat16 was launched on no path")
@@ -6104,7 +6412,10 @@ def main(argv=None) -> int:
             json.dumps({"card": card, "host_decode": sl["host_decode"],
                         "sam": {k: v for k, v in sam.items() if k != "launches"},
                         "bf16": {"sam": {k: v for k, v in bf16_sam.items() if k != "launches"},
-                                 "al": {k: v for k, v in bf16_al.items() if k != "launches"},
+                                 "k10_serving": {k: v for k, v in bf16_k10_serving.items()
+                                                 if k != "launches"},
+                                 "al": {k: v for k, v in bf16_al.items()
+                                        if k not in ("launches", "bf16_launches")},
                                  "cpcsam": {k: v for k, v in bf16_cpc.items() if k != "launches"},
                                  "routes": bf16_routes["routes"],
                                  "route_training": bf16_route_train["routes"]},

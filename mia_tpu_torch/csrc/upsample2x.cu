@@ -1,5 +1,6 @@
 // K10 and K10b on Hopper: the k=2/s=2 transposed convolution (2x upsample)
-// and its backward, float32 in and out.
+// and its backward, float32 in and out, or bfloat16 in and out with a
+// float32 bias (the bfloat16 instances, K10.bf16 and K10b.bf16).
 //
 // Replaces the TPU kernels mia_tpu/ops/upsample2x.py::conv_transpose2x_p
 // (_fwd_impl/_fwd_kernel) and ::_bwd_impl (_bwd_kernel). For x (B, H, W, Cin),
@@ -67,12 +68,46 @@
 //   staged through shared memory, the tile picked by the width of the result
 //   so a thin stage does not compute padding.
 //
+// bfloat16 (the Pallas kernel on bfloat16 operands: x, w and dy bfloat16, the
+// bias float32; every product summed in float32, the float32 bias added and
+// each output rounded once: y and dx to bfloat16, dw to bfloat16 from its
+// float32 chunk partials, db float32). Channel counts are multiples of 8
+// (16 bytes). The same three products, the same layouts and the same rule:
+//
+// * Tensor cores (conv_transpose2x_bf16_tc_kernel): bfloat16 mma.sync.m16n8k16
+//   with float32 accumulators (bf16_mma.cuh), one MMA a product: a product of
+//   two bfloat16 values is exact in float32, so no split. The TF32 kernel's
+//   ring (three 32-deep stages by 16-byte cp.async, zero-filled edges), tiles
+//   (128 x 64, or 64 x 128 for dw with Cin <= 64, by warps of 64 x 32), fold
+//   (each 32-deep chain, two k16 MMAs, added to a float32 accumulator: the
+//   tensor core truncates into its accumulator) and staged result (float32
+//   in shared memory, then 16-byte stores of 8 bfloat16 along each pixel's
+//   2*Cout run, the bias added before the one rounding). Rows are padded by
+//   8 elements (16 bytes): a [m][k] / [n][k] row of 40 elements puts the 8
+//   rows x 4 words of a fragment read in 32 banks, and the fragments of the
+//   [k][m] / [k][n] tiles (dw's x; the forward's taps and dw's dy) are read
+//   transposed by ldmatrix.trans from rows 16-byte aligned.
+// * CUDA cores (conv_transpose2x_gemm_kernel<__nv_bfloat16, ...>): the float32
+//   tile on bfloat16 loads (4 elements, 8 bytes), float32 FMA, and one rounding
+//   on the store.
+//
+// route_tc() keeps one rule for both types, with the bytes counted at the
+// operands' width: the tensor cores wherever the product's time on the CUDA
+// cores (float32 FMA at 67 TFLOP/s) would exceed its operands and result
+// crossing device memory once (3.35 TB/s), i.e. at 20 flops a byte. In
+// bfloat16 a product has half the bytes, so prompt-large stage 3 (12 x 128 x
+// 128, 32 -> 16: 21 flops a byte) moves to the tensor cores; stage 4 (13
+// flops a byte) stays on the CUDA cores. Both routes are bound by bytes there.
+//
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -416,17 +451,328 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_transpose2x_tc_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core tile product (float32), for the thin stages
+// Tensor-core tile product (bfloat16)
 // ---------------------------------------------------------------------------
 
-// One BM x BN tile of the product (modes as above).
-// Thread (ty, tx) of TY x TX = 256 owns rows ty*TM .. +TM and the TN/4 column
-// quads (g*TX + tx)*4, so a row of the tile is written as neighbouring float4s.
-template <int MODE, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ dy,
-    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ col_sums,
+// Shared-memory layout of one bfloat16 instance, in elements: A and B as
+// TcLayout's (A [m][k] or, for dw, [k][m]; B [k][n] or, for dx, [n][k]),
+// every row padded by 8 elements (16 bytes); the result is staged in float32.
+template <int MODE, int BM, int BN>
+struct Bf16Layout {
+  static constexpr bool kAkm = MODE == kDw;
+  static constexpr bool kBnk = MODE == kDx;
+  static constexpr int kALd = kAkm ? BM + 8 : kTcBK + 8;
+  static constexpr int kBLd = kBnk ? kTcBK + 8 : BN + 8;
+  static constexpr int kASize = kAkm ? kTcBK * kALd : BM * kALd;
+  static constexpr int kBSize = kBnk ? BN * kBLd : kTcBK * kBLd;
+  static constexpr int kStage = kASize + kBSize;
+  static constexpr int kCLd = BN + 8;  // the staged result tile, floats
+  static constexpr size_t kRing = sizeof(bf16) * kStages * kStage;
+  static constexpr size_t kTile = sizeof(float) * BM * kCLd;
+  static constexpr size_t kBody = kRing > kTile ? kRing : kTile;
+  static constexpr size_t kBytes = kBody + sizeof(long long) * BM;
+};
+
+__device__ __forceinline__ uint32_t ld_bf16x2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Eight consecutive outputs from float32: 16 bytes of bfloat16 or 32 of float32
+__device__ __forceinline__ void store8(bf16* p, float4 a, float4 b) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                 pack_bf16x2(b.z, b.w));
+}
+__device__ __forceinline__ void store8(float* p, float4 a, float4 b) {
+  *reinterpret_cast<float4*>(p) = a;
+  *reinterpret_cast<float4*>(p + 4) = b;
+}
+
+// One BM x BN tile of (M, N as product_of) from bfloat16 operands
+//   kFwd: out = x . taps + bias    kDx: dx = dy . taps^T    kDw: part[z] = x^T . dy
+// out is bfloat16 (forward, dx) or the float32 partials (dw); by WM x WN
+// warps, each a (BM / WM) x (BN / WN) piece of 16 x 8 fragments.
+template <int MODE, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(WM * WN * 32) conv_transpose2x_bf16_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ dy,
+    const float* __restrict__ bias, void* __restrict__ out_v, float* __restrict__ col_sums,
     long long pixels, int W, int Cin, int Cout, long long chunk_len) {
+  using L = Bf16Layout<MODE, BM, BN>;
+  using Out = std::conditional_t<MODE == kDw, float, bf16>;
+  Out* out = static_cast<Out*>(out_v);
+  constexpr int kT = WM * WN * 32;
+  constexpr int kMI = BM / WM / 16;  // 16-row fragments of a warp
+  constexpr int kNJ = BN / WN / 8;   // 8-column fragments of a warp, in pairs
+  static_assert(kMI >= 1 && kNJ % 2 == 0 && kT % BN == 0 && kTcBK == kFold,
+                "tile does not match the block");
+  extern __shared__ float4 bf_smem4[];
+  bf16* ring = reinterpret_cast<bf16*>(bf_smem4);
+  float* smem = reinterpret_cast<float*>(bf_smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // fragment row group
+  const int tq = lane & 3;  // thread in group
+  const int wm0 = (warp / WN) * (BM / WM);
+  const int wn0 = (warp % WN) * (BN / WN);
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;
+  const Product p = product_of<MODE>(pixels, Cin, Cout, chunk_len);
+  const long long slices = (p.k_end - p.k_begin + kTcBK - 1) / kTcBK;
+  const long long row5 = 2LL * W * Cout;  // elements between output rows 2i and 2i+1
+
+  // What stays fixed for a thread across stages: the A rows or B columns it
+  // copies, in 16-byte chunks of 8 elements. [m][k] tiles: row tid / kQ +
+  // i * (kT / kQ), chunk tid % kQ.
+  constexpr int kQ = kTcBK / 8;
+  constexpr int kRowsA = BM * kQ / kT;
+  long long a_row[L::kAkm ? 1 : kRowsA];  // offset of the row's column 0, -1 past M
+  if constexpr (!L::kAkm) {
+#pragma unroll
+    for (int i = 0; i < kRowsA; ++i) {
+      const long long m = m0 + tid / kQ + i * (kT / kQ);
+      if (m >= p.M) {
+        a_row[i] = -1;
+      } else if (MODE == kFwd) {
+        a_row[i] = m * Cin;
+      } else {  // the tap row di = 0 of pixel m in dy's (B, H, 2, W, 2*Cout) layout
+        const long long t = div_w(m, W);
+        a_row[i] = (2 * t * W + (m - t * W)) * (2LL * Cout);
+      }
+    }
+  }
+  // [k][n] tiles: chunk tid % (BN / 8), row tid / (BN / 8) + i * (kT / (BN / 8))
+  const int bq = tid % (BN / 8);
+  const int bn = n0 + 8 * bq;
+  long long b_col = -1;  // forward: offset of the taps' column; dw: dy's column in the 5-D row
+  if (!L::kBnk && bn < p.N) {
+    const int tap = bn / Cout;
+    const int co = bn - tap * Cout;
+    b_col = MODE == kFwd ? static_cast<long long>(tap) * Cin * Cout + co
+                         : (tap >> 1) * row5 + (tap & 1) * Cout + co;
+  }
+
+  auto load = [&](int stage, long long k0) {
+    bf16* As = ring + stage * L::kStage;
+    bf16* Bs = As + L::kASize;
+    if constexpr (L::kAkm) {  // dw: x(pixel k, ci m), contiguous along m
+      for (int i = tid; i < kTcBK * (BM / 8); i += kT) {
+        const int k = i / (BM / 8);
+        const int q = i - k * (BM / 8);
+        const long long pix = k0 + k;
+        const long long m = m0 + 8 * q;
+        const bool ok = pix < p.k_end && m < p.M;
+        cp_async16_bytes(As + k * L::kALd + 8 * q, ok ? x + pix * Cin + m : x, ok);
+      }
+    } else {  // x(pixel m, ci k) or dy(pixel m, column k): contiguous along k
+      const int q = tid % kQ;
+      const long long k = k0 + 8 * q;
+      const bool k_ok = k < p.k_end;
+      long long col = k;
+      if (MODE == kDx) {
+        const int di = k >= 2 * Cout ? 1 : 0;
+        col = di * row5 + (k - di * 2 * Cout);
+      }
+      const bf16* base = MODE == kFwd ? x : dy;
+#pragma unroll
+      for (int i = 0; i < kRowsA; ++i) {
+        const bool ok = k_ok && a_row[i] >= 0;
+        cp_async16_bytes(As + (tid / kQ + i * (kT / kQ)) * L::kALd + 8 * q,
+                         ok ? base + a_row[i] + col : base, ok);
+      }
+    }
+    if constexpr (L::kBnk) {  // dx: w(tap, ci n, co) with k = tap*Cout + co: contiguous along k
+      const int q = tid % kQ;
+      const long long k = k0 + 8 * q;
+      const int tap = static_cast<int>(k / Cout);
+      const long long col = static_cast<long long>(tap) * Cin * Cout + (k - tap * Cout);
+      for (int r = tid / kQ; r < BN; r += kT / kQ) {
+        const int n = n0 + r;
+        const bool ok = k < p.k_end && n < p.N;
+        cp_async16_bytes(Bs + r * L::kBLd + 8 * q,
+                         ok ? w + col + static_cast<long long>(n) * Cout : w, ok);
+      }
+    } else {  // w(tap, ci k, co) or dy(pixel k, column n): contiguous along n
+      for (int r = tid / (BN / 8); r < kTcBK; r += kT / (BN / 8)) {
+        const long long k = k0 + r;
+        const bool ok = k < p.k_end && b_col >= 0;
+        const bf16* src = w;
+        if (ok) {
+          if (MODE == kFwd) {
+            src = w + b_col + k * Cout;
+          } else {
+            const long long t = div_w(k, W);
+            src = dy + (2 * t * W + (k - t * W)) * (2LL * Cout) + b_col;
+          }
+        }
+        cp_async16_bytes(Bs + r * L::kBLd + 8 * bq, src, ok);
+      }
+    }
+  };
+
+  float acc[kMI][kNJ][4];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  }
+  // dw, first row of blocks: this thread's share of the column sums of dy
+  // (db), column tid % BN over kSumRows rows of each stage from row group tid / BN
+  constexpr int kSumRows = kTcBK * BN / kT;
+  float bsum = 0.f;
+  const bool sums = MODE == kDw && blockIdx.x == 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slices) load(s, p.k_begin + static_cast<long long>(s) * kTcBK);
+    cp_async_commit();
+  }
+  for (long long it = 0; it < slices; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `it` landed for every thread; stage it - 1 is free
+    const long long next = it + kStages - 1;
+    if (next < slices) load(static_cast<int>(next % kStages), p.k_begin + next * kTcBK);
+    cp_async_commit();
+
+    const bf16* As = ring + static_cast<int>(it % kStages) * L::kStage;
+    const bf16* Bs = As + L::kASize;
+    if (sums) {
+#pragma unroll 8
+      for (int k = 0; k < kSumRows; ++k)
+        bsum += __bfloat162float(Bs[((tid / BN) * kSumRows + k) * L::kBLd + tid % BN]);
+    }
+    // the stage is one 32-deep chain (two k16 MMAs), from zero
+    float part[kMI][kNJ][4];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+        part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 16) {
+      uint32_t bfr[kNJ][2];
+      if constexpr (L::kBnk) {  // [n][k]: a register is two neighbours along k
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          const bf16* r = Bs + (wn0 + 8 * j + g) * L::kBLd + kk + 2 * tq;
+          bfr[j][0] = ld_bf16x2(r);
+          bfr[j][1] = ld_bf16x2(r + 8);
+        }
+      } else {  // [k][n]: two 8-column fragments a transposed load
+#pragma unroll
+        for (int j = 0; j < kNJ; j += 2) {
+          uint32_t b4[4];
+          ldmatrix_x4_trans(b4, Bs + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kBLd + wn0 +
+                                    8 * j + (lane >> 4) * 8);
+          bfr[j][0] = b4[0];
+          bfr[j][1] = b4[1];
+          bfr[j + 1][0] = b4[2];
+          bfr[j + 1][1] = b4[3];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        uint32_t a[4];
+        if constexpr (L::kAkm) {  // [k][m]: matrices (k 0-7, m 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)
+          ldmatrix_x4_trans(a, As + (kk + (lane & 7) + ((lane >> 4) << 3)) * L::kALd + wm0 +
+                                   16 * i + ((lane >> 3) & 1) * 8);
+        } else {  // [m][k]: rows g and g + 8, k 2 tq and 2 tq + 8
+          const bf16* r0 = As + (wm0 + 16 * i + g) * L::kALd + kk + 2 * tq;
+          const bf16* r1 = r0 + 8 * L::kALd;
+          a[0] = ld_bf16x2(r0);
+          a[1] = ld_bf16x2(r1);
+          a[2] = ld_bf16x2(r0 + 8);
+          a[3] = ld_bf16x2(r1 + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) mma_bf16(part[i][j], a, bfr[j][0], bfr[j][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+      }
+    }
+  }
+
+  // ---- the result, staged through shared memory as Cs[m][n] in float32 ----
+  cp_async_wait<0>();
+  __syncthreads();  // every stage consumed
+  float* Cs = smem;
+  long long* rowoff = reinterpret_cast<long long*>(reinterpret_cast<unsigned char*>(smem) + L::kBody);
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      float* c = Cs + (wm0 + 16 * i + g) * L::kCLd + wn0 + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(c + 8 * L::kCLd) = make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+  for (int r = tid; r < BM; r += kT) {  // offset of each row's column 0
+    const long long m = m0 + r;
+    if (MODE == kFwd) {  // tap row di = 0 of the (B, H, 2, W, 2*Cout) output
+      const long long t = div_w(m, W);
+      rowoff[r] = (2 * t * W + (m - t * W)) * (2LL * Cout);
+    } else if (MODE == kDx) {
+      rowoff[r] = m * Cin;
+    } else {
+      rowoff[r] = (static_cast<long long>(blockIdx.z) * p.M + m) * p.N;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BM * (BN / 8); idx += kT) {  // runs of 8 outputs
+    const int r = idx / (BN / 8);
+    const int c = 8 * (idx - r * (BN / 8));
+    const int n = n0 + c;
+    if (m0 + r >= p.M || n >= p.N) continue;
+    float4 v0 = *reinterpret_cast<const float4*>(Cs + r * L::kCLd + c);
+    float4 v1 = *reinterpret_cast<const float4*>(Cs + r * L::kCLd + c + 4);
+    long long off = rowoff[r] + n;
+    if (MODE == kFwd) {  // + the float32 bias, then the one rounding
+      const int di = n >= 2 * Cout ? 1 : 0;
+      const int n2 = n - di * 2 * Cout;  // dj*Cout + co
+      const float* b = bias + (n2 >= Cout ? n2 - Cout : n2);
+      const float4 b0 = ldg4(b), b1 = ldg4(b + 4);
+      v0 = make_float4(v0.x + b0.x, v0.y + b0.y, v0.z + b0.z, v0.w + b0.w);
+      v1 = make_float4(v1.x + b1.x, v1.y + b1.y, v1.z + b1.z, v1.w + b1.w);
+      off = rowoff[r] + di * row5 + n2;
+    }
+    store8(out + off, v0, v1);
+  }
+  if (sums) {  // the row groups' sums of each column, added in order
+    __syncthreads();  // the staged tile read
+    smem[tid] = bsum;
+    __syncthreads();
+    if (tid < BN && n0 + tid < p.N) {
+      float total = 0.f;
+#pragma unroll
+      for (int h = 0; h < kT / BN; ++h) total += smem[h * BN + tid];
+      col_sums[static_cast<long long>(blockIdx.z) * p.N + n0 + tid] = total;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core tile product (float32 FMA), for the thin stages
+// ---------------------------------------------------------------------------
+
+// One BM x BN tile of the product (modes as above) from operands of type T
+// (float32 or bfloat16), summed in float32; out is T (forward, dx) or the
+// float32 partials (dw). Thread (ty, tx) of TY x TX = 256 owns rows
+// ty*TM .. +TM and the TN/4 column quads (g*TX + tx)*4, so a row of the tile
+// is written as neighbouring runs of four.
+template <typename T, int MODE, int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
+    const float* __restrict__ bias, void* __restrict__ out_v, float* __restrict__ col_sums,
+    long long pixels, int W, int Cin, int Cout, long long chunk_len) {
+  using Out = std::conditional_t<MODE == kDw, float, T>;
+  Out* out = static_cast<Out*>(out_v);
   static_assert((BM / TM) * (BN / TN) == kThreads, "tile does not match the block");
   static_assert(TN % 4 == 0 && BM % 4 == 0 && BN % 4 == 0, "float4 granularity");
   constexpr int TX = BN / TN;
@@ -463,7 +809,7 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
         const long long pix = k0 + k;
         const long long m = m0 + mq * 4;
         float4 v = zero4;
-        if (pix < k_end && m < M) v = ldg4(x + pix * Cin + m);
+        if (pix < k_end && m < M) v = load4(x + pix * Cin + m);
         *reinterpret_cast<float4*>(&As[k][mq * 4]) = v;
       }
     } else {  // x(pixel m, ci k) or dy(pixel m, column k): contiguous along k
@@ -475,9 +821,9 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
         float4 v = zero4;
         if (m < M && k < k_end) {
           if (MODE == kFwd) {
-            v = ldg4(x + m * Cin + k);
+            v = load4(x + m * Cin + k);
           } else {
-            v = ldg4(dy + y5_offset(m, static_cast<int>(k), W, Cout));
+            v = load4(dy + y5_offset(m, static_cast<int>(k), W, Cout));
           }
         }
         As[kq * 4 + 0][ml] = v.x;
@@ -497,7 +843,7 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
         if (n < N && k < k_end) {
           const int tap = k / Cout;
           const int co = k - tap * Cout;
-          v = ldg4(w + (static_cast<long long>(tap) * Cin + n) * Cout + co);
+          v = load4(w + (static_cast<long long>(tap) * Cin + n) * Cout + co);
         }
         Bs[kq * 4 + 0][nl] = v.x;
         Bs[kq * 4 + 1][nl] = v.y;
@@ -515,9 +861,9 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
           if (MODE == kFwd) {
             const int tap = n / Cout;
             const int co = n - tap * Cout;
-            v = ldg4(w + (static_cast<long long>(tap) * Cin + k) * Cout + co);
+            v = load4(w + (static_cast<long long>(tap) * Cin + k) * Cout + co);
           } else {
-            v = ldg4(dy + y5_offset(k, n, W, Cout));
+            v = load4(dy + y5_offset(k, n, W, Cout));
           }
         }
         *reinterpret_cast<float4*>(&Bs[kl][nq * 4]) = v;
@@ -585,7 +931,7 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
         v.w += bv.w;
         off = row + static_cast<long long>(di) * W * (2LL * Cout) + n2;
       }
-      *reinterpret_cast<float4*>(out + off) = v;
+      store4(out + off, v);
     }
   }
   if (MODE == kDw) {
@@ -610,9 +956,11 @@ __global__ void __launch_bounds__(kThreads) conv_transpose2x_gemm_kernel(
 // A block of 32 x kLanes threads takes 32 runs of four outputs at a time;
 // lane c adds chunks c, c + kLanes, ... in order, and lane 0 adds the lanes'
 // sums in order. The grid strides, so a few waves of blocks cover any size.
-template <bool kDb, int kLanes>
+// The float32 sums are stored as OutT: dw rounded once to bfloat16 in the
+// bfloat16 instance, db float32 in both.
+template <bool kDb, int kLanes, typename OutT>
 __global__ void __launch_bounds__(32 * kLanes) conv_transpose2x_reduce_kernel(
-    const float* __restrict__ part, float* __restrict__ dst, int chunks, int Cin, int Cout) {
+    const float* __restrict__ part, OutT* __restrict__ dst, int chunks, int Cin, int Cout) {
   __shared__ float4 lanes[kLanes][32];
   const int N4 = 4 * Cout;
   const long long total = kDb ? Cout : static_cast<long long>(Cin) * N4;
@@ -655,24 +1003,26 @@ __global__ void __launch_bounds__(32 * kLanes) conv_transpose2x_reduce_kernel(
         const int tap = n / Cout;
         off = (static_cast<long long>(tap) * Cin + ci) * Cout + (n - tap * Cout);
       }
-      *reinterpret_cast<float4*>(dst + off) = s;
+      store4(dst + off, s);
     }
     __syncthreads();
   }
 }
 
 // 8 chunk lanes, or 32 where there are many chunks (the thin stages' dw)
-template <bool kDb>
-cudaError_t launch_reduce(const float* part, float* dst, int chunks, int Cin, int Cout,
+template <bool kDb, typename OutT>
+cudaError_t launch_reduce(const float* part, OutT* dst, int chunks, int Cin, int Cout,
                           cudaStream_t s) {
   const long long runs = (kDb ? Cout : static_cast<long long>(Cin) * 4 * Cout) / 4;
   long long blocks = (runs + 31) / 32;
   if (blocks > 8LL * kSms) blocks = 8LL * kSms;
   const unsigned grid = static_cast<unsigned>(blocks);
   if (chunks >= 64) {
-    conv_transpose2x_reduce_kernel<kDb, 32><<<grid, 32 * 32, 0, s>>>(part, dst, chunks, Cin, Cout);
+    conv_transpose2x_reduce_kernel<kDb, 32, OutT><<<grid, 32 * 32, 0, s>>>(part, dst, chunks, Cin,
+                                                                           Cout);
   } else {
-    conv_transpose2x_reduce_kernel<kDb, 8><<<grid, 32 * 8, 0, s>>>(part, dst, chunks, Cin, Cout);
+    conv_transpose2x_reduce_kernel<kDb, 8, OutT><<<grid, 32 * 8, 0, s>>>(part, dst, chunks, Cin,
+                                                                         Cout);
   }
   return cudaGetLastError();
 }
@@ -681,23 +1031,26 @@ cudaError_t launch_reduce(const float* part, float* dst, int chunks, int Cin, in
 // Routes, tiles, chunks and launches
 // ---------------------------------------------------------------------------
 
-// The route of a product: the tensor cores where its float32 time is set by
-// operations (2*M*N*K at 67 TFLOP/s at least its operands and result
-// crossing device memory once at 3.35 TB/s, i.e. 20 flops a byte), the CUDA
-// cores where bytes set it.
-bool route_tc(int mode, long long pixels, int Cin, int Cout) {
+// The route of a product whose operands are `elem` bytes an element (4
+// float32, 2 bfloat16): the tensor cores where its time on the CUDA cores
+// (2*M*N*K at 67 TFLOP/s of float32 FMA) would exceed its operands and result
+// crossing device memory once at 3.35 TB/s, i.e. at 20 flops a byte or more;
+// the CUDA cores where bytes set it either way.
+bool route_tc(int mode, long long pixels, int Cin, int Cout, int elem) {
   long long M, N, K;
   product_dims(mode, pixels, Cin, Cout, &M, &N, &K);
   const double flops = 2.0 * M * N * K;
-  const double bytes = 4.0 * (static_cast<double>(M) * K + static_cast<double>(K) * N +
-                              static_cast<double>(M) * N);
+  const double bytes = static_cast<double>(elem) * (static_cast<double>(M) * K +
+                                                    static_cast<double>(K) * N +
+                                                    static_cast<double>(M) * N);
   return flops >= 20.0 * bytes;
 }
 
 // A tensor-core tile: rows x cols of the result, by warps of 64 x 32. At
 // about 215 registers a thread an SM holds 8 such warps whatever the tile;
 // blocks of 4 warps, two an SM, were faster on every UNet stage than one
-// block of 8, whose barriers stall all 8 (PERF.md §6).
+// block of 8, whose barriers stall all 8 (PERF.md §6). The bfloat16 instance
+// takes the same tiles.
 struct TcTile {
   int rows, cols;
   int blocks_per_sm() const { return 8 * 64 * 32 / (rows * cols); }
@@ -722,9 +1075,9 @@ void dw_tile(int Cin, int Cout, int* bm, int* bn) {
 // (tiles x chunks <= SMs x blocks an SM), each chunk a multiple of the stage
 // depth and at least four stages. SIMT: four waves, each chunk a multiple of
 // the slice depth and at least 64 pixels.
-void dw_chunks(long long pixels, int Cin, int Cout, long long* chunk_len, int* chunks) {
+void dw_chunks(long long pixels, int Cin, int Cout, int elem, long long* chunk_len, int* chunks) {
   long long tiles, want, least, depth;
-  if (route_tc(kDw, pixels, Cin, Cout)) {
+  if (route_tc(kDw, pixels, Cin, Cout, elem)) {
     const TcTile t = tc_tile<kDw>(pixels, Cin, Cout);
     tiles = static_cast<long long>((Cin + t.rows - 1) / t.rows) * ((4 * Cout + t.cols - 1) / t.cols);
     want = kSms * t.blocks_per_sm() / tiles;
@@ -748,9 +1101,13 @@ void dw_chunks(long long pixels, int Cin, int Cout, long long* chunk_len, int* c
   if (*chunks < 1) *chunks = 1;
 }
 
+// Operands of one product; x, w, dy and out are of the instance's type
+// (out: float32 partials for dw)
 struct LaunchArgs {
-  const float *x, *w, *dy, *bias;
-  float *out, *col_sums;
+  const void *x, *w, *dy;
+  const float* bias;
+  void* out;
+  float* col_sums;
   long long pixels;
   int W, Cin, Cout;
   long long chunk_len;
@@ -758,33 +1115,47 @@ struct LaunchArgs {
   cudaStream_t s;
 };
 
-template <int MODE, int BM, int BN, int WM, int WN>
+template <typename T, int MODE, int BM, int BN, int WM, int WN>
 cudaError_t launch_tc(const LaunchArgs& a) {
   long long M, N, K;
   product_dims(MODE, a.pixels, a.Cin, a.Cout, &M, &N, &K);
   const long long mt = (M + BM - 1) / BM;
   const long long nt = (N + BN - 1) / BN;
   if (mt > 0x7fffffffLL || nt > 65535 || a.chunks > 65535) return cudaErrorInvalidValue;
-  auto kernel = conv_transpose2x_tc_kernel<MODE, BM, BN, WM, WN>;
-  constexpr size_t smem = TcLayout<MODE, BM, BN>::kBytes;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(mt), static_cast<unsigned>(nt),
                   static_cast<unsigned>(a.chunks));
-  kernel<<<grid, WM * WN * 32, smem, a.s>>>(a.x, a.w, a.dy, a.bias, a.out, a.col_sums, a.pixels,
-                                            a.W, a.Cin, a.Cout, a.chunk_len);
+  const T* x = static_cast<const T*>(a.x);
+  const T* w = static_cast<const T*>(a.w);
+  const T* dy = static_cast<const T*>(a.dy);
+  if constexpr (std::is_same_v<T, float>) {
+    auto kernel = conv_transpose2x_tc_kernel<MODE, BM, BN, WM, WN>;
+    constexpr size_t smem = TcLayout<MODE, BM, BN>::kBytes;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, WM * WN * 32, smem, a.s>>>(x, w, dy, a.bias, static_cast<float*>(a.out),
+                                              a.col_sums, a.pixels, a.W, a.Cin, a.Cout,
+                                              a.chunk_len);
+  } else {
+    auto kernel = conv_transpose2x_bf16_tc_kernel<MODE, BM, BN, WM, WN>;
+    constexpr size_t smem = Bf16Layout<MODE, BM, BN>::kBytes;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, WM * WN * 32, smem, a.s>>>(x, w, dy, a.bias, a.out, a.col_sums, a.pixels,
+                                              a.W, a.Cin, a.Cout, a.chunk_len);
+  }
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <typename T, int MODE>
 cudaError_t launch_tc_tiles(const LaunchArgs& a) {
   const TcTile t = tc_tile<MODE>(a.pixels, a.Cin, a.Cout);
-  if (t.rows == 64) return launch_tc<MODE, 64, 128, 1, 4>(a);
-  return launch_tc<MODE, 128, 64, 2, 2>(a);
+  if (t.rows == 64) return launch_tc<T, MODE, 64, 128, 1, 4>(a);
+  return launch_tc<T, MODE, 128, 64, 2, 2>(a);
 }
 
-template <int MODE, int BM, int BN, int TM, int TN>
+template <typename T, int MODE, int BM, int BN, int TM, int TN>
 cudaError_t launch_gemm(const LaunchArgs& a) {
   long long M, N, K;
   product_dims(MODE, a.pixels, a.Cin, a.Cout, &M, &N, &K);
@@ -793,44 +1164,107 @@ cudaError_t launch_gemm(const LaunchArgs& a) {
   if (mt > 0x7fffffffLL || nt > 65535 || a.chunks > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(mt), static_cast<unsigned>(nt),
                   static_cast<unsigned>(a.chunks));
-  conv_transpose2x_gemm_kernel<MODE, BM, BN, TM, TN><<<grid, kThreads, 0, a.s>>>(
-      a.x, a.w, a.dy, a.bias, a.out, a.col_sums, a.pixels, a.W, a.Cin, a.Cout, a.chunk_len);
+  conv_transpose2x_gemm_kernel<T, MODE, BM, BN, TM, TN><<<grid, kThreads, 0, a.s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.w), static_cast<const T*>(a.dy),
+      a.bias, a.out, a.col_sums, a.pixels, a.W, a.Cin, a.Cout, a.chunk_len);
   return cudaGetLastError();
 }
 
 // forward and dx on the SIMT route: many pixels down, N columns across; the
 // tile is as wide as N allows
-template <int MODE>
+template <typename T, int MODE>
 cudaError_t launch_by_width(const LaunchArgs& a) {
   const int N = MODE == kFwd ? 4 * a.Cout : a.Cin;
-  if (N >= 128) return launch_gemm<MODE, 128, 128, 8, 8>(a);
-  if (N >= 64) return launch_gemm<MODE, 128, 64, 8, 4>(a);
-  if (N >= 32) return launch_gemm<MODE, 128, 32, 4, 4>(a);
-  return launch_gemm<MODE, 256, 16, 4, 4>(a);
+  if (N >= 128) return launch_gemm<T, MODE, 128, 128, 8, 8>(a);
+  if (N >= 64) return launch_gemm<T, MODE, 128, 64, 8, 4>(a);
+  if (N >= 32) return launch_gemm<T, MODE, 128, 32, 4, 4>(a);
+  return launch_gemm<T, MODE, 256, 16, 4, 4>(a);
 }
 
-template <int MODE>
-cudaError_t launch_product(const LaunchArgs& a) {
-  if (route_tc(MODE, a.pixels, a.Cin, a.Cout)) return launch_tc_tiles<MODE>(a);
-  return launch_by_width<MODE>(a);
-}
-
-template <>
-cudaError_t launch_product<kDw>(const LaunchArgs& a) {
-  if (route_tc(kDw, a.pixels, a.Cin, a.Cout)) return launch_tc_tiles<kDw>(a);
+// dw on the SIMT route: the tile of dw_tile()
+template <typename T>
+cudaError_t launch_dw_gemm(const LaunchArgs& a) {
   int bm, bn;
   dw_tile(a.Cin, a.Cout, &bm, &bn);
-  if (bm == 128 && bn == 128) return launch_gemm<kDw, 128, 128, 8, 8>(a);
-  if (bm == 128) return launch_gemm<kDw, 128, 64, 8, 4>(a);
-  if (bm == 64) return launch_gemm<kDw, 64, 64, 4, 4>(a);
-  if (bm == 32 && bn == 128) return launch_gemm<kDw, 32, 128, 4, 4>(a);
-  if (bm == 32) return launch_gemm<kDw, 32, 64, 2, 4>(a);
-  if (bn == 128) return launch_gemm<kDw, 16, 128, 2, 4>(a);
-  return launch_gemm<kDw, 16, 64, 1, 4>(a);
+  if (bm == 128 && bn == 128) return launch_gemm<T, kDw, 128, 128, 8, 8>(a);
+  if (bm == 128) return launch_gemm<T, kDw, 128, 64, 8, 4>(a);
+  if (bm == 64) return launch_gemm<T, kDw, 64, 64, 4, 4>(a);
+  if (bm == 32 && bn == 128) return launch_gemm<T, kDw, 32, 128, 4, 4>(a);
+  if (bm == 32) return launch_gemm<T, kDw, 32, 64, 2, 4>(a);
+  if (bn == 128) return launch_gemm<T, kDw, 16, 128, 2, 4>(a);
+  return launch_gemm<T, kDw, 16, 64, 1, 4>(a);
 }
 
+template <typename T, int MODE>
+cudaError_t launch_product(const LaunchArgs& a) {
+  if (route_tc(MODE, a.pixels, a.Cin, a.Cout, sizeof(T))) return launch_tc_tiles<T, MODE>(a);
+  if constexpr (MODE == kDw) {
+    return launch_dw_gemm<T>(a);
+  } else {
+    return launch_by_width<T, MODE>(a);
+  }
+}
+
+// Channel counts multiples of 16 bytes of T: 4 float32, 8 bfloat16
+template <typename T>
 bool sizes_ok(int batch, int H, int W, int Cin, int Cout) {
-  return batch >= 0 && H >= 0 && W >= 0 && Cin > 0 && Cout > 0 && Cin % 4 == 0 && Cout % 4 == 0;
+  constexpr int kMultiple = 16 / static_cast<int>(sizeof(T));
+  return batch >= 0 && H >= 0 && W >= 0 && Cin > 0 && Cout > 0 && Cin % kMultiple == 0 &&
+         Cout % kMultiple == 0;
+}
+
+template <typename T>
+int forward(const void* x, const void* w, const void* bias, void* out, int batch, int H, int W,
+            int Cin, int Cout, void* stream) {
+  if (!sizes_ok<T>(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pixels = static_cast<long long>(batch) * H * W;
+  if (pixels == 0) return static_cast<int>(cudaSuccess);
+  const LaunchArgs a{x, w, nullptr, static_cast<const float*>(bias), out, nullptr, pixels, W,
+                     Cin, Cout, 0, 1, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_product<T, kFwd>(a));
+}
+
+template <typename T>
+int route(int batch, int H, int W, int Cin, int Cout, int product) {
+  if (!sizes_ok<T>(batch, H, W, Cin, Cout) || product < kFwd || product > kDw) return -1;
+  return route_tc(product, static_cast<long long>(batch) * H * W, Cin, Cout, sizeof(T)) ? 1 : 0;
+}
+
+template <typename T>
+long long bwd_chunks(int batch, int H, int W, int Cin, int Cout) {
+  if (!sizes_ok<T>(batch, H, W, Cin, Cout)) return 0;
+  const long long pixels = static_cast<long long>(batch) * H * W;
+  if (pixels == 0) return 1;
+  long long len;
+  int chunks;
+  dw_chunks(pixels, Cin, Cout, sizeof(T), &len, &chunks);
+  return chunks;
+}
+
+template <typename T>
+int backward(const void* x, const void* w, const void* dy, void* dx, void* dw, void* db,
+             void* part, void* col_sums, int batch, int H, int W, int Cin, int Cout,
+             void* stream) {
+  if (!sizes_ok<T>(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pixels = static_cast<long long>(batch) * H * W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  LaunchArgs a{x, w, dy, nullptr, dx, nullptr, pixels, W, Cin, Cout, 0, 1, s};
+  if (dx != nullptr && pixels > 0) {
+    const cudaError_t err = launch_product<T, kDx>(a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dw == nullptr) return static_cast<int>(cudaSuccess);
+  a.out = part;
+  a.col_sums = static_cast<float*>(col_sums);
+  a.chunk_len = kTcBK;  // no pixels: one empty chunk, dw and db zero
+  if (pixels > 0) dw_chunks(pixels, Cin, Cout, sizeof(T), &a.chunk_len, &a.chunks);
+  cudaError_t err = launch_product<T, kDw>(a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_reduce<false>(static_cast<const float*>(part), static_cast<T*>(dw), a.chunks, Cin,
+                             Cout, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce<true>(static_cast<const float*>(col_sums),
+                                              static_cast<float*>(db), a.chunks, Cin, Cout, s));
 }
 
 }  // namespace
@@ -839,61 +1273,56 @@ bool sizes_ok(int batch, int H, int W, int Cin, int Cout) {
 // all contiguous float32; Cin and Cout multiples of 4. out may not alias an input.
 extern "C" int mia_conv_transpose2x_f32(const void* x, const void* w, const void* bias, void* out,
                                         int batch, int H, int W, int Cin, int Cout, void* stream) {
-  if (!sizes_ok(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pixels = static_cast<long long>(batch) * H * W;
-  if (pixels == 0) return static_cast<int>(cudaSuccess);
-  const LaunchArgs a{static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
-                     static_cast<const float*>(bias), static_cast<float*>(out), nullptr,
-                     pixels, W, Cin, Cout, 0, 1, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch_product<kFwd>(a));
+  return forward<float>(x, w, bias, out, batch, H, W, Cin, Cout, stream);
+}
+
+// The same with x, w and out bfloat16 and bias float32; Cin and Cout multiples of 8.
+extern "C" int mia_conv_transpose2x_bf16(const void* x, const void* w, const void* bias,
+                                         void* out, int batch, int H, int W, int Cin, int Cout,
+                                         void* stream) {
+  return forward<bf16>(x, w, bias, out, batch, H, W, Cin, Cout, stream);
 }
 
 // The route each product of a stage takes: 1 the tensor cores, 0 the CUDA
-// cores; product 0 the forward, 1 dx, 2 dw (and db).
-extern "C" int mia_conv_transpose2x_route(int batch, int H, int W, int Cin, int Cout, int product) {
-  if (!sizes_ok(batch, H, W, Cin, Cout) || product < kFwd || product > kDw) return -1;
-  return route_tc(product, static_cast<long long>(batch) * H * W, Cin, Cout) ? 1 : 0;
+// cores; product 0 the forward, 1 dx, 2 dw (and db). -1 for sizes the
+// instance does not take.
+extern "C" int mia_conv_transpose2x_route_f32(int batch, int H, int W, int Cin, int Cout,
+                                              int product) {
+  return route<float>(batch, H, W, Cin, Cout, product);
+}
+
+extern "C" int mia_conv_transpose2x_route_bf16(int batch, int H, int W, int Cin, int Cout,
+                                               int product) {
+  return route<bf16>(batch, H, W, Cin, Cout, product);
 }
 
 // Number of pixel chunks the backward splits dw into: the caller allocates
 // part (chunks * Cin * 4*Cout floats) and col_sums (chunks * 4*Cout floats).
-extern "C" long long mia_conv_transpose2x_bwd_chunks(int batch, int H, int W, int Cin, int Cout) {
-  if (!sizes_ok(batch, H, W, Cin, Cout)) return 0;
-  const long long pixels = static_cast<long long>(batch) * H * W;
-  if (pixels == 0) return 1;
-  long long len;
-  int chunks;
-  dw_chunks(pixels, Cin, Cout, &len, &chunks);
-  return chunks;
+extern "C" long long mia_conv_transpose2x_bwd_chunks_f32(int batch, int H, int W, int Cin,
+                                                         int Cout) {
+  return bwd_chunks<float>(batch, H, W, Cin, Cout);
+}
+
+extern "C" long long mia_conv_transpose2x_bwd_chunks_bf16(int batch, int H, int W, int Cin,
+                                                          int Cout) {
+  return bwd_chunks<bf16>(batch, H, W, Cin, Cout);
 }
 
 // Backward: x (batch, H, W, Cin), w (2, 2, Cin, Cout), dy (batch, 2H, 2W, Cout) ->
 // dx (batch, H, W, Cin) when not null; dw (2, 2, Cin, Cout) and db (Cout,) when dw
-// is not null, with part and col_sums as scratch. No output may alias an input.
+// is not null, with part and col_sums (float32) as scratch. No output may alias an input.
 extern "C" int mia_conv_transpose2x_bwd_f32(const void* x, const void* w, const void* dy, void* dx,
                                             void* dw, void* db, void* part, void* col_sums,
                                             int batch, int H, int W, int Cin, int Cout,
                                             void* stream) {
-  if (!sizes_ok(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pixels = static_cast<long long>(batch) * H * W;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LaunchArgs a{static_cast<const float*>(x), static_cast<const float*>(w),
-               static_cast<const float*>(dy), nullptr, static_cast<float*>(dx), nullptr,
-               pixels, W, Cin, Cout, 0, 1, s};
-  if (dx != nullptr && pixels > 0) {
-    const cudaError_t err = launch_product<kDx>(a);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (dw == nullptr) return static_cast<int>(cudaSuccess);
-  a.out = static_cast<float*>(part);
-  a.col_sums = static_cast<float*>(col_sums);
-  a.chunk_len = kTcBK;  // no pixels: one empty chunk, dw and db zero
-  if (pixels > 0) dw_chunks(pixels, Cin, Cout, &a.chunk_len, &a.chunks);
-  cudaError_t err = launch_product<kDw>(a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_reduce<false>(static_cast<const float*>(part), static_cast<float*>(dw), a.chunks,
-                             Cin, Cout, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce<true>(static_cast<const float*>(col_sums),
-                                              static_cast<float*>(db), a.chunks, Cin, Cout, s));
+  return backward<float>(x, w, dy, dx, dw, db, part, col_sums, batch, H, W, Cin, Cout, stream);
+}
+
+// The same with x, w, dy, dx and dw bfloat16 (dw rounded once from its float32
+// sums) and db float32; Cin and Cout multiples of 8.
+extern "C" int mia_conv_transpose2x_bwd_bf16(const void* x, const void* w, const void* dy,
+                                             void* dx, void* dw, void* db, void* part,
+                                             void* col_sums, int batch, int H, int W, int Cin,
+                                             int Cout, void* stream) {
+  return backward<bf16>(x, w, dy, dx, dw, db, part, col_sums, batch, H, W, Cin, Cout, stream);
 }

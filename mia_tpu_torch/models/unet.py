@@ -266,7 +266,13 @@ class EinsumConvTranspose2x(nn.Module):
     module's ``use_pallas``) runs that plain form; ``"always"`` (2D only)
     goes through :func:`mia_tpu_torch.ops.upsample2x.conv_transpose2x`: kernel
     K10 and its backward K10b on a CUDA tensor, the plain form on a CPU one.
-    ``compute_dtype`` is flax's ``dtype=`` (K10 takes float32 only).
+    ``compute_dtype`` is flax's ``dtype=``: x, weight and bias are cast to it.
+    In bfloat16 the two options round as the JAX module's do: ``"never"``
+    as its einsum (a bfloat16 product, then the bfloat16 bias added),
+    ``"always"`` as its Pallas kernel, which takes the bias as float32 (the
+    bfloat16 rounding carried as float32), sums in float32 and rounds once;
+    so on the CPU ``"always"`` matches JAX's ``use_pallas="always"``, not
+    its ``"never"``.
     """
 
     def __init__(self, in_channels: int, out_channels: int, dimension: int = 2,
@@ -293,8 +299,8 @@ class EinsumConvTranspose2x(nn.Module):
         x, weight, bias = x.to(dt), self.weight.to(dt), self.bias.to(dt)
         if self.dimension == 2:
             w = weight.permute(2, 3, 0, 1)  # (di, dj, Cin, Cout)
-            if self.use_kernel == "always":
-                return conv_transpose2x(x, w, bias)
+            if self.use_kernel == "always":  # K10 takes the bias as float32, as the Pallas call
+                return conv_transpose2x(x, w, bias.to(torch.float32))
             return conv_transpose2x_plain(x, w, bias)
         b, d, h, ww, _ = x.shape
         y = torch.einsum("bdhwc,cfijk->bdihjwkf", x, weight)

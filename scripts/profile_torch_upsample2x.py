@@ -19,8 +19,9 @@ the parent with ``git archive <commit> mia_tpu_torch chip_smoke.py | tar -x -C
 
 With ``--ptxas`` it times nothing: it compiles each tree's
 ``csrc/upsample2x.cu`` with ``nvcc -Xptxas -v`` and prints every kernel's
-registers and spill and its ``HMMA.1688.F32.TF32`` count in the SASS
-(``cuobjdump``). Needs nvcc, not a GPU.
+registers and spill and its ``HMMA.1688.F32.TF32`` (3xTF32) and
+``HMMA.16816.F32.BF16`` (bfloat16) counts in the SASS (``cuobjdump``). Needs
+nvcc, not a GPU.
 
     python scripts/profile_torch_upsample2x.py [--tree DIR ...] [--ptxas] [--out DIR]
 """
@@ -60,9 +61,11 @@ def ptxas_report(trees) -> int:
                 m = re.match(r"\s+Function : (\S+)", line)
                 if m:
                     name = m.group(1)
-                    hmma[name] = 0
+                    hmma[name] = [0, 0]
                 elif name and "HMMA.1688.F32.TF32" in line:
-                    hmma[name] += 1
+                    hmma[name][0] += 1
+                elif name and "HMMA.16816.F32.BF16" in line:
+                    hmma[name][1] += 1
             print(f"{tree}: csrc/upsample2x.cu")
             name = ""
             for line in done.stderr.splitlines():
@@ -71,8 +74,9 @@ def ptxas_report(trees) -> int:
                     name = m.group(1)
                 elif "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                     short = name[max(name.find("conv_transpose2x"), 0):][:64]
+                    tf32, bf16 = hmma.get(name, (0, 0))
                     print(f"  {short}: {line.split(':', 1)[-1].strip()}; "
-                          f"HMMA.1688.F32.TF32 {hmma.get(name, 0)}", flush=True)
+                          f"HMMA.1688.F32.TF32 {tf32}, HMMA.16816.F32.BF16 {bf16}", flush=True)
     return 0
 
 

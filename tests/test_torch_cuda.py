@@ -1003,3 +1003,127 @@ def test_bf16_k9_and_k9b_match_plain(cuda, shape):
             assert (a - p).abs().max().item() <= 1e-4 * p.abs().max().item(), name
         else:
             _bf16_close(f"K9b {name}", a, p)
+
+
+# --- K10 / K10b in bfloat16: bfloat16 x, w, dy and outputs, a float32 bias and db ---
+
+
+def _bf16_one_ulp(label, got, want, min_equal=0.99):
+    """Every element within one bfloat16 ulp of the plain version's (the ulp
+    taken at no less than 2^-6 of max |plain|) and ``min_equal`` of them
+    bit-equal: both sum in float32 and round once, in another order."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, label
+    assert bool(torch.isfinite(got.float()).all()), label
+    mag = want.float().abs()
+    floor = max(mag.max().item() * 2.0 ** -6, 2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(floor))) - 7)
+    diff = (got.float() - want.float()).abs()
+    assert int((diff > ulp).sum()) == 0, (label, (diff / ulp).max().item())
+    assert (diff == 0).float().mean().item() >= min_equal, label
+
+
+def _bf16_stage_operands(shape, cuda, seed):
+    b, h, w, cin, cout = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, h, w, cin, generator=gen, device=cuda).to(torch.bfloat16)
+    wt = (torch.randn(2, 2, cin, cout, generator=gen, device=cuda) * cin ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(cout, generator=gen, device=cuda)
+    dy = torch.randn(b, 2 * h, 2 * w, cout, generator=gen, device=cuda).to(torch.bfloat16)
+    return x, wt, bias, dy
+
+
+def test_bf16_k10_and_k10b_match_plain_at_the_smoke_stages(cuda):
+    import chip_smoke
+    from mia_tpu_torch.ops import upsample2x as up
+
+    for label, shape, _ in chip_smoke.BF16_UPSAMPLE_STAGES:
+        x, wt, bias, dy = _bf16_stage_operands(shape, cuda, seed=15)
+        counts = (up.conv_transpose2x.launches, up.conv_transpose2x.bf16_launches,
+                  up.conv_transpose2x_fused_bwd.launches, up.conv_transpose2x_fused_bwd.bf16_launches)
+        got = up.conv_transpose2x(x, wt, bias)
+        first = up.conv_transpose2x_fused_bwd(x, wt, dy)
+        again = up.conv_transpose2x_fused_bwd(x, wt, dy)
+        only_dx = up.conv_transpose2x_fused_bwd(x, wt, dy, need_dw=False)
+        torch.cuda.synchronize()
+        # the bfloat16 instances, counted apart from the float32 ones
+        assert (up.conv_transpose2x.launches, up.conv_transpose2x.bf16_launches,
+                up.conv_transpose2x_fused_bwd.launches,
+                up.conv_transpose2x_fused_bwd.bf16_launches) == (
+            counts[0], counts[1] + 1, counts[2], counts[3] + 3), label
+        _bf16_one_ulp(f"K10 bf16 {label}", got, up.conv_transpose2x_plain_bf16(x, wt, bias))
+        dx, dw, db = up.conv_transpose2x_bwd_plain_bf16(x, wt, dy)
+        _bf16_one_ulp(f"K10b bf16 dx {label}", first[0], dx)
+        _bf16_one_ulp(f"K10b bf16 dw {label}", first[1], dw)
+        assert first[2].dtype == torch.float32
+        assert _rel_err(first[2], db) <= 1e-4, label
+        assert all(torch.equal(a, c) for a, c in zip(first, again)), label
+        assert only_dx[1] is None and only_dx[2] is None and torch.equal(only_dx[0], first[0])
+
+
+def test_bf16_k10_module_trains_through_k10b(cuda):
+    from mia_tpu_torch.models import EinsumConvTranspose2x
+    from mia_tpu_torch.ops import upsample2x as up
+
+    torch.manual_seed(16)
+    cpu = EinsumConvTranspose2x(64, 32, use_kernel="always", compute_dtype=torch.bfloat16)
+    card = EinsumConvTranspose2x(64, 32, use_kernel="always", compute_dtype=torch.bfloat16).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 20, 27, 64).to(torch.bfloat16)
+    g = torch.randn(3, 40, 54, 32).to(torch.bfloat16)
+    before = (up.conv_transpose2x.bf16_launches, up.conv_transpose2x_fused_bwd.bf16_launches)
+    outs = {}
+    for name, mod, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        xi = x.to(dev).requires_grad_()
+        y = mod(xi)
+        outs[name] = [t.cpu() for t in (y, *torch.autograd.grad(y, [xi, mod.weight, mod.bias],
+                                                                 g.to(dev)))]
+    assert (up.conv_transpose2x.bf16_launches, up.conv_transpose2x_fused_bwd.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    y, dx, dw, db = outs["card"]
+    want = outs["cpu"]
+    assert y.dtype == dx.dtype == torch.bfloat16 and dw.dtype == db.dtype == torch.float32
+    _bf16_one_ulp("module y", y, want[0])
+    _bf16_one_ulp("module dx", dx, want[1])
+    # the parameters are float32: their gradients are the bfloat16 ones widened
+    _bf16_one_ulp("module dw", dw.to(torch.bfloat16), want[2].to(torch.bfloat16))
+    _bf16_one_ulp("module db", db.to(torch.bfloat16), want[3].to(torch.bfloat16))
+
+
+def test_bf16_k10_rejects_what_it_does_not_take(cuda):
+    from mia_tpu_torch.ops import upsample2x as up
+
+    bf = torch.bfloat16
+    x, w = torch.rand(1, 4, 4, 16, device=cuda, dtype=bf), torch.rand(2, 2, 16, 8, device=cuda, dtype=bf)
+    b = torch.rand(8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        up.conv_transpose2x(torch.rand(1, 4, 4, 12, device=cuda, dtype=bf),
+                            torch.rand(2, 2, 12, 8, device=cuda, dtype=bf), b)
+    with pytest.raises(ValueError, match="w must be"):
+        up.conv_transpose2x(x, w.float(), b)
+    with pytest.raises(ValueError, match="b must be"):
+        up.conv_transpose2x(x, w, b.to(bf))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        up.conv_transpose2x(torch.rand(65, device=cuda, dtype=bf)[1:].view(1, 2, 2, 16), w, b)
+
+
+def test_bf16_k10_stages_take_the_route_the_dispatch_rule_names(cuda):
+    import chip_smoke
+    from mia_tpu_torch.ops import upsample2x as up
+
+    def expected(shape):
+        b, h, w, cin, cout = shape
+        pixels = b * h * w
+        out = {}
+        for p in up.PRODUCTS:
+            m, n, k = {"forward": (pixels, 4 * cout, cin), "dx": (pixels, cin, 4 * cout),
+                       "dw": (cin, 4 * cout, pixels)}[p]
+            tc = 2 * m * n * k >= 20 * 2 * (m * k + k * n + m * n)  # bfloat16: 2 bytes an element
+            out[p] = "tensor cores" if tc else "cuda cores"
+        return out
+
+    taken = {label: up.k10_routes(shape[:4], shape[4], torch.bfloat16)
+             for label, shape, _ in chip_smoke.BF16_UPSAMPLE_STAGES}
+    assert taken == {label: expected(shape) for label, shape, _ in chip_smoke.BF16_UPSAMPLE_STAGES}
+    assert set(taken["prompt-large 3"].values()) == {"tensor cores"}
+    assert set(taken["prompt-large 4"].values()) == {"cuda cores"}
