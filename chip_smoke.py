@@ -123,7 +123,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    and entropy (confidence, margin, coreset-l2/-cosine, kmean-l2/-cosine,
    badge) picks 8 cases on the card (timed, sweep included, with the TF32
    convolutions) and, with float32 convolutions, against the CPU: the same
-   ids unless the closest decision lies within 1e-4 of a tie (printed);
+   ids, or, where they part near a tie (the closest decision printed), the
+   CPU's selection code on the card's own kept scores picks the card's ids;
    confidence and margin scores, ``enc_feature`` and the BADGE embeddings
    within 1e-4 of max |value|; ``kcenter_greedy`` on one distance matrix and
    the k-means++ core on the same draws pick the same on both devices. Then
@@ -352,6 +353,10 @@ KERNELS = {
     "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
              "mia_tpu/ops/upsample2x.py:137"),
 }
+# the bfloat16 entries whose kernel lives elsewhere than the float32 one's: K3b and K6b in
+# bfloat16 at head dim 64 run the warpgroup (wgmma) instance
+BF16_SOURCES = {"K3b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh",
+                "K6b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh"}
 # kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16, through every
 # route of the encoder, and the upscalers and the UNet decoder on K10); the JSON line gives each
 # a ``bf16`` entry with its own launches, times and bounds
@@ -624,15 +629,31 @@ def sdpa_ms(torch, q, k, v, bias, scale, per_block):
     return time_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale), torch, per_block=per_block)
 
 
-def sdpa_backward_ms(torch, q, k, v, bias, scale, g, per_block):
+def sdpa_backward_call(torch, q, k, v, bias, scale, g):
     """Autograd through one ``scaled_dot_product_attention`` call (dq, dk, dv
-    and the bias gradient) for the cotangent ``g``; the forward is outside
-    the timed call."""
+    and the bias gradient) for the cotangent ``g``, as a function of no
+    arguments; the forward runs here, outside the call."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
                                                            scale=scale)
-    return time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), torch,
-                   per_block=per_block)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def sdpa_backward_ms(torch, q, k, v, bias, scale, g, per_block):
+    """The CUDA-event time of ``sdpa_backward_call``'s call."""
+    return time_ms(sdpa_backward_call(torch, q, k, v, bias, scale, g), torch, per_block=per_block)
+
+
+def library_turns_ms(torch, name, kernel, library, per_block):
+    """A kernel and its library call, each timed by ``queued_ms``, in turns
+    (library, kernel, kernel, library); prints both pairs and returns the
+    lesser of each: (kernel ms, library ms)."""
+    lib_a = queued_ms(torch, library, per_block)
+    k_a, k_b = queued_ms(torch, kernel, per_block), queued_ms(torch, kernel, per_block)
+    lib_b = queued_ms(torch, library, per_block)
+    print(f"{name}: queued device time in turns with the library call: kernel {k_a * 1e3:.2f} / "
+          f"{k_b * 1e3:.2f} us, library {lib_a * 1e3:.2f} / {lib_b * 1e3:.2f} us")
+    return min(k_a, k_b), min(lib_a, lib_b)
 
 
 # ---------------------------------------------------------------------------
@@ -1469,35 +1490,45 @@ def with_label_maps(torch, fn, maps, device):
 
 
 class CachedScorer:
-    """The CPU's ``ModelScorer`` with each image's outputs kept: the holds
-    and the seven selectors ask it for the same images again and again (an
+    """A ``ModelScorer`` with each image's outputs kept: the holds and the
+    seven selectors ask the CPU's for the same images again and again (an
     image's probabilities, bottleneck features and BADGE embedding do not
-    depend on the other images of its batch)."""
+    depend on the other images of its batch); the card's keeps what one
+    selection computed, for ``replay_on_cpu``."""
 
     def __init__(self, torch, scorer):
         self.torch, self.scorer, self.device, self.cache = torch, scorer, scorer.device, {}
 
-    def _rows(self, name, fn, images):
+    def _rows(self, method, images):
         import hashlib
 
-        keys = [(name, hashlib.blake2b(img.numpy().tobytes(), digest_size=16).digest())
+        keys = [(method, hashlib.blake2b(img.numpy().tobytes(), digest_size=16).digest())
                 for img in images.cpu()]
         missing = [i for i, k in enumerate(keys) if k not in self.cache]
         if missing:
-            for i, row in zip(missing, fn(images[missing])):
+            check(self.scorer is not None, f"replay: no kept {method} for {len(missing)} images")
+            for i, row in zip(missing, getattr(self.scorer, method)(images[missing])):
                 self.cache[keys[i]] = row
         return self.torch.stack([self.cache[k] for k in keys])
+
+    def replay_on_cpu(self):
+        """A scorer on the CPU that answers from the outputs kept here, moved
+        to the CPU, and computes nothing."""
+        replay = CachedScorer.__new__(CachedScorer)
+        replay.torch, replay.scorer, replay.device = self.torch, None, self.torch.device("cpu")
+        replay.cache = {k: v.cpu() for k, v in self.cache.items()}
+        return replay
 
     def uncertainty(self, images, kind):
         from mia_tpu_torch.activelearning.scorers import _SCORES
 
-        return _SCORES[kind](self._rows("probs", self.scorer.probs, images))
+        return _SCORES[kind](self._rows("probs", images))
 
     def enc_feature(self, images):
-        return self._rows("enc", self.scorer.enc_feature, images)
+        return self._rows("enc_feature", images)
 
     def badge_grad_embedding(self, images):
-        return self._rows("badge", self.scorer.badge_grad_embedding, images)
+        return self._rows("badge_grad_embedding", images)
 
 
 def kcenter_margin(torch, dist, n_core, budget, criteria="min"):
@@ -1795,19 +1826,28 @@ def selector_phase(torch, device, workdir: Path, sl):
         selector.select_next_batch(active, budget, card, seed=seed)
         torch.cuda.synchronize()
         select_ms[key] = (time.perf_counter() - t0) * 1e3
+        kept = CachedScorer(torch, card)
         try:
             torch.backends.cudnn.allow_tf32 = False
-            got = selector.select_next_batch(active, budget, card, seed=seed)
+            got = selector.select_next_batch(active, budget, kept, seed=seed)
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         want = selector.select_next_batch(active, budget, host, seed=seed)
         check(len(set(got)) == len(got) == budget and set(got) <= set(pool.image_idx),
               f"{key}: picked {got} from the pool of {len(pool)}")
         if got != want:
+            # the scores are held to the CPU's in (b), where float32 sums leave
+            # them up to SELECT_TOL of max |value| apart; squared distances
+            # between close embeddings move by more than that, so the picks
+            # may part near a tie. What the card adds to its scores must then
+            # be nothing: the CPU's selection code on the card's own scores
+            # picks what the card picked.
+            again = selector.select_next_batch(active, budget, kept.replay_on_cpu(), seed=seed)
             margin = decision_margin(torch, key, active, host, budget, seed)
-            check(margin <= SELECT_TOL, f"{key}: card picked {got}, CPU {want}, though the "
-                  f"closest decision is {margin:.3g} from a tie")
-            differ.append(f"{key} (closest decision {margin:.3g} from a tie)")
+            check(again == got, f"{key}: card picked {got}, CPU {want}, the CPU on the card's "
+                  f"scores {again} (closest decision {margin:.3g} from a tie)")
+            differ.append(f"{key} (closest decision {margin:.3g} from a tie; the CPU's "
+                          f"selection on the card's scores picks what the card picked)")
     check(warp.affine_warp_shift2pass_fused.launches == 0, "selection launched K1")
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2837,10 +2877,13 @@ def bf16_train_kernel_phase(torch, device):
     off and on), a 20x27 global grid and head dim 80: through the wrappers
     the trainer calls, every output within ``BF16_TOL`` of max |plain| of
     the plain bfloat16 VJP on the same inputs (the kernel's own forward's
-    output and log-sum-exp), two launches bit-identical; event and device
+    output and log-sum-exp), two launches bit-identical (K3b also on 14x14
+    windows: its warpgroup instance's 96-column fold); event and device
     times beside the plain version, the library call (autograd through one
     bfloat16 ``scaled_dot_product_attention`` with the dense bias) and the
-    bound at 989 TFLOP/s bfloat16 or 3.35 TB/s."""
+    bound at 989 TFLOP/s bfloat16 or 3.35 TB/s. K3b's warpgroup instance is
+    timed by ``queued_ms`` in turns with the library call, which gives its
+    ``ms``, ``device_ms`` and ``library_ms``."""
     from mia_tpu_torch.ops import attention, ln_window
 
     bf = torch.bfloat16
@@ -2916,6 +2959,7 @@ def bf16_train_kernel_phase(torch, device):
     timed["K2b"] = k2b_case("B=12", 12 * 9, heads, d)
     k2b_case("head dim 80", 9, 16, 80)
     timed["K3b"] = k3b_case("B=12", 12, (side, side), heads, d)
+    k3b_case("windows 14x14", 12 * 9, (ws, ws), heads, d)
     k3b_case("grid 20x27", 2, (20, 27), heads, d)
     k3b_case("head dim 80", 1, (side, side), 16, 80)
     for name, (err, rel, equal) in worst.items():
@@ -2939,9 +2983,13 @@ def bf16_train_kernel_phase(torch, device):
             rel_h, rel_w = rel_a, rel_b
             moved = [qkv, rel_a, rel_b, o, g, qkv, rel_a, rel_b]
         g4 = g.view(b, n, n_heads, d).transpose(1, 2).contiguous()
-        lib = sdpa_backward_ms(torch, *head_major(qkv, n_heads),
-                               dense_bias(rel_h, rel_w, b, n_heads), sc, g4, 10)
-        return {"library_ms": lib, **bf16_bound(moved, flops)}
+        lib = sdpa_backward_call(torch, *head_major(qkv, n_heads),
+                                 dense_bias(rel_h, rel_w, b, n_heads), sc, g4)
+        if name in BF16_SOURCES:  # the warpgroup instance: both queued, in turns
+            ms, lib_ms = library_turns_ms(torch, f"{name} bf16 at ViT-B/512 training B=12",
+                                          lambda: fns[name][0](*args), lib, 5)
+            return {"ms": ms, "device_ms": ms, "library_ms": lib_ms, **bf16_bound(moved, flops)}
+        return {"library_ms": time_ms(lib, torch, per_block=10), **bf16_bound(moved, flops)}
 
     fns = {"K2b": (attention.fused_attention_rel_packed_ik_bwd,
                    attention.attention_rel_packed_ik_bwd_bf16),
@@ -2952,10 +3000,13 @@ def bf16_train_kernel_phase(torch, device):
         args = timed[name]
         (k_a, k_b), (plain_a, plain_b) = turns_ms(torch, lambda: kernel(*args),
                                                   lambda: plain(*args), 10)
-        m = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
-             "device_ms": device_ms(torch, lambda: kernel(*args), per_block=10)[0], **yardsticks(name, args)}
+        m = {"max_abs_err": worst[name][0], "ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b)}
+        if name not in BF16_SOURCES:
+            m["device_ms"] = device_ms(torch, lambda: kernel(*args), per_block=10)[0]
+        m.update(yardsticks(name, args))
         print(f"{name} bf16 at ViT-B/512 training B=12: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us "
-              f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it), plain "
+              f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it; 'ms' "
+              f"{m['ms'] * 1e3:.2f} us), plain "
               f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us; {describe_yardsticks(m)}")
         out[name] = m
     return out
@@ -2980,7 +3031,9 @@ def bf16_route_kernel_phase(torch, device):
     times beside the plain version, the bound at 989 TFLOP/s bfloat16 (K9,
     K9b: 67 TFLOP/s float32) or 3.35 TB/s, and the library call: one
     bfloat16 ``scaled_dot_product_attention`` with the dense bias (autograd
-    through it for the backward kernels), none for K9 and K9b."""
+    through it for the backward kernels), none for K9 and K9b. K6b (its
+    warpgroup instance at head dim 64; a 20x27 grid too) is timed by
+    ``queued_ms`` in turns with the library call."""
     from mia_tpu_torch.ops import attention
     from mia_tpu_torch.ops import unpartition_residual as upr
     from mia_tpu_torch.ops.ln_window import window_partition
@@ -3053,7 +3106,8 @@ def bf16_route_kernel_phase(torch, device):
         timed[("K6", label)], timed[("K7", label)] = args, args7
     # K6b at training batch 12 on K6's own output and log-sum-exp
     for label, bh, d, k_hw in (("B=12 windows", 1296, 64, (14, 14)),
-                               ("B=12 global", 144, 64, (32, 32)), ("head dim 80", 144, 80, (14, 14))):
+                               ("B=12 global", 144, 64, (32, 32)), ("grid 20x27", 24, 64, (20, 27)),
+                               ("head dim 80", 144, 80, (14, 14))):
         n = k_hw[0] * k_hw[1]
         fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
                randn(bh, n, k_hw[1]))
@@ -3163,8 +3217,11 @@ def bf16_route_kernel_phase(torch, device):
         if name == "K6":
             return {"library_ms": sdpa_ms(torch, q[None], k[None], v[None], bias, args[5], 10),
                     **bf16_bound([q, k, v, rel_h, rel_w, q], attention_flops(bh, n, n, d))}
-        return {"library_ms": sdpa_backward_ms(torch, q[None], k[None], v[None], bias, args[8],
-                                               args[6][None], 5),
+        # K6b: the warpgroup instance, both queued, in turns
+        ms, lib_ms = library_turns_ms(
+            torch, f"K6b bf16 ({bh}, {n}, {d})", lambda: attention._launch_k6_bwd(*args),
+            sdpa_backward_call(torch, q[None], k[None], v[None], bias, args[8], args[6][None]), 5)
+        return {"ms": ms, "device_ms": ms, "library_ms": lib_ms,
                 **bf16_bound([q, k, v, rel_h, rel_w, args[5], args[6], q, k, v, rel_h, rel_w],
                              attention_flops(bh, n, n, d, backward=True))}
 
@@ -3187,11 +3244,13 @@ def bf16_route_kernel_phase(torch, device):
             (k_a, k_b), (plain_a, plain_b) = turns_ms(
                 torch, lambda: kernel(*args), lambda: plain(*args), per_block,
                 2 if name.endswith("b") else None)
-            m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b),
-                 "device_ms": device_ms(torch, lambda: kernel(*args), per_block=per_block)[0],
-                 **yardsticks(name, args)}
+            m = {"ms": min(k_a, k_b), "plain_ms": min(plain_a, plain_b)}
+            if name not in BF16_SOURCES:
+                m["device_ms"] = device_ms(torch, lambda: kernel(*args), per_block=per_block)[0]
+            m.update(yardsticks(name, args))
             print(f"{name} bf16 at ViT-B/512 {label}: kernel {k_a * 1e3:.2f} / {k_b * 1e3:.2f} us "
-                  f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it), plain "
+                  f"(device {m['device_ms'] * 1e3:.2f} us a call, every kernel of it; 'ms' "
+                  f"{m['ms'] * 1e3:.2f} us), plain "
                   f"{plain_a * 1e3:.2f} / {plain_b * 1e3:.2f} us; {describe_yardsticks(m)}")
             if label in ("B=1 global", "B=12 global"):  # the same kernel at the global blocks' shape
                 out[name]["global_tokens"] = m
@@ -6276,7 +6335,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA GPU is required",
               file=sys.stderr)
         return 2
-    missing = [src for _, src, _ in KERNELS.values() if not (HERE / src).is_file()]
+    missing = [src for src in {*(src for _, src, _ in KERNELS.values()), *BF16_SOURCES.values()}
+               if not (HERE / src).is_file()]
     if missing:
         print(f"chip_smoke: {missing} not found next to this script; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -6379,6 +6439,7 @@ def main(argv=None) -> int:
     bf16_paths = (bf16_sam, bf16_cpc, bf16_routes, bf16_route_train, bf16_k10_serving,
                   {"launches": bf16_al["bf16_launches"]})
     bf16 = {k: {"launches": sum(path["launches"].get(k, 0) for path in bf16_paths),
+                **({"source": BF16_SOURCES[k]} if k in BF16_SOURCES else {}),
                 **measured["bf16"][k]} for k in BF16_KERNELS}
     for k, entry in bf16.items():
         check(entry["launches"] > 0, f"{k} in bfloat16 was launched on no path")

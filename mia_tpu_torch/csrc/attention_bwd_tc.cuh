@@ -803,7 +803,9 @@ int dispatch_tc_bwd(const BwdArgs& a, int batch, int d, void* stream) {
 // mia_tpu/ops/attention.py): K3b (kTables false) and K2b (kTables true,
 // between kernel R's and kernel Q's bfloat16 instances in attention_rel.cu)
 // on bfloat16 packed qkv, rel terms, out, g and dqkv; K6b on head-major
-// strides (C entry beside K3b's, as for float32); K8b (kWindow) on windows
+// strides (C entry beside K3b's, as for float32) — K3b and K6b only at head
+// dim 80 or kh + kw > 64: at head dim 64 they run the warpgroup kernels of
+// attention_bwd_wgmma.cuh; K8b (kWindow) on windows
 // carved from the bfloat16 qkv grid by the slot map, dbias_kv from float32
 // partials (attention_routes.cu). The two passes, blocks, warps, stages and
 // sub-tiles of the float32 template above, with one bfloat16

@@ -50,17 +50,27 @@
 // run the bfloat16 instance of the forward (bfloat16 mma.sync, described in
 // attention_fwd_tc.cuh) for a bfloat16 encoder; K2's terms come from kernel
 // R's bfloat16 instance. Their backward, mia_attention_rel_packed_bwd_bf16
-// and mia_attention_rel_packed_ik_bwd_bf16, runs the bfloat16 instance of
-// the backward template (attention_bwd_tc.cuh) and, for K2b, the bfloat16
-// instances of kernels R, Q and C below. mia_attention_rel_bf16 and
-// mia_attention_rel_bwd_bf16 (K6, K6b) run K3's and K3b's bfloat16
-// instances on head-major strides.
+// and mia_attention_rel_packed_ik_bwd_bf16, runs K3b's warpgroup instance
+// (attention_bwd_wgmma.cuh: wgmma and TMA, the rel terms folded into the
+// products; head dim 64, kh + kw <= 64) or else the bfloat16 instance of
+// the backward template (attention_bwd_tc.cuh: head dim 80, larger grids,
+// and K2b always) and, for K2b, the bfloat16 instances of kernels R, Q and C
+// below. mia_attention_rel_bf16 and mia_attention_rel_bwd_bf16 (K6, K6b) run
+// K3's and K3b's bfloat16 instances on head-major strides.
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
+
+// attention_bwd_wgmma.cu: K3b's and K6b's bfloat16 backward on warpgroup products
+extern "C" int mia_attention_rel_bwd_wgmma_takes(int d, int kh, int kw);
+extern "C" int mia_attention_rel_bwd_wgmma_bf16(
+    const void* q, const void* k, const void* v, const void* rel_h, const void* rel_w,
+    const void* out, const void* g, const void* lse, void* dq, void* dk, void* dv, void* delta,
+    void* drel_h, void* drel_w, long long in_stride, long long out_stride, int batch, int n,
+    int heads, int kh, int kw, float scale, void* stream);
 
 namespace {
 
@@ -434,7 +444,14 @@ int dispatch_bwd_bf16_entry(const void* qkv, const void* rel_a, const void* rel_
   a.kh = kh;
   a.kw = kw;
   a.scale = scale;
-  if (!kTables) return dispatch_bwd_bf16<false>(a, batch, d, s);
+  if (!kTables) {
+    if (mia_attention_rel_bwd_wgmma_takes(d, kh, kw))
+      return mia_attention_rel_bwd_wgmma_bf16(a.q, a.k, a.v, a.rel_a, a.rel_b, a.out, a.g, a.lse,
+                                              a.dq, a.dk, a.dv, a.delta, a.drel_a, a.drel_b,
+                                              a.in_stride, a.out_stride, batch, n, heads, kh, kw,
+                                              scale, stream);
+    return dispatch_bwd_bf16<false>(a, batch, d, s);
+  }
   int err = dispatch_rel_gather(
       false, RelGather<bf16>{base, nullptr, tab_h, tab_w, terms, pairs, n, heads, kh, kw}, d, s);
   if (err == 0) err = dispatch_bwd_bf16<true>(a, batch, d, s);
@@ -669,5 +686,8 @@ extern "C" int mia_attention_rel_bwd_bf16(const void* q, const void* k, const vo
   a.kh = kh;
   a.kw = kw;
   a.scale = scale;
+  if (mia_attention_rel_bwd_wgmma_takes(d, kh, kw))
+    return mia_attention_rel_bwd_wgmma_bf16(q, k, v, rel_h, rel_w, out, g, lse, dq, dk, dv, delta,
+                                            drel_h, drel_w, d, d, bh, n, 1, kh, kw, scale, stream);
   return dispatch_bwd_bf16<false>(a, bh, d, static_cast<cudaStream_t>(stream));
 }

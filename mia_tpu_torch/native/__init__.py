@@ -23,6 +23,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +32,34 @@ _ROOT = Path(__file__).resolve().parents[2]
 _SRC = _ROOT / "native" / "mia_host.cpp"
 _BUILD_DIR = _ROOT / "build" / "mia_tpu_torch"
 _CMD = ("g++", "-O3", "-fPIC", "-shared", "{src}", "-o", "{out}", "-lpng", "-ljpeg", "-lpthread")
+
+
+def _build(path: Path) -> str | None:
+    """Compile the library to ``path``; None on success, else why not.
+
+    Each build compiles into a temporary file of its own (``mkstemp``,
+    unique whatever the process ids of concurrent builds, which repeat
+    across pid namespaces) and publishes it with ``os.replace``. A build
+    that finds ``path`` already there when it is done keeps that one.
+    """
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, name = tempfile.mkstemp(dir=_BUILD_DIR, prefix=f"{path.stem}.", suffix=".tmp")
+    os.close(fd)
+    tmp = Path(name)
+    cmd = [a.format(src=_SRC, out=tmp) for a in _CMD]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
+        if not path.is_file():
+            os.replace(tmp, path)
+    except subprocess.CalledProcessError as e:
+        errors = [ln for ln in e.stderr.splitlines() if "error" in ln]
+        return f"g++ failed: {(errors or ['exit %d' % e.returncode])[0].strip()}"
+    except (OSError, subprocess.SubprocessError) as e:
+        if not path.is_file():
+            return f"g++ failed: {e}"
+    finally:
+        tmp.unlink(missing_ok=True)
+    return None
 
 
 @functools.lru_cache(maxsize=1)
@@ -42,19 +71,9 @@ def _load() -> tuple[ctypes.CDLL | None, str | None]:
     digest = hashlib.sha1(_SRC.read_bytes() + " ".join(_CMD).encode()).hexdigest()[:16]
     path = _BUILD_DIR / f"libmia_host_{digest}.so"
     if not path.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [a.format(src=_SRC, out=tmp) for a in _CMD]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
-        except subprocess.CalledProcessError as e:
-            tmp.unlink(missing_ok=True)
-            errors = [ln for ln in e.stderr.splitlines() if "error" in ln]
-            return None, f"g++ failed: {(errors or ['exit %d' % e.returncode])[0].strip()}"
-        except (OSError, subprocess.SubprocessError) as e:
-            tmp.unlink(missing_ok=True)
-            return None, f"g++ failed: {e}"
-        os.replace(tmp, path)
+        reason = _build(path)
+        if reason is not None:
+            return None, reason
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:  # e.g. built on another machine against a missing libpng

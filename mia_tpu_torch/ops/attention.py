@@ -11,7 +11,10 @@ where the Pallas kernels round (:func:`_softmax_probs_bf16`; K7:
 :func:`attention_rel_bwd_bf16`, :func:`attention_rel_win_bwd_bf16`; K7's
 plain VJP widens to float32, as its JAX ``_bwd``); their bfloat16 CUDA
 instances (K2·bf16-K8·bf16, K2b·bf16, K3b·bf16, K6b·bf16, K8b·bf16) run on
-bfloat16 ``mma.sync``, and each wrapper counts them in ``bf16_launches``.
+bfloat16 ``mma.sync`` — but K3b·bf16 and K6b·bf16 at head dim 64 with
+``k_h + k_w <= 64``, which run warpgroup products (``wgmma``, TMA) with the rel
+terms folded in (``csrc/attention_bwd_wgmma.cuh``) — and each wrapper counts
+them in ``bf16_launches``.
 
 Packed layout (K2, K3): ``qkv`` is the qkv Linear's output ``(B', N, 3·H·D)``
 in ``(3, heads, head_dim)`` order; the context comes back as ``(B', N, H·D)``,

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -70,18 +71,23 @@ def _run_all(cmds: list[list[str]]) -> None:
 
 
 def _build(out: Path) -> None:
+    """Compile and link into ``out``. The objects and the library are made
+    in a directory of this build's own (``mkdtemp``: unique whatever the
+    process ids of concurrent builds, which repeat across pid namespaces),
+    then published with ``os.replace``; a build that finds ``out`` already
+    there when it is done keeps that one."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    stem = out.with_suffix(f".{os.getpid()}")
-    objs = [Path(f"{stem}.{src.stem}.o") for src in _sources()]
-    tmp = Path(f"{stem}.tmp")
+    work = Path(tempfile.mkdtemp(dir=out.parent, prefix=f"{out.stem}."))
+    objs = [work / f"{src.stem}.o" for src in _sources()]
+    tmp = work / out.name
     try:
         _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                   for src, obj in zip(_sources(), objs)])
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
-        os.replace(tmp, out)
+        if not out.is_file():
+            os.replace(tmp, out)
     finally:
-        for path in (*objs, tmp):
-            path.unlink(missing_ok=True)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load_library() -> ctypes.CDLL:

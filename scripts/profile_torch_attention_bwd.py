@@ -39,6 +39,16 @@ the library call on the partitioned windows; with ``--kernels`` the device
 kernels of K3, K2, K7, K6 and K8 at B=1 and B=12 and of the library call at
 B=1.
 
+With ``--bwd-bf16`` it times the bfloat16 backward that K3b and K6b share
+at head dim 64 (``csrc/attention_bwd_wgmma.cuh``): K3b (global, packed qkv
+``(12, 1024, 2304)``), K6b global ``(144, 1024, 64)`` and K6b windows
+``(1296, 196, 64)``, each beside the library call on the same bfloat16
+operands (autograd through ``scaled_dot_product_attention`` with the dense
+bias) in turns, with their largest errors against the plain bfloat16 VJPs and
+a digest of their outputs (equal digests across trees mean bit-identical
+kernels: the bfloat16 forward that makes out and lse is the same in both);
+with ``--kernels`` the device kernels of each (pass A and pass B apart).
+
 With ``--bf16`` alone it times the bfloat16 instances of the other routes'
 attention kernels instead: K6 and K7 (windows and global tokens) and K8 at
 B=1, K6b (windows and global) and K8b at training batch 12, with
@@ -54,7 +64,7 @@ key grids 32x32, 20x27, 64x64 and 28x36 (whose rel rows of 32 and 64 floats
 put the eight query rows of a warp's fragment in one shared-memory bank).
 
     python scripts/profile_torch_attention_bwd.py [--tree DIR] [--tree DIR2 ...] [--kernels]
-        [--forward [--bf16] | --bf16 | --sass]
+        [--forward [--bf16] | --bf16 | --bwd-bf16 | --sass]
 
 Several ``--tree`` arguments run in the given order, one process each
 (parent, change, change, parent is the order that shows a drift of the card).
@@ -185,6 +195,7 @@ def sass_report(trees) -> None:
                     print(f"  {name}: {regs} registers, {spill} bytes spill, "
                           f"{sum('HMMA.1688.F32.TF32' in x for x in body)} HMMA.1688.F32.TF32, "
                           f"{sum('HMMA.16816.F32.BF16' in x for x in body)} HMMA.16816.F32.BF16, "
+                          f"{sum('HGMMA' in x for x in body)} HGMMA, "
                           f"{sum('ATOM' in x for x in body)} ATOM, "
                           f"{sum(('LDL' in x or 'STL' in x) for x in body)} LDL/STL; {same}")
                     if same == "SASS differs from the first tree":  # where it starts to differ
@@ -513,6 +524,68 @@ def bench_bf16_routes(tree: str, kernels: bool = False) -> None:
             kernel_table(torch, f"{tree}: {name}", fn)
 
 
+def bench_bwd_bf16(tree: str, kernels: bool = False) -> None:
+    """The bfloat16 K3b and K6b at head dim 64 (global and windows, batch
+    12) beside the library call, with errors, digests and, with ``kernels``,
+    the device kernels of each."""
+    import torch
+
+    sys.path.insert(0, tree)
+    from mia_tpu_torch.ops import attention
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    heads, d, ws, side, b = 12, 64, 14, 32, 12
+    scale = d ** -0.5
+    calls, digests = {}, {}
+    qkv = randn(b, side * side, 3 * heads * d)
+    rel_h, rel_w = randn(b * heads, side * side, side), randn(b * heads, side * side, side)
+    out, lse = attention._launch_k3(qkv, rel_h, rel_w, scale, (side, side), heads, with_lse=True)
+    g = randn(b, side * side, heads * d)
+    k3b = functools.partial(attention._launch_k3_bwd, qkv, rel_h, rel_w, out, g, lse, scale,
+                            (side, side), heads)
+    want = attention.attention_rel_packed_bwd_bf16(qkv, rel_h, rel_w, out, g, lse, scale,
+                                                   (side, side), heads)
+    err = max(float((a.float() - w.float()).abs().max() / w.float().abs().max())
+              for a, w in zip(k3b(), want))
+    print(f"{tree}: K3b bf16 global within {err:.3g} of max |plain|")
+    calls["K3b bf16 global"] = k3b
+    calls["library at K3b global"] = library_backward(torch, qkv, rel_h, rel_w, scale, heads, g)
+    for shape, bh, k_hw in (("global", b * heads, (side, side)), ("windows", b * 9 * heads,
+                                                                   (ws, ws))):
+        n = k_hw[0] * k_hw[1]
+        fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+               randn(bh, n, k_hw[1]))
+        out6, lse6 = attention._launch_k6(*fwd, scale, k_hw, with_lse=True)
+        g6 = randn(bh, n, d)
+        fn = functools.partial(attention._launch_k6_bwd, *fwd, out6, g6, lse6, scale, k_hw)
+        want = attention.attention_rel_bwd_bf16(*fwd, out6, g6, lse6, scale, k_hw)
+        err = max(float((a.float() - w.float()).abs().max() / w.float().abs().max())
+                  for a, w in zip(fn(), want))
+        print(f"{tree}: K6b bf16 {shape} ({bh}, {n}, {d}) within {err:.3g} of max |plain|")
+        calls[f"K6b bf16 {shape}"] = fn
+        # the library call on the same operands, one head a batch element
+        qkv6 = torch.stack(fwd[:3], 2).reshape(bh, n, 3 * d)
+        calls[f"library at K6b {shape}"] = library_backward(torch, qkv6, fwd[3], fwd[4], scale, 1,
+                                                            g6)
+    for name in ("K3b bf16 global", "K6b bf16 global", "K6b bf16 windows"):
+        digests[name] = hashlib.sha1(b"".join(t.view(torch.int16).cpu().numpy().tobytes()
+                                              for t in calls[name]())).hexdigest()[:16]
+    print(f"{tree}: digests " + ", ".join(f"{k} {v}" for k, v in digests.items()))
+    for _ in range(2):
+        print(f"{tree}: " + ", ".join(f"{name} {time_ms(torch, fn, per_block=5):.4f} ms"
+                                      for name, fn in calls.items()), flush=True)
+    if kernels:
+        for name, fn in calls.items():
+            kernel_table(torch, f"{tree}: {name}", fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", help="root of a tree that holds mia_tpu_torch/")
@@ -523,6 +596,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16", action="store_true",
                     help="with --forward: the bfloat16 instances of K3 and K2; alone: those of "
                          "K6, K7, K8, K6b and K8b")
+    ap.add_argument("--bwd-bf16", action="store_true",
+                    help="time the bfloat16 K3b and K6b beside the library call instead")
     ap.add_argument("--sass", action="store_true",
                     help="compile each tree's attention_rel.cu and attention_routes.cu and "
                          "compare registers and SASS")
@@ -533,7 +608,8 @@ def main(argv=None) -> int:
         return 0
     if args.one:
         run = (bench_forward_bf16 if args.forward and args.bf16 else bench_forward if args.forward
-               else bench_bf16_routes if args.bf16 else bench)
+               else bench_bwd_bf16 if args.bwd_bf16 else bench_bf16_routes if args.bf16
+               else bench)
         run(args.one, args.kernels)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -543,7 +619,8 @@ def main(argv=None) -> int:
         subprocess.run([sys.executable, __file__, "--one", tree]
                        + (["--kernels"] if args.kernels else [])
                        + (["--forward"] if args.forward else [])
-                       + (["--bf16"] if args.bf16 else []), check=True)
+                       + (["--bf16"] if args.bf16 else [])
+                       + (["--bwd-bf16"] if args.bwd_bf16 else []), check=True)
     return 0
 
 

@@ -68,8 +68,10 @@ GROUPS = (  # (label, substrings of the kernel name), first match wins
                                "attention_bwd_bf16_dkv_kernel<64, true")),
     ("K8 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, false, true",
                                "attention_bwd_bf16_dkv_kernel<64, false, true")),
+    # K3b (and K6b) in bfloat16 at head dim 64: the warpgroup kernels of attention_bwd_wgmma.cuh
     ("K3 backward, bfloat16", ("attention_bwd_bf16_dq_kernel<64, false, false",
-                               "attention_bwd_bf16_dkv_kernel<64, false, false")),
+                               "attention_bwd_bf16_dkv_kernel<64, false, false",
+                               "attention_bwd_wgmma_")),
     ("K4 backward", ("ln_window_partition_bwd_kernel", "ln_window_partition_params")),
     ("K4 forward", ("ln_window_partition_kernel",)),
     ("K9 backward", ("unpartition_add_ln_bwd_kernel", "unpartition_add_ln_params")),

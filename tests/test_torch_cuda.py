@@ -884,9 +884,39 @@ def test_residual_unet_strided_skip_on_the_card_matches_the_cpu(cuda):
     want = cpu_model(x)
     want.square().mean().backward()
     assert (got.detach().cpu() - want.detach()).abs().max() <= 1e-5 * want.abs().max()
+    # A conv bias that feeds a norm has a true gradient of zero: both sides are
+    # float noise, held against the model's largest gradient, not their own.
+    norm_fed = _norm_fed_biases(cpu_model)
+    assert "encoder.levels.0.0.all.0.bias" in norm_fed
+    largest = max(p.grad.abs().max().item() for p in cpu_model.parameters())
     for (name, p), q in zip(cpu_model.named_parameters(), card_model.parameters()):
+        if name in norm_fed:
+            assert q.grad.abs().max() <= 1e-4 * largest, name
+            assert p.grad.abs().max() <= 1e-4 * largest, name
+            continue
         scale = max(p.grad.abs().max().item(), 1e-12)
         assert (q.grad.cpu() - p.grad).abs().max() <= 1e-4 * scale, name
+
+
+def _norm_fed_biases(model):
+    """Names of the conv biases whose output goes (through dropout only) into a norm."""
+    from torch import nn
+
+    from mia_tpu_torch.models.unet import ChannelDropout
+
+    norms = (nn.modules.batchnorm._BatchNorm, nn.modules.instancenorm._InstanceNorm)
+    found = set()
+    for prefix, module in model.named_modules():
+        if not isinstance(module, (nn.ModuleList, nn.Sequential)):
+            continue
+        children = list(module)
+        for i, child in enumerate(children):
+            if not isinstance(child, nn.modules.conv._ConvNd) or child.bias is None:
+                continue
+            rest = [c for c in children[i + 1:] if not isinstance(c, (ChannelDropout, nn.Dropout))]
+            if rest and isinstance(rest[0], norms):
+                found.add(f"{prefix}.{i}.bias")
+    return found
 
 
 # --- the bfloat16 instances of the encoder's other routes: K6/K6b, K7, K8/K8b, K9/K9b ---
@@ -930,6 +960,133 @@ def test_bf16_k6_and_k6b_match_plain(cuda, bh, d, k_hw):
     again = attention._launch_k6_bwd(*fwd, out, g, lse, scale, k_hw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert attention.fused_attention_rel.bf16_launches > 0
+
+
+# --- K3b and K6b in bfloat16: the warpgroup instance (csrc/attention_bwd_wgmma.cuh) at head
+# dim 64, today's mma.sync instance at head dim 80 ---
+
+BWD_SHAPES = {"global": (12, 12, 64, (32, 32)), "windows": (108, 12, 64, (14, 14)),
+              "ragged": (2, 12, 64, (20, 27)), "head dim 80": (1, 16, 80, (32, 32))}
+
+
+def _bf16_randn(gen, cuda):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    return randn
+
+
+@pytest.mark.parametrize("shape", list(BWD_SHAPES))
+def test_bf16_k3b_matches_plain_and_repeats_bit_for_bit(cuda, shape):
+    from mia_tpu_torch.ops import attention
+
+    b, heads, d, k_hw = BWD_SHAPES[shape]
+    randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(21), cuda)
+    n = k_hw[0] * k_hw[1]
+    qkv = randn(b, n, 3 * heads * d)
+    rel_h, rel_w = randn(b * heads, n, k_hw[0]), randn(b * heads, n, k_hw[1])
+    scale = d ** -0.5
+    out, lse = attention._launch_k3(qkv, rel_h, rel_w, scale, k_hw, heads, with_lse=True)
+    args = (qkv, rel_h, rel_w, out, randn(b, n, heads * d), lse, scale, k_hw, heads)
+    counts = (attention.fused_attention_rel_packed_bwd.launches,
+              attention.fused_attention_rel_packed_bwd.bf16_launches)
+    got = attention.fused_attention_rel_packed_bwd(*args)
+    plain = attention.attention_rel_packed_bwd_bf16(*args)
+    for name, a, w in zip(("dqkv", "drel_h", "drel_w"), got, plain):
+        _bf16_close(f"K3b {shape} {name}", a, w)
+    again = attention.fused_attention_rel_packed_bwd(*args)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    assert (attention.fused_attention_rel_packed_bwd.launches,
+            attention.fused_attention_rel_packed_bwd.bf16_launches) == (counts[0], counts[1] + 2)
+
+
+@pytest.mark.parametrize("shape", list(BWD_SHAPES))
+def test_bf16_k6b_matches_plain_and_repeats_bit_for_bit(cuda, shape):
+    from mia_tpu_torch.ops import attention
+
+    b, heads, d, k_hw = BWD_SHAPES[shape]
+    randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(22), cuda)
+    bh, n = b * heads, k_hw[0] * k_hw[1]
+    fwd = (randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, k_hw[0]),
+           randn(bh, n, k_hw[1]))
+    scale = d ** -0.5
+    out, lse = attention._launch_k6(*fwd, scale, k_hw, with_lse=True)
+    args = (*fwd, out, randn(bh, n, d), lse, scale, k_hw)
+    counts = (attention.fused_attention_rel_bwd.launches,
+              attention.fused_attention_rel_bwd.bf16_launches)
+    got = attention.fused_attention_rel_bwd(*args)
+    plain = attention.attention_rel_bwd_bf16(*args)
+    for name, a, w in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got, plain):
+        _bf16_close(f"K6b {shape} {name}", a, w)
+    again = attention.fused_attention_rel_bwd(*args)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    assert (attention.fused_attention_rel_bwd.launches,
+            attention.fused_attention_rel_bwd.bf16_launches) == (counts[0], counts[1] + 2)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs, under the profiler
+    (a capture that records none is taken again, at most twice)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return names
+
+
+def test_bf16_backward_instances_by_kernel_and_head_dim(cuda):
+    """K3b and K6b at head dim 64 run the warpgroup kernels; K3b at head dim 80,
+    K2b and K8b keep the mma.sync instance of attention_bwd_tc.cuh."""
+    from mia_tpu_torch.ops import attention
+
+    randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(23), cuda)
+
+    def k3b(d, heads, k_hw):
+        n = k_hw[0] * k_hw[1]
+        qkv = randn(2, n, 3 * heads * d)
+        rel_h, rel_w = randn(2 * heads, n, k_hw[0]), randn(2 * heads, n, k_hw[1])
+        out, lse = attention._launch_k3(qkv, rel_h, rel_w, d ** -0.5, k_hw, heads, with_lse=True)
+        g = randn(2, n, heads * d)
+        return lambda: attention._launch_k3_bwd(qkv, rel_h, rel_w, out, g, lse, d ** -0.5, k_hw,
+                                                heads)
+
+    n, d = 196, 64
+    fwd = (randn(24, n, d), randn(24, n, d), randn(24, n, d), randn(24, n, 14), randn(24, n, 14))
+    out, lse = attention._launch_k6(*fwd, d ** -0.5, (14, 14), with_lse=True)
+    g6 = randn(24, n, d)
+    ws = 14
+    tables = (randn(ws * ws, d), randn(ws * ws, d))
+    qkv2 = randn(4, ws * ws, 3 * 2 * d)
+    out2, lse2 = attention._launch_k2(qkv2, *tables, d ** -0.5, (ws, ws), 2, with_lse=True)
+    g2 = randn(4, ws * ws, 2 * d)
+    grid = (randn(1, 20, 27, 3 * 2 * d), randn(2, 20, 27, ws), randn(2, 20, 27, ws),
+            randn(3, 2 * d))
+    out8, lse8 = attention._launch_k8(*grid, d ** -0.5, ws, 2, with_lse=True)
+    g8 = randn(1, 20, 27, 2 * d)
+    cases = {
+        "K3b 64": (k3b(64, 2, (32, 32)), "attention_bwd_wgmma_"),
+        "K6b 64": (lambda: attention._launch_k6_bwd(*fwd, out, g6, lse, d ** -0.5, (14, 14)),
+                   "attention_bwd_wgmma_"),
+        "K3b 80": (k3b(80, 2, (14, 14)), "attention_bwd_bf16_dq_kernel<80, false, false>"),
+        "K2b": (lambda: attention._launch_k2_bwd(qkv2, *tables, out2, g2, lse2, d ** -0.5,
+                                                 (ws, ws), 2),
+                "attention_bwd_bf16_dq_kernel<64, true, false>"),
+        "K8b": (lambda: attention._launch_k8_bwd(*grid, out8, g8, lse8, d ** -0.5, ws, 2),
+                "attention_bwd_bf16_dq_kernel<64, false, true>"),
+    }
+    for label, (fn, want) in cases.items():
+        names = _device_kernels(fn)
+        assert any(want in name for name in names), (label, names)
+        if want != "attention_bwd_wgmma_":
+            assert not any("wgmma" in name for name in names), (label, names)
 
 
 @pytest.mark.parametrize("bh,d,n", [(108, 64, 196), (12, 64, 1024), (4, 64, 35), (16, 80, 196)])
