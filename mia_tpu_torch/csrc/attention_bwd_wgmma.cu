@@ -8,58 +8,6 @@
 
 namespace {
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime
-// (cudaGetDriverEntryPointByVersion: no link against libcuda); null if the
-// installed CUDA library lacks it.
-using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-TensorMapEncode tensor_map_encoder() {
-  static const TensorMapEncode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<TensorMapEncode>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2D map over `rows` rows of `cols` bfloat16 elements, `stride` elements
-// apart: boxes of 8 columns x 64 rows, zeros past the last row.
-bool tile_map(CUtensorMap* m, const void* base, long long cols, long long rows,
-                     long long stride) {
-  const TensorMapEncode encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride * sizeof(bf16))};
-  const cuuint32_t box[2] = {8, static_cast<cuuint32_t>(kWgRows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Shared memory above 48 KB, and the largest carve-out, so three blocks fit an SM
-template <typename Kernel>
-cudaError_t allow_wg_smem(Kernel kernel, size_t smem) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  return err;
-}
-
 // maps: q, k, v, g, rel_h, rel_w (the last two read only by kRelBoxes)
 template <int kAug, int kRel>
 int launch_bwd_wgmma(const Bf16BwdArgs& a, const CUtensorMap (&maps)[6], int batch,

@@ -555,16 +555,21 @@ int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
 // float32 (B*H, n, n) bias the JAX encoder hands its kernel) and K8
 // (kRelWindow: windows carved from the bfloat16 qkv grid by the slot map of
 // attention_window.cuh, pad slots from the bfloat16 pad_kv rows, lse by
-// token). Same block and warp layout as the float32 template (64 queries a
-// block, 16 a warp, K and V tiles of kKeys keys in two cp.async stages;
-// K7's bias tile a third part of each stage; online softmax in float32),
-// with one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three m16n8k8:
+// token). K3 and K6 at head dim 64 with kh + kw <= 64 run the warpgroup
+// kernel of attention_fwd_wgmma.cuh instead (the rule is attention_fwd_wgmma.cu's
+// mia_attention_rel_fwd_wgmma_takes); this instance keeps their head dim 80
+// and larger key grids (the 64 x 64 grid of 4096 tokens). Same block and
+// warp layout as the float32 template (64 queries a block, 16 a warp, key
+// tiles of kKeys keys in two cp.async stages; K7's bias tile a third part of
+// each stage), with one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three
+// m16n8k8, and two walks over the key tiles, so that P is rounded where the
+// Pallas kernels round it, (p / denom).astype(v.dtype):
 //   - q * scale is rounded to bfloat16 with the scale itself rounded to
 //     bfloat16 first, as the Pallas kernels' bf16 multiply (exact at head
 //     dim 64, whose scale is 1/8); the A fragments stay in registers as
-//     bf16x2 for the whole key loop. K7's Pallas kernel scales the float32
-//     score instead (q.k^T * scale, then + bias): there q goes in as it is
-//     and each score is multiplied by the float32 scale;
+//     bf16x2 for both walks. K7's Pallas kernel scales the float32 score
+//     instead (q.k^T * scale, then + bias): there q goes in as it is and
+//     each score is multiplied by the float32 scale;
 //   - K and V tiles land in shared memory at half the float32 bytes, rows
 //     padded to D + 8 elements (16 bytes), so the 32-bit B-fragment reads
 //     of K (row g, columns 2tq + {0, 1, 8, 9}) and the ldmatrix row reads
@@ -572,18 +577,23 @@ int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
 //   - S accumulates in float32; the rel rows (read once, bfloat16 values
 //     widened into float32 shared memory; K8 by the slot map, zeros for a
 //     pad slot) are a float32 add per score, K7's float32 bias tile as in
-//     the float32 template, with its -inf guard;
-//   - P = exp(S - m) is packed to bf16x2 straight from the S accumulators:
-//     the C fragments of two adjacent n8 key tiles are the A fragment of
-//     one k16 step of P.V (FlashAttention-2); V's B fragments come from
-//     ldmatrix.trans. O accumulates in float32 across the tiles (rescaled
-//     by the online softmax); the epilogue writes O / l rounded to bfloat16
-//     and m + log l in float32.
-// Rounding against the Pallas kernels: they round the NORMALISED p to
-// bfloat16 before P.V, this kernel the unnormalised exp(S - m) with the
-// running maximum; the two differ at the scale of one bfloat16 ulp of p,
-// summed over the keys (tolerance 2^-7 of max |out| in chip_smoke.py,
-// against the plain version's ~2^-9 rounding of out itself).
+//     the float32 template, with its -inf guard in both walks;
+//   - pass 1 (the statistics) walks the key tiles for S alone, K (and K7's
+//     bias) copied, no V: the rows' maximum m and sum l of exp(S - m),
+//     online in float32;
+//   - pass 2 walks them again, K, V (and the bias again): S once more, then
+//     p = exp(S - m) / l (div_rn: one reciprocal a row), rounded to
+//     bfloat16 as it is packed straight from the S accumulators (the C
+//     fragments of two adjacent n8 key tiles are the A fragment of one k16
+//     step of P.V, FlashAttention-2); V's B fragments come from
+//     ldmatrix.trans. O accumulates in float32 with no rescale (m and l are
+//     final); the epilogue writes O rounded to bfloat16 and m + log l in
+//     float32.
+// The second walk repeats S = Q.K^T and the bias: 6 D flops a (query, key)
+// pair where one walk takes 4, and K (and K7's bias) read twice. Rounding
+// exp(S - m) at the running maximum in one walk instead lands 9-15 bfloat16
+// ulps from the Pallas kernels with about half the elements bit-equal
+// (tests/test_torch_bf16_fwd_fold.py models both orders).
 //
 // Bound: operations, 4 D flops a (query, key) pair at 989 TFLOP/s dense
 // bfloat16, or bytes (q, k, v, the rel terms or K7's float32 bias, and out
@@ -766,23 +776,29 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
   const bf16* v_base = a.v + tok0 * stride + head * D;
   const RelView rv = rel_view<kTables>(a.kh, kw);
   const int ntiles = (n + kKeys - 1) / kKeys;
+  const int nsteps = 2 * ntiles;  // pass 1: steps 0 .. ntiles-1; pass 2: ntiles .. 2 ntiles-1
   const bool bias_vec4 = (n & 3) == 0;
 
-  auto issue = [&](int tile) {
-    unsigned char* st = stages + (tile & 1) * kStageBytes;
+  // step `step`'s tile into stage step % 2: K (and K7's bias tile) in pass
+  // 1, K and V (and the bias again) in pass 2
+  auto issue = [&](int step) {
+    const bool pv = step >= ntiles;
+    const int key0 = (pv ? step - ntiles : step) * kKeys;
+    unsigned char* st = stages + (step & 1) * kStageBytes;
     bf16* kv = reinterpret_cast<bf16*>(st);
     if constexpr (kWindow) {  // by the slot map; a pad slot's k and v from pad_kv
-      copy_slots_bf16_async<D, kKeys>(kv, k_base, stride, tok_s, tile * kKeys,
+      copy_slots_bf16_async<D, kKeys>(kv, k_base, stride, tok_s, key0,
                                       a.pad_kv + (a.heads + head) * D);
-      copy_slots_bf16_async<D, kKeys>(kv + kKeys * kRow, v_base, stride, tok_s, tile * kKeys,
-                                      a.pad_kv + (2 * a.heads + head) * D);
+      if (pv)
+        copy_slots_bf16_async<D, kKeys>(kv + kKeys * kRow, v_base, stride, tok_s, key0,
+                                        a.pad_kv + (2 * a.heads + head) * D);
     } else {
-      copy_rows_bf16_async<D, kKeys>(kv, k_base, stride, tile * kKeys, n);
-      copy_rows_bf16_async<D, kKeys>(kv + kKeys * kRow, v_base, stride, tile * kKeys, n);
+      copy_rows_bf16_async<D, kKeys>(kv, k_base, stride, key0, n);
+      if (pv) copy_rows_bf16_async<D, kKeys>(kv + kKeys * kRow, v_base, stride, key0, n);
     }
     if constexpr (kDenseBias)
-      copy_bias_async<kKeys>(reinterpret_cast<float*>(st + kKVBytes), a.bias, bh, n, row0,
-                             tile * kKeys, bias_vec4);
+      copy_bias_async<kKeys>(reinterpret_cast<float*>(st + kKVBytes), a.bias, bh, n, row0, key0,
+                             bias_vec4);
     cp_async_commit();
   };
   issue(0);
@@ -824,90 +840,115 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
     }
   }
 
-  float o[kN][4];
+  // The scores of a tile: S = Q.K^T, + the bias; keys past n score -inf;
+  // the tile's row maxima into mx0, mx1
+  auto scores = [&](float (&s)[kJ][4], const bf16* Ks, const float* Bs, int k0, int nk,
+                    float& mx0, float& mx1) {
 #pragma unroll
-  for (int i = 0; i < kN; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;
-  float l0 = 0.f, l1 = 0.f;
+    for (int j = 0; j < kJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        if (8 * j < nk) {
+          const bf16* kr = Ks + (8 * j + g) * kRow + 16 * kk + 2 * tq;
+          mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+    }
+    mx0 = -INFINITY;
+    mx1 = -INFINITY;
+    if constexpr (kDenseBias) {  // s * scale in float32, then + bias (the Pallas order)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float2 b0 = *reinterpret_cast<const float2*>(Bs + lr0 * kBRow + 8 * j + 2 * tq);
+        const float2 b1 =
+            *reinterpret_cast<const float2*>(Bs + (lr0 + 8) * kBRow + 8 * j + 2 * tq);
+        const int key = k0 + 8 * j + 2 * tq;
+        const bool in0 = key < n;
+        const bool in1 = key + 1 < n;
+        s[j][0] = in0 ? __fadd_rn(__fmul_rn(s[j][0], a.scale), b0.x) : -INFINITY;
+        s[j][1] = in1 ? __fadd_rn(__fmul_rn(s[j][1], a.scale), b0.y) : -INFINITY;
+        s[j][2] = in0 ? __fadd_rn(__fmul_rn(s[j][2], a.scale), b1.x) : -INFINITY;
+        s[j][3] = in1 ? __fadd_rn(__fmul_rn(s[j][3], a.scale), b1.y) : -INFINITY;
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      quad_max(mx0, mx1);
+    } else {
+      add_rel_bias_max<kJ, false>(s, rv, Rel, lr0, k0, tq, n, kw, mx0, mx1);
+    }
+  };
 
-  for (int tile = 0; tile < ntiles; ++tile) {
-    if (tile + 1 < ntiles) {
-      issue(tile + 1);
+  // one step of either pass: the stage in place (the next step's copy in
+  // flight), then body(Ks, Vs, Bs, k0, nk) for an active warp
+  auto walk = [&](int step, auto body) {
+    if (step + 1 < nsteps) {
+      issue(step + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile landed for every thread (the first with the rel rows)
-    const unsigned char* st = stages + (tile & 1) * kStageBytes;
+    const unsigned char* st = stages + (step & 1) * kStageBytes;
     const bf16* Ks = reinterpret_cast<const bf16*>(st);
-    const bf16* Vs = Ks + kKeys * kRow;
-    const float* Bs = reinterpret_cast<const float*>(st + kKVBytes);  // K7: this tile's bias
-    const int k0 = tile * kKeys;
-    const int nk = min(kKeys, n - k0);
-    if (active) {
-      float s[kJ][4];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kK; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) {
-          if (8 * j < nk) {
-            const bf16* kr = Ks + (8 * j + g) * kRow + 16 * kk + 2 * tq;
-            mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                     *reinterpret_cast<const uint32_t*>(kr + 8));
-          }
-        }
-      }
-      // + the bias; keys past n score -inf; the tile's row maxima
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-      if constexpr (kDenseBias) {  // s * scale in float32, then + bias (the Pallas order)
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) {
-          const float2 b0 = *reinterpret_cast<const float2*>(Bs + lr0 * kBRow + 8 * j + 2 * tq);
-          const float2 b1 =
-              *reinterpret_cast<const float2*>(Bs + (lr0 + 8) * kBRow + 8 * j + 2 * tq);
-          const int key = k0 + 8 * j + 2 * tq;
-          const bool in0 = key < n;
-          const bool in1 = key + 1 < n;
-          s[j][0] = in0 ? __fadd_rn(__fmul_rn(s[j][0], a.scale), b0.x) : -INFINITY;
-          s[j][1] = in1 ? __fadd_rn(__fmul_rn(s[j][1], a.scale), b0.y) : -INFINITY;
-          s[j][2] = in0 ? __fadd_rn(__fmul_rn(s[j][2], a.scale), b1.x) : -INFINITY;
-          s[j][3] = in1 ? __fadd_rn(__fmul_rn(s[j][3], a.scale), b1.y) : -INFINITY;
-          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-        }
-        quad_max(mx0, mx1);
-      } else {
-        add_rel_bias_max<kJ, false>(s, rv, Rel, lr0, k0, tq, n, kw, mx0, mx1);
-      }
-      // online softmax; K7: the reference point 0 while the new maximum is
-      // still -inf, so that exp(-inf - -inf) is never formed (the rel bias
-      // is finite, so every row of the other kinds has a finite key)
+    const int k0 = (step < ntiles ? step : step - ntiles) * kKeys;
+    if (active)
+      body(Ks, Ks + kKeys * kRow, reinterpret_cast<const float*>(st + kKVBytes), k0,
+           min(kKeys, n - k0));
+    __syncthreads();  // stage consumed before the step after next is copied into it
+  };
+
+  // Pass 1 (the statistics): the rows' maxima m and sums l of exp(S - m) in
+  // float32, online over the key tiles; no V, no P.V. K7: the reference
+  // point 0 while the maximum is still -inf, so that exp(-inf - -inf) is
+  // never formed (the rel bias is finite, so every row of the other kinds
+  // has a finite key)
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of the rows' sums
+  for (int step = 0; step < ntiles; ++step) {
+    walk(step, [&](const bf16* Ks, const bf16*, const float* Bs, int k0, int nk) {
+      float s[kJ][4], mx0, mx1;
+      scores(s, Ks, Bs, k0, nk, mx0, mx1);
       const float mn0 = fmaxf(m0, mx0);
       const float mn1 = fmaxf(m1, mx1);
       const float ms0 = kDenseBias && mn0 == -INFINITY ? 0.f : mn0;
       const float ms1 = kDenseBias && mn1 == -INFINITY ? 0.f : mn1;
-      const float c0 = __expf(m0 - ms0);
-      const float c1 = __expf(m1 - ms1);
+      l0 *= expf(m0 - ms0);
+      l1 *= expf(m1 - ms1);
       m0 = mn0;
       m1 = mn1;
-      l0 *= c0;
-      l1 *= c1;
 #pragma unroll
-      for (int nd = 0; nd < kN; ++nd) {
-        o[nd][0] *= c0;
-        o[nd][1] *= c0;
-        o[nd][2] *= c1;
-        o[nd][3] *= c1;
+      for (int j = 0; j < kJ; ++j) {
+        l0 += expf(s[j][0] - ms0) + expf(s[j][1] - ms0);
+        l1 += expf(s[j][2] - ms1) + expf(s[j][3] - ms1);
       }
+    });
+  }
+  quad_sum(l0, l1);
+  // Pass 2: p = exp(S - m) / l, the normalised probabilities rounded to
+  // bfloat16 where the Pallas kernels round (p / denom).astype(v.dtype),
+  // packed straight from the S accumulators as the A fragments of P.V; O
+  // accumulates in float32 with no rescale (m and l are final). A K7 row
+  // with no finite key has l = 0 and gives 0 / 0, as the plain softmax.
+  const float ms0 = kDenseBias && m0 == -INFINITY ? 0.f : m0;
+  const float ms1 = kDenseBias && m1 == -INFINITY ? 0.f : m1;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  float o[kN][4];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int step = ntiles; step < nsteps; ++step) {
+    walk(step, [&](const bf16* Ks, const bf16* Vs, const float* Bs, int k0, int nk) {
+      float s[kJ][4], mx0, mx1;
+      scores(s, Ks, Bs, k0, nk, mx0, mx1);
       uint32_t pa[kJ / 2][4];  // P as the A fragments of the k16 steps of P.V
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
-        const float p0 = __expf(s[j][0] - ms0), p1 = __expf(s[j][1] - ms0);
-        const float p2 = __expf(s[j][2] - ms1), p3 = __expf(s[j][3] - ms1);
-        l0 += p0 + p1;
-        l1 += p2 + p3;
+        const float p0 = div_rn(expf(s[j][0] - ms0), l0, inv0);
+        const float p1 = div_rn(expf(s[j][1] - ms0), l0, inv0);
+        const float p2 = div_rn(expf(s[j][2] - ms1), l1, inv1);
+        const float p3 = div_rn(expf(s[j][3] - ms1), l1, inv1);
         // key group j is columns 8 (j % 2) .. of k16 step j / 2: registers
         // {0, 1} (rows g, g + 8) for the even group, {2, 3} for the odd one
         pa[j / 2][(j & 1) * 2] = pack_bf16x2(p0, p1);
@@ -928,25 +969,22 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_fwd_bf16_kernel(const
           }
         }
       }
-    }
-    __syncthreads();  // stage consumed before the next tile but one is copied into it
+    });
   }
 
-  // the rows' sums over the quad; out = O / l in bfloat16, lse = m + log l
-  // (K8: by token, nothing for a pad query)
-  quad_sum(l0, l1);
+  // out = O rounded to bfloat16, lse = m + log l (K8: by token, nothing for
+  // a pad query)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? tr1 : tr0;
     if (!query(r)) continue;
-    const float l = half ? l1 : l0;
-    const float inv = 1.f / l;
     bf16* dst = a.out + (tok0 + r) * a.out_stride + head * D + 2 * tq;
 #pragma unroll
     for (int nd = 0; nd < kN; ++nd)
       *reinterpret_cast<uint32_t*>(dst + 8 * nd) =
-          pack_bf16x2(o[nd][2 * half] * inv, o[nd][2 * half + 1] * inv);
-    if (a.lse != nullptr && tq == 0) a.lse[bh * tokens + r] = (half ? m1 : m0) + logf(l);
+          pack_bf16x2(o[nd][2 * half], o[nd][2 * half + 1]);
+    if (a.lse != nullptr && tq == 0)
+      a.lse[bh * tokens + r] = (half ? m1 : m0) + logf(half ? l1 : l0);
   }
 }
 

@@ -1,0 +1,404 @@
+// K3 and K6 in bfloat16 on Hopper's warpgroup products: the forward of the
+// rel-pos attention at head dim 64 with kh + kw <= 64, redesigned from the
+// bfloat16 mma.sync instance of attention_fwd_tc.cuh. attention_rel.cu's
+// bfloat16 forward entries (packed and head-major layouts) call the C entry
+// of attention_fwd_wgmma.cu, which builds the tensor maps and launches this
+// kernel.
+//
+// Replaces the TPU forward kernels of mia_tpu/ops/attention.py
+//   K3  fused_attention_rel_packed  (_attn_rel_packed_kernel), global blocks, packed qkv
+//   K6  fused_attention_rel         (_attn_rel_kernel), the head-major route
+// on bfloat16 operands. Head dim 80 (ViT-H) and key grids with kh + kw > 64
+// (a 64 x 64 global grid at 1024 pixels) stay on the mma.sync instance
+// attention_fwd_bf16_kernel<D, kRelTerms, 64>, as K2, K7 and K8 do, whose
+// two walks round P where this kernel does.
+//
+// What it computes, with the Pallas kernels' roundings: q * scale rounded
+// to bfloat16 with the scale rounded first; S = q_aug . k_aug^T, one float32
+// product with the rel terms folded in as the Pallas kernels fold them
+// ([q * scale | rel_h | rel_w | 0] against [k | E_h | E_w | 0], kAug = 96 or
+// 128 columns, wgmma_bf16.cuh); the softmax's maximum m and sum l in
+// float32; p = exp(S - m) / l, the normalised probabilities, rounded to
+// bfloat16 where the Pallas kernels round (p / denom).astype(v.dtype); O =
+// P . V a float32 sum rounded once to bfloat16; lse = m + log l.
+//
+// One block a 64-query tile of one (image, head): one warpgroup (128
+// threads), two blocks an SM (207 registers; 97 KB of shared memory a
+// block). Tiles are in the 128-byte swizzle (below), each copy one TMA box.
+// q_aug is staged in shared memory once: q by TMA, the rel rows and the zero
+// columns by the threads, the scale applied in place. Keys stream 128 a
+// step (S is one m64n128 product a k16 step): k (and v) by TMA through two
+// stages on mbarriers, the next step's copy in flight while one is
+// computed; the step's one-hot block (128 keys x the rel columns) written
+// by the threads, one key a thread, during the step before. Two walks over
+// the keys:
+//   pass 1 (the statistics): k alone (no V is loaded); S as SS wgmma
+//     m64n128k16, depth kAug; the rows' maximum and sum online in float32,
+//     a 64-key tile at a time (each thread's share of a row's sum, added
+//     over the row's four threads at the end of the walk);
+//   pass 2: k and V; S again; p = exp(S - m) / l (div_rn: one reciprocal a
+//     row) packed from the accumulator into the register A operand of RS
+//     wgmma m64n64k16 against V, V read MN-major through the descriptor's
+//     transpose bit (no transposed copy); each 64-key tile's P . V starts
+//     from zero and is added to O in float32, tile by tile (the tensor
+//     cores' sums are not rounded to nearest), with no rescale (m and l are
+//     final).
+// So the kernel walks the CPU model's tile order
+// (tests/test_torch_bf16_fwd_fold.py). Each product group is waited for
+// before its results are read. Keys past n score -inf; rows past n (the
+// next image's tokens, or zeros past the tensor) are computed and not
+// written. No atomics: two launches are bit-identical. The exponentials are
+// expf, as the plain versions' softmax on the card: __expf's error (its
+// argument's rounding times log2 e) moves p by up to ~1e-6 of itself,
+// enough to round a large p the other way and move an output by several
+// ulps.
+//
+// Why these choices (measured on the card, PERF.md): the backward's layout
+// (wgmma_bf16.cuh: no swizzle, 8-column boxes, a copy request each 16
+// bytes) left the copies the bottleneck; deeper rings (3, 4 stages) bought
+// nothing at one block an SM and cost blocks at B=8; 128 keys a step halve
+// the steps' fixed costs (barriers, waits, copies). A lone block still runs
+// S, the exponentials and P . V one after another, and two warpgroups an SM
+// hide part of it.
+//
+// Against what held the mma.sync instance (ROADMAP, PERF.md): one wave of
+// 4-warp blocks each walking its key tiles with m16n8k16 chains, and the
+// factored rel bias added per score on the CUDA cores (about a third of
+// its time). Here the products are warpgroup products and the bias is in
+// the S product.
+//
+// Work: the statistics pass and the fold make 640 flops (S twice at depth
+// 128, P.V once) and 2 exponentials a (query, key) pair; the function's own
+// work is 4 D = 256 flops a pair. Bound (chip_smoke.py computes it): the
+// function's 4 D flops a pair at 989 TFLOP/s dense bfloat16, or the bytes
+// (qkv, the rel terms, out once) at 3.35 TB/s, whichever is larger.
+
+#pragma once
+
+#include "attention_fwd_tc.cuh"
+#include "wgmma_bf16.cuh"
+
+namespace {
+
+// Tiles here use the 128-byte swizzle, as TMA's CU_TENSOR_MAP_SWIZZLE_128B
+// writes them: a tile of 64 bfloat16 columns (a "block", 64 or 128 rows)
+// holds row r at r * 128 bytes with its 16-byte chunk c at chunk c ^ (r %
+// 8). q_aug is two 64-row blocks, columns 0-63 (q, one 64 x 64 TMA box) and
+// 64-127 (the rel rows and zeros, written by the threads); k_aug is k's
+// 128-row block (one 64 x 128 box) and the one-hot block (written by the
+// threads). One box lands a whole tile in 128-byte rows: the 8-column boxes
+// of the no-swizzle layout (wgmma_bf16.cuh, the backward's) take a copy
+// request each 16 bytes. Blocks start 1024-byte aligned, as the swizzle
+// requires.
+constexpr int kBlock = kWgRows * 64;  // elements of one 64 x 64 block
+
+// element (r, f) of a block, f < 64
+__device__ __forceinline__ int sw128_off(int r, int f) {
+  return r * 64 + (((f >> 3) ^ (r & 7)) << 3) + (f & 7);
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled block: start
+// address, LBO 16 bytes (unused: one block spans the 64 columns of either
+// operand's contiguous dimension), SBO 1024 bytes (the next 8 rows),
+// layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// K-major (columns reduced, A or B): the k16 step kk of a two-block tile
+__device__ __forceinline__ uint64_t sw128_desc_k(const bf16* tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kBlock + (kk & 3) * 16);
+}
+
+// MN-major (rows reduced, B): rows 16 kk .. 16 kk + 15 of one block
+__device__ __forceinline__ uint64_t sw128_desc_mn(const bf16* block, int kk) {
+  return sw128_desc(block + kk * 16 * 64);
+}
+
+// Columns 0 .. kAug-65 of q_aug's second block for query rows q0 .. q0+63 of
+// (image, head) bh: rel_h | rel_w | 0, zeros for rows past n. Two threads a
+// row, alternate 16-byte chunks.
+template <int kAug>
+__device__ __forceinline__ void stage_rel_rows_sw128(bf16* Q1, const bf16* __restrict__ rel_h,
+                                                     const bf16* __restrict__ rel_w, long long bh,
+                                                     int n, int kh, int kw, int q0) {
+  constexpr int kChunks = (kAug - kWgD) / 8;
+  const int r = threadIdx.x & (kWgRows - 1);
+  const bool valid = q0 + r < n;
+  const long long row = bh * n + q0 + r;
+  for (int c = threadIdx.x >> 6; c < kChunks; c += kWgThreads / kWgRows) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int f = 8 * c + e;
+      v[e] = !valid ? 0.f
+             : f < kh ? __bfloat162float(rel_h[row * kh + f])
+             : f < kh + kw ? __bfloat162float(rel_w[row * kw + f - kh])
+             : 0.f;
+    }
+    *reinterpret_cast<uint4*>(Q1 + sw128_off(r, 8 * c)) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                   pack_bf16x2(v[6], v[7]));
+  }
+}
+
+// d (64 x 128, float32) = or += A . B^T, A and B K-major in shared memory
+// (acc 0: overwrite)
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+constexpr int kKeyTile = 128;           // keys a step: S is one m64n128 product
+constexpr int kKBlock = kKeyTile * 64;  // elements of a 128-row block
+static_assert(kWgThreads == kKeyTile, "build_onehot_sw128 writes one key a thread");
+
+// Columns 0 .. kAug-65 of k_aug's one-hot block for keys key0 .. key0+127:
+// E_h at y, E_w at kh + x, zeros elsewhere and for keys past n. Each thread
+// writes one key's 16-byte chunks; its row y = key / kw is taken as
+// (key + 1/2) * (1 / kw) rounded down, exact while key < 2^20 (the quotient
+// then lies at least 1 / (2 kw) from an integer, far beyond float32's error).
+template <int kAug>
+__device__ __forceinline__ void build_onehot_sw128(bf16* E, int key0, int n, int kh, int kw,
+                                                   float inv_kw) {
+  constexpr int kChunks = (kAug - kWgD) / 8;
+  const int r = threadIdx.x;  // kWgThreads == kKeyTile: one key a thread
+  const int key = key0 + r;
+  const int yk = __float2int_rz((static_cast<float>(key) + 0.5f) * inv_kw);
+  const bool valid = key < n;
+  const int y = valid ? yk : -1;
+  const int hx = valid ? kh + key - yk * kw : -1;
+  // the bfloat16 bits of 1 at column y and at hx, as integer selects (no
+  // conversions): word f / 2 of the row, half f % 2
+  constexpr uint32_t kOne = 0x3F80u;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = 8 * c + 2 * e;
+      w[e] = (y == f || hx == f ? kOne : 0u) | (y == f + 1 || hx == f + 1 ? kOne << 16 : 0u);
+    }
+    *reinterpret_cast<uint4*>(E + sw128_off(r, 8 * c)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// q_aug (two 64-row blocks), the one-hot block, two stages of k and of v
+// (one 128-row block each), three barriers, and 1 KB to align the first block
+constexpr size_t wg_fwd_smem_bytes() {
+  return sizeof(bf16) * (2 * kBlock + 5 * kKBlock) + sizeof(uint64_t) * 3 + 1024;
+}
+
+// One step of the row statistics over the 64 keys of accumulator columns
+// 64 h .. 64 h + 63 (a 64-key tile of the CPU model): the new maxima, the
+// rescale of what came before, this thread's share of the sums
+__device__ __forceinline__ void row_stats(const float* s, float& m0, float& m1, float& l0,
+                                          float& l1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  quad_max(mx0, mx1);
+  const float mn0 = fmaxf(m0, mx0);
+  const float mn1 = fmaxf(m1, mx1);
+  l0 *= expf(m0 - mn0);
+  l1 *= expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    l0 += expf(s[4 * j] - m0) + expf(s[4 * j + 1] - m0);
+    l1 += expf(s[4 * j + 2] - m1) + expf(s[4 * j + 3] - m1);
+  }
+}
+
+template <int kAug>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    attention_fwd_wgmma_kernel(const Bf16FwdArgs a,
+                               const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v) {
+  constexpr int D = kWgD;
+  extern __shared__ unsigned char wg_smem[];
+  bf16* Qa = reinterpret_cast<bf16*>(wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023));
+  bf16* E = Qa + 2 * kBlock;  // the one-hot block of a step's keys (k_aug's columns 64-)
+  bf16* Kt = E + kKBlock;     // [stage]: k of the streamed keys
+  bf16* Vt = Kt + 2 * kKBlock;  // [stage]: their v (pass 2)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Vt + 2 * kKBlock);  // [0]: Qa; [1 + stage]
+  const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int head = blockIdx.y;
+  const long long img = blockIdx.z;
+  const long long tok0 = img * n;
+  const long long bh = img * heads + head;
+  const int row0 = blockIdx.x * kWgRows;
+  const int ntiles = (n + kKeyTile - 1) / kKeyTile;
+  const int nsteps = 2 * ntiles;  // pass 1: steps 0 .. ntiles-1; pass 2: ntiles .. 2 ntiles-1
+  const int hcol = head * D;
+
+  if (t == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    mbar_init(bar + 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int step) {  // one thread: k (and in pass 2 v) of step `step`'s keys
+    const int st = step & 1;
+    const bool pv = step >= ntiles;
+    const int r0 = static_cast<int>(tok0) + (pv ? step - ntiles : step) * kKeyTile;
+    mbar_expect_tx(bar + 1 + st, (pv ? 4 : 2) * kTileDBytes);
+    tma_box(Kt + st * kKBlock, &tm_k, hcol, r0, bar + 1 + st);
+    if (pv) tma_box(Vt + st * kKBlock, &tm_v, hcol, r0, bar + 1 + st);
+  };
+  if (t == 0) {
+    mbar_expect_tx(bar, kTileDBytes);
+    tma_box(Qa, &tm_q, hcol, static_cast<int>(tok0) + row0, bar);
+    issue(0);
+  }
+  // the rel rows and the zero columns beside q (plain loads: once a block),
+  // and the first step's one-hot block
+  const float inv_kw = 1.f / kw;
+  stage_rel_rows_sw128<kAug>(Qa + kBlock, a.rel_a, a.rel_b, bh, n, kh, kw, row0);
+  build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
+  mbar_wait(bar, 0);
+  scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
+  fence_proxy_async();
+  __syncthreads();
+
+  // this thread's rows lr0 = 16 warp + g and lr0 + 8 of the accumulators
+  const int lr0 = warp * 16 + g;
+  float m0 = -INFINITY, m1 = -INFINITY;  // the rows' maxima
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their sums, then the sums
+  float inv0 = 0.f, inv1 = 0.f;          // 1 / l
+  float o[32];                           // O: 64 rows x 64 columns, 8-column groups of 4
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int st = step & 1;
+    const bool pv = step >= ntiles;
+    // into the stage step - 1 read, which every thread is done with
+    if (t == 0 && step + 1 < nsteps) issue(step + 1);
+    const bf16* K = Kt + st * kKBlock;
+    const bf16* V = Vt + st * kKBlock;
+    const int k0 = (pv ? step - ntiles : step) * kKeyTile;
+    mbar_wait(bar + 1 + st, (step >> 1) & 1);
+    __syncthreads();  // the step's k (v) and one-hot block in place for the products
+
+    // S = q_aug . [k | E]^T over the step's 128 keys: one m64n128 product of depth kAug
+    float s[64];
+    fence_regs<64>(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kAug / 16; ++kk)
+      wgmma_ss_n128(s, sw128_desc_k(Qa, kk), sw128_desc(kk < 4 ? K + kk * 16 : E + (kk - 4) * 16),
+                    kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<64>(s);
+    if (k0 + kKeyTile > n) {  // the last step: keys past n score -inf
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * tq + (e & 1) >= n) s[4 * j + e] = -INFINITY;
+      }
+    }
+    // the next step's one-hot block, once every warp's S product has read
+    // this one
+    auto next_onehot = [&] {
+      __syncthreads();
+      if (step + 1 < nsteps) {
+        const int next = step + 1 < ntiles ? step + 1 : step + 1 - ntiles;
+        build_onehot_sw128<kAug>(E, next * kKeyTile, n, kh, kw, inv_kw);
+        fence_proxy_async();
+      }
+    };
+
+    if (!pv) {  // pass 1: the online maximum and sum, a 64-key tile at a time
+      next_onehot();
+      row_stats(s, m0, m1, l0, l1);
+      if (k0 + kWgRows < n) row_stats(s + 32, m0, m1, l0, l1);
+      if (step == ntiles - 1) {  // the rows' sums over their four threads
+        quad_sum(l0, l1);
+        inv0 = 1.f / l0;
+        inv1 = 1.f / l1;
+      }
+    } else {  // pass 2: P = bf16(exp(S - m) / l), O += P . V
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        s[4 * j] = div_rn(expf(s[4 * j] - m0), l0, inv0);
+        s[4 * j + 1] = div_rn(expf(s[4 * j + 1] - m0), l0, inv0);
+        s[4 * j + 2] = div_rn(expf(s[4 * j + 2] - m1), l1, inv1);
+        s[4 * j + 3] = div_rn(expf(s[4 * j + 3] - m1), l1, inv1);
+      }
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pack_frag(pa[kk], s, kk);
+      // each 64-key tile's P . V (keys reduced, V MN-major) from zero, as two
+      // independent chains, then added to O in float32 tile by tile
+      float pva[32], pvb[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pva[i] = pvb[i] = 0.f;
+      fence_regs<32>(pva);
+      fence_regs<32>(pvb);
+      fence_regs<32>(&pa[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_n64(pva, pa[kk], sw128_desc_mn(V, kk));
+        wgmma_rs_n64(pvb, pa[4 + kk], sw128_desc_mn(V, 4 + kk));
+      }
+      wgmma_commit();
+      next_onehot();  // while the tensor cores run P . V
+      wgmma_wait0();
+      fence_regs<32>(pva);
+      fence_regs<32>(pvb);
+      fence_regs<32>(&pa[0][0]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] += pva[i];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] += pvb[i];
+    }
+    __syncthreads();  // stage and one-hot block consumed; the next one-hot block written
+  }
+
+  // out = O rounded to bfloat16, lse = m + log l, each row's once
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int q = row0 + lr0 + 8 * half;
+    if (q >= n) continue;
+    bf16* dst = a.out + (tok0 + q) * a.out_stride + hcol + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16x2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+    if (a.lse != nullptr && tq == 0) a.lse[bh * n + q] = (half ? m1 : m0) + logf(half ? l1 : l0);
+  }
+}
+
+}  // namespace

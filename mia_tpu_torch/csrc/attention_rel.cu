@@ -48,15 +48,19 @@
 //
 // bfloat16: mia_attention_rel_packed_bf16 and mia_attention_rel_packed_ik_bf16
 // run the bfloat16 instance of the forward (bfloat16 mma.sync, described in
-// attention_fwd_tc.cuh) for a bfloat16 encoder; K2's terms come from kernel
-// R's bfloat16 instance. Their backward, mia_attention_rel_packed_bwd_bf16
+// attention_fwd_tc.cuh) for a bfloat16 encoder, but K3 at head dim 64 with
+// kh + kw <= 64, which runs the warpgroup forward (attention_fwd_wgmma.cuh:
+// wgmma and TMA, the rel terms folded into the S product; C entry
+// attention_fwd_wgmma.cu); K2's terms come from kernel R's bfloat16
+// instance. Their backward, mia_attention_rel_packed_bwd_bf16
 // and mia_attention_rel_packed_ik_bwd_bf16, runs K3b's warpgroup instance
 // (attention_bwd_wgmma.cuh: wgmma and TMA, the rel terms folded into the
 // products; head dim 64, kh + kw <= 64) or else the bfloat16 instance of
 // the backward template (attention_bwd_tc.cuh: head dim 80, larger grids,
 // and K2b always) and, for K2b, the bfloat16 instances of kernels R, Q and C
 // below. mia_attention_rel_bf16 and mia_attention_rel_bwd_bf16 (K6, K6b) run
-// K3's and K3b's bfloat16 instances on head-major strides.
+// K3's and K3b's bfloat16 instances (warpgroup or mma.sync by the same rule)
+// on head-major strides.
 //
 // The kernels allocate nothing and do not synchronise; each C entry point
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -64,6 +68,13 @@
 #include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
+// attention_fwd_wgmma.cu: K3's and K6's bfloat16 forward on warpgroup products
+extern "C" int mia_attention_rel_fwd_wgmma_takes(int d, int kh, int kw);
+extern "C" int mia_attention_rel_fwd_wgmma_bf16(const void* q, const void* k, const void* v,
+                                                const void* rel_h, const void* rel_w, void* out,
+                                                void* lse, long long in_stride,
+                                                long long out_stride, int batch, int n, int heads,
+                                                int kh, int kw, float scale, void* stream);
 // attention_bwd_wgmma.cu: K3b's and K6b's bfloat16 backward on warpgroup products
 extern "C" int mia_attention_rel_bwd_wgmma_takes(int d, int kh, int kw);
 extern "C" int mia_attention_rel_bwd_wgmma_bf16(
@@ -520,6 +531,12 @@ extern "C" int mia_attention_rel_packed_bf16(const void* qkv, const void* rel_h,
                                              const void* rel_w, void* out, void* lse, int batch,
                                              int n, int heads, int d, int kh, int kw, float scale,
                                              void* stream) {
+  if (mia_attention_rel_fwd_wgmma_takes(d, kh, kw)) {
+    const bf16* base = static_cast<const bf16*>(qkv);
+    const long long hd = static_cast<long long>(heads) * d;
+    return mia_attention_rel_fwd_wgmma_bf16(base, base + hd, base + 2 * hd, rel_h, rel_w, out, lse,
+                                            3 * hd, hd, batch, n, heads, kh, kw, scale, stream);
+  }
   Bf16FwdArgs a = packed_bf16_args(qkv, out, lse, heads, d, scale);
   a.rel_a = static_cast<const bf16*>(rel_h);
   a.rel_b = static_cast<const bf16*>(rel_w);
@@ -648,6 +665,9 @@ extern "C" int mia_attention_rel_bf16(const void* q, const void* k, const void* 
                                       const void* rel_h, const void* rel_w, void* out, void* lse,
                                       int bh, int n, int d, int kh, int kw, float scale,
                                       void* stream) {
+  if (mia_attention_rel_fwd_wgmma_takes(d, kh, kw))
+    return mia_attention_rel_fwd_wgmma_bf16(q, k, v, rel_h, rel_w, out, lse, d, d, bh, n, 1, kh, kw,
+                                            scale, stream);
   Bf16FwdArgs a = head_major_bf16_args(q, k, v, out, n, d, scale);
   a.lse = static_cast<float*>(lse);
   a.rel_a = static_cast<const bf16*>(rel_h);

@@ -39,6 +39,15 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// x / y rounded to nearest, as the Pallas kernels' p / denom, from inv =
+// 1 / y rounded to nearest: the product x inv and one FMA correction of its
+// residual (Markstein's), so that a row's probabilities share one
+// reciprocal and no division is formed a probability
+__device__ __forceinline__ float div_rn(float x, float y, float inv) {
+  const float q = x * inv;
+  return fmaf(fmaf(-y, q, x), inv, q);
+}
+
 __device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 

@@ -6,15 +6,19 @@ Counterpart of ``mia_tpu/ops/attention.py``. All compute
 ``softmax(q·kᵀ·scale + bias)·v`` in float32. Every one also takes bfloat16
 operands (the JAX kernels' fast path, a bfloat16 model's ``qkv``) and rounds
 where the Pallas kernels round (:func:`_softmax_probs_bf16`; K7:
-:func:`attention_dense_bf16`), forward and backward
+:func:`attention_dense_bf16`: the normalised probabilities are rounded to
+bfloat16 before P·V), forward and backward
 (:func:`attention_rel_packed_bwd_bf16`, :func:`attention_rel_packed_ik_bwd_bf16`,
 :func:`attention_rel_bwd_bf16`, :func:`attention_rel_win_bwd_bf16`; K7's
 plain VJP widens to float32, as its JAX ``_bwd``); their bfloat16 CUDA
 instances (K2·bf16-K8·bf16, K2b·bf16, K3b·bf16, K6b·bf16, K8b·bf16) run on
-bfloat16 ``mma.sync`` — but K3b·bf16 and K6b·bf16 at head dim 64 with
-``k_h + k_w <= 64``, which run warpgroup products (``wgmma``, TMA) with the rel
-terms folded in (``csrc/attention_bwd_wgmma.cuh``) — and each wrapper counts
-them in ``bf16_launches``.
+bfloat16 ``mma.sync`` — but K3·bf16, K6·bf16, K3b·bf16 and K6b·bf16 at head
+dim 64 with ``k_h + k_w <= 64``, which run warpgroup products (``wgmma``, TMA)
+with the rel terms folded in (``csrc/attention_fwd_wgmma.cuh``,
+``csrc/attention_bwd_wgmma.cuh``; the C rule ``…_takes`` picks the instance) —
+and each wrapper counts them in ``bf16_launches``. Every bfloat16 forward
+rounds P where the Pallas kernels do: a statistics pass over the keys first
+(the rows' maximum and sum), then ``p = bf16(exp(s − m) / l)`` into P·V.
 
 Packed layout (K2, K3): ``qkv`` is the qkv Linear's output ``(B', N, 3·H·D)``
 in ``(3, heads, head_dim)`` order; the context comes back as ``(B', N, H·D)``,

@@ -18,9 +18,11 @@ bias, as ``chip_smoke.py`` times it) under ``torch.profiler`` and prints the
 device kernels each one launches, with their times. Needs a CUDA device.
 
 With ``--sass`` it times nothing: it compiles each tree's
-``csrc/attention_rel.cu``, ``csrc/attention_routes.cu``,
-``csrc/ln_window.cu`` (K4 and K4b) and ``csrc/unpartition_residual.cu`` (K9
-and K9b) with ``nvcc -Xptxas -v`` and prints, for
+``csrc/attention_rel.cu``, ``csrc/attention_routes.cu``, the warpgroup
+kernels' ``csrc/attention_bwd_wgmma.cu`` (K3b and K6b in bfloat16) and
+``csrc/attention_fwd_wgmma.cu`` (K3 and K6 in bfloat16), ``csrc/ln_window.cu``
+(K4 and K4b) and ``csrc/unpartition_residual.cu`` (K9 and K9b) with ``nvcc
+-Xptxas -v`` (a source a tree lacks is skipped) and prints, for
 every kernel, its registers and spill, its ``HMMA.1688.F32.TF32``,
 ``HMMA.16816.F32.BF16``, ``ATOM`` and local-memory instructions, and whether
 its SASS equals the first tree's, under its own name or another (so
@@ -145,9 +147,9 @@ def _short_name(mangled: str) -> str:
 
 def sass_report(trees) -> None:
     """Registers, spill and instruction counts of every kernel of each tree's
-    csrc/attention_rel.cu, attention_routes.cu, ln_window.cu and
-    unpartition_residual.cu, and whether
-    its SASS equals the first tree's."""
+    csrc/attention_rel.cu, attention_routes.cu, attention_bwd_wgmma.cu,
+    attention_fwd_wgmma.cu, ln_window.cu and unpartition_residual.cu, and
+    whether its SASS equals the first tree's."""
     sys.path.insert(0, str(ROOT))
     from mia_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
 
@@ -156,10 +158,13 @@ def sass_report(trees) -> None:
     first = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate(trees):
-            for source in ("attention_rel.cu", "attention_routes.cu", "ln_window.cu",
-                           "unpartition_residual.cu"):
+            for source in ("attention_rel.cu", "attention_routes.cu", "attention_bwd_wgmma.cu",
+                           "attention_fwd_wgmma.cu", "ln_window.cu", "unpartition_residual.cu"):
                 obj = Path(tmp) / f"{i}.{source}.o"
                 src = Path(tree) / "mia_tpu_torch" / "csrc" / source
+                if not src.is_file():
+                    print(f"{tree}: csrc/{source} not in this tree")
+                    continue
                 log = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
                                       str(src)], capture_output=True, text=True, check=True).stderr
                 usage, name = {}, None

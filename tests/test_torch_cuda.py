@@ -921,7 +921,18 @@ def _norm_fed_biases(model):
 
 # --- the bfloat16 instances of the encoder's other routes: K6/K6b, K7, K8/K8b, K9/K9b ---
 
-BF16_TOL = 2.0 ** -7  # max |kernel - plain| over max |plain|: the kernels round the unnormalised p
+BF16_TOL = 2.0 ** -7  # max |kernel - plain| over max |plain| (the forwards: beside the ulp measure)
+
+
+def _fwd_ulps():
+    """The bfloat16 forwards' limit (``chip_smoke.BF16_FWD_ULPS``): they round
+    the normalised p where the Pallas kernels and the plain versions round
+    it, each element within the CPU tile model's own distance to the plain
+    version plus one ulp (the ulp taken at no less than 2^-6 of max |plain|),
+    with at least 99% of the elements bit-equal."""
+    import chip_smoke
+
+    return chip_smoke.BF16_FWD_ULPS
 
 
 def _bf16_close(label, got, want):
@@ -931,6 +942,24 @@ def _bf16_close(label, got, want):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     assert err <= BF16_TOL * ref, (label, err, ref)
+
+
+def _bf16_ulps(label, got, want, max_ulps=None, min_equal=0.99):
+    """Every element within ``max_ulps`` bfloat16 ulps of the plain version's
+    (the ulp taken at no less than 2^-6 of max |plain|) and ``min_equal`` of
+    them bit-equal; returns (ulps, share bit-equal). None: the forwards'
+    limit, and the forwards' output within ``BF16_TOL`` of max |plain| too."""
+    import chip_smoke
+
+    if max_ulps is None:
+        _bf16_close(label, got, want)
+        max_ulps = _fwd_ulps()
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, label
+    assert bool(torch.isfinite(got.float()).all()), label
+    ulps, equal = chip_smoke.bf16_ulps(torch, got, want)
+    assert ulps <= max_ulps and equal >= min_equal, (label, ulps, equal)
+    return ulps, equal
 
 
 @pytest.mark.parametrize("bh,d,k_hw", [(108, 64, (14, 14)), (12, 64, (32, 32)), (6, 64, (10, 12)),
@@ -949,7 +978,7 @@ def test_bf16_k6_and_k6b_match_plain(cuda, bh, d, k_hw):
     scale = d ** -0.5
     out, lse = attention._launch_k6(*fwd, scale, k_hw, with_lse=True)
     want, want_lse = attention.attention_rel_bf16(*fwd, scale, k_hw)
-    _bf16_close("K6", out, want)
+    _bf16_ulps("K6", out, want)
     assert (lse - want_lse).abs().max().item() <= 1e-5
     assert torch.equal(out, attention._launch_k6(*fwd, scale, k_hw))
     g = randn(bh, n, d)
@@ -1089,6 +1118,101 @@ def test_bf16_backward_instances_by_kernel_and_head_dim(cuda):
             assert not any("wgmma" in name for name in names), (label, names)
 
 
+# --- K3 and K6 forward in bfloat16: the warpgroup kernel (csrc/attention_fwd_wgmma.cuh) at head
+# dim 64 with kh + kw <= 64, the mma.sync instance's statistics pass at head dim 80 and on the
+# 64 x 64 grid; every one rounds the normalised p ---
+
+# (batch, heads, head dim, key grid); K6 takes the same operands head-major
+FWD_SHAPES = {"B=1": (1, 12, 64, (32, 32)), "B=8": (8, 12, 64, (32, 32)),
+              "windows": (9, 12, 64, (14, 14)), "ragged": (2, 12, 64, (20, 27)),
+              "head dim 80": (1, 16, 80, (32, 32)), "64x64": (1, 12, 64, (64, 64))}
+
+
+def _fwd_operands(shape, cuda, seed):
+    """K3's packed operands and K6's head-major ones (the same values)."""
+    b, heads, d, k_hw = FWD_SHAPES[shape]
+    randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(seed), cuda)
+    n = k_hw[0] * k_hw[1]
+    qkv = randn(b, n, 3 * heads * d)
+    rel_h, rel_w = randn(b * heads, n, k_hw[0]), randn(b * heads, n, k_hw[1])
+    q, k, v = (t.reshape(b * heads, n, d).contiguous()
+               for t in qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+    return ((qkv, rel_h, rel_w, d ** -0.5, k_hw, heads),
+            (q, k, v, rel_h, rel_w, d ** -0.5, k_hw))
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K6"])
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
+def test_bf16_k3_and_k6_forward_hold_at_the_ulp_measure(cuda, kernel, shape):
+    from mia_tpu_torch.ops import attention
+
+    k3_args, k6_args = _fwd_operands(shape, cuda, seed=31)
+    if kernel == "K3":
+        args, launch, plain = k3_args, attention._launch_k3, attention.attention_rel_packed_bf16
+        wrapper = attention.fused_attention_rel_packed
+    else:
+        args, launch, plain = k6_args, attention._launch_k6, attention.attention_rel_bf16
+        wrapper = attention.fused_attention_rel
+    counts = wrapper.launches, wrapper.bf16_launches
+    out, lse = launch(*args, with_lse=True)
+    want, want_lse = plain(*args)
+    _bf16_ulps(f"{kernel} {shape}", out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-5, (kernel, shape)
+    again, lse_again = launch(*args, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again), (kernel, shape)
+    assert torch.equal(launch(*args), out)  # without the lse: the same output
+    assert (wrapper.launches, wrapper.bf16_launches) == (counts[0], counts[1] + 3)
+
+
+def test_bf16_forward_instances_follow_the_takes_rule(cuda):
+    """Each K3 and K6 shape runs the instance that
+    mia_attention_rel_fwd_wgmma_takes names: the warpgroup kernel at head dim
+    64 with kh + kw <= 64, attention_fwd_bf16_kernel<D, 1, 64> otherwise."""
+    from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops.cuda_build import load_library
+
+    takes = load_library().mia_attention_rel_fwd_wgmma_takes
+    for shape, (_, _, d, k_hw) in FWD_SHAPES.items():
+        k3_args, k6_args = _fwd_operands(shape, cuda, seed=32)
+        wgmma = bool(takes(d, *k_hw))
+        assert wgmma == (d == 64 and sum(k_hw) <= 64), shape
+        want = "attention_fwd_wgmma_kernel" if wgmma else f"attention_fwd_bf16_kernel<{d}, 1, 64>"
+        for label, fn in (("K3", lambda: attention._launch_k3(*k3_args)),
+                          ("K6", lambda: attention._launch_k6(*k6_args))):
+            names = _device_kernels(fn)
+            assert any(want in name for name in names), (label, shape, names)
+            other = "attention_fwd_bf16_kernel" if wgmma else "attention_fwd_wgmma_kernel"
+            assert not any(other in name for name in names), (label, shape, names)
+
+
+@pytest.mark.parametrize("b,heads,d,ws", [(9, 12, 64, 14), (72, 12, 64, 14), (5, 4, 64, 9),
+                                          (9, 16, 80, 14)])
+def test_bf16_k2_holds_at_the_ulp_measure_on_its_own_rel_terms(cuda, b, heads, d, ws):
+    """K2 against the plain bfloat16 K3 fed kernel R's own terms (a term may
+    round one ulp apart from the plain version's, which moves its scores by
+    that ulp)."""
+    from mia_tpu_torch.ops import attention
+
+    randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(33), cuda)
+    n = ws * ws
+    qkv, rh, rw = randn(b, n, 3 * heads * d), randn(n, d), randn(n, d)
+    rh, rw = 0.1 * rh, 0.1 * rw
+    scale = d ** -0.5
+    out = torch.empty(b, n, heads * d, device=cuda, dtype=torch.bfloat16)
+    lse = torch.empty(b * heads, n, device=cuda)
+    terms = torch.empty(b * heads, n, 2 * ws, device=cuda, dtype=torch.bfloat16)
+    attention._call("K2 bf16", "mia_attention_rel_packed_ik_bf16", qkv,
+                    (qkv, rh, rw, out, lse, terms), (ws, ws), heads, scale)
+    rel_h, rel_w = (t.contiguous() for t in terms.split([ws, ws], -1))
+    want, want_lse = attention.attention_rel_packed_bf16(qkv, rel_h, rel_w, scale, (ws, ws), heads)
+    _bf16_ulps("K2", out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    again, lse_again = attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
 @pytest.mark.parametrize("bh,d,n", [(108, 64, 196), (12, 64, 1024), (4, 64, 35), (16, 80, 196)])
 def test_bf16_k7_matches_plain(cuda, bh, d, n):
     from mia_tpu_torch.ops import attention
@@ -1099,7 +1223,7 @@ def test_bf16_k7_matches_plain(cuda, bh, d, n):
     bias = torch.randn(bh, n, n, generator=gen, device=cuda)
     bias[:, ::2, :min(64, n // 2)] = -float("inf")  # every row keeps a finite key
     got = attention._launch_k7(q, k, v, bias, d ** -0.5)
-    _bf16_close("K7", got, attention.attention_dense_bf16(q, k, v, bias, d ** -0.5))
+    _bf16_ulps("K7", got, attention.attention_dense_bf16(q, k, v, bias, d ** -0.5))
     assert torch.equal(got, attention._launch_k7(q, k, v, bias, d ** -0.5))
 
 
@@ -1119,7 +1243,7 @@ def test_bf16_k8_and_k8b_match_plain(cuda, b, hw, heads, d):
     scale = d ** -0.5
     out, lse = attention._launch_k8(*fwd, scale, ws, heads, with_lse=True)
     want, want_lse = attention.attention_rel_win_bf16(*fwd, scale, ws, heads)
-    _bf16_close("K8", out, want)
+    _bf16_ulps("K8", out, want)
     assert (lse - want_lse).abs().max().item() <= 1e-5
     g = randn(b, *hw, heads * d)
     got = attention._launch_k8_bwd(*fwd, out, g, lse, scale, ws, heads)
@@ -1169,15 +1293,7 @@ def _bf16_one_ulp(label, got, want, min_equal=0.99):
     """Every element within one bfloat16 ulp of the plain version's (the ulp
     taken at no less than 2^-6 of max |plain|) and ``min_equal`` of them
     bit-equal: both sum in float32 and round once, in another order."""
-    torch.cuda.synchronize()
-    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, label
-    assert bool(torch.isfinite(got.float()).all()), label
-    mag = want.float().abs()
-    floor = max(mag.max().item() * 2.0 ** -6, 2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(floor))) - 7)
-    diff = (got.float() - want.float()).abs()
-    assert int((diff > ulp).sum()) == 0, (label, (diff / ulp).max().item())
-    assert (diff == 0).float().mean().item() >= min_equal, label
+    _bf16_ulps(label, got, want, 1.0, min_equal)
 
 
 def _bf16_stage_operands(shape, cuda, seed):
