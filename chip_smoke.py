@@ -35,19 +35,23 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    the port never calls it). Computes each kernel's bound from the timed
    tensors: bytes over 3.35 TB/s or operations over 67 TFLOP/s (float32
    outside the tensor cores, what most kernels here compute in).
-   bfloat16 kernels: the bfloat16 instances of K2 (bfloat16 ``mma.sync``),
-   K3 (the warpgroup kernel at head dim 64, ``mma.sync`` at head dim 80 and
-   4096 tokens) and K4 against their plain bfloat16 versions at the same
-   shapes (ViT-B/512 batch 1 and 8, the 20x27 grid, 4096 global tokens, head
-   dim 80): every element of K2's and K3's output within ``BF16_FWD_ULPS``
-   bfloat16 ulps of the plain one (the ulp taken at >= 2^-6 of max |plain|),
+   bfloat16 kernels: the bfloat16 instances of K2 (the warpgroup window
+   kernel at head dim 64, its rel terms formed inside it; kernel R and
+   ``mma.sync`` at head dim 80), K3 (the warpgroup kernel at head dim 64,
+   ``mma.sync`` at head dim 80 and 4096 tokens) and K4 against their plain
+   bfloat16 versions at the same shapes (ViT-B/512 batch 1 and 8, the 20x27
+   grid, 4096 global tokens, head dim 80): every element of K2's and K3's
+   output within ``BF16_FWD_ULPS`` bfloat16 ulps of the plain one (the ulp taken at >= 2^-6 of max |plain|),
    at least 99% of them bit-equal and all within 2^-7 of max |plain|, their
-   log-sum-exp within 1e-5 of the plain one of the same scores (K2's on its
-   own rel terms, which kernel R's bfloat16 instance holds to one ulp and 99%
+   log-sum-exp within 1e-5 of the plain one of the same scores (K2's on
+   kernel R's rel terms, read from the scratch of the bfloat16 K2 backward
+   entry, which runs kernel R: the warpgroup kernel forms them in kernel R's
+   order; kernel R's terms held to one ulp of the plain ones and 99%
    bit-equal), K4's output within
    one bfloat16 ulp an element and its mu / rstd within 1e-5, two launches
    bit-identical; timed with the library call (bfloat16 operands and dense
-   bias; K3's warpgroup kernel queued, in turns with it, at batch 1 and 8)
+   bias; K2's and K3's warpgroup kernels queued, in turns with it, at batch
+   1 and 8)
    and the bound at 989 TFLOP/s dense bfloat16. Their backward
    kernels' bfloat16 instances (K2b, K3b on bfloat16 ``mma.sync``, K4b)
    through the wrappers the trainer calls, against the plain bfloat16 VJPs
@@ -69,8 +73,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    |plain| of the plain bfloat16 VJP
    (K9's x_new bit for bit, its y within one ulp), log-sum-exp within 1e-5,
    two launches bit-identical; event and device times, the library call and
-   the bound the same way (K6's warpgroup kernel queued, in turns with the
-   library call, on windows and global tokens).
+   the bound the same way (K6's and K7's warpgroup kernels queued, in turns
+   with the library call, on windows and global tokens).
    Training kernels: the backward kernels of K2, K3 and K4 against their
    plain VJPs at the ViT-B/512 training shapes for batch 12 and 6, within
    1e-4 of max |plain| for each output, K2b and K3b (3xTF32 on the tensor
@@ -360,10 +364,12 @@ KERNELS = {
     "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
              "mia_tpu/ops/upsample2x.py:137"),
 }
-# the bfloat16 entries whose kernel lives elsewhere than the float32 one's: K3, K6, K3b and K6b
-# in bfloat16 at head dim 64 run the warpgroup (wgmma) kernels
-BF16_SOURCES = {"K3": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
+# the bfloat16 entries whose kernel lives elsewhere than the float32 one's: K2, K3, K6, K7, K3b
+# and K6b in bfloat16 at head dim 64 run the warpgroup (wgmma) kernels
+BF16_SOURCES = {"K2": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
+                "K3": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K6": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
+                "K7": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K3b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh",
                 "K6b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh"}
 # kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16, through every
@@ -2737,6 +2743,22 @@ def bf16_bound(tensors, flops):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def kernel_r_terms(torch, qkv, rh, rw, out, lse, scale, k_hw, heads):
+    """Kernel R's bfloat16 rel terms (B·H, N, k_h + k_w) of K2's bfloat16
+    operands, read from the scratch of the bfloat16 K2 backward's C entry,
+    which runs kernel R before its passes (the forward forms them inside the
+    warpgroup kernel and keeps none); ``out`` and ``lse`` are the forward's."""
+    from mia_tpu_torch.ops import attention
+
+    b, n, _ = qkv.shape
+    terms = torch.empty(b * heads, n, sum(k_hw), device=qkv.device, dtype=qkv.dtype)
+    attention._call("K2 bf16 backward", "mia_attention_rel_packed_ik_bwd_bf16", qkv,
+                    (qkv, rh, rw, out, torch.zeros_like(out), lse, torch.empty_like(qkv),
+                     torch.empty_like(lse), terms, torch.empty_like(terms),
+                     torch.empty(out.shape, device=qkv.device), None), k_hw, heads, scale)
+    return terms
+
+
 def bf16_kernel_phase(torch, device):
     """K2, K3 and K4 in bfloat16 at the float32 cases' shapes: K2's and K3's
     outputs at the forwards' ulp measure (``bf16_fwd_hold``), K4's within one
@@ -2772,32 +2794,19 @@ def bf16_kernel_phase(torch, device):
             bf16_fwd_hold(torch, name, label, got, want, worst_ulps)
         worst[name] = [max(worst[name][0], err), max(worst[name][1], err / ref)]
 
-    def launch_k2_terms(qkv, rh_, rw_, sc, k_hw, n_heads):
-        """K2 in bfloat16 through its C entry, keeping kernel R's rel terms
-        (the wrapper's launch, which the serving path makes, drops them)."""
-        b, n, _ = qkv.shape
-        out = torch.empty(b, n, qkv.shape[-1] // 3, device=device, dtype=bf)
-        lse = torch.empty(b * n_heads, n, device=device)
-        terms = torch.empty(b * n_heads, n, sum(k_hw), device=device, dtype=bf)
-        attention._call("K2 bf16", "mia_attention_rel_packed_ik_bf16", qkv,
-                        (qkv, rh_, rw_, out, lse, terms), k_hw, n_heads, sc)
-        return out, lse, terms
-
     def hold_attention(name, label, args):
         """The wrapper's output against the plain version's, its log-sum-exp
         against the plain one of the same scores, and two launches. K2's rel
         terms are float32 sums rounded once to bfloat16, in another order
         than the plain version's: a term may round one ulp apart, which moves
         the scores by that ulp. So kernel R's terms are held to one ulp
-        (and 99% bit-equal), and the log-sum-exp to the plain one of the
-        kernel's own terms."""
+        (and 99% bit-equal), and the log-sum-exp to the plain one of kernel
+        R's terms, which the warpgroup kernel forms in kernel R's order."""
         qkv, rel_a, rel_b, sc, k_hw, n_heads = args
         if name == "K2":
             out, lse = attention._launch_k2(*args, with_lse=True)
-            out_c, lse_c, terms = launch_k2_terms(*args)
+            terms = kernel_r_terms(torch, qkv, rel_a, rel_b, out, lse, sc, k_hw, n_heads)
             torch.cuda.synchronize()
-            check(torch.equal(out, out_c) and torch.equal(lse, lse_c),
-                  f"K2 bf16 {label}: the wrapper's launch differs from its C entry's")
             want_h, want_w = attention.window_rel_terms(qkv, rel_a, rel_b, k_hw, n_heads)
             want_terms = torch.cat([want_h, want_w], -1)
             diff = (terms.float() - want_terms.float()).abs()
@@ -2864,7 +2873,7 @@ def bf16_kernel_phase(torch, device):
           f"plain, at least {worst_ulps['K2'][1]:.5f} / {worst_ulps['K3'][1]:.5f} bit-equal "
           f"(limits {BF16_FWD_ULPS}, {BF16_MIN_EQUAL}; worst relative "
           f"{worst['K2'][1]:.3g} / {worst['K3'][1]:.3g}), log-sum-exp within "
-          f"{worst_lse['K2']:.3g} / {worst_lse['K3']:.3g} (limit {LSE_TOL}; K2's on its own "
+          f"{worst_lse['K2']:.3g} / {worst_lse['K3']:.3g} (limit {LSE_TOL}; K2's on kernel R's "
           f"rel terms, of which at least {worst_terms[0]:.4f} equal the plain ones bit for bit, "
           f"the rest one ulp apart); K4 within one "
           f"bfloat16 ulp an element (max |diff| {worst['K4'][0]:.3g}), statistics within "
@@ -3268,10 +3277,14 @@ def bf16_route_kernel_phase(torch, device):
                                   bias_kv], flops)}
         q, k, v = args[:3]
         bh, n, d = q.shape
-        if name == "K7":
+        if name == "K7":  # the warpgroup instance at head dim 64: both queued, in turns
             bias, sc = args[3], args[4]
-            return {"library_ms": sdpa_ms(torch, q[None], k[None], v[None], bias[None].to(bf), sc,
-                                          10),
+            mask = bias[None].to(bf)  # the library's bfloat16 bias, built beforehand
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ms, lib_ms = library_turns_ms(
+                torch, f"K7 bf16 ({bh}, {n}, {d})", lambda: attention._launch_k7(*args),
+                lambda: sdpa(q[None], k[None], v[None], attn_mask=mask, scale=sc), 20)
+            return {"ms": ms, "device_ms": ms, "library_ms": lib_ms,
                     **bf16_bound([q, k, v, bias, q], attention_flops(bh, n, n, d))}
         rel_h, rel_w = args[3:5]
         bias = dense_bias(rel_h, rel_w, 1, bh)

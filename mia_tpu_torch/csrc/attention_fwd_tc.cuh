@@ -128,6 +128,14 @@ namespace {
 
 constexpr int kBiasPad = 8;  // floats of padding a row of K7's staged bias tile
 
+// One chunk of a rel term's float32 dot. Kernel R (attention_rel.cu) and the
+// warpgroup K2 (attention_fwd_wgmma.cuh) sum every term as 16 of these in
+// turn: on bfloat16 values the products are exact in float32, so any
+// contraction gives the same bits, and their terms agree bit for bit.
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w);
+}
+
 // The bias of the template and its layout (see the header).
 enum BiasKind { kRelTables = 0, kRelTerms = 1, kDense = 2, kRelWindow = 3 };
 
@@ -168,15 +176,15 @@ inline FwdArgs head_major_args(const void* q, const void* k, const void* v, void
 }
 
 // One tile of K7's dense bias: rows row0 .. row0+63 and keys key0 ..
-// key0+kKeys-1 of (image, head) bh into a [64][kKeys + kBiasPad] tile;
-// entries past n are zero-filled (they are masked, never read as a bias).
-// vec4: 16-byte copies, which need n % 4 == 0 (every run of 4 keys then
-// lies inside one row and starts 16-byte aligned).
-template <int kKeys>
+// key0+kKeys-1 of (image, head) bh into a [64][kBRow] tile (rows of kKeys +
+// kBiasPad floats unless said); entries past n are zero-filled (they are
+// masked, never read as a bias). vec4: 16-byte copies, which need n % 4 ==
+// 0 (every run of 4 keys then lies inside one row and starts 16-byte
+// aligned).
+template <int kKeys, int kBRow = kKeys + kBiasPad>
 __device__ __forceinline__ void copy_bias_async(float* dst, const float* __restrict__ bias,
                                                 long long bh, int n, int row0, int key0,
                                                 bool vec4) {
-  constexpr int kBRow = kKeys + kBiasPad;
   const float* src = bias + (bh * n + row0) * n + key0;
   if (vec4) {
     constexpr int kC = kKeys / 4;
@@ -555,10 +563,12 @@ int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
 // float32 (B*H, n, n) bias the JAX encoder hands its kernel) and K8
 // (kRelWindow: windows carved from the bfloat16 qkv grid by the slot map of
 // attention_window.cuh, pad slots from the bfloat16 pad_kv rows, lse by
-// token). K3 and K6 at head dim 64 with kh + kw <= 64 run the warpgroup
-// kernel of attention_fwd_wgmma.cuh instead (the rule is attention_fwd_wgmma.cu's
-// mia_attention_rel_fwd_wgmma_takes); this instance keeps their head dim 80
-// and larger key grids (the 64 x 64 grid of 4096 tokens). Same block and
+// token). K3 and K6 at head dim 64 with kh + kw <= 64, K2 at head dim 64 on
+// windows of at most 200 tokens and K7 at head dim 64 with n % 4 == 0 run
+// the warpgroup kernels of attention_fwd_wgmma.cuh instead (the rules are
+// attention_fwd_wgmma.cu's mia_attention_{rel,rel_ik,dense}_fwd_wgmma_takes);
+// this instance keeps K8, head dim 80, larger key grids (the 64 x 64 grid
+// of 4096 tokens) and K7's odd n (the smoke's 35). Same block and
 // warp layout as the float32 template (64 queries a block, 16 a warp, key
 // tiles of kKeys keys in two cp.async stages; K7's bias tile a third part of
 // each stage), with one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three

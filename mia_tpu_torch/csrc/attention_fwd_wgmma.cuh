@@ -1,37 +1,56 @@
-// K3 and K6 in bfloat16 on Hopper's warpgroup products: the forward of the
-// rel-pos attention at head dim 64 with kh + kw <= 64, redesigned from the
-// bfloat16 mma.sync instance of attention_fwd_tc.cuh. attention_rel.cu's
-// bfloat16 forward entries (packed and head-major layouts) call the C entry
-// of attention_fwd_wgmma.cu, which builds the tensor maps and launches this
-// kernel.
+// The bfloat16 attention forwards on Hopper's warpgroup products at head
+// dim 64: K3, K6 (rel terms, kh + kw <= 64), K2 (the rel terms computed here
+// from the two gathered tables) and K7 (a float32 dense bias), redesigned
+// from the bfloat16 mma.sync instance of attention_fwd_tc.cuh. The C entries
+// of attention_fwd_wgmma.cu build the tensor maps and launch these kernels;
+// attention_rel.cu's bfloat16 forward entries (K2, K3, K6) and
+// attention_routes.cu's (K7) call them for the calls their rules take.
 //
 // Replaces the TPU forward kernels of mia_tpu/ops/attention.py
-//   K3  fused_attention_rel_packed  (_attn_rel_packed_kernel), global blocks, packed qkv
-//   K6  fused_attention_rel         (_attn_rel_kernel), the head-major route
-// on bfloat16 operands. Head dim 80 (ViT-H) and key grids with kh + kw > 64
-// (a 64 x 64 global grid at 1024 pixels) stay on the mma.sync instance
-// attention_fwd_bf16_kernel<D, kRelTerms, 64>, as K2, K7 and K8 do, whose
-// two walks round P where this kernel does.
+//   K3  fused_attention_rel_packed     (_attn_rel_packed_kernel), global blocks, packed qkv
+//   K6  fused_attention_rel            (_attn_rel_kernel), the head-major route
+//   K2  fused_attention_rel_packed_ik  (_attn_rel_packed_ik_kernel), windows, packed qkv
+//   K7  fused_attention                (_attn_kernel), head-major, dense float32 bias
+// on bfloat16 operands. Head dim 80 (ViT-H), key grids with kh + kw > 64 (a
+// 64 x 64 global grid at 1024 pixels), K2 windows past 200 tokens or whose
+// tables do not fit the staging below, and K7 with n % 4 != 0 stay on the
+// mma.sync instance attention_fwd_bf16_kernel<D, kBias, 64>, as K8 does,
+// whose two walks round P where these kernels do.
 //
-// What it computes, with the Pallas kernels' roundings: q * scale rounded
-// to bfloat16 with the scale rounded first; S = q_aug . k_aug^T, one float32
-// product with the rel terms folded in as the Pallas kernels fold them
-// ([q * scale | rel_h | rel_w | 0] against [k | E_h | E_w | 0], kAug = 96 or
-// 128 columns, wgmma_bf16.cuh); the softmax's maximum m and sum l in
-// float32; p = exp(S - m) / l, the normalised probabilities, rounded to
-// bfloat16 where the Pallas kernels round (p / denom).astype(v.dtype); O =
-// P . V a float32 sum rounded once to bfloat16; lse = m + log l.
+// What they compute, with the Pallas kernels' roundings:
+//   K3, K6, K2: q * scale rounded to bfloat16 with the scale rounded first;
+//     S = q_aug . k_aug^T, one float32 product with the rel terms folded in
+//     as the Pallas kernels fold them ([q * scale | rel_h | rel_w | 0]
+//     against [k | E_h | E_w | 0], kAug = 96 or 128 columns,
+//     wgmma_bf16.cuh). K2's rel terms are the Pallas kernel's candidate
+//     product: rel_h[r, j] = q_r . rh[y_r kh + j], rel_w[r, j] = q_r .
+//     rw[x_r kw + j] from the UNSCALED q (y_r, x_r = divmod(r, kw)), a
+//     float32 sum of the exact products rounded once to bfloat16, formed
+//     here before q is scaled (rel_terms_sw128; the sum in kernel R's order,
+//     so the terms equal kernel R's bit for bit);
+//   K7: S = (q . k^T) * scale + bias in float32, _attn_kernel's order: the
+//     scale multiplies the float32 product (q is not scaled in bfloat16),
+//     the float32 bias is added to it; -inf keys are guarded as in the
+//     mma.sync instance (a row whose maximum is still -inf takes 0 as its
+//     reference point);
+// then the softmax's maximum m and sum l in float32; p = exp(S - m) / l,
+// the normalised probabilities, rounded to bfloat16 where the Pallas kernels
+// round (p / denom).astype(v.dtype); O = P . V a float32 sum rounded once to
+// bfloat16; lse = m + log l (not K7).
 //
 // One block a 64-query tile of one (image, head): one warpgroup (128
-// threads), two blocks an SM (207 registers; 97 KB of shared memory a
-// block). Tiles are in the 128-byte swizzle (below), each copy one TMA box.
-// q_aug is staged in shared memory once: q by TMA, the rel rows and the zero
-// columns by the threads, the scale applied in place. Keys stream 128 a
-// step (S is one m64n128 product a k16 step): k (and v) by TMA through two
-// stages on mbarriers, the next step's copy in flight while one is
-// computed; the step's one-hot block (128 keys x the rel columns) written
-// by the threads, one key a thread, during the step before. Two walks over
-// the keys:
+// threads), two blocks an SM. Tiles are in the 128-byte swizzle (below),
+// each copy one TMA box. q_aug is staged in shared memory once: q by TMA,
+// the rel rows and the zero columns by the threads, the scale applied in
+// place (K7: q alone, 64 columns, as it landed).
+//
+// Two walks (attention_fwd_wgmma_kernel: K3, K6, and K2 and K7 past 200
+// keys). Keys stream 128 a step (S is one m64n128 product a k16 step): k
+// (and v) by TMA through two stages on mbarriers, the next step's copy in
+// flight while one is computed; the step's one-hot block (128 keys x the rel
+// columns) written by the threads, one key a thread, during the step before
+// (K7: the step's float32 bias tile by cp.async into one buffer, the next
+// step's copy issued once every thread has added this one):
 //   pass 1 (the statistics): k alone (no V is loaded); S as SS wgmma
 //     m64n128k16, depth kAug; the rows' maximum and sum online in float32,
 //     a 64-key tile at a time (each thread's share of a row's sum, added
@@ -43,8 +62,16 @@
 //     from zero and is added to O in float32, tile by tile (the tensor
 //     cores' sums are not rounded to nearest), with no rescale (m and l are
 //     final).
-// So the kernel walks the CPU model's tile order
-// (tests/test_torch_bf16_fwd_fold.py). Each product group is waited for
+// One walk (attention_fwd_wgmma_window_kernel: K2's and K7's windows of up
+// to 200 keys, 196 in every SAM encoder): the window's k (200 rows) and v
+// (208) land by TMA once, and S is one m64n200k16 product a k16 step, 100
+// float32 values a thread: the rows' exact maximum, then e = exp(S - m) in
+// place and l its sum, then p = bf16(e / l), and P . V in the same 64-key
+// tiles added to O in float32 (keys 196 .. 207 at p = 0). The S product,
+// its copy of k and K7's bias are read once where two walks read them
+// twice, and each pair takes one exponential where two walks take two.
+// So both walk the CPU models' tile order (tests/test_torch_bf16_fwd_fold.py,
+// tests/test_torch_bf16_fwd_fold_k2k7.py). Each product group is waited for
 // before its results are read. Keys past n score -inf; rows past n (the
 // next image's tokens, or zeros past the tensor) are computed and not
 // written. No atomics: two launches are bit-identical. The exponentials are
@@ -59,19 +86,25 @@
 // nothing at one block an SM and cost blocks at B=8; 128 keys a step halve
 // the steps' fixed costs (barriers, waits, copies). A lone block still runs
 // S, the exponentials and P . V one after another, and two warpgroups an SM
-// hide part of it.
+// hide part of it. K2's terms: the tile's table rows (at most 280, 40 KB)
+// are staged in shared memory where the one-hot block goes next, rw's
+// transposed so that the rows a warp reads at once fall in distinct banks;
+// read straight from L1 a warp would touch up to 14 lines an access. The
+// one walk's shared memory (110 / 113 KB) still fits two blocks an SM.
 //
 // Against what held the mma.sync instance (ROADMAP, PERF.md): one wave of
 // 4-warp blocks each walking its key tiles with m16n8k16 chains, and the
 // factored rel bias added per score on the CUDA cores (about a third of
-// its time). Here the products are warpgroup products and the bias is in
-// the S product.
+// its time), K2's terms from kernel R in a launch and a scratch of their
+// own, K7's bias tile read in both walks.
 //
 // Work: the statistics pass and the fold make 640 flops (S twice at depth
-// 128, P.V once) and 2 exponentials a (query, key) pair; the function's own
-// work is 4 D = 256 flops a pair. Bound (chip_smoke.py computes it): the
-// function's 4 D flops a pair at 989 TFLOP/s dense bfloat16, or the bytes
-// (qkv, the rel terms, out once) at 3.35 TB/s, whichever is larger.
+// 128, P.V once) and 2 exponentials a (query, key) pair; K2's one walk at
+// depth 96 makes 320 and 1, K7's 256 and 1 (S at depth 64), over 64-row
+// tiles, 200 keys in S and 208 in P.V; the function's own work is 4 D = 256
+// flops a pair. Bound (chip_smoke.py computes it): the function's 4 D flops
+// a pair at 989 TFLOP/s dense bfloat16, or the bytes (qkv, the rel terms or
+// tables or K7's float32 bias, out once) at 3.35 TB/s, whichever is larger.
 
 #pragma once
 
@@ -166,6 +199,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 200, float32) = or += A . B^T, A and B K-major in shared memory (acc 0:
+// overwrite): the one S product of a window of up to 200 keys
+__device__ __forceinline__ void wgmma_ss_n200(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %102, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99}, "
+      "%100, %101, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 constexpr int kKeyTile = 128;           // keys a step: S is one m64n128 product
 constexpr int kKBlock = kKeyTile * 64;  // elements of a 128-row block
 static_assert(kWgThreads == kKeyTile, "build_onehot_sw128 writes one key a thread");
@@ -200,15 +264,22 @@ __device__ __forceinline__ void build_onehot_sw128(bf16* E, int key0, int n, int
   }
 }
 
-// q_aug (two 64-row blocks), the one-hot block, two stages of k and of v
-// (one 128-row block each), three barriers, and 1 KB to align the first block
+// q_aug (two 64-row blocks; K7: q's one), the one-hot block (not K7), two
+// stages of k and of v (one 128-row block each), K7's bias tile [64][128 +
+// kBiasPad] float32, three barriers, and 1 KB to align the first block
+template <bool kDense>
 constexpr size_t wg_fwd_smem_bytes() {
-  return sizeof(bf16) * (2 * kBlock + 5 * kKBlock) + sizeof(uint64_t) * 3 + 1024;
+  return sizeof(bf16) * ((kDense ? 1 : 2) * kBlock + (kDense ? 4 : 5) * kKBlock) +
+         (kDense ? sizeof(float) * kWgRows * (kKeyTile + kBiasPad) : 0) + sizeof(uint64_t) * 3 +
+         1024;
 }
 
 // One step of the row statistics over the 64 keys of accumulator columns
 // 64 h .. 64 h + 63 (a 64-key tile of the CPU model): the new maxima, the
-// rescale of what came before, this thread's share of the sums
+// rescale of what came before, this thread's share of the sums. kGuard
+// (K7, whose bias may be -inf): while a row's maximum is -inf the reference
+// point is 0, so that exp(-inf - -inf) is never formed
+template <bool kGuard>
 __device__ __forceinline__ void row_stats(const float* s, float& m0, float& m1, float& l0,
                                           float& l1) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -220,30 +291,79 @@ __device__ __forceinline__ void row_stats(const float* s, float& m0, float& m1, 
   quad_max(mx0, mx1);
   const float mn0 = fmaxf(m0, mx0);
   const float mn1 = fmaxf(m1, mx1);
-  l0 *= expf(m0 - mn0);
-  l1 *= expf(m1 - mn1);
+  const float ms0 = kGuard && mn0 == -INFINITY ? 0.f : mn0;
+  const float ms1 = kGuard && mn1 == -INFINITY ? 0.f : mn1;
+  l0 *= expf(m0 - ms0);
+  l1 *= expf(m1 - ms1);
   m0 = mn0;
   m1 = mn1;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    l0 += expf(s[4 * j] - m0) + expf(s[4 * j + 1] - m0);
-    l1 += expf(s[4 * j + 2] - m1) + expf(s[4 * j + 3] - m1);
+    l0 += expf(s[4 * j] - ms0) + expf(s[4 * j + 1] - ms0);
+    l1 += expf(s[4 * j + 2] - ms1) + expf(s[4 * j + 3] - ms1);
   }
 }
 
-template <int kAug>
+// K7: s = s * scale + bias in float32, _attn_kernel's order, over the nj
+// 8-key groups of a thread's accumulator; keys past n score -inf. Bs: the
+// bias tile, rows of kBRow floats (the rows' stride puts a warp's float2
+// reads in 32 banks a half-warp); k0: the key of accumulator column 0
+template <int nj, int kBRow>
+__device__ __forceinline__ void scale_add_bias(float* s, const float* Bs, int lr0, int tq, int k0,
+                                               int n, float scale) {
+#pragma unroll
+  for (int j = 0; j < nj; ++j) {
+    const float2 b0 = *reinterpret_cast<const float2*>(Bs + lr0 * kBRow + 8 * j + 2 * tq);
+    const float2 b1 = *reinterpret_cast<const float2*>(Bs + (lr0 + 8) * kBRow + 8 * j + 2 * tq);
+    const int key = k0 + 8 * j + 2 * tq;
+    const bool in0 = key < n;
+    const bool in1 = key + 1 < n;
+    s[4 * j] = in0 ? __fadd_rn(__fmul_rn(s[4 * j], scale), b0.x) : -INFINITY;
+    s[4 * j + 1] = in1 ? __fadd_rn(__fmul_rn(s[4 * j + 1], scale), b0.y) : -INFINITY;
+    s[4 * j + 2] = in0 ? __fadd_rn(__fmul_rn(s[4 * j + 2], scale), b1.x) : -INFINITY;
+    s[4 * j + 3] = in1 ? __fadd_rn(__fmul_rn(s[4 * j + 3], scale), b1.y) : -INFINITY;
+  }
+}
+
+// out = O rounded to bfloat16 (rows q and q + 8 of the thread's fragment,
+// columns col .. of each 8-column group) and lse = m + log l, each row's
+// once; rows past n are not written, nor the lse where a.lse is null
+__device__ __forceinline__ void store_out_lse(const Bf16FwdArgs& a, const float* o, float m0,
+                                              float m1, float l0, float l1, long long tok0,
+                                              long long bh, int q, int col, int tq, int n) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q + 8 * half;
+    if (r >= n) continue;
+    bf16* dst = a.out + (tok0 + r) * a.out_stride + col;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16x2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+    if (a.lse != nullptr && tq == 0) a.lse[bh * n + r] = (half ? m1 : m0) + logf(half ? l1 : l0);
+  }
+}
+
+// The two walks. kDense: K7 (kAug 64, q alone, the float32 bias tile);
+// else K3 / K6 (kAug 96 or 128, the rel terms folded in)
+template <int kAug, bool kDense>
 __global__ void __launch_bounds__(kWgThreads, 2)
     attention_fwd_wgmma_kernel(const Bf16FwdArgs a,
                                const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v) {
+  static_assert(!kDense || kAug == kWgD, "K7 folds nothing into q");
   constexpr int D = kWgD;
+  constexpr int kBRow = kKeyTile + kBiasPad;  // K7: floats a row of the bias tile
   extern __shared__ unsigned char wg_smem[];
   bf16* Qa = reinterpret_cast<bf16*>(wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023));
-  bf16* E = Qa + 2 * kBlock;  // the one-hot block of a step's keys (k_aug's columns 64-)
-  bf16* Kt = E + kKBlock;     // [stage]: k of the streamed keys
+  // the one-hot block of a step's keys (k_aug's columns 64-)
+  bf16* E = Qa + (kDense ? 1 : 2) * kBlock;
+  bf16* Kt = E + (kDense ? 0 : kKBlock);     // [stage]: k of the streamed keys
   bf16* Vt = Kt + 2 * kKBlock;  // [stage]: their v (pass 2)
-  uint64_t* bar = reinterpret_cast<uint64_t*>(Vt + 2 * kKBlock);  // [0]: Qa; [1 + stage]
+  float* Bs = reinterpret_cast<float*>(Vt + 2 * kKBlock);  // K7: the step's bias tile [64][kBRow]
+  // [0]: Qa; [1 + stage]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Bs + (kDense ? kWgRows * kBRow : 0));
   const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw;
   const int t = threadIdx.x;
   const int warp = t >> 5;
@@ -279,14 +399,20 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     tma_box(Qa, &tm_q, hcol, static_cast<int>(tok0) + row0, bar);
     issue(0);
   }
-  // the rel rows and the zero columns beside q (plain loads: once a block),
-  // and the first step's one-hot block
-  const float inv_kw = 1.f / kw;
-  stage_rel_rows_sw128<kAug>(Qa + kBlock, a.rel_a, a.rel_b, bh, n, kh, kw, row0);
-  build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
-  mbar_wait(bar, 0);
-  scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
-  fence_proxy_async();
+  const float inv_kw = kDense ? 0.f : 1.f / kw;
+  if constexpr (kDense) {  // the first step's bias tile; q is read as it lands
+    copy_bias_async<kKeyTile>(Bs, a.bias, bh, n, row0, 0, true);
+    cp_async_commit();
+    mbar_wait(bar, 0);
+  } else {
+    // the rel rows and the zero columns beside q (plain loads: once a block),
+    // and the first step's one-hot block
+    stage_rel_rows_sw128<kAug>(Qa + kBlock, a.rel_a, a.rel_b, bh, n, kh, kw, row0);
+    build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
+    mbar_wait(bar, 0);
+    scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
+    fence_proxy_async();
+  }
   __syncthreads();
 
   // this thread's rows lr0 = 16 warp + g and lr0 + 8 of the accumulators
@@ -318,9 +444,21 @@ __global__ void __launch_bounds__(kWgThreads, 2)
       wgmma_ss_n128(s, sw128_desc_k(Qa, kk), sw128_desc(kk < 4 ? K + kk * 16 : E + (kk - 4) * 16),
                     kk);
     wgmma_commit();
+    if constexpr (kDense) {  // the step's bias tile in place, while the product runs
+      cp_async_wait<0>();
+      __syncthreads();
+    }
     wgmma_wait0();
     fence_regs<64>(s);
-    if (k0 + kKeyTile > n) {  // the last step: keys past n score -inf
+    if constexpr (kDense) {
+      scale_add_bias<16, kBRow>(s, Bs, lr0, tq, k0, n, a.scale);
+      __syncthreads();  // every thread has read the tile: the next step's copy goes in
+      if (step + 1 < nsteps) {
+        const int next = step + 1 < ntiles ? step + 1 : step + 1 - ntiles;
+        copy_bias_async<kKeyTile>(Bs, a.bias, bh, n, row0, next * kKeyTile, true);
+        cp_async_commit();
+      }
+    } else if (k0 + kKeyTile > n) {  // the last step: keys past n score -inf
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -331,30 +469,35 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     // the next step's one-hot block, once every warp's S product has read
     // this one
     auto next_onehot = [&] {
-      __syncthreads();
-      if (step + 1 < nsteps) {
-        const int next = step + 1 < ntiles ? step + 1 : step + 1 - ntiles;
-        build_onehot_sw128<kAug>(E, next * kKeyTile, n, kh, kw, inv_kw);
-        fence_proxy_async();
+      if constexpr (!kDense) {
+        __syncthreads();
+        if (step + 1 < nsteps) {
+          const int next = step + 1 < ntiles ? step + 1 : step + 1 - ntiles;
+          build_onehot_sw128<kAug>(E, next * kKeyTile, n, kh, kw, inv_kw);
+          fence_proxy_async();
+        }
       }
     };
 
     if (!pv) {  // pass 1: the online maximum and sum, a 64-key tile at a time
       next_onehot();
-      row_stats(s, m0, m1, l0, l1);
-      if (k0 + kWgRows < n) row_stats(s + 32, m0, m1, l0, l1);
+      row_stats<kDense>(s, m0, m1, l0, l1);
+      if (k0 + kWgRows < n) row_stats<kDense>(s + 32, m0, m1, l0, l1);
       if (step == ntiles - 1) {  // the rows' sums over their four threads
         quad_sum(l0, l1);
         inv0 = 1.f / l0;
         inv1 = 1.f / l1;
       }
     } else {  // pass 2: P = bf16(exp(S - m) / l), O += P . V
+      // K7: a row with no finite key has l = 0 and gives 0 / 0, as the plain softmax
+      const float ms0 = kDense && m0 == -INFINITY ? 0.f : m0;
+      const float ms1 = kDense && m1 == -INFINITY ? 0.f : m1;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        s[4 * j] = div_rn(expf(s[4 * j] - m0), l0, inv0);
-        s[4 * j + 1] = div_rn(expf(s[4 * j + 1] - m0), l0, inv0);
-        s[4 * j + 2] = div_rn(expf(s[4 * j + 2] - m1), l1, inv1);
-        s[4 * j + 3] = div_rn(expf(s[4 * j + 3] - m1), l1, inv1);
+        s[4 * j] = div_rn(expf(s[4 * j] - ms0), l0, inv0);
+        s[4 * j + 1] = div_rn(expf(s[4 * j + 1] - ms0), l0, inv0);
+        s[4 * j + 2] = div_rn(expf(s[4 * j + 2] - ms1), l1, inv1);
+        s[4 * j + 3] = div_rn(expf(s[4 * j + 3] - ms1), l1, inv1);
       }
       uint32_t pa[8][4];
 #pragma unroll
@@ -388,17 +531,285 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   }
 
   // out = O rounded to bfloat16, lse = m + log l, each row's once
+  store_out_lse(a, o, m0, m1, l0, l1, tok0, bh, row0 + lr0, hcol + 2 * tq, tq, n);
+}
+
+// ---------------------------------------------------------------------------
+// The one walk over a window of up to 200 keys (K2 and K7)
+// ---------------------------------------------------------------------------
+
+constexpr int kWinKeys = 200;   // keys of the window's S product (m64n200k16)
+constexpr int kWinVRows = 208;  // rows of v: 13 k16 steps of P . V, keys 200 .. 207 at p = 0
+constexpr int kStageRows = 280; // K2: table rows a tile stages (14 x 14 windows: 6 x 14 + 196)
+constexpr int kStageRow = 72;   // K2: elements a staged row (64 and 8 of padding: 144 bytes)
+
+// K2: the table rows a 64-query tile reads, at most: the rows of rh_flat of
+// each row y of the window its queries lie in (at most 63 / kw + 2 of them,
+// and q_h), and the whole of rw_flat (kw x kw)
+__host__ __device__ constexpr int k2_stage_rows(int n, int kh, int kw) {
+  return (n / kw < 63 / kw + 2 ? n / kw : 63 / kw + 2) * kh + kw * kw;
+}
+
+// K2: the table rows query rows row0 .. row0+63 read, by cp.async into T
+// (rows of kStageRow elements): rh_flat's rows y kh + j for the tile's rows
+// y = y_lo .. y_hi at (y - y_lo) kh + j, then rw_flat's row x kw + j at
+// h_rows + j kw + x (transposed: the 14 rows a warp of w-terms reads at one
+// j are consecutive, so they fall in distinct banks). Returns h_rows.
+__device__ __forceinline__ int stage_table_rows(bf16* T, const bf16* __restrict__ rh,
+                                                const bf16* __restrict__ rw, int n, int kh, int kw,
+                                                int row0) {
+  const int y_lo = row0 / kw;
+  const int y_hi = (min(row0 + kWgRows, n) - 1) / kw;
+  const int h_rows = (y_hi - y_lo + 1) * kh;
+  const int rows = h_rows + kw * kw;
+  for (int i = threadIdx.x; i < rows * (kWgD / 8); i += kWgThreads) {
+    const int r = i >> 3;
+    const int c = i & 7;
+    const bf16* src;
+    int dst;
+    if (r < h_rows) {
+      src = rh + static_cast<long long>(y_lo * kh + r) * kWgD;
+      dst = r;
+    } else {
+      const int w = r - h_rows;
+      const int x = w / kw;
+      src = rw + static_cast<long long>(w) * kWgD;
+      dst = h_rows + (w - x * kw) * kw + x;
+    }
+    cp_async16_bytes(T + dst * kStageRow + 8 * c, src + 8 * c, true);
+  }
+  return h_rows;
+}
+
+// K2: columns 0 .. 31 of q_aug's second block Q1 for query rows row0 ..
+// row0+63: rel_h | rel_w | 0 from the unscaled q (Q0) and the staged table
+// rows T, each term a float32 sum over 64 in kernel R's order (16 chunks of
+// 4, in turn) rounded once to bfloat16; zeros for rows past n. Two threads a
+// row: the h terms (threads 0-63), the w terms and the zero columns (64-127).
+template <int kAug>
+__device__ __forceinline__ void rel_terms_sw128(bf16* Q1, const bf16* Q0, const bf16* T,
+                                                int h_rows, int n, int kh, int kw, int row0) {
+  const int r = threadIdx.x & (kWgRows - 1);
+  const bool w_half = threadIdx.x >= kWgRows;
+  const int tok = row0 + r;
+  const int col0 = w_half ? kh : 0;
+  const int count = w_half ? kw : kh;
+  const int end = w_half ? kAug - kWgD : kh;  // the columns this thread writes
+  int f = col0;
+  if (tok < n) {
+    const int y = tok / kw;
+    const int x = tok - y * kw;
+    float4 q[16];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint4 u = *reinterpret_cast<const uint4*>(Q0 + sw128_off(r, 8 * c));
+      q[2 * c] = make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+      q[2 * c + 1] = make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w));
+    }
+    // term j's row: (y - y_lo) kh + j, or h_rows + j kw + x
+    const bf16* row = w_half ? T + (h_rows + x) * kStageRow : T + (y - row0 / kw) * kh * kStageRow;
+    const int next = w_half ? kw * kStageRow : kStageRow;
+    for (int j = 0; j < count; ++j, row += next, ++f) {
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * c);
+        acc += dot4(q[2 * c], make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y)));
+        acc += dot4(q[2 * c + 1],
+                    make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w)));
+      }
+      Q1[sw128_off(r, f)] = __float2bfloat16_rn(acc);
+    }
+  }
+  for (; f < end; ++f) Q1[sw128_off(r, f)] = __float2bfloat16_rn(0.f);
+}
+
+// q_aug (K2: two blocks; K7: q's one), k (200 rows), v (208 rows), then
+// K2's staged table rows, which the one-hot block of 200 keys overlays
+// next, or K7's bias tile [64][200] float32; three barriers and 1 KB to
+// align the first block
+static_assert(kStageRows * kStageRow >= kWinKeys * kWgD, "the one-hot block fits the staging");
+template <bool kTables>
+__host__ __device__ constexpr size_t wg_win_x_bytes() {
+  return kTables ? sizeof(bf16) * kStageRows * kStageRow : sizeof(float) * kWgRows * kWinKeys;
+}
+template <bool kTables>
+constexpr size_t wg_win_smem_bytes() {
+  return sizeof(bf16) * ((kTables ? 2 : 1) * kBlock + (kWinKeys + kWinVRows) * kWgD) +
+         wg_win_x_bytes<kTables>() + sizeof(uint64_t) * 3 + 1024;
+}
+
+// kTables: K2 (kAug 96, the rel terms from the tables rh_flat = a.rel_a,
+// rw_flat = a.rel_b); else K7 (kAug 64, the float32 bias a.bias)
+template <bool kTables>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    attention_fwd_wgmma_window_kernel(const Bf16FwdArgs a,
+                                      const __grid_constant__ CUtensorMap tm_q,
+                                      const __grid_constant__ CUtensorMap tm_k,
+                                      const __grid_constant__ CUtensorMap tm_v) {
+  constexpr int D = kWgD;
+  constexpr int kAug = kTables ? 96 : 64;
+  constexpr int kJ = kWinKeys / 8;  // 8-key groups of a thread's accumulator
+  extern __shared__ unsigned char wg_smem[];
+  bf16* Qa = reinterpret_cast<bf16*>(wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023));
+  bf16* K = Qa + (kTables ? 2 : 1) * kBlock;
+  bf16* V = K + kWinKeys * D;
+  bf16* E = V + kWinVRows * D;  // K2: the one-hot block (the staged table rows before it)
+  float* Bs = reinterpret_cast<float*>(E);  // K7: the bias tile [64][200]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(E) +
+                                              wg_win_x_bytes<kTables>());  // q, k, v
+  const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int head = blockIdx.y;
+  const long long img = blockIdx.z;
+  const long long tok0 = img * n;
+  const long long bh = img * heads + head;
+  const int row0 = blockIdx.x * kWgRows;
+  const int hcol = head * D;
+
+  if (t == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    mbar_init(bar + 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {  // q, the window's k and v: each one box
+    mbar_expect_tx(bar, kTileDBytes);
+    tma_box(Qa, &tm_q, hcol, static_cast<int>(tok0) + row0, bar);
+    mbar_expect_tx(bar + 1, kWinKeys * D * sizeof(bf16));
+    tma_box(K, &tm_k, hcol, static_cast<int>(tok0), bar + 1);
+    mbar_expect_tx(bar + 2, kWinVRows * D * sizeof(bf16));
+    tma_box(V, &tm_v, hcol, static_cast<int>(tok0), bar + 2);
+  }
+  if constexpr (kTables) {
+    // the rel terms from the unscaled q and the staged table rows, then the
+    // one-hot block over them, then q scaled in place
+    const int h_rows = stage_table_rows(E, a.rel_a, a.rel_b, n, kh, kw, row0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_wait(bar, 0);
+    __syncthreads();  // q and every staged row in place
+    rel_terms_sw128<kAug>(Qa + kBlock, Qa, E, h_rows, n, kh, kw, row0);
+    __syncthreads();  // the staged rows and q read
+    const float inv_kw = 1.f / kw;
+    build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
+    if (t < kWinKeys - kKeyTile)
+      build_onehot_sw128<kAug>(E + kKeyTile * D, kKeyTile, n, kh, kw, inv_kw);
+    scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
+    fence_proxy_async();
+    __syncthreads();
+  } else {  // the bias tile; q is read as it lands
+    copy_bias_async<kWinKeys, kWinKeys>(Bs, a.bias, bh, n, row0, 0, true);
+    cp_async_commit();
+    mbar_wait(bar, 0);
+  }
+
+  // S = q_aug . [k | E]^T over the window's keys: one m64n200 product of depth kAug
+  const int lr0 = warp * 16 + g;
+  float s[4 * kJ];
+  mbar_wait(bar + 1, 0);
+  fence_regs<4 * kJ>(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kAug / 16; ++kk)
+    wgmma_ss_n200(s, sw128_desc_k(Qa, kk), sw128_desc(kk < 4 ? K + kk * 16 : E + (kk - 4) * 16),
+                  kk);
+  wgmma_commit();
+  if constexpr (!kTables) {  // the bias tile in place, while the product runs
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  wgmma_wait0();
+  fence_regs<4 * kJ>(s);
+  if constexpr (kTables) {  // keys past n score -inf
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * tq + (e & 1) >= n) s[4 * j + e] = -INFINITY;
+    }
+  } else {
+    scale_add_bias<kJ, kWinKeys>(s, Bs, lr0, tq, 0, n, a.scale);
+  }
+
+  // the rows' exact maxima, e = exp(S - m) in place and their sums, then p =
+  // bf16(e / l). K7: a row with no finite key takes 0 as its reference
+  // point and gives 0 / 0, as the plain softmax
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+    m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  quad_max(m0, m1);
+  const float ms0 = !kTables && m0 == -INFINITY ? 0.f : m0;
+  const float ms1 = !kTables && m1 == -INFINITY ? 0.f : m1;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    s[4 * j] = expf(s[4 * j] - ms0);
+    s[4 * j + 1] = expf(s[4 * j + 1] - ms0);
+    s[4 * j + 2] = expf(s[4 * j + 2] - ms1);
+    s[4 * j + 3] = expf(s[4 * j + 3] - ms1);
+    l0 += s[4 * j] + s[4 * j + 1];
+    l1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  quad_sum(l0, l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    s[4 * j] = div_rn(s[4 * j], l0, inv0);
+    s[4 * j + 1] = div_rn(s[4 * j + 1], l0, inv0);
+    s[4 * j + 2] = div_rn(s[4 * j + 2], l1, inv1);
+    s[4 * j + 3] = div_rn(s[4 * j + 3], l1, inv1);
+  }
+  // P as the A fragments of P . V's 13 k16 steps: the last holds keys 192 ..
+  // 199 and zeros for keys 200 .. 207
+  uint32_t pa[13][4];
+#pragma unroll
+  for (int kk = 0; kk < 12; ++kk) pack_frag(pa[kk], s, kk);
+  pa[12][0] = pack_bf16x2(s[96], s[97]);
+  pa[12][1] = pack_bf16x2(s[98], s[99]);
+  pa[12][2] = pa[12][3] = 0u;
+
+  // O += P . V in the 64-key tiles, each from zero and added to O in float32
+  // tile by tile: tiles 0 and 1 as two chains, then tiles 2 and 3
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(bar + 2, 0);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int q = row0 + lr0 + 8 * half;
-    if (q >= n) continue;
-    bf16* dst = a.out + (tok0 + q) * a.out_stride + hcol + 2 * tq;
+    float pva[32], pvb[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16x2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
-    if (a.lse != nullptr && tq == 0) a.lse[bh * n + q] = (half ? m1 : m0) + logf(half ? l1 : l0);
+    for (int i = 0; i < 32; ++i) pva[i] = pvb[i] = 0.f;
+    fence_regs<32>(pva);
+    fence_regs<32>(pvb);
+    fence_regs<52>(&pa[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64(pva, pa[8 * half + kk], sw128_desc_mn(V, 8 * half + kk));
+#pragma unroll
+    for (int kk = 0; kk < (half ? 1 : 4); ++kk)
+      wgmma_rs_n64(pvb, pa[8 * half + 4 + kk], sw128_desc_mn(V, 8 * half + 4 + kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<32>(pva);
+    fence_regs<32>(pvb);
+    fence_regs<52>(&pa[0][0]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] += pva[i];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] += pvb[i];
   }
+
+  store_out_lse(a, o, m0, m1, l0, l1, tok0, bh, row0 + lr0, hcol + 2 * tq, tq, n);
 }
 
 }  // namespace

@@ -49,10 +49,12 @@
 // bfloat16: mia_attention_rel_packed_bf16 and mia_attention_rel_packed_ik_bf16
 // run the bfloat16 instance of the forward (bfloat16 mma.sync, described in
 // attention_fwd_tc.cuh) for a bfloat16 encoder, but K3 at head dim 64 with
-// kh + kw <= 64, which runs the warpgroup forward (attention_fwd_wgmma.cuh:
-// wgmma and TMA, the rel terms folded into the S product; C entry
-// attention_fwd_wgmma.cu); K2's terms come from kernel R's bfloat16
-// instance. Their backward, mia_attention_rel_packed_bwd_bf16
+// kh + kw <= 64 and K2 at head dim 64 on windows of at most 200 tokens
+// (the rule of attention_fwd_wgmma.cu), which run the warpgroup forward
+// (attention_fwd_wgmma.cuh: wgmma and TMA, the rel terms folded into the S
+// product; K2's formed from the tables inside it, one walk over the window;
+// C entry attention_fwd_wgmma.cu); elsewhere K2's terms come from kernel
+// R's bfloat16 instance. Their backward, mia_attention_rel_packed_bwd_bf16
 // and mia_attention_rel_packed_ik_bwd_bf16, runs K3b's warpgroup instance
 // (attention_bwd_wgmma.cuh: wgmma and TMA, the rel terms folded into the
 // products; head dim 64, kh + kw <= 64) or else the bfloat16 instance of
@@ -68,13 +70,20 @@
 #include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
-// attention_fwd_wgmma.cu: K3's and K6's bfloat16 forward on warpgroup products
+// attention_fwd_wgmma.cu: K3's, K6's and K2's bfloat16 forward on warpgroup products
 extern "C" int mia_attention_rel_fwd_wgmma_takes(int d, int kh, int kw);
 extern "C" int mia_attention_rel_fwd_wgmma_bf16(const void* q, const void* k, const void* v,
                                                 const void* rel_h, const void* rel_w, void* out,
                                                 void* lse, long long in_stride,
                                                 long long out_stride, int batch, int n, int heads,
                                                 int kh, int kw, float scale, void* stream);
+extern "C" int mia_attention_rel_ik_fwd_wgmma_takes(int d, int n, int kh, int kw);
+extern "C" int mia_attention_rel_ik_fwd_wgmma_bf16(const void* q, const void* k, const void* v,
+                                                   const void* rh_flat, const void* rw_flat,
+                                                   void* out, void* lse, long long in_stride,
+                                                   long long out_stride, int batch, int n,
+                                                   int heads, int kh, int kw, float scale,
+                                                   void* stream);
 // attention_bwd_wgmma.cu: K3b's and K6b's bfloat16 backward on warpgroup products
 extern "C" int mia_attention_rel_bwd_wgmma_takes(int d, int kh, int kw);
 extern "C" int mia_attention_rel_bwd_wgmma_bf16(
@@ -138,10 +147,6 @@ FwdArgs packed_fwd_args(const void* qkv, const void* rel_a, const void* rel_b, v
 // ---------------------------------------------------------------------------
 
 constexpr int kRelThreads = 128;  // (window, head) pairs per block of kernels R and Q
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w);
-}
 
 // T_n of token position pos: kh + kw rows of D values, widened to float32.
 template <int D, typename E>
@@ -523,10 +528,13 @@ extern "C" int mia_attention_rel_packed_ik_f32(const void* qkv, const void* rh_f
   return dispatch_fwd_tc<kRelTables>(a, batch, d, stream);
 }
 
-// The bfloat16 instances of K3 and K2 (attention_fwd_bf16_kernel of
-// attention_fwd_tc.cuh; K2's rel terms from kernel R's bfloat16 instance):
-// qkv, the rel terms or tables, out and K2's rel scratch in bfloat16, lse
-// float32; otherwise the arguments of the float32 entries.
+// The bfloat16 instances of K3 and K2: qkv, the rel terms or tables, out
+// and K2's rel scratch in bfloat16, lse float32; otherwise the arguments of
+// the float32 entries. The calls the warpgroup rules take run the warpgroup
+// forward (attention_fwd_wgmma.cu; K2's rel terms formed in it, one launch,
+// rel unused and may be null); the others attention_fwd_bf16_kernel of
+// attention_fwd_tc.cuh, K2's rel terms from kernel R's bfloat16 instance
+// into rel first.
 extern "C" int mia_attention_rel_packed_bf16(const void* qkv, const void* rel_h,
                                              const void* rel_w, void* out, void* lse, int batch,
                                              int n, int heads, int d, int kh, int kw, float scale,
@@ -551,6 +559,13 @@ extern "C" int mia_attention_rel_packed_ik_bf16(const void* qkv, const void* rh_
                                                 void* rel, int batch, int n, int heads, int d,
                                                 int kh, int kw, float scale, void* stream) {
   if (batch == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  if (mia_attention_rel_ik_fwd_wgmma_takes(d, n, kh, kw)) {
+    const bf16* base = static_cast<const bf16*>(qkv);
+    const long long hd = static_cast<long long>(heads) * d;
+    return mia_attention_rel_ik_fwd_wgmma_bf16(base, base + hd, base + 2 * hd, rh_flat, rw_flat,
+                                               out, lse, 3 * hd, hd, batch, n, heads, kh, kw,
+                                               scale, stream);
+  }
   if (rel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* q = static_cast<const bf16*>(qkv);
   bf16* terms = static_cast<bf16*>(rel);

@@ -52,6 +52,12 @@
 #include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
+// attention_fwd_wgmma.cu: K7's bfloat16 forward on warpgroup products
+extern "C" int mia_attention_dense_fwd_wgmma_takes(int d, int n);
+extern "C" int mia_attention_dense_fwd_wgmma_bf16(const void* q, const void* k, const void* v,
+                                                  const void* bias, void* out, int bh, int n,
+                                                  float scale, void* stream);
+
 namespace {
 
 // the (nwx, nwin) window geometry of a (hg, wg) grid
@@ -183,10 +189,14 @@ extern "C" int mia_attention_rel_win_bwd_f32(const void* qkv, const void* rel_h,
 // attention_bwd_bf16_{dq,dkv}_kernel in attention_bwd_tc.cuh): q, k, v, qkv,
 // the rel terms, bias_kv, out, g, dqkv, drel_h, drel_w and dbias_kv in
 // bfloat16; K7's bias, lse, delta and dpad float32; otherwise the arguments
-// of the float32 entries.
+// of the float32 entries. K7 at head dim 64 with n % 4 == 0 runs the
+// warpgroup forward instead (attention_fwd_wgmma.cu: one walk over windows
+// of at most 200 tokens, two past them).
 extern "C" int mia_attention_dense_bf16(const void* q, const void* k, const void* v,
                                         const void* bias, void* out, int bh, int n, int d,
                                         float scale, void* stream) {
+  if (mia_attention_dense_fwd_wgmma_takes(d, n))
+    return mia_attention_dense_fwd_wgmma_bf16(q, k, v, bias, out, bh, n, scale, stream);
   Bf16FwdArgs a = head_major_bf16_args(q, k, v, out, n, d, scale);
   a.bias = static_cast<const float*>(bias);
   return dispatch_fwd_bf16<kDense>(a, bh, d, stream);

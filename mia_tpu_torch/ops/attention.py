@@ -13,10 +13,13 @@ bfloat16 before P·V), forward and backward
 plain VJP widens to float32, as its JAX ``_bwd``); their bfloat16 CUDA
 instances (K2·bf16-K8·bf16, K2b·bf16, K3b·bf16, K6b·bf16, K8b·bf16) run on
 bfloat16 ``mma.sync`` — but K3·bf16, K6·bf16, K3b·bf16 and K6b·bf16 at head
-dim 64 with ``k_h + k_w <= 64``, which run warpgroup products (``wgmma``, TMA)
-with the rel terms folded in (``csrc/attention_fwd_wgmma.cuh``,
-``csrc/attention_bwd_wgmma.cuh``; the C rule ``…_takes`` picks the instance) —
-and each wrapper counts them in ``bf16_launches``. Every bfloat16 forward
+dim 64 with ``k_h + k_w <= 64``, K2·bf16 at head dim 64 on windows of at most
+200 tokens (its rel terms formed inside the kernel, one launch) and K7·bf16 at
+head dim 64 with ``N % 4 == 0``, which run warpgroup products (``wgmma``, TMA)
+with the rel terms folded in, or K7's float32 bias added to the float32 scores
+(``csrc/attention_fwd_wgmma.cuh``, ``csrc/attention_bwd_wgmma.cuh``; the C
+rules ``…_takes`` pick the instance) — and each wrapper counts them in
+``bf16_launches``. Every bfloat16 forward
 rounds P where the Pallas kernels do: a statistics pass over the keys first
 (the rows' maximum and sum), then ``p = bf16(exp(s − m) / l)`` into P·V.
 
@@ -416,10 +419,23 @@ def _count(wrapper, qkv) -> None:
         wrapper.launches += 1
 
 
+@functools.cache
+def _wgmma_takes(symbol: str, *ints: int) -> bool:
+    """Whether a bfloat16 warpgroup forward takes a call: the C rule
+    ``symbol`` (``mia_attention_rel_ik_fwd_wgmma_takes`` for K2) on its
+    integer arguments."""
+    fn = getattr(load_library(), symbol)
+    fn.argtypes = [ctypes.c_int] * len(ints)
+    fn.restype = ctypes.c_int
+    return bool(fn(*ints))
+
+
 def _launch_forward(kernel, qkv, rel_a, rel_b, scale, k_hw, num_heads, with_lse):
     """Launch K2 or K3 on float32 operands (3xTF32) or bfloat16 ones (the
-    bfloat16 tensor-core instance): the rel operands, the output and K2's
-    rel-term scratch take ``qkv``'s dtype, the log-sum-exp is float32."""
+    bfloat16 tensor-core instances): the rel operands, the output and K2's
+    rel-term scratch take ``qkv``'s dtype, the log-sum-exp is float32. K2's
+    scratch is left out (NULL) where the bfloat16 warpgroup forward takes the
+    call: it forms the rel terms itself, in one launch."""
     dtype = _dtype(qkv)
     b, n, d = _geometry(kernel, qkv, k_hw, num_heads, dtype)
     a_shape, b_shape = _rel_shapes(kernel, qkv, k_hw, num_heads)
@@ -428,8 +444,11 @@ def _launch_forward(kernel, qkv, rel_a, rel_b, scale, k_hw, num_heads, with_lse)
     out = torch.empty((b, n, num_heads * d), dtype=dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, n), dtype=torch.float32, device=qkv.device) if with_lse else None
     tensors = (qkv, rel_a, rel_b, out, lse)
-    if kernel == "K2":  # scratch for the rel terms, computed from the tables before the attention
-        tensors += (torch.empty((b * num_heads, n, sum(k_hw)), dtype=dtype, device=qkv.device),)
+    if kernel == "K2":  # scratch for kernel R's rel terms, computed before the attention
+        takes = dtype == torch.bfloat16 and _wgmma_takes(
+            "mia_attention_rel_ik_fwd_wgmma_takes", d, n, *k_hw)
+        tensors += (None if takes else torch.empty((b * num_heads, n, sum(k_hw)), dtype=dtype,
+                                                   device=qkv.device),)
     symbol = ("mia_attention_rel_packed_ik_" if kernel == "K2"
               else "mia_attention_rel_packed_") + _SUFFIX[dtype]
     _call(kernel, symbol, qkv, tensors, k_hw, num_heads, scale)

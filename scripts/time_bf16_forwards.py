@@ -15,13 +15,20 @@ windows (108, 196, 64) and global tokens (12, 1024, 64), K8 on the (1 and 8,
 same bfloat16 operands with the dense bias built beforehand (cuDNN), in
 turns (library, kernel, kernel, library), and each output's distance from
 the plain bfloat16 version by the forwards' ulp measure
-(``chip_smoke.bf16_ulps``). For K3 and K6 it also prints the bound (the
-function's 4 D flops a (query, key) pair at 989 TFLOP/s dense bfloat16, or
-its bytes at 3.35 TB/s, as ``chip_smoke.bf16_bound``) and the warpgroup
-design's floor: its 640 flops a pair (the statistics pass and the fold: S
-twice at depth 128, P . V once) at 989 TFLOP/s, or its 2 exponentials a pair
-at ~3.9e12 a second (16 a clock an SM, 132 SMs, 1.83 GHz), whichever is
-larger.
+(``chip_smoke.bf16_ulps``). For K2, K3, K6 and K7 it also prints the bound
+(the function's 4 D flops a (query, key) pair at 989 TFLOP/s dense bfloat16,
+or its bytes at 3.35 TB/s, as ``chip_smoke.bf16_bound``) and the warpgroup
+design's floor: the flops and exponentials of the pairs it computes, at 989
+TFLOP/s and at ~3.9e12 exponentials a second (16 a clock an SM, 132 SMs,
+1.83 GHz), whichever is larger, and both a (query, key) pair of the
+function. Rows are padded to 64-query tiles and keys to the products'
+widths: two walks (K3, K6, and K7 on 1024 keys) compute S twice over
+128-key steps at S's depth (128 on the 32 x 32 grid, 96 on 14 x 14 windows,
+64 for K7) and P . V once, 2 exponentials a pair; one walk (K2 and K7 on
+196-token windows) computes S once over 200 keys (depth 96; K7 64) and
+P . V over 208, 1 exponential a pair. K2's rel terms (CUDA cores) are left
+out of its floor. The floors are this script's designs, whichever tree it
+times.
 
     python scripts/time_bf16_forwards.py [--tree DIR] [--tree DIR2 ...]
 
@@ -59,13 +66,24 @@ def one(tree: str) -> None:
         return (scale_ * torch.randn(shape, generator=gen, device=device)).to(dtype)
 
     calls = []  # (label, kernel call, plain call, library call, per_block)
-    floors = {}  # K3, K6: the bound and the design's floor, us
+    floors = {}  # the bound and the design's floor, us
 
-    def yardsticks(label, tensors, pairs):
-        bound = cs.bf16_bound(tensors, pairs * 4 * d)
-        floor = max(pairs * 640 / cs.BF16_TC_FLOPS_PER_S, pairs * 2 / 3.9e12) * 1e6
+    def yardsticks(label, tensors, bh, n, depth, one_walk, flops=0):
+        """The bound of bh grids of n x n (query, key) pairs (``flops``: any
+        the function does besides 4 D a pair), and the floor of the design
+        at S's depth, walking the keys once or twice."""
+        pairs = bh * n * n
+        bound = cs.bf16_bound(tensors, pairs * 4 * d + flops)
+        rows = bh * -(-n // 64) * 64
+        if one_walk:  # S once over 200 keys, P . V over 208
+            work, exps = rows * (200 * 2 * depth + 208 * 2 * d), rows * 200
+        else:  # S twice over 128-key steps, P . V once
+            keys = -(-n // 128) * 128
+            work, exps = rows * keys * (4 * depth + 2 * d), 2 * rows * keys
+        floor = max(work / cs.BF16_TC_FLOPS_PER_S, exps / 3.9e12) * 1e6
         floors[label] = (f"bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}), "
-                         f"design floor {floor:.2f} us")
+                         f"design floor {floor:.2f} us ({work / pairs:.0f} flops, "
+                         f"{exps / pairs:.2f} exponentials a pair)")
 
     for b in (1, 8):
         args = (randn(b, 1024, 3 * heads * d), randn(b * heads, 1024, 32),
@@ -73,7 +91,7 @@ def one(tree: str) -> None:
         q, k, v = cs.head_major(args[0], heads)
         bias = cs.dense_bias(args[1], args[2], b, heads)
         out = torch.empty(b, 1024, heads * d, dtype=bf)
-        yardsticks(f"K3 B={b}", [*args[:3], out], b * heads * 1024 * 1024)
+        yardsticks(f"K3 B={b}", [*args[:3], out], b * heads, 1024, 128, False)
         calls.append((f"K3 B={b}", functools.partial(attention._launch_k3, *args),
                       functools.partial(attention.attention_rel_packed_bf16, *args),
                       functools.partial(sdpa, q, k, v, attn_mask=bias, scale=scale),
@@ -83,6 +101,9 @@ def one(tree: str) -> None:
         r_h, r_w = attention.window_rel_terms(args2[0], rh, rw, (ws, ws), heads)
         q2, k2, v2 = cs.head_major(args2[0], heads)
         bias2 = cs.dense_bias(r_h, r_w, 9 * b, heads)
+        out2 = torch.empty(9 * b, ws * ws, heads * d, dtype=bf)
+        yardsticks(f"K2 B={b}", [*args2[:3], out2], 9 * b * heads, ws * ws, 96, True,
+                   9 * b * heads * ws * ws * 2 * ws * 2 * d)  # the rel terms: 2 D a term
         calls.append((f"K2 B={b}", functools.partial(attention._launch_k2, *args2),
                       functools.partial(attention.attention_rel_packed_bf16, args2[0], r_h, r_w,
                                         scale, (ws, ws), heads),
@@ -94,12 +115,14 @@ def one(tree: str) -> None:
         rel = (randn(bh, n, k_hw[0]), randn(bh, n, k_hw[1]))
         bias = cs.dense_bias(*rel, 1, bh)
         lib = functools.partial(sdpa, *(t[None] for t in qkv_), attn_mask=bias, scale=scale)
-        yardsticks(f"K6 {label}", [*qkv_, *rel, qkv_[0]], bh * n * n)
+        depth = 96 if sum(k_hw) <= 32 else 128
+        yardsticks(f"K6 {label}", [*qkv_, *rel, qkv_[0]], bh, n, depth, False)
         calls.append((f"K6 {label}", functools.partial(attention._launch_k6, *qkv_, *rel, scale,
                                                         k_hw),
                       functools.partial(attention.attention_rel_bf16, *qkv_, *rel, scale, k_hw),
                       lib, 20))
         dense = randn(bh, n, n, dtype=torch.float32)
+        yardsticks(f"K7 {label}", [*qkv_, dense, qkv_[0]], bh, n, 64, n <= 200)
         calls.append((f"K7 {label}", functools.partial(attention._launch_k7, *qkv_, dense, scale),
                       functools.partial(attention.attention_dense_bf16, *qkv_, dense, scale),
                       functools.partial(sdpa, *(t[None] for t in qkv_),

@@ -147,12 +147,16 @@ def test_k4_bfloat16_matches_jax(shape, ws):
 def test_wrapper_launches_the_entry_of_the_operands_dtype(monkeypatch, kernel, dtype, suffix):
     """K2's and K3's launcher picks the C entry by the operands' dtype: the
     output and K2's rel-term scratch take it, the log-sum-exp is float32;
-    the bfloat16 launches are counted apart."""
-    calls = []
+    the bfloat16 launches are counted apart. K2 in bfloat16 passes no
+    scratch (NULL) where the warpgroup rule takes the call, whose kernel
+    forms the rel terms itself, and a bfloat16 one where it does not."""
+    calls, rules = [], []
     monkeypatch.setattr(attention, "_geometry", lambda label, qkv, k_hw, heads, dt:
                         (qkv.shape[0], qkv.shape[1], qkv.shape[2] // (3 * heads)))
     monkeypatch.setattr(attention, "_call", lambda label, symbol, qkv, tensors, *a:
                         calls.append((symbol, [None if t is None else t.dtype for t in tensors])))
+    monkeypatch.setattr(attention, "_wgmma_takes",
+                        lambda symbol, *ints: rules.append((symbol, ints)) or True)
     qkv = torch.zeros(2, 16, 3 * 2 * 64, dtype=dtype)
     wrapper = (attention.fused_attention_rel_packed_ik if kernel == "K2"
                else attention.fused_attention_rel_packed)
@@ -169,11 +173,17 @@ def test_wrapper_launches_the_entry_of_the_operands_dtype(monkeypatch, kernel, d
         symbol = f"mia_attention_rel_packed_{suffix}"
     assert calls[0][0] == symbol
     assert calls[0][1][:4] == [dtype] * 4 and calls[0][1][4] == torch.float32
-    assert calls[0][1][5:] == ([dtype] if kernel == "K2" else [])
-    assert out.dtype == dtype and lse.dtype == torch.float32
     bf16 = dtype == torch.bfloat16
+    assert calls[0][1][5:] == ([None if bf16 else dtype] if kernel == "K2" else [])
+    assert rules == ([("mia_attention_rel_ik_fwd_wgmma_takes", (64, 16, 4, 4))]
+                     if kernel == "K2" and bf16 else [])
+    assert out.dtype == dtype and lse.dtype == torch.float32
     assert (wrapper.launches, wrapper.bf16_launches) == (counts[0] + (not bf16),
                                                          counts[1] + bf16)
     with pytest.raises(ValueError, match="bfloat16|float32"):  # operands of two dtypes
         (attention._launch_k2 if kernel == "K2" else attention._launch_k3)(
             qkv, rel[0].float() if bf16 else rel[0].bfloat16(), rel[1], 0.125, (4, 4), 2)
+    if kernel == "K2" and bf16:  # a call the rule does not take: kernel R's scratch again
+        monkeypatch.setattr(attention, "_wgmma_takes", lambda symbol, *ints: False)
+        attention._launch_k2(qkv, *rel, 0.125, (4, 4), 2)
+        assert calls[-1][1][5:] == [dtype]

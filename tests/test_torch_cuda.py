@@ -1189,9 +1189,11 @@ def test_bf16_forward_instances_follow_the_takes_rule(cuda):
 @pytest.mark.parametrize("b,heads,d,ws", [(9, 12, 64, 14), (72, 12, 64, 14), (5, 4, 64, 9),
                                           (9, 16, 80, 14)])
 def test_bf16_k2_holds_at_the_ulp_measure_on_its_own_rel_terms(cuda, b, heads, d, ws):
-    """K2 against the plain bfloat16 K3 fed kernel R's own terms (a term may
+    """K2 against the plain bfloat16 K3 fed kernel R's terms (a term may
     round one ulp apart from the plain version's, which moves its scores by
-    that ulp)."""
+    that ulp): the warpgroup forward at head dim 64 forms them in kernel R's
+    order, so its log-sum-exp is the plain one of kernel R's terms too."""
+    import chip_smoke
     from mia_tpu_torch.ops import attention
 
     randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(33), cuda)
@@ -1199,11 +1201,8 @@ def test_bf16_k2_holds_at_the_ulp_measure_on_its_own_rel_terms(cuda, b, heads, d
     qkv, rh, rw = randn(b, n, 3 * heads * d), randn(n, d), randn(n, d)
     rh, rw = 0.1 * rh, 0.1 * rw
     scale = d ** -0.5
-    out = torch.empty(b, n, heads * d, device=cuda, dtype=torch.bfloat16)
-    lse = torch.empty(b * heads, n, device=cuda)
-    terms = torch.empty(b * heads, n, 2 * ws, device=cuda, dtype=torch.bfloat16)
-    attention._call("K2 bf16", "mia_attention_rel_packed_ik_bf16", qkv,
-                    (qkv, rh, rw, out, lse, terms), (ws, ws), heads, scale)
+    out, lse = attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads, with_lse=True)
+    terms = chip_smoke.kernel_r_terms(torch, qkv, rh, rw, out, lse, scale, (ws, ws), heads)
     rel_h, rel_w = (t.contiguous() for t in terms.split([ws, ws], -1))
     want, want_lse = attention.attention_rel_packed_bf16(qkv, rel_h, rel_w, scale, (ws, ws), heads)
     _bf16_ulps("K2", out, want)
@@ -1211,6 +1210,38 @@ def test_bf16_k2_holds_at_the_ulp_measure_on_its_own_rel_terms(cuda, b, heads, d
     again, lse_again = attention._launch_k2(qkv, rh, rw, scale, (ws, ws), heads, with_lse=True)
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
+def test_bf16_k2_and_k7_instances_follow_their_takes_rules(cuda):
+    """K2 at head dim 64 on 14 x 14 windows is one launch of the warpgroup
+    window kernel (no kernel R); at head dim 80 kernel R, then the mma.sync
+    instance. K7 at head dim 64 runs the window kernel at N = 196, the
+    two-walk warpgroup kernel at N = 1024, and the mma.sync instance at
+    N = 35 (N % 4 != 0) and at head dim 80."""
+    from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    randn = _bf16_randn(torch.Generator(device=cuda).manual_seed(34), cuda)
+    for d, heads, want in ((64, 12, ["attention_fwd_wgmma_window_kernel<true>"]),
+                           (80, 16, ["attention_rel_terms_kernel",
+                                     "attention_fwd_bf16_kernel<80, 0, 64>"])):
+        assert bool(lib.mia_attention_rel_ik_fwd_wgmma_takes(d, 196, 14, 14)) == (d == 64)
+        args = (randn(9, 196, 3 * heads * d), 0.1 * randn(196, d), 0.1 * randn(196, d),
+                d ** -0.5, (14, 14), heads)
+        names = _device_kernels(lambda: attention._launch_k2(*args))
+        assert len(names) == len(want), (d, names)
+        for w in want:
+            assert any(w in name for name in names), (d, w, names)
+    for bh, d, n, want in ((108, 64, 196, "attention_fwd_wgmma_window_kernel<false>"),
+                           (12, 64, 1024, "attention_fwd_wgmma_kernel<64, true>"),
+                           (4, 64, 35, "attention_fwd_bf16_kernel<64, 2, 64>"),
+                           (16, 80, 196, "attention_fwd_bf16_kernel<80, 2, 64>")):
+        assert bool(lib.mia_attention_dense_fwd_wgmma_takes(d, n)) == (d == 64 and n % 4 == 0)
+        q, k, v = (randn(bh, n, d) for _ in range(3))
+        bias = torch.randn(bh, n, n, device=cuda)
+        names = _device_kernels(lambda: attention._launch_k7(q, k, v, bias, d ** -0.5))
+        assert len(names) == 1 and want in next(iter(names)), (bh, d, n, names)
 
 
 @pytest.mark.parametrize("bh,d,n", [(108, 64, 196), (12, 64, 1024), (4, 64, 35), (16, 80, 196)])
