@@ -135,7 +135,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--out DIR]
    badge) picks 8 cases on the card (timed, sweep included, with the TF32
    convolutions) and, with float32 convolutions, against the CPU: the same
    ids, or, where they part near a tie (the closest decision printed), the
-   CPU's selection code on the card's own kept scores picks the card's ids;
+   CPU's selection code on the card's own kept scores picks the card's ids,
+   or that decision lies within 1e-5 of a tie in float64 on those scores;
    confidence and margin scores, ``enc_feature`` and the BADGE embeddings
    within 1e-4 of max |value|; ``kcenter_greedy`` on one distance matrix and
    the k-means++ core on the same draws pick the same on both devices. Then
@@ -364,12 +365,13 @@ KERNELS = {
     "K10b": ("conv_transpose2x_p backward (K10)", "mia_tpu_torch/csrc/upsample2x.cu",
              "mia_tpu/ops/upsample2x.py:137"),
 }
-# the bfloat16 entries whose kernel lives elsewhere than the float32 one's: K2, K3, K6, K7, K3b
-# and K6b in bfloat16 at head dim 64 run the warpgroup (wgmma) kernels
+# the bfloat16 entries whose kernel lives elsewhere than the float32 one's: K2, K3, K6, K7, K8,
+# K3b and K6b in bfloat16 at head dim 64 run the warpgroup (wgmma) kernels
 BF16_SOURCES = {"K2": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K3": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K6": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K7": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
+                "K8": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K3b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh",
                 "K6b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh"}
 # kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16, through every
@@ -1476,6 +1478,10 @@ NEW_SELECTORS = ("confidence", "margin", "coreset-l2", "coreset-cosine", "kmean-
                  "kmean-cosine", "badge")
 SELECT_TOL = 1e-4  # card (float32 convolutions) against CPU, of the largest |value|
 ARGMAX_GAP = 1e-4  # card vs CPU: a pixel's argmax may differ below this top-2 logit gap
+# card vs CPU selection code on the same scores: the picks may part only at a decision this
+# close to a tie in float64 (relative), ~14x what float32 sums move the k-means++ potentials
+# of the smoke's BADGE picks on either device (scripts/probe_selection_ties.py)
+TIE_TOL = 1e-5
 
 
 def argmax_flips(torch, np, card, host, ds, device):
@@ -1576,28 +1582,33 @@ def kmeans_margin(torch, x, seed, k, weight=None):
     ``Generator().manual_seed(seed)``) are from a flip: the least, over the
     steps, of the distance of a draw to a boundary of the running potential's
     cumsum and of the gap between the best and the second-best candidate's
-    potential, each relative (replayed on the CPU)."""
+    potential (distinct candidates: two draws of one point are no tie), each
+    relative. In float64 with the distances as sums of squared differences,
+    so that a tie in exact arithmetic reads 0 and not float32's rounding of
+    it (replayed on the CPU)."""
     from mia_tpu_torch.activelearning.selection import n_local_trials_for
-    from mia_tpu_torch.ops.distance import pairwise_distances
 
     gen = torch.Generator().manual_seed(seed)
     u_first, uniforms = torch.rand((), generator=gen), torch.rand(
         (k - 1, n_local_trials_for(k)), generator=gen)
-    w = torch.ones(x.shape[0]) if weight is None else weight.float()
+    x = x.double()
+    w = torch.ones(x.shape[0], dtype=torch.float64) if weight is None else weight.double()
     w = w / w.sum()
     cum = torch.cumsum(w, 0)
     margins = [((cum - u_first * cum[-1]).abs().min() / cum[-1]).item()]
     first = torch.searchsorted(cum, u_first * cum[-1]).clamp(0, x.shape[0] - 1)
-    d2 = pairwise_distances(x, x, "l2").square()
+    d2 = (x[:, None, :] - x[None, :, :]).square().sum(-1)
     closest = d2[first]
-    for u in uniforms:
+    for u in uniforms.double():
         pot = w * closest
         cum = torch.cumsum(pot, 0)
         vals = u * pot.sum()
         margins.append(((cum[None, :] - vals[:, None]).abs().min() / pot.sum()).item())
         cand = torch.searchsorted(cum, vals).clamp(0, x.shape[0] - 1)
         new_pot = (w[None, :] * torch.minimum(closest[None, :], d2[cand])).sum(1)
-        ranked = torch.sort(torch.unique(new_pot)).values
+        distinct = torch.unique(cand)
+        ranked = torch.sort(
+            (w[None, :] * torch.minimum(closest[None, :], d2[distinct])).sum(1)).values
         if ranked.numel() > 1:
             margins.append(((ranked[1] - ranked[0]) / ranked[0]).item())
         closest = torch.minimum(closest, d2[cand[torch.argmin(new_pot)]])
@@ -1605,7 +1616,7 @@ def kmeans_margin(torch, x, seed, k, weight=None):
 
 
 def decision_margin(torch, key, active, scorer, budget, seed):
-    """How far ``key``'s picks with ``scorer`` (the CPU's) are from a tie."""
+    """How far ``key``'s picks with ``scorer`` (a CPU scorer) are from a tie."""
     import numpy as np
 
     from mia_tpu_torch.activelearning import sweep_pool
@@ -1864,13 +1875,20 @@ def selector_phase(torch, device, workdir: Path, sl):
             # between close embeddings move by more than that, so the picks
             # may part near a tie. What the card adds to its scores must then
             # be nothing: the CPU's selection code on the card's own scores
-            # picks what the card picked.
-            again = selector.select_next_batch(active, budget, kept.replay_on_cpu(), seed=seed)
-            margin = decision_margin(torch, key, active, host, budget, seed)
-            check(again == got, f"{key}: card picked {got}, CPU {want}, the CPU on the card's "
-                  f"scores {again} (closest decision {margin:.3g} from a tie)")
-            differ.append(f"{key} (closest decision {margin:.3g} from a tie; the CPU's "
-                          f"selection on the card's scores picks what the card picked)")
+            # picks what the card picked, unless that selection itself meets a
+            # tie in exact arithmetic, which each device's float32 sums break
+            # their own way (k-means++: two candidates that each improve only
+            # the pair of them leave equal potentials)
+            kept_cpu = kept.replay_on_cpu()
+            again = selector.select_next_batch(active, budget, kept_cpu, seed=seed)
+            margin = decision_margin(torch, key, active, kept_cpu, budget, seed)
+            check(again == got or margin <= TIE_TOL,
+                  f"{key}: card picked {got}, CPU {want}, the CPU on the card's scores {again} "
+                  f"(closest decision on the card's scores {margin:.3g} from a tie, limit {TIE_TOL})")
+            differ.append(f"{key} (closest decision on the card's scores {margin:.3g} from a tie; "
+                          + ("the CPU's selection on the card's scores picks what the card picked)"
+                             if again == got else f"the two devices break that tie apart, "
+                             f"CPU on the card's scores {again})"))
     check(warp.affine_warp_shift2pass_fused.launches == 0, "selection launched K1")
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3092,8 +3110,8 @@ def bf16_route_kernel_phase(torch, device):
     times beside the plain version, the bound at 989 TFLOP/s bfloat16 (K9,
     K9b: 67 TFLOP/s float32) or 3.35 TB/s, and the library call: one
     bfloat16 ``scaled_dot_product_attention`` with the dense bias (autograd
-    through it for the backward kernels), none for K9 and K9b. K6b (its
-    warpgroup instance at head dim 64; a 20x27 grid too) is timed by
+    through it for the backward kernels), none for K9 and K9b. K6, K7, K8
+    and K6b (their warpgroup instances at head dim 64) are timed by
     ``queued_ms`` in turns with the library call."""
     from mia_tpu_torch.ops import attention
     from mia_tpu_torch.ops import unpartition_residual as upr
@@ -3266,9 +3284,15 @@ def bf16_route_kernel_phase(torch, device):
             d = three_hd // (3 * n_heads)
             lib_args = windows_for_library(qkv, rel_h, rel_w, bias_kv, ws, n_heads)
             flops = attention_flops(b * n_heads, hg * wg, ws * ws, d, backward=name == "K8b")
-            if name == "K8":
+            if name == "K8":  # the warpgroup instance at head dim 64: both queued, in turns
                 out = torch.empty(b, hg, wg, n_heads * d, device=device, dtype=bf)
-                return {"library_ms": sdpa_ms(torch, *lib_args, args[4], 10),
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                ms, lib_ms = library_turns_ms(
+                    torch, f"K8 bf16 ({b}, {hg}, {wg}, {three_hd})",
+                    lambda: attention._launch_k8(*args),
+                    lambda: sdpa(*lib_args[:3], attn_mask=lib_args[3], scale=args[4]),
+                    20 if b == 1 else 5)
+                return {"ms": ms, "device_ms": ms, "library_ms": lib_ms,
                         **bf16_bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
             g = args[5]
             g_w = window_partition(g, ws)[0].view(-1, ws * ws, n_heads, d).transpose(1, 2)

@@ -564,11 +564,12 @@ int dispatch_fwd_tc(const FwdArgs& a, int batch, int d, void* stream) {
 // (kRelWindow: windows carved from the bfloat16 qkv grid by the slot map of
 // attention_window.cuh, pad slots from the bfloat16 pad_kv rows, lse by
 // token). K3 and K6 at head dim 64 with kh + kw <= 64, K2 at head dim 64 on
-// windows of at most 200 tokens and K7 at head dim 64 with n % 4 == 0 run
-// the warpgroup kernels of attention_fwd_wgmma.cuh instead (the rules are
-// attention_fwd_wgmma.cu's mia_attention_{rel,rel_ik,dense}_fwd_wgmma_takes);
-// this instance keeps K8, head dim 80, larger key grids (the 64 x 64 grid
-// of 4096 tokens) and K7's odd n (the smoke's 35). Same block and
+// windows of at most 200 tokens, K7 at head dim 64 with n % 4 == 0 and K8 at
+// head dim 64 on windows of at most 200 slots run the warpgroup kernels of
+// attention_fwd_wgmma.cuh instead (the rules are attention_fwd_wgmma.cu's
+// mia_attention_{rel,rel_ik,dense,rel_win}_fwd_wgmma_takes); this instance
+// keeps head dim 80, larger key grids (the 64 x 64 grid of 4096 tokens) and
+// K7's odd n (the smoke's 35). Same block and
 // warp layout as the float32 template (64 queries a block, 16 a warp, key
 // tiles of kKeys keys in two cp.async stages; K7's bias tile a third part of
 // each stage), with one bfloat16 mma.sync.m16n8k16 where 3xTF32 takes three

@@ -1,9 +1,10 @@
 // The C entries of the warpgroup forwards in bfloat16 (attention_fwd_wgmma.cuh):
-// K3 and K6 (rel terms), K2 (the gathered tables) and K7 (a dense float32
-// bias), the tensor maps their TMA copies read, the launches, and the rules
-// for which calls they take. A source of its own, so that nvcc builds its
-// kernels beside attention_rel.cu's and attention_routes.cu's, whose
-// bfloat16 forward entries call it.
+// K3 and K6 (rel terms), K2 (the gathered tables), K7 (a dense float32
+// bias) and K8 (windows carved from the token grid), the tensor maps their
+// TMA copies read, the launches, and the rules for which calls they take. A
+// source of its own, so that nvcc builds its kernels beside
+// attention_rel.cu's and attention_routes.cu's, whose bfloat16 forward
+// entries call it.
 
 #include "attention_fwd_wgmma.cuh"
 
@@ -76,6 +77,13 @@ extern "C" int mia_attention_dense_fwd_wgmma_takes(int d, int n) {
   return d == kWgD && n > 0 && n % 4 == 0;
 }
 
+// Whether it takes a bfloat16 K8 call: head dim 64 and ws x ws windows of at
+// most 200 slots (the one walk) with at most 32 rel columns (2 ws: q_aug of
+// 96). Others (head dim 80) run attention_fwd_tc.cuh's bfloat16 instance.
+extern "C" int mia_attention_rel_win_fwd_wgmma_takes(int d, int ws) {
+  return d == kWgD && ws > 0 && ws * ws <= kWinKeys && 2 * ws <= 32;
+}
+
 // K3 / K6 in bfloat16 for a call the rule above takes. q, k, v: the first
 // column of head 0's q, k and v (packed: qkv, qkv + heads*64, qkv +
 // 2*heads*64; head-major: q, k, v with heads = 1), rows in_stride elements
@@ -121,8 +129,9 @@ extern "C" int mia_attention_rel_ik_fwd_wgmma_bf16(const void* q, const void* k,
   CUtensorMap maps[3];
   if (!qkv_maps(maps, q, k, v, in_stride, batch, n, heads, kWinKeys, kWinVRows))
     return static_cast<int>(cudaErrorNotSupported);
-  return launch_wgmma(attention_fwd_wgmma_window_kernel<true>, wg_win_smem_bytes<true>(), a, maps,
-                      batch, static_cast<cudaStream_t>(stream));
+  return launch_wgmma(attention_fwd_wgmma_window_kernel<kRelTables>,
+                      wg_win_smem_bytes<kRelTables>(), a, maps, batch,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // K7 in bfloat16 for a call the K7 rule takes: q, k, v, out (bh, n, 64)
@@ -140,8 +149,38 @@ extern "C" int mia_attention_dense_fwd_wgmma_bf16(const void* q, const void* k, 
                 one_walk ? kWinVRows : kKeyTile))
     return static_cast<int>(cudaErrorNotSupported);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return one_walk ? launch_wgmma(attention_fwd_wgmma_window_kernel<false>,
-                                 wg_win_smem_bytes<false>(), a, maps, bh, s)
+  return one_walk ? launch_wgmma(attention_fwd_wgmma_window_kernel<kDense>,
+                                 wg_win_smem_bytes<kDense>(), a, maps, bh, s)
                   : launch_wgmma(attention_fwd_wgmma_kernel<kWgD, true>, wg_fwd_smem_bytes<true>(),
                                  a, maps, bh, s);
+}
+
+// K8 in bfloat16 for a call the K8 rule takes: qkv (batch, hg, wg,
+// 3*heads*64); rel_h, rel_w (batch*heads, hg, wg, ws); bias_kv (3,
+// heads*64); out (batch, hg, wg, heads*64); lse, when not null, the
+// log-sum-exp of every real query by token (batch*heads, hg*wg). One block
+// a (query tile, head, window): k and v land by one 4D box each over the
+// token grid (grid_map), a window's slots in slot order.
+extern "C" int mia_attention_rel_win_fwd_wgmma_bf16(const void* qkv, const void* rel_h,
+                                                    const void* rel_w, const void* bias_kv,
+                                                    void* out, void* lse, int batch, int hg,
+                                                    int wg, int heads, int ws, float scale,
+                                                    void* stream) {
+  if (batch == 0 || hg == 0 || wg == 0) return static_cast<int>(cudaSuccess);
+  if (!mia_attention_rel_win_fwd_wgmma_takes(kWgD, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Bf16FwdArgs a = packed_bf16_args(qkv, out, lse, heads, kWgD, scale);
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.pad_kv = static_cast<const bf16*>(bias_kv);
+  set_grid(a, hg, wg, ws);
+  const long long hd = static_cast<long long>(heads) * kWgD;
+  CUtensorMap maps[3];
+  if (!grid_map(&maps[1], a.k, hd, a.in_stride, wg, hg, batch, ws, ws) ||
+      !grid_map(&maps[2], a.v, hd, a.in_stride, wg, hg, batch, ws, ws))
+    return static_cast<int>(cudaErrorNotSupported);
+  maps[0] = maps[1];  // q is gathered by the slot map, not boxed
+  return launch_wgmma(attention_fwd_wgmma_window_kernel<kRelWindow>,
+                      wg_win_smem_bytes<kRelWindow>(), a, maps, batch * a.nwin,
+                      static_cast<cudaStream_t>(stream));
 }

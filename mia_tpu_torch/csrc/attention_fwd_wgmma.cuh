@@ -1,21 +1,23 @@
 // The bfloat16 attention forwards on Hopper's warpgroup products at head
 // dim 64: K3, K6 (rel terms, kh + kw <= 64), K2 (the rel terms computed here
-// from the two gathered tables) and K7 (a float32 dense bias), redesigned
+// from the two gathered tables), K7 (a float32 dense bias) and K8 (windows
+// carved from the unpartitioned token grid by the slot map), redesigned
 // from the bfloat16 mma.sync instance of attention_fwd_tc.cuh. The C entries
 // of attention_fwd_wgmma.cu build the tensor maps and launch these kernels;
 // attention_rel.cu's bfloat16 forward entries (K2, K3, K6) and
-// attention_routes.cu's (K7) call them for the calls their rules take.
+// attention_routes.cu's (K7, K8) call them for the calls their rules take.
 //
 // Replaces the TPU forward kernels of mia_tpu/ops/attention.py
 //   K3  fused_attention_rel_packed     (_attn_rel_packed_kernel), global blocks, packed qkv
 //   K6  fused_attention_rel            (_attn_rel_kernel), the head-major route
 //   K2  fused_attention_rel_packed_ik  (_attn_rel_packed_ik_kernel), windows, packed qkv
 //   K7  fused_attention                (_attn_kernel), head-major, dense float32 bias
+//   K8  fused_attention_rel_win        (_attn_rel_win_kernel), windows of the token grid
 // on bfloat16 operands. Head dim 80 (ViT-H), key grids with kh + kw > 64 (a
 // 64 x 64 global grid at 1024 pixels), K2 windows past 200 tokens or whose
 // tables do not fit the staging below, and K7 with n % 4 != 0 stay on the
-// mma.sync instance attention_fwd_bf16_kernel<D, kBias, 64>, as K8 does,
-// whose two walks round P where these kernels do.
+// mma.sync instance attention_fwd_bf16_kernel<D, kBias, 64>, whose two
+// walks round P where these kernels do.
 //
 // What they compute, with the Pallas kernels' roundings:
 //   K3, K6, K2: q * scale rounded to bfloat16 with the scale rounded first;
@@ -28,6 +30,11 @@
 //     float32 sum of the exact products rounded once to bfloat16, formed
 //     here before q is scaled (rel_terms_sw128; the sum in kernel R's order,
 //     so the terms equal kernel R's bit for bit);
+//   K8: K3's fold over a window's ws x ws slots (kAug 96): a slot with a
+//     token takes that token's q, k, v and rel rows; a pad slot (past the
+//     grid's edge) is a real key whose k and v are bias_kv's rows, with zero
+//     rel rows and q (it is no query); the one-hot columns go by slot
+//     position, pad slots included;
 //   K7: S = (q . k^T) * scale + bias in float32, _attn_kernel's order: the
 //     scale multiplies the float32 product (q is not scaled in bfloat16),
 //     the float32 bias is added to it; -inf keys are guarded as in the
@@ -36,7 +43,8 @@
 // then the softmax's maximum m and sum l in float32; p = exp(S - m) / l,
 // the normalised probabilities, rounded to bfloat16 where the Pallas kernels
 // round (p / denom).astype(v.dtype); O = P . V a float32 sum rounded once to
-// bfloat16; lse = m + log l (not K7).
+// bfloat16; lse = m + log l (not K7; K8 writes out and lse by token, and
+// nothing for a pad query slot).
 //
 // One block a 64-query tile of one (image, head): one warpgroup (128
 // threads), two blocks an SM. Tiles are in the 128-byte swizzle (below),
@@ -62,16 +70,22 @@
 //     from zero and is added to O in float32, tile by tile (the tensor
 //     cores' sums are not rounded to nearest), with no rescale (m and l are
 //     final).
-// One walk (attention_fwd_wgmma_window_kernel: K2's and K7's windows of up
-// to 200 keys, 196 in every SAM encoder): the window's k (200 rows) and v
-// (208) land by TMA once, and S is one m64n200k16 product a k16 step, 100
-// float32 values a thread: the rows' exact maximum, then e = exp(S - m) in
-// place and l its sum, then p = bf16(e / l), and P . V in the same 64-key
-// tiles added to O in float32 (keys 196 .. 207 at p = 0). The S product,
-// its copy of k and K7's bias are read once where two walks read them
-// twice, and each pair takes one exponential where two walks take two.
-// So both walk the CPU models' tile order (tests/test_torch_bf16_fwd_fold.py,
-// tests/test_torch_bf16_fwd_fold_k2k7.py). Each product group is waited for
+// One walk (attention_fwd_wgmma_window_kernel<kBias>, a trace names K2 <0>,
+// K7 <2>, K8 <3>: windows of up to 200 keys, 196 in every SAM encoder): the
+// window's k (200 rows) and v (208) land by TMA once (K8: one 4D box each
+// over the token grid, the window's slots in slot order in 128-byte rows,
+// zeros past the grid's edge, then the threads write bias_kv's rows over
+// the pad slots' zeros and zero v's rows past n; q is gathered by the slot
+// map, 16-byte cp.async, since a 64-slot tile spans up to six grid rows;
+// tiles past the window's last query slot exit), and S is one m64n200k16
+// product a k16 step, 100 float32 values a thread: the rows' exact maximum,
+// then e = exp(S - m) in place and l its sum, then p = bf16(e / l), and P .
+// V in the same 64-key tiles added to O in float32 (keys 196 .. 207 at p =
+// 0). The S product, its copy of k and K7's bias are read once where two
+// walks read them twice, and each pair takes one exponential where two walks
+// take two. So both walk the CPU models' tile order
+// (tests/test_torch_bf16_fwd_fold.py, tests/test_torch_bf16_fwd_fold_k2k7.py,
+// tests/test_torch_bf16_fwd_fold_k8.py). Each product group is waited for
 // before its results are read. Keys past n score -inf; rows past n (the
 // next image's tokens, or zeros past the tensor) are computed and not
 // written. No atomics: two launches are bit-identical. The exponentials are
@@ -90,7 +104,10 @@
 // are staged in shared memory where the one-hot block goes next, rw's
 // transposed so that the rows a warp reads at once fall in distinct banks;
 // read straight from L1 a warp would touch up to 14 lines an access. The
-// one walk's shared memory (110 / 113 KB) still fits two blocks an SM.
+// one walk's shared memory (K2 110, K7 113, K8 94 KB) still fits two
+// blocks an SM. K8's blocks of a grid of whole windows go first (blockIdx.z
+// = window * batch + image): a 32 x 32 grid's edge windows hold 3 or 1 of a
+// window's 4 query tiles, and its last window row fills the tail wave.
 //
 // Against what held the mma.sync instance (ROADMAP, PERF.md): one wave of
 // 4-warp blocks each walking its key tiles with m16n8k16 chains, and the
@@ -100,11 +117,12 @@
 //
 // Work: the statistics pass and the fold make 640 flops (S twice at depth
 // 128, P.V once) and 2 exponentials a (query, key) pair; K2's one walk at
-// depth 96 makes 320 and 1, K7's 256 and 1 (S at depth 64), over 64-row
-// tiles, 200 keys in S and 208 in P.V; the function's own work is 4 D = 256
-// flops a pair. Bound (chip_smoke.py computes it): the function's 4 D flops
-// a pair at 989 TFLOP/s dense bfloat16, or the bytes (qkv, the rel terms or
-// tables or K7's float32 bias, out once) at 3.35 TB/s, whichever is larger.
+// depth 96 (and K8's) makes 320 and 1, K7's 256 and 1 (S at depth 64), over
+// 64-row tiles, 200 keys in S and 208 in P.V; the function's own work is 4 D
+// = 256 flops a pair. Bound (chip_smoke.py computes it): the function's 4 D
+// flops a pair at 989 TFLOP/s dense bfloat16, or the bytes (qkv, the rel
+// terms or tables or K7's float32 bias, K8's bias_kv, out once) at 3.35
+// TB/s, whichever is larger.
 
 #pragma once
 
@@ -149,17 +167,17 @@ __device__ __forceinline__ uint64_t sw128_desc_mn(const bf16* block, int kk) {
   return sw128_desc(block + kk * 16 * 64);
 }
 
-// Columns 0 .. kAug-65 of q_aug's second block for query rows q0 .. q0+63 of
-// (image, head) bh: rel_h | rel_w | 0, zeros for rows past n. Two threads a
-// row, alternate 16-byte chunks.
+// Columns 0 .. kAug-65 of q_aug's second block for query row r =
+// threadIdx.x % 64: rel_h | rel_w | 0 from row `row` of the (.., kh) and (..,
+// kw) rel terms, zeros where row < 0 (past n, or not a query slot). Two
+// threads a row, alternate 16-byte chunks.
 template <int kAug>
 __device__ __forceinline__ void stage_rel_rows_sw128(bf16* Q1, const bf16* __restrict__ rel_h,
-                                                     const bf16* __restrict__ rel_w, long long bh,
-                                                     int n, int kh, int kw, int q0) {
+                                                     const bf16* __restrict__ rel_w, long long row,
+                                                     int kh, int kw) {
   constexpr int kChunks = (kAug - kWgD) / 8;
   const int r = threadIdx.x & (kWgRows - 1);
-  const bool valid = q0 + r < n;
-  const long long row = bh * n + q0 + r;
+  const bool valid = row >= 0;
   for (int c = threadIdx.x >> 6; c < kChunks; c += kWgThreads / kWgRows) {
     float v[8];
 #pragma unroll
@@ -327,21 +345,30 @@ __device__ __forceinline__ void scale_add_bias(float* s, const float* Bs, int lr
 
 // out = O rounded to bfloat16 (rows q and q + 8 of the thread's fragment,
 // columns col .. of each 8-column group) and lse = m + log l, each row's
-// once; rows past n are not written, nor the lse where a.lse is null
-__device__ __forceinline__ void store_out_lse(const Bf16FwdArgs& a, const float* o, float m0,
-                                              float m1, float l0, float l1, long long tok0,
-                                              long long bh, int q, int col, int tq, int n) {
+// once, at tokens tr0 and tr1 of the image whose token 0 is tok0 (lse: at
+// lse0 + token); a row whose token is < 0 is not written, nor the lse where
+// a.lse is null
+__device__ __forceinline__ void store_rows(const Bf16FwdArgs& a, const float* o, float m0,
+                                           float m1, float l0, float l1, long long tok0,
+                                           long long lse0, int tr0, int tr1, int col, int tq) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = q + 8 * half;
-    if (r >= n) continue;
+    const int r = half ? tr1 : tr0;
+    if (r < 0) continue;
     bf16* dst = a.out + (tok0 + r) * a.out_stride + col;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
           pack_bf16x2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
-    if (a.lse != nullptr && tq == 0) a.lse[bh * n + r] = (half ? m1 : m0) + logf(half ? l1 : l0);
+    if (a.lse != nullptr && tq == 0) a.lse[lse0 + r] = (half ? m1 : m0) + logf(half ? l1 : l0);
   }
+}
+
+// store_rows for query rows q and q + 8 of (image, head) bh, rows past n not written
+__device__ __forceinline__ void store_out_lse(const Bf16FwdArgs& a, const float* o, float m0,
+                                              float m1, float l0, float l1, long long tok0,
+                                              long long bh, int q, int col, int tq, int n) {
+  store_rows(a, o, m0, m1, l0, l1, tok0, bh * n, q < n ? q : -1, q + 8 < n ? q + 8 : -1, col, tq);
 }
 
 // The two walks. kDense: K7 (kAug 64, q alone, the float32 bias tile);
@@ -407,7 +434,8 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   } else {
     // the rel rows and the zero columns beside q (plain loads: once a block),
     // and the first step's one-hot block
-    stage_rel_rows_sw128<kAug>(Qa + kBlock, a.rel_a, a.rel_b, bh, n, kh, kw, row0);
+    const int r = row0 + (t & (kWgRows - 1));
+    stage_rel_rows_sw128<kAug>(Qa + kBlock, a.rel_a, a.rel_b, r < n ? bh * n + r : -1, kh, kw);
     build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
     mbar_wait(bar, 0);
     scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
@@ -624,40 +652,87 @@ __device__ __forceinline__ void rel_terms_sw128(bf16* Q1, const bf16* Q0, const 
   for (; f < end; ++f) Q1[sw128_off(r, f)] = __float2bfloat16_rn(0.f);
 }
 
-// q_aug (K2: two blocks; K7: q's one), k (200 rows), v (208 rows), then
-// K2's staged table rows, which the one-hot block of 200 keys overlays
-// next, or K7's bias tile [64][200] float32; three barriers and 1 KB to
-// align the first block
-static_assert(kStageRows * kStageRow >= kWinKeys * kWgD, "the one-hot block fits the staging");
-template <bool kTables>
-__host__ __device__ constexpr size_t wg_win_x_bytes() {
-  return kTables ? sizeof(bf16) * kStageRows * kStageRow : sizeof(float) * kWgRows * kWinKeys;
-}
-template <bool kTables>
-constexpr size_t wg_win_smem_bytes() {
-  return sizeof(bf16) * ((kTables ? 2 : 1) * kBlock + (kWinKeys + kWinVRows) * kWgD) +
-         wg_win_x_bytes<kTables>() + sizeof(uint64_t) * 3 + 1024;
+// K8: rows r0 .. r1-1 of a 128-byte-swizzled tile, which no box fills, set
+// to zero (v's past n: p = 0 there, and 0 . NaN would be NaN)
+__device__ __forceinline__ void zero_rows_sw128(bf16* T, int r0, int r1) {
+  for (int i = r0 * 8 + threadIdx.x; i < r1 * 8; i += kWgThreads)
+    reinterpret_cast<uint4*>(T)[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// kTables: K2 (kAug 96, the rel terms from the tables rh_flat = a.rel_a,
-// rw_flat = a.rel_b); else K7 (kAug 64, the float32 bias a.bias)
-template <bool kTables>
+// K8: query slots q0 .. q0+63 into q_aug's first block Q0 by the slot map: a
+// slot with a token copies the token's 64 columns (base: the head's first
+// column of the image's token 0, rows `stride` elements apart), any other
+// slot zeros. 16-byte cp.async, eight threads a row.
+__device__ __forceinline__ void gather_q_slots_sw128(bf16* Q0, const bf16* __restrict__ base,
+                                                     long long stride, const int* tok_s, int q0) {
+  for (int i = threadIdx.x; i < kWgRows * 8; i += kWgThreads) {
+    const int r = i >> 3;
+    const int c = i & 7;
+    const int tok = tok_s[q0 + r];
+    cp_async16_bytes(Q0 + sw128_off(r, 8 * c), tok >= 0 ? base + tok * stride + 8 * c : base,
+                     tok >= 0);
+  }
+}
+
+// K8: the pad slots' rows (token -1) among slots 0 .. n-1 of a k or v tile
+// (128-byte swizzle) set to `pad`, the head's 64 columns of bias_kv's k or
+// v row, over the zeros the box left there. Eight threads a row.
+__device__ __forceinline__ void fill_pad_rows_sw128(bf16* T, const bf16* __restrict__ pad,
+                                                    const int* tok_s, int n) {
+  const int c = threadIdx.x & 7;
+  const uint4 p = *reinterpret_cast<const uint4*>(pad + 8 * c);
+  for (int s = threadIdx.x >> 3; s < n; s += kWgThreads / 8)
+    if (tok_s[s] == -1) *reinterpret_cast<uint4*>(T + sw128_off(s, 8 * c)) = p;
+}
+
+constexpr int kSlotMap = 4 * kWgRows;  // K8: slots of a window's query tiles (n <= 200)
+
+// q_aug (K2, K8: two blocks; K7: q's one), k (200 rows), v (208 rows), then
+// K2's staged table rows, which the one-hot block of 200 keys overlays
+// next, K7's bias tile [64][200] float32, or K8's one-hot block and its
+// slot map; three barriers and 1 KB to align the first block
+static_assert(kStageRows * kStageRow >= kWinKeys * kWgD, "the one-hot block fits the staging");
+template <int kBias>
+__host__ __device__ constexpr size_t wg_win_x_bytes() {
+  return kBias == kRelTables ? sizeof(bf16) * kStageRows * kStageRow
+         : kBias == kDense   ? sizeof(float) * kWgRows * kWinKeys
+                             : sizeof(bf16) * kWinKeys * kWgD + sizeof(int) * kSlotMap;
+}
+template <int kBias>
+constexpr size_t wg_win_smem_bytes() {
+  return sizeof(bf16) * ((kBias == kDense ? 1 : 2) * kBlock + (kWinKeys + kWinVRows) * kWgD) +
+         wg_win_x_bytes<kBias>() + sizeof(uint64_t) * 3 + 1024;
+}
+
+// kBias: kRelTables K2 (kAug 96, the rel terms from the tables rh_flat =
+// a.rel_a, rw_flat = a.rel_b); kDense K7 (kAug 64, the float32 bias
+// a.bias); kRelWindow K8 (kAug 96: the window `win` of image `img` carved
+// from the token grid by the slot map, its rel terms a.rel_a, a.rel_b by
+// token, pad slots' k and v from a.pad_kv; blockIdx.z = win * batch + img,
+// so that every image's whole windows come before the windows of the
+// grid's last window row, which hold one or two query tiles)
+template <int kBias>
 __global__ void __launch_bounds__(kWgThreads, 2)
     attention_fwd_wgmma_window_kernel(const Bf16FwdArgs a,
                                       const __grid_constant__ CUtensorMap tm_q,
                                       const __grid_constant__ CUtensorMap tm_k,
                                       const __grid_constant__ CUtensorMap tm_v) {
+  constexpr bool kTables = kBias == kRelTables;
+  constexpr bool kDenseBias = kBias == kDense;
+  constexpr bool kSlots = kBias == kRelWindow;
+  static_assert(kTables || kDenseBias || kSlots, "K2, K7 or K8");
   constexpr int D = kWgD;
-  constexpr int kAug = kTables ? 96 : 64;
+  constexpr int kAug = kDenseBias ? 64 : 96;
   constexpr int kJ = kWinKeys / 8;  // 8-key groups of a thread's accumulator
   extern __shared__ unsigned char wg_smem[];
   bf16* Qa = reinterpret_cast<bf16*>(wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023));
-  bf16* K = Qa + (kTables ? 2 : 1) * kBlock;
+  bf16* K = Qa + (kDenseBias ? 1 : 2) * kBlock;
   bf16* V = K + kWinKeys * D;
-  bf16* E = V + kWinVRows * D;  // K2: the one-hot block (the staged table rows before it)
-  float* Bs = reinterpret_cast<float*>(E);  // K7: the bias tile [64][200]
+  bf16* E = V + kWinVRows * D;  // K2, K8: the one-hot block (K2: the staged table rows before it)
+  float* Bs = reinterpret_cast<float*>(E);        // K7: the bias tile [64][200]
+  int* tok_s = reinterpret_cast<int*>(E + kWinKeys * D);  // K8: the window's slot -> token map
   uint64_t* bar = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(E) +
-                                              wg_win_x_bytes<kTables>());  // q, k, v
+                                              wg_win_x_bytes<kBias>());  // q, k, v
   const int n = a.n, heads = a.heads, kh = a.kh, kw = a.kw;
   const int t = threadIdx.x;
   const int warp = t >> 5;
@@ -665,10 +740,20 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int head = blockIdx.y;
-  const long long img = blockIdx.z;
-  const long long tok0 = img * n;
-  const long long bh = img * heads + head;
   const int row0 = blockIdx.x * kWgRows;
+  long long img = blockIdx.z;
+  long long tokens = n;  // tokens an image
+  int win = 0;
+  if constexpr (kSlots) {
+    const int batch = gridDim.z / a.nwin;
+    win = blockIdx.z / batch;
+    img = blockIdx.z - static_cast<long long>(win) * batch;
+    // no slot of this tile is a query: nothing to compute or write
+    if (row0 >= window_queries(a, win)) return;
+    tokens = static_cast<long long>(a.hg) * a.wg;
+  }
+  const long long tok0 = img * tokens;
+  const long long bh = img * heads + head;
   const int hcol = head * D;
 
   if (t == 0) {
@@ -677,15 +762,26 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     mbar_init(bar + 2);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (kSlots) stage_slot_tokens(tok_s, a, win, kSlotMap);
   __syncthreads();
-  if (t == 0) {  // q, the window's k and v: each one box
-    mbar_expect_tx(bar, kTileDBytes);
-    tma_box(Qa, &tm_q, hcol, static_cast<int>(tok0) + row0, bar);
-    mbar_expect_tx(bar + 1, kWinKeys * D * sizeof(bf16));
-    tma_box(K, &tm_k, hcol, static_cast<int>(tok0), bar + 1);
-    mbar_expect_tx(bar + 2, kWinVRows * D * sizeof(bf16));
-    tma_box(V, &tm_v, hcol, static_cast<int>(tok0), bar + 2);
+  if (t == 0) {
+    if constexpr (kSlots) {  // the window's k and v: one box each, its slots in slot order
+      const int wy = win / a.nwx;
+      const int x0 = (win - wy * a.nwx) * kw;
+      mbar_expect_tx(bar + 1, n * D * sizeof(bf16));
+      tma_box4(K, &tm_k, hcol, x0, wy * kw, static_cast<int>(img), bar + 1);
+      mbar_expect_tx(bar + 2, n * D * sizeof(bf16));
+      tma_box4(V, &tm_v, hcol, x0, wy * kw, static_cast<int>(img), bar + 2);
+    } else {  // q, the window's k and v: each one box
+      mbar_expect_tx(bar, kTileDBytes);
+      tma_box(Qa, &tm_q, hcol, static_cast<int>(tok0) + row0, bar);
+      mbar_expect_tx(bar + 1, kWinKeys * D * sizeof(bf16));
+      tma_box(K, &tm_k, hcol, static_cast<int>(tok0), bar + 1);
+      mbar_expect_tx(bar + 2, kWinVRows * D * sizeof(bf16));
+      tma_box(V, &tm_v, hcol, static_cast<int>(tok0), bar + 2);
+    }
   }
+  const float inv_kw = 1.f / kw;
   if constexpr (kTables) {
     // the rel terms from the unscaled q and the staged table rows, then the
     // one-hot block over them, then q scaled in place
@@ -696,11 +792,30 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     __syncthreads();  // q and every staged row in place
     rel_terms_sw128<kAug>(Qa + kBlock, Qa, E, h_rows, n, kh, kw, row0);
     __syncthreads();  // the staged rows and q read
-    const float inv_kw = 1.f / kw;
     build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
     if (t < kWinKeys - kKeyTile)
       build_onehot_sw128<kAug>(E + kKeyTile * D, kKeyTile, n, kh, kw, inv_kw);
     scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
+    fence_proxy_async();
+    __syncthreads();
+  } else if constexpr (kSlots) {
+    // q by the slot map and the rel rows beside it, the one-hot block by
+    // slot position (pad slots too), v's rows past n zeroed (k's score
+    // -inf), then q scaled in place and the pad slots' k over the box's zeros
+    gather_q_slots_sw128(Qa, a.q + tok0 * a.in_stride + hcol, a.in_stride, tok_s, row0);
+    cp_async_commit();
+    const int tok = tok_s[row0 + (t & (kWgRows - 1))];
+    stage_rel_rows_sw128<kAug>(Qa + kBlock, a.rel_a, a.rel_b, tok >= 0 ? bh * tokens + tok : -1,
+                               kh, kw);
+    build_onehot_sw128<kAug>(E, 0, n, kh, kw, inv_kw);
+    if (t < kWinKeys - kKeyTile)
+      build_onehot_sw128<kAug>(E + kKeyTile * D, kKeyTile, n, kh, kw, inv_kw);
+    zero_rows_sw128(V, n, kWinVRows);
+    cp_async_wait<0>();
+    __syncthreads();  // q in place for every thread
+    scale_q_tile(Qa, __bfloat162float(__float2bfloat16_rn(a.scale)));  // every element of block 0
+    mbar_wait(bar + 1, 0);
+    fill_pad_rows_sw128(K, a.pad_kv + (heads + head) * D, tok_s, n);
     fence_proxy_async();
     __syncthreads();
   } else {  // the bias tile; q is read as it lands
@@ -712,7 +827,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   // S = q_aug . [k | E]^T over the window's keys: one m64n200 product of depth kAug
   const int lr0 = warp * 16 + g;
   float s[4 * kJ];
-  mbar_wait(bar + 1, 0);
+  if constexpr (!kSlots) mbar_wait(bar + 1, 0);
   fence_regs<4 * kJ>(s);
   wgmma_fence();
 #pragma unroll
@@ -720,21 +835,26 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     wgmma_ss_n200(s, sw128_desc_k(Qa, kk), sw128_desc(kk < 4 ? K + kk * 16 : E + (kk - 4) * 16),
                   kk);
   wgmma_commit();
-  if constexpr (!kTables) {  // the bias tile in place, while the product runs
+  if constexpr (kDenseBias) {  // the bias tile in place, while the product runs
     cp_async_wait<0>();
+    __syncthreads();
+  } else if constexpr (kSlots) {  // the pad slots' v over the box's zeros, while it runs
+    mbar_wait(bar + 2, 0);
+    fill_pad_rows_sw128(V, a.pad_kv + (2 * heads + head) * D, tok_s, n);
+    fence_proxy_async();
     __syncthreads();
   }
   wgmma_wait0();
   fence_regs<4 * kJ>(s);
-  if constexpr (kTables) {  // keys past n score -inf
+  if constexpr (kDenseBias) {
+    scale_add_bias<kJ, kWinKeys>(s, Bs, lr0, tq, 0, n, a.scale);
+  } else {  // keys past n score -inf
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (8 * j + 2 * tq + (e & 1) >= n) s[4 * j + e] = -INFINITY;
     }
-  } else {
-    scale_add_bias<kJ, kWinKeys>(s, Bs, lr0, tq, 0, n, a.scale);
   }
 
   // the rows' exact maxima, e = exp(S - m) in place and their sums, then p =
@@ -747,8 +867,8 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
   quad_max(m0, m1);
-  const float ms0 = !kTables && m0 == -INFINITY ? 0.f : m0;
-  const float ms1 = !kTables && m1 == -INFINITY ? 0.f : m1;
+  const float ms0 = kDenseBias && m0 == -INFINITY ? 0.f : m0;
+  const float ms1 = kDenseBias && m1 == -INFINITY ? 0.f : m1;
   float l0 = 0.f, l1 = 0.f;
 #pragma unroll
   for (int j = 0; j < kJ; ++j) {
@@ -782,7 +902,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  mbar_wait(bar + 2, 0);
+  if constexpr (!kSlots) mbar_wait(bar + 2, 0);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float pva[32], pvb[32];
@@ -809,7 +929,12 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     for (int i = 0; i < 32; ++i) o[i] += pvb[i];
   }
 
-  store_out_lse(a, o, m0, m1, l0, l1, tok0, bh, row0 + lr0, hcol + 2 * tq, tq, n);
+  if constexpr (kSlots) {  // by token; a pad query slot writes nothing
+    store_rows(a, o, m0, m1, l0, l1, tok0, bh * tokens, tok_s[row0 + lr0], tok_s[row0 + lr0 + 8],
+               hcol + 2 * tq, tq);
+  } else {
+    store_out_lse(a, o, m0, m1, l0, l1, tok0, bh, row0 + lr0, hcol + 2 * tq, tq, n);
+  }
 }
 
 }  // namespace

@@ -24,7 +24,8 @@
 //       pad queries are dropped.
 // Neither carries over the TPU kernels' K-axis concatenation with one-hot
 // expanders, which exists to feed the matrix unit: K8's factored bias is two
-// loads and an add per score.
+// loads and an add per score (K8's bfloat16 warpgroup forward at head dim 64
+// does fold them into its S product: attention_fwd_wgmma.cuh).
 //
 // Bound: K7 and K8 do 4*D flops per (query, key) pair in 3xTF32 on the
 // tensor cores (495/3 TFLOP/s). K8 is bound by bytes at B=1 (qkv, the rel
@@ -52,25 +53,19 @@
 #include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
-// attention_fwd_wgmma.cu: K7's bfloat16 forward on warpgroup products
+// attention_fwd_wgmma.cu: K7's and K8's bfloat16 forwards on warpgroup products
 extern "C" int mia_attention_dense_fwd_wgmma_takes(int d, int n);
 extern "C" int mia_attention_dense_fwd_wgmma_bf16(const void* q, const void* k, const void* v,
                                                   const void* bias, void* out, int bh, int n,
                                                   float scale, void* stream);
+extern "C" int mia_attention_rel_win_fwd_wgmma_takes(int d, int ws);
+extern "C" int mia_attention_rel_win_fwd_wgmma_bf16(const void* qkv, const void* rel_h,
+                                                    const void* rel_w, const void* bias_kv,
+                                                    void* out, void* lse, int batch, int hg,
+                                                    int wg, int heads, int ws, float scale,
+                                                    void* stream);
 
 namespace {
-
-// the (nwx, nwin) window geometry of a (hg, wg) grid
-template <typename Args>
-void set_grid(Args& a, int hg, int wg, int ws) {
-  a.n = ws * ws;
-  a.kh = ws;
-  a.kw = ws;
-  a.hg = hg;
-  a.wg = wg;
-  a.nwx = (wg + ws - 1) / ws;
-  a.nwin = a.nwx * ((hg + ws - 1) / ws);
-}
 
 // dbias_kv (3, hd) from K8b's float32 partials dpad (rows, 2*hd): row 0
 // zero, rows 1 and 2 the column sums, rounded once to T (float32, or
@@ -191,7 +186,9 @@ extern "C" int mia_attention_rel_win_bwd_f32(const void* qkv, const void* rel_h,
 // bfloat16; K7's bias, lse, delta and dpad float32; otherwise the arguments
 // of the float32 entries. K7 at head dim 64 with n % 4 == 0 runs the
 // warpgroup forward instead (attention_fwd_wgmma.cu: one walk over windows
-// of at most 200 tokens, two past them).
+// of at most 200 tokens, two past them), and so does K8 at head dim 64 on
+// windows of at most 200 slots (one walk, the windows carved by the slot
+// map); head dim 80 keeps this file's mma.sync instance.
 extern "C" int mia_attention_dense_bf16(const void* q, const void* k, const void* v,
                                         const void* bias, void* out, int bh, int n, int d,
                                         float scale, void* stream) {
@@ -207,6 +204,9 @@ extern "C" int mia_attention_rel_win_bf16(const void* qkv, const void* rel_h, co
                                           int hg, int wg, int heads, int d, int ws, float scale,
                                           void* stream) {
   if (ws <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (mia_attention_rel_win_fwd_wgmma_takes(d, ws))
+    return mia_attention_rel_win_fwd_wgmma_bf16(qkv, rel_h, rel_w, bias_kv, out, lse, batch, hg,
+                                                wg, heads, ws, scale, stream);
   Bf16FwdArgs a = packed_bf16_args(qkv, out, lse, heads, d, scale);
   a.rel_a = static_cast<const bf16*>(rel_h);
   a.rel_b = static_cast<const bf16*>(rel_w);

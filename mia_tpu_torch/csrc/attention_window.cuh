@@ -1,7 +1,8 @@
-// The window layout that K8 (the kRelWindow instance of attention_fwd_tc.cuh)
-// and K8b (the kWindow instance of attention_bwd_tc.cuh) share: windows of
-// ws x ws slots carved from the unpartitioned (B, hg, wg) token grid, with
-// no partitioned copy of any operand.
+// The window layout that K8 (the kRelWindow instances of attention_fwd_tc.cuh
+// and, in bfloat16 at head dim 64, of attention_fwd_wgmma.cuh's window
+// kernel) and K8b (the kWindow instance of attention_bwd_tc.cuh) share:
+// windows of ws x ws slots carved from the unpartitioned (B, hg, wg) token
+// grid, with no partitioned copy of any operand.
 //
 // blockIdx.z is a window of an image (batch * nwin of them); slot (i, j) of
 // window (wy, wx) is grid token (wy ws + i, wx ws + j), or a pad slot when
@@ -20,6 +21,19 @@
 namespace {
 
 constexpr int kNoToken = -2;  // the slot map past n (slot_token gives -1 for a pad slot)
+
+// The window geometry of a (hg, wg) grid of ws x ws windows: n = ws * ws
+// slots, kh = kw = ws, nwx windows a grid row, nwin an image.
+template <typename Args>
+void set_grid(Args& a, int hg, int wg, int ws) {
+  a.n = ws * ws;
+  a.kh = ws;
+  a.kw = ws;
+  a.hg = hg;
+  a.wg = wg;
+  a.nwx = (wg + ws - 1) / ws;
+  a.nwin = a.nwx * ((hg + ws - 1) / ws);
+}
 
 // The token (within its image) that slot `s` of window `win` stands for,
 // or -1 for a pad slot.

@@ -7,7 +7,8 @@
 //     accumulator-shaped bfloat16 fragment, B read MN-major through the
 //     descriptor's transpose bit), their fences, commit and wait;
 //   - mbarriers and TMA boxes (8 columns x 64 rows) from 2D tensor maps
-//     (tile_map below builds them on the host, zeros past the last row);
+//     (tile_map below builds them on the host, zeros past the last row), and
+//     boxes of a window's tokens from 4D maps over the token grid (grid_map);
 //   - the folded rel-pos operands of the Pallas kernels
 //     (mia_tpu/ops/attention.py, _attn_rel_packed_kernel):
 //       q_aug = [q * scale | rel_h | rel_w | 0]   against   k_aug = [k | E_h | E_w | 0],
@@ -183,6 +184,16 @@ __device__ __forceinline__ void tma_box(bf16* dst, const CUtensorMap* map, int c
       : "memory");
 }
 
+// One box of a 4D tensor map (coordinates c0 .. c3, innermost first) into dst
+__device__ __forceinline__ void tma_box4(bf16* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                         int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Columns 0 .. D-1 of a 64-row tile: D / 8 boxes from column c0
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int c0, int r0,
                                          uint64_t* bar) {
@@ -331,6 +342,27 @@ bool tile_map(CUtensorMap* m, const void* base, long long cols, long long rows,
   const cuuint32_t steps[2] = {1, 1};
   return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4D map over a (batch, hg, wg) grid of token rows `stride` elements apart,
+// `cols` bfloat16 elements of each: boxes of 64 columns x box_w columns x
+// box_h rows of the grid x 1 image in the 128-byte swizzle, zeros past the
+// grid's edges. A box lands its tokens in row-major order, one 128-byte row
+// each: a ws x ws box at (wx ws, wy ws) is a window's slots in slot order.
+bool grid_map(CUtensorMap* m, const void* base, long long cols, long long stride, int wg, int hg,
+              int batch, int box_w, int box_h) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(stride * sizeof(bf16));
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(wg),
+                              static_cast<cuuint64_t>(hg), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {row, row * wg, row * wg * hg};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_w), static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

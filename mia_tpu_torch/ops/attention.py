@@ -14,12 +14,14 @@ plain VJP widens to float32, as its JAX ``_bwd``); their bfloat16 CUDA
 instances (K2·bf16-K8·bf16, K2b·bf16, K3b·bf16, K6b·bf16, K8b·bf16) run on
 bfloat16 ``mma.sync`` — but K3·bf16, K6·bf16, K3b·bf16 and K6b·bf16 at head
 dim 64 with ``k_h + k_w <= 64``, K2·bf16 at head dim 64 on windows of at most
-200 tokens (its rel terms formed inside the kernel, one launch) and K7·bf16 at
-head dim 64 with ``N % 4 == 0``, which run warpgroup products (``wgmma``, TMA)
-with the rel terms folded in, or K7's float32 bias added to the float32 scores
+200 tokens (its rel terms formed inside the kernel, one launch), K7·bf16 at
+head dim 64 with ``N % 4 == 0`` and K8·bf16 at head dim 64 on windows of at
+most 200 slots (carved from the token grid by the slot map, pad slots from
+``bias_kv``), which run warpgroup products (``wgmma``, TMA) with the rel terms
+folded in, or K7's float32 bias added to the float32 scores
 (``csrc/attention_fwd_wgmma.cuh``, ``csrc/attention_bwd_wgmma.cuh``; the C
-rules ``…_takes`` pick the instance) — and each wrapper counts them in
-``bf16_launches``. Every bfloat16 forward
+rules ``…_takes`` pick the instance); K8b·bf16 and K2b·bf16 stay on
+``mma.sync`` — and each wrapper counts them in ``bf16_launches``. Every bfloat16 forward
 rounds P where the Pallas kernels do: a statistics pass over the keys first
 (the rows' maximum and sum), then ``p = bf16(exp(s − m) / l)`` into P·V.
 

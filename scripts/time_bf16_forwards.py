@@ -1,5 +1,6 @@
 """Time the bfloat16 attention forwards of one or more source trees on one GPU,
-queued, with the library call in turns.
+queued, with the library call in turns, and the two kernels next in line
+behind their library calls.
 
 For comparing two versions of the bfloat16 forwards (K2, K3, K6, K7, K8)
 within one run: unpack the other tree with ``git archive <commit>
@@ -15,7 +16,12 @@ windows (108, 196, 64) and global tokens (12, 1024, 64), K8 on the (1 and 8,
 same bfloat16 operands with the dense bias built beforehand (cuDNN), in
 turns (library, kernel, kernel, library), and each output's distance from
 the plain bfloat16 version by the forwards' ulp measure
-(``chip_smoke.bf16_ulps``). For K2, K3, K6 and K7 it also prints the bound
+(``chip_smoke.bf16_ulps``). Then, the same way, the backward kernels K8b·bf16
+at training batch 12 (autograd through the library call on the partitioned
+windows and their dense bias) and K10b·bf16 at the prompt-large 4 stage
+(12, 256, 256, 16 -> 16; autograd through ``F.conv_transpose2d``), their
+first output (dqkv, dx) read by the same ulp measure. For K2, K3, K6, K7
+and K8 it also prints the bound
 (the function's 4 D flops a (query, key) pair at 989 TFLOP/s dense bfloat16,
 or its bytes at 3.35 TB/s, as ``chip_smoke.bf16_bound``) and the warpgroup
 design's floor: the flops and exponentials of the pairs it computes, at 989
@@ -26,7 +32,9 @@ widths: two walks (K3, K6, and K7 on 1024 keys) compute S twice over
 128-key steps at S's depth (128 on the 32 x 32 grid, 96 on 14 x 14 windows,
 64 for K7) and P . V once, 2 exponentials a pair; one walk (K2 and K7 on
 196-token windows) computes S once over 200 keys (depth 96; K7 64) and
-P . V over 208, 1 exponential a pair. K2's rel terms (CUDA cores) are left
+P . V over 208, 1 exponential a pair; K8 computes only the query tiles that
+hold a real query slot (25 a head of a 32 x 32 grid at ws 14), each over the
+window's 196 slots, pad slots included. K2's rel terms (CUDA cores) are left
 out of its floor. The floors are this script's designs, whichever tree it
 times.
 
@@ -54,6 +62,8 @@ def one(tree: str) -> None:
 
     import chip_smoke as cs
     from mia_tpu_torch.ops import attention
+    from mia_tpu_torch.ops import upsample2x as up
+    from mia_tpu_torch.ops.ln_window import window_partition
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(4)
@@ -68,13 +78,15 @@ def one(tree: str) -> None:
     calls = []  # (label, kernel call, plain call, library call, per_block)
     floors = {}  # the bound and the design's floor, us
 
-    def yardsticks(label, tensors, bh, n, depth, one_walk, flops=0):
+    def yardsticks(label, tensors, bh, n, depth, one_walk, flops=0, pairs=None, rows=None):
         """The bound of bh grids of n x n (query, key) pairs (``flops``: any
         the function does besides 4 D a pair), and the floor of the design
-        at S's depth, walking the keys once or twice."""
-        pairs = bh * n * n
+        at S's depth, walking the keys once or twice; ``pairs`` and ``rows``
+        (the query rows of the tiles computed) where they are not bh n n and
+        bh n padded to 64."""
+        pairs = pairs or bh * n * n
         bound = cs.bf16_bound(tensors, pairs * 4 * d + flops)
-        rows = bh * -(-n // 64) * 64
+        rows = rows or bh * -(-n // 64) * 64
         if one_walk:  # S once over 200 keys, P . V over 208
             work, exps = rows * (200 * 2 * depth + 208 * 2 * d), rows * 200
         else:  # S twice over 128-key steps, P . V once
@@ -127,16 +139,49 @@ def one(tree: str) -> None:
                       functools.partial(attention.attention_dense_bf16, *qkv_, dense, scale),
                       functools.partial(sdpa, *(t[None] for t in qkv_),
                                         attn_mask=dense[None].to(bf), scale=scale), 20))
+    # K8's query tiles that hold a real query slot: of the 3 x 3 windows of a 32 x 32 grid,
+    # 4 whole (4 tiles), 2 of 14 rows x 4 columns (slots to 186: 3), 2 of 4 rows x 14 columns
+    # (56 slots: 1), the 4 x 4 corner (46 slots: 1)
+    side_rows = [min(ws, 32 - y) for y in range(0, 32, ws)]
+    k8_tiles = sum(-(-((hr - 1) * ws + wr) // 64) for hr in side_rows for wr in side_rows)
     for b in (1, 8):
         args8 = (randn(b, 32, 32, 3 * heads * d), randn(b * heads, 32, 32, ws),
                  randn(b * heads, 32, 32, ws), randn(3, heads * d, scale_=0.5), scale, ws, heads)
         lib_args = cs.windows_for_library(*args8[:4], ws, heads)
+        out8 = torch.empty(b, 32, 32, heads * d, dtype=bf)
+        yardsticks(f"K8 B={b}", [*args8[:4], out8], b * heads, ws * ws, 96, True,
+                   pairs=b * heads * 1024 * ws * ws, rows=b * heads * k8_tiles * 64)
         calls.append((f"K8 B={b}", functools.partial(attention._launch_k8, *args8),
                       functools.partial(attention.attention_rel_win_bf16, *args8),
                       functools.partial(sdpa, *lib_args[:3], attn_mask=lib_args[3], scale=scale),
                       50 if b == 1 else 10))
+    # the kernels next in line: K8b at training batch 12 on K8's own output and lse
+    b = 12
+    fwd8 = (randn(b, 32, 32, 3 * heads * d), randn(b * heads, 32, 32, ws),
+            randn(b * heads, 32, 32, ws), randn(3, heads * d, scale_=0.5))
+    out8, lse8 = attention._launch_k8(*fwd8, scale, ws, heads, with_lse=True)
+    g8 = randn(b, 32, 32, heads * d)
+    bargs8 = (*fwd8, out8, g8, lse8, scale, ws, heads)
+    g_w = window_partition(g8, ws)[0].view(-1, ws * ws, heads, d).transpose(1, 2).contiguous()
+    calls.append(("K8b B=12", functools.partial(attention._launch_k8_bwd, *bargs8),
+                  functools.partial(attention.attention_rel_win_bwd_bf16, *bargs8),
+                  cs.sdpa_backward_call(torch, *cs.windows_for_library(*fwd8, ws, heads), scale,
+                                        g_w), 5))
+    # K10b at the prompt-large 4 stage, the library on NCHW views of the same bfloat16 operands
+    x, wt = randn(12, 256, 256, 16), randn(2, 2, 16, 16, scale_=0.25)
+    dy = randn(12, 512, 512, 16)
+    x_l = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    w_l = wt.permute(2, 3, 0, 1).contiguous().requires_grad_()
+    b_l = torch.zeros(16, device=device, dtype=bf, requires_grad=True)
+    lib_out = torch.nn.functional.conv_transpose2d(x_l, w_l, b_l, stride=2)
+    calls.append(("K10b prompt-large 4", functools.partial(up._launch_k10_bwd, x, wt, dy),
+                  functools.partial(up.conv_transpose2x_bwd_plain_bf16, x, wt, dy),
+                  functools.partial(torch.autograd.grad, lib_out, [x_l, w_l, b_l],
+                                    dy.permute(0, 3, 1, 2), retain_graph=True), 5))
     for label, kernel, plain, library, per_block in calls:
         got, want = kernel(), plain()
+        if isinstance(got, tuple):  # a backward: its first output (dqkv, dx)
+            got, want = got[0], want[0]
         want = want[0] if isinstance(want, tuple) else want
         torch.cuda.synchronize()
         ulps, equal = cs.bf16_ulps(torch, got, want)

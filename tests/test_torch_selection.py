@@ -109,6 +109,16 @@ def test_kmeans_plusplus_core_with_jax_draws_picks_what_jax_picks(seed, weighted
     assert got.tolist() == want.tolist()
 
 
+@pytest.mark.parametrize("uniforms, want", [([0.25, 0.75], 1), ([0.75, 0.25], 2)])
+def test_kmeans_plusplus_takes_the_first_drawn_of_tied_candidates(uniforms, want):
+    # from center 0, candidates 1 and 2 each improve only the pair of them, so
+    # either leaves the potential (4 + 9) / 4: an exact tie (every value here is
+    # exact in float32), which goes to the candidate drawn first
+    x = torch.tensor([[0.0, 0.0], [8.0, 0.0], [8.0, 2.0], [0.0, 3.0]])
+    got = kmeans_plusplus_from_draws(x, 0, torch.tensor([uniforms]))
+    assert n_local_trials_for(2) == 2 and got.tolist() == [0, want]
+
+
 def test_kmeans_plusplus_draws_from_its_generator():
     x = torch.from_numpy(_points(3, 25))
     a = kmeans_plusplus(x, 6, torch.Generator().manual_seed(4))
