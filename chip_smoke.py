@@ -366,14 +366,17 @@ KERNELS = {
              "mia_tpu/ops/upsample2x.py:137"),
 }
 # the bfloat16 entries whose kernel lives elsewhere than the float32 one's: K2, K3, K6, K7, K8,
-# K3b and K6b in bfloat16 at head dim 64 run the warpgroup (wgmma) kernels
+# K3b, K6b and K8b in bfloat16 at head dim 64 run the warpgroup (wgmma) kernels (K8b their
+# window instance); K10b·bf16's one pass is in the float32 kernels' source (its entry's
+# ``path`` names it)
 BF16_SOURCES = {"K2": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K3": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K6": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K7": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K8": "mia_tpu_torch/csrc/attention_fwd_wgmma.cuh",
                 "K3b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh",
-                "K6b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh"}
+                "K6b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh",
+                "K8b": "mia_tpu_torch/csrc/attention_bwd_wgmma.cuh"}
 # kernels with a bfloat16 instance (SAM serving and CPC-SAM training in bfloat16, through every
 # route of the encoder, and the upscalers and the UNet decoder on K10); the JSON line gives each
 # a ``bf16`` entry with its own launches, times and bounds
@@ -400,6 +403,18 @@ BF16_FWD_ULPS = 11.0
 BF16_MIN_EQUAL = 0.99
 BF16_TC_FLOPS_PER_S = 989e12  # dense bfloat16 on the tensor cores (K2, K3 in bfloat16)
 BF16_ULP_FLOOR = 2.0 ** -6  # an element's ulp is taken at >= this share of the max (bf16_ulp)
+
+
+def k10b_dw_flips_allowed(n):
+    """The elements of K10b·bf16's one-pass dw (``n`` of them) that may round
+    the other way from the float64 sum rounded once, each by one ulp. dw sums
+    10^2-10^6 pixels, so any float32 order puts a few sums on the other side
+    of a rounding boundary: on an H100 the float32 plain VJP read up to 3 of
+    8192 / 2 of 2048 / 1 of 1024, the one pass 5 / 1 / 1
+    (``scripts/probe_k10b_dw_rounding.py``, seeds 15-18). A share bit-equal
+    cannot tell one such flip from many at 1024 elements, so the hold is a
+    count: 0.1% of the elements, at least one, and one more."""
+    return max(1, n // 1000) + 1
 
 
 def counters():
@@ -3296,7 +3311,14 @@ def bf16_route_kernel_phase(torch, device):
                         **bf16_bound([qkv, rel_h, rel_w, bias_kv, out], flops)}
             g = args[5]
             g_w = window_partition(g, ws)[0].view(-1, ws * ws, n_heads, d).transpose(1, 2)
-            return {"library_ms": sdpa_backward_ms(torch, *lib_args, args[7], g_w.contiguous(), 5),
+            # the warpgroup window instance at head dim 64: both queued, in turns
+            ms, lib_ms = library_turns_ms(
+                torch, f"K8b bf16 ({b}, {hg}, {wg}, {three_hd})",
+                lambda: attention._launch_k8_bwd(*args),
+                sdpa_backward_call(torch, *lib_args, args[7], g_w.contiguous()), 5)
+            return {"ms": ms, "device_ms": ms, "library_ms": lib_ms,
+                    "path": ("warpgroup window passes" if d == 64 else "mma.sync window instance")
+                    + " + pad reduce",
                     **bf16_bound([qkv, rel_h, rel_w, bias_kv, args[4], g, qkv, rel_h, rel_w,
                                   bias_kv], flops)}
         q, k, v = args[:3]
@@ -3989,7 +4011,9 @@ def bf16_upsample_kernel_phase(torch, device):
     """K10·bf16 and K10b·bf16 at ``BF16_UPSAMPLE_STAGES`` (bfloat16 x, w and
     dy, float32 bias): y, dx and dw within one bfloat16 ulp of the plain
     bfloat16 versions an element (both sum in float32 and round once) and
-    at least 99% bit-equal, db (float32) within ``BWD_TOL`` of max |plain|,
+    at least 99% bit-equal (where the backward takes the one pass dx 99.9%,
+    and dw 99.9% bit-equal to the float64 sum rounded once), db (float32)
+    within ``BWD_TOL`` of max |plain|,
     two backward launches bit-identical, dx alone equal to the full
     backward's; ``F.conv_transpose2d`` on the bfloat16 operands within
     ``BF16_TOL`` of the plain version. Timed stages: kernel and plain version
@@ -4007,8 +4031,9 @@ def bf16_upsample_kernel_phase(torch, device):
 
     worst = {"K10": [0.0, 0.0], "K10b": [0.0, 0.0]}
     least_equal = {"K10": 1.0, "K10b": 1.0}
+    dw_flips = {}  # the one pass's dw: elements off the float64 sum rounded once, by stage
 
-    def hold(name, label, got, want):
+    def hold(name, label, got, want, least=0.99):
         torch.cuda.synchronize()
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"{name} bf16 {label}: {got.dtype} {tuple(got.shape)}")
@@ -4018,8 +4043,8 @@ def bf16_upsample_kernel_phase(torch, device):
         if want.dtype == bf:  # one rounding of float32 sums taken in another order
             over = int((diff > bf16_ulp(torch, want)).sum())
             equal = float((diff == 0).float().mean())
-            check(over == 0 and equal >= 0.99, f"{name} bf16 {label}: {over} elements beyond one "
-                  f"ulp of plain, {equal:.4f} bit-equal")
+            check(over == 0 and equal >= least, f"{name} bf16 {label}: {over} elements beyond "
+                  f"one ulp of plain, {equal:.4f} bit-equal (at least {least})")
             least_equal[name] = min(least_equal[name], equal)
         else:
             check(err <= BWD_TOL * ref, f"{name} bf16 {label}: max |kernel - plain| {err} > "
@@ -4035,8 +4060,23 @@ def bf16_upsample_kernel_phase(torch, device):
         want = up.conv_transpose2x_plain_bf16(x, wt, bias)
         hold("K10", label, got, want)
         first = up._launch_k10_bwd(x, wt, dy)
-        for got_i, want_i in zip(first, up.conv_transpose2x_bwd_plain_bf16(x, wt, dy)):
-            hold("K10b", label, got_i, want_i)
+        # the one pass (prompt-large 2-4, UNet 4, SAM 2, the ragged thin stages): dx 99.9%
+        # bit-equal to the plain version; dw one ulp from the float64 sum rounded once, at most
+        # k10b_dw_flips_allowed of its elements off it (the plain version's own float32 sum
+        # rounds a few the other way too)
+        one_pass = up.k10_routes((b, h, w, cin), cout, bf)["dx"] == "one pass"
+        for i, (got_i, want_i) in enumerate(zip(first, up.conv_transpose2x_bwd_plain_bf16(x, wt,
+                                                                                         dy))):
+            hold("K10b", label, got_i, want_i, 0.999 if one_pass and i == 0 else 0.99)
+        if one_pass:
+            exact = up.conv_transpose2x_bwd_plain(x.double(), wt.double(), dy.double(),
+                                                  need_dx=False)[1].to(bf)
+            ulps = bf16_ulps(torch, first[1], exact)[0]
+            flips, allowed = int((first[1] != exact).sum()), k10b_dw_flips_allowed(exact.numel())
+            check(ulps <= 1.0 and flips <= allowed, f"K10b bf16 {label}: dw {flips} of "
+                  f"{exact.numel()} elements off the float64 sum rounded once (at most {allowed}), "
+                  f"{ulps} ulps (at most 1)")
+            dw_flips[label] = f"{flips}/{exact.numel()}"
         bit_identical(torch, "K10b bf16", label, first, up._launch_k10_bwd(x, wt, dy))
         only_dx = up._launch_k10_bwd(x, wt, dy, need_dw=False)
         check(only_dx[1] is None and only_dx[2] is None and torch.equal(only_dx[0], first[0]),
@@ -4084,14 +4124,18 @@ def bf16_upsample_kernel_phase(torch, device):
                   f"{per_block} launches); {describe_yardsticks(m)}")
     out = {}
     for name in ("K10", "K10b"):
-        # the line's entry is the prompt-large chain's slowest stage; every timed stage beside it
+        # the line's entry is the prompt-large chain's slowest stage; every timed stage beside it,
+        # and the routes the stages took (K10b: the one pass and the tensor-core tiles)
         slowest = max((m for label, m in stages[name].items() if label.startswith("prompt-large")),
                       key=lambda m: m["ms"])
-        out[name] = {"max_abs_err": worst[name][0], **slowest, "stages": stages[name]}
+        out[name] = {"max_abs_err": worst[name][0], **slowest, "stages": stages[name],
+                     "routes": sorted({m["path"] for m in stages[name].values()})}
         print(f"{name} bf16 within one ulp of plain an element on {len(BF16_UPSAMPLE_STAGES)} "
               f"shapes, at least {least_equal[name]:.4f} bit-equal (max |diff| {worst[name][0]:.3g}, "
               f"relative {worst[name][1]:.3g})"
-              + ("; db within 1e-4, two launches bit-identical" if name == "K10b" else ""))
+              + (f"; the one pass's dw off the float64 sum rounded once by one ulp at "
+                 f"{dw_flips} elements; db within 1e-4, two launches bit-identical"
+                 if name == "K10b" else ""))
     return out
 
 

@@ -1,8 +1,9 @@
-// The C entry of the warpgroup backward of K3b and K6b in bfloat16
-// (attention_bwd_wgmma.cuh): the tensor maps its TMA copies read, the launch
-// of passes A and B, and the rule for which calls it takes. A source of its
-// own, so that nvcc builds its kernels beside attention_rel.cu's, whose
-// bfloat16 backward entries call it.
+// The C entries of the warpgroup backward in bfloat16
+// (attention_bwd_wgmma.cuh): K3b and K6b, and K8b's window instance; the
+// tensor maps their TMA copies read, the launches of passes A and B, and
+// the rules for which calls they take. A source of its own, so that nvcc
+// builds its kernels beside attention_rel.cu's and attention_routes.cu's,
+// whose bfloat16 backward entries call it.
 
 #include "attention_bwd_wgmma.cuh"
 
@@ -106,4 +107,74 @@ extern "C" int mia_attention_rel_bwd_wgmma_bf16(
       !tile_map(&maps[2], v, hd, rows, in_stride) || !tile_map(&maps[3], g, hd, rows, out_stride))
     return static_cast<int>(cudaErrorNotSupported);
   return dispatch_bwd_wgmma(a, maps, batch, static_cast<cudaStream_t>(stream));
+}
+
+// Whether the warpgroup backward takes a bfloat16 K8b call: head dim 64 and
+// ws x ws windows of at most 200 slots (four 64-slot tiles, q_aug of 96
+// columns: 2 ws <= 32), the forward's rule. Others (head dim 80) run
+// attention_bwd_tc.cuh's bfloat16 window instance.
+extern "C" int mia_attention_rel_win_bwd_wgmma_takes(int d, int ws) {
+  return d == kWgD && ws > 0 && ws * ws <= 200 && 2 * ws <= kWinAug - kWgD;
+}
+
+// K8b in bfloat16 for a call the rule above takes, passes A and B (the pad
+// reduce is the caller's): qkv (batch, hg, wg, 3*heads*64); rel_h, rel_w
+// (batch*heads, hg, wg, ws) and their gradients; bias_kv (3, heads*64);
+// out and g (batch, hg, wg, heads*64); lse and the delta scratch
+// (batch*heads, hg*wg) float32; dqkv of qkv's shape; dpad (batch * windows
+// * ceil(ws*ws / 64), 2, heads*64) float32, one partial row a (window, key
+// tile). q, k, v and g land by 4D boxes of 8 columns over the token grid.
+extern "C" int mia_attention_rel_win_bwd_wgmma_bf16(
+    const void* qkv, const void* rel_h, const void* rel_w, const void* bias_kv, const void* out,
+    const void* g, const void* lse, void* dqkv, void* delta, void* drel_h, void* drel_w,
+    void* dpad, int batch, int hg, int wg, int heads, int ws, float scale, void* stream) {
+  if (batch == 0 || hg == 0 || wg == 0) return static_cast<int>(cudaSuccess);
+  if (!mia_attention_rel_win_bwd_wgmma_takes(kWgD, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long hd = static_cast<long long>(heads) * kWgD;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  bf16* dbase = static_cast<bf16*>(dqkv);
+  Bf16BwdArgs a{};
+  a.q = base;
+  a.k = base + hd;
+  a.v = base + 2 * hd;
+  a.rel_a = static_cast<const bf16*>(rel_h);
+  a.rel_b = static_cast<const bf16*>(rel_w);
+  a.pad_kv = static_cast<const bf16*>(bias_kv);
+  a.out = static_cast<const bf16*>(out);
+  a.g = static_cast<const bf16*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.dq = dbase;
+  a.dk = dbase + hd;
+  a.dv = dbase + 2 * hd;
+  a.delta = static_cast<float*>(delta);
+  a.drel_a = static_cast<bf16*>(drel_h);
+  a.drel_b = static_cast<bf16*>(drel_w);
+  a.dpad = static_cast<float*>(dpad);
+  a.in_stride = 3 * hd;
+  a.out_stride = hd;
+  a.heads = heads;
+  set_grid(a, hg, wg, ws);
+  a.scale = scale;
+  CUtensorMap maps[4];  // q, k, v, g: 8-column boxes of a window's ws x ws tokens, no swizzle
+  constexpr CUtensorMapSwizzle kNone = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!grid_map(&maps[0], a.q, hd, a.in_stride, wg, hg, batch, ws, ws, 8, kNone) ||
+      !grid_map(&maps[1], a.k, hd, a.in_stride, wg, hg, batch, ws, ws, 8, kNone) ||
+      !grid_map(&maps[2], a.v, hd, a.in_stride, wg, hg, batch, ws, ws, 8, kNone) ||
+      !grid_map(&maps[3], a.g, hd, a.out_stride, wg, hg, batch, ws, ws, 8, kNone))
+    return static_cast<int>(cudaErrorNotSupported);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((a.n + kWgRows - 1) / kWgRows, heads, batch * a.nwin);
+  auto ka_kernel = attention_bwd_wgmma_win_dq_kernel;
+  auto kb_kernel = attention_bwd_wgmma_win_dkv_kernel;
+  constexpr size_t smem_a = wg_win_dq_smem_bytes();
+  constexpr size_t smem_b = wg_win_dkv_smem_bytes();
+  cudaError_t err = allow_wg_smem(ka_kernel, smem_a);
+  if (err == cudaSuccess) err = allow_wg_smem(kb_kernel, smem_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ka_kernel<<<grid, kWgThreads, smem_a, s>>>(a, maps[1], maps[2]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kb_kernel<<<grid, kWgThreads, smem_b, s>>>(a, maps[0], maps[3]);
+  return static_cast<int>(cudaGetLastError());
 }

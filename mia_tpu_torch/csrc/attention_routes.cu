@@ -64,6 +64,12 @@ extern "C" int mia_attention_rel_win_fwd_wgmma_bf16(const void* qkv, const void*
                                                     void* out, void* lse, int batch, int hg,
                                                     int wg, int heads, int ws, float scale,
                                                     void* stream);
+// attention_bwd_wgmma.cu: K8b's bfloat16 backward on warpgroup products
+extern "C" int mia_attention_rel_win_bwd_wgmma_takes(int d, int ws);
+extern "C" int mia_attention_rel_win_bwd_wgmma_bf16(
+    const void* qkv, const void* rel_h, const void* rel_w, const void* bias_kv, const void* out,
+    const void* g, const void* lse, void* dqkv, void* delta, void* drel_h, void* drel_w,
+    void* dpad, int batch, int hg, int wg, int heads, int ws, float scale, void* stream);
 
 namespace {
 
@@ -188,7 +194,11 @@ extern "C" int mia_attention_rel_win_bwd_f32(const void* qkv, const void* rel_h,
 // warpgroup forward instead (attention_fwd_wgmma.cu: one walk over windows
 // of at most 200 tokens, two past them), and so does K8 at head dim 64 on
 // windows of at most 200 slots (one walk, the windows carved by the slot
-// map); head dim 80 keeps this file's mma.sync instance.
+// map); head dim 80 keeps this file's mma.sync instance. K8b at head dim 64
+// on windows of at most 200 slots runs the window instance of the warpgroup
+// backward (attention_bwd_wgmma.cuh: passes A and B on windows carved by the
+// slot map), then this file's pad reduce; head dim 80 keeps the mma.sync
+// instance, by that rule.
 extern "C" int mia_attention_dense_bf16(const void* q, const void* k, const void* v,
                                         const void* bias, void* out, int bh, int n, int d,
                                         float scale, void* stream) {
@@ -252,7 +262,12 @@ extern "C" int mia_attention_rel_win_bwd_bf16(const void* qkv, const void* rel_h
   set_grid(a, hg, wg, ws);
   a.scale = scale;
   const int windows = batch * a.nwin;
-  const int err = dispatch_bwd_bf16<false, true>(a, windows, d, s);
+  const int err = mia_attention_rel_win_bwd_wgmma_takes(d, ws)
+                      ? mia_attention_rel_win_bwd_wgmma_bf16(qkv, rel_h, rel_w, bias_kv, out, g,
+                                                             lse, dqkv, delta, drel_h, drel_w,
+                                                             dpad, batch, hg, wg, heads, ws,
+                                                             scale, stream)
+                      : dispatch_bwd_bf16<false, true>(a, windows, d, s);
   if (err != 0) return err;
   const int rows = windows * ((a.n + kTcTile - 1) / kTcTile);
   const int cols = static_cast<int>(2 * hd);

@@ -90,6 +90,10 @@
 // * CUDA cores (conv_transpose2x_gemm_kernel<__nv_bfloat16, ...>): the float32
 //   tile on bfloat16 loads (4 elements, 8 bytes), float32 FMA, and one rounding
 //   on the store.
+// * The one pass (conv_transpose2x_bwd_onepass_kernel, below): the backward's
+//   dx, dw and db from one read of x and dy, as the Pallas kernel makes them,
+//   where route_onepass() takes a stage (Cin <= 64, Cout <= 32: prompt-large
+//   2-4, UNet 4, SAM 2); then the reduce of dw and that of db.
 //
 // route_tc() keeps one rule for both types, with the bytes counted at the
 // operands' width: the tensor cores wherever the product's time on the CUDA
@@ -1028,6 +1032,313 @@ cudaError_t launch_reduce(const float* part, OutT* dst, int chunks, int Cin, int
 }
 
 // ---------------------------------------------------------------------------
+// K10b.bf16 in one pass over dy (the thin stages)
+// ---------------------------------------------------------------------------
+//
+// What _bwd_kernel computes (mia_tpu/ops/upsample2x.py): each grid cell
+// reads its band of x and of dy once and produces dx, and a float32 dw / db
+// partial. Here a persistent grid of blocks, sized from the shape alone
+// (one block per 128-pixel stage, at most two an SM: so two launches are
+// bit-identical), walks the pixels (b, i, j) in stages of kP, each block
+// taking stages blockIdx.x, blockIdx.x + gridDim.x, ...; a stage's x rows
+// (kP x Cin) and dy taps (kP x 4*Cout: a pixel's tap rows di = 0 and 1 of
+// the (B, H, 2, W, 2*Cout) layout, 2*Cout each) arrive by 16-byte cp.async
+// into a ring of kStages stages (about 100 KB an SM in flight), and every
+// product runs on bfloat16 mma.sync.m16n8k16 with float32 accumulators:
+//
+//   dx(pixel, ci)  = sum over 4*Cout of dy(pixel, k) wT(k, ci)   warps by 16 pixels
+//   dwT(k, ci)    += sum over the stage's pixels of dy(pixel, k) x(pixel, ci)
+//   db(k)         += sum over the stage's pixels of dy(pixel, k)
+//
+// dx is each pixel's 4*Cout-deep float32 sum (32-deep MMA chains, each from
+// zero, added to it in float32: the tensor core truncates into its
+// accumulator), rounded once to bfloat16. dwT is held in registers for the
+// block's whole walk, each element by one warp (an m16 x n8 fragment of the
+// (4*Cout, Cin) product), a 32-pixel chain at a time added into it; db is
+// the CUDA cores' float32 sum of the same dy fragments (the warp that holds
+// an m16 row block's first fragment). Each block writes one float32 dw / db
+// partial; conv_transpose2x_reduce_kernel adds them in block order (dw's,
+// rounded once, then db's). Three launches (this kernel, the two reduces)
+// where the tile products take four, no atomics. x and dy are read once: the bound is
+// their bytes and dx's (prompt-large 4: 151 MB, 45.07 us at 3.35 TB/s).
+//
+// Staged rows are swizzled by 16-byte chunk (swz below), so that the eight
+// rows an ldmatrix reads at one chunk fall in eight distinct 16-byte bank
+// groups whatever the row's width (32 bytes at Cin 16 would conflict two
+// ways unswizzled, 128 bytes eight ways). Instances by padded channel
+// counts: kCin (Cin rounded up to 16: 16, 32, 64) and kN4 (4*Cout rounded up
+// to 64: 64, 128); ci past Cin and k past 4*Cout are zero-filled, never
+// read, and not written.
+
+constexpr int kOpThreads = 256;                 // 8 warps
+constexpr size_t kOpBudget = 112 * 1024;        // shared memory a block: two blocks an SM
+constexpr int kOpBlocksPerSm = 2;
+
+template <int kCin, int kN4>
+struct OnePass {
+  static constexpr int kP = kCin + kN4 > 128 ? 64 : 128;  // pixels a stage
+  static constexpr int kXC = kCin / 8;                    // 16-byte chunks of a staged x row
+  static constexpr int kYC = kN4 / 8;                     // ... of a staged dy row
+  static constexpr int kStageElems = kP * (kCin + kN4);
+  static constexpr int kWLd = kN4 + 8;                    // wT rows [ci][k], padded by 16 bytes
+  static constexpr size_t kWBytes = sizeof(bf16) * kCin * kWLd;
+  static constexpr size_t kStageBytes = sizeof(bf16) * kStageElems;
+  static constexpr int kStages = 4 * kStageBytes + kWBytes <= kOpBudget   ? 4
+                                 : 3 * kStageBytes + kWBytes <= kOpBudget ? 3
+                                                                          : 2;
+  static constexpr size_t kBytes = kStages * kStageBytes + kWBytes;
+  // dx: warps by (16-pixel row block, n8 group)
+  static constexpr int kMRows = kP / 16;           // m16 blocks of a stage
+  static constexpr int kDxWarps = 8 / kMRows;      // warps an m16 block
+  static constexpr int kNT = kCin / 8;             // n8 tiles of Cin
+  static constexpr int kDxNT = kNT / kDxWarps;     // n8 tiles a warp
+  // dwT: (kN4 / 16) x (Cin / 8) fragments, kDwPer a warp in one m16 row block
+  static constexpr int kMT = kN4 / 16;
+  static constexpr int kDwPer = kMT * kNT / 8;
+  static constexpr int kDwGroups = kNT / kDwPer;   // warps an m16 row block
+  static_assert(kDxWarps * kMRows == 8 && kDxNT * kDxWarps == kNT,
+                "dx does not split over 8 warps");
+  static_assert(kDwPer >= 1 && kDwGroups * kDwPer == kNT && kMT == 8 / kDwGroups,
+                "dwT does not split over 8 warps");
+  static_assert(kBytes <= kOpBudget, "a stage ring does not fit");
+};
+
+// The 16-byte chunk where chunk c of staged row p lands, in a tile of rows
+// of nc chunks: c XOR the row's place among the rows that share a 128-byte
+// line group, so that eight rows at one chunk hit eight bank groups.
+template <int nc>
+__device__ __forceinline__ int swz(int p, int c) {
+  constexpr int kLine = nc >= 8 ? 1 : 8 / nc;  // rows a 128-byte line
+  constexpr int kMask = nc >= 8 ? 7 : nc - 1;
+  return c ^ ((p / kLine) & kMask);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory as stored: lane t gives the
+// address of row t % 8 of matrix t / 8; register i holds, in lane (g, tq),
+// elements (g, 2 tq) and (g, 2 tq + 1) of matrix i, the A fragment of a
+// row-major [m][k] tile.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// x (pixels, Cin), w (2, 2, Cin, Cout), dy (B, 2H, 2W, Cout) viewed (B, H,
+// 2, W, 2*Cout) -> dx (pixels, Cin) when not null; part (gridDim.x, Cin,
+// 4*Cout) and sums (gridDim.x, 4*Cout), this block's float32 dw / db
+// partials, when part is not null.
+template <int kCin, int kN4>
+__global__ void __launch_bounds__(kOpThreads, kOpBlocksPerSm) conv_transpose2x_bwd_onepass_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ dy,
+    bf16* __restrict__ dx, float* __restrict__ part, float* __restrict__ sums, long long pixels,
+    int W, int Cin, int Cout) {
+  using L = OnePass<kCin, kN4>;
+  constexpr int kP = L::kP;
+  extern __shared__ float4 op_smem4[];
+  bf16* ring = reinterpret_cast<bf16*>(op_smem4);  // [stage]: x rows [kP][kCin], dy rows [kP][kN4]
+  bf16* Wt = ring + L::kStages * L::kStageElems;   // [ci][kWLd]: wT(k, ci) at Wt[ci * kWLd + k]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int N4 = 4 * Cout;
+  const int row2 = 2 * Cout;  // elements of one tap row of a pixel
+  const bool want_dx = dx != nullptr;
+  const bool want_dw = part != nullptr;
+  const long long nst = (pixels + kP - 1) / kP;
+  const long long mine = (nst - blockIdx.x + gridDim.x - 1) / gridDim.x;  // this block's stages
+
+  // wT, zero past Cin and past 4*Cout (plain 16-byte loads, once a block)
+  for (int i = tid; i < kCin * L::kYC; i += kOpThreads) {
+    const int ci = i / L::kYC;
+    const int k = 8 * (i - ci * L::kYC);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (ci < Cin && k < N4) {
+      const int tap = k / Cout;
+      v = __ldg(reinterpret_cast<const uint4*>(w + (static_cast<long long>(tap) * Cin + ci) * Cout +
+                                               (k - tap * Cout)));
+    }
+    *reinterpret_cast<uint4*>(Wt + ci * L::kWLd + k) = v;
+  }
+
+  auto load = [&](int slot, long long st) {
+    bf16* Xs = ring + slot * L::kStageElems;
+    bf16* Ys = Xs + kP * kCin;
+    const long long p0 = st * kP;
+    if (want_dw) {
+      for (int i = tid; i < kP * L::kXC; i += kOpThreads) {
+        const int p = i / L::kXC;
+        const int c = i - p * L::kXC;
+        const long long gp = p0 + p;
+        const bool ok = gp < pixels && 8 * c < Cin;
+        cp_async16_bytes(Xs + p * kCin + 8 * swz<L::kXC>(p, c), ok ? x + gp * Cin + 8 * c : x, ok);
+      }
+    }
+    for (int i = tid; i < kP * L::kYC; i += kOpThreads) {
+      const int p = i / L::kYC;
+      const int c = i - p * L::kYC;
+      const long long gp = p0 + p;
+      const int k = 8 * c;
+      const bool ok = gp < pixels && k < N4;
+      const bf16* src = dy;
+      if (ok) {
+        const long long t = div_w(gp, W);
+        const int di = k >= row2 ? 1 : 0;
+        src = dy + ((2 * t + di) * W + (gp - t * W)) * row2 + (k - di * row2);
+      }
+      cp_async16_bytes(Ys + p * kN4 + 8 * swz<L::kYC>(p, c), src, ok);
+    }
+  };
+
+  // dx: the warp's 16 pixels (row block warp % kMRows) by its n8 tiles
+  const int dx_m0 = 16 * (warp % L::kMRows);
+  const int dx_n0 = (warp / L::kMRows) * L::kDxNT;
+  // dwT: the warp's m16 row block and n8 tiles; the first group's warp also sums db
+  const int dw_mi = warp / L::kDwGroups;
+  const int dw_n0 = (warp % L::kDwGroups) * L::kDwPer;
+  const bool db_warp = warp % L::kDwGroups == 0;
+  float dwa[L::kDwPer][4];
+#pragma unroll
+  for (int j = 0; j < L::kDwPer; ++j) dwa[j][0] = dwa[j][1] = dwa[j][2] = dwa[j][3] = 0.f;
+  float dbs0 = 0.f, dbs1 = 0.f;  // db of rows 16 dw_mi + g and + 8, this thread's pixels
+
+#pragma unroll
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < mine) load(s, blockIdx.x + static_cast<long long>(s) * gridDim.x);
+    cp_async_commit();
+  }
+  for (long long it = 0; it < mine; ++it) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // stage `it` landed for every thread (and wT, the first time); it - 1 is free
+    const long long next = it + L::kStages - 1;
+    if (next < mine) load(static_cast<int>(next % L::kStages), blockIdx.x + next * gridDim.x);
+    cp_async_commit();
+    const bf16* Xs = ring + static_cast<int>(it % L::kStages) * L::kStageElems;
+    const bf16* Ys = Xs + kP * kCin;
+    const long long p0 = (blockIdx.x + it * gridDim.x) * kP;
+
+    if (want_dx) {
+      float acc[L::kDxNT][4];
+#pragma unroll
+      for (int j = 0; j < L::kDxNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kN4 / 32; ++kc) {  // 32-deep chains, each from zero
+        float pt[L::kDxNT][4];
+#pragma unroll
+        for (int j = 0; j < L::kDxNT; ++j) pt[j][0] = pt[j][1] = pt[j][2] = pt[j][3] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = 2 * kc + h;
+          const int p = dx_m0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          uint32_t a[4];
+          ldmatrix_x4(a, Ys + p * kN4 + 8 * swz<L::kYC>(p, 2 * kk + (lane >> 4)));
+#pragma unroll
+          for (int j = 0; j < L::kDxNT; ++j) {
+            const bf16* b = Wt + (8 * (dx_n0 + j) + g) * L::kWLd + 16 * kk + 2 * tq;
+            mma_bf16(pt[j], a, ld_bf16x2(b), ld_bf16x2(b + 8));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < L::kDxNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += pt[j][e];
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long gp = p0 + dx_m0 + g + 8 * half;
+        if (gp >= pixels) continue;
+#pragma unroll
+        for (int j = 0; j < L::kDxNT; ++j) {
+          const int col = 8 * (dx_n0 + j) + 2 * tq;
+          if (col < Cin)
+            *reinterpret_cast<uint32_t*>(dx + gp * Cin + col) =
+                pack_bf16x2(acc[j][2 * half], acc[j][2 * half + 1]);
+        }
+      }
+    }
+
+    if (want_dw) {
+#pragma unroll
+      for (int pc = 0; pc < kP / 32; ++pc) {  // 32-pixel chains, each from zero
+        uint32_t a[2][4];  // dyT(k, pixel) fragments of the chain's two k16 steps
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = 32 * pc + 16 * h + (lane & 7) + ((lane >> 4) << 3);
+          ldmatrix_x4_trans(a[h], Ys + p * kN4 + 8 * swz<L::kYC>(p, 2 * dw_mi + ((lane >> 3) & 1)));
+        }
+        if (db_warp) {  // rows g (registers 0, 2) and g + 8 (1, 3): pixels 2 tq, 2 tq + 1, + 8, + 9
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            dbs0 += ((bf16_lo(a[h][0]) + bf16_hi(a[h][0])) + bf16_lo(a[h][2])) + bf16_hi(a[h][2]);
+            dbs1 += ((bf16_lo(a[h][1]) + bf16_hi(a[h][1])) + bf16_lo(a[h][3])) + bf16_hi(a[h][3]);
+          }
+        }
+        // the warp's n8 tiles by pairs (one tile: the pair that holds it)
+#pragma unroll
+        for (int q = 0; q < (L::kDwPer + 1) / 2; ++q) {
+          const int jp = L::kDwPer == 1 ? dw_n0 >> 1 : dw_n0 / 2 + q;
+          // x(pixel, ci) as B fragments: [h][tile 2 jp: 0, 1; tile 2 jp + 1: 2, 3]
+          uint32_t b[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = 32 * pc + 16 * h + (lane & 7) + ((lane >> 3) & 1) * 8;
+            ldmatrix_x4_trans(b[h], Xs + p * kCin + 8 * swz<L::kXC>(p, 2 * jp + (lane >> 4)));
+          }
+          if constexpr (L::kDwPer == 1) {
+            // the pair's half that holds the tile, by a select of values: an
+            // index into b that is not known at compile time puts b in local
+            // memory (prompt-large 4 measured 123.84 us so, 70.75 us without)
+            const bool odd = dw_n0 & 1;
+            float pt[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(pt, a[0], odd ? b[0][2] : b[0][0], odd ? b[0][3] : b[0][1]);
+            mma_bf16(pt, a[1], odd ? b[1][2] : b[1][0], odd ? b[1][3] : b[1][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dwa[0][e] += pt[e];
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float pt[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(pt, a[0], b[0][2 * u], b[0][2 * u + 1]);
+              mma_bf16(pt, a[1], b[1][2 * u], b[1][2 * u + 1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dwa[2 * q + u][e] += pt[e];
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!want_dw) return;
+  // this block's partials: dwT(k, ci) at part[(block, ci, k)], db(k) at sums[(block, k)]
+  float* my_part = part + static_cast<long long>(blockIdx.x) * Cin * N4;
+#pragma unroll
+  for (int j = 0; j < L::kDwPer; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 16 * dw_mi + g + (e >= 2 ? 8 : 0);
+      const int ci = 8 * (dw_n0 + j) + 2 * tq + (e & 1);
+      if (k < N4 && ci < Cin) my_part[static_cast<long long>(ci) * N4 + k] = dwa[j][e];
+    }
+  }
+  // db: the four threads of a row group hold its 16 pixels of each k16 step
+  dbs0 += __shfl_xor_sync(0xffffffffu, dbs0, 1);
+  dbs1 += __shfl_xor_sync(0xffffffffu, dbs1, 1);
+  dbs0 += __shfl_xor_sync(0xffffffffu, dbs0, 2);
+  dbs1 += __shfl_xor_sync(0xffffffffu, dbs1, 2);
+  if (db_warp && tq == 0) {
+    float* my_sums = sums + static_cast<long long>(blockIdx.x) * N4;
+    const int k = 16 * dw_mi + g;
+    if (k < N4) my_sums[k] = dbs0;
+    if (k + 8 < N4) my_sums[k + 8] = dbs1;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Routes, tiles, chunks and launches
 // ---------------------------------------------------------------------------
 
@@ -1044,6 +1355,21 @@ bool route_tc(int mode, long long pixels, int Cin, int Cout, int elem) {
                                                     static_cast<double>(K) * N +
                                                     static_cast<double>(M) * N);
   return flops >= 20.0 * bytes;
+}
+
+// The one pass's instances: Cin <= 64, Cout <= 32 (its dwT fragments stay in
+// registers over the walk).
+bool onepass_fits(int Cin, int Cout) { return Cin <= 64 && Cout <= 32; }
+
+// K10b.bf16's third route: the one pass wherever an instance fits. It
+// started as the stages where route_tc sends both backward products to the
+// CUDA cores (prompt-large 4); timed on the card against the tile products
+// it was ahead wherever it fits, the tensor-core tiles included
+// (prompt-large 2 and 3, UNet 4, SAM 2, the ragged 5 x 12: PERF.md §6),
+// so the rule is the instances'. Elsewhere (Cin > 64 or Cout > 32: UNet 1-3,
+// SAM 1, prompt-large 1) the tile product of each.
+bool route_onepass(long long pixels, int Cin, int Cout) {
+  return pixels > 0 && onepass_fits(Cin, Cout);
 }
 
 // A tensor-core tile: rows x cols of the result, by warps of 64 x 32. At
@@ -1224,10 +1550,51 @@ int forward(const void* x, const void* w, const void* bias, void* out, int batch
   return static_cast<int>(launch_product<T, kFwd>(a));
 }
 
+// The one pass's operands; with launch false onepass() gives the block count
+// alone, which is the partials' chunk count.
+struct OnePassArgs {
+  const bf16 *x, *w, *dy;
+  bf16* dx;
+  float *part, *sums;
+  long long pixels;
+  int W, Cin, Cout;
+  cudaStream_t s;
+};
+
+template <int kCin, int kN4>
+cudaError_t onepass_instance(const OnePassArgs& a, bool launch, int* blocks) {
+  using L = OnePass<kCin, kN4>;
+  const long long stages = (a.pixels + L::kP - 1) / L::kP;
+  const long long most = static_cast<long long>(kSms) * kOpBlocksPerSm;
+  *blocks = static_cast<int>(stages < most ? stages : most);
+  if (!launch) return cudaSuccess;
+  auto kernel = conv_transpose2x_bwd_onepass_kernel<kCin, kN4>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kBytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<*blocks, kOpThreads, L::kBytes, a.s>>>(a.x, a.w, a.dy, a.dx, a.part, a.sums, a.pixels,
+                                                  a.W, a.Cin, a.Cout);
+  return cudaGetLastError();
+}
+
+// kCin: Cin rounded up to 16, 32 or 64; kN4: 4*Cout rounded up to 64 or 128
+cudaError_t onepass(const OnePassArgs& a, bool launch, int* blocks) {
+  if (!onepass_fits(a.Cin, a.Cout) || a.pixels <= 0) return cudaErrorInvalidValue;
+  const bool wide = 4 * a.Cout > 64;
+  if (a.Cin <= 16) return wide ? onepass_instance<16, 128>(a, launch, blocks)
+                               : onepass_instance<16, 64>(a, launch, blocks);
+  if (a.Cin <= 32) return wide ? onepass_instance<32, 128>(a, launch, blocks)
+                               : onepass_instance<32, 64>(a, launch, blocks);
+  return wide ? onepass_instance<64, 128>(a, launch, blocks)
+              : onepass_instance<64, 64>(a, launch, blocks);
+}
+
 template <typename T>
 int route(int batch, int H, int W, int Cin, int Cout, int product) {
   if (!sizes_ok<T>(batch, H, W, Cin, Cout) || product < kFwd || product > kDw) return -1;
-  return route_tc(product, static_cast<long long>(batch) * H * W, Cin, Cout, sizeof(T)) ? 1 : 0;
+  const long long pixels = static_cast<long long>(batch) * H * W;
+  if (std::is_same_v<T, bf16> && product != kFwd && route_onepass(pixels, Cin, Cout)) return 2;
+  return route_tc(product, pixels, Cin, Cout, sizeof(T)) ? 1 : 0;
 }
 
 template <typename T>
@@ -1235,6 +1602,14 @@ long long bwd_chunks(int batch, int H, int W, int Cin, int Cout) {
   if (!sizes_ok<T>(batch, H, W, Cin, Cout)) return 0;
   const long long pixels = static_cast<long long>(batch) * H * W;
   if (pixels == 0) return 1;
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (route_onepass(pixels, Cin, Cout)) {
+      const OnePassArgs o{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, pixels, W, Cin,
+                          Cout, nullptr};
+      int blocks = 0;
+      return onepass(o, false, &blocks) == cudaSuccess ? blocks : 0;
+    }
+  }
   long long len;
   int chunks;
   dw_chunks(pixels, Cin, Cout, sizeof(T), &len, &chunks);
@@ -1248,6 +1623,22 @@ int backward(const void* x, const void* w, const void* dy, void* dx, void* dw, v
   if (!sizes_ok<T>(batch, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
   const long long pixels = static_cast<long long>(batch) * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (route_onepass(pixels, Cin, Cout)) {
+      if (dx == nullptr && dw == nullptr) return static_cast<int>(cudaSuccess);
+      const OnePassArgs o{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                          static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+                          dw == nullptr ? nullptr : static_cast<float*>(part),
+                          static_cast<float*>(col_sums), pixels, W, Cin, Cout, s};
+      int blocks = 0;
+      cudaError_t err = onepass(o, true, &blocks);
+      if (err != cudaSuccess || dw == nullptr) return static_cast<int>(err);
+      err = launch_reduce<false>(o.part, static_cast<bf16*>(dw), blocks, Cin, Cout, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return static_cast<int>(
+          launch_reduce<true>(o.sums, static_cast<float*>(db), blocks, Cin, Cout, s));
+    }
+  }
   LaunchArgs a{x, w, dy, nullptr, dx, nullptr, pixels, W, Cin, Cout, 0, 1, s};
   if (dx != nullptr && pixels > 0) {
     const cudaError_t err = launch_product<T, kDx>(a);
@@ -1284,8 +1675,8 @@ extern "C" int mia_conv_transpose2x_bf16(const void* x, const void* w, const voi
 }
 
 // The route each product of a stage takes: 1 the tensor cores, 0 the CUDA
-// cores; product 0 the forward, 1 dx, 2 dw (and db). -1 for sizes the
-// instance does not take.
+// cores, 2 (bfloat16 dx and dw) the one pass; product 0 the forward, 1 dx,
+// 2 dw (and db). -1 for sizes the instance does not take.
 extern "C" int mia_conv_transpose2x_route_f32(int batch, int H, int W, int Cin, int Cout,
                                               int product) {
   return route<float>(batch, H, W, Cin, Cout, product);
@@ -1326,3 +1717,4 @@ extern "C" int mia_conv_transpose2x_bwd_bf16(const void* x, const void* w, const
                                              int Cout, void* stream) {
   return backward<bf16>(x, w, dy, dx, dw, db, part, col_sums, batch, H, W, Cin, Cout, stream);
 }
+

@@ -347,22 +347,25 @@ bool tile_map(CUtensorMap* m, const void* base, long long cols, long long rows,
 }
 
 // A 4D map over a (batch, hg, wg) grid of token rows `stride` elements apart,
-// `cols` bfloat16 elements of each: boxes of 64 columns x box_w columns x
-// box_h rows of the grid x 1 image in the 128-byte swizzle, zeros past the
-// grid's edges. A box lands its tokens in row-major order, one 128-byte row
-// each: a ws x ws box at (wx ws, wy ws) is a window's slots in slot order.
+// `cols` bfloat16 elements of each: boxes of box_c columns x box_w columns x
+// box_h rows of the grid x 1 image in `swizzle`'s layout (the forward's: 64
+// columns in the 128-byte swizzle), zeros past the grid's edges. A box lands
+// its tokens in row-major order, one row of box_c columns each: a ws x ws
+// box at (wx ws, wy ws) is a window's slots in slot order.
 bool grid_map(CUtensorMap* m, const void* base, long long cols, long long stride, int wg, int hg,
-              int batch, int box_w, int box_h) {
+              int batch, int box_w, int box_h, int box_c = 64,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const TensorMapEncode encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t row = static_cast<cuuint64_t>(stride * sizeof(bf16));
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(wg),
                               static_cast<cuuint64_t>(hg), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {row, row * wg, row * wg * hg};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_w), static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_c), static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
   return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -32,7 +32,11 @@ passes them in output order) and ``b (Cout,)``::
   bfloat16, ``dw`` to the weight's dtype, ``db`` left float32). On the card
   they are the bfloat16 instances of the same kernels (bfloat16
   ``mma.sync`` where operations bound a product, bfloat16 loads and float32
-  FMA on the thin stages), counted in ``bf16_launches``.
+  FMA on the thin stages), counted in ``bf16_launches``; the bfloat16
+  backward of the stages with Cin <= 64 and Cout <= 32 (prompt-large 2-4,
+  UNet 4, SAM 2) is one pass over ``dy`` that makes ``dx``, ``dw`` and
+  ``db`` together, as the Pallas kernel does, then the reduces of its
+  partials (:func:`k10_routes` names it ``"one pass"``).
 """
 
 from __future__ import annotations
@@ -116,12 +120,13 @@ PRODUCTS = ("forward", "dx", "dw")
 
 
 def k10_routes(x_shape, cout: int, dtype=torch.float32) -> dict:
-    """The tile product each of K10's products takes on the card for ``x
-    (B, H, W, Cin)`` and ``Cout`` in ``dtype``: ``"tensor cores"`` (3xTF32,
-    or bfloat16 ``mma.sync``) or ``"cuda cores"`` (float32 FMA), by product
-    (forward, dx, dw). Builds the library."""
+    """The route each of K10's products takes on the card for ``x (B, H, W,
+    Cin)`` and ``Cout`` in ``dtype``: ``"tensor cores"`` (3xTF32, or
+    bfloat16 ``mma.sync``), ``"cuda cores"`` (float32 FMA) or, for the
+    bfloat16 backward with Cin <= 64 and Cout <= 32, ``"one pass"`` (dx and
+    dw both), by product (forward, dx, dw). Builds the library."""
     route = _k10_functions(dtype)[3]
-    names = {1: "tensor cores", 0: "cuda cores"}
+    names = {1: "tensor cores", 0: "cuda cores", 2: "one pass"}
     return {name: names[route(*x_shape, cout, i)] for i, name in enumerate(PRODUCTS)}
 
 

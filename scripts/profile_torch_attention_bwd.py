@@ -138,8 +138,9 @@ def library_backward(torch, qkv, rel_h, rel_w, scale, heads, g):
 def _short_name(mangled: str) -> str:
     """``_ZN...attention_fwd_tc_kernelILi64ELb0ELi32EEEv...`` → ``attention_fwd_tc_kernel<64, false, 32>``."""
     m = re.search(r"(attention_[a-z0-9_]*?kernel)I((?:L[ib]\d+E)+)E", mangled)
-    if not m:
-        return mangled
+    if not m:  # a kernel that is no template instance: its name follows its length
+        plain = re.findall(r"(?<=\d)(attention_[a-z0-9_]*?kernel)", mangled)
+        return plain[-1] if plain else mangled
     args = [v if t == "i" else ("true" if v == "1" else "false")
             for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
     return f"{m.group(1)}<{', '.join(args)}>"

@@ -20,9 +20,15 @@ the plain bfloat16 version by the forwards' ulp measure
 at training batch 12 (autograd through the library call on the partitioned
 windows and their dense bias) and K10b·bf16 at the prompt-large 4 stage
 (12, 256, 256, 16 -> 16; autograd through ``F.conv_transpose2d``), their
-first output (dqkv, dx) read by the same ulp measure. For K2, K3, K6, K7
-and K8 it also prints the bound
-(the function's 4 D flops a (query, key) pair at 989 TFLOP/s dense bfloat16,
+first output (dqkv, dx) read by the same ulp measure; K2b·bf16 on its
+training windows (B·108, 196, 64) at batch 12 on K2's own output and lse,
+without the tables' gradients (autograd through the library call on the
+head-major windows and their dense bias); and K10b·bf16 at prompt-large 2
+and 3 (12, 64, 64, 64 -> 32; 12, 128, 128, 32 -> 16), UNet 4 (12, 128, 128,
+64 -> 32) and SAM 2 (1, 64, 64, 64 -> 32) as well, on the route the tree's
+rule names (a parent tree without the one pass times the tile products
+there: the timing behind the one pass's route rule). For K2, K3, K6, K7 and K8 it also prints the
+bound (the function's 4 D flops a (query, key) pair at 989 TFLOP/s dense bfloat16,
 or its bytes at 3.35 TB/s, as ``chip_smoke.bf16_bound``) and the warpgroup
 design's floor: the flops and exponentials of the pairs it computes, at 989
 TFLOP/s and at ~3.9e12 exponentials a second (16 a clock an SM, 132 SMs,
@@ -167,17 +173,38 @@ def one(tree: str) -> None:
                   functools.partial(attention.attention_rel_win_bwd_bf16, *bargs8),
                   cs.sdpa_backward_call(torch, *cs.windows_for_library(*fwd8, ws, heads), scale,
                                         g_w), 5))
-    # K10b at the prompt-large 4 stage, the library on NCHW views of the same bfloat16 operands
-    x, wt = randn(12, 256, 256, 16), randn(2, 2, 16, 16, scale_=0.25)
-    dy = randn(12, 512, 512, 16)
-    x_l = x.permute(0, 3, 1, 2).detach().requires_grad_()
-    w_l = wt.permute(2, 3, 0, 1).contiguous().requires_grad_()
-    b_l = torch.zeros(16, device=device, dtype=bf, requires_grad=True)
-    lib_out = torch.nn.functional.conv_transpose2d(x_l, w_l, b_l, stride=2)
-    calls.append(("K10b prompt-large 4", functools.partial(up._launch_k10_bwd, x, wt, dy),
-                  functools.partial(up.conv_transpose2x_bwd_plain_bf16, x, wt, dy),
-                  functools.partial(torch.autograd.grad, lib_out, [x_l, w_l, b_l],
-                                    dy.permute(0, 3, 1, 2), retain_graph=True), 5))
+    # K2b at training batch 12 on its windows (108 of 14 x 14 tokens, 12 heads) on K2's own
+    # output and lse, without the tables' gradients (frozen in training, as the smoke times it)
+    rh2, rw2 = randn(ws * ws, d, scale_=0.1), randn(ws * ws, d, scale_=0.1)
+    qkv2 = randn(108, ws * ws, 3 * heads * d)
+    out2, lse2 = attention._launch_k2(qkv2, rh2, rw2, scale, (ws, ws), heads, with_lse=True)
+    g2 = randn(108, ws * ws, heads * d)
+    bargs2 = (qkv2, rh2, rw2, out2, g2, lse2, scale, (ws, ws), heads, False)
+    r_h2, r_w2 = attention.window_rel_terms(qkv2, rh2, rw2, (ws, ws), heads)
+    g2_l = g2.view(108, ws * ws, heads, d).transpose(1, 2).contiguous()
+    calls.append(("K2b B=12", functools.partial(attention._launch_k2_bwd, *bargs2),
+                  functools.partial(attention.attention_rel_packed_ik_bwd_bf16, *bargs2),
+                  cs.sdpa_backward_call(torch, *cs.head_major(qkv2, heads),
+                                        cs.dense_bias(r_h2, r_w2, 108, heads), scale, g2_l), 5))
+    # K10b at the prompt-large stages 2-4, UNet 4 and SAM 2 on the tree's own route, the library
+    # on NCHW views of the same bfloat16 operands
+    for stage, (b10, h10, cin, cout) in (("prompt-large 2", (12, 64, 64, 32)),
+                                         ("prompt-large 3", (12, 128, 32, 16)),
+                                         ("prompt-large 4", (12, 256, 16, 16)),
+                                         ("UNet 4", (12, 128, 64, 32)), ("SAM 2", (1, 64, 64, 32))):
+        x, wt = randn(b10, h10, h10, cin), randn(2, 2, cin, cout, scale_=cin ** -0.5)
+        dy = randn(b10, 2 * h10, 2 * h10, cout)
+        x_l = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        w_l = wt.permute(2, 3, 0, 1).contiguous().requires_grad_()
+        b_l = torch.zeros(cout, device=device, dtype=bf, requires_grad=True)
+        lib_out = torch.nn.functional.conv_transpose2d(x_l, w_l, b_l, stride=2)
+        library = functools.partial(torch.autograd.grad, lib_out, [x_l, w_l, b_l],
+                                    dy.permute(0, 3, 1, 2), retain_graph=True)
+        plain = functools.partial(up.conv_transpose2x_bwd_plain_bf16, x, wt, dy)
+        taken = up.k10_routes(tuple(x.shape), cout, bf)
+        route = "/".join(sorted({taken["dx"], taken["dw"]}))
+        calls.append((f"K10b {stage} ({route})", functools.partial(up._launch_k10_bwd, x, wt, dy),
+                       plain, library, 5 if b10 * h10 * h10 > 100000 else 20))
     for label, kernel, plain, library, per_block in calls:
         got, want = kernel(), plain()
         if isinstance(got, tuple):  # a backward: its first output (dqkv, dx)
